@@ -1,0 +1,105 @@
+"""The serving subset of the typed configuration.
+
+A copy of what the serving path reads from the JAX package's config: the
+model architecture, the action/goal sizes and the env-unit command
+scaling. Unknown keys raise, as there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
+
+
+def _update_dataclass(obj, data: Dict[str, Any], path: str = ""):
+    names = {f.name for f in dataclasses.fields(obj)}
+    for key, val in data.items():
+        if key not in names:
+            raise KeyError(f"unknown config key {path + key!r}")
+        cur = getattr(obj, key)
+        if dataclasses.is_dataclass(cur) and isinstance(val, dict):
+            _update_dataclass(cur, val, path=path + key + ".")
+            continue
+        # coerce scalars to the default's type so a YAML string such as
+        # '1.0e9' fails here rather than deep inside the model
+        if isinstance(cur, bool):
+            if not isinstance(val, bool):
+                raise TypeError(f"config key {path + key!r}: expected bool, "
+                                f"got {type(val).__name__} {val!r}")
+        elif isinstance(cur, (int, float)) and not isinstance(val, bool):
+            try:
+                val = type(cur)(val)
+            except (TypeError, ValueError):
+                raise TypeError(
+                    f"config key {path + key!r}: expected "
+                    f"{type(cur).__name__}, got {type(val).__name__} "
+                    f"{val!r}") from None
+        setattr(obj, key, val)
+    return obj
+
+
+@dataclass
+class ModelConfig:
+    """GoT architecture. Defaults are the flagship actor: dim 64, 4 blocks
+    of 4 heads x 64, MLP 2048, (128, 160) depth frames cut into 16x20
+    patches."""
+
+    actor_type: str = "GaussianTransformer"
+    backbone: str = "got"
+    block: int = 4          # transformer depth
+    head: int = 4           # attention heads
+    dim_head: int = 64
+    mlp_dim: int = 2048
+    latent_size: int = 64   # token width
+    image_size: Tuple[int, int] = (128, 160)
+    patch_size: Tuple[int, int] = (16, 20)
+    emb_dropout: float = 0.1
+    patch_mode: str = "2d"  # 2d (single frame) | channels (frame stack)
+
+    def validate(self):
+        ih, iw = self.image_size
+        ph, pw = self.patch_size
+        if ih % ph or iw % pw:
+            raise ValueError(f"image {self.image_size} must divide into "
+                             f"patches {self.patch_size}")
+        if self.patch_mode not in ("2d", "channels"):
+            raise ValueError(f"patch_mode {self.patch_mode!r}")
+        if self.actor_type != "GaussianTransformer" or self.backbone != "got":
+            raise NotImplementedError(
+                f"actor {self.actor_type}/{self.backbone}: only the "
+                "GaussianTransformer GoT actor is ported")
+
+
+@dataclass
+class SACConfig:
+    action_dim: int = 2
+    pstate_dim: int = 2      # polar goal (distance, heading)
+
+    def validate(self):
+        if self.action_dim < 1 or self.pstate_dim < 1:
+            raise ValueError("action_dim and pstate_dim must be positive")
+
+
+@dataclass
+class EnvConfig:
+    linear_cmd_scale: float = 0.25    # L_SCALE
+    angular_cmd_scale: float = 1.0    # A_SCALE
+    max_action: float = 1.0
+    frame_stack: int = 4              # channels count in patch_mode 'channels'
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    sac: SACConfig = field(default_factory=SACConfig)
+    env: EnvConfig = field(default_factory=EnvConfig)
+
+    def validate(self) -> "Config":
+        self.model.validate()
+        self.sac.validate()
+        return self
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "Config":
+        return _update_dataclass(cls(), data).validate()

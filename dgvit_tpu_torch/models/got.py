@@ -1,0 +1,121 @@
+"""GoT: the goal-token vision transformer trunk.
+
+Counterpart of `dgvit_tpu/models/got.py`. A (B, 128, 160) depth frame is
+cut into 64 patches of 16x20 ('b (h p1) (w p2) -> b (h w) (p1 p2)'),
+embedded to `dim`, the embedded goal is prepended as the CLS token, a
+learned positional embedding is added, `depth` pre-norm blocks run, the
+goal token is pooled and normed (RMS, or Layer for the frame-stack fork).
+
+The port serves only the deterministic full-patch-grid forward, and runs
+it as one call of `ops.got_megakernel.got_forward_fused`: the CUDA kernel
+on the card, its plain version on the CPU. Casts match the JAX package's
+fused route: patches, goal, patch-embed kernel and bias, and the positional
+embedding go to the compute dtype; the final-norm parameters stay fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from dgvit_tpu_torch.models import initializers as init
+from dgvit_tpu_torch.models.layers import (LayerNorm, Linear, RMSNorm,
+                                           TransformerBlock)
+from dgvit_tpu_torch.ops.got_megakernel import got_forward_fused
+
+
+def patchify_2d(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """'b (h p1) (w p2) -> b (h w) (p1 p2)' for (B, H, W) images."""
+    b, hh, ww = img.shape
+    h, w = hh // ph, ww // pw
+    x = img.reshape(b, h, ph, w, pw).permute(0, 1, 3, 2, 4)
+    return x.reshape(b, h * w, ph * pw)
+
+
+def patchify_channels(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """'b c (h p1) (w p2) -> b (h w) (p1 p2 c)' for (B, C, H, W) images."""
+    b, c, hh, ww = img.shape
+    h, w = hh // ph, ww // pw
+    x = img.reshape(b, c, h, ph, w, pw).permute(0, 2, 4, 3, 5, 1)
+    return x.reshape(b, h * w, ph * pw * c)
+
+
+class Transformer(nn.Module):
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 mlp_dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            TransformerBlock(dim, heads, dim_head, mlp_dim, generator)
+            for _ in range(depth))
+
+
+class GoT(nn.Module):
+    def __init__(self, image_size: Tuple[int, int] = (128, 160),
+                 patch_size: Tuple[int, int] = (16, 20), dim: int = 64,
+                 depth: int = 4, heads: int = 4, dim_head: int = 64,
+                 mlp_dim: int = 2048, channels: int = 1,
+                 patch_mode: str = "2d", final_norm: str = "rms",
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if patch_mode not in ("2d", "channels"):
+            raise ValueError(patch_mode)
+        if final_norm not in ("rms", "layer"):
+            raise ValueError(final_norm)
+        self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
+        self.heads, self.dim_head = heads, dim_head
+        self.patch_mode, self.final_norm = patch_mode, final_norm
+        self.compute_dtype = dtype
+        ph, pw = self.patch_size
+        self.num_patches = (image_size[0] // ph) * (image_size[1] // pw)
+        patch_dim = ph * pw * (channels if patch_mode == "channels" else 1)
+        self.patch_embed = Linear(patch_dim, dim, generator=generator)
+        self.pos_embedding = nn.Parameter(
+            init.normal_(torch.empty(1, self.num_patches + 1, dim),
+                         generator))
+        self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
+                                       generator)
+        self.norm_out = RMSNorm(dim) if final_norm == "rms" else LayerNorm(dim)
+        self._cache_key = None
+        self._cache = None
+
+    def fused_params(self, cdt: torch.dtype):
+        """(pe, pos, blocks, fn) as the kernel takes them. Kept between
+        calls until a parameter is replaced or changed in place."""
+        params = list(self.parameters())
+        key = (cdt, tuple((p.data_ptr(), p._version) for p in params))
+        if key != self._cache_key:
+            pe = (self.patch_embed.weight.detach().t().to(cdt).contiguous(),
+                  self.patch_embed.bias.detach().to(cdt).contiguous())
+            pos = self.pos_embedding.detach()[0].to(cdt).contiguous()
+            blocks = [b.flat(cdt) for b in self.transformer.blocks]
+            if self.final_norm == "rms":
+                g = self.norm_out.g.detach().float().contiguous()
+                fn = (g, torch.zeros_like(g))
+            else:
+                fn = (self.norm_out.weight.detach().float().contiguous(),
+                      self.norm_out.bias.detach().float().contiguous())
+            self._cache_key, self._cache = key, (pe, pos, blocks, fn)
+        return self._cache
+
+    def trunk_args(self, img: torch.Tensor, goal: torch.Tensor):
+        """The arguments of `got_forward_fused` for these inputs."""
+        ph, pw = self.patch_size
+        if tuple(img.shape[-2:]) != self.image_size:
+            raise ValueError(f"image {tuple(img.shape[-2:])}: the fused "
+                             f"trunk takes the full grid {self.image_size}")
+        cdt = self.compute_dtype or img.dtype
+        patches = (patchify_2d(img, ph, pw) if self.patch_mode == "2d"
+                   else patchify_channels(img, ph, pw))
+        pe, pos, blocks, fn = self.fused_params(cdt)
+        return (patches.to(cdt).contiguous(), goal.to(cdt).contiguous(),
+                pe, pos, blocks, fn, self.heads, self.dim_head,
+                self.num_patches + 1, self.final_norm)
+
+    def forward(self, img: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
+        """img (B, H, W) [2d] or (B, C, H, W) [channels]; goal (B, dim)
+        embedded goal token. Returns the (B, dim) latent in the compute
+        dtype."""
+        return got_forward_fused(*self.trunk_args(img, goal))

@@ -1,0 +1,68 @@
+"""The GoT actor. Counterpart of `dgvit_tpu/models/policies.py::GoTPolicy`.
+
+forward: goal -> fc_embed (no ReLU) as the goal token; GoT latent ->
+relu(fc1 64->128) -> relu(fc2 128->128) -> mean and clamped log_std. The
+heads run in the compute dtype, as the JAX package's TorchLinear does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dgvit_tpu_torch.models.distributions import clamp_log_std
+from dgvit_tpu_torch.models.got import GoT
+from dgvit_tpu_torch.models.layers import Linear
+
+
+class GoTPolicy(nn.Module):
+    def __init__(self, action_dim: int = 2, pstate_dim: int = 2,
+                 block: int = 4, head: int = 4, l_f_size: int = 64,
+                 dim_head: int = 64, mlp_dim: int = 2048,
+                 image_size: Tuple[int, int] = (128, 160),
+                 patch_size: Tuple[int, int] = (16, 20),
+                 patch_mode: str = "2d", channels: int = 1,
+                 final_norm: str = "rms",
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.fc_embed = Linear(pstate_dim, l_f_size, dtype=dtype, generator=g)
+        self.trans = GoT(image_size=image_size, patch_size=patch_size,
+                         dim=l_f_size, depth=block, heads=head,
+                         dim_head=dim_head, mlp_dim=mlp_dim,
+                         channels=channels, patch_mode=patch_mode,
+                         final_norm=final_norm, dtype=dtype, generator=g)
+        self.fc1 = Linear(l_f_size, 128, dtype=dtype, generator=g)
+        self.fc2 = Linear(128, 128, dtype=dtype, generator=g)
+        self.mean_linear = Linear(128, action_dim, dtype=dtype, generator=g)
+        self.log_std_linear = Linear(128, action_dim, dtype=dtype,
+                                     generator=g)
+
+    def forward(self, istate: torch.Tensor, pstate: torch.Tensor):
+        """istate (B, H, W) or (B, C, H, W); pstate (B, pstate_dim).
+        Returns (mean, log_std), each (B, action_dim)."""
+        return self.from_latent(self.trans(istate, self.fc_embed(pstate)))
+
+    def from_latent(self, latent: torch.Tensor):
+        """(mean, log_std) from the (B, l_f_size) trunk latent."""
+        x = F.relu(self.fc1(latent))
+        x = F.relu(self.fc2(x))
+        return self.mean_linear(x), clamp_log_std(self.log_std_linear(x))
+
+
+def build_actor(cfg, dtype: Optional[torch.dtype] = None,
+                generator: Optional[torch.Generator] = None) -> GoTPolicy:
+    """The actor a config describes (GaussianTransformer on GoT only)."""
+    m, s = cfg.model, cfg.sac
+    m.validate()
+    return GoTPolicy(action_dim=s.action_dim, pstate_dim=s.pstate_dim,
+                     block=m.block, head=m.head, l_f_size=m.latent_size,
+                     dim_head=m.dim_head, mlp_dim=m.mlp_dim,
+                     image_size=tuple(m.image_size),
+                     patch_size=tuple(m.patch_size), patch_mode=m.patch_mode,
+                     channels=cfg.env.frame_stack, dtype=dtype,
+                     generator=generator)

@@ -1,0 +1,59 @@
+"""Build and load the port's CUDA kernels.
+
+`csrc/<name>.cu` compiles on first use into a shared library with a plain
+C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+and is loaded with ctypes. Libraries land in `build/kernels/` at the root
+of the checkout (git-ignored), named by a hash of the source and flags, so
+an edited source rebuilds and an unchanged one loads at once. A failed
+build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "host with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, compiled first if it has none."""
+    target = _target(name)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {name}.cu (rc "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, target)
+    return ctypes.CDLL(str(target))

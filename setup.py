@@ -11,8 +11,10 @@ setup(
     version="0.1.0",
     description=("TPU-native (JAX/XLA/Pallas/pjit) goal-conditioned visual "
                  "navigation framework with the capabilities of DGViT"),
-    packages=find_packages(include=["dgvit_tpu", "dgvit_tpu.*"]),
-    package_data={"dgvit_tpu.replay": ["csrc/*.cpp", "csrc/Makefile"]},
+    packages=find_packages(include=["dgvit_tpu", "dgvit_tpu.*",
+                                    "dgvit_tpu_torch", "dgvit_tpu_torch.*"]),
+    package_data={"dgvit_tpu.replay": ["csrc/*.cpp", "csrc/Makefile"],
+                  "dgvit_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

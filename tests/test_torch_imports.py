@@ -1,0 +1,60 @@
+"""The port stands alone: no module of dgvit_tpu_torch (nor chip_smoke.py)
+imports jax, flax or the JAX package, at import time or in its source."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "dgvit_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgvit_tpu")
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr",
+                          getattr(node.func, "id", "")) in (
+                              "import_module", "__import__")):
+            yield node.args[0].value
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "dgvit_tpu_torch.ops.got_megakernel" in mods
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "print(','.join(sorted(bad)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"port loaded {res.stdout.strip()}"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_import(path):
+    bad = [n for n in _imported_names(path)
+           if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
