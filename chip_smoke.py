@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a host with a CUDA card, nvcc and
-nothing built: it builds the kernels itself (into build/kernels/), then
+nothing built: it builds the kernels itself (into build/kernels/, one nvcc
+per source, all at once), then
 
   1. device: prints the card's name and power limit (nvidia-smi);
   2. K1 against its plain version: the whole-trunk kernel
@@ -19,11 +20,27 @@ nothing built: it builds the kernels itself (into build/kernels/), then
      golden frames; actions held against the plain path on the card and
      against the JAX package's fp32 actions (tests/data/
      torch_port_golden.npz);
-  4. serving, the main path: a BatchingActorServer (buckets 1/8/16/32)
-     answers 32 client threads x 4 requests; every answer equals the
-     direct act for that row, and K1's launch count rose;
-  5. times: K1 and its plain version at B in {1, 32, 64, 2048} (median of
-     7 CUDA-event timings), beside the bound;
+  4. serving, the first main path: a BatchingActorServer (buckets
+     1/8/16/32) answers 32 client threads x 4 requests; every answer
+     equals the direct act for that row, and K1's launch count rose;
+  5. the training kernels against their plain versions (K4, K2 forward
+     and backward, K3 forward and backward): the trained actor's and a
+     seeded critic's blocks on embedded streams of seeded frames, bf16 at
+     B in {1, 32, 256} and fp32 at B in {1, 8}; outputs, dx and all 11
+     weight gradients; a wrong bf16 backward (autograd of the plain
+     forward, which rounds at other points than the hand-placed ones)
+     must FAIL the same bf16 limits;
+  6. the SAC update, the second main path: a bf16 SACAgent (batch 256,
+     emb-dropout 0.1) takes 5 learn steps on a seeded replay batch with
+     finite losses, each step launching exactly K4 x3, K2f x6, K2b x6,
+     K3f x2 and K3b x2; then one fp32 update through the kernels matches
+     the same update through the plain versions on the card and the JAX
+     golden update (tests/data/torch_sac_golden.npz);
+  7. profile: one more bf16 update under torch.profiler, device time by
+     CUDA kernel and the device's busy share of the update;
+  8. times: K1 and its plain version at B in {1, 32, 64, 2048}, and the
+     training kernels at B=256 (median of CUDA-event timings), beside
+     their bounds;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -34,7 +51,9 @@ Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +69,12 @@ SEED = 7
 DEVICE = "cuda"
 CHECK_BATCHES = {"bfloat16": (1, 3, 8, 32, 64, 2048), "float32": (1, 8)}
 TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
+# the SAC slice: kernel checks, the update's main path, its golden file
+TRAIN_BATCHES = {"bfloat16": (1, 32, 256), "float32": (1, 8)}
+SAC_BATCH, SAC_STEPS = 256, 5
+PER_UPDATE = {"K1": 0, "K4": 3, "K2f": 6, "K2b": 6, "K3f": 2, "K3b": 2}
+GOLDEN_SAC = ROOT / "tests" / "data" / "torch_sac_golden.npz"
+GOLDEN_SAC_SEED, GOLDEN_SAC_BATCH, CRITIC_SEED = 11, 8, 5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside them, HBM3 bandwidth
@@ -121,8 +146,9 @@ def k1_work(cfg, batch: int, dtype: str):
     return flops, bytes_
 
 
-def bound_ms(cfg, batch, dtype):
-    flops, bytes_ = k1_work(cfg, batch, dtype)
+def bound_ms(flops, bytes_, dtype):
+    """The least time of the work on an H100: the larger of its operations
+    over the peak rate of their type and its bytes over the HBM rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -188,6 +214,7 @@ def trunk_f32_residual(patches, goal, pe, pos, blocks, fn, heads, dim_head,
 
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.cls_block import cls_block_plain
 
     cdt = patches.dtype
     emb = (ft._mm(patches, pe[0]) + pe[1].float()).to(cdt)
@@ -195,8 +222,8 @@ def trunk_f32_residual(patches, goal, pe, pos, blocks, fn, heads, dim_head,
     x32 = (x.float() + pos.float()[None]).to(cdt).float()
     for w in blocks[:-1]:
         x32 = ft.block_plain(x32, w, heads=heads, dim_head=dim_head, cdt=cdt)
-    cls = gm._block_plain_cls(x32, blocks[-1], heads=heads,
-                              dim_head=dim_head, cdt=cdt)
+    cls = cls_block_plain(x32, blocks[-1], heads=heads, dim_head=dim_head,
+                          cdt=cdt)
     return gm._final_norm32(cls, *fn, final_norm).to(cdt)
 
 
@@ -303,7 +330,7 @@ def phase_policy(cfg, flat):
     e_gold32 = np.abs(act32(obs, goal) - g["actions"]).max()
     with torch.no_grad():
         pol = act32.policy
-        lat = pol.trans(o, pol.fc_embed(gl)).cpu().numpy()
+        lat = pol.trans(o, pol.fc_embed(gl), inference=True).cpu().numpy()
     e_lat32 = np.abs(lat - g["latents"]).max()
     print(f"policy bf16 kernel vs bf16 plain on card: max|err| {e_plain:.3e}"
           f" mean|err| {d_plain.mean():.3e}")
@@ -388,12 +415,603 @@ def phase_times(cfg, policies, rng):
         ms = cuda_ms(lambda: got_forward_fused(*args), reps)
         plain = cuda_ms(lambda: got_forward_plain(*args), max(1, reps // 5),
                         runs=5)
-        bnd, by = bound_ms(cfg, batch, "bfloat16")
+        bnd, by = bound_ms(*k1_work(cfg, batch, "bfloat16"), "bfloat16")
         rows[batch] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
         print(f"K1 bf16 B={batch}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"bound {bnd:.5f} ms ({by}), "
               f"{batch / ms * 1e3:.0f} frames/s", flush=True)
     return rows
+
+
+# --------------------------------------------------------------------------
+# the SAC slice
+# --------------------------------------------------------------------------
+
+# Tolerances of the training kernels against their plain versions on the
+# card, per tensor (the output, or dx and each of the 11 weight grads),
+# with L the largest |value| of the plain version's tensor.
+# fp32: another summation order; max |err| <= 1e-5 L.
+# bf16: the same rounding points, so most values agree bit for bit; a sum
+# taken in another order can flip one bf16 rounding, and a flip in an
+# intermediate (qkv, p, dpre, dqkv) moves what follows by about one ulp of
+# its own magnitude. Each tensor: max |err| <= 2^-6 L; pooled over every
+# tensor of a kernel's bf16 batches: mean |err| / L <= 2^-18. An H100
+# read pooled 1.2e-6 (K4), 3.3e-7 (K2b) and <= 5e-8 (K2f, K3f, K3b), and
+# 1.9e-5 / 2.8e-5 for the wrong K2b / K3b backward (autograd of the plain
+# forward); every max stayed within 2^-6 L for both.
+TRAIN_F32_MAX = 1e-5
+TRAIN_BF16_MAX, TRAIN_BF16_MEAN = 2.0 ** -6, 2.0 ** -18
+# The fp32 SAC update through the kernels against the same update through
+# the plain versions on the card, and against the JAX golden update on the
+# CPU (fp32, other summation orders): the six metrics and each gradient's
+# norm within rtol 1e-4 + atol 1e-6, every gradient element within 1e-4 of
+# its tensor's largest |value| (kernel against plain). Each parameter's
+# update norm within rtol 1e-2 + 2^-22 |p| + 1e-6, and every parameter
+# within 2.2 lr of the plain update's. The update is looser because the
+# golden state takes Adam's first step, lr * g / (|g| + 1e-8): 22% of the
+# gradient elements are below 1e-6 (most exact zeros behind dead ReLUs),
+# and those near 1e-8 take steps anywhere in (0, lr) set by the low bits
+# of their gradients, which another summation order changes (an H100 read
+# 0.24% on one norm, the CPU 0.11%); and new - old of a parameter p
+# carries the fp32 rounding of p (the target's Polyak step, tau * lr, is a
+# few ulps).
+METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
+           "entropy")
+SAC_RTOL, SAC_ATOL, UPDATE_RTOL = 1e-4, 1e-6, 1e-2
+
+
+def golden_ref(g):
+    """The golden file as a run of `golden_update` (metrics and norms)."""
+    return {"metrics": {k: float(g[k]) for k in METRICS},
+            **{kind: {str(n): float(v) for n, v in
+                      zip(g[f"{kind}_names"], g[f"{kind}_norms"])}
+               for kind in ("grad", "update")}}
+
+
+def update_mismatches(run, ref):
+    """Each metric, gradient norm and update norm of `run` off `ref` beyond
+    its tolerance, and the largest relative difference of each kind."""
+    bad, worst = [], {}
+    for kind in ("metrics", "grad", "update"):
+        for name, r in ref[kind].items():
+            a = run[kind][name]
+            tol = SAC_RTOL * abs(r) + SAC_ATOL
+            if kind == "update":
+                tol = (UPDATE_RTOL * abs(r) + SAC_ATOL
+                       + 2.0 ** -22 * run["param_norm"].get(name, 0.0))
+            if not abs(a - r) <= tol:
+                bad.append(f"{kind} {name}: {a:.7g} vs {r:.7g}")
+            worst[kind] = max(worst.get(kind, 0.0),
+                              abs(a - r) / max(abs(r), 1e-30))
+    return bad, worst
+
+
+def unflatten(flat):
+    """'/'-joined flat parameter paths -> the nested tree."""
+    tree = {}
+    for key, val in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def critic_params(seed=CRITIC_SEED, d=64, heads=4, dim_head=64, mlp=2048,
+                  n_patch=64, pd=320, depth=4, action=2, pstate=2):
+    """A flagship GoT critic's parameters in the JAX package's flat layout,
+    drawn with numpy: Xavier-uniform kernels, torch-default uniform biases,
+    a standard-normal positional embedding, norm scales near 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: a.astype(np.float32)
+    out = {}
+
+    def dense(name, fi, fo, bias=True):
+        b = math.sqrt(6.0 / (fi + fo))
+        out[f"{name}/kernel"] = f32(rng.uniform(-b, b, (fi, fo)))
+        if bias:
+            c = 1.0 / math.sqrt(fi)
+            out[f"{name}/bias"] = f32(rng.uniform(-c, c, fo))
+
+    def norm(name):
+        out[f"{name}/scale"] = f32(1 + 0.1 * rng.standard_normal(d))
+        out[f"{name}/bias"] = f32(0.05 * rng.standard_normal(d))
+
+    inner = heads * dim_head
+    dense("fc_embed", pstate, d)
+    dense("trans/patch_embed", pd, d)
+    out["trans/pos_embedding"] = f32(rng.standard_normal((1, n_patch + 1, d)))
+    for i in range(depth):
+        blk = f"trans/transformer/block_{i}"
+        norm(f"{blk}/attn_norm")
+        dense(f"{blk}/attn/to_qkv", d, 3 * inner, bias=False)
+        b = math.sqrt(6.0 / (inner + d))
+        out[f"{blk}/attn/to_out/kernel"] = f32(rng.uniform(-b, b, (inner, d)))
+        c = 1.0 / math.sqrt(inner)
+        out[f"{blk}/attn/to_out/bias"] = f32(rng.uniform(-c, c, d))
+        norm(f"{blk}/ff_norm")
+        dense(f"{blk}/ff/fc1", d, mlp)
+        dense(f"{blk}/ff/fc2", mlp, d)
+    out["trans/norm_out/g"] = f32(1 + 0.1 * rng.standard_normal(d))
+    for heads_ in (("fc1", "fc2", "fc3"), ("fc11", "fc21", "fc31")):
+        for name, fi, fo in zip(heads_, (d + action, 128, 32),
+                                (128, 32, action)):
+            dense(name, fi, fo)
+    return out
+
+
+def golden_params():
+    """(actor, critic) flat parameters of the golden SAC state: the trained
+    actor and the seeded critic."""
+    import numpy as np
+
+    with np.load(ACTOR) as data:
+        actor = {k: np.asarray(data[k]) for k in data.files}
+    return actor, critic_params()
+
+
+def golden_batch(seed=GOLDEN_SAC_SEED, b=GOLDEN_SAC_BATCH):
+    """A seeded replay batch of flagship (128, 160) depth frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    return {"obs": f(b, 128, 160), "pobs": f(b, 2),
+            "act": rng.uniform(-1, 1, (b, 2)).astype(np.float32),
+            "rew": rng.normal(0, 1, (b, 1)).astype(np.float32),
+            "next_obs": f(b, 128, 160), "next_pobs": f(b, 2),
+            "done": np.zeros((b, 1), np.float32)}
+
+
+def sac_state(agent, actor_flat, critic_flat):
+    """The agent's fresh state with these actor and critic parameters (the
+    target a copy of the critic; fresh Adam; log_alpha = log sac.alpha)."""
+    from dgvit_tpu_torch.models import params_from_jax
+
+    state = agent.init_state()
+    state.actor.load_state_dict(params_from_jax(actor_flat))
+    critic = params_from_jax(critic_flat)
+    state.critic.load_state_dict(critic)
+    state.critic_target.load_state_dict(critic)
+    return state
+
+
+def golden_update(device, g):
+    """One fp32 update of the golden state on `device` with the golden
+    noise, dropout off: metrics, per-parameter gradients and their norms,
+    update norms, and the parameters after it (port names)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+
+    cfg = Config.from_dict({"model": {"emb_dropout": 0.0}})
+    agent = SACAgent(cfg, dtype=torch.float32, device=device,
+                     seed=GOLDEN_SAC_SEED)
+    state = sac_state(agent, *golden_params())
+    kinds = ("actor", "critic", "critic_target")
+    before = {k: {n: p.detach().clone() for n, p in
+                  getattr(state, k).named_parameters()} for k in kinds}
+    alpha0 = state.log_alpha.item()
+    state, m = agent.learn(state, golden_batch(),
+                           noise=(g["noise_next"], g["noise_pi"]))
+    grads = {f"{k}.{n}": p.grad.detach().clone() for k in ("actor", "critic")
+             for n, p in getattr(state, k).named_parameters()}
+    params = {f"{k}.{n}": p.detach().clone() for k in kinds
+              for n, p in getattr(state, k).named_parameters()}
+    update = {name: (p - before[name.split(".")[0]][name.split(".", 1)[1]])
+              .norm().item() for name, p in params.items()}
+    update["log_alpha"] = abs(state.log_alpha.item() - alpha0)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": grads, "params": params, "update": update,
+            "grad": {k: v.norm().item() for k, v in grads.items()},
+            "param_norm": {k: v.norm().item() for k, v in params.items()}}
+
+
+def kernel_counters():
+    """Each kernel wrapper of the port, by the kernel's short name."""
+    from dgvit_tpu_torch.ops.cls_block import cls_bwd_fused, cls_fwd_fused
+    from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
+                                                       block_fwd_fused)
+    from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
+                                                    got_forward_fused)
+
+    return {"K1": got_forward_fused, "K4": blocks_cls_forward_fused,
+            "K2f": block_fwd_fused, "K2b": block_bwd_fused,
+            "K3f": cls_fwd_fused, "K3b": cls_bwd_fused}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the SAC update's kernel calls to the plain versions (on the
+    same card), for the kernel-against-plain comparison of a whole
+    update."""
+    from dgvit_tpu_torch.models import got as got_mod
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+
+    swaps = [(ft, "block_fwd_fused", ft.block_fwd_plain),
+             (ft, "block_bwd_fused", ft.block_bwd_plain),
+             (cb, "cls_fwd_fused", cb.cls_fwd_plain),
+             (cb, "cls_bwd_fused", cb.cls_bwd_plain),
+             (got_mod, "blocks_cls_forward_fused", blocks_forward_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def autograd_bwd(plain_fwd):
+    """A wrong bf16 backward: autograd of the plain forward, which rounds
+    gradients wherever the forward casts, not at the TPU kernel's
+    points."""
+    import torch
+
+    def bwd(x, dy, w, heads, dim_head):
+        xr = x.detach().requires_grad_()
+        wr = [t.detach().requires_grad_() for t in w]
+        gs = torch.autograd.grad(plain_fwd(xr, wr, heads, dim_head),
+                                 [xr, *wr], dy)
+        return gs[0], tuple(gs[1:])
+    return bwd
+
+
+class TrainErrors:
+    """Per-tensor |err| of one kernel (or a wrong version of it) against
+    the plain version over the bf16 batches: each tensor's max against
+    2^-6 L, the pooled mean of |err| / L against TRAIN_BF16_MEAN."""
+
+    def __init__(self):
+        self.sum = self.count = 0.0
+        self.max_ok, self.worst = True, 0.0
+
+    def add(self, pairs):
+        for out, ref in pairs:
+            err = (out.float() - ref.float()).abs()
+            scale = max(ref.float().abs().max().item(), 1e-30)
+            self.sum += err.sum().item() / scale
+            self.count += err.numel()
+            self.worst = max(self.worst, err.max().item())
+            self.max_ok &= err.max().item() <= TRAIN_BF16_MAX * scale
+
+    @property
+    def mean(self):
+        return self.sum / self.count
+
+    @property
+    def ok(self):
+        return self.max_ok and self.mean <= TRAIN_BF16_MEAN
+
+
+def train_inputs(nets, batch, rng):
+    """Per net ('actor', 'critic'): the embedded stream of seeded frames,
+    the stream entering the last block, the blocks' and final norm's
+    weights as the kernels take them, and seeded output gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgvit_tpu_torch.ops.fused_transformer import block_fwd_plain
+
+    dev = torch.device(DEVICE)
+    img = torch.from_numpy(rng.uniform(0, 1, (batch, 128, 160))
+                           .astype("float32")).to(dev)
+    goal = torch.from_numpy(rng.uniform(-1, 1, (batch, 2))
+                            .astype("float32")).to(dev)
+    out = {}
+    with torch.no_grad():
+        for name, net in nets.items():
+            tok = net.fc_embed(goal)
+            if name == "critic":
+                tok = F.relu(tok)
+            x = net.trans.embed(img, tok).contiguous()
+            cdt = x.dtype
+            _, _, blocks, fn = net.trans.fused_params(cdt)
+            heads, dh = net.trans.heads, net.trans.dim_head
+            last = x
+            for w in blocks[:-1]:
+                last = block_fwd_plain(last, w, heads, dh)
+            dy = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+                "float32")).to(dev).to(cdt)
+            out[name] = dict(x=x, last=last, blocks=blocks, fn=fn,
+                             heads=heads, dh=dh, dy2=dy(batch, 65, x.shape[2]),
+                             dy3=dy(batch, x.shape[2]))
+    return out
+
+
+def train_cases(inp):
+    """(name, kernel call, plain call, wrong call or None) of each training
+    kernel on these inputs: K4 on the actor's trunk, K2 on the actor's
+    first block, K3 on the critic's last block."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+
+    a, c = inp["actor"], inp["critic"]
+    hd = (a["heads"], a["dh"])
+    k4 = (a["x"], a["blocks"], a["fn"], *hd, "rms")
+    k2 = (a["x"], a["blocks"][0], *hd)
+    k2b = (a["x"], a["dy2"], a["blocks"][0], *hd)
+    k3 = (c["last"], c["blocks"][-1], *hd)
+    k3b = (c["last"], c["dy3"], c["blocks"][-1], *hd)
+    return [
+        ("K4", lambda: gm.blocks_cls_forward_fused(*k4),
+         lambda: gm.blocks_forward_plain(*k4), None),
+        ("K2f", lambda: ft.block_fwd_fused(*k2),
+         lambda: ft.block_fwd_plain(*k2), None),
+        ("K2b", lambda: ft.block_bwd_fused(*k2b),
+         lambda: ft.block_bwd_plain(*k2b),
+         lambda: autograd_bwd(ft.block_fwd_plain)(*k2b)),
+        ("K3f", lambda: cb.cls_fwd_fused(*k3),
+         lambda: cb.cls_fwd_plain(*k3), None),
+        ("K3b", lambda: cb.cls_bwd_fused(*k3b),
+         lambda: cb.cls_bwd_plain(*k3b),
+         lambda: autograd_bwd(cb.cls_fwd_plain)(*k3b)),
+    ]
+
+
+def tensors(result):
+    """The output, or dx and the 11 grads, as one list."""
+    if isinstance(result, tuple):
+        return [result[0], *result[1]]
+    return [result]
+
+
+def build_nets(actor_flat, critic_flat):
+    """The trained actor and the seeded critic on the card, per dtype."""
+    import torch
+
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.models import build_actor, build_critic
+    from dgvit_tpu_torch.models import params_from_jax
+
+    cfg = Config()
+    nets = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        actor, critic = build_actor(cfg, dtype=dt), build_critic(cfg, dtype=dt)
+        actor.load_state_dict(params_from_jax(actor_flat))
+        critic.load_state_dict(params_from_jax(critic_flat))
+        nets[dtype] = {"actor": actor.to(DEVICE).eval(),
+                       "critic": critic.to(DEVICE).eval()}
+    return nets
+
+
+def phase_train_kernels(nets, rng):
+    """Phase 5: each training kernel against its plain version."""
+    import torch
+
+    errs = {name: TrainErrors() for name in ("K4", "K2f", "K2b", "K3f",
+                                              "K3b")}
+    wrong = {name: TrainErrors() for name in ("K2b", "K3b")}
+    worst = {}
+    for dtype, batches in TRAIN_BATCHES.items():
+        for batch in batches:
+            for name, kern, plain, bad in train_cases(
+                    train_inputs(nets[dtype], batch, rng)):
+                out = tensors(kern())
+                torch.cuda.synchronize()
+                ref = tensors(plain())
+                check(all(o.shape == r.shape and o.dtype == r.dtype
+                          for o, r in zip(out, ref)) and len(out) == len(ref),
+                      f"{name} output shapes/dtypes")
+                check(all(bool(torch.isfinite(o.float()).all()) for o in out),
+                      f"non-finite {name} output")
+                pairs = list(zip(out, ref))
+                mx = max((o.float() - r.float()).abs().max().item()
+                         for o, r in pairs)
+                key = (name, dtype)
+                worst[key] = max(worst.get(key, 0.0), mx)
+                if dtype == "float32":
+                    ok = all((o - r).abs().max().item()
+                             <= TRAIN_F32_MAX * r.abs().max().item()
+                             for o, r in pairs)
+                    print(f"{name} vs plain fp32 B={batch}: max|err| "
+                          f"{mx:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                    check(ok, f"{name} disagrees with its plain version "
+                          f"(fp32, B={batch})")
+                    continue
+                e = TrainErrors()
+                e.add(pairs)
+                errs[name].add(pairs)
+                line = (f"{name} vs plain bf16 B={batch}: max|err| {mx:.3e}, "
+                        f"mean|err|/L {e.mean:.3e}, every max within 2^-6 L:"
+                        f" {e.max_ok}")
+                if bad is not None:
+                    w = TrainErrors()
+                    w.add(zip(tensors(bad()), ref))
+                    wrong[name].add(zip(tensors(bad()), ref))
+                    line += (f"; wrong backward mean|err|/L {w.mean:.3e}, "
+                             f"max {w.worst:.3e}")
+                print(line, flush=True)
+                check(e.max_ok, f"{name} disagrees with its plain version "
+                      f"(bf16, B={batch})")
+    for name, e in errs.items():
+        print(f"{name} bf16 batches pooled: mean|err|/L {e.mean:.3e} (limit "
+              f"{TRAIN_BF16_MEAN:.3e}) {'ok' if e.ok else 'FAIL'}", flush=True)
+        check(e.ok, f"{name} disagrees with its plain version (bf16 pooled)")
+    for name, e in wrong.items():
+        print(f"wrong {name} (autograd of the plain forward), bf16 pooled: "
+              f"mean|err|/L {e.mean:.3e}, every max within 2^-6 L: "
+              f"{e.max_ok}; {'FAIL' if not e.ok else 'passes'}", flush=True)
+        check(not e.ok, f"the bf16 limits pass a wrong backward ({name})")
+    return worst
+
+
+def phase_sac(actor_flat, critic_flat):
+    """Phase 6a, the main path: 5 bf16 learn steps at B=256. Returns the
+    launch counts of the run, the median update time, and a closure that
+    runs one more update (for the profile)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+
+    cfg = Config.from_dict({"model": {"compute_dtype": "bfloat16"},
+                            "sac": {"batch_size": SAC_BATCH}})
+    agent = SACAgent(cfg, device=DEVICE, seed=SEED)
+    check(agent.dtype == torch.bfloat16 and cfg.model.emb_dropout == 0.1,
+          "the main path's agent is bf16 with emb-dropout 0.1")
+    state = sac_state(agent, actor_flat, critic_flat)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             golden_batch(seed=SEED, b=SAC_BATCH).items()}
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for step in range(SAC_STEPS):
+        before = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = agent.learn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"SAC step {step}: {times[-1] * 1e3:.2f} ms (host clock), "
+              f"launches {delta}, " + ", ".join(
+                  f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"non-finite SAC metrics at step {step}")
+        check(delta == PER_UPDATE, f"SAC step {step} launches {delta}, "
+              f"expected {PER_UPDATE}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steady = statistics.median(times[1:])
+    print(f"SAC bf16 B={SAC_BATCH}: {SAC_STEPS} updates, median of steps "
+          f"1-{SAC_STEPS - 1} {steady * 1e3:.2f} ms = {1 / steady:.3f} "
+          f"updates/s (host clock, synchronized); first step "
+          f"{times[0] * 1e3:.2f} ms; launches over the run {launches}",
+          flush=True)
+    return launches, steady, lambda: agent.learn(state, batch)
+
+
+def phase_sac_fp32():
+    """Phase 6b: one fp32 update through the kernels against the same
+    update through the plain versions on the card and the JAX golden."""
+    import numpy as np
+    import torch
+
+    g = np.load(GOLDEN_SAC)
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    kern = golden_update(DEVICE, g)
+    check(all(counters[k].launches - before[k] == n
+              for k, n in PER_UPDATE.items()), "the fp32 update did not go "
+          "through the kernels")
+    before = {k: fn.launches for k, fn in counters.items()}
+    with plain_kernels():
+        plain = golden_update(DEVICE, g)
+    check(all(fn.launches == before[k] for k, fn in counters.items()),
+          "the plain fp32 update launched a kernel")
+    bad_g, worst_g = update_mismatches(kern, golden_ref(g))
+    bad_p, worst_p = update_mismatches(kern, plain)
+    gerr = max(((a - plain["grads"][n]).abs().max()
+                / plain["grads"][n].abs().max().clamp(min=1e-30)).item()
+               for n, a in kern["grads"].items())
+    pmax = max((a - plain["params"][n]).abs().max().item()
+               for n, a in kern["params"].items())
+    print(f"SAC fp32 update through the kernels: largest relative "
+          f"differences from the JAX golden {worst_g}, from the plain "
+          f"versions on the card {worst_p}; grads max|err|/L vs plain "
+          f"{gerr:.3e}; parameters vs plain: max|diff| {pmax:.3e}",
+          flush=True)
+    check(not bad_g, f"the fp32 update disagrees with the golden: {bad_g}")
+    check(not bad_p, f"the fp32 update disagrees with the plain: {bad_p}")
+    check(gerr <= SAC_RTOL, "the fp32 update's grads disagree")
+    check(pmax <= 2.2e-3, "the fp32 update's parameters disagree")
+    return {"vs_golden": worst_g, "vs_plain": worst_p}
+
+
+def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
+               esize=2):
+    """FLOPs and bytes a training kernel needs at the flagship width: each
+    input read once, each output written once. The backward recomputes
+    the forward and does two products per forward product (3x); K3 runs
+    q, attention, out-proj and MLP on one row per frame."""
+    inner = heads * dh
+    w = d * 3 * inner + inner * d + 2 * d * mlp + mlp + 6 * d   # one block
+    full = n * (2 * d * 3 * inner + 4 * heads * n * dh + 2 * inner * d
+                + 4 * d * mlp)
+    cls = (n * 2 * d * 2 * inner + 2 * d * inner + 4 * heads * n * dh
+           + 2 * inner * d + 4 * d * mlp)
+    rows = batch * n * d
+    if kind == "K4":
+        return (batch * ((depth - 1) * full + cls),
+                (rows + batch * d + depth * w) * esize + 2 * d * 4)
+    if kind == "K2f":
+        return batch * full, (2 * rows + w) * esize
+    if kind == "K2b":
+        return 3 * batch * full, (3 * rows + 2 * w) * esize
+    if kind == "K3f":
+        return batch * cls, (rows + batch * d + w) * esize
+    return 3 * batch * cls, (2 * rows + batch * d + 2 * w) * esize
+
+
+def phase_train_times(nets, rng):
+    """Phase 8b: each training kernel and its plain version at B=256."""
+    reps = {"K4": 5, "K2f": 10, "K2b": 5, "K3f": 10, "K3b": 10}
+    rows = {}
+    for name, kern, plain, _ in train_cases(
+            train_inputs(nets["bfloat16"], SAC_BATCH, rng)):
+        ms = cuda_ms(kern, reps[name], runs=5)
+        pms = cuda_ms(plain, max(1, reps[name] // 2), runs=5)
+        bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
+        rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by)
+        print(f"{name} bf16 B={SAC_BATCH}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bnd:.5f} ms ({by})", flush=True)
+    return rows
+
+
+def phase_profile(update):
+    """Phase 7: one bf16 update under torch.profiler: device time by CUDA
+    kernel, and the device's busy share of the update's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy = sum(t for _, t, _ in rows) / 1e3
+    if not rows:
+        print("profile: no device time recorded (device busy share not "
+              "measured)", flush=True)
+        return None
+    print(f"profile of one bf16 update: wall {wall * 1e3:.2f} ms, device "
+          f"kernels {busy:.2f} ms = busy share {busy / (wall * 1e3):.3f}",
+          flush=True)
+    for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {t / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return busy / (wall * 1e3)
+
+
+KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
+    "K1": ("got_forward_fused", "got_megakernel.cu",
+           "dgvit_tpu/ops/got_megakernel.py:289"),
+    "K4": ("blocks_cls_forward_fused", "got_megakernel.cu",
+           "dgvit_tpu/ops/got_megakernel.py:208"),
+    "K2f": ("block_fwd_fused", "block_grad.cu",
+            "dgvit_tpu/ops/fused_transformer.py:297"),
+    "K2b": ("block_bwd_fused", "block_grad.cu",
+            "dgvit_tpu/ops/fused_transformer.py:568"),
+    "K3f": ("cls_fwd_fused", "block_grad.cu",
+            "dgvit_tpu/ops/cls_block.py:281"),
+    "K3b": ("cls_bwd_fused", "block_grad.cu",
+            "dgvit_tpu/ops/cls_block.py:320"),
+}
 
 
 def main() -> int:
@@ -412,6 +1030,7 @@ def main() -> int:
     from dgvit_tpu_torch.core.checkpoint import load_params_npz
     from dgvit_tpu_torch.models import build_actor, params_from_jax
     from dgvit_tpu_torch.ops import _build
+    from dgvit_tpu_torch.ops.fused_transformer import _block_lib
     from dgvit_tpu_torch.ops.got_megakernel import _kernel_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -425,25 +1044,32 @@ def main() -> int:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
-    # the kernel's library, and beside it (in parallel) a cubin of the same
-    # source whose ptxas report gives registers and spills
+    # the kernel libraries, and beside them (all four nvcc at once) cubins
+    # of the same sources whose ptxas reports give registers and spills
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "got_megakernel.cu"
-    ptxas = subprocess.Popen(
+    sources = ("got_megakernel", "block_grad")
+    reports = [subprocess.Popen(
         [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
-         str(_build.BUILD_DIR / "got_megakernel.cubin"), str(src)],
+         str(_build.BUILD_DIR / f"{src}.cubin"),
+         str(_build.CSRC / f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in sources]
     try:
+        _build.build(*sources)
         _kernel_lib()
+        _block_lib()
     finally:
-        report, _ = ptxas.communicate()
-    print(f"built got_megakernel in {time.perf_counter() - t0:.1f} s")
-    check(ptxas.returncode == 0, f"ptxas report failed:\n{report}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        outs = [p.communicate()[0] for p in reports]
+    print(f"built {' and '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    for proc, report in zip(reports, outs):
+        check(proc.returncode == 0, f"ptxas report failed:\n{report}")
+        for line in report.splitlines():
+            if "Compiling entry" in line:
+                print(f"  ptxas: {line.split()[-3][:100]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
     sys.stdout.flush()
 
     cfg = Config()
@@ -459,15 +1085,24 @@ def main() -> int:
     worst = phase_kernel_vs_plain(cfg, policies, rng)
     act = phase_policy(cfg, flat)
     launches = phase_serving(act, rng)
-    times = phase_times(cfg, policies, rng)
 
-    main_b = 32  # the largest serving bucket: the main path's biggest shape
+    actor_flat, critic_flat = golden_params()
+    nets = build_nets(actor_flat, critic_flat)
+    train_worst = phase_train_kernels(nets, rng)
+    sac_launches, update_s, one_update = phase_sac(actor_flat, critic_flat)
+    sac_fp32 = phase_sac_fp32()
+    phase_profile(one_update)
+
+    times = phase_times(cfg, policies, rng)
+    train_times = phase_train_times(nets, rng)
+
+    main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "got_forward_fused",
         "route": "cuda",
         "source": "dgvit_tpu_torch/ops/csrc/got_megakernel.cu",
-        "replaces": "dgvit_tpu/ops/got_megakernel.py:127",
+        "replaces": KERNELS["K1"][2],
         "launches": launches,
         "max_abs_err": worst["bfloat16"],
         "ms": t["ms"],
@@ -479,7 +1114,25 @@ def main() -> int:
         "dtype": "bfloat16",
         "max_abs_err_fp32": worst["float32"],
         "by_batch": {str(b): v for b, v in times.items()},
-    }]}))
+    }]
+    for short, (name, src, replaces) in KERNELS.items():
+        if short != "K1":
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": f"dgvit_tpu_torch/ops/csrc/{src}",
+                "replaces": replaces,
+                "launches": sac_launches[short],
+                "max_abs_err": train_worst[(short, "bfloat16")],
+                **train_times[short],
+                "library_ms": None,
+                "batch": SAC_BATCH, "dtype": "bfloat16",
+                "max_abs_err_fp32": train_worst[(short, "float32")],
+                "launches_per_update": PER_UPDATE[short],
+            })
+    print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "
+          f"{1 / update_s:.3f}; fp32 update, largest relative differences: "
+          f"{json.dumps(sac_fp32)}")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,15 +1,16 @@
-"""The serving subset of the typed configuration.
+"""The serving and SAC-update subset of the typed configuration.
 
-A copy of what the serving path reads from the JAX package's config: the
-model architecture, the action/goal sizes and the env-unit command
-scaling. Unknown keys raise, as there.
+A copy of what the port reads from the JAX package's config: the model
+architecture and compute dtype, the SAC hyperparameters of the plain
+update, the action/goal sizes and the env-unit command scaling, with the
+same defaults and validation. Unknown keys raise, as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _update_dataclass(obj, data: Dict[str, Any], path: str = ""):
@@ -56,6 +57,7 @@ class ModelConfig:
     patch_size: Tuple[int, int] = (16, 20)
     emb_dropout: float = 0.1
     patch_mode: str = "2d"  # 2d (single frame) | channels (frame stack)
+    compute_dtype: str = "float32"  # float32 | bfloat16
 
     def validate(self):
         ih, iw = self.image_size
@@ -65,6 +67,8 @@ class ModelConfig:
                              f"patches {self.patch_size}")
         if self.patch_mode not in ("2d", "channels"):
             raise ValueError(f"patch_mode {self.patch_mode!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.actor_type != "GaussianTransformer" or self.backbone != "got":
             raise NotImplementedError(
                 f"actor {self.actor_type}/{self.backbone}: only the "
@@ -73,12 +77,54 @@ class ModelConfig:
 
 @dataclass
 class SACConfig:
+    """SAC hyperparameters of the plain update (the JAX package's
+    config.py:98-216, reference DRL.py:34-39)."""
+
     action_dim: int = 2
     pstate_dim: int = 2      # polar goal (distance, heading)
+    gamma: float = 0.999
+    tau: float = 0.0005
+    lr_actor: float = 1e-3
+    lr_critic: float = 1e-3
+    lr_alpha: float = 1e-4
+    alpha: float = 1.0       # initial (auto-tuned) or fixed temperature
+    auto_tune_alpha: bool = True
+    policy_freq: int = 1     # soft-update cadence
+    batch_size: int = 32
+    # True adds the (1 - done) mask the reference's TD target omits
+    done_mask_in_target: bool = False
+    # True rolls back an update whose losses are not finite (the step
+    # counter still advances)
+    nan_guard: bool = False
+    # clamps of the auto-tuned temperature after each alpha update
+    alpha_max: Optional[float] = None
+    alpha_min: Optional[float] = None
 
     def validate(self):
         if self.action_dim < 1 or self.pstate_dim < 1:
             raise ValueError("action_dim and pstate_dim must be positive")
+        if not 0.0 < self.gamma <= 1.0:
+            raise ValueError(f"gamma {self.gamma} outside (0, 1]")
+        if not 0.0 < self.tau <= 1.0:
+            raise ValueError(f"tau {self.tau} outside (0, 1]")
+        if self.alpha_max is not None:
+            if self.alpha_max <= 0.0:
+                raise ValueError("alpha_max must be > 0")
+            if not self.auto_tune_alpha and self.alpha > self.alpha_max:
+                raise ValueError(
+                    "alpha_max only clamps the auto-tuned temperature; with "
+                    "auto_tune_alpha=False set alpha <= alpha_max directly")
+        if self.alpha_min is not None:
+            if self.alpha_min <= 0.0:
+                raise ValueError("alpha_min must be > 0")
+            if self.alpha_max is not None and self.alpha_min > self.alpha_max:
+                raise ValueError("alpha_min > alpha_max")
+            if not self.auto_tune_alpha and self.alpha < self.alpha_min:
+                raise ValueError(
+                    "alpha_min only clamps the auto-tuned temperature; with "
+                    "auto_tune_alpha=False set alpha >= alpha_min directly")
+        if self.alpha <= 0.0:
+            raise ValueError("sac.alpha must be > 0 (it seeds log_alpha)")
 
 
 @dataclass

@@ -6,11 +6,25 @@ embedded to `dim`, the embedded goal is prepended as the CLS token, a
 learned positional embedding is added, `depth` pre-norm blocks run, the
 goal token is pooled and normed (RMS, or Layer for the frame-stack fork).
 
-The port serves only the deterministic full-patch-grid forward, and runs
-it as one call of `ops.got_megakernel.got_forward_fused`: the CUDA kernel
-on the card, its plain version on the CPU. Casts match the JAX package's
-fused route: patches, goal, patch-embed kernel and bias, and the positional
-embedding go to the compute dtype; the final-norm parameters stay fp32.
+`forward` takes the JAX module's three routes (got.py:102-118), each a
+kernel wrapper that runs the CUDA kernel on the card and its plain version
+on the CPU:
+
+  * `inference` and `deterministic` (acting, evaluation, serving): the
+    whole trunk as one `got_forward_fused` call (K1). Casts match the JAX
+    package's fused route: patches, goal, patch-embed kernel and bias, and
+    the positional embedding go to the compute dtype; the final-norm
+    parameters stay fp32;
+  * `inference` with live dropout (the no-grad forwards of the SAC
+    update): the embedding and emb-dropout in PyTorch, then
+    `blocks_cls_forward_fused` (K4) on detached parameters;
+  * gradient-bearing (`inference` False): the embedding and emb-dropout,
+    the differentiable per-block kernels (K2 for depth-1 blocks, K3 for
+    the CLS-only last block), then the final-norm module.
+
+The embedding is the JAX composed path's: the patch-embed product rounded
+to the compute dtype, then its bias, the goal token and the positional
+embedding added in it.
 """
 
 from __future__ import annotations
@@ -22,8 +36,9 @@ from torch import nn
 
 from dgvit_tpu_torch.models import initializers as init
 from dgvit_tpu_torch.models.layers import (LayerNorm, Linear, RMSNorm,
-                                           TransformerBlock)
-from dgvit_tpu_torch.ops.got_megakernel import got_forward_fused
+                                           TransformerBlock, emb_dropout)
+from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
+                                                got_forward_fused)
 
 
 def patchify_2d(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -57,6 +72,7 @@ class GoT(nn.Module):
                  depth: int = 4, heads: int = 4, dim_head: int = 64,
                  mlp_dim: int = 2048, channels: int = 1,
                  patch_mode: str = "2d", final_norm: str = "rms",
+                 emb_dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -68,6 +84,7 @@ class GoT(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.patch_mode, self.final_norm = patch_mode, final_norm
         self.compute_dtype = dtype
+        self.emb_dropout = emb_dropout
         ph, pw = self.patch_size
         self.num_patches = (image_size[0] // ph) * (image_size[1] // pw)
         patch_dim = ph * pw * (channels if patch_mode == "channels" else 1)
@@ -82,8 +99,9 @@ class GoT(nn.Module):
         self._cache = None
 
     def fused_params(self, cdt: torch.dtype):
-        """(pe, pos, blocks, fn) as the kernel takes them. Kept between
-        calls until a parameter is replaced or changed in place."""
+        """(pe, pos, blocks, fn) as the no-grad kernels take them: detached
+        casts, kept between calls until a parameter is replaced or changed
+        in place."""
         params = list(self.parameters())
         key = (cdt, tuple((p.data_ptr(), p._version) for p in params))
         if key != self._cache_key:
@@ -100,22 +118,50 @@ class GoT(nn.Module):
             self._cache_key, self._cache = key, (pe, pos, blocks, fn)
         return self._cache
 
+    def _patches(self, img: torch.Tensor) -> torch.Tensor:
+        ph, pw = self.patch_size
+        return (patchify_2d(img, ph, pw) if self.patch_mode == "2d"
+                else patchify_channels(img, ph, pw))
+
     def trunk_args(self, img: torch.Tensor, goal: torch.Tensor):
         """The arguments of `got_forward_fused` for these inputs."""
-        ph, pw = self.patch_size
         if tuple(img.shape[-2:]) != self.image_size:
             raise ValueError(f"image {tuple(img.shape[-2:])}: the fused "
                              f"trunk takes the full grid {self.image_size}")
         cdt = self.compute_dtype or img.dtype
-        patches = (patchify_2d(img, ph, pw) if self.patch_mode == "2d"
-                   else patchify_channels(img, ph, pw))
         pe, pos, blocks, fn = self.fused_params(cdt)
-        return (patches.to(cdt).contiguous(), goal.to(cdt).contiguous(),
-                pe, pos, blocks, fn, self.heads, self.dim_head,
-                self.num_patches + 1, self.final_norm)
+        return (self._patches(img).to(cdt).contiguous(),
+                goal.to(cdt).contiguous(), pe, pos, blocks, fn, self.heads,
+                self.dim_head, self.num_patches + 1, self.final_norm)
 
-    def forward(self, img: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
+    def embed(self, img: torch.Tensor, goal: torch.Tensor) -> torch.Tensor:
+        """(B, n + 1, dim) token stream in the compute dtype: patch
+        embedding, goal token prepended, positional embedding added."""
+        cdt = self.compute_dtype or img.dtype
+        x = self.patch_embed(self._patches(img).to(cdt))
+        x = torch.cat([goal[:, None, :].to(x.dtype), x], dim=1)
+        return x + self.pos_embedding[:, :x.shape[1]].to(x.dtype)
+
+    def forward(self, img: torch.Tensor, goal: torch.Tensor, *,
+                deterministic: bool = True, inference: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """img (B, H, W) [2d] or (B, C, H, W) [channels]; goal (B, dim)
         embedded goal token. Returns the (B, dim) latent in the compute
-        dtype."""
-        return got_forward_fused(*self.trunk_args(img, goal))
+        dtype. `deterministic` False applies emb-dropout, its mask drawn
+        from `generator`; `inference` selects the no-grad kernels (the K4
+        route raises if autograd would need its gradient)."""
+        if inference and deterministic:
+            return got_forward_fused(*self.trunk_args(img, goal))
+        x = self.embed(img, goal)
+        if not deterministic:
+            x = emb_dropout(x, self.emb_dropout, generator)
+        if inference:
+            _, _, blocks, fn = self.fused_params(x.dtype)
+            return blocks_cls_forward_fused(x.contiguous(), blocks, fn,
+                                            self.heads, self.dim_head,
+                                            self.final_norm)
+        *body, last = self.transformer.blocks
+        for blk in body:
+            x = blk(x.contiguous())
+        return self.norm_out(last(x.contiguous(), cls_only=True))

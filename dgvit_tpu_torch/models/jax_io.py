@@ -1,10 +1,16 @@
-"""Carry the JAX package's parameters into the port's modules.
+"""Carry the JAX package's parameters and train state into the port.
 
-Input is the actor parameter tree as the JAX package stores it: nested
-dicts, or the flat '/'-joined form of its `save_params_npz` files
-(`core/checkpoint.load_params_npz`), with numpy (or array-like) leaves.
-Output is a `state_dict` for `models.policies.GoTPolicy` (or, for a bare
-GoT tree, for `models.got.GoT`).
+`params_from_jax` takes an actor or critic parameter tree as the JAX
+package stores it: nested dicts, or the flat '/'-joined form of its
+`save_params_npz` files (`core/checkpoint.load_params_npz`), with numpy
+(or array-like) leaves. Output is a `state_dict` for
+`models.policies.GoTPolicy` or `GoTQNetwork` (or, for a bare GoT tree, for
+`models.got.GoT`).
+
+`sac_state_from_jax` carries a whole JAX `SACTrainState` (its leaves as
+numpy arrays): actor, critic and target parameters, the optax Adam
+moments `mu`/`nu` (same paths and transposes as the parameters) and
+`count`, `log_alpha` and `itera`, into the port's agent state.
 
 Flax Dense kernels are (in, out): they are transposed where the port uses
 an nn.Linear weight (out, in), and kept as they are for the transformer
@@ -40,7 +46,8 @@ _TRUNK = {
     "norm_out/bias": "norm_out.bias",
     "patch_embed/bias": "patch_embed.bias",
 }
-_LINEARS = ("fc_embed", "fc1", "fc2", "mean_linear", "log_std_linear")
+_LINEARS = ("fc_embed", "fc1", "fc2", "mean_linear", "log_std_linear",
+            "fc3", "fc11", "fc21", "fc31")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -90,3 +97,60 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = name[len("trans."):]
         out[name] = torch.from_numpy(np.array(arr, order="C"))
     return out
+
+
+def _field(obj, name: str):
+    """A field of a JAX struct (attribute) or of a plain dict."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _adam(opt_state):
+    """The optax scale_by_adam state (count, mu, nu) inside an optimizer
+    state (optax.adam's is a tuple around it)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam(part)
+            if found is not None:
+                return found
+    return None
+
+
+def _load_adam(opt: torch.optim.Optimizer, named, opt_state) -> None:
+    """Set a torch Adam's per-parameter state from an optax Adam state."""
+    adam = _adam(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (count, mu, nu) found")
+    step = torch.tensor(float(np.asarray(adam.count)))
+    if isinstance(named, torch.Tensor):       # a bare scalar parameter
+        mus = {"": torch.tensor(np.asarray(adam.mu, np.float32))}
+        nus = {"": torch.tensor(np.asarray(adam.nu, np.float32))}
+        named = [("", named)]
+    else:
+        mus, nus = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    for name, p in named:
+        opt.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mus[name].reshape(p.shape).to(p.device).clone(),
+            "exp_avg_sq": nus[name].reshape(p.shape).to(p.device).clone()}
+
+
+def sac_state_from_jax(agent, tree):
+    """The port's agent state (`agents.sac.SACState`) holding a JAX
+    `SACTrainState`: `agent.init_state()` with every parameter, Adam
+    moment, `log_alpha` and `itera` replaced by the JAX state's."""
+    state = agent.init_state()
+    for module, key in ((state.actor, "actor_params"),
+                        (state.critic, "critic_params"),
+                        (state.critic_target, "critic_target_params")):
+        module.load_state_dict(params_from_jax(_field(tree, key)))
+    _load_adam(state.actor_opt, state.actor.named_parameters(),
+               _field(tree, "actor_opt"))
+    _load_adam(state.critic_opt, state.critic.named_parameters(),
+               _field(tree, "critic_opt"))
+    with torch.no_grad():
+        state.log_alpha.fill_(float(np.asarray(_field(tree, "log_alpha"))))
+    _load_adam(state.alpha_opt, state.log_alpha, _field(tree, "alpha_opt"))
+    state.itera = int(np.asarray(_field(tree, "itera")))
+    return state

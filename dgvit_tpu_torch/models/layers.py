@@ -1,10 +1,13 @@
 """Transformer building blocks with the JAX package's numerics.
 
 `TransformerBlock` holds a pre-norm block's 11 parameters as raw tensors in
-the fused kernel's order and (in, out) layout, so the whole-trunk kernel
-takes them as they are. `Linear` is an nn.Linear that computes in a given
-compute dtype, as the JAX package's TorchLinear does: operands cast to
-that dtype, the product rounded to it, then the bias added in it.
+the fused kernels' order and (in, out) layout, so the kernels take them as
+they are; its forward is the differentiable per-block kernel (K2, or K3
+for the CLS-only final block). `Linear` is an nn.Linear that computes in a
+given compute dtype, as the JAX package's TorchLinear does: operands cast
+to that dtype, the product rounded to it, then the bias added in it.
+`emb_dropout` is flax's Dropout with the mask drawn from an explicit
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -15,7 +18,24 @@ import torch
 from torch import nn
 
 from dgvit_tpu_torch.models import initializers as init
-from dgvit_tpu_torch.ops.fused_transformer import _ln, block_plain
+from dgvit_tpu_torch.ops.cls_block import cls_final_block
+from dgvit_tpu_torch.ops.fused_transformer import (_ln,
+                                                   fused_transformer_block)
+
+
+def emb_dropout(x: torch.Tensor, rate: float,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `Dropout(rate)` in training mode: keep each element with
+    probability 1 - rate (the draw from `generator`), scale kept elements
+    by 1 / (1 - rate) in x's dtype, zero the rest."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class Linear(nn.Linear):
@@ -102,12 +122,18 @@ class TransformerBlock(nn.Module):
         init.torch_linear_bias_(self.b2, mlp_dim, g)
 
     def flat(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
-        """The 11 parameters in kernel order, cast to the compute dtype."""
+        """The 11 parameters in kernel order, cast to the compute dtype and
+        detached (for the no-grad kernels)."""
         return tuple(getattr(self, n).detach().to(dtype).contiguous()
                      for n in self.ORDER)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, n, d) in the compute dtype -> (B, n, d), every row valid."""
-        x32 = block_plain(x.float(), self.flat(x.dtype), heads=self.heads,
-                          dim_head=self.dim_head, cdt=x.dtype)
-        return x32.to(x.dtype)
+    def forward(self, x: torch.Tensor, cls_only: bool = False
+                ) -> torch.Tensor:
+        """(B, n, d) in the compute dtype -> (B, n, d), every row valid; or,
+        with cls_only, the CLS row of the output, (B, d). Differentiable:
+        the casts to the compute dtype keep the graph, so gradients reach
+        the fp32 parameters (rounded to the compute dtype)."""
+        w = tuple(getattr(self, n).to(x.dtype) for n in self.ORDER)
+        if cls_only:
+            return cls_final_block(x, w, self.heads, self.dim_head)
+        return fused_transformer_block(x, w, self.heads, self.dim_head)

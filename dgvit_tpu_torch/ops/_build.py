@@ -7,9 +7,10 @@ C interface:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 and is loaded with ctypes. Libraries land in `build/kernels/` at the root
-of the checkout (git-ignored), named by a hash of the source and flags, so
-an edited source rebuilds and an unchanged one loads at once. A failed
-build raises with the compiler's output.
+of the checkout (git-ignored), named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
+unchanged one loads at once. `build` compiles several sources at once, one
+nvcc each. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -36,24 +37,38 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of csrc/<name>.cu, compiled first if it has none."""
-    target = _target(name)
-    if not target.exists():
+def build(*names: str) -> None:
+    """Compile every named source that has no library yet, all at once."""
+    procs = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs.append((name, target, tmp, subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, target, tmp, proc in procs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {name}.cu (rc "
-                               f"{proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-        os.replace(tmp, target)
-    return ctypes.CDLL(str(target))
+            failed.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
+                          f"\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cu, compiled first if it has none."""
+    build(name)
+    return ctypes.CDLL(str(_target(name)))

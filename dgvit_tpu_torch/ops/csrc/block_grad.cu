@@ -1,0 +1,795 @@
+// Per-block kernels of the gradient-bearing GoT trunk: forward and
+// backward of a full pre-norm block (K2) and of the CLS-only final block
+// (K3).
+//
+// Replaces, in dgvit_tpu/ops:
+//   K2f fused_transformer.py::_fused_block_fwd_impl (_block_kernel)
+//   K2b fused_transformer.py::_fused_block_bwd_impl (_block_bwd_kernel,
+//       body _block_bwd_body)
+//   K3f cls_block.py::_cls_fwd_impl (_cls_fwd_kernel)
+//   K3b cls_block.py::_cls_bwd_impl (_cls_bwd_kernel, body _cls_bwd_body)
+//
+// Forward: one thread block per frame runs `block` (block_common.cuh) on
+// the frame's fp32 stream in shared memory, as the whole-trunk kernel does,
+// and writes the block's output (K2f: every row; K3f: the CLS row) in the
+// compute dtype T.
+//
+// Backward, two passes:
+//  1. one thread block per frame recomputes the forward (bit-identical to
+//     the forward kernel: same products in the same order), then runs the
+//     reverse pass of `_block_bwd_body` / `_cls_bwd_body` by hand with its
+//     rounding points: dy, dpre, g1, do and dqkv are rounded to T before
+//     their products, ds after the scale, dv uses the rounded p and ds the
+//     unrounded one, the GELU derivative follows the compute dtype. It
+//     writes dx, the operands of the four weight-gradient products (h1,
+//     dqkv, o, g1, h2, dpre, hid, in T) and its own row sums for the seven
+//     vector gradients (fp32).
+//  2. the weight gradients summed over every frame: each matrix gradient
+//     A^T B over all B*n rows (B rows for the CLS-only operands of K3) is a
+//     tiled product split over fixed row segments, each written to its own
+//     fp32 partial, then the partials are summed in segment order; each
+//     vector gradient sums the frames' row sums in frame order. Both
+//     orders are fixed by the shapes, so a gradient is the same from run
+//     to run (no atomics). The sums are cast to T at the end, as the TPU
+//     kernel casts its fp32 accumulators to the weight dtype.
+// The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
+// zero gradient there, so computing the 65 real rows is exact.
+//
+// What bounds it on an H100: a frame of the full-block backward costs
+// about 3x the forward's 47 MFLOP at the flagship width, and the weight
+// products 11 GFLOP over 256 frames; all of it is FMA work on fp32 CUDA
+// cores (no tensor cores yet), so the kernels are compute-bound far from
+// the bf16 tensor-core roofline. A frame's operands and scratch (about
+// 0.8 MB in bf16, 211 MB at B=256) go through device memory and L2, which
+// a later version should keep on chip.
+
+#include "block_common.cuh"
+
+namespace {
+
+constexpr int kSlots = 11;  // per-frame operand buffers of the backward
+constexpr int kTile = 64;   // weight-gradient output tile (K x N)
+constexpr int kChunk = 16;  // rows staged in shared memory per step
+constexpr int kTargetCtas = 264;
+
+struct FwdArgs {
+  const void* x;
+  const void* w[11];
+  void* out;
+  int n;
+  Dims m;
+};
+
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const void* w[11];
+  void* dx;
+  // slots: 0 h1, 1 qkv (each head's q|k|v side by side; K3: kv), 2 o,
+  // 3 h2, 4 hid, 5 dpre, 6 g1, 7 do, 8 dqkv (wqkv's column order; K3: dkv),
+  // 9 q (K3), 10 dq (K3); rows of one frame each
+  void* s[kSlots];
+  float* vec;  // (B, 6 d + mlp): an_s, an_b, bout, fn_s, fn_b, b2, b1 sums
+  int n;
+  Dims m;
+};
+
+template <typename T> __device__ __forceinline__ float gelu_grad(float z) {
+  if (sizeof(T) == 2) {
+    const float z2 = z * z;
+    const float inner = 0.7978845608028654f * (z + 0.044715f * z * z2);
+    const float t = tanhf(inner);
+    const float dinner = 0.7978845608028654f * (1.f + 3.f * 0.044715f * z2);
+    return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * dinner;
+  }
+  const float phi = 0.5f * (1.f + erf32(z * 0.7071067811865476f));
+  return phi + z * 0.3989422804014327f * expf(-0.5f * z * z);
+}
+
+// Backward of LayerNorm over R rows, given the fp32 grad dh of its output:
+// epi(r, c, dx) per element; the scale and bias grads of these rows,
+// summed over rows in order, go to gs[c] and gb[c].
+template <typename T, typename Epi>
+__device__ void ln_bwd(const float* x, const float* mean, const float* rstd,
+                       const float* dh, int R, int d, const T* s, float* gs,
+                       float* gb, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < R; r += kWarps) {
+    const float* xr = x + (size_t)r * d;
+    const float* dr = dh + (size_t)r * d;
+    const float m = mean[r], rs = rstd[r];
+    float sd = 0.f, sdx = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float xhat = (xr[c] - m) * rs;
+      const float dxh = dr[c] * tof(s[c]);
+      sd += dxh;
+      sdx += dxh * xhat;
+    }
+    const float md = warp_sum(sd) / d, mdx = warp_sum(sdx) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float xhat = (xr[c] - m) * rs;
+      const float dxh = dr[c] * tof(s[c]);
+      epi(r, c, rs * (dxh - md - xhat * mdx));
+    }
+  }
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const float g = dh[(size_t)r * d + c];
+      a += g * ((x[(size_t)r * d + c] - mean[r]) * rstd[r]);
+      b += g;
+    }
+    gs[c] = a;
+    gb[c] = b;
+  }
+}
+
+// column sums over R rows of an fp32 (R, d) buffer, in row order
+__device__ void col_sums(const float* x, int R, int d, float* out) {
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += x[(size_t)r * d + c];
+    out[c] = s;
+  }
+}
+
+template <typename T, bool kCls>
+__global__ void __launch_bounds__(kThreads)
+    block_fwd_kernel(const __grid_constant__ FwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, d = a.m.d, f = blockIdx.x;
+  const Smem<T> L(n, d, a.m.heads, a.m.dh, a.m.hc);
+  float* x32 = (float*)(smem_raw + L.x32);
+  const T* x = (const T*)a.x + (size_t)f * n * d;
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
+  __syncthreads();
+  block<T>(a.m, a.w, n, kCls, x32, (float*)(smem_raw + L.acc),
+           (float*)(smem_raw + L.prob), (T*)(smem_raw + L.h),
+           (T*)(smem_raw + L.scratch));
+  const int rows = kCls ? 1 : n;
+  T* out = (T*)a.out + (size_t)f * rows * d;
+  for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
+    out[i] = fromf<T>(x32[i]);
+}
+
+// Shared memory of the backward kernels (fp32 throughout).
+struct BwdSmem {
+  size_t x32, x1, acc, g1, stats, pb, dpb, prob, total;
+  __host__ __device__ BwdSmem(int n, int d, int hc) {
+    const size_t nd = sizeof(float) * n * d;
+    x32 = 0;
+    x1 = align16(x32 + nd);
+    acc = align16(x1 + nd);
+    g1 = align16(acc + nd);
+    stats = align16(g1 + nd);
+    pb = align16(stats + sizeof(float) * 4 * n);
+    dpb = align16(pb + sizeof(float) * n * (n > hc ? n : hc));
+    prob = align16(dpb + sizeof(float) * n * (n > hc ? n : hc));
+    total = align16(prob + sizeof(float) * kWarps * n);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    block_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Dims m = a.m;
+  const int n = a.n, d = m.d, dh = m.dh, inner = m.heads * dh,
+            i3 = 3 * inner, mlp = m.mlp, f = blockIdx.x;
+  const BwdSmem L(n, d, m.hc);
+  float* x32 = (float*)(smem_raw + L.x32);
+  float* x1 = (float*)(smem_raw + L.x1);
+  float* acc = (float*)(smem_raw + L.acc);
+  float* g1 = (float*)(smem_raw + L.g1);
+  float* mean1 = (float*)(smem_raw + L.stats);
+  float* rstd1 = mean1 + n;
+  float* mean2 = rstd1 + n;
+  float* rstd2 = mean2 + n;
+  float* pb = (float*)(smem_raw + L.pb);
+  float* dpb = (float*)(smem_raw + L.dpb);
+  float* prob = (float*)(smem_raw + L.prob);
+  const T* an_s = (const T*)a.w[0];
+  const T* an_b = (const T*)a.w[1];
+  const T* wqkv = (const T*)a.w[2];
+  const T* wout = (const T*)a.w[3];
+  const T* bout = (const T*)a.w[4];
+  const T* fn_s = (const T*)a.w[5];
+  const T* fn_b = (const T*)a.w[6];
+  const T* w1 = (const T*)a.w[7];
+  const T* b1 = (const T*)a.w[8];
+  const T* w2 = (const T*)a.w[9];
+  const size_t fr = (size_t)f * n;
+  const T* x = (const T*)a.x + fr * d;
+  const T* dy = (const T*)a.dy + fr * d;
+  T* dx = (T*)a.dx + fr * d;
+  T* H1 = (T*)a.s[0] + fr * d;
+  T* QKV = (T*)a.s[1] + fr * i3;
+  T* O = (T*)a.s[2] + fr * inner;
+  T* H2 = (T*)a.s[3] + fr * d;
+  T* HID = (T*)a.s[4] + fr * mlp;
+  T* DPRE = (T*)a.s[5] + fr * mlp;
+  T* G1C = (T*)a.s[6] + fr * d;
+  T* DO = (T*)a.s[7] + fr * inner;
+  T* DQKV = (T*)a.s[8] + fr * i3;
+  float* V = a.vec + (size_t)f * (6 * d + mlp);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // ---- recompute the forward: LN1 -> qkv -> attention -> x1 -> LN2 ----
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
+  __syncthreads();
+  layernorm_stats(x32, n, d, mean1, rstd1);
+  layernorm_rows<T>(x32, n, d, an_s, an_b, H1);
+  __syncthreads();
+  // qkv with each head's q|k|v side by side (the layout `attend` takes):
+  // column c of wqkv goes to head c % inner / dh, part c / inner
+  matmul(H1, d, n, wqkv, i3, d, i3, Ident(), [=](int r, int c, float v) {
+    const int head = c % inner / dh, part = c / inner;
+    QKV[(size_t)r * i3 + (head * 3 + part) * dh + c % dh] = fromf<T>(v);
+  });
+  __syncthreads();
+  for (int hd = 0; hd < m.heads; ++hd)
+    attend<T>(QKV + 3 * hd * dh, i3, n, n, dh, m.scale, prob, O + hd * dh,
+              inner);
+  __syncthreads();
+  matmul(O, inner, n, wout, d, inner, d, Ident(), [=](int r, int c, float v) {
+    x1[(size_t)r * d + c] = x32[(size_t)r * d + c] + (v + tof(bout[c]));
+  });
+  __syncthreads();
+  layernorm_stats(x1, n, d, mean2, rstd2);
+  layernorm_rows<T>(x1, n, d, fn_s, fn_b, H2);
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  // ---- MLP forward + backward, hidden dim in chunks: acc = dh2 ----------
+  for (int c0 = 0; c0 < mlp; c0 += m.hc) {
+    const int hc = min(m.hc, mlp - c0);
+    matmul(H2, d, n, w1, mlp, d, hc, [=](int c) { return c0 + c; },
+           [=](int r, int c, float v) {
+             const float p = v + tof(b1[c0 + c]);
+             pb[(size_t)r * hc + c] = p;
+             HID[(size_t)r * mlp + c0 + c] = fromf<T>(gelu<T>(p));
+           });
+    __syncthreads();
+    // dhid = dy @ w2c^T; dpre = dhid * gelu'(pre), in place of pre
+    mm(n, hc, d, [=](int r, int k) { return tof(dy[(size_t)r * d + k]); },
+       [=](int k, int c) { return tof(w2[(size_t)(c0 + c) * d + k]); },
+       [=](int r, int c, float v) {
+         float* p = pb + (size_t)r * hc + c;
+         *p = v * gelu_grad<T>(*p);
+       });
+    __syncthreads();
+    col_sums(pb, n, hc, V + 6 * d + c0);  // db1 from the unrounded dpre
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * hc; i += blockDim.x) {
+      const float v = rt<T>(pb[i]);
+      pb[i] = v;
+      DPRE[(size_t)(i / hc) * mlp + c0 + i % hc] = fromf<T>(v);
+    }
+    __syncthreads();
+    mm(n, d, hc, [=](int r, int k) { return pb[(size_t)r * hc + k]; },
+       [=](int k, int c) { return tof(w1[(size_t)c * mlp + c0 + k]); },
+       [=](int r, int c, float v) { acc[(size_t)r * d + c] += v; });
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {  // db2
+    float s = 0.f;
+    for (int r = 0; r < n; ++r) s += tof(dy[(size_t)r * d + c]);
+    V[5 * d + c] = s;
+  }
+  ln_bwd<T>(x1, mean2, rstd2, acc, n, d, fn_s, V + 3 * d, V + 4 * d,
+            [=](int r, int c, float v) {
+              g1[(size_t)r * d + c] = tof(dy[(size_t)r * d + c]) + v;
+            });
+  __syncthreads();
+
+  // ---- attention backward ---------------------------------------------
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x)
+    G1C[i] = fromf<T>(g1[i]);
+  col_sums(g1, n, d, V + 2 * d);  // dbout
+  __syncthreads();
+  // do = g1 @ wout^T, rounded (only do's rounded head slices are used)
+  mm(n, inner, d, [=](int r, int k) { return tof(G1C[(size_t)r * d + k]); },
+     [=](int k, int c) { return tof(wout[(size_t)c * d + k]); },
+     [=](int r, int c, float v) { DO[(size_t)r * inner + c] = fromf<T>(v); });
+  __syncthreads();
+  for (int hd = 0; hd < m.heads; ++hd) {
+    const T* q = QKV + 3 * hd * dh;
+    const T* k = q + dh;
+    const T* v = q + 2 * dh;
+    const T* dob = DO + hd * dh;
+    T* dq = DQKV + hd * dh;
+    T* dk = dq + inner;
+    T* dv = dq + 2 * inner;
+    for (int r = warp; r < n; r += kWarps)
+      softmax_row<T>(q + (size_t)r * i3, k, i3, n, dh, m.scale,
+                     pb + (size_t)r * n);
+    __syncthreads();
+    // dv = p_c^T @ do; dp = do @ v^T
+    mm(n, dh, n, [=](int j, int i) { return rt<T>(pb[(size_t)i * n + j]); },
+       [=](int i, int e) { return tof(dob[(size_t)i * inner + e]); },
+       [=](int j, int e, float val) { dv[(size_t)j * i3 + e] = fromf<T>(val); });
+    mm(n, n, dh, [=](int i, int e) { return tof(dob[(size_t)i * inner + e]); },
+       [=](int e, int j) { return tof(v[(size_t)j * i3 + e]); },
+       [=](int i, int j, float val) { dpb[(size_t)i * n + j] = val; });
+    __syncthreads();
+    // ds = T((p * (dp - sum_j dp p)) * scale), in place of dp
+    for (int r = warp; r < n; r += kWarps) {
+      const float* pr = pb + (size_t)r * n;
+      float* dr = dpb + (size_t)r * n;
+      float s = 0.f;
+      for (int j = lane; j < n; j += 32) s += dr[j] * pr[j];
+      s = warp_sum(s);
+      for (int j = lane; j < n; j += 32)
+        dr[j] = rt<T>((pr[j] * (dr[j] - s)) * m.scale);
+    }
+    __syncthreads();
+    // dq = ds @ k; dk = ds^T @ q
+    mm(n, dh, n, [=](int i, int j) { return dpb[(size_t)i * n + j]; },
+       [=](int j, int e) { return tof(k[(size_t)j * i3 + e]); },
+       [=](int i, int e, float val) { dq[(size_t)i * i3 + e] = fromf<T>(val); });
+    mm(n, dh, n, [=](int j, int i) { return dpb[(size_t)i * n + j]; },
+       [=](int i, int e) { return tof(q[(size_t)i * i3 + e]); },
+       [=](int j, int e, float val) { dk[(size_t)j * i3 + e] = fromf<T>(val); });
+    __syncthreads();
+  }
+  // dh1 = dqkv_c @ wqkv^T, then LN1 backward: dx = g1 + dln1
+  mm(n, d, i3, [=](int r, int k) { return tof(DQKV[(size_t)r * i3 + k]); },
+     [=](int k, int c) { return tof(wqkv[(size_t)c * i3 + k]); },
+     [=](int r, int c, float v) { acc[(size_t)r * d + c] = v; });
+  __syncthreads();
+  ln_bwd<T>(x32, mean1, rstd1, acc, n, d, an_s, V, V + d,
+            [=](int r, int c, float v) {
+              dx[(size_t)r * d + c] = fromf<T>(g1[(size_t)r * d + c] + v);
+            });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cls_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Dims m = a.m;
+  const int n = a.n, d = m.d, dh = m.dh, inner = m.heads * dh,
+            i2 = 2 * inner, i3 = 3 * inner, mlp = m.mlp, f = blockIdx.x;
+  const BwdSmem L(n, d, m.hc);
+  float* x32 = (float*)(smem_raw + L.x32);
+  float* x1 = (float*)(smem_raw + L.x1);    // CLS row
+  float* acc = (float*)(smem_raw + L.acc);
+  float* g1 = (float*)(smem_raw + L.g1);    // CLS row
+  float* mean1 = (float*)(smem_raw + L.stats);
+  float* rstd1 = mean1 + n;
+  float* mean2 = rstd1 + n;
+  float* rstd2 = mean2 + 1;
+  float* pb = (float*)(smem_raw + L.pb);    // heads x n CLS probabilities
+  float* dpb = (float*)(smem_raw + L.dpb);  // MLP chunk, then heads x n ds
+  const T* an_s = (const T*)a.w[0];
+  const T* an_b = (const T*)a.w[1];
+  const T* wqkv = (const T*)a.w[2];
+  const T* wout = (const T*)a.w[3];
+  const T* bout = (const T*)a.w[4];
+  const T* fn_s = (const T*)a.w[5];
+  const T* fn_b = (const T*)a.w[6];
+  const T* w1 = (const T*)a.w[7];
+  const T* b1 = (const T*)a.w[8];
+  const T* w2 = (const T*)a.w[9];
+  const size_t fr = (size_t)f * n;
+  const T* x = (const T*)a.x + fr * d;
+  const T* dy = (const T*)a.dy + (size_t)f * d;
+  T* dx = (T*)a.dx + fr * d;
+  T* H1 = (T*)a.s[0] + fr * d;
+  T* KV = (T*)a.s[1] + fr * i2;
+  T* O = (T*)a.s[2] + (size_t)f * inner;
+  T* H2 = (T*)a.s[3] + (size_t)f * d;
+  T* HID = (T*)a.s[4] + (size_t)f * mlp;
+  T* DPRE = (T*)a.s[5] + (size_t)f * mlp;
+  T* G1C = (T*)a.s[6] + (size_t)f * d;
+  T* DO = (T*)a.s[7] + (size_t)f * inner;
+  T* DKV = (T*)a.s[8] + fr * i2;
+  T* Q = (T*)a.s[9] + (size_t)f * inner;
+  T* DQ = (T*)a.s[10] + (size_t)f * inner;
+  float* V = a.vec + (size_t)f * (6 * d + mlp);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // ---- recompute: LN1 (all rows) -> k/v (all rows), q (CLS row) ---------
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
+  __syncthreads();
+  layernorm_stats(x32, n, d, mean1, rstd1);
+  layernorm_rows<T>(x32, n, d, an_s, an_b, H1);
+  __syncthreads();
+  matmul(H1, d, n, wqkv, i3, d, i2, [=](int c) { return inner + c; },
+         [=](int r, int c, float v) { KV[(size_t)r * i2 + c] = fromf<T>(v); });
+  matmul(H1, d, 1, wqkv, i3, d, inner, Ident(),
+         [=](int r, int c, float v) { Q[c] = fromf<T>(v); });
+  __syncthreads();
+  // attention of the CLS row, one warp per head; p kept for the backward
+  for (int hd = warp; hd < m.heads; hd += kWarps) {
+    float* p = pb + (size_t)hd * n;
+    const T* v = KV + inner + hd * dh;
+    softmax_row<T>(Q + hd * dh, KV + hd * dh, i2, n, dh, m.scale, p);
+    for (int c = lane; c < dh; c += 32) {
+      float s = 0.f;
+      for (int j = 0; j < n; ++j)
+        s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * i2 + c]), s);
+      O[hd * dh + c] = fromf<T>(s);
+    }
+  }
+  __syncthreads();
+  matmul(O, inner, 1, wout, d, inner, d, Ident(), [=](int r, int c, float v) {
+    x1[c] = x32[c] + (v + tof(bout[c]));
+  });
+  __syncthreads();
+  layernorm_stats(x1, 1, d, mean2, rstd2);
+  layernorm_rows<T>(x1, 1, d, fn_s, fn_b, H2);
+  for (int c = threadIdx.x; c < d; c += blockDim.x) acc[c] = 0.f;
+  __syncthreads();
+
+  // ---- MLP forward + backward on the CLS row: acc row 0 = dh2 ----------
+  for (int c0 = 0; c0 < mlp; c0 += m.hc) {
+    const int hc = min(m.hc, mlp - c0);
+    matmul(H2, d, 1, w1, mlp, d, hc, [=](int c) { return c0 + c; },
+           [=](int r, int c, float v) {
+             const float p = v + tof(b1[c0 + c]);
+             dpb[c] = p;
+             HID[c0 + c] = fromf<T>(gelu<T>(p));
+           });
+    __syncthreads();
+    mm(1, hc, d, [=](int r, int k) { return tof(dy[k]); },
+       [=](int k, int c) { return tof(w2[(size_t)(c0 + c) * d + k]); },
+       [=](int r, int c, float v) { dpb[c] = v * gelu_grad<T>(dpb[c]); });
+    __syncthreads();
+    for (int c = threadIdx.x; c < hc; c += blockDim.x) {
+      V[6 * d + c0 + c] = dpb[c];  // db1: one row, the unrounded dpre
+      const float v = rt<T>(dpb[c]);
+      dpb[c] = v;
+      DPRE[c0 + c] = fromf<T>(v);
+    }
+    __syncthreads();
+    mm(1, d, hc, [=](int r, int k) { return dpb[k]; },
+       [=](int k, int c) { return tof(w1[(size_t)c * mlp + c0 + k]); },
+       [=](int r, int c, float v) { acc[c] += v; });
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < d; c += blockDim.x) V[5 * d + c] = tof(dy[c]);
+  ln_bwd<T>(x1, mean2, rstd2, acc, 1, d, fn_s, V + 3 * d, V + 4 * d,
+            [=](int r, int c, float v) { g1[c] = tof(dy[c]) + v; });
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    G1C[c] = fromf<T>(g1[c]);
+    V[2 * d + c] = g1[c];  // dbout
+  }
+  __syncthreads();
+  mm(1, inner, d, [=](int r, int k) { return tof(G1C[k]); },
+     [=](int k, int c) { return tof(wout[(size_t)c * d + k]); },
+     [=](int r, int c, float v) { DO[c] = fromf<T>(v); });
+  __syncthreads();
+
+  // ---- attention backward, one warp per head ----------------------------
+  for (int hd = warp; hd < m.heads; hd += kWarps) {
+    const float* p = pb + (size_t)hd * n;
+    float* ds = dpb + (size_t)hd * n;
+    const T* qh = Q + hd * dh;
+    const T* kh = KV + hd * dh;
+    const T* vh = KV + inner + hd * dh;
+    const T* doh = DO + hd * dh;
+    for (int j = lane; j < n; j += 32) {
+      float s = 0.f;
+      for (int e = 0; e < dh; ++e)
+        s = fmaf(tof(doh[e]), tof(vh[(size_t)j * i2 + e]), s);
+      ds[j] = s;  // dp
+      const float pc = rt<T>(p[j]);
+      for (int e = 0; e < dh; ++e)  // dv = p_c^T @ do
+        DKV[(size_t)j * i2 + inner + hd * dh + e] = fromf<T>(pc * tof(doh[e]));
+    }
+    __syncwarp();
+    float s = 0.f;
+    for (int j = lane; j < n; j += 32) s += ds[j] * p[j];
+    s = warp_sum(s);
+    for (int j = lane; j < n; j += 32)
+      ds[j] = rt<T>((p[j] * (ds[j] - s)) * m.scale);
+    __syncwarp();
+    for (int e = lane; e < dh; e += 32) {  // dq = ds @ k
+      float t = 0.f;
+      for (int j = 0; j < n; ++j)
+        t = fmaf(ds[j], tof(kh[(size_t)j * i2 + e]), t);
+      DQ[hd * dh + e] = fromf<T>(t);
+    }
+    for (int j = lane; j < n; j += 32)  // dk = ds^T @ q
+      for (int e = 0; e < dh; ++e)
+        DKV[(size_t)j * i2 + hd * dh + e] = fromf<T>(ds[j] * tof(qh[e]));
+  }
+  __syncthreads();
+  // dh1: the k/v path on every row, plus the q path on the CLS row
+  mm(n, d, i2, [=](int r, int k) { return tof(DKV[(size_t)r * i2 + k]); },
+     [=](int k, int c) { return tof(wqkv[(size_t)c * i3 + inner + k]); },
+     [=](int r, int c, float v) { acc[(size_t)r * d + c] = v; });
+  __syncthreads();
+  mm(1, d, inner, [=](int r, int k) { return tof(DQ[k]); },
+     [=](int k, int c) { return tof(wqkv[(size_t)c * i3 + k]); },
+     [=](int r, int c, float v) { acc[c] += v; });
+  __syncthreads();
+  ln_bwd<T>(x32, mean1, rstd1, acc, n, d, an_s, V, V + d,
+            [=](int r, int c, float v) {
+              dx[(size_t)r * d + c] = fromf<T>(r == 0 ? v + g1[c] : v);
+            });
+}
+
+// One weight-gradient product C = A^T B over a segment of rows:
+// A (R, K) and B (R, N) in T with row strides lda, ldb; the segment's fp32
+// sums go to part[segment] (K x N). Each thread block owns a 64 x 64 tile
+// of C (4 x 4 per thread) and walks its rows in order, 16 at a time.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    wgrad_kernel(const T* A, int lda, const T* B, int ldb, long R, int K,
+                 int N, long seg_rows, float* part) {
+  __shared__ float As[kChunk][kTile];
+  __shared__ float Bs[kChunk][kTile];
+  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const long r_begin = (long)blockIdx.z * seg_rows;
+  const long r_end = r_begin + seg_rows < R ? r_begin + seg_rows : R;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (long r0 = r_begin; r0 < r_end; r0 += kChunk) {
+    for (int i = threadIdx.x; i < kChunk * kTile; i += blockDim.x) {
+      const int rr = i / kTile, cc = i % kTile;
+      const long r = r0 + rr;
+      As[rr][cc] = (r < r_end && k0 + cc < K)
+                       ? tof(A[(size_t)r * lda + k0 + cc]) : 0.f;
+      Bs[rr][cc] = (r < r_end && n0 + cc < N)
+                       ? tof(B[(size_t)r * ldb + n0 + cc]) : 0.f;
+    }
+    __syncthreads();
+    const int rows = r_end - r0 < kChunk ? (int)(r_end - r0) : kChunk;
+    for (int rr = 0; rr < rows; ++rr) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = As[rr][ty * 4 + i];
+        bv[i] = Bs[rr][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* P = part + (size_t)blockIdx.z * K * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + ty * 4 + i, c = n0 + tx * 4 + j;
+      if (k < K && c < N) P[(size_t)k * N + c] = acc[i][j];
+    }
+}
+
+// C[k][col0 + c] = T(sum over segments, in order, of part[s][k][c])
+template <typename T>
+__global__ void wgrad_finish(const float* part, int S, int K, int N, T* C,
+                             int ldc, int col0) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long)K * N) return;
+  float s = 0.f;
+  for (int j = 0; j < S; ++j) s += part[(size_t)j * K * N + i];
+  C[(size_t)(i / N) * ldc + col0 + i % N] = fromf<T>(s);
+}
+
+struct VecOut {
+  void* p[7];
+  int len[7];
+};
+
+// Vector gradients: out = T(sum over frames, in order, of the frames' row
+// sums), the L = 6 d + mlp columns split over seven outputs.
+template <typename T>
+__global__ void vec_finish(const float* vec, int B, int L, VecOut o) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= L) return;
+  float s = 0.f;
+  for (int f = 0; f < B; ++f) s += vec[(size_t)f * L + c];
+  int seg = 0, off = c;
+  while (off >= o.len[seg]) off -= o.len[seg++];
+  ((T*)o.p[seg])[off] = fromf<T>(s);
+}
+
+// One weight-gradient product of a backward: C[:, col0:col0+N] (row
+// stride ldc) = A^T B over R rows.
+struct Product {
+  const void* A;
+  int lda;
+  const void* B;
+  int ldb;
+  long R;
+  int K, N;
+  void* C;
+  int ldc, col0;
+};
+
+int splits(long R, int K, int N) {
+  const int tiles = ((K + kTile - 1) / kTile) * ((N + kTile - 1) / kTile);
+  const long most = R / 128 > 1 ? R / 128 : 1;  // >= 128 rows a segment
+  const long want = (kTargetCtas + tiles - 1) / tiles;
+  return (int)(want < most ? want : most);
+}
+
+// The backward's weight products, in the order they are launched; the
+// pointers are those of `a` and of the grads (null when only sizing).
+int products(bool cls, const BwdArgs& a, void* const* g, int B, Product* p) {
+  const int n = a.n, d = a.m.d, inner = a.m.heads * a.m.dh, mlp = a.m.mlp;
+  const long rows = (long)B * n, rq = cls ? B : rows;
+  int k = 0;
+  if (cls) {
+    p[k++] = {a.s[0], n * d, a.s[10], inner, (long)B, d, inner, g[2],
+              3 * inner, 0};
+    p[k++] = {a.s[0], d, a.s[8], 2 * inner, rows, d, 2 * inner, g[2],
+              3 * inner, inner};
+  } else {
+    p[k++] = {a.s[0], d, a.s[8], 3 * inner, rows, d, 3 * inner, g[2],
+              3 * inner, 0};
+  }
+  p[k++] = {a.s[2], inner, a.s[6], d, rq, inner, d, g[3], d, 0};
+  p[k++] = {a.s[3], d, a.s[5], mlp, rq, d, mlp, g[7], mlp, 0};
+  p[k++] = {a.s[4], mlp, a.dy, d, rq, mlp, d, g[9], d, 0};
+  return k;
+}
+
+struct Workspace {
+  size_t slot[kSlots], vec, part, total;
+};
+
+Workspace workspace(bool cls, size_t esize, int B, int n, int d, int heads,
+                    int dh, int mlp) {
+  const size_t inner = (size_t)heads * dh, rq = cls ? 1 : n;
+  const size_t qkv = cls ? 2 * inner : 3 * inner;
+  const size_t elems[kSlots] = {
+      (size_t)n * d, n * qkv, rq * inner, rq * d, rq * mlp, rq * mlp,
+      rq * d, rq * inner, n * qkv, cls ? inner : 0, cls ? inner : 0};
+  Workspace w;
+  size_t off = 0;
+  for (int s = 0; s < kSlots; ++s) {
+    w.slot[s] = off;
+    off = align16(off + esize * B * elems[s]);
+  }
+  w.vec = off;
+  off = align16(off + sizeof(float) * B * (6 * (size_t)d + mlp));
+  BwdArgs a = {};
+  a.n = n;
+  a.m.d = d;
+  a.m.heads = heads;
+  a.m.dh = dh;
+  a.m.mlp = mlp;
+  void* g[11] = {};
+  Product p[5];
+  size_t part = 0;
+  for (int i = 0, k = products(cls, a, g, B, p); i < k; ++i) {
+    const size_t e = (size_t)splits(p[i].R, p[i].K, p[i].N) * p[i].K * p[i].N;
+    part = e > part ? e : part;
+  }
+  w.part = off;
+  w.total = align16(off + sizeof(float) * part);
+  return w;
+}
+
+template <typename T>
+int launch_bwd(bool cls, BwdArgs& a, void* const* g, unsigned char* ws,
+               int B, cudaStream_t stream) {
+  const Workspace w = workspace(cls, sizeof(T), B, a.n, a.m.d, a.m.heads,
+                                a.m.dh, a.m.mlp);
+  for (int s = 0; s < kSlots; ++s) a.s[s] = ws + w.slot[s];
+  a.vec = (float*)(ws + w.vec);
+  float* part = (float*)(ws + w.part);
+  const BwdSmem L(a.n, a.m.d, a.m.hc);
+  int err = cls ? launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a)
+                : launch_smem(block_bwd_kernel<T>, B, L.total, stream, a);
+  if (err != cudaSuccess) return err;
+  Product p[5];
+  const int k = products(cls, a, g, B, p);
+  for (int i = 0; i < k; ++i) {
+    const int S = splits(p[i].R, p[i].K, p[i].N);
+    const long seg = (p[i].R + S - 1) / S;
+    const dim3 grid((p[i].K + kTile - 1) / kTile, (p[i].N + kTile - 1) / kTile,
+                    S);
+    wgrad_kernel<T><<<grid, kThreads, 0, stream>>>(
+        (const T*)p[i].A, p[i].lda, (const T*)p[i].B, p[i].ldb, p[i].R,
+        p[i].K, p[i].N, seg, part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long kn = (long)p[i].K * p[i].N;
+    wgrad_finish<T><<<(unsigned)((kn + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(part, S, p[i].K, p[i].N, (T*)p[i].C, p[i].ldc,
+                                p[i].col0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int d = a.m.d, L_ = 6 * d + a.m.mlp;
+  // row-sum layout an_s, an_b, bout, fn_s, fn_b, b2, b1 -> grads 0 1 4 5 6 10 8
+  VecOut o = {{g[0], g[1], g[4], g[5], g[6], g[10], g[8]},
+              {d, d, d, d, d, d, a.m.mlp}};
+  vec_finish<T><<<(L_ + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a.vec, B, L_, o);
+  return cudaGetLastError();
+}
+
+Dims dims(int d, int heads, int dim_head, int mlp, int hc_max, float scale) {
+  Dims m;
+  m.d = d;
+  m.heads = heads;
+  m.dh = dim_head;
+  m.mlp = mlp;
+  m.hc = mlp < hc_max ? mlp : hc_max;
+  m.scale = scale;
+  return m;
+}
+
+bool bad_shape(int batch, int n, int d, int heads, int dim_head, int mlp) {
+  return batch < 1 || n < 1 || d < 1 || heads < 1 || dim_head < 1 ||
+         mlp < 1 || heads > n;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
+// ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
+// (B, n, d) or, with cls, (B, d). Returns a cudaError_t (0 = launched).
+int block_forward_launch(int dtype, int cls, const void* const* ptrs,
+                         int batch, int n, int d, int heads, int dim_head,
+                         int mlp, float scale, void* stream) {
+  if (bad_shape(batch, n, d, heads, dim_head, mlp))
+    return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.x = ptrs[0];
+  for (int i = 0; i < 11; ++i) a.w[i] = ptrs[1 + i];
+  a.out = (void*)ptrs[12];
+  a.n = n;
+  a.m = dims(d, heads, dim_head, mlp, 256, scale);
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t bf = Smem<__nv_bfloat16>(n, d, heads, dim_head, a.m.hc).total;
+  const size_t f32 = Smem<float>(n, d, heads, dim_head, a.m.hc).total;
+  if (dtype == 1)
+    return cls ? launch_smem(block_fwd_kernel<__nv_bfloat16, true>, batch, bf,
+                             s, a)
+               : launch_smem(block_fwd_kernel<__nv_bfloat16, false>, batch,
+                             bf, s, a);
+  return cls ? launch_smem(block_fwd_kernel<float, true>, batch, f32, s, a)
+             : launch_smem(block_fwd_kernel<float, false>, batch, f32, s, a);
+}
+
+// Bytes of device workspace block_backward_launch needs for these shapes.
+size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
+                                int heads, int dim_head, int mlp) {
+  return workspace(cls != 0, dtype == 1 ? 2 : 4, batch, n, d, heads,
+                   dim_head, mlp)
+      .total;
+}
+
+// K2b (cls = 0) and K3b (cls = 1). ptrs: x (B, n, d), dy (B, n, d) or,
+// with cls, (B, d), 11 weights, dx (B, n, d), 11 grads (weight shapes, in
+// the compute dtype), workspace (block_backward_workspace bytes).
+int block_backward_launch(int dtype, int cls, const void* const* ptrs,
+                          int batch, int n, int d, int heads, int dim_head,
+                          int mlp, float scale, void* stream) {
+  if (bad_shape(batch, n, d, heads, dim_head, mlp))
+    return cudaErrorInvalidValue;
+  BwdArgs a = {};
+  a.x = ptrs[0];
+  a.dy = ptrs[1];
+  for (int i = 0; i < 11; ++i) a.w[i] = ptrs[2 + i];
+  a.dx = (void*)ptrs[13];
+  a.n = n;
+  a.m = dims(d, heads, dim_head, mlp, 128, scale);
+  void* g[11];
+  for (int i = 0; i < 11; ++i) g[i] = (void*)ptrs[14 + i];
+  unsigned char* ws = (unsigned char*)ptrs[25];
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, a, g, ws, batch, s)
+                    : launch_bwd<float>(cls != 0, a, g, ws, batch, s);
+}
+
+const char* block_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,14 +1,15 @@
-"""Plain PyTorch pieces of the fused pre-norm transformer block.
+"""The fused pre-norm transformer block (K2): its plain PyTorch pieces,
+its hand-written backward, and the kernel wrappers.
 
 Counterpart of `dgvit_tpu/ops/fused_transformer.py`. The whole-trunk
-kernel (`ops/got_megakernel.py`) and its plain version share these, and a
-later per-block kernel will too. They follow the TPU kernel body
-(`_block_body`), not the JAX package's unfused twin `_block_xla`, in the
-two places where those differ:
+kernels (`ops/got_megakernel.py`), the CLS-only block (`ops/cls_block.py`)
+and this block share the plain pieces. They follow the TPU kernel bodies
+(`_block_body`, `_block_bwd_body`), not the JAX package's unfused twin
+`_block_xla`, in the two places where those differ:
 
   * GELU is the tanh form when the compute dtype is bf16 and an erf
-    polynomial accurate to fp32 otherwise (`_gelu32`); the twin always
-    uses erf;
+    polynomial accurate to fp32 otherwise (`_gelu32`, and its derivative
+    `_gelu_grad32`); the twin always uses erf;
   * attention probabilities are cast to the compute dtype before P.V.
 
 Numerics: norm statistics, softmax and every accumulation run in fp32;
@@ -19,18 +20,29 @@ tensor-core product with fp32 accumulation computes).
 A block's 11 parameters come in the kernel's order:
 (attn_norm scale, attn_norm bias, wqkv (d, 3*inner), wout (inner, d),
  bout, ff_norm scale, ff_norm bias, w1 (d, mlp), b1, w2 (mlp, d), b2),
-matrices stored (in, out); vectors (1, n) or (n,).
+matrices stored (in, out); vectors (n,).
+
+`fused_transformer_block` is differentiable: `block_fwd_fused` (K2f) and
+`block_bwd_fused` (K2b) launch the CUDA kernels of `csrc/block_grad.cu`
+for CUDA tensors and run `block_fwd_plain` / `block_bwd_plain` for CPU
+tensors; nothing else picks between them. `block_bwd_plain` is written by
+hand after `_block_bwd_body`, not taken from autograd of `block_plain`:
+in bf16 the two round at different points.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
 _INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -105,3 +117,277 @@ def block_plain(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
     x32 = x32 + (_mm(o, wout) + _f32(bout).reshape(-1))
     h = _ln(x32, fn_s, fn_b).to(cdt)
     return x32 + _mlp(h, w1, b1, w2, b2, cdt)
+
+
+def block_fwd_plain(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
+                    dim_head: int) -> torch.Tensor:
+    """Plain version of K2f: (B, n, d) -> (B, n, d), compute dtype."""
+    return block_plain(_f32(x), w, heads=heads, dim_head=dim_head,
+                       cdt=x.dtype).to(x.dtype)
+
+
+def _gelu_grad32(z: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """d gelu / dz in `_gelu32`'s form: the tanh form's derivative for a
+    bf16 compute dtype, Phi(z) + z phi(z) with the erf polynomial for
+    fp32."""
+    if cdt == torch.bfloat16:
+        z2 = z * z
+        inner = _SQRT_2_OVER_PI * (z + _GELU_C * z * z2)
+        t = torch.tanh(inner)
+        dinner = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * z2)
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * dinner
+    phi = 0.5 * (1.0 + _erf32(z * _INV_SQRT2))
+    return phi + z * _INV_SQRT_2PI * torch.exp(-0.5 * z * z)
+
+
+def _ln_stats(x32, scale, bias, eps: float = 1e-5):
+    """LayerNorm forward keeping what its backward needs: (xhat, rstd, y)."""
+    m = x32.mean(dim=-1, keepdim=True)
+    v = (x32 - m).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(v + eps)
+    xhat = (x32 - m) * rstd
+    return xhat, rstd, xhat * scale + _f32(bias).reshape(-1)
+
+
+def _ln_bwd(dh32, xhat, rstd, scale):
+    """LayerNorm backward from the fp32 grad of its output: (dx, dscale,
+    dbias), the parameter grads summed over every row."""
+    dxhat = dh32 * scale
+    rows = (dh32 * xhat).reshape(-1, dh32.shape[-1])
+    mean_d = dxhat.mean(dim=-1, keepdim=True)
+    mean_dx = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (dxhat - mean_d - xhat * mean_dx)
+    return dx, rows.sum(dim=0), dh32.reshape(-1, dh32.shape[-1]).sum(dim=0)
+
+
+def _tmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^T B over every row of (..., K) and (..., N): (K, N) in fp32."""
+    return _f32(a).reshape(-1, a.shape[-1]).t() @ _f32(b).reshape(
+        -1, b.shape[-1])
+
+
+def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, n, heads * dh) -> (B, heads, n, dh)."""
+    b, n, inner = t.shape
+    return t.reshape(b, n, heads, inner // heads).transpose(1, 2)
+
+
+def _merge(t: torch.Tensor) -> torch.Tensor:
+    """(B, heads, n, dh) -> (B, n, heads * dh)."""
+    b, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def _grads_like(grads, w) -> Tuple[torch.Tensor, ...]:
+    """fp32 grads cast to each weight's dtype and shape, as the TPU kernel
+    casts its accumulators to the weight dtype."""
+    return tuple(g.reshape(t.shape).to(t.dtype) for g, t in zip(grads, w))
+
+
+def block_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
+                    w: Sequence[torch.Tensor], heads: int, dim_head: int):
+    """Plain version of K2b, step by step after `_block_bwd_body`.
+
+    x, dy: (B, n, d) in the compute dtype. Recomputes the forward, then
+    returns (dx in the compute dtype, the 11 weight grads in the weights'
+    dtype). Rounded to the compute dtype before their products: dy, dpre,
+    g1, do and dqkv; ds after the scale; dv takes the rounded
+    probabilities, ds the unrounded ones."""
+    an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, w2, b2 = w
+    cdt = x.dtype
+    inner = heads * dim_head
+    scale = dim_head ** -0.5
+    x32, dy32, dy_c = _f32(x), _f32(dy), dy.to(cdt)
+
+    # recompute the forward: LN1 -> qkv -> attention -> x1 -> LN2
+    a_s32 = _f32(an_s).reshape(-1)
+    xhat1, rstd1, h1_32 = _ln_stats(x32, a_s32, an_b)
+    h1 = h1_32.to(cdt)
+    qkv = _mm(h1, wqkv).to(cdt)
+    q, k, v = (_heads(qkv[..., i * inner:(i + 1) * inner], heads)
+               for i in range(3))
+    s = _f32(q) @ _f32(k).transpose(-1, -2) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p32 = e / e.sum(dim=-1, keepdim=True)
+    p_c = p32.to(cdt)
+    o = _merge((_f32(p_c) @ _f32(v)).to(cdt))
+    x1 = x32 + (_mm(o, wout) + _f32(bout).reshape(-1))
+    f_s32 = _f32(fn_s).reshape(-1)
+    xhat2, rstd2, h2_32 = _ln_stats(x1, f_s32, fn_b)
+    h2 = h2_32.to(cdt)
+
+    # MLP forward + backward
+    pre = _mm(h2, w1) + _f32(b1).reshape(-1)
+    hid = _gelu32(pre, cdt).to(cdt)
+    dpre = _mm(dy_c, w2.t()) * _gelu_grad32(pre, cdt)
+    dpre_c = dpre.to(cdt)
+    dw1, db1 = _tmm(h2, dpre_c), dpre.reshape(-1, dpre.shape[-1]).sum(dim=0)
+    dw2, db2 = _tmm(hid, dy_c), dy32.reshape(-1, dy32.shape[-1]).sum(dim=0)
+    dh2 = _mm(dpre_c, w1.t())
+    dln2_x, dfs, dfb = _ln_bwd(dh2, xhat2, rstd2, f_s32)
+    g1 = dy32 + dln2_x
+    g1_c = g1.to(cdt)
+
+    # attention backward
+    dbout = g1.reshape(-1, g1.shape[-1]).sum(dim=0)
+    dwout = _tmm(o, g1_c)
+    do_h = _heads(_mm(g1_c, wout.t()).to(cdt), heads)
+    dv = _f32(p_c).transpose(-1, -2) @ _f32(do_h)
+    dp = _f32(do_h) @ _f32(v).transpose(-1, -2)
+    ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
+    ds = _f32((ds * scale).to(cdt))
+    dq = ds @ _f32(k)
+    dk = ds.transpose(-1, -2) @ _f32(q)
+    dqkv_c = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(cdt)
+    dwqkv = _tmm(h1, dqkv_c)
+    dh1 = _mm(dqkv_c, wqkv.t())
+    dln1_x, das, dab = _ln_bwd(dh1, xhat1, rstd1, a_s32)
+    dx = (g1 + dln1_x).to(cdt)
+    return dx, _grads_like((das, dab, dwqkv, dwout, dbout, dfs, dfb, dw1,
+                            db1, dw2, db2), w)
+
+
+def check_block_args(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
+                     dim_head: int, dy: torch.Tensor = None,
+                     cls: bool = False) -> None:
+    """Raise on what the block kernels do not take: another dtype than fp32
+    or bf16, tensors on another device or of another dtype than x, wrong
+    shapes, non-contiguous tensors."""
+    cdt = x.dtype
+    if cdt not in _DTYPES:
+        raise TypeError(f"compute dtype {cdt}: the kernel takes fp32 or bf16")
+    if x.dim() != 3:
+        raise ValueError(f"x of shape {tuple(x.shape)}: expected (B, n, d)")
+    b, n, d = x.shape
+    inner = heads * dim_head
+    mlp = w[7].shape[-1]
+    shapes = [(d,), (d,), (d, 3 * inner), (inner, d), (d,), (d,), (d,),
+              (d, mlp), (mlp,), (mlp, d), (d,)]
+    want = list(zip(w, shapes))
+    if dy is not None:
+        want.append((dy, (b, d) if cls else (b, n, d)))
+    for t, shape in [(x, (b, n, d))] + want:
+        if t.device != x.device or t.dtype != cdt:
+            raise TypeError(f"tensor of {t.dtype} on {t.device}; x is "
+                            f"{cdt} on {x.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"tensor of shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+    if heads > n:
+        raise ValueError(f"{heads} heads over {n} rows")
+
+
+@functools.cache
+def _block_lib() -> ctypes.CDLL:
+    """The built per-block kernel library with its C signatures declared
+    (built and loaded at the first launch, never at import)."""
+    from dgvit_tpu_torch.ops import _build
+
+    lib = _build.load("block_grad")
+    shape = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    for fn in (lib.block_forward_launch, lib.block_backward_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + shape
+    lib.block_backward_workspace.restype = ctypes.c_size_t
+    lib.block_backward_workspace.argtypes = [ctypes.c_int] * 8
+    lib.block_error_string.restype = ctypes.c_char_p
+    lib.block_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp) -> None:
+    lib = _block_lib()
+    b, n, d = x.shape
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[dtype], int(cls), ctypes.cast(ptrs, ctypes.c_void_p),
+                 b, n, d, heads, dim_head, mlp, dim_head ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError("block_grad launch failed: "
+                           + lib.block_error_string(err).decode())
+
+
+def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool):
+    """K2f (cls False) or K3f (cls True) on CUDA tensors."""
+    b, n, d = x.shape
+    out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
+                      device=x.device)
+    _call(_block_lib().block_forward_launch, x.dtype, cls, [x, *w, out], x,
+          heads, dim_head, w[7].shape[-1])
+    return out
+
+
+def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
+    """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads)."""
+    b, n, d = x.shape
+    mlp = w[7].shape[-1]
+    nbytes = _block_lib().block_backward_workspace(
+        _DTYPES[x.dtype], int(cls), b, n, d, heads, dim_head, mlp)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(t) for t in w]
+    _call(_block_lib().block_backward_launch, x.dtype, cls,
+          [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp)
+    return dx, tuple(grads)
+
+
+def block_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
+                    dim_head: int) -> torch.Tensor:
+    """K2f: one full pre-norm block, (B, n, d) -> (B, n, d) in the compute
+    dtype (fp32 or bf16), every row a valid token. CUDA tensors go to the
+    kernel (and raise if it cannot run); CPU tensors to `block_fwd_plain`.
+    `block_fwd_fused.launches` counts kernel launches."""
+    check_block_args(x, w, heads, dim_head)
+    if x.device.type == "cuda":
+        out = launch_block_fwd(x, w, heads, dim_head, cls=False)
+        block_fwd_fused.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return block_fwd_plain(x, w, heads, dim_head)
+
+
+def block_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
+                    w: Sequence[torch.Tensor], heads: int, dim_head: int):
+    """K2b: the block's backward from its input x and the grad dy of its
+    output, both (B, n, d): (dx, the 11 weight grads), all in the compute
+    dtype. CUDA tensors go to the kernel; CPU tensors to
+    `block_bwd_plain`. `block_bwd_fused.launches` counts kernel launches."""
+    check_block_args(x, w, heads, dim_head, dy=dy)
+    if x.device.type == "cuda":
+        out = launch_block_bwd(x, dy, w, heads, dim_head, cls=False)
+        block_bwd_fused.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return block_bwd_plain(x, dy, w, heads, dim_head)
+
+
+block_fwd_fused.launches = 0
+block_bwd_fused.launches = 0
+
+
+class _FusedBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, heads, dim_head, *w):
+        ctx.save_for_backward(x, *w)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        return block_fwd_fused(x, w, heads, dim_head)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *w = ctx.saved_tensors
+        dx, grads = block_bwd_fused(x, dy.contiguous(), w, ctx.heads,
+                                    ctx.dim_head)
+        return (dx, None, None, *grads)
+
+
+def fused_transformer_block(x: torch.Tensor, w: Sequence[torch.Tensor],
+                            heads: int, dim_head: int) -> torch.Tensor:
+    """Differentiable full pre-norm block: forward K2f, backward K2b.
+    x (B, n, d) and the 11 weights in the compute dtype; gradients reach
+    x and every weight, in the weights' dtype."""
+    return _FusedBlock.apply(x, heads, dim_head, *w)

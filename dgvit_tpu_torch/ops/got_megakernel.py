@@ -1,24 +1,29 @@
-"""Whole-trunk GoT forward: the K1 kernel and its plain version.
+"""Whole-trunk GoT forwards: K1 and K4, with their plain versions.
 
-Counterpart of `dgvit_tpu/ops/got_megakernel.py::got_forward_fused`. One
-call runs the whole inference trunk:
+Counterparts of `dgvit_tpu/ops/got_megakernel.py`:
 
-    patch-embed matmul + bias -> goal token prepended -> + positional
-    embedding -> depth-1 full pre-norm blocks -> a CLS-only final block
-    -> final RMS or Layer norm  =>  (B, dim) latent in the compute dtype.
+  * `got_forward_fused` (K1) runs the whole inference trunk:
+        patch-embed matmul + bias -> goal token prepended -> + positional
+        embedding -> depth-1 full pre-norm blocks -> a CLS-only final block
+        -> final RMS or Layer norm  =>  (B, dim) latent, compute dtype;
+  * `blocks_cls_forward_fused` (K4) runs the same trunk from the blocks on,
+    for a stream embedded outside the kernel (the no-grad forwards with
+    live emb-dropout). The JAX package's backward of K4 is the opt-in
+    whole-trunk kernel K6, not ported: no SAC path differentiates through
+    K4, and this wrapper raises if its input needs a gradient.
 
-`got_forward_fused` launches the hand-written CUDA kernel
-(`csrc/got_megakernel.cu`) for CUDA tensors and runs `got_forward_plain`
-for CPU tensors; nothing else picks between them. The plain version is the
-kernel's oracle: the CPU tests hold it against the JAX kernel, and the chip
-smoke test holds the kernel against it on the card.
+Both launch the hand-written CUDA kernels of `csrc/got_megakernel.cu` for
+CUDA tensors and run `got_forward_plain` / `blocks_forward_plain` for CPU
+tensors; nothing else picks between them. The plain versions are the
+kernels' oracles: the CPU tests hold them against the JAX kernels, and the
+chip smoke test holds the kernels against them on the card.
 
-Numerics follow the TPU kernel body (`_mega_kernel`): the embedding is
-rounded to the compute dtype before the positional add, the residual
-stream is rounded to the compute dtype after every block and after the CLS
-block, and the final norm runs in fp32 on the rounded CLS row. The TPU
-kernel pads 65 tokens to 72 and masks the padded keys; here padded rows
-are simply never formed.
+Numerics follow the TPU kernel bodies (`_mega_kernel`, `_blocks_kernel`):
+the embedding is rounded to the compute dtype before the positional add,
+the residual stream is rounded to the compute dtype after every block and
+after the CLS block, and the final norm runs in fp32 on the rounded CLS
+row. The TPU kernel pads 65 tokens to 72 and masks the padded keys; here
+padded rows are simply never formed.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from dgvit_tpu_torch.ops.fused_transformer import (_attention, _f32, _ln,
-                                                   _mlp, _mm, block_plain)
+from dgvit_tpu_torch.ops.cls_block import cls_block_plain
+from dgvit_tpu_torch.ops.fused_transformer import _f32, _ln, _mm, block_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NORMS = {"rms": 0, "layer": 1}
@@ -48,20 +53,19 @@ def _final_norm32(cls: torch.Tensor, fs: torch.Tensor, fb: torch.Tensor,
     return _ln(cls, fs, fb)
 
 
-def _block_plain_cls(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
-                     heads: int, dim_head: int, cdt: torch.dtype
-                     ) -> torch.Tensor:
-    """Final pre-norm block for the CLS row only: k/v from every row, q,
-    attention, out-proj and MLP on row 0. (B, n, d) fp32 -> (B, d) fp32."""
-    an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, w2, b2 = w
-    inner = heads * dim_head
-    h = _ln(x32, an_s, an_b).to(cdt)
-    kv = _mm(h, wqkv[:, inner:]).to(cdt)
-    q = _mm(h[:, :1], wqkv[:, :inner]).to(cdt)
-    o = _attention(q, kv[..., :inner], kv[..., inner:], heads, dim_head, cdt)
-    x1 = x32[:, 0] + (_mm(o[:, 0], wout) + _f32(bout).reshape(-1))
-    h2 = _ln(x1, fn_s, fn_b).to(cdt)
-    return x1 + _mlp(h2, w1, b1, w2, b2, cdt)
+def blocks_forward_plain(x: torch.Tensor, blocks, fn, heads: int,
+                         dim_head: int, final_norm: str) -> torch.Tensor:
+    """Plain PyTorch version of K4, on any device. Arguments as
+    `blocks_cls_forward_fused`."""
+    cdt = x.dtype
+    x32 = _f32(x)
+    for w in blocks[:-1]:
+        x32 = block_plain(x32, w, heads=heads, dim_head=dim_head, cdt=cdt)
+        x32 = _f32(x32.to(cdt))
+    cls = cls_block_plain(x32, blocks[-1], heads=heads, dim_head=dim_head,
+                          cdt=cdt)
+    cls = _f32(cls.to(cdt))
+    return _final_norm32(cls, fn[0], fn[1], final_norm).to(cdt)
 
 
 def got_forward_plain(patches, goal, pe, pos, blocks, fn, heads: int,
@@ -72,42 +76,30 @@ def got_forward_plain(patches, goal, pe, pos, blocks, fn, heads: int,
     cdt = patches.dtype
     emb = (_mm(patches, pe[0]) + _f32(pe[1]).reshape(-1)).to(cdt)
     x = torch.cat([goal[:, None, :].to(cdt), emb], dim=1)
-    x32 = _f32((_f32(x) + _f32(pos[:n_valid])[None]).to(cdt))
-    for w in blocks[:-1]:
-        x32 = block_plain(x32, w, heads=heads, dim_head=dim_head, cdt=cdt)
-        x32 = _f32(x32.to(cdt))
-    cls = _block_plain_cls(x32, blocks[-1], heads=heads, dim_head=dim_head,
-                           cdt=cdt)
-    cls = _f32(cls.to(cdt))
-    return _final_norm32(cls, fn[0], fn[1], final_norm).to(cdt)
+    x = (_f32(x) + _f32(pos[:n_valid])[None]).to(cdt)
+    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm)
 
 
-def _check(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
-           final_norm) -> None:
-    cdt = patches.dtype
-    if cdt not in _DTYPES:
-        raise TypeError(f"compute dtype {cdt}: the kernel takes fp32 or bf16")
-    if final_norm not in _NORMS:
-        raise ValueError(f"final_norm {final_norm!r}")
-    b, n_patch, pd = patches.shape
-    d = goal.shape[-1]
+def _want_trunk(blocks, fn, d: int, heads: int, dim_head: int, cdt):
+    """(tensor, shape, dtype) of every block weight and the final norm."""
     inner = heads * dim_head
     mlp = blocks[0][7].shape[1]
-    if n_valid != n_patch + 1:
-        raise ValueError(f"n_valid {n_valid} != n_patch + 1 = {n_patch + 1}:"
-                         " the kernel takes the full patch grid")
-    want = [(patches, (b, n_patch, pd), cdt), (goal, (b, d), cdt),
-            (pe[0], (pd, d), cdt), (pe[1], (d,), cdt),
-            (pos, (n_valid, d), cdt),
-            (fn[0], (d,), torch.float32), (fn[1], (d,), torch.float32)]
+    want = [(fn[0], (d,), torch.float32), (fn[1], (d,), torch.float32)]
     for w in blocks:
         shapes = [(d,), (d,), (d, 3 * inner), (inner, d), (d,), (d,), (d,),
                   (d, mlp), (mlp,), (mlp, d), (d,)]
         want += [(t, s, cdt) for t, s in zip(w, shapes)]
+    return want
+
+
+def _verify(want, device, cdt, final_norm: str) -> None:
+    if cdt not in _DTYPES:
+        raise TypeError(f"compute dtype {cdt}: the kernel takes fp32 or bf16")
+    if final_norm not in _NORMS:
+        raise ValueError(f"final_norm {final_norm!r}")
     for t, shape, dt in want:
-        if t.device != patches.device:
-            raise ValueError(f"tensor on {t.device}, patches on "
-                             f"{patches.device}")
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, input on {device}")
         if t.dtype != dt:
             raise TypeError(f"tensor of dtype {t.dtype}, expected {dt}")
         if tuple(t.shape) != shape:
@@ -115,6 +107,30 @@ def _check(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
                              f"{shape}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+
+
+def _check(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
+           final_norm) -> None:
+    cdt = patches.dtype
+    b, n_patch, pd = patches.shape
+    d = goal.shape[-1]
+    if n_valid != n_patch + 1:
+        raise ValueError(f"n_valid {n_valid} != n_patch + 1 = {n_patch + 1}:"
+                         " the kernel takes the full patch grid")
+    want = [(patches, (b, n_patch, pd), cdt), (goal, (b, d), cdt),
+            (pe[0], (pd, d), cdt), (pe[1], (d,), cdt),
+            (pos, (n_valid, d), cdt)]
+    _verify(want + _want_trunk(blocks, fn, d, heads, dim_head, cdt),
+            patches.device, cdt, final_norm)
+
+
+def _flat_vectors(blocks, fn):
+    """Block vectors and final-norm parameters as (n,) (the JAX layout
+    keeps them (1, n))."""
+    fn = tuple(t.reshape(-1) for t in fn)
+    blocks = [tuple(t.reshape(-1) if t.dim() == 2 and t.shape[0] == 1
+                    else t for t in w) for w in blocks]
+    return blocks, fn
 
 
 @functools.cache
@@ -127,6 +143,10 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.got_forward_launch.restype = ctypes.c_int
     lib.got_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.blocks_forward_launch.restype = ctypes.c_int
+    lib.blocks_forward_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p])
     lib.got_error_string.restype = ctypes.c_char_p
     lib.got_error_string.argtypes = [ctypes.c_int]
@@ -180,9 +200,7 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
     """
     pe = tuple(t.reshape(-1) if t.dim() == 2 and t.shape[0] == 1 else t
                for t in pe)
-    fn = tuple(t.reshape(-1) for t in fn)
-    blocks = [tuple(t.reshape(-1) if t.dim() == 2 and t.shape[0] == 1
-                    else t for t in w) for w in blocks]
+    blocks, fn = _flat_vectors(blocks, fn)
     _check(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
            final_norm)
     if patches.device.type == "cuda":
@@ -195,3 +213,64 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
 
 
 got_forward_fused.launches = 0
+
+
+def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm
+                   ) -> torch.Tensor:
+    lib = _kernel_lib()
+    b, n, d = x.shape
+    out = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.blocks_forward_launch(
+            _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
+            len(tensors), b, n, d, heads, dim_head, blocks[0][7].shape[1],
+            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError("blocks_cls_forward_fused launch failed: "
+                           + lib.got_error_string(err).decode())
+    blocks_cls_forward_fused.launches += 1
+    return out
+
+
+def blocks_cls_forward_fused(x: torch.Tensor,
+                             blocks: Sequence[Sequence[torch.Tensor]],
+                             fn: Tuple[torch.Tensor, torch.Tensor],
+                             heads: int, dim_head: int, final_norm: str
+                             ) -> torch.Tensor:
+    """Fused blocks -> CLS pool -> final norm (K4): (B, n, d) -> (B, d).
+
+    x:      (B, n, dim) embedded stream (goal token, patches, positional
+            embedding and dropout applied), compute dtype
+    blocks: per-block 11-tuples in the fused-transformer order, compute
+            dtype, matrices (in, out)
+    fn:     final-norm (scale, bias), each (dim,) fp32
+    Returns the (B, dim) latent in the compute dtype.
+
+    Forward only: raises if autograd would need a gradient of any input.
+    CUDA tensors go to the CUDA kernel (and raise if it cannot run); CPU
+    tensors go to the plain version. `blocks_cls_forward_fused.launches`
+    counts kernel launches.
+    """
+    blocks, fn = _flat_vectors(blocks, fn)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *fn, *[t for w in blocks
+                                                for t in w])):
+        raise RuntimeError("blocks_cls_forward_fused has no backward: call "
+                           "it under torch.no_grad() or on detached tensors")
+    b, n, d = x.shape
+    _verify([(x, (b, n, d), x.dtype)]
+            + _want_trunk(blocks, fn, d, heads, dim_head, x.dtype),
+            x.device, x.dtype, final_norm)
+    if heads > n:
+        raise ValueError(f"{heads} heads over {n} rows")
+    if x.device.type == "cuda":
+        return _launch_blocks(x, blocks, fn, heads, dim_head, final_norm)
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm)
+
+
+blocks_cls_forward_fused.launches = 0

@@ -41,7 +41,7 @@ def make_action_fn(cfg, params: Mapping[str, Any], env_units: bool = False,
     def act(obs, goal) -> np.ndarray:
         o = torch.as_tensor(np.asarray(obs, np.float32), device=dev)
         g = torch.as_tensor(np.asarray(goal, np.float32), device=dev)
-        a = torch.tanh(policy(o, g)[0])
+        a = torch.tanh(policy(o, g, inference=True)[0])
         if env_units:
             a = torch.clamp(a, -e.max_action, e.max_action)
             a = torch.stack([(a[..., 0] + 1.0) * e.linear_cmd_scale,

@@ -27,6 +27,7 @@ from dgvit_tpu.ops.got_megakernel import got_forward_fused as jax_fused
 from dgvit_tpu_torch.models.got import GoT
 from dgvit_tpu_torch.models.jax_io import params_from_jax
 from dgvit_tpu_torch.ops import fused_transformer as pft
+from dgvit_tpu_torch.ops.cls_block import cls_block_plain
 from dgvit_tpu_torch.ops.got_megakernel import (got_forward_fused,
                                                 got_forward_plain)
 
@@ -148,13 +149,13 @@ def test_matches_jax_xla_twin_fp32(final_norm):
 
 
 def test_got_module_routes_through_wrapper():
-    """GoT.forward on the CPU is the wrapper's plain version, bit for bit,
-    and launches no kernel."""
+    """GoT.forward's deterministic inference route on the CPU is the
+    wrapper's plain version, bit for bit, and launches no kernel."""
     tree = jax_got_tree(4, "rms")
     img, goal = inputs(5, 3)
     got = port_got(tree, "rms", torch.bfloat16)
     got_forward_fused.launches = 0
-    a = got(torch.from_numpy(img), torch.from_numpy(goal))
+    a = got(torch.from_numpy(img), torch.from_numpy(goal), inference=True)
     b = port_trunk(got, img, goal, torch.bfloat16, trunk=got_forward_plain)
     c = got_forward_plain(*got.trunk_args(torch.from_numpy(img),
                                           torch.from_numpy(goal)))
@@ -192,8 +193,8 @@ def test_bf16_catches_wrong_numerics(monkeypatch):
         for w in blocks[:-1]:
             x32 = pft.block_plain(x32, w, heads=heads, dim_head=dim_head,
                                   cdt=cdt)
-        cls = pgm._block_plain_cls(x32, blocks[-1], heads=heads,
-                                   dim_head=dim_head, cdt=cdt)
+        cls = cls_block_plain(x32, blocks[-1], heads=heads,
+                              dim_head=dim_head, cdt=cdt)
         return pgm._final_norm32(cls, *fn, final_norm).to(cdt)
 
     assert not close(no_residual_cast)

@@ -94,7 +94,8 @@ def test_policy_matches_jax_small(dtype):
     pol.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
-        out = pol(torch.from_numpy(obs), torch.from_numpy(goal))
+        out = pol(torch.from_numpy(obs), torch.from_numpy(goal),
+                  inference=True)
     tol = 2e-5 if dtype == "float32" else 2.0 ** -7
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.float().numpy(),
@@ -141,7 +142,7 @@ def test_golden_file_is_current(trained):
     pol = act.policy
     with torch.no_grad():
         lat = pol.trans(torch.from_numpy(obs),
-                        pol.fc_embed(torch.from_numpy(goal)))
+                        pol.fc_embed(torch.from_numpy(goal)), inference=True)
     np.testing.assert_allclose(lat.numpy(), g["latents"], rtol=1e-4,
                                atol=1e-4)
 

@@ -1,0 +1,321 @@
+"""The port's SAC update (dgvit_tpu_torch/agents/sac.py) against the JAX
+package's `SACAgent.learn`, on the CPU.
+
+One update, fp32, emb-dropout 0, from a JAX `SACTrainState` carried into
+the port after one JAX update (so the Adam moments and the counter are
+not at their initial values). The action noise is JAX's own row noise
+(`_row_noise_draw` on the step's keys), injected into the port. The JAX
+side runs its composed (non-Pallas) path, as on any CPU.
+
+Tolerances (fp32, another summation order on each side):
+  * metrics, log_alpha, gradients: rtol 1e-4, atol 1e-5;
+  * parameters after the Adam step and the Polyak-averaged target: the
+    two-level check of tests/test_shardmap.py. Nearly every element within
+    atol 5e-6 / rtol 1e-4, every element within 2.2 lr: an Adam step is
+    about lr * sign(g) where the moments are young, so a gradient element
+    near zero may flip its step.
+
+The port's fp32 update at the flagship width is also held to a golden
+file of the JAX update (tests/data/torch_sac_golden.npz), which
+chip_smoke.py holds the CUDA kernels' update to. Regenerate it with
+`python tests/test_torch_sac.py`.
+"""
+
+import copy
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgvit_tpu.agents.sac import SACAgent as JaxSACAgent
+from dgvit_tpu.config import Config as JaxConfig
+from dgvit_tpu_torch.agents import SACAgent
+from dgvit_tpu_torch.config import Config
+from dgvit_tpu_torch.models.jax_io import params_from_jax, sac_state_from_jax
+
+ROOT = Path(__file__).resolve().parent.parent
+SMALL = dict(latent_size=64, dim_head=16, mlp_dim=128, block=3, head=2,
+             image_size=[32, 40], emb_dropout=0.0)
+B = 6
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def make_batch(seed, b=B, hw=(32, 40)):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    return {"obs": f(b, *hw), "pobs": f(b, 2),
+            "act": rng.uniform(-1, 1, (b, 2)).astype(np.float32),
+            "rew": rng.normal(0, 1, (b, 1)).astype(np.float32),
+            "next_obs": f(b, *hw), "next_pobs": f(b, 2),
+            "done": np.zeros((b, 1), np.float32)}
+
+
+def step_noise(agent, state, b):
+    """The row noise JAX's learn draws at this state: the TD target's
+    next-action noise and the actor step's policy noise."""
+    key = jax.random.fold_in(state.rng, state.itera)
+    k_tgt, _, k_act = jax.random.split(key, 3)
+    a = agent.cfg.sac.action_dim
+    return (np.array(agent._row_noise_draw(jax.random.split(k_tgt, 3)[0],
+                                             b, a)),
+            np.array(agent._row_noise_draw(jax.random.split(k_act, 3)[0],
+                                             b, a)))
+
+
+def jax_grads(agent, state, batch):
+    """The critic and actor gradients of JAX's learn at this state."""
+    cgrads, agrads = jax.jit(lambda st, bt: _grads(agent, st, bt))(
+        state, batch)
+    return (params_from_jax(jax.tree_util.tree_map(np.asarray, cgrads)),
+            params_from_jax(jax.tree_util.tree_map(np.asarray, agrads)))
+
+
+def _grads(agent, state, batch):
+    key = jax.random.fold_in(state.rng, state.itera)
+    k_tgt, k_crit, k_act = jax.random.split(key, 3)
+    alpha = agent._alpha_of(state)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    target = agent._td_target(state, alpha, jb, k_tgt)
+
+    def critic_loss(cp):
+        q1, q2 = agent._apply_critic(cp, jb["obs"], jb["pobs"], jb["act"],
+                                     dropout_key=k_crit)
+        return (jnp.mean(jnp.square(q1 - target))
+                + jnp.mean(jnp.square(q2 - target)))
+
+    cgrads = jax.grad(critic_loss)(state.critic_params)
+    updated, _, _ = agent._critic_update(state, jb, target, k_crit)
+    k1, k2, k3 = jax.random.split(k_act, 3)
+
+    def actor_loss(ap):
+        s = agent._sample_actor(ap, jb["obs"], jb["pobs"], k1,
+                                dropout_key=k2)
+        q1, q2 = agent._apply_critic(updated.critic_params, jb["obs"],
+                                     jb["pobs"], s.action, dropout_key=k3,
+                                     inference=True)
+        return jnp.mean(alpha * s.log_prob - jnp.minimum(q1, q2))
+
+    return cgrads, jax.grad(actor_loss)(state.actor_params)
+
+
+def as_numpy(state):
+    return jax.tree_util.tree_map(np.asarray, state)
+
+
+def two_level_close(port, ref, lr=1e-3):
+    for name, t in port.items():
+        x, y = t.detach().float().numpy(), np.asarray(ref[name])
+        close = np.isclose(x, y, atol=5e-6, rtol=1e-4)
+        assert close.mean() >= 0.995, \
+            f"{name}: {(1 - close.mean()) * 100:.2f}% elements off"
+        assert np.abs(x - y).max() <= 2.2 * lr, name
+
+
+@pytest.fixture(scope="module")
+def update():
+    """One JAX update from a carried state, and the same update in the
+    port."""
+    jcfg = JaxConfig.from_dict({"model": SMALL})
+    jagent = JaxSACAgent(jcfg, row_noise=True)
+    s1, _ = jagent.learn(jagent.init_state(3), make_batch(1))
+    batch = make_batch(2)
+    noise = step_noise(jagent, s1, B)
+    grads = jax_grads(jagent, s1, batch)
+    carried = as_numpy(s1)
+    s2, metrics = jagent.learn(s1, batch)
+    agent = SACAgent(Config.from_dict({"model": SMALL}), device="cpu")
+    state = sac_state_from_jax(agent, carried)
+    state, port_metrics = agent.learn(state, batch, noise=noise)
+    return dict(jax=as_numpy(s2), jax_metrics=metrics, jax_grads=grads,
+                port=state, port_metrics=port_metrics, carried=carried)
+
+
+def test_state_carry(update):
+    """The carried state holds the JAX parameters, moments and counter."""
+    agent = SACAgent(Config.from_dict({"model": SMALL}), device="cpu")
+    state = sac_state_from_jax(agent, update["carried"])
+    c = update["carried"]
+    assert state.itera == int(c.itera) == 1
+    assert state.log_alpha.item() == pytest.approx(float(c.log_alpha))
+    ref = params_from_jax(c.critic_params)
+    for name, p in state.critic.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), ref[name])
+    mu = params_from_jax(c.actor_opt[0].mu)
+    for name, p in state.actor.named_parameters():
+        st = state.actor_opt.state[p]
+        assert float(st["step"]) == int(c.actor_opt[0].count)
+        np.testing.assert_array_equal(st["exp_avg"].numpy(), mu[name])
+
+
+def test_metrics_match_jax(update):
+    pm, jm = update["port_metrics"], update["jax_metrics"]
+    for k in ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
+              "entropy"):
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), err_msg=k,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("which", ["critic", "actor"])
+def test_grads_match_jax(update, which):
+    module = getattr(update["port"], which)
+    ref = update["jax_grads"][0 if which == "critic" else 1]
+    for name, p in module.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name], err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("which", ["actor", "critic", "critic_target"])
+def test_params_after_update_match_jax(update, which):
+    key = {"actor": "actor_params", "critic": "critic_params",
+           "critic_target": "critic_target_params"}[which]
+    port = dict(getattr(update["port"], which).named_parameters())
+    two_level_close(port, params_from_jax(getattr(update["jax"], key)))
+
+
+def test_log_alpha_and_counter_match_jax(update):
+    np.testing.assert_allclose(update["port"].log_alpha.item(),
+                               float(update["jax"].log_alpha), **TOL)
+    assert update["port"].itera == int(update["jax"].itera) == 2
+
+
+def small_agent(**sac):
+    return SACAgent(Config.from_dict({"model": SMALL, "sac": sac}),
+                    device="cpu", seed=5)
+
+
+def snapshot(module):
+    return [p.detach().clone() for p in module.parameters()]
+
+
+def changed(before, module):
+    return any(not torch.equal(a, b)
+               for a, b in zip(before, module.parameters()))
+
+
+def test_policy_freq_cadence():
+    """The target moves when itera % policy_freq == 0, before the
+    increment: at updates 0 and 2 of policy_freq 2, not at 1."""
+    agent = small_agent(policy_freq=2)
+    state = agent.init_state()
+    moved = []
+    for i in range(3):
+        before = snapshot(state.critic_target)
+        state, _ = agent.learn(state, make_batch(10 + i))
+        moved.append(changed(before, state.critic_target))
+    assert moved == [True, False, True] and state.itera == 3
+
+
+def test_nan_guard_rolls_back_and_advances():
+    agent = small_agent(nan_guard=True)
+    state = agent.init_state()
+    state, m = agent.learn(state, make_batch(20))
+    assert float(m["skipped_nonfinite"]) == 0.0
+    mods = (state.actor, state.critic, state.critic_target)
+    before = [snapshot(m_) for m_ in mods]
+    log_alpha = state.log_alpha.item()
+    moments = copy.deepcopy(state.critic_opt.state_dict())
+    bad = make_batch(21)
+    bad["rew"][0, 0] = np.nan
+    state, m = agent.learn(state, bad)
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert not np.isfinite(float(m["qf1_loss"]))
+    assert state.itera == 2
+    assert not any(changed(b, m_) for b, m_ in zip(before, mods))
+    assert state.log_alpha.item() == log_alpha
+    for k, v in moments["state"].items():
+        now = state.critic_opt.state_dict()["state"][k]
+        assert torch.equal(now["exp_avg"], v["exp_avg"])
+        assert float(now["step"]) == float(v["step"])
+
+
+@pytest.mark.parametrize("bound,start", [("alpha_max", 2.0),
+                                         ("alpha_min", 0.5)])
+def test_alpha_clamps(bound, start):
+    """The auto-tuned temperature starts beyond its bound (1.0); after one
+    update log_alpha sits on log(bound), where the same update without the
+    bound leaves it near log(start)."""
+    free = small_agent(alpha=start)
+    state, _ = free.learn(free.init_state(), make_batch(30))
+    assert abs(state.log_alpha.item() - np.log(start)) < 1e-3
+    agent = small_agent(alpha=start, **{bound: 1.0})
+    state, m = agent.learn(agent.init_state(), make_batch(30))
+    assert state.log_alpha.item() == 0.0
+    assert float(m["alpha"]) == pytest.approx(start)  # this step's alpha
+
+
+# --------------------------------------------------------------------------
+# the flagship golden update
+# --------------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "data" / "torch_sac_golden.npz"
+
+
+def test_port_update_matches_golden():
+    """The port's fp32 update at the flagship width, on the CPU, from the
+    golden state (trained actor, seeded critic) with the golden noise,
+    within chip_smoke.py's tolerances (stated there)."""
+    import chip_smoke
+
+    g = np.load(GOLDEN)
+    run = chip_smoke.golden_update("cpu", g)
+    bad, _ = chip_smoke.update_mismatches(run, chip_smoke.golden_ref(g))
+    assert not bad, bad
+
+
+def jax_golden():
+    """The JAX update of the golden state: metrics, per-parameter gradient
+    norms and update norms (port names), and the injected noise."""
+    import chip_smoke
+
+    cfg = JaxConfig.from_dict({"model": {"emb_dropout": 0.0}})
+    agent = JaxSACAgent(cfg, row_noise=True)
+    actor, critic = chip_smoke.golden_params()
+    s0 = agent.init_state(chip_smoke.GOLDEN_SAC_SEED)
+    unflat = lambda flat: jax.tree_util.tree_map(
+        jnp.asarray, chip_smoke.unflatten(flat))
+    ap, cp = unflat(actor), unflat(critic)
+    s0 = s0.replace(actor_params=ap, critic_params=cp,
+                    critic_target_params=jax.tree_util.tree_map(jnp.copy, cp),
+                    actor_opt=agent.actor_tx.init(ap),
+                    critic_opt=agent.critic_tx.init(cp))
+    batch = chip_smoke.golden_batch()
+    noise = step_noise(agent, s0, len(batch["rew"]))
+    cgrads, agrads = jax_grads(agent, s0, batch)
+    s0 = as_numpy(s0)          # learn donates the state it is given
+    s1, metrics = agent.learn(s0, batch)
+    out = {k: np.float32(metrics[k]) for k in chip_smoke.METRICS}
+    out["noise_next"], out["noise_pi"] = noise
+    norms = lambda d: {k: float(np.linalg.norm(v)) for k, v in d.items()}
+    grads = {**{f"critic.{k}": v for k, v in norms(cgrads).items()},
+             **{f"actor.{k}": v for k, v in norms(agrads).items()}}
+    upd = {}
+    for kind, key in (("actor", "actor_params"), ("critic", "critic_params"),
+                      ("critic_target", "critic_target_params")):
+        new = params_from_jax(as_numpy(getattr(s1, key)))
+        old = params_from_jax(as_numpy(getattr(s0, key)))
+        upd.update({f"{kind}.{k}": float(np.linalg.norm(
+            new[k].numpy() - old[k].numpy())) for k in new})
+    upd["log_alpha"] = float(abs(s1.log_alpha - s0.log_alpha))
+    for kind, d in (("grad", grads), ("update", upd)):
+        names = sorted(d)
+        out[f"{kind}_names"] = np.array(names)
+        out[f"{kind}_norms"] = np.array([d[n] for n in names], np.float64)
+    return out
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    sys.path.insert(0, str(ROOT))
+    import conftest  # noqa: F401  (pins JAX to the CPU)
+
+    data = jax_golden()
+    GOLDEN.parent.mkdir(exist_ok=True)
+    np.savez(GOLDEN, **data)
+    print(f"wrote {GOLDEN}: " + ", ".join(
+        f"{k} {float(data[k]):.6g}" for k in ("qf1_loss", "qf2_loss",
+                                              "policy_loss", "entropy")))
