@@ -7,7 +7,8 @@ Run from the root of a checkout on a host with a CUDA card, nvcc and
 nothing built: it builds the kernels itself (into build/kernels/, one nvcc
 per source, all at once), then
 
-  1. device: prints the card's name and power limit (nvidia-smi);
+  1. device: prints the card's name and power limit (nvidia-smi), and
+     the CUDA kernels behind K5's wrapper (torch.profiler);
   2. K1 against its plain version: the whole-trunk kernel
      (got_forward_fused) and got_forward_plain on the same inputs, with
      the trained flagship actor's weights
@@ -41,6 +42,32 @@ per source, all at once), then
   8. times: K1 and its plain version at B in {1, 32, 64, 2048}, and the
      training kernels at B=256 (median of CUDA-event timings), beside
      their bounds;
+  9. K5 against its plain version: the fused depth ingest
+     (preprocess_depth_fused) and preprocess_depth_plain on raw 512x640
+     frames at B in {1, 3, 32, 256}, sigma 0 and 50: uniform frames,
+     frames rendered by the port's kinematic env, a constant frame and
+     one of extreme range; two wrong chains (the band blur reflected at
+     the image's edges instead of the band's own; round instead of floor
+     in the normalisation) must FAIL the same limit; the noise's mean and
+     spread against the chain with torch.randn noise, determinism for a
+     seed, difference between seeds, frame-alone = frame-in-batch;
+ 10. camera to action, the third main path: 32 raw frames ->
+     preprocess_depth_auto (K5) -> make_action_fn with the trained actor
+     (K1) -> velocity commands, held against the plain path on the card,
+     with K5 and K1 launched exactly once each;
+ 11. train and evaluate, the fourth main path: train_rl.train at the
+     flagship width (bf16, batch 256) on the kinematic RRC env until
+     about 100 updates have run; every update launches exactly K4 x3,
+     K2f x6, K2b x6, K3f x2, K3b x2 and every action K1 x1; finite
+     metrics; a checkpoint is written, `resume` restores it and the next
+     update equals the one taken without the restart; the saved actor
+     reloads through load_params_npz -> params_from_jax and gives the
+     same actions; the same run again with sac.prefetch_batches, held to
+     the same launch counts; then run_eval for 3 episodes; env steps/s,
+     updates/s and the split of the loop into env, act, sample+copy and
+     learn, for both runs;
+ 12. times of K5 and its plain version at B in {1, 32, 256} beside its
+     bound;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -57,6 +84,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -72,9 +100,27 @@ TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
 # the SAC slice: kernel checks, the update's main path, its golden file
 TRAIN_BATCHES = {"bfloat16": (1, 32, 256), "float32": (1, 8)}
 SAC_BATCH, SAC_STEPS = 256, 5
-PER_UPDATE = {"K1": 0, "K4": 3, "K2f": 6, "K2b": 6, "K3f": 2, "K3b": 2}
+PER_UPDATE = {"K1": 0, "K4": 3, "K2f": 6, "K2b": 6, "K3f": 2, "K3b": 2,
+              "K5": 0}
 GOLDEN_SAC = ROOT / "tests" / "data" / "torch_sac_golden.npz"
 GOLDEN_SAC_SEED, GOLDEN_SAC_BATCH, CRITIC_SEED = 11, 8, 5
+
+# the ingest slice: K5's checks, the camera-to-action path, the trainer
+K5_BATCHES, K5_SIGMAS = (1, 3, 32, 256), (0.0, 50.0)
+K5_TIMED = ((1, 20), (32, 10), (256, 3))                   # (batch, reps)
+K5_PROFILED = 20           # calls in the window that names K5's CUDA kernels
+CAMERA_FRAMES, CAMERA_SEED = 32, 2024
+TRAIN_EPISODES, TRAIN_MAX_STEPS, TRAIN_BUFFER = 11, 52, 4096
+EVAL_EPISODES, EVAL_MAX_STEPS = 3, 100
+# K5 against its plain version. Both take every product and sum in fp32,
+# each rounded on its own and in the same order (the kernel through
+# __fmul_rn / __fadd_rn, the plain chain one PyTorch operation at a time),
+# and draw the same noise bits, so an H100 read max |err| = 0 on states in
+# [0, 1] at sigma 0 and 50 alike. The limit leaves a few fp32 roundings
+# (2^-20, about 8 ulps at 0.5); one u8 step of one input pixel moves a
+# state by up to 3.8e-4 and the wrong chains by more, so both fail it.
+K5_MAX = 2.0 ** -20
+K5_NOISE_STATS = 0.01      # mean and std of the states, as the JAX test
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside them, HBM3 bandwidth
@@ -614,6 +660,7 @@ def golden_update(device, g):
 def kernel_counters():
     """Each kernel wrapper of the port, by the kernel's short name."""
     from dgvit_tpu_torch.ops.cls_block import cls_bwd_fused, cls_fwd_fused
+    from dgvit_tpu_torch.ops.fused_preprocess import preprocess_depth_fused
     from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
                                                        block_fwd_fused)
     from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
@@ -621,7 +668,8 @@ def kernel_counters():
 
     return {"K1": got_forward_fused, "K4": blocks_cls_forward_fused,
             "K2f": block_fwd_fused, "K2b": block_bwd_fused,
-            "K3f": cls_fwd_fused, "K3b": cls_bwd_fused}
+            "K3f": cls_fwd_fused, "K3b": cls_bwd_fused,
+            "K5": preprocess_depth_fused}
 
 
 @contextlib.contextmanager
@@ -998,6 +1046,475 @@ def phase_profile(update):
     return busy / (wall * 1e3)
 
 
+# --------------------------------------------------------------------------
+# the ingest slice: K5, camera to action, train and evaluate
+# --------------------------------------------------------------------------
+
+def camera_frames(n, seed):
+    """`n` raw (512, 640) depth frames in metres and their polar goals, as
+    a depth camera on the port's kinematic robot would send them: the env
+    renders at the camera's own resolution while a seeded random walk
+    drives it."""
+    import numpy as np
+
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+
+    env = KinematicNavEnv(seed=seed, image_hw=(512, 640))
+    rng = np.random.default_rng(seed)
+    frames, goals = [], []
+    r = env.reset()
+    state, goal, t = r.state, r.to_goal, 0
+    while len(frames) < n:
+        frames.append(state[..., 0] * env.CAM_CLIP[1])
+        goals.append(goal[:2])
+        s = env.step([float(rng.uniform(0.1, 0.5)),
+                      float(rng.uniform(-1.0, 1.0))], t)
+        state, goal, t = s.state, s.to_goal, t + 1
+        if s.done or t >= 12:
+            r = env.reset()
+            state, goal, t = r.state, r.to_goal, 0
+    return (np.stack(frames).astype(np.float32),
+            np.stack(goals).astype(np.float32))
+
+
+def wrong_chain(raw, seed, sigma, fault):
+    """K5's plain chain with one fault: 'image-edge reflect' blurs the
+    whole image with the 11-tap kernel and pastes the band's rows, so the
+    blur reflects into the image instead of at the band's own edges;
+    'round' rounds where the normalisation truncates."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_preprocess as fp
+    from dgvit_tpu_torch.ops import preprocess as pp
+
+    x = raw.float()
+    if fault == "round":
+        lo = x.amin(dim=(-2, -1), keepdim=True)
+        hi = x.amax(dim=(-2, -1), keepdim=True)
+        x = torch.clamp(torch.round((x - lo) * (x.new_tensor(255.0)
+                        / torch.clamp(hi - lo, min=1e-20))), 0.0, 255.0)
+    else:
+        x = pp.normalize_depth_f32(x)
+    if sigma > 0.0:
+        seeds = seed + torch.arange(x.shape[0], device=x.device)
+        x = torch.clamp(x + sigma * fp.irwin_hall_noise(seeds, 512, 640),
+                        0.0, 255.0)
+    x = pp.gaussian_blur(x, 5)
+    if fault == "image-edge reflect":
+        y1, y2 = pp.center_band(512)
+        x = torch.cat([x[:, :y1], pp.gaussian_blur(x, 11)[:, y1:y2],
+                       x[:, y2:]], dim=1)
+    else:
+        x = pp.band_blur(x, 11)
+    x = pp.resize_bilinear(x, (128, 160))
+    return x / x.new_tensor(255.0)     # a tensor: a true division on CUDA
+
+
+def phase_k5(rng):
+    """Phase 9: K5 against its plain version, its wrong chains and its
+    noise."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_preprocess as fp
+    from dgvit_tpu_torch.ops import preprocess as pp
+
+    dev = torch.device(DEVICE)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev)
+    uniform = up(rng.uniform(0.3, 8.0, (max(K5_BATCHES), 512, 640)))
+    cases = [(f"uniform B={b}", uniform[:b].contiguous()) for b in K5_BATCHES]
+    constant = torch.full((1, 512, 640), 3.25, device=dev)
+    cases += [
+        ("env frames B=8", up(camera_frames(8, SEED)[0])),
+        ("constant B=1", constant),
+        ("extreme range B=2", up(rng.uniform(-1e30, 1e30, (2, 512, 640)))),
+    ]
+    worst = 0.0
+    for name, raw in cases:
+        for sigma in K5_SIGMAS:
+            out = fp.preprocess_depth_fused(raw, SEED, sigma)
+            torch.cuda.synchronize()
+            ref = fp.preprocess_depth_plain(raw, SEED, sigma)
+            check(out.shape == ref.shape == (raw.shape[0], 128, 160)
+                  and out.dtype == torch.float32, f"K5 output shape ({name})")
+            check(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
+                  and out.max().item() <= 1.0,
+                  f"K5 output outside [0, 1] ({name}, sigma {sigma})")
+            err = (out - ref).abs()
+            mx = err.max().item()
+            step = (err > 1e-4).float().mean().item()
+            print(f"K5 vs plain {name} sigma={sigma:g}: max|err| {mx:.3e}, "
+                  f"share of states off by a u8 step's worth (> 1e-4) "
+                  f"{step:.3e}, off at all {(err > 0).float().mean().item():.3e}"
+                  f" {'ok' if mx <= K5_MAX else 'FAIL'}", flush=True)
+            check(mx <= K5_MAX, f"K5 disagrees with its plain version "
+                  f"({name}, sigma {sigma})")
+            worst = max(worst, mx)
+    check(fp.preprocess_depth_fused(constant, 0, 0.0).abs().max().item()
+          == 0.0, "a constant frame must give zeros")
+
+    raw = uniform[:3].contiguous()
+    for fault in ("image-edge reflect", "round"):
+        for sigma in K5_SIGMAS:
+            out = fp.preprocess_depth_fused(raw, SEED, sigma)
+            err = (out - wrong_chain(raw, SEED, sigma, fault)).abs()
+            right = (out - wrong_chain(raw, SEED, sigma, None)).abs()
+            print(f"  wrong chain ({fault}) sigma={sigma:g}: max|err| "
+                  f"{err.max().item():.3e}, states over 1e-4 "
+                  f"{(err > 1e-4).float().mean().item():.3e} (the same "
+                  f"code without the fault: {right.max().item():.3e})",
+                  flush=True)
+            check(right.max().item() <= K5_MAX, "the chain the wrong "
+                  "versions are made from is not K5's plain version")
+            check(err.max().item() > K5_MAX,
+                  f"K5's limit passes a wrong chain ({fault})")
+
+    # noise: statistics against the chain with torch.randn noise, and the
+    # generator's contract
+    raw = uniform[:32].contiguous()
+    out = fp.preprocess_depth_fused(raw, 7, 50.0)
+    gen = torch.Generator(dev).manual_seed(7)
+    ref = pp.preprocess_depth(raw, gen, noise_level=50.0)
+    d_mean = abs(out.mean().item() - ref.mean().item())
+    d_std = abs(out.std().item() - ref.std().item())
+    again = fp.preprocess_depth_fused(raw, 7, 50.0)
+    other = fp.preprocess_depth_fused(raw, 8, 50.0)
+    alone = fp.preprocess_depth_fused(raw[5:6].contiguous(), 7 + 5, 50.0)
+    print(f"K5 noise at sigma 50, 32 frames: mean {out.mean().item():.5f} vs "
+          f"randn chain {ref.mean().item():.5f}, std {out.std().item():.5f} "
+          f"vs {ref.std().item():.5f}; same seed equal "
+          f"{torch.equal(out, again)}, next seed equal "
+          f"{torch.equal(out, other)}, frame 5 alone with seed + 5 equal "
+          f"{torch.equal(alone[0], out[5])}", flush=True)
+    check(d_mean <= K5_NOISE_STATS and d_std <= K5_NOISE_STATS,
+          "K5's noise statistics differ from the randn chain's")
+    check(torch.equal(out, again), "K5 is not deterministic for a seed")
+    check(not torch.allclose(out, other), "K5's seeds give the same noise")
+    check(not torch.allclose(out[0], out[1]), "K5's frames share their noise")
+    check(torch.equal(alone[0], out[5]), "K5: frame alone != frame in batch")
+    # seed + 1 shifts the frames' streams by one
+    check(torch.equal(other[4], fp.preprocess_depth_fused(
+        raw[4:5].contiguous(), 12, 50.0)[0]), "K5: seed + frame")
+    return worst
+
+
+def phase_camera(cfg, flat):
+    """Phase 10, a main path: raw camera frames to velocity commands."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.ops import preprocess_depth_auto
+    from dgvit_tpu_torch.ops.fused_preprocess import preprocess_depth_plain
+    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
+    from dgvit_tpu_torch.serve import make_action_fn
+
+    frames, goals = camera_frames(CAMERA_FRAMES, CAMERA_SEED)
+    raw = torch.from_numpy(frames).to(DEVICE)
+    act = make_action_fn(cfg, flat, env_units=True, device=DEVICE)   # bf16
+    act(preprocess_depth_auto(raw, CAMERA_SEED, 50.0), goals)        # warm
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = preprocess_depth_auto(raw, CAMERA_SEED, 50.0)
+    cmd = act(states, goals)
+    elapsed = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    e = cfg.env
+    with torch.no_grad():
+        ref_states = preprocess_depth_plain(raw, CAMERA_SEED, 50.0)
+        pol = act.policy
+        gl = torch.from_numpy(goals).to(DEVICE)
+        lat = got_forward_plain(*pol.trans.trunk_args(ref_states,
+                                                      pol.fc_embed(gl)))
+        a = torch.clamp(torch.tanh(pol.from_latent(lat)[0]).float(),
+                        -e.max_action, e.max_action)
+        ref = torch.stack([(a[:, 0] + 1.0) * e.linear_cmd_scale,
+                           a[:, 1] * e.angular_cmd_scale], dim=1).cpu().numpy()
+    worst = np.abs(cmd - ref).max()
+    print(f"camera to action: {CAMERA_FRAMES} raw frames -> commands in "
+          f"{elapsed * 1e3:.2f} ms (host clock, synchronized by the copy "
+          f"back); launches {launches}; linear in [{cmd[:, 0].min():.3f}, "
+          f"{cmd[:, 0].max():.3f}] m/s, angular in [{cmd[:, 1].min():.3f}, "
+          f"{cmd[:, 1].max():.3f}] rad/s; max|command - plain path| "
+          f"{worst:.3e}", flush=True)
+    check(cmd.shape == (CAMERA_FRAMES, 2) and bool(np.isfinite(cmd).all()),
+          "camera to action: shape or non-finite commands")
+    check(bool((cmd[:, 0] >= 0).all()
+               and (cmd[:, 0] <= 2 * e.linear_cmd_scale).all()
+               and (np.abs(cmd[:, 1]) <= e.angular_cmd_scale).all()),
+          "camera to action: commands outside the robot's range")
+    check(worst <= ACTION_BF16, "camera to action: kernels vs plain path")
+    want = {k: int(k in ("K5", "K1")) for k in counters}
+    check(launches == want, f"camera to action launched {launches}, "
+          f"expected {want}")
+    return launches
+
+
+def phase_train(out_dir):
+    """Phase 11, a main path: the env-in-the-loop trainer at the flagship
+    width, resume, the saved actor, and the evaluator."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.checkpoint import (latest_checkpoint,
+                                                 load_params_npz)
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.replay import (BatchPrefetcher, ReplayBuffer,
+                                        reference_schema)
+    from dgvit_tpu_torch.serve import make_action_fn
+    from dgvit_tpu_torch.train.evaluate import run_eval
+    from dgvit_tpu_torch.train.train_rl import train
+
+    cfg = Config.from_dict({
+        "model": {"compute_dtype": "bfloat16"},
+        "sac": {"batch_size": SAC_BATCH, "buffer_size": TRAIN_BUFFER},
+        "env": {"max_steps": TRAIN_MAX_STEPS},
+        "train": {"seed": SEED, "pre_buffer": False, "plot_interval": 10 ** 6,
+                  "reward_threshold": 1e9}})
+    m = cfg.model
+    check((m.block, m.head, m.dim_head, m.mlp_dim, m.latent_size,
+           tuple(m.image_size)) == (4, 4, 64, 2048, 64, (128, 160)),
+          "the trainer's model is not the flagship")
+    counters = kernel_counters()
+
+    def drive(cfg, out_dir, label):
+        """`train` from the seed for TRAIN_EPISODES episodes, with its
+        launch counts, metrics and the split of its loop checked."""
+        for fn in counters.values():
+            fn.launches = 0
+        timings = {}
+        env = KinematicNavEnv(seed=SEED, world="rrc")
+        t0 = time.perf_counter()
+        out = train(cfg, env, out_dir=out_dir, max_episodes=TRAIN_EPISODES,
+                    device=DEVICE, timings=timings)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps, updates = timings["env_steps"], timings["updates"]
+        print(f"train ({label}): {out['episodes']} episodes, {steps} env "
+              f"steps, {updates} updates in {wall:.2f} s (host clock); "
+              f"launches {launches}", flush=True)
+        check(updates >= 50 and out["state"].itera == updates,
+              f"the trainer ({label}) took {updates} updates, expected "
+              "about 100")
+        want = {**{k: n * updates for k, n in PER_UPDATE.items()},
+                "K1": steps}
+        check(launches == want, f"train ({label}) launched {launches}, "
+              f"expected {want}: every action K1 x1, every update K4 x3, "
+              "K2f x6, K2b x6, K3f x2, K3b x2")
+        rows = [json.loads(line) for line in
+                (Path(out_dir) / "train_gtrl_98.jsonl").read_text()
+                .splitlines()]
+        check(len(rows) == out["episodes"] and all(
+            math.isfinite(v) for r in rows for v in r.values()
+            if isinstance(v, float)),
+            f"non-finite training metrics ({label})")
+        check("qf1_loss" in rows[-1],
+              f"the last episode logged no SAC metrics ({label})")
+        loop = sum(timings[k] for k in ("env", "act", "sample", "learn"))
+        print(f"train loop ({label}): {steps / loop:.2f} env steps/s, "
+              f"{updates / loop:.3f} updates/s over the loop's {loop:.2f} s; "
+              f"per env step: env {timings['env'] / steps * 1e3:.3f} ms, act "
+              f"{timings['act'] / steps * 1e3:.3f} ms; per update: "
+              f"sample+copy {timings['sample'] / updates * 1e3:.3f} ms, "
+              f"learn {timings['learn'] / updates * 1e3:.3f} ms (host clock, "
+              f"synchronized); last episode: " + ", ".join(
+                  f"{k} {v:.5g}" for k, v in rows[-1].items()
+                  if k not in ("step", "wall_s")), flush=True)
+        return out, launches, {"env_steps_per_s": steps / loop,
+                               "updates_per_s": updates / loop}
+
+    out, launches, rates = drive(cfg, out_dir, "serial batches")
+    state, updates = out["state"], out["state"].itera
+
+    # the saved actor reloads through the flat npz and acts the same
+    agent = SACAgent(cfg, device=DEVICE, seed=SEED)
+    saved = sorted((Path(out_dir) / "models").glob("*_actor.npz"))
+    check(len(saved) == 1, f"saved actors: {saved}")
+    act = make_action_fn(cfg, load_params_npz(str(saved[0])), device=DEVICE)
+    obs, goal = golden_inputs()
+    with torch.no_grad():
+        direct = agent.act_batch(state.actor, obs, goal,
+                                 evaluate=True).float().cpu().numpy()
+    adiff = np.abs(act(obs, goal) - direct).max()
+    print(f"saved actor {saved[0].name}: reloaded actions differ from the "
+          f"train state's by {adiff:.3e}", flush=True)
+    check(adiff == 0.0, "the saved actor does not act as the trained one")
+
+    # a checkpoint was written; resume restores it, and the next update
+    # equals the one taken without the restart
+    latest = latest_checkpoint(str(Path(out_dir) / "checkpoints"))
+    check(latest is not None and latest.endswith(f"step_{updates}"),
+          f"no checkpoint of step {updates}: {latest}")
+    resumed = train(cfg, KinematicNavEnv(seed=SEED, world="rrc"),
+                    out_dir=out_dir, max_episodes=0, resume=True,
+                    device=DEVICE)["state"]
+    check(resumed is not state and resumed.itera == updates,
+          "resume did not restore the update counter")
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             golden_batch(seed=SEED + 1, b=SAC_BATCH).items()}
+    _, m1 = agent.learn(state, batch)
+    _, m2 = agent.learn(resumed, batch)
+    diff = max(abs(float(m1[k]) - float(m2[k])) for k in m1)
+    pdiff = max((a - b).abs().max().item()
+                for kind in ("actor", "critic", "critic_target")
+                for a, b in zip(getattr(state, kind).parameters(),
+                                getattr(resumed, kind).parameters()))
+    print(f"resume: the next update's metrics differ by {diff:.3e}, the "
+          f"parameters after it by {pdiff:.3e}", flush=True)
+    check(diff == 0.0 and pdiff == 0.0,
+          "the update after resume differs from the one without a restart")
+
+    # the prefetcher on the card: a background thread samples into pinned
+    # memory and copies on a side stream. Its batches are the rows the
+    # buffer's own sampler gives, and `train` with `sac.prefetch_batches`
+    # takes the same run from the same seed: the same launches per action
+    # and per update, its own split of the loop.
+    rows = {k: v[:, 0] if v.shape[1:] == (1,) else v for k, v in
+            golden_batch(seed=SEED + 2, b=300).items()}
+
+    def filled(seed):
+        buf = ReplayBuffer(512, reference_schema(), seed=seed)
+        buf.add(**rows, engage=np.zeros(300, np.float32))
+        return buf
+
+    def take(buf):
+        return {k: v for k, v in buf.sample(SAC_BATCH).items()
+                if k != "engage"}
+
+    ours, twin = filled(SEED), filled(SEED)
+    pf = BatchPrefetcher(lambda: take(ours), device=DEVICE)
+    try:
+        for _ in range(4):
+            got, want = next(pf), take(twin)
+            check(all(got[k].is_cuda and torch.equal(
+                got[k].cpu(), torch.from_numpy(want[k])) for k in want),
+                "a prefetched batch is not the sampler's batch")
+    finally:
+        pf.close()
+    cfg.sac.prefetch_batches = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as prefetch_dir:
+        _, _, prefetch_rates = drive(cfg, prefetch_dir, "prefetched batches")
+    cfg.sac.prefetch_batches = False
+    check(not [t for t in threading.enumerate()
+               if t.name == "BatchPrefetcher"],
+          "train left its prefetch thread running")
+
+    cfg.env.max_steps = EVAL_MAX_STEPS
+    for fn in counters.values():
+        fn.launches = 0
+    eval_env = KinematicNavEnv(seed=SEED + 1, world="rrc")
+    t0 = time.perf_counter()
+    rep = run_eval(cfg, eval_env, load_params_npz(str(saved[0])),
+                   max_episodes=EVAL_EPISODES, out_dir=out_dir,
+                   name=saved[0].name, device=DEVICE)
+    eval_s = time.perf_counter() - t0
+    k1 = counters["K1"].launches
+    print(f"run_eval: {EVAL_EPISODES} episodes, {k1} steps in {eval_s:.2f} s"
+          f" = {k1 / eval_s:.1f} steps/s (host clock, the actor's set-up included); "
+          f"{rep}", flush=True)
+    check(k1 >= EVAL_EPISODES and all(
+        fn.launches == 0 for k, fn in counters.items() if k != "K1"),
+        "run_eval did not act through K1 alone")
+    check(0.0 <= rep["success_rate"] <= 1.0 and rep["collisions"] >= 0
+          and (Path(out_dir) / "testing_data.txt").exists(),
+          "run_eval's report")
+    return launches, {**rates, "prefetch": prefetch_rates}
+
+
+def k5_work(batch, sigma):
+    """The least operations and bytes the function needs for `batch`
+    frames, whatever kernel computes it. Every pixel is behind some state
+    (a sampled row or column 4i+1, 4i+2 with the 5-tap halo reaches all of
+    them), so each takes 2 for the frame's min and max, 5 to normalise
+    (subtract, scale, floor, two clips) and, with noise, 20: one operation
+    for each of the three random words (the least any generator spends),
+    11 to add their 12 bytes, 2 for z, 2 for x + sigma z, 2 clips. A k-tap
+    pass costs 2k - 1 an output (k products, k - 1 sums) and runs only
+    where a state reads it: outside the band the 5-tap pass down the rows
+    on the 204 sampled rows, then along them at the sampled half of the
+    columns; in the band both 5-tap passes on all 102 rows (the 11-tap
+    pass down the rows reads every one), then the 11-tap passes on the 52
+    sampled rows and at the sampled columns of those. 10 per state for
+    the bilinear average and the division. Integer operations are counted
+    at the fp32 rate. Each frame is read once, each state written once."""
+    px, outs = 512 * 640, 128 * 160
+    band, sampled_band, sampled_rest = 102, 52, 256 - 52
+    taps5 = 9 * ((sampled_rest + band) * 640
+                 + sampled_rest * 320 + band * 640)
+    taps11 = 21 * (sampled_band * 640 + sampled_band * 320)
+    ops = px * (7 + (20 if sigma > 0 else 0)) + taps5 + taps11 + outs * 10
+    return batch * ops, batch * (px + outs) * 4
+
+
+def phase_k5_times(rng):
+    """Phase 12: K5 and its plain version, sigma 50."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_preprocess as fp
+
+    raw = torch.from_numpy(rng.uniform(0.3, 8.0, (256, 512, 640)).astype(
+        np.float32)).to(DEVICE)
+    rows = {}
+    for batch, reps in K5_TIMED:
+        x = raw[:batch].contiguous()
+        ms = cuda_ms(lambda: fp.preprocess_depth_fused(x, SEED, 50.0), reps,
+                     runs=5)
+        plain = cuda_ms(lambda: fp.preprocess_depth_plain(x, SEED, 50.0), 1,
+                        runs=5)
+        ops, nbytes = k5_work(batch, 50.0)
+        bnd, by = bound_ms(ops, nbytes, "float32")
+        rows[batch] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        print(f"K5 fp32 B={batch} sigma=50: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}: operations "
+              f"{ops / PEAK_FLOPS['float32'] * 1e3:.5f} ms, bytes "
+              f"{nbytes / PEAK_BYTES * 1e3:.5f} ms), "
+              f"{batch / ms * 1e3:.0f} frames/s", flush=True)
+
+    return rows
+
+
+def k5_cuda_kernels():
+    """The CUDA kernels behind K5's wrapper, from torch.profiler over
+    K5_PROFILED calls. It runs first, before any SAC update: once an
+    update has run in the process, an H100 gave back windows of a few
+    launches with their first device events missing, or with none. The
+    count is printed; the check is that no other kernel stands behind
+    the wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgvit_tpu_torch.ops import fused_preprocess as fp
+
+    x = torch.rand((CAMERA_FRAMES, 512, 640), device=DEVICE) * 8.0
+    fp.preprocess_depth_fused(x, SEED, 50.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(K5_PROFILED):
+            fp.preprocess_depth_fused(x, SEED, 50.0)
+        torch.cuda.synchronize()
+    ours = ("minmax_kernel", "preprocess_kernel")
+    counts = {next((n for n in ours if f"::{n}(" in e.key), e.key): e.count
+              for e in prof.key_averages()
+              if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    if not counts:
+        print("K5's CUDA kernels: no device events recorded (not measured)",
+              flush=True)
+        return
+    print(f"K5's CUDA kernels in {K5_PROFILED} calls of the wrapper "
+          f"(torch.profiler): {counts}", flush=True)
+    check(set(counts) == set(ours),
+          f"K5's wrapper should launch minmax_kernel and preprocess_kernel "
+          f"and nothing else, the profiler saw {counts}")
+
+
 KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
     "K1": ("got_forward_fused", "got_megakernel.cu",
            "dgvit_tpu/ops/got_megakernel.py:289"),
@@ -1011,6 +1528,8 @@ KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
             "dgvit_tpu/ops/cls_block.py:281"),
     "K3b": ("cls_bwd_fused", "block_grad.cu",
             "dgvit_tpu/ops/cls_block.py:320"),
+    "K5": ("preprocess_depth_fused", "depth_preprocess.cu",
+           "dgvit_tpu/ops/pallas_preprocess.py:205"),
 }
 
 
@@ -1030,6 +1549,8 @@ def main() -> int:
     from dgvit_tpu_torch.core.checkpoint import load_params_npz
     from dgvit_tpu_torch.models import build_actor, params_from_jax
     from dgvit_tpu_torch.ops import _build
+    from dgvit_tpu_torch.ops.fused_preprocess import \
+        _kernel_lib as _preprocess_lib
     from dgvit_tpu_torch.ops.fused_transformer import _block_lib
     from dgvit_tpu_torch.ops.got_megakernel import _kernel_lib
 
@@ -1044,11 +1565,11 @@ def main() -> int:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
-    # the kernel libraries, and beside them (all four nvcc at once) cubins
+    # the kernel libraries, and beside them (all six nvcc at once) cubins
     # of the same sources whose ptxas reports give registers and spills
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = ("got_megakernel", "block_grad")
+    sources = ("got_megakernel", "block_grad", "depth_preprocess")
     reports = [subprocess.Popen(
         [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
@@ -1060,9 +1581,10 @@ def main() -> int:
         _build.build(*sources)
         _kernel_lib()
         _block_lib()
+        _preprocess_lib()
     finally:
         outs = [p.communicate()[0] for p in reports]
-    print(f"built {' and '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
     for proc, report in zip(reports, outs):
         check(proc.returncode == 0, f"ptxas report failed:\n{report}")
         for line in report.splitlines():
@@ -1072,6 +1594,7 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
     sys.stdout.flush()
 
+    k5_cuda_kernels()
     cfg = Config()
     flat = load_params_npz(str(ACTOR))
     sd = params_from_jax(flat)
@@ -1093,8 +1616,14 @@ def main() -> int:
     sac_fp32 = phase_sac_fp32()
     phase_profile(one_update)
 
+    k5_worst = phase_k5(rng)
+    camera_launches = phase_camera(cfg, flat)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        loop_launches, loop_rates = phase_train(out_dir)
+
     times = phase_times(cfg, policies, rng)
     train_times = phase_train_times(nets, rng)
+    k5_times = phase_k5_times(rng)
 
     main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]
@@ -1115,8 +1644,11 @@ def main() -> int:
         "max_abs_err_fp32": worst["float32"],
         "by_batch": {str(b): v for b, v in times.items()},
     }]
+    rows[0]["launches_by_path"] = {
+        "serving": launches, "camera_to_action": camera_launches["K1"],
+        "train": loop_launches["K1"]}
     for short, (name, src, replaces) in KERNELS.items():
-        if short != "K1":
+        if short not in ("K1", "K5"):
             rows.append({
                 "name": name, "route": "cuda",
                 "source": f"dgvit_tpu_torch/ops/csrc/{src}",
@@ -1128,7 +1660,20 @@ def main() -> int:
                 "batch": SAC_BATCH, "dtype": "bfloat16",
                 "max_abs_err_fp32": train_worst[(short, "float32")],
                 "launches_per_update": PER_UPDATE[short],
+                "launches_by_path": {"sac_update": sac_launches[short],
+                                     "train": loop_launches[short]},
             })
+    name, src, replaces = KERNELS["K5"]
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+        "launches": camera_launches["K5"], "max_abs_err": k5_worst,
+        **k5_times[CAMERA_FRAMES], "library_ms": None,
+        "batch": CAMERA_FRAMES, "dtype": "float32", "noise_level": 50.0,
+        "by_batch": {str(b): v for b, v in k5_times.items()},
+    })
+    print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
+          f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "
           f"{1 / update_s:.3f}; fp32 update, largest relative differences: "
           f"{json.dumps(sac_fp32)}")

@@ -37,10 +37,13 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.device import resolve_device
 from dgvit_tpu_torch.models import distributions
+from dgvit_tpu_torch.models.jax_io import params_from_jax, params_to_jax
 from dgvit_tpu_torch.models.policies import (GoTPolicy, GoTQNetwork,
                                              build_actor, build_critic)
+from dgvit_tpu_torch.replay.staging import HostStager
 
 BATCH_KEYS = ("obs", "pobs", "act", "rew", "next_obs", "next_pobs")
 
@@ -85,6 +88,7 @@ class SACAgent:
         self.done_mask = bool(s.done_mask_in_target)
         self.nan_guard = bool(s.nan_guard)
         self.obs_ndim = 3 if cfg.model.patch_mode == "channels" else 2
+        self._act_stager = None     # pinned buffers of choose_action_host
 
     def init_state(self, seed: Optional[int] = None) -> SACState:
         seed = self.seed if seed is None else int(seed)
@@ -115,8 +119,9 @@ class SACAgent:
         """Batched action of an actor, no dropout, through the whole-trunk
         kernel: tanh(mean) with evaluate, else a sample (noise from
         `generator`)."""
-        o = torch.as_tensor(np.asarray(obs, np.float32), device=self.device)
-        p = torch.as_tensor(np.asarray(pobs, np.float32), device=self.device)
+        o, p = (x if isinstance(x, torch.Tensor) else
+                torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+                for x in (obs, pobs))
         mean, log_std = actor(o, p, inference=True)
         if evaluate:
             return torch.tanh(mean)
@@ -133,6 +138,21 @@ class SACAgent:
             obs, pobs = obs[None], pobs[None]
         a = self.act_batch(state.actor, obs, pobs, state.generator, evaluate)
         return a[0] if squeeze else a
+
+    def choose_action_host(self, state: SACState, obs, pobs,
+                           evaluate: bool = False) -> np.ndarray:
+        """One state's action as a numpy array: the env loop's acting
+        call. On the card the frame and the goal go up through pinned
+        staging buffers that are reused, and the host waits once, for the
+        action."""
+        if self._act_stager is None:
+            self._act_stager = HostStager(self.device)
+        dev, _ = self._act_stager.put(
+            {"obs": np.asarray(obs, np.float32)[None],
+             "pobs": np.asarray(pobs, np.float32)[None]})
+        a = self.act_batch(state.actor, dev["obs"], dev["pobs"],
+                           state.generator, evaluate)
+        return a[0].float().cpu().numpy()
 
     # ------------------------------------------------------------------
     # the update
@@ -243,6 +263,32 @@ class SACAgent:
                 self._restore(state, prev)
             metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
         return state, metrics
+
+    # ------------------------------------------------------------------
+    # checkpoint conveniences mirroring the DRL.py API surface
+    # ------------------------------------------------------------------
+    def save(self, state: SACState, filename: str, directory: str,
+             reward: float, seed: int, nb_col: int = 100):
+        """DRL.py:489-491: metric-encoded actor and critic exports, in the
+        JAX package's flat npz layout."""
+        name = ckpt.reference_name(filename, reward, seed, nb_col)
+        return tuple(ckpt.save_params_npz(
+            directory, name, params_to_jax(getattr(state, kind).state_dict()),
+            kind=kind) for kind in ("actor", "critic"))
+
+    def load(self, state: SACState, filename: str, directory: str,
+             actor_only: bool = False) -> SACState:
+        """DRL.py:493-503 load / load_actor, from flat npz files of either
+        package, in place."""
+        for kind in ("actor",) if actor_only else ("actor", "critic"):
+            getattr(state, kind).load_state_dict(params_from_jax(
+                ckpt.load_params_npz(f"{directory}/{filename}_{kind}.npz")))
+        return state
+
+    def load_target(self, state: SACState) -> SACState:
+        """DRL.py:499-500 hard_update(critic_target, critic), in place."""
+        state.critic_target.load_state_dict(state.critic.state_dict())
+        return state
 
     def _log(self, x: float) -> torch.Tensor:
         """log of a clamp bound, taken in fp32 as the JAX update takes it."""

@@ -1,9 +1,10 @@
-"""The serving and SAC-update subset of the typed configuration.
+"""The ported subset of the typed configuration.
 
 A copy of what the port reads from the JAX package's config: the model
 architecture and compute dtype, the SAC hyperparameters of the plain
-update, the action/goal sizes and the env-unit command scaling, with the
-same defaults and validation. Unknown keys raise, as there.
+update and its replay buffer, the env loop's limits and command scaling,
+and the training loop's thresholds, intervals and paths, with the same
+names, defaults and validation. Unknown keys raise, as there.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ class ModelConfig:
     of 4 heads x 64, MLP 2048, (128, 160) depth frames cut into 16x20
     patches."""
 
+    name: str = "gtrl"
     actor_type: str = "GaussianTransformer"
+    critic_type: str = "Transformer"
     backbone: str = "got"
     block: int = 4          # transformer depth
     head: int = 4           # attention heads
@@ -73,6 +76,10 @@ class ModelConfig:
             raise NotImplementedError(
                 f"actor {self.actor_type}/{self.backbone}: only the "
                 "GaussianTransformer GoT actor is ported")
+        if self.critic_type != "Transformer":
+            raise NotImplementedError(
+                f"critic {self.critic_type}: only the Transformer (GoT) "
+                "critic is ported")
 
 
 @dataclass
@@ -91,6 +98,14 @@ class SACConfig:
     auto_tune_alpha: bool = True
     policy_freq: int = 1     # soft-update cadence
     batch_size: int = 32
+    buffer_size: int = 30000
+    # True samples by priority and feeds |TD error| back (the PER update
+    # flavour, not ported: `train.train_rl.train` raises on it)
+    prioritized_replay: bool = False
+    # True overlaps replay sampling and the copy to the card with the
+    # update through a background BatchPrefetcher (replay/staging.py);
+    # batches are up to two steps stale, so opt-in
+    prefetch_batches: bool = False
     # True adds the (1 - done) mask the reference's TD target omits
     done_mask_in_target: bool = False
     # True rolls back an update whose losses are not finite (the step
@@ -129,10 +144,50 @@ class SACConfig:
 
 @dataclass
 class EnvConfig:
+    """Environment loop knobs (reference: env_lab.py:170-301,
+    config.yaml:43-48)."""
+
+    vis_sensor: str = "depth_image"   # image | fish_image | depth_image
+    max_steps: int = 800
+    max_episodes: int = 800
     linear_cmd_scale: float = 0.25    # L_SCALE
     angular_cmd_scale: float = 1.0    # A_SCALE
     max_action: float = 1.0
     frame_stack: int = 4              # channels count in patch_mode 'channels'
+    # True stacks the last `frame_stack` frames online (model.patch_mode
+    # must be 'channels'); the reference records such demos but never
+    # enables the live stack
+    use_frame_stack: bool = False
+
+    def validate(self):
+        if self.vis_sensor not in ("image", "fish_image", "depth_image"):
+            raise ValueError(f"vis_sensor {self.vis_sensor!r}")
+
+
+@dataclass
+class TrainConfig:
+    """The training loop's knobs (reference: config.yaml, main.py)."""
+
+    seed: int = 3407
+    desc: str = "98"
+    plot_interval: int = 10
+    eval_threshold: int = 80
+    eval_epoch: int = 5
+    save_interval: int = 50
+    save_threshold: float = 1.0
+    reward_threshold: float = 90.0
+    save: bool = True
+    # snapshot the replay transitions beside each periodic checkpoint, so a
+    # resumed run starts with a warm buffer (a full-size buffer is ~10 GB)
+    save_replay: bool = False
+    pre_train: bool = True
+    if_test: bool = False
+    pre_buffer: bool = True
+    human_intervention: bool = False
+    checkpoint_dir: str = "checkpoints"
+    # base paths without the _actor/_critic.npz suffix; empty = skip
+    pre_train_model: str = ""     # actor loaded when pre_train
+    test_model: str = ""          # actor + critic loaded when if_test
 
 
 @dataclass
@@ -140,12 +195,32 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     sac: SACConfig = field(default_factory=SACConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def validate(self) -> "Config":
         self.model.validate()
         self.sac.validate()
+        self.env.validate()
         return self
 
     @classmethod
     def from_dict(cls, data: Dict[str, Any]) -> "Config":
         return _update_dataclass(cls(), data).validate()
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "Config":
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+        return cls.from_dict(data)
+
+    def to_dict(self) -> Dict[str, Any]:
+        def listify(x):
+            if isinstance(x, dict):
+                return {k: listify(v) for k, v in x.items()}
+            if isinstance(x, tuple):
+                return list(x)  # safe_dump rejects tuples
+            return x
+
+        return listify(dataclasses.asdict(self))

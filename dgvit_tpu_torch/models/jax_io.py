@@ -7,6 +7,8 @@ package stores it: nested dicts, or the flat '/'-joined form of its
 `models.policies.GoTPolicy` or `GoTQNetwork` (or, for a bare GoT tree, for
 `models.got.GoT`).
 
+`params_to_jax` is its inverse, for a port-trained actor or critic.
+
 `sac_state_from_jax` carries a whole JAX `SACTrainState` (its leaves as
 numpy arrays): actor, critic and target parameters, the optax Adam
 moments `mu`/`nu` (same paths and transposes as the parameters) and
@@ -96,6 +98,43 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if bare_trunk:
             name = name[len("trans."):]
         out[name] = torch.from_numpy(np.array(arr, order="C"))
+    return out
+
+
+def params_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: a port `state_dict` (GoTPolicy,
+    GoTQNetwork or a bare GoT) -> the JAX package's flat '/'-joined
+    parameter dict of fp32 numpy arrays, as its `save_params_npz` files
+    hold it, so an actor trained by the port loads into the JAX package
+    (and back through `params_from_jax`) unchanged."""
+    inv_block = {v: k for k, v in _BLOCK.items()}
+    inv_trunk = {v: k for k, v in _TRUNK.items()}
+    bare_trunk = not any(k.partition(".")[0] in ("trans", *_LINEARS)
+                         for k in state_dict)
+    out = {}
+    for name, val in state_dict.items():
+        arr = (val.detach().cpu().float().numpy()
+               if isinstance(val, torch.Tensor)
+               else np.asarray(val, np.float32))
+        head, _, rest = (f"trans.{name}" if bare_trunk else name
+                         ).partition(".")
+        transpose = False
+        if head in _LINEARS and rest in ("weight", "bias"):
+            key = f"{head}/{'kernel' if rest == 'weight' else 'bias'}"
+            transpose = rest == "weight"
+        elif head == "trans" and rest == "patch_embed.weight":
+            key, transpose = "trans/patch_embed/kernel", True
+        elif head == "trans" and rest in inv_trunk:
+            key = "trans/" + inv_trunk[rest]
+        else:
+            m = re.fullmatch(r"transformer\.blocks\.(\d+)\.(\w+)", rest)
+            if head != "trans" or not m or m.group(2) not in inv_block:
+                raise KeyError(f"no JAX path for port parameter {name!r}")
+            key = (f"trans/transformer/block_{m.group(1)}/"
+                   f"{inv_block[m.group(2)]}")
+        if bare_trunk:
+            key = key[len("trans/"):]
+        out[key] = np.array(arr.T if transpose else arr, order="C")
     return out
 
 

@@ -27,10 +27,12 @@ from dgvit_tpu_torch.models.policies import build_actor
 def make_action_fn(cfg, params: Mapping[str, Any], env_units: bool = False,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Optional[Union[str, torch.device]] = None):
-    """Numpy-in / numpy-out act(obs, goal), closed over `params` (the JAX
-    package's actor parameter tree, nested or flat as `load_params_npz`
-    returns it). Runs on CUDA unless device='cpu'; the returned action is
-    fp32. The built actor is `act.policy`."""
+    """Numpy-out act(obs, goal), closed over `params` (the JAX package's
+    actor parameter tree, nested or flat as `load_params_npz` returns it).
+    obs and goal are numpy arrays, or tensors (states that
+    `preprocess_depth_auto` left on the card go in without a round trip
+    through the host). Runs on CUDA unless device='cpu'; the returned
+    action is fp32. The built actor is `act.policy`."""
     dev = resolve_device(device)
     policy = build_actor(cfg, dtype=dtype)
     policy.load_state_dict(params_from_jax(params))
@@ -39,8 +41,9 @@ def make_action_fn(cfg, params: Mapping[str, Any], env_units: bool = False,
 
     @torch.no_grad()
     def act(obs, goal) -> np.ndarray:
-        o = torch.as_tensor(np.asarray(obs, np.float32), device=dev)
-        g = torch.as_tensor(np.asarray(goal, np.float32), device=dev)
+        o, g = (x.to(dev, torch.float32) if isinstance(x, torch.Tensor)
+                else torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                for x in (obs, goal))
         a = torch.tanh(policy(o, g, inference=True)[0])
         if env_units:
             a = torch.clamp(a, -e.max_action, e.max_action)

@@ -41,7 +41,19 @@ def test_importing_every_module_loads_no_jax():
     for m in ("dgvit_tpu_torch.ops.got_megakernel",
               "dgvit_tpu_torch.ops.cls_block",
               "dgvit_tpu_torch.ops.fused_transformer",
-              "dgvit_tpu_torch.agents.sac"):
+              "dgvit_tpu_torch.agents.sac",
+              "dgvit_tpu_torch.ops.preprocess",
+              "dgvit_tpu_torch.ops.fused_preprocess",
+              "dgvit_tpu_torch.envs.base",
+              "dgvit_tpu_torch.envs.worlds",
+              "dgvit_tpu_torch.envs.reward",
+              "dgvit_tpu_torch.envs.kinematic",
+              "dgvit_tpu_torch.replay.buffer",
+              "dgvit_tpu_torch.replay.staging",
+              "dgvit_tpu_torch.core.checkpoint",
+              "dgvit_tpu_torch.utils.metrics",
+              "dgvit_tpu_torch.train.train_rl",
+              "dgvit_tpu_torch.train.evaluate"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,0 +1,595 @@
+"""The port's env-in-the-loop trainer and evaluator
+(dgvit_tpu_torch/train, core/checkpoint.py, utils/metrics.py)
+on the CPU, at a tiny geometry, against the JAX package where the two can
+agree.
+
+Sampled trajectories cannot equal JAX's (the port draws action noise from
+the `torch.Generator` in its state, JAX from threaded keys), so the loop is
+tested for its contract: it runs end to end, skips a bad initialization,
+starts learning when the buffer holds `batch_size` transitions, triggers
+evaluation and saves under the reference's file names, resumes so that the
+next update is reproduced bit for bit, and refuses the flavours that are
+not ported. Deterministic runs can agree and are compared: `run_eval` and
+the trainer's `evaluate` with an actor carried over from JAX give the JAX
+package's episode lengths, successes and collisions, and episode rewards
+within 1e-3 (fp32 on both sides; actions differ by ~1e-6, which moves a
+reward of tens by less). No test asserts on a learning curve.
+"""
+
+import glob
+import json
+import os
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dgvit_tpu.agents.sac import SACAgent as JaxSACAgent
+from dgvit_tpu.config import Config as JaxConfig
+from dgvit_tpu.core import checkpoint as jckpt
+from dgvit_tpu.envs import KinematicNavEnv as JaxKinematicNavEnv
+from dgvit_tpu.train import evaluate as jax_evaluate
+from dgvit_tpu.train import train_rl as jax_train_rl
+from dgvit_tpu.utils import metrics as jmetrics
+from dgvit_tpu_torch.agents import SACAgent
+from dgvit_tpu_torch.config import Config
+from dgvit_tpu_torch.core import checkpoint as ckpt
+from dgvit_tpu_torch.envs import KinematicNavEnv, ResetResult, StepResult
+from dgvit_tpu_torch.envs.kinematic import default_records
+from dgvit_tpu_torch.envs.worlds import get_world
+from dgvit_tpu_torch.models.jax_io import (params_from_jax, params_to_jax,
+                                           sac_state_from_jax)
+from dgvit_tpu_torch.train import evaluate as port_evaluate
+from dgvit_tpu_torch.train import train_rl
+from dgvit_tpu_torch.utils import MetricsLogger, Profiler, RewardCurve
+
+HW = (32, 40)
+TINY = {
+    "model": {"block": 2, "head": 2, "latent_size": 32, "dim_head": 16,
+              "mlp_dim": 64, "image_size": HW, "patch_size": (16, 20)},
+    "sac": {"batch_size": 4, "buffer_size": 256},
+    "env": {"max_steps": 12, "max_episodes": 3},
+    "train": {"pre_buffer": False, "plot_interval": 1000,
+              "eval_threshold": 0, "reward_threshold": 1e9},
+}
+
+
+def tiny_cfg(cls=Config, **train):
+    cfg = cls.from_dict(TINY)
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    return cfg
+
+
+_RECORDS = {}
+
+
+def records(seed, world=None):
+    """Start/goal records of a seed, drawn once (the JAX package's sampler
+    takes seconds a call; tests/test_torch_envs.py holds the two equal)."""
+    key = (seed, world)
+    if key not in _RECORDS:
+        _RECORDS[key] = default_records(
+            seed=seed, world=world and get_world(world))
+    return _RECORDS[key]
+
+
+def run(cfg, tmp_path, seed=0, **kw):
+    env = KinematicNavEnv(records(seed), image_hw=HW)
+    return train_rl.train(cfg, env, out_dir=str(tmp_path), device="cpu", **kw)
+
+
+class ScriptedEnv:
+    """Episodes of a fixed length that never end by themselves; `bad`
+    episodes end on their first step (a bad initialization)."""
+
+    def __init__(self, bad=()):
+        self.bad = set(bad)
+        self.episode = -1
+        self.collision = 0
+        self.steps = 0
+
+    def _state(self):
+        rng = np.random.default_rng(self.steps)
+        return rng.uniform(0, 1, (*HW, 1)).astype(np.float32)
+
+    def reset(self):
+        self.episode += 1
+        goal = np.asarray([0.5, 0.1, 0.0, 0.0], np.float32)
+        return ResetResult(self._state(), 0.0, 0.0, goal)
+
+    def step(self, action, t):
+        self.steps += 1
+        done = self.episode in self.bad and t == 0
+        if done:
+            self.collision += 1
+        goal = np.asarray([0.5, 0.1, action[0], action[1]], np.float32)
+        return StepResult(self._state(), 1.0, done, goal, False)
+
+
+class Recorder:
+    """An env that notes each episode's length and reward sum."""
+
+    def __init__(self, env):
+        self.env = env
+        self.episodes = []
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def __setattr__(self, name, value):
+        if name in ("env", "episodes"):
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.env, name, value)
+
+    def reset(self):
+        self.episodes.append([0, 0.0])
+        return self.env.reset()
+
+    def step(self, action, t):
+        out = self.env.step(action, t)
+        self.episodes[-1][0] += 1
+        self.episodes[-1][1] += out.reward
+        return out
+
+
+# --------------------------------------------------------------------------
+# the loop
+# --------------------------------------------------------------------------
+
+def test_training_loop_runs_end_to_end(tmp_path):
+    timings = {}
+    out = run(tiny_cfg(), tmp_path, max_episodes=3, timings=timings)
+    assert out["episodes"] >= 1
+    assert np.isfinite(out["max_mean_reward"])
+    assert out["state"].itera == timings["updates"] > 0
+    assert timings["env_steps"] > timings["updates"]
+    assert all(timings[k] > 0 for k in ("env", "act", "sample", "learn"))
+    rows = [json.loads(line) for line in
+            (tmp_path / "train_gtrl_98.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == list(range(1, out["episodes"] + 1))
+    assert np.isfinite(rows[-1]["qf1_loss"]) and "alpha" in rows[-1]
+    # final full-state checkpoint, actor export and summary
+    assert (tmp_path / "checkpoints" / f"step_{out['state'].itera}"
+            / "train_state.pt").exists()
+    name = ckpt.reference_name("98", int(out["max_mean_reward"]), 3407)
+    assert list((tmp_path / "models").glob("98_reward_*_nbCol_100_seed_3407"
+                                           "_actor.npz"))
+    assert name.startswith("98_reward_")
+    text = (tmp_path / "training_data.txt").read_text()
+    assert "Successes: " in text and "critic_type: Transformer" in text
+
+
+def test_learning_starts_at_batch_size_and_bad_init_is_skipped(tmp_path):
+    cfg = tiny_cfg()
+    cfg.env.max_steps = 4          # 3 stored transitions an episode
+    cfg.sac.batch_size = 5
+    timings = {}
+    env = ScriptedEnv(bad={1, 2})
+    out = train_rl.train(cfg, env, out_dir=str(tmp_path), max_episodes=6,
+                         device="cpu", timings=timings)
+    # two of six episodes ended on their first step: not counted, nothing
+    # stored, no reward logged
+    assert out["episodes"] == 4
+    assert timings["env_steps"] == 4 * 4 + 2
+    stored = 4 * 3
+    # one update per stored transition from the batch_size-th on
+    assert timings["updates"] == stored - (cfg.sac.batch_size - 1)
+    assert out["state"].itera == timings["updates"]
+    rows = (tmp_path / "train_gtrl_98.jsonl").read_text().splitlines()
+    assert len(rows) == 4
+    assert json.loads(rows[0])["episode_reward"] == 3.0   # first step free
+
+
+def test_eval_trigger_saves_under_reference_names(tmp_path):
+    cfg = tiny_cfg(reward_threshold=-1e9, eval_epoch=2, desc="t1")
+    out = run(cfg, tmp_path, max_episodes=2)
+    rows = [json.loads(line) for line in
+            (tmp_path / "train_gtrl_t1.jsonl").read_text().splitlines()]
+    evals = [r for r in rows if "eval_reward" in r]
+    assert evals, "no evaluation ran"
+    saved = sorted(p.name for p in (tmp_path / "models").glob("eval_*"))
+    assert saved, "the evaluation saved no actor"
+    first = evals[0]
+    assert saved[0].startswith("eval_t1_") and saved[0].endswith(
+        f"_reward_{int(first['eval_reward'])}_nbCol_"
+        f"{int(first['eval_collisions'])}_seed_3407_actor.npz") or len(
+            evals) > 1
+    assert (tmp_path / "curves" / "eval_reward_mean_t1.npy").exists()
+    assert out["episodes"] >= 1
+
+
+def test_eval_needs_more_episodes_than_the_threshold(tmp_path):
+    cfg = tiny_cfg(reward_threshold=-1e9, eval_threshold=50)
+    run(cfg, tmp_path, max_episodes=2)
+    assert not list((tmp_path / "models").glob("eval_*"))
+
+
+def test_resume_reproduces_the_next_update(tmp_path):
+    cfg = tiny_cfg()
+    out1 = run(cfg, tmp_path, seed=13, max_episodes=2)
+    s1 = out1["state"]
+    assert s1.itera > 0
+    # "restart the process": a fresh train() with resume, no new episodes
+    out2 = run(cfg, tmp_path, seed=13, max_episodes=0, resume=True)
+    s2 = out2["state"]
+    assert s2.itera == s1.itera and s2 is not s1
+    for a, b in zip(s1.actor.parameters(), s2.actor.parameters()):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(0)
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    batch = {"obs": f(4, *HW), "pobs": f(4, 2), "act": f(4, 2),
+             "rew": f(4, 1), "next_obs": f(4, *HW), "next_pobs": f(4, 2)}
+    agent = SACAgent(cfg, device="cpu")
+    _, m1 = agent.learn(s1, batch)
+    _, m2 = agent.learn(s2, batch)
+    # the same dropout masks and action noise (the generator's state is in
+    # the checkpoint), the same Adam moments: bit-equal
+    for k in m1:
+        assert float(m1[k]) == float(m2[k]), k
+    for kind in ("actor", "critic", "critic_target"):
+        for a, b in zip(getattr(s1, kind).parameters(),
+                        getattr(s2, kind).parameters()):
+            assert torch.equal(a, b), kind
+    assert s1.log_alpha.item() == s2.log_alpha.item()
+
+
+def test_resume_without_a_checkpoint_starts_fresh(tmp_path):
+    out = run(tiny_cfg(), tmp_path, max_episodes=0, resume=True)
+    assert out["state"].itera == 0 and out["episodes"] == 0
+
+
+def test_periodic_checkpoints_and_warm_replay_resume(tmp_path, monkeypatch):
+    cfg = tiny_cfg(save_replay=True, save_interval=1)
+    cfg.env.max_steps = 10
+    run(cfg, tmp_path, seed=17, max_episodes=5)
+    steps = list((tmp_path / "checkpoints").glob("step_*"))
+    snaps = list((tmp_path / "checkpoints").glob("replay_step_*.npz"))
+    assert snaps and 1 <= len(steps) <= 4 and len(snaps) <= 3
+    seen = {}
+    orig = train_rl.ReplayBuffer.load_transitions
+
+    def spy(self, file):
+        orig(self, file)
+        seen["stored"] = self.get_stored_size()
+
+    monkeypatch.setattr(train_rl.ReplayBuffer, "load_transitions", spy)
+    run(cfg, tmp_path, seed=17, max_episodes=0, resume=True)
+    assert seen.get("stored", 0) > 0, "resume did not reload transitions"
+
+
+def test_prefetched_training_loop(tmp_path):
+    cfg = tiny_cfg()
+    cfg.sac.prefetch_batches = True
+    out = run(cfg, tmp_path, seed=14, max_episodes=2)
+    assert out["episodes"] >= 1 and out["state"].itera > 0
+    # the worker was stopped and joined
+    assert not [t for t in threading.enumerate()
+                if t.name == "BatchPrefetcher"]
+
+
+def test_if_test_loads_actor_and_critic_and_skips_learning(tmp_path):
+    cfg = tiny_cfg()
+    donor = SACAgent(cfg, device="cpu")
+    donor_state = donor.init_state(99)
+    actor_file, _ = donor.save(donor_state, "m", str(tmp_path / "ckpt"),
+                               reward=1.0, seed=99)
+    cfg2 = tiny_cfg(if_test=True,
+                    test_model=actor_file[: -len("_actor.npz")])
+    out = run(cfg2, tmp_path / "out", seed=8, max_episodes=1)
+    st = out["state"]
+    assert st.itera == 0
+    for kind in ("critic", "critic_target"):
+        for a, b in zip(donor_state.critic.parameters(),
+                        getattr(st, kind).parameters()):
+            assert torch.equal(a, b)
+    for a, b in zip(donor_state.actor.parameters(), st.actor.parameters()):
+        assert torch.equal(a, b)
+    assert not (tmp_path / "out" / "checkpoints").exists()
+
+
+def test_pre_train_warm_start_loads_actor_only(tmp_path):
+    cfg = tiny_cfg()
+    donor = SACAgent(cfg, device="cpu")
+    donor_state = donor.init_state(123)
+    ckpt.save_params_npz(str(tmp_path / "il"), "warm",
+                         params_to_jax(donor_state.actor.state_dict()))
+    cfg2 = tiny_cfg(pre_train=True,
+                    pre_train_model=str(tmp_path / "il" / "warm"))
+    out = run(cfg2, tmp_path / "out", seed=7, max_episodes=0)
+    for a, b in zip(donor_state.actor.parameters(),
+                    out["state"].actor.parameters()):
+        assert torch.equal(a, b)
+    fresh = SACAgent(cfg, device="cpu", seed=cfg.train.seed).init_state(
+        cfg.train.seed)
+    for a, b in zip(fresh.critic.parameters(),
+                    out["state"].critic.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_frame_stacked_loop(tmp_path):
+    cfg = tiny_cfg()
+    cfg.model.patch_mode = "channels"
+    cfg.env.use_frame_stack = True
+    cfg.env.max_steps = 8
+    out = run(cfg, tmp_path, seed=11, max_episodes=2)
+    assert out["episodes"] >= 1 and np.isfinite(out["max_mean_reward"])
+    cfg.model.patch_mode = "2d"
+    with pytest.raises(ValueError, match="channels"):
+        run(cfg, tmp_path, max_episodes=1)
+    stacker = train_rl.FrameStacker(3)
+    ref = jax_train_rl.FrameStacker(3)
+    a, b = np.zeros((2, 2)), np.ones((2, 2))
+    np.testing.assert_array_equal(stacker.reset(a), ref.reset(a))
+    np.testing.assert_array_equal(stacker.push(b), ref.push(b))
+    assert stacker.push(b).shape == (3, 2, 2)
+
+
+@pytest.mark.parametrize("flavour", ["prioritized_replay", "expert_glob",
+                                     "human_intervention", "intervention",
+                                     "train_elastic", "env_replay",
+                                     "env_ros2", "reference_config"])
+def test_unported_flavours_raise_by_name(tmp_path, flavour):
+    cfg = tiny_cfg()
+    kw = {}
+    if flavour == "prioritized_replay":
+        cfg.sac.prioritized_replay = True
+    elif flavour == "expert_glob":
+        cfg.train.pre_buffer = True
+        kw["expert_glob"] = "Data/*.npz"
+    elif flavour == "human_intervention":
+        cfg.train.human_intervention = True
+    elif flavour == "intervention":
+        kw["intervention"] = object()
+    word = {"expert_glob": "expert", "intervention": "intervention",
+            "env_replay": "--env replay", "env_ros2": "--env ros2",
+            "reference_config": "--reference-config"}.get(flavour, flavour)
+    with pytest.raises(NotImplementedError, match=word):
+        if flavour == "train_elastic":
+            train_rl.train_elastic(cfg, lambda: None)
+        elif flavour.startswith("env_"):
+            train_rl.main(["--env", flavour[4:], "--device", "cpu",
+                           "--out", str(tmp_path)])
+        elif flavour == "reference_config":
+            train_rl.main(["--reference-config", "config.yaml"])
+        else:
+            run(cfg, tmp_path, max_episodes=1, **kw)
+    assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
+
+
+def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = KinematicNavEnv(records(0), image_hw=HW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_rl.train(tiny_cfg(), env, out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_evaluate.run_eval(tiny_cfg(), env, {}, out_dir=str(tmp_path))
+
+
+def test_command_lines(tmp_path, capsys):
+    import yaml
+
+    cfg = tiny_cfg()
+    cfg.env.max_steps = 8
+    cfg_yaml = tmp_path / "cfg.yaml"
+    cfg_yaml.write_text(yaml.safe_dump(cfg.to_dict()))
+    out = tmp_path / "run"
+    train_rl.main(["--config", str(cfg_yaml), "--episodes", "1", "--out",
+                   str(out), "--device", "cpu", "--world", "hospital"])
+    assert "done: " in capsys.readouterr().out
+    ckpt_dir = out / "checkpoints"
+    assert ckpt.latest_checkpoint(str(ckpt_dir))
+    common = ["--config", str(cfg_yaml), "--episodes", "1", "--device", "cpu",
+              "--out", str(tmp_path / "eval")]
+    port_evaluate.main(["--checkpoint", str(ckpt_dir), *common])
+    assert "success rate: " in capsys.readouterr().out
+    step = sorted(ckpt_dir.glob("step_*"))[0]
+    port_evaluate.main(["--checkpoint", str(step), *common])
+    actor = glob.glob(str(out / "models" / "*_actor.npz"))[0]
+    port_evaluate.main(["--actor", actor, "--world", "hospital", *common])
+    assert (tmp_path / "eval" / "testing_data.txt").read_text().count(
+        "Model = ") == 3
+    with pytest.raises(SystemExit):
+        port_evaluate.main(["--checkpoint", str(ckpt_dir), "--actor", actor])
+    with pytest.raises(SystemExit):
+        port_evaluate.main(["--checkpoint", str(tmp_path / "nothing"),
+                            *common])
+
+
+# --------------------------------------------------------------------------
+# deterministic runs against the JAX package
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def carried():
+    """A JAX train state at the tiny geometry, as numpy, and its agent."""
+    jcfg = tiny_cfg(JaxConfig)
+    jagent = JaxSACAgent(jcfg)
+    jstate = jagent.init_state(5)
+    return jcfg, jagent, jstate, jax.tree_util.tree_map(np.asarray, jstate)
+
+
+@pytest.mark.parametrize("world", ["rrc", "hospital"])
+def test_run_eval_matches_jax_run_eval(tmp_path, carried, world):
+    jcfg, _, jstate, tree = carried
+    cfg = tiny_cfg()
+    cfg.env.max_steps = jcfg.env.max_steps = 25
+    jenv = Recorder(JaxKinematicNavEnv(records(2, world), image_hw=HW,
+                                       world=world))
+    env = Recorder(KinematicNavEnv(records(2, world), image_hw=HW,
+                                  world=world))
+    ref = jax_evaluate.run_eval(jcfg, jenv, jstate.actor_params,
+                                max_episodes=6, out_dir=str(tmp_path / "j"))
+    out = port_evaluate.run_eval(cfg, env, tree.actor_params,
+                                 max_episodes=6, out_dir=str(tmp_path / "p"),
+                                 device="cpu")
+    jcfg.env.max_steps = 12
+    assert [n for n, _ in env.episodes] == [n for n, _ in jenv.episodes]
+    assert out["successes"] == ref["successes"]
+    assert out["collisions"] == ref["collisions"]
+    assert out["success_rate"] == ref["success_rate"]
+    assert out["durations"] == ref["durations"]
+    for (_, a), (_, b) in zip(env.episodes, jenv.episodes):
+        assert abs(a - b) <= 1e-3
+    assert sum(n for n, _ in env.episodes) >= 60
+    assert (tmp_path / "p" / "testing_data.txt").read_text() == \
+        (tmp_path / "j" / "testing_data.txt").read_text()
+
+
+def test_trainer_evaluate_matches_jax_evaluate(carried):
+    jcfg, jagent, jstate, tree = carried
+    cfg = tiny_cfg()
+    agent = SACAgent(cfg, device="cpu")
+    state = sac_state_from_jax(agent, tree)
+    from dgvit_tpu.core.rng import RngStream as JaxRngStream
+
+    jenv = JaxKinematicNavEnv(records(4), image_hw=HW)
+    env = KinematicNavEnv(records(4), image_hw=HW)
+    ref = jax_train_rl.evaluate(jenv, jagent, jstate, JaxRngStream(0), 15,
+                                0.25, 1.0, 1.0, eval_episodes=4)
+    out = train_rl.evaluate(env, agent, state, 15, 0.25, 1.0, 1.0,
+                            eval_episodes=4)
+    assert out[1] == ref[1]                        # collisions
+    assert abs(out[0] - ref[0]) <= 1e-3            # mean reward
+    assert env.indice_position == jenv.indice_position
+
+
+def test_params_round_trip_and_jax_loads_a_port_actor(tmp_path, carried):
+    jcfg, _, jstate, tree = carried
+    for kind in ("actor_params", "critic_params"):
+        flat = {"/".join(str(k.key) for k in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_flatten_with_path(
+                    getattr(tree, kind))[0]}
+        back = params_to_jax(params_from_jax(getattr(tree, kind)))
+        assert sorted(back) == sorted(flat)
+        for k in flat:
+            assert back[k].shape == flat[k].shape
+            np.testing.assert_array_equal(back[k], flat[k])
+    # an actor saved by the port's trainer loads into the JAX package
+    out = run(tiny_cfg(), tmp_path, max_episodes=1)
+    path = glob.glob(str(tmp_path / "models" / "*_actor.npz"))[0]
+    loaded = jckpt.load_params_npz(path, jstate.actor_params)
+    want = params_to_jax(out["state"].actor.state_dict())
+    leaves = jax.tree_util.tree_flatten_with_path(loaded)[0]
+    assert len(leaves) == len(want)
+    for p, v in leaves:
+        np.testing.assert_array_equal(
+            np.asarray(v), want["/".join(str(k.key) for k in p)])
+    # and back into the port, with the same actions
+    agent = SACAgent(tiny_cfg(), device="cpu")
+    state = agent.init_state(0)
+    state.actor.load_state_dict(params_from_jax(ckpt.load_params_npz(path)))
+    obs = np.random.default_rng(0).uniform(0, 1, (3, *HW)).astype(np.float32)
+    goal = np.zeros((3, 2), np.float32)
+    a = agent.act_batch(state.actor, obs, goal, evaluate=True)
+    b = agent.act_batch(out["state"].actor, obs, goal, evaluate=True)
+    assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# checkpoints, rng, metrics, config
+# --------------------------------------------------------------------------
+
+def test_train_state_checkpoint_round_trip(tmp_path):
+    cfg = tiny_cfg()
+    agent = SACAgent(cfg, device="cpu")
+    state = agent.init_state(3)
+    rng = np.random.default_rng(1)
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    batch = {"obs": f(4, *HW), "pobs": f(4, 2), "act": f(4, 2),
+             "rew": f(4, 1), "next_obs": f(4, *HW), "next_pobs": f(4, 2)}
+    for _ in range(2):
+        agent.learn(state, batch)
+    path = ckpt.save_train_state(str(tmp_path), state.itera, state)
+    assert os.path.basename(path) == "step_2"
+    assert os.listdir(path) == ["train_state.pt"]
+    other = ckpt.restore_train_state(path, agent.init_state(77))
+    assert other.itera == 2
+    assert other.log_alpha.item() == state.log_alpha.item()
+    assert torch.equal(other.generator.get_state(),
+                       state.generator.get_state())
+    for name in ("actor_opt", "critic_opt", "alpha_opt"):
+        a = getattr(state, name).state_dict()["state"]
+        b = getattr(other, name).state_dict()["state"]
+        assert a.keys() == b.keys() and len(a) > 0
+        for k in a:
+            for field in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(a[k][field], b[k][field])
+
+
+def test_checkpoint_directory_helpers(tmp_path):
+    d = tmp_path / "ck"
+    assert ckpt.latest_checkpoint(str(d)) is None
+    assert ckpt.prune_checkpoints(str(d)) == 0
+    for n in (5, 20, 100, 7):
+        (d / f"step_{n}").mkdir(parents=True)
+        (d / f"replay_step_{n}.npz").write_bytes(b"")
+    (d / "step_x").mkdir()
+    assert ckpt.latest_checkpoint(str(d)) == jckpt.latest_checkpoint(str(d))
+    assert ckpt.latest_checkpoint(str(d)).endswith("step_100")
+    assert ckpt.prune_step_files(str(d), "replay_step", keep=2) == 2
+    assert sorted(p.name for p in d.glob("*.npz")) == [
+        "replay_step_100.npz", "replay_step_20.npz"]
+    assert ckpt.prune_checkpoints(str(d), keep=3) == 1
+    assert not (d / "step_5").exists() and (d / "step_x").exists()
+    assert ckpt.prune_checkpoints(str(d), keep=0) == 3
+    for args in (("eval_98_3", 12, 3407, 2), ("98", -5, 1)):
+        assert ckpt.reference_name(*args) == jckpt.reference_name(*args)
+
+
+def test_save_params_npz_layout_matches_jax(tmp_path, carried):
+    _, _, jstate, tree = carried
+    a = ckpt.save_params_npz(str(tmp_path / "p"), "m", tree.actor_params)
+    b = jckpt.save_params_npz(str(tmp_path / "j"), "m", jstate.actor_params)
+    assert os.path.basename(a) == os.path.basename(b) == "m_actor.npz"
+    x, y = np.load(a), np.load(b)
+    assert sorted(x.files) == sorted(y.files)
+    for k in x.files:
+        np.testing.assert_array_equal(x[k], y[k])
+    c = ckpt.save_params_npz(str(tmp_path / "p"), "m",
+                             ckpt.load_params_npz(a), kind="critic")
+    assert c.endswith("m_critic.npz")
+
+
+def test_metrics(tmp_path):
+    curve, ref = RewardCurve(window=3), jmetrics.RewardCurve(window=3)
+    assert curve.max_mean == ref.max_mean == float("-inf")
+    for r in (1.0, -4.0, 10.0, 2.5, 7.0):
+        assert curve.append(r) == ref.append(r)
+    assert curve.means == ref.means and curve.max_mean == ref.max_mean
+    curve.save_npy(str(tmp_path / "c" / "curve.npy"))
+    np.testing.assert_array_equal(np.load(tmp_path / "c" / "curve.npy"),
+                                  np.asarray(ref.means))
+    curve.save_png(str(tmp_path / "c" / "curve.png"), title="t")
+    log = MetricsLogger(str(tmp_path / "m"), "run")
+    log.log(3, loss=torch.tensor(0.5), name="x", n=np.float32(2.0))
+    log.append_txt("summary.txt", "line\n")
+    row = json.loads((tmp_path / "m" / "run.jsonl").read_text())
+    assert row["step"] == 3 and row["loss"] == 0.5 and row["name"] == "x"
+    assert row["n"] == 2.0 and "wall_s" in row
+    assert (tmp_path / "m" / "summary.txt").read_text() == "line\n"
+    with Profiler(str(tmp_path / "prof")) as prof:
+        torch.ones(8).sum()
+    assert any(e.key for e in prof.key_averages())
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
+def test_config_fields_keep_the_jax_names_and_defaults():
+    port, ref = Config(), JaxConfig()
+    for section in ("env", "train", "sac", "model"):
+        a, b = getattr(port, section), getattr(ref, section)
+        for name, value in vars(a).items():
+            assert hasattr(b, name), f"{section}.{name} is not a JAX field"
+            assert value == getattr(b, name), f"{section}.{name}"
+    with pytest.raises(KeyError, match="train.nope"):
+        Config.from_dict({"train": {"nope": 1}})
+    with pytest.raises(ValueError, match="vis_sensor"):
+        Config.from_dict({"env": {"vis_sensor": "lidar"}})
+    with pytest.raises(NotImplementedError, match="critic"):
+        Config.from_dict({"model": {"critic_type": "CNN"}})
+    d = tiny_cfg().to_dict()
+    assert d["model"]["image_size"] == list(HW)
+    assert Config.from_dict(d).to_dict() == d
