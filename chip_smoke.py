@@ -34,7 +34,8 @@ per source, all at once), then
   6. the SAC update, the second main path: a bf16 SACAgent (batch 256,
      emb-dropout 0.1) takes 5 learn steps on a seeded replay batch with
      finite losses, each step launching exactly K4 x3, K2f x6, K2b x6,
-     K3f x2 and K3b x2; then one fp32 update through the kernels matches
+     K3f x2 and K3b x2 (and no K6, K7 or K8); then one fp32 update
+     through the kernels matches
      the same update through the plain versions on the card and the JAX
      golden update (tests/data/torch_sac_golden.npz);
   7. profile: one more bf16 update under torch.profiler, device time by
@@ -68,6 +69,31 @@ per source, all at once), then
      learn, for both runs;
  12. times of K5 and its plain version at B in {1, 32, 256} beside its
      bound;
+ 13. K6 against its plain version (trunk_bwd_fused, trunk_bwd_plain): the
+     trained actor's trunk with its RMS norm and the seeded critic's with
+     a Layer norm, bf16 and fp32 at B in {1, 3, 8, 256}, 65 tokens and
+     17; dx, the 44 block gradients and the final norm's; two wrong
+     backwards (autograd of the plain forward; a chain that hands dx on
+     in fp32) must FAIL the bf16 limits; and K6 against the K3b + K2b
+     chain of per-block kernels on the same inputs;
+ 14. the trunk-gradient update, the fifth main path: with
+     DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
+     launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
+     update on that route matches the plain versions on the card and the
+     default-route update from the same state; a profiled update's CUDA
+     launches are those designed; ms per update beside the default
+     route's;
+ 15. K7 and K8 against their plain versions (fused_attention_section at
+     (256, 65, 64) and 256 tokens; attention_fused at (256, 4, 65, 64),
+     (64, 4, 257, 64) and D = 160), bf16 and fp32, forward and backward;
+     versions that leave padded keys unmasked or mis-scale must FAIL;
+ 16. the composed routes through the model, main paths: the flagship
+     actor with GoT(dropout=0.1), a training forward and backward at
+     B=256 (K7 x4); build_actor(cfg, attn_impl="pallas"), an acting
+     forward at B=256 (K8 x4, K1 x0), its actions against the K1 route's;
+     model.patch_size (8, 10), 257 tokens, at B=64 (K8 x4 by `auto`);
+ 17. times of K6, K7, K8 and their plain versions beside their bounds,
+     and torch's scaled_dot_product_attention beside K8;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -101,7 +127,10 @@ TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
 TRAIN_BATCHES = {"bfloat16": (1, 32, 256), "float32": (1, 8)}
 SAC_BATCH, SAC_STEPS = 256, 5
 PER_UPDATE = {"K1": 0, "K4": 3, "K2f": 6, "K2b": 6, "K3f": 2, "K3b": 2,
-              "K5": 0}
+              "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+# with DGVIT_TRUNK_GRAD=1: the two gradient forwards join K4, K6 is their
+# backward, and the per-block kernels rest
+PER_UPDATE_TRUNK = {**{k: 0 for k in PER_UPDATE}, "K4": 5, "K6": 2}
 GOLDEN_SAC = ROOT / "tests" / "data" / "torch_sac_golden.npz"
 GOLDEN_SAC_SEED, GOLDEN_SAC_BATCH, CRITIC_SEED = 11, 8, 5
 
@@ -659,17 +688,21 @@ def golden_update(device, g):
 
 def kernel_counters():
     """Each kernel wrapper of the port, by the kernel's short name."""
+    from dgvit_tpu_torch.ops.attention import attention_fused
     from dgvit_tpu_torch.ops.cls_block import cls_bwd_fused, cls_fwd_fused
+    from dgvit_tpu_torch.ops.fused_block import fused_attention_section
     from dgvit_tpu_torch.ops.fused_preprocess import preprocess_depth_fused
     from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
                                                        block_fwd_fused)
     from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
                                                     got_forward_fused)
+    from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
 
     return {"K1": got_forward_fused, "K4": blocks_cls_forward_fused,
             "K2f": block_fwd_fused, "K2b": block_bwd_fused,
             "K3f": cls_fwd_fused, "K3b": cls_bwd_fused,
-            "K5": preprocess_depth_fused}
+            "K5": preprocess_depth_fused, "K6": trunk_bwd_fused,
+            "K7": fused_attention_section, "K8": attention_fused}
 
 
 @contextlib.contextmanager
@@ -677,16 +710,17 @@ def plain_kernels():
     """Route the SAC update's kernel calls to the plain versions (on the
     same card), for the kernel-against-plain comparison of a whole
     update."""
-    from dgvit_tpu_torch.models import got as got_mod
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
-    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
 
     swaps = [(ft, "block_fwd_fused", ft.block_fwd_plain),
              (ft, "block_bwd_fused", ft.block_bwd_plain),
              (cb, "cls_fwd_fused", cb.cls_fwd_plain),
              (cb, "cls_bwd_fused", cb.cls_bwd_plain),
-             (got_mod, "blocks_cls_forward_fused", blocks_forward_plain)]
+             (gm, "_launch_blocks", gm.blocks_forward_plain),
+             (gm, "trunk_bwd_fused", trunk_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -893,10 +927,23 @@ def phase_train_kernels(nets, rng):
     return worst
 
 
-def phase_sac(actor_flat, critic_flat):
-    """Phase 6a, the main path: 5 bf16 learn steps at B=256. Returns the
-    launch counts of the run, the median update time, and a closure that
-    runs one more update (for the profile)."""
+@contextlib.contextmanager
+def trunk_grad_switch():
+    """The JAX package's opt-in switch, set while networks are built."""
+    import os
+
+    os.environ["DGVIT_TRUNK_GRAD"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["DGVIT_TRUNK_GRAD"]
+
+
+def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC"):
+    """Phases 6a and 14a, main paths: 5 bf16 learn steps at B=256, every
+    step launching exactly `per_update`. Returns the launch counts of the
+    run, the median update time, and a closure that runs one more update
+    (for the profile)."""
     import torch
 
     from dgvit_tpu_torch.agents import SACAgent
@@ -923,16 +970,16 @@ def phase_sac(actor_flat, critic_flat):
         times.append(time.perf_counter() - t0)
         delta = {k: fn.launches - before[k] for k, fn in counters.items()}
         vals = {k: float(v) for k, v in m.items()}
-        print(f"SAC step {step}: {times[-1] * 1e3:.2f} ms (host clock), "
+        print(f"{label} step {step}: {times[-1] * 1e3:.2f} ms (host clock), "
               f"launches {delta}, " + ", ".join(
                   f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
         check(all(math.isfinite(v) for v in vals.values()),
-              f"non-finite SAC metrics at step {step}")
-        check(delta == PER_UPDATE, f"SAC step {step} launches {delta}, "
-              f"expected {PER_UPDATE}")
+              f"non-finite {label} metrics at step {step}")
+        check(delta == per_update, f"{label} step {step} launches {delta}, "
+              f"expected {per_update}")
     launches = {k: fn.launches for k, fn in counters.items()}
     steady = statistics.median(times[1:])
-    print(f"SAC bf16 B={SAC_BATCH}: {SAC_STEPS} updates, median of steps "
+    print(f"{label} bf16 B={SAC_BATCH}: {SAC_STEPS} updates, median of steps "
           f"1-{SAC_STEPS - 1} {steady * 1e3:.2f} ms = {1 / steady:.3f} "
           f"updates/s (host clock, synchronized); first step "
           f"{times[0] * 1e3:.2f} ms; launches over the run {launches}",
@@ -974,7 +1021,7 @@ def phase_sac_fp32():
     check(not bad_p, f"the fp32 update disagrees with the plain: {bad_p}")
     check(gerr <= SAC_RTOL, "the fp32 update's grads disagree")
     check(pmax <= 2.2e-3, "the fp32 update's parameters disagree")
-    return {"vs_golden": worst_g, "vs_plain": worst_p}
+    return {"vs_golden": worst_g, "vs_plain": worst_p}, kern
 
 
 def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
@@ -1017,9 +1064,11 @@ def phase_train_times(nets, rng):
     return rows
 
 
-def phase_profile(update):
-    """Phase 7: one bf16 update under torch.profiler: device time by CUDA
-    kernel, and the device's busy share of the update's wall time."""
+def phase_profile(update, label="bf16"):
+    """Phases 7 and 14c: one bf16 update under torch.profiler: device time
+    by CUDA kernel (returned as {kernel name: launches}, None when the
+    profiler recorded nothing) and the device's busy share of the update's
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1038,12 +1087,12 @@ def phase_profile(update):
         print("profile: no device time recorded (device busy share not "
               "measured)", flush=True)
         return None
-    print(f"profile of one bf16 update: wall {wall * 1e3:.2f} ms, device "
+    print(f"profile of one {label} update: wall {wall * 1e3:.2f} ms, device "
           f"kernels {busy:.2f} ms = busy share {busy / (wall * 1e3):.3f}",
           flush=True)
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
-    return busy / (wall * 1e3)
+    return {key: count for key, _, count in rows}
 
 
 # --------------------------------------------------------------------------
@@ -1514,6 +1563,700 @@ def k5_cuda_kernels():
           f"K5's wrapper should launch minmax_kernel and preprocess_kernel "
           f"and nothing else, the profiler saw {counts}")
 
+# --------------------------------------------------------------------------
+# the attention slice: K6 (whole-trunk backward), K7 (attention section),
+# K8 (attention), the trunk-gradient update and the composed routes
+# --------------------------------------------------------------------------
+
+K6_BATCHES = (1, 3, 8, 256)
+K6_SMALL_N = 17            # a smaller token count (a 32x80 frame's)
+# K6 against its plain version and against the chain of per-block kernels,
+# per tensor as in phase 5, with L the plain tensor's largest |value|.
+# fp32: another summation order through four blocks' recompute and
+# backward; an H100 read up to 1.2e-4 L on the trained actor (its
+# activations reach 1e4) and 1.7e-6 L on the seeded critic against the
+# plain version, 2.9e-5 L against the chain: max |err| <= 1e-3 L.
+# bf16: each tensor's max <= 2^-6 L, as in phase 5. The pooled mean cannot
+# be phase 5's: K6 recomputes the stream, and where another summation
+# order flips one bf16 rounding of x_i, every later block of that frame
+# moves by an ulp. A tenth to a third of the frames of a large batch are
+# touched, and a case pools anything from 7e-9 (B=1, no flip) to 8e-5
+# where one block pools 3e-7: all cases pooled <= 2^-13 (read 2.3e-5).
+# That limit cannot see a wrong rounding point (the two wrong backwards
+# pool 6e-5 to 7e-5), so the sharp check is per frame: the mean of
+# |err| / L over one frame's dx is next to nothing for a frame without a
+# flip (K6's median frame read 5e-12) and about 1e-5 for the median frame
+# of a wrong backward. Over the frames of all bf16 cases, two thirds must
+# lie within phase 5's pooled limit 2^-18: an H100 read 88% of K6's
+# frames within it and 48% of either wrong backward's.
+K6_F32_MAX = 1e-3
+K6_BF16_MEAN = 2.0 ** -13
+K6_FRAMES_WITHIN = 2 / 3
+# K7 and K8 against their plain versions: fp32 max |err| <= 1e-5 L; bf16
+# max <= 2^-6 L and the pooled mean of |err| / L <= 2^-18 (phase 5's
+# limits: the same rounding points, rare flips; an H100 read 7e-9 and
+# 2e-9). The backwards recompute the plain version, so they are held to
+# the same limits against autograd of the plain version (read 0).
+ATTN_SHAPES = ((256, 4, 65, 64), (64, 4, 257, 64), (8, 2, 65, 160))
+SECTION_SHAPES = ((256, 65), (8, 256))          # (B, n) at d 64, 4 x 64
+# The composed routes through the model. fp32, the sharp checks: the K7
+# route against the same pass composed in PyTorch, means within 1e-4 L
+# (read 2.1e-6 of 3.6) and every gradient within 1e-3 L (read 2.4e-5);
+# the K8 route's actions within 1e-4 of the composition's (read 0) and of
+# the fused K1 route's (read 2.6e-6: summation order and the erf
+# polynomial). bf16: kernel and composition round at different points
+# (K7 and K8 keep fp32 where the composition rounds every operation), and
+# the trained actor's activations reach 1e4, so means agree to 2^-4 L
+# (read 1.1e-2 to 1.7e-2 L) and actions to 2^-4 (read 1.3e-2); the
+# composed and the fused bf16 models differ by their whole bf16 model
+# error (the composed stream stays bf16, its GELU is the erf form):
+# actions within 2^-2 (read 2.7e-2 and 7.0e-2 on two draws of frames).
+COMPOSED_BF16, COMPOSED_FP32 = 2.0 ** -4, 1e-4
+COMPOSED_BF16_VS_FUSED, COMPOSED_FP32_GRAD = 2.0 ** -2, 1e-3
+# The fp32 trunk-gradient update against the default-route update from
+# the same state: the same kernel bodies in another launch, the final
+# norm's backward by hand instead of autograd; held to phase 6b's limits
+# (an H100 read metrics equal, grads 2.3e-5 L, parameters 3.5e-4).
+
+
+def trunk_autograd_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+    """A wrong bf16 trunk backward: autograd of K4's plain forward, which
+    rounds gradients wherever the forward casts."""
+    import torch
+
+    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+
+    xr = x.detach().requires_grad_()
+    wr = [[t.detach().requires_grad_() for t in w] for w in blocks]
+    fr = [t.detach().requires_grad_() for t in fn]
+    leaves = [xr, *[t for w in wr for t in w], *fr]
+    gs = torch.autograd.grad(
+        blocks_forward_plain(xr, wr, fr, heads, dim_head, final_norm),
+        leaves, dy, allow_unused=True)
+    gs = [torch.zeros_like(t) if g is None else g
+          for g, t in zip(gs, leaves)]
+    n = 1 + 11 * len(blocks)
+    return (gs[0], tuple(tuple(gs[i:i + 11]) for i in range(1, n, 11)),
+            tuple(gs[n:]))
+
+
+def trunk_fp32_dx_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+    """A wrong bf16 trunk backward: `trunk_bwd_plain`'s chain with dx
+    handed from block to block in fp32 instead of the compute dtype. The
+    block backwards return dx rounded, so the fp32 dx is put together from
+    its parts: dy + the two LayerNorm backwards' input gradients, which a
+    wrapper around `_ln_bwd` keeps."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
+
+    cdt = x.dtype
+    xs = [x]
+    for w in blocks[:-1]:
+        xs.append(ft.block_plain(xs[-1].float(), w, heads=heads,
+                                 dim_head=dim_head, cdt=cdt).to(cdt))
+    cls = cb.cls_block_plain(xs[-1].float(), blocks[-1], heads=heads,
+                             dim_head=dim_head, cdt=cdt).to(cdt).float()
+    dcls, dfs, dfb = final_norm_bwd_plain(dy.float(), cls, fn[0], fn[1],
+                                          final_norm)
+    kept, real = [], ft._ln_bwd
+
+    def keeping(*args):
+        out = real(*args)
+        kept.append(out[0])
+        return out
+
+    ft._ln_bwd = cb._ln_bwd = keeping
+    try:
+        dy_c = dcls.to(cdt)
+        _, g = cb.cls_bwd_plain(xs[-1], dy_c, blocks[-1], heads, dim_head)
+        dln2, dx32 = kept
+        dx32 = dx32.clone()
+        dx32[:, 0] += dy_c.float() + dln2
+        grads = [g]
+        for xi, w in zip(reversed(xs[:-1]), reversed(blocks[:-1])):
+            del kept[:]
+            _, g = ft.block_bwd_plain(xi, dx32, w, heads, dim_head)
+            dx32 = dx32 + kept[0] + kept[1]
+            grads.append(g)
+    finally:
+        ft._ln_bwd = cb._ln_bwd = real
+    return dx32.to(cdt), tuple(reversed(grads)), (dfs, dfb)
+
+
+def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+    """The per-block kernels chained as the default route chains them:
+    K2f, K3f forward, the final norm's backward in PyTorch, K3b, K2b."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
+
+    xs = [x]
+    for w in blocks[:-1]:
+        xs.append(ft.block_fwd_fused(xs[-1], w, heads, dim_head))
+    cls = cb.cls_fwd_fused(xs[-1], blocks[-1], heads, dim_head)
+    dcls, dfs, dfb = final_norm_bwd_plain(dy.float(), cls.float(), fn[0],
+                                          fn[1], final_norm)
+    dx, g = cb.cls_bwd_fused(xs[-1], dcls.to(x.dtype), blocks[-1], heads,
+                             dim_head)
+    grads = [g]
+    for xi, w in zip(reversed(xs[:-1]), reversed(blocks[:-1])):
+        dx, g = ft.block_bwd_fused(xi, dx, w, heads, dim_head)
+        grads.append(g)
+    return dx, tuple(reversed(grads)), (dfs, dfb)
+
+
+def trunk_tensors(result):
+    """dx, the blocks' 44 gradients and the final norm's, as one list; an
+    all-zero bias gradient (RMS norm has none) is left out, the checks
+    scale by a tensor's largest |value|."""
+    dx, gblocks, dfn = result
+    dfn = [g for g in dfn if g.abs().max().item() > 0]
+    return [dx, *[g for gb in gblocks for g in gb], *dfn]
+
+
+def k6_cases(nets, dtype, batch, rng):
+    """(label, arguments of trunk_bwd_fused): the actor's trunk with its
+    RMS norm, the critic's with a Layer norm of seeded bias, and at B=3
+    the actor's on a smaller token count."""
+    import torch
+
+    inp = train_inputs(nets[dtype], batch, rng)
+    a, c = inp["actor"], inp["critic"]
+    bias = torch.from_numpy((0.1 * rng.standard_normal(64)).astype(
+        "float32")).to(DEVICE)
+    cases = [
+        ("actor rms n=65", (a["x"], a["dy3"], a["blocks"], a["fn"],
+                            a["heads"], a["dh"], "rms")),
+        ("critic layer n=65", (c["x"], c["dy3"], c["blocks"],
+                               (c["fn"][0], bias), c["heads"], c["dh"],
+                               "layer"))]
+    if batch == 3:
+        cases.append((f"actor rms n={K6_SMALL_N}", (
+            a["x"][:, :K6_SMALL_N].contiguous(), a["dy3"], a["blocks"],
+            a["fn"], a["heads"], a["dh"], "rms")))
+    return cases
+
+
+def phase_k6(nets, rng):
+    """Phase 13: K6 against its plain version, against two wrong
+    backwards, and against the chain of per-block kernels."""
+    import torch
+
+    from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+                                                 trunk_bwd_plain)
+
+    wrongs = {"autograd of the plain forward": trunk_autograd_bwd,
+              "dx kept in fp32 between blocks": trunk_fp32_dx_bwd}
+    pooled = {name: TrainErrors() for name in ("K6", "chain", *wrongs)}
+    frames = {name: [] for name in ("K6", *wrongs)}
+
+    def frame_errs(dx, ref):
+        scale = ref.float().abs().max().clamp(min=1e-30)
+        return ((dx.float() - ref.float()).abs().mean(dim=(1, 2))
+                / scale).tolist()
+
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        for batch in K6_BATCHES:
+            for label, args in k6_cases(nets, dtype, batch, rng):
+                out = trunk_tensors(trunk_bwd_fused(*args))
+                torch.cuda.synchronize()
+                ref = trunk_tensors(trunk_bwd_plain(*args))
+                chain = trunk_tensors(trunk_chain_bwd(*args))
+                what = f"K6 {dtype} B={batch} {label}"
+                check(len(out) == len(ref) == len(chain) and all(
+                    o.shape == r.shape and o.dtype == r.dtype
+                    for o, r in zip(out, ref)), f"{what}: shapes or dtypes")
+                check(all(bool(torch.isfinite(o.float()).all())
+                          for o in out), f"{what}: non-finite")
+                rel = lambda xs, ys: max(
+                    (x.float() - y.float()).abs().max().item()
+                    / max(y.float().abs().max().item(), 1e-30)
+                    for x, y in zip(xs, ys))
+                mx = max((o.float() - r.float()).abs().max().item()
+                         for o, r in zip(out, ref))
+                worst[dtype] = max(worst.get(dtype, 0.0), mx)
+                if dtype == "float32":
+                    e, ec = rel(out, ref), rel(out, chain)
+                    ok = e <= K6_F32_MAX and ec <= K6_F32_MAX
+                    print(f"{what}: vs plain max|err|/L {e:.3e}, vs the "
+                          f"K3b + K2b chain {ec:.3e} "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    check(ok, f"{what} disagrees with its plain version or "
+                          "the per-block chain")
+                    continue
+                e, ec = TrainErrors(), TrainErrors()
+                e.add(zip(out, ref))
+                ec.add(zip(out, chain))
+                pooled["K6"].add(zip(out, ref))
+                pooled["chain"].add(zip(out, chain))
+                frames["K6"] += frame_errs(out[0], ref[0])
+                line = (f"{what}: vs plain max|err| {mx:.3e}, mean|err|/L "
+                        f"{e.mean:.3e}; vs the K3b + K2b chain max|err|/L "
+                        f"{rel(out, chain):.3e}")
+                for name, wrong in wrongs.items():
+                    w = TrainErrors()
+                    bad = trunk_tensors(wrong(*args))
+                    w.add(zip(bad, ref))
+                    pooled[name].add(zip(bad, ref))
+                    frames[name] += frame_errs(bad[0], ref[0])
+                    line += f"; wrong ({name}) mean|err|/L {w.mean:.3e}"
+                print(line, flush=True)
+                check(e.max_ok and ec.max_ok, f"{what} disagrees with its "
+                      "plain version or the per-block chain")
+    for name, e in pooled.items():
+        versus = ("K6 vs the K3b + K2b chain" if name == "chain" else
+                  f"{name} vs K6's plain version")
+        print(f"{versus}, bf16 cases pooled: mean|err|/L {e.mean:.3e} "
+              f"(limit {K6_BF16_MEAN:.3e}), every max within 2^-6 L: "
+              f"{e.max_ok}", flush=True)
+        if name not in wrongs:
+            check(e.max_ok and e.mean <= K6_BF16_MEAN,
+                  f"{versus}: they disagree (bf16 pooled)")
+    for name, errs in frames.items():
+        within = sum(e <= TRAIN_BF16_MEAN for e in errs) / len(errs)
+        ok = within >= K6_FRAMES_WITHIN
+        print(f"{name} vs K6's plain version, dx by frame over the bf16 "
+              f"cases ({len(errs)} frames): median mean|err|/L "
+              f"{statistics.median(errs):.3e}, frames within "
+              f"{TRAIN_BF16_MEAN:.3e}: {within:.3f} (at least "
+              f"{K6_FRAMES_WITHIN:.3f}); {'passes' if ok else 'FAILS'}",
+              flush=True)
+        if name in wrongs:
+            check(not ok, f"K6's bf16 limits pass a wrong backward ({name})")
+        else:
+            check(ok, "K6 disagrees with its plain version (bf16, dx by "
+                  "frame)")
+    return worst
+
+
+def phase_trunk_grad_fp32(default_run):
+    """Phase 14b: one fp32 update on the trunk-gradient route through the
+    kernels against the same update through the plain versions on the
+    card, and against the default-route update from the same state."""
+    import numpy as np
+
+    g = np.load(GOLDEN_SAC)
+    counters = kernel_counters()
+    with trunk_grad_switch():
+        before = {k: fn.launches for k, fn in counters.items()}
+        kern = golden_update(DEVICE, g)
+        check(all(counters[k].launches - before[k] == n
+                  for k, n in PER_UPDATE_TRUNK.items()),
+              "the fp32 trunk-gradient update did not go through K4 and K6")
+        before = {k: fn.launches for k, fn in counters.items()}
+        with plain_kernels():
+            plain = golden_update(DEVICE, g)
+        check(all(fn.launches == before[k] for k, fn in counters.items()),
+              "the plain fp32 trunk-gradient update launched a kernel")
+    worst = {}
+    for name, ref in (("plain versions on the card", plain),
+                      ("default-route update", default_run)):
+        bad, rel = update_mismatches(kern, ref)
+        gerr = max(((a - ref["grads"][n]).abs().max()
+                    / ref["grads"][n].abs().max().clamp(min=1e-30)).item()
+                   for n, a in kern["grads"].items())
+        pmax = max((a - ref["params"][n]).abs().max().item()
+                   for n, a in kern["params"].items())
+        print(f"fp32 trunk-gradient update vs the {name}: largest relative "
+              f"differences {rel}; grads max|err|/L {gerr:.3e}; parameters "
+              f"max|diff| {pmax:.3e}", flush=True)
+        check(not bad, f"the fp32 trunk-gradient update disagrees with the "
+              f"{name}: {bad}")
+        check(gerr <= SAC_RTOL, f"the fp32 trunk-gradient update's grads "
+              f"disagree with the {name}")
+        check(pmax <= 2.2e-3, f"the fp32 trunk-gradient update's parameters"
+              f" disagree with the {name}")
+        worst[name] = rel
+    return worst
+
+
+def pad_keys(t, multiple=8):
+    """Zero rows appended to the token axis (-2) up to a multiple."""
+    import torch.nn.functional as F
+
+    return F.pad(t, (0, 0, 0, -t.shape[-2] % multiple))
+
+
+def section_inputs(nets, dtype, batch, n, rng):
+    """K7's arguments as the composed block hands them over: the actor's
+    embedded stream of seeded frames through its first block's attention
+    norm (for more than 65 tokens the stream repeated), and that block's
+    projection weights, in a compute dtype."""
+    import torch
+
+    from dgvit_tpu_torch.ops.fused_transformer import _ln
+
+    blk = nets[dtype]["actor"].trans.transformer.blocks[0]
+    x = train_inputs(nets[dtype], batch, rng)["actor"]["x"]
+    x = x.repeat(1, -(-n // x.shape[1]), 1)[:, :n]
+    with torch.no_grad():
+        h = _ln(x.float(), blk.attn_norm_scale, blk.attn_norm_bias).to(
+            x.dtype).contiguous()
+    return [h, *[getattr(blk, k).detach().to(x.dtype).contiguous()
+                 for k in ("wqkv", "wout", "bout")]]
+
+
+def phase_attention(nets, rng):
+    """Phase 15: K7 and K8 against their plain versions, forward and
+    backward, and wrong versions that must fail."""
+    import torch
+
+    from dgvit_tpu_torch.ops.attention import (attention_fused,
+                                               attention_plain)
+    from dgvit_tpu_torch.ops.fused_block import (attention_section_plain,
+                                                 fused_attention_section)
+
+    dev = torch.device(DEVICE)
+    draw = lambda shape, dt: torch.from_numpy(rng.standard_normal(
+        shape).astype("float32")).to(dev).to(dt)
+    cases = []      # (kernel, label, dtype, fn, plain, args, wrongs)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for b, n in SECTION_SHAPES:
+            x, *w = section_inputs(nets, dtype, b, n, rng)
+            wrongs = {}
+            if n % 8:
+                wrongs["padded keys not masked"] = lambda x, *w: \
+                    attention_section_plain(pad_keys(x), *w, 4, 64)[
+                        :, :x.shape[1]]
+            wrongs["scale 1 / dim_head"] = lambda x, wqkv, wout, bout: \
+                attention_section_plain(
+                    x, torch.cat([wqkv[:, :256] / 8, wqkv[:, 256:]], 1).to(
+                        x.dtype), wout, bout, 4, 64)
+            cases.append(("K7", f"({b}, {n}, 64)", dtype,
+                          lambda *a: fused_attention_section(*a, 4, 64),
+                          lambda *a: attention_section_plain(*a, 4, 64),
+                          [x, *w], wrongs))
+        for shape in ATTN_SHAPES:
+            scale = shape[-1] ** -0.5
+            args = [draw(shape, dt) for _ in range(3)]
+            wrongs = {"scale 1 / D": lambda q, k, v, s=scale:
+                      attention_plain(q, k, v, s * s)}
+            if shape[2] % 8:
+                wrongs["padded keys not masked"] = lambda q, k, v, s=scale: \
+                    attention_plain(q, pad_keys(k), pad_keys(v), s)
+            cases.append(("K8", str(shape), dtype,
+                          lambda *a, s=scale: attention_fused(*a, s),
+                          lambda *a, s=scale: attention_plain(*a, s),
+                          args, wrongs))
+    pooled = {k: TrainErrors() for k in ("K7", "K8")}
+    pooled_bwd = {k: TrainErrors() for k in ("K7", "K8")}
+    worst = {}
+    for kernel, label, dtype, fn, plain, args, wrongs in cases:
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        check(out.shape == ref.shape and out.dtype == ref.dtype and
+              bool(torch.isfinite(out.float()).all()),
+              f"{kernel} {label} {dtype}: shape, dtype or non-finite")
+        # the backward: the kernel route's recompute against autograd of
+        # the plain version, on the same seeded output gradient
+        dy = draw(tuple(out.shape), out.dtype)
+        leaves = [t.detach().requires_grad_() for t in args]
+        grads = torch.autograd.grad(fn(*leaves), leaves, dy)
+        leaves = [t.detach().requires_grad_() for t in args]
+        ref_grads = torch.autograd.grad(plain(*leaves), leaves, dy)
+        scale = ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        key = (kernel, dtype)
+        worst[key] = max(worst.get(key, 0.0), err)
+        gerr = max(((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30)).item()
+                   for a, b in zip(grads, ref_grads))
+        line = (f"{kernel} vs plain {dtype} {label}: max|err| {err:.3e} "
+                f"(max|ref| {scale:.3e}), backward max|err|/L {gerr:.3e}")
+        if dtype == "float32":
+            ok = err <= TRAIN_F32_MAX * scale and gerr <= TRAIN_F32_MAX
+            fails = lambda t: ((t.float() - ref.float()).abs().max().item()
+                               > TRAIN_F32_MAX * scale)
+        else:
+            e, eb = TrainErrors(), TrainErrors()
+            e.add([(out, ref)])
+            eb.add(zip(grads, ref_grads))
+            pooled[kernel].add([(out, ref)])
+            pooled_bwd[kernel].add(zip(grads, ref_grads))
+            ok = e.ok and eb.ok
+            line += f", mean|err|/L {e.mean:.3e}"
+
+            def fails(t):
+                w = TrainErrors()
+                w.add([(t, ref)])
+                return not w.ok
+        for name, wrong in wrongs.items():
+            bad = wrong(*args)
+            caught = fails(bad)
+            line += (f"; wrong ({name}) max|err| "
+                     f"{(bad.float() - ref.float()).abs().max().item():.3e}"
+                     f" {'fails' if caught else 'PASSES'}")
+            check(caught, f"{kernel}'s limits pass a wrong version "
+                  f"({name}, {dtype} {label})")
+        print(line + f" {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kernel} disagrees with its plain version "
+              f"({dtype} {label})")
+    for kernel in pooled:
+        for what, e in (("forward", pooled[kernel]),
+                        ("backward", pooled_bwd[kernel])):
+            print(f"{kernel} {what} bf16 cases pooled: mean|err|/L "
+                  f"{e.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}) "
+                  f"{'ok' if e.ok else 'FAIL'}", flush=True)
+            check(e.ok, f"{kernel} {what} disagrees (bf16 pooled)")
+    return worst
+
+
+def phase_composed(cfg, flat, policies, rng):
+    """Phase 16, main paths: the composed routes through the model."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.models import (build_actor, layers,
+                                        params_from_jax)
+    from dgvit_tpu_torch.models.got import GoT
+
+    dev = torch.device(DEVICE)
+    counters = kernel_counters()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    def only(**want):
+        return {k: want.get(k, 0) for k in counters}
+
+    obs = torch.from_numpy(rng.uniform(0, 1, (SAC_BATCH, 128, 160)).astype(
+        np.float32)).to(dev)
+    goal = torch.from_numpy(np.stack(
+        [rng.uniform(0, 1, SAC_BATCH), rng.uniform(-1, 1, SAC_BATCH)],
+        axis=1).astype(np.float32)).to(dev)
+    sd = params_from_jax(flat)
+    launches = {}
+
+    # (a) K7: the flagship actor with block dropout 0.1 in its GoT (no
+    # config hands `dropout` on, in either package): a training forward
+    # and backward at B=256, against the same pass with the section
+    # composed in PyTorch (as on the CPU) and the same masks
+    m = cfg.model
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        pol = build_actor(cfg, dtype=dt)
+        pol.trans = GoT(image_size=tuple(m.image_size),
+                        patch_size=tuple(m.patch_size), dim=m.latent_size,
+                        depth=m.block, heads=m.head, dim_head=m.dim_head,
+                        mlp_dim=m.mlp_dim, emb_dropout=m.emb_dropout,
+                        dropout=0.1, dtype=dt)
+        pol.load_state_dict(sd)
+        pol = pol.to(dev).train()
+
+        def train_pass():
+            for p in pol.parameters():
+                p.grad = None
+            mean, log_std = pol(obs, goal, deterministic=False,
+                                generator=torch.Generator(dev).manual_seed(
+                                    SEED))
+            (mean.float().square().mean()
+             + log_std.float().mean()).backward()
+            return mean.detach().float()
+
+        mean, got = counted(train_pass)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in pol.named_parameters()}
+        check(got == only(K7=4),
+              f"GoT(dropout=0.1) launched {got}, expected K7 x4")
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+              and all(g.abs().max().item() > 0 for n, g in grads.items()
+                      if "trans" in n),
+              "GoT(dropout=0.1): a parameter's gradient is missing or "
+              "non-finite")
+        on_card = layers._on_card
+        layers._on_card = lambda t: False
+        try:
+            mean_ref, l_ref = counted(train_pass)
+        finally:
+            layers._on_card = on_card
+        check(l_ref == only(), f"the composed reference launched {l_ref}")
+        gerr, worst_name = max(
+            (((p.grad - grads[n]).abs().max()
+              / grads[n].abs().max().clamp(min=1e-30)).item(), n)
+            for n, p in pol.named_parameters())
+        scale = mean_ref.abs().max().item()
+        err = (mean - mean_ref).abs().max().item()
+        print(f"GoT(dropout=0.1) in the flagship policy, {dtype} "
+              f"B={SAC_BATCH}, training forward and backward: launches "
+              f"{got}; means vs the PyTorch composition {err:.3e} "
+              f"(max|mean| {scale:.3e}), grads max|err|/L {gerr:.3e} "
+              f"({worst_name})", flush=True)
+        if dtype == "bfloat16":
+            launches["dropout"] = got
+            check(err <= COMPOSED_BF16 * scale,
+                  "GoT(dropout=0.1), bf16: the K7 route's means leave the "
+                  "composition's")
+        else:
+            check(err <= COMPOSED_FP32 * scale and gerr <= COMPOSED_FP32_GRAD,
+                  "GoT(dropout=0.1), fp32: the K7 route leaves the "
+                  "composition")
+
+    # (b) K8 by name: build_actor(cfg, attn_impl="pallas"), deterministic
+    # acting forward at B=256, against the same model composed in PyTorch
+    # (attn_impl="xla") and against the K1 route with the same weights
+    for dtype, limit, limit_k1 in (
+            ("bfloat16", COMPOSED_BF16, COMPOSED_BF16_VS_FUSED),
+            ("float32", COMPOSED_FP32, COMPOSED_FP32)):
+        pols = {}
+        for impl in ("pallas", "xla"):
+            pols[impl] = build_actor(cfg, dtype=getattr(torch, dtype),
+                                     attn_impl=impl)
+            pols[impl].load_state_dict(sd)
+            pols[impl] = pols[impl].to(dev).eval()
+        with torch.no_grad():
+            (mean, _), got = counted(lambda: pols["pallas"](
+                obs, goal, inference=True))
+            (comp, _), l_comp = counted(lambda: pols["xla"](
+                obs, goal, inference=True))
+            (ref, _), l_ref = counted(lambda: policies[dtype](
+                obs, goal, inference=True))
+        act = lambda t: torch.tanh(t.float())
+        err = (act(mean) - act(comp)).abs().max().item()
+        err_k1 = (act(mean) - act(ref)).abs().max().item()
+        print(f"build_actor(attn_impl='pallas') {dtype} B={SAC_BATCH}, "
+              f"acting forward: launches {got}; actions vs "
+              f"attn_impl='xla' max|diff| {err:.3e} (limit {limit:.3e}), "
+              f"vs the K1 route {err_k1:.3e} (limit {limit_k1:.3e})",
+              flush=True)
+        check(got == only(K8=4) and l_comp == only()
+              and l_ref == only(K1=1),
+              f"attn_impl='pallas' launched {got}, 'xla' {l_comp}, the "
+              f"default actor {l_ref}; expected K8 x4, nothing, K1 x1")
+        check(err <= limit and err_k1 <= limit_k1,
+              f"attn_impl='pallas' ({dtype}): actions leave the "
+              "composition's or the K1 route's")
+        if dtype == "bfloat16":
+            launches["pallas"] = got
+
+    # (c) K8 by shape: model.patch_size (8, 10) gives 257 tokens, over
+    # every fused limit; auto picks the kernel on the card
+    cfg257 = Config.from_dict({"model": {"patch_size": [8, 10]}})
+    b = 64
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        pols = {}
+        for impl in ("auto", "xla"):
+            pols[impl] = build_actor(
+                cfg257, dtype=dt, attn_impl=impl,
+                generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+        with torch.no_grad():
+            (mean, _), got = counted(lambda: pols["auto"](
+                obs[:b], goal[:b], inference=True))
+            (ref, _), l_ref = counted(lambda: pols["xla"](
+                obs[:b], goal[:b], inference=True))
+        err = (mean.float() - ref.float()).abs().max().item()
+        limit = COMPOSED_BF16 if dtype == "bfloat16" else COMPOSED_FP32
+        print(f"patch_size (8, 10), 257 tokens, {dtype} B={b}, acting "
+              f"forward: launches {got}; mean vs attn_impl='xla' "
+              f"{err:.3e} (limit {limit:.3e}, max|mean| "
+              f"{ref.float().abs().max().item():.3e})", flush=True)
+        check(got == only(K8=4) and l_ref == only(),
+              f"257 tokens launched {got} (xla: {l_ref}); expected K8 x4")
+        check(bool(torch.isfinite(mean.float()).all()) and err <= limit,
+              f"257 tokens ({dtype}): means leave the composition's")
+        if dtype == "bfloat16":
+            launches["auto_257"] = got
+    return launches
+
+
+def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
+    """The least FLOPs and bytes of K4's backward from x and dy: the
+    forward once (its activations are not given), two products for each
+    of its products; x, dy and the weights read, dx and the weight
+    gradients written, once each."""
+    fwd, _ = train_work("K4", batch, n, d, heads, dh, mlp, depth, esize)
+    inner = heads * dh
+    w = d * 3 * inner + inner * d + 2 * d * mlp + mlp + 6 * d
+    return 3 * fwd, ((2 * batch * n * d + batch * d + 2 * depth * w) * esize
+                     + 4 * d * 4)
+
+
+def k7_work(batch, n, d=64, heads=4, dh=64, esize=2):
+    inner = heads * dh
+    flops = batch * (2 * n * d * 3 * inner + 4 * heads * n * n * dh
+                     + 2 * n * inner * d)
+    return flops, (2 * batch * n * d + d * 3 * inner + inner * d + d) * esize
+
+
+def k8_bound(shape, dtype):
+    """K8's bound: q k^T on operands of `dtype`, P.V in fp32 (the
+    probabilities are fp32 by definition), q, k, v read and o written
+    once."""
+    b, h, n, d = shape
+    half = 2 * b * h * n * n * d
+    t_ops = half / PEAK_FLOPS[dtype] + half / PEAK_FLOPS["float32"]
+    t_bytes = 4 * b * h * n * d * (2 if dtype == "bfloat16" else 4) \
+        / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_attention_times(nets, rng):
+    """Phase 17: K6, K7, K8 and their plain versions, bf16, beside their
+    bounds and, for K8, scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgvit_tpu_torch.ops.attention import (attention_fused,
+                                               attention_plain)
+    from dgvit_tpu_torch.ops.fused_block import (attention_section_plain,
+                                                 fused_attention_section)
+    from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+                                                 trunk_bwd_plain)
+
+    dev = torch.device(DEVICE)
+    rows = {}
+    a = train_inputs(nets["bfloat16"], SAC_BATCH, rng)["actor"]
+    args = (a["x"], a["dy3"], a["blocks"], a["fn"], a["heads"], a["dh"],
+            "rms")
+    bnd, by = bound_ms(*k6_work(SAC_BATCH), "bfloat16")
+    rows["K6"] = dict(ms=cuda_ms(lambda: trunk_bwd_fused(*args), 3, runs=5),
+                      plain_ms=cuda_ms(lambda: trunk_bwd_plain(*args), 1,
+                                       runs=5),
+                      bound_ms=bnd, bound_by=by, library_ms=None)
+    rows["K7"] = {}
+    for b, n in SECTION_SHAPES:
+        x, *w = section_inputs(nets, "bfloat16", b, n, rng)
+        bnd, by = bound_ms(*k7_work(b, n), "bfloat16")
+        rows["K7"][f"({b}, {n}, 64)"] = dict(
+            ms=cuda_ms(lambda: fused_attention_section(x, *w, 4, 64), 10,
+                       runs=5),
+            plain_ms=cuda_ms(lambda: attention_section_plain(x, *w, 4, 64),
+                             5, runs=5),
+            bound_ms=bnd, bound_by=by, library_ms=None)
+    rows["K8"] = {}
+    for shape in ATTN_SHAPES:
+        q, k, v = (torch.randn(shape, device=dev).bfloat16()
+                   for _ in range(3))
+        s = shape[-1] ** -0.5
+        bnd, by = k8_bound(shape, "bfloat16")
+        rows["K8"][str(shape)] = dict(
+            ms=cuda_ms(lambda: attention_fused(q, k, v, s), 10, runs=5),
+            plain_ms=cuda_ms(lambda: attention_plain(q, k, v, s), 5,
+                             runs=5),
+            bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=s), 10, runs=5))
+    for name, r in (("K6", {f"B={SAC_BATCH}": rows["K6"]}),
+                    ("K7", rows["K7"]), ("K8", rows["K8"])):
+        for label, t in r.items():
+            lib = ("" if t["library_ms"] is None else
+                   f", scaled_dot_product_attention {t['library_ms']:.4f} ms")
+            print(f"{name} bf16 {label}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']}){lib}", flush=True)
+    return rows
+
+
 
 KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
     "K1": ("got_forward_fused", "got_megakernel.cu",
@@ -1530,6 +2273,12 @@ KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
             "dgvit_tpu/ops/cls_block.py:320"),
     "K5": ("preprocess_depth_fused", "depth_preprocess.cu",
            "dgvit_tpu/ops/pallas_preprocess.py:205"),
+    "K6": ("trunk_bwd_fused", "block_grad.cu",
+           "dgvit_tpu/ops/trunk_train.py:150"),
+    "K7": ("fused_attention_section", "attention.cu",
+           "dgvit_tpu/ops/fused_block.py:79"),
+    "K8": ("attention_fused", "attention.cu",
+           "dgvit_tpu/ops/attention.py:80"),
 }
 
 
@@ -1549,6 +2298,7 @@ def main() -> int:
     from dgvit_tpu_torch.core.checkpoint import load_params_npz
     from dgvit_tpu_torch.models import build_actor, params_from_jax
     from dgvit_tpu_torch.ops import _build
+    from dgvit_tpu_torch.ops.attention import _attention_lib
     from dgvit_tpu_torch.ops.fused_preprocess import \
         _kernel_lib as _preprocess_lib
     from dgvit_tpu_torch.ops.fused_transformer import _block_lib
@@ -1565,11 +2315,12 @@ def main() -> int:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
-    # the kernel libraries, and beside them (all six nvcc at once) cubins
+    # the kernel libraries, and beside them (all eight nvcc at once) cubins
     # of the same sources whose ptxas reports give registers and spills
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = ("got_megakernel", "block_grad", "depth_preprocess")
+    sources = ("got_megakernel", "block_grad", "depth_preprocess",
+               "attention")
     reports = [subprocess.Popen(
         [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
@@ -1582,6 +2333,7 @@ def main() -> int:
         _kernel_lib()
         _block_lib()
         _preprocess_lib()
+        _attention_lib()
     finally:
         outs = [p.communicate()[0] for p in reports]
     print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -1613,7 +2365,7 @@ def main() -> int:
     nets = build_nets(actor_flat, critic_flat)
     train_worst = phase_train_kernels(nets, rng)
     sac_launches, update_s, one_update = phase_sac(actor_flat, critic_flat)
-    sac_fp32 = phase_sac_fp32()
+    sac_fp32, default_fp32 = phase_sac_fp32()
     phase_profile(one_update)
 
     k5_worst = phase_k5(rng)
@@ -1621,9 +2373,40 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         loop_launches, loop_rates = phase_train(out_dir)
 
+    k6_worst = phase_k6(nets, rng)
+    with trunk_grad_switch():
+        trunk_launches, trunk_update_s, trunk_update = phase_sac(
+            actor_flat, critic_flat, PER_UPDATE_TRUNK,
+            "trunk-gradient SAC")
+    trunk_fp32 = phase_trunk_grad_fp32(default_fp32)
+    seen = phase_profile(trunk_update, "trunk-gradient bf16")
+    if seen is not None:
+        # by design: per update K4 x5, K6's per-frame pass x2, and behind
+        # K6 the 17 weight products of a trunk (3 x 4 + 5) with a finish
+        # each, the blocks' four vector finishes and the final norm's
+        count = lambda word: sum(c for k, c in seen.items() if word in k)
+        got = {w: count(w) for w in ("trunk_kernel", "trunk_bwd_kernel",
+                                     "wgrad_kernel", "wgrad_finish",
+                                     "vec_finish", "block_bwd_kernel",
+                                     "cls_bwd_kernel", "block_fwd_kernel")}
+        want = {"trunk_kernel": 5, "trunk_bwd_kernel": 2, "wgrad_kernel": 34,
+                "wgrad_finish": 34, "vec_finish": 10, "block_bwd_kernel": 0,
+                "cls_bwd_kernel": 0, "block_fwd_kernel": 0}
+        print(f"CUDA launches of one trunk-gradient update: {got}",
+              flush=True)
+        check(got == want, f"a trunk-gradient update launched {got}, "
+              f"designed {want}")
+    print(f"trunk-gradient route: {trunk_update_s * 1e3:.2f} ms an update "
+          f"against {update_s * 1e3:.2f} ms on the default route (bf16, "
+          f"B={SAC_BATCH}, host clock, synchronized, medians of steps 1-"
+          f"{SAC_STEPS - 1} in this run)", flush=True)
+    attn_worst = phase_attention(nets, rng)
+    composed_launches = phase_composed(cfg, flat, policies, rng)
+
     times = phase_times(cfg, policies, rng)
     train_times = phase_train_times(nets, rng)
     k5_times = phase_k5_times(rng)
+    attn_times = phase_attention_times(nets, rng)
 
     main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]
@@ -1648,7 +2431,7 @@ def main() -> int:
         "serving": launches, "camera_to_action": camera_launches["K1"],
         "train": loop_launches["K1"]}
     for short, (name, src, replaces) in KERNELS.items():
-        if short not in ("K1", "K5"):
+        if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
                 "name": name, "route": "cuda",
                 "source": f"dgvit_tpu_torch/ops/csrc/{src}",
@@ -1660,8 +2443,10 @@ def main() -> int:
                 "batch": SAC_BATCH, "dtype": "bfloat16",
                 "max_abs_err_fp32": train_worst[(short, "float32")],
                 "launches_per_update": PER_UPDATE[short],
-                "launches_by_path": {"sac_update": sac_launches[short],
-                                     "train": loop_launches[short]},
+                "launches_by_path": {
+                    "sac_update": sac_launches[short],
+                    "train": loop_launches[short],
+                    "trunk_grad_update": trunk_launches[short]},
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({
@@ -1672,6 +2457,37 @@ def main() -> int:
         "batch": CAMERA_FRAMES, "dtype": "float32", "noise_level": 50.0,
         "by_batch": {str(b): v for b, v in k5_times.items()},
     })
+    name, src, replaces = KERNELS["K6"]
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+        "launches": trunk_launches["K6"],
+        "max_abs_err": k6_worst["bfloat16"], **attn_times["K6"],
+        "batch": SAC_BATCH, "dtype": "bfloat16",
+        "max_abs_err_fp32": k6_worst["float32"],
+        "launches_per_update": PER_UPDATE_TRUNK["K6"],
+        "update_ms": trunk_update_s * 1e3,
+        "default_update_ms": update_s * 1e3,
+    })
+    for short, path, shape in (
+            ("K7", "dropout", f"({SAC_BATCH}, 65, 64)"),
+            ("K8", "pallas", str(ATTN_SHAPES[0]))):
+        name, src, replaces = KERNELS[short]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dgvit_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": composed_launches[path][short],
+            "max_abs_err": attn_worst[(short, "bfloat16")],
+            **attn_times[short][shape],
+            "shape": shape, "dtype": "bfloat16",
+            "max_abs_err_fp32": attn_worst[(short, "float32")],
+            "launches_by_path": {k: v[short]
+                                 for k, v in composed_launches.items()},
+            "by_shape": attn_times[short],
+        })
+    print(f"fp32 trunk-gradient update, largest relative differences: "
+          f"{json.dumps(trunk_fp32)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

@@ -6,21 +6,32 @@ embedded to `dim`, the embedded goal is prepended as the CLS token, a
 learned positional embedding is added, `depth` pre-norm blocks run, the
 goal token is pooled and normed (RMS, or Layer for the frame-stack fork).
 
-`forward` takes the JAX module's three routes (got.py:102-118), each a
-kernel wrapper that runs the CUDA kernel on the card and its plain version
-on the CPU:
+`forward` takes the JAX module's routes (got.py:102-118, 201-215). A
+model whose blocks have no dropout, with `attn_impl` auto or fused, CLS
+pooling and at most 256 tokens takes the fused routes, each a kernel
+wrapper that runs the CUDA kernel on the card and its plain version on
+the CPU:
 
-  * `inference` and `deterministic` (acting, evaluation, serving): the
-    whole trunk as one `got_forward_fused` call (K1). Casts match the JAX
-    package's fused route: patches, goal, patch-embed kernel and bias, and
-    the positional embedding go to the compute dtype; the final-norm
-    parameters stay fp32;
-  * `inference` with live dropout (the no-grad forwards of the SAC
-    update): the embedding and emb-dropout in PyTorch, then
-    `blocks_cls_forward_fused` (K4) on detached parameters;
-  * gradient-bearing (`inference` False): the embedding and emb-dropout,
-    the differentiable per-block kernels (K2 for depth-1 blocks, K3 for
-    the CLS-only last block), then the final-norm module.
+  * `inference` and `deterministic` on the full patch grid (acting,
+    evaluation, serving): the whole trunk as one `got_forward_fused` call
+    (K1). Casts match the JAX package's fused route: patches, goal,
+    patch-embed kernel and bias, and the positional embedding go to the
+    compute dtype; the final-norm parameters stay fp32;
+  * `inference` with live dropout or a smaller image (the no-grad
+    forwards of the SAC update): the embedding and emb-dropout in
+    PyTorch, then `blocks_cls_forward_fused` (K4) on detached parameters;
+  * gradient-bearing (`inference` False), by default: the embedding and
+    emb-dropout, the differentiable per-block kernels (K2 for depth-1
+    blocks, K3 for the CLS-only last block), then the final-norm module;
+  * gradient-bearing with `trunk_grad` (the JAX package's opt-in switch
+    `DGVIT_TRUNK_GRAD=1`, read where the networks are built): the
+    embedding and emb-dropout, then K4 with parameter casts that keep the
+    graph; its backward is the whole-trunk kernel K6.
+
+Any other model (block dropout, `attn_impl` xla or pallas, mean pooling,
+more than 256 tokens) takes the composed route: the embedding, then each
+block as `models/layers.py::TransformerBlock` composes it around the
+attention kernels (K7, K8), the pooling and the final-norm module.
 
 The embedding is the JAX composed path's: the patch-embed product rounded
 to the compute dtype, then its bias, the goal token and the positional
@@ -35,8 +46,10 @@ import torch
 from torch import nn
 
 from dgvit_tpu_torch.models import initializers as init
-from dgvit_tpu_torch.models.layers import (LayerNorm, Linear, RMSNorm,
-                                           TransformerBlock, emb_dropout)
+from dgvit_tpu_torch.models.layers import (ATTN_IMPLS, LayerNorm, Linear,
+                                           RMSNorm, TransformerBlock)
+from dgvit_tpu_torch.models.layers import dropout as flax_dropout
+from dgvit_tpu_torch.ops.fused_block import MAX_TOKENS
 from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
                                                 got_forward_fused)
 
@@ -59,11 +72,24 @@ def patchify_channels(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
-                 mlp_dim: int, generator: Optional[torch.Generator] = None):
+                 mlp_dim: int, generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0, attn_impl: str = "auto"):
         super().__init__()
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, heads, dim_head, mlp_dim, generator)
+            TransformerBlock(dim, heads, dim_head, mlp_dim, generator,
+                             dropout=dropout, attn_impl=attn_impl)
             for _ in range(depth))
+
+    def forward(self, x: torch.Tensor, cls_final: bool = False, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Every block in turn; with cls_final the last one returns the
+        pooled CLS rows, (B, d)."""
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, cls_only=cls_final and i == len(self.blocks) - 1,
+                    deterministic=deterministic, generator=generator)
+        return x
 
 
 class GoT(nn.Module):
@@ -72,7 +98,10 @@ class GoT(nn.Module):
                  depth: int = 4, heads: int = 4, dim_head: int = 64,
                  mlp_dim: int = 2048, channels: int = 1,
                  patch_mode: str = "2d", final_norm: str = "rms",
-                 emb_dropout: float = 0.1,
+                 emb_dropout: float = 0.1, dropout: float = 0.0,
+                 pool: str = "cls", attn_impl: str = "auto",
+                 capture: bool = False, seq_shard: bool = False,
+                 trunk_grad: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -80,6 +109,20 @@ class GoT(nn.Module):
             raise ValueError(patch_mode)
         if final_norm not in ("rms", "layer"):
             raise ValueError(final_norm)
+        if pool not in ("cls", "mean"):
+            raise ValueError(pool)
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attention impl {attn_impl!r}")
+        if capture:
+            raise NotImplementedError("capture (attention maps for the "
+                                      "visualizer) is not ported")
+        if seq_shard:
+            raise NotImplementedError("seq_shard (ring attention) is not "
+                                      "ported")
+        self.pool, self.trunk_grad = pool, bool(trunk_grad)
+        # the fused routes' static conditions (got.py:102-114)
+        self.blocks_ok = (attn_impl in ("auto", "fused") and dropout == 0.0
+                          and pool == "cls")
         self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
         self.heads, self.dim_head = heads, dim_head
         self.patch_mode, self.final_norm = patch_mode, final_norm
@@ -93,7 +136,8 @@ class GoT(nn.Module):
             init.normal_(torch.empty(1, self.num_patches + 1, dim),
                          generator))
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
-                                       generator)
+                                       generator, dropout=dropout,
+                                       attn_impl=attn_impl)
         self.norm_out = RMSNorm(dim) if final_norm == "rms" else LayerNorm(dim)
         self._cache_key = None
         self._cache = None
@@ -148,20 +192,34 @@ class GoT(nn.Module):
                 ) -> torch.Tensor:
         """img (B, H, W) [2d] or (B, C, H, W) [channels]; goal (B, dim)
         embedded goal token. Returns the (B, dim) latent in the compute
-        dtype. `deterministic` False applies emb-dropout, its mask drawn
-        from `generator`; `inference` selects the no-grad kernels (the K4
-        route raises if autograd would need its gradient)."""
-        if inference and deterministic:
+        dtype. `deterministic` False applies emb-dropout and the blocks'
+        dropout, the masks drawn from `generator`; `inference` selects the
+        no-grad kernels."""
+        ph, pw = self.patch_size
+        in_patches = (img.shape[-2] // ph) * (img.shape[-1] // pw)
+        blocks_ok = (self.blocks_ok and in_patches + 1 <= MAX_TOKENS
+                     and (inference or self.trunk_grad))
+        if (blocks_ok and inference and deterministic
+                and in_patches == self.num_patches):
             return got_forward_fused(*self.trunk_args(img, goal))
         x = self.embed(img, goal)
         if not deterministic:
-            x = emb_dropout(x, self.emb_dropout, generator)
-        if inference:
-            _, _, blocks, fn = self.fused_params(x.dtype)
+            x = flax_dropout(x, self.emb_dropout, generator)
+        if blocks_ok:
+            if inference:
+                _, _, blocks, fn = self.fused_params(x.dtype)
+            else:       # casts that keep the graph; the final norm in fp32
+                blocks = [tuple(getattr(b, n).to(x.dtype) for n in b.ORDER)
+                          for b in self.transformer.blocks]
+                fn = ((self.norm_out.g, torch.zeros_like(self.norm_out.g))
+                      if self.final_norm == "rms" else
+                      (self.norm_out.weight, self.norm_out.bias))
             return blocks_cls_forward_fused(x.contiguous(), blocks, fn,
                                             self.heads, self.dim_head,
                                             self.final_norm)
-        *body, last = self.transformer.blocks
-        for blk in body:
-            x = blk(x.contiguous())
-        return self.norm_out(last(x.contiguous(), cls_only=True))
+        x = self.transformer(x, cls_final=self.pool == "cls",
+                             deterministic=deterministic,
+                             generator=generator)
+        if self.pool == "mean":
+            x = x.mean(dim=1)
+        return self.norm_out(x)

@@ -2,12 +2,26 @@
 
 `TransformerBlock` holds a pre-norm block's 11 parameters as raw tensors in
 the fused kernels' order and (in, out) layout, so the kernels take them as
-they are; its forward is the differentiable per-block kernel (K2, or K3
-for the CLS-only final block). `Linear` is an nn.Linear that computes in a
-given compute dtype, as the JAX package's TorchLinear does: operands cast
-to that dtype, the product rounded to it, then the bias added in it.
-`emb_dropout` is flax's Dropout with the mask drawn from an explicit
-`torch.Generator`.
+they are. Its forward takes the JAX block's two routes
+(`dgvit_tpu/models/layers.py:226-296`):
+
+  * fused: the differentiable per-block kernel (K2, or K3 for the CLS-only
+    final block), when the block has no dropout, `attn_impl` is auto or
+    fused, the projection has a bias and there are at most 256 tokens;
+  * composed, otherwise: LayerNorm, `attention`, residual, LayerNorm,
+    `feed_forward`, residual, in PyTorch around the attention kernels.
+    `attention` runs the whole section as one kernel (K7,
+    `ops/fused_block.py`) for a tensor on the card, or projects q, k and v
+    and calls `dot_product_attention` (K8 behind `impl`).
+
+The JAX package takes its fused routes when the backend is a TPU; here the
+per-block kernels' wrappers run their plain versions on CPU tensors, so
+the block route does not look at the device, while `attention` asks
+whether the tensor is on the card (`_on_card`), as the JAX module asks for
+a TPU. `Linear` is an nn.Linear that computes in a given compute dtype, as
+the JAX package's TorchLinear does: operands cast to that dtype, the
+product rounded to it, then the bias added in it. `dropout` is flax's
+Dropout with the mask drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -15,16 +29,22 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dgvit_tpu_torch.models import initializers as init
+from dgvit_tpu_torch.ops.attention import IMPLS, dot_product_attention
 from dgvit_tpu_torch.ops.cls_block import cls_final_block
+from dgvit_tpu_torch.ops.fused_block import (MAX_TOKENS,
+                                             fused_attention_section)
 from dgvit_tpu_torch.ops.fused_transformer import (_ln,
                                                    fused_transformer_block)
 
+ATTN_IMPLS = IMPLS + ("fused",)
 
-def emb_dropout(x: torch.Tensor, rate: float,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax `Dropout(rate)` in training mode: keep each element with
     probability 1 - rate (the draw from `generator`), scale kept elements
     by 1 / (1 - rate) in x's dtype, zero the rest."""
@@ -36,6 +56,50 @@ def emb_dropout(x: torch.Tensor, rate: float,
     keep = torch.rand(x.shape, generator=generator, device=x.device) \
         < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def attention(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
+              bout: torch.Tensor, heads: int, dim_head: int, *,
+              rate: float = 0.0, attn_impl: str = "auto",
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Multi-head self-attention of the composed block: x (B, n, d) and the
+    block's projection weights, all in the compute dtype -> (B, n, d).
+    On the card, with `attn_impl` auto or fused and n <= 256, the whole
+    section is the kernel K7; otherwise q, k and v are projected here and
+    attended by `dot_product_attention(impl=attn_impl)`. Dropout (`rate`,
+    unless `deterministic`) follows the output projection either way."""
+    b, n, _ = x.shape
+    if attn_impl in ("auto", "fused") and _on_card(x) and n <= MAX_TOKENS:
+        out = fused_attention_section(x, wqkv, wout, bout, heads, dim_head)
+    else:
+        qkv = (x @ wqkv).reshape(b, n, 3, heads, dim_head)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = dot_product_attention(
+            q, k, v, dim_head ** -0.5,
+            impl="auto" if attn_impl == "fused" else attn_impl)
+        out = out.transpose(1, 2).reshape(b, n, heads * dim_head)
+        out = out @ wout + bout
+    return out if deterministic else dropout(out, rate, generator)
+
+
+def feed_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, *, rate: float = 0.0,
+                 deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Linear -> GELU (exact erf form) -> dropout -> Linear -> dropout, in
+    the compute dtype; the two products are plain matmuls, as the JAX
+    package leaves them to XLA."""
+    h = F.gelu(x @ w1 + b1)
+    if not deterministic:
+        h = dropout(h, rate, generator)
+    h = h @ w2 + b2
+    return h if deterministic else dropout(h, rate, generator)
 
 
 class Linear(nn.Linear):
@@ -96,9 +160,17 @@ class TransformerBlock(nn.Module):
              "ff_norm_scale", "ff_norm_bias", "w1", "b1", "w2", "b2")
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout: float = 0.0, attn_impl: str = "auto"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attention impl {attn_impl!r}")
+        if heads == 1 and dim_head == dim:
+            raise NotImplementedError(
+                "heads == 1 and dim_head == dim (no output projection) is "
+                "not ported")
         self.heads, self.dim_head = heads, dim_head
+        self.dropout, self.attn_impl = dropout, attn_impl
         inner = heads * dim_head
         e = lambda *s: nn.Parameter(torch.empty(*s))
         self.attn_norm_scale = nn.Parameter(torch.ones(dim))
@@ -127,13 +199,36 @@ class TransformerBlock(nn.Module):
         return tuple(getattr(self, n).detach().to(dtype).contiguous()
                      for n in self.ORDER)
 
-    def forward(self, x: torch.Tensor, cls_only: bool = False
+    def forward(self, x: torch.Tensor, cls_only: bool = False, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """(B, n, d) in the compute dtype -> (B, n, d), every row valid; or,
         with cls_only, the CLS row of the output, (B, d). Differentiable:
         the casts to the compute dtype keep the graph, so gradients reach
-        the fp32 parameters (rounded to the compute dtype)."""
-        w = tuple(getattr(self, n).to(x.dtype) for n in self.ORDER)
+        the fp32 parameters (rounded to the compute dtype). `deterministic`
+        False applies the block's dropout, its masks drawn from
+        `generator`."""
+        cast = lambda *names: (getattr(self, n).to(x.dtype) for n in names)
+        if (self.attn_impl in ("auto", "fused") and self.dropout == 0.0
+                and x.shape[1] <= MAX_TOKENS):
+            w = tuple(cast(*self.ORDER))
+            if cls_only:
+                return cls_final_block(x.contiguous(), w, self.heads,
+                                       self.dim_head)
+            return fused_transformer_block(x.contiguous(), w, self.heads,
+                                           self.dim_head)
+        # composed: the norms keep their fp32 parameters, as the JAX
+        # LayerNorm module does; the products' operands go to x's dtype
+        wqkv, wout, bout, w1, b1, w2, b2 = cast(
+            "wqkv", "wout", "bout", "w1", "b1", "w2", "b2")
+        drop = dict(rate=self.dropout, deterministic=deterministic,
+                    generator=generator)
+        h = _ln(x.float(), self.attn_norm_scale, self.attn_norm_bias)
+        x = x + attention(h.to(x.dtype), wqkv, wout, bout, self.heads,
+                          self.dim_head, attn_impl=self.attn_impl, **drop)
         if cls_only:
-            return cls_final_block(x, w, self.heads, self.dim_head)
-        return fused_transformer_block(x, w, self.heads, self.dim_head)
+            x = x[:, :1]    # only the CLS row survives the pooling
+        h = _ln(x.float(), self.ff_norm_scale, self.ff_norm_bias)
+        x = x + feed_forward(h.to(x.dtype), w1, b1, w2, b2, **drop)
+        return x[:, 0] if cls_only else x

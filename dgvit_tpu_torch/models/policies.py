@@ -8,10 +8,19 @@ action appended -> twin heads relu(fc1 ->128) -> relu(fc2 128->32) -> fc3
 and relu(fc11) -> relu(fc21) -> fc31, each (B, action_dim). The heads run
 in the compute dtype, as the JAX package's TorchLinear does; the trunk's
 `deterministic` and `inference` flags select its route (`models/got.py`).
+
+`build_actor` and `build_critic` read the JAX package's opt-in switch
+`DGVIT_TRUNK_GRAD=1` once, when they build a network: its gradient-bearing
+trunk passes then go forward through K4 and backward through the
+whole-trunk kernel K6 instead of the per-block kernels. As in the JAX
+package, `model.dropout` of a config is not handed on to the networks
+(only a `GoT(dropout > 0)` built directly takes the composed route for
+that reason).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +40,7 @@ class GoTPolicy(nn.Module):
                  patch_size: Tuple[int, int] = (16, 20),
                  patch_mode: str = "2d", channels: int = 1,
                  final_norm: str = "rms", emb_dropout: float = 0.1,
+                 attn_impl: str = "auto", trunk_grad: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -41,6 +51,7 @@ class GoTPolicy(nn.Module):
                          dim_head=dim_head, mlp_dim=mlp_dim,
                          channels=channels, patch_mode=patch_mode,
                          final_norm=final_norm, emb_dropout=emb_dropout,
+                         attn_impl=attn_impl, trunk_grad=trunk_grad,
                          dtype=dtype, generator=g)
         self.fc1 = Linear(l_f_size, 128, dtype=dtype, generator=g)
         self.fc2 = Linear(128, 128, dtype=dtype, generator=g)
@@ -72,7 +83,8 @@ class GoTQNetwork(nn.Module):
                  image_size: Tuple[int, int] = (128, 160),
                  patch_size: Tuple[int, int] = (16, 20),
                  patch_mode: str = "2d", channels: int = 1,
-                 emb_dropout: float = 0.1,
+                 emb_dropout: float = 0.1, attn_impl: str = "auto",
+                 trunk_grad: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -83,7 +95,8 @@ class GoTQNetwork(nn.Module):
                          dim=l_f_size, depth=block, heads=head,
                          dim_head=dim_head, mlp_dim=mlp_dim,
                          channels=channels, patch_mode=patch_mode,
-                         emb_dropout=emb_dropout, dtype=dtype, generator=g)
+                         emb_dropout=emb_dropout, attn_impl=attn_impl,
+                         trunk_grad=trunk_grad, dtype=dtype, generator=g)
         self.fc1 = lin(l_f_size + action_dim, 128)
         self.fc2 = lin(128, 32)
         self.fc3 = lin(32, action_dim)
@@ -125,13 +138,16 @@ def _common(cfg):
                 dim_head=m.dim_head, mlp_dim=m.mlp_dim,
                 image_size=tuple(m.image_size),
                 patch_size=tuple(m.patch_size), patch_mode=m.patch_mode,
-                channels=cfg.env.frame_stack, emb_dropout=m.emb_dropout)
+                channels=cfg.env.frame_stack, emb_dropout=m.emb_dropout,
+                trunk_grad=os.environ.get("DGVIT_TRUNK_GRAD") == "1")
 
 
 def build_actor(cfg, dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None) -> GoTPolicy:
+                generator: Optional[torch.Generator] = None,
+                attn_impl: str = "auto") -> GoTPolicy:
     """The actor a config describes (GaussianTransformer on GoT only)."""
-    return GoTPolicy(**_common(cfg), dtype=dtype, generator=generator)
+    return GoTPolicy(**_common(cfg), attn_impl=attn_impl, dtype=dtype,
+                     generator=generator)
 
 
 def build_critic(cfg, dtype: Optional[torch.dtype] = None,

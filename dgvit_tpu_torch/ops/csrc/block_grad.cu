@@ -1,6 +1,6 @@
-// Per-block kernels of the gradient-bearing GoT trunk: forward and
-// backward of a full pre-norm block (K2) and of the CLS-only final block
-// (K3).
+// Kernels of the gradient-bearing GoT trunk: forward and backward of a
+// full pre-norm block (K2) and of the CLS-only final block (K3), and the
+// backward of the whole trunk in one per-frame pass (K6).
 //
 // Replaces, in dgvit_tpu/ops:
 //   K2f fused_transformer.py::_fused_block_fwd_impl (_block_kernel)
@@ -8,6 +8,7 @@
 //       body _block_bwd_body)
 //   K3f cls_block.py::_cls_fwd_impl (_cls_fwd_kernel)
 //   K3b cls_block.py::_cls_bwd_impl (_cls_bwd_kernel, body _cls_bwd_body)
+//   K6  trunk_train.py::trunk_bwd_impl (_trunk_bwd_kernel)
 //
 // Forward: one thread block per frame runs `block` (block_common.cuh) on
 // the frame's fp32 stream in shared memory, as the whole-trunk kernel does,
@@ -35,6 +36,17 @@
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
+// K6 is the backward of the whole-trunk forward K4 (got_megakernel.cu).
+// The TPU kernel sums its weight gradients across a sequential grid; here
+// blocks run in no order, so it takes the two passes above: one thread
+// block per frame recomputes the chain of block inputs (rounded to T at
+// every block boundary, kept in a workspace), runs the final norm's
+// backward, then the CLS block's and the full blocks' per-frame passes in
+// reverse (the bodies of K3b and K2b, each dx written in T and read back
+// as the next dy); then every block's weight products as above. Its output
+// is K3b and K2b chained. The TPU kernel's smaller MLP chunk is its memory
+// budget, not part of the function: every block here keeps K2b's chunk.
+//
 // What bounds it on an H100: a frame of the full-block backward costs
 // about 3x the forward's 47 MFLOP at the flagship width, and the weight
 // products 11 GFLOP over 256 frames; all of it is FMA work on fp32 CUDA
@@ -51,6 +63,7 @@ constexpr int kSlots = 11;  // per-frame operand buffers of the backward
 constexpr int kTile = 64;   // weight-gradient output tile (K x N)
 constexpr int kChunk = 16;  // rows staged in shared memory per step
 constexpr int kTargetCtas = 264;
+constexpr int kMaxTrunkDepth = 8;  // K6: its arguments hold every block's
 
 struct FwdArgs {
   const void* x;
@@ -169,13 +182,14 @@ struct BwdSmem {
   }
 };
 
+// The per-frame pass of a full block's backward for frame f, on one thread
+// block: the body of K2b's kernel and of each full block of K6's.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    block_bwd_kernel(const __grid_constant__ BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ void block_bwd_body(const BwdArgs& a, int f,
+                                               unsigned char* smem_raw) {
   const Dims m = a.m;
   const int n = a.n, d = m.d, dh = m.dh, inner = m.heads * dh,
-            i3 = 3 * inner, mlp = m.mlp, f = blockIdx.x;
+            i3 = 3 * inner, mlp = m.mlp;
   const BwdSmem L(n, d, m.hc);
   float* x32 = (float*)(smem_raw + L.x32);
   float* x1 = (float*)(smem_raw + L.x1);
@@ -345,11 +359,19 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    cls_bwd_kernel(const __grid_constant__ BwdArgs a) {
+    block_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  block_bwd_body<T>(a, blockIdx.x, smem_raw);
+}
+
+// The per-frame pass of the CLS-only block's backward for frame f: the
+// body of K3b's kernel and of the last block of K6's.
+template <typename T>
+__device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
+                                             unsigned char* smem_raw) {
   const Dims m = a.m;
   const int n = a.n, d = m.d, dh = m.dh, inner = m.heads * dh,
-            i2 = 2 * inner, i3 = 3 * inner, mlp = m.mlp, f = blockIdx.x;
+            i2 = 2 * inner, i3 = 3 * inner, mlp = m.mlp;
   const BwdSmem L(n, d, m.hc);
   float* x32 = (float*)(smem_raw + L.x32);
   float* x1 = (float*)(smem_raw + L.x1);    // CLS row
@@ -510,6 +532,115 @@ __global__ void __launch_bounds__(kThreads)
             [=](int r, int c, float v) {
               dx[(size_t)r * d + c] = fromf<T>(r == 0 ? v + g1[c] : v);
             });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cls_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cls_bwd_body<T>(a, blockIdx.x, smem_raw);
+}
+
+// K6, the per-frame pass of the whole trunk's backward. One thread block
+// per frame: the forward chain (the whole-trunk forward's blocks, stream
+// rounded to T after each and written to blk[i + 1].x), the final norm's
+// backward on the rounded CLS row, then cls_bwd_body and block_bwd_body
+// in reverse. A block's dx is written in T and read back as the next
+// one's dy, which is the rounding between blocks.
+struct TrunkBwdArgs {
+  BwdArgs blk[kMaxTrunkDepth];
+  const void* dy;     // (B, d) in T: grad of the normed latent
+  void* dcls;         // (B, d) in T: blk[depth - 1].dy, written here
+  const float* fn_s;  // final-norm scale and bias, fp32
+  const float* fn_b;
+  float* fnvec;       // (B, 2 d): each frame's final-norm grads
+  int depth, final_norm, hc_fwd;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    trunk_bwd_kernel(const __grid_constant__ TrunkBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int f = blockIdx.x, depth = a.depth;
+  const int n = a.blk[0].n, d = a.blk[0].m.d;
+  Dims mf = a.blk[0].m;
+  mf.hc = a.hc_fwd;
+  const Smem<T> L(n, d, mf.heads, mf.dh, mf.hc);
+  float* x32 = (float*)(smem_raw + L.x32);
+  const size_t fr = (size_t)f * n * d;
+
+  const T* x = (const T*)a.blk[0].x + fr;
+  for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
+  __syncthreads();
+  for (int i = 0; i < depth; ++i) {
+    const bool last = i == depth - 1;
+    block<T>(mf, a.blk[i].w, n, last, x32, (float*)(smem_raw + L.acc),
+             (float*)(smem_raw + L.prob), (T*)(smem_raw + L.h),
+             (T*)(smem_raw + L.scratch));
+    if (last) {
+      for (int j = threadIdx.x; j < d; j += blockDim.x) x32[j] = rt<T>(x32[j]);
+    } else {
+      T* nxt = (T*)a.blk[i + 1].x + fr;
+      for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
+        const T v = fromf<T>(x32[j]);
+        nxt[j] = v;
+        x32[j] = tof(v);
+      }
+    }
+    __syncthreads();
+  }
+
+  // final-norm backward on the CLS row (warp 0): dcls in T, and this
+  // frame's scale and bias grads
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const T* dy = (const T*)a.dy + (size_t)f * d;
+    T* dcls = (T*)a.dcls + (size_t)f * d;
+    float* V = a.fnvec + (size_t)f * 2 * d;
+    if (a.final_norm == 0) {
+      float sq = 0.f;
+      for (int c = lane; c < d; c += 32) sq += x32[c] * x32[c];
+      const float nn = fmaxf(sqrtf(warp_sum(sq)), 1e-12f);
+      const float sd = sqrtf((float)d);
+      float proj = 0.f;
+      for (int c = lane; c < d; c += 32)
+        proj += tof(dy[c]) * a.fn_s[c] * (x32[c] / nn);
+      proj = warp_sum(proj);
+      for (int c = lane; c < d; c += 32) {
+        const float u = x32[c] / nn, g = tof(dy[c]);
+        dcls[c] = fromf<T>((sd / nn) * (g * a.fn_s[c] - u * proj));
+        V[c] = sd * u * g;
+        V[d + c] = 0.f;
+      }
+    } else {
+      float sum = 0.f;
+      for (int c = lane; c < d; c += 32) sum += x32[c];
+      const float mu = warp_sum(sum) / d;
+      float sq = 0.f;
+      for (int c = lane; c < d; c += 32) sq += (x32[c] - mu) * (x32[c] - mu);
+      const float rs = rsqrtf(warp_sum(sq) / d + 1e-5f);
+      float sd = 0.f, sdx = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        const float dxh = tof(dy[c]) * a.fn_s[c];
+        sd += dxh;
+        sdx += dxh * ((x32[c] - mu) * rs);
+      }
+      const float md = warp_sum(sd) / d, mdx = warp_sum(sdx) / d;
+      for (int c = lane; c < d; c += 32) {
+        const float xhat = (x32[c] - mu) * rs, g = tof(dy[c]);
+        dcls[c] = fromf<T>(rs * (g * a.fn_s[c] - md - xhat * mdx));
+        V[c] = g * xhat;
+        V[d + c] = g;
+      }
+    }
+  }
+  __syncthreads();
+
+  cls_bwd_body<T>(a.blk[depth - 1], f, smem_raw);
+  for (int i = depth - 2; i >= 0; --i) {
+    __syncthreads();
+    block_bwd_body<T>(a.blk[i], f, smem_raw);
+  }
 }
 
 // One weight-gradient product C = A^T B over a segment of rows:
@@ -673,18 +804,22 @@ Workspace workspace(bool cls, size_t esize, int B, int n, int d, int heads,
   return w;
 }
 
-template <typename T>
-int launch_bwd(bool cls, BwdArgs& a, void* const* g, unsigned char* ws,
-               int B, cudaStream_t stream) {
-  const Workspace w = workspace(cls, sizeof(T), B, a.n, a.m.d, a.m.heads,
-                                a.m.dh, a.m.mlp);
+// Point a block's operand slots and row sums into its workspace `ws`;
+// returns the partial-sum buffer of its weight products.
+float* bind(bool cls, size_t esize, BwdArgs& a, unsigned char* ws, int B) {
+  const Workspace w = workspace(cls, esize, B, a.n, a.m.d, a.m.heads, a.m.dh,
+                                a.m.mlp);
   for (int s = 0; s < kSlots; ++s) a.s[s] = ws + w.slot[s];
   a.vec = (float*)(ws + w.vec);
-  float* part = (float*)(ws + w.part);
-  const BwdSmem L(a.n, a.m.d, a.m.hc);
-  int err = cls ? launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a)
-                : launch_smem(block_bwd_kernel<T>, B, L.total, stream, a);
-  if (err != cudaSuccess) return err;
+  return (float*)(ws + w.part);
+}
+
+// Pass 2 of a block's backward: its weight-gradient products and vector
+// gradients from the operands the per-frame pass left in `a`'s slots.
+template <typename T>
+int launch_grads(bool cls, const BwdArgs& a, void* const* g, float* part,
+                 int B, cudaStream_t stream) {
+  int err;
   Product p[5];
   const int k = products(cls, a, g, B, p);
   for (int i = 0; i < k; ++i) {
@@ -708,6 +843,94 @@ int launch_bwd(bool cls, BwdArgs& a, void* const* g, unsigned char* ws,
               {d, d, d, d, d, d, a.m.mlp}};
   vec_finish<T><<<(L_ + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       a.vec, B, L_, o);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(bool cls, BwdArgs& a, void* const* g, unsigned char* ws,
+               int B, cudaStream_t stream) {
+  float* part = bind(cls, sizeof(T), a, ws, B);
+  const BwdSmem L(a.n, a.m.d, a.m.hc);
+  const int err = cls ? launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a)
+                      : launch_smem(block_bwd_kernel<T>, B, L.total, stream, a);
+  if (err != cudaSuccess) return err;
+  return launch_grads<T>(cls, a, g, part, B, stream);
+}
+
+// K6's device workspace: the chain's block inputs x_1.., the CLS grad,
+// the dx between blocks, the frames' final-norm grads, then each block's
+// own workspace.
+struct TrunkWorkspace {
+  size_t xs[kMaxTrunkDepth], dxs[kMaxTrunkDepth], blk[kMaxTrunkDepth], dcls,
+      fnvec, total;
+};
+
+TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
+                               int dh, int mlp, int depth) {
+  TrunkWorkspace w = {};
+  const size_t stream_bytes = esize * B * n * d;
+  size_t off = 0;
+  for (int i = 1; i < depth; ++i) {
+    w.xs[i] = off;
+    off = align16(off + stream_bytes);
+    w.dxs[i] = off;
+    off = align16(off + stream_bytes);
+  }
+  w.dcls = off;
+  off = align16(off + esize * B * d);
+  w.fnvec = off;
+  off = align16(off + sizeof(float) * B * 2 * d);
+  for (int i = 0; i < depth; ++i) {
+    w.blk[i] = off;
+    off += workspace(i == depth - 1, esize, B, n, d, heads, dh, mlp).total;
+  }
+  w.total = off;
+  return w;
+}
+
+// K6: ptrs as trunk_backward_launch takes them.
+template <typename T>
+int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
+                     int depth, int final_norm, cudaStream_t stream) {
+  const void* const* wts = ptrs + 2;
+  void* const* grads = (void* const*)ptrs + 5 + 11 * depth;
+  unsigned char* ws = (unsigned char*)ptrs[7 + 22 * depth];
+  const TrunkWorkspace w = trunk_workspace(sizeof(T), B, n, m.d, m.heads,
+                                           m.dh, m.mlp, depth);
+  TrunkBwdArgs a = {};
+  float* part[kMaxTrunkDepth];
+  for (int i = 0; i < depth; ++i) {
+    BwdArgs& b = a.blk[i];
+    b.x = i == 0 ? ptrs[0] : ws + w.xs[i];
+    b.dy = i == depth - 1 ? ws + w.dcls : ws + w.dxs[i + 1];
+    for (int j = 0; j < 11; ++j) b.w[j] = wts[11 * i + j];
+    b.dx = i == 0 ? (void*)ptrs[4 + 11 * depth] : ws + w.dxs[i];
+    b.n = n;
+    b.m = m;
+    part[i] = bind(i == depth - 1, sizeof(T), b, ws + w.blk[i], B);
+  }
+  a.dy = ptrs[1];
+  a.dcls = ws + w.dcls;
+  a.fn_s = (const float*)ptrs[2 + 11 * depth];
+  a.fn_b = (const float*)ptrs[3 + 11 * depth];
+  a.fnvec = (float*)(ws + w.fnvec);
+  a.depth = depth;
+  a.final_norm = final_norm;
+  a.hc_fwd = m.mlp < 256 ? m.mlp : 256;  // the forward kernels' MLP chunk
+  const size_t fwd = Smem<T>(n, m.d, m.heads, m.dh, a.hc_fwd).total;
+  const size_t bwd = BwdSmem(n, m.d, m.hc).total;
+  int err = launch_smem(trunk_bwd_kernel<T>, B, fwd > bwd ? fwd : bwd, stream,
+                        a);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < depth; ++i) {
+    err = launch_grads<T>(i == depth - 1, a.blk[i], grads + 11 * i, part[i],
+                          B, stream);
+    if (err != cudaSuccess) return err;
+  }
+  VecOut o = {{(void*)ptrs[5 + 22 * depth], (void*)ptrs[6 + 22 * depth]},
+              {m.d, m.d}};
+  vec_finish<float><<<(2 * m.d + kThreads - 1) / kThreads, kThreads, 0,
+                      stream>>>(a.fnvec, B, 2 * m.d, o);
   return cudaGetLastError();
 }
 
@@ -786,6 +1009,35 @@ int block_backward_launch(int dtype, int cls, const void* const* ptrs,
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, a, g, ws, batch, s)
                     : launch_bwd<float>(cls != 0, a, g, ws, batch, s);
+}
+
+// Bytes of device workspace trunk_backward_launch needs for these shapes.
+size_t trunk_backward_workspace(int dtype, int batch, int n, int d,
+                                int heads, int dim_head, int mlp, int depth) {
+  if (depth < 1 || depth > kMaxTrunkDepth) return 0;
+  return trunk_workspace(dtype == 1 ? 2 : 4, batch, n, d, heads, dim_head,
+                         mlp, depth)
+      .total;
+}
+
+// K6: the backward of the whole-trunk forward (blocks_forward_launch in
+// got_megakernel.cu). ptrs: x (B, n, d), dy (B, d), 11 weights per block,
+// fn_s, fn_b (d, fp32), dx (B, n, d), 11 grads per block (weight shapes,
+// compute dtype), dfn_s, dfn_b (d, fp32), workspace
+// (trunk_backward_workspace bytes). final_norm: 0 = rms, 1 = layer.
+int trunk_backward_launch(int dtype, const void* const* ptrs, int n_ptrs,
+                          int batch, int n, int d, int heads, int dim_head,
+                          int mlp, int depth, int final_norm, float scale,
+                          void* stream) {
+  if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 8 + 22 * depth ||
+      bad_shape(batch, n, d, heads, dim_head, mlp))
+    return cudaErrorInvalidValue;
+  const Dims m = dims(d, heads, dim_head, mlp, 128, scale);
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_trunk_bwd<__nv_bfloat16>(ptrs, batch, n, m,
+                                                      depth, final_norm, s)
+                    : launch_trunk_bwd<float>(ptrs, batch, n, m, depth,
+                                              final_norm, s);
 }
 
 const char* block_error_string(int err) {

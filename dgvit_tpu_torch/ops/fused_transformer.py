@@ -292,6 +292,12 @@ def _block_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + shape
     lib.block_backward_workspace.restype = ctypes.c_size_t
     lib.block_backward_workspace.argtypes = [ctypes.c_int] * 8
+    lib.trunk_backward_workspace.restype = ctypes.c_size_t
+    lib.trunk_backward_workspace.argtypes = [ctypes.c_int] * 8
+    lib.trunk_backward_launch.restype = ctypes.c_int
+    lib.trunk_backward_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.block_error_string.restype = ctypes.c_char_p
     lib.block_error_string.argtypes = [ctypes.c_int]
     return lib

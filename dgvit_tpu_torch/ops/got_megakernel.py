@@ -8,9 +8,10 @@ Counterparts of `dgvit_tpu/ops/got_megakernel.py`:
         -> final RMS or Layer norm  =>  (B, dim) latent, compute dtype;
   * `blocks_cls_forward_fused` (K4) runs the same trunk from the blocks on,
     for a stream embedded outside the kernel (the no-grad forwards with
-    live emb-dropout). The JAX package's backward of K4 is the opt-in
-    whole-trunk kernel K6, not ported: no SAC path differentiates through
-    K4, and this wrapper raises if its input needs a gradient.
+    live emb-dropout, and the gradient forwards of the opt-in
+    trunk-gradient route). It is differentiable: its backward is the
+    whole-trunk kernel K6 (`ops/trunk_train.py`), as the JAX function's
+    custom VJP is.
 
 Both launch the hand-written CUDA kernels of `csrc/got_megakernel.cu` for
 CUDA tensors and run `got_forward_plain` / `blocks_forward_plain` for CPU
@@ -36,6 +37,7 @@ import torch
 
 from dgvit_tpu_torch.ops.cls_block import cls_block_plain
 from dgvit_tpu_torch.ops.fused_transformer import _f32, _ln, _mm, block_plain
+from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NORMS = {"rms": 0, "layer": 1}
@@ -235,6 +237,38 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm
     return out
 
 
+def _blocks_forward(x, blocks, fn, heads, dim_head, final_norm
+                    ) -> torch.Tensor:
+    """K4 on checked arguments: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.device.type == "cuda":
+        return _launch_blocks(x, blocks, fn, heads, dim_head, final_norm)
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel for device {x.device}")
+    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm)
+
+
+class _BlocksCls(torch.autograd.Function):
+    """K4 forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, x, heads, dim_head, final_norm, fs, fb, *flat):
+        ctx.save_for_backward(x, fs, fb, *flat)
+        ctx.cfg = (heads, dim_head, final_norm)
+        blocks = [flat[i:i + 11] for i in range(0, len(flat), 11)]
+        return _blocks_forward(x, blocks, (fs, fb), heads, dim_head,
+                               final_norm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, fs, fb, *flat = ctx.saved_tensors
+        blocks = [tuple(flat[i:i + 11]) for i in range(0, len(flat), 11)]
+        dx, gblocks, dfn = trunk_bwd_fused(x, dy.contiguous(), blocks,
+                                           (fs, fb), *ctx.cfg)
+        return (dx, None, None, None, *dfn, *[g for gb in gblocks
+                                              for g in gb])
+
+
 def blocks_cls_forward_fused(x: torch.Tensor,
                              blocks: Sequence[Sequence[torch.Tensor]],
                              fn: Tuple[torch.Tensor, torch.Tensor],
@@ -249,28 +283,20 @@ def blocks_cls_forward_fused(x: torch.Tensor,
     fn:     final-norm (scale, bias), each (dim,) fp32
     Returns the (B, dim) latent in the compute dtype.
 
-    Forward only: raises if autograd would need a gradient of any input.
-    CUDA tensors go to the CUDA kernel (and raise if it cannot run); CPU
-    tensors go to the plain version. `blocks_cls_forward_fused.launches`
-    counts kernel launches.
+    Differentiable in x, every block weight and the final-norm parameters:
+    the backward is `trunk_bwd_fused` (K6). CUDA tensors go to the CUDA
+    kernels (and raise if they cannot run); CPU tensors go to the plain
+    versions. `blocks_cls_forward_fused.launches` counts K4's launches.
     """
     blocks, fn = _flat_vectors(blocks, fn)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *fn, *[t for w in blocks
-                                                for t in w])):
-        raise RuntimeError("blocks_cls_forward_fused has no backward: call "
-                           "it under torch.no_grad() or on detached tensors")
     b, n, d = x.shape
     _verify([(x, (b, n, d), x.dtype)]
             + _want_trunk(blocks, fn, d, heads, dim_head, x.dtype),
             x.device, x.dtype, final_norm)
     if heads > n:
         raise ValueError(f"{heads} heads over {n} rows")
-    if x.device.type == "cuda":
-        return _launch_blocks(x, blocks, fn, heads, dim_head, final_norm)
-    if x.device.type != "cpu":
-        raise ValueError(f"no kernel for device {x.device}")
-    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm)
+    return _BlocksCls.apply(x, heads, dim_head, final_norm, *fn,
+                            *[t for w in blocks for t in w])
 
 
 blocks_cls_forward_fused.launches = 0

@@ -15,9 +15,10 @@ import torch
 
 from dgvit_tpu.models.got import GoT as JaxGoT
 from dgvit_tpu.ops.got_megakernel import blocks_cls_forward_fused as jblocks
-from dgvit_tpu_torch.models.layers import emb_dropout
+from dgvit_tpu_torch.models.layers import dropout as emb_dropout
 from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
                                                 blocks_forward_plain)
+from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
 from test_torch_megakernel import (DEPTH, DIM, IMG, PATCH, inputs,
                                    jax_got_tree, port_got)
 from torch_kernel_cases import (DIM_HEAD, HEADS, assert_close, block_tree,
@@ -55,12 +56,25 @@ def test_matches_jax_blocks_kernel(batch, n, final_norm, dtype):
 
 
 def test_raises_when_a_gradient_is_needed():
+    """K4 used to raise when autograd needed its gradient; it is now
+    differentiable, and its backward is the whole-trunk backward (K6,
+    `trunk_bwd_fused`: the plain version on the CPU)."""
     rng = np.random.default_rng(0)
     _, _, pb, pfn = trunk(rng, "rms", "float32")
     x = to_torch(rand(rng, 2, 5, DIM), "float32")
-    with pytest.raises(RuntimeError, match="no backward"):
-        blocks_cls_forward_fused(x.requires_grad_(), pb, pfn, HEADS,
-                                 DIM_HEAD, "rms")
+    dy = to_torch(rand(rng, 2, DIM), "float32")
+    xr = x.clone().requires_grad_()
+    wr = [[t.clone().requires_grad_() for t in w] for w in pb]
+    fr = tuple(t.clone().requires_grad_() for t in pfn)
+    blocks_cls_forward_fused(xr, wr, fr, HEADS, DIM_HEAD, "rms").backward(dy)
+    dx, gblocks, dfn = trunk_bwd_plain(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms")
+    # the same function on copies of the same values: fp32 sums may be
+    # taken in another order for another alignment, 1e-5 covers it
+    same = lambda a, b: torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert same(xr.grad, dx)
+    assert all(same(t.grad, g) for w, gs in zip(wr, gblocks)
+               for t, g in zip(w, gs))
+    assert all(same(t.grad, g) for t, g in zip(fr, dfn))
     with torch.no_grad():
         out = blocks_cls_forward_fused(x, pb, pfn, HEADS, DIM_HEAD, "rms")
     assert torch.equal(out, blocks_forward_plain(x.detach(), pb, pfn, HEADS,

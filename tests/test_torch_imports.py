@@ -41,6 +41,9 @@ def test_importing_every_module_loads_no_jax():
     for m in ("dgvit_tpu_torch.ops.got_megakernel",
               "dgvit_tpu_torch.ops.cls_block",
               "dgvit_tpu_torch.ops.fused_transformer",
+              "dgvit_tpu_torch.ops.trunk_train",
+              "dgvit_tpu_torch.ops.attention",
+              "dgvit_tpu_torch.ops.fused_block",
               "dgvit_tpu_torch.agents.sac",
               "dgvit_tpu_torch.ops.preprocess",
               "dgvit_tpu_torch.ops.fused_preprocess",

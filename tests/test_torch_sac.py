@@ -246,6 +246,47 @@ def test_alpha_clamps(bound, start):
     assert float(m["alpha"]) == pytest.approx(start)  # this step's alpha
 
 
+def test_trunk_grad_learn_equals_the_default_route(monkeypatch):
+    """With DGVIT_TRUNK_GRAD=1 (read when the networks are built) the
+    gradient-bearing trunk passes go forward through K4 and backward
+    through the whole-trunk backward K6 instead of K2/K3 each way; the
+    update is the same one. fp32, emb-dropout live, both through the plain
+    versions here: metrics to 1e-5, gradients rtol 1e-3 / atol 1e-5 (the
+    final norm's backward is hand-written on one route and autograd on the
+    other), parameters as against JAX (Adam's first step)."""
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
+
+    cfg = {"model": dict(SMALL, emb_dropout=0.1)}
+    runs = {}
+    for route in ("default", "trunk_grad"):
+        if route == "trunk_grad":
+            monkeypatch.setenv("DGVIT_TRUNK_GRAD", "1")
+        agent = SACAgent(Config.from_dict(cfg), device="cpu", seed=5)
+        state = agent.init_state()
+        assert state.actor.trans.trunk_grad == (route == "trunk_grad")
+        assert state.critic.trans.trunk_grad == (route == "trunk_grad")
+        calls = []
+        monkeypatch.setattr(gm, "trunk_bwd_fused", lambda *a: (
+            calls.append(1), trunk_bwd_fused(*a))[1])
+        state, m = agent.learn(state, make_batch(40))
+        assert len(calls) == (2 if route == "trunk_grad" else 0)
+        runs[route] = (state, m, {
+            f"{k}.{n}": p.grad.clone() for k in ("actor", "critic")
+            for n, p in getattr(state, k).named_parameters()})
+    (s0, m0, g0), (s1, m1, g1) = runs["default"], runs["trunk_grad"]
+    for k in m0:
+        assert float(m1[k]) == pytest.approx(float(m0[k]), rel=1e-5,
+                                             abs=1e-6), k
+    for name, g in g0.items():
+        np.testing.assert_allclose(g1[name].numpy(), g.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    for kind in ("actor", "critic", "critic_target"):
+        two_level_close(dict(getattr(s1, kind).named_parameters()),
+                        {n: p.detach().numpy() for n, p in
+                         getattr(s0, kind).named_parameters()})
+
+
 # --------------------------------------------------------------------------
 # the flagship golden update
 # --------------------------------------------------------------------------
