@@ -31,6 +31,10 @@ per source, all at once), then
      weight gradients; a wrong bf16 backward (autograd of the plain
      forward, which rounds at other points than the hand-placed ones)
      must FAIL the same bf16 limits;
+ 5b. the bf16 full-block backward off the flagship widths (81 tokens,
+     2 x 32 heads, an unaligned x) takes the FMA body, not the
+     tensor-core one, and K2b and K6 there meet the bf16 limits of 5 and
+     13 against their plain versions;
   6. the SAC update, the second main path: a bf16 SACAgent (batch 256,
      emb-dropout 0.1) takes 5 learn steps on a seeded replay batch with
      finite losses, each step launching exactly K4 x3, K2f x6, K2b x6,
@@ -39,10 +43,12 @@ per source, all at once), then
      the same update through the plain versions on the card and the JAX
      golden update (tests/data/torch_sac_golden.npz);
   7. profile: one more bf16 update under torch.profiler, device time by
-     CUDA kernel and the device's busy share of the update;
+     CUDA kernel, in all and per call, and the device's busy share of the
+     update;
   8. times: K1 and its plain version at B in {1, 32, 64, 2048}, and the
      training kernels at B=256 (median of CUDA-event timings), beside
-     their bounds;
+     their bounds, K2b (redesigned for the tensor cores) also beside its
+     earlier design's time;
   9. K5 against its plain version: the fused depth ingest
      (preprocess_depth_fused) and preprocess_depth_plain on raw 512x640
      frames at B in {1, 3, 32, 256}, sigma 0 and 50: uniform frames,
@@ -93,7 +99,9 @@ per source, all at once), then
      forward at B=256 (K8 x4, K1 x0), its actions against the K1 route's;
      model.patch_size (8, 10), 257 tokens, at B=64 (K8 x4 by `auto`);
  17. times of K6, K7, K8 and their plain versions beside their bounds,
-     and torch's scaled_dot_product_attention beside K8;
+     K6 and K8 (redesigned for the tensor cores) also beside their
+     earlier design's times, and torch's scaled_dot_product_attention
+     beside K8, both also by device time (torch.profiler);
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -248,6 +256,31 @@ def cuda_ms(fn, reps: int, runs: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 50, tries: int = 3):
+    """The device time of one call of `fn` (its CUDA kernels summed, from
+    torch.profiler over `calls` calls after a warm-up). A window in which
+    the profiler recorded nothing is taken again with four times the
+    calls; after `tries` empty windows it raises. Beside cuda_ms for the
+    small kernels, whose back-to-back calls can wait on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        if total > 0:
+            return total / calls / 1e3
+        calls *= 4
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
+                       "windows")
 
 
 def trunk_inputs(policy, batch, rng):
@@ -511,9 +544,12 @@ def phase_times(cfg, policies, rng):
 # intermediate (qkv, p, dpre, dqkv) moves what follows by about one ulp of
 # its own magnitude. Each tensor: max |err| <= 2^-6 L; pooled over every
 # tensor of a kernel's bf16 batches: mean |err| / L <= 2^-18. An H100
-# read pooled 1.2e-6 (K4), 3.3e-7 (K2b) and <= 5e-8 (K2f, K3f, K3b), and
-# 1.9e-5 / 2.8e-5 for the wrong K2b / K3b backward (autograd of the plain
-# forward); every max stayed within 2^-6 L for both.
+# read pooled 1.2e-6 (K4) and <= 5e-8 (K2f, K3f, K3b), and 1.9e-5 / 2.8e-5
+# for the wrong K2b / K3b backward (autograd of the plain forward); every
+# max stayed within 2^-6 L for both. K2b read 3.3e-7 with an FMA body and
+# 1.3e-6 with its tensor-core body (an H100 80GB HBM3 at 700 W): the
+# tensor cores' fp32 sums flip more bf16 roundings, still 3x under the
+# limit and 15x under the wrong backward.
 TRAIN_F32_MAX = 1e-5
 TRAIN_BF16_MAX, TRAIN_BF16_MEAN = 2.0 ** -6, 2.0 ** -18
 # The fp32 SAC update through the kernels against the same update through
@@ -927,6 +963,78 @@ def phase_train_kernels(nets, rng):
     return worst
 
 
+# 16 more tokens for phase 5b: 81, a 128x160 frame in 16x16 patches, one
+# more row than the tensor-core backward body holds
+EXTRA_TOKENS = 16
+
+
+def narrow_block(w, heads=2, dim_head=32, mlp=256):
+    """A full block of 2 x 32 heads and a 256-wide MLP cut from a trained
+    block (its first head's q, k, v columns and out-projection rows, its
+    first MLP columns): off the flagship widths, with trained magnitudes."""
+    import torch
+
+    inner, cut = w[3].shape[0], heads * dim_head
+    wqkv = torch.cat([w[2][:, p * inner:p * inner + cut] for p in range(3)],
+                     dim=1)
+    return tuple(t.contiguous() for t in (
+        w[0], w[1], wqkv, w[3][:cut], w[4], w[5], w[6], w[7][:, :mlp],
+        w[8][:mlp], w[9][:mlp], w[10]))
+
+
+def off_by_one(t):
+    """A copy of t whose data starts 2 bytes past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+def phase_bwd_widths(nets, rng):
+    """Phase 5b: the bf16 full-block backward takes the tensor-core body
+    at the flagship widths and the FMA body elsewhere (more tokens than
+    80, narrow heads, an unaligned x); there K2b and K6 agree with their
+    plain versions within phase 5's and phase 13's bf16 limits. The actor's
+    trained blocks on its embedded stream of seeded frames, at B=32."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+                                                 trunk_bwd_plain)
+
+    a = train_inputs(nets["bfloat16"], 32, rng)["actor"]
+    x, blocks, dy3 = a["x"], a["blocks"], a["dy3"]
+    check(ft.tensor_core_bwd(x, blocks[0], a["dh"], a["dy2"]),
+          "the flagship bf16 block does not take the tensor-core backward")
+    longer = torch.cat([x, x.roll(1, 0)[:, 1:1 + EXTRA_TOKENS]], dim=1)
+    cases = [
+        (f"{longer.shape[1]} tokens", longer.contiguous(), blocks, 4, 64),
+        ("2 x 32 heads, mlp 256", x, [narrow_block(w) for w in blocks], 2,
+         32),
+        ("flagship widths, x unaligned", off_by_one(x), blocks, 4, 64)]
+    for what, xs, bl, heads, dh in cases:
+        dy2 = torch.from_numpy(rng.standard_normal(xs.shape).astype(
+            "float32")).to(DEVICE).bfloat16()
+        check(not ft.tensor_core_bwd(xs, bl[0], dh, dy2),
+              f"bf16 backward, {what}: would take the tensor-core body")
+        e = TrainErrors()
+        e.add(zip(tensors(ft.block_bwd_fused(xs, dy2, bl[0], heads, dh)),
+                  tensors(ft.block_bwd_plain(xs, dy2, bl[0], heads, dh))))
+        args = (xs, dy3, bl, a["fn"], heads, dh, "rms")
+        e6 = TrainErrors()
+        e6.add(zip(trunk_tensors(trunk_bwd_fused(*args)),
+                   trunk_tensors(trunk_bwd_plain(*args))))
+        ok = e.ok and e6.max_ok and e6.mean <= K6_BF16_MEAN
+        print(f"bf16 backward, {what}, FMA body: K2b vs plain mean|err|/L "
+              f"{e.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}), K6 vs plain "
+              f"mean|err|/L {e6.mean:.3e} (limit {K6_BF16_MEAN:.3e}), every"
+              f" max within 2^-6 L: {e.max_ok and e6.max_ok} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"bf16 backward, {what}: disagrees with its plain version")
+
+
 @contextlib.contextmanager
 def trunk_grad_switch():
     """The JAX package's opt-in switch, set while networks are built."""
@@ -1060,7 +1168,9 @@ def phase_train_times(nets, rng):
         bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
         rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by)
         print(f"{name} bf16 B={SAC_BATCH}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, bound {bnd:.5f} ms ({by})", flush=True)
+              f"{pms:.4f} ms, bound {bnd:.5f} ms ({by})"
+              + (earlier(ms, FMA_DESIGN_MS[name])
+                 if name in FMA_DESIGN_MS else ""), flush=True)
     return rows
 
 
@@ -1091,7 +1201,8 @@ def phase_profile(update, label="bf16"):
           f"kernels {busy:.2f} ms = busy share {busy / (wall * 1e3):.3f}",
           flush=True)
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        print(f"  {t / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+        print(f"  {t / 1e3:9.3f} ms  x{count:<4d} {t / 1e3 / count:8.3f} ms "
+              f"a call  {key[:80]}", flush=True)
     return {key: count for key, _, count in rows}
 
 
@@ -1594,8 +1705,11 @@ K6_BF16_MEAN = 2.0 ** -13
 K6_FRAMES_WITHIN = 2 / 3
 # K7 and K8 against their plain versions: fp32 max |err| <= 1e-5 L; bf16
 # max <= 2^-6 L and the pooled mean of |err| / L <= 2^-18 (phase 5's
-# limits: the same rounding points, rare flips; an H100 read 7e-9 and
-# 2e-9). The backwards recompute the plain version, so they are held to
+# limits: the same rounding points, rare flips; an H100 read 7e-9 for K7;
+# the bf16 K8, its probabilities split into bf16 hi + lo halves on the
+# tensor cores, read 1.8e-7 on an H100 80GB HBM3 at 700 W, where its
+# probabilities rounded to bf16 once fail, as tests/test_torch_attention.py
+# shows). The backwards recompute the plain version, so they are held to
 # the same limits against autograd of the plain version (read 0).
 ATTN_SHAPES = ((256, 4, 65, 64), (64, 4, 257, 64), (8, 2, 65, 160))
 SECTION_SHAPES = ((256, 65), (8, 256))          # (B, n) at d 64, 4 x 64
@@ -2188,12 +2302,16 @@ def k7_work(batch, n, d=64, heads=4, dh=64, esize=2):
 
 
 def k8_bound(shape, dtype):
-    """K8's bound: q k^T on operands of `dtype`, P.V in fp32 (the
-    probabilities are fp32 by definition), q, k, v read and o written
-    once."""
+    """K8's bound: q, k, v read and o written once; in bf16, q k^T as one
+    tensor-core pass and P.V as two (the fp32 probabilities split into two
+    bf16 halves, each multiplied by V), all at the bf16 rate; in fp32, both
+    products at the fp32 rate. (Pricing bf16 P.V at the fp32 rate, as this
+    bound once did, put a kernel that keeps fp32-accurate probabilities on
+    the tensor cores above 100% of its bound.)"""
     b, h, n, d = shape
     half = 2 * b * h * n * n * d
-    t_ops = half / PEAK_FLOPS[dtype] + half / PEAK_FLOPS["float32"]
+    passes = 3 if dtype == "bfloat16" else 2
+    t_ops = passes * half / PEAK_FLOPS[dtype]
     t_bytes = 4 * b * h * n * d * (2 if dtype == "bfloat16" else 4) \
         / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -2202,7 +2320,8 @@ def k8_bound(shape, dtype):
 
 def phase_attention_times(nets, rng):
     """Phase 17: K6, K7, K8 and their plain versions, bf16, beside their
-    bounds and, for K8, scaled_dot_product_attention."""
+    bounds and, for K8, scaled_dot_product_attention (both also by device
+    time)."""
     import torch
     import torch.nn.functional as F
 
@@ -2239,23 +2358,51 @@ def phase_attention_times(nets, rng):
                    for _ in range(3))
         s = shape[-1] ** -0.5
         bnd, by = k8_bound(shape, "bfloat16")
+        kern = lambda: attention_fused(q, k, v, s)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=s)
         rows["K8"][str(shape)] = dict(
-            ms=cuda_ms(lambda: attention_fused(q, k, v, s), 10, runs=5),
+            ms=cuda_ms(kern, 10, runs=5),
             plain_ms=cuda_ms(lambda: attention_plain(q, k, v, s), 5,
                              runs=5),
-            bound_ms=bnd, bound_by=by,
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=s), 10, runs=5))
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib, 10, runs=5),
+            device_ms=device_ms(kern), library_device_ms=device_ms(lib))
+    before = {"K6": {f"B={SAC_BATCH}": FMA_DESIGN_MS["K6"]},
+              "K8": FMA_DESIGN_MS["K8"]}
     for name, r in (("K6", {f"B={SAC_BATCH}": rows["K6"]}),
                     ("K7", rows["K7"]), ("K8", rows["K8"])):
         for label, t in r.items():
             lib = ("" if t["library_ms"] is None else
                    f", scaled_dot_product_attention {t['library_ms']:.4f} ms")
+            was = before.get(name, {}).get(label)
+            dev = ("" if "device_ms" not in t else
+                   f"; device time (torch.profiler): kernel "
+                   f"{t['device_ms']:.4f} ms, scaled_dot_product_attention "
+                   f"{t['library_device_ms']:.4f} ms")
             print(f"{name} bf16 {label}: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-                  f"({t['bound_by']}){lib}", flush=True)
+                  f"({t['bound_by']}){lib}"
+                  + ("" if was is None else earlier(t["ms"], was)) + dev,
+                  flush=True)
     return rows
 
+
+
+# The times of the kernels redesigned for the tensor cores in their earlier
+# FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
+# 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
+# B=256, K8 by shape. Recorded, not measured in this run: they go on the
+# printed lines only, never into the kernels line.
+FMA_DESIGN_MS = {"K2b": 10.8233, "K6": 39.3067,
+                 "K8": {"(256, 4, 65, 64)": 0.2149,
+                        "(64, 4, 257, 64)": 0.8475,
+                        "(8, 2, 65, 160)": 0.0854}}
+
+
+def earlier(t_ms, before_ms):
+    """The earlier design's recorded time and the speed-up, for a printed
+    line."""
+    return (f"; earlier FMA design {before_ms:.4f} ms (recorded, not this "
+            f"run), now {before_ms / t_ms:.2f}x faster")
 
 
 KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
@@ -2364,6 +2511,7 @@ def main() -> int:
     actor_flat, critic_flat = golden_params()
     nets = build_nets(actor_flat, critic_flat)
     train_worst = phase_train_kernels(nets, rng)
+    phase_bwd_widths(nets, rng)
     sac_launches, update_s, one_update = phase_sac(actor_flat, critic_flat)
     sac_fp32, default_fp32 = phase_sac_fp32()
     phase_profile(one_update)

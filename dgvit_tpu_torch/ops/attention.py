@@ -147,9 +147,13 @@ def attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8: exact softmax attention on (B, H, N, D), fp32 or bf16 in and
     out, fp32 inside. CUDA tensors go to the kernel (and raise if it
     cannot run); CPU tensors to `attention_plain`. Differentiable through
-    a recompute of the plain version. `attention_fused.launches` counts
-    kernel launches."""
-    return _Attention.apply(q, k, v, float(scale))
+    a recompute of the plain version; without a gradient to track it skips
+    the autograd node, whose host time rivals the kernel's.
+    `attention_fused.launches` counts kernel launches."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, float(scale))
+    return _forward(q, k, v, float(scale))
 
 
 attention_fused.launches = 0

@@ -19,10 +19,11 @@
 // What bounds them on an H100: at the flagship width (65 tokens, dim 64,
 // 4 heads x 64) a frame of K7 costs 12.9 MFLOP for 17 KB of bf16 moved and
 // a (frame, head) of K8 1.1 MFLOP for 33 KB, so against the tensor-core
-// rate K7 is bound by operations and K8 by bytes; both run plain fp32 FMA
-// loops far below either bound.
+// rate K7 is bound by operations and K8 by bytes. K7 and the fp32 K8 run
+// plain fp32 FMA loops far below either bound; the bf16 K8 runs on the
+// tensor cores (below).
 //
-// Design, both kernels: a thread block serves a tile of query rows of one
+// K7 and the fp32 K8: a thread block serves a tile of query rows of one
 // frame (K7) or one (frame, head) (K8). K and V of the head, every row,
 // live in shared memory in T with a row stride of an odd number of 32-bit
 // words, so that lanes reading different key rows hit different banks;
@@ -33,8 +34,45 @@
 // memory fits. K7 projects its tile's q and the head's k/v from x (read
 // from device memory, L2-resident) and adds each head's o @ wout slice
 // into an fp32 tile that is written once.
+//
+// The bf16 K8 (attention_mma_kernel) computes the same function on the
+// tensor cores (mma_common.cuh). A work item is a (frame, head) and a tile
+// of at most 8 x 16 of its query rows (one tile up to 128 tokens). The
+// grid is persistent: each thread block walks items with the grid's
+// stride, q, k and v arriving by 16-byte cp.async in tiles that ldmatrix
+// reads without bank conflicts (rows padded to a multiple of 16 with
+// zeros). With two stages of shared memory the next item's copies run
+// while the warps work on this one; a head too long for two thread blocks
+// of two stages on an SM (257 tokens) takes one stage, so that two thread
+// blocks share the SM. Each warp owns 16 query rows:
+//  * S = q k^T by bf16 mma.sync into fp32: bf16 products are exact in
+//    fp32, so only the order of the sums differs from fp32 FMA; then the
+//    scale, and padded keys masked to -inf before the max.
+//  * The exact softmax in registers, quad shuffles for the row max and
+//    row sum: p = exp(s - max) times the reciprocal of the sum, the exp
+//    taken as exp2 of scores scaled by log2(e) (within a few ulps of the
+//    plain version's exp and quotient, far below the split's 2^-17).
+//  * P.V keeps p fp32-accurate: p = hi + lo with hi = bf16(p) and
+//    lo = bf16(p - hi) (p - hi is exact in fp32), and P.V = hi.V + lo.V,
+//    both on the tensor cores into one fp32 sum. hi + lo carries about 16
+//    bits of p (|p - hi - lo| <= 2^-17 |p|), far below the output's bf16
+//    rounding; p rounded to bf16 once would be another function, and
+//    tests/test_torch_attention.py shows that it fails the pooled limit
+//    that the split passes.
+//  * 80 keys at a time in registers (16 x 80 fp32 scores a warp). Up to
+//    80 keys the scores and their exps are formed once and p is the exact
+//    softmax above. A longer head takes the
+//    streaming softmax in fp32, one walk over its key tiles: the row max
+//    grows tile by tile, the sum and the output so far are rescaled by
+//    exp(old max - new max), and the output is divided by the sum at the
+//    end. That differs from the plain version by fp32 roundings, far below
+//    the split's 2^-17, and forms each score once (an exact softmax would
+//    form them twice: max and sum first, then P.V).
+//  * The output goes 64 columns at a time (D = 160: three walks of P.V),
+//    bf16 pairs in 4-byte stores.
 
 #include "block_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -99,27 +137,30 @@ struct AttnArgs {
   void* o;
   int n, dh, qrows;
   float scale;
+  int vec16;  // bf16: rows go by 16-byte copies (dh % 8 == 0, aligned)
 };
 
-template <typename T> struct AttnSmem {
+// the fp32 K8's shared memory (the bf16 K8 is attention_mma_kernel)
+struct AttnSmem {
   size_t k, v, q, prob, total;
   __host__ __device__ AttnSmem(int n, int dh, int qrows) {
-    const size_t kv = sizeof(T) * n * row_ld<T>(dh);
+    const size_t kv = sizeof(float) * n * row_ld<float>(dh);
     k = 0;
     v = align16(k + kv);
     q = align16(v + kv);
-    prob = align16(q + sizeof(T) * qrows * dh);
+    prob = align16(q + sizeof(float) * qrows * dh);
     total = align16(prob + sizeof(float) * kWarps * n);
   }
 };
 
-// grid (B * H, query tiles): q, k, v, o are (B * H, n, dh) contiguous.
-template <typename T>
+// The fp32 K8. grid (B * H, query tiles): q, k, v, o are (B * H, n, dh)
+// contiguous.
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const __grid_constant__ AttnArgs a) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, dh = a.dh, ld = row_ld<T>(dh);
-  const AttnSmem<T> L(n, dh, a.qrows);
+  const AttnSmem L(n, dh, a.qrows);
   T* ks = (T*)(smem_raw + L.k);
   T* vs = (T*)(smem_raw + L.v);
   T* qs = (T*)(smem_raw + L.q);
@@ -170,7 +211,7 @@ int launch_tiles(Kernel kernel, int x, int tiles, size_t bytes,
   return cudaGetLastError();
 }
 
-template <typename T>
+// the fp32 K8
 int launch_attention(AttnArgs& a, int bh, cudaStream_t stream) {
   size_t limit;
   const int err = smem_limit(&limit);
@@ -179,14 +220,344 @@ int launch_attention(AttnArgs& a, int bh, cudaStream_t stream) {
   // blocks in flight
   const int n = a.n, dh = a.dh;
   int tiles = pick_tiles(n, limit, [=](int rows) {
-    return AttnSmem<T>(n, dh, rows).total;
+    return AttnSmem(n, dh, rows).total;
   });
   if (tiles == 0) return cudaErrorInvalidValue;
   if (tiles < (n + 63) / 64) tiles = (n + 63) / 64;
   a.qrows = (n + tiles - 1) / tiles;
   tiles = (n + a.qrows - 1) / a.qrows;
-  return launch_tiles(attention_kernel<T>, bh, tiles,
-                      AttnSmem<T>(n, dh, a.qrows).total, stream, a);
+  return launch_tiles(attention_kernel, bh, tiles,
+                      AttnSmem(n, dh, a.qrows).total, stream, a);
+}
+
+// ---- K8, bf16, on the tensor cores ----------------------------------------
+
+constexpr int kKeyTiles = 10;  // n8 key tiles held in registers: 80 keys
+constexpr int kOutTiles = 8;   // n8 output tiles of one P.V walk: 64 columns
+
+// bf16 elements of one stage of attention_mma_kernel: k and v of a head
+// (every row), q of `rows` query rows, row stride round16(dh) + 8.
+__host__ __device__ inline size_t attn_stage(int n, int dh, int rows) {
+  return (size_t)(2 * round16(n) + rows) * (round16(dh) + 8);
+}
+
+// The scores of one warp's 16 query rows (q tile rows m0..) against key
+// tile c (keys 80 c ..): s = (q k^T) * scale, keys >= n at -inf. DP: the
+// padded head width if fixed at compile time, else 0 (dp, ld at run time).
+template <int DP>
+__device__ __forceinline__ void attn_scores(float (&s)[kKeyTiles][4],
+                                            const bf16* qs, const bf16* ks,
+                                            int ld, int m0, int c, int n,
+                                            int np, int dp, float scale) {
+  if (DP) dp = DP, ld = DP + 8;
+  const int key0 = c * 8 * kKeyTiles, t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  for (int k0 = 0; k0 < dp; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, qs, ld, m0, k0);
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; j += 2)
+      if (key0 + 8 * j < np) {
+        uint32_t b[4];
+        load_b_nk(b, ks, ld, key0 + 8 * j, k0);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+  }
+  const float ninf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = key0 + 8 * j + 2 * t + (e & 1) < n ? s[j][e] * scale : ninf;
+}
+
+// The pair (p0, p1) split into bf16 hi and lo halves, packed for an A
+// fragment: hi = bf16(p), lo = bf16(p - hi)
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// o += p . V for one warp: p holds 16 query rows x 16 keys (k0..) as two
+// n8 accumulator tiles, V its rows k0.. and the output columns dc..;
+// p goes in as bf16 hi + lo halves.
+__device__ __forceinline__ void pv_slice(float (&o)[kOutTiles][4],
+                                         const float (&p)[2][4],
+                                         const bf16* vs, int ld, int dc,
+                                         int dp, int k0) {
+  uint32_t hi[4], lo[4];
+  split_pair(p[0][0], p[0][1], hi[0], lo[0]);
+  split_pair(p[0][2], p[0][3], hi[1], lo[1]);
+  split_pair(p[1][0], p[1][1], hi[2], lo[2]);
+  split_pair(p[1][2], p[1][3], hi[3], lo[3]);
+#pragma unroll
+  for (int j = 0; j < kOutTiles; j += 2)
+    if (dc + 8 * j < dp) {
+      uint32_t b[4];
+      load_b_kn(b, vs, ld, dc + 8 * j, k0);
+      mma_bf16(o[j], hi, b[0], b[1]);
+      mma_bf16(o[j], lo, b[0], b[1]);
+      mma_bf16(o[j + 1], hi, b[2], b[3]);
+      mma_bf16(o[j + 1], lo, b[2], b[3]);
+    }
+}
+
+// One warp's output tile times f0 (row g) and f1 (row g + 8) to out (row
+// stride dh), rows m0.. below nq and columns dc.. below dh, bf16.
+__device__ __forceinline__ void store_out(const float (&o)[kOutTiles][4],
+                                          float f0, float f1, bf16* out,
+                                          int m0, int nq, int dh, int dc) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h, col = dc + 8 * j + 2 * t;
+      if (r >= nq || col >= dh) continue;
+      const float v0 = o[j][2 * h] * (h ? f1 : f0);
+      const float v1 = o[j][2 * h + 1] * (h ? f1 : f0);
+      bf16* dst = out + (size_t)r * dh + col;
+      if (dh % 2 == 0) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+      } else {
+        dst[0] = __float2bfloat16(v0);
+        if (col + 1 < dh) dst[1] = __float2bfloat16(v1);
+      }
+    }
+}
+
+// One warp's 16 query rows m0.. (nq valid) of the head in (qs, ks, vs):
+// o = softmax(q k^T scale) v, written to out (row stride dh). DP as in
+// attn_scores.
+template <int DP>
+__device__ __forceinline__ void attn_rows_mma(const bf16* qs, const bf16* ks,
+                                              const bf16* vs, int ld, int m0,
+                                              int nq, int n, int dh,
+                                              float scale, bf16* out) {
+  const int np = round16(n), dp = DP ? DP : round16(dh);
+  if (DP) ld = DP + 8, dh = DP;
+  const int chunks = (np + 8 * kKeyTiles - 1) / (8 * kKeyTiles);
+  // scores in base-2 units: exp(s - max) = exp2(s log2(e) - max log2(e))
+  scale *= 1.4426950408889634f;
+  const float ninf = __int_as_float(0xff800000);
+  float s[kKeyTiles][4], o[kOutTiles][4], p[2][4];
+  if (chunks == 1) {
+    // one key tile: the row max, the exps (kept) and their sum, then
+    // p = exp(s - max) times the reciprocal of the sum, 64 columns a walk
+    attn_scores<DP>(s, qs, ks, ld, m0, 0, n, np, dp, scale);
+    float mx0 = ninf, mx1 = ninf, sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(s[j][i] - (i < 2 ? mx0 : mx1));
+        (i < 2 ? sum0 : sum1) += s[j][i];
+      }
+    const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
+    for (int dc = 0; dc < dp; dc += 8 * kOutTiles) {
+#pragma unroll
+      for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
+        if (16 * kk >= np) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[h][e] = s[2 * kk + h][e] * (e < 2 ? inv0 : inv1);
+        pv_slice(o, p, vs, ld, dc, dp, 16 * kk);
+      }
+      store_out(o, 1.f, 1.f, out, m0, nq, dh, dc);
+    }
+    return;
+  }
+  // a longer head, 64 output columns a walk over its key tiles: the
+  // streaming softmax in fp32. Per tile the row max grows to m, the sum
+  // and o so far are rescaled by exp(old m - m), p = exp(s - m) joins the
+  // sum and o; at the end o is divided by the sum.
+  for (int dc = 0; dc < dp; dc += 8 * kOutTiles) {
+#pragma unroll
+    for (int j = 0; j < kOutTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float mx0 = ninf, mx1 = ninf, sum0 = 0.f, sum1 = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      attn_scores<DP>(s, qs, ks, ld, m0, c, n, np, dp, scale);
+      float cm0 = mx0, cm1 = mx1;
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+        cm0 = fmaxf(cm0, fmaxf(s[j][0], s[j][1]));
+        cm1 = fmaxf(cm1, fmaxf(s[j][2], s[j][3]));
+      }
+      cm0 = quad_max(cm0);
+      cm1 = quad_max(cm1);
+      const float a0 = exp2f(mx0 - cm0), a1 = exp2f(mx1 - cm1);
+      mx0 = cm0;
+      mx1 = cm1;
+      sum0 *= a0;
+      sum1 *= a1;
+#pragma unroll
+      for (int j = 0; j < kOutTiles; ++j) {
+        o[j][0] *= a0;
+        o[j][1] *= a0;
+        o[j][2] *= a1;
+        o[j][3] *= a1;
+      }
+      const int key0 = c * 8 * kKeyTiles;
+#pragma unroll
+      for (int kk = 0; kk < kKeyTiles / 2; ++kk) {
+        if (key0 + 16 * kk >= np) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[h][e] = exp2f(s[2 * kk + h][e] - (e < 2 ? mx0 : mx1));
+            (e < 2 ? sum0 : sum1) += p[h][e];
+          }
+        pv_slice(o, p, vs, ld, dc, dp, key0 + 16 * kk);
+      }
+    }
+    store_out(o, 1.f / quad_sum(sum0), 1.f / quad_sum(sum1), out, m0, nq,
+              dh, dc);
+  }
+}
+
+// A persistent grid: each thread block walks work items (frame-head,
+// query tile) with a stride of the grid; with two stages in shared memory
+// the next item's q, k, v arrive (cp.async) while the warps work on this
+// one. One warp per 16 query rows of the tile; q, k, v, o are
+// (B * H, n, dh) contiguous bf16. DH: the head width fixed at compile
+// time (64, the flagship's: a fifth faster at both main shapes than the
+// same code with the width read at run time, on an H100 80GB HBM3 at
+// 700 W), or 0 for any width.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    attention_mma_kernel(const __grid_constant__ AttnArgs a, int items,
+                         int tiles, int stages) {
+  static_assert(DH % 16 == 0, "a fixed head width is a multiple of 16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, dh = DH ? DH : a.dh, np = round16(n),
+            ld = round16(dh) + 8, rows = a.qrows;
+  const size_t stage = attn_stage(n, dh, rows);
+  bf16* base = (bf16*)smem_raw;
+  // zeros once: padded key rows and columns past dh are never copied in
+  for (size_t i = threadIdx.x; i < stages * stage / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const bool vec = a.vec16 != 0;
+  auto copy_rows = [&](bf16* s, const bf16* g, int count) {
+    if (vec)
+      stage_rows(s, ld, g, dh, count, dh);
+    else
+      for (int i = threadIdx.x; i < count * dh; i += blockDim.x)
+        s[(size_t)(i / dh) * ld + i % dh] = g[i];
+  };
+  auto fetch = [&](int item, int st) {
+    bf16* ks = base + st * stage;
+    const size_t head = (size_t)(item / tiles) * n * dh;
+    const int r0 = item % tiles * rows;
+    copy_rows(ks, (const bf16*)a.k + head, n);
+    copy_rows(ks + (size_t)np * ld, (const bf16*)a.v + head, n);
+    copy_rows(ks + (size_t)2 * np * ld, (const bf16*)a.q + head +
+              (size_t)r0 * dh, min(rows, n - r0));
+  };
+  const int m0 = threadIdx.x / 32 * 16;
+  int st = 0;
+  if (stages == 2 && (int)blockIdx.x < items) fetch(blockIdx.x, 0);
+  cp_async_commit();
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    if (stages == 1)
+      fetch(item, 0);
+    else if (item + (int)gridDim.x < items)
+      fetch(item + gridDim.x, st ^ 1);
+    cp_async_commit();
+    if (stages == 1)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();
+    const size_t head = (size_t)(item / tiles) * n * dh;
+    const int r0 = item % tiles * rows, nq = min(rows, n - r0);
+    const bf16* ks = base + st * stage;
+    const bf16* qs = ks + (size_t)2 * np * ld;
+    const bf16* vs = ks + (size_t)np * ld;
+    bf16* out = (bf16*)a.o + head + (size_t)r0 * dh;
+    if (m0 < nq)
+      attn_rows_mma<DH>(qs, ks, vs, ld, m0, nq, n, dh, a.scale, out);
+    __syncthreads();
+    st ^= stages - 1;
+  }
+}
+
+template <int DH>
+int launch_attention_mma(AttnArgs& a, int bh, cudaStream_t stream) {
+  // Host queries cached per thread: at the flagship shape the kernel runs
+  // ~0.02 ms (an H100 80GB HBM3 at 700 W) and a launch's host path is
+  // what a caller waits on. Per
+  // device the shared-memory limit, the SM count, and the kernel's
+  // dynamic shared-memory cap raised to the limit once (the same value
+  // from every thread); per launch shape the blocks that fit an SM.
+  struct Cache {
+    int dev = -1, sms = 0, threads = 0, per_sm = 0;
+    size_t limit = 0, bytes = 0;
+  };
+  static thread_local Cache c;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (c.dev != dev) {
+    int err = smem_limit(&c.limit);
+    if (err != cudaSuccess) return err;
+    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_mma_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)c.limit);
+    if (e != cudaSuccess) return e;
+    c.dev = dev;
+    c.threads = 0;
+  }
+  // at most 8 warps of 16 query rows a tile, the rows spread evenly
+  const int mt = round16(a.n) / 16;
+  const int fewest = (mt + kWarps - 1) / kWarps;
+  const int per_tile = (mt + fewest - 1) / fewest;
+  const int tiles = (mt + per_tile - 1) / per_tile;
+  a.qrows = 16 * per_tile;
+  // two stages where two thread blocks of two stages fit an SM, else one
+  // (a long head: more warps resident matter more than the overlap)
+  const size_t stage = sizeof(bf16) * attn_stage(a.n, a.dh, a.qrows);
+  const int stages = 4 * stage <= c.limit ? 2 : 1;
+  const size_t bytes = stages * stage;
+  if (bytes > c.limit) return cudaErrorInvalidValue;
+  const int threads = 32 * per_tile;
+  if (c.threads != threads || c.bytes != bytes) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &c.per_sm, attention_mma_kernel<DH>, threads, bytes);
+    if (e != cudaSuccess) return e;
+    c.threads = threads;
+    c.bytes = bytes;
+  }
+  const long items = (long)bh * tiles;
+  const long resident = (long)c.sms * (c.per_sm > 0 ? c.per_sm : 1);
+  attention_mma_kernel<DH><<<(unsigned)(items < resident ? items : resident),
+                             threads, bytes, stream>>>(a, (int)items, tiles,
+                                                       stages);
+  return cudaGetLastError();
 }
 
 // ---- K7 ------------------------------------------------------------------
@@ -294,10 +665,13 @@ int attention_launch(int dtype, const void* q, const void* k, const void* v,
                      void* o, int bh, int n, int dh, float scale,
                      void* stream) {
   if (bh < 1 || n < 1 || dh < 1) return cudaErrorInvalidValue;
-  AttnArgs a = {q, k, v, o, n, dh, 0, scale};
+  const bool aligned =
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  AttnArgs a = {q, k, v, o, n, dh, 0, scale, dh % 8 == 0 && aligned};
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_attention<__nv_bfloat16>(a, bh, s)
-                    : launch_attention<float>(a, bh, s);
+  if (dtype != 1) return launch_attention(a, bh, s);
+  return dh == 64 ? launch_attention_mma<64>(a, bh, s)
+                  : launch_attention_mma<0>(a, bh, s);
 }
 
 // K7. x, y: (batch, n, d); wqkv (d, 3 heads dh); wout (heads dh, d);

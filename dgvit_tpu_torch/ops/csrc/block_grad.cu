@@ -16,8 +16,7 @@
 // compute dtype T.
 //
 // Backward, two passes:
-//  1. one thread block per frame recomputes the forward (bit-identical to
-//     the forward kernel: same products in the same order), then runs the
+//  1. one thread block per frame recomputes the forward, then runs the
 //     reverse pass of `_block_bwd_body` / `_cls_bwd_body` by hand with its
 //     rounding points: dy, dpre, g1, do and dqkv are rounded to T before
 //     their products, ds after the scale, dv uses the rounded p and ds the
@@ -33,6 +32,20 @@
 //     orders are fixed by the shapes, so a gradient is the same from run
 //     to run (no atomics). The sums are cast to T at the end, as the TPU
 //     kernel casts its fp32 accumulators to the weight dtype.
+// The recompute of pass 1 is bit-identical to the forward kernel (same
+// products in the same order) for fp32, for K3b and for the bf16 FMA
+// body. The bf16 full block at the flagship widths (K2b, and K6's full
+// blocks) recomputes on the tensor cores (block_bwd_mma) while K2f and K4
+// keep fp32 FMA loops: the same bf16
+// operands and rounding points, sums in another order, so now and then
+// one bf16 rounding of the recomputed q, k, v, o or hidden activations
+// lands on the other side. That is the same kind of difference the
+// checks already allow against the plain version (cuBLAS sums in yet
+// another order): a flip moves what follows by about one ulp of its own
+// size, which phase 5's per-tensor max (2^-6 L) and pooled mean (2^-18)
+// of chip_smoke.py admit, as does phase 13's per-frame rule (two thirds
+// of K6's frames within 2^-18), and the wrong backwards still miss them
+// by a rounding point moved everywhere, not now and then.
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
@@ -49,13 +62,19 @@
 //
 // What bounds it on an H100: a frame of the full-block backward costs
 // about 3x the forward's 47 MFLOP at the flagship width, and the weight
-// products 11 GFLOP over 256 frames; all of it is FMA work on fp32 CUDA
-// cores (no tensor cores yet), so the kernels are compute-bound far from
-// the bf16 tensor-core roofline. A frame's operands and scratch (about
-// 0.8 MB in bf16, 211 MB at B=256) go through device memory and L2, which
-// a later version should keep on chip.
+// products 11 GFLOP over 256 frames. At the flagship widths the bf16
+// full-block backward body runs its products on the tensor cores
+// (block_bwd_mma, below; other widths keep the FMA body): q, k, v
+// and do of a head stay in shared memory, weight tiles arrive by
+// cp.async, and only the weight products' operands go to the workspace.
+// The forwards (K2f, K3f), the CLS-only backward body (K3b), the fp32
+// bodies and the weight products (wgrad_kernel) are FMA work on fp32 CUDA
+// cores, far from the bf16 tensor-core roofline.
+
+#include <type_traits>
 
 #include "block_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -357,11 +376,568 @@ __device__ __forceinline__ void block_bwd_body(const BwdArgs& a, int f,
             });
 }
 
-template <typename T>
+// ---- the bf16 full-block backward on the tensor cores --------------------
+//
+// The same function as block_bwd_body<bf16>, every product a bf16 mma.sync
+// tile product into fp32 (mma_common.cuh): each product's operands are
+// values already rounded to bf16 (h1, q, k, v, the rounded p, o, h2, dy,
+// the rounded dpre, g1c, do, the rounded ds, dqkv), so only the order of
+// its sums differs from the FMA body. A frame's rows are padded to a
+// multiple of 16 with zero rows and padded keys are masked, so padded rows
+// add nothing to any sum over rows. Kept on CUDA cores in fp32 as in the
+// FMA body: the LayerNorm statistics and backward, the softmax and its
+// backward, GELU and its derivative, the column sums.
+//
+// Widths are the flagship's (d = dim_head = 64, fixed at compile time);
+// n <= 80 rows (the 16 x 80 scores of a warp live in registers) and mlp a
+// multiple of kMmaChunk. The caller picks this body where they hold
+// (tensor_core_bwd in ops/fused_transformer.py) and the host checks them
+// (mma_body_takes); other bf16 widths run block_bwd_body<bf16>.
+//
+// Per head, q, k and v are projected from h1 (kept in shared memory) and
+// the head's slice of wqkv, forward and again in the backward, and do from
+// g1c and the head's slice of wout: none of them goes through device
+// memory. Weight tiles go to shared memory by cp.async; the transposed
+// products (dy w2^T, dpre w1^T, g1 wout^T, dqkv wqkv^T) read the same
+// tiles as [N][K] operands through ldmatrix, so no weight is read with a
+// stride. The MLP walks its hidden dim in chunks of kMmaChunk with the
+// next chunk's w1 and w2 tiles in flight (double-buffered). Per head the
+// out-projection and the dqkv wqkv^T product are added into fp32 tiles in
+// shared memory (another order of the same sums). The operands of the
+// weight products (h1, o, h2, hid, dpre, g1c, dqkv) go to their workspace
+// slots once, in 16-byte stores.
+
+constexpr int kMmaD = 64;       // token width and head width of the body
+constexpr int kMmaChunk = 64;   // MLP hidden columns per step
+constexpr int kMmaRows = 80;    // most rows of a frame
+constexpr int kMmaKeyTiles = kMmaRows / 8;
+constexpr int kLd = kMmaD + 8;          // row stride of 64-wide bf16 tiles
+constexpr int kLdQkv = 3 * kMmaD + 8;   // row stride of a head's q|k|v
+static_assert(kMmaChunk == kMmaD, "the MLP tiles share the 64-wide stride");
+
+// the offset of `bytes` at o, and o moved past them (16-byte aligned)
+__host__ __device__ inline size_t take(size_t& o, size_t bytes) {
+  const size_t at = o;
+  o = align16(o + bytes);
+  return at;
+}
+
+// Shared memory of block_bwd_mma for n rows: fp32 tiles that live through
+// the whole pass, then one region `u` that each phase lays out anew.
+struct MmaBwdSmem {
+  size_t x32, acc, g1, stats, h1;
+  size_t x1, a_wqkv, a_wout, a_q, a_k, a_v, a_o;         // attention
+  size_t b_h2, b_dy, b_w1, b_w2, b_hid, b_dpre, b_dprec;  // MLP (w: x 2)
+  size_t c_g1c, c_wqkv, c_wout, c_q, c_k, c_v, c_do, c_pc, c_ds, c_dqkv;
+  size_t total;
+  __host__ __device__ explicit MmaBwdSmem(int n) {
+    const size_t np = round16(n), rows = sizeof(float) * n * kMmaD,
+                 tile = sizeof(bf16) * np * kLd,
+                 wqkv = sizeof(bf16) * kMmaD * kLdQkv,
+                 w64 = sizeof(bf16) * kMmaD * kLd,
+                 probs = sizeof(bf16) * np * (np + 8);
+    size_t o = 0;
+    x32 = take(o, rows);
+    acc = take(o, rows);
+    g1 = take(o, rows);
+    stats = take(o, sizeof(float) * 4 * n);
+    h1 = take(o, tile);
+    const size_t u = o;
+    x1 = take(o, rows);  // lives from the attention through the MLP
+    const size_t after_x1 = o;
+    a_wqkv = take(o, wqkv);
+    a_wout = take(o, w64);
+    a_q = take(o, tile);
+    a_k = take(o, tile);
+    a_v = take(o, tile);
+    a_o = take(o, tile);
+    size_t end = o;
+    o = after_x1;
+    b_h2 = take(o, tile);
+    b_dy = take(o, tile);
+    b_w1 = take(o, 2 * w64);
+    b_w2 = take(o, 2 * w64);
+    b_hid = take(o, tile);
+    b_dpre = take(o, sizeof(float) * np * kLd);
+    b_dprec = take(o, tile);
+    end = end > o ? end : o;
+    o = u;
+    c_g1c = take(o, tile);
+    c_wqkv = take(o, wqkv);
+    c_wout = take(o, w64);
+    c_q = take(o, tile);
+    c_k = take(o, tile);
+    c_v = take(o, tile);
+    c_do = take(o, tile);
+    c_pc = take(o, probs);
+    c_ds = take(o, probs);
+    c_dqkv = take(o, sizeof(bf16) * np * kLdQkv);
+    total = end > o ? end : o;
+  }
+};
+
+// layernorm_rows (block_common.cuh), the same arithmetic, into a bf16 tile
+// of row stride ld
+__device__ void layernorm_tile(const float* x, int R, int d, const bf16* s,
+                               const bf16* b, bf16* out, int ld) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < R; r += kWarps) {
+    const float* xr = x + (size_t)r * d;
+    float sum = 0.f;
+    for (int c = lane; c < d; c += 32) sum += xr[c];
+    const float m = warp_sum(sum) / d;
+    float sq = 0.f;
+    for (int c = lane; c < d; c += 32) sq += (xr[c] - m) * (xr[c] - m);
+    const float inv = rsqrtf(warp_sum(sq) / d + 1e-5f);
+    for (int c = lane; c < d; c += 32)
+      out[(size_t)r * ld + c] =
+          fromf<bf16>((xr[c] - m) * inv * tof(s[c]) + tof(b[c]));
+  }
+}
+
+// col_sums over an fp32 tile of row stride ld
+__device__ void col_sums_ld(const float* x, int ld, int R, int d,
+                            float* out) {
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += x[(size_t)r * ld + c];
+    out[c] = s;
+  }
+}
+
+// bf16 pair (c, c + 1) of row r of a tile
+__device__ __forceinline__ void put2(bf16* s, int ld, int r, int c, float v0,
+                                     float v1) {
+  *reinterpret_cast<uint32_t*>(s + (size_t)r * ld + c) = pack_bf16(v0, v1);
+}
+
+// One warp's 16 query rows m0.. of a head: the forward's softmax
+// probabilities, unrounded, in the accumulator layout (key tile j, entry
+// e: row m0 + g + 8 (e / 2), key 8 j + 2 t + e % 2); keys >= n hold 0.
+// Scores, max, exp and sum as `attend` and `softmax_row` form them.
+__device__ __forceinline__ void head_probs(float (&s)[kMmaKeyTiles][4],
+                                           const bf16* qs, const bf16* ks,
+                                           int m0, int n, int np,
+                                           float scale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < kMmaD; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, qs, kLd, m0, k0);
+#pragma unroll
+    for (int j = 0; j < kMmaKeyTiles; j += 2)
+      if (8 * j < np) {
+        uint32_t b[4];
+        load_b_nk(b, ks, kLd, 8 * j, k0);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+  }
+  const float ninf = __int_as_float(0xff800000);
+  float mx[2] = {ninf, ninf};
+#pragma unroll
+  for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = 8 * j + 2 * t + e % 2 < n ? s[j][e] * scale : ninf;
+      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - mx[e / 2]);
+      sum[e / 2] += s[j][e];
+    }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+#pragma unroll
+  for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / sum[e / 2];
+}
+
+// The per-frame pass of a full block's backward for frame f, bf16, on the
+// tensor cores; the same operands, slots and row sums as block_bwd_body.
+__device__ __forceinline__ void block_bwd_mma(const BwdArgs& a, int f,
+                                              unsigned char* smem_raw) {
+  using T = bf16;
+  constexpr int D = kMmaD, DH = kMmaD, HC = kMmaChunk;
+  const Dims m = a.m;
+  const int n = a.n, np = round16(n), heads = m.heads, inner = heads * DH,
+            i3 = 3 * inner, mlp = m.mlp, lp = np + 8;
+  const MmaBwdSmem L(n);
+  float* x32 = (float*)(smem_raw + L.x32);
+  float* acc = (float*)(smem_raw + L.acc);
+  float* g1 = (float*)(smem_raw + L.g1);
+  float* mean1 = (float*)(smem_raw + L.stats);
+  float* rstd1 = mean1 + n;
+  float* mean2 = rstd1 + n;
+  float* rstd2 = mean2 + n;
+  T* h1s = (T*)(smem_raw + L.h1);
+  float* x1 = (float*)(smem_raw + L.x1);
+  const T* an_s = (const T*)a.w[0];
+  const T* an_b = (const T*)a.w[1];
+  const T* wqkv = (const T*)a.w[2];
+  const T* wout = (const T*)a.w[3];
+  const T* bout = (const T*)a.w[4];
+  const T* fn_s = (const T*)a.w[5];
+  const T* fn_b = (const T*)a.w[6];
+  const T* w1 = (const T*)a.w[7];
+  const T* b1 = (const T*)a.w[8];
+  const T* w2 = (const T*)a.w[9];
+  const size_t fr = (size_t)f * n;
+  const T* x = (const T*)a.x + fr * D;
+  const T* dy = (const T*)a.dy + fr * D;
+  T* dx = (T*)a.dx + fr * D;
+  T* H1 = (T*)a.s[0] + fr * D;
+  T* O = (T*)a.s[2] + fr * inner;
+  T* H2 = (T*)a.s[3] + fr * D;
+  T* HID = (T*)a.s[4] + fr * mlp;
+  T* DPRE = (T*)a.s[5] + fr * mlp;
+  T* G1C = (T*)a.s[6] + fr * D;
+  T* DQKV = (T*)a.s[8] + fr * i3;
+  float* V = a.vec + (size_t)f * (6 * D + mlp);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // a head's q|k|v columns of wqkv and its rows of wout into shared memory
+  auto stage_wqkv = [&](T* s, int hd) {
+    for (int part = 0; part < 3; ++part)
+      stage_rows(s + part * DH, kLdQkv, wqkv + part * inner + hd * DH, i3,
+                 D, DH);
+  };
+  auto stage_wout = [&](T* s, int hd) {
+    stage_rows(s, kLd, wout + (size_t)hd * DH * D, D, DH, D);
+  };
+  // q|k|v of head (its wqkv slice in ws) from h1s, rounded, into q, k, v
+  auto project_qkv = [&](const T* ws, T* q, T* k, T* v) {
+    block_mma<false, false>(np, 3 * DH, D, h1s, kLd, ws, kLdQkv,
+                            [=](int r, int c, float v0, float v1) {
+                              T* dst = c < DH ? q : (c < 2 * DH ? k : v);
+                              put2(dst, kLd, r, c % DH, v0, v1);
+                            });
+  };
+
+  // ---- recompute the forward: LN1 -> per head q|k|v, attention, o ------
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) x32[i] = tof(x[i]);
+  __syncthreads();
+  layernorm_stats(x32, n, D, mean1, rstd1);
+  layernorm_tile(x32, n, D, an_s, an_b, h1s, kLd);
+  zero_rows(h1s, kLd, n, np, D);
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) x1[i] = 0.f;
+  {
+    T* wq = (T*)(smem_raw + L.a_wqkv);
+    T* wo = (T*)(smem_raw + L.a_wout);
+    T* q = (T*)(smem_raw + L.a_q);
+    T* k = (T*)(smem_raw + L.a_k);
+    T* v = (T*)(smem_raw + L.a_v);
+    T* o = (T*)(smem_raw + L.a_o);
+    stage_wqkv(wq, 0);
+    stage_wout(wo, 0);
+    cp_async_commit();
+    __syncthreads();
+    store_rows(H1, D, h1s, kLd, n, D);
+    for (int hd = 0; hd < heads; ++hd) {
+      cp_async_wait<0>();
+      __syncthreads();
+      project_qkv(wq, q, k, v);
+      __syncthreads();
+      if (hd + 1 < heads) {
+        stage_wqkv(wq, hd + 1);
+        cp_async_commit();
+      }
+      // attention of 16 query rows a warp: p_c = T(p), o = T(p_c v)
+      for (int m0 = warp * 16; m0 < np; m0 += kWarps * 16) {
+        float s[kMmaKeyTiles][4];
+        head_probs(s, q, k, m0, n, np, m.scale);
+        float acc_o[DH / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kMmaKeyTiles / 2; ++kk) {
+          if (16 * kk >= np) continue;
+          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                  pack_bf16(s[2 * kk + 1][2],
+                                            s[2 * kk + 1][3])};
+#pragma unroll
+          for (int j = 0; j < DH / 8; j += 2) {
+            uint32_t b[4];
+            load_b_kn(b, v, kLd, 8 * j, 16 * kk);
+            mma_bf16(acc_o[j], pa, b[0], b[1]);
+            mma_bf16(acc_o[j + 1], pa, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          put2(o, kLd, m0 + g, 8 * j + 2 * t, acc_o[j][0], acc_o[j][1]);
+          put2(o, kLd, m0 + g + 8, 8 * j + 2 * t, acc_o[j][2], acc_o[j][3]);
+        }
+      }
+      __syncthreads();
+      // x1 += o @ wout[head rows]; o to its slot
+      block_mma<false, false>(np, D, DH, o, kLd, wo, kLd,
+                              [=](int r, int c, float v0, float v1) {
+                                if (r < n) {
+                                  x1[r * D + c] += v0;
+                                  x1[r * D + c + 1] += v1;
+                                }
+                              });
+      store_rows(O + hd * DH, inner, o, kLd, n, DH);
+      __syncthreads();
+      if (hd + 1 < heads) {
+        stage_wout(wo, hd + 1);
+        cp_async_commit();
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x)
+    x1[i] = x32[i] + (x1[i] + tof(bout[i % D]));
+  __syncthreads();
+
+  // ---- MLP forward + backward, hidden dim in chunks: acc = dh2 ----------
+  {
+    T* h2s = (T*)(smem_raw + L.b_h2);
+    T* dys = (T*)(smem_raw + L.b_dy);
+    T* w1s = (T*)(smem_raw + L.b_w1);
+    T* w2s = (T*)(smem_raw + L.b_w2);
+    T* hid = (T*)(smem_raw + L.b_hid);
+    float* dpre = (float*)(smem_raw + L.b_dpre);
+    T* dprec = (T*)(smem_raw + L.b_dprec);
+    auto stage_chunk = [&](int buf, int c0) {
+      stage_rows(w1s + buf * D * kLd, kLd, w1 + c0, mlp, D, HC);
+      stage_rows(w2s + buf * HC * kLd, kLd, w2 + (size_t)c0 * D, D, HC, D);
+    };
+    layernorm_stats(x1, n, D, mean2, rstd2);
+    layernorm_tile(x1, n, D, fn_s, fn_b, h2s, kLd);
+    zero_rows(h2s, kLd, n, np, D);
+    stage_rows(dys, kLd, dy, D, n, D);
+    zero_rows(dys, kLd, n, np, D);
+    stage_chunk(0, 0);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < n * D; i += blockDim.x) acc[i] = 0.f;
+    __syncthreads();
+    store_rows(H2, D, h2s, kLd, n, D);
+    for (int c0 = 0, buf = 0; c0 < mlp; c0 += HC, buf ^= 1) {
+      if (c0 + HC < mlp) {
+        stage_chunk(buf ^ 1, c0 + HC);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* w1c = w1s + buf * D * kLd;
+      const T* w2c = w2s + buf * HC * kLd;
+      // pre = h2 @ w1c + b1 and dhid = dy @ w2c^T on the same tile:
+      // hid = T(gelu(pre)); dpre = dhid * gelu'(pre), unrounded
+      const int mt = np / 16;
+      for (int it = warp; it < mt * (HC / 16); it += kWarps) {
+        const int r0 = it % mt * 16, n0 = it / mt * 16;
+        float pre[2][4] = {}, dh[2][4] = {};
+        warp_mma<2, false, false>(pre, h2s, kLd, r0, w1c, kLd, n0, D);
+        warp_mma<2, false, true>(dh, dys, kLd, r0, w2c, kLd, n0, D);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + g + 8 * h, c = n0 + 8 * j + 2 * t;
+            const float p0 = pre[j][2 * h] + tof(b1[c0 + c]);
+            const float p1 = pre[j][2 * h + 1] + tof(b1[c0 + c + 1]);
+            put2(hid, kLd, r, c, gelu<T>(p0), gelu<T>(p1));
+            dpre[r * kLd + c] = dh[j][2 * h] * gelu_grad<T>(p0);
+            dpre[r * kLd + c + 1] = dh[j][2 * h + 1] * gelu_grad<T>(p1);
+          }
+      }
+      __syncthreads();
+      col_sums_ld(dpre, kLd, n, HC, V + 6 * D + c0);  // db1, unrounded dpre
+      // dpre rounded to T: its slot, and the next product's operand (zero
+      // rows past n); hid to its slot
+      for (int i = threadIdx.x; i < np * (HC / 8); i += blockDim.x) {
+        const int r = i / (HC / 8), c = i % (HC / 8) * 8;
+        uint4 pk = make_uint4(0, 0, 0, 0);
+        if (r < n) {
+          const float* src = dpre + r * kLd + c;
+          pk = make_uint4(pack_bf16(src[0], src[1]), pack_bf16(src[2], src[3]),
+                          pack_bf16(src[4], src[5]), pack_bf16(src[6], src[7]));
+          *reinterpret_cast<uint4*>(DPRE + (size_t)r * mlp + c0 + c) = pk;
+          *reinterpret_cast<uint4*>(HID + (size_t)r * mlp + c0 + c) =
+              *reinterpret_cast<const uint4*>(hid + r * kLd + c);
+        }
+        *reinterpret_cast<uint4*>(dprec + r * kLd + c) = pk;
+      }
+      __syncthreads();
+      // acc += dpre_c @ w1c^T
+      block_mma<false, true>(np, D, HC, dprec, kLd, w1c, kLd,
+                             [=](int r, int c, float v0, float v1) {
+                               if (r < n) {
+                                 acc[r * D + c] += v0;
+                                 acc[r * D + c + 1] += v1;
+                               }
+                             });
+      __syncthreads();
+    }
+  }
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {  // db2
+    float s = 0.f;
+    for (int r = 0; r < n; ++r) s += tof(dy[(size_t)r * D + c]);
+    V[5 * D + c] = s;
+  }
+  ln_bwd<T>(x1, mean2, rstd2, acc, n, D, fn_s, V + 3 * D, V + 4 * D,
+            [=](int r, int c, float v) {
+              g1[(size_t)r * D + c] = tof(dy[(size_t)r * D + c]) + v;
+            });
+  __syncthreads();
+
+  // ---- attention backward, per head; acc = dh1 -------------------------
+  T* g1c = (T*)(smem_raw + L.c_g1c);
+  T* wq = (T*)(smem_raw + L.c_wqkv);
+  T* wo = (T*)(smem_raw + L.c_wout);
+  T* q = (T*)(smem_raw + L.c_q);
+  T* k = (T*)(smem_raw + L.c_k);
+  T* v = (T*)(smem_raw + L.c_v);
+  T* dob = (T*)(smem_raw + L.c_do);
+  T* pc = (T*)(smem_raw + L.c_pc);
+  T* ds = (T*)(smem_raw + L.c_ds);
+  T* dqkv = (T*)(smem_raw + L.c_dqkv);
+  stage_wqkv(wq, 0);
+  stage_wout(wo, 0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x)
+    g1c[(i / D) * kLd + i % D] = fromf<T>(g1[i]);
+  zero_rows(g1c, kLd, n, np, D);
+  col_sums(g1, n, D, V + 2 * D);  // dbout
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+  store_rows(G1C, D, g1c, kLd, n, D);
+  for (int hd = 0; hd < heads; ++hd) {
+    cp_async_wait<0>();
+    __syncthreads();
+    // q|k|v again from h1; do = T(g1c @ wout[head rows]^T)
+    project_qkv(wq, q, k, v);
+    block_mma<false, true>(np, DH, D, g1c, kLd, wo, kLd,
+                           [=](int r, int c, float v0, float v1) {
+                             put2(dob, kLd, r, c, v0, v1);
+                           });
+    __syncthreads();
+    if (hd + 1 < heads) {
+      stage_wout(wo, hd + 1);
+      cp_async_commit();
+    }
+    // per 16 query rows: p, dp = do v^T, ds = T((p (dp - sum_j dp p))
+    // scale); the rounded p and ds to shared memory, zero past row n
+    for (int m0 = warp * 16; m0 < np; m0 += kWarps * 16) {
+      float p[kMmaKeyTiles][4], dp[kMmaKeyTiles][4];
+      head_probs(p, q, k, m0, n, np, m.scale);
+#pragma unroll
+      for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < DH; k0 += 16) {
+        uint32_t af[4];
+        load_a(af, dob, kLd, m0, k0);
+#pragma unroll
+        for (int j = 0; j < kMmaKeyTiles; j += 2)
+          if (8 * j < np) {
+            uint32_t b[4];
+            load_b_nk(b, v, kLd, 8 * j, k0);
+            mma_bf16(dp[j], af, b[0], b[1]);
+            mma_bf16(dp[j + 1], af, b[2], b[3]);
+          }
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kMmaKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e / 2] += dp[j][e] * p[j][e];
+      rs[0] = quad_sum(rs[0]);
+      rs[1] = quad_sum(rs[1]);
+#pragma unroll
+      for (int j = 0; j < kMmaKeyTiles; ++j)
+        if (8 * j < np)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = m0 + g + 8 * h, c = 8 * j + 2 * t;
+            const bool live = r < n;
+            float d0 = (p[j][2 * h] * (dp[j][2 * h] - rs[h])) * m.scale;
+            float d1 = (p[j][2 * h + 1] * (dp[j][2 * h + 1] - rs[h])) *
+                       m.scale;
+            put2(pc, lp, r, c, live ? p[j][2 * h] : 0.f,
+                 live ? p[j][2 * h + 1] : 0.f);
+            put2(ds, lp, r, c, live ? d0 : 0.f, live ? d1 : 0.f);
+          }
+    }
+    __syncthreads();
+    // dq = ds @ k, dk = ds^T @ q, dv = p_c^T @ do, rounded into dqkv
+    {
+      const int mt = np / 16, per = mt * (DH / 16);
+      for (int it = warp; it < 3 * per; it += kWarps) {
+        const int part = it / per, r0 = it % per % mt * 16,
+                  n0 = it % per / mt * 16;
+        float c2[2][4] = {};
+        if (part == 0)
+          warp_mma<2, false, false>(c2, ds, lp, r0, k, kLd, n0, np);
+        else if (part == 1)
+          warp_mma<2, true, false>(c2, ds, lp, r0, q, kLd, n0, np);
+        else
+          warp_mma<2, true, false>(c2, pc, lp, r0, dob, kLd, n0, np);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = part * DH + n0 + 8 * j + 2 * t;
+          put2(dqkv, kLdQkv, r0 + g, c, c2[j][0], c2[j][1]);
+          put2(dqkv, kLdQkv, r0 + g + 8, c, c2[j][2], c2[j][3]);
+        }
+      }
+    }
+    __syncthreads();
+    // acc += dqkv_h @ wqkv[:, head columns]^T; dqkv to its slot (wqkv's
+    // column order)
+    block_mma<false, true>(np, D, 3 * DH, dqkv, kLdQkv, wq, kLdQkv,
+                           [=](int r, int c, float v0, float v1) {
+                             if (r < n) {
+                               acc[r * D + c] += v0;
+                               acc[r * D + c + 1] += v1;
+                             }
+                           });
+    for (int part = 0; part < 3; ++part)
+      store_rows(DQKV + part * inner + hd * DH, i3, dqkv + part * DH, kLdQkv,
+                 n, DH);
+    __syncthreads();
+    if (hd + 1 < heads) {
+      stage_wqkv(wq, hd + 1);
+      cp_async_commit();
+    }
+  }
+  ln_bwd<T>(x32, mean1, rstd1, acc, n, D, an_s, V, V + D,
+            [=](int r, int c, float v) {
+              dx[(size_t)r * D + c] = fromf<T>(g1[(size_t)r * D + c] + v);
+            });
+}
+
+// The full-block backward body: with Mma the bf16 tensor-core body (the
+// flagship widths, see mma_body_takes), else the FMA body of T, which
+// takes any width (fp32 always: TF32 would not meet the fp32 checks).
+template <typename T, bool Mma>
+__device__ __forceinline__ void block_bwd(const BwdArgs& a, int f,
+                                          unsigned char* smem_raw) {
+  if constexpr (Mma)
+    block_bwd_mma(a, f, smem_raw);
+  else
+    block_bwd_body<T>(a, f, smem_raw);
+}
+
+template <typename T, bool Mma>
 __global__ void __launch_bounds__(kThreads)
     block_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  block_bwd_body<T>(a, blockIdx.x, smem_raw);
+  block_bwd<T, Mma>(a, blockIdx.x, smem_raw);
 }
 
 // The per-frame pass of the CLS-only block's backward for frame f: the
@@ -557,7 +1133,7 @@ struct TrunkBwdArgs {
   int depth, final_norm, hc_fwd;
 };
 
-template <typename T>
+template <typename T, bool Mma>
 __global__ void __launch_bounds__(kThreads, 1)
     trunk_bwd_kernel(const __grid_constant__ TrunkBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -639,7 +1215,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cls_bwd_body<T>(a.blk[depth - 1], f, smem_raw);
   for (int i = depth - 2; i >= 0; --i) {
     __syncthreads();
-    block_bwd_body<T>(a.blk[i], f, smem_raw);
+    block_bwd<T, Mma>(a.blk[i], f, smem_raw);
   }
 }
 
@@ -846,13 +1422,34 @@ int launch_grads(bool cls, const BwdArgs& a, void* const* g, float* part,
   return cudaGetLastError();
 }
 
+// Whether block_bwd_mma takes these widths and pointers: d = dim_head =
+// kMmaD, n <= kMmaRows, mlp a multiple of kMmaChunk, and every tensor it
+// copies in 16-byte pieces 16-byte aligned (the workspace slots are).
+bool mma_body_takes(const BwdArgs& a) {
+  const Dims& m = a.m;
+  uintptr_t any = (uintptr_t)a.x | (uintptr_t)a.dy;
+  for (int i : {2, 3, 7, 9}) any |= (uintptr_t)a.w[i];
+  return m.d == kMmaD && m.dh == kMmaD && a.n <= kMmaRows &&
+         m.mlp % kMmaChunk == 0 && any % 16 == 0;
+}
+
 template <typename T>
-int launch_bwd(bool cls, BwdArgs& a, void* const* g, unsigned char* ws,
-               int B, cudaStream_t stream) {
+int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
+               unsigned char* ws, int B, cudaStream_t stream) {
   float* part = bind(cls, sizeof(T), a, ws, B);
   const BwdSmem L(a.n, a.m.d, a.m.hc);
-  const int err = cls ? launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a)
-                      : launch_smem(block_bwd_kernel<T>, B, L.total, stream, a);
+  int err;
+  if (cls) {
+    err = launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a);
+  } else if (!mma) {
+    err = launch_smem(block_bwd_kernel<T, false>, B, L.total, stream, a);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    if (!mma_body_takes(a)) return cudaErrorInvalidValue;
+    err = launch_smem(block_bwd_kernel<T, true>, B, MmaBwdSmem(a.n).total,
+                      stream, a);
+  } else {
+    return cudaErrorInvalidValue;  // the tensor-core body is bf16's
+  }
   if (err != cudaSuccess) return err;
   return launch_grads<T>(cls, a, g, part, B, stream);
 }
@@ -891,7 +1488,8 @@ TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
 // K6: ptrs as trunk_backward_launch takes them.
 template <typename T>
 int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
-                     int depth, int final_norm, cudaStream_t stream) {
+                     int depth, int final_norm, bool mma,
+                     cudaStream_t stream) {
   const void* const* wts = ptrs + 2;
   void* const* grads = (void* const*)ptrs + 5 + 11 * depth;
   unsigned char* ws = (unsigned char*)ptrs[7 + 22 * depth];
@@ -917,10 +1515,20 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
   a.depth = depth;
   a.final_norm = final_norm;
   a.hc_fwd = m.mlp < 256 ? m.mlp : 256;  // the forward kernels' MLP chunk
-  const size_t fwd = Smem<T>(n, m.d, m.heads, m.dh, a.hc_fwd).total;
-  const size_t bwd = BwdSmem(n, m.d, m.hc).total;
-  int err = launch_smem(trunk_bwd_kernel<T>, B, fwd > bwd ? fwd : bwd, stream,
-                        a);
+  size_t bytes = Smem<T>(n, m.d, m.heads, m.dh, a.hc_fwd).total;
+  for (const size_t b : {BwdSmem(n, m.d, m.hc).total,
+                         mma ? MmaBwdSmem(n).total : 0})
+    bytes = b > bytes ? b : bytes;
+  int err;
+  if (!mma) {
+    err = launch_smem(trunk_bwd_kernel<T, false>, B, bytes, stream, a);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    for (int i = 0; i + 1 < depth; ++i)
+      if (!mma_body_takes(a.blk[i])) return cudaErrorInvalidValue;
+    err = launch_smem(trunk_bwd_kernel<T, true>, B, bytes, stream, a);
+  } else {
+    return cudaErrorInvalidValue;  // the tensor-core body is bf16's
+  }
   if (err != cudaSuccess) return err;
   for (int i = 0; i < depth; ++i) {
     err = launch_grads<T>(i == depth - 1, a.blk[i], grads + 11 * i, part[i],
@@ -990,10 +1598,14 @@ size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
 
 // K2b (cls = 0) and K3b (cls = 1). ptrs: x (B, n, d), dy (B, n, d) or,
 // with cls, (B, d), 11 weights, dx (B, n, d), 11 grads (weight shapes, in
-// the compute dtype), workspace (block_backward_workspace bytes).
+// the compute dtype), workspace (block_backward_workspace bytes). mma = 1
+// runs K2b's per-frame pass on the bf16 tensor-core body, which takes
+// bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
+// aligned x, dy and matrix weights (cudaErrorInvalidValue else); mma = 0
+// the FMA body, any width.
 int block_backward_launch(int dtype, int cls, const void* const* ptrs,
                           int batch, int n, int d, int heads, int dim_head,
-                          int mlp, float scale, void* stream) {
+                          int mlp, float scale, void* stream, int mma) {
   if (bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   BwdArgs a = {};
@@ -1007,8 +1619,10 @@ int block_backward_launch(int dtype, int cls, const void* const* ptrs,
   for (int i = 0; i < 11; ++i) g[i] = (void*)ptrs[14 + i];
   unsigned char* ws = (unsigned char*)ptrs[25];
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, a, g, ws, batch, s)
-                    : launch_bwd<float>(cls != 0, a, g, ws, batch, s);
+  return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, mma != 0, a, g, ws,
+                                                batch, s)
+                    : launch_bwd<float>(cls != 0, mma != 0, a, g, ws, batch,
+                                        s);
 }
 
 // Bytes of device workspace trunk_backward_launch needs for these shapes.
@@ -1024,20 +1638,21 @@ size_t trunk_backward_workspace(int dtype, int batch, int n, int d,
 // got_megakernel.cu). ptrs: x (B, n, d), dy (B, d), 11 weights per block,
 // fn_s, fn_b (d, fp32), dx (B, n, d), 11 grads per block (weight shapes,
 // compute dtype), dfn_s, dfn_b (d, fp32), workspace
-// (trunk_backward_workspace bytes). final_norm: 0 = rms, 1 = layer.
+// (trunk_backward_workspace bytes). final_norm: 0 = rms, 1 = layer. mma
+// as block_backward_launch takes it, for the full blocks.
 int trunk_backward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
-                          void* stream) {
+                          void* stream, int mma) {
   if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 8 + 22 * depth ||
       bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   const Dims m = dims(d, heads, dim_head, mlp, 128, scale);
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_trunk_bwd<__nv_bfloat16>(ptrs, batch, n, m,
-                                                      depth, final_norm, s)
+  return dtype == 1 ? launch_trunk_bwd<__nv_bfloat16>(
+                          ptrs, batch, n, m, depth, final_norm, mma != 0, s)
                     : launch_trunk_bwd<float>(ptrs, batch, n, m, depth,
-                                              final_norm, s);
+                                              final_norm, mma != 0, s);
 }
 
 const char* block_error_string(int err) {

@@ -290,6 +290,7 @@ def _block_lib() -> ctypes.CDLL:
     for fn in (lib.block_forward_launch, lib.block_backward_launch):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + shape
+    lib.block_backward_launch.argtypes += [ctypes.c_int]
     lib.block_backward_workspace.restype = ctypes.c_size_t
     lib.block_backward_workspace.argtypes = [ctypes.c_int] * 8
     lib.trunk_backward_workspace.restype = ctypes.c_size_t
@@ -297,20 +298,40 @@ def _block_lib() -> ctypes.CDLL:
     lib.trunk_backward_launch.restype = ctypes.c_int
     lib.trunk_backward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     lib.block_error_string.restype = ctypes.c_char_p
     lib.block_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp) -> None:
+# the widths the bf16 tensor-core body of the full-block backward is built
+# for (block_grad.cu: kMmaD, kMmaRows, kMmaChunk)
+_MMA_WIDTH, _MMA_ROWS, _MMA_CHUNK = 64, 80, 64
+
+
+def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
+                    dim_head: int, dy: torch.Tensor = None) -> bool:
+    """Whether the backward of a full block (K2b, and each of K6's full
+    blocks) runs its per-frame pass on the bf16 tensor-core body: bf16,
+    d = dim_head = 64, at most 80 tokens, mlp a multiple of 64, and x, dy
+    and the matrix weights 16-byte aligned. Every other call takes the FMA
+    body, which takes any width."""
+    _, n, d = x.shape
+    tensors = [x, w[2], w[3], w[7], w[9]] + ([] if dy is None else [dy])
+    return (x.dtype == torch.bfloat16 and d == dim_head == _MMA_WIDTH
+            and n <= _MMA_ROWS and w[7].shape[-1] % _MMA_CHUNK == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
     lib = _block_lib()
     b, n, d = x.shape
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPES[dtype], int(cls), ctypes.cast(ptrs, ctypes.c_void_p),
-                 b, n, d, heads, dim_head, mlp, dim_head ** -0.5, stream)
+                 b, n, d, heads, dim_head, mlp, dim_head ** -0.5, stream,
+                 *more)
     if err != 0:
         raise RuntimeError("block_grad launch failed: "
                            + lib.block_error_string(err).decode())
@@ -335,8 +356,9 @@ def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]
+    mma = not cls and tensor_core_bwd(x, w, dim_head, dy)
     _call(_block_lib().block_backward_launch, x.dtype, cls,
-          [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp)
+          [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp, int(mma))
     return dx, tuple(grads)
 
 

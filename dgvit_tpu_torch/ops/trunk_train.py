@@ -32,7 +32,8 @@ from dgvit_tpu_torch.ops.fused_transformer import (_DTYPES, _block_lib, _f32,
                                                    _ln_bwd, _ln_stats,
                                                    block_bwd_plain,
                                                    block_plain,
-                                                   check_block_args)
+                                                   check_block_args,
+                                                   tensor_core_bwd)
 
 _NORMS = {"rms": 0, "layer": 1}
 MAX_DEPTH = 8       # blocks the kernel's argument block holds
@@ -114,12 +115,16 @@ def _launch(x, dy, blocks, fn, heads, dim_head, final_norm):
     tensors = [x, dy, *[t for w in blocks for t in w], fn[0], fn[1], dx,
                *[t for g in grads for t in g], *dfn, ws]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    # the full blocks' inputs and grads past the first live in the
+    # (aligned) workspace
+    mma = depth > 1 and all(tensor_core_bwd(x, w, dim_head)
+                            for w in blocks[:-1])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trunk_backward_launch(
             _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n, d, heads, dim_head, mlp, depth,
-            _NORMS[final_norm], dim_head ** -0.5, stream)
+            _NORMS[final_norm], dim_head ** -0.5, stream, int(mma))
     if err != 0:
         raise RuntimeError("trunk_bwd_fused launch failed: "
                            + lib.block_error_string(err).decode())

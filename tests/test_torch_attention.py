@@ -159,3 +159,56 @@ def test_attention_probs_and_reduce_attn_match_jax():
                             threshold=0.5)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
+
+
+def _split_pv(q, k, v, scale, split):
+    """The bf16 kernel's numerics in plain PyTorch: scores and the exact
+    softmax in fp32 (p = exp(s - max) times the reciprocal of the sum;
+    past 80 keys the kernel takes the streaming form, which differs from
+    this by fp32 roundings), then P.V as products of bf16 values summed in
+    fp32, with p split into bf16 hi + lo (split) or rounded to bf16 once
+    (not split)."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    s = (q32 @ k32.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    hi = p.bfloat16().float()
+    out = hi @ v32
+    if split:
+        out = out + (p - hi).bfloat16().float() @ v32
+    return out.to(q.dtype)
+
+
+def test_kernel_probability_split_keeps_the_function():
+    """The one place where the bf16 kernel's design could change the
+    function: P.V on the tensor cores takes bf16 operands. Split into
+    hi + lo, the probabilities keep ~16 bits and the output stays within
+    chip_smoke.py's bf16 limits against `attention_plain` (each max
+    <= 2^-6 L, pooled mean |err| / L <= 2^-18, L the largest |output|);
+    rounded to bf16 once they fail the pooled limit. Read on this CPU:
+    split max 3.8e-3 L, pooled 3.5e-7; rounded once pooled 2.0e-4."""
+    pooled = {True: [0.0, 0], False: [0.0, 0]}
+    for seed, shape in ((0, (4, 2, 65, 64)), (1, (2, 2, 257, 64))):
+        q, k, v = (to_torch(t, "bfloat16") for t in qkv(seed, shape))
+        scale = shape[-1] ** -0.5
+        ref = attention_plain(q, k, v, scale).float()
+        big = ref.abs().max().item()
+        for split in (True, False):
+            err = (_split_pv(q, k, v, scale, split).float() - ref).abs()
+            assert err.max().item() <= 2.0 ** -6 * big
+            pooled[split][0] += err.sum().item() / big
+            pooled[split][1] += err.numel()
+    mean = {split: total / count for split, (total, count) in pooled.items()}
+    assert mean[True] <= 2.0 ** -18 < mean[False]
+
+
+def test_autograd_node_only_where_a_gradient_is_tracked():
+    q, k, v = (torch.from_numpy(t) for t in qkv(4, (1, 2, 9, 16)))
+    out = attention_fused(q, k, v, 0.25)
+    assert out.grad_fn is None
+    assert torch.equal(out, attention_plain(q, k, v, 0.25))
+    q.requires_grad_()
+    with torch.no_grad():
+        assert attention_fused(q, k, v, 0.25).grad_fn is None
+    tracked = attention_fused(q, k, v, 0.25)
+    assert tracked.grad_fn is not None and torch.equal(tracked.detach(), out)

@@ -24,8 +24,9 @@ from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
                                                    block_fwd_fused,
                                                    block_fwd_plain,
                                                    check_block_args,
-                                                   fused_transformer_block)
-from torch_kernel_cases import (D, DIM_HEAD, HEADS, assert_close,
+                                                   fused_transformer_block,
+                                                   tensor_core_bwd)
+from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
                                 bf16_close, block_tree, rand, to_jax,
                                 to_torch, weights)
 
@@ -120,3 +121,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         check_block_args(torch.zeros(2, D, 5).transpose(1, 2), w, HEADS,
                          DIM_HEAD)
+
+
+# (dtype, tokens, heads, dim_head, mlp, x offset in elements): which
+# full-block backward body a call on the card takes
+ROUTES = [
+    ("bfloat16", 65, 4, 64, 2048, 0, True),    # the flagship block
+    ("bfloat16", 80, 4, 64, 2048, 0, True),    # the most rows it holds
+    ("bfloat16", 81, 4, 64, 2048, 0, False),   # 16x16 patches: 81 tokens
+    ("bfloat16", 65, 2, 32, 2048, 0, False),   # narrow heads
+    ("bfloat16", 65, HEADS, DIM_HEAD, MLP, 0, False),  # these tests' block
+    ("bfloat16", 65, 4, 64, 96, 0, False),     # mlp not a multiple of 64
+    ("bfloat16", 65, 4, 64, 2048, 1, False),   # x not 16-byte aligned
+    ("float32", 65, 4, 64, 2048, 0, False),    # fp32 keeps the FMA body
+]
+
+
+@pytest.mark.parametrize("dtype,n,heads,dim_head,mlp,offset,mma", ROUTES)
+def test_backward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
+    """The bf16 tensor-core body takes the flagship widths; every other
+    call takes the FMA body, which runs any width (both in
+    ops/csrc/block_grad.cu)."""
+    dt, inner = getattr(torch, dtype), heads * dim_head
+    shapes = [(D,), (D,), (D, 3 * inner), (inner, D), (D,), (D,), (D,),
+              (D, mlp), (mlp,), (mlp, D), (D,)]
+    w = [torch.zeros(s, dtype=dt) for s in shapes]
+    x = torch.zeros(2 * n * D + offset, dtype=dt)[offset:].view(2, n, D)
+    dy = torch.zeros(2, n, D, dtype=dt)
+    check_block_args(x, w, heads, dim_head, dy=dy)   # a call the wrappers take
+    assert tensor_core_bwd(x, w, dim_head, dy) is mma
