@@ -28,13 +28,16 @@ per source, all at once), then
      and backward, K3 forward and backward): the trained actor's and a
      seeded critic's blocks on embedded streams of seeded frames, bf16 at
      B in {1, 32, 256} and fp32 at B in {1, 8}; outputs, dx and all 11
-     weight gradients; a wrong bf16 backward (autograd of the plain
-     forward, which rounds at other points than the hand-placed ones)
-     must FAIL the same bf16 limits;
- 5b. the bf16 full-block backward off the flagship widths (81 tokens,
-     2 x 32 heads, an unaligned x) takes the FMA body, not the
-     tensor-core one, and K2b and K6 there meet the bf16 limits of 5 and
-     13 against their plain versions;
+     weight gradients; wrong bf16 versions must FAIL the same bf16
+     limits: for K2b and K3b autograd of the plain forward (which rounds
+     at other points than the hand-placed ones), for K4 an erf GELU and
+     the residual kept in fp32 across blocks, for K2f the probabilities
+     left in fp32 before P.V;
+ 5b. the bf16 full-block forward and backward off the flagship widths
+     (81 tokens, 2 x 32 heads, an unaligned x) take the FMA bodies, not
+     the tensor-core ones, and K2f, K2b and K6 there meet the bf16 limits
+     of 5 and 13 against their plain versions, K4 phase 5's per-tensor
+     max and phase 13's per-frame rule;
   6. the SAC update, the second main path: a bf16 SACAgent (batch 256,
      emb-dropout 0.1) takes 5 learn steps on a seeded replay batch with
      finite losses, each step launching exactly K4 x3, K2f x6, K2b x6,
@@ -43,12 +46,13 @@ per source, all at once), then
      the same update through the plain versions on the card and the JAX
      golden update (tests/data/torch_sac_golden.npz);
   7. profile: one more bf16 update under torch.profiler, device time by
-     CUDA kernel, in all and per call, and the device's busy share of the
-     update;
+     CUDA kernel, in all and per call, the device's busy share of the
+     update, and its CUDA launches by kernel name held to the design (K4
+     and K2f on the tensor-core kernels at the flagship widths);
   8. times: K1 and its plain version at B in {1, 32, 64, 2048}, and the
      training kernels at B=256 (median of CUDA-event timings), beside
-     their bounds, K2b (redesigned for the tensor cores) also beside its
-     earlier design's time;
+     their bounds, the kernels redesigned for the tensor cores (K2b, K4,
+     K2f) also beside their earlier designs' times, and K4 by depth;
   9. K5 against its plain version: the fused depth ingest
      (preprocess_depth_fused) and preprocess_depth_plain on raw 512x640
      frames at B in {1, 3, 32, 256}, sigma 0 and 50: uniform frames,
@@ -102,6 +106,15 @@ per source, all at once), then
      K6 and K8 (redesigned for the tensor cores) also beside their
      earlier design's times, and torch's scaled_dot_product_attention
      beside K8, both also by device time (torch.profiler);
+ 17b. long frames: every byte count of ops/smem.py against the
+     libraries' own queries; then frames of 90, 129 and 256 tokens, fp32
+     and bf16, through acting, the learn forward, the gradient route and
+     the trunk-gradient route of the trained actor's trunk, each call on
+     the route the shared-memory rule picks (fused where the route's
+     kernels hold the frame, else composed), with exactly that route's
+     launches, its latent and gradients against the plain version of the
+     same route; and, at 129 bf16 tokens, the composed gradient route's
+     distance from the fused plain chain (a record);
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -297,21 +310,71 @@ def trunk_inputs(policy, batch, rng):
         return policy.trans.trunk_args(img, policy.fc_embed(goal))
 
 
-def trunk_erf_gelu(*args):
-    """A wrong bf16 trunk: the plain version with an erf GELU where the
-    TPU kernel uses the tanh form."""
+@contextlib.contextmanager
+def erf_gelu():
+    """The plain versions with an erf GELU where the TPU kernel uses the
+    tanh form (a wrong bf16 rounding point's worth of difference)."""
     import torch
 
     from dgvit_tpu_torch.ops import fused_transformer as ft
-    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
 
     tanh_gelu = ft._gelu32
     ft._gelu32 = lambda x, cdt: 0.5 * x * (1.0 + torch.erf(
         x * ft._INV_SQRT2))
     try:
-        return got_forward_plain(*args)
+        yield
     finally:
         ft._gelu32 = tanh_gelu
+
+
+def trunk_erf_gelu(*args):
+    """A wrong bf16 trunk: the plain version with an erf GELU where the
+    TPU kernel uses the tanh form."""
+    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
+
+    with erf_gelu():
+        return got_forward_plain(*args)
+
+
+def k4_erf_gelu(*args):
+    """A wrong bf16 K4: its plain version with an erf GELU."""
+    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+
+    with erf_gelu():
+        return blocks_forward_plain(*args)
+
+
+def k4_f32_residual(x, blocks, fn, heads, dim_head, final_norm):
+    """A wrong bf16 K4: its plain version with the residual stream kept in
+    fp32 across blocks (no rounding after each block)."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.cls_block import cls_block_plain
+
+    x32 = x.float()
+    for w in blocks[:-1]:
+        x32 = ft.block_plain(x32, w, heads=heads, dim_head=dim_head,
+                             cdt=x.dtype)
+    cls = cls_block_plain(x32, blocks[-1], heads=heads, dim_head=dim_head,
+                          cdt=x.dtype)
+    return gm._final_norm32(cls, *fn, final_norm).to(x.dtype)
+
+
+def k2f_f32_probs(x, w, heads, dim_head):
+    """A wrong bf16 K2f: its plain version with the attention
+    probabilities left in fp32 before P.V (the TPU kernel rounds them to
+    the compute dtype)."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    rounded = ft._attention
+    ft._attention = lambda q, k, v, heads, dim_head, cdt: rounded(
+        q, k, v, heads, dim_head, torch.float32).to(cdt)
+    try:
+        return ft.block_fwd_plain(x, w, heads, dim_head)
+    finally:
+        ft._attention = rounded
 
 
 def trunk_f32_residual(patches, goal, pe, pos, blocks, fn, heads, dim_head,
@@ -743,10 +806,11 @@ def kernel_counters():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the SAC update's kernel calls to the plain versions (on the
-    same card), for the kernel-against-plain comparison of a whole
-    update."""
+    """Route the model's kernel calls (K1-K4, K6, K7) to the plain
+    versions (on the same card), for the kernel-against-plain comparison
+    of a whole update or a whole route."""
     from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_block as fb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
     from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
@@ -756,7 +820,9 @@ def plain_kernels():
              (cb, "cls_fwd_fused", cb.cls_fwd_plain),
              (cb, "cls_bwd_fused", cb.cls_bwd_plain),
              (gm, "_launch_blocks", gm.blocks_forward_plain),
-             (gm, "trunk_bwd_fused", trunk_bwd_plain)]
+             (gm, "trunk_bwd_fused", trunk_bwd_plain),
+             (gm, "_launch", gm.got_forward_plain),
+             (fb, "_launch", fb.attention_section_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -845,9 +911,11 @@ def train_inputs(nets, batch, rng):
 
 
 def train_cases(inp):
-    """(name, kernel call, plain call, wrong call or None) of each training
-    kernel on these inputs: K4 on the actor's trunk, K2 on the actor's
-    first block, K3 on the critic's last block."""
+    """(name, kernel call, plain call, {what: wrong call}) of each
+    training kernel on these inputs: K4 on the actor's trunk, K2 on the
+    actor's first block, K3 on the critic's last block. Each wrong call
+    is the plain version with one rounding point or form moved, which
+    the bf16 limits must see."""
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
@@ -859,19 +927,23 @@ def train_cases(inp):
     k2b = (a["x"], a["dy2"], a["blocks"][0], *hd)
     k3 = (c["last"], c["blocks"][-1], *hd)
     k3b = (c["last"], c["dy3"], c["blocks"][-1], *hd)
+    autograd = "autograd of the plain forward"
     return [
         ("K4", lambda: gm.blocks_cls_forward_fused(*k4),
-         lambda: gm.blocks_forward_plain(*k4), None),
+         lambda: gm.blocks_forward_plain(*k4),
+         {"erf GELU": lambda: k4_erf_gelu(*k4),
+          "fp32 residual": lambda: k4_f32_residual(*k4)}),
         ("K2f", lambda: ft.block_fwd_fused(*k2),
-         lambda: ft.block_fwd_plain(*k2), None),
+         lambda: ft.block_fwd_plain(*k2),
+         {"fp32 probabilities": lambda: k2f_f32_probs(*k2)}),
         ("K2b", lambda: ft.block_bwd_fused(*k2b),
          lambda: ft.block_bwd_plain(*k2b),
-         lambda: autograd_bwd(ft.block_fwd_plain)(*k2b)),
+         {autograd: lambda: autograd_bwd(ft.block_fwd_plain)(*k2b)}),
         ("K3f", lambda: cb.cls_fwd_fused(*k3),
-         lambda: cb.cls_fwd_plain(*k3), None),
+         lambda: cb.cls_fwd_plain(*k3), {}),
         ("K3b", lambda: cb.cls_bwd_fused(*k3b),
          lambda: cb.cls_bwd_plain(*k3b),
-         lambda: autograd_bwd(cb.cls_fwd_plain)(*k3b)),
+         {autograd: lambda: autograd_bwd(cb.cls_fwd_plain)(*k3b)}),
     ]
 
 
@@ -908,11 +980,11 @@ def phase_train_kernels(nets, rng):
 
     errs = {name: TrainErrors() for name in ("K4", "K2f", "K2b", "K3f",
                                               "K3b")}
-    wrong = {name: TrainErrors() for name in ("K2b", "K3b")}
+    wrong = {}
     worst = {}
     for dtype, batches in TRAIN_BATCHES.items():
         for batch in batches:
-            for name, kern, plain, bad in train_cases(
+            for name, kern, plain, bads in train_cases(
                     train_inputs(nets[dtype], batch, rng)):
                 out = tensors(kern())
                 torch.cuda.synchronize()
@@ -942,11 +1014,12 @@ def phase_train_kernels(nets, rng):
                 line = (f"{name} vs plain bf16 B={batch}: max|err| {mx:.3e}, "
                         f"mean|err|/L {e.mean:.3e}, every max within 2^-6 L:"
                         f" {e.max_ok}")
-                if bad is not None:
+                for what, bad in bads.items():
                     w = TrainErrors()
                     w.add(zip(tensors(bad()), ref))
-                    wrong[name].add(zip(tensors(bad()), ref))
-                    line += (f"; wrong backward mean|err|/L {w.mean:.3e}, "
+                    wrong.setdefault((name, what), TrainErrors()).add(
+                        zip(tensors(bad()), ref))
+                    line += (f"; wrong ({what}) mean|err|/L {w.mean:.3e}, "
                              f"max {w.worst:.3e}")
                 print(line, flush=True)
                 check(e.max_ok, f"{name} disagrees with its plain version "
@@ -955,17 +1028,27 @@ def phase_train_kernels(nets, rng):
         print(f"{name} bf16 batches pooled: mean|err|/L {e.mean:.3e} (limit "
               f"{TRAIN_BF16_MEAN:.3e}) {'ok' if e.ok else 'FAIL'}", flush=True)
         check(e.ok, f"{name} disagrees with its plain version (bf16 pooled)")
-    for name, e in wrong.items():
-        print(f"wrong {name} (autograd of the plain forward), bf16 pooled: "
-              f"mean|err|/L {e.mean:.3e}, every max within 2^-6 L: "
-              f"{e.max_ok}; {'FAIL' if not e.ok else 'passes'}", flush=True)
-        check(not e.ok, f"the bf16 limits pass a wrong backward ({name})")
+    for (name, what), e in wrong.items():
+        print(f"wrong {name} ({what}), bf16 pooled: mean|err|/L "
+              f"{e.mean:.3e}, every max within 2^-6 L: {e.max_ok}; "
+              f"{'FAIL' if not e.ok else 'passes'}", flush=True)
+        check(not e.ok, f"the bf16 limits pass a wrong {name} ({what})")
     return worst
 
 
 # 16 more tokens for phase 5b: 81, a 128x160 frame in 16x16 patches, one
-# more row than the tensor-core backward body holds
+# more row than the tensor-core bodies hold
 EXTRA_TOKENS = 16
+# K4's latent in one batch of phase 5b is held by frame, as phase 13
+# holds K6's dx. A flip anywhere in a frame moves that frame's
+# CLS row through four blocks, so a few frames carry a batch's pooled
+# mean: the unchanged FMA K4 pooled 1.26e-5 on phase 5b's batch of 32 at
+# 81 tokens (an H100 80GB HBM3 at 700 W), and the plain K4 with exact
+# (float64) sums pools 5.6e-6 to 1.1e-5 on such batches against the fp32
+# plain K4 (chip_numerics.py 7 8, on the CPU), over phase 5's 2^-18. By
+# frame the same exact sums keep 69-88% of frames within 2^-18, an erf
+# GELU 53-59% and an fp32 residual none: phase 13's rule, two thirds of
+# the frames, separates them.
 
 
 def narrow_block(w, heads=2, dim_head=32, mlp=256):
@@ -992,22 +1075,35 @@ def off_by_one(t):
     return out
 
 
+def latent_frames_within(out, ref):
+    """The share of frames whose latent (a row of K4's output) is within
+    phase 5's pooled limit of the plain latent: mean |err| / L over the
+    frame's values, L the plain batch's largest |value|."""
+    scale = ref.float().abs().max().clamp(min=1e-30)
+    per = (out.float() - ref.float()).abs().mean(dim=-1) / scale
+    return (per <= TRAIN_BF16_MEAN).float().mean().item()
+
+
 def phase_bwd_widths(nets, rng):
-    """Phase 5b: the bf16 full-block backward takes the tensor-core body
-    at the flagship widths and the FMA body elsewhere (more tokens than
-    80, narrow heads, an unaligned x); there K2b and K6 agree with their
-    plain versions within phase 5's and phase 13's bf16 limits. The actor's
+    """Phase 5b: the bf16 full-block forward (K2f, K4) and backward (K2b,
+    K6) take the tensor-core bodies at the flagship widths and the FMA
+    bodies elsewhere (more tokens than 80, narrow heads, an unaligned x);
+    there K2f and K2b agree with their plain versions within phase 5's
+    limits, K6 within phase 13's, and K4 within phase 5's per-tensor max
+    and phase 13's per-frame rule (see the note at EXTRA_TOKENS). The actor's
     trained blocks on its embedded stream of seeded frames, at B=32."""
     import torch
 
     from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops import got_megakernel as gm
     from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
                                                  trunk_bwd_plain)
 
     a = train_inputs(nets["bfloat16"], 32, rng)["actor"]
     x, blocks, dy3 = a["x"], a["blocks"], a["dy3"]
-    check(ft.tensor_core_bwd(x, blocks[0], a["dh"], a["dy2"]),
-          "the flagship bf16 block does not take the tensor-core backward")
+    check(ft.tensor_core_bwd(x, blocks[0], a["dh"], a["dy2"])
+          and all(ft.tensor_core_fwd(x, w, a["dh"]) for w in blocks),
+          "the flagship bf16 blocks do not take the tensor-core bodies")
     longer = torch.cat([x, x.roll(1, 0)[:, 1:1 + EXTRA_TOKENS]], dim=1)
     cases = [
         (f"{longer.shape[1]} tokens", longer.contiguous(), blocks, 4, 64),
@@ -1017,8 +1113,28 @@ def phase_bwd_widths(nets, rng):
     for what, xs, bl, heads, dh in cases:
         dy2 = torch.from_numpy(rng.standard_normal(xs.shape).astype(
             "float32")).to(DEVICE).bfloat16()
-        check(not ft.tensor_core_bwd(xs, bl[0], dh, dy2),
-              f"bf16 backward, {what}: would take the tensor-core body")
+        check(not ft.tensor_core_bwd(xs, bl[0], dh, dy2)
+              and not any(ft.tensor_core_fwd(xs, w, dh) for w in bl),
+              f"bf16, {what}: would take a tensor-core body")
+        e2 = TrainErrors()
+        e2.add(zip(tensors(ft.block_fwd_fused(xs, bl[0], heads, dh)),
+                   tensors(ft.block_fwd_plain(xs, bl[0], heads, dh))))
+        k4 = (xs, bl, a["fn"], heads, dh, "rms")
+        out, ref = (gm.blocks_cls_forward_fused(*k4),
+                    gm.blocks_forward_plain(*k4))
+        e4 = TrainErrors()
+        e4.add([(out, ref)])
+        within = latent_frames_within(out, ref)
+        ok = e2.ok and e4.max_ok and within >= K6_FRAMES_WITHIN
+        print(f"bf16 forward, {what}, FMA body: K2f vs plain mean|err|/L "
+              f"{e2.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}); K4 vs plain "
+              f"mean|err|/L {e4.mean:.3e}, frames within "
+              f"{TRAIN_BF16_MEAN:.3e}: {within:.3f} (at least "
+              f"{K6_FRAMES_WITHIN:.3f}); every max within 2^-6 L: "
+              f"{e2.max_ok and e4.max_ok} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"bf16 forward, {what}: K2f or K4 disagrees with its plain"
+              " version")
         e = TrainErrors()
         e.add(zip(tensors(ft.block_bwd_fused(xs, dy2, bl[0], heads, dh)),
                   tensors(ft.block_bwd_plain(xs, dy2, bl[0], heads, dh))))
@@ -1158,11 +1274,22 @@ def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
 
 
 def phase_train_times(nets, rng):
-    """Phase 8b: each training kernel and its plain version at B=256."""
+    """Phase 8b: each training kernel and its plain version at B=256, and
+    K4 by depth (its CLS-only block alone, one full block before it) for
+    the split of its time."""
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+
     reps = {"K4": 5, "K2f": 10, "K2b": 5, "K3f": 10, "K3b": 10}
     rows = {}
-    for name, kern, plain, _ in train_cases(
-            train_inputs(nets["bfloat16"], SAC_BATCH, rng)):
+    inp = train_inputs(nets["bfloat16"], SAC_BATCH, rng)
+    a = inp["actor"]
+    by_depth = {depth: cuda_ms(lambda: gm.blocks_cls_forward_fused(
+        a["x"], a["blocks"][-depth:], a["fn"], a["heads"], a["dh"], "rms"),
+        10, runs=5) for depth in (1, 2)}
+    print(f"K4 bf16 B={SAC_BATCH} by depth: the CLS-only block "
+          f"{by_depth[1]:.4f} ms, one full block and the CLS block "
+          f"{by_depth[2]:.4f} ms", flush=True)
+    for name, kern, plain, _ in train_cases(inp):
         ms = cuda_ms(kern, reps[name], runs=5)
         pms = cuda_ms(plain, max(1, reps[name] // 2), runs=5)
         bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
@@ -1172,6 +1299,38 @@ def phase_train_times(nets, rng):
               + (earlier(ms, FMA_DESIGN_MS[name])
                  if name in FMA_DESIGN_MS else ""), flush=True)
     return rows
+
+
+# The CUDA kernels one bf16 update launches by design, counted by name in
+# the profile (a name counts every kernel whose name holds it). Default:
+# K4 x3 and K2f x6 on the tensor-core forward kernels (the FMA forms
+# trunk_kernel and block_fwd_kernel<bf16, false> launch nothing: the
+# block_fwd_kernel count is K3f's two), K2b x6, K3b x2, and behind them
+# the 34 weight products with a finish each and the blocks' vector
+# finishes. Trunk-gradient: K4 x5 on the tensor-core kernel, K6's
+# per-frame pass x2, and behind K6 the 17 weight products of a trunk
+# (3 x 4 + 5) with a finish each, the blocks' four vector finishes and the
+# final norm's.
+DEFAULT_CUDA_LAUNCHES = {
+    "trunk_mma_kernel": 3, "trunk_kernel": 0, "block_fwd_mma_kernel": 6,
+    "block_fwd_kernel": 2, "block_bwd_kernel": 6, "cls_bwd_kernel": 2,
+    "trunk_bwd_kernel": 0, "wgrad_kernel": 34, "wgrad_finish": 34,
+    "vec_finish": 8}
+TRUNK_CUDA_LAUNCHES = {
+    "trunk_mma_kernel": 5, "trunk_kernel": 0, "block_fwd_mma_kernel": 0,
+    "block_fwd_kernel": 0, "block_bwd_kernel": 0, "cls_bwd_kernel": 0,
+    "trunk_bwd_kernel": 2, "wgrad_kernel": 34, "wgrad_finish": 34,
+    "vec_finish": 10}
+
+
+def check_profile(seen, want, label):
+    """Hold a profiled update's CUDA launches (by kernel name) to the
+    design; nothing to hold when the profiler recorded nothing."""
+    if seen is None:
+        return
+    got = {w: sum(c for k, c in seen.items() if w in k) for w in want}
+    print(f"CUDA launches of one {label} update: {got}", flush=True)
+    check(got == want, f"a {label} update launched {got}, designed {want}")
 
 
 def phase_profile(update, label="bf16"):
@@ -2282,6 +2441,265 @@ def phase_composed(cfg, flat, policies, rng):
     return launches
 
 
+# --------------------------------------------------------------------------
+# long frames: the route rule of ops/smem.py
+# --------------------------------------------------------------------------
+
+LONG_TOKENS, LONG_BATCH = (90, 129, 256), 32
+# GoT.forward's fused routes by the kernels each runs, and their launches
+# in one call (a 4-block trunk)
+LONG_ROUTES = {"acting": ("K1",), "learn forward": ("K4",),
+               "gradient": ("K2f", "K2b", "K3f", "K3b"),
+               "trunk gradient": ("K4", "K6")}
+LONG_FUSED = {"acting": {"K1": 1}, "learn forward": {"K4": 1},
+              "gradient": {"K2f": 3, "K2b": 3, "K3f": 1, "K3b": 1},
+              "trunk gradient": {"K4": 1, "K6": 1}}
+
+
+@contextlib.contextmanager
+def no_smem_limit():
+    """The route rule with no shared-memory limit: every fused route."""
+    from dgvit_tpu_torch.ops import smem
+
+    limit_for = smem.limit_for
+    smem.limit_for = lambda device: None
+    try:
+        yield
+    finally:
+        smem.limit_for = limit_for
+
+
+def long_got(trunk, n, dtype, trunk_grad):
+    """The trained actor's trunk on a strip of n - 1 patches of 16x20 (a
+    (16, 20 (n - 1)) frame), its positional embedding tiled to n tokens,
+    as phase 5b stretches its frames."""
+    import torch
+
+    from dgvit_tpu_torch.models.got import GoT
+
+    got = GoT(image_size=(16, 20 * (n - 1)), patch_size=(16, 20),
+              dim=trunk.pos_embedding.shape[-1],
+              depth=len(trunk.transformer.blocks), heads=trunk.heads,
+              dim_head=trunk.dim_head,
+              mlp_dim=trunk.transformer.blocks[0].w1.shape[1],
+              final_norm=trunk.final_norm, emb_dropout=trunk.emb_dropout,
+              trunk_grad=trunk_grad, dtype=getattr(torch, dtype))
+    state = {k: v.detach().cpu() for k, v in trunk.state_dict().items()}
+    pos = state["pos_embedding"]
+    state["pos_embedding"] = pos.repeat(1, -(-n // pos.shape[1]), 1)[:, :n]
+    got.load_state_dict(state)
+    return got.to(DEVICE)
+
+
+def long_call(got, route, img, tok, proj):
+    """One call of a route: (the latent, {parameter: gradient}), the
+    gradient of sum(latent * proj) for the gradient-bearing routes. The
+    emb-dropout masks come from one seed."""
+    import torch
+
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    if route in ("acting", "learn forward"):
+        with torch.no_grad():
+            return got(img, tok, inference=True, generator=gen,
+                       deterministic=route == "acting"), {}
+    for p in got.parameters():
+        p.grad = None
+    out = got(img, tok, deterministic=False, generator=gen)
+    (out.float() * proj).sum().backward()
+    return out.detach(), {k: p.grad.clone()
+                          for k, p in got.named_parameters()}
+
+
+def long_design(route, n, dtype, dims, depth):
+    """The route a call takes under the rule, and its launches: the fused
+    route where its kernels hold the frame, else the per-block kernels
+    where they hold it, else the composed blocks (K7 a block)."""
+    import torch
+
+    from dgvit_tpu_torch.ops import smem
+
+    fits = lambda ks: smem.route_fits(ks, n, *dims, getattr(torch, dtype),
+                                      torch.device(DEVICE))
+    if fits(LONG_ROUTES[route]):
+        return route, LONG_FUSED[route]
+    per_block = ("gradient" if route in ("gradient", "trunk gradient")
+                 else None)
+    if per_block and fits(LONG_ROUTES[per_block]):
+        return per_block, LONG_FUSED[per_block]
+    if not per_block and fits(("K2f", "K3f")):
+        return "per-block forward", {"K2f": depth - 1, "K3f": 1}
+    return "composed", {"K7": depth}
+
+
+def smem_mirror_mismatches():
+    """Phase 17b (a): every byte count of ops/smem.py against the
+    libraries' own queries, at 65, 90, 129 and 256 tokens, fp32 and bf16,
+    the flagship widths and 2 x 32 heads with a 256-wide MLP."""
+    import torch
+
+    from dgvit_tpu_torch.ops import smem
+    from dgvit_tpu_torch.ops.attention import _attention_lib
+    from dgvit_tpu_torch.ops.fused_transformer import _block_lib
+    from dgvit_tpu_torch.ops.got_megakernel import _kernel_lib
+
+    g, b, a = _kernel_lib(), _block_lib(), _attention_lib()
+    bad, count = [], 0
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for n in (65, *LONG_TOKENS):
+            for d, heads, dh, mlp in ((64, 4, 64, 2048), (64, 2, 32, 256)):
+                w = (n, d, heads, dh, mlp)
+                fma = smem.fwd_fma(n, d, heads, dh, mlp, dtype)
+                pairs = [
+                    ("K1/K4", fma, g.got_forward_smem(code, *w, 0)),
+                    ("K4 mma", smem.fwd_mma(n),
+                     g.got_forward_smem(code, *w, 1)),
+                    ("K2f", fma, b.block_forward_smem(code, 0, *w, 0)),
+                    ("K2f mma", smem.fwd_mma(n),
+                     b.block_forward_smem(code, 0, *w, 1)),
+                    ("K3f", fma, b.block_forward_smem(code, 1, *w, 0)),
+                    ("K2b", smem.bwd_fma(n, d, mlp),
+                     b.block_backward_smem(code, 0, *w, 0)),
+                    ("K2b mma", smem.bwd_mma(n),
+                     b.block_backward_smem(code, 0, *w, 1)),
+                    ("K3b", smem.bwd_fma(n, d, mlp),
+                     b.block_backward_smem(code, 1, *w, 0)),
+                    ("K6", smem.trunk_bwd(*w, dtype, False),
+                     b.trunk_backward_smem(code, *w, 0)),
+                    ("K6 mma", smem.trunk_bwd(*w, dtype, True),
+                     b.trunk_backward_smem(code, *w, 1)),
+                    ("K7 one row", smem.section(n, d, dh, 1, dtype),
+                     a.attention_section_smem(code, n, d, dh, 1)),
+                    ("K7 every row", smem.section(n, d, dh, n, dtype),
+                     a.attention_section_smem(code, n, d, dh, n))]
+                count += len(pairs)
+                bad += [(what, str(dtype), w, py, lib)
+                        for what, py, lib in pairs if py != lib]
+    return count, bad
+
+
+def phase_long_frames(flat, rng):
+    """Phase 17b: frames of 90, 129 and 256 tokens through every route of
+    the model, fp32 and bf16. Each call takes the route ops/smem.py picks
+    (a fused route where its kernels hold the frame, else the composed
+    blocks), launches what that route launches and nothing raises; its
+    latent and gradients are held against the plain version of the same
+    route on the same card (the kernels swapped for their plain versions:
+    K7's too on the composed route) within phase 5's limits (latents) and
+    phase 13's (gradients, chained through four blocks). Returns the
+    routes taken and, at 129 tokens in bf16, how far the composed
+    gradient route's latents sit from the fused plain chain."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.models import build_actor, params_from_jax
+
+    count, bad = smem_mirror_mismatches()
+    print(f"shared-memory bytes, ops/smem.py against the libraries' "
+          f"queries: {count} counts, {len(bad)} mismatches {bad}",
+          flush=True)
+    check(not bad, f"ops/smem.py disagrees with the libraries: {bad}")
+
+    actor = build_actor(Config(), dtype=torch.float32)
+    actor.load_state_dict(params_from_jax(flat))
+    trunk = actor.trans
+    b, dev = LONG_BATCH, torch.device(DEVICE)
+    with torch.no_grad():
+        tok = actor.fc_embed(torch.from_numpy(rng.uniform(
+            -1, 1, (b, 2)).astype(np.float32))).to(dev)
+    proj = torch.from_numpy(rng.standard_normal((b, 64)).astype(
+        np.float32)).to(dev)
+    dims = (trunk.pos_embedding.shape[-1], trunk.heads, trunk.dim_head,
+            trunk.transformer.blocks[0].w1.shape[1])
+    depth = len(trunk.transformer.blocks)
+    counters = kernel_counters()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()
+                     if c.launches}
+
+    out_errs = {r: TrainErrors() for r in LONG_ROUTES}
+    grad_errs = {r: TrainErrors() for r in LONG_ROUTES}
+    taken, composed_vs_fused = {}, None
+    for dtype in ("bfloat16", "float32"):
+        for n in LONG_TOKENS:
+            img = torch.from_numpy(rng.uniform(
+                0, 1, (b, 16, 20 * (n - 1))).astype(np.float32)).to(dev)
+            models = {tg: long_got(trunk, n, dtype, tg)
+                      for tg in (False, True)}
+            for route in LONG_ROUTES:
+                got = models[route == "trunk gradient"]
+                label, want = long_design(route, n, dtype, dims, depth)
+                (out, grads), seen = counted(
+                    lambda: long_call(got, route, img, tok, proj))
+                check(seen == want, f"{n} tokens {dtype} {route}: launched "
+                      f"{seen}, the route rule designed {want}")
+                with plain_kernels():
+                    (ref, ref_grads), none = counted(
+                        lambda: long_call(got, route, img, tok, proj))
+                check(not none, f"the plain {route} route launched {none}")
+                check(bool(torch.isfinite(out.float()).all())
+                      and all(bool(torch.isfinite(g).all())
+                              for g in grads.values()),
+                      f"{n} tokens {dtype} {route}: non-finite values")
+                pairs = [(grads[k], ref_grads[k]) for k in grads]
+                if dtype == "float32":
+                    e_out = (out - ref).abs().max().item() / max(
+                        ref.abs().max().item(), 1e-30)
+                    e_grad = max([(g - r).abs().max().item() / max(
+                        r.abs().max().item(), 1e-30) for g, r in pairs],
+                        default=0.0)
+                    ok = e_out <= TRAIN_F32_MAX and e_grad <= K6_F32_MAX
+                    stats = (f"latent max|err|/L {e_out:.3e} (limit "
+                             f"{TRAIN_F32_MAX:.0e}), grads max|err|/L "
+                             f"{e_grad:.3e} (limit {K6_F32_MAX:.0e})")
+                else:
+                    e_o, e_g = TrainErrors(), TrainErrors()
+                    e_o.add([(out, ref)])
+                    e_g.add(pairs)
+                    out_errs[route].add([(out, ref)])
+                    grad_errs[route].add(pairs)
+                    ok = e_o.max_ok and e_g.max_ok
+                    stats = (f"latent mean|err|/L {e_o.mean:.3e}, grads "
+                             f"mean|err|/L "
+                             f"{e_g.mean if pairs else 0.0:.3e}, every max "
+                             f"within 2^-6 L: {ok}")
+                taken[f"{n} {dtype} {route}"] = label
+                print(f"long frames, {n} tokens, {dtype}, {route}: route "
+                      f"{label}, launches {seen}; vs the plain route: "
+                      f"{stats} {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"{n} tokens {dtype} {route}: the {label} route "
+                      "disagrees with its plain version")
+                if (n, dtype, route) == (129, "bfloat16", "gradient"):
+                    with plain_kernels(), no_smem_limit():
+                        fused, _ = long_call(got, route, img, tok, proj)
+                    e = TrainErrors()
+                    e.add([(out, fused)])
+                    composed_vs_fused = {"max_abs": e.worst,
+                                         "pooled_mean_rel": e.mean,
+                                         "route": label}
+                    print(f"  129 tokens bf16, the {label} gradient route "
+                          f"against the fused plain chain (K2/K3's plain "
+                          f"versions): latent max|err| {e.worst:.3e}, "
+                          f"mean|err|/L {e.mean:.3e} (a record, not a "
+                          "check)", flush=True)
+    for route in LONG_ROUTES:
+        eo, eg = out_errs[route], grad_errs[route]
+        ok = (eo.mean <= TRAIN_BF16_MEAN
+              and (eg.count == 0 or eg.mean <= K6_BF16_MEAN))
+        print(f"long frames, bf16 pooled, {route}: latent mean|err|/L "
+              f"{eo.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}), grads "
+              f"{eg.mean if eg.count else 0.0:.3e} (limit "
+              f"{K6_BF16_MEAN:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"long frames, bf16 pooled, {route}: disagrees with the "
+              "plain route")
+    return {"routes": taken, "composed_vs_fused_129_bf16": composed_vs_fused}
+
+
 def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
     """The least FLOPs and bytes of K4's backward from x and dy: the
     forward once (its activations are not given), two products for each
@@ -2390,9 +2808,10 @@ def phase_attention_times(nets, rng):
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
-# B=256, K8 by shape. Recorded, not measured in this run: they go on the
-# printed lines only, never into the kernels line.
-FMA_DESIGN_MS = {"K2b": 10.8233, "K6": 39.3067,
+# B=256, K4 and K2f at B=256, K8 by shape.
+# Recorded, not measured in this run: they go on the printed lines only,
+# never into the kernels line.
+FMA_DESIGN_MS = {"K2b": 10.8233, "K6": 39.3067, "K4": 5.6300, "K2f": 1.6128,
                  "K8": {"(256, 4, 65, 64)": 0.2149,
                         "(64, 4, 257, 64)": 0.8475,
                         "(8, 2, 65, 160)": 0.0854}}
@@ -2514,7 +2933,8 @@ def main() -> int:
     phase_bwd_widths(nets, rng)
     sac_launches, update_s, one_update = phase_sac(actor_flat, critic_flat)
     sac_fp32, default_fp32 = phase_sac_fp32()
-    phase_profile(one_update)
+    check_profile(phase_profile(one_update), DEFAULT_CUDA_LAUNCHES,
+                  "default")
 
     k5_worst = phase_k5(rng)
     camera_launches = phase_camera(cfg, flat)
@@ -2527,23 +2947,8 @@ def main() -> int:
             actor_flat, critic_flat, PER_UPDATE_TRUNK,
             "trunk-gradient SAC")
     trunk_fp32 = phase_trunk_grad_fp32(default_fp32)
-    seen = phase_profile(trunk_update, "trunk-gradient bf16")
-    if seen is not None:
-        # by design: per update K4 x5, K6's per-frame pass x2, and behind
-        # K6 the 17 weight products of a trunk (3 x 4 + 5) with a finish
-        # each, the blocks' four vector finishes and the final norm's
-        count = lambda word: sum(c for k, c in seen.items() if word in k)
-        got = {w: count(w) for w in ("trunk_kernel", "trunk_bwd_kernel",
-                                     "wgrad_kernel", "wgrad_finish",
-                                     "vec_finish", "block_bwd_kernel",
-                                     "cls_bwd_kernel", "block_fwd_kernel")}
-        want = {"trunk_kernel": 5, "trunk_bwd_kernel": 2, "wgrad_kernel": 34,
-                "wgrad_finish": 34, "vec_finish": 10, "block_bwd_kernel": 0,
-                "cls_bwd_kernel": 0, "block_fwd_kernel": 0}
-        print(f"CUDA launches of one trunk-gradient update: {got}",
-              flush=True)
-        check(got == want, f"a trunk-gradient update launched {got}, "
-              f"designed {want}")
+    check_profile(phase_profile(trunk_update, "trunk-gradient bf16"),
+                  TRUNK_CUDA_LAUNCHES, "trunk-gradient")
     print(f"trunk-gradient route: {trunk_update_s * 1e3:.2f} ms an update "
           f"against {update_s * 1e3:.2f} ms on the default route (bf16, "
           f"B={SAC_BATCH}, host clock, synchronized, medians of steps 1-"
@@ -2555,6 +2960,7 @@ def main() -> int:
     train_times = phase_train_times(nets, rng)
     k5_times = phase_k5_times(rng)
     attn_times = phase_attention_times(nets, rng)
+    long_frames = phase_long_frames(flat, rng)
 
     main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]
@@ -2636,6 +3042,7 @@ def main() -> int:
         })
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
+    print(f"long frames (phase 17b): {json.dumps(long_frames)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

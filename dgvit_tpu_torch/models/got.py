@@ -10,7 +10,9 @@ goal token is pooled and normed (RMS, or Layer for the frame-stack fork).
 model whose blocks have no dropout, with `attn_impl` auto or fused, CLS
 pooling and at most 256 tokens takes the fused routes, each a kernel
 wrapper that runs the CUDA kernel on the card and its plain version on
-the CPU:
+the CPU, where the route's kernels hold a frame of that many tokens in a
+thread block's shared memory (`ops/smem.py`; on the card only, and
+decided from the shapes before any launch):
 
   * `inference` and `deterministic` on the full patch grid (acting,
     evaluation, serving): the whole trunk as one `got_forward_fused` call
@@ -28,8 +30,9 @@ the CPU:
     embedding and emb-dropout, then K4 with parameter casts that keep the
     graph; its backward is the whole-trunk kernel K6.
 
-Any other model (block dropout, `attn_impl` xla or pallas, mean pooling,
-more than 256 tokens) takes the composed route: the embedding, then each
+Any other model or frame (block dropout, `attn_impl` xla or pallas, mean
+pooling, more than 256 tokens, a frame the route's kernels cannot hold)
+takes the composed route: the embedding, then each
 block as `models/layers.py::TransformerBlock` composes it around the
 attention kernels (K7, K8), the pooling and the final-norm module.
 
@@ -52,6 +55,7 @@ from dgvit_tpu_torch.models.layers import dropout as flax_dropout
 from dgvit_tpu_torch.ops.fused_block import MAX_TOKENS
 from dgvit_tpu_torch.ops.got_megakernel import (blocks_cls_forward_fused,
                                                 got_forward_fused)
+from dgvit_tpu_torch.ops.smem import route_fits
 
 
 def patchify_2d(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -162,6 +166,15 @@ class GoT(nn.Module):
             self._cache_key, self._cache = key, (pe, pos, blocks, fn)
         return self._cache
 
+    def route_fits(self, kernels, n: int, cdt: torch.dtype,
+                   device: torch.device) -> bool:
+        """Whether every kernel of a fused route holds n-token frames of
+        this trunk on `device` (`ops/smem.py`)."""
+        blk = self.transformer.blocks[0]
+        return route_fits(kernels, n, self.pos_embedding.shape[-1],
+                          self.heads, self.dim_head, blk.w1.shape[1], cdt,
+                          device)
+
     def _patches(self, img: torch.Tensor) -> torch.Tensor:
         ph, pw = self.patch_size
         return (patchify_2d(img, ph, pw) if self.patch_mode == "2d"
@@ -197,10 +210,15 @@ class GoT(nn.Module):
         no-grad kernels."""
         ph, pw = self.patch_size
         in_patches = (img.shape[-2] // ph) * (img.shape[-1] // pw)
+        acting = inference and deterministic \
+            and in_patches == self.num_patches
         blocks_ok = (self.blocks_ok and in_patches + 1 <= MAX_TOKENS
-                     and (inference or self.trunk_grad))
-        if (blocks_ok and inference and deterministic
-                and in_patches == self.num_patches):
+                     and (inference or self.trunk_grad)
+                     and self.route_fits(
+                         ("K1",) if acting else ("K4",) if inference
+                         else ("K4", "K6"), in_patches + 1,
+                         self.compute_dtype or img.dtype, img.device))
+        if blocks_ok and acting:
             return got_forward_fused(*self.trunk_args(img, goal))
         x = self.embed(img, goal)
         if not deterministic:

@@ -7,11 +7,14 @@ they are. Its forward takes the JAX block's two routes
 
   * fused: the differentiable per-block kernel (K2, or K3 for the CLS-only
     final block), when the block has no dropout, `attn_impl` is auto or
-    fused, the projection has a bias and there are at most 256 tokens;
+    fused, the projection has a bias, there are at most 256 tokens and
+    the kernels hold a frame in a thread block's shared memory
+    (`ops/smem.py`: on the card only);
   * composed, otherwise: LayerNorm, `attention`, residual, LayerNorm,
     `feed_forward`, residual, in PyTorch around the attention kernels.
     `attention` runs the whole section as one kernel (K7,
-    `ops/fused_block.py`) for a tensor on the card, or projects q, k and v
+    `ops/fused_block.py`) for a tensor on the card where K7 holds the
+    frame, or projects q, k and v
     and calls `dot_product_attention` (K8 behind `impl`).
 
 The JAX package takes its fused routes when the backend is a TPU; here the
@@ -39,6 +42,7 @@ from dgvit_tpu_torch.ops.fused_block import (MAX_TOKENS,
                                              fused_attention_section)
 from dgvit_tpu_torch.ops.fused_transformer import (_ln,
                                                    fused_transformer_block)
+from dgvit_tpu_torch.ops.smem import route_fits
 
 ATTN_IMPLS = IMPLS + ("fused",)
 
@@ -73,8 +77,10 @@ def attention(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
     section is the kernel K7; otherwise q, k and v are projected here and
     attended by `dot_product_attention(impl=attn_impl)`. Dropout (`rate`,
     unless `deterministic`) follows the output projection either way."""
-    b, n, _ = x.shape
-    if attn_impl in ("auto", "fused") and _on_card(x) and n <= MAX_TOKENS:
+    b, n, d = x.shape
+    if (attn_impl in ("auto", "fused") and _on_card(x) and n <= MAX_TOKENS
+            and route_fits(("K7",), n, d, heads, dim_head, 0, x.dtype,
+                           x.device)):
         out = fused_attention_section(x, wqkv, wout, bout, heads, dim_head)
     else:
         qkv = (x @ wqkv).reshape(b, n, 3, heads, dim_head)
@@ -199,6 +205,17 @@ class TransformerBlock(nn.Module):
         return tuple(getattr(self, n).detach().to(dtype).contiguous()
                      for n in self.ORDER)
 
+    def fused_fits(self, x: torch.Tensor, cls_only: bool) -> bool:
+        """Whether the per-block kernels hold x's frames on its device: the
+        forward (K2f, or K3f for the CLS-only block) and, when autograd
+        records, the backward (K2b, K3b) (`ops/smem.py`)."""
+        kernels = ("K3f", "K3b") if cls_only else ("K2f", "K2b")
+        if not torch.is_grad_enabled():
+            kernels = kernels[:1]
+        _, n, d = x.shape
+        return route_fits(kernels, n, d, self.heads, self.dim_head,
+                          self.w1.shape[1], x.dtype, x.device)
+
     def forward(self, x: torch.Tensor, cls_only: bool = False, *,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None
@@ -211,7 +228,7 @@ class TransformerBlock(nn.Module):
         `generator`."""
         cast = lambda *names: (getattr(self, n).to(x.dtype) for n in names)
         if (self.attn_impl in ("auto", "fused") and self.dropout == 0.0
-                and x.shape[1] <= MAX_TOKENS):
+                and x.shape[1] <= MAX_TOKENS and self.fused_fits(x, cls_only)):
             w = tuple(cast(*self.ORDER))
             if cls_only:
                 return cls_final_block(x.contiguous(), w, self.heads,

@@ -674,6 +674,15 @@ int attention_launch(int dtype, const void* q, const void* k, const void* v,
                   : launch_attention_mma<0>(a, bh, s);
 }
 
+// Bytes of dynamic shared memory of K7 for a tile of qrows query rows of
+// n-row frames; the launch takes the fewest tiles whose bytes fit, so it
+// runs wherever qrows = 1 fits.
+size_t attention_section_smem(int dtype, int n, int d, int dim_head,
+                              int qrows) {
+  return dtype == 1 ? SectionSmem<__nv_bfloat16>(n, d, dim_head, qrows).total
+                    : SectionSmem<float>(n, d, dim_head, qrows).total;
+}
+
 // K7. x, y: (batch, n, d); wqkv (d, 3 heads dh); wout (heads dh, d);
 // bout (d); all in the compute dtype.
 int attention_section_launch(int dtype, const void* x, const void* wqkv,

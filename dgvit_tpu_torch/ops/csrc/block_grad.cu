@@ -10,10 +10,13 @@
 //   K3b cls_block.py::_cls_bwd_impl (_cls_bwd_kernel, body _cls_bwd_body)
 //   K6  trunk_train.py::trunk_bwd_impl (_trunk_bwd_kernel)
 //
-// Forward: one thread block per frame runs `block` (block_common.cuh) on
-// the frame's fp32 stream in shared memory, as the whole-trunk kernel does,
-// and writes the block's output (K2f: every row; K3f: the CLS row) in the
-// compute dtype T.
+// Forward: K3f, and K2f off the flagship widths and in fp32, run one
+// thread block per frame on `block` (block_common.cuh) with the frame's
+// fp32 stream in shared memory, as K1 does, and write the block's output
+// (K2f: every row; K3f: the CLS row) in the compute dtype T. The bf16 K2f
+// at the flagship widths (tensor_core_fwd in ops/fused_transformer.py)
+// runs block_fwd_mma_kernel: the tensor-core body of block_mma_fwd.cuh,
+// two frames a thread block.
 //
 // Backward, two passes:
 //  1. one thread block per frame recomputes the forward, then runs the
@@ -34,18 +37,19 @@
 //     kernel casts its fp32 accumulators to the weight dtype.
 // The recompute of pass 1 is bit-identical to the forward kernel (same
 // products in the same order) for fp32, for K3b and for the bf16 FMA
-// body. The bf16 full block at the flagship widths (K2b, and K6's full
-// blocks) recomputes on the tensor cores (block_bwd_mma) while K2f and K4
-// keep fp32 FMA loops: the same bf16
-// operands and rounding points, sums in another order, so now and then
-// one bf16 rounding of the recomputed q, k, v, o or hidden activations
-// lands on the other side. That is the same kind of difference the
-// checks already allow against the plain version (cuBLAS sums in yet
-// another order): a flip moves what follows by about one ulp of its own
-// size, which phase 5's per-tensor max (2^-6 L) and pooled mean (2^-18)
-// of chip_smoke.py admit, as does phase 13's per-frame rule (two thirds
-// of K6's frames within 2^-18), and the wrong backwards still miss them
-// by a rounding point moved everywhere, not now and then.
+// body. At the flagship widths the bf16 full block runs on the tensor
+// cores both ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
+// block_bwd_mma, with the same bf16 operands and rounding points; where
+// their sums differ in order (see block_mma_fwd.cuh), now and then one
+// bf16 rounding of the recomputed q, k, v, o or hidden activations lands
+// on the other side. That is the same kind of difference the checks
+// already allow against the plain version (cuBLAS sums in yet another
+// order): a flip moves what follows by about one ulp of its own size,
+// which phase 5's per-tensor max (2^-6 L) and pooled mean (2^-18) of
+// chip_smoke.py admit, as does phase 13's per-frame rule (two thirds of
+// K6's frames within 2^-18), and the wrong versions still miss them by a
+// rounding point moved everywhere, not now and then. K6's own forward
+// chain keeps the FMA body.
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
@@ -67,13 +71,22 @@
 // (block_bwd_mma, below; other widths keep the FMA body): q, k, v
 // and do of a head stay in shared memory, weight tiles arrive by
 // cp.async, and only the weight products' operands go to the workspace.
-// The forwards (K2f, K3f), the CLS-only backward body (K3b), the fp32
-// bodies and the weight products (wgrad_kernel) are FMA work on fp32 CUDA
-// cores, far from the bf16 tensor-core roofline.
+// The bf16 K2f at those widths runs on the tensor cores too
+// (block_fwd_mma_kernel). K3f, the CLS-only backward body (K3b), the fp32
+// bodies, K6's forward chain and the weight products (wgrad_kernel) are
+// FMA work on fp32 CUDA cores, far from the bf16 tensor-core roofline.
+//
+// A frame lives in one thread block's shared memory, so each body holds
+// frames up to a length (at the flagship widths: the FMA forward 147
+// tokens in bf16, 89 in fp32; the backward 110): block_forward_smem,
+// block_backward_smem and trunk_backward_smem export the bytes, which
+// ops/smem.py mirrors, and the model's routes send longer frames to the
+// composed blocks.
 
 #include <type_traits>
 
 #include "block_common.cuh"
+#include "block_mma_fwd.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -182,6 +195,21 @@ __global__ void __launch_bounds__(kThreads)
   T* out = (T*)a.out + (size_t)f * rows * d;
   for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
     out[i] = fromf<T>(x32[i]);
+}
+
+// K2f on the tensor cores (bf16, the flagship widths): block_mma_fwd.cuh's
+// body on two frames a thread block, each warp owning 16 rows of a frame.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    block_fwd_mma_kernel(const __grid_constant__ FwdArgs a, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n;
+  const mmafwd::Layout L(n);
+  const mmafwd::Place p(n, batch);
+  const size_t frame = (size_t)p.f * n * mmafwd::D;
+  mmafwd::Rows x;
+  mmafwd::read_rows(x, (const bf16*)a.x + frame, p, n);
+  mmafwd::block_fwd<false>(a.m, a.w, n, p, x, smem_raw, L, false);
+  mmafwd::write_rows(x, (bf16*)a.out + frame, p, n);
 }
 
 // Shared memory of the backward kernels (fp32 throughout).
@@ -1485,6 +1513,18 @@ TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
   return w;
 }
 
+// K6's shared memory: the forward chain's (the FMA body's, MLP chunk 256)
+// and the largest backward body's it runs.
+template <typename T>
+size_t trunk_bwd_bytes(int n, const Dims& m, bool mma) {
+  size_t bytes = Smem<T>(n, m.d, m.heads, m.dh, m.mlp < 256 ? m.mlp : 256)
+                     .total;
+  for (const size_t b : {BwdSmem(n, m.d, m.hc).total,
+                         mma ? MmaBwdSmem(n).total : 0})
+    bytes = b > bytes ? b : bytes;
+  return bytes;
+}
+
 // K6: ptrs as trunk_backward_launch takes them.
 template <typename T>
 int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
@@ -1515,10 +1555,7 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
   a.depth = depth;
   a.final_norm = final_norm;
   a.hc_fwd = m.mlp < 256 ? m.mlp : 256;  // the forward kernels' MLP chunk
-  size_t bytes = Smem<T>(n, m.d, m.heads, m.dh, a.hc_fwd).total;
-  for (const size_t b : {BwdSmem(n, m.d, m.hc).total,
-                         mma ? MmaBwdSmem(n).total : 0})
-    bytes = b > bytes ? b : bytes;
+  const size_t bytes = trunk_bwd_bytes<T>(n, m, mma);
   int err;
   if (!mma) {
     err = launch_smem(trunk_bwd_kernel<T, false>, B, bytes, stream, a);
@@ -1562,12 +1599,46 @@ bool bad_shape(int batch, int n, int d, int heads, int dim_head, int mlp) {
 
 extern "C" {
 
+// Bytes of dynamic shared memory of K2f (cls = 0) and K3f (cls = 1) for
+// these shapes; mma = 1: K2f on the tensor-core body.
+size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
+                          int dim_head, int mlp, int mma) {
+  if (mma && !cls) return mmafwd::Layout(n).total;
+  const int hc = mlp < 256 ? mlp : 256;
+  return dtype == 1 ? Smem<__nv_bfloat16>(n, d, heads, dim_head, hc).total
+                    : Smem<float>(n, d, heads, dim_head, hc).total;
+}
+
+// Bytes of dynamic shared memory of the per-frame pass of K2b (cls = 0)
+// and K3b (cls = 1); mma = 1: K2b on the tensor-core body.
+size_t block_backward_smem(int dtype, int cls, int n, int d, int heads,
+                           int dim_head, int mlp, int mma) {
+  (void)dtype;
+  (void)heads;
+  (void)dim_head;
+  if (mma && !cls) return MmaBwdSmem(n).total;
+  return BwdSmem(n, d, mlp < 128 ? mlp : 128).total;
+}
+
+// Bytes of dynamic shared memory of K6's per-frame pass; mma = 1: its
+// full blocks on the tensor-core body.
+size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
+                           int mlp, int mma) {
+  const Dims m = dims(d, heads, dim_head, mlp, 128, 1.f);
+  return dtype == 1 ? trunk_bwd_bytes<__nv_bfloat16>(n, m, mma != 0)
+                    : trunk_bwd_bytes<float>(n, m, mma != 0);
+}
+
 // K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
 // ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
-// (B, n, d) or, with cls, (B, d). Returns a cudaError_t (0 = launched).
+// (B, n, d) or, with cls, (B, d). mma = 1 runs K2f on the bf16
+// tensor-core body, which takes bf16, d = dim_head = 64, n <= 80, mlp a
+// multiple of 64 and 16-byte aligned x, out and matrix weights
+// (cudaErrorInvalidValue else); mma = 0 the FMA body, any width. Returns a
+// cudaError_t (0 = launched).
 int block_forward_launch(int dtype, int cls, const void* const* ptrs,
                          int batch, int n, int d, int heads, int dim_head,
-                         int mlp, float scale, void* stream) {
+                         int mlp, float scale, void* stream, int mma) {
   if (bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   FwdArgs a;
@@ -1577,6 +1648,12 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma) {
+    const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
+    if (dtype != 1 || cls || !mmafwd::takes(n, a.m, aligned, 6))
+      return cudaErrorInvalidValue;
+    return mmafwd::launch_fwd(block_fwd_mma_kernel, n, batch, s, a, batch);
+  }
   const size_t bf = Smem<__nv_bfloat16>(n, d, heads, dim_head, a.m.hc).total;
   const size_t f32 = Smem<float>(n, d, heads, dim_head, a.m.hc).total;
   if (dtype == 1)

@@ -38,6 +38,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from dgvit_tpu_torch.ops.smem import tensor_core_widths
+
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
 _INV_SQRT2 = 0.7071067811865476
@@ -289,8 +291,13 @@ def _block_lib() -> ctypes.CDLL:
     shape = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     for fn in (lib.block_forward_launch, lib.block_backward_launch):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + shape
-    lib.block_backward_launch.argtypes += [ctypes.c_int]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + shape \
+            + [ctypes.c_int]
+    for fn in (lib.block_forward_smem, lib.block_backward_smem):
+        fn.restype = ctypes.c_size_t
+        fn.argtypes = [ctypes.c_int] * 8
+    lib.trunk_backward_smem.restype = ctypes.c_size_t
+    lib.trunk_backward_smem.argtypes = [ctypes.c_int] * 7
     lib.block_backward_workspace.restype = ctypes.c_size_t
     lib.block_backward_workspace.argtypes = [ctypes.c_int] * 8
     lib.trunk_backward_workspace.restype = ctypes.c_size_t
@@ -304,23 +311,27 @@ def _block_lib() -> ctypes.CDLL:
     return lib
 
 
-# the widths the bf16 tensor-core body of the full-block backward is built
-# for (block_grad.cu: kMmaD, kMmaRows, kMmaChunk)
-_MMA_WIDTH, _MMA_ROWS, _MMA_CHUNK = 64, 80, 64
+def tensor_core_fwd(x: torch.Tensor, w: Sequence[torch.Tensor],
+                    dim_head: int) -> bool:
+    """Whether a full block's forward (K2f, and each block of K4) runs on
+    the bf16 tensor-core body (csrc/block_mma_fwd.cuh): bf16, d = dim_head
+    = 64, at most 80 tokens, mlp a multiple of 64 (`smem.
+    tensor_core_widths`), and x and the matrix weights 16-byte aligned.
+    Every other call takes the FMA body, which takes any width."""
+    _, n, d = x.shape
+    return (tensor_core_widths(n, d, dim_head, w[7].shape[-1], x.dtype)
+            and all(t.data_ptr() % 16 == 0
+                    for t in (x, w[2], w[3], w[7], w[9])))
 
 
 def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
                     dim_head: int, dy: torch.Tensor = None) -> bool:
     """Whether the backward of a full block (K2b, and each of K6's full
-    blocks) runs its per-frame pass on the bf16 tensor-core body: bf16,
-    d = dim_head = 64, at most 80 tokens, mlp a multiple of 64, and x, dy
-    and the matrix weights 16-byte aligned. Every other call takes the FMA
-    body, which takes any width."""
-    _, n, d = x.shape
-    tensors = [x, w[2], w[3], w[7], w[9]] + ([] if dy is None else [dy])
-    return (x.dtype == torch.bfloat16 and d == dim_head == _MMA_WIDTH
-            and n <= _MMA_ROWS and w[7].shape[-1] % _MMA_CHUNK == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
+    blocks) runs its per-frame pass on the bf16 tensor-core body: the
+    widths and alignment of `tensor_core_fwd`, and dy 16-byte aligned.
+    Every other call takes the FMA body, which takes any width."""
+    return (tensor_core_fwd(x, w, dim_head)
+            and (dy is None or dy.data_ptr() % 16 == 0))
 
 
 def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
@@ -338,12 +349,14 @@ def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
 
 
 def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool):
-    """K2f (cls False) or K3f (cls True) on CUDA tensors."""
+    """K2f (cls False; on the tensor-core body where `tensor_core_fwd`
+    says so) or K3f (cls True) on CUDA tensors."""
     b, n, d = x.shape
     out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
                       device=x.device)
+    mma = not cls and tensor_core_fwd(x, w, dim_head)
     _call(_block_lib().block_forward_launch, x.dtype, cls, [x, *w, out], x,
-          heads, dim_head, w[7].shape[-1])
+          heads, dim_head, w[7].shape[-1], int(mma))
     return out
 
 

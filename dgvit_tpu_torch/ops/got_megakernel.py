@@ -36,7 +36,9 @@ from typing import Sequence, Tuple
 import torch
 
 from dgvit_tpu_torch.ops.cls_block import cls_block_plain
-from dgvit_tpu_torch.ops.fused_transformer import _f32, _ln, _mm, block_plain
+from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
+                                                   block_plain,
+                                                   tensor_core_fwd)
 from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -149,7 +151,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.blocks_forward_launch.restype = ctypes.c_int
     lib.blocks_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+    lib.got_forward_smem.restype = ctypes.c_size_t
+    lib.got_forward_smem.argtypes = [ctypes.c_int] * 7
     lib.got_error_string.restype = ctypes.c_char_p
     lib.got_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -224,12 +228,15 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm
     out = torch.empty((b, d), dtype=x.dtype, device=x.device)
     tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    # every block on the tensor-core body, or every block on the FMA body
+    mma = all(tensor_core_fwd(x, w, dim_head) for w in blocks)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.blocks_forward_launch(
             _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n, d, heads, dim_head, blocks[0][7].shape[1],
-            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream)
+            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream,
+            int(mma))
     if err != 0:
         raise RuntimeError("blocks_cls_forward_fused launch failed: "
                            + lib.got_error_string(err).decode())

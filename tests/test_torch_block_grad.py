@@ -25,7 +25,8 @@ from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
                                                    block_fwd_plain,
                                                    check_block_args,
                                                    fused_transformer_block,
-                                                   tensor_core_bwd)
+                                                   tensor_core_bwd,
+                                                   tensor_core_fwd)
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
                                 bf16_close, block_tree, rand, to_jax,
                                 to_torch, weights)
@@ -150,3 +151,20 @@ def test_backward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
     dy = torch.zeros(2, n, D, dtype=dt)
     check_block_args(x, w, heads, dim_head, dy=dy)   # a call the wrappers take
     assert tensor_core_bwd(x, w, dim_head, dy) is mma
+
+
+@pytest.mark.parametrize("dtype,n,heads,dim_head,mlp,offset,mma", ROUTES)
+def test_forward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
+    """The forward of a full block (K2f, each block of K4) takes the bf16
+    tensor-core body (ops/csrc/block_mma_fwd.cuh) at the same widths as
+    the backward; every other call the FMA body."""
+    dt, inner = getattr(torch, dtype), heads * dim_head
+    shapes = [(D,), (D,), (D, 3 * inner), (inner, D), (D,), (D,), (D,),
+              (D, mlp), (mlp,), (mlp, D), (D,)]
+    w = [torch.zeros(s, dtype=dt) for s in shapes]
+    x = torch.zeros(2 * n * D + offset, dtype=dt)[offset:].view(2, n, D)
+    check_block_args(x, w, heads, dim_head)
+    assert tensor_core_fwd(x, w, dim_head) is mma
+    # an unaligned weight matrix also keeps the FMA body
+    w[9] = torch.zeros(mlp * D + 1, dtype=dt)[1:].view(mlp, D)
+    assert tensor_core_fwd(x, w, dim_head) is False

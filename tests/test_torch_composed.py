@@ -121,6 +121,28 @@ def test_257_tokens_take_the_composed_route(monkeypatch):
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
 
 
+def test_129_tokens_over_the_h100_limit_match_jax(monkeypatch):
+    """8x20 patches of a (128, 160) frame: 129 tokens at the flagship
+    widths. Under the H100's shared-memory limit (232,448 bytes a block)
+    no fp32 fused kernel holds such a frame (ops/smem.py), so acting and
+    training forwards take the composed route; fp32 latents as JAX's."""
+    from dgvit_tpu_torch.ops import smem
+
+    jgot, tree, got, img, goal = got_pair(
+        34, batch=2, image_size=(128, 160), patch_size=(8, 20), heads=4,
+        dim_head=64, mlp_dim=2048)
+    assert got.num_patches + 1 == 129
+    ref = np.asarray(jgot.apply({"params": tree}, jnp.asarray(img),
+                                jnp.asarray(goal)))
+    monkeypatch.setattr(smem, "limit_for", lambda device: 232448)
+    no_block_kernels(monkeypatch)
+    i, g = torch.from_numpy(img), torch.from_numpy(goal)
+    with torch.no_grad():
+        for flags in ({}, {"inference": True}):
+            np.testing.assert_allclose(got(i, g, **flags).numpy(), ref,
+                                       rtol=2e-5, atol=2e-5)
+
+
 def test_composed_gradients_match_jax():
     """Parameter and goal gradients through the kernel route of the
     composed blocks (its backward recomputes the plain version)."""
