@@ -9,7 +9,10 @@ tree). For each TREE in the order given (name a tree twice to run it
 twice: parent, change, change, parent), a fresh Python process started in
 that tree builds its kernels and runs its own chip_smoke.py phases: five
 bf16 SAC updates at batch 256 on the default route and five on the
-trunk-gradient route (host clock, medians of steps 1-4), phase 8's K1
+trunk-gradient route (host clock, medians of steps 1-4; then one more
+update of each under torch.profiler, by the profiler helper of the
+chip_smoke.py beside this script: its device time, in all and in the
+weight products' kernels, `wgrad*`), phase 8's K1
 times, phase 8b's training kernels, phase 12's K5 and phase 17's K6, K7
 and K8 (CUDA events). Each run prints one JSON line (`RESULT {...}`);
 the last line is a table of every number by run. Needs one CUDA card.
@@ -23,8 +26,13 @@ import sys
 from pathlib import Path
 
 RUN = r'''
-import json, os, sys
+import importlib.util, json, os, sys
 tree = sys.argv[1]
+# the profiler helper of the chip_smoke.py beside this script, the same
+# for every tree (an older tree's chip_smoke.py may not have it)
+spec = importlib.util.spec_from_file_location("own_smoke", sys.argv[2])
+own = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(own)
 os.chdir(tree)
 sys.path.insert(0, tree)
 import numpy as np
@@ -39,12 +47,23 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build("got_megakernel", "block_grad", "depth_preprocess",
              "attention")
+
+
+def device_time(update, label):
+    by = own.device_kernels_ms(update, calls=1)
+    out[f"{label}_update_device_ms"] = sum(by.values())
+    out[f"{label}_wgrad_device_ms"] = sum(t for k, t in by.items()
+                                          if "wgrad" in k)
+
+
 actor_flat, critic_flat = cs.golden_params()
 out = {}
-_, out["default_update_ms"], _ = cs.phase_sac(actor_flat, critic_flat)
+_, out["default_update_ms"], update = cs.phase_sac(actor_flat, critic_flat)
+device_time(update, "default")
 with cs.trunk_grad_switch():
-    _, out["trunk_update_ms"], _ = cs.phase_sac(
+    _, out["trunk_update_ms"], update = cs.phase_sac(
         actor_flat, critic_flat, cs.PER_UPDATE_TRUNK, "trunk-gradient SAC")
+device_time(update, "trunk")
 out["default_update_ms"] *= 1e3
 out["trunk_update_ms"] *= 1e3
 cfg = Config()
@@ -78,10 +97,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip(), flush=True)
+    smoke = str(Path(__file__).resolve().with_name("chip_smoke.py"))
     rows = []
     for i, tree in enumerate(trees):
         print(f"== run {i}: {tree}", flush=True)
-        proc = subprocess.run([sys.executable, "-c", RUN, tree],
+        proc = subprocess.run([sys.executable, "-c", RUN, tree, smoke],
                               capture_output=True, text=True)
         lines = proc.stdout.splitlines()
         print("\n".join(line for line in lines

@@ -30,14 +30,25 @@ per source, all at once), then
      B in {1, 32, 256} and fp32 at B in {1, 8}; outputs, dx and all 11
      weight gradients; wrong bf16 versions must FAIL the same bf16
      limits: for K2b and K3b autograd of the plain forward (which rounds
-     at other points than the hand-placed ones), for K4 an erf GELU and
-     the residual kept in fp32 across blocks, for K2f the probabilities
-     left in fp32 before P.V;
- 5b. the bf16 full-block forward and backward off the flagship widths
-     (81 tokens, 2 x 32 heads, an unaligned x) take the FMA bodies, not
-     the tensor-core ones, and K2f, K2b and K6 there meet the bf16 limits
-     of 5 and 13 against their plain versions, K4 phase 5's per-tensor
-     max and phase 13's per-frame rule;
+     at other points than the hand-placed ones), for K3b also k and v of
+     the recompute left in fp32 (its tensor-core projection's outputs),
+     for K4 an erf GELU and the residual kept in fp32 across blocks, for
+     K2f the probabilities left in fp32 before P.V;
+ 5b. the bf16 forward and backward off the flagship widths (81 tokens,
+     2 x 32 heads, an unaligned x) take the FMA bodies, not the
+     tensor-core ones, and K2f, K2b and K3b there meet the bf16 limits of
+     5, K6 those of 13, K4 phase 5's per-tensor max and phase 13's
+     per-frame rule; K6 with only its CLS block's w1 unaligned takes the
+     FMA bodies and meets phase 13's limits;
+ 5c. the weight products of the backwards (wgrad_mma_kernel on the
+     tensor cores in bf16, wgrad_kernel else) against wgrad_plain, which
+     sums the kernels' row segments in their order (its wgrad_splits
+     equal to the library's segment counts): the default update's shapes
+     at B=256, K3b's CLS operands and awkward ones (rows not a multiple
+     of the chunk, K and N not multiples of 64, K not a multiple of 8, an
+     unaligned A), bf16 and fp32; the update's six at B=256 timed on the
+     tensor cores beside the FMA kernel and beside `a.t() @ b` (cuBLAS),
+     by CUDA events and by device time;
   6. the SAC update, the second main path: a bf16 SACAgent (batch 256,
      emb-dropout 0.1) takes 5 learn steps on a seeded replay batch with
      finite losses, each step launching exactly K4 x3, K2f x6, K2b x6,
@@ -46,13 +57,16 @@ per source, all at once), then
      the same update through the plain versions on the card and the JAX
      golden update (tests/data/torch_sac_golden.npz);
   7. profile: one more bf16 update under torch.profiler, device time by
-     CUDA kernel, in all and per call, the device's busy share of the
-     update, and its CUDA launches by kernel name held to the design (K4
-     and K2f on the tensor-core kernels at the flagship widths);
+     CUDA kernel, in all and per call, the weight products' total, the
+     device's busy share of the update, and its CUDA launches by kernel
+     name held to the design (K4, K2f, K2b, K3b and the weight products
+     on the tensor-core kernels at the flagship widths);
   8. times: K1 and its plain version at B in {1, 32, 64, 2048}, and the
      training kernels at B=256 (median of CUDA-event timings), beside
      their bounds, the kernels redesigned for the tensor cores (K2b, K4,
-     K2f) also beside their earlier designs' times, and K4 by depth;
+     K2f, K3b) also beside their earlier designs' times, K2b and K3b also
+     by device time split into the per-frame pass and the weight
+     products, and K4 by depth;
   9. K5 against its plain version: the fused depth ingest
      (preprocess_depth_fused) and preprocess_depth_plain on raw 512x640
      frames at B in {1, 3, 32, 256}, sigma 0 and 50: uniform frames,
@@ -84,8 +98,9 @@ per source, all at once), then
      a Layer norm, bf16 and fp32 at B in {1, 3, 8, 256}, 65 tokens and
      17; dx, the 44 block gradients and the final norm's; two wrong
      backwards (autograd of the plain forward; a chain that hands dx on
-     in fp32) must FAIL the bf16 limits; and K6 against the K3b + K2b
-     chain of per-block kernels on the same inputs;
+     in fp32) must FAIL the bf16 limits; and K6 (its CLS block on the
+     tensor-core body of K3b) against the K3b + K2b chain of per-block
+     kernels on the same inputs;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -107,7 +122,9 @@ per source, all at once), then
      earlier design's times, and torch's scaled_dot_product_attention
      beside K8, both also by device time (torch.profiler);
  17b. long frames: every byte count of ops/smem.py against the
-     libraries' own queries; then frames of 90, 129 and 256 tokens, fp32
+     libraries' own queries (the tensor-core backward bodies' too); then
+     frames of 90, 129 and 256 tokens (past the 80 rows of the
+     tensor-core bodies: the FMA bodies), fp32
      and bf16, through acting, the learn forward, the gradient route and
      the trunk-gradient route of the trained actor's trunk, each call on
      the route the shared-memory rule picks (fused where the route's
@@ -271,12 +288,11 @@ def cuda_ms(fn, reps: int, runs: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 50, tries: int = 3):
-    """The device time of one call of `fn` (its CUDA kernels summed, from
-    torch.profiler over `calls` calls after a warm-up). A window in which
-    the profiler recorded nothing is taken again with four times the
-    calls; after `tries` empty windows it raises. Beside cuda_ms for the
-    small kernels, whose back-to-back calls can wait on the host."""
+def device_kernels_ms(fn, calls: int = 50, tries: int = 3):
+    """The device time of one call of `fn` by CUDA kernel name ({name: ms
+    a call}, from torch.profiler over `calls` calls after a warm-up). A
+    window in which the profiler recorded nothing is taken again with four
+    times the calls; after `tries` empty windows it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -287,13 +303,21 @@ def device_ms(fn, calls: int = 50, tries: int = 3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type.name == "CUDA")
-        if total > 0:
-            return total / calls / 1e3
+        by = {e.key: e.device_time_total / calls / 1e3
+              for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.device_time_total > 0}
+        if by:
+            return by
         calls *= 4
     raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
                        "windows")
+
+
+def device_ms(fn, calls: int = 50, tries: int = 3):
+    """The device time of one call of `fn`, its CUDA kernels summed
+    (device_kernels_ms). Beside cuda_ms for the small kernels, whose
+    back-to-back calls can wait on the host."""
+    return sum(device_kernels_ms(fn, calls, tries).values())
 
 
 def trunk_inputs(policy, batch, rng):
@@ -375,6 +399,20 @@ def k2f_f32_probs(x, w, heads, dim_head):
         return ft.block_fwd_plain(x, w, heads, dim_head)
     finally:
         ft._attention = rounded
+
+
+def k3b_f32_kv(x, dy, w, heads, dim_head):
+    """A wrong bf16 K3b: its plain version with the recomputed k and v of
+    every row left in fp32 (the TPU kernel rounds them to the compute
+    dtype: the outputs of the tensor-core body's projection)."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+
+    rounded = cb._kv_rows
+    cb._kv_rows = lambda h1, wkv, cdt: cb._mm(h1, wkv)
+    try:
+        return cb.cls_bwd_plain(x, dy, w, heads, dim_head)
+    finally:
+        cb._kv_rows = rounded
 
 
 def trunk_f32_residual(patches, goal, pe, pos, blocks, fn, heads, dim_head,
@@ -612,7 +650,13 @@ def phase_times(cfg, policies, rng):
 # max stayed within 2^-6 L for both. K2b read 3.3e-7 with an FMA body and
 # 1.3e-6 with its tensor-core body (an H100 80GB HBM3 at 700 W): the
 # tensor cores' fp32 sums flip more bf16 roundings, still 3x under the
-# limit and 15x under the wrong backward.
+# limit and 15x under the wrong backward. K3b at B=256 read 1.6e-7 with
+# its FMA body and 7.1e-7 with its tensor-core body on the same draws;
+# pooled, the tensor-core K3b read 4.7e-8 and its wrong versions 2.8e-5
+# (autograd) and 2.7e-5 (k and v in fp32). ds, dq and dk|dv left in fp32
+# read only 1.7e-6 to 2.2e-6 by batch: these weights' dx is carried by
+# its CLS row, which that rounding barely reaches, so it is no wrong
+# version the limits can see.
 TRAIN_F32_MAX = 1e-5
 TRAIN_BF16_MAX, TRAIN_BF16_MEAN = 2.0 ** -6, 2.0 ** -18
 # The fp32 SAC update through the kernels against the same update through
@@ -914,8 +958,9 @@ def train_cases(inp):
     """(name, kernel call, plain call, {what: wrong call}) of each
     training kernel on these inputs: K4 on the actor's trunk, K2 on the
     actor's first block, K3 on the critic's last block. Each wrong call
-    is the plain version with one rounding point or form moved, which
-    the bf16 limits must see."""
+    is the plain version with one rounding point or form moved (or, for
+    the backwards, autograd's rounding points), which the bf16 limits must
+    see."""
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
@@ -943,7 +988,8 @@ def train_cases(inp):
          lambda: cb.cls_fwd_plain(*k3), {}),
         ("K3b", lambda: cb.cls_bwd_fused(*k3b),
          lambda: cb.cls_bwd_plain(*k3b),
-         {autograd: lambda: autograd_bwd(cb.cls_fwd_plain)(*k3b)}),
+         {autograd: lambda: autograd_bwd(cb.cls_fwd_plain)(*k3b),
+          "k and v in fp32": lambda: k3b_f32_kv(*k3b)}),
     ]
 
 
@@ -1086,22 +1132,28 @@ def latent_frames_within(out, ref):
 
 def phase_bwd_widths(nets, rng):
     """Phase 5b: the bf16 full-block forward (K2f, K4) and backward (K2b,
-    K6) take the tensor-core bodies at the flagship widths and the FMA
-    bodies elsewhere (more tokens than 80, narrow heads, an unaligned x);
-    there K2f and K2b agree with their plain versions within phase 5's
-    limits, K6 within phase 13's, and K4 within phase 5's per-tensor max
-    and phase 13's per-frame rule (see the note at EXTRA_TOKENS). The actor's
-    trained blocks on its embedded stream of seeded frames, at B=32."""
+    K3b, K6) take the tensor-core bodies at the flagship widths and the
+    FMA bodies elsewhere (more tokens than 80, narrow heads, an unaligned
+    x); there K2f, K2b and K3b agree with their plain versions within
+    phase 5's limits, K6 within phase 13's, and K4 within phase 5's
+    per-tensor max and phase 13's per-frame rule (see the note at
+    EXTRA_TOKENS). K6 also with only its CLS block's w1 unaligned (the FMA
+    bodies, no launch error). The actor's trained blocks on its embedded stream of
+    seeded frames, at B=32 (K3b: its last block on the stream that enters
+    it, from the plain forward of the blocks before)."""
     import torch
 
+    from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
-    from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+    from dgvit_tpu_torch.ops.trunk_train import (tensor_core_trunk,
+                                                 trunk_bwd_fused,
                                                  trunk_bwd_plain)
 
     a = train_inputs(nets["bfloat16"], 32, rng)["actor"]
     x, blocks, dy3 = a["x"], a["blocks"], a["dy3"]
     check(ft.tensor_core_bwd(x, blocks[0], a["dh"], a["dy2"])
+          and ft.tensor_core_bwd(x, blocks[-1], a["dh"], dy3)
           and all(ft.tensor_core_fwd(x, w, a["dh"]) for w in blocks),
           "the flagship bf16 blocks do not take the tensor-core bodies")
     longer = torch.cat([x, x.roll(1, 0)[:, 1:1 + EXTRA_TOKENS]], dim=1)
@@ -1113,7 +1165,13 @@ def phase_bwd_widths(nets, rng):
     for what, xs, bl, heads, dh in cases:
         dy2 = torch.from_numpy(rng.standard_normal(xs.shape).astype(
             "float32")).to(DEVICE).bfloat16()
+        last = xs
+        for w in bl[:-1]:
+            last = ft.block_fwd_plain(last, w, heads, dh)
+        if xs.data_ptr() % 16:
+            last = off_by_one(last)
         check(not ft.tensor_core_bwd(xs, bl[0], dh, dy2)
+              and not ft.tensor_core_bwd(last, bl[-1], dh, dy3)
               and not any(ft.tensor_core_fwd(xs, w, dh) for w in bl),
               f"bf16, {what}: would take a tensor-core body")
         e2 = TrainErrors()
@@ -1138,17 +1196,158 @@ def phase_bwd_widths(nets, rng):
         e = TrainErrors()
         e.add(zip(tensors(ft.block_bwd_fused(xs, dy2, bl[0], heads, dh)),
                   tensors(ft.block_bwd_plain(xs, dy2, bl[0], heads, dh))))
+        e3 = TrainErrors()
+        e3.add(zip(tensors(cb.cls_bwd_fused(last, dy3, bl[-1], heads, dh)),
+                   tensors(cb.cls_bwd_plain(last, dy3, bl[-1], heads,
+                                            dh))))
         args = (xs, dy3, bl, a["fn"], heads, dh, "rms")
         e6 = TrainErrors()
         e6.add(zip(trunk_tensors(trunk_bwd_fused(*args)),
                    trunk_tensors(trunk_bwd_plain(*args))))
-        ok = e.ok and e6.max_ok and e6.mean <= K6_BF16_MEAN
+        ok = e.ok and e3.ok and e6.max_ok and e6.mean <= K6_BF16_MEAN
         print(f"bf16 backward, {what}, FMA body: K2b vs plain mean|err|/L "
-              f"{e.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}), K6 vs plain "
-              f"mean|err|/L {e6.mean:.3e} (limit {K6_BF16_MEAN:.3e}), every"
-              f" max within 2^-6 L: {e.max_ok and e6.max_ok} "
+              f"{e.mean:.3e}, K3b {e3.mean:.3e} (limit "
+              f"{TRAIN_BF16_MEAN:.3e}), K6 vs plain mean|err|/L "
+              f"{e6.mean:.3e} (limit {K6_BF16_MEAN:.3e}), every max within "
+              f"2^-6 L: {e.max_ok and e3.max_ok and e6.max_ok} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"bf16 backward, {what}: disagrees with its plain version")
+    # K6 with only its CLS block's w1 off a 16-byte boundary: every block
+    # on the FMA bodies (the launch holds all of them to the tensor-core
+    # bodies' alignment), within phase 13's limits
+    bl = [*blocks[:-1], tuple(off_by_one(t) if j == 7 else t
+                              for j, t in enumerate(blocks[-1]))]
+    check(tensor_core_trunk(x, blocks, a["dh"])
+          and not tensor_core_trunk(x, bl, a["dh"]), "K6 with the CLS "
+          "block's w1 unaligned would take the tensor-core bodies")
+    args = (x, dy3, bl, a["fn"], a["heads"], a["dh"], "rms")
+    e6 = TrainErrors()
+    e6.add(zip(trunk_tensors(trunk_bwd_fused(*args)),
+               trunk_tensors(trunk_bwd_plain(*args))))
+    ok = e6.max_ok and e6.mean <= K6_BF16_MEAN
+    print(f"bf16 backward, flagship widths, the CLS block's w1 unaligned, FMA"
+          f" bodies: K6 vs plain mean|err|/L {e6.mean:.3e} (limit "
+          f"{K6_BF16_MEAN:.3e}), every max within 2^-6 L: {e6.max_ok} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "K6 with the CLS block's w1 unaligned disagrees with its plain "
+          "version")
+
+
+# Phase 5c: the weight products of the backwards (wgrad_mma_kernel for
+# bf16 where it takes the operands, else wgrad_kernel) against
+# wgrad_plain, which sums the kernels' row segments in their order.
+# (rows, K, N, row stride of A): the default update's at B=256 (K2b's
+# four, then K3b's CLS operands, row 0 of each 65-row frame), then
+# awkward ones: rows not a multiple of the 64-row chunk with K and N not
+# multiples of 64, 2 x 32 heads' qkv at 81 tokens, K not a multiple of 8
+# (the FMA kernel). Each also with A one element off a 16-byte boundary
+# (the FMA kernel). Both sum in fp32 within a segment in another order,
+# so bf16 results agree but for a flipped rounding now and then: phase
+# 5's limits (each max 2^-6 L, pooled mean 2^-18); fp32 1e-5 L.
+WGRAD_SHAPES = ((16640, 64, 768, 64), (16640, 256, 64, 256),
+                (16640, 64, 2048, 64), (16640, 2048, 64, 2048),
+                (256, 64, 256, 65 * 64), (256, 64, 2048, 64),
+                (1000, 40, 96, 40), (2592, 64, 192, 64), (500, 36, 64, 36))
+WGRAD_SEED = 8
+
+
+def wgrad_work(rows, k, n, esize=2):
+    """FLOPs and bytes of one weight product: A and B read once, C
+    written once."""
+    return 2 * rows * k * n, (rows * (k + n) + k * n) * esize
+
+
+def product_times(fn, a, b) -> dict:
+    """One weight product's time from CUDA events (`ms`; with the
+    wrapper's host work, which bounds the small products) and from the
+    profiler (`device_ms`, its kernels alone): `fn(a, b)` (the kernel's
+    wrapper) beside `a.t() @ b` (`library_ms`, `library_device_ms`:
+    cuBLAS with its sums kept in fp32, no reduced-precision split-K, as
+    the kernels keep them)."""
+    import torch
+
+    flags = torch.backends.cuda.matmul
+    keep = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return dict(ms=cuda_ms(lambda: fn(a, b), 10, runs=5),
+                    device_ms=device_ms(lambda: fn(a, b)),
+                    library_ms=cuda_ms(lambda: a.t() @ b, 10, runs=5),
+                    library_device_ms=device_ms(lambda: a.t() @ b))
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = keep
+
+
+def phase_weight_products():
+    """Phase 5c: the weight products against their plain version, whose
+    row segments (`wgrad_splits`) must be the library's; at the default
+    update's shapes their times on the tensor cores beside the FMA
+    kernel's (the same call with A unaligned), one PyTorch call for the
+    same product (`a.t() @ b`, cuBLAS: fp32 sums, a bf16 result) and the
+    bound. Its operands come from a generator of their own (WGRAD_SEED),
+    so the later phases draw what they drew before this phase existed."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.ops.fused_transformer import (_block_lib,
+                                                       weight_product,
+                                                       wgrad_plain,
+                                                       wgrad_splits)
+
+    lib = _block_lib()
+    for rows, k, n, _ in WGRAD_SHAPES:
+        segs = (lib.weight_product_segments(rows, k, n),
+                wgrad_splits(rows, k, n))
+        check(segs[0] == segs[1], f"weight product {rows} x ({k}, {n}): the "
+              f"library splits it into {segs[0]} row segments, wgrad_splits "
+              f"into {segs[1]}")
+    times, rng = {}, np.random.default_rng(WGRAD_SEED)
+    for dtype in ("bfloat16", "float32"):
+        dt, pooled = getattr(torch, dtype), TrainErrors()
+        for rows, k, n, lda in WGRAD_SHAPES:
+            base = torch.from_numpy(rng.standard_normal(
+                rows * lda + 8).astype("float32")).to(DEVICE).to(dt)
+            b = torch.from_numpy(rng.standard_normal((rows, n)).astype(
+                "float32")).to(DEVICE).to(dt)
+            for off in (0, 1):
+                a = base[off:].as_strided((rows, k), (lda, 1))
+                out, ref = weight_product(a, b), wgrad_plain(a, b)
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                mx = (out.float() - ref.float()).abs().max().item()
+                what = (f"weight product {dtype} {rows} x ({k}, {n}), A "
+                        f"{'un' if off else ''}aligned")
+                if dtype == "float32":
+                    check(mx <= TRAIN_F32_MAX * scale, f"{what}: max|err| "
+                          f"{mx:.3e} over {TRAIN_F32_MAX:.0e} L")
+                    continue
+                e = TrainErrors()
+                e.add([(out, ref)])
+                pooled.add([(out, ref)])
+                check(e.max_ok, f"{what}: max|err| {mx:.3e} over 2^-6 L")
+                if rows in (SAC_BATCH * 65, SAC_BATCH) and off == 0:
+                    bnd, by = bound_ms(*wgrad_work(rows, k, n), dtype)
+                    times[f"{rows} x ({k}, {n})"] = dict(
+                        **product_times(weight_product, a, b),
+                        fma_ms=cuda_ms(lambda: weight_product(
+                            base[1:].as_strided((rows, k), (lda, 1)), b),
+                            3, runs=5),
+                        bound_ms=bnd, bound_by=by)
+        if dtype == "bfloat16":
+            print(f"weight products bf16, {2 * len(WGRAD_SHAPES)} against "
+                  f"wgrad_plain: pooled mean|err|/L {pooled.mean:.3e} "
+                  f"(limit {TRAIN_BF16_MEAN:.3e}), every max within 2^-6 L:"
+                  f" {pooled.max_ok}", flush=True)
+            check(pooled.ok, "the bf16 weight products disagree with "
+                  "wgrad_plain")
+    print("weight products fp32: every max within 1e-5 L", flush=True)
+    for shape, t in times.items():
+        print(f"weight product bf16 {shape}: tensor cores {t['ms']:.4f} ms "
+              f"(device {t['device_ms']:.4f}), FMA kernel {t['fma_ms']:.4f} "
+              f"ms, a.t() @ b {t['library_ms']:.4f} ms (device "
+              f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']})", flush=True)
+    return times
 
 
 @contextlib.contextmanager
@@ -1276,7 +1475,9 @@ def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
 def phase_train_times(nets, rng):
     """Phase 8b: each training kernel and its plain version at B=256, and
     K4 by depth (its CLS-only block alone, one full block before it) for
-    the split of its time."""
+    the split of its time; the backwards (K2b, K3b) also by device time,
+    split into the per-frame pass, the weight products (wgrad_kernel,
+    wgrad_finish) and the vector finish."""
     from dgvit_tpu_torch.ops import got_megakernel as gm
 
     reps = {"K4": 5, "K2f": 10, "K2b": 5, "K3f": 10, "K3b": 10}
@@ -1294,10 +1495,22 @@ def phase_train_times(nets, rng):
         pms = cuda_ms(plain, max(1, reps[name] // 2), runs=5)
         bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
         rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by)
+        split = ""
+        if name in ("K2b", "K3b"):
+            by_kernel = device_kernels_ms(kern, calls=20)
+            part = lambda word: sum(t for k, t in by_kernel.items()
+                                    if word in k)
+            rows[name].update(pass_device_ms=part("bwd_kernel"),
+                              products_device_ms=part("wgrad"),
+                              finish_device_ms=part("vec_finish"))
+            split = (f"; device time a call (torch.profiler): per-frame pass "
+                     f"{part('bwd_kernel'):.4f} ms, weight products "
+                     f"{part('wgrad'):.4f} ms, vector finish "
+                     f"{part('vec_finish'):.4f} ms")
         print(f"{name} bf16 B={SAC_BATCH}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, bound {bnd:.5f} ms ({by})"
               + (earlier(ms, FMA_DESIGN_MS[name])
-                 if name in FMA_DESIGN_MS else ""), flush=True)
+                 if name in FMA_DESIGN_MS else "") + split, flush=True)
     return rows
 
 
@@ -1305,22 +1518,26 @@ def phase_train_times(nets, rng):
 # the profile (a name counts every kernel whose name holds it). Default:
 # K4 x3 and K2f x6 on the tensor-core forward kernels (the FMA forms
 # trunk_kernel and block_fwd_kernel<bf16, false> launch nothing: the
-# block_fwd_kernel count is K3f's two), K2b x6, K3b x2, and behind them
-# the 34 weight products with a finish each and the blocks' vector
+# block_fwd_kernel count is K3f's two), K2b x6, K3b x2 on the tensor-core
+# CLS body (its FMA form cls_bwd_kernel<bf16, false> launches nothing),
+# and behind them the 34 weight products on the tensor cores (the FMA
+# wgrad_kernel launches nothing) with a finish each and the blocks' vector
 # finishes. Trunk-gradient: K4 x5 on the tensor-core kernel, K6's
 # per-frame pass x2, and behind K6 the 17 weight products of a trunk
-# (3 x 4 + 5) with a finish each, the blocks' four vector finishes and the
-# final norm's.
+# (3 x 4 + 5), on the tensor cores, with a finish each, the blocks' four
+# vector finishes and the final norm's.
 DEFAULT_CUDA_LAUNCHES = {
     "trunk_mma_kernel": 3, "trunk_kernel": 0, "block_fwd_mma_kernel": 6,
-    "block_fwd_kernel": 2, "block_bwd_kernel": 6, "cls_bwd_kernel": 2,
-    "trunk_bwd_kernel": 0, "wgrad_kernel": 34, "wgrad_finish": 34,
-    "vec_finish": 8}
+    "block_fwd_kernel": 2, "block_bwd_kernel": 6,
+    "cls_bwd_kernel<__nv_bfloat16, true>": 2,
+    "cls_bwd_kernel<__nv_bfloat16, false>": 0,
+    "trunk_bwd_kernel": 0, "wgrad_mma_kernel": 34, "wgrad_kernel": 0,
+    "wgrad_finish": 34, "vec_finish": 8}
 TRUNK_CUDA_LAUNCHES = {
     "trunk_mma_kernel": 5, "trunk_kernel": 0, "block_fwd_mma_kernel": 0,
     "block_fwd_kernel": 0, "block_bwd_kernel": 0, "cls_bwd_kernel": 0,
-    "trunk_bwd_kernel": 2, "wgrad_kernel": 34, "wgrad_finish": 34,
-    "vec_finish": 10}
+    "trunk_bwd_kernel": 2, "wgrad_mma_kernel": 34, "wgrad_kernel": 0,
+    "wgrad_finish": 34, "vec_finish": 10}
 
 
 def check_profile(seen, want, label):
@@ -1362,6 +1579,10 @@ def phase_profile(update, label="bf16"):
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {t / 1e3:9.3f} ms  x{count:<4d} {t / 1e3 / count:8.3f} ms "
               f"a call  {key[:80]}", flush=True)
+    products = [(t, c) for k, t, c in rows if "wgrad" in k]
+    print(f"  weight products (wgrad*, their finishes included): "
+          f"{sum(t for t, _ in products) / 1e3:.3f} ms over "
+          f"{sum(c for _, c in products)} launches", flush=True)
     return {key: count for key, _, count in rows}
 
 
@@ -2563,6 +2784,8 @@ def smem_mirror_mismatches():
                      b.block_backward_smem(code, 0, *w, 1)),
                     ("K3b", smem.bwd_fma(n, d, mlp),
                      b.block_backward_smem(code, 1, *w, 0)),
+                    ("K3b mma", smem.bwd_cls_mma(n, heads, dh, mlp),
+                     b.block_backward_smem(code, 1, *w, 1)),
                     ("K6", smem.trunk_bwd(*w, dtype, False),
                      b.trunk_backward_smem(code, *w, 0)),
                     ("K6 mma", smem.trunk_bwd(*w, dtype, True),
@@ -2808,10 +3031,11 @@ def phase_attention_times(nets, rng):
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
-# B=256, K4 and K2f at B=256, K8 by shape.
+# B=256, K4 and K2f at B=256, K3b at B=256, K8 by shape.
 # Recorded, not measured in this run: they go on the printed lines only,
 # never into the kernels line.
 FMA_DESIGN_MS = {"K2b": 10.8233, "K6": 39.3067, "K4": 5.6300, "K2f": 1.6128,
+                 "K3b": 1.9268,
                  "K8": {"(256, 4, 65, 64)": 0.2149,
                         "(64, 4, 257, 64)": 0.8475,
                         "(8, 2, 65, 160)": 0.0854}}
@@ -2931,6 +3155,7 @@ def main() -> int:
     nets = build_nets(actor_flat, critic_flat)
     train_worst = phase_train_kernels(nets, rng)
     phase_bwd_widths(nets, rng)
+    wgrad_times = phase_weight_products()
     sac_launches, update_s, one_update = phase_sac(actor_flat, critic_flat)
     sac_fp32, default_fp32 = phase_sac_fp32()
     check_profile(phase_profile(one_update), DEFAULT_CUDA_LAUNCHES,
@@ -2997,6 +3222,8 @@ def main() -> int:
                 "batch": SAC_BATCH, "dtype": "bfloat16",
                 "max_abs_err_fp32": train_worst[(short, "float32")],
                 "launches_per_update": PER_UPDATE[short],
+                **({"weight_products": wgrad_times} if short == "K2b"
+                   else {}),
                 "launches_by_path": {
                     "sac_update": sac_launches[short],
                     "train": loop_launches[short],

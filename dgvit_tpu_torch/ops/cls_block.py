@@ -52,6 +52,14 @@ def cls_fwd_plain(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
                            cdt=x.dtype).to(x.dtype)
 
 
+def _kv_rows(h1: torch.Tensor, wkv: torch.Tensor,
+             cdt: torch.dtype) -> torch.Tensor:
+    """k|v of every row from the normed rows h1 and wqkv's k|v columns,
+    rounded to the compute dtype: the backward's one recompute over every
+    row (a tensor-core product in the bf16 CUDA body)."""
+    return _mm(h1, wkv).to(cdt)
+
+
 def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
                   w: Sequence[torch.Tensor], heads: int, dim_head: int):
     """Plain version of K3b, after `_cls_bwd_body`: x (B, n, d) and the
@@ -67,7 +75,7 @@ def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     a_s32 = _f32(an_s).reshape(-1)
     xhat1, rstd1, h1_32 = _ln_stats(x32, a_s32, an_b)
     h1 = h1_32.to(cdt)
-    kv = _mm(h1, wqkv[:, inner:]).to(cdt)
+    kv = _kv_rows(h1, wqkv[:, inner:], cdt)
     h_cls = h1[:, :1]                                       # (B, 1, d)
     q = _heads(_mm(h_cls, wqkv[:, :inner]).to(cdt), heads)  # (B, H, 1, dh)
     k, v = _heads(kv[..., :inner], heads), _heads(kv[..., inner:], heads)

@@ -29,17 +29,20 @@
 //     vector gradients (fp32).
 //  2. the weight gradients summed over every frame: each matrix gradient
 //     A^T B over all B*n rows (B rows for the CLS-only operands of K3) is a
-//     tiled product split over fixed row segments, each written to its own
-//     fp32 partial, then the partials are summed in segment order; each
+//     tiled product split over fixed row segments (on the tensor cores in
+//     bf16: wgrad_mma_kernel), each written to its own fp32 partial, then
+//     the partials are summed in segment order; each
 //     vector gradient sums the frames' row sums in frame order. Both
 //     orders are fixed by the shapes, so a gradient is the same from run
 //     to run (no atomics). The sums are cast to T at the end, as the TPU
 //     kernel casts its fp32 accumulators to the weight dtype.
 // The recompute of pass 1 is bit-identical to the forward kernel (same
-// products in the same order) for fp32, for K3b and for the bf16 FMA
-// body. At the flagship widths the bf16 full block runs on the tensor
-// cores both ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
-// block_bwd_mma, with the same bf16 operands and rounding points; where
+// products in the same order) for fp32 and for the bf16 FMA bodies. At
+// the flagship widths the bf16 full block runs on the tensor cores both
+// ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
+// block_bwd_mma, and K3b's k/v recompute runs on them (cls_bwd_mma)
+// while K3f keeps the FMA body, with the same bf16 operands and rounding
+// points; where
 // their sums differ in order (see block_mma_fwd.cuh), now and then one
 // bf16 rounding of the recomputed q, k, v, o or hidden activations lands
 // on the other side. That is the same kind of difference the checks
@@ -71,10 +74,14 @@
 // (block_bwd_mma, below; other widths keep the FMA body): q, k, v
 // and do of a head stay in shared memory, weight tiles arrive by
 // cp.async, and only the weight products' operands go to the workspace.
-// The bf16 K2f at those widths runs on the tensor cores too
-// (block_fwd_mma_kernel). K3f, the CLS-only backward body (K3b), the fp32
-// bodies, K6's forward chain and the weight products (wgrad_kernel) are
-// FMA work on fp32 CUDA cores, far from the bf16 tensor-core roofline.
+// The CLS-only backward body (K3b, and K6's last block) does the same for
+// its two products over every row, the k/v recompute and dk|dv wkv^T
+// (cls_bwd_mma), and keeps its single-row chains on the CUDA cores. The
+// bf16 K2f at those widths runs on the tensor cores too
+// (block_fwd_mma_kernel), and so do the bf16 weight products
+// (wgrad_mma_kernel, bound by the bytes of their operands). K3f, the fp32
+// bodies and products, and K6's forward chain are FMA work on fp32 CUDA
+// cores, far from the bf16 tensor-core roofline.
 //
 // A frame lives in one thread block's shared memory, so each body holds
 // frames up to a length (at the flagship widths: the FMA forward 147
@@ -1138,18 +1145,402 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
             });
 }
 
-template <typename T>
+// ---- the bf16 CLS-only backward on the tensor cores ----------------------
+//
+// The same function as cls_bwd_body<bf16>, with its rounding points (k, v,
+// q, o, h2, hid, dpre, g1, do, ds, dq and dk|dv rounded to bf16 where it
+// rounds them). Its two products over every row of the frame run on
+// mma.sync tiles as block_bwd_mma runs them: per head, k and v are
+// projected from h1 (a bf16 tile in shared memory, rows padded to a
+// multiple of 16 with zeros) with the head's k|v columns of wqkv (staged
+// by cp.async, the next head's slice in flight), and the head's dk|dv tile
+// times the same slice read as [N][K] is added into the fp32 dh1 tile.
+// Only the order of those two products' sums differs from the FMA body;
+// every product of the CLS row (q, the scores and P.V, the
+// out-projection, the MLP matvecs, do, dp, dq, and dq's part of dh1) is
+// the FMA body's fp32 chain, term by term in the same order, on the CUDA
+// cores: one row gives a tensor core nothing to do. Their operands are
+// read from shared memory, their weights from device memory (L2) in
+// 16-byte loads; the MLP runs every hidden column at once, eight a
+// thread, and dh2's partial sums over chunks of kClsChunk hidden columns
+// are taken in parallel, then added in chunk order as the FMA body adds
+// them. k and v are projected again in the backward's head loop rather
+// than kept, so the layout does not grow with the heads; the
+// probabilities are formed again there by the same code. k, v and dk|dv
+// never go to device memory but for dk|dv's slot, which the weight
+// product h1^T dk|dv reads.
+//
+// Widths: d = dim_head = 64, n <= 80 rows, mlp a multiple of 64 (the
+// checks of mma_body_takes), any number of heads.
+
+constexpr int kLdKv = 2 * kMmaD + 8;  // row stride of a head's k|v tiles
+constexpr int kClsChunk = 128;        // dh2's hidden columns a partial sum
+
+// Shared memory of cls_bwd_mma for n rows, inner = heads x 64 and an
+// mlp-wide MLP: what lives through the whole pass, two buffers of a head's
+// k|v slice of wqkv, then one region that the head loops (k, v, dk|dv) and
+// the MLP (the rounded dpre, dh2's partial sums) lay out in turn.
+struct ClsMmaSmem {
+  size_t x32, acc, stats, h1, q, o, dq, dob, dy, x1, g1, h2, g1c, p, ds, w,
+      k, v, dkv, dpre, part, total;
+  __host__ __device__ ClsMmaSmem(int n, int inner, int mlp) {
+    const size_t np = round16(n), rows = sizeof(float) * n * kMmaD,
+                 tile = sizeof(bf16) * np * kLd,
+                 wkv = sizeof(bf16) * kMmaD * kLdKv,
+                 vec = sizeof(bf16) * inner, d32 = sizeof(float) * kMmaD,
+                 d16 = sizeof(bf16) * kMmaD;
+    const int chunks = (mlp + kClsChunk - 1) / kClsChunk;
+    size_t at = 0;
+    x32 = take(at, rows);
+    acc = take(at, rows);
+    stats = take(at, sizeof(float) * (2 * n + 2));
+    h1 = take(at, tile);
+    q = take(at, vec);
+    o = take(at, vec);
+    dq = take(at, vec);
+    dob = take(at, vec);
+    dy = take(at, d32);
+    x1 = take(at, d32);
+    g1 = take(at, d32);
+    h2 = take(at, d16);
+    g1c = take(at, d16);
+    p = take(at, sizeof(float) * n);
+    ds = take(at, sizeof(float) * n);
+    w = take(at, 2 * wkv);
+    const size_t u = at;
+    k = take(at, tile);
+    v = take(at, tile);
+    dkv = take(at, sizeof(bf16) * np * kLdKv);
+    const size_t heads_end = at;
+    at = u;
+    dpre = take(at, sizeof(bf16) * mlp);
+    part = take(at, sizeof(float) * chunks * kMmaD);
+    total = heads_end > at ? heads_end : at;
+  }
+};
+
+// the eight bf16 values of a 16-byte load from device memory, as floats
+__device__ __forceinline__ void load8(float (&out)[8], const bf16* g) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(g);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = tof(b[i]);
+}
+
+// The per-frame pass of the CLS-only block's backward for frame f, bf16,
+// on the tensor cores; the same operands, slots and row sums as
+// cls_bwd_body (its kv slot stays unwritten: no weight product reads
+// it).
+__device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
+                                            unsigned char* smem_raw) {
+  using T = bf16;
+  constexpr int D = kMmaD, DH = kMmaD;
+  const Dims m = a.m;
+  const int n = a.n, np = round16(n), heads = m.heads, inner = heads * DH,
+            i2 = 2 * inner, i3 = 3 * inner, mlp = m.mlp;
+  const ClsMmaSmem L(n, inner, mlp);
+  float* x32 = (float*)(smem_raw + L.x32);
+  float* acc = (float*)(smem_raw + L.acc);  // row 0: dh2; then dh1
+  float* mean1 = (float*)(smem_raw + L.stats);
+  float* rstd1 = mean1 + n;
+  float* mean2 = rstd1 + n;
+  float* rstd2 = mean2 + 1;
+  T* h1s = (T*)(smem_raw + L.h1);
+  T* qs = (T*)(smem_raw + L.q);     // CLS-row vectors, inner wide
+  T* os = (T*)(smem_raw + L.o);
+  T* dqs = (T*)(smem_raw + L.dq);
+  T* dos = (T*)(smem_raw + L.dob);
+  float* dys = (float*)(smem_raw + L.dy);  // CLS-row vectors, d wide
+  float* x1 = (float*)(smem_raw + L.x1);
+  float* g1 = (float*)(smem_raw + L.g1);
+  T* h2s = (T*)(smem_raw + L.h2);
+  T* g1c = (T*)(smem_raw + L.g1c);
+  float* p = (float*)(smem_raw + L.p);     // one head's probabilities
+  float* ds = (float*)(smem_raw + L.ds);   // one head's dp, then ds
+  T* ws = (T*)(smem_raw + L.w);
+  T* k = (T*)(smem_raw + L.k);
+  T* v = (T*)(smem_raw + L.v);
+  T* dkv = (T*)(smem_raw + L.dkv);
+  T* dpre = (T*)(smem_raw + L.dpre);
+  float* part = (float*)(smem_raw + L.part);
+  const T* an_s = (const T*)a.w[0];
+  const T* an_b = (const T*)a.w[1];
+  const T* wqkv = (const T*)a.w[2];
+  const T* wout = (const T*)a.w[3];
+  const T* bout = (const T*)a.w[4];
+  const T* fn_s = (const T*)a.w[5];
+  const T* fn_b = (const T*)a.w[6];
+  const T* w1 = (const T*)a.w[7];
+  const T* b1 = (const T*)a.w[8];
+  const T* w2 = (const T*)a.w[9];
+  const size_t fr = (size_t)f * n;
+  const T* x = (const T*)a.x + fr * D;
+  const T* dy = (const T*)a.dy + (size_t)f * D;
+  T* dx = (T*)a.dx + fr * D;
+  T* H1 = (T*)a.s[0] + fr * D;
+  T* O = (T*)a.s[2] + (size_t)f * inner;
+  T* H2 = (T*)a.s[3] + (size_t)f * D;
+  T* HID = (T*)a.s[4] + (size_t)f * mlp;
+  T* DPRE = (T*)a.s[5] + (size_t)f * mlp;
+  T* G1C = (T*)a.s[6] + (size_t)f * D;
+  T* DO = (T*)a.s[7] + (size_t)f * inner;
+  T* DKV = (T*)a.s[8] + fr * i2;
+  T* Q = (T*)a.s[9] + (size_t)f * inner;
+  T* DQ = (T*)a.s[10] + (size_t)f * inner;
+  float* V = a.vec + (size_t)f * (6 * D + mlp);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // slice i of the 2 x heads the pass walks (the forward's heads, then the
+  // backward's): the k|v columns of head i % heads, into buffer i % 2
+  auto stage = [&](int i) {
+    T* s = ws + (i % 2) * D * kLdKv;
+    const int hd = i % heads;
+    for (int kv = 0; kv < 2; ++kv)
+      stage_rows(s + kv * DH, kLdKv, wqkv + (kv + 1) * inner + hd * DH, i3,
+                 D, DH);
+    cp_async_commit();
+  };
+  // k and v of a head (its slice in w) from h1s, rounded
+  auto project_kv = [&](const T* w) {
+    block_mma<false, false>(np, 2 * DH, D, h1s, kLd, w, kLdKv,
+                            [=](int r, int c, float v0, float v1) {
+                              put2(c < DH ? k : v, kLd, r, c % DH, v0, v1);
+                            });
+  };
+
+  // ---- recompute: LN1 (all rows) -> q (CLS row) -> per head k/v (all
+  // rows) and the CLS row's attention -> x1, LN2 ------------------------
+  stage(0);
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) x32[i] = tof(x[i]);
+  for (int c = threadIdx.x; c < D; c += blockDim.x) dys[c] = tof(dy[c]);
+  __syncthreads();
+  layernorm_stats(x32, n, D, mean1, rstd1);
+  layernorm_tile(x32, n, D, an_s, an_b, h1s, kLd);
+  zero_rows(h1s, kLd, n, np, D);
+  __syncthreads();
+  store_rows(H1, D, h1s, kLd, n, D);
+  for (int c = threadIdx.x; c < inner; c += blockDim.x) {
+    float s = 0.f;
+    for (int kk = 0; kk < D; ++kk)
+      s = fmaf(tof(h1s[kk]), tof(wqkv[(size_t)kk * i3 + c]), s);
+    qs[c] = Q[c] = fromf<T>(s);
+  }
+  for (int hd = 0; hd < heads; ++hd) {
+    cp_async_wait<0>();
+    __syncthreads();
+    stage(hd + 1);  // the next head's slice, or the backward's first
+    project_kv(ws + (hd % 2) * D * kLdKv);
+    __syncthreads();
+    if (warp == 0) softmax_row<T>(qs + hd * DH, k, kLd, n, DH, m.scale, p);
+    __syncthreads();
+    for (int c = threadIdx.x; c < DH; c += blockDim.x) {
+      float s = 0.f;
+      for (int j = 0; j < n; ++j)
+        s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * kLd + c]), s);
+      os[hd * DH + c] = O[hd * DH + c] = fromf<T>(s);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int kk = 0; kk < inner; ++kk)
+      s = fmaf(tof(os[kk]), tof(wout[(size_t)kk * D + c]), s);
+    x1[c] = x32[c] + (s + tof(bout[c]));
+  }
+  __syncthreads();
+  layernorm_stats(x1, 1, D, mean2, rstd2);
+  layernorm_tile(x1, 1, D, fn_s, fn_b, h2s, D);
+  __syncthreads();
+
+  // ---- MLP forward + backward on the CLS row, eight hidden columns a
+  // thread: hid, dpre (its unrounded sum is db1's row), then dh2 = dpre_c
+  // w1^T in acc row 0 -----------------------------------------------------
+  for (int c = threadIdx.x; c < D; c += blockDim.x) H2[c] = h2s[c];
+  for (int c0 = 8 * threadIdx.x; c0 < mlp; c0 += 8 * blockDim.x) {
+    float pre[8] = {}, wv[8];
+    for (int kk = 0; kk < D; ++kk) {
+      load8(wv, w1 + (size_t)kk * mlp + c0);
+      const float h = tof(h2s[kk]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pre[i] = fmaf(h, wv[i], pre[i]);
+    }
+    float hid[8], dp[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float s = 0.f;
+      for (int k8 = 0; k8 < D; k8 += 8) {
+        load8(wv, w2 + (size_t)(c0 + i) * D + k8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s = fmaf(dys[k8 + j], wv[j], s);
+      }
+      const float z = pre[i] + tof(b1[c0 + i]);
+      hid[i] = gelu<T>(z);
+      dp[i] = s * gelu_grad<T>(z);
+      V[6 * D + c0 + i] = dp[i];  // db1: one row, the unrounded dpre
+    }
+    const uint4 hk = make_uint4(pack_bf16(hid[0], hid[1]),
+                                pack_bf16(hid[2], hid[3]),
+                                pack_bf16(hid[4], hid[5]),
+                                pack_bf16(hid[6], hid[7]));
+    const uint4 dk = make_uint4(pack_bf16(dp[0], dp[1]),
+                                pack_bf16(dp[2], dp[3]),
+                                pack_bf16(dp[4], dp[5]),
+                                pack_bf16(dp[6], dp[7]));
+    *reinterpret_cast<uint4*>(HID + c0) = hk;
+    *reinterpret_cast<uint4*>(DPRE + c0) = dk;
+    *reinterpret_cast<uint4*>(dpre + c0) = dk;
+  }
+  __syncthreads();
+  // dh2's partial sums over chunks of kClsChunk hidden columns, each the
+  // FMA body's chain, all at once; then added in chunk order
+  const int chunks = (mlp + kClsChunk - 1) / kClsChunk;
+  for (int it = threadIdx.x; it < chunks * D; it += blockDim.x) {
+    const int c = it % D, k0 = it / D * kClsChunk;
+    const int kn = min(kClsChunk, mlp - k0);
+    float s = 0.f, wv[8];
+    for (int k8 = 0; k8 < kn; k8 += 8) {
+      load8(wv, w1 + (size_t)c * mlp + k0 + k8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        s = fmaf(tof(dpre[k0 + k8 + j]), wv[j], s);
+    }
+    part[it] = s;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) s += part[ch * D + c];
+    acc[c] = s;
+    V[5 * D + c] = dys[c];  // db2
+  }
+  __syncthreads();
+  ln_bwd<T>(x1, mean2, rstd2, acc, 1, D, fn_s, V + 3 * D, V + 4 * D,
+            [=](int r, int c, float v) { g1[c] = dys[c] + v; });
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    g1c[c] = G1C[c] = fromf<T>(g1[c]);
+    V[2 * D + c] = g1[c];  // dbout
+  }
+  __syncthreads();
+  // do = T(g1c wout^T): a chain over d a column
+  for (int c = threadIdx.x; c < inner; c += blockDim.x) {
+    float s = 0.f, wv[8];
+    for (int k8 = 0; k8 < D; k8 += 8) {
+      load8(wv, wout + (size_t)c * D + k8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s = fmaf(tof(g1c[k8 + j]), wv[j], s);
+    }
+    dos[c] = DO[c] = fromf<T>(s);
+  }
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) acc[i] = 0.f;
+
+  // ---- attention backward, per head; acc = dh1 --------------------------
+  for (int hd = 0; hd < heads; ++hd) {
+    const int i = heads + hd;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < 2 * heads) stage(i + 1);
+    const T* w = ws + (i % 2) * D * kLdKv;
+    const T* qh = qs + hd * DH;
+    const T* doh = dos + hd * DH;
+    project_kv(w);
+    __syncthreads();
+    // the forward's probabilities again; dp = do v^T, then
+    // ds = T((p (dp - sum_j dp p)) scale), as cls_bwd_body forms them
+    if (warp == 0) {
+      softmax_row<T>(qh, k, kLd, n, DH, m.scale, p);
+      for (int j = lane; j < n; j += 32) {
+        float s = 0.f;
+        for (int e = 0; e < DH; ++e)
+          s = fmaf(tof(doh[e]), tof(v[(size_t)j * kLd + e]), s);
+        ds[j] = s;  // dp
+      }
+      __syncwarp();
+      float s = 0.f;
+      for (int j = lane; j < n; j += 32) s += ds[j] * p[j];
+      s = warp_sum(s);
+      for (int j = lane; j < n; j += 32)
+        ds[j] = rt<T>((p[j] * (ds[j] - s)) * m.scale);
+    }
+    __syncthreads();
+    // dk = T(ds^T q) | dv = T(p_c^T do) into the tile (zero past row n);
+    // dq = T(ds k), a chain over the keys a column
+    for (int it = threadIdx.x; it < np * DH; it += blockDim.x) {
+      const int r = it / DH, c = it % DH * 2;
+      float v0 = 0.f, v1 = 0.f;
+      if (r < n) {
+        if (c < DH) {
+          v0 = ds[r] * tof(qh[c]);
+          v1 = ds[r] * tof(qh[c + 1]);
+        } else {
+          const float pc = rt<T>(p[r]);
+          v0 = pc * tof(doh[c - DH]);
+          v1 = pc * tof(doh[c - DH + 1]);
+        }
+      }
+      put2(dkv, kLdKv, r, c, v0, v1);
+    }
+    for (int e = threadIdx.x; e < DH; e += blockDim.x) {
+      float t = 0.f;
+      for (int j = 0; j < n; ++j)
+        t = fmaf(ds[j], tof(k[(size_t)j * kLd + e]), t);
+      dqs[hd * DH + e] = DQ[hd * DH + e] = fromf<T>(t);
+    }
+    __syncthreads();
+    // acc += dk|dv @ wkv[head]^T (the slice read as [N][K]); dk|dv to its
+    // slot (wqkv's column order: dk of every head, then dv)
+    block_mma<false, true>(np, D, 2 * DH, dkv, kLdKv, w, kLdKv,
+                           [=](int r, int c, float v0, float v1) {
+                             if (r < n) {
+                               acc[r * D + c] += v0;
+                               acc[r * D + c + 1] += v1;
+                             }
+                           });
+    store_rows(DKV + hd * DH, i2, dkv, kLdKv, n, DH);
+    store_rows(DKV + inner + hd * DH, i2, dkv + DH, kLdKv, n, DH);
+  }
+  __syncthreads();
+  // dh1 of the CLS row gains the q path: dq wqkv[:, :inner]^T, a chain over
+  // inner a column
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float s = 0.f, wv[8];
+    for (int k8 = 0; k8 < inner; k8 += 8) {
+      load8(wv, wqkv + (size_t)c * i3 + k8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s = fmaf(tof(dqs[k8 + j]), wv[j], s);
+    }
+    acc[c] += s;
+  }
+  __syncthreads();
+  ln_bwd<T>(x32, mean1, rstd1, acc, n, D, an_s, V, V + D,
+            [=](int r, int c, float v) {
+              dx[(size_t)r * D + c] = fromf<T>(r == 0 ? v + g1[c] : v);
+            });
+}
+
+// The CLS-only backward body: with Mma the bf16 tensor-core body (the
+// flagship widths, see mma_body_takes), else the FMA body of T.
+template <typename T, bool Mma>
+__device__ __forceinline__ void cls_bwd(const BwdArgs& a, int f,
+                                        unsigned char* smem_raw) {
+  if constexpr (Mma)
+    cls_bwd_mma(a, f, smem_raw);
+  else
+    cls_bwd_body<T>(a, f, smem_raw);
+}
+
+template <typename T, bool Mma>
 __global__ void __launch_bounds__(kThreads)
     cls_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cls_bwd_body<T>(a, blockIdx.x, smem_raw);
+  cls_bwd<T, Mma>(a, blockIdx.x, smem_raw);
 }
 
 // K6, the per-frame pass of the whole trunk's backward. One thread block
 // per frame: the forward chain (the whole-trunk forward's blocks, stream
 // rounded to T after each and written to blk[i + 1].x), the final norm's
-// backward on the rounded CLS row, then cls_bwd_body and block_bwd_body
-// in reverse. A block's dx is written in T and read back as the next
+// backward on the rounded CLS row, then the CLS block's and the full
+// blocks' backward bodies in reverse (with Mma: cls_bwd_mma and
+// block_bwd_mma). A block's dx is written in T and read back as the next
 // one's dy, which is the rounding between blocks.
 struct TrunkBwdArgs {
   BwdArgs blk[kMaxTrunkDepth];
@@ -1240,7 +1631,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  cls_bwd_body<T>(a.blk[depth - 1], f, smem_raw);
+  cls_bwd<T, Mma>(a.blk[depth - 1], f, smem_raw);
   for (int i = depth - 2; i >= 0; --i) {
     __syncthreads();
     block_bwd<T, Mma>(a.blk[i], f, smem_raw);
@@ -1301,6 +1692,76 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// The same product for bf16 on the tensor cores: the same tiles, row
+// segments and partials as wgrad_kernel, each thread block walking its
+// segment's rows in order, kWgRows at a time. A chunk's rows of A and B go
+// to shared memory by cp.async (the next chunk's in flight, zeros past
+// the segment's end and past K or N), and each warp adds its 16 x 32
+// piece of the 64 x 64 tile as mma.sync products into fp32 registers, A
+// read transposed through ldmatrix.trans. The order of every sum is fixed
+// by the shapes, so a gradient is the same from run to run. What bounds
+// it is bytes: A is read once for each tile column of C, B once for each
+// tile row (h2^T dpre at B=256 moves ~136 MB, 3.4 GFLOP). Takes what
+// wgrad_mma_takes says; other products keep wgrad_kernel, and fp32 always
+// does (TF32 would not meet the fp32 checks).
+constexpr int kWgRows = 64;         // rows of a chunk
+constexpr int kWgLd = kTile + 8;    // row stride of a chunk's tiles
+
+__global__ void __launch_bounds__(kThreads)
+    wgrad_mma_kernel(const bf16* A, int lda, const bf16* B, int ldb, long R,
+                     int K, int N, long seg_rows, float* part) {
+  __shared__ __align__(16) bf16 As[2][kWgRows][kWgLd];
+  __shared__ __align__(16) bf16 Bs[2][kWgRows][kWgLd];
+  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int kc = min(kTile, K - k0), nc = min(kTile, N - n0);
+  const long r_begin = (long)blockIdx.z * seg_rows;
+  const long r_end = r_begin + seg_rows < R ? r_begin + seg_rows : R;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = 16 * (warp % 4), c0 = 32 * (warp / 4);
+  // rows r0.. of the segment into buffer buf, 16 bytes a copy
+  auto stage = [&](long r0, int buf) {
+    const long rows = r_end - r0;
+    for (int i = threadIdx.x; i < kWgRows * (kTile / 8); i += blockDim.x) {
+      const int r = i / (kTile / 8), c = i % (kTile / 8) * 8;
+      if (r < rows && c < kc)
+        cp_async16(&As[buf][r][c], A + (size_t)(r0 + r) * lda + k0 + c);
+      else
+        *reinterpret_cast<uint4*>(&As[buf][r][c]) = make_uint4(0, 0, 0, 0);
+      if (r < rows && c < nc)
+        cp_async16(&Bs[buf][r][c], B + (size_t)(r0 + r) * ldb + n0 + c);
+      else
+        *reinterpret_cast<uint4*>(&Bs[buf][r][c]) = make_uint4(0, 0, 0, 0);
+    }
+    cp_async_commit();
+  };
+  float acc[4][4] = {};
+  if (r_begin < r_end) stage(r_begin, 0);
+  int buf = 0;
+  for (long r0 = r_begin; r0 < r_end; r0 += kWgRows, buf ^= 1) {
+    if (r0 + kWgRows < r_end) {
+      stage(r0 + kWgRows, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    warp_mma<4, true, false>(acc, &As[buf][0][0], kWgLd, m0, &Bs[buf][0][0],
+                             kWgLd, c0, kWgRows);
+    __syncthreads();
+  }
+  float* P = part + (size_t)blockIdx.z * K * N;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + m0 + g + 8 * h, c = n0 + c0 + 8 * j + 2 * t;
+      if (k < K && c < N)
+        *reinterpret_cast<float2*>(P + (size_t)k * N + c) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+}
+
 // C[k][col0 + c] = T(sum over segments, in order, of part[s][k][c])
 template <typename T>
 __global__ void wgrad_finish(const float* part, int S, int K, int N, T* C,
@@ -1343,6 +1804,8 @@ struct Product {
   int ldc, col0;
 };
 
+// The row segments of a product: at least 128 rows each, about
+// kTargetCtas thread blocks in all.
 int splits(long R, int K, int N) {
   const int tiles = ((K + kTile - 1) / kTile) * ((N + kTile - 1) / kTile);
   const long most = R / 128 > 1 ? R / 128 : 1;  // >= 128 rows a segment
@@ -1418,6 +1881,38 @@ float* bind(bool cls, size_t esize, BwdArgs& a, unsigned char* ws, int B) {
   return (float*)(ws + w.part);
 }
 
+// Whether wgrad_mma_kernel takes a bf16 product: K and N multiples of 8,
+// row strides multiples of 8 elements and A and B 16-byte aligned (its
+// 16-byte copies).
+bool wgrad_mma_takes(const Product& p) {
+  return p.K % 8 == 0 && p.N % 8 == 0 && p.lda % 8 == 0 && p.ldb % 8 == 0 &&
+         ((uintptr_t)p.A | (uintptr_t)p.B) % 16 == 0;
+}
+
+// One weight product: its partial sums over the row segments into `part`
+// (splits(R, K, N) x K x N floats), then their sum in segment order.
+template <typename T>
+int launch_product(const Product& p, float* part, cudaStream_t stream) {
+  const int S = splits(p.R, p.K, p.N);
+  const long seg = (p.R + S - 1) / S;
+  const dim3 grid((p.K + kTile - 1) / kTile, (p.N + kTile - 1) / kTile, S);
+  bool mma = false;
+  if constexpr (std::is_same<T, bf16>::value)
+    if ((mma = wgrad_mma_takes(p)))
+      wgrad_mma_kernel<<<grid, kThreads, 0, stream>>>(
+          (const T*)p.A, p.lda, (const T*)p.B, p.ldb, p.R, p.K, p.N, seg,
+          part);
+  if (!mma)
+    wgrad_kernel<T><<<grid, kThreads, 0, stream>>>(
+        (const T*)p.A, p.lda, (const T*)p.B, p.ldb, p.R, p.K, p.N, seg, part);
+  int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long kn = (long)p.K * p.N;
+  wgrad_finish<T><<<(unsigned)((kn + kThreads - 1) / kThreads), kThreads, 0,
+                    stream>>>(part, S, p.K, p.N, (T*)p.C, p.ldc, p.col0);
+  return cudaGetLastError();
+}
+
 // Pass 2 of a block's backward: its weight-gradient products and vector
 // gradients from the operands the per-frame pass left in `a`'s slots.
 template <typename T>
@@ -1426,21 +1921,9 @@ int launch_grads(bool cls, const BwdArgs& a, void* const* g, float* part,
   int err;
   Product p[5];
   const int k = products(cls, a, g, B, p);
-  for (int i = 0; i < k; ++i) {
-    const int S = splits(p[i].R, p[i].K, p[i].N);
-    const long seg = (p[i].R + S - 1) / S;
-    const dim3 grid((p[i].K + kTile - 1) / kTile, (p[i].N + kTile - 1) / kTile,
-                    S);
-    wgrad_kernel<T><<<grid, kThreads, 0, stream>>>(
-        (const T*)p[i].A, p[i].lda, (const T*)p[i].B, p[i].ldb, p[i].R,
-        p[i].K, p[i].N, seg, part);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const long kn = (long)p[i].K * p[i].N;
-    wgrad_finish<T><<<(unsigned)((kn + kThreads - 1) / kThreads), kThreads, 0,
-                      stream>>>(part, S, p[i].K, p[i].N, (T*)p[i].C, p[i].ldc,
-                                p[i].col0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  for (int i = 0; i < k; ++i)
+    if ((err = launch_product<T>(p[i], part, stream)) != cudaSuccess)
+      return err;
   const int d = a.m.d, L_ = 6 * d + a.m.mlp;
   // row-sum layout an_s, an_b, bout, fn_s, fn_b, b2, b1 -> grads 0 1 4 5 6 10 8
   VecOut o = {{g[0], g[1], g[4], g[5], g[6], g[10], g[8]},
@@ -1450,9 +1933,10 @@ int launch_grads(bool cls, const BwdArgs& a, void* const* g, float* part,
   return cudaGetLastError();
 }
 
-// Whether block_bwd_mma takes these widths and pointers: d = dim_head =
-// kMmaD, n <= kMmaRows, mlp a multiple of kMmaChunk, and every tensor it
-// copies in 16-byte pieces 16-byte aligned (the workspace slots are).
+// Whether block_bwd_mma and cls_bwd_mma take these widths and pointers:
+// d = dim_head = kMmaD, n <= kMmaRows, mlp a multiple of kMmaChunk, and
+// every tensor they copy in 16-byte pieces 16-byte aligned (the workspace
+// slots are).
 bool mma_body_takes(const BwdArgs& a) {
   const Dims& m = a.m;
   uintptr_t any = (uintptr_t)a.x | (uintptr_t)a.dy;
@@ -1467,14 +1951,17 @@ int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
   float* part = bind(cls, sizeof(T), a, ws, B);
   const BwdSmem L(a.n, a.m.d, a.m.hc);
   int err;
-  if (cls) {
-    err = launch_smem(cls_bwd_kernel<T>, B, L.total, stream, a);
-  } else if (!mma) {
-    err = launch_smem(block_bwd_kernel<T, false>, B, L.total, stream, a);
+  if (!mma) {
+    err = cls ? launch_smem(cls_bwd_kernel<T, false>, B, L.total, stream, a)
+              : launch_smem(block_bwd_kernel<T, false>, B, L.total, stream,
+                            a);
   } else if constexpr (std::is_same<T, bf16>::value) {
     if (!mma_body_takes(a)) return cudaErrorInvalidValue;
-    err = launch_smem(block_bwd_kernel<T, true>, B, MmaBwdSmem(a.n).total,
-                      stream, a);
+    err = cls ? launch_smem(cls_bwd_kernel<T, true>, B,
+                            ClsMmaSmem(a.n, a.m.heads * kMmaD, a.m.mlp).total,
+                            stream, a)
+              : launch_smem(block_bwd_kernel<T, true>, B,
+                            MmaBwdSmem(a.n).total, stream, a);
   } else {
     return cudaErrorInvalidValue;  // the tensor-core body is bf16's
   }
@@ -1519,8 +2006,9 @@ template <typename T>
 size_t trunk_bwd_bytes(int n, const Dims& m, bool mma) {
   size_t bytes = Smem<T>(n, m.d, m.heads, m.dh, m.mlp < 256 ? m.mlp : 256)
                      .total;
-  for (const size_t b : {BwdSmem(n, m.d, m.hc).total,
-                         mma ? MmaBwdSmem(n).total : 0})
+  for (const size_t b :
+       {BwdSmem(n, m.d, m.hc).total, mma ? MmaBwdSmem(n).total : 0,
+        mma ? ClsMmaSmem(n, m.heads * m.dh, m.mlp).total : 0})
     bytes = b > bytes ? b : bytes;
   return bytes;
 }
@@ -1560,7 +2048,7 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
   if (!mma) {
     err = launch_smem(trunk_bwd_kernel<T, false>, B, bytes, stream, a);
   } else if constexpr (std::is_same<T, bf16>::value) {
-    for (int i = 0; i + 1 < depth; ++i)
+    for (int i = 0; i < depth; ++i)
       if (!mma_body_takes(a.blk[i])) return cudaErrorInvalidValue;
     err = launch_smem(trunk_bwd_kernel<T, true>, B, bytes, stream, a);
   } else {
@@ -1610,13 +2098,12 @@ size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
 }
 
 // Bytes of dynamic shared memory of the per-frame pass of K2b (cls = 0)
-// and K3b (cls = 1); mma = 1: K2b on the tensor-core body.
+// and K3b (cls = 1); mma = 1: on the tensor-core bodies.
 size_t block_backward_smem(int dtype, int cls, int n, int d, int heads,
                            int dim_head, int mlp, int mma) {
   (void)dtype;
-  (void)heads;
-  (void)dim_head;
-  if (mma && !cls) return MmaBwdSmem(n).total;
+  if (mma) return cls ? ClsMmaSmem(n, heads * dim_head, mlp).total
+                      : MmaBwdSmem(n).total;
   return BwdSmem(n, d, mlp < 128 ? mlp : 128).total;
 }
 
@@ -1676,7 +2163,8 @@ size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
 // K2b (cls = 0) and K3b (cls = 1). ptrs: x (B, n, d), dy (B, n, d) or,
 // with cls, (B, d), 11 weights, dx (B, n, d), 11 grads (weight shapes, in
 // the compute dtype), workspace (block_backward_workspace bytes). mma = 1
-// runs K2b's per-frame pass on the bf16 tensor-core body, which takes
+// runs the per-frame pass on the bf16 tensor-core body (block_bwd_mma,
+// cls_bwd_mma), which takes
 // bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
 // aligned x, dy and matrix weights (cudaErrorInvalidValue else); mma = 0
 // the FMA body, any width.
@@ -1730,6 +2218,25 @@ int trunk_backward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           ptrs, batch, n, m, depth, final_norm, mma != 0, s)
                     : launch_trunk_bwd<float>(ptrs, batch, n, m, depth,
                                               final_norm, mma != 0, s);
+}
+
+// Rows of partial sums a weight product takes: splits(R, K, N) segments,
+// each K x N floats (the part argument of weight_product_launch).
+int weight_product_segments(long R, int K, int N) { return splits(R, K, N); }
+
+// One weight product C[:, col0:col0+N] (row stride ldc) = A^T B over R
+// rows, as the backwards launch them: A (R, K) and B (R, N) with row
+// strides lda, ldb, C in the compute dtype; part holds
+// weight_product_segments(R, K, N) x K x N floats. bf16 products that
+// wgrad_mma_takes run on the tensor cores.
+int weight_product_launch(int dtype, const void* A, int lda, const void* B,
+                          int ldb, long R, int K, int N, void* C, int ldc,
+                          int col0, void* part, void* stream) {
+  if (R < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
+  const Product p = {A, lda, B, ldb, R, K, N, C, ldc, col0};
+  cudaStream_t s = (cudaStream_t)stream;
+  return dtype == 1 ? launch_product<__nv_bfloat16>(p, (float*)part, s)
+                    : launch_product<float>(p, (float*)part, s);
 }
 
 const char* block_error_string(int err) {

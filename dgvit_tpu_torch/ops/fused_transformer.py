@@ -306,6 +306,15 @@ def _block_lib() -> ctypes.CDLL:
     lib.trunk_backward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+    lib.weight_product_segments.restype = ctypes.c_int
+    lib.weight_product_segments.argtypes = [ctypes.c_long, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.weight_product_launch.restype = ctypes.c_int
+    lib.weight_product_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p])
     lib.block_error_string.restype = ctypes.c_char_p
     lib.block_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -326,10 +335,12 @@ def tensor_core_fwd(x: torch.Tensor, w: Sequence[torch.Tensor],
 
 def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
                     dim_head: int, dy: torch.Tensor = None) -> bool:
-    """Whether the backward of a full block (K2b, and each of K6's full
-    blocks) runs its per-frame pass on the bf16 tensor-core body: the
-    widths and alignment of `tensor_core_fwd`, and dy 16-byte aligned.
-    Every other call takes the FMA body, which takes any width."""
+    """Whether a block's backward runs its per-frame pass on a bf16
+    tensor-core body (a full block, K2b and K6's full blocks:
+    `block_bwd_mma`; the CLS-only block, K3b and K6's last block:
+    `cls_bwd_mma`): the widths and alignment of `tensor_core_fwd`, and dy
+    16-byte aligned. Every other call takes the FMA body, which takes any
+    width."""
     return (tensor_core_fwd(x, w, dim_head)
             and (dy is None or dy.data_ptr() % 16 == 0))
 
@@ -361,7 +372,9 @@ def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool):
 
 
 def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
-    """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads)."""
+    """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads);
+    the per-frame pass on the tensor-core body where `tensor_core_bwd`
+    says so."""
     b, n, d = x.shape
     mlp = w[7].shape[-1]
     nbytes = _block_lib().block_backward_workspace(
@@ -369,10 +382,70 @@ def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]
-    mma = not cls and tensor_core_bwd(x, w, dim_head, dy)
+    mma = tensor_core_bwd(x, w, dim_head, dy)
     _call(_block_lib().block_backward_launch, x.dtype, cls,
           [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp, int(mma))
     return dx, tuple(grads)
+
+
+# The weight products of the backwards (csrc/block_grad.cu: kTile,
+# kTargetCtas): C = A^T B split over fixed row segments, each segment's
+# sums an fp32 partial, the partials added in segment order.
+_TILE, _TARGET_CTAS = 64, 264
+
+
+def wgrad_splits(rows: int, k: int, n: int) -> int:
+    """`splits` of csrc/block_grad.cu: the row segments of a (k, n) weight
+    product over `rows` rows, at least 128 rows each and about 264 thread
+    blocks of 64 x 64 tiles in all."""
+    tiles = -(-k // _TILE) * -(-n // _TILE)
+    return min(-(-_TARGET_CTAS // tiles), max(rows // 128, 1))
+
+
+def wgrad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of one weight product (`wgrad_kernel` or
+    `wgrad_mma_kernel`, then `wgrad_finish`): A^T B of a (R, K) and b (R,
+    N) in the compute dtype, as an fp32 sum over each of the kernel's row
+    segments, the segments' sums added in segment order, cast to the
+    compute dtype."""
+    rows, k, n = a.shape[0], a.shape[1], b.shape[1]
+    seg = -(-rows // wgrad_splits(rows, k, n))
+    out = torch.zeros(k, n, dtype=torch.float32, device=a.device)
+    for r0 in range(0, rows, seg):
+        out = out + _tmm(a[r0:r0 + seg], b[r0:r0 + seg])
+    return out.to(a.dtype)
+
+
+def weight_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One weight product of the backwards, A^T B: a (R, K) and b (R, N)
+    in the compute dtype, rows of any stride, columns contiguous -> (K, N)
+    in the compute dtype. CUDA tensors go to the kernel the backwards
+    launch (bf16 on the tensor cores where `wgrad_mma_kernel` takes the
+    operands, else `wgrad_kernel`); CPU tensors to `wgrad_plain`."""
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or b.device != a.device:
+        raise TypeError(f"operands of {a.dtype} and {b.dtype}: one of fp32 "
+                        "or bf16, on one device")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0] \
+            or a.stride(1) != 1 or b.stride(1) != 1:
+        raise ValueError("a (R, K) and b (R, N) with contiguous rows")
+    if a.device.type == "cpu":
+        return wgrad_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    lib = _block_lib()
+    rows, k, n = a.shape[0], a.shape[1], b.shape[1]
+    out = torch.empty(k, n, dtype=a.dtype, device=a.device)
+    part = torch.empty(lib.weight_product_segments(rows, k, n) * k * n,
+                       dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.weight_product_launch(
+            _DTYPES[a.dtype], a.data_ptr(), a.stride(0), b.data_ptr(),
+            b.stride(0), rows, k, n, out.data_ptr(), n, 0, part.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("weight_product launch failed: "
+                           + lib.block_error_string(err).decode())
+    return out
 
 
 def block_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,

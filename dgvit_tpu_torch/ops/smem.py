@@ -12,6 +12,7 @@ layouts the launches size their memory by:
   * `BwdSmem` (csrc/block_grad.cu): the FMA backward bodies of K2b and
     K3b;
   * `MmaBwdSmem` (csrc/block_grad.cu): K2b's tensor-core backward body;
+  * `ClsMmaSmem` (csrc/block_grad.cu): K3b's tensor-core backward body;
   * `mmafwd::Layout` (csrc/block_mma_fwd.cuh): the tensor-core forward
     body of K2f and K4;
   * K6's launch, the largest of the bodies it runs;
@@ -42,6 +43,8 @@ _WARPS = 8            # kWarps of block_common.cuh
 _FRAMES = 2           # mmafwd::kFrames
 _STAGES = 3           # mmafwd::kStages
 _LD, _LD_QKV = MMA_WIDTH + 8, 3 * MMA_WIDTH + 8
+_LD_KV = 2 * MMA_WIDTH + 8    # kLdKv
+_CLS_CHUNK = 128              # kClsChunk
 _LD_HID = MMA_CHUNK + 4   # mmafwd::kLdHid
 _LD_W2 = 80               # mmafwd::kLdW2
 
@@ -97,6 +100,19 @@ def bwd_mma(n: int) -> int:
     return max(attn, mlp, back)
 
 
+def bwd_cls_mma(n: int, heads: int, dim_head: int, mlp: int) -> int:
+    """`ClsMmaSmem(n, heads * dim_head, mlp)`: K3b's tensor-core body."""
+    np_, w = _a16(n), MMA_WIDTH
+    rows, tile = 4 * n * w, 2 * np_ * _LD
+    vec, wkv = 2 * heads * dim_head, 2 * w * _LD_KV
+    chunks = -(-mlp // _CLS_CHUNK)
+    u = _take(0, (rows, rows, 4 * (2 * n + 2), tile, vec, vec, vec, vec,
+                  4 * w, 4 * w, 4 * w, 2 * w, 2 * w, 4 * n, 4 * n, 2 * wkv))
+    head_loops = _take(u, (tile, tile, 2 * np_ * _LD_KV))
+    mlp_part = _take(u, (2 * mlp, 4 * chunks * w))
+    return max(head_loops, mlp_part)
+
+
 def fwd_mma(n: int) -> int:
     """`mmafwd::Layout(n)`: the tensor-core forward body of K2f and K4."""
     tile = 2 * _FRAMES * _a16(n) * _LD
@@ -115,7 +131,8 @@ def trunk_bwd(n: int, d: int, heads: int, dim_head: int, mlp: int,
     """K6's launch: the forward chain's `Smem<T>` and the largest backward
     body it runs."""
     return max(fwd_fma(n, d, heads, dim_head, mlp, dtype), bwd_fma(n, d, mlp),
-               bwd_mma(n) if mma else 0)
+               bwd_mma(n) if mma else 0,
+               bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
 
 
 def section(n: int, d: int, dim_head: int, qrows: int,
@@ -151,7 +168,8 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     if kernel in ("K4", "K2f"):
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":
-        return bwd_fma(n, d, mlp)
+        return max(bwd_fma(n, d, mlp),
+                   bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
     if kernel == "K2b":
         return max(bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0)
     if kernel == "K6":

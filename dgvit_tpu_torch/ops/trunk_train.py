@@ -99,6 +99,17 @@ def _check(x, dy, blocks, fn, heads, dim_head, final_norm) -> None:
                             f"contiguous fp32 ({d},) on {x.device}")
 
 
+def tensor_core_trunk(x: torch.Tensor, blocks: Sequence[Sequence[
+        torch.Tensor]], dim_head: int) -> bool:
+    """Whether K6 runs its per-frame pass on the bf16 tensor-core bodies
+    (`block_bwd_mma` for its full blocks, `cls_bwd_mma` for its last):
+    every block, the last one too, by `tensor_core_bwd` on x. Past the
+    first block the inputs, and every block's dy, are (aligned) workspace
+    slots; the launch checks the same for every block and fails where
+    this says yes and a block does not fit."""
+    return all(tensor_core_bwd(x, w, dim_head) for w in blocks)
+
+
 def _launch(x, dy, blocks, fn, heads, dim_head, final_norm):
     lib = _block_lib()
     b, n, d = x.shape
@@ -115,10 +126,7 @@ def _launch(x, dy, blocks, fn, heads, dim_head, final_norm):
     tensors = [x, dy, *[t for w in blocks for t in w], fn[0], fn[1], dx,
                *[t for g in grads for t in g], *dfn, ws]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    # the full blocks' inputs and grads past the first live in the
-    # (aligned) workspace
-    mma = depth > 1 and all(tensor_core_bwd(x, w, dim_head)
-                            for w in blocks[:-1])
+    mma = tensor_core_trunk(x, blocks, dim_head)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trunk_backward_launch(

@@ -26,7 +26,9 @@ from dgvit_tpu_torch.ops.fused_transformer import (block_bwd_fused,
                                                    check_block_args,
                                                    fused_transformer_block,
                                                    tensor_core_bwd,
-                                                   tensor_core_fwd)
+                                                   tensor_core_fwd,
+                                                   weight_product,
+                                                   wgrad_splits)
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
                                 bf16_close, block_tree, rand, to_jax,
                                 to_torch, weights)
@@ -168,3 +170,50 @@ def test_forward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
     # an unaligned weight matrix also keeps the FMA body
     w[9] = torch.zeros(mlp * D + 1, dtype=dt)[1:].view(mlp, D)
     assert tensor_core_fwd(x, w, dim_head) is False
+
+
+# `splits` of csrc/block_grad.cu worked by hand: min(ceil(264 / tiles),
+# max(R // 128, 1)), tiles = ceil(K / 64) * ceil(N / 64)
+SPLITS = [
+    ((16640, 64, 768), 22),    # h1^T dqkv at B=256: 12 tiles
+    ((16640, 64, 2048), 9),    # h2^T dpre: 32 tiles
+    ((16640, 2048, 64), 9),    # hid^T dy
+    ((16640, 256, 64), 66),    # o^T g1c: 4 tiles
+    ((256, 64, 2048), 2),      # a CLS operand: 256 rows // 128
+    ((100, 64, 64), 1),        # fewer than 128 rows: one segment
+    ((1000, 40, 96), 7),       # ragged tiles: 2 tiles, 1000 // 128 = 7
+]
+
+
+@pytest.mark.parametrize("shape,want", SPLITS)
+def test_weight_product_segments(shape, want):
+    assert wgrad_splits(*shape) == want
+
+
+# (rows, K, N, row stride of a): the weight products' awkward shapes
+PRODUCTS = [(1000, 40, 96, 40), (2592, 64, 192, 64), (500, 36, 64, 36),
+            (256, 64, 256, 65 * 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,k,n,lda", PRODUCTS)
+def test_weight_product_plain_matches_float64(rows, k, n, lda, dtype):
+    """The plain weight product, which `weight_product` runs on CPU
+    tensors (fp32 sums over the kernel's row segments, added in segment
+    order, then cast), against A^T B in float64: fp32 within 1e-5 L, bf16
+    within its one rounding (2^-8 of a value) plus 1e-5 L; a of the last
+    shape is row 0 of each 65-row frame."""
+    rng = np.random.default_rng(rows + k + n)
+    dt = getattr(torch, dtype)
+    base = torch.from_numpy(rng.standard_normal(rows * lda).astype(
+        np.float32)).to(dt)
+    a = base.as_strided((rows, k), (lda, 1))
+    b = torch.from_numpy(rng.standard_normal((rows, n)).astype(
+        np.float32)).to(dt)
+    exact = a.double().t() @ b.double()
+    out = weight_product(a, b)
+    assert out.shape == (k, n) and out.dtype == dt
+    scale = exact.abs().max().item()
+    bound = 1e-5 * scale + (2.0 ** -8 * exact.abs() if dtype == "bfloat16"
+                            else 0.0)
+    assert bool(((out.double() - exact).abs() <= bound).all())

@@ -9,12 +9,16 @@ import numpy as np
 import pytest
 import torch
 
+from dgvit_tpu.ops.cls_block import _cls_bwd_impl
 from dgvit_tpu.ops.cls_block import cls_final_block as jcls
+from dgvit_tpu_torch.ops import cls_block as cb
 from dgvit_tpu_torch.ops.cls_block import (cls_bwd_fused, cls_bwd_plain,
                                            cls_final_block, cls_fwd_fused,
                                            cls_fwd_plain)
-from dgvit_tpu_torch.ops.fused_transformer import block_fwd_plain
-from torch_kernel_cases import (D, DIM_HEAD, HEADS, assert_close,
+from dgvit_tpu_torch.ops.fused_transformer import (block_fwd_plain,
+                                                   check_block_args,
+                                                   tensor_core_bwd)
+from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
                                 bf16_close, block_tree, rand, to_jax,
                                 to_torch, weights)
 
@@ -100,3 +104,70 @@ def test_bf16_catches_autograd_backward():
     got = torch.autograd.grad(cls_fwd_plain(xr, wr, HEADS, DIM_HEAD),
                               [xr, *wr], to_torch(dy, "bfloat16"))
     assert not bf16_close(got, [dx_ref, *dflat])
+
+
+def test_fp32_kv_moves_past_the_pooled_limit(monkeypatch):
+    """The wrong K3b of chip_smoke.py's phase 5 (k and v of the recompute
+    left in fp32: the tensor-core body's projection unrounded) sits
+    further from the plain version than phase 5's pooled bf16 limit on
+    the card (mean |err| / L <= 2^-18 over dx and the 11 gradients), so
+    that limit can see it."""
+    rng = np.random.default_rng(8)
+    tree, x, dy = block_tree(rng), rand(rng, 3, 17, D), rand(rng, 3, D)
+    _, w = weights(tree, "bfloat16")
+    args = (to_torch(x, "bfloat16"), to_torch(dy, "bfloat16"), w, HEADS,
+            DIM_HEAD)
+    dx, grads = cls_bwd_plain(*args)
+    monkeypatch.setattr(cb, "_kv_rows", lambda h1, wkv, cdt: cb._mm(h1, wkv))
+    bad_dx, bad_grads = cls_bwd_plain(*args)
+    total = count = 0.0
+    for out, ref in zip([bad_dx, *bad_grads], [dx, *grads]):
+        err = (out.float() - ref.float()).abs()
+        total += err.sum().item() / ref.float().abs().max().item()
+        count += err.numel()
+    assert total / count > 2.0 ** -18
+
+
+def test_backward_matches_jax_at_the_flagship_widths():
+    """bf16 at the widths the tensor-core body is built for (65 tokens,
+    4 x 64 heads, mlp 2048): the plain K3b against the JAX kernel in
+    interpret mode."""
+    rng = np.random.default_rng(65)
+    tree = block_tree(rng, heads=4, dim_head=64, mlp=2048)
+    x, dy = rand(rng, 2, 65, D), rand(rng, 2, D)
+    flat, w = weights(tree, "bfloat16")
+    dx_ref, dflat = _cls_bwd_impl(to_jax(x, "bfloat16"),
+                                  to_jax(dy, "bfloat16"), flat, heads=4,
+                                  dim_head=64, interpret=True)
+    dx, grads = cls_bwd_fused(to_torch(x, "bfloat16"),
+                              to_torch(dy, "bfloat16"), w, 4, 64)
+    assert_close([dx, *grads], [dx_ref, *dflat], "bfloat16", 0, 0)
+
+
+# (dtype, tokens, heads, dim_head, mlp, x offset in elements, tensor-core
+# body): which CLS-block backward body a call on the card takes
+ROUTES = [
+    ("bfloat16", 65, 4, 64, 2048, 0, True),    # the flagship CLS block
+    ("bfloat16", 80, 4, 64, 2048, 0, True),    # the most rows it holds
+    ("bfloat16", 81, 4, 64, 2048, 0, False),   # 16x16 patches: 81 tokens
+    ("bfloat16", 65, 2, 32, 2048, 0, False),   # narrow heads
+    ("bfloat16", 65, HEADS, DIM_HEAD, MLP, 0, False),  # these tests' block
+    ("bfloat16", 65, 4, 64, 2048, 1, False),   # x not 16-byte aligned
+    ("float32", 65, 4, 64, 2048, 0, False),    # fp32 keeps the FMA body
+]
+
+
+@pytest.mark.parametrize("dtype,n,heads,dim_head,mlp,offset,mma", ROUTES)
+def test_backward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
+    """K3b's per-frame pass takes the bf16 tensor-core body
+    (`cls_bwd_mma`) at the flagship widths and the FMA body
+    (`cls_bwd_body`) for every other call, by the rule of the full block's
+    backward (both in ops/csrc/block_grad.cu)."""
+    dt, inner = getattr(torch, dtype), heads * dim_head
+    shapes = [(D,), (D,), (D, 3 * inner), (inner, D), (D,), (D,), (D,),
+              (D, mlp), (mlp,), (mlp, D), (D,)]
+    w = [torch.zeros(s, dtype=dt) for s in shapes]
+    x = torch.zeros(2 * n * D + offset, dtype=dt)[offset:].view(2, n, D)
+    dy = torch.zeros(2, D, dtype=dt)
+    check_block_args(x, w, heads, dim_head, dy=dy, cls=True)
+    assert tensor_core_bwd(x, w, dim_head, dy) is mma

@@ -62,10 +62,19 @@ def test_mirror_bytes(dtype, n):
 
 def test_mirror_layouts():
     """The tensor-core layouts: the forward body's 142,080 bytes at 65
-    rows (two frames a block), K2b's 215,056; rows pad to 16, and each 16
-    more rows add two frames' q, k and v tiles."""
+    rows (two frames a block), K2b's 215,056, K3b's 128,560 (under the
+    FMA body's 136,240, so K3b's and K6's counts at 65 tokens stay the FMA
+    body's and K2b's); rows pad to 16, and each 16 more rows add two
+    frames' q, k and v tiles."""
     assert smem.fwd_mma(65) == smem.fwd_mma(80) == 142080
     assert smem.bwd_mma(65) == 215056
+    assert smem.bwd_cls_mma(65, 4, 64, 2048) == 128560
+    assert smem.bwd_cls_mma(80, 4, 64, 2048) == 136464 <= H100
+    # where the CLS body is the larger, K3b and K6 size by it
+    assert smem.bytes_needed("K3b", 17, *FLAGSHIP, BF16) == \
+        smem.bwd_cls_mma(17, 4, 64, 2048) > smem.bwd_fma(17, 64, 2048)
+    assert smem.bytes_needed("K3b", 17, *FLAGSHIP, FP32) == \
+        smem.bwd_fma(17, 64, 2048)
     assert smem.fwd_mma(96) == smem.fwd_mma(80) + 3 * 2 * 16 * 72 * 2
     assert smem.bwd_mma(80) == 226816 <= H100
     # K7 takes the fewest query tiles that fit: one row always fits here

@@ -27,6 +27,7 @@ from dgvit_tpu_torch.models.got import GoT
 from dgvit_tpu_torch.models.jax_io import params_from_jax, params_to_jax
 from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
 from dgvit_tpu_torch.ops.trunk_train import (final_norm_bwd_plain,
+                                             tensor_core_trunk,
                                              trunk_bwd_fused,
                                              trunk_bwd_plain)
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
@@ -157,6 +158,31 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         trunk_bwd_fused(torch.zeros(2, D, 5).transpose(1, 2), dy, pb, pfn,
                         HEADS, DIM_HEAD, "rms")
+
+
+# (depth, the block and weight made unaligned or None, tensor cores):
+# wqkv, wout, w1 and w2 must be 16-byte aligned in every block, the last
+# (CLS) block's too
+TRUNK_ROUTES = [(4, None, True), (1, None, True), (4, (3, 7), False),
+                (4, (3, 2), False), (4, (0, 9), False)]
+
+
+@pytest.mark.parametrize("depth,unaligned,mma", TRUNK_ROUTES)
+def test_tensor_core_route_takes_every_block(depth, unaligned, mma):
+    """K6 takes the bf16 tensor-core bodies at the flagship widths only
+    where every block's matrix weights are 16-byte aligned, the CLS
+    block's included, as its launch checks them."""
+    inner, dt = 256, torch.bfloat16
+    shapes = [(64,), (64,), (64, 3 * inner), (inner, 64), (64,), (64,),
+              (64,), (64, 2048), (2048,), (2048, 64), (64,)]
+    blocks = [[torch.zeros(s, dtype=dt) for s in shapes]
+              for _ in range(depth)]
+    if unaligned is not None:
+        i, j = unaligned
+        t = blocks[i][j]
+        blocks[i][j] = torch.zeros(t.numel() + 1, dtype=dt)[1:].view_as(t)
+    x = torch.zeros(2, 65, 64, dtype=dt)
+    assert tensor_core_trunk(x, blocks, 64) is mma
 
 
 def got_pair(final_norm, depth, hw, seed):

@@ -22,17 +22,17 @@ from dgvit_tpu.ops.fused_transformer import _block_params_flat
 D, HEADS, DIM_HEAD, MLP = 64, 2, 16, 128
 
 
-def block_tree(rng):
+def block_tree(rng, heads=HEADS, dim_head=DIM_HEAD, mlp=MLP):
     u = lambda *s: rng.uniform(-0.3, 0.3, s).astype(np.float32)
     ln = lambda: {"scale": (1 + 0.1 * rng.standard_normal(D)).astype(
         np.float32), "bias": u(D)}
-    inner = HEADS * DIM_HEAD
+    inner = heads * dim_head
     return {"attn_norm": ln(),
             "attn": {"to_qkv": {"kernel": u(D, 3 * inner)},
                      "to_out": {"kernel": u(inner, D), "bias": u(D)}},
             "ff_norm": ln(),
-            "ff": {"fc1": {"kernel": u(D, MLP), "bias": u(MLP)},
-                   "fc2": {"kernel": u(MLP, D), "bias": u(D)}}}
+            "ff": {"fc1": {"kernel": u(D, mlp), "bias": u(mlp)},
+                   "fc2": {"kernel": u(mlp, D), "bias": u(D)}}}
 
 
 def weights(tree, dtype: str):
