@@ -13,7 +13,7 @@ trunk-gradient route (host clock, medians of steps 1-4; then one more
 update of each under torch.profiler, by the profiler helper of the
 chip_smoke.py beside this script: its device time, in all and in the
 weight products' kernels, `wgrad*`), phase 8's K1
-times, phase 8b's training kernels, phase 12's K5 and phase 17's K6, K7
+times at each timed batch, phase 8b's training kernels, phase 12's K5 and phase 17's K6, K7
 and K8 (CUDA events). Each run prints one JSON line (`RESULT {...}`);
 the last line is a table of every number by run. Needs one CUDA card.
 """
@@ -75,7 +75,9 @@ for dtype in ("bfloat16", "float32"):
     policies[dtype] = p.to(cs.DEVICE).eval()
 rng = np.random.default_rng(cs.SEED)
 nets = cs.build_nets(actor_flat, critic_flat)
-out["K1 (B=32)"] = cs.phase_times(cfg, policies, rng)[32]["ms"]
+for b, t in cs.phase_times(cfg, policies, rng).items():
+    if isinstance(b, int):
+        out[f"K1 (B={b})"] = t["ms"]
 for name, t in cs.phase_train_times(nets, rng).items():
     out[name] = t["ms"]
 out["K5 (B=32)"] = cs.phase_k5_times(rng)[cs.CAMERA_FRAMES]["ms"]

@@ -3,17 +3,22 @@
 
     python3 chip_numerics.py [SEED ...]          (default seeds 7 8 9 10)
 
-Phase 5 of chip_smoke.py holds K4 (blocks_cls_forward_fused) to its plain
-version by the pooled mean of |err| / L over its bf16 latents at
-B = 1, 32 and 256 (limit 2^-18). For each seed this script draws such
-inputs (the trained actor's trunk on the embedded stream of seeded
-frames, as phase 5 draws them) and prints, pooled over the three batches:
+Phase 5 of chip_smoke.py holds K4 (blocks_cls_forward_fused) to the
+float64-sum version of its plain version (chip_smoke.exact_sums) by the
+pooled mean of |err| / L over its bf16 latents at B = 1, 32 and 256,
+within max(2^-18, EXACT_K["K4"] x the plain version's own distance). For
+each seed this script draws such inputs (the trained actor's trunk on the
+embedded stream of seeded frames, as phase 5 draws them) and prints,
+pooled over the three batches:
 
   (a) the plain K4 with every product summed in float64 and rounded to
       fp32, against the plain K4: the statistic for sums more accurate
       than either side's, in another order;
-  (b) on a card: the K4 kernel on the tensor-core body and on the FMA
-      body (the body picked by tensor_core_fwd, then forced off);
+  (b) on a card: the K4 kernel on the tensor-core body in its K4 form
+      (K4's route), on the same body with every product on the tensor
+      cores (no route takes it: the form K1 runs) and on the FMA body,
+      each against the float64-sum version and under phase 5's restated
+      limit (`passes` or `FAILS`);
   (c) on a card: the plain K4 with one kind of product at a time summed
       on the tensor cores (TF32, which holds bf16 operands exactly, so
       only the accumulation differs from the plain version's);
@@ -28,6 +33,7 @@ torch, numpy and the port only.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import chip_smoke as cs
@@ -36,16 +42,13 @@ KINDS = {(64, 768): "qkv", (64, 512): "qkv", (64, 256): "qkv",
          (256, 64): "out", (64, 2048): "pre", (2048, 64): "mlp"}
 
 
-def patched(mode):
-    """_mm and _attention of the plain versions with their sums in float64
-    (mode "fp64"), on TF32 tensor cores for the product kinds in mode (a
-    set), or as they are (None)."""
+def patched(kinds):
+    """_mm and _attention of the plain versions with the product kinds in
+    `kinds` (a set) summed on TF32 tensor cores."""
     import torch
 
     def mm(a, b, kind):
-        if mode == "fp64":
-            return (a.double() @ b.double()).float()
-        torch.backends.cuda.matmul.allow_tf32 = bool(mode) and kind in mode
+        torch.backends.cuda.matmul.allow_tf32 = kind in kinds
         try:
             return a.float() @ b.float()
         finally:
@@ -85,41 +88,49 @@ def main() -> int:
     plain = (ft._mm, ft._attention)
     tf32 = [("qkv",), ("scores",), ("pv",), ("out",), ("pre",), ("mlp",),
             ("qkv", "scores", "pv", "out", "pre", "mlp")]
-    rows = ["float64 sums"] + (["kernel, tensor cores", "kernel, FMA body"]
-                               + [f"TF32 {'+'.join(k)}" for k in tf32]
-                               if card else [])
+    bodies = {"kernel, K4 form": None, "kernel, every product on the tensor "
+              "cores": 2, "kernel, FMA body": 0}
+    launch = gm._launch_blocks
     for seed in seeds:
         rng = np.random.default_rng(seed)
-        errs = {r: cs.TrainErrors() for r in rows}
+        runs = {}
         for b in (1, 32, 256):
             a = cs.train_inputs(nets["bfloat16"], b, rng)["actor"]
             args = (a["x"], a["blocks"], a["fn"], a["heads"], a["dh"], "rms")
-            runs = {"float64 sums": "fp64"}
-            if card:
-                runs.update({f"TF32 {'+'.join(k)}": set(k) for k in tf32})
             ref = gm.blocks_forward_plain(*args)
-            for row, mode in runs.items():
-                for mod in (ft, cb):
-                    mod._mm, mod._attention = patched(mode)
-                try:
-                    errs[row].add([(gm.blocks_forward_plain(*args), ref)])
-                finally:
-                    for mod in (ft, cb):
-                        mod._mm, mod._attention = plain
+            ex = cs.exact(gm.blocks_forward_plain, *args)
+            outs = {"float64 sums": ex}
             if card:
-                errs["kernel, tensor cores"].add(
-                    [(gm.blocks_cls_forward_fused(*args), ref)])
-                tc = gm.tensor_core_fwd
-                gm.tensor_core_fwd = lambda *a: False
-                try:
-                    errs["kernel, FMA body"].add(
-                        [(gm.blocks_cls_forward_fused(*args), ref)])
-                finally:
-                    gm.tensor_core_fwd = tc
+                for row, body in bodies.items():
+                    gm._launch_blocks = functools.partial(launch, body=body)
+                    try:
+                        outs[row] = gm.blocks_cls_forward_fused(*args)
+                    finally:
+                        gm._launch_blocks = launch
+                for kinds in tf32:
+                    for mod in (ft, cb):
+                        mod._mm, mod._attention = patched(set(kinds))
+                    try:
+                        outs[f"TF32 {'+'.join(kinds)}"] = \
+                            gm.blocks_forward_plain(*args)
+                    finally:
+                        for mod in (ft, cb):
+                            mod._mm, mod._attention = plain
+            for row, out in outs.items():
+                runs.setdefault(row, []).append((out, ref, ex))
+        line = []
+        for row, rs in runs.items():
+            o, r, e = ([x[i] for x in rs] for i in range(3))
+            if row == "float64 sums":
+                line.append(f"{row} {cs.pooled_rel(o, r):.3e}")
+                continue
+            ok, got, limit = cs.restated(cs.pooled_rel, cs.TRAIN_BF16_MEAN,
+                                         cs.EXACT_K["K4"], o, r, e)
+            line.append(f"{row} {cs.pooled_rel(o, r):.3e}, against float64 "
+                        f"sums {got:.3e} (limit {limit:.3e}, "
+                        f"{'passes' if ok else 'FAILS'})")
         print(f"seed {seed}, K4 against its plain version, bf16 pooled over "
-              f"B = 1, 32, 256, mean|err|/L (limit {cs.TRAIN_BF16_MEAN:.3e}"
-              "): " + "; ".join(f"{r} {e.mean:.3e}" for r, e in errs.items()),
-              flush=True)
+              f"B = 1, 32, 256, mean|err|/L: " + "; ".join(line), flush=True)
         a = cs.train_inputs(nets["bfloat16"], 32, rng)["actor"]
         x = a["x"]
         longer = torch.cat([x, x.roll(1, 0)[:, 1:1 + cs.EXTRA_TOKENS]],
@@ -127,13 +138,7 @@ def main() -> int:
         for xs in (x, longer):
             args = (xs, a["blocks"], a["fn"], a["heads"], a["dh"], "rms")
             ref = gm.blocks_forward_plain(*args)
-            for mod in (ft, cb):
-                mod._mm, mod._attention = patched("fp64")
-            try:
-                outs = {"float64 sums": gm.blocks_forward_plain(*args)}
-            finally:
-                for mod in (ft, cb):
-                    mod._mm, mod._attention = plain
+            outs = {"float64 sums": cs.exact(gm.blocks_forward_plain, *args)}
             outs["erf GELU"] = cs.k4_erf_gelu(*args)
             outs["fp32 residual"] = cs.k4_f32_residual(*args)
             line = []

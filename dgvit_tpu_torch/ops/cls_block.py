@@ -79,11 +79,11 @@ def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     h_cls = h1[:, :1]                                       # (B, 1, d)
     q = _heads(_mm(h_cls, wqkv[:, :inner]).to(cdt), heads)  # (B, H, 1, dh)
     k, v = _heads(kv[..., :inner], heads), _heads(kv[..., inner:], heads)
-    s = _f32(q) @ _f32(k).transpose(-1, -2) * scale         # (B, H, 1, n)
+    s = _mm(q, _f32(k).transpose(-1, -2)) * scale           # (B, H, 1, n)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p32 = e / e.sum(dim=-1, keepdim=True)
     p_c = p32.to(cdt)
-    o = (_f32(p_c) @ _f32(v)).to(cdt).transpose(1, 2).reshape(-1, inner)
+    o = _mm(p_c, v).to(cdt).transpose(1, 2).reshape(-1, inner)
     x1 = x32[:, 0] + (_mm(o, wout) + _f32(bout).reshape(-1))
     f_s32 = _f32(fn_s).reshape(-1)
     xhat2, rstd2, h2_32 = _ln_stats(x1, f_s32, fn_b)
@@ -105,12 +105,12 @@ def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     dbout = g1.sum(dim=0)
     dwout = _tmm(o, g1_c)
     do_h = _mm(g1_c, wout.t()).to(cdt).reshape(-1, heads, 1, dim_head)
-    dv = _f32(p_c).transpose(-1, -2) @ _f32(do_h)           # (B, H, n, dh)
-    dp = _f32(do_h) @ _f32(v).transpose(-1, -2)             # (B, H, 1, n)
+    dv = _mm(_f32(p_c).transpose(-1, -2), do_h)             # (B, H, n, dh)
+    dp = _mm(do_h, _f32(v).transpose(-1, -2))               # (B, H, 1, n)
     ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
     ds = _f32((ds * scale).to(cdt))
-    dq = (ds @ _f32(k)).reshape(-1, inner)                  # (B, inner)
-    dk = ds.transpose(-1, -2) @ _f32(q)                     # (B, H, n, dh)
+    dq = _mm(ds, k).reshape(-1, inner)                      # (B, inner)
+    dk = _mm(ds.transpose(-1, -2), q)                       # (B, H, n, dh)
     merge = lambda t: t.transpose(1, 2).reshape(t.shape[0], -1, inner)
     dq_c = dq.to(cdt)
     dkv_c = torch.cat([merge(dk), merge(dv)], dim=-1).to(cdt)

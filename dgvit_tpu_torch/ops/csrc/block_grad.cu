@@ -2139,7 +2139,8 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
     const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
     if (dtype != 1 || cls || !mmafwd::takes(n, a.m, aligned, 6))
       return cudaErrorInvalidValue;
-    return mmafwd::launch_fwd(block_fwd_mma_kernel, n, batch, s, a, batch);
+    return mmafwd::launch_fwd(block_fwd_mma_kernel, n, batch,
+                              mmafwd::Layout(n).total, s, a, batch);
   }
   const size_t bf = Smem<__nv_bfloat16>(n, d, heads, dim_head, a.m.hc).total;
   const size_t f32 = Smem<float>(n, d, heads, dim_head, a.m.hc).total;

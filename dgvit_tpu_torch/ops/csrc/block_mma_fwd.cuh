@@ -1,6 +1,7 @@
 // The bf16 pre-norm block forward on the H100's tensor cores: the body of
-// K2f (block_grad.cu: block_fwd_mma_kernel) and of K4's blocks
-// (got_megakernel.cu: trunk_mma_kernel) at the flagship widths.
+// K2f (block_grad.cu: block_fwd_mma_kernel) and of K4's and K1's blocks
+// (got_megakernel.cu: trunk_mma_kernel, k1_mma_kernel, k1_cluster_kernel)
+// at the flagship widths.
 //
 // It computes what `block<bf16>` (block_common.cuh) computes, with the TPU
 // body's rounding points (dgvit_tpu/ops/fused_transformer.py
@@ -17,20 +18,18 @@
 // partial sums added in fp32.
 //
 // Two forms (template flag kFma):
-//  * K2f (kFma false): every product on the tensor cores. The products
-//    take block_bwd_mma's tile order (block_grad.cu) and the LayerNorms
-//    layernorm_tile's order.
-//  * K4 (kFma true): the qkv projection, the MLP's first product and P.V
-//    on the tensor cores; the scores, the out-projection and the MLP's
+//  * kFma false: every product on the tensor cores, K2f's (block_grad.cu)
+//    and K1's (got_megakernel.cu). The products take block_bwd_mma's tile
+//    order (block_grad.cu) and the LayerNorms layernorm_tile's order.
+//  * kFma true, K4's form: the qkv projection, the MLP's first product and
+//    P.V on the tensor cores; the scores, the out-projection and the MLP's
 //    second product as fp32 fma chains in `block<T>`'s order (the scores
 //    and their softmax sum as `attend` takes them; the out-projection one
 //    chain over every head; the MLP output in chains of the FMA body's
-//    chunk, added to b2 in turn). K4's output is a normed latent that
-//    every flip in its frame reaches through four blocks, and held to its
-//    plain version (cuBLAS's sequential fp32 sums) by chip_smoke.py's
-//    phase 5 it needs those three products summed as the FMA body sums
-//    them: with every product on the tensor cores it pooled 6.7e-6
-//    against the 2^-18 limit on an H100 (PERF.md).
+//    chunk, added to b2 in turn). It was chosen when chip_smoke.py held
+//    K4's latent to its plain version under a limit below the spread of
+//    exact sums; held to float64 sums since (EXACT_K there), the form
+//    with every product on the tensor cores passes as well (PERF.md).
 //
 // Widths: d = dim_head = 64, n <= 80 rows a frame, mlp a multiple of 64,
 // x and the matrix weights 16-byte aligned (the wrappers pick this body
@@ -810,11 +809,11 @@ __host__ inline bool takes(int n, const Dims& m, const void* const* aligned,
 }
 
 // Launch over ceil(batch / kFrames) thread blocks of warps(n) warps with
-// Layout(n) bytes of dynamic shared memory. Returns a cudaError_t.
+// `bytes` of dynamic shared memory (Layout(n).total for the body alone).
+// Returns a cudaError_t.
 template <typename Kernel, typename... KArgs>
-int launch_fwd(Kernel kernel, int n, int batch, cudaStream_t stream,
-           const KArgs&... args) {
-  const size_t bytes = Layout(n).total;
+int launch_fwd(Kernel kernel, int n, int batch, size_t bytes,
+               cudaStream_t stream, const KArgs&... args) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -1,5 +1,5 @@
 // Whole-trunk GoT forwards: K1 (embed + trunk) and K4 (trunk of an
-// already embedded stream), two instantiations of one CUDA kernel.
+// already embedded stream).
 //
 // K1 replaces dgvit_tpu/ops/got_megakernel.py::_mega_kernel (the Pallas
 // TPU kernel behind got_forward_fused). Per frame it computes
@@ -15,15 +15,16 @@
 // What bounds it on an H100: at the flagship width a frame costs about
 // 150 MFLOP over its 65 tokens and reads 41 KB of bf16 patches (K4: 8 KB
 // of stream), so the work is compute-bound from a few dozen frames up and
-// launch/latency-bound at one frame, where a single thread block runs the
-// whole trunk serially.
+// latency-bound at one frame: one SM running a frame's four blocks one
+// product after another.
 //
-// Design of trunk_kernel (K1; K4 in fp32 and off the flagship widths): one
-// thread block of 256 threads per frame. The fp32 residual stream, the
-// normed activations, one head's q/k/v rows, the attention output and one
-// MLP hidden chunk all live in dynamic shared memory (about 100 KB in
-// bf16, 165 KB in fp32), so no activation touches device memory between
-// the input read and the (64,) latent write. Weights are read from device
+// Design of trunk_kernel (fp32, and bf16 off the flagship widths or past
+// 80 rows; K4 in fp32 and off the flagship widths): one thread block of
+// 256 threads per frame. The fp32 residual stream, the normed
+// activations, one head's q/k/v rows, the attention output and one MLP
+// hidden chunk all live in dynamic shared memory (about 100 KB in bf16,
+// 165 KB in fp32), so no activation touches device memory between the
+// input read and the (64,) latent write. Weights are read from device
 // memory, where the whole parameter set (2.7 MB in bf16) stays in the 50
 // MB L2. Matrix products are plain fp32 FMA loops with a register tile of
 // 8 rows per thread, which reuses each weight element eight times; padded
@@ -32,15 +33,25 @@
 // (got_forward_smem exports the bytes; ops/smem.py routes longer frames
 // to the composed blocks).
 //
-// trunk_mma_kernel (the bf16 K4 at the flagship widths, tensor_core_fwd in
-// ops/fused_transformer.py) runs the blocks on block_mma_fwd.cuh's body in
-// its K4 form (the qkv projection, the MLP's first product and P.V on the
-// tensor cores; the scores, the out-projection and the MLP's second
-// product as the FMA body's fp32 chains): two frames a thread block, each
-// warp holding 16 rows of the stream in registers through all four
-// blocks, the CLS block's k/v projection over every row on the tensor
-// cores as well, and its MLP on one 16-row tile of the frames' CLS rows
-// (one warp). K1 keeps trunk_kernel.
+// The bf16 kernels at the flagship widths run the blocks on
+// block_mma_fwd.cuh's body (mma_trunk below, shared by K4 and K1), two
+// frames a thread block, each warp holding 16 rows of the stream in
+// registers through all four blocks, the CLS block's k/v projection over
+// every row on the tensor cores as well, and its MLP on one 16-row tile of
+// the frames' CLS rows (one warp):
+//  * trunk_mma_kernel<true> (K4; tensor_core_fwd in
+//    ops/fused_transformer.py): the body's K4 form, the qkv projection,
+//    the MLP's first product and P.V on the tensor cores and the scores,
+//    the out-projection and the MLP's second product as the FMA body's
+//    fp32 chains;
+//  * k1_mma_kernel (K1 past 90 frames on an H100; k1_form_for in
+//    ops/got_megakernel.py): every product on the tensor cores, after an
+//    embedding prologue on the tensor cores (embed_rows);
+//  * k1_cluster_kernel (K1 up to 90 frames on an H100): one frame
+//    over a cluster of 4 CTAs, one head and a quarter of the MLP a CTA,
+//    the partial sums exchanged through distributed shared memory (see
+//    namespace cl below). It puts 4 SMs on each frame of a small batch.
+#include <cooperative_groups.h>
 
 #include "block_common.cuh"
 #include "block_mma_fwd.cuh"
@@ -137,41 +148,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K4 on the tensor cores (bf16, the flagship widths): the depth-1 full
-// blocks and the CLS-only block on block_mma_fwd.cuh's body (its K4
-// form), two frames a thread block and 16 rows a warp, the stream in
-// registers throughout and rounded to bf16 between blocks; then the final
-// norm of each CLS row.
-__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
-    trunk_mma_kernel(const __grid_constant__ Args a, int batch) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = a.n, d = mmafwd::D, depth = a.depth;
-  const mmafwd::Layout L(n);
-  const mmafwd::Place p(n, batch);
-  mmafwd::Rows x;
-  mmafwd::read_rows(x, (const bf16*)a.p[0] + (size_t)p.f * n * d, p, n);
-  zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
-  for (int i = 0; i + 1 < depth; ++i) {
-    mmafwd::block_fwd<true>(a.m, a.p + 1 + 11 * i, n, p, x, smem_raw, L,
-                            false);
-    mmafwd::round_rows(x, p.r0, n);
-  }
-  const void* const* last = a.p + 1 + 11 * (depth - 1);
-  mmafwd::block_fwd<true>(a.m, last, n, p, x, smem_raw, L, true);
-  mmafwd::cls_mlp<true>(a.m, last, n, p, x, smem_raw, L);
-
-  // the CLS row x1 + (b2 + MLP), rounded to bf16, then the final norm
-  // (warp fl for frame fl)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int f = blockIdx.x * mmafwd::kFrames + warp;
-  if (warp >= mmafwd::kFrames || f >= batch) return;
-  const float* fn_s = (const float*)a.p[1 + 11 * depth];
-  const float* fn_b = (const float*)a.p[2 + 11 * depth];
-  bf16* out = (bf16*)a.p[3 + 11 * depth] + (size_t)f * d;
-  float* x32 = (float*)(smem_raw + L.cls_x1) + warp * d;
-  const float* y = (const float*)(smem_raw + L.cls_y) + warp * d;
-  for (int c = lane; c < d; c += 32) x32[c] = rt<bf16>(x32[c] + y[c]);
-  __syncwarp();
+// The final RMS or Layer norm of one rounded fp32 CLS row x32 (64 values
+// in shared memory) into row f of out, by one warp. tail: fn_s, fn_b, out.
+__device__ __forceinline__ void final_norm_row(const float* x32,
+                                               const void* const* tail,
+                                               int final_norm, int f) {
+  const int d = mmafwd::D, lane = threadIdx.x % 32;
+  const float* fn_s = (const float*)tail[0];
+  const float* fn_b = (const float*)tail[1];
+  bf16* out = (bf16*)tail[2] + (size_t)f * d;
   float sum = 0.f, sq = 0.f;
   for (int c = lane; c < d; c += 32) {
     sum += x32[c];
@@ -179,19 +164,440 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   }
   sum = warp_sum(sum);
   sq = warp_sum(sq);
-  if (a.final_norm == 0) {
+  if (final_norm == 0) {
     const float norm = fmaxf(sqrtf(sq), 1e-12f);
     const float sd = sqrtf((float)d);
     for (int c = lane; c < d; c += 32)
       out[c] = fromf<bf16>(x32[c] / norm * sd * fn_s[c]);
   } else {
-    const float m = sum / d;
+    const float m0 = sum / d;
     float v = 0.f;
-    for (int c = lane; c < d; c += 32) v += (x32[c] - m) * (x32[c] - m);
+    for (int c = lane; c < d; c += 32) v += (x32[c] - m0) * (x32[c] - m0);
     const float inv = rsqrtf(warp_sum(v) / d + 1e-5f);
     for (int c = lane; c < d; c += 32)
-      out[c] = fromf<bf16>((x32[c] - m) * inv * fn_s[c] + fn_b[c]);
+      out[c] = fromf<bf16>((x32[c] - m0) * inv * fn_s[c] + fn_b[c]);
   }
+}
+
+// The depth-1 full blocks, the CLS-only block and the final norm on
+// block_mma_fwd.cuh's body (kFma: its K4 form), for the rows in x: two
+// frames a thread block and 16 rows a warp, the stream in registers
+// throughout and rounded to bf16 between blocks. w: block 0's weights,
+// then 11 per block, fn_s, fn_b and out. K4 and K1 share it.
+template <bool kFma>
+__device__ __forceinline__ void mma_trunk(const Dims& m, const void* const* w,
+                                          int n, int depth, int final_norm,
+                                          int batch, const mmafwd::Place& p,
+                                          mmafwd::Rows& x,
+                                          unsigned char* smem_raw,
+                                          const mmafwd::Layout& L) {
+  const int d = mmafwd::D;
+  zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
+  for (int i = 0; i + 1 < depth; ++i) {
+    mmafwd::block_fwd<kFma>(m, w + 11 * i, n, p, x, smem_raw, L, false);
+    mmafwd::round_rows(x, p.r0, n);
+  }
+  const void* const* last = w + 11 * (depth - 1);
+  mmafwd::block_fwd<kFma>(m, last, n, p, x, smem_raw, L, true);
+  mmafwd::cls_mlp<kFma>(m, last, n, p, x, smem_raw, L);
+
+  // the CLS row x1 + (b2 + MLP), rounded to bf16, then the final norm
+  // (warp fl for frame fl)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int f = blockIdx.x * mmafwd::kFrames + warp;
+  if (warp >= mmafwd::kFrames || f >= batch) return;
+  float* x32 = (float*)(smem_raw + L.cls_x1) + warp * d;
+  const float* y = (const float*)(smem_raw + L.cls_y) + warp * d;
+  for (int c = lane; c < d; c += 32) x32[c] = rt<bf16>(x32[c] + y[c]);
+  __syncwarp();
+  final_norm_row(x32, w + 11 * depth, final_norm, f);
+}
+
+// K4 on the tensor cores (bf16, the flagship widths): the embedded stream
+// into the warps' rows, then mma_trunk; kFma: in the body's K4 form (K4's
+// route), else every product on the tensor cores (as K1 takes it; K4's
+// route does not launch it).
+template <bool kFma>
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    trunk_mma_kernel(const __grid_constant__ Args a, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const mmafwd::Layout L(a.n);
+  const mmafwd::Place p(a.n, batch);
+  mmafwd::Rows x;
+  mmafwd::read_rows(x, (const bf16*)a.p[0] + (size_t)p.f * a.n * mmafwd::D,
+                    p, a.n);
+  mma_trunk<kFma>(a.m, a.p + 1, a.n, a.depth, a.final_norm, batch, p, x,
+                  smem_raw, L);
+}
+
+// K1's embedding on the tensor cores, into the warp's rows of the stream
+// (rows >= n and frames past the batch zero): row 0 is T(goal + pos[0]);
+// row r >= 1 is T(T(patches[r - 1] @ pe_w + pe_b) + pos[r]), the product
+// an mma over pd / 16 k-steps in order, its A fragments read from device
+// memory (each patch row is read once) and pe_w staged once a thread
+// block by cp.async at the front of shared memory (k1_smem sizes it).
+// Every thread calls it; it ends on a barrier.
+__device__ __forceinline__ void embed_rows(const Args& a, const mmafwd::Place& p,
+                                           mmafwd::Rows& x, unsigned char* smem) {
+  constexpr int D = mmafwd::D, kLd = mmafwd::kLd;
+  const int n = a.n, pd = a.pd, lane = threadIdx.x % 32;
+  bf16* w = (bf16*)smem;
+  stage_rows(w, kLd, (const bf16*)a.p[2], D, pd, D);
+  cp_async_commit();
+  const bf16* patches = (const bf16*)a.p[0] + (size_t)p.f * a.n_patch * pd;
+  const int ra = p.r0 + lane / 4, rb = ra + 8, t = lane % 4;
+  const bool la = p.live && ra >= 1 && ra < n,
+             lb = p.live && rb >= 1 && rb < n;
+  const uint32_t* pa = (const uint32_t*)(patches + (size_t)(ra - 1) * pd);
+  const uint32_t* pb = (const uint32_t*)(patches + (size_t)(rb - 1) * pd);
+  float acc[8][4];
+  mmafwd::zero(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // pe_w in place
+  for (int kk = 0; kk < pd / 16; ++kk) {
+    const int c = (16 * kk + 2 * t) / 2;  // in 32-bit words
+    const uint32_t af[4] = {la ? __ldg(pa + c) : 0u, lb ? __ldg(pb + c) : 0u,
+                            la ? __ldg(pa + c + 4) : 0u,
+                            lb ? __ldg(pb + c + 4) : 0u};
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t b[4];
+      load_b_kn(b, w, kLd, 8 * j, 16 * kk);
+      mma_bf16(acc[j], af, b[0], b[1]);
+      mma_bf16(acc[j + 1], af, b[2], b[3]);
+    }
+  }
+  const bf16* goal = (const bf16*)a.p[1] + (size_t)p.f * D;
+  const bf16* pe_b = (const bf16*)a.p[3];
+  const bf16* pos = (const bf16*)a.p[4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = mmafwd::row_of(p.r0, e), c = mmafwd::col_of(j, e);
+      float v = 0.f;
+      if (p.live && r == 0)
+        v = rt<bf16>(tof(goal[c]) + tof(pos[c]));
+      else if (p.live && r < n)
+        v = rt<bf16>(rt<bf16>(acc[j][e] + tof(pe_b[c])) +
+                     tof(pos[(size_t)r * D + c]));
+      x[j][e] = v;
+    }
+  __syncthreads();  // every warp is done with pe_w
+}
+
+// K1 on the tensor cores (bf16, the flagship widths): embed_rows, then
+// mma_trunk with every product on the tensor cores.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    k1_mma_kernel(const __grid_constant__ Args a, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const mmafwd::Layout L(a.n);
+  const mmafwd::Place p(a.n, batch);
+  mmafwd::Rows x;
+  embed_rows(a, p, x, smem_raw);
+  mma_trunk<false>(a.m, a.p + 5, a.n, a.depth, a.final_norm, batch, p, x,
+                   smem_raw, L);
+}
+
+// ---------------------------------------------------------------------
+// K1 over a thread-block cluster (bf16, the flagship widths, 4 heads):
+// one frame a cluster of kRanks CTAs on neighbouring SMs, for batches
+// that leave SMs idle in the two-frames-a-block form. Every CTA holds the
+// whole frame's stream (16 rows a warp, in registers) and computes the
+// LayerNorms itself; rank r computes head r (its q|k|v slice of wqkv, its
+// attention and its out-projection partial) and the MLP hidden columns
+// [r mlp / 4, (r + 1) mlp / 4) (its w1 and w2 slices). Each rank writes its
+// fp32 partial into its own shared memory; after cluster.sync() every
+// rank reads the kRanks partials through map_shared_rank and adds them in
+// rank order, so every rank holds the same fp32 stream, rounded at the
+// same points. The out-projection is summed in head order from zero, as
+// the single-CTA body (k1_mma_kernel) sums it, so that sum is the same bit
+// for bit; the MLP output is b2 + y_0 + ... + y_3 (y_r a rank's chunks
+// summed in order), another association than the single body's b2 +
+// chunk by chunk.
+
+namespace cl {
+
+namespace cg = cooperative_groups;
+constexpr int kRanks = 4;
+constexpr int kPart = 8 * 4 * 32;  // a warp's 16 x 64 fp32 partial
+
+struct Layout {
+  size_t k, v, wq, wo, ring, part_a, part_m, cls, total;
+  __host__ __device__ Layout(int n, int pd) {
+    using mmafwd::D;
+    using mmafwd::kLd;
+    const size_t np = round16(n), tile = sizeof(bf16) * np * kLd,
+                 w64 = sizeof(bf16) * D * kLd;
+    size_t o = 0;
+    k = mmafwd::take(o, tile);  // the head's k and v of every row
+    v = mmafwd::take(o, tile);
+    wq = mmafwd::take(o, sizeof(bf16) * D * mmafwd::kLdQkv);
+    wo = mmafwd::take(o, w64);
+    const size_t attn = o;
+    o = 0;
+    ring = mmafwd::take(o, mmafwd::kStages * 2 * w64);  // w1, w2 chunks
+    const size_t embed = align16(sizeof(bf16) * pd * kLd);  // pe_w first
+    o = o > attn ? o : attn;
+    o = o > embed ? o : embed;
+    const size_t part = sizeof(float) * (np / 16) * kPart;
+    part_a = mmafwd::take(o, part);  // the out-projection partials
+    part_m = mmafwd::take(o, part);  // the MLP partials
+    cls = mmafwd::take(o, sizeof(float) * D);  // the CLS row, rounded
+    total = o;
+  }
+};
+
+// a warp's partial (accumulator layout) into its slot of a partial tile
+__device__ __forceinline__ void put_part(const float (&acc)[8][4],
+                                         float* tile) {
+  float* s = tile + threadIdx.x / 32 * kPart + threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[(4 * j + e) * 32] = acc[j][e];
+}
+
+// acc += each rank's partial of this warp, in rank order
+__device__ __forceinline__ void add_parts(cg::cluster_group& cluster,
+                                          float* tile, float (&acc)[8][4]) {
+  const int at = threadIdx.x / 32 * kPart + threadIdx.x % 32;
+#pragma unroll
+  for (int rk = 0; rk < kRanks; ++rk) {
+    const float* s = cluster.map_shared_rank(tile, rk) + at;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += s[(4 * j + e) * 32];
+  }
+}
+
+// y (zeroed by the caller) += the MLP on h2 over hidden chunks [c0, c0 +
+// nc) of HC columns, each chunk from a zero accumulator as mlp_run<false>
+// sums it; the chunks pass through a kStages ring. Every thread calls it;
+// only `active` warps compute.
+__device__ __forceinline__ void mlp_part(unsigned char* smem, const Layout& L,
+                                         const mmafwd::Weights& w, int mlp,
+                                         int c0, int nc,
+                                         const mmafwd::Frag& h2,
+                                         float (&y)[8][4], bool active) {
+  using mmafwd::D;
+  using mmafwd::HC;
+  using mmafwd::kLd;
+  constexpr int kStages = mmafwd::kStages;
+  const int t = threadIdx.x % 4;
+  auto stage = [&](int i) {
+    bf16* s = (bf16*)(smem + L.ring) + i % kStages * 2 * D * kLd;
+    stage_rows(s, kLd, w.w1 + (c0 + i) * HC, mlp, D, HC);
+    stage_rows(s + D * kLd, kLd, w.w2 + (size_t)(c0 + i) * HC * D, D, HC, D);
+    cp_async_commit();
+  };
+  stage(0);
+  if (nc > 1) stage(1);
+  for (int i = 0; i < nc; ++i) {
+    if (i + 1 < nc)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // chunk i landed; every warp is done with i - 1
+    if (i + 2 < nc) stage(i + 2);
+    if (!active) continue;
+    const bf16* w1c = (const bf16*)(smem + L.ring) + i % kStages * 2 * D * kLd;
+    const bf16* w2c = w1c + D * kLd;
+    const bf16* b1 = w.b1 + (c0 + i) * HC;
+    float part[8][4];
+    mmafwd::zero(part);
+#pragma unroll
+    for (int kk = 0; kk < HC / 16; ++kk) {
+      float pre[2][4] = {};
+#pragma unroll
+      for (int k2 = 0; k2 < D / 16; ++k2) {
+        uint32_t b[4];
+        load_b_kn(b, w1c, kLd, 16 * kk, 16 * k2);
+        mma_bf16(pre[0], h2[k2], b[0], b[1]);
+        mma_bf16(pre[1], h2[k2], b[2], b[3]);
+      }
+      uint32_t hid[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * kk + 8 * j + 2 * t;
+        const float c0f = tof(b1[col]), c1f = tof(b1[col + 1]);
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = rt<bf16>(gelu<bf16>(pre[j][e] + (e % 2 ? c1f : c0f)));
+        hid[2 * j] = pack_bf16(v[0], v[1]);
+        hid[2 * j + 1] = pack_bf16(v[2], v[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        load_b_kn(b, w2c, kLd, 8 * j, 16 * kk);
+        mma_bf16(part[j], hid, b[0], b[1]);
+        mma_bf16(part[j + 1], hid, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] += part[j][e];
+  }
+}
+
+// One pre-norm block of the cluster's frame on the warp's rows: x holds
+// the fp32 stream on entry and the block's output (unrounded) on return.
+// With cls_only only the warp of row 0 runs q, attention, the
+// out-projection and the MLP, and only its row 0 is the block's output.
+// Every thread of every CTA of the cluster calls it.
+__device__ __forceinline__ void block(cg::cluster_group& cluster,
+                                      const Dims& m, const void* const* wp,
+                                      int n, int rank, int r0,
+                                      mmafwd::Rows& x, unsigned char* smem,
+                                      const Layout& L, bool cls_only) {
+  using mmafwd::D;
+  using mmafwd::kLd;
+  const mmafwd::Weights w(wp);
+  const int inner = m.heads * D, np = round16(n);
+  bf16* ks = (bf16*)(smem + L.k);
+  bf16* vs = (bf16*)(smem + L.v);
+  bf16* wq = (bf16*)(smem + L.wq);
+  bf16* wo = (bf16*)(smem + L.wo);
+  const bool queries = !cls_only || r0 == 0;
+  __syncthreads();  // the previous block's readers of the tiles are done
+  for (int part = 0; part < 3; ++part)
+    stage_rows(wq + part * D, mmafwd::kLdQkv, w.wqkv + part * inner + rank * D,
+               3 * inner, D, D);
+  stage_rows(wo, kLd, w.wout + (size_t)rank * D * D, D, D, D);
+  cp_async_commit();
+  mmafwd::Frag h1;
+  mmafwd::norm_frag(x, w.an_s, w.an_b, r0, n, h1);
+  cp_async_wait<0>();
+  __syncthreads();  // the head's weights landed
+  mmafwd::Frag q;
+  mmafwd::project<false>(h1, wq, ks, vs, nullptr, r0, queries, q);
+  __syncthreads();  // the head's k and v of every row are in place
+  float acc[8][4];
+  mmafwd::zero(acc);
+  if (queries) {
+    mmafwd::Frag o;
+    mmafwd::attend_head(q, ks, vs, n, np, m.scale, o);
+    mmafwd::frag_mma<8>(acc, o, wo, kLd, 0);
+    put_part(acc, (float*)(smem + L.part_a));
+  }
+  cluster.sync();  // every rank's head partial is in place
+  if (queries) {
+    float x1[8][4];
+    mmafwd::zero(x1);
+    add_parts(cluster, (float*)(smem + L.part_a), x1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[j][e] = x[j][e] + (x1[j][e] + tof(w.bout[mmafwd::col_of(j, e)]));
+  }
+  const int quarter = m.mlp / kRanks;
+  mmafwd::Frag h2;
+  if (queries) mmafwd::norm_frag(x, w.fn_s, w.fn_b, r0, n, h2);
+  float y[8][4];
+  mmafwd::zero(y);
+  mlp_part(smem, L, w, m.mlp, rank * quarter / mmafwd::HC,
+           quarter / mmafwd::HC, h2, y, queries);
+  if (queries) put_part(y, (float*)(smem + L.part_m));
+  cluster.sync();  // every rank's MLP partial is in place
+  if (queries) {
+    float v[8][4];
+    mmafwd::bias_rows(v, w.b2);
+    add_parts(cluster, (float*)(smem + L.part_m), v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] += v[j][e];
+  }
+}
+
+}  // namespace cl
+
+// K1 over a cluster of cl::kRanks CTAs a frame: embed_rows on every rank,
+// the blocks (the stream rounded to bf16 between them), the CLS block,
+// and the final norm of the rounded CLS row on rank 0.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
+    k1_cluster_kernel(const __grid_constant__ Args a, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl::cg::cluster_group cluster = cl::cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank();
+  const cl::Layout L(n, a.pd);
+  mmafwd::Place p(n, batch);
+  p.fl = 0;
+  p.f = blockIdx.x / cl::kRanks;
+  p.r0 = threadIdx.x / 32 * 16;
+  p.live = p.f < batch;
+  mmafwd::Rows x;
+  embed_rows(a, p, x, smem_raw);
+  const void* const* w = a.p + 5;
+  for (int i = 0; i < a.depth; ++i) {
+    const bool last = i + 1 == a.depth;
+    cl::block(cluster, a.m, w + 11 * i, n, rank, p.r0, x, smem_raw, L, last);
+    if (!last) mmafwd::round_rows(x, p.r0, n);
+  }
+  if (rank == 0 && threadIdx.x < 4) {  // row 0: lanes 0-3, registers 0, 1
+    float* row = (float*)(smem_raw + L.cls);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        row[mmafwd::col_of(j, e)] = rt<bf16>(x[j][e]);
+  }
+  __syncthreads();
+  if (rank == 0 && threadIdx.x < 32)
+    final_norm_row((const float*)(smem_raw + L.cls), w + 11 * a.depth,
+                   a.final_norm, p.f);
+  cluster.sync();  // no rank leaves while another reads its partials
+}
+
+// Bytes of K1's launch in form `form` (0 the FMA trunk_kernel, 1
+// k1_mma_kernel, 2 a CTA of k1_cluster_kernel) for n rows and patches of
+// pd values.
+size_t k1_bytes(int dtype, int n, int pd, const Dims& m, int form) {
+  if (form == 0)
+    return dtype == 1 ? Smem<__nv_bfloat16>(n, m.d, m.heads, m.dh, m.hc).total
+                      : Smem<float>(n, m.d, m.heads, m.dh, m.hc).total;
+  if (form == 2) return cl::Layout(n, pd).total;
+  const size_t body = mmafwd::Layout(n).total,
+               pe_w = align16(sizeof(bf16) * pd * mmafwd::kLd);
+  return body > pe_w ? body : pe_w;
+}
+
+// k1_cluster_kernel over batch clusters of cl::kRanks CTAs of warps(n) /
+// kFrames warps, `bytes` of dynamic shared memory each, launched with
+// cudaLaunchKernelEx and the cluster dimension attribute. Returns a
+// cudaError_t (a cluster the device cannot schedule fails to launch).
+int launch_cluster(const Args& a, int batch, size_t bytes, cudaStream_t s) {
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)max_smem) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(k1_cluster_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl::kRanks * batch, 1, 1);
+  cfg.blockDim = dim3(32 * (round16(a.n) / 16), 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl::kRanks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k1_cluster_kernel, a, batch);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -226,21 +632,56 @@ extern "C" {
 // K1. dtype: 0 = fp32, 1 = bf16 compute. ptrs: patches (B, n_patch, pd),
 // goal (B, d), pe_w (pd, d), pe_b (d), pos (n_patch+1, d), 11 per block in
 // the fused-transformer order, fn_s (d) fp32, fn_b (d) fp32, out (B, d).
-// final_norm: 0 = rms, 1 = layer. Returns a cudaError_t (0 = launched).
+// final_norm: 0 = rms, 1 = layer. form: 0 the FMA trunk_kernel (any
+// width); 1 k1_mma_kernel, two frames a thread block; 2 k1_cluster_kernel,
+// one frame a cluster of 4 CTAs. Forms 1 and 2 take bf16, d = dim_head =
+// 64, n <= 80, mlp a multiple of 64, pd a multiple of 16 and 16-byte
+// aligned patches and matrix weights; form 2 also 4 heads and mlp a
+// multiple of 256 (cudaErrorInvalidValue else). Returns a cudaError_t (0 =
+// launched).
 int got_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                        int batch, int n_patch, int pd, int d, int heads,
                        int dim_head, int mlp, int depth, int final_norm,
-                       float scale, void* stream) {
+                       float scale, void* stream, int form) {
   if (depth < 1 || depth > kMaxDepth || n_ptrs != 8 + 11 * depth ||
-      batch < 1)
+      batch < 1 || form < 0 || form > 2)
     return cudaErrorInvalidValue;
   Args a = make_args(ptrs, n_ptrs, n_patch + 1, d, heads, dim_head, mlp,
                      depth, final_norm, scale);
   a.n_patch = n_patch;
   a.pd = pd;
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch<__nv_bfloat16>(true, a, batch, s)
-                    : launch<float>(true, a, batch, s);
+  if (form == 0)
+    return dtype == 1 ? launch<__nv_bfloat16>(true, a, batch, s)
+                      : launch<float>(true, a, batch, s);
+  const int mats[4] = {2, 3, 7, 9};  // wqkv, wout, w1, w2
+  const void* aligned[2 + 4 * kMaxDepth];
+  aligned[0] = a.p[0];
+  aligned[1] = a.p[2];
+  for (int i = 0; i < depth; ++i)
+    for (int j = 0; j < 4; ++j)
+      aligned[2 + 4 * i + j] = a.p[5 + 11 * i + mats[j]];
+  if (dtype != 1 || pd % 16 != 0 ||
+      !mmafwd::takes(a.n, a.m, aligned, 2 + 4 * depth) ||
+      (form == 2 && (heads != cl::kRanks ||
+                     mlp % (cl::kRanks * mmafwd::HC) != 0)))
+    return cudaErrorInvalidValue;
+  const size_t bytes = k1_bytes(dtype, a.n, pd, a.m, form);
+  if (form == 2) return launch_cluster(a, batch, bytes, s);
+  return mmafwd::launch_fwd(k1_mma_kernel, a.n, batch, bytes, s, a, batch);
+}
+
+// Bytes of dynamic shared memory a block of K1 asks for in `form` (as
+// got_forward_launch) at these shapes.
+size_t k1_smem(int dtype, int n, int pd, int d, int heads, int dim_head,
+               int mlp, int form) {
+  Dims m;
+  m.d = d;
+  m.heads = heads;
+  m.dh = dim_head;
+  m.mlp = mlp;
+  m.hc = mlp < 256 ? mlp : 256;
+  return k1_bytes(dtype, n, pd, m, form);
 }
 
 // Bytes of dynamic shared memory of K1 (mma = 0) or K4 for these shapes;
@@ -255,9 +696,11 @@ size_t got_forward_smem(int dtype, int n, int d, int heads, int dim_head,
 
 // K4. ptrs: x (B, n, d) embedded stream, 11 per block, fn_s (d) fp32,
 // fn_b (d) fp32, out (B, d). Other arguments as got_forward_launch. mma =
-// 1 runs the bf16 tensor-core body, which takes bf16, d = dim_head = 64,
-// n <= 80, mlp a multiple of 64 and 16-byte aligned x and matrix weights
-// (cudaErrorInvalidValue else); mma = 0 the FMA body, any width.
+// 1 runs the bf16 tensor-core body in its K4 form (K4's route), mma = 2 the
+// same body with every product on the tensor cores (no route takes it; for
+// measurement); both take bf16, d = dim_head = 64, n <= 80, mlp a multiple
+// of 64 and 16-byte aligned x and matrix weights (cudaErrorInvalidValue
+// else); mma = 0 the FMA body, any width.
 int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
@@ -277,7 +720,11 @@ int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
         aligned[1 + 4 * i + j] = a.p[1 + 11 * i + mats[j]];
     if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 1 + 4 * depth))
       return cudaErrorInvalidValue;
-    return mmafwd::launch_fwd(trunk_mma_kernel, n, batch, s, a, batch);
+    return mma == 1 ? mmafwd::launch_fwd(trunk_mma_kernel<true>, n, batch,
+                                         mmafwd::Layout(n).total, s, a, batch)
+                    : mmafwd::launch_fwd(trunk_mma_kernel<false>, n, batch,
+                                         mmafwd::Layout(n).total, s, a,
+                                         batch);
   }
   return dtype == 1 ? launch<__nv_bfloat16>(false, a, batch, s)
                     : launch<float>(false, a, batch, s);

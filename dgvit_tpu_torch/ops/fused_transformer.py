@@ -81,9 +81,17 @@ def _gelu32(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return 0.5 * x * (1.0 + _erf32(x * _INV_SQRT2))
 
 
+def _prod(a32: torch.Tensor, b32: torch.Tensor) -> torch.Tensor:
+    """a32 @ b32 of fp32 tensors, summed in fp32: the one place where the
+    plain versions sum a matrix product (chip_smoke.py's `exact_sums`
+    swaps it for float64 sums)."""
+    return a32 @ b32
+
+
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Compute-dtype operands, fp32 product and accumulation."""
-    return _f32(a) @ _f32(w)
+    """Compute-dtype (or fp32) operands, fp32 product and accumulation;
+    batched operands as `@` takes them."""
+    return _prod(_f32(a), _f32(w))
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,11 +101,11 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, nq, _ = q.shape
     n = k.shape[1]
     split = lambda t, r: t.reshape(b, r, heads, dim_head).transpose(1, 2)
-    s = _f32(split(q, nq)) @ _f32(split(k, n)).transpose(-1, -2)
+    s = _mm(split(q, nq), _f32(split(k, n)).transpose(-1, -2))
     s = s * dim_head ** -0.5
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = (e / e.sum(dim=-1, keepdim=True)).to(cdt)
-    o = (_f32(p) @ _f32(split(v, n))).to(cdt)          # (B, H, nq, dh)
+    o = _mm(p, split(v, n)).to(cdt)                    # (B, H, nq, dh)
     return o.transpose(1, 2).reshape(b, nq, heads * dim_head)
 
 
@@ -164,8 +172,8 @@ def _ln_bwd(dh32, xhat, rstd, scale):
 
 def _tmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A^T B over every row of (..., K) and (..., N): (K, N) in fp32."""
-    return _f32(a).reshape(-1, a.shape[-1]).t() @ _f32(b).reshape(
-        -1, b.shape[-1])
+    return _prod(_f32(a).reshape(-1, a.shape[-1]).t(),
+                 _f32(b).reshape(-1, b.shape[-1]))
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -208,11 +216,11 @@ def block_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     qkv = _mm(h1, wqkv).to(cdt)
     q, k, v = (_heads(qkv[..., i * inner:(i + 1) * inner], heads)
                for i in range(3))
-    s = _f32(q) @ _f32(k).transpose(-1, -2) * scale
+    s = _mm(q, _f32(k).transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p32 = e / e.sum(dim=-1, keepdim=True)
     p_c = p32.to(cdt)
-    o = _merge((_f32(p_c) @ _f32(v)).to(cdt))
+    o = _merge(_mm(p_c, v).to(cdt))
     x1 = x32 + (_mm(o, wout) + _f32(bout).reshape(-1))
     f_s32 = _f32(fn_s).reshape(-1)
     xhat2, rstd2, h2_32 = _ln_stats(x1, f_s32, fn_b)
@@ -234,12 +242,12 @@ def block_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     dbout = g1.reshape(-1, g1.shape[-1]).sum(dim=0)
     dwout = _tmm(o, g1_c)
     do_h = _heads(_mm(g1_c, wout.t()).to(cdt), heads)
-    dv = _f32(p_c).transpose(-1, -2) @ _f32(do_h)
-    dp = _f32(do_h) @ _f32(v).transpose(-1, -2)
+    dv = _mm(_f32(p_c).transpose(-1, -2), do_h)
+    dp = _mm(do_h, _f32(v).transpose(-1, -2))
     ds = p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))
     ds = _f32((ds * scale).to(cdt))
-    dq = ds @ _f32(k)
-    dk = ds.transpose(-1, -2) @ _f32(q)
+    dq = _mm(ds, k)
+    dk = _mm(ds.transpose(-1, -2), q)
     dqkv_c = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(cdt)
     dwqkv = _tmm(h1, dqkv_c)
     dh1 = _mm(dqkv_c, wqkv.t())

@@ -39,10 +39,23 @@ from dgvit_tpu_torch.ops.cls_block import cls_block_plain
 from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
                                                    block_plain,
                                                    tensor_core_fwd)
+from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_embed,
+                                      tensor_core_widths)
 from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NORMS = {"rms": 0, "layer": 1}
+# K1's forms (csrc/got_megakernel.cu, got_forward_launch's `form`): the
+# FMA trunk_kernel; k1_mma_kernel, two frames a thread block with every
+# product on the tensor cores; k1_cluster_kernel, one frame over a
+# cluster of CLUSTER CTAs
+K1_FORMS = {"fma": 0, "mma": 1, "cluster": 2}
+CLUSTER = 4
+# The cluster form runs while CLUSTER x batch <= CLUSTER_LOAD x the SM
+# count, two frames a block past that: where the two cross on an H100 80GB
+# HBM3 (132 SMs, 700 W; chip_smoke.py phase 8), the cluster took 0.486 ms
+# at B=90 against 0.541, and 0.594 against 0.538 at B=99
+CLUSTER_LOAD = 2.75
 
 
 def _final_norm32(cls: torch.Tensor, fs: torch.Tensor, fb: torch.Tensor,
@@ -137,6 +150,50 @@ def _flat_vectors(blocks, fn):
     return blocks, fn
 
 
+def k1_form_for(batch: int, n: int, pd: int, d: int, heads: int,
+                dim_head: int, mlp: int, dtype: torch.dtype, aligned: bool,
+                sms: int) -> str:
+    """The form K1 takes (a key of K1_FORMS) for `batch` frames of n rows
+    of patches of pd values on a card of `sms` SMs. The tensor-core
+    kernels where their body takes the widths (`smem.tensor_core_widths`:
+    bf16, d = dim_head = 64, at most 80 rows, mlp a multiple of 64), pd is
+    a multiple of 16 and the staged pe_w fits the body's shared memory
+    (`smem.k1_embed`), and the patches and matrix weights are 16-byte
+    aligned: the cluster form where CLUSTER x batch <= CLUSTER_LOAD x sms
+    (at most 90 frames on an H100) and each rank takes one head (heads =
+    CLUSTER, mlp a multiple of CLUSTER x 64); else two frames a thread
+    block. Every other call (fp32, other widths, longer frames) takes the
+    FMA kernel."""
+    if not (tensor_core_widths(n, d, dim_head, mlp, dtype) and aligned
+            and pd % 16 == 0 and k1_embed(pd) <= fwd_mma(n)):
+        return "fma"
+    if (CLUSTER * batch <= CLUSTER_LOAD * sms and heads == CLUSTER
+            and mlp % (CLUSTER * 64) == 0
+            and k1_embed(pd) <= k1_cluster(n, 0)):
+        return "cluster"
+    return "mma"
+
+
+def k1_form(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
+            final_norm) -> str:
+    """K1's form for these arguments of `got_forward_fused` on their card
+    (`k1_form_for`); the wrapper launches it, chip_smoke.py reads it."""
+    b, _, pd = patches.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (
+        patches, pe[0], *[w[i] for w in blocks for i in (2, 3, 7, 9)]))
+    return k1_form_for(b, n_valid, pd, goal.shape[-1], heads, dim_head,
+                       blocks[0][7].shape[1], patches.dtype, aligned,
+                       _sm_count(patches.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SM count; 0 off the card (no kernel runs there)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.cache
 def _kernel_lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (built and
@@ -147,20 +204,22 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.got_forward_launch.restype = ctypes.c_int
     lib.got_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     lib.blocks_forward_launch.restype = ctypes.c_int
     lib.blocks_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     lib.got_forward_smem.restype = ctypes.c_size_t
     lib.got_forward_smem.argtypes = [ctypes.c_int] * 7
+    lib.k1_smem.restype = ctypes.c_size_t
+    lib.k1_smem.argtypes = [ctypes.c_int] * 8
     lib.got_error_string.restype = ctypes.c_char_p
     lib.got_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 def _launch(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
-            final_norm) -> torch.Tensor:
+            final_norm, form) -> torch.Tensor:
     lib = _kernel_lib()
     b, n_patch, pd = patches.shape
     d = goal.shape[-1]
@@ -174,9 +233,9 @@ def _launch(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
             _DTYPES[patches.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n_patch, pd, d, heads, dim_head,
             blocks[0][7].shape[1], len(blocks), _NORMS[final_norm],
-            dim_head ** -0.5, stream)
+            dim_head ** -0.5, stream, K1_FORMS[form])
     if err != 0:
-        raise RuntimeError("got_megakernel launch failed: "
+        raise RuntimeError(f"got_megakernel launch failed (K1, {form}): "
                            + lib.got_error_string(err).decode())
     got_forward_fused.launches += 1
     return out
@@ -200,9 +259,9 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
     fn:      final-norm (scale, bias), each (dim,) fp32
     Returns the (B, dim) latent in the compute dtype.
 
-    CUDA tensors go to the CUDA kernel (and raise if it cannot run); CPU
-    tensors go to the plain version. `got_forward_fused.launches` counts
-    kernel launches.
+    CUDA tensors go to the CUDA kernel in the form `k1_form` picks (and
+    raise if it cannot run); CPU tensors go to the plain version.
+    `got_forward_fused.launches` counts kernel launches.
     """
     pe = tuple(t.reshape(-1) if t.dim() == 2 and t.shape[0] == 1 else t
                for t in pe)
@@ -210,8 +269,9 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
     _check(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
            final_norm)
     if patches.device.type == "cuda":
-        return _launch(patches, goal, pe, pos, blocks, fn, heads, dim_head,
-                       n_valid, final_norm)
+        args = (patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
+                final_norm)
+        return _launch(*args, k1_form(*args))
     if patches.device.type != "cpu":
         raise ValueError(f"no kernel for device {patches.device}")
     return got_forward_plain(patches, goal, pe, pos, blocks, fn, heads,
@@ -221,22 +281,24 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
 got_forward_fused.launches = 0
 
 
-def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm
+def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None
                    ) -> torch.Tensor:
     lib = _kernel_lib()
     b, n, d = x.shape
     out = torch.empty((b, d), dtype=x.dtype, device=x.device)
     tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    # every block on the tensor-core body, or every block on the FMA body
-    mma = all(tensor_core_fwd(x, w, dim_head) for w in blocks)
+    # every block on the tensor-core body (its K4 form), or every block on
+    # the FMA body; `body` 2 (every product on the tensor cores) is taken
+    # only when asked for, by chip_numerics.py
+    mma = body if body is not None else int(
+        all(tensor_core_fwd(x, w, dim_head) for w in blocks))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.blocks_forward_launch(
             _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n, d, heads, dim_head, blocks[0][7].shape[1],
-            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream,
-            int(mma))
+            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream, mma)
     if err != 0:
         raise RuntimeError("blocks_cls_forward_fused launch failed: "
                            + lib.got_error_string(err).decode())

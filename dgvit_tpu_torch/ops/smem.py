@@ -14,7 +14,8 @@ layouts the launches size their memory by:
   * `MmaBwdSmem` (csrc/block_grad.cu): K2b's tensor-core backward body;
   * `ClsMmaSmem` (csrc/block_grad.cu): K3b's tensor-core backward body;
   * `mmafwd::Layout` (csrc/block_mma_fwd.cuh): the tensor-core forward
-    body of K2f and K4;
+    body of K2f, K4 and K1 (K1 also stages pe_w over it first);
+  * `cl::Layout` (csrc/got_megakernel.cu): a CTA of K1's cluster form;
   * K6's launch, the largest of the bodies it runs;
   * `SectionSmem<T>` (csrc/attention.cu): K7, by query tile.
 
@@ -126,6 +127,26 @@ def fwd_mma(n: int) -> int:
                      4 * _FRAMES * MMA_WIDTH))
 
 
+def k1_embed(pd: int) -> int:
+    """The pe_w tile K1's tensor-core kernel stages at the front of its
+    shared memory before the blocks (csrc/got_megakernel.cu, k1_bytes):
+    pd rows of the body's 64-wide bf16 tiles."""
+    return _a16(2 * pd * _LD)
+
+
+def k1_cluster(n: int, pd: int) -> int:
+    """`cl::Layout(n, pd)` (csrc/got_megakernel.cu): a CTA of K1's cluster
+    form, one head's tiles and weights over the MLP's ring and the staged
+    pe_w, then the out-projection's and the MLP's fp32 partials (16 x 64
+    a warp) and the CLS row."""
+    np_, w64 = _a16(n), 2 * MMA_WIDTH * _LD
+    attn = _take(0, (2 * np_ * _LD, 2 * np_ * _LD, 2 * MMA_WIDTH * _LD_QKV,
+                     w64))
+    o = max(attn, _take(0, (_STAGES * 2 * w64,)), k1_embed(pd))
+    part = 4 * (np_ // 16) * 16 * MMA_WIDTH
+    return _take(o, (part, part, 4 * MMA_WIDTH))
+
+
 def trunk_bwd(n: int, d: int, heads: int, dim_head: int, mlp: int,
               dtype: torch.dtype, mma: bool) -> int:
     """K6's launch: the forward chain's `Smem<T>` and the largest backward
@@ -163,8 +184,11 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     widths, alignment decided at the call), the larger of the two."""
     mma = tensor_core_widths(n, d, dim_head, mlp, dtype)
     fma = fwd_fma(n, d, heads, dim_head, mlp, dtype)
-    if kernel in ("K1", "K3f"):
+    if kernel == "K3f":
         return fma
+    if kernel == "K1":
+        return max(fma, fwd_mma(n) if mma else 0,
+                   k1_cluster(n, 0) if mma else 0)
     if kernel in ("K4", "K2f"):
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":

@@ -1,0 +1,273 @@
+"""The float64-sum yardstick of chip_smoke.py's restated checks, and the
+JAX oracles of ROADMAP faults 3c and 3d, on the CPU.
+
+chip_smoke.py holds a kernel that differs from its plain version only in
+the order of its sums to the plain version with every matrix product
+summed in float64 (`exact_sums`), under max(old limit, k x the plain
+version's own distance to it). These tests show that the mode reaches
+every product of the plain versions and nothing else, that the restated
+check passes float64 sums and fails a wrong rounding point, and hold the
+plain versions of faults 3c (fp32 K2b) and 3d (the per-block chain against
+the whole-trunk backward) against the JAX package's TPU kernels in
+interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+
+import chip_smoke as cs
+from dgvit_tpu.ops.cls_block import cls_final_block
+from dgvit_tpu.ops.fused_transformer import (_fused_block_bwd_impl,
+                                             fused_transformer_block)
+from dgvit_tpu.ops.got_megakernel import _final_norm32
+from dgvit_tpu.ops.trunk_train import trunk_bwd_impl
+from dgvit_tpu_torch.ops import cls_block as cb
+from dgvit_tpu_torch.ops import fused_transformer as ft
+from dgvit_tpu_torch.ops import got_megakernel as gm
+from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
+from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, block_tree, rand,
+                                to_torch, weights)
+
+MATMULS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+           torch.mm, torch.bmm}
+
+
+class Products(TorchFunctionMode):
+    """Records the dtype of every matrix product."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtypes = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in MATMULS:
+            self.dtypes.append(args[0].dtype)
+        return func(*args, **(kwargs or {}))
+
+
+def small_args(name, dtype="bfloat16"):
+    """Arguments of one plain function at the small test geometry."""
+    rng = np.random.default_rng(5)
+    w = [weights(block_tree(rng), dtype)[1] for _ in range(2)]
+    t = lambda *s: to_torch(rand(rng, *s), dtype)
+    fn = (torch.from_numpy(1 + 0.1 * rand(rng, D)), torch.zeros(D))
+    x, dy3 = t(3, 5, D), t(3, D)
+    if name == "got_forward_plain":
+        pe = (t(16, D), t(D))
+        return (t(3, 4, 16), t(3, D), pe, t(5, D), w, fn, HEADS, DIM_HEAD,
+                5, "rms")
+    return {"blocks_forward_plain": (x, w, fn, HEADS, DIM_HEAD, "rms"),
+            "block_bwd_plain": (x, t(3, 5, D), w[0], HEADS, DIM_HEAD),
+            "cls_bwd_plain": (x, dy3, w[1], HEADS, DIM_HEAD),
+            "trunk_bwd_plain": (x, dy3, w, fn, HEADS, DIM_HEAD,
+                                "rms")}[name]
+
+
+PLAIN = {"blocks_forward_plain": gm.blocks_forward_plain,
+         "got_forward_plain": gm.got_forward_plain,
+         "block_bwd_plain": ft.block_bwd_plain,
+         "cls_bwd_plain": cb.cls_bwd_plain,
+         "trunk_bwd_plain": trunk_bwd_plain}
+
+
+def flat(result):
+    if isinstance(result, torch.Tensor):
+        return [result]
+    out = []
+    for r in result:
+        out += flat(r) if isinstance(r, (tuple, list)) else [r]
+    return out
+
+
+@pytest.mark.parametrize("name", list(PLAIN))
+def test_exact_sums_reaches_every_product(name):
+    """Under exact_sums every matrix product of the plain function is a
+    float64 product through the one hook (`fused_transformer._prod`): as
+    many hook calls as products, none left in fp32. Outside it, the same
+    products run in fp32."""
+    args = small_args(name)
+    calls = []
+    hook = ft._prod
+    with Products() as seen:
+        PLAIN[name](*args)
+    assert seen.dtypes and set(seen.dtypes) == {torch.float32}
+    with cs.exact_sums():
+        exact = ft._prod
+        ft._prod = lambda a, b: calls.append(1) or exact(a, b)
+        try:
+            with Products() as under:
+                PLAIN[name](*args)
+        finally:
+            ft._prod = exact
+    assert ft._prod is hook
+    assert set(under.dtypes) == {torch.float64}
+    assert len(calls) == len(under.dtypes) == len(seen.dtypes)
+
+
+@pytest.mark.parametrize("name", list(PLAIN))
+def test_exact_sums_changes_nothing_outside(name):
+    """The mode moves the results (the sums are other sums) and leaves
+    nothing behind: after it, the plain function gives the same tensors as
+    before, bit for bit, and the hook is the fp32 product again."""
+    args = small_args(name, "float32")
+    hook = ft._prod
+    before = flat(PLAIN[name](*args))
+    inside = flat(cs.exact(PLAIN[name], *args))
+    after = flat(PLAIN[name](*args))
+    assert ft._prod is hook
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert any(not torch.equal(a, b) for a, b in zip(before, inside))
+
+
+def test_restated_check_passes_exact_sums_and_fails_a_wrong_rounding():
+    """chip_smoke.restated as a pure function of tensors: K4's pooled bf16
+    check (k = EXACT_K["K4"]) passes the float64-sum output (0 against
+    itself) and fails the plain version with the residual stream kept in
+    fp32 across blocks (a wrong rounding point); the per-tensor fp32 check
+    does the same with a bf16 rounding of the fp32 output."""
+    rng = np.random.default_rng(11)
+    w = [weights(block_tree(rng), "bfloat16")[1] for _ in range(3)]
+    fn = (torch.from_numpy(1 + 0.1 * rand(rng, D)), torch.zeros(D))
+    x = to_torch(rand(rng, 8, 5, D), "bfloat16")
+    args = (x, w, fn, HEADS, DIM_HEAD, "rms")
+    plain = gm.blocks_forward_plain(*args)
+    exact = cs.exact(gm.blocks_forward_plain, *args)
+    wrong = cs.k4_f32_residual(*args)
+    k = cs.EXACT_K["K4"]
+    ok, got, limit = cs.restated(cs.pooled_rel, cs.TRAIN_BF16_MEAN, k,
+                                 [exact], [plain], [exact])
+    assert ok and got == 0.0 and limit >= cs.TRAIN_BF16_MEAN
+    ok, got, _ = cs.restated(cs.pooled_rel, cs.TRAIN_BF16_MEAN, k, [wrong],
+                             [plain], [exact])
+    assert not ok and got > 10 * cs.TRAIN_BF16_MEAN
+    xs = to_torch(rand(rng, 3, 5, D), "float32")
+    w32 = weights(block_tree(rng), "float32")[1]
+    out = ft.block_fwd_plain(xs, w32, HEADS, DIM_HEAD)
+    ex = cs.exact(ft.block_fwd_plain, xs, w32, HEADS, DIM_HEAD)
+    assert cs.restated(cs.rel_max, cs.TRAIN_F32_MAX, cs.EXACT_K["fp32"],
+                       [ex], [out], [ex])[0]
+    assert not cs.restated(cs.rel_max, cs.TRAIN_F32_MAX, cs.EXACT_K["fp32"],
+                           [out.bfloat16().float()], [out], [ex])[0]
+
+
+@pytest.fixture(scope="module")
+def actor_nets():
+    saved = cs.DEVICE
+    cs.DEVICE = "cpu"
+    try:
+        yield cs.build_nets(*cs.golden_params())
+    finally:
+        cs.DEVICE = saved
+
+
+def to_jax_flat(w):
+    return tuple(jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        .reshape((1, -1) if t.dim() == 1 else tuple(t.shape)) for t in w)
+
+
+def test_fault_3c_fp32_block_backward_against_the_jax_kernel(actor_nets,
+                                                            monkeypatch):
+    """Fault 3c's oracle: the port's fp32 `block_bwd_plain` against the JAX
+    `_fused_block_bwd_impl` in interpret mode, on the trained actor's
+    first block at B=8 (65 tokens, seeded frames and gradient, as phase 5
+    draws them). Another fp32 summation order through a trunk whose
+    activations reach 1e4: each tensor within 1e-4 L of the JAX kernel
+    (read 1.54e-5 L on the LayerNorm scale gradient, past the old 1e-5 L
+    that chip_smoke.py held the CUDA kernel to). The JAX kernel itself
+    meets the restated fp32 check against the port's float64-sum version
+    (read 5.1e-6 L there, the port's plain version 1.1e-5 L)."""
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    a = cs.train_inputs(actor_nets["float32"], 8,
+                        np.random.default_rng(7))["actor"]
+    x, dy, w = a["x"], a["dy2"], a["blocks"][0]
+    dx, dflat = _fused_block_bwd_impl(
+        jnp.asarray(x.numpy()), jnp.asarray(dy.numpy()), to_jax_flat(w),
+        heads=a["heads"], dim_head=a["dh"], interpret=True)
+    port = cs.tensors(ft.block_bwd_plain(x, dy, w, a["heads"], a["dh"]))
+    jx = [torch.from_numpy(np.array(t, np.float32)).reshape(p.shape)
+          for t, p in zip([dx, *dflat], port)]
+    exact = cs.tensors(cs.exact(ft.block_bwd_plain, x, dy, w, a["heads"],
+                                a["dh"]))
+    assert cs.rel_max(port, jx) <= 1e-4
+    assert cs.restated(cs.rel_max, cs.TRAIN_F32_MAX, cs.EXACT_K["fp32"],
+                       jx, port, exact)[0]
+
+
+def test_fault_3d_jax_per_block_route_against_the_trunk_kernel(actor_nets,
+                                                              monkeypatch):
+    """Fault 3d's oracle: the JAX per-block gradient route (interpret-mode
+    fused_transformer_block x3, cls_final_block, the RMS final norm; jax.vjp)
+    against the JAX whole-trunk backward `trunk_bwd_impl` in interpret
+    mode, bf16, the trained actor's trunk at B=3 on 17 tokens (phase 13's
+    case). On one platform the two routes take the same sums and agree
+    within 2^-10 L per tensor (read 1.2e-4 L: the per-block route rounds dx
+    to bf16 at each block's output), as the port's chain of plain versions
+    equals `trunk_bwd_plain` bit for bit (read 0.0). On the card every sum
+    of the port's chain takes another order (ROADMAP fault 3d)."""
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    a = cs.train_inputs(actor_nets["bfloat16"], 3,
+                        np.random.default_rng(7))["actor"]
+    x, dy = a["x"][:, :17].contiguous(), a["dy3"]
+    blocks, fn, heads, dh = a["blocks"], a["fn"], a["heads"], a["dh"]
+    jb = tuple(to_jax_flat(w) for w in blocks)
+    jfn = tuple(jnp.asarray(t.numpy()).reshape(1, -1) for t in fn)
+    jx, jdy = to_jax_flat([x])[0], to_jax_flat([dy])[0]
+
+    def route(x, jb, jfn):
+        for w in jb[:-1]:
+            x = fused_transformer_block(x, w, heads, dh, True)
+        c = cls_final_block(x, jb[-1], heads, dh, True)
+        return _final_norm32(c.astype(jnp.float32), *jfn,
+                             "rms").astype(x.dtype)
+
+    _, vjp = jax.vjp(route, jx, jb, jfn)
+    r = vjp(jdy)
+    k = trunk_bwd_impl(jx, jdy, jb, jfn, heads=heads, dim_head=dh,
+                       final_norm="rms", interpret=True)
+    as_list = lambda res: [np.asarray(res[0], np.float32)] + [
+        np.asarray(g, np.float32) for b in res[1] for g in b] + [
+        np.asarray(res[2][0], np.float32)]
+    worst = max(np.abs(p - q).max() / max(np.abs(q).max(), 1e-30)
+                for p, q in zip(as_list(r), as_list(k)))
+    assert worst <= 2.0 ** -10
+    chain = cs.trunk_tensors(cs.trunk_chain_bwd(x, dy, blocks, fn, heads, dh,
+                                                "rms"))
+    plain = cs.trunk_tensors(trunk_bwd_plain(x, dy, blocks, fn, heads, dh,
+                                             "rms"))
+    assert all(torch.equal(c, p) for c, p in zip(chain, plain))
+
+
+# (batch, n, pd, d, heads, dim_head, mlp, dtype, aligned, SMs) -> form
+ROUTES = [
+    ((1, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
+    ((64, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
+    ((90, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
+    ((91, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "mma"),
+    ((2048, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "mma"),
+    ((11, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 16), "cluster"),
+    ((12, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 16), "mma"),
+    ((1, 80, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
+    ((1, 81, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
+    ((1, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 65, 320, 64, 4, 64, 2048, torch.bfloat16, False, 132), "fma"),
+    ((1, 65, 320, 32, 4, 32, 2048, torch.bfloat16, True, 132), "fma"),
+    ((1, 65, 320, 64, 2, 64, 2048, torch.bfloat16, True, 132), "mma"),
+    ((1, 65, 320, 64, 4, 64, 192, torch.bfloat16, True, 132), "mma"),
+    ((1, 65, 328, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
+    ((1, 17, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
+    ((1, 17, 1024, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
+]
+
+
+@pytest.mark.parametrize("args,form", ROUTES)
+def test_k1_route_rule(args, form):
+    """K1's form by batch and SM count (the cluster while 4 x batch <= 2.75
+    x the SMs: at most 90 frames on an H100's 132), width, heads and MLP
+    (4 heads, one a rank), dtype, alignment, token count (at most 80 rows)
+    and patch width (a multiple of 16 whose staged pe_w fits the body)."""
+    assert gm.k1_form_for(*args) == form

@@ -28,7 +28,7 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # forward kernels, and from the formulas of block_common.cuh, block_grad.cu
 # and attention.cu)
 BYTES = {
-    (BF16, 65): {"K1": 102192, "K4": 142080, "K2b": 215056, "K3b": 136240,
+    (BF16, 65): {"K1": 142080, "K4": 142080, "K2b": 215056, "K3b": 136240,
                  "K6": 215056, "K7": 19776},
     (BF16, 90): {"K1": 141488, "K4": 141488, "K2b": 188640, "K3b": 188640,
                  "K6": 188640, "K7": 27168},
@@ -53,11 +53,13 @@ BYTES = {
 def test_mirror_bytes(dtype, n):
     for kernel, want in BYTES[(dtype, n)].items():
         assert smem.bytes_needed(kernel, n, *FLAGSHIP, dtype) == want, kernel
-    # K2f and K3f size like K4 and K1 (the same bodies)
+    # K2f sizes like K4 (the same bodies), K3f like the FMA body alone,
+    # which K1 takes past the tensor-core bodies' 80 rows and in fp32
     assert smem.bytes_needed("K2f", n, *FLAGSHIP, dtype) == \
         BYTES[(dtype, n)]["K4"]
     assert smem.bytes_needed("K3f", n, *FLAGSHIP, dtype) == \
-        BYTES[(dtype, n)]["K1"]
+        smem.fwd_fma(n, *FLAGSHIP, dtype) == \
+        (102192 if (dtype, n) == (BF16, 65) else BYTES[(dtype, n)]["K1"])
 
 
 def test_mirror_layouts():
@@ -80,6 +82,30 @@ def test_mirror_layouts():
     # K7 takes the fewest query tiles that fit: one row always fits here
     assert smem.section(256, 64, 64, 256, FP32) > H100 \
         >= smem.section(256, 64, 64, 1, FP32)
+
+
+@pytest.mark.parametrize("n,pd,embed,cluster", [
+    (65, 320, 46080, 99072), (80, 320, 46080, 99072),
+    (17, 320, 46080, 71936), (65, 160, 23040, 99072)])
+def test_k1_layouts(n, pd, embed, cluster):
+    """K1's tensor-core forms: the pe_w tile its embedding stages (pd rows
+    of 72 bf16 values) fits under the forward body's bytes, so the
+    two-frames-a-block form asks for fwd_mma(n); a CTA of the cluster
+    form holds one head's k and v (rows padded to 16), its q|k|v and wout
+    slices, over them the MLP's three-stage ring and the staged pe_w, then
+    two fp32 partial tiles (16 x 64 a warp) and the CLS row. The largest
+    of K1's forms sets its route's bytes: the FMA body's at 81 rows and
+    more, the tensor-core body's at 80 and fewer."""
+    assert smem.k1_embed(pd) == embed <= smem.fwd_mma(n)
+    assert smem.k1_cluster(n, pd) == cluster < smem.fwd_mma(n)
+    np_ = (n + 15) // 16 * 16
+    parts = 2 * 4 * np_ * 64 + 4 * 64
+    assert cluster == max(2 * 2 * np_ * 72 + 2 * 64 * 200 + 2 * 64 * 72,
+                          3 * 2 * 2 * 64 * 72, embed) + parts
+    assert smem.bytes_needed("K1", n, *FLAGSHIP, BF16) == max(
+        smem.fwd_fma(n, *FLAGSHIP, BF16), smem.fwd_mma(n))
+    assert smem.bytes_needed("K1", 81, *FLAGSHIP, BF16) == smem.fwd_fma(
+        81, *FLAGSHIP, BF16)
 
 
 # the longest frame each kernel holds at the H100's limit, flagship widths
