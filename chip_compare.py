@@ -14,7 +14,8 @@ update of each under torch.profiler, by the profiler helper of the
 chip_smoke.py beside this script: its device time, in all and in the
 weight products' kernels, `wgrad*`), phase 8's K1
 times at each timed batch, phase 8b's training kernels, phase 12's K5 and phase 17's K6, K7
-and K8 (CUDA events). Each run prints one JSON line (`RESULT {...}`);
+and K8 (CUDA events; where a tree's chip_smoke.py times them, K3f's and
+K7's FMA kernels and K7's library yardstick too). Each run prints one JSON line (`RESULT {...}`);
 the last line is a table of every number by run. Needs one CUDA card.
 """
 
@@ -80,12 +81,18 @@ for b, t in cs.phase_times(cfg, policies, rng).items():
         out[f"K1 (B={b})"] = t["ms"]
 for name, t in cs.phase_train_times(nets, rng).items():
     out[name] = t["ms"]
+    if "fma_ms" in t:
+        out[f"{name} FMA kernel"] = t["fma_ms"]
 out["K5 (B=32)"] = cs.phase_k5_times(rng)[cs.CAMERA_FRAMES]["ms"]
 attn = cs.phase_attention_times(nets, rng)
 out["K6"] = attn["K6"]["ms"]
 for name in ("K7", "K8"):
     for shape, t in attn[name].items():
         out[f"{name} {shape}"] = t["ms"]
+        for key, what in (("fma_ms", "FMA kernel"),
+                          ("yardstick_ms", "library yardstick")):
+            if key in t:
+                out[f"{name} {shape} {what}"] = t[key]
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
@@ -115,7 +122,7 @@ def main() -> int:
         result = json.loads([ln for ln in lines
                              if ln.startswith("RESULT ")][-1][7:])
         rows.append((i, tree, result))
-    keys = list(rows[0][2])
+    keys = list(dict.fromkeys(k for _, _, r in rows for k in r))
     table = {k: [r[2].get(k) for r in rows] for k in keys}
     print(json.dumps({"runs": [f"{i}: {t}" for i, t, _ in rows],
                       "ms": table}))

@@ -8,24 +8,29 @@ SEED, so what a phase draws depends on the phases run before it. For each
 TREE (the root of a checkout; by default the one this script is in) and
 each seed, a fresh Python process started in that tree builds its kernels
 and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
-5b (the bodies off the flagship widths; "shared" only) and 13 (K6) on two
-orders of draws:
+5b (the bodies off the flagship widths; "shared" only), 13 (K6, fp32 and
+bf16), 15 (K7 and K8), 16 (the composed routes) and 17b (long frames) on
+two orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
-  fresh:  phases 5 and 13 each on a generator of its own from the seed.
+          phases 15, 16 and 17b each on a generator spawned off it
+          (`Generator.spawn`, as phase 13's extra draws are), so that a
+          phase added to the run moves no later phase's draw;
+  fresh:  phases 5, 13, 15, 16 and 17b each on a generator of its own
+          from the seed.
 
 Phase 2 comes first in both orders, so its draws are the same in both;
 it runs once a seed, with every form of K1 at every batch
 (chip_smoke.K1_ALL_FORMS): the parent's FMA body beside the new ones.
 
 A failed check is printed (`CHECK FAILED: ...`) and the phase goes on.
-The four checks restated against float64 sums (chip_smoke.py, EXACT_K)
-print one row per check, seed and order: the kernel, the plain version's
-own distance to the float64-sum version that sets the limit, and each
-wrong version, each against its limit (`ok` for the kernel, `fails` for a
-wrong version, as the rule wants). The last line is a JSON table of the
-failed checks by tree, seed and order; --json PATH also writes every raw
-reading there. Needs one CUDA card.
+The checks held to float64 sums or read against them (chip_smoke.py,
+EXACT_K) print one row per check, seed and order: the kernel, the plain
+version's own distance to the float64-sum version that sets the limit, and
+each wrong version, each against its limit (`ok` for the kernel, `fails`
+for a wrong version, as the rule wants). The last line is a JSON table of
+the failed checks by tree, seed and order; --json PATH also writes every
+raw reading there. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from dgvit_tpu_torch.ops import _build
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-_build.build("got_megakernel", "block_grad")
+_build.build("got_megakernel", "block_grad", "attention")
 failed = []
 
 
@@ -64,13 +69,17 @@ def check(ok, what):
 cs.check = check
 cs.K1_ALL_FORMS = True
 cfg = Config()
-sd = params_from_jax(load_params_npz(str(cs.ACTOR)))
+flat = load_params_npz(str(cs.ACTOR))
+sd = params_from_jax(flat)
 policies = {}
 for dtype in ("bfloat16", "float32"):
     p = build_actor(cfg, dtype=getattr(torch, dtype))
     p.load_state_dict(sd)
     policies[dtype] = p.to(cs.DEVICE).eval()
 nets = cs.build_nets(*cs.golden_params())
+later = [("15", lambda r: cs.phase_attention(nets, r)),
+         ("16", lambda r: cs.phase_composed(cfg, flat, policies, r)),
+         ("17b", lambda r: cs.phase_long_frames(flat, r))]
 for seed in seeds:
     for order in ("shared", "fresh"):
         failed.clear()
@@ -89,6 +98,9 @@ for seed in seeds:
             cs.phase_bwd_widths(nets, rng)
         print(f"== seed {seed}, {order}: phase 13", flush=True)
         cs.phase_k6(nets, fresh())
+        for name, phase in later:
+            print(f"== seed {seed}, {order}: phase {name}", flush=True)
+            phase(fresh().spawn(1)[0])
         print("RESULT " + json.dumps({"seed": seed, "order": order,
                                       "failed": list(failed),
                                       "readings": cs.READINGS}), flush=True)
@@ -98,6 +110,7 @@ for seed in seeds:
 def rows(result):
     """One printed row per restated check of one run."""
     tag = f"seed {result['seed']} {result['order']}"
+    verdict = lambda ok: "ok" if ok else "FAIL"
     for r in result["readings"]:
         if r["check"] == "fp32 train":
             yield (f"{tag} fp32 {r['kernel']} B={r['batch']}: kernel "
@@ -123,6 +136,60 @@ def rows(result):
                    " max(2^-13, 2 x plain): " + ", ".join(
                        f"{n} {w['got']:.3e}/{w['limit']:.3e} ({w['tensor']})"
                        for n, w in r["tensor_mean"].items()))
+        elif r["check"] == "fp32 K6":
+            yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e}, the chain "
+                   f"{r['chain']:.3e} against float64 sums (limit max(1e-3, "
+                   f"{r['k']:g} x plain {r['plain']:.3e}) = {r['limit']:.3e};"
+                   f" old vs plain {r['old']:.3e}) "
+                   + verdict(max(r["got"], r["chain"]) <= r["limit"]))
+        elif r["check"] in ("K3f bf16", "K7 bf16"):
+            yield (f"{tag} {r['check']} vs plain, pooled (limit "
+                   f"{r['limit']:.3e}): " + ", ".join(
+                       f"{n} {v['mean']:.3e} max {v['max_ok']} "
+                       + (("ok" if v["pass"] else "FAIL")
+                          if n in ("K3f", "K7", "float64 sums") else
+                          ("fails" if not v["pass"] else "PASSES"))
+                       for n, v in r["readings"].items()))
+        elif r["check"] == "K6 widths":
+            yield (f"{tag} K6 on the FMA bodies, dx frames within 2^-18 of "
+                   f"float64 sums over {r['frames']} frames (at least "
+                   f"{r['share']:g}): " + ", ".join(
+                       f"{n} {v:.3f} " + ("" if n == "plain" else
+                                          ("ok" if r["verdict"][n] else
+                                           "FAIL") if n == "K6" else
+                                          ("fails" if not r["verdict"][n]
+                                           else "PASSES"))
+                       for n, v in r["within"].items()))
+            yield (f"{tag} K6 on the FMA bodies, on the batch's scale (a "
+                   "record): " + ", ".join(
+                       f"{n} {v:.3f}" for n, v in r["batch_scale"].items()))
+            for case, shares in r["by_case"].items():
+                yield (f"{tag} K6 on the FMA bodies, {case}: " + ", ".join(
+                    f"{n} {v:.3f}" for n, v in shares.items()))
+        elif r["check"] == "long frames":
+            for route, v in r["routes"].items():
+                yield (f"{tag} long frames {route}, pooled vs float64 sums "
+                       f"(latent / grads, limits {v['limits'][0]:.3e} / "
+                       f"{v['limits'][1]:.3e}): " + ", ".join(
+                           f"{n} {x['latent']:.3e} / {x['grads']:.3e} "
+                           + (("ok" if x["pass"] else "FAIL")
+                              if n in ("kernels", "plain") else
+                              ("fails" if not x["pass"] else "PASSES"))
+                           for n, x in v["read"].items()))
+            for n in {n for v in r["routes"].values() for n in v["read"]
+                      if n.startswith("K7 with")}:
+                worst = max(v["read"][n]["ratio"]
+                            for v in r["routes"].values() if n in v["read"])
+                yield (f"{tag} long frames, {n}: the largest reading over a "
+                       f"route's limit {worst:.3f} "
+                       + ("fails" if worst > 1 else "PASSES"))
+            for c in r["calls"]:
+                yield (f"{tag} long frames {c['call']}: max kernels "
+                       f"{c['kernels']:.3e} / limit {c['limit']:.3e} "
+                       f"(plain {c['plain']:.3e}) "
+                       f"{'ok' if c['kernels'] <= c['limit'] else 'FAIL'}"
+                       + "".join(f", {n} {v:.3e}" for n, v in c.items()
+                                 if n.startswith("K7 with")))
         elif r["check"] == "K1 latent":
             for n, v in r["readings"].items():
                 want = ("read only" if v.get("read_only") else

@@ -66,6 +66,13 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
+def _prod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b: every matrix product of the composed blocks and of `Linear`
+    goes through here (chip_smoke.py's `exact_sums` swaps it for float64
+    sums, as it swaps `fused_transformer._prod`)."""
+    return a @ b
+
+
 def attention(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
               bout: torch.Tensor, heads: int, dim_head: int, *,
               rate: float = 0.0, attn_impl: str = "auto",
@@ -83,13 +90,13 @@ def attention(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
                            x.device)):
         out = fused_attention_section(x, wqkv, wout, bout, heads, dim_head)
     else:
-        qkv = (x @ wqkv).reshape(b, n, 3, heads, dim_head)
+        qkv = _prod(x, wqkv).reshape(b, n, 3, heads, dim_head)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         out = dot_product_attention(
             q, k, v, dim_head ** -0.5,
             impl="auto" if attn_impl == "fused" else attn_impl)
         out = out.transpose(1, 2).reshape(b, n, heads * dim_head)
-        out = out @ wout + bout
+        out = _prod(out, wout) + bout
     return out if deterministic else dropout(out, rate, generator)
 
 
@@ -101,10 +108,10 @@ def feed_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """Linear -> GELU (exact erf form) -> dropout -> Linear -> dropout, in
     the compute dtype; the two products are plain matmuls, as the JAX
     package leaves them to XLA."""
-    h = F.gelu(x @ w1 + b1)
+    h = F.gelu(_prod(x, w1) + b1)
     if not deterministic:
         h = dropout(h, rate, generator)
-    h = h @ w2 + b2
+    h = _prod(h, w2) + b2
     return h if deterministic else dropout(h, rate, generator)
 
 
@@ -120,7 +127,7 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
-        y = x.to(dt) @ self.weight.to(dt).t()
+        y = _prod(x.to(dt), self.weight.to(dt).t())
         return y + self.bias.to(dt) if self.bias is not None else y
 
 

@@ -79,9 +79,9 @@ def _attention_lib() -> ctypes.CDLL:
                                      p]
     lib.attention_section_launch.restype = i
     lib.attention_section_launch.argtypes = (
-        [i, p, p, p, p, p] + [i] * 5 + [ctypes.c_float, p])
+        [i, p, p, p, p, p] + [i] * 5 + [ctypes.c_float, p, i])
     lib.attention_section_smem.restype = ctypes.c_size_t
-    lib.attention_section_smem.argtypes = [i] * 5
+    lib.attention_section_smem.argtypes = [i] * 6
     lib.attention_error_string.restype = ctypes.c_char_p
     lib.attention_error_string.argtypes = [i]
     return lib

@@ -28,6 +28,15 @@ from dgvit_tpu_torch.ops.fused_transformer import (
     launch_block_fwd)
 
 
+def _kv_rows(h1: torch.Tensor, wkv: torch.Tensor,
+             cdt: torch.dtype) -> torch.Tensor:
+    """k|v of every row from the normed rows h1 and wqkv's k|v columns,
+    rounded to the compute dtype: the forward's and the backward's one
+    product over every row (a tensor-core product in the bf16 CUDA
+    bodies)."""
+    return _mm(h1, wkv).to(cdt)
+
+
 def cls_block_plain(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
                     heads: int, dim_head: int, cdt: torch.dtype
                     ) -> torch.Tensor:
@@ -37,7 +46,7 @@ def cls_block_plain(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
     an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, w2, b2 = w
     inner = heads * dim_head
     h = _ln(x32, an_s, an_b).to(cdt)
-    kv = _mm(h, wqkv[:, inner:]).to(cdt)
+    kv = _kv_rows(h, wqkv[:, inner:], cdt)
     q = _mm(h[:, :1], wqkv[:, :inner]).to(cdt)
     o = _attention(q, kv[..., :inner], kv[..., inner:], heads, dim_head, cdt)
     x1 = x32[:, 0] + (_mm(o[:, 0], wout) + _f32(bout).reshape(-1))
@@ -50,14 +59,6 @@ def cls_fwd_plain(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
     """Plain version of K3f: (B, n, d) -> (B, d), compute dtype."""
     return cls_block_plain(_f32(x), w, heads=heads, dim_head=dim_head,
                            cdt=x.dtype).to(x.dtype)
-
-
-def _kv_rows(h1: torch.Tensor, wkv: torch.Tensor,
-             cdt: torch.dtype) -> torch.Tensor:
-    """k|v of every row from the normed rows h1 and wqkv's k|v columns,
-    rounded to the compute dtype: the backward's one recompute over every
-    row (a tensor-core product in the bf16 CUDA body)."""
-    return _mm(h1, wkv).to(cdt)
 
 
 def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,

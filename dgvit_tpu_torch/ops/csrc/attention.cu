@@ -19,14 +19,17 @@
 // What bounds them on an H100: at the flagship width (65 tokens, dim 64,
 // 4 heads x 64) a frame of K7 costs 12.9 MFLOP for 17 KB of bf16 moved and
 // a (frame, head) of K8 1.1 MFLOP for 33 KB, so against the tensor-core
-// rate K7 is bound by operations and K8 by bytes. K7 and the fp32 K8 run
-// plain fp32 FMA loops far below either bound; the bf16 K8 runs on the
-// tensor cores (below).
+// rate K7 is bound by operations and K8 by bytes. The bf16 K8 runs on the
+// tensor cores (below), and so does the bf16 K7 at d = dim_head = 64 and
+// n <= 80 (attn_section_mma_kernel, at the end: block_mma_fwd.cuh's
+// attention half); the fp32 K7 and K8, and K7 at other widths or longer
+// frames, run plain fp32 FMA loops far below either bound.
 //
-// K7 and the fp32 K8: a thread block serves a tile of query rows of one
-// frame (K7) or one (frame, head) (K8). K and V of the head, every row,
-// live in shared memory in T with a row stride of an odd number of 32-bit
-// words, so that lanes reading different key rows hit different banks;
+// K7's FMA kernel and the fp32 K8: a thread block serves a tile of query
+// rows of one frame (K7) or one (frame, head) (K8). K and V of the head,
+// every row, live in shared memory in T with a row stride of an odd
+// number of 32-bit words, so that lanes reading different key rows hit
+// different banks;
 // one warp owns a query row at a time and computes its scores, the exact
 // softmax (max, exp, sum: not the streaming form) and P.V. The scores of a
 // whole head (257 x 257 fp32 = 264 KB) do not fit a block's 227 KB, which
@@ -72,6 +75,7 @@
 //    bf16 pairs in 4-byte stores.
 
 #include "block_common.cuh"
+#include "block_mma_fwd.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -654,6 +658,107 @@ int launch_section(SectionArgs& a, int batch, cudaStream_t stream) {
                       SectionSmem<T>(n, d, dh, a.qrows).total, stream, a);
 }
 
+// ---- K7, bf16, on the tensor cores -----------------------------------------
+//
+// At d = dim_head = 64 and n <= 80 the bf16 K7 is the attention half of
+// block_mma_fwd.cuh's body without the norm and the residual, on the same
+// parts: two frames a thread block, one warp a 16-row tile of a frame (65
+// rows: 10 warps). A warp's rows of x go straight into A fragments (x is
+// bf16 already). Head by head, the head's q|k|v columns of wqkv and its
+// rows of wout arrive by cp.async into one of two stages (the next head's
+// while this one runs); the warp projects its q into fragments and its k
+// and v into the frame's tiles (project), attends (attend_head: scores,
+// exact softmax, p rounded to bf16, P.V, o rounded to bf16), and adds o @
+// the head's wout rows, summed from a zero accumulator, into its fp32
+// output rows. The bias is added last and the output rounded once, the
+// TPU kernel's rounding points. Every product is a bf16 mma.sync into
+// fp32: it differs from the FMA kernel only in the order of its sums.
+// K7 keeps this head loop as its own copy rather than sharing one with
+// block_fwd: nvcc's code for K1, K4 and K2f is sensitive to how their
+// bodies are factored.
+
+struct SectionMmaSmem {
+  size_t k, v, wqkv, wout, total;
+  __host__ __device__ explicit SectionMmaSmem(int n) {
+    using namespace mmafwd;
+    const size_t tile = sizeof(bf16) * kFrames * round16(n) * kLd;
+    size_t o = 0;
+    k = take(o, tile);  // every frame's k of one head
+    v = take(o, tile);
+    wqkv = take(o, 2 * sizeof(bf16) * D * kLdQkv);  // two heads' slices
+    wout = take(o, 2 * sizeof(bf16) * D * kLd);
+    total = o;
+  }
+};
+
+// head hd's q|k|v columns of wqkv and its rows of wout into stage hd % 2
+__device__ __forceinline__ void stage_section_head(unsigned char* smem,
+                                                   const SectionMmaSmem& L,
+                                                   const bf16* wqkv,
+                                                   const bf16* wout,
+                                                   int heads, int hd) {
+  using namespace mmafwd;
+  const int inner = heads * D;
+  bf16* wq = (bf16*)(smem + L.wqkv) + (hd & 1) * D * kLdQkv;
+  for (int part = 0; part < 3; ++part)
+    stage_rows(wq + part * D, kLdQkv, wqkv + part * inner + hd * D,
+               3 * inner, D, D);
+  stage_rows((bf16*)(smem + L.wout) + (hd & 1) * D * kLd, kLd,
+             wout + (size_t)hd * D * D, D, D, D);
+}
+
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    attn_section_mma_kernel(const __grid_constant__ SectionArgs a,
+                            int batch) {
+  using namespace mmafwd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n;
+  const SectionMmaSmem L(n);
+  const Place p(n, batch);
+  const size_t frame = (size_t)p.f * n * D;
+  const bf16* wqkv = (const bf16*)a.wqkv;
+  const bf16* wout = (const bf16*)a.wout;
+  const bf16* bout = (const bf16*)a.bout;
+  bf16* ks = (bf16*)(smem_raw + L.k) + (size_t)p.fl * p.np * kLd;
+  bf16* vs = (bf16*)(smem_raw + L.v) + (size_t)p.fl * p.np * kLd;
+  stage_section_head(smem_raw, L, wqkv, wout, a.heads, 0);
+  cp_async_commit();
+  Frag xa;
+  {
+    Rows x;
+    read_rows(x, (const bf16*)a.x + frame, p, n);
+    to_frag(x, xa);  // exact: x is bf16
+  }
+  float y[8][4];
+  zero(y);
+  for (int hd = 0; hd < a.heads; ++hd) {
+    cp_async_wait<0>();
+    __syncthreads();  // head hd's weights landed; the last head's k, v read
+    if (hd + 1 < a.heads) {
+      stage_section_head(smem_raw, L, wqkv, wout, a.heads, hd + 1);
+      cp_async_commit();
+    }
+    const bf16* wq = (const bf16*)(smem_raw + L.wqkv) + (hd & 1) * D * kLdQkv;
+    const bf16* wo = (const bf16*)(smem_raw + L.wout) + (hd & 1) * D * kLd;
+    Frag q, o;
+    project<false>(xa, wq, ks, vs, nullptr, p.r0, true, q);
+    __syncthreads();  // the frame's k and v of this head are in place
+    attend_head(q, ks, vs, n, p.np, a.scale, o);
+    float acc[8][4];
+    zero(acc);
+    frag_mma<8>(acc, o, wo, kLd, 0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[j][e] += acc[j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] += tof(bout[col_of(j, e)]);
+  write_rows(y, (bf16*)a.y + frame, p, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -676,23 +781,38 @@ int attention_launch(int dtype, const void* q, const void* k, const void* v,
 
 // Bytes of dynamic shared memory of K7 for a tile of qrows query rows of
 // n-row frames; the launch takes the fewest tiles whose bytes fit, so it
-// runs wherever qrows = 1 fits.
+// runs wherever qrows = 1 fits. mma = 1: the tensor-core form (every row
+// of two frames; qrows is not read).
 size_t attention_section_smem(int dtype, int n, int d, int dim_head,
-                              int qrows) {
+                              int qrows, int mma) {
+  if (mma) return SectionMmaSmem(n).total;
   return dtype == 1 ? SectionSmem<__nv_bfloat16>(n, d, dim_head, qrows).total
                     : SectionSmem<float>(n, d, dim_head, qrows).total;
 }
 
 // K7. x, y: (batch, n, d); wqkv (d, 3 heads dh); wout (heads dh, d);
-// bout (d); all in the compute dtype.
+// bout (d); all in the compute dtype. mma = 1 runs the bf16 tensor-core
+// form (attn_section_mma_kernel), which takes bf16, d = dim_head = 64,
+// n <= 80 and 16-byte aligned x, wqkv, wout and y (cudaErrorInvalidValue
+// else); mma = 0 the FMA kernel, any width.
 int attention_section_launch(int dtype, const void* x, const void* wqkv,
                              const void* wout, const void* bout, void* y,
                              int batch, int n, int d, int heads, int dh,
-                             float scale, void* stream) {
+                             float scale, void* stream, int mma) {
   if (batch < 1 || n < 1 || d < 1 || heads < 1 || dh < 1)
     return cudaErrorInvalidValue;
   SectionArgs a = {x, wqkv, wout, bout, y, n, d, heads, dh, 0, scale};
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma) {
+    const bool aligned =
+        ((uintptr_t)x | (uintptr_t)wqkv | (uintptr_t)wout | (uintptr_t)y) %
+            16 == 0;
+    if (dtype != 1 || d != mmafwd::D || dh != mmafwd::D ||
+        n > mmafwd::kMaxRows || !aligned)
+      return cudaErrorInvalidValue;
+    return mmafwd::launch_fwd(attn_section_mma_kernel, n, batch,
+                              SectionMmaSmem(n).total, s, a, batch);
+  }
   return dtype == 1 ? launch_section<__nv_bfloat16>(a, batch, s)
                     : launch_section<float>(a, batch, s);
 }

@@ -10,13 +10,14 @@
 //   K3b cls_block.py::_cls_bwd_impl (_cls_bwd_kernel, body _cls_bwd_body)
 //   K6  trunk_train.py::trunk_bwd_impl (_trunk_bwd_kernel)
 //
-// Forward: K3f, and K2f off the flagship widths and in fp32, run one
-// thread block per frame on `block` (block_common.cuh) with the frame's
-// fp32 stream in shared memory, as K1 does, and write the block's output
-// (K2f: every row; K3f: the CLS row) in the compute dtype T. The bf16 K2f
-// at the flagship widths (tensor_core_fwd in ops/fused_transformer.py)
-// runs block_fwd_mma_kernel: the tensor-core body of block_mma_fwd.cuh,
-// two frames a thread block.
+// Forward: K2f and K3f off the flagship widths and in fp32 run one thread
+// block per frame on `block` (block_common.cuh) with the frame's fp32
+// stream in shared memory, as K1's FMA kernel does, and write the block's
+// output (K2f: every row; K3f: the CLS row) in the compute dtype T. In
+// bf16 at the flagship widths (tensor_core_fwd in
+// ops/fused_transformer.py) K2f runs block_fwd_mma_kernel and K3f
+// cls_fwd_mma_kernel: the tensor-core body of block_mma_fwd.cuh, two
+// frames a thread block (K3f: its CLS-only block, as K4 and K1 end).
 //
 // Backward, two passes:
 //  1. one thread block per frame recomputes the forward, then runs the
@@ -40,9 +41,9 @@
 // products in the same order) for fp32 and for the bf16 FMA bodies. At
 // the flagship widths the bf16 full block runs on the tensor cores both
 // ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
-// block_bwd_mma, and K3b's k/v recompute runs on them (cls_bwd_mma)
-// while K3f keeps the FMA body, with the same bf16 operands and rounding
-// points; where
+// block_bwd_mma, and K3f (block_mma_fwd.cuh's CLS-only block) and K3b's
+// k/v recompute (cls_bwd_mma) run on them too, with the same bf16
+// operands and rounding points; where
 // their sums differ in order (see block_mma_fwd.cuh), now and then one
 // bf16 rounding of the recomputed q, k, v, o or hidden activations lands
 // on the other side. That is the same kind of difference the checks
@@ -78,10 +79,10 @@
 // its two products over every row, the k/v recompute and dk|dv wkv^T
 // (cls_bwd_mma), and keeps its single-row chains on the CUDA cores. The
 // bf16 K2f at those widths runs on the tensor cores too
-// (block_fwd_mma_kernel), and so do the bf16 weight products
-// (wgrad_mma_kernel, bound by the bytes of their operands). K3f, the fp32
-// bodies and products, and K6's forward chain are FMA work on fp32 CUDA
-// cores, far from the bf16 tensor-core roofline.
+// (block_fwd_mma_kernel), as does K3f (cls_fwd_mma_kernel), and so do the
+// bf16 weight products (wgrad_mma_kernel, bound by the bytes of their
+// operands). The fp32 bodies and products, and K6's forward chain, are
+// FMA work on fp32 CUDA cores, far from the bf16 tensor-core roofline.
 //
 // A frame lives in one thread block's shared memory, so each body holds
 // frames up to a length (at the flagship widths: the FMA forward 147
@@ -217,6 +218,33 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   mmafwd::read_rows(x, (const bf16*)a.x + frame, p, n);
   mmafwd::block_fwd<false>(a.m, a.w, n, p, x, smem_raw, L, false);
   mmafwd::write_rows(x, (bf16*)a.out + frame, p, n);
+}
+
+// K3f on the tensor cores (bf16, the flagship widths): block_mma_fwd.cuh's
+// CLS-only block, as K4 and K1 run their last block, every product on the
+// tensor cores: k and v over every row, q, attention and the
+// out-projection in the warps that hold row 0, the MLP of both frames' CLS
+// rows on warp 0 (cls_mlp); each live frame's x1 + (b2 + MLP) rounded to
+// bf16 once.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    cls_fwd_mma_kernel(const __grid_constant__ FwdArgs a, int batch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, d = mmafwd::D;
+  const mmafwd::Layout L(n);
+  const mmafwd::Place p(n, batch);
+  mmafwd::Rows x;
+  mmafwd::read_rows(x, (const bf16*)a.x + (size_t)p.f * n * d, p, n);
+  zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
+  mmafwd::block_fwd<false>(a.m, a.w, n, p, x, smem_raw, L, true);
+  mmafwd::cls_mlp<false>(a.m, a.w, n, p, x, smem_raw, L);
+  // warp fl writes frame fl's CLS row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int f = blockIdx.x * mmafwd::kFrames + warp;
+  if (warp >= mmafwd::kFrames || f >= batch) return;
+  const float* x1 = (const float*)(smem_raw + L.cls_x1) + warp * d;
+  const float* y = (const float*)(smem_raw + L.cls_y) + warp * d;
+  bf16* out = (bf16*)a.out + (size_t)f * d;
+  for (int c = lane; c < d; c += 32) out[c] = fromf<bf16>(x1[c] + y[c]);
 }
 
 // Shared memory of the backward kernels (fp32 throughout).
@@ -2088,10 +2116,10 @@ bool bad_shape(int batch, int n, int d, int heads, int dim_head, int mlp) {
 extern "C" {
 
 // Bytes of dynamic shared memory of K2f (cls = 0) and K3f (cls = 1) for
-// these shapes; mma = 1: K2f on the tensor-core body.
+// these shapes; mma = 1: on the tensor-core body.
 size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
                           int dim_head, int mlp, int mma) {
-  if (mma && !cls) return mmafwd::Layout(n).total;
+  if (mma) return mmafwd::Layout(n).total;
   const int hc = mlp < 256 ? mlp : 256;
   return dtype == 1 ? Smem<__nv_bfloat16>(n, d, heads, dim_head, hc).total
                     : Smem<float>(n, d, heads, dim_head, hc).total;
@@ -2118,11 +2146,11 @@ size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
 
 // K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
 // ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
-// (B, n, d) or, with cls, (B, d). mma = 1 runs K2f on the bf16
-// tensor-core body, which takes bf16, d = dim_head = 64, n <= 80, mlp a
-// multiple of 64 and 16-byte aligned x, out and matrix weights
-// (cudaErrorInvalidValue else); mma = 0 the FMA body, any width. Returns a
-// cudaError_t (0 = launched).
+// (B, n, d) or, with cls, (B, d). mma = 1 runs K2f (block_fwd_mma_kernel)
+// or K3f (cls_fwd_mma_kernel) on the bf16 tensor-core body, which takes
+// bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
+// aligned x, out and matrix weights (cudaErrorInvalidValue else); mma = 0
+// the FMA body, any width. Returns a cudaError_t (0 = launched).
 int block_forward_launch(int dtype, int cls, const void* const* ptrs,
                          int batch, int n, int d, int heads, int dim_head,
                          int mlp, float scale, void* stream, int mma) {
@@ -2137,10 +2165,13 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
   cudaStream_t s = (cudaStream_t)stream;
   if (mma) {
     const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
-    if (dtype != 1 || cls || !mmafwd::takes(n, a.m, aligned, 6))
+    if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
       return cudaErrorInvalidValue;
-    return mmafwd::launch_fwd(block_fwd_mma_kernel, n, batch,
-                              mmafwd::Layout(n).total, s, a, batch);
+    const size_t bytes = mmafwd::Layout(n).total;
+    return cls ? mmafwd::launch_fwd(cls_fwd_mma_kernel, n, batch, bytes, s,
+                                    a, batch)
+               : mmafwd::launch_fwd(block_fwd_mma_kernel, n, batch, bytes, s,
+                                    a, batch);
   }
   const size_t bf = Smem<__nv_bfloat16>(n, d, heads, dim_head, a.m.hc).total;
   const size_t f32 = Smem<float>(n, d, heads, dim_head, a.m.hc).total;

@@ -1,7 +1,10 @@
 // The bf16 pre-norm block forward on the H100's tensor cores: the body of
-// K2f (block_grad.cu: block_fwd_mma_kernel) and of K4's and K1's blocks
-// (got_megakernel.cu: trunk_mma_kernel, k1_mma_kernel, k1_cluster_kernel)
-// at the flagship widths.
+// K2f and K3f (block_grad.cu: block_fwd_mma_kernel, cls_fwd_mma_kernel)
+// and of K4's and K1's blocks (got_megakernel.cu: trunk_mma_kernel,
+// k1_mma_kernel, k1_cluster_kernel) at the flagship widths; K7's
+// tensor-core form (attention.cu: attn_section_mma_kernel) runs its
+// attention parts (project, attend_head, frag_mma) in a head loop of its
+// own.
 //
 // It computes what `block<bf16>` (block_common.cuh) computes, with the TPU
 // body's rounding points (dgvit_tpu/ops/fused_transformer.py
@@ -18,8 +21,8 @@
 // partial sums added in fp32.
 //
 // Two forms (template flag kFma):
-//  * kFma false: every product on the tensor cores, K2f's (block_grad.cu)
-//    and K1's (got_megakernel.cu). The products take block_bwd_mma's tile
+//  * kFma false: every product on the tensor cores, K2f's and K3f's
+//    (block_grad.cu) and K1's (got_megakernel.cu). The products take block_bwd_mma's tile
 //    order (block_grad.cu) and the LayerNorms layernorm_tile's order.
 //  * kFma true, K4's form: the qkv projection, the MLP's first product and
 //    P.V on the tensor cores; the scores, the out-projection and the MLP's

@@ -16,6 +16,12 @@ Differentiable: the backward recomputes through the plain version under
 autograd, as the JAX function's backward recomputes through its XLA twin;
 there is no backward kernel. The TPU kernel pads rows to a multiple of 8
 and masks the padded keys; here padded rows are never formed.
+
+The kernel has two forms (`tensor_core_section` picks): in bf16 at d =
+dim_head = 64, at most 80 tokens and 16-byte aligned operands, the
+tensor-core form `attn_section_mma_kernel` (two frames a thread block on
+the parts of `csrc/block_mma_fwd.cuh`); every other call the FMA kernel
+`attn_section_kernel`, which takes any width and up to 256 tokens.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from dgvit_tpu_torch.ops.attention import _DTYPES, _attention_lib
 from dgvit_tpu_torch.ops.fused_transformer import _attention, _f32, _mm
+from dgvit_tpu_torch.ops.smem import tensor_core_widths
 
 MAX_TOKENS = 256      # the TPU kernel's limit, kept so routes carry across
 
@@ -61,17 +68,29 @@ def _check(x, wqkv, wout, bout, heads, dim_head) -> None:
                              f"{shape}")
 
 
+def tensor_core_section(x: torch.Tensor, wqkv: torch.Tensor,
+                        wout: torch.Tensor, dim_head: int) -> bool:
+    """Whether K7 runs its bf16 tensor-core form: bf16, d = dim_head = 64,
+    at most 80 tokens (`smem.tensor_core_widths`), and x, wqkv and wout
+    16-byte aligned (the kernel's output is a fresh tensor). Every other
+    call takes the FMA kernel."""
+    _, n, d = x.shape
+    return (tensor_core_widths(n, d, dim_head, 0, x.dtype)
+            and all(t.data_ptr() % 16 == 0 for t in (x, wqkv, wout)))
+
+
 def _launch(x, wqkv, wout, bout, heads, dim_head) -> torch.Tensor:
     lib = _attention_lib()
     b, n, d = x.shape
     x, wqkv, wout, bout = (t.contiguous() for t in (x, wqkv, wout, bout))
     y = torch.empty_like(x)
+    mma = tensor_core_section(x, wqkv, wout, dim_head)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.attention_section_launch(
             _DTYPES[x.dtype], x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
             bout.data_ptr(), y.data_ptr(), b, n, d, heads, dim_head,
-            dim_head ** -0.5, stream)
+            dim_head ** -0.5, stream, int(mma))
     if err != 0:
         raise RuntimeError("fused_attention_section launch failed: "
                            + lib.attention_error_string(err).decode())

@@ -330,7 +330,7 @@ def _block_lib() -> ctypes.CDLL:
 
 def tensor_core_fwd(x: torch.Tensor, w: Sequence[torch.Tensor],
                     dim_head: int) -> bool:
-    """Whether a full block's forward (K2f, and each block of K4) runs on
+    """Whether a block's forward (K2f, K3f, and each block of K4) runs on
     the bf16 tensor-core body (csrc/block_mma_fwd.cuh): bf16, d = dim_head
     = 64, at most 80 tokens, mlp a multiple of 64 (`smem.
     tensor_core_widths`), and x and the matrix weights 16-byte aligned.
@@ -368,12 +368,12 @@ def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
 
 
 def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool):
-    """K2f (cls False; on the tensor-core body where `tensor_core_fwd`
-    says so) or K3f (cls True) on CUDA tensors."""
+    """K2f (cls False) or K3f (cls True) on CUDA tensors, on the
+    tensor-core body where `tensor_core_fwd` says so."""
     b, n, d = x.shape
     out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
                       device=x.device)
-    mma = not cls and tensor_core_fwd(x, w, dim_head)
+    mma = tensor_core_fwd(x, w, dim_head)
     _call(_block_lib().block_forward_launch, x.dtype, cls, [x, *w, out], x,
           heads, dim_head, w[7].shape[-1], int(mma))
     return out

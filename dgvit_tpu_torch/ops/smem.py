@@ -14,10 +14,11 @@ layouts the launches size their memory by:
   * `MmaBwdSmem` (csrc/block_grad.cu): K2b's tensor-core backward body;
   * `ClsMmaSmem` (csrc/block_grad.cu): K3b's tensor-core backward body;
   * `mmafwd::Layout` (csrc/block_mma_fwd.cuh): the tensor-core forward
-    body of K2f, K4 and K1 (K1 also stages pe_w over it first);
+    body of K2f, K3f, K4 and K1 (K1 also stages pe_w over it first);
   * `cl::Layout` (csrc/got_megakernel.cu): a CTA of K1's cluster form;
   * K6's launch, the largest of the bodies it runs;
-  * `SectionSmem<T>` (csrc/attention.cu): K7, by query tile.
+  * `SectionSmem<T>` (csrc/attention.cu): K7's FMA kernel, by query
+    tile; `SectionMmaSmem` (csrc/attention.cu): its tensor-core form.
 
 Each library exports the same numbers (`got_forward_smem`,
 `block_forward_smem`, `block_backward_smem`, `trunk_backward_smem`,
@@ -115,7 +116,8 @@ def bwd_cls_mma(n: int, heads: int, dim_head: int, mlp: int) -> int:
 
 
 def fwd_mma(n: int) -> int:
-    """`mmafwd::Layout(n)`: the tensor-core forward body of K2f and K4."""
+    """`mmafwd::Layout(n)`: the tensor-core forward body of K2f, K3f and
+    K4."""
     tile = 2 * _FRAMES * _a16(n) * _LD
     wq, w64 = 2 * MMA_WIDTH * _LD_QKV, 2 * MMA_WIDTH * _LD
     warps = _FRAMES * _a16(n) // 16
@@ -169,6 +171,14 @@ def section(n: int, d: int, dim_head: int, qrows: int,
     return _a16(o + 4 * _WARPS * n)
 
 
+def section_mma(n: int) -> int:
+    """`SectionMmaSmem(n)`: K7's tensor-core form, each of two frames' k
+    and v of one head, and two heads' wqkv and wout slices."""
+    tile = 2 * _FRAMES * _a16(n) * _LD
+    return _take(0, (tile, tile, 2 * MMA_WIDTH * _LD_QKV * 2,
+                     2 * MMA_WIDTH * _LD * 2))
+
+
 def tensor_core_widths(n: int, d: int, dim_head: int, mlp: int,
                        dtype: torch.dtype) -> bool:
     """The widths the bf16 tensor-core bodies take: d = dim_head = 64, at
@@ -184,12 +194,10 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     widths, alignment decided at the call), the larger of the two."""
     mma = tensor_core_widths(n, d, dim_head, mlp, dtype)
     fma = fwd_fma(n, d, heads, dim_head, mlp, dtype)
-    if kernel == "K3f":
-        return fma
     if kernel == "K1":
         return max(fma, fwd_mma(n) if mma else 0,
                    k1_cluster(n, 0) if mma else 0)
-    if kernel in ("K4", "K2f"):
+    if kernel in ("K4", "K2f", "K3f"):
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":
         return max(bwd_fma(n, d, mlp),
@@ -199,7 +207,9 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     if kernel == "K6":
         return trunk_bwd(n, d, heads, dim_head, mlp, dtype, mma)
     if kernel == "K7":
-        return section(n, d, dim_head, 1, dtype)
+        return max(section(n, d, dim_head, 1, dtype),
+                   section_mma(n) if tensor_core_widths(
+                       n, d, dim_head, 0, dtype) else 0)
     raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
 
 

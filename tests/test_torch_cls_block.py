@@ -171,3 +171,30 @@ def test_backward_body_route(dtype, n, heads, dim_head, mlp, offset, mma):
     dy = torch.zeros(2, D, dtype=dt)
     check_block_args(x, w, heads, dim_head, dy=dy, cls=True)
     assert tensor_core_bwd(x, w, dim_head, dy) is mma
+
+
+@pytest.mark.parametrize("wrong", ["k3f_erf_gelu", "k3f_f32_probs",
+                                   "k3f_f32_kv"])
+def test_forward_wrong_versions_move_past_the_pooled_limit(wrong):
+    """chip_smoke.py phase 5's wrong K3f forwards (an erf GELU; the CLS
+    row's probabilities left in fp32; k and v of every row left in fp32,
+    the tensor-core body's projection unrounded) each fail this suite's
+    bf16 check against the JAX kernel in interpret mode and against the
+    plain version, which passes it against the JAX kernel, and sit
+    further from the plain version than phase 5's pooled bf16 limit on
+    the card (mean |err| / L <= 2^-18): bf16, 65 tokens, 4 x 64 heads,
+    mlp 2048."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(66)
+    tree = block_tree(rng, heads=4, dim_head=64, mlp=2048)
+    x = rand(rng, 8, 65, D)
+    flat, w = weights(tree, "bfloat16")
+    jref = torch.from_numpy(np.array(
+        jcls(to_jax(x, "bfloat16"), flat, 4, 64, True), np.float32))
+    args = (to_torch(x, "bfloat16"), w, 4, 64)
+    plain, bad = cls_fwd_plain(*args), getattr(cs, wrong)(*args)
+    assert torch.equal(cls_fwd_plain(*args), plain)   # nothing left behind
+    assert bf16_close([plain], [jref])
+    assert not bf16_close([bad], [jref]) and not bf16_close([bad], [plain])
+    assert cs.pooled_rel([bad], [plain]) > cs.TRAIN_BF16_MEAN

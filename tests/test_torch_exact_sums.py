@@ -28,6 +28,7 @@ from dgvit_tpu.ops.trunk_train import trunk_bwd_impl
 from dgvit_tpu_torch.ops import cls_block as cb
 from dgvit_tpu_torch.ops import fused_transformer as ft
 from dgvit_tpu_torch.ops import got_megakernel as gm
+from dgvit_tpu_torch.ops.fused_block import attention_section_plain
 from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, block_tree, rand,
                                 to_torch, weights)
@@ -62,7 +63,9 @@ def small_args(name, dtype="bfloat16"):
                 5, "rms")
     return {"blocks_forward_plain": (x, w, fn, HEADS, DIM_HEAD, "rms"),
             "block_bwd_plain": (x, t(3, 5, D), w[0], HEADS, DIM_HEAD),
+            "cls_fwd_plain": (x, w[1], HEADS, DIM_HEAD),
             "cls_bwd_plain": (x, dy3, w[1], HEADS, DIM_HEAD),
+            "attention_section_plain": (x, *w[0][2:5], HEADS, DIM_HEAD),
             "trunk_bwd_plain": (x, dy3, w, fn, HEADS, DIM_HEAD,
                                 "rms")}[name]
 
@@ -70,7 +73,9 @@ def small_args(name, dtype="bfloat16"):
 PLAIN = {"blocks_forward_plain": gm.blocks_forward_plain,
          "got_forward_plain": gm.got_forward_plain,
          "block_bwd_plain": ft.block_bwd_plain,
+         "cls_fwd_plain": cb.cls_fwd_plain,
          "cls_bwd_plain": cb.cls_bwd_plain,
+         "attention_section_plain": attention_section_plain,
          "trunk_bwd_plain": trunk_bwd_plain}
 
 
@@ -119,6 +124,79 @@ def test_exact_sums_changes_nothing_outside(name):
     inside = flat(cs.exact(PLAIN[name], *args))
     after = flat(PLAIN[name](*args))
     assert ft._prod is hook
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert any(not torch.equal(a, b) for a, b in zip(before, inside))
+
+
+def composed_got(dtype, monkeypatch):
+    """A small seeded GoT on the composed route with K7 (block dropout
+    0.1, the K7 branch entered by saying the tensor is on the card), its
+    frames and goal tokens."""
+    from dgvit_tpu_torch.models import layers
+    from dgvit_tpu_torch.models.got import GoT
+
+    monkeypatch.setattr(layers, "_on_card", lambda t: True)
+    torch.manual_seed(0)
+    got = GoT(image_size=(32, 40), patch_size=(16, 20), dim=D, depth=2,
+              heads=HEADS, dim_head=DIM_HEAD, mlp_dim=MLP, dropout=0.1,
+              dtype=getattr(torch, dtype))
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.uniform(0, 1, (3, 32, 40)).astype(np.float32))
+    tok = torch.from_numpy(rand(rng, 3, D))
+    return got, img, tok
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exact_sums_reaches_the_composed_route(dtype, monkeypatch):
+    """The composed blocks' products (the qkv and output projections of
+    `attention` outside K7, the MLP's two, `Linear`'s) go through
+    `layers._prod`, K7's plain version through `fused_transformer._prod`:
+    under exact_sums every matrix product of the composed route's forward
+    is a float64 product, one hook call each; outside it none is, and
+    after it the route gives the same bits as before (fp32: other bits
+    inside it)."""
+    from dgvit_tpu_torch.models import layers
+
+    got, img, tok = composed_got(dtype, monkeypatch)
+    hooks = ft._prod, layers._prod
+    with torch.no_grad():
+        with Products() as seen:
+            before = got(img, tok)
+        calls = []
+        with cs.exact_sums():
+            exact = ft._prod, layers._prod
+            ft._prod = lambda a, b: calls.append(1) or exact[0](a, b)
+            layers._prod = lambda a, b: calls.append(1) or exact[1](a, b)
+            try:
+                with Products() as under:
+                    inside = got(img, tok)
+            finally:
+                ft._prod, layers._prod = exact
+        after = got(img, tok)
+    assert (ft._prod, layers._prod) == hooks
+    assert seen.dtypes and torch.float64 not in seen.dtypes
+    assert set(under.dtypes) == {torch.float64}
+    assert len(calls) == len(under.dtypes) == len(seen.dtypes)
+    assert torch.equal(before, after) and inside.dtype == before.dtype
+    if dtype == "float32":   # bf16 rounds the other sums alike here
+        assert not torch.equal(before, inside)
+
+
+def test_exact_sums_reaches_the_composed_backward(monkeypatch):
+    """Under exact_sums the composed route's gradients (autograd through
+    `layers._prod` and K7's recompute of its plain version) move, and
+    after it they are the same bits as before."""
+    got, img, tok = composed_got("float32", monkeypatch)
+
+    def grads():
+        for p in got.parameters():
+            p.grad = None
+        got(img, tok).sum().backward()
+        return [p.grad.clone() for p in got.parameters()]
+    before = grads()
+    with cs.exact_sums():
+        inside = grads()
+    after = grads()
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert any(not torch.equal(a, b) for a, b in zip(before, inside))
 
@@ -271,3 +349,113 @@ def test_k1_route_rule(args, form):
     (4 heads, one a rank), dtype, alignment, token count (at most 80 rows)
     and patch width (a multiple of 16 whose staged pe_w fits the body)."""
     assert gm.k1_form_for(*args) == form
+
+
+def test_fault_3f_fp32_trunk_backward_against_the_jax_kernel(actor_nets,
+                                                            monkeypatch):
+    """Fault 3f's oracle: the port's fp32 `trunk_bwd_plain` against the
+    JAX `trunk_bwd_impl` in interpret mode, on the trained actor's trunk
+    (its activations reach 1e4) at B=2 and 65 tokens, as phase 13 draws
+    them. Both sum in fp32 in other orders, and each sits about as far
+    from the port's float64-sum version as the other (read 6.1e-5 L the JAX
+    kernel, 4.6e-5 L the port's plain version): the JAX kernel meets the
+    restated fp32 check (max over the tensors of max|err|/L <= max(1e-3, 2
+    x the port's plain version's own distance)), and the two agree within
+    1e-3 L, phase 13's old limit (read 6.2e-5 L)."""
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    a = cs.train_inputs(actor_nets["float32"], 2,
+                        np.random.default_rng(7))["actor"]
+    args = (a["x"], a["dy3"], a["blocks"], a["fn"], a["heads"], a["dh"],
+            "rms")
+    port = cs.trunk_tensors(trunk_bwd_plain(*args))
+    exact = cs.trunk_tensors(cs.exact(trunk_bwd_plain, *args))
+    res = trunk_bwd_impl(
+        jnp.asarray(args[0].numpy()), jnp.asarray(args[1].numpy()),
+        tuple(to_jax_flat(w) for w in args[2]),
+        tuple(jnp.asarray(t.numpy()).reshape(1, -1) for t in args[3]),
+        heads=args[4], dim_head=args[5], final_norm="rms", interpret=True)
+    flat_jax = [res[0], *[g for b in res[1] for g in b], res[2][0]]
+    jx = [torch.from_numpy(np.array(t, np.float32)).reshape(p.shape)
+          for t, p in zip(flat_jax, port)]
+    assert len(jx) == len(port) == 1 + 11 * 4 + 1
+    assert cs.rel_max(port, jx) <= cs.K6_F32_MAX
+    assert cs.restated(cs.rel_max, cs.K6_F32_MAX, cs.EXACT_K["fp32"], jx,
+                       port, exact)[0]
+
+
+def test_fault_3i_composed_route_at_129_tokens_against_the_jax_kernel(
+        monkeypatch):
+    """Fault 3i's oracle: the JAX composed GoT route with its fused
+    attention section (`_fused_attention_section`, the TPU kernel K7, in
+    interpret mode) against the port's composed route with K7's plain
+    version, at 129 tokens (8x20 patches of a 128x160 frame), flagship
+    widths, depth 2, B=2, block dropout 0.1 (the route phase 17b's bf16
+    gradient check takes on the card). fp32: latents within 2e-5 and every
+    parameter gradient within rtol 1e-3 / atol 1e-4 (other summation
+    orders); bf16: latents within 2^-5 L (both round after every operation,
+    but PyTorch and XLA fuse different ones)."""
+    from dgvit_tpu.models.got import GoT as JaxGoT
+    from dgvit_tpu.ops import fused_block as jfb
+    from dgvit_tpu_torch.models import layers
+    from dgvit_tpu_torch.models.got import GoT
+    from dgvit_tpu_torch.models.jax_io import params_from_jax, params_to_jax
+    from dgvit_tpu_torch.ops import smem
+    from dgvit_tpu_torch.ops.fused_block import fused_attention_section
+
+    cfg = dict(image_size=(128, 160), patch_size=(8, 20), dim=D, depth=2,
+               heads=4, dim_head=64, mlp_dim=2048, emb_dropout=0.0,
+               dropout=0.1)
+    rng = np.random.default_rng(129)
+    jgot = JaxGoT(**cfg)
+    shapes = jax.eval_shape(lambda: jgot.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 128, 160)),
+        jnp.zeros((1, D))))["params"]
+    tree = jax.tree_util.tree_map(lambda s: (0.3 * rng.standard_normal(
+        s.shape)).astype(np.float32), shapes)
+    img = rng.uniform(0, 1, (2, 128, 160)).astype(np.float32)
+    goal = rng.standard_normal((2, D)).astype(np.float32)
+    cos = np.cos(np.arange(2 * D, dtype=np.float32)).reshape(2, D)
+    # the JAX package takes its fused section on a TPU only: say it is
+    # one, and run the kernel in interpret mode
+    section = jfb.fused_attention_section
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jfb, "fused_attention_section",
+                        lambda *a: section(*a, True))
+    monkeypatch.setattr(smem, "limit_for", lambda device: 232448)
+    monkeypatch.setattr(layers, "_on_card", lambda t: True)
+    seen = []
+    monkeypatch.setattr(layers, "fused_attention_section",
+                        lambda *a: seen.append(a[0].shape[1]) or
+                        fused_attention_section(*a))
+
+    def loss(p):
+        return jnp.sum(jgot.apply({"params": p}, jnp.asarray(img),
+                                  jnp.asarray(goal)) * jnp.asarray(cos))
+
+    ref_p = jax.grad(loss)(tree)
+    ref = np.asarray(jgot.apply({"params": tree}, jnp.asarray(img),
+                                jnp.asarray(goal)))
+    got = GoT(**cfg)
+    got.load_state_dict(params_from_jax(tree))
+    out = got(torch.from_numpy(img), torch.from_numpy(goal))
+    (out * torch.from_numpy(cos)).sum().backward()
+    assert seen == [129, 129]
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=2e-5,
+                               atol=2e-5)
+    mine = params_to_jax({n: p.grad for n, p in got.named_parameters()})
+    grads = {"/".join(str(k.key) for k in path): np.asarray(v) for path, v
+             in jax.tree_util.tree_flatten_with_path(ref_p)[0]}
+    assert mine.keys() == grads.keys()
+    for key, r in grads.items():
+        np.testing.assert_allclose(mine[key], r, rtol=1e-3, atol=1e-4,
+                                   err_msg=key)
+    jbf = JaxGoT(**cfg, dtype=jnp.bfloat16)
+    ref16 = np.asarray(jbf.apply({"params": tree}, jnp.asarray(img),
+                                 jnp.asarray(goal)).astype(jnp.float32))
+    got16 = GoT(**cfg, dtype=torch.bfloat16)
+    got16.load_state_dict(params_from_jax(tree))
+    with torch.no_grad():
+        out16 = got16(torch.from_numpy(img), torch.from_numpy(goal))
+    assert out16.dtype == torch.bfloat16 and seen == [129] * 4
+    assert np.abs(out16.float().numpy() - ref16).max() \
+        <= 2.0 ** -5 * np.abs(ref16).max()

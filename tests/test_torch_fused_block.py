@@ -25,7 +25,7 @@ from dgvit_tpu.ops import fused_block as jfb
 from dgvit_tpu_torch.ops.fused_block import (attention_section_plain,
                                              fused_attention_section)
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, as_np, assert_close,
-                                rand, to_jax, to_torch)
+                                bf16_close, rand, to_jax, to_torch)
 
 INNER = HEADS * DIM_HEAD
 CASES = [(2, 5), (3, 17), (1, 65)]      # (batch, tokens)
@@ -108,3 +108,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="at most 256"):
         fused_attention_section(torch.zeros(1, 257, D), wqkv, wout, bout,
                                 HEADS, DIM_HEAD)
+
+
+@pytest.mark.parametrize("what", ["p", "o"], ids=["fp32 probabilities",
+                                                 "o not rounded"])
+def test_wrong_rounding_points_move_past_the_pooled_limit(what):
+    """chip_smoke.py phase 15's wrong K7s (the probabilities, or each
+    head's output, left in fp32 where the TPU kernel rounds them to the
+    compute dtype) fail this suite's bf16 check against the JAX kernel in
+    interpret mode and against the plain version, which passes it against
+    the JAX kernel, and sit further from the plain version than the pooled
+    bf16 limit K7 is held to on the card (mean |err| / L <= 2^-18): bf16,
+    65 tokens, 4 x 64 heads."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(67)
+    u = lambda *s: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+    arrs = (rand(rng, 16, 65, D), u(D, 3 * 256), u(256, D), u(D))
+    jref = torch.from_numpy(np.array(jfb.fused_attention_section(
+        *(to_jax(a, "bfloat16") for a in arrs), 4, 64, True), np.float32))
+    args = [to_torch(a, "bfloat16") for a in arrs]
+    plain = attention_section_plain(*args, 4, 64)
+    bad = cs.k7_unrounded(what)(*args, 4, 64)
+    assert torch.equal(attention_section_plain(*args, 4, 64), plain)
+    assert bf16_close([plain], [jref])
+    assert not bf16_close([bad], [jref]) and not bf16_close([bad], [plain])
+    assert cs.pooled_rel([bad], [plain]) > cs.TRAIN_BF16_MEAN

@@ -29,7 +29,7 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # and attention.cu)
 BYTES = {
     (BF16, 65): {"K1": 142080, "K4": 142080, "K2b": 215056, "K3b": 136240,
-                 "K6": 215056, "K7": 19776},
+                 "K6": 215056, "K7": 115712},
     (BF16, 90): {"K1": 141488, "K4": 141488, "K2b": 188640, "K3b": 188640,
                  "K6": 188640, "K7": 27168},
     (BF16, 129): {"K1": 202800, "K4": 202800, "K2b": 271440, "K3b": 271440,
@@ -53,12 +53,12 @@ BYTES = {
 def test_mirror_bytes(dtype, n):
     for kernel, want in BYTES[(dtype, n)].items():
         assert smem.bytes_needed(kernel, n, *FLAGSHIP, dtype) == want, kernel
-    # K2f sizes like K4 (the same bodies), K3f like the FMA body alone,
-    # which K1 takes past the tensor-core bodies' 80 rows and in fp32
+    # K2f and K3f size like K4 (the same bodies: the tensor-core one up to
+    # 80 rows in bf16, else the FMA one, as K1 past 80 rows and in fp32)
     assert smem.bytes_needed("K2f", n, *FLAGSHIP, dtype) == \
+        smem.bytes_needed("K3f", n, *FLAGSHIP, dtype) == \
         BYTES[(dtype, n)]["K4"]
-    assert smem.bytes_needed("K3f", n, *FLAGSHIP, dtype) == \
-        smem.fwd_fma(n, *FLAGSHIP, dtype) == \
+    assert smem.fwd_fma(n, *FLAGSHIP, dtype) == \
         (102192 if (dtype, n) == (BF16, 65) else BYTES[(dtype, n)]["K1"])
 
 
@@ -82,6 +82,26 @@ def test_mirror_layouts():
     # K7 takes the fewest query tiles that fit: one row always fits here
     assert smem.section(256, 64, 64, 256, FP32) > H100 \
         >= smem.section(256, 64, 64, 1, FP32)
+
+
+@pytest.mark.parametrize("n,section", [(65, 115712), (80, 115712),
+                                       (17, 88064), (1, 78848)])
+def test_k7_tensor_core_layout(n, section):
+    """K7's tensor-core form: two frames' k and v of one head (rows padded
+    to 16, 72 bf16 values a row) and two heads' wqkv (64 x 200) and wout
+    (64 x 72) slices; under the forward body's bytes, so K7's route at 80
+    rows and fewer asks for the larger of it and the FMA kernel's one-row
+    tile."""
+    np_ = (n + 15) // 16 * 16
+    assert smem.section_mma(n) == section == (
+        2 * (2 * 2 * np_ * 72) + 2 * 2 * 64 * 200 + 2 * 2 * 64 * 72)
+    assert section < smem.fwd_mma(n)
+    assert smem.bytes_needed("K7", n, *FLAGSHIP, BF16) == max(
+        section, smem.section(n, 64, 64, 1, BF16))
+    assert smem.bytes_needed("K7", n, *FLAGSHIP, FP32) == smem.section(
+        n, 64, 64, 1, FP32)
+    assert smem.bytes_needed("K7", 81, *FLAGSHIP, BF16) == smem.section(
+        81, 64, 64, 1, BF16)
 
 
 @pytest.mark.parametrize("n,pd,embed,cluster", [
@@ -228,3 +248,75 @@ def test_block_rule_without_autograd(monkeypatch):
     with torch.no_grad():
         assert blk.fused_fits(x, cls_only=False)
         assert blk.fused_fits(x, cls_only=True)
+
+
+def section_args(n, dtype=BF16, d=64, heads=4, dim_head=64, shift=None):
+    """K7's x, wqkv and wout at these widths; `shift` names the one moved
+    2 bytes off a 16-byte boundary."""
+    def make(*shape, name):
+        t = torch.zeros(*shape, dtype=dtype)
+        if name != shift:
+            return t
+        buf = torch.zeros(t.numel() + 1, dtype=dtype)
+        return buf[1:].view(*shape)
+    inner = heads * dim_head
+    return (make(2, n, d, name="x"), make(d, 3 * inner, name="wqkv"),
+            make(inner, d, name="wout"))
+
+
+# (n, dtype, d, heads, dim_head, unaligned operand) -> tensor-core form
+SECTION_ROUTES = [
+    ((65, BF16, 64, 4, 64, None), True), ((80, BF16, 64, 4, 64, None), True),
+    ((1, BF16, 64, 4, 64, None), True), ((65, BF16, 64, 2, 64, None), True),
+    ((81, BF16, 64, 4, 64, None), False), ((256, BF16, 64, 4, 64, None),
+                                           False),
+    ((65, FP32, 64, 4, 64, None), False), ((65, BF16, 64, 2, 32, None),
+                                           False),
+    ((65, BF16, 128, 4, 64, None), False), ((65, BF16, 64, 4, 64, "x"),
+                                            False),
+    ((65, BF16, 64, 4, 64, "wqkv"), False), ((65, BF16, 64, 4, 64, "wout"),
+                                             False)]
+
+
+@pytest.mark.parametrize("args,mma", SECTION_ROUTES)
+def test_k7_route_rule(args, mma):
+    """K7 takes its tensor-core form only in bf16 at d = dim_head = 64, at
+    most 80 tokens, with x, wqkv and wout 16-byte aligned (any head
+    count); every other call takes the FMA kernel."""
+    from dgvit_tpu_torch.ops.fused_block import tensor_core_section
+
+    n, dtype, d, heads, dim_head, shift = args
+    x, wqkv, wout = section_args(n, dtype, d, heads, dim_head, shift)
+    assert tensor_core_section(x, wqkv, wout, dim_head) == mma
+
+
+@pytest.mark.parametrize("cls", [True, False], ids=["K3f", "K2f"])
+@pytest.mark.parametrize("n,dtype,shift,mma", [
+    (65, BF16, None, True), (80, BF16, None, True), (81, BF16, None, False),
+    (65, FP32, None, False), (65, BF16, "x", False), (65, BF16, "w1", False)])
+def test_k3f_takes_the_tensor_core_body(cls, n, dtype, shift, mma,
+                                        monkeypatch):
+    """K3f launches the tensor-core forward body (cls_fwd_mma_kernel)
+    exactly where K2f does (block_fwd_mma_kernel): bf16, d = dim_head =
+    64, at most 80 tokens, x and the matrix weights aligned; the launch is
+    recorded here, not made."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    launched = []
+    monkeypatch.setattr(ft, "_block_lib", lambda: type(
+        "Lib", (), {"block_forward_launch": None})())
+    monkeypatch.setattr(ft, "_call", lambda fn, dt, c, tensors, x, heads,
+                        dim_head, mlp, flag: launched.append((c, flag)))
+    rng = np.random.default_rng(3)
+    shapes = [(64,), (64,), (64, 768), (256, 64), (64,), (64,), (64,),
+              (64, 2048), (2048,), (2048, 64), (64,)]
+    w = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dtype) for s in shapes]
+    x = torch.zeros(2, n, 64, dtype=dtype)
+    if shift == "x":
+        x = torch.zeros(2 * n * 64 + 1, dtype=dtype)[1:].view(2, n, 64)
+    if shift == "w1":
+        w[7] = torch.zeros(64 * 2048 + 1, dtype=dtype)[1:].view(64, 2048)
+    out = ft.launch_block_fwd(x, w, 4, 64, cls=cls)
+    assert tuple(out.shape) == ((2, 64) if cls else (2, n, 64))
+    assert launched == [(cls, int(mma))]
