@@ -9,15 +9,15 @@ TREE (the root of a checkout; by default the one this script is in) and
 each seed, a fresh Python process started in that tree builds its kernels
 and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
 5b (the bodies off the flagship widths; "shared" only), 13 (K6, fp32 and
-bf16), 15 (K7 and K8), 16 (the composed routes) and 17b (long frames) on
-two orders of draws:
+bf16), 13a (fault j's magnitude), 15 (K7 and K8), 16 (the composed
+routes) and 17b (long frames) on two orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
-          phases 15, 16 and 17b each on a generator spawned off it
+          phases 13a, 15, 16 and 17b each on a generator spawned off it
           (`Generator.spawn`, as phase 13's extra draws are), so that a
           phase added to the run moves no later phase's draw;
-  fresh:  phases 5, 13, 15, 16 and 17b each on a generator of its own
-          from the seed.
+  fresh:  phases 5, 13, 13a, 15, 16 and 17b each on a generator of its
+          own from the seed.
 
 Phase 2 comes first in both orders, so its draws are the same in both;
 it runs once a seed, with every form of K1 at every batch
@@ -77,7 +77,8 @@ for dtype in ("bfloat16", "float32"):
     p.load_state_dict(sd)
     policies[dtype] = p.to(cs.DEVICE).eval()
 nets = cs.build_nets(*cs.golden_params())
-later = [("15", lambda r: cs.phase_attention(nets, r)),
+later = [("13a", lambda r: cs.phase_fault_j(nets, r)),
+         ("15", lambda r: cs.phase_attention(nets, r)),
          ("16", lambda r: cs.phase_composed(cfg, flat, policies, r)),
          ("17b", lambda r: cs.phase_long_frames(flat, r))]
 for seed in seeds:
@@ -128,6 +129,9 @@ def rows(result):
                           if n in ("chain", "K6") else
                           ("fails" if not r["verdict"][n] else "PASSES"))
                        for n, v in r["within"].items()))
+            yield (f"{tag} chain, on the batch's scale (a record): "
+                   + ", ".join(f"{n} {v:.3f}"
+                               for n, v in r["batch_scale"].items()))
             yield (f"{tag} chain, worst weight gradient against max(2^-6, "
                    "2 x plain): " + ", ".join(
                        f"{n} {w['got']:.3e}/{w['limit']:.3e} ({w['tensor']})"
@@ -136,6 +140,18 @@ def rows(result):
                    " max(2^-13, 2 x plain): " + ", ".join(
                        f"{n} {w['got']:.3e}/{w['limit']:.3e} ({w['tensor']})"
                        for n, w in r["tensor_mean"].items()))
+        elif r["check"] == "fault j":
+            for case, v in r.items():
+                if not isinstance(v, dict):
+                    continue
+                yield (f"{tag} fault j {case}: frames with streams moved by "
+                       "block " + ", ".join(f"{x:.4f}" for x in v["differ"])
+                       + f", any {v['anywhere']:.4f}; K6 vs float64 sums: "
+                       + ", ".join(
+                           f"{n} pooled {k['pooled']:.3e}, dx max "
+                           f"{k['dx_max']:.3e}, within batch "
+                           f"{k['batch_scale']:.4f} own {k['own_scale']:.4f}"
+                           for n, k in v["k6"].items()))
         elif r["check"] == "fp32 K6":
             yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e}, the chain "
                    f"{r['chain']:.3e} against float64 sums (limit max(1e-3, "

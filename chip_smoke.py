@@ -107,7 +107,8 @@ per source, all at once), then
      learn, for both runs;
  12. times of K5 and its plain version at B in {1, 32, 256} beside its
      bound;
- 13. K6 against its plain version (trunk_bwd_fused, trunk_bwd_plain): the
+ 13. K6 against its plain version (trunk_bwd_fused, trunk_bwd_plain),
+     both differentiating the streams K4 writes for the same x: the
      trained actor's trunk with its RMS norm and the seeded critic's with
      a Layer norm, bf16 and fp32 at B in {1, 3, 8, 256}, 65 tokens and
      17; dx, the 44 block gradients and the final norm's (fp32 held to
@@ -115,9 +116,14 @@ per source, all at once), then
      backwards (autograd of the plain forward; a chain that hands dx on
      in fp32) must FAIL the bf16 limits; and the K3b + K2b chain of
      per-block kernels, and K6, against the float64-sum version of K6's
-     plain version by frame (CHAIN_WITHIN) over those cases and 7 more
-     draws of 256 frames (K6's bf16 check by this rule too), and each
-     weight gradient pooled, the wrong backwards failing;
+     plain version by frame, each on its own scale (CHAIN_WITHIN), over
+     those cases and 7 more draws of 256 frames (K6's bf16 check by this
+     rule too), and each weight gradient pooled, the wrong backwards
+     failing;
+ 13a. fault j measured (phase_fault_j, run last): K4's FMA body and its
+     K4 form on the same x (actor and critic, B=256) write their streams;
+     the share of frames whose streams differ, and K6's dx on each set
+     against the float64-sum backward on the K4 form's, printed;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -303,13 +309,20 @@ ACTION_FP32 = 1e-4
 #     stream, which the gradients amplify, not a wrong rounding point.
 #     Both are printed. By frame, over K6_BATCHES' cases and CHAIN_EXTRA
 #     more draws (4123 frames, standard error 0.0078 at the line), at
-#     least CHAIN_WITHIN of the frames within 2^-18: the chain read 0.5440
-#     to 0.5574, K6 0.5833 to 0.5954, the plain version 0.5833 to 0.5993,
-#     the two wrong backwards 0.4812 to 0.4948; the line sits 3.09
-#     standard errors under the chain's lowest and 3.23 over the wrong
-#     backwards' highest. The pooled mean (2^-13) meets (a) and keeps its
-#     limit, against the float64-sum version. The chain read 0.5457 to
-#     0.5564 with K3f on the tensor cores.
+#     least CHAIN_WITHIN of the frames within 2^-18. Until K6 read K4's
+#     streams, the frame's mean |err| was taken over the batch's largest
+#     |dx| and the line was 0.52 (the chain 0.5440 to 0.5574, K6 0.5833 to
+#     0.6017, the wrong backwards 0.4812 to 0.4948). Since every version
+#     but the chain and autograd of the plain forward differentiates the
+#     same streams, the float64-sum version's on those streams: on the
+#     batch's scale an H100 read the chain 0.745, K6 0.959, the plain
+#     version 0.968 and the wrong backwards 0.485 and 0.491 (seed 7), the
+#     wrong ones 3.7 to 4.5 standard errors under 0.52; on each frame's
+#     own scale (phase 5b's) the chain 0.630, K6 0.892, the plain version
+#     0.920 and the wrong backwards 0.004 and 0.028. So phase 13 took each
+#     frame's own scale and phase 5b's line, 0.5 (chip_draws.py's seeds
+#     7-11 in PERF.md). The pooled mean (2^-13) meets (a) and keeps its
+#     limit, against the float64-sum version.
 #   * fp32 K6 against its plain version and the chain (phase 13, fault
 #     3f): s = the largest max|err|/L over the tensors, old limit
 #     K6_F32_MAX; on the trained actor at B=256 the plain version read up
@@ -321,9 +334,8 @@ ACTION_FP32 = 1e-4
 #     each tensor's max within 2^-6 L, which K6 failed on some draws, a
 #     flip of its own forward chain amplified by the backward as in the
 #     chain's case): held by the chain's per-frame rule against the
-#     float64-sum version's dx instead (K6 0.5833 to 0.6017, the plain
-#     version 0.5838 to 0.6015, both wrong backwards 0.4814 to 0.4945);
-#     the pooled mean against the plain version (2^-13) is kept.
+#     float64-sum version's dx instead (above); the pooled mean against
+#     the plain version (2^-13) is kept.
 #   * bf16 K6 on the FMA bodies (phase 5b, fault 3h: each max within 2^-6
 #     L): the per-frame rule on each frame's own scale (K6_WIDTHS_WITHIN,
 #     whose note says why the batch's scale cannot), both wrong backwards
@@ -351,7 +363,7 @@ ACTION_FP32 = 1e-4
 # new one; READINGS keeps every restated reading of a run for
 # chip_draws.py.
 EXACT_K = {"fp32": 2.0, "K4": 1.65, "K1": 2.0, "long": 2.0}
-CHAIN_WITHIN = 0.52
+CHAIN_WITHIN = 0.5
 READINGS: list = []
 
 
@@ -1797,7 +1809,8 @@ def phase_bwd_widths(nets, rng):
         e3.add(zip(tensors(cb.cls_bwd_fused(last, dy3, bl[-1], heads, dh)),
                    tensors(cb.cls_bwd_plain(last, dy3, bl[-1], heads,
                                             dh))))
-        e6 = k6_read(what, (xs, dy3, bl, a["fn"], heads, dh, "rms"))
+        e6 = k6_read(what, with_streams((xs, dy3, bl, a["fn"], heads, dh,
+                                         "rms")))
         ok = e.ok and e3.ok and e6.mean <= K6_BF16_MEAN
         print(f"bf16 backward, {what}, FMA body: K2b vs plain mean|err|/L "
               f"{e.mean:.3e}, K3b {e3.mean:.3e} (limit "
@@ -1815,7 +1828,8 @@ def phase_bwd_widths(nets, rng):
           and not tensor_core_trunk(x, bl, a["dh"]), "K6 with the CLS "
           "block's w1 unaligned would take the tensor-core bodies")
     what = "flagship widths, the CLS block's w1 unaligned"
-    e6 = k6_read(what, (x, dy3, bl, a["fn"], a["heads"], a["dh"], "rms"))
+    e6 = k6_read(what, with_streams((x, dy3, bl, a["fn"], a["heads"],
+                                     a["dh"], "rms")))
     ok = e6.mean <= K6_BF16_MEAN
     print(f"bf16 backward, {what}, FMA bodies: K6 vs plain mean|err|/L "
           f"{e6.mean:.3e} (limit {K6_BF16_MEAN:.3e}), old reading: every "
@@ -1828,10 +1842,11 @@ def phase_bwd_widths(nets, rng):
     for _ in range(K6_WIDTHS_EXTRA):
         b = train_inputs(nets["bfloat16"], K6_WIDTHS_BATCH, own)["actor"]
         for what, xs, bl, heads, dh, _ in width_cases(b):
-            k6_read(what, (xs, b["dy3"], bl, b["fn"], heads, dh, "rms"))
+            k6_read(what, with_streams((xs, b["dy3"], bl, b["fn"], heads,
+                                        dh, "rms")))
         k6_read("flagship widths, the CLS block's w1 unaligned",
-                (b["x"], b["dy3"], unaligned_w1(b["blocks"]), b["fn"],
-                 b["heads"], b["dh"], "rms"))
+                with_streams((b["x"], b["dy3"], unaligned_w1(b["blocks"]),
+                              b["fn"], b["heads"], b["dh"], "rms")))
     share = lambda errs: sum(f <= TRAIN_BF16_MEAN for f in errs) / len(errs)
     for what, names in by_case.items():
         print(f"K6 on the FMA bodies, {what}: dx frames within 2^-18 of the "
@@ -2713,25 +2728,29 @@ CHAIN_EXTRA, CHAIN_EXTRA_BATCH = 7, 256
 CHAIN_TENSOR_K = 2.0
 # K6 against its plain version and against the chain of per-block kernels,
 # per tensor as in phase 5, with L the plain tensor's largest |value|.
-# fp32: another summation order through four blocks' recompute and
-# backward; an H100 read up to 1.2e-4 L on the trained actor (its
-# activations reach 1e4) and 1.7e-6 L on the seeded critic against the
-# plain version, 2.9e-5 L against the chain: max |err| <= 1e-3 L, held to
-# the float64-sum version since (EXACT_K, fault 3f).
-# bf16: each tensor's max <= 2^-6 L, as in phase 5, printed and no longer
-# held (EXACT_K, fault 3g: the per-frame rule below). The pooled mean cannot
-# be phase 5's: K6 recomputes the stream, and where another summation
-# order flips one bf16 rounding of x_i, every later block of that frame
-# moves by an ulp. A tenth to a third of the frames of a large batch are
-# touched, and a case pools anything from 7e-9 (B=1, no flip) to 8e-5
-# where one block pools 3e-7: all cases pooled <= 2^-13 (read 2.3e-5).
-# That limit cannot see a wrong rounding point (the two wrong backwards
-# pool 6e-5 to 7e-5), so the sharp check is per frame: the mean of
-# |err| / L over one frame's dx is next to nothing for a frame without a
-# flip (K6's median frame read 5e-12) and about 1e-5 for the median frame
-# of a wrong backward. Over the frames of all bf16 cases, two thirds must
-# lie within phase 5's pooled limit 2^-18: an H100 read 88% of K6's
-# frames within it and 48% of either wrong backward's.
+# K6 runs no forward: it differentiates the streams K4 wrote (fault j's
+# repair), and K6, its plain version, the float64-sum version and the
+# wrong backwards that read streams (dx kept in fp32) are all given the
+# same streams, those of K4's route on the card (with_streams). So they
+# differ only in the backward's own sums and rounding points. Autograd of
+# the plain forward runs its own forward, and the K3b + K2b chain takes
+# the streams of K2f and K3f, as the default route does.
+# fp32: another summation order through four blocks' backward; held to
+# the float64-sum version (EXACT_K, fault 3f): max |err| <= max(1e-3 L,
+# 2 x the plain version's distance).
+# bf16: each tensor's max <= 2^-6 L, as in phase 5, printed and not held
+# (fault 3g: the per-frame rule below). The pooled mean against the plain
+# version, all cases pooled, <= 2^-13, cannot see a wrong rounding point
+# (the two wrong backwards pool 6e-5 to 8e-5), so the sharp check is per
+# frame: the mean of |err| / L over one frame's dx, next to nothing for a
+# frame where no rounding flipped and about 1e-5 for the median frame of
+# a wrong backward. Against the plain version, with L the batch's
+# largest |dx|, K6_FRAMES_WITHIN of the frames of all bf16 cases must lie
+# within phase 5's pooled limit 2^-18; against the float64-sum version,
+# with L each frame's own largest |dx| (as phase 5b; the batch's scale is
+# printed beside as a record), CHAIN_WITHIN of them (K6 and the chain).
+# Both wrong backwards must fall short of both lines. See EXACT_K for the
+# readings.
 K6_F32_MAX = 1e-3
 K6_BF16_MEAN = 2.0 ** -13
 K6_FRAMES_WITHIN = 2 / 3
@@ -2765,9 +2784,11 @@ COMPOSED_BF16_VS_FUSED, COMPOSED_FP32_GRAD = 2.0 ** -2, 1e-3
 # (an H100 read metrics equal, grads 2.3e-5 L, parameters 3.5e-4).
 
 
-def trunk_autograd_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+def trunk_autograd_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
+                       streams=None):
     """A wrong bf16 trunk backward: autograd of K4's plain forward, which
-    rounds gradients wherever the forward casts."""
+    rounds gradients wherever the forward casts (on the streams of its own
+    forward; `streams` is not read)."""
     import torch
 
     from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
@@ -2786,23 +2807,24 @@ def trunk_autograd_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
             tuple(gs[n:]))
 
 
-def trunk_fp32_dx_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+def trunk_fp32_dx_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
+                      streams=None):
     """A wrong bf16 trunk backward: `trunk_bwd_plain`'s chain with dx
-    handed from block to block in fp32 instead of the compute dtype. The
-    block backwards return dx rounded, so the fp32 dx is put together from
-    its parts: dy + the two LayerNorm backwards' input gradients, which a
-    wrapper around `_ln_bwd` keeps."""
+    handed from block to block in fp32 instead of the compute dtype, on
+    the streams given (recomputed when None). The block backwards return
+    dx rounded, so the fp32 dx is put together from its parts: dy + the
+    two LayerNorm backwards' input gradients, which a wrapper around
+    `_ln_bwd` keeps."""
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
-    from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
+    from dgvit_tpu_torch.ops.trunk_train import (final_norm_bwd_plain,
+                                                 trunk_streams_plain)
 
     cdt = x.dtype
-    xs = [x]
-    for w in blocks[:-1]:
-        xs.append(ft.block_plain(xs[-1].float(), w, heads=heads,
-                                 dim_head=dim_head, cdt=cdt).to(cdt))
-    cls = cb.cls_block_plain(xs[-1].float(), blocks[-1], heads=heads,
-                             dim_head=dim_head, cdt=cdt).to(cdt).float()
+    if streams is None:
+        streams = trunk_streams_plain(x, blocks, heads, dim_head)
+    xs = [x, *streams[0]]
+    cls = streams[1].float()
     dcls, dfs, dfb = final_norm_bwd_plain(dy.float(), cls, fn[0], fn[1],
                                           final_norm)
     kept, real = [], ft._ln_bwd
@@ -2834,9 +2856,11 @@ K6_WRONGS = {"autograd of the plain forward": trunk_autograd_bwd,
              "dx kept in fp32 between blocks": trunk_fp32_dx_bwd}
 
 
-def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm):
+def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
+                    streams=None):
     """The per-block kernels chained as the default route chains them:
-    K2f, K3f forward, the final norm's backward in PyTorch, K3b, K2b."""
+    K2f, K3f forward, the final norm's backward in PyTorch, K3b, K2b (on
+    the streams K2f and K3f give; `streams` is not read)."""
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
@@ -2866,6 +2890,20 @@ def frame_errs(dx, ref, own_scale=False):
     return ((dx.float() - ref).abs().mean(dim=(1, 2)) / scale).tolist()
 
 
+def with_streams(args):
+    """trunk_bwd_fused's arguments (x, dy, blocks, fn, heads, dim_head,
+    final_norm) with the streams K4 writes for them on the card, in the
+    form K4's route takes (its K4 form at the flagship bf16 widths, else
+    the FMA body), as the trunk-gradient route hands them to K6. K6, its
+    plain version, its float64-sum version and the wrong backwards are all
+    given the same streams."""
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+
+    x, dy, blocks, fn, heads, dim_head, final_norm = args
+    return (*args, gm._blocks_forward(x, blocks, fn, heads, dim_head,
+                                      final_norm, streams=True)[1])
+
+
 def trunk_tensors(result):
     """dx, the blocks' 44 gradients and the final norm's, as one list; an
     all-zero bias gradient (RMS norm has none) is left out, the checks
@@ -2876,9 +2914,9 @@ def trunk_tensors(result):
 
 
 def k6_cases(nets, dtype, batch, rng):
-    """(label, arguments of trunk_bwd_fused): the actor's trunk with its
-    RMS norm, the critic's with a Layer norm of seeded bias, and at B=3
-    the actor's on a smaller token count."""
+    """(label, arguments of trunk_bwd_fused, K4's streams last): the
+    actor's trunk with its RMS norm, the critic's with a Layer norm of
+    seeded bias, and at B=3 the actor's on a smaller token count."""
     import torch
 
     inp = train_inputs(nets[dtype], batch, rng)
@@ -2895,7 +2933,7 @@ def k6_cases(nets, dtype, batch, rng):
         cases.append((f"actor rms n={K6_SMALL_N}", (
             a["x"][:, :K6_SMALL_N].contiguous(), a["dy3"], a["blocks"],
             a["fn"], a["heads"], a["dh"], "rms")))
-    return cases
+    return [(label, with_streams(args)) for label, args in cases]
 
 
 def phase_k6(nets, rng):
@@ -2913,6 +2951,7 @@ def phase_k6(nets, rng):
     versus_exact = {name: TrainErrors()
                     for name in ("chain", "K6", "plain", *wrongs)}
     exact_frames = {name: [] for name in versus_exact}
+    batch_frames = {name: [] for name in versus_exact}   # a record
     chain_old, fp32_exact = TrainErrors(), {}
 
     per_tensor = {}   # version: its worst weight gradient against exact
@@ -2925,7 +2964,8 @@ def phase_k6(nets, rng):
         plain = [rel_max([r], [e]) for r, e in zip(versions["plain"], ex)]
         for name, got in versions.items():
             versus_exact[name].add(zip(got, ex))
-            exact_frames[name] += frame_errs(got[0], ex[0])
+            exact_frames[name] += frame_errs(got[0], ex[0], own_scale=True)
+            batch_frames[name] += frame_errs(got[0], ex[0])
             for i, (g, e) in enumerate(zip(got, ex)):
                 if i == 0 or i > 11 * K6_DEPTH:
                     continue   # dx, the final norm's
@@ -3060,7 +3100,8 @@ def phase_k6(nets, rng):
         print(f"{name} vs the float64-sum version, bf16 cases ("
               f"{len(exact_frames[name])} frames): pooled mean|err|/L "
               f"{versus_exact[name].mean:.3e} (limit {K6_BF16_MEAN:.3e}), "
-              f"dx frames within {TRAIN_BF16_MEAN:.3e}: {within[name]:.3f} "
+              f"dx frames within {TRAIN_BF16_MEAN:.3e} (each frame's own "
+              f"L): {within[name]:.3f} "
               f"(at least {CHAIN_WITHIN:g}; the plain version "
               f"{within['plain']:.3f}); "
               f"{'passes' if verdict[name] else 'FAILS'}", flush=True)
@@ -3070,7 +3111,15 @@ def phase_k6(nets, rng):
         print(f"{name}: dx frames within 2^-18 {v:.4f} of {n}, "
               f"{(v - CHAIN_WITHIN) / se:+.2f} standard errors ({se:.4f}) "
               f"from the line {CHAIN_WITHIN:g}", flush=True)
+    batch_share = {name: sum(f <= TRAIN_BF16_MEAN for f in fs) / len(fs)
+                   for name, fs in batch_frames.items()}
+    print("dx frames within 2^-18 of the float64-sum version on the batch's"
+          " scale (the rule before fault j's repair, at least 0.52; a "
+          "record): " + ", ".join(f"{name} {v:.4f}"
+                                  for name, v in batch_share.items()),
+          flush=True)
     record("chain", within=within, share=CHAIN_WITHIN, frames=n,
+           batch_scale=batch_share,
            per_tensor=per_tensor, tensor_mean=tensor_mean,
            pooled={n: e.mean for n, e in versus_exact.items()},
            verdict=verdict, fp32=fp32_exact,
@@ -3097,6 +3146,70 @@ def phase_k6(nets, rng):
             check(ok, "K6 disagrees with its plain version (bf16, dx by "
                   "frame)")
     return worst
+
+
+FAULT_J_BATCH = 256
+
+
+def phase_fault_j(nets, rng):
+    """Phase 13a, fault j's magnitude (K6 used to recompute the block
+    inputs on the FMA body while K4's route ran its K4 form). K4's two
+    bodies on the same x at the flagship bf16 widths: the FMA body
+    (trunk_kernel, the body of K6's removed forward chain) and the K4
+    form (trunk_mma_kernel<true>, K4's route), each writing its streams.
+    Read: the share of frames whose streams differ, block by block and
+    in any block; K6's dx on each set of streams against the float64-sum
+    plain backward on the K4 form's streams, pooled (phase 13's mean over
+    L) and by frame within 2^-18 on the batch's scale (phase 13's rule
+    before the repair, at least 0.52 of the frames) and on each frame's
+    own (phase 5b's rule, K6_WIDTHS_WITHIN, and phase 13's since,
+    CHAIN_WITHIN). The actor's and the seeded critic's trunks at
+    B=256 on a generator spawned off the phase's. A measurement: nothing
+    is held but finiteness."""
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+                                                 trunk_bwd_plain)
+
+    share = lambda errs: sum(f <= TRAIN_BF16_MEAN for f in errs) / len(errs)
+    reading = {}
+    for label, args in k6_cases(nets, "bfloat16", FAULT_J_BATCH,
+                                rng.spawn(1)[0]):
+        x, dy, blocks, fn, heads, dh, norm = args[:7]
+        streams = {name: gm._launch_blocks(x, blocks, fn, heads, dh, norm,
+                                           body=body, streams=True)[1]
+                   for name, body in (("FMA body", 0), ("K4 form", 1))}
+        (fxs, fcls), (kxs, kcls) = streams["FMA body"], streams["K4 form"]
+        moved = [(a != b).flatten(1).any(1) for a, b in zip(fxs, kxs)]
+        moved.append((fcls != kcls).any(1))
+        differ = [m.float().mean().item() for m in moved]
+        anywhere = sum(m.int() for m in moved).gt(0).float().mean().item()
+        ex = trunk_tensors(exact(trunk_bwd_plain, *args[:7],
+                                 streams["K4 form"]))
+        k6 = {}
+        for name, st in streams.items():
+            got = trunk_tensors(trunk_bwd_fused(*args[:7], st))
+            check(all(bool(g.float().isfinite().all()) for g in got),
+                  f"fault j, {label}: K6 on the {name}'s streams non-finite")
+            k6[name] = dict(
+                pooled=pooled_rel(got, ex), dx_max=rel_max(got[:1], ex[:1]),
+                batch_scale=share(frame_errs(got[0], ex[0])),
+                own_scale=share(frame_errs(got[0], ex[0], own_scale=True)))
+        reading[label] = dict(differ=differ, anywhere=anywhere, k6=k6)
+        print(f"fault j, {label}, B={FAULT_J_BATCH}: frames whose streams "
+              f"differ between K4's FMA body and its K4 form: by block "
+              + ", ".join(f"{v:.4f}" for v in differ[:-1])
+              + f", CLS row {differ[-1]:.4f}, any {anywhere:.4f}", flush=True)
+        for name, r in k6.items():
+            print(f"fault j, {label}: K6 on the {name}'s streams vs the "
+                  f"float64-sum backward on the K4 form's: pooled "
+                  f"mean|err|/L {r['pooled']:.3e}, dx max|err|/L "
+                  f"{r['dx_max']:.3e}, dx frames within 2^-18 on the "
+                  f"batch's scale {r['batch_scale']:.4f} (phase 13's old "
+                  f"line 0.52), on their own {r['own_scale']:.4f} (phase 5b's"
+                  f" line {K6_WIDTHS_WITHIN:g}, phase 13's "
+                  f"{CHAIN_WITHIN:g})", flush=True)
+    record("fault j", batch=FAULT_J_BATCH, **reading)
+    return reading
 
 
 def phase_trunk_grad_fp32(default_run):
@@ -3838,15 +3951,17 @@ def phase_long_frames(flat, rng):
 
 
 def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
-    """The least FLOPs and bytes of K4's backward from x and dy: the
-    forward once (its activations are not given), two products for each
-    of its products; x, dy and the weights read, dx and the weight
-    gradients written, once each."""
+    """The least FLOPs and bytes of K4's backward from x, dy and K4's
+    streams: the forward once (the blocks' inner activations are not
+    given), two products for each of its products; x, dy, the streams
+    and the weights read, dx and the weight gradients written, once
+    each."""
     fwd, _ = train_work("K4", batch, n, d, heads, dh, mlp, depth, esize)
     inner = heads * dh
     w = d * 3 * inner + inner * d + 2 * d * mlp + mlp + 6 * d
-    return 3 * fwd, ((2 * batch * n * d + batch * d + 2 * depth * w) * esize
-                     + 4 * d * 4)
+    streams = (depth - 1) * batch * n * d + batch * d
+    return 3 * fwd, ((2 * batch * n * d + batch * d + streams + 2 * depth * w)
+                     * esize + 4 * d * 4)
 
 
 def section_library(x, wqkv, wout, bout, heads=4, dim_head=64):
@@ -3903,8 +4018,8 @@ def phase_attention_times(nets, rng):
     dev = torch.device(DEVICE)
     rows = {}
     a = train_inputs(nets["bfloat16"], SAC_BATCH, rng)["actor"]
-    args = (a["x"], a["dy3"], a["blocks"], a["fn"], a["heads"], a["dh"],
-            "rms")
+    args = with_streams((a["x"], a["dy3"], a["blocks"], a["fn"], a["heads"],
+                         a["dh"], "rms"))
     bnd, by = bound_ms(*k6_work(SAC_BATCH), "bfloat16")
     rows["K6"] = dict(ms=cuda_ms(lambda: trunk_bwd_fused(*args), 3, runs=5),
                       plain_ms=cuda_ms(lambda: trunk_bwd_plain(*args), 1,
@@ -4126,6 +4241,7 @@ def main() -> int:
     k5_times = phase_k5_times(rng)
     attn_times = phase_attention_times(nets, rng)
     long_frames = phase_long_frames(flat, rng)
+    fault_j = phase_fault_j(nets, rng)
 
     main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]

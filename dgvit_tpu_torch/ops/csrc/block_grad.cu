@@ -50,23 +50,25 @@
 // already allow against the plain version (cuBLAS sums in yet another
 // order): a flip moves what follows by about one ulp of its own size,
 // which phase 5's per-tensor max (2^-6 L) and pooled mean (2^-18) of
-// chip_smoke.py admit, as does phase 13's per-frame rule (two thirds of
-// K6's frames within 2^-18), and the wrong versions still miss them by a
-// rounding point moved everywhere, not now and then. K6's own forward
-// chain keeps the FMA body.
+// chip_smoke.py admit, and the wrong versions still miss them by a
+// rounding point moved everywhere, not now and then.
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
 // K6 is the backward of the whole-trunk forward K4 (got_megakernel.cu).
 // The TPU kernel sums its weight gradients across a sequential grid; here
 // blocks run in no order, so it takes the two passes above: one thread
-// block per frame recomputes the chain of block inputs (rounded to T at
-// every block boundary, kept in a workspace), runs the final norm's
-// backward, then the CLS block's and the full blocks' per-frame passes in
-// reverse (the bodies of K3b and K2b, each dx written in T and read back
-// as the next dy); then every block's weight products as above. Its output
-// is K3b and K2b chained. The TPU kernel's smaller MLP chunk is its memory
-// budget, not part of the function: every block here keeps K2b's chunk.
+// block per frame runs the final norm's backward, then the CLS block's and
+// the full blocks' per-frame passes in reverse (the bodies of K3b and K2b,
+// each dx written in T and read back as the next dy); then every block's
+// weight products as above. Its output is K3b and K2b chained. It runs no
+// forward: the block inputs and the CLS row are the streams K4 wrote when
+// autograd recorded (rounded to T at every block boundary, as K4 rounds
+// them), so K6 differentiates the forward that ran, whichever body K4
+// took. The TPU kernel recomputes them with its forward's own body, which
+// gives the same values there. The TPU kernel's smaller MLP chunk is its
+// memory budget, not part of the function: every block here keeps K2b's
+// chunk.
 //
 // What bounds it on an H100: a frame of the full-block backward costs
 // about 3x the forward's 47 MFLOP at the flagship width, and the weight
@@ -81,8 +83,8 @@
 // bf16 K2f at those widths runs on the tensor cores too
 // (block_fwd_mma_kernel), as does K3f (cls_fwd_mma_kernel), and so do the
 // bf16 weight products (wgrad_mma_kernel, bound by the bytes of their
-// operands). The fp32 bodies and products, and K6's forward chain, are
-// FMA work on fp32 CUDA cores, far from the bf16 tensor-core roofline.
+// operands). The fp32 bodies and products are FMA work on fp32 CUDA
+// cores, far from the bf16 tensor-core roofline.
 //
 // A frame lives in one thread block's shared memory, so each body holds
 // frames up to a length (at the flagship widths: the FMA forward 147
@@ -1564,59 +1566,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K6, the per-frame pass of the whole trunk's backward. One thread block
-// per frame: the forward chain (the whole-trunk forward's blocks, stream
-// rounded to T after each and written to blk[i + 1].x), the final norm's
-// backward on the rounded CLS row, then the CLS block's and the full
-// blocks' backward bodies in reverse (with Mma: cls_bwd_mma and
-// block_bwd_mma). A block's dx is written in T and read back as the next
-// one's dy, which is the rounding between blocks.
+// per frame: the final norm's backward on K4's rounded CLS row, then the
+// CLS block's and the full blocks' backward bodies in reverse (with Mma:
+// cls_bwd_mma and block_bwd_mma), each on the block input K4 wrote
+// (blk[i].x). A block's dx is written in T and read back as the next one's
+// dy, which is the rounding between blocks.
 struct TrunkBwdArgs {
   BwdArgs blk[kMaxTrunkDepth];
   const void* dy;     // (B, d) in T: grad of the normed latent
+  const void* cls;    // (B, d) in T: K4's rounded pre-norm CLS rows
   void* dcls;         // (B, d) in T: blk[depth - 1].dy, written here
   const float* fn_s;  // final-norm scale and bias, fp32
   const float* fn_b;
   float* fnvec;       // (B, 2 d): each frame's final-norm grads
-  int depth, final_norm, hc_fwd;
+  int depth, final_norm;
 };
 
 template <typename T, bool Mma>
 __global__ void __launch_bounds__(kThreads, 1)
     trunk_bwd_kernel(const __grid_constant__ TrunkBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int f = blockIdx.x, depth = a.depth;
-  const int n = a.blk[0].n, d = a.blk[0].m.d;
-  Dims mf = a.blk[0].m;
-  mf.hc = a.hc_fwd;
-  const Smem<T> L(n, d, mf.heads, mf.dh, mf.hc);
-  float* x32 = (float*)(smem_raw + L.x32);
-  const size_t fr = (size_t)f * n * d;
+  const int f = blockIdx.x, depth = a.depth, d = a.blk[0].m.d;
 
-  const T* x = (const T*)a.blk[0].x + fr;
-  for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
-  __syncthreads();
-  for (int i = 0; i < depth; ++i) {
-    const bool last = i == depth - 1;
-    block<T>(mf, a.blk[i].w, n, last, x32, (float*)(smem_raw + L.acc),
-             (float*)(smem_raw + L.prob), (T*)(smem_raw + L.h),
-             (T*)(smem_raw + L.scratch));
-    if (last) {
-      for (int j = threadIdx.x; j < d; j += blockDim.x) x32[j] = rt<T>(x32[j]);
-    } else {
-      T* nxt = (T*)a.blk[i + 1].x + fr;
-      for (int j = threadIdx.x; j < n * d; j += blockDim.x) {
-        const T v = fromf<T>(x32[j]);
-        nxt[j] = v;
-        x32[j] = tof(v);
-      }
-    }
-    __syncthreads();
-  }
-
-  // final-norm backward on the CLS row (warp 0): dcls in T, and this
-  // frame's scale and bias grads
+  // final-norm backward on the CLS row (warp 0; each lane reads back only
+  // the columns it wrote): dcls in T, and this frame's scale and bias grads
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
+    float* x32 = (float*)smem_raw;
+    const T* cls = (const T*)a.cls + (size_t)f * d;
+    for (int c = lane; c < d; c += 32) x32[c] = tof(cls[c]);
     const T* dy = (const T*)a.dy + (size_t)f * d;
     T* dcls = (T*)a.dcls + (size_t)f * d;
     float* V = a.fnvec + (size_t)f * 2 * d;
@@ -1997,12 +1975,10 @@ int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
   return launch_grads<T>(cls, a, g, part, B, stream);
 }
 
-// K6's device workspace: the chain's block inputs x_1.., the CLS grad,
-// the dx between blocks, the frames' final-norm grads, then each block's
-// own workspace.
+// K6's device workspace: the dx between blocks, the CLS grad, the
+// frames' final-norm grads, then each block's own workspace.
 struct TrunkWorkspace {
-  size_t xs[kMaxTrunkDepth], dxs[kMaxTrunkDepth], blk[kMaxTrunkDepth], dcls,
-      fnvec, total;
+  size_t dxs[kMaxTrunkDepth], blk[kMaxTrunkDepth], dcls, fnvec, total;
 };
 
 TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
@@ -2011,8 +1987,6 @@ TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
   const size_t stream_bytes = esize * B * n * d;
   size_t off = 0;
   for (int i = 1; i < depth; ++i) {
-    w.xs[i] = off;
-    off = align16(off + stream_bytes);
     w.dxs[i] = off;
     off = align16(off + stream_bytes);
   }
@@ -2028,12 +2002,10 @@ TrunkWorkspace trunk_workspace(size_t esize, int B, int n, int d, int heads,
   return w;
 }
 
-// K6's shared memory: the forward chain's (the FMA body's, MLP chunk 256)
-// and the largest backward body's it runs.
-template <typename T>
+// K6's shared memory: the largest backward body's it runs (the final
+// norm's CLS row, d floats, lies in any of them).
 size_t trunk_bwd_bytes(int n, const Dims& m, bool mma) {
-  size_t bytes = Smem<T>(n, m.d, m.heads, m.dh, m.mlp < 256 ? m.mlp : 256)
-                     .total;
+  size_t bytes = sizeof(float) * m.d;
   for (const size_t b :
        {BwdSmem(n, m.d, m.hc).total, mma ? MmaBwdSmem(n).total : 0,
         mma ? ClsMmaSmem(n, m.heads * m.dh, m.mlp).total : 0})
@@ -2049,13 +2021,14 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
   const void* const* wts = ptrs + 2;
   void* const* grads = (void* const*)ptrs + 5 + 11 * depth;
   unsigned char* ws = (unsigned char*)ptrs[7 + 22 * depth];
+  const T* xs = (const T*)ptrs[8 + 22 * depth];
   const TrunkWorkspace w = trunk_workspace(sizeof(T), B, n, m.d, m.heads,
                                            m.dh, m.mlp, depth);
   TrunkBwdArgs a = {};
   float* part[kMaxTrunkDepth];
   for (int i = 0; i < depth; ++i) {
     BwdArgs& b = a.blk[i];
-    b.x = i == 0 ? ptrs[0] : ws + w.xs[i];
+    b.x = i == 0 ? ptrs[0] : xs + (size_t)(i - 1) * B * n * m.d;
     b.dy = i == depth - 1 ? ws + w.dcls : ws + w.dxs[i + 1];
     for (int j = 0; j < 11; ++j) b.w[j] = wts[11 * i + j];
     b.dx = i == 0 ? (void*)ptrs[4 + 11 * depth] : ws + w.dxs[i];
@@ -2064,14 +2037,14 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
     part[i] = bind(i == depth - 1, sizeof(T), b, ws + w.blk[i], B);
   }
   a.dy = ptrs[1];
+  a.cls = ptrs[9 + 22 * depth];
   a.dcls = ws + w.dcls;
   a.fn_s = (const float*)ptrs[2 + 11 * depth];
   a.fn_b = (const float*)ptrs[3 + 11 * depth];
   a.fnvec = (float*)(ws + w.fnvec);
   a.depth = depth;
   a.final_norm = final_norm;
-  a.hc_fwd = m.mlp < 256 ? m.mlp : 256;  // the forward kernels' MLP chunk
-  const size_t bytes = trunk_bwd_bytes<T>(n, m, mma);
+  const size_t bytes = trunk_bwd_bytes(n, m, mma);
   int err;
   if (!mma) {
     err = launch_smem(trunk_bwd_kernel<T, false>, B, bytes, stream, a);
@@ -2139,9 +2112,9 @@ size_t block_backward_smem(int dtype, int cls, int n, int d, int heads,
 // full blocks on the tensor-core body.
 size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
                            int mlp, int mma) {
-  const Dims m = dims(d, heads, dim_head, mlp, 128, 1.f);
-  return dtype == 1 ? trunk_bwd_bytes<__nv_bfloat16>(n, m, mma != 0)
-                    : trunk_bwd_bytes<float>(n, m, mma != 0);
+  (void)dtype;
+  return trunk_bwd_bytes(n, dims(d, heads, dim_head, mlp, 128, 1.f),
+                         mma != 0);
 }
 
 // K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
@@ -2235,13 +2208,16 @@ size_t trunk_backward_workspace(int dtype, int batch, int n, int d,
 // got_megakernel.cu). ptrs: x (B, n, d), dy (B, d), 11 weights per block,
 // fn_s, fn_b (d, fp32), dx (B, n, d), 11 grads per block (weight shapes,
 // compute dtype), dfn_s, dfn_b (d, fp32), workspace
-// (trunk_backward_workspace bytes). final_norm: 0 = rms, 1 = layer. mma
-// as block_backward_launch takes it, for the full blocks.
+// (trunk_backward_workspace bytes), then the streams K4 wrote in the
+// compute dtype: xs, each full block's output (depth - 1, B, n, d), the
+// inputs of blocks 1..; cls, the CLS row before the final norm (B, d).
+// final_norm: 0 = rms, 1 = layer. mma as block_backward_launch takes it,
+// for the full blocks.
 int trunk_backward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
                           void* stream, int mma) {
-  if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 8 + 22 * depth ||
+  if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 10 + 22 * depth ||
       bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   const Dims m = dims(d, heads, dim_head, mlp, 128, scale);

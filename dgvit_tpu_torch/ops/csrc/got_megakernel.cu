@@ -65,6 +65,11 @@ struct Args {
   // K1: patches, goal, pe_w, pe_b, pos, 11 per block, fn_s, fn_b, out
   // K4: x, 11 per block, fn_s, fn_b, out
   const void* p[kMaxPtrs];
+  // K4 when autograd records (else null): each full block's rounded
+  // output, (depth - 1, B, n, d), and the rounded pre-norm CLS row, (B, d),
+  // in T: the streams K6 differentiates
+  void* xs;
+  void* cls;
   int n, n_patch, pd, depth, final_norm;
   Dims m;
 };
@@ -119,6 +124,14 @@ __global__ void __launch_bounds__(kThreads)
     const int rows = last ? 1 : n;
     for (int j = threadIdx.x; j < rows * d; j += blockDim.x)
       x32[j] = rt<T>(x32[j]);
+    if constexpr (!kEmbed) {
+      if (a.xs != nullptr) {  // K4's streams, each value as this thread rounded it
+        T* s = last ? (T*)a.cls + (size_t)f * d
+                    : (T*)a.xs + ((size_t)i * gridDim.x + f) * n * d;
+        for (int j = threadIdx.x; j < rows * d; j += blockDim.x)
+          s[j] = fromf<T>(x32[j]);
+      }
+    }
     __syncthreads();
   }
 
@@ -183,19 +196,23 @@ __device__ __forceinline__ void final_norm_row(const float* x32,
 // block_mma_fwd.cuh's body (kFma: its K4 form), for the rows in x: two
 // frames a thread block and 16 rows a warp, the stream in registers
 // throughout and rounded to bf16 between blocks. w: block 0's weights,
-// then 11 per block, fn_s, fn_b and out. K4 and K1 share it.
+// then 11 per block, fn_s, fn_b and out. xs and cls, unless null: the
+// streams K6 reads (Args). K4 and K1 share it.
 template <bool kFma>
 __device__ __forceinline__ void mma_trunk(const Dims& m, const void* const* w,
                                           int n, int depth, int final_norm,
                                           int batch, const mmafwd::Place& p,
                                           mmafwd::Rows& x,
                                           unsigned char* smem_raw,
-                                          const mmafwd::Layout& L) {
+                                          const mmafwd::Layout& L, bf16* xs,
+                                          bf16* cls) {
   const int d = mmafwd::D;
   zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
   for (int i = 0; i + 1 < depth; ++i) {
     mmafwd::block_fwd<kFma>(m, w + 11 * i, n, p, x, smem_raw, L, false);
     mmafwd::round_rows(x, p.r0, n);
+    if (xs != nullptr)
+      mmafwd::write_rows(x, xs + ((size_t)i * batch + p.f) * n * d, p, n);
   }
   const void* const* last = w + 11 * (depth - 1);
   mmafwd::block_fwd<kFma>(m, last, n, p, x, smem_raw, L, true);
@@ -208,7 +225,10 @@ __device__ __forceinline__ void mma_trunk(const Dims& m, const void* const* w,
   if (warp >= mmafwd::kFrames || f >= batch) return;
   float* x32 = (float*)(smem_raw + L.cls_x1) + warp * d;
   const float* y = (const float*)(smem_raw + L.cls_y) + warp * d;
-  for (int c = lane; c < d; c += 32) x32[c] = rt<bf16>(x32[c] + y[c]);
+  for (int c = lane; c < d; c += 32) {
+    x32[c] = rt<bf16>(x32[c] + y[c]);
+    if (cls != nullptr) cls[(size_t)f * d + c] = fromf<bf16>(x32[c]);
+  }
   __syncwarp();
   final_norm_row(x32, w + 11 * depth, final_norm, f);
 }
@@ -227,7 +247,7 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   mmafwd::read_rows(x, (const bf16*)a.p[0] + (size_t)p.f * a.n * mmafwd::D,
                     p, a.n);
   mma_trunk<kFma>(a.m, a.p + 1, a.n, a.depth, a.final_norm, batch, p, x,
-                  smem_raw, L);
+                  smem_raw, L, (bf16*)a.xs, (bf16*)a.cls);
 }
 
 // K1's embedding on the tensor cores, into the warp's rows of the stream
@@ -296,7 +316,7 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   mmafwd::Rows x;
   embed_rows(a, p, x, smem_raw);
   mma_trunk<false>(a.m, a.p + 5, a.n, a.depth, a.final_norm, batch, p, x,
-                   smem_raw, L);
+                   smem_raw, L, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------------------
@@ -613,6 +633,7 @@ Args make_args(const void* const* ptrs, int n_ptrs, int n, int d, int heads,
                float scale) {
   Args a;
   for (int i = 0; i < n_ptrs; ++i) a.p[i] = ptrs[i];
+  a.xs = a.cls = nullptr;
   a.n = n;
   a.depth = depth;
   a.final_norm = final_norm;
@@ -700,16 +721,21 @@ size_t got_forward_smem(int dtype, int n, int d, int heads, int dim_head,
 // same body with every product on the tensor cores (no route takes it; for
 // measurement); both take bf16, d = dim_head = 64, n <= 80, mlp a multiple
 // of 64 and 16-byte aligned x and matrix weights (cudaErrorInvalidValue
-// else); mma = 0 the FMA body, any width.
+// else); mma = 0 the FMA body, any width. xs and cls: both null, or the
+// streams every body then writes, in the compute dtype: each full block's
+// rounded output (depth - 1, B, n, d) and the rounded CLS row before the
+// final norm (B, d), which K6 (trunk_backward_launch) differentiates.
 int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
-                          void* stream, int mma) {
+                          void* stream, int mma, void* xs, void* cls) {
   if (depth < 1 || depth > kMaxDepth || n_ptrs != 4 + 11 * depth ||
-      batch < 1 || n < 1)
+      batch < 1 || n < 1 || (xs == nullptr) != (cls == nullptr))
     return cudaErrorInvalidValue;
   Args a = make_args(ptrs, n_ptrs, n, d, heads, dim_head, mlp, depth,
                      final_norm, scale);
+  a.xs = xs;
+  a.cls = cls;
   cudaStream_t s = (cudaStream_t)stream;
   if (mma) {
     const int mats[4] = {2, 3, 7, 9};  // wqkv, wout, w1, w2

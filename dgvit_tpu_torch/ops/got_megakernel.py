@@ -11,7 +11,11 @@ Counterparts of `dgvit_tpu/ops/got_megakernel.py`:
     live emb-dropout, and the gradient forwards of the opt-in
     trunk-gradient route). It is differentiable: its backward is the
     whole-trunk kernel K6 (`ops/trunk_train.py`), as the JAX function's
-    custom VJP is.
+    custom VJP is. When the call will be differentiated, K4 also writes
+    the streams between its blocks (each full block's rounded output and
+    the rounded CLS row), and K6 differentiates exactly those: the JAX
+    backward recomputes them with its forward's own body, which comes to
+    the same thing there.
 
 Both launch the hand-written CUDA kernels of `csrc/got_megakernel.cu` for
 CUDA tensors and run `got_forward_plain` / `blocks_forward_plain` for CPU
@@ -35,13 +39,12 @@ from typing import Sequence, Tuple
 
 import torch
 
-from dgvit_tpu_torch.ops.cls_block import cls_block_plain
 from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
-                                                   block_plain,
                                                    tensor_core_fwd)
 from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_embed,
                                       tensor_core_widths)
-from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_fused
+from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
+                                             trunk_streams_plain)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NORMS = {"rms": 0, "layer": 1}
@@ -70,19 +73,26 @@ def _final_norm32(cls: torch.Tensor, fs: torch.Tensor, fb: torch.Tensor,
     return _ln(cls, fs, fb)
 
 
+def stream_buffers(x: torch.Tensor, depth: int):
+    """Empty (xs, cls) for K4's streams of x in one allocation: xs (depth
+    - 1, B, n, d), each full block's output, and cls (B, d), the CLS row
+    before the final norm, both in x's dtype."""
+    b, n, d = x.shape
+    k = (depth - 1) * b * n * d
+    buf = torch.empty(k + b * d, dtype=x.dtype, device=x.device)
+    return buf[:k].view(depth - 1, b, n, d), buf[k:].view(b, d)
+
+
 def blocks_forward_plain(x: torch.Tensor, blocks, fn, heads: int,
-                         dim_head: int, final_norm: str) -> torch.Tensor:
+                         dim_head: int, final_norm: str,
+                         streams: bool = False):
     """Plain PyTorch version of K4, on any device. Arguments as
-    `blocks_cls_forward_fused`."""
-    cdt = x.dtype
-    x32 = _f32(x)
-    for w in blocks[:-1]:
-        x32 = block_plain(x32, w, heads=heads, dim_head=dim_head, cdt=cdt)
-        x32 = _f32(x32.to(cdt))
-    cls = cls_block_plain(x32, blocks[-1], heads=heads, dim_head=dim_head,
-                          cdt=cdt)
-    cls = _f32(cls.to(cdt))
-    return _final_norm32(cls, fn[0], fn[1], final_norm).to(cdt)
+    `blocks_cls_forward_fused`. With `streams`, returns (out, (xs, cls)):
+    the streams K4 writes for K6 (`stream_buffers`), each value rounded
+    to the compute dtype where the forward rounds it."""
+    xs, cls = trunk_streams_plain(x, blocks, heads, dim_head)
+    out = _final_norm32(_f32(cls), fn[0], fn[1], final_norm).to(x.dtype)
+    return (out, (xs, cls)) if streams else out
 
 
 def got_forward_plain(patches, goal, pe, pos, blocks, fn, heads: int,
@@ -208,7 +218,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.blocks_forward_launch.restype = ctypes.c_int
     lib.blocks_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_void_p])
     lib.got_forward_smem.restype = ctypes.c_size_t
     lib.got_forward_smem.argtypes = [ctypes.c_int] * 7
     lib.k1_smem.restype = ctypes.c_size_t
@@ -281,11 +292,14 @@ def got_forward_fused(patches: torch.Tensor, goal: torch.Tensor,
 got_forward_fused.launches = 0
 
 
-def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None
-                   ) -> torch.Tensor:
+def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None,
+                   streams=False):
+    """K4's launch: out, or with `streams` (out, (xs, cls)) as
+    `blocks_forward_plain` returns them."""
     lib = _kernel_lib()
     b, n, d = x.shape
     out = torch.empty((b, d), dtype=x.dtype, device=x.device)
+    xs, cls = stream_buffers(x, len(blocks)) if streams else (None, None)
     tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     # every block on the tensor-core body (its K4 form), or every block on
@@ -298,44 +312,53 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None
         err = lib.blocks_forward_launch(
             _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n, d, heads, dim_head, blocks[0][7].shape[1],
-            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream, mma)
+            len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream, mma,
+            xs.data_ptr() if streams else None,
+            cls.data_ptr() if streams else None)
     if err != 0:
         raise RuntimeError("blocks_cls_forward_fused launch failed: "
                            + lib.got_error_string(err).decode())
     blocks_cls_forward_fused.launches += 1
-    return out
+    return (out, (xs, cls)) if streams else out
 
 
-def _blocks_forward(x, blocks, fn, heads, dim_head, final_norm
-                    ) -> torch.Tensor:
+def _blocks_forward(x, blocks, fn, heads, dim_head, final_norm,
+                    streams=False):
     """K4 on checked arguments: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; with `streams` also the streams K6 reads."""
     if x.device.type == "cuda":
-        return _launch_blocks(x, blocks, fn, heads, dim_head, final_norm)
+        return _launch_blocks(x, blocks, fn, heads, dim_head, final_norm,
+                              streams=streams)
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm)
+    return blocks_forward_plain(x, blocks, fn, heads, dim_head, final_norm,
+                                streams=streams)
 
 
 class _BlocksCls(torch.autograd.Function):
-    """K4 forward, K6 backward."""
+    """K4 forward, K6 backward. `record`: the call will be differentiated,
+    so K4 writes the streams and the backward hands them to K6."""
 
     @staticmethod
-    def forward(ctx, x, heads, dim_head, final_norm, fs, fb, *flat):
-        ctx.save_for_backward(x, fs, fb, *flat)
+    def forward(ctx, x, heads, dim_head, final_norm, record, fs, fb, *flat):
         ctx.cfg = (heads, dim_head, final_norm)
         blocks = [flat[i:i + 11] for i in range(0, len(flat), 11)]
-        return _blocks_forward(x, blocks, (fs, fb), heads, dim_head,
-                               final_norm)
+        if not record:
+            return _blocks_forward(x, blocks, (fs, fb), heads, dim_head,
+                                   final_norm)
+        out, (xs, cls) = _blocks_forward(x, blocks, (fs, fb), heads,
+                                         dim_head, final_norm, streams=True)
+        ctx.save_for_backward(x, xs, cls, fs, fb, *flat)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, fs, fb, *flat = ctx.saved_tensors
+        x, xs, cls, fs, fb, *flat = ctx.saved_tensors
         blocks = [tuple(flat[i:i + 11]) for i in range(0, len(flat), 11)]
         dx, gblocks, dfn = trunk_bwd_fused(x, dy.contiguous(), blocks,
-                                           (fs, fb), *ctx.cfg)
-        return (dx, None, None, None, *dfn, *[g for gb in gblocks
-                                              for g in gb])
+                                           (fs, fb), *ctx.cfg, (xs, cls))
+        return (dx, None, None, None, None, *dfn, *[g for gb in gblocks
+                                                    for g in gb])
 
 
 def blocks_cls_forward_fused(x: torch.Tensor,
@@ -353,7 +376,10 @@ def blocks_cls_forward_fused(x: torch.Tensor,
     Returns the (B, dim) latent in the compute dtype.
 
     Differentiable in x, every block weight and the final-norm parameters:
-    the backward is `trunk_bwd_fused` (K6). CUDA tensors go to the CUDA
+    the backward is `trunk_bwd_fused` (K6), on the streams K4 writes only
+    when grad mode is on and an input requires grad (6.4 MB of bf16 at
+    B=256 on the flagship trunk, held until the backward; no-grad
+    forwards write none). CUDA tensors go to the CUDA
     kernels (and raise if they cannot run); CPU tensors go to the plain
     versions. `blocks_cls_forward_fused.launches` counts K4's launches.
     """
@@ -364,8 +390,11 @@ def blocks_cls_forward_fused(x: torch.Tensor,
             x.device, x.dtype, final_norm)
     if heads > n:
         raise ValueError(f"{heads} heads over {n} rows")
-    return _BlocksCls.apply(x, heads, dim_head, final_norm, *fn,
-                            *[t for w in blocks for t in w])
+    flat = [t for w in blocks for t in w]
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *fn, *flat))
+    return _BlocksCls.apply(x, heads, dim_head, final_norm, record, *fn,
+                            *flat)
 
 
 blocks_cls_forward_fused.launches = 0

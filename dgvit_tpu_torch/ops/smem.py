@@ -151,10 +151,10 @@ def k1_cluster(n: int, pd: int) -> int:
 
 def trunk_bwd(n: int, d: int, heads: int, dim_head: int, mlp: int,
               dtype: torch.dtype, mma: bool) -> int:
-    """K6's launch: the forward chain's `Smem<T>` and the largest backward
-    body it runs."""
-    return max(fwd_fma(n, d, heads, dim_head, mlp, dtype), bwd_fma(n, d, mlp),
-               bwd_mma(n) if mma else 0,
+    """K6's launch: the largest backward body it runs (it runs no forward:
+    it reads the streams K4 wrote). The dtype does not enter."""
+    del dtype
+    return max(4 * d, bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0,
                bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
 
 

@@ -198,3 +198,40 @@ def test_bf16_catches_wrong_numerics(monkeypatch):
         return pgm._final_norm32(cls, *fn, final_norm).to(cdt)
 
     assert not close(no_residual_cast)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_keeps_streams_only_when_differentiated(dtype, monkeypatch):
+    """K4 writes the streams K6 differentiates only when the call will be
+    differentiated (grad mode on and an input requiring grad), keeps them
+    for the backward, and they are the plain forward's streams; under
+    torch.no_grad(), or with no input requiring grad, it writes none."""
+    from dgvit_tpu_torch.ops import got_megakernel as pgm
+    from torch_kernel_cases import block_tree, rand, to_torch, weights
+
+    rng = np.random.default_rng(17)
+    blocks = [weights(block_tree(rng), dtype)[1] for _ in range(DEPTH)]
+    fn = (torch.from_numpy((1 + 0.1 * rng.standard_normal(DIM)).astype(
+        np.float32)), torch.zeros(DIM))
+    x = to_torch(rand(rng, 2, 5, DIM), dtype)
+    asked, real = [], pgm._blocks_forward
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs.get("streams", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pgm, "_blocks_forward", spy)
+    call = lambda t: pgm.blocks_cls_forward_fused(t, blocks, fn, HEADS,
+                                                  DIM_HEAD, "rms")
+    with torch.no_grad():
+        quiet = call(x.clone().requires_grad_())
+    assert quiet.grad_fn is None
+    call(x)
+    out = call(x.clone().requires_grad_())
+    assert asked == [False, False, True]
+    saved = out.grad_fn.saved_tensors
+    ref, (xs, cls) = pgm.blocks_forward_plain(x, blocks, fn, HEADS, DIM_HEAD,
+                                              "rms", streams=True)
+    assert torch.equal(out, ref)
+    assert xs.shape == (DEPTH - 1, 2, 5, DIM) and cls.shape == (2, DIM)
+    assert torch.equal(saved[1], xs) and torch.equal(saved[2], cls)

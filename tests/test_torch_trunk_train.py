@@ -29,7 +29,8 @@ from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
 from dgvit_tpu_torch.ops.trunk_train import (final_norm_bwd_plain,
                                              tensor_core_trunk,
                                              trunk_bwd_fused,
-                                             trunk_bwd_plain)
+                                             trunk_bwd_plain,
+                                             trunk_streams_plain)
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
                                 bf16_close, block_tree, rand, to_jax,
                                 to_torch, weights)
@@ -65,9 +66,18 @@ CASES = [("float32", "rms", 4, 5, 3), ("bfloat16", "rms", 4, 5, 3),
          ("float32", "layer", 3, 5, 2), ("bfloat16", "layer", 3, 3, 2)]
 
 
+def forward_streams(x, pb, pfn, final_norm):
+    """The streams K4's plain forward writes for K6, as the trunk-gradient
+    route hands them on."""
+    return blocks_forward_plain(x, pb, pfn, HEADS, DIM_HEAD, final_norm,
+                                streams=True)[1]
+
+
 @pytest.mark.parametrize("dtype,final_norm,batch,n,depth", CASES)
 def test_backward_matches_jax_trunk_kernel(dtype, final_norm, batch, n,
                                            depth):
+    """K6 on the streams of K4's plain forward (what the route hands it)
+    against the JAX kernel, which recomputes them."""
     rng = np.random.default_rng(batch * 100 + n * 10 + depth)
     jb, jfn, pb, pfn = trunk(rng, depth, final_norm, dtype)
     x, dy = rand(rng, batch, n, D), rand(rng, batch, D)
@@ -75,8 +85,10 @@ def test_backward_matches_jax_trunk_kernel(dtype, final_norm, batch, n,
                          heads=HEADS, dim_head=DIM_HEAD,
                          final_norm=final_norm, interpret=True)
     trunk_bwd_fused.launches = 0
-    out = trunk_bwd_fused(to_torch(x, dtype), to_torch(dy, dtype), pb, pfn,
-                          HEADS, DIM_HEAD, final_norm)
+    xt = to_torch(x, dtype)
+    out = trunk_bwd_fused(xt, to_torch(dy, dtype), pb, pfn, HEADS, DIM_HEAD,
+                          final_norm, forward_streams(xt, pb, pfn,
+                                                      final_norm))
     assert trunk_bwd_fused.launches == 0
     dx, gblocks, dfn = out
     assert dx.shape == x.shape and dx.dtype == getattr(torch, dtype)
@@ -84,6 +96,96 @@ def test_backward_matches_jax_trunk_kernel(dtype, final_norm, batch, n,
                for gb, w in zip(gblocks, pb) for g, t in zip(gb, w))
     assert all(g.shape == (D,) and g.dtype == torch.float32 for g in dfn)
     assert_close(flat(out), flat(ref), dtype, 5e-4, 5e-5)
+
+
+@pytest.mark.parametrize("dtype,final_norm,batch,n,depth", CASES)
+def test_forward_streams_are_the_recomputed_ones(dtype, final_norm, batch,
+                                                 n, depth):
+    """The streams K4's plain forward returns are, bit for bit, those the
+    plain backward recomputes without them, and the backward on either is
+    the same."""
+    rng = np.random.default_rng(batch * 100 + n * 10 + depth)
+    _, _, pb, pfn = trunk(rng, depth, final_norm, dtype)
+    x = to_torch(rand(rng, batch, n, D), dtype)
+    dy = to_torch(rand(rng, batch, D), dtype)
+    xs, cls = forward_streams(x, pb, pfn, final_norm)
+    rxs, rcls = trunk_streams_plain(x, pb, HEADS, DIM_HEAD)
+    assert xs.shape == (depth - 1, batch, n, D) and cls.shape == (batch, D)
+    assert xs.dtype == cls.dtype == x.dtype
+    assert torch.equal(xs, rxs) and torch.equal(cls, rcls)
+    given = flat(trunk_bwd_plain(x, dy, pb, pfn, HEADS, DIM_HEAD, final_norm,
+                                 (xs, cls)))
+    recomputed = flat(trunk_bwd_plain(x, dy, pb, pfn, HEADS, DIM_HEAD,
+                                      final_norm))
+    assert all(torch.equal(a, b) for a, b in zip(given, recomputed))
+
+
+@pytest.mark.parametrize("dtype,final_norm,batch,n,depth", CASES)
+def test_backward_recomputes_without_streams(dtype, final_norm, batch, n,
+                                             depth):
+    """Without streams the plain version recomputes them, as the JAX
+    kernel does, and meets the JAX kernel at the same tolerance."""
+    rng = np.random.default_rng(batch * 100 + n * 10 + depth)
+    jb, jfn, pb, pfn = trunk(rng, depth, final_norm, dtype)
+    x, dy = rand(rng, batch, n, D), rand(rng, batch, D)
+    ref = trunk_bwd_impl(to_jax(x, dtype), to_jax(dy, dtype), jb, jfn,
+                         heads=HEADS, dim_head=DIM_HEAD,
+                         final_norm=final_norm, interpret=True)
+    out = trunk_bwd_fused(to_torch(x, dtype), to_torch(dy, dtype), pb, pfn,
+                          HEADS, DIM_HEAD, final_norm)
+    assert_close(flat(out), flat(ref), dtype, 5e-4, 5e-5)
+
+
+def next_bf16(t: torch.Tensor, index) -> torch.Tensor:
+    """A copy of bf16 t with the value at `index` one ulp further from
+    zero."""
+    t = t.clone()
+    bits = t.view(torch.int16)
+    bits[index] += 1
+    return t
+
+
+@pytest.mark.parametrize("which", ["block input", "cls row"])
+def test_backward_differentiates_the_streams_it_is_given(which):
+    """Fault j: K6 must differentiate the streams the forward wrote, not
+    streams it recomputes. A stream moved by one bf16 ulp (one value of a
+    block's input; the CLS row of one frame, whose single-value nudges
+    the rounding of dcls can absorb) moves dx: the backward reads the
+    stream. The same call without streams returns the gradient of the
+    unmoved ones."""
+    rng = np.random.default_rng(11)
+    _, _, pb, pfn = trunk(rng, 3, "layer", "bfloat16")
+    x = to_torch(rand(rng, 2, 5, D), "bfloat16")
+    dy = to_torch(rand(rng, 2, D), "bfloat16")
+    xs, cls = forward_streams(x, pb, pfn, "layer")
+    if which == "block input":
+        xs = next_bf16(xs, (1, 0, 2, 5))     # block 2's input, frame 0
+    else:
+        cls = next_bf16(cls, 1)              # frame 1's CLS row
+    args = (x, dy, pb, pfn, HEADS, DIM_HEAD, "layer")
+    moved = trunk_bwd_fused(*args, (xs, cls))
+    kept = trunk_bwd_fused(*args)
+    assert not torch.equal(moved[0], kept[0])
+    assert torch.equal(kept[0], trunk_bwd_plain(*args, forward_streams(
+        x, pb, pfn, "layer"))[0])
+    assert all(bool(torch.isfinite(t.float()).all()) for t in flat(moved))
+
+
+def test_wrapper_rejects_streams_of_the_wrong_shape():
+    rng = np.random.default_rng(6)
+    _, _, pb, pfn = trunk(rng, 3, "rms", "float32")
+    x, dy = torch.zeros(2, 5, D), torch.zeros(2, D)
+    xs, cls = torch.zeros(2, 2, 5, D), torch.zeros(2, D)
+    with pytest.raises(ValueError, match="stream"):
+        trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
+                        (xs[:1].contiguous(), cls))
+    with pytest.raises(ValueError, match="stream"):
+        trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
+                        (xs, cls.bfloat16()))
+    with pytest.raises(ValueError, match="stream"):
+        trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
+                        (xs.transpose(2, 3).contiguous().transpose(2, 3),
+                         cls))
 
 
 @pytest.mark.parametrize("final_norm", ["rms", "layer"])
