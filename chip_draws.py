@@ -9,15 +9,16 @@ TREE (the root of a checkout; by default the one this script is in) and
 each seed, a fresh Python process started in that tree builds its kernels
 and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
 5b (the bodies off the flagship widths; "shared" only), 13 (K6, fp32 and
-bf16), 13a (fault j's magnitude), 15 (K7 and K8), 16 (the composed
-routes) and 17b (long frames) on two orders of draws:
+bf16), 13a and 13b (fault j's magnitude, the same question of K2b and
+K3b), 15 (K7 and K8), 16 (the composed routes) and 17b (long frames) on
+two orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
-          phases 13a, 15, 16 and 17b each on a generator spawned off it
+          phases 13a, 13b, 15, 16 and 17b each on a generator spawned off it
           (`Generator.spawn`, as phase 13's extra draws are), so that a
           phase added to the run moves no later phase's draw;
-  fresh:  phases 5, 13, 13a, 15, 16 and 17b each on a generator of its
-          own from the seed.
+  fresh:  phases 5, 13, 13a, 13b, 15, 16 and 17b each on a generator of
+          its own from the seed.
 
 Phase 2 comes first in both orders, so its draws are the same in both;
 it runs once a seed, with every form of K1 at every batch
@@ -78,6 +79,7 @@ for dtype in ("bfloat16", "float32"):
     policies[dtype] = p.to(cs.DEVICE).eval()
 nets = cs.build_nets(*cs.golden_params())
 later = [("13a", lambda r: cs.phase_fault_j(nets, r)),
+         ("13b", lambda r: cs.phase_recompute(nets, r)),
          ("15", lambda r: cs.phase_attention(nets, r)),
          ("16", lambda r: cs.phase_composed(cfg, flat, policies, r)),
          ("17b", lambda r: cs.phase_long_frames(flat, r))]
@@ -152,6 +154,17 @@ def rows(result):
                            f"{k['dx_max']:.3e}, within batch "
                            f"{k['batch_scale']:.4f} own {k['own_scale']:.4f}"
                            for n, k in v["k6"].items()))
+        elif r["check"] == "recompute":
+            for case, v in r.items():
+                if not isinstance(v, dict):
+                    continue
+                yield (f"{tag} recompute {case}: frames differing "
+                       + ", ".join(f"{k} {x:.4f}"
+                                   for k, x in v["differ"].items())
+                       + f", any {v['anywhere']:.4f}; dx within 2^-18 of "
+                       f"float64 sums (own scale) where one differs "
+                       f"{v['within_moved']:.4f}, where none "
+                       f"{v['within_unmoved']:.4f}; pooled {v['pooled']:.3e}")
         elif r["check"] == "fp32 K6":
             yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e}, the chain "
                    f"{r['chain']:.3e} against float64 sums (limit max(1e-3, "

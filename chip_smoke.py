@@ -124,6 +124,10 @@ per source, all at once), then
      K4 form on the same x (actor and critic, B=256) write their streams;
      the share of frames whose streams differ, and K6's dx on each set
      against the float64-sum backward on the K4 form's, printed;
+ 13b. the same question of K2b and K3b (phase_recompute, run last): the
+     intermediates their per-frame passes recompute against those K2f's
+     and K3f's body computed (a probe of the forward), and their dx
+     against float64 sums where they differ and where they do not;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -2397,8 +2401,10 @@ def phase_k5(rng):
     return worst
 
 
-def phase_camera(cfg, flat):
-    """Phase 10, a main path: raw camera frames to velocity commands."""
+def phase_camera(cfg, flat, k5_per_call):
+    """Phase 10, a main path: raw camera frames to velocity commands. K5's
+    wrapper launches once, and (phase 1's profile, `k5_per_call`) one
+    CUDA kernel a call."""
     import numpy as np
     import torch
 
@@ -2449,6 +2455,12 @@ def phase_camera(cfg, flat):
     want = {k: int(k in ("K5", "K1")) for k in counters}
     check(launches == want, f"camera to action launched {launches}, "
           f"expected {want}")
+    print("camera to action: K5's CUDA launches a call of its wrapper "
+          + ("not measured (phase 1's profile recorded nothing)"
+             if k5_per_call is None else f"{k5_per_call:g} (phase 1)"),
+          flush=True)
+    check(k5_per_call in (None, 1), "K5 launches more than one CUDA kernel "
+          "a call")
     return launches
 
 
@@ -2651,12 +2663,18 @@ def k5_work(batch, sigma):
 
 
 def phase_k5_times(rng):
-    """Phase 12: K5 and its plain version, sigma 50."""
+    """Phase 12: K5 and its plain version, sigma 50, beside the bound and
+    the two-launch design's recorded time (REPLACED_MS)."""
     import numpy as np
     import torch
 
     from dgvit_tpu_torch.ops import fused_preprocess as fp
 
+    ranks, smem_bytes, clusters = fp.kernel_occupancy()
+    print(f"K5: {smem_bytes} bytes of shared memory a CTA, clusters of "
+          f"{ranks} CTAs the card holds at once: "
+          + ("not measured (the query failed)" if clusters is None
+             else str(clusters)), flush=True)
     raw = torch.from_numpy(rng.uniform(0.3, 8.0, (256, 512, 640)).astype(
         np.float32)).to(DEVICE)
     rows = {}
@@ -2669,10 +2687,13 @@ def phase_k5_times(rng):
         ops, nbytes = k5_work(batch, 50.0)
         bnd, by = bound_ms(ops, nbytes, "float32")
         rows[batch] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
-        print(f"K5 fp32 B={batch} sigma=50: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}: operations "
+        was = REPLACED_MS["K5"][batch]
+        print(f"K5 fp32 B={batch} sigma=50: kernel {ms:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}: operations "
               f"{ops / PEAK_FLOPS['float32'] * 1e3:.5f} ms, bytes "
-              f"{nbytes / PEAK_BYTES * 1e3:.5f} ms), "
+              f"{nbytes / PEAK_BYTES * 1e3:.5f} ms; {bnd / ms:.3f} of it), "
+              f"two-launch design {was:.4f} ms (recorded, not this run; "
+              f"now {was / ms:.2f}x faster), plain {plain:.4f} ms, "
               f"{batch / ms * 1e3:.0f} frames/s", flush=True)
 
     return rows
@@ -2680,11 +2701,12 @@ def phase_k5_times(rng):
 
 def k5_cuda_kernels():
     """The CUDA kernels behind K5's wrapper, from torch.profiler over
-    K5_PROFILED calls. It runs first, before any SAC update: once an
+    K5_PROFILED calls at B=CAMERA_FRAMES: one launch of
+    preprocess_cluster_kernel a call and nothing else (returned as the
+    launches a call, None when the profiler recorded nothing), with its
+    device time a call. It runs first, before any SAC update: once an
     update has run in the process, an H100 gave back windows of a few
-    launches with their first device events missing, or with none. The
-    count is printed; the check is that no other kernel stands behind
-    the wrapper."""
+    launches with their first device events missing, or with none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2698,19 +2720,24 @@ def k5_cuda_kernels():
         for _ in range(K5_PROFILED):
             fp.preprocess_depth_fused(x, SEED, 50.0)
         torch.cuda.synchronize()
-    ours = ("minmax_kernel", "preprocess_kernel")
-    counts = {next((n for n in ours if f"::{n}(" in e.key), e.key): e.count
-              for e in prof.key_averages()
-              if e.device_time_total > 0 and e.device_type.name == "CUDA"}
-    if not counts:
+    ours = "preprocess_cluster_kernel"
+    seen = {(ours if f"{ours}(" in e.key else e.key):
+            (e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"}
+    if not seen:
         print("K5's CUDA kernels: no device events recorded (not measured)",
               flush=True)
-        return
-    print(f"K5's CUDA kernels in {K5_PROFILED} calls of the wrapper "
-          f"(torch.profiler): {counts}", flush=True)
-    check(set(counts) == set(ours),
-          f"K5's wrapper should launch minmax_kernel and preprocess_kernel "
-          f"and nothing else, the profiler saw {counts}")
+        return None
+    print(f"K5's CUDA kernels in {K5_PROFILED} calls of the wrapper at B="
+          f"{CAMERA_FRAMES} (torch.profiler): " + ", ".join(
+              f"{k} x{c}, {t / c:.4f} ms device time a launch"
+              for k, (c, t) in seen.items()), flush=True)
+    counts = {k: c for k, (c, _) in seen.items()}
+    check(counts == {ours: K5_PROFILED},
+          f"K5's wrapper should launch {ours} once a call and nothing else,"
+          f" the profiler saw {counts}")
+    return counts[ours] / K5_PROFILED
 
 # --------------------------------------------------------------------------
 # the attention slice: K6 (whole-trunk backward), K7 (attention section),
@@ -3209,6 +3236,130 @@ def phase_fault_j(nets, rng):
                   f" line {K6_WIDTHS_WITHIN:g}, phase 13's "
                   f"{CHAIN_WITHIN:g})", flush=True)
     record("fault j", batch=FAULT_J_BATCH, **reading)
+    return reading
+
+
+def backward_slots(x, dy, w, heads, dim_head, cls):
+    """K2b (cls False) or K3b (cls True) as `launch_block_bwd` launches
+    them, with the per-frame pass's workspace kept: (dx, {name: the
+    recomputed intermediate it wrote}) for h1 (B, n, d), o, h2 and hid
+    ((B, n, .) for K2b, the CLS row's (B, .) for K3b), read at the offsets
+    of block_grad.cu's `workspace`."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    b, n, d = x.shape
+    mlp, inner = w[7].shape[-1], heads * dim_head
+    lib = ft._block_lib()
+    ws = torch.empty(lib.block_backward_workspace(
+        ft._DTYPES[x.dtype], int(cls), b, n, d, heads, dim_head, mlp),
+        dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(t) for t in w]
+    ft._call(lib.block_backward_launch, x.dtype, cls,
+             [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp,
+             int(ft.tensor_core_bwd(x, w, dim_head, dy)))
+    rq, qkv = (1, 2 * inner) if cls else (n, 3 * inner)
+    elems = (n * d, n * qkv, rq * inner, rq * d, rq * mlp)
+    at, slots = 0, []
+    for e in elems:
+        slots.append(ws[at:at + 2 * b * e].view(torch.bfloat16))
+        at = (at + 2 * b * e + 15) // 16 * 16
+    shape = (lambda c: (b, c)) if cls else (lambda c: (b, n, c))
+    return dx, {"h1": slots[0].view(b, n, d), "o": slots[2].view(shape(inner)),
+                "h2": slots[3].view(shape(d)), "hid": slots[4].view(shape(mlp))}
+
+
+def forward_probe(x, w, heads, dim_head, cls):
+    """K2f's or K3f's bf16 tensor-core body with its intermediates written
+    out (block_grad.cu: block_forward_probe): (out, {name: intermediate})
+    in backward_slots' shapes."""
+    import ctypes
+
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    b, n, d = x.shape
+    mlp, inner = w[7].shape[-1], heads * dim_head
+    lib = ft._block_lib()
+    lib.block_forward_probe.restype = ctypes.c_int
+    lib.block_forward_probe.argtypes = (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    rows = (b,) if cls else (b, n)
+    out = new(b, d) if cls else new(b, n, d)
+    inter = {"h1": new(b, n, d), "o": new(*rows, inner), "h2": new(*rows, d),
+             "hid": new(*rows, mlp)}
+    ft._call(lib.block_forward_probe, x.dtype, cls, [x, *w, out,
+             *inter.values()], x, heads, dim_head, mlp)
+    return out, inter
+
+
+RECOMPUTE_BATCH = 256
+
+
+def phase_recompute(nets, rng):
+    """Phase 13b, fault j's question asked of K2b and K3b: their per-frame
+    passes recompute the block's forward on tensor-core code of their own
+    (block_bwd_mma, cls_bwd_mma); do they recompute the intermediates K2f
+    and K3f computed? For the actor's and the seeded critic's first block
+    (K2b on the embedded stream) and last block (K3b on the stream that
+    enters it), bf16, B=256, on a generator spawned off the phase's: the
+    share of frames whose recomputed h1, o, h2 or hid differ anywhere from
+    the forward's (the forward probe, which must give K2f's and K3f's
+    output bit for bit); and the kernel's dx against the float64-sum
+    version of its plain version, by frame on each frame's own scale
+    (phase 13's statistic), over the frames where an intermediate differs
+    and where none does. A measurement: nothing is held but the probe's
+    output and finiteness."""
+    import torch
+
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    share = lambda errs: (sum(f <= TRAIN_BF16_MEAN for f in errs) / len(errs)
+                          if errs else float("nan"))
+    reading = {}
+    inp = train_inputs(nets["bfloat16"], RECOMPUTE_BATCH, rng.spawn(1)[0])
+    for net, a in inp.items():
+        for kernel, cls, x, w, dy, fwd, plain in (
+                ("K2b", False, a["x"], a["blocks"][0], a["dy2"],
+                 ft.block_fwd_fused, ft.block_bwd_plain),
+                ("K3b", True, a["last"], a["blocks"][-1], a["dy3"],
+                 cb.cls_fwd_fused, cb.cls_bwd_plain)):
+            heads, dh = a["heads"], a["dh"]
+            out, ahead = forward_probe(x, w, heads, dh, cls)
+            check(torch.equal(out, fwd(x, w, heads, dh)),
+                  f"{kernel}'s forward probe ({net}) is not the forward")
+            dx, slots = backward_slots(x, dy, w, heads, dh, cls)
+            check(bool(dx.float().isfinite().all()), f"{kernel} ({net}): "
+                  "non-finite dx")
+            differ = {k: (ahead[k] != slots[k]).flatten(1).any(1)
+                      for k in ahead}
+            moved = sum(v.int() for v in differ.values()).gt(0)
+            ex = exact(plain, x, dy, w, heads, dh)[0]
+            errs = frame_errs(dx, ex, own_scale=True)
+            with_flip = [e for e, m in zip(errs, moved.tolist()) if m]
+            without = [e for e, m in zip(errs, moved.tolist()) if not m]
+            r = dict(differ={k: v.float().mean().item()
+                             for k, v in differ.items()},
+                     anywhere=moved.float().mean().item(),
+                     within_moved=share(with_flip),
+                     within_unmoved=share(without),
+                     pooled=pooled_rel([dx], [ex]))
+            reading[f"{kernel} {net}"] = r
+            print(f"recompute, {kernel} ({net}, B={RECOMPUTE_BATCH}): frames "
+                  "whose recomputed intermediate differs from the forward's: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["differ"].items())
+                  + f", any {r['anywhere']:.4f}; dx vs float64 sums, frames "
+                  f"within 2^-18 on their own scale: where one differs "
+                  f"{r['within_moved']:.4f} ({len(with_flip)} frames), where "
+                  f"none does {r['within_unmoved']:.4f} ({len(without)}); "
+                  f"pooled mean|err|/L {r['pooled']:.3e}", flush=True)
+    record("recompute", batch=RECOMPUTE_BATCH, **reading)
     return reading
 
 
@@ -4057,6 +4208,10 @@ def phase_attention_times(nets, rng):
             device_ms=device_ms(kern), library_device_ms=device_ms(lib))
     before = {"K6": {f"B={SAC_BATCH}": FMA_DESIGN_MS["K6"]},
               "K7": FMA_DESIGN_MS["K7"], "K8": FMA_DESIGN_MS["K8"]}
+    print(f"K6 bf16 B={SAC_BATCH}: {rows['K6']['ms']:.4f} ms on K4's streams"
+          f" against {REPLACED_MS['K6']:.4f} ms with its FMA forward chain "
+          f"(recorded, not this run; now "
+          f"{REPLACED_MS['K6'] / rows['K6']['ms']:.2f}x faster)", flush=True)
     for name, r in (("K6", {f"B={SAC_BATCH}": rows["K6"]}),
                     ("K7", rows["K7"]), ("K8", rows["K8"])):
         for label, t in r.items():
@@ -4094,6 +4249,15 @@ FMA_DESIGN_MS = {"K2b": 10.8233, "K6": 39.3067, "K4": 5.6300, "K2f": 1.6128,
                  "K8": {"(256, 4, 65, 64)": 0.2149,
                         "(64, 4, 257, 64)": 0.8475,
                         "(8, 2, 65, 160)": 0.0854}}
+
+
+# The designs this script's kernels replaced most recently, as an H100
+# 80GB HBM3 at a 700 W power limit timed them (chip_smoke.py run D1 of the
+# tree before, PERF.md's kernel table): K6 at B=256 with its FMA forward
+# chain (it recomputed K4's streams), K5 by batch in two launches (a
+# min/max pass, then one block per 8 x 40 tile of the states). Recorded,
+# not measured in this run: printed beside, never in the kernels line.
+REPLACED_MS = {"K6": 10.3545, "K5": {1: 0.0314, 32: 0.1531, 256: 1.1291}}
 
 
 def earlier(t_ms, before_ms):
@@ -4191,7 +4355,7 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
     sys.stdout.flush()
 
-    k5_cuda_kernels()
+    k5_per_call = k5_cuda_kernels()
     cfg = Config()
     flat = load_params_npz(str(ACTOR))
     sd = params_from_jax(flat)
@@ -4217,7 +4381,7 @@ def main() -> int:
                   "default")
 
     k5_worst = phase_k5(rng)
-    camera_launches = phase_camera(cfg, flat)
+    camera_launches = phase_camera(cfg, flat, k5_per_call)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         loop_launches, loop_rates = phase_train(out_dir)
 
@@ -4242,6 +4406,7 @@ def main() -> int:
     attn_times = phase_attention_times(nets, rng)
     long_frames = phase_long_frames(flat, rng)
     fault_j = phase_fault_j(nets, rng)
+    recompute = phase_recompute(nets, rng)
 
     main_b = 32  # the largest serving bucket: the serving path's biggest shape
     t = times[main_b]
@@ -4326,6 +4491,8 @@ def main() -> int:
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")
+    print(f"fault j (phase 13a): {json.dumps(fault_j)}")
+    print(f"K2b and K3b recomputes (phase 13b): {json.dumps(recompute)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

@@ -249,6 +249,190 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   for (int c = lane; c < d; c += 32) out[c] = fromf<bf16>(x1[c] + y[c]);
 }
 
+// ---------------------------------------------------------------------
+// A measurement, not a route: the intermediates of the bf16 tensor-core
+// forward body as K2f (block_fwd_mma_kernel) and K3f (cls_fwd_mma_kernel)
+// compute them, so that chip_smoke.py can hold K2b's and K3b's recomputes
+// (block_bwd_mma, cls_bwd_mma) against the forward that ran. The kernel
+// below repeats block_fwd<false> and cls_mlp<false> call by call, on the
+// same device functions, and writes each intermediate as the body rounds
+// it: h1 (B, n, d), o (B, n, heads d), h2 (B, n, d), hid (B, n, mlp); for
+// the CLS-only block o, h2 and hid of the CLS row only, (B, heads d),
+// (B, d) and (B, mlp). Its output is K2f's or K3f's.
+struct Probe {
+  bf16 *h1, *o, *h2, *hid;
+};
+
+// A fragments a of the warp's 16 rows (mmafwd::to_frag's layout) into
+// rows r0.. of a bf16 matrix of row stride ld; rows >= n not written
+__device__ __forceinline__ void put_frag(const mmafwd::Frag& a, bf16* m,
+                                         int ld, int r0, int n) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int r = r0 + g + 8 * (h & 1), c = 16 * kk + 8 * (h >> 1) + 2 * t;
+      if (r < n)
+        *reinterpret_cast<uint32_t*>(m + (size_t)r * ld + c) = a[kk][h];
+    }
+}
+
+// bf16(gelu(h2 @ w1 + b1)) of the warp's 16 rows of A fragments h2, each
+// 16-column block summed as mmafwd::mlp_run sums it, w1 staged chunk by
+// chunk into the ring, into rows 0 .. rows - 1 of out (row stride ld).
+// Every thread calls it; only `active` warps compute.
+__device__ __forceinline__ void probe_hid(unsigned char* smem,
+                                          const mmafwd::Layout& L,
+                                          const mmafwd::Weights& w, int mlp,
+                                          const mmafwd::Frag& h2, bool active,
+                                          bf16* out, int ld, int rows) {
+  using mmafwd::D;
+  using mmafwd::HC;
+  using mmafwd::kLd;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  bf16* w1c = (bf16*)(smem + L.ring);
+  for (int c = 0; c < mlp / HC; ++c) {
+    __syncthreads();  // every warp is done with the last chunk
+    stage_rows(w1c, kLd, w.w1 + c * HC, mlp, D, HC);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    const bf16* b1 = w.b1 + c * HC;
+#pragma unroll
+    for (int kk = 0; kk < HC / 16; ++kk) {
+      float pre[2][4] = {};
+#pragma unroll
+      for (int k2 = 0; k2 < D / 16; ++k2) {
+        uint32_t b[4];
+        load_b_kn(b, w1c, kLd, 16 * kk, 16 * k2);
+        mma_bf16(pre[0], h2[k2], b[0], b[1]);
+        mma_bf16(pre[1], h2[k2], b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = c * HC + 16 * kk + 8 * j + 2 * t;
+        const float c0 = tof(b1[col - c * HC]), c1 = tof(b1[col - c * HC + 1]);
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = rt<bf16>(gelu<bf16>(pre[j][e] + (e % 2 ? c1 : c0)));
+        if (g < rows)
+          *reinterpret_cast<uint32_t*>(out + (size_t)g * ld + col) =
+              pack_bf16(v[0], v[1]);
+        if (g + 8 < rows)
+          *reinterpret_cast<uint32_t*>(out + (size_t)(g + 8) * ld + col) =
+              pack_bf16(v[2], v[3]);
+      }
+    }
+  }
+}
+
+template <bool kCls>
+__global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
+    block_probe_kernel(const __grid_constant__ FwdArgs a, int batch,
+                       Probe pr) {
+  using namespace mmafwd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n;
+  const Dims& m = a.m;
+  const Layout L(n);
+  const Place p(n, batch);
+  const Weights w(a.w);
+  const int heads = m.heads, inner = heads * D;
+  const size_t fr = (size_t)p.f * n;
+  Rows x;
+  read_rows(x, (const bf16*)a.x + fr * D, p, n);
+  if (kCls) zero_rows((bf16*)(smem_raw + L.cls_h), kLd, 0, 16, D);
+  // block_fwd<false>(m, a.w, n, p, x, smem_raw, L, kCls), written out
+  bf16* ks = (bf16*)(smem_raw + L.k) + (size_t)p.fl * p.np * kLd;
+  bf16* vs = (bf16*)(smem_raw + L.v) + (size_t)p.fl * p.np * kLd;
+  bf16* qs = (bf16*)(smem_raw + L.q) + (size_t)p.fl * p.np * kLd;
+  const bool queries = !kCls || p.r0 == 0;
+  __syncthreads();
+  stage_head(smem_raw, L, w, heads, 0);
+  cp_async_commit();
+  Frag h1;
+  norm_frag(x, w.an_s, w.an_b, p.r0, n, h1);
+  if (p.live) put_frag(h1, pr.h1 + fr * D, D, p.r0, n);
+  float x1[8][4];
+  zero(x1);
+  for (int hd = 0; hd < heads; ++hd) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (hd + 1 < heads) {
+      stage_head(smem_raw, L, w, heads, hd + 1);
+      cp_async_commit();
+    }
+    const bf16* wq = (const bf16*)(smem_raw + L.wqkv) + (hd & 1) * D * kLdQkv;
+    const bf16* wo = (const bf16*)(smem_raw + L.wout) + (hd & 1) * D * kLd;
+    Frag q;
+    project<false>(h1, wq, ks, vs, qs, p.r0, queries, q);
+    __syncthreads();
+    if (!queries) continue;
+    Frag o;
+    attend_head(q, ks, vs, n, p.np, m.scale, o);
+    if (p.live)
+      put_frag(o, kCls ? pr.o + (size_t)p.f * inner + hd * D
+                       : pr.o + fr * inner + hd * D,
+               inner, p.r0, kCls ? 1 : n);
+    float acc[8][4];
+    zero(acc);
+    frag_mma<8>(acc, o, wo, kLd, 0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x1[j][e] += acc[j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[j][e] = x[j][e] + (x1[j][e] + tof(w.bout[col_of(j, e)]));
+  __syncthreads();
+  mlp_begin(smem_raw, L, w, m.mlp);
+  if (!kCls) {
+    Frag h2;
+    norm_frag(x, w.fn_s, w.fn_b, p.r0, n, h2);
+    if (p.live) put_frag(h2, pr.h2 + fr * D, D, p.r0, n);
+    float y[8][4];
+    bias_rows(y, w.b2);
+    mlp_run<false>(smem_raw, L, w, m.mlp, m.hc, h2, y, true);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] += y[j][e];
+    write_rows(x, (bf16*)a.out + fr * D, p, n);
+    const int rows = p.live ? (n - p.r0 < 16 ? n - p.r0 : 16) : 0;
+    probe_hid(smem_raw, L, w, m.mlp, h2, true,
+              pr.hid + (fr + p.r0) * m.mlp, m.mlp, rows);
+    return;
+  }
+  cls_mlp<false>(m, a.w, n, p, x, smem_raw, L);
+  if (p.r0 == 0 && p.live) {  // LN2 of the CLS row, as cls_mlp takes it
+    Frag h2;
+    norm_frag(x, w.fn_s, w.fn_b, p.r0, n, h2);
+    put_frag(h2, pr.h2 + (size_t)p.f * D, D, 0, 1);
+  }
+  Frag h2c;  // the frames' CLS rows, as cls_mlp's warp 0 reads them
+  const bool active = threadIdx.x < 32;
+  if (active)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      load_a(h2c[kk], (const bf16*)(smem_raw + L.cls_h), kLd, 0, 16 * kk);
+  const int f0 = blockIdx.x * kFrames;
+  probe_hid(smem_raw, L, w, m.mlp, h2c, active, pr.hid + (size_t)f0 * m.mlp,
+            m.mlp, batch - f0 < kFrames ? batch - f0 : kFrames);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int f = f0 + warp;
+  if (warp >= kFrames || f >= batch) return;
+  const float* cx1 = (const float*)(smem_raw + L.cls_x1) + warp * D;
+  const float* cy = (const float*)(smem_raw + L.cls_y) + warp * D;
+  bf16* out = (bf16*)a.out + (size_t)f * D;
+  for (int c = lane; c < D; c += 32) out[c] = fromf<bf16>(cx1[c] + cy[c]);
+}
+
 // Shared memory of the backward kernels (fp32 throughout).
 struct BwdSmem {
   size_t x32, x1, acc, g1, stats, pb, dpb, prob, total;
@@ -2155,6 +2339,35 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
                              bf, s, a);
   return cls ? launch_smem(block_fwd_kernel<float, true>, batch, f32, s, a)
              : launch_smem(block_fwd_kernel<float, false>, batch, f32, s, a);
+}
+
+// A measurement (chip_smoke.py), not a route: K2f (cls = 0) or K3f (cls =
+// 1) on the bf16 tensor-core body with its intermediates written out
+// (block_probe_kernel). ptrs: x, 11 weights, out as block_forward_launch
+// takes them, then h1, o, h2, hid as Probe says. The widths and alignment
+// of block_forward_launch's mma = 1 (cudaErrorInvalidValue else).
+int block_forward_probe(int dtype, int cls, const void* const* ptrs,
+                        int batch, int n, int d, int heads, int dim_head,
+                        int mlp, float scale, void* stream) {
+  if (bad_shape(batch, n, d, heads, dim_head, mlp))
+    return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.x = ptrs[0];
+  for (int i = 0; i < 11; ++i) a.w[i] = ptrs[1 + i];
+  a.out = (void*)ptrs[12];
+  a.n = n;
+  a.m = dims(d, heads, dim_head, mlp, 256, scale);
+  const Probe pr = {(bf16*)ptrs[13], (bf16*)ptrs[14], (bf16*)ptrs[15],
+                    (bf16*)ptrs[16]};
+  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
+  if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
+    return cudaErrorInvalidValue;
+  const size_t bytes = mmafwd::Layout(n).total;
+  cudaStream_t s = (cudaStream_t)stream;
+  return cls ? mmafwd::launch_fwd(block_probe_kernel<true>, n, batch, bytes,
+                                  s, a, batch, pr)
+             : mmafwd::launch_fwd(block_probe_kernel<false>, n, batch, bytes,
+                                  s, a, batch, pr);
 }
 
 // Bytes of device workspace block_backward_launch needs for these shapes.

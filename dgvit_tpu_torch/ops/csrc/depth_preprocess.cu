@@ -11,50 +11,104 @@
 // top and bottom, at the image's left and right), 4x bilinear downscale
 // (the average of source rows/cols 4i+1, 4i+2), /255.
 //
-// What bounds the function on an H100: bytes. A frame is 1.31 MB in and
-// 82 KB out against about 13 M operations that the states really need
-// (normalisation and noise on every pixel, the blurs only where a state
-// reads them), so the card's least time is the one read of the frame. As
-// written the kernel does several times those operations: an integer
-// hash of four 32-bit mixes a pixel, both 5-tap passes on every pixel of
-// a tile, the halo again in each neighbouring tile. The TPU kernel folded the
-// linear tail into dense matrix pairs to feed its matrix unit; here the
-// tail stays the separable stencil it is, on shared-memory tiles with a
-// halo, so no intermediate reaches device memory. Two launches per call:
-// a per-frame min/max reduction into partials (normalisation needs both
-// before the first pixel is scaled), then the fused pass, one block per
-// 8x40 tile of the output. The frame is therefore read twice (the second
-// time from L2 while a batch fits there).
+// What bounds the function on an H100: bytes, then the noise. A frame is
+// 1.31 MB in and 82 KB out; of the operations, the generator's integer
+// hashes (four 32-bit mixes a pixel, about 35 integer instructions, at the
+// SM's 64 lanes a clock) weigh most, the blurs little once they run only
+// where a state reads them.
+//
+// Design: one launch, one thread-block cluster of RANKS = 16 CTAs per
+// frame (a non-portable cluster size; an H100 80GB HBM3 holds 14 such
+// clusters at once), two CTAs an SM, the frame in the cluster's
+// distributed shared memory, so it is read from device memory exactly
+// once and no intermediate reaches it:
+//  1. each CTA copies its slice of ROWS rows (80 KB) into shared memory
+//     with bulk asynchronous copies (cp.async.bulk), CHUNKS of them, each
+//     completing on its own mbarrier, and reduces its min and max over
+//     each chunk as it lands;
+//  2. the CTAs' min and max are combined through distributed shared
+//     memory (cluster.sync, then map_shared_rank): no partials go through
+//     device memory;
+//  3. normalise and add noise in place, then cluster.sync: every slice
+//     is final and readable from the other CTAs;
+//  4. outside the band, each state reads only the 5x5 blur at two rows
+//     and two columns: a warp takes 32 states of one output row, a lane
+//     loads the six rows under its state as float4s (columns 4j..4j+3,
+//     the two neighbouring columns from its neighbour lanes), the rows
+//     above and below the slice (the halo, REFLECT_101 at the image's
+//     edges) gathered first from the neighbouring CTAs;
+//  5. in the band, where the 11-tap passes read the 5x5 blur everywhere,
+//     each CTA takes W_OUT / RANKS output columns in STRIPES passes: the
+//     noisy band rows under them gathered from the CTAs that hold them
+//     (every load in flight at once: a remote load's round trip is long),
+//     the 5-tap pass down the rows, the 5-tap pass along them, the 11-tap
+//     pass down the sampled rows, then the 11-tap pass at the sampled
+//     columns and the average, on tiles after the slice (a thread a
+//     column and a block of rows, so its sums are independent);
+//  6. a last cluster.sync, so that no CTA leaves while another reads its
+//     slice.
+// Every state is computed once; the blur values under it are the same
+// sums as the plain version's, whichever CTA computes them. The noise
+// and the band take most of a CTA's time; clusters of 8 CTAs (the
+// portable size, one CTA an SM) were slower.
 //
 // Arithmetic is fp32 with every product and sum rounded on its own
 // (__fmul_rn / __fadd_rn, never contracted into an FMA) and taken in the
 // order of the plain PyTorch chain (ops/preprocess.py), so the kernel
-// agrees with its plain version to the last bit or nearly. The generator
-// is the one of ops/fused_preprocess.py::irwin_hall_noise, bit for bit.
+// agrees with its plain version to the last bit. The generator is the
+// one of ops/fused_preprocess.py::irwin_hall_noise, bit for bit.
 //
 // Plain C interface for ctypes; the launch goes to the given stream and
 // neither synchronises nor allocates.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int H_IN = 512, W_IN = 640, H_OUT = 128, W_OUT = 160;
 constexpr int BAND_Y1 = 205, BAND_Y2 = 307;        // centre band rows [Y1, Y2)
 constexpr int BAND_OUT0 = 51, BAND_OUT1 = 76;      // output rows it covers
-constexpr int NPART = 40;                          // min/max partials per frame
-constexpr int TH = 8, TW = 40;                     // output tile
-constexpr int THREADS = 256;
-// largest regions of a tile (a band tile: halo 5 for the 11-tap blur, and
-// 2 more for the 5-tap blur under it)
-constexpr int B5_ROWS = 4 * TH - 2 + 10, B5_COLS = 4 * TW - 2 + 10;
-constexpr int V5_COLS = B5_COLS + 4;
-constexpr int N_ROWS = B5_ROWS + 4;
-constexpr int V11_ROWS = 2 * TH;
-constexpr int SMEM_FLOATS = N_ROWS * V5_COLS + B5_ROWS * V5_COLS
-                            + B5_ROWS * B5_COLS + V11_ROWS * B5_COLS;
+constexpr int RANKS = 16;                // CTAs a frame's cluster
+constexpr int ROWS = H_IN / RANKS;       // source rows a CTA holds
+constexpr int OUT_ROWS = H_OUT / RANKS;  // output rows under them
+constexpr int THREADS = 4096 / RANKS;    // 16 warps an SM
+constexpr int WARPS = THREADS / 32;
+constexpr int CHUNK_ROWS = 8;            // rows a bulk copy (and barrier)
+constexpr int CHUNKS = ROWS / CHUNK_ROWS;
+constexpr int CHUNK_FLOATS = CHUNK_ROWS * W_IN;
+constexpr int SLICE = ROWS * W_IN;       // floats
+// the band, by column stripes of SJ output columns, STRIPES a CTA
+constexpr int STRIPES = 2;
+constexpr int SJ = W_OUT / RANKS / STRIPES;
+constexpr int BAND_ROWS = BAND_Y2 - BAND_Y1;
+constexpr int BAND_SAMPLED = 2 * (BAND_OUT1 - BAND_OUT0 + 1);
+constexpr int B5_COLS = 4 * SJ + 8;      // the 11-tap pass's reach
+constexpr int V5_COLS = B5_COLS + 4;     // and the 5-tap pass's under it
+// the noisy rows under the band's 5-tap pass, staged from the CTAs that
+// hold them: columns from a multiple of 4 on, as float4s
+constexpr int STAGE_ROWS = BAND_ROWS + 4, STAGE_COLS = V5_COLS + 8;
+// two regions after the slice, each reused: (the halo rows of step 4,
+// then the staged rows, then the 5-tap pass along the rows) and (the
+// 5-tap pass down the rows, then the 11-tap pass down them)
+constexpr int REGION1 = STAGE_ROWS * STAGE_COLS;
+constexpr int REGION2 = BAND_ROWS * V5_COLS;
+static_assert(REGION1 >= 2 * W_IN && REGION1 >= BAND_ROWS * B5_COLS &&
+                  REGION2 >= BAND_SAMPLED * B5_COLS,
+              "regions");
+// shared memory: the slice, the two regions, the barriers, the CTA's
+// min and max, the warps' partial min and max, the frame's lo and scale
+constexpr size_t SMEM = (size_t)(SLICE + REGION1 + REGION2) * sizeof(float)
+                        + CHUNKS * sizeof(uint64_t)
+                        + (2 + 2 * WARPS + 2) * sizeof(float);
+
+static_assert(H_IN % RANKS == 0 && ROWS % CHUNK_ROWS == 0, "slices");
+static_assert(W_OUT % (RANKS * STRIPES) == 0 && W_OUT % 32 == 0, "stripes");
+static_assert((SLICE + REGION1 + REGION2) % 4 == 0, "alignment");
 
 struct Taps {
   float k5[5];
@@ -70,249 +124,475 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ int byte_sum(uint32_t w) {
-  return (int)(w & 255U) + (int)((w >> 8) & 255U) + (int)((w >> 16) & 255U)
-         + (int)(w >> 24);
-}
-
 __device__ __forceinline__ int reflect(int q, int n) {
   q = q < 0 ? -q : q;
   return q >= n ? 2 * (n - 1) - q : q;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// row q (0 <= q < H_IN) of the frame in the slice of the CTA that holds
+// it, through distributed shared memory
+__device__ __forceinline__ const float* cluster_row(cg::cluster_group& cluster,
+                                                    float* slice, int q) {
+  const int owner = q / ROWS;
+  return cluster.map_shared_rank(slice, owner) + (q - owner * ROWS) * W_IN;
+}
+
+// dst[i] = src(i) for i < count, every thread's loads issued before any
+// of its stores (a remote load's round trip is long, and a store between
+// two loads through generic pointers would order them): float4 i of the
+// copy is thread tid + k THREADS's k-th
+template <int kMax, typename Src>
+__device__ __forceinline__ void gather4(float4* dst, int count, Src src) {
+  float4 v[kMax];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    if (i < count) v[k] = src(i);
+  }
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) {
+    const int i = threadIdx.x + k * THREADS;
+    if (i < count) dst[i] = v[k];
+  }
+}
+
+// the 2x2 average of cv2's bilinear 4x downscale, /255
+__device__ __forceinline__ float state(const float (&px)[2][2]) {
+  const float left = __fadd_rn(
+      px[0][0], __fmul_rn(__fsub_rn(px[1][0], px[0][0]), 0.5f));
+  const float right = __fadd_rn(
+      px[0][1], __fmul_rn(__fsub_rn(px[1][1], px[0][1]), 0.5f));
+  const float v = __fadd_rn(left, __fmul_rn(__fsub_rn(right, left), 0.5f));
+  return __fdiv_rn(v, 255.0f);
+}
+
 __global__ void __launch_bounds__(THREADS)
-minmax_kernel(const float* __restrict__ raw, float* __restrict__ partial) {
-  const int f = blockIdx.y, p = blockIdx.x;
-  constexpr int PER = H_IN * W_IN / NPART;           // 8192 floats
-  const float4* src = reinterpret_cast<const float4*>(
-      raw + (size_t)f * H_IN * W_IN + (size_t)p * PER);
+    preprocess_cluster_kernel(const float* __restrict__ raw,
+                              float* __restrict__ out, uint32_t seed,
+                              float sigma, Taps taps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int f = blockIdx.x / RANKS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* slice = (float*)smem_raw;                  // [ROWS][W_IN]
+  float* region1 = slice + SLICE;
+  float* region2 = region1 + REGION1;
+  uint64_t* bars = (uint64_t*)(region2 + REGION2);
+  float* mm = (float*)(bars + CHUNKS);              // this CTA's min, max
+  float* red = mm + 2;                              // [2][WARPS]
+  float* stat = red + 2 * WARPS;                    // the frame's lo, scale
+
+  // 1. the slice into shared memory, its min and max chunk by chunk
+  const float* src = raw + (size_t)f * H_IN * W_IN + (size_t)rank * SLICE;
+  if (tid == 0) {
+    for (int c = 0; c < CHUNKS; ++c) mbar_init(&bars[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int c = 0; c < CHUNKS; ++c) {
+      mbar_expect_tx(&bars[c], CHUNK_FLOATS * sizeof(float));
+      bulk_copy(slice + c * CHUNK_FLOATS, src + c * CHUNK_FLOATS,
+                CHUNK_FLOATS * sizeof(float), &bars[c]);
+    }
   float lo = INFINITY, hi = -INFINITY;
-  for (int i = threadIdx.x; i < PER / 4; i += THREADS) {
-    const float4 v = src[i];
-    lo = fminf(fminf(lo, v.x), fminf(v.y, fminf(v.z, v.w)));
-    hi = fmaxf(fmaxf(hi, v.x), fmaxf(v.y, fmaxf(v.z, v.w)));
+  for (int c = 0; c < CHUNKS; ++c) {
+    mbar_wait(&bars[c], 0);
+    const float4* p = (const float4*)(slice + c * CHUNK_FLOATS);
+    for (int i = tid; i < CHUNK_FLOATS / 4; i += THREADS) {
+      const float4 v = p[i];
+      lo = fminf(fminf(lo, v.x), fminf(v.y, fminf(v.z, v.w)));
+      hi = fmaxf(fmaxf(hi, v.x), fmaxf(v.y, fmaxf(v.z, v.w)));
+    }
   }
   for (int o = 16; o > 0; o >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffU, lo, o));
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffU, hi, o));
   }
-  __shared__ float slo[THREADS / 32], shi[THREADS / 32];
-  if ((threadIdx.x & 31) == 0) {
-    slo[threadIdx.x >> 5] = lo;
-    shi[threadIdx.x >> 5] = hi;
+  if (lane == 0) {
+    red[warp] = lo;
+    red[WARPS + warp] = hi;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < THREADS / 32; ++w) {
-      lo = fminf(lo, slo[w]);
-      hi = fmaxf(hi, shi[w]);
+  if (tid == 0) {
+    for (int w = 1; w < WARPS; ++w) {
+      lo = fminf(lo, red[w]);
+      hi = fmaxf(hi, red[WARPS + w]);
     }
-    partial[((size_t)f * NPART + p) * 2] = lo;
-    partial[((size_t)f * NPART + p) * 2 + 1] = hi;
+    mm[0] = lo;
+    mm[1] = hi;
   }
-}
 
-__global__ void __launch_bounds__(THREADS)
-preprocess_kernel(const float* __restrict__ raw,
-                  const float* __restrict__ partial, float* __restrict__ out,
-                  uint32_t seed, float sigma, Taps taps) {
-  extern __shared__ float smem[];
-  float* noisy = smem;                               // [N_ROWS][V5_COLS]
-  float* v5 = noisy + N_ROWS * V5_COLS;              // [B5_ROWS][V5_COLS]
-  float* b5 = v5 + B5_ROWS * V5_COLS;                // [B5_ROWS][B5_COLS]
-  float* v11 = b5 + B5_ROWS * B5_COLS;               // [V11_ROWS][B5_COLS]
-  __shared__ float s_lo, s_scale;
-
-  const int f = blockIdx.z;
-  const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  const bool band = i0 <= BAND_OUT1 && i0 + TH - 1 >= BAND_OUT0;
-  const int h = band ? 5 : 0;
-
-  // the tile's regions, in image coordinates (inclusive bounds)
-  const int rb0 = max(4 * i0 + 1 - h, 0);
-  const int rb1 = min(4 * (i0 + TH - 1) + 2 + h, H_IN - 1);
-  const int cb0 = max(4 * j0 + 1 - h, 0);
-  const int cb1 = min(4 * (j0 + TW - 1) + 2 + h, W_IN - 1);
-  const int cv0 = max(cb0 - 2, 0), cv1 = min(cb1 + 2, W_IN - 1);
-  const int rn0 = max(rb0 - 2, 0), rn1 = min(rb1 + 2, H_IN - 1);
-  const int nb_rows = rb1 - rb0 + 1, nb_cols = cb1 - cb0 + 1;
-  const int nv_cols = cv1 - cv0 + 1, nn_rows = rn1 - rn0 + 1;
-
-  // 1. the frame's min and max from the partials; the scale, once
-  if (tid < 32) {
-    const float* pf = partial + (size_t)f * NPART * 2;
-    float lo = INFINITY, hi = -INFINITY;
-    for (int p = tid; p < NPART; p += 32) {
-      lo = fminf(lo, pf[2 * p]);
-      hi = fmaxf(hi, pf[2 * p + 1]);
+  // 2. the frame's min and max over the cluster's CTAs; the scale, once
+  cluster.sync();
+  if (warp == 0) {
+    lo = INFINITY;
+    hi = -INFINITY;
+    for (int r = lane; r < RANKS; r += 32) {
+      const float* m = cluster.map_shared_rank(mm, r);
+      lo = fminf(lo, m[0]);
+      hi = fmaxf(hi, m[1]);
     }
     for (int o = 16; o > 0; o >>= 1) {
       lo = fminf(lo, __shfl_xor_sync(0xffffffffU, lo, o));
       hi = fmaxf(hi, __shfl_xor_sync(0xffffffffU, hi, o));
     }
-    if (tid == 0) {
-      s_lo = lo;
-      s_scale = __fdiv_rn(255.0f, fmaxf(__fsub_rn(hi, lo), 1e-20f));
+    if (lane == 0) {
+      stat[0] = lo;
+      stat[1] = __fdiv_rn(255.0f, fmaxf(__fsub_rn(hi, lo), 1e-20f));
     }
   }
   __syncthreads();
-  const float lo = s_lo, scale = s_scale;
+  lo = stat[0];
+  const float scale = stat[1];
 
-  // 2. normalise, truncate, add noise, clip: the noisy region
-  const float* frame = raw + (size_t)f * H_IN * W_IN;
-  const uint32_t key = mix32(seed + (uint32_t)f);
-  const uint32_t key0 = mix32(key), key1 = mix32(key + 1U),
-                 key2 = mix32(key + 2U);
-  const float inv_std = (float)(1.0 / 255.9980469);
-  // Each warp walks whole rows of a region and its lanes the columns, so
-  // a row's reflected neighbours are found once a row, not once a pixel.
-  const int warp = tid >> 5, lane = tid & 31;
-  constexpr int WARPS = THREADS / 32;
-  for (int y = warp; y < nn_rows; y += WARPS) {
-    const int r = rn0 + y;
-    const float* src = frame + r * W_IN + cv0;
-    const uint32_t p0 = (uint32_t)(r * W_IN + cv0);
-    for (int x = lane; x < nv_cols; x += 32) {
-      float v = floorf(__fmul_rn(__fsub_rn(src[x], lo), scale));
-      v = fminf(fmaxf(v, 0.0f), 255.0f);
-      if (sigma > 0.0f) {
-        const uint32_t m = mix32(p0 + (uint32_t)x);
-        const int acc = byte_sum(mix32(m ^ key0)) + byte_sum(mix32(m ^ key1))
-                        + byte_sum(mix32(m ^ key2));
-        const float z = __fmul_rn(__fsub_rn((float)acc, 1530.0f), inv_std);
-        v = fminf(fmaxf(__fadd_rn(v, __fmul_rn(sigma, z)), 0.0f), 255.0f);
+  // 3. normalise, truncate, add noise, clip: in place, 4 pixels a step
+  {
+    const uint32_t key = mix32(seed + (uint32_t)f);
+    const uint32_t key0 = mix32(key), key1 = mix32(key + 1U),
+                   key2 = mix32(key + 2U);
+    const float inv_std = (float)(1.0 / 255.9980469);
+    const uint32_t p0 = (uint32_t)(rank * SLICE);
+    float4* s4 = (float4*)slice;
+    for (int i = tid; i < SLICE / 4; i += THREADS) {
+      const float4 v = s4[i];
+      float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float u = floorf(__fmul_rn(__fsub_rn(e[k], lo), scale));
+        u = fminf(fmaxf(u, 0.0f), 255.0f);
+        if (sigma > 0.0f) {
+          const uint32_t m = mix32(p0 + (uint32_t)(4 * i + k));
+          // the 12 bytes of the three words summed (dp4a against ones)
+          const uint32_t acc = __dp4a(
+              mix32(m ^ key2), 0x01010101U,
+              __dp4a(mix32(m ^ key1), 0x01010101U,
+                     __dp4a(mix32(m ^ key0), 0x01010101U, 0U)));
+          // (float)acc - 1530, exactly: 2^23 + acc as a float, less
+          // 2^23 + 1530 (both exact below 2^24)
+          const float z = __fmul_rn(
+              __fsub_rn(__uint_as_float(0x4B000000U + acc), 8390138.0f),
+              inv_std);
+          u = fminf(fmaxf(__fadd_rn(u, __fmul_rn(sigma, z)), 0.0f), 255.0f);
+        }
+        e[k] = u;
       }
-      noisy[y * V5_COLS + x] = v;
+      s4[i] = make_float4(e[0], e[1], e[2], e[3]);
     }
+  }
+  cluster.sync();  // every slice final, readable across the cluster
+
+  // the rows above and below the slice (REFLECT_101 at the image's top
+  // and bottom), staged from the neighbouring CTAs
+  float* halo = region1;  // [2][W_IN]
+  {
+    const float4* above = (const float4*)cluster_row(
+        cluster, slice, reflect(rank * ROWS - 1, H_IN));
+    const float4* below = (const float4*)cluster_row(
+        cluster, slice, reflect((rank + 1) * ROWS, H_IN));
+    gather4<(2 * W_IN / 4 + THREADS - 1) / THREADS>(
+        (float4*)halo, 2 * W_IN / 4, [=](int i) {
+          return i < W_IN / 4 ? above[i] : below[i - W_IN / 4];
+        });
   }
   __syncthreads();
 
-  // 3. 5-tap blur down the rows (reflect at the image's top and bottom)
-  for (int y = warp; y < nb_rows; y += WARPS) {
-    const int r = rb0 + y;
-    const float* rows[5];
-#pragma unroll
-    for (int t = 0; t < 5; ++t)
-      rows[t] = noisy + (reflect(r + t - 2, H_IN) - rn0) * V5_COLS;
-    for (int x = lane; x < nv_cols; x += 32) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int t = 0; t < 5; ++t)
-        acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], rows[t][x]));
-      v5[y * V5_COLS + x] = acc;
-    }
-  }
-  __syncthreads();
-
-  // 4. 5-tap blur along the columns (reflect at the image's sides)
-  for (int y = warp; y < nb_rows; y += WARPS) {
-    const float* row = v5 + y * V5_COLS;
-    for (int x = lane; x < nb_cols; x += 32) {
-      const int c = cb0 + x;
-      float acc = 0.0f;
-#pragma unroll
-      for (int t = 0; t < 5; ++t)
-        acc = __fadd_rn(acc, __fmul_rn(
-            taps.k5[t], row[reflect(c + t - 2, W_IN) - cv0]));
-      b5[y * B5_COLS + x] = acc;
-    }
-  }
-  __syncthreads();
-
-  // 5. band rows the tile samples: 11-tap blur down the rows, reflected
-  //    at the band's own edges
-  if (band) {
-    for (int k = warp; k < V11_ROWS; k += WARPS) {
-      const int i = i0 + (k >> 1);
-      if (i < BAND_OUT0 || i > BAND_OUT1) continue;
-      const int r = 4 * i + 1 + (k & 1);
-      const float* rows[11];
-#pragma unroll
-      for (int t = 0; t < 11; ++t) {
-        int q = r + t - 5;
-        q = q < BAND_Y1 ? 2 * BAND_Y1 - q : q;
-        q = q >= BAND_Y2 ? 2 * (BAND_Y2 - 1) - q : q;
-        rows[t] = b5 + (q - rb0) * B5_COLS;
-      }
-      for (int x = lane; x < nb_cols; x += 32) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int t = 0; t < 11; ++t)
-          acc = __fadd_rn(acc, __fmul_rn(taps.k11[t], rows[t][x]));
-        v11[k * B5_COLS + x] = acc;
-      }
-    }
-    __syncthreads();
-  }
-
-  // 6. the band's 11-tap blur along the columns at the sampled columns,
-  //    the 2x2 average as cv2's bilinear form, /255
   float* dst = out + (size_t)f * H_OUT * W_OUT;
-  for (int idx = tid; idx < TH * TW; idx += THREADS) {
-    const int ti = idx / TW, tj = idx - ti * TW;
-    const int i = i0 + ti, j = j0 + tj;
-    const bool in_band = i >= BAND_OUT0 && i <= BAND_OUT1;
+  // 4. states outside the band: a warp a task of 32 states of one row
+  for (int task = warp; task < OUT_ROWS * (W_OUT / 32); task += WARPS) {
+    const int i = rank * OUT_ROWS + task / (W_OUT / 32);
+    if (i >= BAND_OUT0 && i <= BAND_OUT1) continue;
+    const int j = task % (W_OUT / 32) * 32 + lane;
+    // rows 4i-1 .. 4i+4 at columns 4j-1 .. 4j+4 (reflected at the edges)
+    float n[6][6];
+#pragma unroll
+    for (int d = 0; d < 6; ++d) {
+      const int q = 4 * i - 1 + d - rank * ROWS;  // -1 .. ROWS
+      const float* row = q < 0 ? halo : q >= ROWS ? halo + W_IN
+                                                  : slice + q * W_IN;
+      const float4 v = ((const float4*)row)[j];
+      float left = __shfl_up_sync(0xffffffffU, v.w, 1);
+      float right = __shfl_down_sync(0xffffffffU, v.x, 1);
+      if (lane == 0) left = j == 0 ? v.y : row[4 * j - 1];
+      if (lane == 31) right = j == W_OUT - 1 ? v.z : row[4 * j + 4];
+      n[d][0] = left;
+      n[d][1] = v.x;
+      n[d][2] = v.y;
+      n[d][3] = v.z;
+      n[d][4] = v.w;
+      n[d][5] = right;
+    }
     float px[2][2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
+      float col[6];  // the 5-tap pass down the rows at row 4i+1+s
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int c = 4 * j + 1 + u;
-        if (in_band) {
-          const float* row = v11 + (2 * ti + s) * B5_COLS;
+      for (int c = 0; c < 6; ++c) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 5; ++t)
+          acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], n[s + t][c]));
+        col[c] = acc;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {  // along it at column 4j+1+u
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 5; ++t)
+          acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], col[u + t]));
+        px[s][u] = acc;
+      }
+    }
+    dst[i * W_OUT + j] = state(px);
+  }
+
+  // 5. the band: this CTA's column stripes
+  for (int stripe = 0; stripe < STRIPES; ++stripe) {
+    const int j0 = (rank * STRIPES + stripe) * SJ;
+    const int cb0 = max(4 * j0 - 4, 0), cb1 = min(4 * (j0 + SJ) + 3, W_IN - 1);
+    const int cv0 = max(cb0 - 2, 0), cv1 = min(cb1 + 2, W_IN - 1);
+    const int nb = cb1 - cb0 + 1, nv = cv1 - cv0 + 1;
+    const int cs = cv0 & ~3, n4 = (cv1 - cs) / 4 + 1;
+    __syncthreads();  // the halo, or the last stripe's tiles, are read
+    // the noisy rows BAND_Y1 - 2 .. BAND_Y2 + 1 at columns cs .., staged
+    // from the CTAs that hold them (all loads in flight at once)
+    float* stage = region1;  // [STAGE_ROWS][STAGE_COLS / 4] float4s
+    {
+      // row y of the stage from the CTA that holds frame row BAND_Y1 - 2 +
+      // y; the few CTAs holding the band, mapped once
+      constexpr int kFirst = (BAND_Y1 - 2) / ROWS;
+      constexpr int kOwners = (BAND_Y2 + 1) / ROWS - kFirst + 1;
+      const float* owner[kOwners];
+#pragma unroll
+      for (int o = 0; o < kOwners; ++o)
+        owner[o] = cluster.map_shared_rank(slice, kFirst + o) + cs;
+      constexpr int kQ = STAGE_COLS / 4;
+      gather4<(STAGE_ROWS * kQ + THREADS - 1) / THREADS>(
+          (float4*)stage, STAGE_ROWS * kQ, [=](int i) {
+            const int y = i / kQ, x = i - y * kQ, q = BAND_Y1 - 2 + y;
+            const int o = q / ROWS;
+            return x < n4 ? ((const float4*)(owner[o - kFirst]
+                                             + (q - o * ROWS) * W_IN))[x]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          });
+    }
+    __syncthreads();
+    // The three passes below give each thread one column of the tile
+    // and a block of rows, so that its sums are independent of one
+    // another (a warp's lanes on neighbouring columns).
+    // the 5-tap pass down the band's rows, the stage's column in registers
+    float* v5 = region2;  // [BAND_ROWS][V5_COLS]
+    {
+      constexpr int kGroups = THREADS / V5_COLS;
+      constexpr int kRb = (BAND_ROWS + kGroups - 1) / kGroups;
+      const int x = tid % V5_COLS, y0 = tid / V5_COLS * kRb;
+      if (tid < kGroups * V5_COLS && x < nv) {
+        const float* col = stage + (cv0 - cs) + x;
+        float w[kRb + 4];
+#pragma unroll
+        for (int k = 0; k < kRb + 4; ++k)
+          w[k] = y0 + k < STAGE_ROWS ? col[(y0 + k) * STAGE_COLS] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kRb; ++k) {
+          if (y0 + k >= BAND_ROWS) break;
           float acc = 0.0f;
 #pragma unroll
-          for (int t = 0; t < 11; ++t) {
-            const int q = reflect(c + t - 5, W_IN) - cb0;
-            acc = __fadd_rn(acc, __fmul_rn(taps.k11[t], row[q]));
-          }
-          px[s][u] = acc;
-        } else {
-          px[s][u] = b5[(4 * i + 1 + s - rb0) * B5_COLS + (c - cb0)];
+          for (int t = 0; t < 5; ++t)
+            acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], w[k + t]));
+          v5[(y0 + k) * V5_COLS + x] = acc;
         }
       }
     }
-    const float left = __fadd_rn(
-        px[0][0], __fmul_rn(__fsub_rn(px[1][0], px[0][0]), 0.5f));
-    const float right = __fadd_rn(
-        px[0][1], __fmul_rn(__fsub_rn(px[1][1], px[0][1]), 0.5f));
-    const float v = __fadd_rn(left, __fmul_rn(__fsub_rn(right, left), 0.5f));
-    dst[i * W_OUT + j] = __fdiv_rn(v, 255.0f);
+    __syncthreads();
+    // the 5-tap pass along them (reflected at the image's sides)
+    float* b5 = region1;  // [BAND_ROWS][B5_COLS], over the staged rows
+    {
+      constexpr int kGroups = THREADS / B5_COLS;
+      constexpr int kRb = (BAND_ROWS + kGroups - 1) / kGroups;
+      const int x = tid % B5_COLS, y0 = tid / B5_COLS * kRb;
+      if (tid < kGroups * B5_COLS && x < nb) {
+        int at[5];
+#pragma unroll
+        for (int t = 0; t < 5; ++t) at[t] = reflect(cb0 + x + t - 2, W_IN) - cv0;
+#pragma unroll
+        for (int k = 0; k < kRb; ++k) {
+          if (y0 + k >= BAND_ROWS) break;
+          const float* row = v5 + (y0 + k) * V5_COLS;
+          float acc = 0.0f;
+#pragma unroll
+          for (int t = 0; t < 5; ++t)
+            acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], row[at[t]]));
+          b5[(y0 + k) * B5_COLS + x] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    // the 11-tap pass down the sampled band rows, reflected at the band's
+    // own edges
+    float* v11 = region2;  // [BAND_SAMPLED][B5_COLS], over v5
+    {
+      constexpr int kGroups = THREADS / B5_COLS;
+      constexpr int kRb = (BAND_SAMPLED + kGroups - 1) / kGroups;
+      const int x = tid % B5_COLS, k0 = tid / B5_COLS * kRb;
+      if (tid < kGroups * B5_COLS && x < nb) {
+#pragma unroll
+        for (int kk = 0; kk < kRb; ++kk) {
+          const int k = k0 + kk;
+          if (k >= BAND_SAMPLED) break;
+          const int r = 4 * (BAND_OUT0 + (k >> 1)) + 1 + (k & 1);
+          float acc = 0.0f;
+#pragma unroll
+          for (int t = 0; t < 11; ++t) {
+            int q = r + t - 5;
+            q = q < BAND_Y1 ? 2 * BAND_Y1 - q : q;
+            q = q >= BAND_Y2 ? 2 * (BAND_Y2 - 1) - q : q;
+            acc = __fadd_rn(acc, __fmul_rn(
+                taps.k11[t], b5[(q - BAND_Y1) * B5_COLS + x]));
+          }
+          v11[k * B5_COLS + x] = acc;
+        }
+      }
+    }
+    __syncthreads();
+    // the 11-tap pass at the sampled columns, the average, /255
+    for (int idx = tid; idx < (BAND_OUT1 - BAND_OUT0 + 1) * SJ;
+         idx += THREADS) {
+      const int ti = idx / SJ, j = j0 + idx % SJ;
+      float px[2][2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float* row = v11 + (2 * ti + s) * B5_COLS;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int c = 4 * j + 1 + u;
+          float acc = 0.0f;
+#pragma unroll
+          for (int t = 0; t < 11; ++t)
+            acc = __fadd_rn(acc, __fmul_rn(
+                taps.k11[t], row[reflect(c + t - 5, W_IN) - cb0]));
+          px[s][u] = acc;
+        }
+      }
+      dst[(BAND_OUT0 + ti) * W_OUT + j] = state(px);
+    }
   }
+
+  // 6. no CTA leaves while another may still read its slice
+  cluster.sync();
+}
+
+// the kernel's launch configuration for b frames (cluster dimension in
+// attr)
+cudaLaunchConfig_t launch_config(int b, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * RANKS, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = RANKS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the kernel's shared memory and its cluster size (past the portable 8)
+cudaError_t set_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      preprocess_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(preprocess_cluster_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the caller provides for `b` frames (the min/max
-// partials).
-int depth_preprocess_workspace(int b) { return b * NPART * 2; }
-
-// raw (b, 512, 640) fp32 -> out (b, 128, 160) fp32. taps: 16 host floats,
-// the 5-tap then the 11-tap Gaussian. Returns the CUDA error of the
-// launches (0 on success).
-int depth_preprocess_launch(const void* raw, void* out, void* workspace,
-                            int b, int seed, float sigma, const float* taps,
-                            void* stream) {
-  if (b <= 0) return (int)cudaErrorInvalidValue;
+// raw (b, 512, 640) fp32, 16-byte aligned -> out (b, 128, 160) fp32.
+// taps: 16 host floats, the 5-tap then the 11-tap Gaussian. One launch of
+// b clusters of RANKS CTAs. Returns the CUDA error of the launch (0 on
+// success).
+int depth_preprocess_launch(const void* raw, void* out, int b, int seed,
+                            float sigma, const float* taps, void* stream) {
+  if (b <= 0 || (uintptr_t)raw % 16 != 0) return (int)cudaErrorInvalidValue;
   Taps k;
   for (int i = 0; i < 5; ++i) k.k5[i] = taps[i];
   for (int i = 0; i < 11; ++i) k.k11[i] = taps[5 + i];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = SMEM_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      preprocess_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = set_attributes();
   if (err != cudaSuccess) return (int)err;
-  minmax_kernel<<<dim3(NPART, b), THREADS, 0, st>>>(
-      static_cast<const float*>(raw), static_cast<float*>(workspace));
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(b, static_cast<cudaStream_t>(stream), attr);
+  err = cudaLaunchKernelEx(&cfg, preprocess_cluster_kernel,
+                           static_cast<const float*>(raw),
+                           static_cast<float*>(out), (uint32_t)seed, sigma,
+                           k);
   if (err != cudaSuccess) return (int)err;
-  preprocess_kernel<<<dim3(W_OUT / TW, H_OUT / TH, b), THREADS, smem, st>>>(
-      static_cast<const float*>(raw), static_cast<const float*>(workspace),
-      static_cast<float*>(out), (uint32_t)seed, sigma, k);
   return (int)cudaGetLastError();
+}
+
+// The kernel's shape: the CTAs of a frame's cluster, the bytes of dynamic
+// shared memory a CTA asks for, and how many clusters the device holds at
+// once (0 when the query fails). Returns the CUDA error of the query.
+int depth_preprocess_occupancy(int* ranks, size_t* bytes, int* clusters) {
+  *ranks = RANKS;
+  *bytes = SMEM;
+  *clusters = 0;
+  cudaError_t err = set_attributes();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(64, 0, attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, (void*)preprocess_cluster_kernel, &cfg);
 }
 
 const char* depth_preprocess_error_string(int err) {

@@ -7,11 +7,12 @@ Counterpart of `dgvit_tpu/ops/pallas_preprocess.py`: a stack of raw
     min-max normalise to 0..255 with floor -> + sigma * z, clip [0, 255]
     -> 5x5 blur -> 11x11 blur of the centre band -> 4x bilinear -> /255
 
-  * `preprocess_depth_fused` launches the hand-written CUDA kernels of
-    `csrc/depth_preprocess.cu` for CUDA tensors (two launches a call: the
-    per-frame min/max, then the fused pass) and runs
-    `preprocess_depth_plain` for CPU tensors; nothing else picks between
-    them, and a build or launch failure raises;
+  * `preprocess_depth_fused` launches the hand-written CUDA kernel of
+    `csrc/depth_preprocess.cu` for CUDA tensors (one launch a call: a
+    thread-block cluster a frame, the frame read once into the cluster's
+    shared memory) and runs `preprocess_depth_plain` for CPU tensors;
+    nothing else picks between them, and a build or launch failure
+    raises;
   * `preprocess_depth_plain` is the same function in plain PyTorch: the
     chain of `ops/preprocess.py` with the kernel's noise generator;
   * `preprocess_depth_auto` is the package's ingest entry point, as
@@ -139,13 +140,14 @@ def _kernel_lib() -> ctypes.CDLL:
     from dgvit_tpu_torch.ops import _build
 
     lib = _build.load("depth_preprocess")
-    lib.depth_preprocess_workspace.restype = ctypes.c_int
-    lib.depth_preprocess_workspace.argtypes = [ctypes.c_int]
     lib.depth_preprocess_launch.restype = ctypes.c_int
     lib.depth_preprocess_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_float),
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+    lib.depth_preprocess_occupancy.restype = ctypes.c_int
+    lib.depth_preprocess_occupancy.argtypes = [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_int)]
     lib.depth_preprocess_error_string.restype = ctypes.c_char_p
     lib.depth_preprocess_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -164,19 +166,28 @@ def _launch(raw: torch.Tensor, seed: int, noise_level: float
     b = raw.shape[0]
     out = torch.empty((b, H_OUT, W_OUT), dtype=torch.float32,
                       device=raw.device)
-    work = torch.empty(lib.depth_preprocess_workspace(b),
-                       dtype=torch.float32, device=raw.device)
     signed = seed - 2 ** 32 if seed >= 2 ** 31 else seed
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.depth_preprocess_launch(
-            raw.data_ptr(), out.data_ptr(), work.data_ptr(), b, signed,
-            float(noise_level), _taps(), stream)
+            raw.data_ptr(), out.data_ptr(), b, signed, float(noise_level),
+            _taps(), stream)
     if err != 0:
         raise RuntimeError("depth_preprocess launch failed: "
                            + lib.depth_preprocess_error_string(err).decode())
     preprocess_depth_fused.launches += 1
     return out
+
+
+def kernel_occupancy():
+    """(CTAs of a frame's cluster, bytes of shared memory a CTA asks for,
+    clusters the current card holds at once or None where the query
+    fails)."""
+    lib = _kernel_lib()
+    ranks, nbytes, clusters = ctypes.c_int(), ctypes.c_size_t(), ctypes.c_int()
+    err = lib.depth_preprocess_occupancy(
+        ctypes.byref(ranks), ctypes.byref(nbytes), ctypes.byref(clusters))
+    return ranks.value, nbytes.value, clusters.value if err == 0 else None
 
 
 def preprocess_depth_fused(raw: torch.Tensor, seed: int,
@@ -186,10 +197,10 @@ def preprocess_depth_fused(raw: torch.Tensor, seed: int,
     seed + i. `noise_level` is the noise's sigma on the 0..255 scale (0:
     no noise).
 
-    CUDA tensors go to the CUDA kernel (fp32, contiguous; raises if it
-    cannot run); CPU tensors go to the plain version.
-    `preprocess_depth_fused.launches` counts calls that launched the
-    kernel (two CUDA launches each)."""
+    CUDA tensors go to the CUDA kernel (fp32, contiguous, 16-byte
+    aligned; raises if it cannot run); CPU tensors go to the plain
+    version. `preprocess_depth_fused.launches` counts calls that launched
+    the kernel (one CUDA launch each)."""
     _check(raw)
     seed = _seed32(seed)
     if noise_level < 0.0:
@@ -200,6 +211,9 @@ def preprocess_depth_fused(raw: torch.Tensor, seed: int,
                             "fp32 frames")
         if not raw.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+        if raw.data_ptr() % 16:
+            raise ValueError("the kernel takes frames on a 16-byte "
+                             "boundary (its bulk copies)")
         return _launch(raw, seed, noise_level)
     if raw.device.type != "cpu":
         raise ValueError(f"no kernel for device {raw.device}")
