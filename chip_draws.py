@@ -9,15 +9,16 @@ TREE (the root of a checkout; by default the one this script is in) and
 each seed, a fresh Python process started in that tree builds its kernels
 and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
 5b (the bodies off the flagship widths; "shared" only), 13 (K6, fp32 and
-bf16), 13a and 13b (fault j's magnitude, the same question of K2b and
-K3b), 15 (K7 and K8), 16 (the composed routes) and 17b (long frames) on
+bf16), 15 (K7 and K8), 16 (the composed routes), 17b (long frames), 13a
+and 13b (fault j's magnitude, and the same question of K2b and K3b) on
 two orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
-          phases 13a, 13b, 15, 16 and 17b each on a generator spawned off it
-          (`Generator.spawn`, as phase 13's extra draws are), so that a
-          phase added to the run moves no later phase's draw;
-  fresh:  phases 5, 13, 13a, 13b, 15, 16 and 17b each on a generator of
+          phases 15, 16, 17b, 13a and 13b each on a generator spawned off
+          it (`Generator.spawn`, as phase 13's extra draws are), in that
+          order, so that a phase added at the end moves no other phase's
+          draw;
+  fresh:  phases 5, 13, 15, 16, 17b, 13a and 13b each on a generator of
           its own from the seed.
 
 Phase 2 comes first in both orders, so its draws are the same in both;
@@ -78,11 +79,13 @@ for dtype in ("bfloat16", "float32"):
     p.load_state_dict(sd)
     policies[dtype] = p.to(cs.DEVICE).eval()
 nets = cs.build_nets(*cs.golden_params())
-later = [("13a", lambda r: cs.phase_fault_j(nets, r)),
-         ("13b", lambda r: cs.phase_recompute(nets, r)),
-         ("15", lambda r: cs.phase_attention(nets, r)),
+# phases 13a and 13b come last: a spawn moves the draws of every later
+# spawn off the same generator
+later = [("15", lambda r: cs.phase_attention(nets, r)),
          ("16", lambda r: cs.phase_composed(cfg, flat, policies, r)),
-         ("17b", lambda r: cs.phase_long_frames(flat, r))]
+         ("17b", lambda r: cs.phase_long_frames(flat, r)),
+         ("13a", lambda r: cs.phase_fault_j(nets, r)),
+         ("13b", lambda r: cs.phase_recompute(nets, r))]
 for seed in seeds:
     for order in ("shared", "fresh"):
         failed.clear()

@@ -319,14 +319,16 @@ ACTION_FP32 = 1e-4
 #     0.6017, the wrong backwards 0.4812 to 0.4948). Since every version
 #     but the chain and autograd of the plain forward differentiates the
 #     same streams, the float64-sum version's on those streams: on the
-#     batch's scale an H100 read the chain 0.745, K6 0.959, the plain
-#     version 0.968 and the wrong backwards 0.485 and 0.491 (seed 7), the
-#     wrong ones 3.7 to 4.5 standard errors under 0.52; on each frame's
-#     own scale (phase 5b's) the chain 0.630, K6 0.892, the plain version
-#     0.920 and the wrong backwards 0.004 and 0.028. So phase 13 took each
-#     frame's own scale and phase 5b's line, 0.5 (chip_draws.py's seeds
-#     7-11 in PERF.md). The pooled mean (2^-13) meets (a) and keeps its
-#     limit, against the float64-sum version.
+#     batch's scale an H100 80GB HBM3 at 700 W read the chain 0.732 to
+#     0.756, K6 0.947 to 0.963, the plain version 0.960 to 0.974 and the
+#     wrong backwards 0.482 to 0.495 (chip_draws.py, seeds 7-11, both
+#     orders), the wrong ones within 5 standard errors of 0.52; on each
+#     frame's own scale (phase 5b's) the chain 0.612 to 0.630, K6 0.881
+#     to 0.893, the plain version 0.912 to 0.924 and the wrong backwards
+#     0.002 to 0.028. So phase 13 took each frame's own scale and phase
+#     5b's line, 0.5: 14 standard errors under the chain's lowest, 61
+#     over the wrong backwards' highest. The pooled mean (2^-13) meets (a)
+#     and keeps its limit, against the float64-sum version.
 #   * fp32 K6 against its plain version and the chain (phase 13, fault
 #     3f): s = the largest max|err|/L over the tensors, old limit
 #     K6_F32_MAX; on the trained actor at B=256 the plain version read up

@@ -31,26 +31,25 @@
 //     device memory;
 //  3. normalise and add noise in place, then cluster.sync: every slice
 //     is final and readable from the other CTAs;
-//  4. outside the band, each state reads only the 5x5 blur at two rows
+//  4. every read of another CTA's slice at once, all loads in flight (a
+//     remote load's round trip is long): the rows above and below the
+//     slice (the halo, REFLECT_101 at the image's edges) and the noisy
+//     band rows under this CTA's W_OUT / RANKS band columns; then
+//     cluster.sync, after which no CTA reads another's shared memory;
+//  5. outside the band, each state reads only the 5x5 blur at two rows
 //     and two columns: a warp takes 32 states of one output row, a lane
 //     loads the six rows under its state as float4s (columns 4j..4j+3,
-//     the two neighbouring columns from its neighbour lanes), the rows
-//     above and below the slice (the halo, REFLECT_101 at the image's
-//     edges) gathered first from the neighbouring CTAs;
-//  5. in the band, where the 11-tap passes read the 5x5 blur everywhere,
-//     each CTA takes W_OUT / RANKS output columns in STRIPES passes: the
-//     noisy band rows under them gathered from the CTAs that hold them
-//     (every load in flight at once: a remote load's round trip is long),
-//     the 5-tap pass down the rows, the 5-tap pass along them, the 11-tap
-//     pass down the sampled rows, then the 11-tap pass at the sampled
-//     columns and the average, on tiles after the slice (a thread a
-//     column and a block of rows, so its sums are independent);
-//  6. a last cluster.sync, so that no CTA leaves while another reads its
-//     slice.
+//     the two neighbouring columns from its neighbour lanes);
+//  6. in the band, where the 11-tap passes read the 5x5 blur everywhere,
+//     on tiles laid over the slice (now free): the 5-tap pass down the
+//     gathered rows, the 5-tap pass along them, the 11-tap pass down the
+//     sampled rows (a thread a column and a block of rows, so that its
+//     sums are independent), then the 11-tap pass at the sampled columns
+//     and the average.
 // Every state is computed once; the blur values under it are the same
 // sums as the plain version's, whichever CTA computes them. The noise
-// and the band take most of a CTA's time; clusters of 8 CTAs (the
-// portable size, one CTA an SM) were slower.
+// takes the most of a CTA's time, then the gathers; clusters of 8 CTAs
+// (the portable size, one CTA an SM) were slower.
 //
 // Arithmetic is fp32 with every product and sum rounded on its own
 // (__fmul_rn / __fadd_rn, never contracted into an FMA) and taken in the
@@ -82,33 +81,31 @@ constexpr int CHUNK_ROWS = 8;            // rows a bulk copy (and barrier)
 constexpr int CHUNKS = ROWS / CHUNK_ROWS;
 constexpr int CHUNK_FLOATS = CHUNK_ROWS * W_IN;
 constexpr int SLICE = ROWS * W_IN;       // floats
-// the band, by column stripes of SJ output columns, STRIPES a CTA
-constexpr int STRIPES = 2;
-constexpr int SJ = W_OUT / RANKS / STRIPES;
+// the band: SJ output columns a CTA
+constexpr int SJ = W_OUT / RANKS;
 constexpr int BAND_ROWS = BAND_Y2 - BAND_Y1;
 constexpr int BAND_SAMPLED = 2 * (BAND_OUT1 - BAND_OUT0 + 1);
 constexpr int B5_COLS = 4 * SJ + 8;      // the 11-tap pass's reach
 constexpr int V5_COLS = B5_COLS + 4;     // and the 5-tap pass's under it
-// the noisy rows under the band's 5-tap pass, staged from the CTAs that
+// the noisy rows under the band's 5-tap pass, gathered from the CTAs that
 // hold them: columns from a multiple of 4 on, as float4s
 constexpr int STAGE_ROWS = BAND_ROWS + 4, STAGE_COLS = V5_COLS + 8;
-// two regions after the slice, each reused: (the halo rows of step 4,
-// then the staged rows, then the 5-tap pass along the rows) and (the
-// 5-tap pass down the rows, then the 11-tap pass down them)
-constexpr int REGION1 = STAGE_ROWS * STAGE_COLS;
-constexpr int REGION2 = BAND_ROWS * V5_COLS;
-static_assert(REGION1 >= 2 * W_IN && REGION1 >= BAND_ROWS * B5_COLS &&
-                  REGION2 >= BAND_SAMPLED * B5_COLS,
-              "regions");
-// shared memory: the slice, the two regions, the barriers, the CTA's
-// min and max, the warps' partial min and max, the frame's lo and scale
-constexpr size_t SMEM = (size_t)(SLICE + REGION1 + REGION2) * sizeof(float)
+constexpr int STAGE = STAGE_ROWS * STAGE_COLS, HALO = 2 * W_IN;
+// the band's passes, over the slice once the states outside the band
+// are done
+constexpr int TILES = BAND_ROWS * V5_COLS + BAND_ROWS * B5_COLS
+                      + BAND_SAMPLED * B5_COLS;
+// shared memory: the slice, the gathered band rows, the halo rows, the
+// barriers, the CTA's min and max, the warps' partial min and max, the
+// frame's lo and scale
+constexpr size_t SMEM = (size_t)(SLICE + STAGE + HALO) * sizeof(float)
                         + CHUNKS * sizeof(uint64_t)
                         + (2 + 2 * WARPS + 2) * sizeof(float);
 
 static_assert(H_IN % RANKS == 0 && ROWS % CHUNK_ROWS == 0, "slices");
-static_assert(W_OUT % (RANKS * STRIPES) == 0 && W_OUT % 32 == 0, "stripes");
-static_assert((SLICE + REGION1 + REGION2) % 4 == 0, "alignment");
+static_assert(W_OUT % RANKS == 0 && W_OUT % 32 == 0, "columns");
+static_assert(TILES <= SLICE, "the band's tiles over the slice");
+static_assert((SLICE + STAGE + HALO) % 4 == 0, "alignment");
 
 struct Taps {
   float k5[5];
@@ -208,7 +205,7 @@ __device__ __forceinline__ float state(const float (&px)[2][2]) {
   return __fdiv_rn(v, 255.0f);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)  // two CTAs an SM
     preprocess_cluster_kernel(const float* __restrict__ raw,
                               float* __restrict__ out, uint32_t seed,
                               float sigma, Taps taps) {
@@ -218,9 +215,9 @@ __global__ void __launch_bounds__(THREADS)
   const int f = blockIdx.x / RANKS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* slice = (float*)smem_raw;                  // [ROWS][W_IN]
-  float* region1 = slice + SLICE;
-  float* region2 = region1 + REGION1;
-  uint64_t* bars = (uint64_t*)(region2 + REGION2);
+  float* stage = slice + SLICE;               // [STAGE_ROWS][STAGE_COLS]
+  float* halo = stage + STAGE;                      // [2][W_IN]
+  uint64_t* bars = (uint64_t*)(halo + HALO);
   float* mm = (float*)(bars + CHUNKS);              // this CTA's min, max
   float* red = mm + 2;                              // [2][WARPS]
   float* stat = red + 2 * WARPS;                    // the frame's lo, scale
@@ -325,23 +322,45 @@ __global__ void __launch_bounds__(THREADS)
   }
   cluster.sync();  // every slice final, readable across the cluster
 
-  // the rows above and below the slice (REFLECT_101 at the image's top
-  // and bottom), staged from the neighbouring CTAs
-  float* halo = region1;  // [2][W_IN]
+  // 4. every read of another CTA's slice, all loads in flight at once: the
+  // rows above and below the slice (REFLECT_101 at the image's top and
+  // bottom), and the noisy rows BAND_Y1 - 2 .. BAND_Y2 + 1 under this
+  // CTA's band columns, from column cs on
+  const int j0 = rank * SJ;
+  const int cb0 = max(4 * j0 - 4, 0), cb1 = min(4 * (j0 + SJ) + 3, W_IN - 1);
+  const int cv0 = max(cb0 - 2, 0), cv1 = min(cb1 + 2, W_IN - 1);
+  const int nb = cb1 - cb0 + 1, nv = cv1 - cv0 + 1;
+  const int cs = cv0 & ~3, n4 = (cv1 - cs) / 4 + 1;
   {
     const float4* above = (const float4*)cluster_row(
         cluster, slice, reflect(rank * ROWS - 1, H_IN));
     const float4* below = (const float4*)cluster_row(
         cluster, slice, reflect((rank + 1) * ROWS, H_IN));
-    gather4<(2 * W_IN / 4 + THREADS - 1) / THREADS>(
-        (float4*)halo, 2 * W_IN / 4, [=](int i) {
-          return i < W_IN / 4 ? above[i] : below[i - W_IN / 4];
+    constexpr int kFirst = (BAND_Y1 - 2) / ROWS;  // the CTAs of the band
+    constexpr int kOwners = (BAND_Y2 + 1) / ROWS - kFirst + 1;
+    const float* owner[kOwners];
+#pragma unroll
+    for (int o = 0; o < kOwners; ++o)
+      owner[o] = cluster.map_shared_rank(slice, kFirst + o) + cs;
+    constexpr int kQ = STAGE_COLS / 4, kStage = STAGE_ROWS * kQ;
+    // float4 i < kStage: stage row i / kQ; then the halo rows
+    gather4<(kStage + HALO / 4 + THREADS - 1) / THREADS>(
+        (float4*)stage, kStage + HALO / 4, [=](int i) {
+          if (i >= kStage) {
+            i -= kStage;
+            return i < W_IN / 4 ? above[i] : below[i - W_IN / 4];
+          }
+          const int y = i / kQ, x = i - y * kQ, q = BAND_Y1 - 2 + y;
+          const int o = q / ROWS;
+          return x < n4 ? ((const float4*)(owner[o - kFirst]
+                                           + (q - o * ROWS) * W_IN))[x]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
         });
   }
-  __syncthreads();
+  cluster.sync();  // no CTA reads another's slice past this point
 
   float* dst = out + (size_t)f * H_OUT * W_OUT;
-  // 4. states outside the band: a warp a task of 32 states of one row
+  // 5. states outside the band: a warp a task of 32 states of one row
   for (int task = warp; task < OUT_ROWS * (W_OUT / 32); task += WARPS) {
     const int i = rank * OUT_ROWS + task / (W_OUT / 32);
     if (i >= BAND_OUT0 && i <= BAND_OUT1) continue;
@@ -388,48 +407,21 @@ __global__ void __launch_bounds__(THREADS)
     }
     dst[i * W_OUT + j] = state(px);
   }
+  __syncthreads();  // the slice is free for the band's tiles
 
-  // 5. the band: this CTA's column stripes
-  for (int stripe = 0; stripe < STRIPES; ++stripe) {
-    const int j0 = (rank * STRIPES + stripe) * SJ;
-    const int cb0 = max(4 * j0 - 4, 0), cb1 = min(4 * (j0 + SJ) + 3, W_IN - 1);
-    const int cv0 = max(cb0 - 2, 0), cv1 = min(cb1 + 2, W_IN - 1);
-    const int nb = cb1 - cb0 + 1, nv = cv1 - cv0 + 1;
-    const int cs = cv0 & ~3, n4 = (cv1 - cs) / 4 + 1;
-    __syncthreads();  // the halo, or the last stripe's tiles, are read
-    // the noisy rows BAND_Y1 - 2 .. BAND_Y2 + 1 at columns cs .., staged
-    // from the CTAs that hold them (all loads in flight at once)
-    float* stage = region1;  // [STAGE_ROWS][STAGE_COLS / 4] float4s
-    {
-      // row y of the stage from the CTA that holds frame row BAND_Y1 - 2 +
-      // y; the few CTAs holding the band, mapped once
-      constexpr int kFirst = (BAND_Y1 - 2) / ROWS;
-      constexpr int kOwners = (BAND_Y2 + 1) / ROWS - kFirst + 1;
-      const float* owner[kOwners];
-#pragma unroll
-      for (int o = 0; o < kOwners; ++o)
-        owner[o] = cluster.map_shared_rank(slice, kFirst + o) + cs;
-      constexpr int kQ = STAGE_COLS / 4;
-      gather4<(STAGE_ROWS * kQ + THREADS - 1) / THREADS>(
-          (float4*)stage, STAGE_ROWS * kQ, [=](int i) {
-            const int y = i / kQ, x = i - y * kQ, q = BAND_Y1 - 2 + y;
-            const int o = q / ROWS;
-            return x < n4 ? ((const float4*)(owner[o - kFirst]
-                                             + (q - o * ROWS) * W_IN))[x]
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-          });
-    }
-    __syncthreads();
-    // The three passes below give each thread one column of the tile
-    // and a block of rows, so that its sums are independent of one
-    // another (a warp's lanes on neighbouring columns).
-    // the 5-tap pass down the band's rows, the stage's column in registers
-    float* v5 = region2;  // [BAND_ROWS][V5_COLS]
-    {
-      constexpr int kGroups = THREADS / V5_COLS;
-      constexpr int kRb = (BAND_ROWS + kGroups - 1) / kGroups;
-      const int x = tid % V5_COLS, y0 = tid / V5_COLS * kRb;
-      if (tid < kGroups * V5_COLS && x < nv) {
+  // 6. the band, this CTA's SJ output columns. Each pass gives a thread
+  // one column of its tile and blocks of kRb rows, so that its sums are
+  // independent of one another (a warp's lanes on neighbouring columns).
+  float* v5 = slice;                                 // [BAND_ROWS][V5_COLS]
+  float* b5 = v5 + BAND_ROWS * V5_COLS;              // [BAND_ROWS][B5_COLS]
+  float* v11 = b5 + BAND_ROWS * B5_COLS;             // [BAND_SAMPLED][B5_COLS]
+  // the 5-tap pass down the band's rows, the stage's column in registers
+  {
+    constexpr int kGroups = THREADS / V5_COLS, kRb = 13;
+    const int x = tid % V5_COLS;
+    if (tid < kGroups * V5_COLS && x < nv)
+      for (int y0 = tid / V5_COLS * kRb; y0 < BAND_ROWS;
+           y0 += kGroups * kRb) {
         const float* col = stage + (cv0 - cs) + x;
         float w[kRb + 4];
 #pragma unroll
@@ -445,18 +437,18 @@ __global__ void __launch_bounds__(THREADS)
           v5[(y0 + k) * V5_COLS + x] = acc;
         }
       }
-    }
-    __syncthreads();
-    // the 5-tap pass along them (reflected at the image's sides)
-    float* b5 = region1;  // [BAND_ROWS][B5_COLS], over the staged rows
-    {
-      constexpr int kGroups = THREADS / B5_COLS;
-      constexpr int kRb = (BAND_ROWS + kGroups - 1) / kGroups;
-      const int x = tid % B5_COLS, y0 = tid / B5_COLS * kRb;
-      if (tid < kGroups * B5_COLS && x < nb) {
-        int at[5];
+  }
+  __syncthreads();
+  // the 5-tap pass along them (reflected at the image's sides)
+  {
+    constexpr int kGroups = THREADS / B5_COLS, kRb = 11;
+    const int x = tid % B5_COLS;
+    if (tid < kGroups * B5_COLS && x < nb) {
+      int at[5];
 #pragma unroll
-        for (int t = 0; t < 5; ++t) at[t] = reflect(cb0 + x + t - 2, W_IN) - cv0;
+      for (int t = 0; t < 5; ++t) at[t] = reflect(cb0 + x + t - 2, W_IN) - cv0;
+      for (int y0 = tid / B5_COLS * kRb; y0 < BAND_ROWS;
+           y0 += kGroups * kRb)
 #pragma unroll
         for (int k = 0; k < kRb; ++k) {
           if (y0 + k >= BAND_ROWS) break;
@@ -467,17 +459,17 @@ __global__ void __launch_bounds__(THREADS)
             acc = __fadd_rn(acc, __fmul_rn(taps.k5[t], row[at[t]]));
           b5[(y0 + k) * B5_COLS + x] = acc;
         }
-      }
     }
-    __syncthreads();
-    // the 11-tap pass down the sampled band rows, reflected at the band's
-    // own edges
-    float* v11 = region2;  // [BAND_SAMPLED][B5_COLS], over v5
-    {
-      constexpr int kGroups = THREADS / B5_COLS;
-      constexpr int kRb = (BAND_SAMPLED + kGroups - 1) / kGroups;
-      const int x = tid % B5_COLS, k0 = tid / B5_COLS * kRb;
-      if (tid < kGroups * B5_COLS && x < nb) {
+  }
+  __syncthreads();
+  // the 11-tap pass down the sampled band rows, reflected at the band's
+  // own edges
+  {
+    constexpr int kGroups = THREADS / B5_COLS, kRb = 6;
+    const int x = tid % B5_COLS;
+    if (tid < kGroups * B5_COLS && x < nb)
+      for (int k0 = tid / B5_COLS * kRb; k0 < BAND_SAMPLED;
+           k0 += kGroups * kRb)
 #pragma unroll
         for (int kk = 0; kk < kRb; ++kk) {
           const int k = k0 + kk;
@@ -494,34 +486,29 @@ __global__ void __launch_bounds__(THREADS)
           }
           v11[k * B5_COLS + x] = acc;
         }
-      }
-    }
-    __syncthreads();
-    // the 11-tap pass at the sampled columns, the average, /255
-    for (int idx = tid; idx < (BAND_OUT1 - BAND_OUT0 + 1) * SJ;
-         idx += THREADS) {
-      const int ti = idx / SJ, j = j0 + idx % SJ;
-      float px[2][2];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const float* row = v11 + (2 * ti + s) * B5_COLS;
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int c = 4 * j + 1 + u;
-          float acc = 0.0f;
-#pragma unroll
-          for (int t = 0; t < 11; ++t)
-            acc = __fadd_rn(acc, __fmul_rn(
-                taps.k11[t], row[reflect(c + t - 5, W_IN) - cb0]));
-          px[s][u] = acc;
-        }
-      }
-      dst[(BAND_OUT0 + ti) * W_OUT + j] = state(px);
-    }
   }
-
-  // 6. no CTA leaves while another may still read its slice
-  cluster.sync();
+  __syncthreads();
+  // the 11-tap pass at the sampled columns, the average, /255
+  for (int idx = tid; idx < (BAND_OUT1 - BAND_OUT0 + 1) * SJ;
+       idx += THREADS) {
+    const int ti = idx / SJ, j = j0 + idx % SJ;
+    float px[2][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* row = v11 + (2 * ti + s) * B5_COLS;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = 4 * j + 1 + u;
+        float acc = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 11; ++t)
+          acc = __fadd_rn(acc, __fmul_rn(
+              taps.k11[t], row[reflect(c + t - 5, W_IN) - cb0]));
+        px[s][u] = acc;
+      }
+    }
+    dst[(BAND_OUT0 + ti) * W_OUT + j] = state(px);
+  }
 }
 
 // the kernel's launch configuration for b frames (cluster dimension in
