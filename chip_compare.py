@@ -13,9 +13,11 @@ trunk-gradient route (host clock, medians of steps 1-4; then one more
 update of each under torch.profiler, by the profiler helper of the
 chip_smoke.py beside this script: its device time, in all and in the
 weight products' kernels, `wgrad*`), phase 8's K1
-times at each timed batch, phase 8b's training kernels, phase 12's K5 and phase 17's K6, K7
-and K8 (CUDA events; where a tree's chip_smoke.py times them, K3f's and
-K7's FMA kernels and K7's library yardstick too). Each run prints one JSON line (`RESULT {...}`);
+times at each timed batch, phase 8b's training kernels, phase 12's K5
+(and its device time by CUDA kernel at B = 1, 32 and 256, by the same
+profiler helper) and phase 17's K6, K7 and K8 (CUDA events; where a
+tree's chip_smoke.py times them, K3f's and K7's FMA kernels and K7's
+library yardstick too). Each run prints one JSON line (`RESULT {...}`);
 the last line is a table of every number by run. Needs one CUDA card.
 """
 
@@ -83,7 +85,16 @@ for name, t in cs.phase_train_times(nets, rng).items():
     out[name] = t["ms"]
     if "fma_ms" in t:
         out[f"{name} FMA kernel"] = t["fma_ms"]
-out["K5 (B=32)"] = cs.phase_k5_times(rng)[cs.CAMERA_FRAMES]["ms"]
+for b, t in cs.phase_k5_times(rng).items():
+    out[f"K5 (B={b})"] = t["ms"]
+from dgvit_tpu_torch.ops import fused_preprocess as fp
+for b in (1, 32, 256):   # K5's device time by CUDA kernel
+    x = torch.rand((b, 512, 640), device=cs.DEVICE) * 8.0
+    by = own.device_kernels_ms(
+        lambda: fp.preprocess_depth_fused(x, cs.SEED, 50.0),
+        calls=20 if b < 256 else 5)
+    for key, t in by.items():
+        out[f"K5 (B={b}) device {key.split('(')[0].split('::')[-1]}"] = t
 attn = cs.phase_attention_times(nets, rng)
 out["K6"] = attn["K6"]["ms"]
 for name in ("K7", "K8"):

@@ -3269,8 +3269,10 @@ def backward_slots(x, dy, w, heads, dim_head, cls):
         slots.append(ws[at:at + 2 * b * e].view(torch.bfloat16))
         at = (at + 2 * b * e + 15) // 16 * 16
     shape = (lambda c: (b, c)) if cls else (lambda c: (b, n, c))
-    return dx, {"h1": slots[0].view(b, n, d), "o": slots[2].view(shape(inner)),
-                "h2": slots[3].view(shape(d)), "hid": slots[4].view(shape(mlp))}
+    return dx, {"h1": slots[0].view(b, n, d),
+                "o": slots[2].view(shape(inner)),
+                "h2": slots[3].view(shape(d)),
+                "hid": slots[4].view(shape(mlp))}
 
 
 def forward_probe(x, w, heads, dim_head, cls):
@@ -3879,9 +3881,9 @@ def smem_mirror_mismatches():
                      b.block_backward_smem(code, 1, *w, 0)),
                     ("K3b mma", smem.bwd_cls_mma(n, heads, dh, mlp),
                      b.block_backward_smem(code, 1, *w, 1)),
-                    ("K6", smem.trunk_bwd(*w, dtype, False),
+                    ("K6", smem.trunk_bwd(*w, False),
                      b.trunk_backward_smem(code, *w, 0)),
-                    ("K6 mma", smem.trunk_bwd(*w, dtype, True),
+                    ("K6 mma", smem.trunk_bwd(*w, True),
                      b.trunk_backward_smem(code, *w, 1)),
                     ("K7 one row", smem.section(n, d, dh, 1, dtype),
                      a.attention_section_smem(code, n, d, dh, 1, 0)),

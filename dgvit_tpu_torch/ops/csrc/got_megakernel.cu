@@ -7,8 +7,11 @@
 //   embedding -> depth-1 full pre-norm blocks -> a final block for the CLS
 //   (goal) row only -> final RMS or Layer norm.
 // K4 replaces _blocks_kernel (blocks_cls_forward_fused): the same trunk
-// from the blocks on, for the no-grad forwards whose embedding and
-// emb-dropout ran outside the kernel.
+// from the blocks on, for forwards whose embedding and emb-dropout ran
+// outside the kernel. When autograd records, every body of K4 also writes
+// the streams between its blocks (Args::xs, Args::cls), which K6 (the
+// whole-trunk backward, block_grad.cu) differentiates in place of a
+// forward of its own.
 // Numerics are the TPU kernels' (block_common.cuh); the residual stream
 // is rounded to the compute dtype T after every block.
 //
@@ -125,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = threadIdx.x; j < rows * d; j += blockDim.x)
       x32[j] = rt<T>(x32[j]);
     if constexpr (!kEmbed) {
-      if (a.xs != nullptr) {  // K4's streams, each value as this thread rounded it
+      if (a.xs != nullptr) {  // K4's streams, as this thread rounded them
         T* s = last ? (T*)a.cls + (size_t)f * d
                     : (T*)a.xs + ((size_t)i * gridDim.x + f) * n * d;
         for (int j = threadIdx.x; j < rows * d; j += blockDim.x)

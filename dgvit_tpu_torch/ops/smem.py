@@ -150,10 +150,9 @@ def k1_cluster(n: int, pd: int) -> int:
 
 
 def trunk_bwd(n: int, d: int, heads: int, dim_head: int, mlp: int,
-              dtype: torch.dtype, mma: bool) -> int:
+              mma: bool) -> int:
     """K6's launch: the largest backward body it runs (it runs no forward:
-    it reads the streams K4 wrote). The dtype does not enter."""
-    del dtype
+    it reads the streams K4 wrote)."""
     return max(4 * d, bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0,
                bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
 
@@ -205,7 +204,7 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     if kernel == "K2b":
         return max(bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0)
     if kernel == "K6":
-        return trunk_bwd(n, d, heads, dim_head, mlp, dtype, mma)
+        return trunk_bwd(n, d, heads, dim_head, mlp, mma)
     if kernel == "K7":
         return max(section(n, d, dim_head, 1, dtype),
                    section_mma(n) if tensor_core_widths(

@@ -18,12 +18,12 @@ CUDA tensors and runs `trunk_bwd_plain` for CPU tensors; nothing else
 picks between them. `trunk_bwd_plain` chains the hand-written block
 backwards (`cls_bwd_plain`, `block_bwd_plain`), not autograd of the
 forward; without streams it recomputes them with K4's plain version, as
-the JAX function does. The rounding points are the TPU kernel's: the stream is rounded
-to the compute dtype after every block and after the CLS block, the CLS
-gradient before the CLS block's backward, dx between blocks, and
-everything the block backwards round inside. The TPU kernel's smaller MLP
-chunk (its memory budget) is not part of the function and has no
-counterpart here.
+the JAX function does. The rounding points are the TPU kernel's: the
+stream is rounded to the compute dtype after every block and after the
+CLS block, the CLS gradient before the CLS block's backward, dx between
+blocks, and everything the block backwards round inside. The TPU
+kernel's smaller MLP chunk (its memory budget) is not part of the
+function and has no counterpart here.
 """
 
 from __future__ import annotations
