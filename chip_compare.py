@@ -29,7 +29,7 @@ import sys
 from pathlib import Path
 
 RUN = r'''
-import importlib.util, json, os, sys
+import importlib.util, json, os, re, sys
 tree = sys.argv[1]
 # the profiler helper of the chip_smoke.py beside this script, the same
 # for every tree (an older tree's chip_smoke.py may not have it)
@@ -93,8 +93,9 @@ for b in (1, 32, 256):   # K5's device time by CUDA kernel
     by = own.device_kernels_ms(
         lambda: fp.preprocess_depth_fused(x, cs.SEED, 50.0),
         calls=20 if b < 256 else 5)
-    for key, t in by.items():
-        out[f"K5 (B={b}) device {key.split('(')[0].split('::')[-1]}"] = t
+    for key, t in by.items():   # the kernel's name, before its arguments
+        name = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+        out[f"K5 (B={b}) device {name.group(1) if name else key}"] = t
 attn = cs.phase_attention_times(nets, rng)
 out["K6"] = attn["K6"]["ms"]
 for name in ("K7", "K8"):
