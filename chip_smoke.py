@@ -488,6 +488,14 @@ def bound_ms(flops, bytes_, dtype):
                                        else "bytes")
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, reps: int, runs: int = 7) -> float:
     """Median over `runs` of the mean time of `reps` back-to-back calls,
     from CUDA events, after a warm-up call. Weights stay in L2 between
@@ -2673,8 +2681,8 @@ def phase_k5_times(rng):
     from dgvit_tpu_torch.ops import fused_preprocess as fp
 
     ranks, smem_bytes, clusters = fp.kernel_occupancy()
-    print(f"K5: {smem_bytes} bytes of shared memory a CTA, clusters of "
-          f"{ranks} CTAs the card holds at once: "
+    print(f"K5 on {card()}: {smem_bytes} bytes of shared memory a CTA, "
+          f"clusters of {ranks} CTAs the card holds at once: "
           + ("not measured (the query failed)" if clusters is None
              else str(clusters)), flush=True)
     raw = torch.from_numpy(rng.uniform(0.3, 8.0, (256, 512, 640)).astype(
@@ -2690,8 +2698,8 @@ def phase_k5_times(rng):
         bnd, by = bound_ms(ops, nbytes, "float32")
         rows[batch] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
         was = REPLACED_MS["K5"][batch]
-        print(f"K5 fp32 B={batch} sigma=50: kernel {ms:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}: operations "
+        print(f"K5 fp32 B={batch} sigma=50 ({card()}): kernel {ms:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by}: operations "
               f"{ops / PEAK_FLOPS['float32'] * 1e3:.5f} ms, bytes "
               f"{nbytes / PEAK_BYTES * 1e3:.5f} ms; {bnd / ms:.3f} of it), "
               f"two-launch design {was:.4f} ms (recorded, not this run; "
@@ -4212,8 +4220,9 @@ def phase_attention_times(nets, rng):
             device_ms=device_ms(kern), library_device_ms=device_ms(lib))
     before = {"K6": {f"B={SAC_BATCH}": FMA_DESIGN_MS["K6"]},
               "K7": FMA_DESIGN_MS["K7"], "K8": FMA_DESIGN_MS["K8"]}
-    print(f"K6 bf16 B={SAC_BATCH}: {rows['K6']['ms']:.4f} ms on K4's streams"
-          f" against {REPLACED_MS['K6']:.4f} ms with its FMA forward chain "
+    print(f"K6 bf16 B={SAC_BATCH} on {card()}: {rows['K6']['ms']:.4f} ms on "
+          f"K4's streams against {REPLACED_MS['K6']:.4f} ms with its FMA "
+          f"forward chain "
           f"(recorded, not this run; now "
           f"{REPLACED_MS['K6'] / rows['K6']['ms']:.2f}x faster)", flush=True)
     for name, r in (("K6", {f"B={SAC_BATCH}": rows["K6"]}),
@@ -4321,10 +4330,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off (torch.backends.cuda.matmul and cudnn)")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
