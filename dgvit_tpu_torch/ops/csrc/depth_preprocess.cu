@@ -75,7 +75,7 @@ constexpr int BAND_OUT0 = 51, BAND_OUT1 = 76;      // output rows it covers
 constexpr int RANKS = 16;                // CTAs a frame's cluster
 constexpr int ROWS = H_IN / RANKS;       // source rows a CTA holds
 constexpr int OUT_ROWS = H_OUT / RANKS;  // output rows under them
-constexpr int THREADS = 4096 / RANKS;    // 16 warps an SM
+constexpr int THREADS = 384;             // 24 warps an SM (two CTAs)
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK_ROWS = 8;            // rows a bulk copy (and barrier)
 constexpr int CHUNKS = ROWS / CHUNK_ROWS;
