@@ -14,6 +14,14 @@ every row, plus the q path and the residual g1 on row 0.
 CUDA tensors and run `cls_fwd_plain` / `cls_bwd_plain` for CPU tensors.
 `cls_bwd_plain` follows `_cls_bwd_body` step by step, with the rounding
 points of `ops/fused_transformer.block_bwd_plain`.
+
+When autograd records, the forward keeps the CLS row's intermediates (q,
+the fp32 probabilities, o, x1, h2 and the MLP's fp32 pre-activations,
+one fp32 record a frame: `cls_saved_width`) as its body computed them,
+and the backward reads them instead of recomputing the CLS row's
+single-row products. So it differentiates the forward that ran, the JAX
+contract that `_cls_bwd_body` meets by recomputing with the forward's own
+body. Only k and v (every row) are recomputed, by the same products.
 """
 
 from __future__ import annotations
@@ -37,6 +45,50 @@ def _kv_rows(h1: torch.Tensor, wkv: torch.Tensor,
     return _mm(h1, wkv).to(cdt)
 
 
+def cls_saved_width(n: int, d: int, heads: int, dim_head: int,
+                    mlp: int) -> int:
+    """fp32 values of a frame's CLS record (`ClsSave` in
+    csrc/block_common.cuh): q (inner), probabilities (heads x n), o
+    (inner), x1 (d), h2 (d), z (mlp), in that order."""
+    return 2 * heads * dim_head + heads * n + 2 * d + mlp
+
+
+def _cls_row(x32, h1, kv, w, heads: int, dim_head: int, cdt):
+    """The CLS row's forward from the rounded LN1 rows h1 and k|v of every
+    row: (q (B, H, 1, dh) in cdt, p32 (B, H, 1, n), o (B, inner) in cdt,
+    x1 (B, d) fp32, h2 (B, d) in cdt, z (B, mlp) fp32)."""
+    _, _, wqkv, wout, bout, fn_s, fn_b, w1, b1, _, _ = w
+    inner = heads * dim_head
+    q = _heads(_mm(h1[:, :1], wqkv[:, :inner]).to(cdt), heads)
+    k, v = _heads(kv[..., :inner], heads), _heads(kv[..., inner:], heads)
+    s = _mm(q, _f32(k).transpose(-1, -2)) * dim_head ** -0.5
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p32 = e / e.sum(dim=-1, keepdim=True)
+    o = _mm(p32.to(cdt), v).to(cdt).transpose(1, 2).reshape(-1, inner)
+    x1 = x32[:, 0] + (_mm(o, wout) + _f32(bout).reshape(-1))
+    h2 = _ln_stats(x1, _f32(fn_s).reshape(-1), fn_b)[2].to(cdt)
+    z = _mm(h2, w1) + _f32(b1).reshape(-1)
+    return q, p32, o, x1, h2, z
+
+
+def _pack(q, p32, o, x1, h2, z) -> torch.Tensor:
+    b = x1.shape[0]
+    return torch.cat([_f32(t).reshape(b, -1) for t in (q, p32, o, x1, h2, z)],
+                     dim=1)
+
+
+def _unpack(saved: torch.Tensor, n: int, w, heads: int, dim_head: int,
+            cdt) -> tuple:
+    """A frame record's parts (`cls_saved_width`), in `_cls_row`'s shapes
+    and dtypes."""
+    b, inner = saved.shape[0], heads * dim_head
+    d, mlp = w[0].numel(), w[7].shape[-1]
+    q, p32, o, x1, h2, z = torch.split(
+        saved, [inner, heads * n, inner, d, d, mlp], dim=1)
+    return (_heads(q.to(cdt)[:, None], heads), p32.reshape(b, heads, 1, n),
+            o.to(cdt), x1, h2.to(cdt), z)
+
+
 def cls_block_plain(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
                     heads: int, dim_head: int, cdt: torch.dtype
                     ) -> torch.Tensor:
@@ -55,43 +107,54 @@ def cls_block_plain(x32: torch.Tensor, w: Sequence[torch.Tensor], *,
 
 
 def cls_fwd_plain(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
-                  dim_head: int) -> torch.Tensor:
-    """Plain version of K3f: (B, n, d) -> (B, d), compute dtype."""
-    return cls_block_plain(_f32(x), w, heads=heads, dim_head=dim_head,
-                           cdt=x.dtype).to(x.dtype)
+                  dim_head: int, save: bool = False):
+    """Plain version of K3f: (B, n, d) -> (B, d), compute dtype; with
+    `save`, (out, the CLS rows' records (B, `cls_saved_width`) fp32)."""
+    if not save:
+        return cls_block_plain(_f32(x), w, heads=heads, dim_head=dim_head,
+                               cdt=x.dtype).to(x.dtype)
+    cdt, x32 = x.dtype, _f32(x)
+    h1 = _ln(x32, w[0], w[1]).to(cdt)
+    row = _cls_row(x32, h1, _kv_rows(h1, w[2][:, heads * dim_head:], cdt),
+                   w, heads, dim_head, cdt)
+    hid = _gelu32(row[5], cdt).to(cdt)
+    out = row[3] + (_f32(w[10]).reshape(-1) + _mm(hid, w[9]))
+    return out.to(cdt), _pack(*row)
 
 
 def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
-                  w: Sequence[torch.Tensor], heads: int, dim_head: int):
+                  w: Sequence[torch.Tensor], heads: int, dim_head: int,
+                  saved: torch.Tensor = None):
     """Plain version of K3b, after `_cls_bwd_body`: x (B, n, d) and the
     grad dy (B, d) of the pooled CLS outputs, both in the compute dtype ->
-    (dx (B, n, d), the 11 weight grads in the weights' dtype)."""
+    (dx (B, n, d), the 11 weight grads in the weights' dtype). `saved`:
+    the records the forward kept (`cls_fwd_plain(..., save=True)`, K3f or
+    K4 under autograd), read in place of the CLS row's forward; None
+    recomputes it, as the JAX function does."""
     an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, w2, b2 = w
     cdt = x.dtype
     inner = heads * dim_head
     scale = dim_head ** -0.5
     x32, dy32, dy_c = _f32(x), _f32(dy), dy.to(cdt)
 
-    # recompute: LN1 (all rows) -> k/v (all rows), q (CLS row) -> x1
+    # LN1 (all rows) -> k/v (all rows); the CLS row's q, p, o, x1, h2, z
     a_s32 = _f32(an_s).reshape(-1)
     xhat1, rstd1, h1_32 = _ln_stats(x32, a_s32, an_b)
     h1 = h1_32.to(cdt)
     kv = _kv_rows(h1, wqkv[:, inner:], cdt)
     h_cls = h1[:, :1]                                       # (B, 1, d)
-    q = _heads(_mm(h_cls, wqkv[:, :inner]).to(cdt), heads)  # (B, H, 1, dh)
     k, v = _heads(kv[..., :inner], heads), _heads(kv[..., inner:], heads)
-    s = _mm(q, _f32(k).transpose(-1, -2)) * scale           # (B, H, 1, n)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p32 = e / e.sum(dim=-1, keepdim=True)
+    if saved is None:
+        q, p32, o, x1, h2, pre = _cls_row(x32, h1, kv, w, heads, dim_head,
+                                          cdt)
+    else:
+        q, p32, o, x1, h2, pre = _unpack(saved, x.shape[1], w, heads,
+                                         dim_head, cdt)
     p_c = p32.to(cdt)
-    o = _mm(p_c, v).to(cdt).transpose(1, 2).reshape(-1, inner)
-    x1 = x32[:, 0] + (_mm(o, wout) + _f32(bout).reshape(-1))
     f_s32 = _f32(fn_s).reshape(-1)
-    xhat2, rstd2, h2_32 = _ln_stats(x1, f_s32, fn_b)
-    h2 = h2_32.to(cdt)
+    xhat2, rstd2, _ = _ln_stats(x1, f_s32, fn_b)
 
     # MLP forward + backward on the CLS rows
-    pre = _mm(h2, w1) + _f32(b1).reshape(-1)
     hid = _gelu32(pre, cdt).to(cdt)
     dpre = _mm(dy_c, w2.t()) * _gelu_grad32(pre, cdt)
     dpre_c = dpre.to(cdt)
@@ -127,35 +190,67 @@ def cls_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
                                     dw1, db1, dw2, db2), w)
 
 
+def saved_buffer(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
+                 dim_head: int) -> torch.Tensor:
+    """An empty (B, `cls_saved_width`) fp32 record buffer for x."""
+    b, n, d = x.shape
+    return torch.empty((b, cls_saved_width(n, d, heads, dim_head,
+                                           w[7].shape[-1])),
+                       dtype=torch.float32, device=x.device)
+
+
+def check_saved(saved: torch.Tensor, x: torch.Tensor,
+                w: Sequence[torch.Tensor], heads: int, dim_head: int) -> None:
+    b, n, d = x.shape
+    shape = (b, cls_saved_width(n, d, heads, dim_head, w[7].shape[-1]))
+    if (saved.device != x.device or saved.dtype != torch.float32
+            or tuple(saved.shape) != shape or not saved.is_contiguous()):
+        raise ValueError(f"CLS record of {saved.dtype}, shape "
+                         f"{tuple(saved.shape)} on {saved.device}: expected "
+                         f"contiguous fp32 {shape} on {x.device}")
+
+
 def cls_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
-                  dim_head: int) -> torch.Tensor:
-    """K3f: `block(x)[:, 0]`, (B, n, d) -> (B, d) in the compute dtype.
-    CUDA tensors go to the kernel (and raise if it cannot run); CPU tensors
-    to `cls_fwd_plain`. `cls_fwd_fused.launches` counts kernel launches."""
+                  dim_head: int, save: bool = False):
+    """K3f: `block(x)[:, 0]`, (B, n, d) -> (B, d) in the compute dtype;
+    with `save`, (out, the CLS rows' records) as `cls_fwd_plain`. CUDA
+    tensors go to the kernel (and raise if it cannot run); CPU tensors to
+    `cls_fwd_plain`. `cls_fwd_fused.launches` counts kernel launches."""
     check_block_args(x, w, heads, dim_head)
     if x.device.type == "cuda":
-        out = launch_block_fwd(x, w, heads, dim_head, cls=True)
+        saved = saved_buffer(x, w, heads, dim_head) if save else None
+        out = launch_block_fwd(x, w, heads, dim_head, cls=True, saved=saved)
         cls_fwd_fused.launches += 1
-        return out
+        return (out, saved) if save else out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return cls_fwd_plain(x, w, heads, dim_head)
+    return cls_fwd_plain(x, w, heads, dim_head, save)
 
 
 def cls_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
-                  w: Sequence[torch.Tensor], heads: int, dim_head: int):
-    """K3b: the CLS block's backward from x (B, n, d) and dy (B, d):
-    (dx (B, n, d), the 11 weight grads), in the compute dtype. CUDA tensors
-    go to the kernel; CPU tensors to `cls_bwd_plain`.
-    `cls_bwd_fused.launches` counts kernel launches."""
+                  w: Sequence[torch.Tensor], heads: int, dim_head: int,
+                  saved: torch.Tensor = None):
+    """K3b: the CLS block's backward from x (B, n, d), dy (B, d) and the
+    records its forward kept (`cls_fwd_fused(..., save=True)`): (dx (B, n,
+    d), the 11 weight grads), in the compute dtype. CUDA tensors go to the
+    kernel, which needs the records; CPU tensors to `cls_bwd_plain`, which
+    recomputes them when `saved` is None. `cls_bwd_fused.launches` counts
+    kernel launches."""
     check_block_args(x, w, heads, dim_head, dy=dy, cls=True)
+    if saved is not None:
+        check_saved(saved, x, w, heads, dim_head)
     if x.device.type == "cuda":
-        out = launch_block_bwd(x, dy, w, heads, dim_head, cls=True)
+        if saved is None:
+            raise ValueError("K3b differentiates the CLS row K3f computed: "
+                             "pass the records cls_fwd_fused(..., save=True)"
+                             " kept")
+        out = launch_block_bwd(x, dy, w, heads, dim_head, cls=True,
+                               saved=saved)
         cls_bwd_fused.launches += 1
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return cls_bwd_plain(x, dy, w, heads, dim_head)
+    return cls_bwd_plain(x, dy, w, heads, dim_head, saved)
 
 
 cls_fwd_fused.launches = 0
@@ -163,22 +258,31 @@ cls_bwd_fused.launches = 0
 
 
 class _ClsBlock(torch.autograd.Function):
+    """K3f forward, K3b backward. `record`: the call will be
+    differentiated, so K3f keeps the CLS rows' records for K3b."""
+
     @staticmethod
-    def forward(ctx, x, heads, dim_head, *w):
-        ctx.save_for_backward(x, *w)
+    def forward(ctx, x, heads, dim_head, record, *w):
+        if not record:
+            return cls_fwd_fused(x, w, heads, dim_head)
+        out, saved = cls_fwd_fused(x, w, heads, dim_head, save=True)
+        ctx.save_for_backward(x, saved, *w)
         ctx.heads, ctx.dim_head = heads, dim_head
-        return cls_fwd_fused(x, w, heads, dim_head)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, *w = ctx.saved_tensors
+        x, saved, *w = ctx.saved_tensors
         dx, grads = cls_bwd_fused(x, dy.contiguous(), w, ctx.heads,
-                                  ctx.dim_head)
-        return (dx, None, None, *grads)
+                                  ctx.dim_head, saved)
+        return (dx, None, None, None, *grads)
 
 
 def cls_final_block(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
                     dim_head: int) -> torch.Tensor:
     """Differentiable `TransformerBlock(x)[:, 0]`: forward K3f, backward
-    K3b. (B, n, d) -> (B, d), compute dtype."""
-    return _ClsBlock.apply(x, heads, dim_head, *w)
+    K3b. (B, n, d) -> (B, d), compute dtype. The CLS records are kept
+    only when grad mode is on and an input requires grad."""
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *w))
+    return _ClsBlock.apply(x, heads, dim_head, record, *w)

@@ -205,6 +205,34 @@ template <typename T> __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.f + erf32(x * 0.7071067811865476f));
 }
 
+// The CLS row's intermediates a forward of the CLS-only block keeps for
+// its backward, one fp32 record a frame (ops/cls_block.py
+// `cls_saved_width` mirrors the layout): q (inner, rounded to T), the
+// fp32 probabilities (heads x n), o (inner, rounded), x1 (d, the fp32
+// stream after the attention), h2 (d, rounded) and the MLP's fp32
+// pre-activations z = h2 w1 + b1 (mlp). The forward writes it, every body
+// as that body computes the values, when autograd records (a null base:
+// nothing written); the backward then reads it in place of the CLS row's
+// single-row chains (K3b, K6's last block).
+struct ClsSave {
+  float* base;
+  int stride, p, o, x1, h2, z;
+  __host__ __device__ ClsSave()
+      : base(nullptr), stride(0), p(0), o(0), x1(0), h2(0), z(0) {}
+  __host__ __device__ ClsSave(float* b, int n, int d, int heads, int dh,
+                              int mlp)
+      : base(b) {
+    const int inner = heads * dh;
+    p = inner;
+    o = p + heads * n;
+    x1 = o + inner;
+    h2 = x1 + d;
+    z = h2 + d;
+    stride = z + mlp;
+  }
+  __device__ float* at(int f) const { return base + (size_t)f * stride; }
+};
+
 // Softmax attention of nq query rows against n key rows for one head.
 // qkv rows hold [q | k | v] (dh each) with stride ldq; the head's output
 // goes to o[r * ldo + c]. One warp per query row; keys >= n do not exist
@@ -276,11 +304,14 @@ __device__ void softmax_row(const T* q, const T* k, int ldk, int n, int dh,
 // One pre-norm block on the shared fp32 stream x32 (n rows). `w` holds the
 // 11 weights in the fused-transformer order. With cls_only, k/v use every
 // row but q, attention, out-proj and MLP run on row 0 alone. Leaves x32
-// (rows updated) unrounded.
-template <typename T>
+// (rows updated) unrounded. kSave, with cls_only and a non-null `save`
+// (the frame's ClsSave record): the CLS row's intermediates as this body
+// computes them (the probabilities by softmax_row, attend's arithmetic).
+template <typename T, bool kSave = false>
 __device__ void block(const Dims& m, const void* const* w, int n,
                       bool cls_only, float* x32, float* acc, float* prob,
-                      T* h, T* scratch) {
+                      T* h, T* scratch, float* save = nullptr,
+                      ClsSave lay = ClsSave()) {
   const T* an_s = (const T*)w[0];
   const T* an_b = (const T*)w[1];
   const T* wqkv = (const T*)w[2];
@@ -318,6 +349,16 @@ __device__ void block(const Dims& m, const void* const* w, int n,
     __syncthreads();
     attend<T>(qkv, ldq, nq, n, dh, m.scale, prob, o + hd * dh, inner);
     __syncthreads();
+    if constexpr (kSave) {
+      if (save != nullptr) {  // q and the probabilities of the CLS row
+        for (int c = threadIdx.x; c < dh; c += blockDim.x)
+          save[hd * dh + c] = tof(qkv[c]);
+        if (threadIdx.x < 32)
+          softmax_row<T>(qkv, qkv + dh, ldq, n, dh, m.scale,
+                         save + lay.p + hd * n);
+        __syncthreads();
+      }
+    }
   }
   // out-projection + bias, added to the residual stream
   matmul(o, inner, nq, wout, d, inner, d, Ident(),
@@ -329,6 +370,16 @@ __device__ void block(const Dims& m, const void* const* w, int n,
   for (int i = threadIdx.x; i < nq * d; i += blockDim.x)
     acc[i] = tof(b2[i % d]);
   __syncthreads();
+  if constexpr (kSave) {
+    if (save != nullptr) {  // o, x1 and h2 of the CLS row
+      for (int c = threadIdx.x; c < inner; c += blockDim.x)
+        save[lay.o + c] = tof(o[c]);
+      for (int c = threadIdx.x; c < d; c += blockDim.x) {
+        save[lay.x1 + c] = x32[c];
+        save[lay.h2 + c] = tof(h[c]);
+      }
+    }
+  }
   // MLP, hidden dim in chunks of hc so the (rows, mlp) activation never
   // exists whole
   for (int c0 = 0; c0 < mlp; c0 += m.hc) {
@@ -336,7 +387,10 @@ __device__ void block(const Dims& m, const void* const* w, int n,
     matmul(h, d, nq, w1, mlp, d, hc,
            [=](int c) { return c0 + c; },
            [=](int r, int c, float v) {
-             hid[(size_t)r * hc + c] = fromf<T>(gelu<T>(v + tof(b1[c0 + c])));
+             const float z = v + tof(b1[c0 + c]);
+             if constexpr (kSave)
+               if (save != nullptr) save[lay.z + c0 + c] = z;
+             hid[(size_t)r * hc + c] = fromf<T>(gelu<T>(z));
            });
     __syncthreads();
     matmul(hid, hc, nq, w2 + (size_t)c0 * d, d, hc, d, Ident(),

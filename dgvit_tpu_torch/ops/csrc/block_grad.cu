@@ -41,17 +41,17 @@
 // products in the same order) for fp32 and for the bf16 FMA bodies. At
 // the flagship widths the bf16 full block runs on the tensor cores both
 // ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
-// block_bwd_mma, and K3f (block_mma_fwd.cuh's CLS-only block) and K3b's
-// k/v recompute (cls_bwd_mma) run on them too, with the same bf16
-// operands and rounding points; where
-// their sums differ in order (see block_mma_fwd.cuh), now and then one
-// bf16 rounding of the recomputed q, k, v, o or hidden activations lands
-// on the other side. That is the same kind of difference the checks
-// already allow against the plain version (cuBLAS sums in yet another
-// order): a flip moves what follows by about one ulp of its own size,
-// which phase 5's per-tensor max (2^-6 L) and pooled mean (2^-18) of
-// chip_smoke.py admit, and the wrong versions still miss them by a
-// rounding point moved everywhere, not now and then.
+// block_bwd_mma, with the same bf16 operands, rounding points and tile
+// order (chip_smoke.py phase 13b finds K2b's intermediates equal to K2f's
+// on every frame). The CLS-only block's backward recomputes only k and v
+// of every row (the same products as K3f's), and reads the CLS row's q,
+// probabilities, o, x1, h2 and MLP pre-activations from the record its
+// forward wrote (ClsSave: K3f, or the last block of every body of K4), so
+// it differentiates the CLS row that forward computed, whichever body
+// summed it. Without a record (only a measurement of the fault this
+// repaired passes none) the body recomputes the CLS row as single-row
+// fp32 chains, whose sums differ in order from the tensor-core forward's
+// and flip a bf16 rounding of q, o, h2 or hid on some frames.
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
@@ -79,7 +79,8 @@
 // cp.async, and only the weight products' operands go to the workspace.
 // The CLS-only backward body (K3b, and K6's last block) does the same for
 // its two products over every row, the k/v recompute and dk|dv wkv^T
-// (cls_bwd_mma), and keeps its single-row chains on the CUDA cores. The
+// (cls_bwd_mma), and reads the CLS row's forward from its record; its
+// single-row backward chains stay on the CUDA cores. The
 // bf16 K2f at those widths runs on the tensor cores too
 // (block_fwd_mma_kernel), as does K3f (cls_fwd_mma_kernel), and so do the
 // bf16 weight products (wgrad_mma_kernel, bound by the bytes of their
@@ -111,6 +112,7 @@ struct FwdArgs {
   const void* x;
   const void* w[11];
   void* out;
+  ClsSave sv;  // K3f when autograd records: the CLS row's record, else null
   int n;
   Dims m;
 };
@@ -125,6 +127,11 @@ struct BwdArgs {
   // 9 q (K3), 10 dq (K3); rows of one frame each
   void* s[kSlots];
   float* vec;  // (B, 6 d + mlp): an_s, an_b, bout, fn_s, fn_b, b2, b1 sums
+  // K3b and K6's last block: the CLS row's record its forward wrote
+  // (ClsSave), read in place of the CLS row's single-row chains. Null only
+  // in a measurement of fault k (chip_smoke.py): the body then recomputes
+  // them, as it did before, and writes k|v to slot 1.
+  ClsSave sv;
   int n;
   Dims m;
 };
@@ -198,9 +205,10 @@ __global__ void __launch_bounds__(kThreads)
   const T* x = (const T*)a.x + (size_t)f * n * d;
   for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
   __syncthreads();
-  block<T>(a.m, a.w, n, kCls, x32, (float*)(smem_raw + L.acc),
-           (float*)(smem_raw + L.prob), (T*)(smem_raw + L.h),
-           (T*)(smem_raw + L.scratch));
+  block<T, kCls>(a.m, a.w, n, kCls, x32, (float*)(smem_raw + L.acc),
+                 (float*)(smem_raw + L.prob), (T*)(smem_raw + L.h),
+                 (T*)(smem_raw + L.scratch),
+                 kCls && a.sv.base != nullptr ? a.sv.at(f) : nullptr, a.sv);
   const int rows = kCls ? 1 : n;
   T* out = (T*)a.out + (size_t)f * rows * d;
   for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
@@ -227,7 +235,7 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
 // tensor cores: k and v over every row, q, attention and the
 // out-projection in the warps that hold row 0, the MLP of both frames' CLS
 // rows on warp 0 (cls_mlp); each live frame's x1 + (b2 + MLP) rounded to
-// bf16 once.
+// bf16 once. With a record base in a.sv, the CLS rows' records as well.
 __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
     cls_fwd_mma_kernel(const __grid_constant__ FwdArgs a, int batch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -237,8 +245,8 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   mmafwd::Rows x;
   mmafwd::read_rows(x, (const bf16*)a.x + (size_t)p.f * n * d, p, n);
   zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
-  mmafwd::block_fwd<false>(a.m, a.w, n, p, x, smem_raw, L, true);
-  mmafwd::cls_mlp<false>(a.m, a.w, n, p, x, smem_raw, L);
+  mmafwd::block_fwd<false, true>(a.m, a.w, n, p, x, smem_raw, L, true, a.sv);
+  mmafwd::cls_mlp<false, true>(a.m, a.w, n, p, x, smem_raw, L, a.sv, batch);
   // warp fl writes frame fl's CLS row
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int f = blockIdx.x * mmafwd::kFrames + warp;
@@ -258,9 +266,10 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
 // same device functions, and writes each intermediate as the body rounds
 // it: h1 (B, n, d), o (B, n, heads d), h2 (B, n, d), hid (B, n, mlp); for
 // the CLS-only block o, h2 and hid of the CLS row only, (B, heads d),
-// (B, d) and (B, mlp). Its output is K2f's or K3f's.
+// (B, d) and (B, mlp); k and v of every row (B, n, heads d) each. Its
+// output is K2f's or K3f's.
 struct Probe {
-  bf16 *h1, *o, *h2, *hid;
+  bf16 *h1, *o, *h2, *hid, *k, *v;
 };
 
 // A fragments a of the warp's 16 rows (mmafwd::to_frag's layout) into
@@ -370,6 +379,15 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
     Frag q;
     project<false>(h1, wq, ks, vs, qs, p.r0, queries, q);
     __syncthreads();
+    if (p.live)  // the warp's rows of this head's k and v
+      for (int r = p.r0; r < p.r0 + 16 && r < n; ++r) {
+        const int c = 2 * (threadIdx.x % 32);
+        const size_t at = (fr + r) * inner + hd * D + c;
+        *reinterpret_cast<uint32_t*>(pr.k + at) =
+            *reinterpret_cast<const uint32_t*>(ks + (size_t)r * kLd + c);
+        *reinterpret_cast<uint32_t*>(pr.v + at) =
+            *reinterpret_cast<const uint32_t*>(vs + (size_t)r * kLd + c);
+      }
     if (!queries) continue;
     Frag o;
     attend_head(q, ks, vs, n, p.np, m.scale, o);
@@ -1235,8 +1253,11 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   T* DQ = (T*)a.s[10] + (size_t)f * inner;
   float* V = a.vec + (size_t)f * (6 * d + mlp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const ClsSave sl = a.sv;
+  const float* sv = sl.base != nullptr ? sl.at(f) : nullptr;
 
-  // ---- recompute: LN1 (all rows) -> k/v (all rows), q (CLS row) ---------
+  // ---- LN1 (all rows) -> k/v (all rows); the CLS row's q, probabilities,
+  // o, x1, h2 from the forward's record (recomputed without one) --------
   for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
   __syncthreads();
   layernorm_stats(x32, n, d, mean1, rstd1);
@@ -1244,40 +1265,60 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   __syncthreads();
   matmul(H1, d, n, wqkv, i3, d, i2, [=](int c) { return inner + c; },
          [=](int r, int c, float v) { KV[(size_t)r * i2 + c] = fromf<T>(v); });
-  matmul(H1, d, 1, wqkv, i3, d, inner, Ident(),
-         [=](int r, int c, float v) { Q[c] = fromf<T>(v); });
-  __syncthreads();
-  // attention of the CLS row, one warp per head; p kept for the backward
-  for (int hd = warp; hd < m.heads; hd += kWarps) {
-    float* p = pb + (size_t)hd * n;
-    const T* v = KV + inner + hd * dh;
-    softmax_row<T>(Q + hd * dh, KV + hd * dh, i2, n, dh, m.scale, p);
-    for (int c = lane; c < dh; c += 32) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j)
-        s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * i2 + c]), s);
-      O[hd * dh + c] = fromf<T>(s);
+  if (sv != nullptr) {
+    for (int c = threadIdx.x; c < inner; c += blockDim.x) {
+      Q[c] = fromf<T>(sv[c]);
+      O[c] = fromf<T>(sv[sl.o + c]);
     }
+    for (int i = threadIdx.x; i < m.heads * n; i += blockDim.x)
+      pb[i] = sv[sl.p + i];
+    for (int c = threadIdx.x; c < d; c += blockDim.x) x1[c] = sv[sl.x1 + c];
+  } else {
+    matmul(H1, d, 1, wqkv, i3, d, inner, Ident(),
+           [=](int r, int c, float v) { Q[c] = fromf<T>(v); });
+    __syncthreads();
+    // attention of the CLS row, one warp per head; p kept for the backward
+    for (int hd = warp; hd < m.heads; hd += kWarps) {
+      float* p = pb + (size_t)hd * n;
+      const T* v = KV + inner + hd * dh;
+      softmax_row<T>(Q + hd * dh, KV + hd * dh, i2, n, dh, m.scale, p);
+      for (int c = lane; c < dh; c += 32) {
+        float s = 0.f;
+        for (int j = 0; j < n; ++j)
+          s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * i2 + c]), s);
+        O[hd * dh + c] = fromf<T>(s);
+      }
+    }
+    __syncthreads();
+    matmul(O, inner, 1, wout, d, inner, d, Ident(),
+           [=](int r, int c, float v) { x1[c] = x32[c] + (v + tof(bout[c])); });
   }
   __syncthreads();
-  matmul(O, inner, 1, wout, d, inner, d, Ident(), [=](int r, int c, float v) {
-    x1[c] = x32[c] + (v + tof(bout[c]));
-  });
-  __syncthreads();
   layernorm_stats(x1, 1, d, mean2, rstd2);
-  layernorm_rows<T>(x1, 1, d, fn_s, fn_b, H2);
+  if (sv != nullptr)
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+      H2[c] = fromf<T>(sv[sl.h2 + c]);
+  else
+    layernorm_rows<T>(x1, 1, d, fn_s, fn_b, H2);
   for (int c = threadIdx.x; c < d; c += blockDim.x) acc[c] = 0.f;
   __syncthreads();
 
   // ---- MLP forward + backward on the CLS row: acc row 0 = dh2 ----------
   for (int c0 = 0; c0 < mlp; c0 += m.hc) {
     const int hc = min(m.hc, mlp - c0);
-    matmul(H2, d, 1, w1, mlp, d, hc, [=](int c) { return c0 + c; },
-           [=](int r, int c, float v) {
-             const float p = v + tof(b1[c0 + c]);
-             dpb[c] = p;
-             HID[c0 + c] = fromf<T>(gelu<T>(p));
-           });
+    if (sv != nullptr)
+      for (int c = threadIdx.x; c < hc; c += blockDim.x) {
+        const float z = sv[sl.z + c0 + c];
+        dpb[c] = z;
+        HID[c0 + c] = fromf<T>(gelu<T>(z));
+      }
+    else
+      matmul(H2, d, 1, w1, mlp, d, hc, [=](int c) { return c0 + c; },
+             [=](int r, int c, float v) {
+               const float p = v + tof(b1[c0 + c]);
+               dpb[c] = p;
+               HID[c0 + c] = fromf<T>(gelu<T>(p));
+             });
     __syncthreads();
     mm(1, hc, d, [=](int r, int k) { return tof(dy[k]); },
        [=](int k, int c) { return tof(w2[(size_t)(c0 + c) * d + k]); },
@@ -1362,27 +1403,27 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
 // ---- the bf16 CLS-only backward on the tensor cores ----------------------
 //
 // The same function as cls_bwd_body<bf16>, with its rounding points (k, v,
-// q, o, h2, hid, dpre, g1, do, ds, dq and dk|dv rounded to bf16 where it
-// rounds them). Its two products over every row of the frame run on
-// mma.sync tiles as block_bwd_mma runs them: per head, k and v are
-// projected from h1 (a bf16 tile in shared memory, rows padded to a
-// multiple of 16 with zeros) with the head's k|v columns of wqkv (staged
-// by cp.async, the next head's slice in flight), and the head's dk|dv tile
-// times the same slice read as [N][K] is added into the fp32 dh1 tile.
-// Only the order of those two products' sums differs from the FMA body;
-// every product of the CLS row (q, the scores and P.V, the
-// out-projection, the MLP matvecs, do, dp, dq, and dq's part of dh1) is
-// the FMA body's fp32 chain, term by term in the same order, on the CUDA
-// cores: one row gives a tensor core nothing to do. Their operands are
-// read from shared memory, their weights from device memory (L2) in
-// 16-byte loads; the MLP runs every hidden column at once, eight a
-// thread, and dh2's partial sums over chunks of kClsChunk hidden columns
-// are taken in parallel, then added in chunk order as the FMA body adds
-// them. k and v are projected again in the backward's head loop rather
-// than kept, so the layout does not grow with the heads; the
-// probabilities are formed again there by the same code. k, v and dk|dv
-// never go to device memory but for dk|dv's slot, which the weight
-// product h1^T dk|dv reads.
+// dpre, g1, do, ds, dq and dk|dv rounded to bf16 where it rounds them; q,
+// o, h2 and hid as the forward rounded them, from its record). Its two
+// products over every row of the frame run on mma.sync tiles as
+// block_bwd_mma runs them: per head, k and v are projected from h1 (a
+// bf16 tile in shared memory, rows padded to a multiple of 16 with zeros)
+// with the head's k|v columns of wqkv (staged by cp.async, the next
+// head's slice in flight), and the head's dk|dv tile times the same slice
+// read as [N][K] is added into the fp32 dh1 tile. The CLS row's forward
+// (q, the probabilities, o, x1, h2, the MLP pre-activations) comes from
+// the record; its backward products (the w2 matvec, dh2, do, dp, dq, and
+// dq's part of dh1) are the FMA body's fp32 chains, term by term in the
+// same order, on the CUDA cores: one row gives a tensor core nothing to
+// do. Their operands are read from shared memory, their weights from
+// device memory (L2) in 16-byte loads; the MLP runs every hidden column
+// at once, eight a thread, and dh2's partial sums over chunks of
+// kClsChunk hidden columns are taken in parallel, then added in chunk
+// order as the FMA body adds them. k and v are projected in the head
+// loop rather than kept, so the layout does not grow with the heads.
+// k, v and dk|dv never go to device memory but for dk|dv's slot, which
+// the weight product h1^T dk|dv reads (and, without a record, k|v's
+// slot, for the measurement).
 //
 // Widths: d = dim_head = 64, n <= 80 rows, mlp a multiple of 64 (the
 // checks of mma_body_takes), any number of heads.
@@ -1521,9 +1562,13 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
                             });
   };
 
-  // ---- recompute: LN1 (all rows) -> q (CLS row) -> per head k/v (all
-  // rows) and the CLS row's attention -> x1, LN2 ------------------------
-  stage(0);
+  // ---- LN1 (all rows); the CLS row's q, o, x1 and h2 from the forward's
+  // record. Without one (a measurement of fault k): q, then per head k/v
+  // (all rows, to slot 1) and the CLS row's attention, x1 and LN2
+  // recomputed as single-row chains --------------------------------------
+  const ClsSave sl = a.sv;
+  const float* sv = sl.base != nullptr ? sl.at(f) : nullptr;
+  stage(sv != nullptr ? heads : 0);
   for (int i = threadIdx.x; i < n * D; i += blockDim.x) x32[i] = tof(x[i]);
   for (int c = threadIdx.x; c < D; c += blockDim.x) dys[c] = tof(dy[c]);
   __syncthreads();
@@ -1532,37 +1577,53 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
   zero_rows(h1s, kLd, n, np, D);
   __syncthreads();
   store_rows(H1, D, h1s, kLd, n, D);
-  for (int c = threadIdx.x; c < inner; c += blockDim.x) {
-    float s = 0.f;
-    for (int kk = 0; kk < D; ++kk)
-      s = fmaf(tof(h1s[kk]), tof(wqkv[(size_t)kk * i3 + c]), s);
-    qs[c] = Q[c] = fromf<T>(s);
-  }
-  for (int hd = 0; hd < heads; ++hd) {
-    cp_async_wait<0>();
-    __syncthreads();
-    stage(hd + 1);  // the next head's slice, or the backward's first
-    project_kv(ws + (hd % 2) * D * kLdKv);
-    __syncthreads();
-    if (warp == 0) softmax_row<T>(qs + hd * DH, k, kLd, n, DH, m.scale, p);
-    __syncthreads();
-    for (int c = threadIdx.x; c < DH; c += blockDim.x) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j)
-        s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * kLd + c]), s);
-      os[hd * DH + c] = O[hd * DH + c] = fromf<T>(s);
+  if (sv != nullptr) {
+    for (int c = threadIdx.x; c < inner; c += blockDim.x) {
+      qs[c] = Q[c] = fromf<T>(sv[c]);
+      os[c] = O[c] = fromf<T>(sv[sl.o + c]);
     }
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      x1[c] = sv[sl.x1 + c];
+      h2s[c] = fromf<T>(sv[sl.h2 + c]);
+    }
+    __syncthreads();
+    layernorm_stats(x1, 1, D, mean2, rstd2);
+  } else {
+    T* KV = (T*)a.s[1] + fr * i2;
+    for (int c = threadIdx.x; c < inner; c += blockDim.x) {
+      float s = 0.f;
+      for (int kk = 0; kk < D; ++kk)
+        s = fmaf(tof(h1s[kk]), tof(wqkv[(size_t)kk * i3 + c]), s);
+      qs[c] = Q[c] = fromf<T>(s);
+    }
+    for (int hd = 0; hd < heads; ++hd) {
+      cp_async_wait<0>();
+      __syncthreads();
+      stage(hd + 1);  // the next head's slice, or the backward's first
+      project_kv(ws + (hd % 2) * D * kLdKv);
+      __syncthreads();
+      store_rows(KV + hd * DH, i2, k, kLd, n, DH);
+      store_rows(KV + inner + hd * DH, i2, v, kLd, n, DH);
+      if (warp == 0) softmax_row<T>(qs + hd * DH, k, kLd, n, DH, m.scale, p);
+      __syncthreads();
+      for (int c = threadIdx.x; c < DH; c += blockDim.x) {
+        float s = 0.f;
+        for (int j = 0; j < n; ++j)
+          s = fmaf(rt<T>(p[j]), tof(v[(size_t)j * kLd + c]), s);
+        os[hd * DH + c] = O[hd * DH + c] = fromf<T>(s);
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float s = 0.f;
+      for (int kk = 0; kk < inner; ++kk)
+        s = fmaf(tof(os[kk]), tof(wout[(size_t)kk * D + c]), s);
+      x1[c] = x32[c] + (s + tof(bout[c]));
+    }
+    __syncthreads();
+    layernorm_stats(x1, 1, D, mean2, rstd2);
+    layernorm_tile(x1, 1, D, fn_s, fn_b, h2s, D);
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int kk = 0; kk < inner; ++kk)
-      s = fmaf(tof(os[kk]), tof(wout[(size_t)kk * D + c]), s);
-    x1[c] = x32[c] + (s + tof(bout[c]));
-  }
-  __syncthreads();
-  layernorm_stats(x1, 1, D, mean2, rstd2);
-  layernorm_tile(x1, 1, D, fn_s, fn_b, h2s, D);
   __syncthreads();
 
   // ---- MLP forward + backward on the CLS row, eight hidden columns a
@@ -1570,12 +1631,20 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
   // w1^T in acc row 0 -----------------------------------------------------
   for (int c = threadIdx.x; c < D; c += blockDim.x) H2[c] = h2s[c];
   for (int c0 = 8 * threadIdx.x; c0 < mlp; c0 += 8 * blockDim.x) {
-    float pre[8] = {}, wv[8];
-    for (int kk = 0; kk < D; ++kk) {
-      load8(wv, w1 + (size_t)kk * mlp + c0);
-      const float h = tof(h2s[kk]);
+    float z[8], wv[8];
+    if (sv != nullptr) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) pre[i] = fmaf(h, wv[i], pre[i]);
+      for (int i = 0; i < 8; ++i) z[i] = sv[sl.z + c0 + i];
+    } else {
+      float pre[8] = {};
+      for (int kk = 0; kk < D; ++kk) {
+        load8(wv, w1 + (size_t)kk * mlp + c0);
+        const float h = tof(h2s[kk]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pre[i] = fmaf(h, wv[i], pre[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) z[i] = pre[i] + tof(b1[c0 + i]);
     }
     float hid[8], dp[8];
 #pragma unroll
@@ -1586,9 +1655,8 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
 #pragma unroll
         for (int j = 0; j < 8; ++j) s = fmaf(dys[k8 + j], wv[j], s);
       }
-      const float z = pre[i] + tof(b1[c0 + i]);
-      hid[i] = gelu<T>(z);
-      dp[i] = s * gelu_grad<T>(z);
+      hid[i] = gelu<T>(z[i]);
+      dp[i] = s * gelu_grad<T>(z[i]);
       V[6 * D + c0 + i] = dp[i];  // db1: one row, the unrounded dpre
     }
     const uint4 hk = make_uint4(pack_bf16(hid[0], hid[1]),
@@ -1658,10 +1726,16 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
     const T* doh = dos + hd * DH;
     project_kv(w);
     __syncthreads();
-    // the forward's probabilities again; dp = do v^T, then
-    // ds = T((p (dp - sum_j dp p)) scale), as cls_bwd_body forms them
+    // the forward's probabilities (recomputed without a record); dp = do
+    // v^T, then ds = T((p (dp - sum_j dp p)) scale), as cls_bwd_body forms
+    // them
     if (warp == 0) {
-      softmax_row<T>(qh, k, kLd, n, DH, m.scale, p);
+      if (sv != nullptr) {
+        for (int j = lane; j < n; j += 32) p[j] = sv[sl.p + hd * n + j];
+        __syncwarp();
+      } else {
+        softmax_row<T>(qh, k, kLd, n, DH, m.scale, p);
+      }
       for (int j = lane; j < n; j += 32) {
         float s = 0.f;
         for (int e = 0; e < DH; ++e)
@@ -2220,6 +2294,8 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
     b.m = m;
     part[i] = bind(i == depth - 1, sizeof(T), b, ws + w.blk[i], B);
   }
+  a.blk[depth - 1].sv = ClsSave((float*)ptrs[10 + 22 * depth], n, m.d,
+                                m.heads, m.dh, m.mlp);
   a.dy = ptrs[1];
   a.cls = ptrs[9 + 22 * depth];
   a.dcls = ws + w.dcls;
@@ -2303,7 +2379,9 @@ size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
 
 // K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
 // ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
-// (B, n, d) or, with cls, (B, d). mma = 1 runs K2f (block_fwd_mma_kernel)
+// (B, n, d) or, with cls, (B, d), then, with cls, the CLS rows' records
+// (B, ClsSave stride) fp32, written when not null (autograd records).
+// mma = 1 runs K2f (block_fwd_mma_kernel)
 // or K3f (cls_fwd_mma_kernel) on the bf16 tensor-core body, which takes
 // bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
 // aligned x, out and matrix weights (cudaErrorInvalidValue else); mma = 0
@@ -2317,6 +2395,8 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
   a.x = ptrs[0];
   for (int i = 0; i < 11; ++i) a.w[i] = ptrs[1 + i];
   a.out = (void*)ptrs[12];
+  a.sv = ClsSave(cls ? (float*)ptrs[13] : nullptr, n, d, heads, dim_head,
+                 mlp);
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
   cudaStream_t s = (cudaStream_t)stream;
@@ -2344,8 +2424,9 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
 // A measurement (chip_smoke.py), not a route: K2f (cls = 0) or K3f (cls =
 // 1) on the bf16 tensor-core body with its intermediates written out
 // (block_probe_kernel). ptrs: x, 11 weights, out as block_forward_launch
-// takes them, then h1, o, h2, hid as Probe says. The widths and alignment
-// of block_forward_launch's mma = 1 (cudaErrorInvalidValue else).
+// takes them, then h1, o, h2, hid, k, v as Probe says. The widths and
+// alignment of block_forward_launch's mma = 1 (cudaErrorInvalidValue
+// else).
 int block_forward_probe(int dtype, int cls, const void* const* ptrs,
                         int batch, int n, int d, int heads, int dim_head,
                         int mlp, float scale, void* stream) {
@@ -2358,7 +2439,7 @@ int block_forward_probe(int dtype, int cls, const void* const* ptrs,
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
   const Probe pr = {(bf16*)ptrs[13], (bf16*)ptrs[14], (bf16*)ptrs[15],
-                    (bf16*)ptrs[16]};
+                    (bf16*)ptrs[16], (bf16*)ptrs[17], (bf16*)ptrs[18]};
   const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
   if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
     return cudaErrorInvalidValue;
@@ -2380,7 +2461,9 @@ size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
 
 // K2b (cls = 0) and K3b (cls = 1). ptrs: x (B, n, d), dy (B, n, d) or,
 // with cls, (B, d), 11 weights, dx (B, n, d), 11 grads (weight shapes, in
-// the compute dtype), workspace (block_backward_workspace bytes). mma = 1
+// the compute dtype), workspace (block_backward_workspace bytes), then,
+// with cls, the CLS rows' records K3f wrote (B, ClsSave stride) fp32
+// (null only to measure fault k: the CLS row recomputed). mma = 1
 // runs the per-frame pass on the bf16 tensor-core body (block_bwd_mma,
 // cls_bwd_mma), which takes
 // bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
@@ -2401,6 +2484,8 @@ int block_backward_launch(int dtype, int cls, const void* const* ptrs,
   void* g[11];
   for (int i = 0; i < 11; ++i) g[i] = (void*)ptrs[14 + i];
   unsigned char* ws = (unsigned char*)ptrs[25];
+  a.sv = ClsSave(cls ? (float*)ptrs[26] : nullptr, n, d, heads, dim_head,
+                 mlp);
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, mma != 0, a, g, ws,
                                                 batch, s)
@@ -2423,14 +2508,16 @@ size_t trunk_backward_workspace(int dtype, int batch, int n, int d,
 // compute dtype), dfn_s, dfn_b (d, fp32), workspace
 // (trunk_backward_workspace bytes), then the streams K4 wrote in the
 // compute dtype: xs, each full block's output (depth - 1, B, n, d), the
-// inputs of blocks 1..; cls, the CLS row before the final norm (B, d).
+// inputs of blocks 1..; cls, the CLS row before the final norm (B, d);
+// then the CLS rows' records of its last block (B, ClsSave stride) fp32
+// (null only to measure fault k).
 // final_norm: 0 = rms, 1 = layer. mma as block_backward_launch takes it,
 // for the full blocks.
 int trunk_backward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
                           void* stream, int mma) {
-  if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 10 + 22 * depth ||
+  if (depth < 1 || depth > kMaxTrunkDepth || n_ptrs != 11 + 22 * depth ||
       bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   const Dims m = dims(d, heads, dim_head, mlp, 128, scale);

@@ -416,14 +416,57 @@ __device__ __forceinline__ void pv_mma(const float (&s)[kKeyTiles][4],
   }
 }
 
+// The fp32 probabilities of the warp's row r0 (lanes 0-3 hold it) into
+// p0[0..n)
+__device__ __forceinline__ void save_probs(const float (&s)[kKeyTiles][4],
+                                           float* p0, int n) {
+  const int lane = threadIdx.x % 32;
+  if (lane >= 4) return;
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (8 * j + 2 * lane + e < n) p0[8 * j + 2 * lane + e] = s[j][e];
+}
+
+// Row r0 of the warp's A fragments (lanes 0-3 hold it) into out[0..D)
+__device__ __forceinline__ void save_row0(const Frag& a, float* out) {
+  const int lane = threadIdx.x % 32;
+  if (lane >= 4) return;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&a[kk][2 * h]));
+      out[16 * kk + 8 * h + 2 * lane] = v.x;
+      out[16 * kk + 8 * h + 2 * lane + 1] = v.y;
+    }
+}
+
+// Row r0 of the warp's accumulator tiles into out[0..D), rounded to bf16
+// where `round` says
+__device__ __forceinline__ void save_row0(const float (&acc)[8][4],
+                                          float* out, bool round) {
+  const int lane = threadIdx.x % 32;
+  if (lane >= 4) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      out[8 * j + 2 * lane + e] = round ? rt<bf16>(acc[j][e]) : acc[j][e];
+}
+
 // One head's attention of the warp's 16 query rows (q in fragments)
 // against the frame's n keys (k, v in shared memory, np rows): the
 // scores, max, exp, sum and quotient of block_bwd_mma's head_probs, the
 // probabilities rounded to bf16 for P.V, o rounded to bf16 into
-// fragments.
+// fragments. kSave and p0 not null: row r0's fp32 probabilities to p0.
+template <bool kSave = false>
 __device__ __forceinline__ void attend_head(const Frag& q, const bf16* ks,
                                        const bf16* vs, int n, int np,
-                                       float scale, Frag& o) {
+                                       float scale, Frag& o,
+                                       float* p0 = nullptr) {
   const int t = threadIdx.x % 4;
   float s[kKeyTiles][4];
 #pragma unroll
@@ -465,6 +508,8 @@ __device__ __forceinline__ void attend_head(const Frag& q, const bf16* ks,
   for (int j = 0; j < kKeyTiles; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / sum[e / 2];
+  if constexpr (kSave)
+    if (p0 != nullptr) save_probs(s, p0, n);
   float acc[8][4];
   pv_mma(s, vs, np, acc);
   to_frag(acc, o);
@@ -528,12 +573,14 @@ __device__ __forceinline__ void mlp_begin(unsigned char* smem,
 // columns in order, each chain hc columns long (the FMA body's MLP chunk)
 // and added to y when it ends (w2 read from the chunk's fp32 tile). Every
 // thread calls it (the ring's copies and barriers); only `active` warps
-// compute.
-template <bool kFma>
+// compute. kSave and z not null: the fp32 pre-activations of rows g <
+// zrows to z + g zld (the CLS-only block's record, ClsSave).
+template <bool kFma, bool kSave = false>
 __device__ __forceinline__ void mlp_run(unsigned char* smem, const Layout& L,
                                         const Weights& w, int mlp, int hc,
                                         const Frag& h2, float (&y)[8][4],
-                                        bool active) {
+                                        bool active, float* z = nullptr,
+                                        int zld = 0, int zrows = 0) {
   const int nc = mlp / HC, t = threadIdx.x % 4, g = threadIdx.x % 32 / 4;
   float* hs = (float*)(smem + L.hid) + threadIdx.x / 32 * 16 * kLdHid;
   float part[8][4];
@@ -578,6 +625,11 @@ __device__ __forceinline__ void mlp_run(unsigned char* smem, const Layout& L,
       for (int j = 0; j < 2; ++j) {
         const int col = 16 * kk + 8 * j + 2 * t;
         const float c0 = tof(b1[col]), c1 = tof(b1[col + 1]);
+        if constexpr (kSave)
+          if (z != nullptr && g < zrows) {
+            z[(size_t)g * zld + c * HC + col] = pre[j][0] + c0;
+            z[(size_t)g * zld + c * HC + col + 1] = pre[j][1] + c1;
+          }
         float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -669,15 +721,22 @@ __device__ __forceinline__ void project(const Frag& h1, const bf16* wq,
 // out-projection run only in the warps that hold row 0, and x of those
 // warps ends at x1 (the caller runs the CLS rows' MLP). kFma: the scores,
 // the out-projection and the MLP's second product as fp32 fma chains in
-// the FMA body's order (see the top of this file). Every thread of the
-// block calls it.
-template <bool kFma>
+// the FMA body's order (see the top of this file). kSave, cls_only and a
+// record base in sv: the warp of row 0 writes its live frame's q, fp32
+// probabilities and o (ClsSave; cls_mlp writes the rest). Every thread of
+// the block calls it.
+template <bool kFma, bool kSave = false>
 __device__ __forceinline__ void block_fwd(const Dims& m, const void* const* wp,
                                           int n, const Place& p, Rows& x,
                                           unsigned char* smem,
-                                          const Layout& L, bool cls_only) {
+                                          const Layout& L, bool cls_only,
+                                          const ClsSave& sv = ClsSave()) {
   const Weights w(wp);
   const int heads = m.heads;
+  float* rec = nullptr;
+  if constexpr (kSave)
+    if (cls_only && p.r0 == 0 && p.live && sv.base != nullptr)
+      rec = sv.at(p.f);
   bf16* ks = (bf16*)(smem + L.k) + (size_t)p.fl * p.np * kLd;
   bf16* vs = (bf16*)(smem + L.v) + (size_t)p.fl * p.np * kLd;
   bf16* qs = (bf16*)(smem + L.q) + (size_t)p.fl * p.np * kLd;
@@ -704,10 +763,21 @@ __device__ __forceinline__ void block_fwd(const Dims& m, const void* const* wp,
     if (!queries) continue;
     if (kFma) {
       float s[kKeyTiles][4];
+      if constexpr (kSave)
+        if (rec != nullptr)
+          for (int c = 2 * (threadIdx.x % 32); c < D; c += 64) {
+            const float2 qv = pair(qs, kLd, 0, c);
+            rec[hd * D + c] = qv.x;
+            rec[hd * D + c + 1] = qv.y;
+          }
       scores_fma(s, qs, ks, p.r0, p.np);
       softmax_fma_order(s, n, m.scale);
+      if constexpr (kSave)
+        if (rec != nullptr) save_probs(s, rec + sv.p + hd * n, n);
       float acc[8][4];
       pv_mma(s, vs, p.np, acc);
+      if constexpr (kSave)
+        if (rec != nullptr) save_row0(acc, rec + sv.o + hd * D, true);
       __syncwarp();  // every lane's q read
       put_rows(acc, qs, p.r0);
       __syncwarp();  // o whole in the tile
@@ -715,7 +785,14 @@ __device__ __forceinline__ void block_fwd(const Dims& m, const void* const* wp,
       continue;
     }
     Frag o;
-    attend_head(q, ks, vs, n, p.np, m.scale, o);
+    if constexpr (kSave) {
+      if (rec != nullptr) save_row0(q, rec + hd * D);
+      attend_head<true>(q, ks, vs, n, p.np, m.scale, o,
+                        rec != nullptr ? rec + sv.p + hd * n : nullptr);
+      if (rec != nullptr) save_row0(o, rec + sv.o + hd * D);
+    } else {
+      attend_head(q, ks, vs, n, p.np, m.scale, o);
+    }
     float acc[8][4];
     zero(acc);
     frag_mma<8>(acc, o, wo, kLd, 0);
@@ -747,11 +824,14 @@ __device__ __forceinline__ void block_fwd(const Dims& m, const void* const* wp,
 // put LN2 of their frame's CLS row (row fl of the cls_h tile, whose other
 // rows are zero) and x1 of it (cls_x1[fl]) in shared memory; warp 0 runs
 // the MLP on that tile and leaves b2 + MLP of each CLS row in cls_y.
-template <bool kFma>
+// kSave and a record base in sv: each live frame's x1, h2 and fp32
+// pre-activations to its record (ClsSave).
+template <bool kFma, bool kSave = false>
 __device__ __forceinline__ void cls_mlp(const Dims& m, const void* const* wp,
                                         int n, const Place& p, const Rows& x,
-                                        unsigned char* smem,
-                                        const Layout& L) {
+                                        unsigned char* smem, const Layout& L,
+                                        const ClsSave& sv = ClsSave(),
+                                        int batch = 0) {
   const Weights w(wp);
   bf16* hs = (bf16*)(smem + L.cls_h);
   float* x1s = (float*)(smem + L.cls_x1) + p.fl * D;
@@ -759,6 +839,11 @@ __device__ __forceinline__ void cls_mlp(const Dims& m, const void* const* wp,
   if (p.r0 == 0) {
     Frag h2;
     norm_frag(x, w.fn_s, w.fn_b, p.r0, n, h2);
+    if constexpr (kSave)
+      if (sv.base != nullptr && p.live) {
+        save_row0(h2, sv.at(p.f) + sv.h2);
+        save_row0(x, sv.at(p.f) + sv.x1, false);
+      }
     if (lane < 4) {  // row 0: g = 0, the first and third register of each
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -781,7 +866,15 @@ __device__ __forceinline__ void cls_mlp(const Dims& m, const void* const* wp,
     for (int kk = 0; kk < 4; ++kk) load_a(h2[kk], hs, kLd, 0, 16 * kk);
   float y[8][4];
   bias_rows(y, w.b2);
-  mlp_run<kFma>(smem, L, w, m.mlp, m.hc, h2, y, active);
+  if constexpr (kSave) {
+    const int f0 = blockIdx.x * kFrames;
+    mlp_run<kFma, true>(smem, L, w, m.mlp, m.hc, h2, y, active,
+                        sv.base != nullptr ? sv.at(f0) + sv.z : nullptr,
+                        sv.stride, batch - f0 < kFrames ? batch - f0
+                                                        : kFrames);
+  } else {
+    mlp_run<kFma>(smem, L, w, m.mlp, m.hc, h2, y, active);
+  }
   if (active && lane / 4 < kFrames) {
     float* ys = (float*)(smem + L.cls_y) + lane / 4 * D;
 #pragma unroll

@@ -9,8 +9,9 @@
 // K4 replaces _blocks_kernel (blocks_cls_forward_fused): the same trunk
 // from the blocks on, for forwards whose embedding and emb-dropout ran
 // outside the kernel. When autograd records, every body of K4 also writes
-// the streams between its blocks (Args::xs, Args::cls), which K6 (the
-// whole-trunk backward, block_grad.cu) differentiates in place of a
+// the streams between its blocks (Args::xs, Args::cls) and its CLS
+// block's intermediates (Args::sv, ClsSave in block_common.cuh), which K6
+// (the whole-trunk backward, block_grad.cu) differentiates in place of a
 // forward of its own.
 // Numerics are the TPU kernels' (block_common.cuh); the residual stream
 // is rounded to the compute dtype T after every block.
@@ -73,6 +74,7 @@ struct Args {
   // in T: the streams K6 differentiates
   void* xs;
   void* cls;
+  ClsSave sv;  // and the CLS block's records (null base: none)
   int n, n_patch, pd, depth, final_norm;
   Dims m;
 };
@@ -121,8 +123,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = 0; i < a.depth; ++i) {
     const bool last = i == a.depth - 1;
-    block<T>(a.m, a.p + kBlocks + 11 * i, n, last, x32, acc, prob, h,
-             scratch);
+    block<T, !kEmbed>(a.m, a.p + kBlocks + 11 * i, n, last, x32, acc, prob,
+                      h, scratch,
+                      last && a.sv.base != nullptr ? a.sv.at(f) : nullptr,
+                      a.sv);
     // the residual stream round-trips the compute dtype between blocks
     const int rows = last ? 1 : n;
     for (int j = threadIdx.x; j < rows * d; j += blockDim.x)
@@ -199,16 +203,18 @@ __device__ __forceinline__ void final_norm_row(const float* x32,
 // block_mma_fwd.cuh's body (kFma: its K4 form), for the rows in x: two
 // frames a thread block and 16 rows a warp, the stream in registers
 // throughout and rounded to bf16 between blocks. w: block 0's weights,
-// then 11 per block, fn_s, fn_b and out. xs and cls, unless null: the
-// streams K6 reads (Args). K4 and K1 share it.
-template <bool kFma>
+// then 11 per block, fn_s, fn_b and out. xs and cls, unless null, and with
+// kSave the CLS block's records in sv: what K6 reads (Args). K4 and K1
+// share it.
+template <bool kFma, bool kSave = false>
 __device__ __forceinline__ void mma_trunk(const Dims& m, const void* const* w,
                                           int n, int depth, int final_norm,
                                           int batch, const mmafwd::Place& p,
                                           mmafwd::Rows& x,
                                           unsigned char* smem_raw,
                                           const mmafwd::Layout& L, bf16* xs,
-                                          bf16* cls) {
+                                          bf16* cls,
+                                          const ClsSave& sv = ClsSave()) {
   const int d = mmafwd::D;
   zero_rows((bf16*)(smem_raw + L.cls_h), mmafwd::kLd, 0, 16, d);
   for (int i = 0; i + 1 < depth; ++i) {
@@ -218,8 +224,8 @@ __device__ __forceinline__ void mma_trunk(const Dims& m, const void* const* w,
       mmafwd::write_rows(x, xs + ((size_t)i * batch + p.f) * n * d, p, n);
   }
   const void* const* last = w + 11 * (depth - 1);
-  mmafwd::block_fwd<kFma>(m, last, n, p, x, smem_raw, L, true);
-  mmafwd::cls_mlp<kFma>(m, last, n, p, x, smem_raw, L);
+  mmafwd::block_fwd<kFma, kSave>(m, last, n, p, x, smem_raw, L, true, sv);
+  mmafwd::cls_mlp<kFma, kSave>(m, last, n, p, x, smem_raw, L, sv, batch);
 
   // the CLS row x1 + (b2 + MLP), rounded to bf16, then the final norm
   // (warp fl for frame fl)
@@ -249,8 +255,8 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
   mmafwd::Rows x;
   mmafwd::read_rows(x, (const bf16*)a.p[0] + (size_t)p.f * a.n * mmafwd::D,
                     p, a.n);
-  mma_trunk<kFma>(a.m, a.p + 1, a.n, a.depth, a.final_norm, batch, p, x,
-                  smem_raw, L, (bf16*)a.xs, (bf16*)a.cls);
+  mma_trunk<kFma, true>(a.m, a.p + 1, a.n, a.depth, a.final_norm, batch, p,
+                        x, smem_raw, L, (bf16*)a.xs, (bf16*)a.cls, a.sv);
 }
 
 // K1's embedding on the tensor cores, into the warp's rows of the stream
@@ -724,21 +730,25 @@ size_t got_forward_smem(int dtype, int n, int d, int heads, int dim_head,
 // same body with every product on the tensor cores (no route takes it; for
 // measurement); both take bf16, d = dim_head = 64, n <= 80, mlp a multiple
 // of 64 and 16-byte aligned x and matrix weights (cudaErrorInvalidValue
-// else); mma = 0 the FMA body, any width. xs and cls: both null, or the
-// streams every body then writes, in the compute dtype: each full block's
-// rounded output (depth - 1, B, n, d) and the rounded CLS row before the
-// final norm (B, d), which K6 (trunk_backward_launch) differentiates.
+// else); mma = 0 the FMA body, any width. xs, cls and saved: all null, or
+// the streams every body then writes: each full block's rounded output
+// (depth - 1, B, n, d) and the rounded CLS row before the final norm (B,
+// d), in the compute dtype, and the CLS block's records (B, ClsSave
+// stride) fp32, which K6 (trunk_backward_launch) differentiates.
 int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, int depth, int final_norm, float scale,
-                          void* stream, int mma, void* xs, void* cls) {
+                          void* stream, int mma, void* xs, void* cls,
+                          void* saved) {
   if (depth < 1 || depth > kMaxDepth || n_ptrs != 4 + 11 * depth ||
-      batch < 1 || n < 1 || (xs == nullptr) != (cls == nullptr))
+      batch < 1 || n < 1 || (xs == nullptr) != (cls == nullptr) ||
+      (xs == nullptr) != (saved == nullptr))
     return cudaErrorInvalidValue;
   Args a = make_args(ptrs, n_ptrs, n, d, heads, dim_head, mlp, depth,
                      final_norm, scale);
   a.xs = xs;
   a.cls = cls;
+  a.sv = ClsSave((float*)saved, n, d, heads, dim_head, mlp);
   cudaStream_t s = (cudaStream_t)stream;
   if (mma) {
     const int mats[4] = {2, 3, 7, 9};  // wqkv, wout, w1, w2

@@ -354,9 +354,11 @@ def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
 
 
 def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
+    """Launch `fn` on `tensors`' pointers (None: a null pointer)."""
     lib = _block_lib()
     b, n, d = x.shape
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPES[dtype], int(cls), ctypes.cast(ptrs, ctypes.c_void_p),
@@ -367,22 +369,26 @@ def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
                            + lib.block_error_string(err).decode())
 
 
-def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool):
+def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool,
+                     saved=None):
     """K2f (cls False) or K3f (cls True) on CUDA tensors, on the
-    tensor-core body where `tensor_core_fwd` says so."""
+    tensor-core body where `tensor_core_fwd` says so; K3f writes the CLS
+    rows' records into `saved` unless None."""
     b, n, d = x.shape
     out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
                       device=x.device)
     mma = tensor_core_fwd(x, w, dim_head)
-    _call(_block_lib().block_forward_launch, x.dtype, cls, [x, *w, out], x,
-          heads, dim_head, w[7].shape[-1], int(mma))
+    _call(_block_lib().block_forward_launch, x.dtype, cls,
+          [x, *w, out, saved], x, heads, dim_head, w[7].shape[-1], int(mma))
     return out
 
 
-def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
+def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool,
+                     saved=None):
     """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads);
     the per-frame pass on the tensor-core body where `tensor_core_bwd`
-    says so."""
+    says so. K3b reads the CLS rows' records K3f kept in `saved` (None
+    only in chip_smoke.py's measurement of fault k)."""
     b, n, d = x.shape
     mlp = w[7].shape[-1]
     nbytes = _block_lib().block_backward_workspace(
@@ -392,7 +398,8 @@ def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool):
     grads = [torch.empty_like(t) for t in w]
     mma = tensor_core_bwd(x, w, dim_head, dy)
     _call(_block_lib().block_backward_launch, x.dtype, cls,
-          [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp, int(mma))
+          [x, dy, *w, dx, *grads, ws, saved], x, heads, dim_head, mlp,
+          int(mma))
     return dx, tuple(grads)
 
 

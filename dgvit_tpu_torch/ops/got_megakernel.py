@@ -39,6 +39,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from dgvit_tpu_torch.ops.cls_block import saved_buffer
 from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
                                                    tensor_core_fwd)
 from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_embed,
@@ -73,26 +74,28 @@ def _final_norm32(cls: torch.Tensor, fs: torch.Tensor, fb: torch.Tensor,
     return _ln(cls, fs, fb)
 
 
-def stream_buffers(x: torch.Tensor, depth: int):
-    """Empty (xs, cls) for K4's streams of x in one allocation: xs (depth
-    - 1, B, n, d), each full block's output, and cls (B, d), the CLS row
-    before the final norm, both in x's dtype."""
+def stream_buffers(x: torch.Tensor, blocks, heads: int, dim_head: int):
+    """Empty (xs, cls, saved) for K4's streams of x: xs (depth - 1, B, n,
+    d), each full block's output, and cls (B, d), the CLS row before the
+    final norm, in one allocation of x's dtype; saved (B,
+    `cls_block.cls_saved_width`) fp32, the CLS block's records."""
     b, n, d = x.shape
-    k = (depth - 1) * b * n * d
+    k = (len(blocks) - 1) * b * n * d
     buf = torch.empty(k + b * d, dtype=x.dtype, device=x.device)
-    return buf[:k].view(depth - 1, b, n, d), buf[k:].view(b, d)
+    return (buf[:k].view(len(blocks) - 1, b, n, d), buf[k:].view(b, d),
+            saved_buffer(x, blocks[-1], heads, dim_head))
 
 
 def blocks_forward_plain(x: torch.Tensor, blocks, fn, heads: int,
                          dim_head: int, final_norm: str,
                          streams: bool = False):
     """Plain PyTorch version of K4, on any device. Arguments as
-    `blocks_cls_forward_fused`. With `streams`, returns (out, (xs, cls)):
-    the streams K4 writes for K6 (`stream_buffers`), each value rounded
-    to the compute dtype where the forward rounds it."""
-    xs, cls = trunk_streams_plain(x, blocks, heads, dim_head)
-    out = _final_norm32(_f32(cls), fn[0], fn[1], final_norm).to(x.dtype)
-    return (out, (xs, cls)) if streams else out
+    `blocks_cls_forward_fused`. With `streams`, returns (out, (xs, cls,
+    saved)): the streams K4 writes for K6 (`stream_buffers`), each value
+    rounded to the compute dtype where the forward rounds it."""
+    st = trunk_streams_plain(x, blocks, heads, dim_head)
+    out = _final_norm32(_f32(st[1]), fn[0], fn[1], final_norm).to(x.dtype)
+    return (out, st) if streams else out
 
 
 def got_forward_plain(patches, goal, pe, pos, blocks, fn, heads: int,
@@ -219,7 +222,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.blocks_forward_launch.argtypes = (
         [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-           ctypes.c_void_p])
+           ctypes.c_void_p, ctypes.c_void_p])
     lib.got_forward_smem.restype = ctypes.c_size_t
     lib.got_forward_smem.argtypes = [ctypes.c_int] * 7
     lib.k1_smem.restype = ctypes.c_size_t
@@ -294,12 +297,13 @@ got_forward_fused.launches = 0
 
 def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None,
                    streams=False):
-    """K4's launch: out, or with `streams` (out, (xs, cls)) as
+    """K4's launch: out, or with `streams` (out, (xs, cls, saved)) as
     `blocks_forward_plain` returns them."""
     lib = _kernel_lib()
     b, n, d = x.shape
     out = torch.empty((b, d), dtype=x.dtype, device=x.device)
-    xs, cls = stream_buffers(x, len(blocks)) if streams else (None, None)
+    st = (stream_buffers(x, blocks, heads, dim_head) if streams
+          else (None, None, None))
     tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     # every block on the tensor-core body (its K4 form), or every block on
@@ -313,13 +317,12 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None,
             _DTYPES[x.dtype], ctypes.cast(ptrs, ctypes.c_void_p),
             len(tensors), b, n, d, heads, dim_head, blocks[0][7].shape[1],
             len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream, mma,
-            xs.data_ptr() if streams else None,
-            cls.data_ptr() if streams else None)
+            *[None if t is None else t.data_ptr() for t in st])
     if err != 0:
         raise RuntimeError("blocks_cls_forward_fused launch failed: "
                            + lib.got_error_string(err).decode())
     blocks_cls_forward_fused.launches += 1
-    return (out, (xs, cls)) if streams else out
+    return (out, st) if streams else out
 
 
 def _blocks_forward(x, blocks, fn, heads, dim_head, final_norm,
@@ -346,17 +349,18 @@ class _BlocksCls(torch.autograd.Function):
         if not record:
             return _blocks_forward(x, blocks, (fs, fb), heads, dim_head,
                                    final_norm)
-        out, (xs, cls) = _blocks_forward(x, blocks, (fs, fb), heads,
-                                         dim_head, final_norm, streams=True)
-        ctx.save_for_backward(x, xs, cls, fs, fb, *flat)
+        out, st = _blocks_forward(x, blocks, (fs, fb), heads, dim_head,
+                                  final_norm, streams=True)
+        ctx.save_for_backward(x, *st, fs, fb, *flat)
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, xs, cls, fs, fb, *flat = ctx.saved_tensors
+        x, xs, cls, saved, fs, fb, *flat = ctx.saved_tensors
         blocks = [tuple(flat[i:i + 11]) for i in range(0, len(flat), 11)]
         dx, gblocks, dfn = trunk_bwd_fused(x, dy.contiguous(), blocks,
-                                           (fs, fb), *ctx.cfg, (xs, cls))
+                                           (fs, fb), *ctx.cfg,
+                                           (xs, cls, saved))
         return (dx, None, None, None, None, *dfn, *[g for gb in gblocks
                                                     for g in gb])
 
@@ -377,9 +381,9 @@ def blocks_cls_forward_fused(x: torch.Tensor,
 
     Differentiable in x, every block weight and the final-norm parameters:
     the backward is `trunk_bwd_fused` (K6), on the streams K4 writes only
-    when grad mode is on and an input requires grad (6.4 MB of bf16 at
-    B=256 on the flagship trunk, held until the backward; no-grad
-    forwards write none). CUDA tensors go to the CUDA
+    when grad mode is on and an input requires grad (6.4 MB of bf16 and
+    the CLS block's 3.0 MB of fp32 records at B=256 on the flagship
+    trunk, held until the backward; no-grad forwards write none). CUDA tensors go to the CUDA
     kernels (and raise if they cannot run); CPU tensors go to the plain
     versions. `blocks_cls_forward_fused.launches` counts K4's launches.
     """

@@ -33,7 +33,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from dgvit_tpu_torch.ops.cls_block import cls_block_plain, cls_bwd_plain
+from dgvit_tpu_torch.ops.cls_block import (check_saved, cls_bwd_plain,
+                                           cls_fwd_plain)
 from dgvit_tpu_torch.ops.fused_transformer import (_DTYPES, _block_lib, _f32,
                                                    _ln_bwd, _ln_stats,
                                                    block_bwd_plain,
@@ -71,16 +72,16 @@ def trunk_streams_plain(x: torch.Tensor,
                         blocks: Sequence[Sequence[torch.Tensor]],
                         heads: int, dim_head: int):
     """The streams of K4's plain forward (`blocks_forward_plain`): (xs
-    (depth - 1, B, n, d), cls (B, d)) in x's dtype."""
+    (depth - 1, B, n, d), cls (B, d)) in x's dtype, and the CLS block's
+    records (B, `cls_block.cls_saved_width`) fp32."""
     cdt = x.dtype
     xs = [x]
     for w in blocks[:-1]:
         xs.append(block_plain(_f32(xs[-1]), w, heads=heads,
                               dim_head=dim_head, cdt=cdt).to(cdt))
-    cls = cls_block_plain(_f32(xs[-1]), blocks[-1], heads=heads,
-                          dim_head=dim_head, cdt=cdt).to(cdt)
+    cls, saved = cls_fwd_plain(xs[-1], blocks[-1], heads, dim_head, save=True)
     return (torch.stack(xs[1:]) if len(xs) > 1
-            else x.new_empty((0, *x.shape))), cls
+            else x.new_empty((0, *x.shape))), cls, saved
 
 
 def trunk_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -97,7 +98,8 @@ def trunk_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     cls = _f32(streams[1])
     dcls, dfs, dfb = final_norm_bwd_plain(_f32(dy), cls, fn[0], fn[1],
                                           final_norm)
-    dx, g = cls_bwd_plain(xs[-1], dcls.to(cdt), blocks[-1], heads, dim_head)
+    dx, g = cls_bwd_plain(xs[-1], dcls.to(cdt), blocks[-1], heads, dim_head,
+                          streams[2])
     grads = [g]
     for xi, w in zip(reversed(xs[:-1]), reversed(blocks[:-1])):
         dx, g = block_bwd_plain(xi, dx, w, heads, dim_head)
@@ -113,7 +115,8 @@ def _check(x, dy, blocks, fn, heads, dim_head, final_norm, streams) -> None:
         check_block_args(x, w, heads, dim_head, dy=dy, cls=True)
     b, n, d = x.shape
     if streams is not None:
-        xs, cls = streams
+        xs, cls, saved = streams
+        check_saved(saved, x, blocks[-1], heads, dim_head)
         for t, shape in ((xs, (len(blocks) - 1, b, n, d)), (cls, (b, d))):
             if (t.device != x.device or t.dtype != x.dtype
                     or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -183,8 +186,9 @@ def trunk_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
     blocks:  per-block 11-tuples in the fused-transformer order, compute
              dtype, matrices (in, out), vectors (n,)
     fn:      final-norm (scale, bias), each (dim,) fp32
-    streams: (xs (depth - 1, B, n, dim), cls (B, dim)), compute dtype: the
-             streams the forward wrote (`blocks_forward_plain(...,
+    streams: (xs (depth - 1, B, n, dim), cls (B, dim)) in the compute
+             dtype and the CLS block's records (B, `cls_saved_width`)
+             fp32: what the forward wrote (`blocks_forward_plain(...,
              streams=True)` or K4 under autograd). The kernel needs them;
              the plain version recomputes them when None.
     Returns (dx (B, n, dim) in the compute dtype, per block the 11 weight

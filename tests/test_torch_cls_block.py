@@ -18,9 +18,10 @@ from dgvit_tpu_torch.ops.cls_block import (cls_bwd_fused, cls_bwd_plain,
 from dgvit_tpu_torch.ops.fused_transformer import (block_fwd_plain,
                                                    check_block_args,
                                                    tensor_core_bwd)
-from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
-                                bf16_close, block_tree, rand, to_jax,
-                                to_torch, weights)
+from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, RECORD_PARTS,
+                                assert_close, bf16_close, block_tree,
+                                nudged_record, rand, to_jax, to_torch,
+                                weights)
 
 CASES = [(2, 5), (3, 17)]
 
@@ -74,6 +75,86 @@ def test_backward_matches_jax(batch, n, dtype):
     assert all(g.shape == t.shape and g.dtype == t.dtype
                for g, t in zip(grads, w))
     assert_close([dx, *grads], [dx_ref, *dflat], dtype, 5e-4, 5e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n", CASES)
+def test_backward_reads_the_records_the_forward_kept(batch, n, dtype):
+    """The forward with `save` gives the same output and records of the
+    CLS row's intermediates; the backward given them equals the backward
+    recomputing them bit for bit, and both meet the JAX kernel."""
+    rng = np.random.default_rng(batch * 10 + n + 2)
+    tree, x, dy = block_tree(rng), rand(rng, batch, n, D), rand(
+        rng, batch, D)
+    _, dx_ref, dflat = jax_vjp(tree, x, dy, dtype)
+    _, w = weights(tree, dtype)
+    xt, dyt = to_torch(x, dtype), to_torch(dy, dtype)
+    out, saved = cls_fwd_plain(xt, w, HEADS, DIM_HEAD, save=True)
+    assert torch.equal(out, cls_fwd_plain(xt, w, HEADS, DIM_HEAD))
+    assert saved.dtype == torch.float32
+    assert saved.shape == (batch, cb.cls_saved_width(n, D, HEADS, DIM_HEAD,
+                                                     MLP))
+    given = cls_bwd_fused(xt, dyt, w, HEADS, DIM_HEAD, saved)
+    recomputed = cls_bwd_plain(xt, dyt, w, HEADS, DIM_HEAD)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [given[0], *given[1]], [recomputed[0], *recomputed[1]]))
+    assert_close([given[0], *given[1]], [dx_ref, *dflat], dtype, 5e-4, 5e-5)
+
+
+@pytest.mark.parametrize("part", RECORD_PARTS)
+def test_backward_differentiates_the_record_it_is_given(part):
+    """Fault k: the backward differentiates the CLS row its forward
+    computed. One value of the record moved by one bf16 ulp moves the
+    backward (dx where the part reaches it: q, the probabilities, x1 and
+    the pre-activations; o and h2 reach only dwout and dw1)."""
+    rng = np.random.default_rng(12)
+    tree, x, dy = block_tree(rng), rand(rng, 2, 5, D), rand(rng, 2, D)
+    _, w = weights(tree, "bfloat16")
+    xt, dyt = to_torch(x, "bfloat16"), to_torch(dy, "bfloat16")
+    _, saved = cls_fwd_plain(xt, w, HEADS, DIM_HEAD, save=True)
+    kept = cls_bwd_plain(xt, dyt, w, HEADS, DIM_HEAD, saved)
+    moved = cls_bwd_plain(xt, dyt, w, HEADS, DIM_HEAD,
+                          nudged_record(saved, 1, part, 3, 5))
+    reaches = {"o": 3, "h2": 7}       # dwout, dw1
+    if part in reaches:
+        assert torch.equal(moved[0], kept[0])
+        assert not torch.equal(moved[1][reaches[part]],
+                               kept[1][reaches[part]])
+    else:
+        assert not torch.equal(moved[0], kept[0])
+    assert all(bool(torch.isfinite(t.float()).all())
+               for t in [moved[0], *moved[1]])
+
+
+def test_records_kept_only_when_differentiated(monkeypatch):
+    """K3f keeps the CLS records only when the call will be
+    differentiated: under torch.no_grad(), or with no input requiring
+    grad, it keeps none; the backward reads those it kept, and a
+    backward on the card without them raises."""
+    rng = np.random.default_rng(13)
+    tree, x = block_tree(rng), rand(rng, 2, 5, D)
+    _, w = weights(tree, "bfloat16")
+    asked, real = [], cb.cls_fwd_fused
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs.get("save", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cb, "cls_fwd_fused", spy)
+    xt = to_torch(x, "bfloat16")
+    with torch.no_grad():
+        quiet = cls_final_block(xt.clone().requires_grad_(), w, HEADS,
+                                DIM_HEAD)
+    assert quiet.grad_fn is None
+    cls_final_block(xt, w, HEADS, DIM_HEAD)
+    out = cls_final_block(xt.clone().requires_grad_(), w, HEADS, DIM_HEAD)
+    assert asked == [False, False, True]
+    rec = out.grad_fn.saved_tensors[1]
+    assert torch.equal(rec, cls_fwd_plain(xt, w, HEADS, DIM_HEAD,
+                                          save=True)[1])
+    with pytest.raises(ValueError, match="CLS record"):
+        cls_bwd_fused(xt, torch.zeros(2, D, dtype=torch.bfloat16), w, HEADS,
+                      DIM_HEAD, rec[:, 1:].contiguous())
 
 
 def test_autograd_function_takes_the_hand_backward():

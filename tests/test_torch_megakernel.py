@@ -230,8 +230,9 @@ def test_k4_keeps_streams_only_when_differentiated(dtype, monkeypatch):
     out = call(x.clone().requires_grad_())
     assert asked == [False, False, True]
     saved = out.grad_fn.saved_tensors
-    ref, (xs, cls) = pgm.blocks_forward_plain(x, blocks, fn, HEADS, DIM_HEAD,
-                                              "rms", streams=True)
+    ref, (xs, cls, rec) = pgm.blocks_forward_plain(
+        x, blocks, fn, HEADS, DIM_HEAD, "rms", streams=True)
     assert torch.equal(out, ref)
     assert xs.shape == (DEPTH - 1, 2, 5, DIM) and cls.shape == (2, DIM)
     assert torch.equal(saved[1], xs) and torch.equal(saved[2], cls)
+    assert rec.dtype == torch.float32 and torch.equal(saved[3], rec)

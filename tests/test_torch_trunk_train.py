@@ -31,9 +31,10 @@ from dgvit_tpu_torch.ops.trunk_train import (final_norm_bwd_plain,
                                              trunk_bwd_fused,
                                              trunk_bwd_plain,
                                              trunk_streams_plain)
+from dgvit_tpu_torch.ops.cls_block import cls_saved_width
 from torch_kernel_cases import (D, DIM_HEAD, HEADS, MLP, assert_close,
-                                bf16_close, block_tree, rand, to_jax,
-                                to_torch, weights)
+                                bf16_close, block_tree, nudged_record, rand,
+                                to_jax, to_torch, weights)
 
 IMG, PATCH = (32, 40), (16, 20)
 
@@ -108,13 +109,17 @@ def test_forward_streams_are_the_recomputed_ones(dtype, final_norm, batch,
     _, _, pb, pfn = trunk(rng, depth, final_norm, dtype)
     x = to_torch(rand(rng, batch, n, D), dtype)
     dy = to_torch(rand(rng, batch, D), dtype)
-    xs, cls = forward_streams(x, pb, pfn, final_norm)
-    rxs, rcls = trunk_streams_plain(x, pb, HEADS, DIM_HEAD)
+    xs, cls, saved = forward_streams(x, pb, pfn, final_norm)
+    rxs, rcls, rsaved = trunk_streams_plain(x, pb, HEADS, DIM_HEAD)
     assert xs.shape == (depth - 1, batch, n, D) and cls.shape == (batch, D)
     assert xs.dtype == cls.dtype == x.dtype
+    assert saved.shape == (batch, cls_saved_width(n, D, HEADS, DIM_HEAD,
+                                                  MLP))
+    assert saved.dtype == torch.float32
     assert torch.equal(xs, rxs) and torch.equal(cls, rcls)
+    assert torch.equal(saved, rsaved)
     given = flat(trunk_bwd_plain(x, dy, pb, pfn, HEADS, DIM_HEAD, final_norm,
-                                 (xs, cls)))
+                                 (xs, cls, saved)))
     recomputed = flat(trunk_bwd_plain(x, dy, pb, pfn, HEADS, DIM_HEAD,
                                       final_norm))
     assert all(torch.equal(a, b) for a, b in zip(given, recomputed))
@@ -145,25 +150,27 @@ def next_bf16(t: torch.Tensor, index) -> torch.Tensor:
     return t
 
 
-@pytest.mark.parametrize("which", ["block input", "cls row"])
+@pytest.mark.parametrize("which", ["block input", "cls row", "cls record"])
 def test_backward_differentiates_the_streams_it_is_given(which):
-    """Fault j: K6 must differentiate the streams the forward wrote, not
-    streams it recomputes. A stream moved by one bf16 ulp (one value of a
-    block's input; the CLS row of one frame, whose single-value nudges
-    the rounding of dcls can absorb) moves dx: the backward reads the
-    stream. The same call without streams returns the gradient of the
-    unmoved ones."""
+    """Faults j and k: K6 must differentiate the streams the forward
+    wrote, not streams it recomputes. A stream moved by one bf16 ulp (one
+    value of a block's input; the CLS row of one frame, whose single-value
+    nudges the rounding of dcls can absorb; the CLS block's saved o of one
+    frame) moves dx: the backward reads the stream. The same call without
+    streams returns the gradient of the unmoved ones."""
     rng = np.random.default_rng(11)
     _, _, pb, pfn = trunk(rng, 3, "layer", "bfloat16")
     x = to_torch(rand(rng, 2, 5, D), "bfloat16")
     dy = to_torch(rand(rng, 2, D), "bfloat16")
-    xs, cls = forward_streams(x, pb, pfn, "layer")
+    xs, cls, saved = forward_streams(x, pb, pfn, "layer")
     if which == "block input":
         xs = next_bf16(xs, (1, 0, 2, 5))     # block 2's input, frame 0
-    else:
+    elif which == "cls row":
         cls = next_bf16(cls, 1)              # frame 1's CLS row
+    else:
+        saved = nudged_record(saved, 0, "q", 3, 5)    # frame 0's q
     args = (x, dy, pb, pfn, HEADS, DIM_HEAD, "layer")
-    moved = trunk_bwd_fused(*args, (xs, cls))
+    moved = trunk_bwd_fused(*args, (xs, cls, saved))
     kept = trunk_bwd_fused(*args)
     assert not torch.equal(moved[0], kept[0])
     assert torch.equal(kept[0], trunk_bwd_plain(*args, forward_streams(
@@ -176,16 +183,20 @@ def test_wrapper_rejects_streams_of_the_wrong_shape():
     _, _, pb, pfn = trunk(rng, 3, "rms", "float32")
     x, dy = torch.zeros(2, 5, D), torch.zeros(2, D)
     xs, cls = torch.zeros(2, 2, 5, D), torch.zeros(2, D)
+    saved = torch.zeros(2, cls_saved_width(5, D, HEADS, DIM_HEAD, MLP))
     with pytest.raises(ValueError, match="stream"):
         trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
-                        (xs[:1].contiguous(), cls))
+                        (xs[:1].contiguous(), cls, saved))
     with pytest.raises(ValueError, match="stream"):
         trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
-                        (xs, cls.bfloat16()))
+                        (xs, cls.bfloat16(), saved))
     with pytest.raises(ValueError, match="stream"):
         trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
                         (xs.transpose(2, 3).contiguous().transpose(2, 3),
-                         cls))
+                         cls, saved))
+    with pytest.raises(ValueError, match="CLS record"):
+        trunk_bwd_fused(x, dy, pb, pfn, HEADS, DIM_HEAD, "rms",
+                        (xs, cls, saved[:, 1:].contiguous()))
 
 
 @pytest.mark.parametrize("final_norm", ["rms", "layer"])

@@ -86,3 +86,22 @@ def assert_close(outs, refs, dtype: str, rtol: float, atol: float):
         o = as_np(out)
         np.testing.assert_allclose(o, as_np(ref).reshape(o.shape), rtol=rtol,
                                    atol=atol, err_msg=f"tensor {i}")
+
+
+RECORD_PARTS = ("q", "p", "o", "x1", "h2", "z")
+
+
+def nudged_record(saved: torch.Tensor, frame: int, part: str, index: int,
+                  n: int, heads: int = HEADS, dim_head: int = DIM_HEAD,
+                  mlp: int = MLP) -> torch.Tensor:
+    """A copy of CLS records (`cls_block.cls_saved_width` layout) with one
+    value of `part` of one frame moved one bf16 ulp further from zero."""
+    inner = heads * dim_head
+    sizes = dict(q=inner, p=heads * n, o=inner, x1=D, h2=D, z=mlp)
+    at = sum(sizes[k] for k in RECORD_PARTS[:RECORD_PARTS.index(part)])
+    out = saved.clone()
+    v = out[frame, at + index].reshape(1).to(torch.bfloat16)
+    up = v.clone()
+    up.view(torch.int16)[0] += 1
+    out[frame, at + index] += (up.float() - v.float())[0]
+    return out
