@@ -10,14 +10,17 @@ each seed, a fresh Python process started in that tree builds its kernels
 and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
 5b (the bodies off the flagship widths; "shared" only), 13 (K6, fp32 and
 bf16), 15 (K7 and K8), 16 (the composed routes), 17b (long frames), 13a
-and 13b (fault j's magnitude, and the same question of K2b and K3b) on
+and 13b (fault j's magnitude, and the same question of K2b, K3b and K6:
+fault k's magnitude without the CLS records and its repair with them) on
 two orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
           it (`Generator.spawn`, as phase 13's extra draws are), in that
           order, so that a phase added at the end moves no other phase's
-          draw;
+          draw; then phase 16 again on the draw it had in PR 11's run D1
+          (the seed's sixth spawn), where two of its bf16 checks failed
+          (lead l);
   fresh:  phases 5, 13, 15, 16, 17b, 13a and 13b each on a generator of
           its own from the seed.
 
@@ -107,6 +110,14 @@ for seed in seeds:
         for name, phase in later:
             print(f"== seed {seed}, {order}: phase {name}", flush=True)
             phase(fresh().spawn(1)[0])
+        if order == "shared":
+            # lead l: phase 16 on the generator it had in PR 11's run D1,
+            # where phases 13a and 13b were spawned before it (phases 5b
+            # and 13 spawn once each): the seed's sixth spawn
+            print(f"== seed {seed}, {order}: phase 16 on D1's draw",
+                  flush=True)
+            cs.phase_composed(cfg, flat, policies,
+                              np.random.default_rng(seed).spawn(6)[5])
         print("RESULT " + json.dumps({"seed": seed, "order": order,
                                       "failed": list(failed),
                                       "readings": cs.READINGS}), flush=True)
@@ -161,13 +172,42 @@ def rows(result):
             for case, v in r.items():
                 if not isinstance(v, dict):
                     continue
-                yield (f"{tag} recompute {case}: frames differing "
-                       + ", ".join(f"{k} {x:.4f}"
-                                   for k, x in v["differ"].items())
-                       + f", any {v['anywhere']:.4f}; dx within 2^-18 of "
-                       f"float64 sums (own scale) where one differs "
-                       f"{v['within_moved']:.4f}, where none "
-                       f"{v['within_unmoved']:.4f}; pooled {v['pooled']:.3e}")
+                line = (f"{tag} recompute {case}: frames differing "
+                        + ", ".join(f"{k} {x:.4f}"
+                                    for k, x in v["differ"].items())
+                        + f", any {v['anywhere']:.4f}")
+                if "after_differ" in v:   # K3b and K6: fault k
+                    line += (
+                        f" (with the records: {v['after_differ']:.4f}); dx "
+                        "within 2^-18 of float64 sums (own scale) without "
+                        f"the records where one differs "
+                        f"{v['within_moved']:.4f}, where none "
+                        f"{v['within_unmoved']:.4f}; with them "
+                        f"{v['within_after']:.4f} "
+                        + verdict(v["within_after"] >= 0.5
+                                  and v["after_differ"] == 0)
+                        + f"; pooled {v['pooled']:.3e} -> "
+                        f"{v['pooled_after']:.3e}")
+                if "kv_differ" in v:
+                    line += f"; k|v differ {v['kv_differ']:.4f}"
+                yield line
+        elif r["check"] == "composed":
+            yield (f"{tag} {r['what']}: kernels vs float64 sums "
+                   f"{r['kernels']:.3e} (limit max(2^-4, 2 x plain "
+                   f"{r['plain']:.3e}) = {r['limit']:.3e}) "
+                   + verdict(r["kernels"] <= r["limit"] and r["masks"])
+                   + f"; old vs the composition {r['old']:.3e} (limit "
+                   f"6.250e-02) {verdict(r['old'] <= 0.0625)}; the "
+                   f"composition vs float64 sums {r['composition']:.3e}, "
+                   f"vs its own {r['composition_own']:.3e}; the two "
+                   f"float64-sum versions apart {r['exact_apart']:.3e}; "
+                   f"masks equal {r['masks']}; K7 vs plain on its inputs "
+                   f"{r['k7_backward']:.3e}; by block, the frame the "
+                   "composition moved most, vs float64 sums (kernels / "
+                   "plain / composition): " + ", ".join(
+                       f"{i}: {b['kernels']:.1e} / {b['plain']:.1e} / "
+                       f"{b['composition']:.1e}"
+                       for i, b in enumerate(r["by_block"])))
         elif r["check"] == "fp32 K6":
             yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e}, the chain "
                    f"{r['chain']:.3e} against float64 sums (limit max(1e-3, "

@@ -102,9 +102,12 @@ per source, all at once), then
      update equals the one taken without the restart; the saved actor
      reloads through load_params_npz -> params_from_jax and gives the
      same actions; the same run again with sac.prefetch_batches, held to
-     the same launch counts; then run_eval for 3 episodes; env steps/s,
-     updates/s and the split of the loop into env, act, sample+copy and
-     learn, for both runs;
+     the same launch counts; then the guided trainer: demos the port
+     records itself (train/demo_record.py) in an expert buffer
+     (train.pre_buffer), and human intervention from a fake teleop with
+     no expert buffer, every update launching phase 18's counts; then
+     run_eval for 3 episodes; env steps/s, updates/s and the split of the
+     loop into env, act, sample+copy and learn, for each run;
  12. times of K5 and its plain version at B in {1, 32, 256} beside its
      bound;
  13. K6 against its plain version (trunk_bwd_fused, trunk_bwd_plain),
@@ -124,10 +127,15 @@ per source, all at once), then
      K4 form on the same x (actor and critic, B=256) write their streams;
      the share of frames whose streams differ, and K6's dx on each set
      against the float64-sum backward on the K4 form's, printed;
- 13b. the same question of K2b and K3b (phase_recompute, run last): the
-     intermediates their per-frame passes recompute against those K2f's
-     and K3f's body computed (a probe of the forward), and their dx
-     against float64 sums where they differ and where they do not;
+ 13b. faults j and k (phase_recompute, run last): the intermediates
+     K2b's per-frame pass recomputes against those K2f's body computed (a
+     probe of the forward); the CLS row's q, o, h2 and hid that K3b and
+     K6 (on each body of K4) work with against those the forward kept in
+     its CLS records: without the records (the body before fault k's
+     repair, recomputing them) the share of frames that differ, printed;
+     with them (the route) equal on every frame, held, and their dx
+     within phase 13's per-frame line of float64 sums; K3b's recomputed k
+     and v against K3f's;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -148,6 +156,10 @@ per source, all at once), then
      names); build_actor(cfg, attn_impl="pallas"), an acting
      forward at B=256 (K8 x4, K1 x0), its actions against the K1 route's;
      model.patch_size (8, 10), 257 tokens, at B=64 (K8 x4 by `auto`);
+     the two bf16 checks against the composition, restated (lead l,
+     EXACT_K): each route held to the float64-sum version of its plain
+     route, the composition's distances, the dropout masks of the two
+     passes and, block by block, where they part, printed;
  17. times of K6, K7, K8 and their plain versions beside their bounds,
      K6, K7 and K8 (redesigned for the tensor cores) also beside their
      earlier design's times, K7 beside its FMA kernel in this run and
@@ -168,6 +180,15 @@ per source, all at once), then
      routes, K7 with the probabilities or its output left in fp32, must
      FAIL); and, at 129 bf16 tokens, the composed gradient route's
      distance from the fused plain chain (a record);
+ 18. the expert-guided update (learn_guidence), the main path of the
+     default config (train.pre_buffer): one fp32 guided update at the
+     flagship width through the kernels against the JAX golden
+     (tests/data/torch_sac_guided_golden.npz) and the plain versions on
+     the card; then 5 bf16 guided updates at B=256 (256 agent rows, some
+     engaged, ++ 256 expert rows, 160 valid) on the default route (K4 x3,
+     K2f x12, K2b x12, K3f x4, K3b x4 an update) and the trunk-gradient
+     route (K4 x7, K6 x4), finite losses, the device time and host clock
+     beside the plain update's;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -208,6 +229,18 @@ PER_UPDATE = {"K1": 0, "K4": 3, "K2f": 6, "K2b": 6, "K3f": 2, "K3b": 2,
 # with DGVIT_TRUNK_GRAD=1: the two gradient forwards join K4, K6 is their
 # backward, and the per-block kernels rest
 PER_UPDATE_TRUNK = {**{k: 0 for k in PER_UPDATE}, "K4": 5, "K6": 2}
+# the guided update (learn_guidence), B agent ++ B expert rows: K4 x3 (the
+# TD target's two no-grad forwards and the actor step's critic trunk, on
+# the merged rows); gradient-bearing trunk passes: the critic and the
+# actor on the merged rows, the actor on the expert rows (BC) and on the
+# agent rows (engage), each K2f x3 + K3f forward, and the backwards of the
+# critic's one and the actor's three, K2b x3 + K3b each. With
+# DGVIT_TRUNK_GRAD=1 those four passes go forward through K4 and back
+# through K6.
+PER_GUIDED = {**{k: 0 for k in PER_UPDATE}, "K4": 3, "K2f": 12, "K2b": 12,
+              "K3f": 4, "K3b": 4}
+PER_GUIDED_TRUNK = {**{k: 0 for k in PER_UPDATE}, "K4": 7, "K6": 4}
+GUIDED_EXPERT = 160     # valid expert rows of the bf16 guided update
 GOLDEN_SAC = ROOT / "tests" / "data" / "torch_sac_golden.npz"
 GOLDEN_SAC_SEED, GOLDEN_SAC_BATCH, CRITIC_SEED = 11, 8, 5
 
@@ -217,6 +250,10 @@ K5_TIMED = ((1, 20), (32, 10), (256, 3))                   # (batch, reps)
 K5_PROFILED = 20           # calls in the window that names K5's CUDA kernels
 CAMERA_FRAMES, CAMERA_SEED = 32, 2024
 TRAIN_EPISODES, TRAIN_MAX_STEPS, TRAIN_BUFFER = 11, 52, 4096
+# the episodes of demos the guided trainer run records for its expert
+# buffer; the human-intervention run's episodes (the teleop's command
+# ends episodes sooner than the policy's) and its least updates
+DEMO_EPISODES, INTERVENTION_EPISODES, INTERVENTION_UPDATES = 3, 20, 20
 EVAL_EPISODES, EVAL_MAX_STEPS = 3, 100
 # K5 against its plain version. Both take every product and sum in fp32,
 # each rounded on its own and in the same order (the kernel through
@@ -368,7 +405,8 @@ ACTION_FP32 = 1e-4
 # Each prints its old reading (kernel against plain, old limit) beside the
 # new one; READINGS keeps every restated reading of a run for
 # chip_draws.py.
-EXACT_K = {"fp32": 2.0, "K4": 1.65, "K1": 2.0, "long": 2.0}
+EXACT_K = {"fp32": 2.0, "K4": 1.65, "K1": 2.0, "long": 2.0,
+           "composed": 2.0}
 CHAIN_WITHIN = 0.5
 READINGS: list = []
 
@@ -386,19 +424,38 @@ def exact_sums():
     they are: it swaps `fused_transformer._prod`, the one product of `_mm`
     and `_tmm`, so it reaches every product of blocks_forward_plain,
     got_forward_plain, block_bwd_plain, cls_bwd_plain, cls_fwd_plain,
-    attention_section_plain and trunk_bwd_plain; and `layers._prod`, every
+    attention_section_plain and trunk_bwd_plain; `layers._prod`, every
     product of the composed blocks and of `Linear` (and, under autograd,
-    their backward products)."""
+    their backward products); and the two products of each of
+    `ops.attention`'s plain attentions (`attention_xla`, the composed
+    route's, and `attention_plain`, K8's plain version)."""
+    import torch
+
     from dgvit_tpu_torch.models import layers
+    from dgvit_tpu_torch.ops import attention as att
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
-    kept = ft._prod, layers._prod
-    ft._prod = lambda a, b: (a.double() @ b.double()).float()
-    layers._prod = lambda a, b: (a.double() @ b.double()).to(a.dtype)
+    f64 = lambda a, b, dt: (a.double() @ b.double()).to(dt)
+
+    def xla(q, k, v, scale):
+        dots = f64(q, k.transpose(-1, -2), q.dtype) * scale
+        return f64(torch.softmax(dots, dim=-1), v, q.dtype)
+
+    def plain(q, k, v, scale):
+        dots = f64(q, k.transpose(-1, -2), torch.float32) * scale
+        e = torch.exp(dots - dots.amax(dim=-1, keepdim=True))
+        return f64(e / e.sum(dim=-1, keepdim=True), v, torch.float32).to(
+            q.dtype)
+
+    kept = ft._prod, layers._prod, att.attention_xla, att.attention_plain
+    ft._prod = lambda a, b: f64(a, b, torch.float32)
+    layers._prod = lambda a, b: f64(a, b, a.dtype)
+    att.attention_xla, att.attention_plain = xla, plain
     try:
         yield
     finally:
-        ft._prod, layers._prod = kept
+        (ft._prod, layers._prod, att.attention_xla,
+         att.attention_plain) = kept
 
 
 def exact(fn, *args):
@@ -704,10 +761,11 @@ def k7_unrounded(what):
     return section
 
 
-def k3b_f32_kv(x, dy, w, heads, dim_head):
+def k3b_f32_kv(x, dy, w, heads, dim_head, saved=None):
     """A wrong bf16 K3b: its plain version with the recomputed k and v of
     every row left in fp32 (the TPU kernel rounds them to the compute
-    dtype: the outputs of the tensor-core body's projection)."""
+    dtype: the outputs of the tensor-core body's projection), and the
+    CLS row recomputed from them (`saved` is not read)."""
     from dgvit_tpu_torch.ops import cls_block as cb
 
     with swapped(cb, "_kv_rows", lambda h1, wkv, cdt: cb._mm(h1, wkv)):
@@ -1145,9 +1203,9 @@ METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
 SAC_RTOL, SAC_ATOL, UPDATE_RTOL = 1e-4, 1e-6, 1e-2
 
 
-def golden_ref(g):
+def golden_ref(g, metrics=METRICS):
     """The golden file as a run of `golden_update` (metrics and norms)."""
-    return {"metrics": {k: float(g[k]) for k in METRICS},
+    return {"metrics": {k: float(g[k]) for k in metrics},
             **{kind: {str(n): float(v) for n, v in
                       zip(g[f"{kind}_names"], g[f"{kind}_norms"])}
                for kind in ("grad", "update")}}
@@ -1251,6 +1309,26 @@ def golden_batch(seed=GOLDEN_SAC_SEED, b=GOLDEN_SAC_BATCH):
             "done": np.zeros((b, 1), np.float32)}
 
 
+GUIDED_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                  "alpha", "n_expert", "guidence_weight")
+GOLDEN_SAC_GUIDED = ROOT / "tests" / "data" / "torch_sac_guided_golden.npz"
+# the golden guided update's expert rows: 5 of GOLDEN_SAC_BATCH valid; its
+# agent rows 1 and 6 engaged
+GOLDEN_N_EXPERT, GOLDEN_ENGAGED = 5, (1, 6)
+
+
+def golden_guided_batches(seed=GOLDEN_SAC_SEED, b=GOLDEN_SAC_BATCH):
+    """The golden guided update's agent batch (golden_batch, with engage
+    flags) and expert batch (another seeded batch, the expert's action as
+    'act')."""
+    import numpy as np
+
+    agent, expert = golden_batch(seed, b), golden_batch(seed + 1, b)
+    agent["engage"] = np.zeros((b, 1), np.float32)
+    agent["engage"][list(GOLDEN_ENGAGED)] = 1.0
+    return agent, expert
+
+
 def sac_state(agent, actor_flat, critic_flat):
     """The agent's fresh state with these actor and critic parameters (the
     target a copy of the critic; fresh Adam; log_alpha = log sac.alpha)."""
@@ -1264,10 +1342,12 @@ def sac_state(agent, actor_flat, critic_flat):
     return state
 
 
-def golden_update(device, g):
+def golden_update(device, g, guided=False):
     """One fp32 update of the golden state on `device` with the golden
-    noise, dropout off: metrics, per-parameter gradients and their norms,
-    update norms, and the parameters after it (port names)."""
+    noise, dropout off (`guided`: the guided update on
+    golden_guided_batches, GOLDEN_N_EXPERT valid expert rows): metrics,
+    per-parameter gradients and their norms, update norms, and the
+    parameters after it (port names)."""
     import torch
 
     from dgvit_tpu_torch.agents import SACAgent
@@ -1281,8 +1361,12 @@ def golden_update(device, g):
     before = {k: {n: p.detach().clone() for n, p in
                   getattr(state, k).named_parameters()} for k in kinds}
     alpha0 = state.log_alpha.item()
-    state, m = agent.learn(state, golden_batch(),
-                           noise=(g["noise_next"], g["noise_pi"]))
+    noise = (g["noise_next"], g["noise_pi"])
+    if guided:
+        state, m = agent.learn_guidence(state, *golden_guided_batches(),
+                                        GOLDEN_N_EXPERT, noise=noise)
+    else:
+        state, m = agent.learn(state, golden_batch(), noise=noise)
     grads = {f"{k}.{n}": p.grad.detach().clone() for k in ("actor", "critic")
              for n, p in getattr(state, k).named_parameters()}
     params = {f"{k}.{n}": p.detach().clone() for k in kinds
@@ -1317,9 +1401,10 @@ def kernel_counters():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel calls (K1-K4, K6, K7) to the plain
+    """Route the model's kernel calls (K1-K4, K6, K7, K8) to the plain
     versions (on the same card), for the kernel-against-plain comparison
     of a whole update or a whole route."""
+    from dgvit_tpu_torch.ops import attention as att
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_block as fb
     from dgvit_tpu_torch.ops import fused_transformer as ft
@@ -1334,7 +1419,8 @@ def plain_kernels():
              (gm, "trunk_bwd_fused", trunk_bwd_plain),
              (gm, "_launch", lambda *a, form=None: gm.got_forward_plain(
                  *a[:10])),
-             (fb, "_launch", fb.attention_section_plain)]
+             (fb, "_launch", fb.attention_section_plain),
+             (att, "_launch", lambda *a: att.attention_plain(*a))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -1351,7 +1437,7 @@ def autograd_bwd(plain_fwd):
     points."""
     import torch
 
-    def bwd(x, dy, w, heads, dim_head):
+    def bwd(x, dy, w, heads, dim_head, saved=None):
         xr = x.detach().requires_grad_()
         wr = [t.detach().requires_grad_() for t in w]
         gs = torch.autograd.grad(plain_fwd(xr, wr, heads, dim_head),
@@ -1439,7 +1525,10 @@ def train_cases(inp):
     k2 = (a["x"], a["blocks"][0], *hd)
     k2b = (a["x"], a["dy2"], a["blocks"][0], *hd)
     k3 = (c["last"], c["blocks"][-1], *hd)
-    k3b = (c["last"], c["dy3"], c["blocks"][-1], *hd)
+    # K3b differentiates the CLS row K3f computed: both versions read the
+    # records K3f keeps under autograd
+    k3b = (c["last"], c["dy3"], c["blocks"][-1], *hd,
+           cb.cls_fwd_fused(*k3, save=True)[1])
     autograd = "autograd of the plain forward"
     return [
         ("K4", lambda: gm.blocks_cls_forward_fused(*k4),
@@ -1820,9 +1909,11 @@ def phase_bwd_widths(nets, rng):
         e.add(zip(tensors(ft.block_bwd_fused(xs, dy2, bl[0], heads, dh)),
                   tensors(ft.block_bwd_plain(xs, dy2, bl[0], heads, dh))))
         e3 = TrainErrors()
-        e3.add(zip(tensors(cb.cls_bwd_fused(last, dy3, bl[-1], heads, dh)),
-                   tensors(cb.cls_bwd_plain(last, dy3, bl[-1], heads,
-                                            dh))))
+        rec = cb.cls_fwd_fused(last, bl[-1], heads, dh, save=True)[1]
+        e3.add(zip(tensors(cb.cls_bwd_fused(last, dy3, bl[-1], heads, dh,
+                                            rec)),
+                   tensors(cb.cls_bwd_plain(last, dy3, bl[-1], heads, dh,
+                                            rec))))
         e6 = k6_read(what, with_streams((xs, dy3, bl, a["fn"], heads, dh,
                                          "rms")))
         ok = e.ok and e3.ok and e6.mean <= K6_BF16_MEAN
@@ -2023,11 +2114,15 @@ def trunk_grad_switch():
         del os.environ["DGVIT_TRUNK_GRAD"]
 
 
-def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC"):
-    """Phases 6a and 14a, main paths: 5 bf16 learn steps at B=256, every
-    step launching exactly `per_update`. Returns the launch counts of the
-    run, the median update time, and a closure that runs one more update
-    (for the profile)."""
+def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC",
+              guided=False):
+    """Phases 6a, 14a and 18, main paths: 5 bf16 learn steps at B=256, or
+    with `guided` 5 learn_guidence steps on B agent rows (every 16th
+    engaged) and B expert rows (GUIDED_EXPERT valid), every step launching
+    exactly `per_update`. Returns the launch counts of the run, the median
+    update time, and a closure that runs one more update (for the
+    profile)."""
+    import numpy as np
     import torch
 
     from dgvit_tpu_torch.agents import SACAgent
@@ -2039,8 +2134,17 @@ def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC"):
     check(agent.dtype == torch.bfloat16 and cfg.model.emb_dropout == 0.1,
           "the main path's agent is bf16 with emb-dropout 0.1")
     state = sac_state(agent, actor_flat, critic_flat)
-    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
-             golden_batch(seed=SEED, b=SAC_BATCH).items()}
+    dev = lambda d: {k: torch.from_numpy(v).to(DEVICE) for k, v in d.items()}
+    batch = golden_batch(seed=SEED, b=SAC_BATCH)
+    if guided:
+        batch["engage"] = (np.arange(SAC_BATCH) % 16 == 3).astype(
+            np.float32)
+        expert = dev(golden_batch(seed=SEED + 1, b=SAC_BATCH))
+        update = lambda st: agent.learn_guidence(st, batch, expert,
+                                                 GUIDED_EXPERT)
+    else:
+        update = lambda st: agent.learn(st, batch)
+    batch = dev(batch)
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -2049,7 +2153,7 @@ def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC"):
         before = {k: fn.launches for k, fn in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = agent.learn(state, batch)
+        state, m = update(state)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         delta = {k: fn.launches - before[k] for k, fn in counters.items()}
@@ -2068,7 +2172,7 @@ def phase_sac(actor_flat, critic_flat, per_update=PER_UPDATE, label="SAC"):
           f"updates/s (host clock, synchronized); first step "
           f"{times[0] * 1e3:.2f} ms; launches over the run {launches}",
           flush=True)
-    return launches, steady, lambda: agent.learn(state, batch)
+    return launches, steady, lambda: update(state)
 
 
 def phase_sac_fp32():
@@ -2108,13 +2212,90 @@ def phase_sac_fp32():
     return {"vs_golden": worst_g, "vs_plain": worst_p}, kern
 
 
+def phase_guided(actor_flat, critic_flat, plain_updates):
+    """Phase 18, the expert-guided update (learn_guidence), main path:
+    one fp32 guided update at the flagship width through the kernels,
+    held to the JAX golden (GOLDEN_SAC_GUIDED) and to the same update
+    through the plain versions on the card, as phase 6b holds learn; then
+    5 bf16 guided updates at B=256 (B agent ++ B expert rows) on the
+    default route and on the trunk-gradient route, each step's launches
+    exactly PER_GUIDED / PER_GUIDED_TRUNK, its losses finite; the device
+    time and host clock of an update beside the plain update's
+    (`plain_updates`: {route: (host seconds, one-update closure)}), and
+    one guided update of each route profiled by CUDA kernel. Returns the
+    bf16 runs' launch counts and the times."""
+
+    import numpy as np
+    import torch
+
+    g = np.load(GOLDEN_SAC_GUIDED)
+    counters = kernel_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    kern = golden_update(DEVICE, g, guided=True)
+    check(all(counters[k].launches - before[k] == n
+              for k, n in PER_GUIDED.items()), "the fp32 guided update did "
+          "not go through the kernels")
+    before = {k: fn.launches for k, fn in counters.items()}
+    with plain_kernels():
+        plain = golden_update(DEVICE, g, guided=True)
+    check(all(fn.launches == before[k] for k, fn in counters.items()),
+          "the plain fp32 guided update launched a kernel")
+    bad_g, worst_g = update_mismatches(kern, golden_ref(g, GUIDED_METRICS))
+    bad_p, worst_p = update_mismatches(kern, plain)
+    gerr = max(((a - plain["grads"][n]).abs().max()
+                / plain["grads"][n].abs().max().clamp(min=1e-30)).item()
+               for n, a in kern["grads"].items())
+    pmax = max((a - plain["params"][n]).abs().max().item()
+               for n, a in kern["params"].items())
+    print(f"guided fp32 update through the kernels: largest relative "
+          f"differences from the JAX golden {worst_g}, from the plain "
+          f"versions on the card {worst_p}; grads max|err|/L vs plain "
+          f"{gerr:.3e}; parameters vs plain: max|diff| {pmax:.3e}",
+          flush=True)
+    check(not bad_g, f"the fp32 guided update disagrees with the golden: "
+          f"{bad_g}")
+    check(not bad_p, f"the fp32 guided update disagrees with the plain: "
+          f"{bad_p}")
+    check(gerr <= SAC_RTOL, "the fp32 guided update's grads disagree")
+    check(pmax <= 2.2e-3, "the fp32 guided update's parameters disagree")
+
+    out = {"fp32": {"vs_golden": worst_g, "vs_plain": worst_p}}
+    for route, per, switch in (
+            ("default", PER_GUIDED, contextlib.nullcontext),
+            ("trunk-gradient", PER_GUIDED_TRUNK, trunk_grad_switch)):
+        with switch():
+            launches, host_s, one = phase_sac(
+                actor_flat, critic_flat, per, f"guided SAC ({route})",
+                guided=True)
+        plain_s, plain_one = plain_updates[route]
+        phase_profile(one, f"guided ({route} route) bf16")
+        dev_ms, plain_dev_ms = device_ms(one, calls=3), device_ms(
+            plain_one, calls=3)
+        out[route] = dict(launches=launches, per_update=per,
+                          host_ms=host_s * 1e3, device_ms=dev_ms,
+                          plain_host_ms=plain_s * 1e3,
+                          plain_device_ms=plain_dev_ms)
+        print(f"guided update ({route} route, bf16, B={SAC_BATCH} agent + "
+              f"{SAC_BATCH} expert rows, {GUIDED_EXPERT} valid): device "
+              f"time {dev_ms:.2f} ms against the plain update's "
+              f"{plain_dev_ms:.2f} ms ({dev_ms / plain_dev_ms:.2f}x); host "
+              f"clock {host_s * 1e3:.2f} ms against {plain_s * 1e3:.2f} ms "
+              f"(medians of steps 1-{SAC_STEPS - 1}; {card()})", flush=True)
+    return out
+
+
 def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
                esize=2):
     """FLOPs and bytes a training kernel needs at the flagship width: each
     input read once, each output written once. The backward recomputes
     the forward and does two products per forward product (3x); K3 runs
-    q, attention, out-proj and MLP on one row per frame."""
+    q, attention, out-proj and MLP on one row per frame, K3f writes the
+    CLS row's fp32 records (as under autograd, the main path's calls) and
+    K3b reads them, recomputing only k and v."""
+    from dgvit_tpu_torch.ops.cls_block import cls_saved_width
+
     inner = heads * dh
+    record = batch * cls_saved_width(n, d, heads, dh, mlp) * 4
     w = d * 3 * inner + inner * d + 2 * d * mlp + mlp + 6 * d   # one block
     full = n * (2 * d * 3 * inner + 4 * heads * n * dh + 2 * inner * d
                 + 4 * d * mlp)
@@ -2129,8 +2310,9 @@ def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
     if kind == "K2b":
         return 3 * batch * full, (3 * rows + 2 * w) * esize
     if kind == "K3f":
-        return batch * cls, (rows + batch * d + w) * esize
-    return 3 * batch * cls, (2 * rows + batch * d + 2 * w) * esize
+        return batch * cls, (rows + batch * d + w) * esize + record
+    return (batch * (n * 2 * d * 2 * inner + 2 * cls),
+            (2 * rows + batch * d + 2 * w) * esize + record)
 
 
 def phase_train_times(nets, rng):
@@ -2154,6 +2336,10 @@ def phase_train_times(nets, rng):
           f"{by_depth[1]:.4f} ms, one full block and the CLS block "
           f"{by_depth[2]:.4f} ms", flush=True)
     for name, kern, plain, _ in train_cases(inp):
+        if name == "K3f":   # as the update calls it: keeping its records
+            c = inp["critic"]
+            kern = lambda: cb.cls_fwd_fused(c["last"], c["blocks"][-1],
+                                            c["heads"], c["dh"], save=True)
         ms = cuda_ms(kern, reps[name], runs=5)
         pms = cuda_ms(plain, max(1, reps[name] // 2), runs=5)
         bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
@@ -2474,9 +2660,30 @@ def phase_camera(cfg, flat, k5_per_call):
     return launches
 
 
+class FakeTeleop:
+    """A human-intervention source for the trainer (`train`'s
+    `intervention`): engaged every other env step (the trainer asks once a
+    step), one fixed [linear, angular] command."""
+
+    def __init__(self):
+        self.asked = self.reads = 0
+
+    @property
+    def engaged(self):
+        self.asked += 1
+        return self.asked % 2 == 0
+
+    def read_action(self):
+        self.reads += 1
+        return [0.3, 0.2]
+
+
 def phase_train(out_dir):
     """Phase 11, a main path: the env-in-the-loop trainer at the flagship
-    width, resume, the saved actor, and the evaluator."""
+    width, resume, the saved actor, and the evaluator; then the guided
+    trainer: an expert buffer of demos the port records itself
+    (train.pre_buffer), and human intervention from a fake teleop with no
+    expert buffer, every update through learn_guidence."""
     import numpy as np
     import torch
 
@@ -2488,6 +2695,8 @@ def phase_train(out_dir):
     from dgvit_tpu_torch.replay import (BatchPrefetcher, ReplayBuffer,
                                         reference_schema)
     from dgvit_tpu_torch.serve import make_action_fn
+    from dgvit_tpu_torch.train.demo_record import (record_episodes,
+                                                   scripted_pilot)
     from dgvit_tpu_torch.train.evaluate import run_eval
     from dgvit_tpu_torch.train.train_rl import train
 
@@ -2503,30 +2712,32 @@ def phase_train(out_dir):
           "the trainer's model is not the flagship")
     counters = kernel_counters()
 
-    def drive(cfg, out_dir, label):
-        """`train` from the seed for TRAIN_EPISODES episodes, with its
-        launch counts, metrics and the split of its loop checked."""
+    def drive(cfg, out_dir, label, per_update=PER_UPDATE,
+              episodes=TRAIN_EPISODES, min_updates=50, **kw):
+        """`train` from the seed for `episodes` episodes, with its launch
+        counts (`per_update` an update), metrics and the split of its loop
+        checked."""
         for fn in counters.values():
             fn.launches = 0
         timings = {}
         env = KinematicNavEnv(seed=SEED, world="rrc")
         t0 = time.perf_counter()
-        out = train(cfg, env, out_dir=out_dir, max_episodes=TRAIN_EPISODES,
-                    device=DEVICE, timings=timings)
+        out = train(cfg, env, out_dir=out_dir, max_episodes=episodes,
+                    device=DEVICE, timings=timings, **kw)
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         steps, updates = timings["env_steps"], timings["updates"]
         print(f"train ({label}): {out['episodes']} episodes, {steps} env "
               f"steps, {updates} updates in {wall:.2f} s (host clock); "
               f"launches {launches}", flush=True)
-        check(updates >= 50 and out["state"].itera == updates,
-              f"the trainer ({label}) took {updates} updates, expected "
-              "about 100")
-        want = {**{k: n * updates for k, n in PER_UPDATE.items()},
+        check(updates >= min_updates and out["state"].itera == updates,
+              f"the trainer ({label}) took {updates} updates, expected at "
+              f"least {min_updates}")
+        want = {**{k: n * updates for k, n in per_update.items()},
                 "K1": steps}
         check(launches == want, f"train ({label}) launched {launches}, "
-              f"expected {want}: every action K1 x1, every update K4 x3, "
-              "K2f x6, K2b x6, K3f x2, K3b x2")
+              f"expected {want}: every action K1 x1, every update "
+              f"{per_update}")
         rows = [json.loads(line) for line in
                 (Path(out_dir) / "train_gtrl_98.jsonl").read_text()
                 .splitlines()]
@@ -2625,6 +2836,35 @@ def phase_train(out_dir):
                if t.name == "BatchPrefetcher"],
           "train left its prefetch thread running")
 
+    # the guided trainer: demos the port records (the scripted pilot, in
+    # policy units), an expert buffer of them, and every update guided;
+    # then human intervention alone, on an all-masked expert batch
+    demo_env = KinematicNavEnv(seed=SEED + 3, world="rrc")
+    e = cfg.env
+    demos = record_episodes(
+        demo_env, scripted_pilot, str(Path(out_dir) / "Data"),
+        episodes=DEMO_EPISODES, max_steps=TRAIN_MAX_STEPS,
+        action_to_env=lambda a: [(a[0] + 1) * e.linear_cmd_scale,
+                                 a[1] * e.angular_cmd_scale])
+    check(bool(demos), "the recorder wrote no demo")
+    cfg.train.pre_buffer = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as guided_dir:
+        _, guided_launches, guided_rates = drive(
+            cfg, guided_dir, "expert buffer", PER_GUIDED,
+            expert_glob=str(Path(out_dir) / "Data" / "RRC" / "torch"
+                            / "*.npz"))
+    cfg.train.pre_buffer = False
+    cfg.train.human_intervention = True
+    tele = FakeTeleop()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tele_dir:
+        _, tele_launches, tele_rates = drive(
+            cfg, tele_dir, "human intervention", PER_GUIDED,
+            INTERVENTION_EPISODES, INTERVENTION_UPDATES, intervention=tele)
+    cfg.train.human_intervention = False
+    print(f"human intervention: the teleop engaged on {tele.reads} of "
+          f"{tele.asked} env steps", flush=True)
+    check(tele.reads > 0, "the trainer never read the teleop")
+
     cfg.env.max_steps = EVAL_MAX_STEPS
     for fn in counters.values():
         fn.launches = 0
@@ -2644,7 +2884,11 @@ def phase_train(out_dir):
     check(0.0 <= rep["success_rate"] <= 1.0 and rep["collisions"] >= 0
           and (Path(out_dir) / "testing_data.txt").exists(),
           "run_eval's report")
-    return launches, {**rates, "prefetch": prefetch_rates}
+    return (launches, {**rates, "prefetch": prefetch_rates,
+                       "expert_buffer": guided_rates,
+                       "human_intervention": tele_rates},
+            {"expert_buffer": guided_launches,
+             "human_intervention": tele_launches})
 
 
 def k5_work(batch, sigma):
@@ -2874,7 +3118,8 @@ def trunk_fp32_dx_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
     ft._ln_bwd = cb._ln_bwd = keeping
     try:
         dy_c = dcls.to(cdt)
-        _, g = cb.cls_bwd_plain(xs[-1], dy_c, blocks[-1], heads, dim_head)
+        _, g = cb.cls_bwd_plain(xs[-1], dy_c, blocks[-1], heads, dim_head,
+                                streams[2])
         dln2, dx32 = kept
         dx32 = dx32.clone()
         dx32[:, 0] += dy_c.float() + dln2
@@ -2905,11 +3150,12 @@ def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
     xs = [x]
     for w in blocks[:-1]:
         xs.append(ft.block_fwd_fused(xs[-1], w, heads, dim_head))
-    cls = cb.cls_fwd_fused(xs[-1], blocks[-1], heads, dim_head)
+    cls, rec = cb.cls_fwd_fused(xs[-1], blocks[-1], heads, dim_head,
+                                save=True)
     dcls, dfs, dfb = final_norm_bwd_plain(dy.float(), cls.float(), fn[0],
                                           fn[1], final_norm)
     dx, g = cb.cls_bwd_fused(xs[-1], dcls.to(x.dtype), blocks[-1], heads,
-                             dim_head)
+                             dim_head, rec)
     grads = [g]
     for xi, w in zip(reversed(xs[:-1]), reversed(blocks[:-1])):
         dx, g = ft.block_bwd_fused(xi, dx, w, heads, dim_head)
@@ -3215,7 +3461,8 @@ def phase_fault_j(nets, rng):
         streams = {name: gm._launch_blocks(x, blocks, fn, heads, dh, norm,
                                            body=body, streams=True)[1]
                    for name, body in (("FMA body", 0), ("K4 form", 1))}
-        (fxs, fcls), (kxs, kcls) = streams["FMA body"], streams["K4 form"]
+        (fxs, fcls, _), (kxs, kcls, _) = (streams["FMA body"],
+                                          streams["K4 form"])
         moved = [(a != b).flatten(1).any(1) for a, b in zip(fxs, kxs)]
         moved.append((fcls != kcls).any(1))
         differ = [m.float().mean().item() for m in moved]
@@ -3249,18 +3496,43 @@ def phase_fault_j(nets, rng):
     return reading
 
 
-def backward_slots(x, dy, w, heads, dim_head, cls):
+def workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls):
+    """The per-frame pass's operand slots of a bf16 block backward's
+    workspace `ws` (block_grad.cu's `workspace`): {name: slot} for h1 (B,
+    n, d), o, h2 and hid ((B, n, .) for a full block, the CLS row's (B, .)
+    for the CLS-only block), and for the CLS-only block also q (B, inner)
+    and k|v of every row (B, n, 2 inner; written only by the body that
+    recomputes the CLS row)."""
+    import torch
+
+    inner = heads * dim_head
+    rq, qkv = (1, 2 * inner) if cls else (n, 3 * inner)
+    elems = (n * d, n * qkv, rq * inner, rq * d, rq * mlp, rq * mlp, rq * d,
+             rq * inner, n * qkv, inner if cls else 0, inner if cls else 0)
+    at, slots = 0, []
+    for e in elems:
+        slots.append(ws[at:at + 2 * b * e].view(torch.bfloat16))
+        at = (at + 2 * b * e + 15) // 16 * 16
+    shape = (lambda c: (b, c)) if cls else (lambda c: (b, n, c))
+    out = {"h1": slots[0].view(b, n, d), "o": slots[2].view(shape(inner)),
+           "h2": slots[3].view(shape(d)), "hid": slots[4].view(shape(mlp))}
+    if cls:
+        out.update(q=slots[9].view(b, inner),
+                   kv=slots[1].view(b, n, 2 * inner))
+    return out
+
+
+def backward_slots(x, dy, w, heads, dim_head, cls, record=None):
     """K2b (cls False) or K3b (cls True) as `launch_block_bwd` launches
-    them, with the per-frame pass's workspace kept: (dx, {name: the
-    recomputed intermediate it wrote}) for h1 (B, n, d), o, h2 and hid
-    ((B, n, .) for K2b, the CLS row's (B, .) for K3b), read at the offsets
-    of block_grad.cu's `workspace`."""
+    them, with the per-frame pass's workspace kept: (dx, its slots as
+    `workspace_slots` names them). K3b reads the CLS records `record`;
+    None recomputes the CLS row (the body before fault k's repair)."""
     import torch
 
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
     b, n, d = x.shape
-    mlp, inner = w[7].shape[-1], heads * dim_head
+    mlp = w[7].shape[-1]
     lib = ft._block_lib()
     ws = torch.empty(lib.block_backward_workspace(
         ft._DTYPES[x.dtype], int(cls), b, n, d, heads, dim_head, mlp),
@@ -3268,25 +3540,60 @@ def backward_slots(x, dy, w, heads, dim_head, cls):
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]
     ft._call(lib.block_backward_launch, x.dtype, cls,
-             [x, dy, *w, dx, *grads, ws], x, heads, dim_head, mlp,
+             [x, dy, *w, dx, *grads, ws, record], x, heads, dim_head, mlp,
              int(ft.tensor_core_bwd(x, w, dim_head, dy)))
-    rq, qkv = (1, 2 * inner) if cls else (n, 3 * inner)
-    elems = (n * d, n * qkv, rq * inner, rq * d, rq * mlp)
-    at, slots = 0, []
-    for e in elems:
-        slots.append(ws[at:at + 2 * b * e].view(torch.bfloat16))
-        at = (at + 2 * b * e + 15) // 16 * 16
-    shape = (lambda c: (b, c)) if cls else (lambda c: (b, n, c))
-    return dx, {"h1": slots[0].view(b, n, d),
-                "o": slots[2].view(shape(inner)),
-                "h2": slots[3].view(shape(d)),
-                "hid": slots[4].view(shape(mlp))}
+    return dx, workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls)
+
+
+def trunk_slots(x, dy, blocks, fn, heads, dim_head, final_norm, streams,
+                record):
+    """K6 as `trunk_bwd_fused` launches it on K4's streams (xs, cls), its
+    CLS block reading the records `record` (None: recomputing the CLS row,
+    the body before fault k's repair), with its workspace kept: (dx, the
+    CLS block's slots as `workspace_slots` names them), read at the
+    offsets of block_grad.cu's `trunk_workspace`."""
+    import ctypes
+
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.trunk_train import _NORMS, tensor_core_trunk
+
+    lib = ft._block_lib()
+    b, n, d = x.shape
+    depth, mlp = len(blocks), blocks[0][7].shape[-1]
+    dt = ft._DTYPES[x.dtype]
+    ws = torch.empty(lib.trunk_backward_workspace(
+        dt, b, n, d, heads, dim_head, mlp, depth), dtype=torch.uint8,
+        device=x.device)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(t) for w in blocks for t in w]
+    dfn = [torch.empty_like(t) for t in fn]
+    tensors = [x, dy, *[t for w in blocks for t in w], *fn, dx, *grads, *dfn,
+               ws, *streams[:2], record]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    with torch.cuda.device(x.device):
+        err = lib.trunk_backward_launch(
+            dt, ctypes.cast(ptrs, ctypes.c_void_p), len(tensors), b, n, d,
+            heads, dim_head, mlp, depth, _NORMS[final_norm],
+            dim_head ** -0.5, torch.cuda.current_stream().cuda_stream,
+            int(tensor_core_trunk(x, blocks, dim_head)))
+    check(err == 0, f"K6 launch failed: {lib.block_error_string(err)}")
+    al = lambda v: (v + 15) // 16 * 16
+    at = 0
+    for _ in range(depth - 1):        # the dx between blocks
+        at = al(at + 2 * b * n * d)
+    at = al(al(at + 2 * b * d) + 4 * b * 2 * d)   # dcls, fnvec
+    at += (depth - 1) * lib.block_backward_workspace(dt, 0, b, n, d, heads,
+                                                     dim_head, mlp)
+    return dx, workspace_slots(ws[at:], b, n, d, heads, dim_head, mlp, True)
 
 
 def forward_probe(x, w, heads, dim_head, cls):
     """K2f's or K3f's bf16 tensor-core body with its intermediates written
     out (block_grad.cu: block_forward_probe): (out, {name: intermediate})
-    in backward_slots' shapes."""
+    in workspace_slots' shapes, and k and v of every row (B, n, inner)."""
     import ctypes
 
     import torch
@@ -3304,73 +3611,157 @@ def forward_probe(x, w, heads, dim_head, cls):
     rows = (b,) if cls else (b, n)
     out = new(b, d) if cls else new(b, n, d)
     inter = {"h1": new(b, n, d), "o": new(*rows, inner), "h2": new(*rows, d),
-             "hid": new(*rows, mlp)}
+             "hid": new(*rows, mlp), "k": new(b, n, inner),
+             "v": new(b, n, inner)}
     ft._call(lib.block_forward_probe, x.dtype, cls, [x, *w, out,
              *inter.values()], x, heads, dim_head, mlp)
     return out, inter
+
+
+def record_parts(rec, n, heads, dim_head, d, mlp):
+    """The bf16 parts of CLS records (cls_block.cls_saved_width's layout)
+    as the backward's slots hold them: q, o, h2."""
+    import torch
+
+    inner = heads * dim_head
+    q, _, o, _, h2, _ = torch.split(
+        rec, [inner, heads * n, inner, d, d, mlp], dim=1)
+    return {"q": q.bfloat16(), "o": o.bfloat16(), "h2": h2.bfloat16()}
 
 
 RECOMPUTE_BATCH = 256
 
 
 def phase_recompute(nets, rng):
-    """Phase 13b, fault j's question asked of K2b and K3b: their per-frame
-    passes recompute the block's forward on tensor-core code of their own
-    (block_bwd_mma, cls_bwd_mma); do they recompute the intermediates K2f
-    and K3f computed? For the actor's and the seeded critic's first block
-    (K2b on the embedded stream) and last block (K3b on the stream that
-    enters it), bf16, B=256, on a generator spawned off the phase's: the
-    share of frames whose recomputed h1, o, h2 or hid differ anywhere from
-    the forward's (the forward probe, which must give K2f's and K3f's
-    output bit for bit); and the kernel's dx against the float64-sum
-    version of its plain version, by frame on each frame's own scale
-    (phase 13's statistic), over the frames where an intermediate differs
-    and where none does. A measurement: nothing is held but the probe's
-    output and finiteness."""
+    """Phase 13b, faults j and k: do the backwards differentiate the
+    forward that ran? For the actor's and the seeded critic's trunks, bf16,
+    B=256, on a generator spawned off the phase's:
+      * K2b on the first block: the share of frames whose recomputed h1,
+        o, h2 or hid differ from K2f's (the forward probe, which must give
+        K2f's output bit for bit);
+      * K3b on the last block and K6 on the whole trunk, each body of K4
+        (0 FMA, 1 the K4 form, 2 every product on the tensor cores): the
+        CLS row's q, o, h2 and hid the backward works with, against those
+        the forward computed (its records; hid as the repaired backward
+        forms it from the records, and for K3b the probe's), with the
+        records (the repaired backward: equal on every frame, held) and
+        without (the body before the repair recomputing them: fault k's
+        magnitude, read); for K3b also whether its recomputed k and v
+        differ from K3f's (the probe's);
+    and each backward's dx against the float64-sum version of its plain
+    version on the same records, by frame on each frame's own scale
+    (phase 13's statistic and line, CHAIN_WITHIN, held for the repaired
+    backwards), over the frames where an intermediate differs and where
+    none does."""
     import torch
 
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
 
     share = lambda errs: (sum(f <= TRAIN_BF16_MEAN for f in errs) / len(errs)
                           if errs else float("nan"))
     reading = {}
+
+    def read(case, ahead, before, after, dx_before, dx_after, ex):
+        """The shares of frames whose `before` / `after` slots differ from
+        the forward's `ahead`, and dx against float64 sums; `after` must
+        equal `ahead` on every frame, its dx meet phase 13's line."""
+        differ = {k: (ahead[k] != before[k]).flatten(1).any(1)
+                  for k in ahead}
+        moved = sum(v.int() for v in differ.values()).gt(0)
+        after_differ = sum((ahead[k] != after[k]).flatten(1).any(1).int()
+                           for k in ahead).gt(0).float().mean().item()
+        check(after_differ == 0, f"fault k, {case}: the repaired backward's "
+              f"CLS row differs from the forward's on {after_differ:.4f} "
+              "of the frames")
+        errs = frame_errs(dx_before, ex, own_scale=True)
+        within = share(frame_errs(dx_after, ex, own_scale=True))
+        check(within >= CHAIN_WITHIN, f"fault k, {case}: the repaired "
+              f"backward's dx frames within 2^-18 of float64 sums {within:.4f}"
+              f" < {CHAIN_WITHIN}")
+        for t in (dx_before, dx_after):
+            check(bool(t.float().isfinite().all()), f"{case}: non-finite dx")
+        r = dict(differ={k: v.float().mean().item()
+                         for k, v in differ.items()},
+                 anywhere=moved.float().mean().item(),
+                 after_differ=after_differ,
+                 within_moved=share([e for e, m in zip(errs, moved.tolist())
+                                     if m]),
+                 within_unmoved=share([e for e, m in
+                                       zip(errs, moved.tolist()) if not m]),
+                 within_after=within,
+                 pooled=pooled_rel([dx_before], [ex]),
+                 pooled_after=pooled_rel([dx_after], [ex]))
+        reading[case] = r
+        print(f"recompute, {case}, B={RECOMPUTE_BATCH}: frames whose CLS-row "
+              "intermediate differs from the forward's before the repair: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["differ"].items())
+              + f", any {r['anywhere']:.4f}; after {after_differ:.4f}; dx "
+              f"frames within 2^-18 of float64 sums (own scale): before, "
+              f"where one differs {r['within_moved']:.4f}, where none does "
+              f"{r['within_unmoved']:.4f}; after {within:.4f} (at least "
+              f"{CHAIN_WITHIN}); pooled mean|err|/L {r['pooled']:.3e} -> "
+              f"{r['pooled_after']:.3e}", flush=True)
+        return r
+
     inp = train_inputs(nets["bfloat16"], RECOMPUTE_BATCH, rng.spawn(1)[0])
     for net, a in inp.items():
-        for kernel, cls, x, w, dy, fwd, plain in (
-                ("K2b", False, a["x"], a["blocks"][0], a["dy2"],
-                 ft.block_fwd_fused, ft.block_bwd_plain),
-                ("K3b", True, a["last"], a["blocks"][-1], a["dy3"],
-                 cb.cls_fwd_fused, cb.cls_bwd_plain)):
-            heads, dh = a["heads"], a["dh"]
-            out, ahead = forward_probe(x, w, heads, dh, cls)
-            check(torch.equal(out, fwd(x, w, heads, dh)),
-                  f"{kernel}'s forward probe ({net}) is not the forward")
-            dx, slots = backward_slots(x, dy, w, heads, dh, cls)
-            check(bool(dx.float().isfinite().all()), f"{kernel} ({net}): "
-                  "non-finite dx")
-            differ = {k: (ahead[k] != slots[k]).flatten(1).any(1)
-                      for k in ahead}
-            moved = sum(v.int() for v in differ.values()).gt(0)
-            ex = exact(plain, x, dy, w, heads, dh)[0]
-            errs = frame_errs(dx, ex, own_scale=True)
-            with_flip = [e for e, m in zip(errs, moved.tolist()) if m]
-            without = [e for e, m in zip(errs, moved.tolist()) if not m]
-            r = dict(differ={k: v.float().mean().item()
-                             for k, v in differ.items()},
-                     anywhere=moved.float().mean().item(),
-                     within_moved=share(with_flip),
-                     within_unmoved=share(without),
-                     pooled=pooled_rel([dx], [ex]))
-            reading[f"{kernel} {net}"] = r
-            print(f"recompute, {kernel} ({net}, B={RECOMPUTE_BATCH}): frames "
-                  "whose recomputed intermediate differs from the forward's: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in r["differ"].items())
-                  + f", any {r['anywhere']:.4f}; dx vs float64 sums, frames "
-                  f"within 2^-18 on their own scale: where one differs "
-                  f"{r['within_moved']:.4f} ({len(with_flip)} frames), where "
-                  f"none does {r['within_unmoved']:.4f} ({len(without)}); "
-                  f"pooled mean|err|/L {r['pooled']:.3e}", flush=True)
+        heads, dh = a["heads"], a["dh"]
+        # K2b on the first block: its recompute against K2f's body
+        x, w, dy = a["x"], a["blocks"][0], a["dy2"]
+        out, ahead = forward_probe(x, w, heads, dh, False)
+        check(torch.equal(out, ft.block_fwd_fused(x, w, heads, dh)),
+              f"K2b's forward probe ({net}) is not the forward")
+        dx, slots = backward_slots(x, dy, w, heads, dh, False)
+        check(bool(dx.float().isfinite().all()), f"K2b ({net}): non-finite")
+        differ = {k: (ahead[k] != slots[k]).flatten(1).any(1)
+                  for k in ("h1", "o", "h2", "hid")}
+        anywhere = sum(v.int() for v in differ.values()).gt(0)
+        reading[f"K2b {net}"] = dict(
+            differ={k: v.float().mean().item() for k, v in differ.items()},
+            anywhere=anywhere.float().mean().item())
+        print(f"recompute, K2b ({net}, B={RECOMPUTE_BATCH}): frames whose "
+              "recomputed intermediate differs from K2f's: " + ", ".join(
+                  f"{k} {v:.4f}"
+                  for k, v in reading[f"K2b {net}"]["differ"].items())
+              + f", any {anywhere.float().mean().item():.4f}", flush=True)
+
+        # K3b on the last block, on K3f's records
+        x, w, dy = a["last"], a["blocks"][-1], a["dy3"]
+        n, d, mlp = x.shape[1], x.shape[2], w[7].shape[-1]
+        k3f, rec = cb.cls_fwd_fused(x, w, heads, dh, save=True)
+        out, probe = forward_probe(x, w, heads, dh, True)
+        check(torch.equal(out, k3f) and torch.equal(
+            out, cb.cls_fwd_fused(x, w, heads, dh)), f"K3f ({net}): the "
+            "probe, the forward with records and without differ")
+        parts = record_parts(rec, n, heads, dh, d, mlp)
+        check(all(torch.equal(parts[k], probe[k]) for k in ("o", "h2")),
+              f"K3f ({net}): its records' o or h2 are not its body's")
+        dx0, before = backward_slots(x, dy, w, heads, dh, True)
+        dx1, after = backward_slots(x, dy, w, heads, dh, True, rec)
+        ahead = {**parts, "hid": probe["hid"]}
+        ex = exact(cb.cls_bwd_plain, x, dy, w, heads, dh, rec)[0]
+        r = read(f"K3b {net}", ahead, before, after, dx0, dx1, ex)
+        kv = torch.cat([probe["k"], probe["v"]], dim=-1)
+        r["kv_differ"] = (kv != before["kv"]).flatten(1).any(1).float(
+            ).mean().item()
+        print(f"recompute, K3b ({net}): frames whose recomputed k or v "
+              f"differ from K3f's: {r['kv_differ']:.4f}", flush=True)
+
+        # K6 on each body's streams and records
+        args = (a["x"], a["dy3"], a["blocks"], a["fn"], heads, dh, "rms")
+        for body in (0, 1, 2):
+            st = gm._launch_blocks(*args[:1], *args[2:], body=body,
+                                   streams=True)[1]
+            dx0, before = trunk_slots(*args, st, None)
+            dx1, after = trunk_slots(*args, st, st[2])
+            ahead = {**record_parts(st[2], n, heads, dh, d, mlp),
+                     "hid": after["hid"]}
+            ex = exact(trunk_bwd_plain, *args, st)[0]
+            read(f"K6 {net} K4 body {body}", ahead, before, after, dx0, dx1,
+                 ex)
     record("recompute", batch=RECOMPUTE_BATCH, **reading)
     return reading
 
@@ -3594,6 +3985,131 @@ def phase_attention(nets, rng):
     return worst
 
 
+def composed_routes(pol, forward, composition=None):
+    """Lead l's readings of one bf16 composed-route pass (`forward`, no
+    grad, its masks from a generator it seeds itself) through `pol`:
+    {variant: (output, [each block's output], [each dropout's kept
+    mask])} for the kernels, their plain versions (`plain_kernels`), the
+    float64-sum version of that (`exact_sums`), and the composition (the
+    same pass with the section composed in PyTorch, as on the CPU; or
+    `composition`, (another model, its pass)) and its float64-sum
+    version.
+    Also the largest |K7 output - attention_section_plain on the same
+    inputs| / L over the pass's K7 calls, which K7's backward
+    differentiates (as the JAX kernel's backward differentiates its XLA
+    twin)."""
+    import torch
+
+    from dgvit_tpu_torch.models import layers
+    from dgvit_tpu_torch.ops import fused_block as fb
+
+    out, rec = {}, {}
+    real_dropout, real_launch = layers.dropout, fb._launch
+
+    def dropout(x, rate, generator):
+        y = real_dropout(x, rate, generator)
+        rec["masks"].append((y != 0, x != 0))   # kept, where x is not 0
+        return y
+
+    def launch(x, wqkv, wout, bout, heads, dim_head):
+        y = real_launch(x, wqkv, wout, bout, heads, dim_head)
+        ref = fb.attention_section_plain(x, wqkv, wout, bout, heads,
+                                         dim_head)
+        rec["k7"] = max(rec["k7"], rel_max([y], [ref]))
+        return y
+
+    def run(name, fn, *modes, model=pol):
+        rec.update(blocks=[], masks=[], k7=0.0)
+        hooks = [b.register_forward_hook(
+            lambda m, i, o: rec["blocks"].append(o.detach().clone()))
+            for b in model.trans.transformer.blocks]
+        try:
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.no_grad())
+                stack.enter_context(swapped(layers, "dropout", dropout))
+                for mode in modes:
+                    stack.enter_context(mode)
+                y = fn().detach().clone()
+        finally:
+            for h in hooks:
+                h.remove()
+        out[name] = (y, rec["blocks"], rec["masks"])
+        return rec["k7"]
+
+    k7_backward = run("kernels", forward, swapped(fb, "_launch", launch))
+    run("plain", forward, plain_kernels())
+    run("float64 sums", forward, plain_kernels(), exact_sums())
+    if composition is None:
+        off = lambda: swapped(layers, "_on_card", lambda t: False)
+        run("composition", forward, off())
+        run("composition, float64 sums", forward, off(), exact_sums())
+    else:
+        model, comp = composition
+        run("composition", comp, model=model)
+        run("composition, float64 sums", comp, exact_sums(), model=model)
+    out["k7_backward"] = k7_backward
+    return out
+
+
+def composed_verdict(what, routes, view, old, relative) -> bool:
+    """Lead l's restated bf16 check of a composed route (EXACT_K): the
+    kernels' route held to the float64-sum version of its plain route,
+    max|err| (over the largest |value| when `relative`) under max(2^-4,
+    EXACT_K["composed"] x the plain route's own distance), where the old
+    check held it to the composition (`old`, printed beside). Also prints
+    the composition's own distance to its float64-sum version and to the
+    route's, whether the dropout masks of the kernels' pass and the
+    composition's agree, and block by block the largest distances over
+    the frame that moved most."""
+    ref = view(routes["float64 sums"][0])
+    scale = ref.abs().max().item() if relative else 1.0
+    dist = lambda a, b: (view(a) - view(b)).abs().max().item() / scale
+    d = {name: dist(routes[name][0], routes["float64 sums"][0])
+         for name in ("kernels", "plain", "composition")}
+    d["composition vs its float64 sums"] = dist(
+        routes["composition"][0], routes["composition, float64 sums"][0])
+    d["the float64 sums of both"] = dist(
+        routes["float64 sums"][0], routes["composition, float64 sums"][0])
+    limit = max(COMPOSED_BF16, EXACT_K["composed"] * d["plain"])
+    masks = [routes[name][2] for name in ("kernels", "composition")]
+    # the kept elements agree wherever neither pass's input is exactly 0
+    same_masks = len(masks[0]) == len(masks[1]) and all(
+        bool(((ka == kb) | ~(na & nb)).all())
+        for (ka, na), (kb, nb) in zip(*masks))
+    frame = (view(routes["kernels"][0]) - view(routes["composition"][0])
+             ).abs().flatten(1).amax(1).argmax().item()
+    by_block = []
+    for i, blk in enumerate(routes["float64 sums"][1]):
+        s = blk[frame].float().abs().max().item() or 1.0
+        by_block.append({name: (routes[name][1][i][frame].float()
+                                - blk[frame].float()).abs().max().item() / s
+                         for name in ("kernels", "plain", "composition")})
+    ok = d["kernels"] <= limit
+    print(f"{what}: the kernels' route vs its float64-sum version "
+          f"{d['kernels']:.3e} (limit max(2^-4, {EXACT_K['composed']:g} x "
+          f"the plain route's {d['plain']:.3e}) = {limit:.3e}) "
+          f"{'ok' if ok else 'FAIL'}; old reading vs the composition "
+          f"{old:.3e} (limit 2^-4); the composition vs the float64 sums "
+          f"{d['composition']:.3e}, vs its own "
+          f"{d['composition vs its float64 sums']:.3e}; the two "
+          f"float64-sum versions apart "
+          f"{d['the float64 sums of both']:.3e}; dropout masks of the two "
+          f"passes equal: {same_masks} ({len(masks[0])} each); K7 output "
+          f"vs its plain version on its inputs (what its backward "
+          f"differentiates) {routes['k7_backward']:.3e} L", flush=True)
+    print(f"{what}, frame {frame} (the one the composition moved most), "
+          "block outputs vs the float64-sum version, max|err| over the "
+          "frame's largest |value|: " + "; ".join(
+              f"block {i}: " + ", ".join(f"{k} {v:.2e}" for k, v in b.items())
+              for i, b in enumerate(by_block)), flush=True)
+    record("composed", what=what, kernels=d["kernels"], plain=d["plain"],
+           limit=limit, old=old, composition=d["composition"],
+           composition_own=d["composition vs its float64 sums"],
+           exact_apart=d["the float64 sums of both"], masks=same_masks,
+           k7_backward=routes["k7_backward"], by_block=by_block)
+    return ok and same_masks
+
+
 def phase_composed(cfg, flat, policies, rng):
     """Phase 16, main paths: the composed routes through the model."""
     import numpy as np
@@ -3651,6 +4167,10 @@ def phase_composed(cfg, flat, policies, rng):
              + log_std.float().mean()).backward()
             return mean.detach().float()
 
+        if dtype == "bfloat16":
+            routes = composed_routes(pol, lambda: pol(
+                obs, goal, deterministic=False,
+                generator=torch.Generator(dev).manual_seed(SEED))[0])
         mean, got = counted(train_pass)
         grads = {n: p.grad.detach().clone()
                  for n, p in pol.named_parameters()}
@@ -3681,9 +4201,13 @@ def phase_composed(cfg, flat, policies, rng):
               f"({worst_name})", flush=True)
         if dtype == "bfloat16":
             launches["dropout"] = got
-            check(err <= COMPOSED_BF16 * scale,
-                  "GoT(dropout=0.1), bf16: the K7 route's means leave the "
-                  "composition's")
+            check(torch.equal(routes["kernels"][0], mean),
+                  "GoT(dropout=0.1), bf16: the traced pass is not the "
+                  "training pass")
+            check(composed_verdict("GoT(dropout=0.1) bf16 means", routes,
+                                   lambda t: t.float(), err / scale, True),
+                  "GoT(dropout=0.1), bf16: the K7 route's means leave its "
+                  "float64-sum version's")
             # K7 takes its tensor-core form here (65 tokens, 4 x 64 heads)
             check_profile(phase_profile(train_pass, "GoT(dropout=0.1) bf16 "
                                         "training pass"),
@@ -3714,6 +4238,12 @@ def phase_composed(cfg, flat, policies, rng):
                 obs, goal, inference=True))
             (ref, _), l_ref = counted(lambda: policies[dtype](
                 obs, goal, inference=True))
+            if dtype == "bfloat16":
+                routes = composed_routes(
+                    pols["pallas"], lambda: pols["pallas"](
+                        obs, goal, inference=True)[0],
+                    (pols["xla"], lambda: pols["xla"](
+                        obs, goal, inference=True)[0]))
         act = lambda t: torch.tanh(t.float())
         err = (act(mean) - act(comp)).abs().max().item()
         err_k1 = (act(mean) - act(ref)).abs().max().item()
@@ -3726,9 +4256,16 @@ def phase_composed(cfg, flat, policies, rng):
               and l_ref == only(K1=1),
               f"attn_impl='pallas' launched {got}, 'xla' {l_comp}, the "
               f"default actor {l_ref}; expected K8 x4, nothing, K1 x1")
-        check(err <= limit and err_k1 <= limit_k1,
-              f"attn_impl='pallas' ({dtype}): actions leave the "
-              "composition's or the K1 route's")
+        if dtype == "bfloat16":
+            check(composed_verdict("attn_impl='pallas' bf16 actions",
+                                   routes, act, err, False)
+                  and err_k1 <= limit_k1,
+                  f"attn_impl='pallas' ({dtype}): actions leave their "
+                  "float64-sum version's or the K1 route's")
+        else:
+            check(err <= limit and err_k1 <= limit_k1,
+                  f"attn_impl='pallas' ({dtype}): actions leave the "
+                  "composition's or the K1 route's")
         if dtype == "bfloat16":
             launches["pallas"] = got
 
@@ -4116,15 +4653,18 @@ def phase_long_frames(flat, rng):
 def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
     """The least FLOPs and bytes of K4's backward from x, dy and K4's
     streams: the forward once (the blocks' inner activations are not
-    given), two products for each of its products; x, dy, the streams
-    and the weights read, dx and the weight gradients written, once
-    each."""
+    given), two products for each of its products; x, dy, the streams,
+    the CLS block's fp32 records and the weights read, dx and the weight
+    gradients written, once each."""
+    from dgvit_tpu_torch.ops.cls_block import cls_saved_width
+
     fwd, _ = train_work("K4", batch, n, d, heads, dh, mlp, depth, esize)
     inner = heads * dh
     w = d * 3 * inner + inner * d + 2 * d * mlp + mlp + 6 * d
     streams = (depth - 1) * batch * n * d + batch * d
+    record = batch * cls_saved_width(n, d, heads, dh, mlp) * 4
     return 3 * fwd, ((2 * batch * n * d + batch * d + streams + 2 * depth * w)
-                     * esize + 4 * d * 4)
+                     * esize + 4 * d * 4 + record)
 
 
 def section_library(x, wqkv, wout, bout, heads=4, dim_head=64):
@@ -4393,7 +4933,7 @@ def main() -> int:
     k5_worst = phase_k5(rng)
     camera_launches = phase_camera(cfg, flat, k5_per_call)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        loop_launches, loop_rates = phase_train(out_dir)
+        loop_launches, loop_rates, guided_loop = phase_train(out_dir)
 
     k6_worst = phase_k6(nets, rng)
     with trunk_grad_switch():
@@ -4407,6 +4947,9 @@ def main() -> int:
           f"against {update_s * 1e3:.2f} ms on the default route (bf16, "
           f"B={SAC_BATCH}, host clock, synchronized, medians of steps 1-"
           f"{SAC_STEPS - 1} in this run)", flush=True)
+    guided = phase_guided(actor_flat, critic_flat, {
+        "default": (update_s, one_update),
+        "trunk-gradient": (trunk_update_s, trunk_update)})
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -4439,7 +4982,8 @@ def main() -> int:
     }]
     rows[0]["launches_by_path"] = {
         "serving": launches, "camera_to_action": camera_launches["K1"],
-        "train": loop_launches["K1"]}
+        "train": loop_launches["K1"],
+        **{f"train_{k}": v["K1"] for k, v in guided_loop.items()}}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -4458,7 +5002,12 @@ def main() -> int:
                 "launches_by_path": {
                     "sac_update": sac_launches[short],
                     "train": loop_launches[short],
-                    "trunk_grad_update": trunk_launches[short]},
+                    "trunk_grad_update": trunk_launches[short],
+                    "guided_update": guided["default"]["launches"][short],
+                    "guided_trunk_grad_update":
+                        guided["trunk-gradient"]["launches"][short],
+                    **{f"train_{k}": v[short]
+                       for k, v in guided_loop.items()}},
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({
@@ -4480,6 +5029,10 @@ def main() -> int:
         "launches_per_update": PER_UPDATE_TRUNK["K6"],
         "update_ms": trunk_update_s * 1e3,
         "default_update_ms": update_s * 1e3,
+        "launches_by_path": {
+            "trunk_grad_update": trunk_launches["K6"],
+            "guided_trunk_grad_update":
+                guided["trunk-gradient"]["launches"]["K6"]},
     })
     for short, path, shape in (
             ("K7", "dropout", f"({SAC_BATCH}, 65, 64)"),
@@ -4502,7 +5055,8 @@ def main() -> int:
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")
     print(f"fault j (phase 13a): {json.dumps(fault_j)}")
-    print(f"K2b and K3b recomputes (phase 13b): {json.dumps(recompute)}")
+    print(f"K2b, K3b and K6 recomputes (phase 13b): {json.dumps(recompute)}")
+    print(f"guided update (phase 18): {json.dumps(guided)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

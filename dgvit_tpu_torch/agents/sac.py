@@ -1,4 +1,5 @@
-"""SAC agent: the plain update of the JAX package's `agents/sac.py::learn`.
+"""SAC agent: the plain and the expert-guided updates of the JAX
+package's `agents/sac.py` (`learn`, `learn_guidence`).
 
 The state (`SACState`) holds the actor, the twin-Q critic and its target
 as modules with fp32 parameters, one torch Adam (eps 1e-8) each for the
@@ -23,8 +24,17 @@ Emb-dropout stays live in every learn forward, as the reference never
 calls .eval(). The no-grad forwards (the TD target's actor and target
 critic, and the critic trunk in the actor step) take the K4 route; the
 critic and actor losses differentiate through the K2/K3 route
-(`models/got.py`). Not here: the PER, guided and BC flavors, DrQ
-augmentation and `critic_latent_reuse`.
+(`models/got.py`).
+
+`learn_guidence` (DRL.py learn_guidence; JAX `_guided_core`) runs the
+same update on the agent rows merged with an expert batch (2B rows): the
+TD target, the critic loss and the policy loss over the merged rows,
+weighted 1 on agent rows and by validity (`row < n_expert`) on expert
+rows, plus a behaviour-cloning loss of the deterministic actor on the
+valid expert rows (`guidence_weight`, with its geometric curriculum) and
+an intervention loss on the agent rows with engage == 1
+(`engage_weight`). Not here: the PER flavours (`learn_per`,
+`learn_guidence_per`), DrQ augmentation and `critic_latent_reuse`.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from dgvit_tpu_torch.models.policies import (GoTPolicy, GoTQNetwork,
 from dgvit_tpu_torch.replay.staging import HostStager
 
 BATCH_KEYS = ("obs", "pobs", "act", "rew", "next_obs", "next_pobs")
+GUIDED_KEYS = BATCH_KEYS + ("done",)
 
 
 @dataclass
@@ -87,6 +98,11 @@ class SACAgent:
         self.alpha_max, self.alpha_min = s.alpha_max, s.alpha_min
         self.done_mask = bool(s.done_mask_in_target)
         self.nan_guard = bool(s.nan_guard)
+        self.guidence_weight = float(s.guidence_weight)
+        self.engage_weight = float(s.engage_weight)
+        self.gw_final = (None if s.guidence_weight_final is None
+                         else float(s.guidence_weight_final))
+        self.gw_decay_steps = int(s.guidence_decay_steps or 0)
         self.obs_ndim = 3 if cfg.model.patch_mode == "channels" else 2
         self._act_stager = None     # pinned buffers of choose_action_host
 
@@ -162,52 +178,39 @@ class SACAgent:
             return state.log_alpha.detach().exp()
         return torch.tensor(self.fixed_alpha, device=self.device)
 
-    def learn(self, state: SACState, batch: Mapping[str, object],
-              noise: Optional[Sequence] = None
-              ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
-        """One SAC update (DRL.py:373-437), in place.
+    def _tensors(self, batch: Mapping[str, object], keys) -> Dict:
+        return {k: torch.as_tensor(batch[k], dtype=torch.float32,
+                                   device=self.device) for k in keys}
 
-        batch: obs (B, H, W), pobs (B, pstate), act (B, A), rew (B,) or
-        (B, 1), next_obs, next_pobs, and done when the done mask is on;
-        numpy or tensors. noise: optional (next-action, policy) standard
-        normal draws, each (B, A), in place of the generator's. Returns the
-        state and the metrics (0-dim tensors)."""
-        keys = BATCH_KEYS + (("done",) if self.done_mask else ())
-        b = {k: torch.as_tensor(batch[k], dtype=torch.float32,
-                                device=self.device) for k in keys}
-        noise_next, noise_pi = (None, None) if noise is None else (
+    def _noise(self, noise):
+        return (None, None) if noise is None else tuple(
             torch.as_tensor(n, dtype=torch.float32, device=self.device)
             for n in noise)
+
+    @torch.no_grad()
+    def _td_target(self, state: SACState, alpha, b, noise_next):
+        """r + gamma * (minQ' - alpha logpi'): no-grad forwards with live
+        dropout (K4 route)."""
         g = state.generator
-        prev = self._snapshot(state) if self.nan_guard else None
-        alpha = self._alpha(state)
+        mean, log_std = state.actor(b["next_obs"], b["next_pobs"],
+                                    deterministic=False, inference=True,
+                                    generator=g)
+        nxt = distributions.sample(mean, log_std, g, noise=noise_next)
+        q1_t, q2_t = state.critic_target(
+            b["next_obs"], b["next_pobs"], nxt.action,
+            deterministic=False, inference=True, generator=g)
+        min_q = torch.minimum(q1_t, q2_t).float() \
+            - alpha * nxt.log_prob.float()
+        rew = b["rew"].reshape(-1, 1)
+        if self.done_mask:
+            min_q = (1.0 - b["done"].reshape(-1, 1)) * min_q
+        return rew + self.gamma * min_q
 
-        # TD target: no-grad forwards with live dropout (K4 route)
-        with torch.no_grad():
-            mean, log_std = state.actor(b["next_obs"], b["next_pobs"],
-                                        deterministic=False, inference=True,
-                                        generator=g)
-            nxt = distributions.sample(mean, log_std, g, noise=noise_next)
-            q1_t, q2_t = state.critic_target(
-                b["next_obs"], b["next_pobs"], nxt.action,
-                deterministic=False, inference=True, generator=g)
-            min_q = torch.minimum(q1_t, q2_t).float() \
-                - alpha * nxt.log_prob.float()
-            rew = b["rew"].reshape(-1, 1)
-            if self.done_mask:
-                min_q = (1.0 - b["done"].reshape(-1, 1)) * min_q
-            target = rew + self.gamma * min_q
-
-        # critic update (K2/K3 route)
-        q1, q2 = state.critic(b["obs"], b["pobs"], b["act"],
-                              deterministic=False, generator=g)
-        qf1_loss = torch.mean(torch.square(q1.float() - target))
-        qf2_loss = torch.mean(torch.square(q2.float() - target))
-        state.critic_opt.zero_grad(set_to_none=True)
-        (qf1_loss + qf2_loss).backward()
-        state.critic_opt.step()
-
-        # actor update against the updated critic; its trunk is no-grad
+    def _policy_terms(self, state: SACState, alpha, b, noise_pi):
+        """The actor's sample on the batch (live dropout) and alpha logpi -
+        minQ against the updated critic, whose trunk is no-grad: (sample,
+        per-element loss (B, A))."""
+        g = state.generator
         mean, log_std = state.actor(b["obs"], b["pobs"], deterministic=False,
                                     generator=g)
         s = distributions.sample(mean, log_std, g, noise=noise_pi)
@@ -217,15 +220,21 @@ class SACAgent:
                                         generator=g)
         q1_pi, q2_pi = state.critic.heads(latent, s.action)
         min_q_pi = torch.minimum(q1_pi, q2_pi).float()
-        policy_loss = torch.mean(alpha * s.log_prob.float() - min_q_pi)
+        return s, alpha * s.log_prob.float() - min_q_pi
+
+    @staticmethod
+    def _actor_step(state: SACState, loss: torch.Tensor) -> None:
         params = list(state.actor.parameters())
-        grads = torch.autograd.grad(policy_loss, params)
+        grads = torch.autograd.grad(loss, params)
         for p, gr in zip(params, grads):
             p.grad = gr
         state.actor_opt.step()
 
-        # temperature
-        log_pi = s.log_prob.detach().float()
+    def _finish(self, state: SACState, log_pi: torch.Tensor, metrics: Dict,
+                prev) -> Dict:
+        """The temperature's step (its loss into metrics), Polyak averaging
+        and the counter, then nan_guard's rollback: the tail every update
+        flavour shares."""
         if self.auto_tune:
             alpha_loss = -torch.mean(state.log_alpha
                                      * (log_pi + self.target_entropy))
@@ -251,18 +260,161 @@ class SACAgent:
                     t.copy_(t * (1.0 - self.tau) + p * self.tau)
         state.itera += 1
 
-        metrics = {"qf1_loss": qf1_loss.detach(),
-                   "qf2_loss": qf2_loss.detach(),
-                   "policy_loss": policy_loss.detach(),
-                   "alpha_loss": alpha_loss, "alpha": alpha,
-                   "entropy": -torch.mean(log_pi)}
+        metrics = dict(metrics, alpha_loss=alpha_loss)
         if self.nan_guard:
             ok = bool(torch.isfinite(metrics["qf1_loss"] + metrics["qf2_loss"])
                       & torch.isfinite(metrics["policy_loss"]))
             if not ok:
                 self._restore(state, prev)
             metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
+        return metrics
+
+    def learn(self, state: SACState, batch: Mapping[str, object],
+              noise: Optional[Sequence] = None
+              ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
+        """One SAC update (DRL.py:373-437), in place.
+
+        batch: obs (B, H, W), pobs (B, pstate), act (B, A), rew (B,) or
+        (B, 1), next_obs, next_pobs, and done when the done mask is on;
+        numpy or tensors. noise: optional (next-action, policy) standard
+        normal draws, each (B, A), in place of the generator's. Returns the
+        state and the metrics (0-dim tensors)."""
+        keys = BATCH_KEYS + (("done",) if self.done_mask else ())
+        b = self._tensors(batch, keys)
+        noise_next, noise_pi = self._noise(noise)
+        g = state.generator
+        prev = self._snapshot(state) if self.nan_guard else None
+        alpha = self._alpha(state)
+        target = self._td_target(state, alpha, b, noise_next)
+
+        # critic update (K2/K3 route)
+        q1, q2 = state.critic(b["obs"], b["pobs"], b["act"],
+                              deterministic=False, generator=g)
+        qf1_loss = torch.mean(torch.square(q1.float() - target))
+        qf2_loss = torch.mean(torch.square(q2.float() - target))
+        state.critic_opt.zero_grad(set_to_none=True)
+        (qf1_loss + qf2_loss).backward()
+        state.critic_opt.step()
+
+        # actor update against the updated critic; its trunk is no-grad
+        s, per_elem = self._policy_terms(state, alpha, b, noise_pi)
+        policy_loss = torch.mean(per_elem)
+        self._actor_step(state, policy_loss)
+        log_pi = s.log_prob.detach().float()
+        metrics = self._finish(state, log_pi, {
+            "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
+            "policy_loss": policy_loss.detach(), "alpha": alpha,
+            "entropy": -torch.mean(log_pi)}, prev)
+        return state, {k: metrics[k] for k in (
+            "qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
+            "entropy", *(("skipped_nonfinite",) if self.nan_guard else ()))}
+
+    def guidence_weight_at(self, itera: int) -> torch.Tensor:
+        """The guidance-weight curriculum (JAX sac.py:783-792): geometric
+        decay from sac.guidence_weight to sac.guidence_weight_final over
+        sac.guidence_decay_steps updates, taken in fp32 at the update
+        counter before the step; constant without a final weight."""
+        w0 = self.guidence_weight
+        gw = torch.tensor(w0, dtype=torch.float32, device=self.device)
+        if (self.gw_final is not None and self.gw_decay_steps > 0
+                and self.gw_final != w0):
+            frac = torch.clamp(torch.tensor(float(itera), dtype=torch.float32,
+                                            device=self.device)
+                               / float(self.gw_decay_steps), 0.0, 1.0)
+            ratio = torch.tensor(self.gw_final / w0, dtype=torch.float32,
+                                 device=self.device)
+            gw = w0 * torch.pow(ratio, frac)
+        return gw
+
+    def _bc_mse(self, state: SACState, obs, pobs, act, rows) -> torch.Tensor:
+        """Masked MSE of the deterministic actor's mean action (no dropout)
+        against `act` over the rows where `rows` is 1:
+        sum(rows (tanh(mean) - act)^2) / max(sum(rows) A, 1)."""
+        mean, _ = state.actor(obs, pobs, deterministic=True)
+        sq = torch.square(torch.tanh(mean) - act).float()
+        denom = torch.clamp(torch.sum(rows) * sq.shape[1], min=1.0)
+        return torch.sum(rows.reshape(-1, 1) * sq) / denom
+
+    def _guided_core(self, state: SACState, batch, expert_batch, n_expert,
+                     noise=None):
+        """The guided update on agent ++ expert rows (JAX `_guided_core`
+        with all-ones agent weights): (state, metrics, td), td the
+        per-agent-row |TD error|."""
+        b = self._tensors(batch, GUIDED_KEYS)
+        e = self._tensors(expert_batch, GUIDED_KEYS)
+        engage = torch.as_tensor(batch["engage"], dtype=torch.float32,
+                                 device=self.device).reshape(-1)
+        noise_next, noise_pi = self._noise(noise)
+        g = state.generator
+        prev = self._snapshot(state) if self.nan_guard else None
+        itera = state.itera
+        alpha = self._alpha(state)
+        rows, rows_e = b["obs"].shape[0], e["obs"].shape[0]
+        n_expert = int(n_expert)
+        valid = (torch.arange(rows_e, device=self.device)
+                 < n_expert).float()
+        merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
+        w = torch.cat([torch.ones(rows, device=self.device), valid]
+                      ).reshape(-1, 1)
+        target = self._td_target(state, alpha, merged, noise_next)
+
+        # critic update on the merged rows, weighted
+        q1, q2 = state.critic(merged["obs"], merged["pobs"], merged["act"],
+                              deterministic=False, generator=g)
+        q1, q2 = q1.float(), q2.float()
+        td = torch.abs(q1.detach() - target).mean(dim=1)[:rows]
+        denom = torch.sum(w) * q1.shape[1]
+        qf1_loss = torch.sum(w * torch.square(q1 - target)) / denom
+        qf2_loss = torch.sum(w * torch.square(q2 - target)) / denom
+        state.critic_opt.zero_grad(set_to_none=True)
+        (qf1_loss + qf2_loss).backward()
+        state.critic_opt.step()
+
+        # actor: the weighted policy loss over the merged rows, the expert
+        # BC loss and the intervention loss (both computed whatever their
+        # gates, as the JAX step computes them)
+        gw = self.guidence_weight_at(itera)
+        s, per_elem = self._policy_terms(state, alpha, merged, noise_pi)
+        policy_loss = torch.sum(w * per_elem) / (
+            torch.sum(w) * per_elem.shape[1])
+        bc = self._bc_mse(state, e["obs"], e["pobs"], e["act"], valid)
+        eng = self._bc_mse(state, b["obs"], b["pobs"], b["act"], engage)
+        policy_loss = policy_loss + (
+            gw * bc * float(n_expert > 0)
+            + self.engage_weight * eng * (torch.sum(engage) > 0).float())
+        self._actor_step(state, policy_loss)
+        metrics = self._finish(state, s.log_prob.detach().float(), {
+            "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
+            "policy_loss": policy_loss.detach(), "alpha": alpha,
+            "n_expert": torch.tensor(float(n_expert), device=self.device),
+            "guidence_weight": gw}, prev)
+        return state, metrics, td
+
+    def learn_guidence(self, state: SACState, batch: Mapping[str, object],
+                       expert_batch: Mapping[str, object], n_expert: int,
+                       noise: Optional[Sequence] = None
+                       ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
+        """One expert-guided SAC update (DRL.py learn_guidence), in place.
+
+        batch: the agent rows as `learn` takes them, with done and engage
+        (B,) or (B, 1); expert_batch: the expert rows (Be, ...) with the
+        expert's action as 'act', the first `n_expert` valid (the rest
+        mask padding). noise: optional (next-action, policy) standard
+        normal draws over the merged rows, each (B + Be, A). Returns the
+        state and the metrics, `n_expert` and `guidence_weight` among
+        them."""
+        state, metrics, _ = self._guided_core(state, batch, expert_batch,
+                                              n_expert, noise)
         return state, metrics
+
+    @staticmethod
+    def expert_batch_size(exp_buffer_size: int, agent_buffer_size: int,
+                          batch_size: int) -> int:
+        """DRL.py:195: min(floor(exp / agent * batch), batch)."""
+        if agent_buffer_size <= 0:
+            return batch_size
+        return int(min(np.floor(exp_buffer_size / agent_buffer_size
+                                * batch_size), batch_size))
 
     # ------------------------------------------------------------------
     # checkpoint conveniences mirroring the DRL.py API surface

@@ -99,6 +99,13 @@ class SACConfig:
     policy_freq: int = 1     # soft-update cadence
     batch_size: int = 32
     buffer_size: int = 30000
+    guidence_weight: float = 1.0   # expert BC loss weight
+    engage_weight: float = 1.0     # intervention loss weight
+    # guidance-weight curriculum: geometric decay from guidence_weight to
+    # guidence_weight_final over guidence_decay_steps learn steps (None/0:
+    # constant)
+    guidence_weight_final: Optional[float] = None
+    guidence_decay_steps: int = 0
     # True samples by priority and feeds |TD error| back (the PER update
     # flavour, not ported: `train.train_rl.train` raises on it)
     prioritized_replay: bool = False

@@ -8,6 +8,10 @@ the reference's, quirk for quirk:
     ep_real > eval_threshold; save when avg_reward > save_threshold or
     collisions < 6, with metric-encoded names (main.py:345-356)
   * learning starts once the buffer holds batch_size transitions
+  * expert demos preloaded into the expert buffer (main.py:223-268); with
+    them (train.pre_buffer and an expert glob) every update is the guided
+    one (`learn_guidence`), and a human-intervention source stores its
+    command in policy units with engage = 1
   * reward curve npy/png every plot_interval (main.py:364-365)
   * final summary appended to results/training_data.txt (main.py:410-417)
 
@@ -18,16 +22,20 @@ buffers that are reused. Full train-state checkpoints, keyed by the
 update counter, let a run resume.
 
 Ported: the plain `learn` flavour with and without `sac.prefetch_batches`,
-`resume`, `save_replay`, `if_test`, `pre_train`, the online frame stack.
-Not ported yet, and raising NotImplementedError by name rather than
-running something else: `sac.prioritized_replay`, the expert buffer
-(`learn_guidence`), human intervention, `--env replay|ros2`, `train_elastic`.
+the guided flavour (`learn_guidence`: the expert buffer and human
+intervention), `resume`, `save_replay`, `if_test`, `pre_train`, the online
+frame stack. Not ported yet, and raising NotImplementedError by name rather
+than running something else: `sac.prioritized_replay` (`learn_per`, and
+with the guided path `learn_guidence_per`), `--env replay|ros2`,
+`train_elastic`.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
+import re
 import time
 from typing import Optional, Union
 
@@ -38,6 +46,7 @@ from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.envs import Env, KinematicNavEnv
+from dgvit_tpu_torch.envs.replay_env import load_demo_npz
 from dgvit_tpu_torch.models.jax_io import params_to_jax
 from dgvit_tpu_torch.replay import (BatchPrefetcher, ReplayBuffer,
                                     reference_schema)
@@ -46,6 +55,52 @@ from dgvit_tpu_torch.utils import MetricsLogger, RewardCurve
 
 LOGGED_METRICS = ("alpha", "alpha_loss", "policy_loss", "qf1_loss",
                   "qf2_loss", "entropy", "skipped_nonfinite")
+
+
+def natural_key(name: str):
+    """Sort key that compares digit runs as numbers ('2.npz' before
+    '10.npz'), as natsort orders the reference's demo files."""
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", name)]
+
+
+def load_expert_dataset(pattern: str):
+    """main.py:223-268: the demo npz files matching `pattern`, in natural
+    order, concatenated (`load_demo_npz`); None when none match."""
+    files = sorted(glob.glob(pattern), key=natural_key)
+    if not files:
+        return None
+    return load_demo_npz(files)
+
+
+def expert_buffer(cfg: Config, pattern: str, obs_shape, stacked: bool):
+    """The expert replay buffer of the demos matching `pattern` and the
+    number of transitions it holds, or (None, 0). Demo frames are (N, H,
+    W) or (N, H, W, C): with the frame stack, C-channel demos go to (N, C,
+    H, W) and single-frame demos are repeated to the stack depth; without
+    it, channel 0 of C-channel demos is kept."""
+    data = load_expert_dataset(pattern)
+    if data is None:
+        return None, 0
+    s = cfg.sac
+
+    def frames(a):
+        if stacked:
+            if a.ndim == 4:
+                return a.transpose(0, 3, 1, 2)
+            return np.repeat(a[:, None], cfg.env.frame_stack, axis=1)
+        return a[..., 0] if a.ndim == 4 else a
+
+    obs, nxt = frames(data["obs"]), frames(data["next_obs"])
+    n = obs.shape[0]
+    # expert demos are sampled uniformly in the reference
+    buf = ReplayBuffer(n + 1, reference_schema(
+        obs_shape, s.action_dim, s.pstate_dim, expert=True),
+        seed=cfg.train.seed)
+    buf.add(obs=obs, act_exp=data["act"], pobs=data["goal"][:, :2],
+            next_pobs=data["next_goal"][:, :2],
+            rew=np.resize(data["reward"], (n,)), next_obs=nxt,
+            done=data["done"].astype(np.float32))
+    return buf, n
 
 
 class FrameStacker:
@@ -127,18 +182,17 @@ def evaluate(env: Env, agent: SACAgent, state, max_steps: int,
 
 
 def _refuse_unported(cfg: Config, expert_glob, intervention) -> None:
-    if cfg.sac.prioritized_replay:
+    if not cfg.sac.prioritized_replay:
+        return
+    t = cfg.train
+    if (t.pre_buffer and expert_glob) or (
+            t.human_intervention and intervention is not None):
         raise NotImplementedError(
-            "sac.prioritized_replay: the PER update (learn_per) is not "
-            "ported yet")
-    if cfg.train.pre_buffer and expert_glob:
-        raise NotImplementedError(
-            "expert_glob with train.pre_buffer: the expert-demonstration update "
-            "(learn_guidence) is not ported yet")
-    if cfg.train.human_intervention or intervention is not None:
-        raise NotImplementedError(
-            "train.human_intervention / intervention: the engage loss "
-            "(learn_guidence) is not ported yet")
+            "sac.prioritized_replay with the guided update: the guided PER "
+            "update (learn_guidence_per) is not ported yet")
+    raise NotImplementedError(
+        "sac.prioritized_replay: the PER update (learn_per) is not ported "
+        "yet")
 
 
 def train(cfg: Config, env: Env, out_dir: str = "results",
@@ -148,6 +202,14 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
           device: Optional[Union[str, torch.device]] = None,
           timings: Optional[dict] = None) -> dict:
     """Train the SAC agent on `env`. Runs on the card unless device='cpu'.
+
+    `expert_glob`, with train.pre_buffer: demo npz files
+    (`train/demo_record.py`) loaded into an expert buffer; every update is
+    then the guided one. `intervention`: a human-in-the-loop source with
+    `.engaged` and `.read_action() -> [linear, angular]`; while engaged
+    its command overrides the policy's and is stored in policy units with
+    engage = 1, and with train.human_intervention the updates are guided
+    (an all-masked expert batch when there is no expert buffer).
     `timings`, when given, collects the host-clock seconds (synchronised)
     of each part of the loop under 'env', 'act', 'sample' (sampling and
     the copy to the device) and 'learn', with 'env_steps' and 'updates'
@@ -194,6 +256,11 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
         seed=t.seed)
     if resumed_replay:
         buf.load_transitions(resumed_replay)
+    expert_buf, expert_size = (
+        expert_buffer(cfg, expert_glob, obs_shape, stacker is not None)
+        if t.pre_buffer and expert_glob else (None, 0))
+    guided = expert_buf is not None or (t.human_intervention
+                                        and intervention is not None)
 
     max_eps = max_episodes if max_episodes is not None else e.max_episodes
     max_action = e.max_action
@@ -205,6 +272,7 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
     start_time = time.time()
     prefetcher = None
     stager = HostStager(agent.device)
+    expert_stager = HostStager(agent.device)
     if timings is not None:
         timings.update({k: 0.0 for k in ("env", "act", "sample", "learn")},
                        env_steps=0, updates=0)
@@ -219,6 +287,22 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
         d = buf.sample(s.batch_size)
         d.pop("engage", None)
         return d
+
+    def _guided_sample():
+        """(agent batch, expert batch with its actions as 'act', valid
+        expert rows); without an expert buffer (intervention only) an
+        all-masked expert batch of zeros."""
+        ab = buf.sample(s.batch_size)
+        if expert_buf is not None:
+            k = agent.expert_batch_size(expert_size, buf.get_stored_size(),
+                                        s.batch_size)
+            eb = expert_buf.sample(s.batch_size)
+            eb["act"] = eb.pop("act_exp")
+        else:
+            k = 0
+            eb = {key: np.zeros_like(v) for key, v in ab.items()
+                  if key != "engage"}
+        return ab, eb, k
 
     def actor_params():
         return params_to_jax(state.actor.state_dict())
@@ -238,6 +322,16 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
                                          evaluate=t.if_test)
             clock("act", t0)
             a = a.clip(-max_action, max_action)
+            engage = 0.0
+            if intervention is not None and getattr(intervention, "engaged",
+                                                    False):
+                # human override: run the teleop command and store it in
+                # policy units (the inverse of a_in below) with engage = 1
+                cmd = intervention.read_action()
+                a = np.asarray([cmd[0] / e.linear_cmd_scale - 1.0,
+                                cmd[1] / e.angular_cmd_scale],
+                               np.float32).clip(-max_action, max_action)
+                engage = 1.0
             a_in = [(a[0] + 1) * e.linear_cmd_scale,
                     a[1] * e.angular_cmd_scale]
             last_goal = goal
@@ -263,8 +357,19 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
             if not t.if_test:
                 buf.add(obs=obs, act=a, pobs=last_goal[:2],
                         next_pobs=goal[:2], rew=sres.reward,
-                        next_obs=next_obs, engage=0.0, done=float(done))
-                if buf.get_stored_size() >= s.batch_size:
+                        next_obs=next_obs, engage=engage, done=float(done))
+                if buf.get_stored_size() >= s.batch_size and guided:
+                    t0 = time.perf_counter()
+                    ab, eb, k = _guided_sample()
+                    ab, _ = stager.put(ab)
+                    eb, _ = expert_stager.put(eb)
+                    clock("sample", t0, sync=True)
+                    t0 = time.perf_counter()
+                    state, metrics = agent.learn_guidence(state, ab, eb, k)
+                    clock("learn", t0, sync=True)
+                    if timings is not None:
+                        timings["updates"] += 1
+                elif buf.get_stored_size() >= s.batch_size:
                     t0 = time.perf_counter()
                     if s.prefetch_batches:
                         # a background thread samples the NEXT batch and

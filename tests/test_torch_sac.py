@@ -17,8 +17,10 @@ Tolerances (fp32, another summation order on each side):
 
 The port's fp32 update at the flagship width is also held to a golden
 file of the JAX update (tests/data/torch_sac_golden.npz), which
-chip_smoke.py holds the CUDA kernels' update to. Regenerate it with
-`python tests/test_torch_sac.py`.
+chip_smoke.py holds the CUDA kernels' update to, and the guided update
+to tests/data/torch_sac_guided_golden.npz. Regenerate them with
+`python tests/test_torch_sac.py [torch_sac_golden|torch_sac_guided_golden]`
+(both without an argument).
 """
 
 import copy
@@ -27,6 +29,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -288,6 +291,225 @@ def test_trunk_grad_learn_equals_the_default_route(monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# the expert-guided update (learn_guidence)
+# --------------------------------------------------------------------------
+
+# (n_expert, engage rows): no valid expert row, some, all of them; with no
+# agent row engaged and with some
+GUIDED_CASES = [(0, False), (0, True), (4, False), (4, True), (B, False),
+                (B, True)]
+GUIDED_IDS = [f"n_expert={n}-engage={'some' if e else 'none'}"
+              for n, e in GUIDED_CASES]
+GUIDED_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                  "alpha", "n_expert", "guidence_weight")
+
+
+def guided_batches(seed, engage, b=B):
+    """An agent batch with engage flags and an expert batch whose 'act' is
+    the expert's action."""
+    agent_b, expert_b = make_batch(seed, b), make_batch(seed + 100, b)
+    flags = np.zeros((b, 1), np.float32)
+    if engage:
+        flags[[1, 4]] = 1.0
+    agent_b["engage"] = flags
+    expert_b["done"][2] = 1.0
+    return agent_b, expert_b
+
+
+def guided_noise(agent, state, rows):
+    """The row noise JAX's guided step draws over the merged rows: the TD
+    target's next-action noise and the actor step's policy noise."""
+    key = jax.random.fold_in(state.rng, state.itera)
+    k_tgt, _, k_act, _, _ = jax.random.split(key, 5)
+    a = agent.cfg.sac.action_dim
+    return (np.array(agent._row_noise_draw(jax.random.split(k_tgt, 3)[0],
+                                             rows, a)),
+            np.array(agent._row_noise_draw(jax.random.split(k_act, 3)[0],
+                                             rows, a)))
+
+
+def jax_guided_grads(agent, state, batch, expert, n_expert):
+    """The critic and actor gradients of JAX's guided step at this state
+    (its `_guided_core` written out, as `_grads` writes out learn)."""
+    def grads(state, batch, expert, n_expert):
+        key = jax.random.fold_in(state.rng, state.itera)
+        k_tgt, k_crit, k_act, k_g, k_e = jax.random.split(key, 5)
+        alpha = agent._alpha_of(state)
+        be = expert["obs"].shape[0]
+        valid = (jnp.arange(be) < n_expert).astype(jnp.float32)
+        keys = ("obs", "pobs", "act", "rew", "next_obs", "next_pobs", "done")
+        merged = {k: jnp.concatenate([batch[k], expert[k]]) for k in keys}
+        w = jnp.concatenate([jnp.ones(batch["obs"].shape[0]), valid]
+                            ).reshape(-1, 1)
+        target = agent._td_target(state, alpha, merged, k_tgt)
+
+        def critic_loss(cp):
+            q1, q2 = agent._apply_critic(cp, merged["obs"], merged["pobs"],
+                                         merged["act"], dropout_key=k_crit)
+            denom = jnp.sum(w) * q1.shape[1]
+            return (jnp.sum(w * jnp.square(q1 - target)) / denom
+                    + jnp.sum(w * jnp.square(q2 - target)) / denom)
+
+        cgrads = jax.grad(critic_loss)(state.critic_params)
+        upd, _ = agent.critic_tx.update(cgrads, state.critic_opt,
+                                        state.critic_params)
+        cp = optax.apply_updates(state.critic_params, upd)
+        k1, k2, k3 = jax.random.split(k_act, 3)
+
+        def bc(ap, rows, d, k):
+            s = agent._sample_actor(ap, d["obs"], d["pobs"], k)
+            sq = jnp.square(s.mean - d["act"])
+            return jnp.sum(rows.reshape(-1, 1) * sq) / jnp.maximum(
+                jnp.sum(rows) * sq.shape[1], 1.0)
+
+        def actor_loss(ap):
+            s = agent._sample_actor(ap, merged["obs"], merged["pobs"], k1,
+                                    dropout_key=k2)
+            q1, q2 = agent._apply_critic(cp, merged["obs"], merged["pobs"],
+                                         s.action, dropout_key=k3,
+                                         inference=True)
+            per = alpha * s.log_prob - jnp.minimum(q1, q2)
+            eng = batch["engage"].reshape(-1)
+            return (jnp.sum(w * per) / (jnp.sum(w) * per.shape[1])
+                    + (agent.guidence_weight * bc(ap, valid, expert, k_g)
+                       * (n_expert > 0)
+                       + agent.engage_weight * bc(ap, eng, batch, k_e)
+                       * (jnp.sum(eng) > 0)))
+
+        return cgrads, jax.grad(actor_loss)(state.actor_params)
+
+    cg, ag = jax.jit(grads)(state, jax.tree_util.tree_map(jnp.asarray, batch),
+                            jax.tree_util.tree_map(jnp.asarray, expert),
+                            jnp.int32(n_expert))
+    return (params_from_jax(jax.tree_util.tree_map(np.asarray, cg)),
+            params_from_jax(jax.tree_util.tree_map(np.asarray, ag)))
+
+
+@pytest.fixture(scope="module")
+def guided():
+    """For each case, one JAX guided update from a carried state and the
+    same update in the port."""
+    jcfg = JaxConfig.from_dict({"model": SMALL})
+    jagent = JaxSACAgent(jcfg, row_noise=True)
+    s1, _ = jagent.learn(jagent.init_state(3), make_batch(1))
+    carried = as_numpy(s1)
+    agent = SACAgent(Config.from_dict({"model": SMALL}), device="cpu")
+    out = {}
+    for n_expert, engage in GUIDED_CASES:
+        batch, expert = guided_batches(50 + n_expert, engage)
+        st = jax.tree_util.tree_map(jnp.asarray, carried)
+        noise = guided_noise(jagent, st, 2 * B)
+        grads = jax_guided_grads(jagent, st, batch, expert, n_expert)
+        s2, metrics = jagent.learn_guidence(st, batch, expert, n_expert)
+        state = sac_state_from_jax(agent, carried)
+        state, pm = agent.learn_guidence(state, batch, expert, n_expert,
+                                         noise=noise)
+        out[(n_expert, engage)] = dict(
+            jax=as_numpy(s2), jax_metrics=metrics, jax_grads=grads,
+            port=state, port_metrics=pm)
+    return out
+
+
+@pytest.mark.parametrize("case", GUIDED_CASES, ids=GUIDED_IDS)
+def test_guided_metrics_match_jax(guided, case):
+    pm, jm = guided[case]["port_metrics"], guided[case]["jax_metrics"]
+    assert set(pm) == set(GUIDED_METRICS) == set(jm)
+    for k in GUIDED_METRICS:
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), err_msg=k,
+                                   **TOL)
+    assert float(pm["n_expert"]) == case[0]
+
+
+@pytest.mark.parametrize("which", ["critic", "actor"])
+@pytest.mark.parametrize("case", GUIDED_CASES, ids=GUIDED_IDS)
+def test_guided_grads_match_jax(guided, case, which):
+    module = getattr(guided[case]["port"], which)
+    ref = guided[case]["jax_grads"][0 if which == "critic" else 1]
+    for name, p in module.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name], err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("which", ["actor", "critic", "critic_target"])
+@pytest.mark.parametrize("case", GUIDED_CASES, ids=GUIDED_IDS)
+def test_guided_params_after_update_match_jax(guided, case, which):
+    key = {"actor": "actor_params", "critic": "critic_params",
+           "critic_target": "critic_target_params"}[which]
+    port = dict(getattr(guided[case]["port"], which).named_parameters())
+    two_level_close(port, params_from_jax(getattr(guided[case]["jax"], key)))
+    np.testing.assert_allclose(guided[case]["port"].log_alpha.item(),
+                               float(guided[case]["jax"].log_alpha), **TOL)
+    assert guided[case]["port"].itera == int(guided[case]["jax"].itera) == 2
+
+
+def test_guided_updates_with_and_without_experts():
+    """Mirrors tests/test_sac.py:134: the guided update runs, finite, with
+    a full expert batch and with every expert row masked (n_expert 0,
+    where the BC term is gated off and reports n_expert 0)."""
+    agent = small_agent()
+    state = agent.init_state()
+    batch, expert = guided_batches(60, engage=True)
+    state, m = agent.learn_guidence(state, batch, expert, B)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert float(m["n_expert"]) == B and state.itera == 1
+    state, m = agent.learn_guidence(state, batch, expert, 0)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert float(m["n_expert"]) == 0 and state.itera == 2
+
+
+@pytest.mark.parametrize("exp,agent_size,batch,want", [
+    (100, 1000, 32, 3), (5000, 1000, 32, 32), (100, 0, 32, 32),
+    (1000, 1000, 16, 16), (0, 50, 32, 0)])
+def test_expert_batch_size(exp, agent_size, batch, want):
+    """Mirrors tests/test_sac.py:151 (DRL.py:195): min(floor(exp / agent x
+    batch), batch), the batch when the agent buffer is empty; the same as
+    the JAX package's."""
+    assert SACAgent.expert_batch_size(exp, agent_size, batch) == want
+    assert JaxSACAgent.expert_batch_size(exp, agent_size, batch) == want
+
+
+def test_guided_nan_guard_rolls_back_and_advances():
+    """Mirrors tests/test_sac.py:275: nan_guard covers the guided step: a
+    non-finite loss rolls the whole update back and the counter moves
+    on."""
+    agent = small_agent(nan_guard=True)
+    state = agent.init_state()
+    batch, expert = guided_batches(70, engage=True)
+    state, m = agent.learn_guidence(state, batch, expert, 3)
+    assert float(m["skipped_nonfinite"]) == 0.0
+    mods = (state.actor, state.critic, state.critic_target)
+    before = [snapshot(m_) for m_ in mods]
+    log_alpha = state.log_alpha.item()
+    expert["rew"][0, 0] = np.inf
+    state, m = agent.learn_guidence(state, batch, expert, 3)
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert state.itera == 2
+    assert not any(changed(b, m_) for b, m_ in zip(before, mods))
+    assert state.log_alpha.item() == log_alpha
+
+
+@pytest.mark.parametrize("itera,want", [(0, 2.0), (50, 2.0 * 0.05 ** 0.5),
+                                        (100, 0.1), (250, 0.1)])
+def test_guidence_weight_curriculum(itera, want):
+    """Mirrors tests/test_round3_fixes.py:164: the guidance weight decays
+    geometrically from guidence_weight to guidence_weight_final over
+    guidence_decay_steps updates, read at the counter before the step,
+    and stays constant without a final weight; the guided step reports
+    it."""
+    agent = small_agent(guidence_weight=2.0, guidence_weight_final=0.1,
+                        guidence_decay_steps=100)
+    assert float(agent.guidence_weight_at(itera)) == pytest.approx(
+        want, rel=1e-6)
+    assert float(small_agent(guidence_weight=2.0).guidence_weight_at(
+        itera)) == 2.0
+    state = agent.init_state()
+    state.itera = itera
+    batch, expert = guided_batches(80, engage=False)
+    _, m = agent.learn_guidence(state, batch, expert, 2)
+    assert float(m["guidence_weight"]) == pytest.approx(want, rel=1e-6)
+
+
+# --------------------------------------------------------------------------
 # the flagship golden update
 # --------------------------------------------------------------------------
 
@@ -347,6 +569,66 @@ def jax_golden():
     return out
 
 
+GOLDEN_GUIDED = ROOT / "tests" / "data" / "torch_sac_guided_golden.npz"
+
+
+def test_port_guided_update_matches_golden():
+    """The port's fp32 guided update at the flagship width, on the CPU,
+    from the golden state with the golden noise over the merged rows,
+    within chip_smoke.py's tolerances (stated there), against the JAX
+    guided update's golden file."""
+    import chip_smoke
+
+    g = np.load(GOLDEN_GUIDED)
+    run = chip_smoke.golden_update("cpu", g, guided=True)
+    bad, _ = chip_smoke.update_mismatches(
+        run, chip_smoke.golden_ref(g, chip_smoke.GUIDED_METRICS))
+    assert not bad, bad
+
+
+def jax_guided_golden():
+    """The JAX guided update of the golden state: metrics, per-parameter
+    gradient norms and update norms (port names), and the injected
+    noise over the merged rows."""
+    import chip_smoke
+
+    cfg = JaxConfig.from_dict({"model": {"emb_dropout": 0.0}})
+    agent = JaxSACAgent(cfg, row_noise=True)
+    actor, critic = chip_smoke.golden_params()
+    s0 = agent.init_state(chip_smoke.GOLDEN_SAC_SEED)
+    unflat = lambda flat: jax.tree_util.tree_map(
+        jnp.asarray, chip_smoke.unflatten(flat))
+    ap, cp = unflat(actor), unflat(critic)
+    s0 = s0.replace(actor_params=ap, critic_params=cp,
+                    critic_target_params=jax.tree_util.tree_map(jnp.copy, cp),
+                    actor_opt=agent.actor_tx.init(ap),
+                    critic_opt=agent.critic_tx.init(cp))
+    batch, expert = chip_smoke.golden_guided_batches()
+    k = chip_smoke.GOLDEN_N_EXPERT
+    noise = guided_noise(agent, s0, 2 * len(batch["rew"]))
+    cgrads, agrads = jax_guided_grads(agent, s0, batch, expert, k)
+    s0 = as_numpy(s0)          # the step donates the state it is given
+    s1, metrics = agent.learn_guidence(s0, batch, expert, k)
+    out = {k_: np.float32(metrics[k_]) for k_ in chip_smoke.GUIDED_METRICS}
+    out["noise_next"], out["noise_pi"] = noise
+    norms = lambda d: {k_: float(np.linalg.norm(v)) for k_, v in d.items()}
+    grads = {**{f"critic.{n}": v for n, v in norms(cgrads).items()},
+             **{f"actor.{n}": v for n, v in norms(agrads).items()}}
+    upd = {}
+    for kind, key in (("actor", "actor_params"), ("critic", "critic_params"),
+                      ("critic_target", "critic_target_params")):
+        new = params_from_jax(as_numpy(getattr(s1, key)))
+        old = params_from_jax(as_numpy(getattr(s0, key)))
+        upd.update({f"{kind}.{n}": float(np.linalg.norm(
+            new[n].numpy() - old[n].numpy())) for n in new})
+    upd["log_alpha"] = float(abs(s1.log_alpha - s0.log_alpha))
+    for kind, d in (("grad", grads), ("update", upd)):
+        names = sorted(d)
+        out[f"{kind}_names"] = np.array(names)
+        out[f"{kind}_norms"] = np.array([d[n] for n in names], np.float64)
+    return out
+
+
 if __name__ == "__main__":
     import sys
 
@@ -354,9 +636,16 @@ if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
     import conftest  # noqa: F401  (pins JAX to the CPU)
 
-    data = jax_golden()
-    GOLDEN.parent.mkdir(exist_ok=True)
-    np.savez(GOLDEN, **data)
-    print(f"wrote {GOLDEN}: " + ", ".join(
-        f"{k} {float(data[k]):.6g}" for k in ("qf1_loss", "qf2_loss",
-                                              "policy_loss", "entropy")))
+    for path, make, keys in (
+            (GOLDEN, jax_golden, ("qf1_loss", "qf2_loss", "policy_loss",
+                                  "entropy")),
+            (GOLDEN_GUIDED, jax_guided_golden, ("qf1_loss", "qf2_loss",
+                                                "policy_loss",
+                                                "guidence_weight"))):
+        if sys.argv[1:] and path.stem not in sys.argv[1:]:
+            continue
+        data = make()
+        path.parent.mkdir(exist_ok=True)
+        np.savez(path, **data)
+        print(f"wrote {path}: " + ", ".join(
+            f"{k} {float(data[k]):.6g}" for k in keys))

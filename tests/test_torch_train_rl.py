@@ -41,6 +41,8 @@ from dgvit_tpu_torch.envs.kinematic import default_records
 from dgvit_tpu_torch.envs.worlds import get_world
 from dgvit_tpu_torch.models.jax_io import (params_from_jax, params_to_jax,
                                            sac_state_from_jax)
+from dgvit_tpu_torch.envs.replay_env import load_demo_npz
+from dgvit_tpu_torch.train import demo_record
 from dgvit_tpu_torch.train import evaluate as port_evaluate
 from dgvit_tpu_torch.train import train_rl
 from dgvit_tpu_torch.utils import MetricsLogger, Profiler, RewardCurve
@@ -328,8 +330,8 @@ def test_frame_stacked_loop(tmp_path):
     assert stacker.push(b).shape == (3, 2, 2)
 
 
-@pytest.mark.parametrize("flavour", ["prioritized_replay", "expert_glob",
-                                     "human_intervention", "intervention",
+@pytest.mark.parametrize("flavour", ["prioritized_replay",
+                                     "guided_prioritized_replay",
                                      "train_elastic", "env_replay",
                                      "env_ros2", "reference_config"])
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
@@ -337,16 +339,14 @@ def test_unported_flavours_raise_by_name(tmp_path, flavour):
     kw = {}
     if flavour == "prioritized_replay":
         cfg.sac.prioritized_replay = True
-    elif flavour == "expert_glob":
+    elif flavour == "guided_prioritized_replay":
+        cfg.sac.prioritized_replay = True
         cfg.train.pre_buffer = True
         kw["expert_glob"] = "Data/*.npz"
-    elif flavour == "human_intervention":
-        cfg.train.human_intervention = True
-    elif flavour == "intervention":
-        kw["intervention"] = object()
-    word = {"expert_glob": "expert", "intervention": "intervention",
-            "env_replay": "--env replay", "env_ros2": "--env ros2",
-            "reference_config": "--reference-config"}.get(flavour, flavour)
+    word = {"env_replay": "--env replay", "env_ros2": "--env ros2",
+            "reference_config": "--reference-config",
+            "guided_prioritized_replay": "learn_guidence_per"}.get(
+                flavour, flavour)
     with pytest.raises(NotImplementedError, match=word):
         if flavour == "train_elastic":
             train_rl.train_elastic(cfg, lambda: None)
@@ -358,6 +358,235 @@ def test_unported_flavours_raise_by_name(tmp_path, flavour):
         else:
             run(cfg, tmp_path, max_episodes=1, **kw)
     assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
+
+
+class FakeTeleop:
+    """A duck-typed intervention source (train_rl's `intervention`
+    contract): always engaged, one fixed command."""
+
+    def __init__(self):
+        self.engaged = True
+        self.reads = 0
+
+    def read_action(self):
+        self.reads += 1
+        return [0.3, 0.2]
+
+
+def record_demos(tmp_path, seed=1, episodes=2, max_steps=15):
+    """Scripted demos recorded by the port, and the glob that finds them."""
+    env = KinematicNavEnv(records(seed), image_hw=HW)
+    paths = demo_record.record_episodes(
+        env, demo_record.scripted_pilot, str(tmp_path / "Data"),
+        episodes=episodes, max_steps=max_steps)
+    assert paths
+    return str(tmp_path / "Data" / "RRC" / "torch" / "*.npz")
+
+
+def spy_updates(monkeypatch):
+    """Count the agent's plain and guided updates, keeping the guided
+    ones' engage flags and expert counts."""
+    calls = {"learn": 0, "guided": []}
+    learn, guided = SACAgent.learn, SACAgent.learn_guidence
+
+    def spy_learn(self, *a, **k):
+        calls["learn"] += 1
+        return learn(self, *a, **k)
+
+    def spy_guided(self, state, batch, expert, n_expert, *a, **k):
+        calls["guided"].append((float(torch.as_tensor(
+            batch["engage"]).sum()), int(n_expert)))
+        return guided(self, state, batch, expert, n_expert, *a, **k)
+
+    monkeypatch.setattr(SACAgent, "learn", spy_learn)
+    monkeypatch.setattr(SACAgent, "learn_guidence", spy_guided)
+    return calls
+
+
+@pytest.mark.parametrize("flavour", ["expert_glob", "human_intervention",
+                                     "intervention"])
+def test_guided_flavours_run(tmp_path, monkeypatch, flavour):
+    """The expert buffer (train.pre_buffer with demos), human intervention
+    with a teleop source, and a teleop source alone run: the first two
+    send every update through learn_guidence (with no expert buffer, on an
+    all-masked expert batch), the last stores the teleop's commands with
+    engage = 1 and updates with the plain learn, as the JAX trainer
+    does."""
+    cfg, kw = tiny_cfg(), {}
+    tele = FakeTeleop()
+    if flavour == "expert_glob":
+        cfg.train.pre_buffer = True
+        kw["expert_glob"] = record_demos(tmp_path)
+    elif flavour == "human_intervention":
+        cfg.train.human_intervention = True
+        kw["intervention"] = tele
+    else:
+        kw["intervention"] = tele
+    calls = spy_updates(monkeypatch)
+    out = run(cfg, tmp_path / "run", max_episodes=2, **kw)
+    assert out["episodes"] >= 1
+    if flavour == "intervention":
+        assert tele.reads > 0 and calls["learn"] > 0 and not calls["guided"]
+        return
+    assert calls["guided"] and calls["learn"] == 0
+    if flavour == "expert_glob":
+        assert all(k > 0 for _, k in calls["guided"])
+    else:
+        assert tele.reads > 0
+        assert all(k == 0 and e == cfg.sac.batch_size
+                   for e, k in calls["guided"])
+
+
+def test_rl_training_with_expert_buffer(tmp_path, monkeypatch):
+    """Mirrors tests/test_drivers.py:45: demos recorded with the port's own
+    recorder, then training with train.pre_buffer and the expert buffer;
+    the updates are guided, with expert_batch_size's count of valid expert
+    rows."""
+    glob_ = record_demos(tmp_path, seed=1)
+    data = train_rl.load_expert_dataset(glob_)
+    cfg = tiny_cfg(pre_buffer=True)
+    calls = spy_updates(monkeypatch)
+    out = run(cfg, tmp_path / "r2", seed=2, max_episodes=2,
+              expert_glob=glob_)
+    assert out["episodes"] >= 1 and calls["guided"]
+    n = data["obs"].shape[0]
+    stored = [cfg.sac.batch_size + i for i in range(len(calls["guided"]))]
+    assert [k for _, k in calls["guided"]] == [
+        SACAgent.expert_batch_size(n, m, cfg.sac.batch_size) for m in stored]
+
+
+def test_human_intervention_engage_rows_reach_guided_step(tmp_path,
+                                                          monkeypatch):
+    """Mirrors tests/test_drivers.py:252: with train.human_intervention, an
+    engaged teleop and no expert buffer, the loop reads the teleop's
+    commands and every update is the guided one on engage = 1 rows."""
+    cfg = tiny_cfg(human_intervention=True)
+    tele = FakeTeleop()
+    calls = spy_updates(monkeypatch)
+    out = run(cfg, tmp_path, max_episodes=2, intervention=tele)
+    assert tele.reads > 0 and out["episodes"] >= 1
+    assert calls["guided"] and all(e > 0 for e, _ in calls["guided"])
+
+
+def test_teleop_command_is_stored_in_policy_units(tmp_path, monkeypatch):
+    """The executed command is the teleop's; the stored action is its
+    inverse mapping (policy units, clipped), with engage = 1."""
+    cfg = tiny_cfg(human_intervention=True)
+    added = []
+    real = train_rl.ReplayBuffer.add
+
+    def spy_add(self, **kw):
+        added.append(kw)
+        return real(self, **kw)
+
+    monkeypatch.setattr(train_rl.ReplayBuffer, "add", spy_add)
+    env = Recorder(ScriptedEnv())
+    commands = []
+    step = env.env.step
+    env.env.step = lambda a, t: (commands.append(list(a)), step(a, t))[1]
+    train_rl.train(cfg, env, out_dir=str(tmp_path), max_episodes=1,
+                   intervention=FakeTeleop(), device="cpu")
+    e = cfg.env
+    want = np.clip([0.3 / e.linear_cmd_scale - 1.0, 0.2 / e.angular_cmd_scale],
+                   -1, 1)
+    assert added and all(kw["engage"] == 1.0 for kw in added)
+    np.testing.assert_allclose(added[0]["act"], want, rtol=1e-6)
+    np.testing.assert_allclose(commands[1], [(want[0] + 1)
+                                             * e.linear_cmd_scale,
+                                             want[1] * e.angular_cmd_scale],
+                               rtol=1e-6)
+
+
+def test_demo_recorder_matches_jax(tmp_path):
+    """The port's recorder writes the reference layout (the JAX package's
+    tests/test_drivers.py test_demo_recorder_reference_layout) and, on the
+    same env records and pilot, the same arrays as the JAX recorder."""
+    from dgvit_tpu.train import demo_record as jax_demo
+
+    rec = records(3)
+    port = demo_record.record_episodes(
+        KinematicNavEnv(rec, image_hw=HW), demo_record.scripted_pilot,
+        str(tmp_path / "port"), episodes=1, max_steps=20)
+    ref = jax_demo.record_episodes(
+        JaxKinematicNavEnv(rec, image_hw=HW), jax_demo.scripted_pilot,
+        str(tmp_path / "jax"), episodes=1, max_steps=20)
+    d, j = np.load(port[0]), np.load(ref[0])
+    assert set(d.files) == set(j.files) == {
+        "obs", "act", "goal", "reward", "next_obs", "next_goal", "done"}
+    n = d["obs"].shape[0]
+    assert d["obs"].shape == (n, *HW) and d["act"].shape == (n, 2)
+    assert d["goal"].shape == (n, 4) and d["done"].dtype == bool
+    assert (np.abs(d["act"]).sum(1) > 0).all()     # no zero actions
+    for k in d.files:
+        np.testing.assert_allclose(d[k], j[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_load_demo_npz_matches_jax(tmp_path):
+    """load_demo_npz concatenates in the order given and resizes a
+    truncated field to the obs count (the reference's quirk guard), as
+    the JAX package's does."""
+    from dgvit_tpu.envs.replay_env import load_demo_npz as jax_load
+
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, n in enumerate((3, 5)):
+        f = lambda *shape: rng.uniform(0, 1, shape).astype(np.float32)
+        fields = dict(obs=f(n, *HW), act=f(n, 2), goal=f(n, 4),
+                      reward=f(n - 1 if i else n), next_obs=f(n, *HW),
+                      next_goal=f(n, 4), done=np.zeros(n, bool))
+        paths.append(str(tmp_path / f"demo_{i}.npz"))
+        np.savez(paths[-1], **fields)
+    port, ref = load_demo_npz(paths), jax_load(paths)
+    assert port["reward"].shape == (8,) and port["obs"].shape == (8, *HW)
+    for k in ref:
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+
+
+def test_expert_files_load_in_natural_order(tmp_path):
+    """The expert glob's files are concatenated in natural order (digit
+    runs compared as numbers: 2.npz before 10.npz), as the reference's
+    natsort orders them."""
+    names = [f"{i}.npz" for i in (1, 10, 11, 12, 2, 3, 9)]
+    assert sorted(names, key=train_rl.natural_key) == [
+        f"{i}.npz" for i in (1, 2, 3, 9, 10, 11, 12)]
+    assert sorted(["demo_b2", "demo_a10", "demo_a9"],
+                  key=train_rl.natural_key) == ["demo_a9", "demo_a10",
+                                                "demo_b2"]
+    for i in range(1, 13):
+        np.savez(tmp_path / f"{i}.npz", obs=np.full((1, *HW), i, np.float32),
+                 act=np.zeros((1, 2)), goal=np.zeros((1, 4)),
+                 reward=np.zeros(1), next_obs=np.zeros((1, *HW)),
+                 next_goal=np.zeros((1, 4)), done=np.zeros(1, bool))
+    data = train_rl.load_expert_dataset(str(tmp_path / "*.npz"))
+    assert data["obs"][:, 0, 0].tolist() == list(range(1, 13))
+    assert train_rl.load_expert_dataset(str(tmp_path / "none*.npz")) is None
+
+
+@pytest.mark.parametrize("channels", [False, True])
+def test_expert_buffer_frame_stack(tmp_path, channels):
+    """With the online frame stack, single-frame demos are repeated to the
+    stack depth and 4-channel demos go channels-first; without it,
+    channel 0 of 4-channel demos is kept (the JAX trainer's to_stack)."""
+    rng = np.random.default_rng(6)
+    shape = (3, *HW, 4) if channels else (3, *HW)
+    obs = rng.uniform(0, 1, shape).astype(np.float32)
+    np.savez(tmp_path / "d.npz", obs=obs, act=np.ones((3, 2)),
+             goal=np.zeros((3, 4)), reward=np.zeros(3), next_obs=obs,
+             next_goal=np.zeros((3, 4)), done=np.zeros(3, bool))
+    cfg = tiny_cfg()
+    pattern = str(tmp_path / "*.npz")
+    buf, n = train_rl.expert_buffer(cfg, pattern, (4, *HW), stacked=True)
+    got = buf.sample(3)["obs"]
+    want = obs.transpose(0, 3, 1, 2) if channels else np.repeat(
+        obs[:, None], 4, axis=1)
+    assert n == 3 and got.shape == (3, 4, *HW)
+    assert all(any(np.array_equal(g, w) for w in want) for g in got)
+    if channels:
+        buf, _ = train_rl.expert_buffer(cfg, pattern, HW, stacked=False)
+        got = buf.sample(3)["obs"]
+        assert all(any(np.array_equal(g, w) for w in obs[..., 0])
+                   for g in got)
 
 
 def test_entry_points_without_a_card_raise(tmp_path, monkeypatch):
