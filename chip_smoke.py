@@ -2226,7 +2226,6 @@ def phase_guided(actor_flat, critic_flat, plain_updates):
     bf16 runs' launch counts and the times."""
 
     import numpy as np
-    import torch
 
     g = np.load(GOLDEN_SAC_GUIDED)
     counters = kernel_counters()

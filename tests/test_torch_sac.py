@@ -468,6 +468,21 @@ def test_expert_batch_size(exp, agent_size, batch, want):
     assert JaxSACAgent.expert_batch_size(exp, agent_size, batch) == want
 
 
+def test_guidence_weight_decay_over_updates():
+    """Mirrors tests/test_round3_fixes.py:164: six guided updates from a
+    fresh state report the geometric decay 10 -> 1 over 4 updates, read at
+    the counter before each step (0, .25, .5, .75, 1, 1 of the way)."""
+    agent = small_agent(guidence_weight=10.0, guidence_weight_final=1.0,
+                        guidence_decay_steps=4)
+    batch, expert = guided_batches(90, engage=True)
+    state, seen = agent.init_state(), []
+    for _ in range(6):
+        state, m = agent.learn_guidence(state, batch, expert, 4)
+        seen.append(float(m["guidence_weight"]))
+    np.testing.assert_allclose(
+        seen, [10.0 * 0.1 ** min(t / 4.0, 1.0) for t in range(6)], rtol=1e-5)
+
+
 def test_guided_nan_guard_rolls_back_and_advances():
     """Mirrors tests/test_sac.py:275: nan_guard covers the guided step: a
     non-finite loss rolls the whole update back and the counter moves
