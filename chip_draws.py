@@ -18,9 +18,9 @@ two orders of draws:
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
           it (`Generator.spawn`, as phase 13's extra draws are), in that
           order, so that a phase added at the end moves no other phase's
-          draw; then phase 16 again on the draw it had in PR 11's run D1
-          (the seed's sixth spawn), where two of its bf16 checks failed
-          (lead l);
+          draw; then phase 16 again on the draw it had when phases 13a
+          and 13b ran before it (the seed's sixth spawn), where two of its
+          bf16 checks once failed (lead l);
   fresh:  phases 5, 13, 15, 16, 17b, 13a and 13b each on a generator of
           its own from the seed.
 
@@ -111,10 +111,10 @@ for seed in seeds:
             print(f"== seed {seed}, {order}: phase {name}", flush=True)
             phase(fresh().spawn(1)[0])
         if order == "shared":
-            # lead l: phase 16 on the generator it had in PR 11's run D1,
+            # lead l: phase 16 on the generator it had in an earlier order,
             # where phases 13a and 13b were spawned before it (phases 5b
             # and 13 spawn once each): the seed's sixth spawn
-            print(f"== seed {seed}, {order}: phase 16 on D1's draw",
+            print(f"== seed {seed}, {order}: phase 16 on its earlier draw",
                   flush=True)
             cs.phase_composed(cfg, flat, policies,
                               np.random.default_rng(seed).spawn(6)[5])
@@ -172,6 +172,20 @@ def rows(result):
             for case, v in r.items():
                 if not isinstance(v, dict):
                     continue
+                if case.startswith("anchors"):   # fault k's records
+                    for name, a in v.items():
+                        worst, lim = max(a["read"].values()), a["limit"]
+                        yield (f"{tag} recompute {case}, {name}: the records"
+                               f" against the forward's input and output, "
+                               f"pooled {worst:.3e} (limit {lim:.3e}) "
+                               + verdict(worst <= lim
+                                         and all(x > lim for x in
+                                                 a["planted"].values()))
+                               + "".join(f"; planted {k} {x:.3e}"
+                                         for k, x in a["planted"].items())
+                               + "; a frame's largest "
+                               f"{max(a['frame_max'].values()):.3e}")
+                    continue
                 line = (f"{tag} recompute {case}: frames differing "
                         + ", ".join(f"{k} {x:.4f}"
                                     for k, x in v["differ"].items())
@@ -192,10 +206,17 @@ def rows(result):
                     line += f"; k|v differ {v['kv_differ']:.4f}"
                 yield line
         elif r["check"] == "composed":
-            yield (f"{tag} {r['what']}: kernels vs float64 sums "
-                   f"{r['kernels']:.3e} (limit max(2^-4, 2 x plain "
-                   f"{r['plain']:.3e}) = {r['limit']:.3e}) "
-                   + verdict(r["kernels"] <= r["limit"] and r["masks"])
+            pooled, limit = r["pooled"], r["pooled_limit"]
+            yield (f"{tag} {r['what']}: kernels vs float64 sums, pooled "
+                   f"mean|err|/L {pooled['kernels']:.3e} (limit max(2^-18, "
+                   f"2 x plain {pooled['plain']:.3e}) = {limit:.3e}) "
+                   + verdict(pooled["kernels"] <= limit and r["masks"]
+                             and r["kernels"] <= r["limit"])
+                   + "".join(f"; {n} {pooled[n]:.3e} ({x:.3f} x the limit, "
+                             + ("fails" if x > 1 else "PASSES") + ")"
+                             for n, x in r["wrong"].items())
+                   + f"; max|err| {r['kernels']:.3e} (limit max(2^-4, 2 x "
+                   f"plain {r['plain']:.3e}) = {r['limit']:.3e})"
                    + f"; old vs the composition {r['old']:.3e} (limit "
                    f"6.250e-02) {verdict(r['old'] <= 0.0625)}; the "
                    f"composition vs float64 sums {r['composition']:.3e}, "

@@ -135,7 +135,11 @@ per source, all at once), then
      repair, recomputing them) the share of frames that differ, printed;
      with them (the route) equal on every frame, held, and their dx
      within phase 13's per-frame line of float64 sums; K3b's recomputed k
-     and v against K3f's;
+     and v against K3f's; the records themselves anchored to the forward
+     that wrote them (K3f's, each body's of K4 and those of K4's plain
+     version: each part recomputed from the block's input and the
+     record's earlier parts, and the block's CLS output from x1 and z,
+     pooled within ANCHOR_MEAN), four planted wrong records failing;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -158,8 +162,10 @@ per source, all at once), then
      model.patch_size (8, 10), 257 tokens, at B=64 (K8 x4 by `auto`);
      the two bf16 checks against the composition, restated (lead l,
      EXACT_K): each route held to the float64-sum version of its plain
-     route, the composition's distances, the dropout masks of the two
-     passes and, block by block, where they part, printed;
+     route, pooled over its output and its blocks' outputs, K7's and K8's
+     wrong rounding points failing; the composition's distances, the
+     dropout masks of the two passes and, block by block, where they
+     part, printed;
  17. times of K6, K7, K8 and their plain versions beside their bounds,
      K6, K7 and K8 (redesigned for the tensor cores) also beside their
      earlier design's times, K7 beside its FMA kernel in this run and
@@ -395,6 +401,23 @@ ACTION_FP32 = 1e-4
 #     0.76 of those limits; the wrong routes (K7 with fp32 probabilities,
 #     K7 with o unrounded, on every composed call) at least 1.68 and 2.96
 #     x a route's limits.
+#   * the composed routes in bf16 (phase 16, lead l: the K7 route's
+#     GoT(dropout=0.1) means and the K8 route's attn_impl="pallas" actions
+#     within 2^-4 of the PyTorch composition, which rounds every operation
+#     to bf16 where the kernels keep fp32; the two functions' float64-sum
+#     versions lie up to 0.149 L and 7.8e-2 apart): each route held to
+#     the float64-sum version of its plain route, as phase 17b holds its
+#     routes. k = 2 (EXACT_K["composed"]) on the pooled mean|err|/L over
+#     the route's output and its four blocks' outputs, under max(2^-18,
+#     k x plain's): the plain routes read 1.0e-6 to 2.9e-6 (K7) and
+#     9.3e-7 to 2.8e-6 (K8), the kernels' routes at most 0.59 and 0.51 of
+#     the limit, the wrong routes at least 2.98 x (K7 with fp32
+#     probabilities; o unrounded 3.29 x) and 2.99 x (K8 with bf16
+#     probabilities; bf16 scores 13.7 x), on seeds 7-11 in both orders
+#     and on the draws where the old check failed (chip_draws.py on an
+#     H100 80GB HBM3 at 700 W). The max|err| is held too, under max(2^-4,
+#     k x plain's) (the kernels read 1.1e-3 to 1.5e-2): a bound on the
+#     worst frame, which a wrong rounding point does not reach.
 # Two checks meet (a) as they stand and keep their limits, their wrong
 # versions added (phase 5's K3f, phase 15's K7: the pooled 2^-18 over the
 # bf16 cases, each max 2^-6 L): the float64-sum version read at most 0.13
@@ -2284,13 +2307,15 @@ def phase_guided(actor_flat, critic_flat, plain_updates):
 
 
 def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
-               esize=2):
+               esize=2, records=False):
     """FLOPs and bytes a training kernel needs at the flagship width: each
     input read once, each output written once. The backward recomputes
     the forward and does two products per forward product (3x); K3 runs
-    q, attention, out-proj and MLP on one row per frame, K3f writes the
-    CLS row's fp32 records (as under autograd, the main path's calls) and
-    K3b reads them, recomputing only k and v."""
+    q, attention, out-proj and MLP on one row per frame. That is the
+    function's own need, the bound of the kernel table. With `records`,
+    the port's design instead: K3f also writes the CLS row's fp32 records
+    (as under autograd, the main path's calls) and K3b reads them,
+    recomputing only k and v."""
     from dgvit_tpu_torch.ops.cls_block import cls_saved_width
 
     inner = heads * dh
@@ -2309,9 +2334,12 @@ def train_work(kind, batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4,
     if kind == "K2b":
         return 3 * batch * full, (3 * rows + 2 * w) * esize
     if kind == "K3f":
-        return batch * cls, (rows + batch * d + w) * esize + record
-    return (batch * (n * 2 * d * 2 * inner + 2 * cls),
-            (2 * rows + batch * d + 2 * w) * esize + record)
+        return batch * cls, ((rows + batch * d + w) * esize
+                             + (record if records else 0))
+    if records:
+        return (batch * (n * 2 * d * 2 * inner + 2 * cls),
+                (2 * rows + batch * d + 2 * w) * esize + record)
+    return 3 * batch * cls, (2 * rows + batch * d + 2 * w) * esize
 
 
 def phase_train_times(nets, rng):
@@ -2344,13 +2372,19 @@ def phase_train_times(nets, rng):
         bnd, by = bound_ms(*train_work(name, SAC_BATCH), "bfloat16")
         rows[name] = dict(ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by)
         split = ""
+        if name in ("K3f", "K3b"):   # the port's design: the CLS records
+            rb, rby = bound_ms(*train_work(name, SAC_BATCH, records=True),
+                               "bfloat16")
+            rows[name].update(bound_with_records_ms=rb,
+                              bound_with_records_by=rby)
+            split = f"; bound with the CLS records {rb:.5f} ms ({rby})"
         if name == "K3f":   # its FMA kernel in this run: x unaligned
             c = inp["critic"]
             xu = off_by_one(c["last"])
             rows[name]["fma_ms"] = cuda_ms(lambda: cb.cls_fwd_fused(
                 xu, c["blocks"][-1], c["heads"], c["dh"]), reps[name], runs=5)
-            split = (f"; its FMA kernel (x unaligned) "
-                     f"{rows[name]['fma_ms']:.4f} ms")
+            split += (f"; its FMA kernel (x unaligned) "
+                      f"{rows[name]['fma_ms']:.4f} ms")
         if name in ("K2b", "K3b"):
             by_kernel = device_kernels_ms(kern, calls=20)
             part = lambda word: sum(t for k, t in by_kernel.items()
@@ -2358,10 +2392,10 @@ def phase_train_times(nets, rng):
             rows[name].update(pass_device_ms=part("bwd_kernel"),
                               products_device_ms=part("wgrad"),
                               finish_device_ms=part("vec_finish"))
-            split = (f"; device time a call (torch.profiler): per-frame pass "
-                     f"{part('bwd_kernel'):.4f} ms, weight products "
-                     f"{part('wgrad'):.4f} ms, vector finish "
-                     f"{part('vec_finish'):.4f} ms")
+            split += (f"; device time a call (torch.profiler): per-frame "
+                      f"pass {part('bwd_kernel'):.4f} ms, weight products "
+                      f"{part('wgrad'):.4f} ms, vector finish "
+                      f"{part('vec_finish'):.4f} ms")
         print(f"{name} bf16 B={SAC_BATCH}: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, bound {bnd:.5f} ms ({by})"
               + (earlier(ms, FMA_DESIGN_MS[name])
@@ -3628,6 +3662,127 @@ def record_parts(rec, n, heads, dim_head, d, mlp):
     return {"q": q.bfloat16(), "o": o.bfloat16(), "h2": h2.bfloat16()}
 
 
+# Fault k's anchor (record_anchor): each part of a CLS record recomputed
+# from the block's input and the record's earlier parts, in float64 sums
+# rounded where the forward rounds; per part the mean |err| over every
+# frame, over the part's largest |value|, within 2^-13 (phase 13's pooled
+# limit). A right record parts from it only where one rounding lands on
+# the other side of a bf16 step. Frame by frame that is no limit: on the
+# trained actor a k rounded the other way (K3f's tensor-core sums, or
+# the plain version's fp32 ones, against float64) moves a frame's
+# probabilities by up to 0.12 of its largest, its scores being that
+# sharp (H100 80GB HBM3, 700 W, chip_draws.py seeds 7-11), so each
+# frame's max is printed, not held. A record of another head or frame
+# moves every frame, and one wrong frame of 256 already reads about 1/256
+# of the part's scale (PLANTED_RECORDS, which must fail).
+ANCHOR_MEAN = 2.0 ** -13
+PLANTED_RECORDS = ("o of the next head", "probabilities of the next frame",
+                   "z of the next frame", "o of the next head, one frame")
+
+
+def record_anchor(x, w, rec, out, heads, dim_head, hid=None):
+    """Fault k's anchor of a bf16 CLS block's records `rec` (B,
+    `cls_saved_width`) to the forward that wrote them: each part
+    recomputed in float64 sums from the block's input x (B, n, d) and the
+    record's own earlier parts, rounded to x's dtype where the forward
+    rounds: q = LN1(x)_0 wq; p = softmax(q k^T scale), k and v from
+    LN1(x); o = p v; x1 = x_0 + o wout + bout; h2 = LN2(x1); z = h2 w1 +
+    b1; and the block's CLS output `out` (B, d) = x1 + gelu(z) w2 + b2
+    (with `hid`, a backward's slot, also hid = gelu(z)). Returns {part:
+    (the mean |given - recomputed| over every value of the part / its
+    largest |recomputed|, the largest over the frames of max|given -
+    recomputed| / the frame's largest |recomputed|)}."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, w2, b2 = w
+    b, n, d = x.shape
+    inner, mlp, cdt = heads * dim_head, w1.shape[-1], x.dtype
+    f64 = lambda t: t.double()
+    rnd = lambda t: t.to(cdt).double()
+    vec = lambda t: f64(t).reshape(-1)
+    split = lambda t: t.reshape(b, -1, heads, dim_head).transpose(1, 2)
+    q, p, o, x1, h2, z = torch.split(
+        f64(rec), [inner, heads * n, inner, d, d, mlp], dim=1)
+    h1 = rnd(ft._ln(ft._f32(x), an_s, an_b))
+    kv = rnd(h1 @ f64(wqkv[:, inner:]))
+    k, v = split(kv[..., :inner]), split(kv[..., inner:])
+    s = split(q) @ k.transpose(-1, -2) * dim_head ** -0.5   # (B, H, 1, n)
+    hidden = rnd(ft._gelu32(z.float(), cdt))
+    ref = {"q": rnd(h1[:, 0] @ f64(wqkv[:, :inner])),
+           "p": torch.softmax(s, dim=-1).reshape(b, -1),
+           "o": rnd(rnd(p.reshape(b, heads, 1, n)) @ v).transpose(
+               1, 2).reshape(b, inner),
+           "x1": f64(x[:, 0]) + (o @ f64(wout) + vec(bout)),
+           "h2": rnd(ft._ln(x1.float(), fn_s, fn_b)),
+           "z": h2 @ f64(w1) + vec(b1),
+           "out": rnd(x1 + (vec(b2) + hidden @ f64(w2)))}
+    got = {"q": q, "p": p, "o": o, "x1": x1, "h2": h2, "z": z,
+           "out": f64(out)}
+    if hid is not None:
+        ref["hid"], got["hid"] = hidden, f64(hid)
+    return {part: (
+        (got[part] - r).abs().mean().item()
+        / max(r.abs().max().item(), 1e-30),
+        ((got[part] - r).abs().amax(1)
+         / r.abs().amax(1).clamp(min=1e-30)).max().item())
+        for part, r in ref.items()}
+
+
+def planted_records(rec, n, heads, dim_head, d, mlp):
+    """Wrong CLS records for record_anchor to fail (PLANTED_RECORDS): o
+    with each head's part moved to the next head's place, the
+    probabilities of the next frame, z of the next frame, and the first
+    of these on frame 0 alone."""
+    inner = heads * dim_head
+    at = {"p": (inner, heads * n), "o": (inner + heads * n, inner),
+          "z": (2 * inner + heads * n + 2 * d, mlp)}
+
+    def moved(part, shift, dim, frames=None):
+        r = rec.clone()
+        a, width = at[part]
+        r[:frames, a:a + width] = rec[:frames, a:a + width].roll(shift,
+                                                                  dims=dim)
+        return r
+    return dict(zip(PLANTED_RECORDS, (
+        moved("o", dim_head, 1), moved("p", 1, 0), moved("z", 1, 0),
+        moved("o", dim_head, 1, frames=1))))
+
+
+def anchor_verdict(case, x, w, rec, out, heads, dim_head, hid=None,
+                   plant=True):
+    """Hold `rec` to record_anchor's pooled readings within ANCHOR_MEAN
+    and, with `plant`, every planted wrong record over it; print and
+    return the readings."""
+    b, n, d = x.shape
+    got = record_anchor(x, w, rec, out, heads, dim_head, hid)
+    planted = {name: max(v[0] for v in record_anchor(
+        x, w, r, out, heads, dim_head).values())
+               for name, r in (planted_records(
+                   rec, n, heads, dim_head, d, w[7].shape[-1]).items()
+                   if plant else ())}
+    worst = max(v[0] for v in got.values())
+    ok = worst <= ANCHOR_MEAN
+    print(f"recompute, {case}: the CLS records against the forward's input "
+          f"and output, pooled mean|err|/L by part (limit 2^-13): "
+          + ", ".join(f"{k} {v[0]:.3e}" for k, v in got.items())
+          + f" {'ok' if ok else 'FAIL'}; a frame's largest max|err| over "
+          "its largest value (a record): " + ", ".join(
+              f"{k} {v[1]:.3e}" for k, v in got.items()) + "".join(
+              f"; planted {k} {v:.3e} "
+              + ("fails" if v > ANCHOR_MEAN else "PASSES")
+              for k, v in planted.items()), flush=True)
+    check(ok, f"fault k, {case}: the CLS records part from the forward "
+          "that wrote them")
+    for name, v in planted.items():
+        check(v > ANCHOR_MEAN, f"fault k, {case}: the records' anchor "
+              f"passes a wrong record ({name})")
+    return {"read": {k: v[0] for k, v in got.items()},
+            "frame_max": {k: v[1] for k, v in got.items()},
+            "planted": planted, "limit": ANCHOR_MEAN}
+
+
 RECOMPUTE_BATCH = 256
 
 
@@ -3647,6 +3802,11 @@ def phase_recompute(nets, rng):
         without (the body before the repair recomputing them: fault k's
         magnitude, read); for K3b also whether its recomputed k and v
         differ from K3f's (the probe's);
+      * the records anchored to the forward that wrote them
+        (anchor_verdict: K3f's, each body's of K4 with the hid K6 forms,
+        and K4's plain version's), and four planted wrong records of
+        each kernel failing the anchor, so that the equality above holds
+        the backward to that forward;
     and each backward's dx against the float64-sum version of its plain
     version on the same records, by frame on each frame's own scale
     (phase 13's statistic and line, CHAIN_WITHIN, held for the repaired
@@ -3738,6 +3898,8 @@ def phase_recompute(nets, rng):
         parts = record_parts(rec, n, heads, dh, d, mlp)
         check(all(torch.equal(parts[k], probe[k]) for k in ("o", "h2")),
               f"K3f ({net}): its records' o or h2 are not its body's")
+        anchors = {"K3f": anchor_verdict(f"K3f {net}", x, w, rec, k3f,
+                                         heads, dh)}
         dx0, before = backward_slots(x, dy, w, heads, dh, True)
         dx1, after = backward_slots(x, dy, w, heads, dh, True, rec)
         ahead = {**parts, "hid": probe["hid"]}
@@ -3749,18 +3911,28 @@ def phase_recompute(nets, rng):
         print(f"recompute, K3b ({net}): frames whose recomputed k or v "
               f"differ from K3f's: {r['kv_differ']:.4f}", flush=True)
 
-        # K6 on each body's streams and records
+        # K6 on each body's streams and records: the records anchored to
+        # the body's own CLS-block input (its last stream) and output (its
+        # cls stream), as are the plain version's
         args = (a["x"], a["dy3"], a["blocks"], a["fn"], heads, dh, "rms")
+        _, pst = gm.blocks_forward_plain(*args[:1], *args[2:], streams=True)
+        anchors["K4 plain version"] = anchor_verdict(
+            f"K4's plain version {net}", pst[0][-1], w, pst[2], pst[1],
+            heads, dh, plant=False)
         for body in (0, 1, 2):
             st = gm._launch_blocks(*args[:1], *args[2:], body=body,
                                    streams=True)[1]
             dx0, before = trunk_slots(*args, st, None)
             dx1, after = trunk_slots(*args, st, st[2])
+            anchors[f"K4 body {body}"] = anchor_verdict(
+                f"K4 body {body} {net}, hid as K6 forms it", st[0][-1], w,
+                st[2], st[1], heads, dh, hid=after["hid"])
             ahead = {**record_parts(st[2], n, heads, dh, d, mlp),
                      "hid": after["hid"]}
             ex = exact(trunk_bwd_plain, *args, st)[0]
             read(f"K6 {net} K4 body {body}", ahead, before, after, dx0, dx1,
                  ex)
+        reading[f"anchors {net}"] = anchors
     record("recompute", batch=RECOMPUTE_BATCH, **reading)
     return reading
 
@@ -3835,6 +4007,28 @@ def section_inputs(nets, dtype, batch, n, rng):
 # K7's wrong rounding points (k7_unrounded), each held to the bf16 limits
 # over K7's bf16 cases pooled, as phase 5 holds its wrong versions
 K7_ROUNDING = {"fp32 probabilities": "p", "o not rounded": "o"}
+# K8's wrong rounding points (k8_rounded): the TPU kernel keeps the scores
+# and the probabilities in fp32 up to P.V's fp32 sum
+K8_ROUNDING = {"bf16 probabilities": "p", "bf16 scores": "s"}
+
+
+def k8_rounded(what):
+    """A wrong bf16 K8: its plain version (`attention_plain`) with the
+    probabilities ("p") or the scores ("s") rounded to the inputs' dtype,
+    as `_launch` takes its arguments."""
+    import torch
+
+    def attend(q, k, v, scale):
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        dots = (q32 @ k32.transpose(-1, -2)) * scale
+        if what == "s":
+            dots = dots.to(q.dtype).float()
+        e = torch.exp(dots - dots.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        if what == "p":
+            p = p.to(q.dtype).float()
+        return (p @ v32).to(q.dtype)
+    return attend
 
 
 def phase_attention(nets, rng):
@@ -3984,15 +4178,16 @@ def phase_attention(nets, rng):
     return worst
 
 
-def composed_routes(pol, forward, composition=None):
+def composed_routes(pol, forward, composition=None, wrong=None):
     """Lead l's readings of one bf16 composed-route pass (`forward`, no
     grad, its masks from a generator it seeds itself) through `pol`:
     {variant: (output, [each block's output], [each dropout's kept
     mask])} for the kernels, their plain versions (`plain_kernels`), the
-    float64-sum version of that (`exact_sums`), and the composition (the
-    same pass with the section composed in PyTorch, as on the CPU; or
-    `composition`, (another model, its pass)) and its float64-sum
-    version.
+    float64-sum version of that (`exact_sums`), each wrong version
+    (`wrong`: {name: a factory of the context that swaps a wrong rounding
+    point into the plain route}), and the composition (the same pass with
+    the section composed in PyTorch, as on the CPU; or `composition`,
+    (another model, its pass)) and its float64-sum version.
     Also the largest |K7 output - attention_section_plain on the same
     inputs| / L over the pass's K7 calls, which K7's backward
     differentiates (as the JAX kernel's backward differentiates its XLA
@@ -4038,6 +4233,8 @@ def composed_routes(pol, forward, composition=None):
     k7_backward = run("kernels", forward, swapped(fb, "_launch", launch))
     run("plain", forward, plain_kernels())
     run("float64 sums", forward, plain_kernels(), exact_sums())
+    for name, mode in (wrong or {}).items():
+        run(name, forward, plain_kernels(), mode())
     if composition is None:
         off = lambda: swapped(layers, "_on_card", lambda t: False)
         run("composition", forward, off())
@@ -4052,24 +4249,38 @@ def composed_routes(pol, forward, composition=None):
 
 def composed_verdict(what, routes, view, old, relative) -> bool:
     """Lead l's restated bf16 check of a composed route (EXACT_K): the
-    kernels' route held to the float64-sum version of its plain route,
-    max|err| (over the largest |value| when `relative`) under max(2^-4,
-    EXACT_K["composed"] x the plain route's own distance), where the old
-    check held it to the composition (`old`, printed beside). Also prints
-    the composition's own distance to its float64-sum version and to the
+    kernels' route against the float64-sum version of its plain route, the
+    pooled mean |err| / L (`pooled_rel`, each tensor's own L) over the
+    route's output (`view`) and every block's output, under max(2^-18,
+    EXACT_K["composed"] x the plain route's own reading); every wrong
+    version in `routes` must read over that limit. The route's max|err|
+    (over the largest |value| when `relative`) is held to max(2^-4,
+    EXACT_K["composed"] x the plain route's), where the old check held it
+    to the composition (`old`, printed beside). Also prints the
+    composition's own distance to its float64-sum version and to the
     route's, whether the dropout masks of the kernels' pass and the
     composition's agree, and block by block the largest distances over
     the frame that moved most."""
-    ref = view(routes["float64 sums"][0])
+    exact_route = routes["float64 sums"]
+    ref = view(exact_route[0])
     scale = ref.abs().max().item() if relative else 1.0
     dist = lambda a, b: (view(a) - view(b)).abs().max().item() / scale
-    d = {name: dist(routes[name][0], routes["float64 sums"][0])
+    d = {name: dist(routes[name][0], exact_route[0])
          for name in ("kernels", "plain", "composition")}
     d["composition vs its float64 sums"] = dist(
         routes["composition"][0], routes["composition, float64 sums"][0])
     d["the float64 sums of both"] = dist(
-        routes["float64 sums"][0], routes["composition, float64 sums"][0])
+        exact_route[0], routes["composition, float64 sums"][0])
     limit = max(COMPOSED_BF16, EXACT_K["composed"] * d["plain"])
+    tensors = lambda r: [view(r[0]), *r[1]]
+    names = [n for n in routes if n not in (
+        "float64 sums", "composition", "composition, float64 sums",
+        "k7_backward")]
+    pooled = {n: pooled_rel(tensors(routes[n]), tensors(exact_route))
+              for n in names}
+    pooled_limit = max(TRAIN_BF16_MEAN, EXACT_K["composed"] * pooled["plain"])
+    wrong = {n: v / pooled_limit for n, v in pooled.items()
+             if n not in ("kernels", "plain")}
     masks = [routes[name][2] for name in ("kernels", "composition")]
     # the kept elements agree wherever neither pass's input is exactly 0
     same_masks = len(masks[0]) == len(masks[1]) and all(
@@ -4078,18 +4289,27 @@ def composed_verdict(what, routes, view, old, relative) -> bool:
     frame = (view(routes["kernels"][0]) - view(routes["composition"][0])
              ).abs().flatten(1).amax(1).argmax().item()
     by_block = []
-    for i, blk in enumerate(routes["float64 sums"][1]):
+    for i, blk in enumerate(exact_route[1]):
         s = blk[frame].float().abs().max().item() or 1.0
         by_block.append({name: (routes[name][1][i][frame].float()
                                 - blk[frame].float()).abs().max().item() / s
                          for name in ("kernels", "plain", "composition")})
-    ok = d["kernels"] <= limit
-    print(f"{what}: the kernels' route vs its float64-sum version "
-          f"{d['kernels']:.3e} (limit max(2^-4, {EXACT_K['composed']:g} x "
+    pooled_ok = pooled["kernels"] <= pooled_limit
+    ok = pooled_ok and d["kernels"] <= limit
+    k = EXACT_K["composed"]
+    print(f"{what}: the kernels' route vs its float64-sum version, pooled "
+          f"mean|err|/L over the output and the {len(exact_route[1])} "
+          f"blocks' outputs {pooled['kernels']:.3e} (limit max(2^-18, {k:g}"
+          f" x the plain route's {pooled['plain']:.3e}) = "
+          f"{pooled_limit:.3e}) {'ok' if pooled_ok else 'FAIL'}; the wrong "
+          "versions over that limit: " + ", ".join(
+              f"{n} {v:.3f} {'fails' if v > 1 else 'PASSES'}"
+              for n, v in wrong.items())
+          + f"; max|err| {d['kernels']:.3e} (limit max(2^-4, {k:g} x "
           f"the plain route's {d['plain']:.3e}) = {limit:.3e}) "
-          f"{'ok' if ok else 'FAIL'}; old reading vs the composition "
-          f"{old:.3e} (limit 2^-4); the composition vs the float64 sums "
-          f"{d['composition']:.3e}, vs its own "
+          f"{'ok' if d['kernels'] <= limit else 'FAIL'}; old reading vs the "
+          f"composition {old:.3e} (limit 2^-4); the composition vs the "
+          f"float64 sums {d['composition']:.3e}, vs its own "
           f"{d['composition vs its float64 sums']:.3e}; the two "
           f"float64-sum versions apart "
           f"{d['the float64 sums of both']:.3e}; dropout masks of the two "
@@ -4102,10 +4322,14 @@ def composed_verdict(what, routes, view, old, relative) -> bool:
               f"block {i}: " + ", ".join(f"{k} {v:.2e}" for k, v in b.items())
               for i, b in enumerate(by_block)), flush=True)
     record("composed", what=what, kernels=d["kernels"], plain=d["plain"],
-           limit=limit, old=old, composition=d["composition"],
+           limit=limit, pooled=pooled, pooled_limit=pooled_limit,
+           wrong=wrong, old=old, composition=d["composition"],
            composition_own=d["composition vs its float64 sums"],
            exact_apart=d["the float64 sums of both"], masks=same_masks,
            k7_backward=routes["k7_backward"], by_block=by_block)
+    for n, v in wrong.items():
+        check(v > 1, f"{what}: the restated limit passes a wrong version "
+              f"({n})")
     return ok and same_masks
 
 
@@ -4118,6 +4342,8 @@ def phase_composed(cfg, flat, policies, rng):
     from dgvit_tpu_torch.models import (build_actor, layers,
                                         params_from_jax)
     from dgvit_tpu_torch.models.got import GoT
+    from dgvit_tpu_torch.ops import attention as att
+    from dgvit_tpu_torch.ops import fused_block as fb
 
     dev = torch.device(DEVICE)
     counters = kernel_counters()
@@ -4169,7 +4395,11 @@ def phase_composed(cfg, flat, policies, rng):
         if dtype == "bfloat16":
             routes = composed_routes(pol, lambda: pol(
                 obs, goal, deterministic=False,
-                generator=torch.Generator(dev).manual_seed(SEED))[0])
+                generator=torch.Generator(dev).manual_seed(SEED))[0],
+                wrong={f"K7 with {name}": (
+                    lambda what=what: swapped(fb, "_launch",
+                                              k7_unrounded(what)))
+                    for name, what in K7_ROUNDING.items()})
         mean, got = counted(train_pass)
         grads = {n: p.grad.detach().clone()
                  for n, p in pol.named_parameters()}
@@ -4242,7 +4472,11 @@ def phase_composed(cfg, flat, policies, rng):
                     pols["pallas"], lambda: pols["pallas"](
                         obs, goal, inference=True)[0],
                     (pols["xla"], lambda: pols["xla"](
-                        obs, goal, inference=True)[0]))
+                        obs, goal, inference=True)[0]),
+                    wrong={f"K8 with {name}": (
+                        lambda what=what: swapped(att, "_launch",
+                                                  k8_rounded(what)))
+                        for name, what in K8_ROUNDING.items()})
         act = lambda t: torch.tanh(t.float())
         err = (act(mean) - act(comp)).abs().max().item()
         err_k1 = (act(mean) - act(ref)).abs().max().item()
@@ -4649,12 +4883,14 @@ def phase_long_frames(flat, rng):
     return {"routes": taken, "composed_vs_fused_129_bf16": composed_vs_fused}
 
 
-def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
+def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2,
+            records=False):
     """The least FLOPs and bytes of K4's backward from x, dy and K4's
     streams: the forward once (the blocks' inner activations are not
-    given), two products for each of its products; x, dy, the streams,
-    the CLS block's fp32 records and the weights read, dx and the weight
-    gradients written, once each."""
+    given), two products for each of its products; x, dy, the streams
+    and the weights read, dx and the weight gradients written, once
+    each. With `records`, also the CLS block's fp32 records read (the
+    port's design since fault k's repair)."""
     from dgvit_tpu_torch.ops.cls_block import cls_saved_width
 
     fwd, _ = train_work("K4", batch, n, d, heads, dh, mlp, depth, esize)
@@ -4663,7 +4899,7 @@ def k6_work(batch, n=65, d=64, heads=4, dh=64, mlp=2048, depth=4, esize=2):
     streams = (depth - 1) * batch * n * d + batch * d
     record = batch * cls_saved_width(n, d, heads, dh, mlp) * 4
     return 3 * fwd, ((2 * batch * n * d + batch * d + streams + 2 * depth * w)
-                     * esize + 4 * d * 4 + record)
+                     * esize + 4 * d * 4 + (record if records else 0))
 
 
 def section_library(x, wqkv, wout, bout, heads=4, dim_head=64):
@@ -4723,10 +4959,12 @@ def phase_attention_times(nets, rng):
     args = with_streams((a["x"], a["dy3"], a["blocks"], a["fn"], a["heads"],
                          a["dh"], "rms"))
     bnd, by = bound_ms(*k6_work(SAC_BATCH), "bfloat16")
+    rb, rby = bound_ms(*k6_work(SAC_BATCH, records=True), "bfloat16")
     rows["K6"] = dict(ms=cuda_ms(lambda: trunk_bwd_fused(*args), 3, runs=5),
                       plain_ms=cuda_ms(lambda: trunk_bwd_plain(*args), 1,
                                        runs=5),
-                      bound_ms=bnd, bound_by=by, library_ms=None)
+                      bound_ms=bnd, bound_by=by, bound_with_records_ms=rb,
+                      bound_with_records_by=rby, library_ms=None)
     rows["K7"] = {}
     for b, n in SECTION_SHAPES:
         x, *w = section_inputs(nets, "bfloat16", b, n, rng)
@@ -4775,6 +5013,9 @@ def phase_attention_times(nets, rng):
                    f"{t['device_ms']:.4f} ms, scaled_dot_product_attention "
                    f"{t['library_device_ms']:.4f} ms")
             more = "".join(
+                f", {what} {t[key]:.5f} ms" for key, what in (
+                    ("bound_with_records_ms", "bound with the CLS records"),
+                    ) if key in t) + "".join(
                 f", {what} {t[key]:.4f} ms" for key, what in (
                     ("fma_ms", "its FMA kernel (x unaligned)"),
                     ("yardstick_ms", "x @ wqkv, scaled_dot_product_attention"

@@ -48,10 +48,12 @@
 // probabilities, o, x1, h2 and MLP pre-activations from the record its
 // forward wrote (ClsSave: K3f, or the last block of every body of K4), so
 // it differentiates the CLS row that forward computed, whichever body
-// summed it. Without a record (only a measurement of the fault this
-// repaired passes none) the body recomputes the CLS row as single-row
-// fp32 chains, whose sums differ in order from the tensor-core forward's
-// and flip a bf16 rounding of q, o, h2 or hid on some frames.
+// summed it. The body before that repair, which recomputes the CLS row
+// as single-row fp32 chains (their sums differ in order from the
+// tensor-core forward's and flip a bf16 rounding of q, o, h2 or hid on
+// some frames), is kept only in the measurement kernels
+// cls_bwd_recompute_kernel and trunk_bwd_recompute_kernel, launched when
+// no record is passed, which no route does.
 // The TPU pads 65 rows to 72 and masks the padded keys; padded rows carry
 // zero gradient there, so computing the 65 real rows is exact.
 //
@@ -1208,8 +1210,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The per-frame pass of the CLS-only block's backward for frame f: the
-// body of K3b's kernel and of the last block of K6's.
-template <typename T>
+// body of K3b's kernel and of the last block of K6's. kRecompute: the body
+// before fault k's repair, which recomputes the CLS row instead of reading
+// its record (only the measurement kernels cls_bwd_recompute_kernel and
+// trunk_bwd_recompute_kernel take it).
+template <typename T, bool kRecompute>
 __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
                                              unsigned char* smem_raw) {
   const Dims m = a.m;
@@ -1254,10 +1259,10 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   float* V = a.vec + (size_t)f * (6 * d + mlp);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const ClsSave sl = a.sv;
-  const float* sv = sl.base != nullptr ? sl.at(f) : nullptr;
+  const float* sv = kRecompute ? nullptr : sl.at(f);
 
   // ---- LN1 (all rows) -> k/v (all rows); the CLS row's q, probabilities,
-  // o, x1, h2 from the forward's record (recomputed without one) --------
+  // o, x1, h2 from the forward's record (recomputed with kRecompute) --------
   for (int i = threadIdx.x; i < n * d; i += blockDim.x) x32[i] = tof(x[i]);
   __syncthreads();
   layernorm_stats(x32, n, d, mean1, rstd1);
@@ -1265,7 +1270,7 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   __syncthreads();
   matmul(H1, d, n, wqkv, i3, d, i2, [=](int c) { return inner + c; },
          [=](int r, int c, float v) { KV[(size_t)r * i2 + c] = fromf<T>(v); });
-  if (sv != nullptr) {
+  if (!kRecompute) {
     for (int c = threadIdx.x; c < inner; c += blockDim.x) {
       Q[c] = fromf<T>(sv[c]);
       O[c] = fromf<T>(sv[sl.o + c]);
@@ -1295,7 +1300,7 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   }
   __syncthreads();
   layernorm_stats(x1, 1, d, mean2, rstd2);
-  if (sv != nullptr)
+  if (!kRecompute)
     for (int c = threadIdx.x; c < d; c += blockDim.x)
       H2[c] = fromf<T>(sv[sl.h2 + c]);
   else
@@ -1306,7 +1311,7 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
   // ---- MLP forward + backward on the CLS row: acc row 0 = dh2 ----------
   for (int c0 = 0; c0 < mlp; c0 += m.hc) {
     const int hc = min(m.hc, mlp - c0);
-    if (sv != nullptr)
+    if (!kRecompute)
       for (int c = threadIdx.x; c < hc; c += blockDim.x) {
         const float z = sv[sl.z + c0 + c];
         dpb[c] = z;
@@ -1422,7 +1427,7 @@ __device__ __forceinline__ void cls_bwd_body(const BwdArgs& a, int f,
 // order as the FMA body adds them. k and v are projected in the head
 // loop rather than kept, so the layout does not grow with the heads.
 // k, v and dk|dv never go to device memory but for dk|dv's slot, which
-// the weight product h1^T dk|dv reads (and, without a record, k|v's
+// the weight product h1^T dk|dv reads (and, with kRecompute, k|v's
 // slot, for the measurement).
 //
 // Widths: d = dim_head = 64, n <= 80 rows, mlp a multiple of 64 (the
@@ -1485,7 +1490,8 @@ __device__ __forceinline__ void load8(float (&out)[8], const bf16* g) {
 // The per-frame pass of the CLS-only block's backward for frame f, bf16,
 // on the tensor cores; the same operands, slots and row sums as
 // cls_bwd_body (its kv slot stays unwritten: no weight product reads
-// it).
+// it). kRecompute as for cls_bwd_body.
+template <bool kRecompute>
 __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
                                             unsigned char* smem_raw) {
   using T = bf16;
@@ -1563,12 +1569,12 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
   };
 
   // ---- LN1 (all rows); the CLS row's q, o, x1 and h2 from the forward's
-  // record. Without one (a measurement of fault k): q, then per head k/v
+  // record. With kRecompute (a measurement of fault k): q, then per head k/v
   // (all rows, to slot 1) and the CLS row's attention, x1 and LN2
   // recomputed as single-row chains --------------------------------------
   const ClsSave sl = a.sv;
-  const float* sv = sl.base != nullptr ? sl.at(f) : nullptr;
-  stage(sv != nullptr ? heads : 0);
+  const float* sv = kRecompute ? nullptr : sl.at(f);
+  stage(kRecompute ? 0 : heads);
   for (int i = threadIdx.x; i < n * D; i += blockDim.x) x32[i] = tof(x[i]);
   for (int c = threadIdx.x; c < D; c += blockDim.x) dys[c] = tof(dy[c]);
   __syncthreads();
@@ -1577,7 +1583,7 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
   zero_rows(h1s, kLd, n, np, D);
   __syncthreads();
   store_rows(H1, D, h1s, kLd, n, D);
-  if (sv != nullptr) {
+  if (!kRecompute) {
     for (int c = threadIdx.x; c < inner; c += blockDim.x) {
       qs[c] = Q[c] = fromf<T>(sv[c]);
       os[c] = O[c] = fromf<T>(sv[sl.o + c]);
@@ -1632,7 +1638,7 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
   for (int c = threadIdx.x; c < D; c += blockDim.x) H2[c] = h2s[c];
   for (int c0 = 8 * threadIdx.x; c0 < mlp; c0 += 8 * blockDim.x) {
     float z[8], wv[8];
-    if (sv != nullptr) {
+    if (!kRecompute) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) z[i] = sv[sl.z + c0 + i];
     } else {
@@ -1726,11 +1732,11 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
     const T* doh = dos + hd * DH;
     project_kv(w);
     __syncthreads();
-    // the forward's probabilities (recomputed without a record); dp = do
+    // the forward's probabilities (recomputed with kRecompute); dp = do
     // v^T, then ds = T((p (dp - sum_j dp p)) scale), as cls_bwd_body forms
     // them
     if (warp == 0) {
-      if (sv != nullptr) {
+      if (!kRecompute) {
         for (int j = lane; j < n; j += 32) p[j] = sv[sl.p + hd * n + j];
         __syncwarp();
       } else {
@@ -1807,20 +1813,30 @@ __device__ __forceinline__ void cls_bwd_mma(const BwdArgs& a, int f,
 
 // The CLS-only backward body: with Mma the bf16 tensor-core body (the
 // flagship widths, see mma_body_takes), else the FMA body of T.
-template <typename T, bool Mma>
+template <typename T, bool Mma, bool kRecompute>
 __device__ __forceinline__ void cls_bwd(const BwdArgs& a, int f,
                                         unsigned char* smem_raw) {
   if constexpr (Mma)
-    cls_bwd_mma(a, f, smem_raw);
+    cls_bwd_mma<kRecompute>(a, f, smem_raw);
   else
-    cls_bwd_body<T>(a, f, smem_raw);
+    cls_bwd_body<T, kRecompute>(a, f, smem_raw);
 }
 
 template <typename T, bool Mma>
 __global__ void __launch_bounds__(kThreads)
     cls_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cls_bwd<T, Mma>(a, blockIdx.x, smem_raw);
+  cls_bwd<T, Mma, false>(a, blockIdx.x, smem_raw);
+}
+
+// K3b's body before fault k's repair (the CLS row recomputed, its k|v
+// stored to slot 1), for the measurement of the fault: launched only
+// without a record, which no route passes.
+template <typename T, bool Mma>
+__global__ void __launch_bounds__(kThreads)
+    cls_bwd_recompute_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cls_bwd<T, Mma, true>(a, blockIdx.x, smem_raw);
 }
 
 // K6, the per-frame pass of the whole trunk's backward. One thread block
@@ -1840,10 +1856,9 @@ struct TrunkBwdArgs {
   int depth, final_norm;
 };
 
-template <typename T, bool Mma>
-__global__ void __launch_bounds__(kThreads, 1)
-    trunk_bwd_kernel(const __grid_constant__ TrunkBwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <typename T, bool Mma, bool kRecompute>
+__device__ __forceinline__ void trunk_bwd_pass(const TrunkBwdArgs& a,
+                                               unsigned char* smem_raw) {
   const int f = blockIdx.x, depth = a.depth, d = a.blk[0].m.d;
 
   // final-norm backward on the CLS row (warp 0; each lane reads back only
@@ -1895,11 +1910,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  cls_bwd<T, Mma>(a.blk[depth - 1], f, smem_raw);
+  cls_bwd<T, Mma, kRecompute>(a.blk[depth - 1], f, smem_raw);
   for (int i = depth - 2; i >= 0; --i) {
     __syncthreads();
     block_bwd<T, Mma>(a.blk[i], f, smem_raw);
   }
+}
+
+template <typename T, bool Mma>
+__global__ void __launch_bounds__(kThreads, 1)
+    trunk_bwd_kernel(const __grid_constant__ TrunkBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_bwd_pass<T, Mma, false>(a, smem_raw);
+}
+
+// K6 with its CLS block's body before fault k's repair, for the
+// measurement of the fault: launched only without a record.
+template <typename T, bool Mma>
+__global__ void __launch_bounds__(kThreads, 1)
+    trunk_bwd_recompute_kernel(const __grid_constant__ TrunkBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_bwd_pass<T, Mma, true>(a, smem_raw);
 }
 
 // One weight-gradient product C = A^T B over a segment of rows:
@@ -2214,18 +2245,26 @@ int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
                unsigned char* ws, int B, cudaStream_t stream) {
   float* part = bind(cls, sizeof(T), a, ws, B);
   const BwdSmem L(a.n, a.m.d, a.m.hc);
+  const bool recompute = cls && a.sv.base == nullptr;  // a measurement
   int err;
   if (!mma) {
-    err = cls ? launch_smem(cls_bwd_kernel<T, false>, B, L.total, stream, a)
-              : launch_smem(block_bwd_kernel<T, false>, B, L.total, stream,
-                            a);
+    err = !cls ? launch_smem(block_bwd_kernel<T, false>, B, L.total, stream,
+                             a)
+          : recompute
+              ? launch_smem(cls_bwd_recompute_kernel<T, false>, B, L.total,
+                            stream, a)
+              : launch_smem(cls_bwd_kernel<T, false>, B, L.total, stream, a);
   } else if constexpr (std::is_same<T, bf16>::value) {
     if (!mma_body_takes(a)) return cudaErrorInvalidValue;
-    err = cls ? launch_smem(cls_bwd_kernel<T, true>, B,
-                            ClsMmaSmem(a.n, a.m.heads * kMmaD, a.m.mlp).total,
+    const size_t cls_bytes =
+        ClsMmaSmem(a.n, a.m.heads * kMmaD, a.m.mlp).total;
+    err = !cls ? launch_smem(block_bwd_kernel<T, true>, B,
+                             MmaBwdSmem(a.n).total, stream, a)
+          : recompute
+              ? launch_smem(cls_bwd_recompute_kernel<T, true>, B, cls_bytes,
                             stream, a)
-              : launch_smem(block_bwd_kernel<T, true>, B,
-                            MmaBwdSmem(a.n).total, stream, a);
+              : launch_smem(cls_bwd_kernel<T, true>, B, cls_bytes, stream,
+                            a);
   } else {
     return cudaErrorInvalidValue;  // the tensor-core body is bf16's
   }
@@ -2305,13 +2344,20 @@ int launch_trunk_bwd(const void* const* ptrs, int B, int n, const Dims& m,
   a.depth = depth;
   a.final_norm = final_norm;
   const size_t bytes = trunk_bwd_bytes(n, m, mma);
+  const bool recompute = a.blk[depth - 1].sv.base == nullptr;  // measuring
   int err;
   if (!mma) {
-    err = launch_smem(trunk_bwd_kernel<T, false>, B, bytes, stream, a);
+    err = recompute ? launch_smem(trunk_bwd_recompute_kernel<T, false>, B,
+                                  bytes, stream, a)
+                    : launch_smem(trunk_bwd_kernel<T, false>, B, bytes,
+                                  stream, a);
   } else if constexpr (std::is_same<T, bf16>::value) {
     for (int i = 0; i < depth; ++i)
       if (!mma_body_takes(a.blk[i])) return cudaErrorInvalidValue;
-    err = launch_smem(trunk_bwd_kernel<T, true>, B, bytes, stream, a);
+    err = recompute ? launch_smem(trunk_bwd_recompute_kernel<T, true>, B,
+                                  bytes, stream, a)
+                    : launch_smem(trunk_bwd_kernel<T, true>, B, bytes,
+                                  stream, a);
   } else {
     return cudaErrorInvalidValue;  // the tensor-core body is bf16's
   }
