@@ -12,7 +12,10 @@ and runs its own chip_smoke.py phases 2 (K1), 5 (the training kernels),
 bf16), 15 (K7 and K8), 16 (the composed routes), 17b (long frames), 13a
 and 13b (fault j's magnitude, and the same question of K2b, K3b and K6:
 fault k's magnitude without the CLS records and its repair with them) on
-two orders of draws:
+two orders of draws, and phase 19a (the batched env on the card against
+the CPU's on the seed's randm32 worlds and records, and the ring on the
+card against the CPU's on the seed's rows) once a seed, in the shared
+order: it draws from the seed alone. Orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
@@ -99,6 +102,8 @@ for seed in seeds:
         if order == "shared":
             print(f"== seed {seed}: phase 2 (both orders)", flush=True)
             cs.phase_kernel_vs_plain(cfg, policies, rng)
+            print(f"== seed {seed}: phase 19a (both orders)", flush=True)
+            cs.phase_vec_env(seed)
         print(f"== seed {seed}, {order}: phase 5", flush=True)
         rng = fresh()
         cs.phase_train_kernels(nets, rng)
@@ -283,6 +288,13 @@ def rows(result):
                        f"{'ok' if c['kernels'] <= c['limit'] else 'FAIL'}"
                        + "".join(f", {n} {v:.3e}" for n, v in c.items()
                                  if n.startswith("K7 with")))
+        elif r["check"] == "vec env":
+            yield (f"{tag} the batched env on the card vs the CPU: images "
+                   f"{r['vec_env_images_max_abs']:.3e}, poses "
+                   f"{r['vec_env_poses_max_abs']:.3e} (limit "
+                   f"{1e-4:.0e}), flags exact, {r['vec_env_resets']} "
+                   f"resets; vs the host env {r['host_env_max_abs']:.3e} "
+                   f"(limit 1e-3); the ring bit-equal")
         elif r["check"] == "K1 latent":
             for n, v in r["readings"].items():
                 want = ("read only" if v.get("read_only") else

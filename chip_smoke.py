@@ -195,6 +195,25 @@ per source, all at once), then
      K2f x12, K2b x12, K3f x4, K3b x4 an update) and the trunk-gradient
      route (K4 x7, K6 x4), finite losses, the device time and host clock
      beside the plain update's;
+ 19. the on-device tier, a main path: (a) the batched env
+     (envs/vec_kinematic.py) on the card against the port's host env (B=1,
+     rrc, 25 scripted steps) and against itself on the CPU (B=16, randm32,
+     200 steps, lanes resetting): flags exact, images within 1e-4; the
+     replay ring on the card against the CPU's and its snapshot, bit for
+     bit; (b) run_eval_vec, 32 episodes x 300 steps as lanes on rrc,
+     with the flagship actor and with one that reaches goals and
+     collides there, exactly one K1 launch a step, successes and
+     collisions within one of the host run_eval on the same records;
+     (c) train_fused at the flagship width (bf16, batch 256, 16 lanes x
+     64 steps a round, a ring of 8192 on the card, randm32,
+     alpha in [0.1, 2.0]) for 3 rounds of 16 updates: 3072 env steps, the
+     ring's cursor, finite losses, K1 x64 a round and every update K4 x3,
+     K2f x6, K2b x6, K3f x2, K3b x2; the host syncs of a round (the stats'
+     one read and the updates' own; none in collection); collection's env
+     steps/s alone, a round's time and updates/s, the device's busy share
+     over a profiled round; a warm resume (the ring back bit for bit, the
+     counters from the JSONL, one more round); a guided round on demos the
+     port records, every update phase 18's launches;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -5029,6 +5048,472 @@ def phase_attention_times(nets, rng):
 
 
 
+# --------------------------------------------------------------------------
+# phase 19: the on-device training tier (the batched env, run_eval_vec,
+# train_fused)
+# --------------------------------------------------------------------------
+
+FUSED_LANES, FUSED_CHUNK, FUSED_RING = 16, 64, 8192
+FUSED_ROUNDS, FUSED_UPDATES, FUSED_WORLD = 3, 16, "randm32"
+VEC_EVAL_EPISODES, VEC_EVAL_STEPS = 32, 300
+# (actor, world) pairs of phase 19b: the flagship actor, which reaches no
+# goal and hits nothing on rrc in 300 steps (its recorded evaluation,
+# artifacts/r5/dr_randm32_s11_amin_rrc_eval.log, reads the same), and an
+# actor of the same widths that reaches goals and collides there
+# (artifacts/r5/drqc_rand8_amin_rrc_eval.log: 44 goals, 56 collisions in
+# 100 episodes), so that the comparison has outcomes to compare
+SECOND_ACTOR = ROOT / "artifacts" / "r5" / "drqc_rand8_amin_actor.npz"
+VEC_EVAL_CASES = (("flagship", ACTOR, "rrc"),
+                  ("drqc_rand8_amin", SECOND_ACTOR, "rrc"))
+# the batched env on the card against the same env on the CPU: lanes,
+# steps, and a max_steps cap that makes every lane reset several times
+VEC_LANES, VEC_STEPS, VEC_MAX_STEPS = 16, 200, 60
+# fp32 on both sides, the same operations; the card's sin/cos/atan2/acos
+# may differ from the CPU's by an ulp or two, which a ray grazing a box
+# carries furthest: an H100 read 1.4e-6 to 5.3e-5 of the image's [0, 1]
+# on seeds 7-11 (chip_draws.py), poses 1.9e-6 to 3.8e-6
+VEC_IMAGE_TOL = 1e-4
+
+
+def scripted_commands(steps, lanes):
+    """Command-unit [v, w] arcs (tests/test_torch_vec_env.py's), one phase
+    a lane."""
+    import numpy as np
+
+    t = np.arange(steps)[:, None] + 3 * np.arange(lanes)[None, :]
+    v = 0.12 + 0.05 * np.sin(t / 3.0)
+    w = 0.4 * np.sin(t / 5.0)
+    return (np.stack([v, w], axis=-1) * [6.0, 1.0]).astype(np.float32)
+
+
+def phase_vec_env(seed=SEED):
+    """Phase 19a: the batched env on the card against the port's host env
+    (B=1, rrc, 128x160, 25 scripted steps, tests/test_torch_vec_env.py's
+    tolerances) and against itself on the CPU (B=16, randm32 drawn from
+    `seed`, 200 steps, lanes resetting every <= 60 steps): flags, record
+    indices and steps exact, images and positions within VEC_IMAGE_TOL;
+    then the ring on the card against the ring on the CPU (three writes,
+    the last wrapping) and a snapshot's round trip, bit for bit. Returns
+    the largest differences."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs import vec_kinematic as vk
+    from dgvit_tpu_torch.envs.kinematic import default_records
+    from dgvit_tpu_torch.train import fused_train as ft
+
+    out = {}
+    recs = default_records(seed=seed)
+    host = KinematicNavEnv(recs, max_steps=100)
+    r = host.reset()
+    c = vk.make_consts("rrc", records=recs, max_steps=100, device=DEVICE)
+    state, obs, goal = vk.vec_reset(c, 1)
+    worst = float(np.abs(obs[0].cpu().numpy() - r.state[..., 0]).max())
+    acts = scripted_commands(25, 1)[:, 0]
+    for i in range(25):
+        s = host.step(list(acts[i]), i)
+        o = vk.vec_step(c, state, torch.from_numpy(acts[i][None]).to(DEVICE))
+        state = o.state
+        check(bool(o.done[0]) == s.done and bool(o.target[0]) == s.target,
+              f"phase 19a: the card's env and the host env part at step {i}")
+        check(abs(float(o.reward[0]) - s.reward) <= 2e-3 + 1e-4 * abs(
+            s.reward), f"phase 19a: reward at step {i}")
+        worst = max(worst, float(np.abs(o.next_to_goal[0].cpu().numpy()
+                                        - s.to_goal).max()),
+                    float(np.abs(o.next_obs[0].cpu().numpy()
+                                 - s.state[..., 0]).max()))
+        if s.done:
+            break
+    check(worst <= 1e-3, f"phase 19a: the card's env is {worst:.3e} from "
+          f"the host env's goals and images (limit 1e-3)")
+    out["host_env_max_abs"] = worst
+
+    envs = [vk.make_consts(FUSED_WORLD, max_steps=VEC_MAX_STEPS, seed=seed,
+                           device=d) for d in (DEVICE, "cpu")]
+    carry = [vk.vec_reset(e, VEC_LANES) for e in envs]
+    acts = torch.from_numpy(scripted_commands(VEC_STEPS, VEC_LANES))
+    img = pos = 0.0
+    resets = 0
+    for t in range(VEC_STEPS + 1):
+        if t:
+            steps = [vk.vec_step(e, st, acts[t - 1].to(e.device))
+                     for e, (st, _, _) in zip(envs, carry)]
+            for f in ("done", "target", "collided", "truncated"):
+                check(torch.equal(getattr(steps[0], f).cpu(),
+                                  getattr(steps[1], f)),
+                      f"phase 19a: {f} differs between the card and the "
+                      f"CPU at step {t}")
+            resets += int((steps[1].done | steps[1].truncated).sum())
+            img = max(img, float((steps[0].next_obs.cpu()
+                                  - steps[1].next_obs).abs().max()))
+            carry = [(o.state, o.obs, o.to_goal) for o in steps]
+        (s0, o0, g0), (s1, o1, g1) = carry
+        for f in ("rec_idx", "steps"):
+            check(torch.equal(getattr(s0, f).cpu(), getattr(s1, f)),
+                  f"phase 19a: {f} differs between the card and the CPU "
+                  f"at step {t}")
+        img = max(img, float((o0.cpu() - o1).abs().max()))
+        pos = max(pos, max(float((getattr(s0, f).cpu()
+                                  - getattr(s1, f)).abs().max())
+                           for f in ("x", "y", "theta", "dist_old")),
+                  float((g0.cpu() - g1).abs().max()))
+    check(img <= VEC_IMAGE_TOL and pos <= VEC_IMAGE_TOL,
+          f"phase 19a: the card's batched env is {img:.3e} (images) and "
+          f"{pos:.3e} (poses, goals) from the CPU's (limit "
+          f"{VEC_IMAGE_TOL})")
+    check(resets >= VEC_LANES * 2, f"phase 19a: only {resets} resets")
+    out.update(vec_env_images_max_abs=img, vec_env_poses_max_abs=pos,
+               vec_env_resets=resets)
+
+    rng = np.random.default_rng(seed)
+    rings = [ft.ring_init(64, (128, 160), device=d) for d in (DEVICE, "cpu")]
+    for n in (40, 20, 30):
+        rows = {"obs": rng.uniform(0, 1, (n, 128, 160)),
+                "act": rng.uniform(-1, 1, (n, 2)),
+                "pobs": rng.uniform(-1, 1, (n, 2)),
+                "next_pobs": rng.uniform(-1, 1, (n, 2)),
+                "rew": rng.normal(0, 50, n),
+                "next_obs": rng.uniform(0, 1, (n, 128, 160)),
+                "done": (rng.uniform(0, 1, n) < 0.1)}
+        for ring in rings:
+            ft.ring_write(ring, {k: torch.as_tensor(
+                v, dtype=torch.float32, device=ring.obs.device)
+                for k, v in rows.items()})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = str(Path(d) / "ring.npz")
+        ft.ring_save(rings[0], path, chunk_rows=24)
+        back = ft.ring_load(path, ft.ring_init(64, (128, 160),
+                                               device=DEVICE))
+    check(back is not None and back.cursor == rings[1].cursor == 90,
+          "phase 19a: the ring's cursor")
+    for f in ft.RING_FIELDS:
+        check(torch.equal(getattr(rings[0], f).cpu(), getattr(rings[1], f))
+              and torch.equal(getattr(back, f), getattr(rings[0], f)),
+              f"phase 19a: the ring's {f} on the card differs from the "
+              f"CPU's or from its snapshot")
+    record("vec env", seed=seed, **out)
+    print(f"phase 19a (seed {seed}): the batched env on the card: "
+          f"{json.dumps(out)}; the ring bit-equal to the CPU's and to its "
+          f"snapshot", flush=True)
+    return out
+
+
+def phase_vec_eval(out_dir):
+    """Phase 19b: run_eval_vec, 32 episodes as lanes, 300 steps, one K1
+    launch a step and no other kernel; held to the host run_eval on the
+    same 32 records (successes and collisions within 1), for each of
+    VEC_EVAL_CASES."""
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.train.evaluate import run_eval, run_eval_vec
+
+    cfg = fused_cfg()
+    cfg.env.max_steps = VEC_EVAL_STEPS
+    counters = kernel_counters()
+    out = {}
+    for name, path, world in VEC_EVAL_CASES:
+        flat = load_params_npz(str(path))
+        for fn in counters.values():
+            fn.launches = 0
+        torch_sync()
+        t0 = time.perf_counter()
+        vec = run_eval_vec(cfg, flat, VEC_EVAL_EPISODES, world, out_dir,
+                           name, device=DEVICE)
+        vec_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        check(launches == {**{k: 0 for k in counters},
+                           "K1": VEC_EVAL_STEPS},
+              f"run_eval_vec ({name}, {world}) launched {launches}, "
+              f"expected K1 x{VEC_EVAL_STEPS} (one a step) and nothing else")
+        t0 = time.perf_counter()
+        host = run_eval(cfg, KinematicNavEnv(seed=SEED, world=world), flat,
+                        VEC_EVAL_EPISODES, out_dir, name, device=DEVICE)
+        host_s = time.perf_counter() - t0
+        host_steps = counters["K1"].launches - VEC_EVAL_STEPS
+        print(f"phase 19b ({name}, {world}): run_eval_vec "
+              f"{VEC_EVAL_EPISODES} episodes x {VEC_EVAL_STEPS} steps in "
+              f"{vec_s:.3f} s = "
+              f"{VEC_EVAL_EPISODES * VEC_EVAL_STEPS / vec_s:.1f} env steps/s"
+              f" (host clock, the actor's set-up included): successes "
+              f"{vec['successes']}, collisions {vec['collisions']}, "
+              f"durations {vec['durations']}; host run_eval: {host_steps} "
+              f"steps in {host_s:.3f} s = {host_steps / host_s:.1f} "
+              f"steps/s, successes {host['successes']}, collisions "
+              f"{host['collisions']}, durations {host['durations']} "
+              f"({card()})", flush=True)
+        check(abs(vec["successes"] - host["successes"]) <= 1
+              and abs(vec["collisions"] - host["collisions"]) <= 1,
+              f"phase 19b ({name}, {world}): run_eval_vec and run_eval "
+              f"disagree by more than one episode")
+        out[name] = {
+            "world": world, "launches": launches,
+            "vec_steps_per_s": VEC_EVAL_EPISODES * VEC_EVAL_STEPS / vec_s,
+            "host_steps_per_s": host_steps / host_s,
+            "vec": {k: vec[k] for k in ("successes", "collisions")},
+            "host": {k: host[k] for k in ("successes", "collisions")}}
+    return out
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def count_syncs(fn):
+    """(fn's result, the number of synchronizing CUDA calls it made), as
+    torch.cuda.set_sync_debug_mode('warn') reports them."""
+    import warnings
+
+    import torch
+
+    torch_sync()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return result, len(syncs), sorted({str(w.message)[:120] for w in syncs})
+
+
+def fused_cfg():
+    from dgvit_tpu_torch.config import Config
+
+    cfg = Config.from_dict({
+        "model": {"compute_dtype": "bfloat16"},
+        "sac": {"batch_size": SAC_BATCH, "alpha_min": 0.1,
+                "alpha_max": 2.0},
+        "train": {"seed": SEED, "pre_buffer": False, "save": True}})
+    m = cfg.model
+    check((m.block, m.head, m.dim_head, m.mlp_dim, m.latent_size,
+           tuple(m.image_size)) == (4, 4, 64, 2048, 64, (128, 160)),
+          "phase 19c's model is not the flagship")
+    return cfg
+
+
+def phase_fused(out_dir):
+    """Phase 19c, a main path: train_fused at the flagship width (bf16,
+    batch 256, 16 lanes x 64 steps a round into a ring of 8192 on the
+    card, randm32, alpha in [0.1, 2.0]) for 3 rounds of 16 updates (the
+    default is one update per env step, 1024 a round: cut for the run's
+    time limit), with exact launches (K1 64 a round, PER_UPDATE an update),
+    the ring's cursor and finite losses; then the host syncs of a round,
+    collection's env steps/s alone, a round's time and its updates/s, and
+    the device's busy share over a profiled round; a warm resume (the ring
+    back bit for bit, the counters from the JSONL, one more round); and a
+    guided round on demos the port records, with phase 18's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs import vec_kinematic as vk
+    from dgvit_tpu_torch.train import fused_train as ft
+    from dgvit_tpu_torch.train import vec_rollout as vr
+    from dgvit_tpu_torch.train.demo_record import (record_episodes,
+                                                   scripted_pilot)
+
+    cfg = fused_cfg()
+    counters = kernel_counters()
+    run_dir = str(Path(out_dir) / "fused")
+    kw = dict(n_envs=FUSED_LANES, chunk=FUSED_CHUNK,
+              updates_per_round=FUSED_UPDATES, ring_capacity=FUSED_RING,
+              world=FUSED_WORLD, device=DEVICE)
+
+    def drive(cfg, run_dir, label, rounds, **more):
+        """train_fused for `rounds` rounds in one segment: (its result, its
+        launches, its host clock)."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch_sync()
+        t0 = time.perf_counter()
+        out = ft.train_fused(cfg, out_dir=run_dir, rounds=rounds,
+                             rounds_per_dispatch=rounds, **kw, **more)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"train_fused ({label}): {out['rounds']} rounds, "
+              f"{out['env_steps']} env steps, {out['updates']} updates, "
+              f"{out['episodes']} episodes, {out['goals']} goals in "
+              f"{wall:.2f} s (host clock, the ring's snapshot included); "
+              f"launches {launches}", flush=True)
+        return out, launches, wall
+
+    def expected(rounds, per_update):
+        return {**{k: n * rounds * FUSED_UPDATES
+                   for k, n in per_update.items()},
+                "K1": rounds * FUSED_CHUNK}
+
+    out, launches, wall = drive(cfg, run_dir, "plain", FUSED_ROUNDS)
+    updates = FUSED_ROUNDS * FUSED_UPDATES
+    steps = FUSED_ROUNDS * FUSED_LANES * FUSED_CHUNK
+    ring = out["ring"]
+    check(out["rounds"] == FUSED_ROUNDS and out["env_steps"] == steps
+          and out["updates"] == updates and ring.cursor == steps,
+          f"train_fused ran {out['rounds']} rounds, {out['env_steps']} env "
+          f"steps, {out['updates']} updates, ring cursor {ring.cursor}")
+    ring_bytes = sum(getattr(ring, f).numel() * 4 for f in ft.RING_FIELDS)
+    check(tuple(ring.obs.shape) == (FUSED_RING, 128, 160)
+          and ring.obs.device.type == "cuda",
+          f"the ring's frames: {tuple(ring.obs.shape)} on "
+          f"{ring.obs.device}")
+    want = expected(FUSED_ROUNDS, PER_UPDATE)
+    check(launches == want, f"train_fused launched {launches}, expected "
+          f"{want}: K1 x{FUSED_CHUNK} a round, every update {PER_UPDATE}")
+    rows = [json.loads(line) for line in
+            next(Path(run_dir).glob("train_fused_*.jsonl")).read_text()
+            .splitlines()]
+    check(len(rows) == FUSED_ROUNDS and all(
+        math.isfinite(r[k]) for r in rows for k in
+        ("qf1_loss", "policy_loss", "alpha", "reward_sum")),
+        "train_fused's losses are not finite")
+    check([r["buffer"] for r in rows] == [
+        float(FUSED_LANES * FUSED_CHUNK * (i + 1))
+        for i in range(FUSED_ROUNDS)], "the ring's fill by round")
+    print(f"the ring on the card: {ring_bytes / 1e9:.3f} GB", flush=True)
+
+    # the parts of a round, on the state and ring the run left
+    state = out["state"]
+    agent = SACAgent(cfg, device=DEVICE, seed=SEED)
+    consts = vk.make_consts(FUSED_WORLD, max_steps=cfg.env.max_steps,
+                            seed=SEED, device=DEVICE)
+    e = cfg.env
+    collect = vr.make_collect_fn(agent, consts, FUSED_CHUNK,
+                                 e.linear_cmd_scale, e.angular_cmd_scale)
+    run = ft.make_fused_round(agent, consts, FUSED_LANES, FUSED_CHUNK,
+                              FUSED_UPDATES, SAC_BATCH, e.linear_cmd_scale,
+                              e.angular_cmd_scale, seed=SEED)
+    carry = vk.vec_reset(consts, FUSED_LANES)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    collect(state.actor, carry, gen)          # warm
+    torch_sync()
+    t0 = time.perf_counter()
+    carry, _ = collect(state.actor, carry, gen)
+    torch_sync()
+    collect_s = time.perf_counter() - t0
+    state, carry, ring, _ = run(state, carry, ring, [FUSED_ROUNDS])
+    torch_sync()
+    t0 = time.perf_counter()
+    state, carry, ring, _ = run(state, carry, ring, [FUSED_ROUNDS + 1])
+    torch_sync()
+    round_s = time.perf_counter() - t0
+    (state, carry, ring, _), syncs, kinds = count_syncs(
+        lambda: run(state, carry, ring, [FUSED_ROUNDS + 2]))
+    batch = ft.ring_sample(ring, gen, SAC_BATCH)
+    _, update_syncs, update_kinds = count_syncs(
+        lambda: agent.learn(state, batch))
+    _, collect_syncs, _ = count_syncs(
+        lambda: collect(state.actor, carry, gen))
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, carry, ring, _ = run(state, carry, ring, [FUSED_ROUNDS + 3])
+        torch_sync()
+        prof_wall = time.perf_counter() - t0
+    busy = sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type.name == "CUDA") / 1e6
+    upd_s = round_s - collect_s
+    timing = {
+        "collect_env_steps_per_s": FUSED_LANES * FUSED_CHUNK / collect_s,
+        "collect_ms_per_step": collect_s / FUSED_CHUNK * 1e3,
+        "round_s": round_s,
+        "updates_per_s_in_round": FUSED_UPDATES / upd_s,
+        "ms_per_update_in_round": upd_s / FUSED_UPDATES * 1e3,
+        "env_steps_per_s_in_round": FUSED_LANES * FUSED_CHUNK / round_s,
+        "syncs_per_round": syncs, "syncs_per_update": update_syncs,
+        "syncs_per_collection": collect_syncs,
+        "profiled_round_s": prof_wall,
+        "busy_share": (busy / prof_wall) if busy else None}
+    print(f"phase 19c times ({card()}): collection alone "
+          f"{timing['collect_env_steps_per_s']:.1f} env steps/s "
+          f"({timing['collect_ms_per_step']:.3f} ms a step of "
+          f"{FUSED_LANES} lanes); a round of {FUSED_CHUNK} steps and "
+          f"{FUSED_UPDATES} updates {round_s:.3f} s = "
+          f"{timing['env_steps_per_s_in_round']:.1f} env steps/s, "
+          f"{timing['updates_per_s_in_round']:.2f} updates/s "
+          f"({timing['ms_per_update_in_round']:.2f} ms an update, the "
+          f"round less a collection); device busy share over a profiled "
+          f"round: " + ("not measured (no device time)" if not busy else
+                        f"{busy:.3f} s of {prof_wall:.3f} s = "
+                        f"{busy / prof_wall:.3f}") + " (host clock, "
+          f"synchronized)", flush=True)
+    print(f"phase 19c host syncs: a round {syncs}, an update {update_syncs},"
+          f" a collection {collect_syncs}; an update's: {update_kinds}; "
+          f"the round's: {kinds}", flush=True)
+    check(collect_syncs == 0, f"collection synchronized {collect_syncs} "
+          f"times with the card")
+    check(syncs == 1 + FUSED_UPDATES * update_syncs,
+          f"a round synchronized {syncs} times: expected the stats' one "
+          f"read and {update_syncs} an update x {FUSED_UPDATES}")
+
+    # the warm resume: the snapshot the first run wrote at its end
+    snap = ft.ring_init(FUSED_RING, (128, 160), device=DEVICE)
+    check(ft.ring_load(str(Path(run_dir) / "checkpoints" / "ring_latest.npz"),
+                       snap) is not None, "no ring snapshot")
+    first = {f: getattr(snap, f)[:steps].clone() for f in ft.RING_FIELDS}
+    del snap
+    resumed, r_launches, _ = drive(cfg, run_dir, "warm resume",
+                                   FUSED_ROUNDS + 1, resume=True)
+    rows = [json.loads(line) for line in
+            next(Path(run_dir).glob("train_fused_*.jsonl")).read_text()
+            .splitlines()]
+    check(resumed["rounds"] == FUSED_ROUNDS + 1
+          and [r["step"] for r in rows] == list(range(1, FUSED_ROUNDS + 2))
+          and rows[FUSED_ROUNDS - 1]["episodes"] == out["episodes"]
+          and resumed["episodes"] == rows[-1]["episodes"]
+          and rows[-1]["buffer"] == steps + FUSED_LANES * FUSED_CHUNK
+          and resumed["updates"] == updates + FUSED_UPDATES,
+          "the warm resume's counters do not follow the JSONL")
+    check(all(torch.equal(getattr(resumed["ring"], f)[:steps], first[f])
+              for f in ft.RING_FIELDS),
+          "the resumed ring is not the snapshot bit for bit")
+    check(r_launches == expected(1, PER_UPDATE),
+          f"the resumed round launched {r_launches}")
+    del first, resumed
+
+    # the guided round on demos the port records
+    demo_env = KinematicNavEnv(seed=SEED + 3, world="rrc")
+    demos = record_episodes(
+        demo_env, scripted_pilot, str(Path(out_dir) / "Data"),
+        episodes=DEMO_EPISODES, max_steps=TRAIN_MAX_STEPS,
+        action_to_env=lambda a: [(a[0] + 1) * e.linear_cmd_scale,
+                                 a[1] * e.angular_cmd_scale])
+    check(bool(demos), "the recorder wrote no demo")
+    cfg.train.pre_buffer = True
+    guided, g_launches, g_wall = drive(
+        cfg, str(Path(out_dir) / "guided"), "guided", 1,
+        expert_glob=str(Path(out_dir) / "Data" / "RRC" / "torch" / "*.npz"))
+    g_rows = [json.loads(line) for line in
+              next((Path(out_dir) / "guided").glob("train_fused_*.jsonl"))
+              .read_text().splitlines()]
+    gwant = expected(1, PER_GUIDED)
+    check(g_launches == gwant, f"the guided round launched {g_launches}, "
+          f"expected {gwant}")
+    check(guided["updates"] == FUSED_UPDATES
+          and math.isfinite(g_rows[-1]["qf1_loss"]),
+          "the guided round's updates or losses")
+    return {"launches": launches, "guided_launches": g_launches,
+            "wall_s": wall, "guided_wall_s": g_wall, **timing,
+            "episodes": out["episodes"], "goals": out["goals"],
+            "last_round": {k: rows[FUSED_ROUNDS - 1][k] for k in
+                           ("qf1_loss", "policy_loss", "alpha",
+                            "reward_sum")}}
+
+
+def phase_on_device():
+    """Phase 19: the on-device tier (19a, 19b, 19c)."""
+    env = phase_vec_env()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        vec_eval = phase_vec_eval(out_dir)
+        fused = phase_fused(out_dir)
+    return {"env": env, "vec_eval": vec_eval, "fused": fused}
+
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -5190,6 +5675,7 @@ def main() -> int:
     guided = phase_guided(actor_flat, critic_flat, {
         "default": (update_s, one_update),
         "trunk-gradient": (trunk_update_s, trunk_update)})
+    on_device = phase_on_device()
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -5223,7 +5709,10 @@ def main() -> int:
     rows[0]["launches_by_path"] = {
         "serving": launches, "camera_to_action": camera_launches["K1"],
         "train": loop_launches["K1"],
-        **{f"train_{k}": v["K1"] for k, v in guided_loop.items()}}
+        **{f"train_{k}": v["K1"] for k, v in guided_loop.items()},
+        "run_eval_vec": on_device["vec_eval"]["flagship"]["launches"]["K1"],
+        "fused_train": on_device["fused"]["launches"]["K1"],
+        "fused_train_guided": on_device["fused"]["guided_launches"]["K1"]}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -5247,7 +5736,10 @@ def main() -> int:
                     "guided_trunk_grad_update":
                         guided["trunk-gradient"]["launches"][short],
                     **{f"train_{k}": v[short]
-                       for k, v in guided_loop.items()}},
+                       for k, v in guided_loop.items()},
+                    "fused_train": on_device["fused"]["launches"][short],
+                    "fused_train_guided":
+                        on_device["fused"]["guided_launches"][short]},
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({
@@ -5297,6 +5789,7 @@ def main() -> int:
     print(f"fault j (phase 13a): {json.dumps(fault_j)}")
     print(f"K2b, K3b and K6 recomputes (phase 13b): {json.dumps(recompute)}")
     print(f"guided update (phase 18): {json.dumps(guided)}")
+    print(f"on-device tier (phase 19, {card()}): {json.dumps(on_device)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

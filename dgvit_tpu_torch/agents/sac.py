@@ -131,17 +131,19 @@ class SACAgent:
     @torch.no_grad()
     def act_batch(self, actor: GoTPolicy, obs, pobs,
                   generator: Optional[torch.Generator] = None,
-                  evaluate: bool = False) -> torch.Tensor:
+                  evaluate: bool = False,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Batched action of an actor, no dropout, through the whole-trunk
         kernel: tanh(mean) with evaluate, else a sample (noise from
-        `generator`)."""
+        `generator`, or the standard normal draws `noise` (B, A))."""
         o, p = (x if isinstance(x, torch.Tensor) else
                 torch.as_tensor(np.asarray(x, np.float32), device=self.device)
                 for x in (obs, pobs))
         mean, log_std = actor(o, p, inference=True)
         if evaluate:
             return torch.tanh(mean)
-        return distributions.sample(mean, log_std, generator).action
+        return distributions.sample(mean, log_std, generator,
+                                    noise=noise).action
 
     def choose_action(self, state: SACState, obs, pobs,
                       evaluate: bool = False) -> torch.Tensor:

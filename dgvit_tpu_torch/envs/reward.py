@@ -11,6 +11,12 @@ rounds the inputs first, drifts in the last bits and can flip `target` at
 the goal radius. These functions keep that behaviour: `_f32` stands where
 the JAX code enters an array operation, Python arithmetic is left as it
 is, and fp32 arrays go through unchanged.
+
+The `*_lanes` functions are the same math on (B,) fp32 tensors, for the
+batched env on the card (`envs/vec_kinematic.py`), where the JAX env
+calls the functions above on fp32 arrays: every operand is an fp32
+tensor and a Python number is rounded to fp32 where it meets one, as
+torch and the JAX package both do.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 PI = math.pi
 
@@ -98,6 +105,54 @@ def step_reward(dist_old, dist, collided, act0, act1,
                      _f32(clip[1]))
     return RewardOut(reward=reward, done=done, target=target,
                      dist=dist, r_arret=r_arret)
+
+
+def heading_error_lanes(odom_x, odom_y, goal_x, goal_y, angle):
+    """`heading_error` on (B,) fp32 tensors."""
+    skew_x = goal_x - odom_x
+    skew_y = goal_y - odom_y
+    mag1 = torch.sqrt(torch.square(skew_x) + torch.square(skew_y))
+    beta = torch.arccos(torch.clamp(skew_x / torch.clamp(mag1, min=1e-12),
+                                    -1.0, 1.0))
+    beta = torch.where(skew_y < 0, -beta, beta)
+    beta2 = beta - angle
+    beta2 = torch.where(beta2 > PI, beta2 - 2.0 * PI, beta2)
+    return torch.where(beta2 < -PI, beta2 + 2.0 * PI, beta2)
+
+
+def polar_goal_lanes(odom_x, odom_y, goal_x, goal_y, angle, act0=None,
+                     act1=None, dist_norm: float = 15.0) -> torch.Tensor:
+    """`polar_goal` on (B,) fp32 tensors: (B, 4) rows [min(D/15, 1),
+    beta2/pi, act0, act1]; a missing action is zeros."""
+    dist = torch.sqrt(torch.square(odom_x - goal_x)
+                      + torch.square(odom_y - goal_y))
+    beta2 = heading_error_lanes(odom_x, odom_y, goal_x, goal_y, angle)
+    zero = torch.zeros_like(dist)
+    return torch.stack([
+        torch.clamp(dist / dist_norm, max=1.0), beta2 / PI,
+        zero if act0 is None else act0,
+        zero if act1 is None else act1], dim=1)
+
+
+def step_reward_lanes(dist_old, dist, collided, act0, act1,
+                      goal_radius: float = 0.5,
+                      r_target: float = 200.0,
+                      r_collision: float = -100.0,
+                      heuristic_scale: float = 20.0,
+                      clip: Tuple[float, float] = (-200.0, 500.0)
+                      ) -> RewardOut:
+    """`step_reward` on (B,) fp32 tensors, summed in the same order."""
+    target = dist < goal_radius
+    done = target | collided
+    zero = torch.zeros_like(dist)
+    r_heur = (dist_old - dist) * heuristic_scale
+    r_tgt = torch.where(target, r_target, zero)
+    r_col = torch.where(collided, r_collision, zero)
+    r_arret = torch.where(target, 50.0 * (2.0 - torch.abs(act1))
+                          * (1.0 - act0), zero)
+    reward = torch.clamp(r_col + r_tgt + r_heur, clip[0], clip[1])
+    return RewardOut(reward=reward, done=done, target=target, dist=dist,
+                     r_arret=r_arret)
 
 
 def laser_collision(ranges, min_range: float = 0.2):

@@ -2,10 +2,12 @@
 actor, run N deterministic episodes, report success rate, collisions and
 durations, append results/testing_data.txt.
 
-Counterpart of `dgvit_tpu/train/evaluate.py::run_eval`, the host loop: a
-reference-shaped Python loop with one actor forward per step (the
-whole-trunk kernel on the card). The vectorized, fleet and on-device
-rollout loops of the JAX package are not ported yet.
+Counterpart of `dgvit_tpu/train/evaluate.py`: `run_eval`, the host
+loop (a reference-shaped Python loop with one actor forward per step, the
+whole-trunk kernel on the card), and `run_eval_vec`, every episode a lane
+of the batched env on the card (`--vec-eval`). The fleet and io-callback
+rollout loops of the JAX package are not ported yet, nor the robustness
+sweep of `run_eval_vec` (`sweep=`, which needs `envs/fault_aug`).
 
 Goal-reach durations are reported in simulated seconds (steps * env.DT),
 not wall-clock.
@@ -17,15 +19,20 @@ import argparse
 import os
 from typing import Any, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
+from dgvit_tpu_torch.core.rng import generator
 from dgvit_tpu_torch.envs import Env, KinematicNavEnv
+from dgvit_tpu_torch.envs.vec_kinematic import (make_consts, vec_reset,
+                                                vec_step)
 from dgvit_tpu_torch.models.jax_io import params_to_jax
 from dgvit_tpu_torch.serve import make_action_fn
 from dgvit_tpu_torch.train.train_rl import FrameStacker, _squeeze_obs
+from dgvit_tpu_torch.train.vec_rollout import stack_init, stack_push
 from dgvit_tpu_torch.utils import MetricsLogger
 
 
@@ -86,6 +93,107 @@ def run_eval(cfg: Config, env: Env, actor_params: Mapping[str, Any],
     return _report(cfg, env, cntr2, total_rel, durations, out_dir, name)
 
 
+def run_eval_vec(cfg: Config, actor_params: Mapping[str, Any],
+                 max_episodes: int = 100, world: str = "rrc",
+                 out_dir: str = "results", name: str = "model",
+                 obs_noise: float = 0.0, occlusion: float = 0.0,
+                 greying: float = 0.0, sweep=None,
+                 world_seed: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = None) -> dict:
+    """The evaluation protocol with every episode a lane of the batched
+    env on the card: `env.max_steps` steps of all lanes, one K1 launch a
+    step, and one read of the results at the end.
+
+    Per lane as `run_eval`: deterministic actions, a bad initialization
+    (done on the first step) excluded, success and collision latched at
+    the lane's first episode end, durations in simulated seconds; lane i
+    runs record i. A `rand<K>` world is drawn from a held-out seed
+    (cfg.train.seed + 1000003) unless `world_seed` pins one, so the
+    evaluation layouts are not the training ones.
+
+    The robustness knobs perturb what the actor sees (not the carried
+    frames), with draws from a generator seeded by cfg.train.seed:
+    `obs_noise` adds N(0, sigma) and clips to [0, 1], `occlusion` zeroes
+    that fraction of pixels, `greying` blends toward 0.5. Runs on the card
+    unless device='cpu'."""
+    if sweep is not None:
+        raise NotImplementedError(
+            "sweep: the robustness sweep needs envs/fault_aug, which is not "
+            "ported yet; pass obs_noise / occlusion / greying instead")
+    e = cfg.env
+    fs = (int(e.frame_stack) if cfg.model.patch_mode == "channels" else 0)
+    agent = SACAgent(cfg, device=device)
+    dev = agent.device
+    actor = make_action_fn(cfg, actor_params,
+                           dtype=agent.dtype or torch.float32,
+                           device=dev).policy
+    seed = world_seed
+    if seed is None:
+        seed = cfg.train.seed
+        if isinstance(world, str) and world.startswith("rand"):
+            seed = cfg.train.seed + 1_000_003
+    consts = make_consts(world=world, image_hw=tuple(cfg.model.image_size),
+                         max_steps=e.max_steps, seed=seed, device=dev)
+    dt = float(consts.dt)
+    gen = generator(cfg.train.seed, dev)
+
+    def perturb(obs):
+        if obs_noise > 0.0:
+            obs = torch.clamp(obs + obs_noise * torch.randn(
+                obs.shape, generator=gen, device=dev), 0.0, 1.0)
+        if occlusion > 0.0:
+            obs = obs * (torch.rand(obs.shape, generator=gen, device=dev)
+                         >= occlusion)
+        if greying > 0.0:
+            obs = obs * (1.0 - greying) + 0.5 * greying
+        return obs
+
+    b = max_episodes
+    with torch.no_grad():
+        state, obs, goal = vec_reset(consts, b)
+        if fs:
+            obs = stack_init(obs, fs)
+        ended = torch.zeros(b, dtype=torch.bool, device=dev)
+        succ, coll, bad = ended.clone(), ended.clone(), ended.clone()
+        dur = torch.zeros(b, device=dev)
+        for t in range(e.max_steps):
+            a = agent.act_batch(actor, perturb(obs), goal[:, :2],
+                                evaluate=True)
+            a = torch.clamp(a.float(), -e.max_action, e.max_action)
+            a_in = torch.stack([(a[:, 0] + 1.0) * e.linear_cmd_scale,
+                                a[:, 1] * e.angular_cmd_scale], dim=1)
+            a_in = torch.where(ended[:, None], 0.0, a_in)
+            out = vec_step(consts, state, a_in)
+            if t == 0:
+                bad = out.done.clone()
+            live = ~ended & ~bad
+            hit = out.target & live
+            succ |= hit
+            # simulated seconds in fp32, as the JAX loop takes them
+            dur = torch.where(hit, float(np.float32(t + 1.0)
+                                         * np.float32(dt)), dur)
+            coll |= out.collided & live
+            ended = ended | out.done | out.truncated | bad
+            if fs:
+                restart = (out.done | out.truncated)[:, None, None, None]
+                obs = torch.where(restart, stack_init(out.obs, fs),
+                                  stack_push(obs, out.next_obs))
+            else:
+                obs = out.obs
+            state, goal = out.state, out.to_goal
+        succ, coll, dur, bad = (x.cpu().numpy()
+                                for x in (succ, coll, dur, bad))
+
+    class _Count:   # the collision count `_report` reads
+        collision = int(coll.sum())
+
+    rep = _report(cfg, _Count(), int(succ.sum()), int(b - bad.sum()),
+                  [float(d) for d in dur[succ]], out_dir, name)
+    rep.update(obs_noise=float(obs_noise), occlusion=float(occlusion),
+               greying=float(greying), world=world, world_seed=int(seed))
+    return rep
+
+
 def _report(cfg: Config, env: Env, cntr2: int, total_rel: int, durations,
             out_dir: str, name: str) -> dict:
     s_r = cntr2 / max(total_rel, 1)
@@ -117,7 +225,22 @@ def main(argv=None):
     p.add_argument("--world", default="rrc",
                    help="kinematic world preset (rrc | hospital); "
                         "'hospital' is the unseen-layout generalization "
-                        "eval")
+                        "eval. With --vec-eval also rand<K> / randh<K> / "
+                        "randm<K>: each episode in a procedural layout of "
+                        "a held-out ensemble")
+    p.add_argument("--vec-eval", action="store_true",
+                   help="run every episode at once, as the lanes of the "
+                        "batched env on the card (run_eval_vec)")
+    p.add_argument("--world-seed", type=int, default=None,
+                   help="--vec-eval: the seed of the world and records; "
+                        "default the config's seed (held out for rand "
+                        "specs)")
+    p.add_argument("--obs-noise", type=float, default=0.0,
+                   help="--vec-eval: N(0, sigma) sensor noise on [0, 1]")
+    p.add_argument("--occlusion", type=float, default=0.0,
+                   help="--vec-eval: fraction of pixels zeroed")
+    p.add_argument("--greying", type=float, default=0.0,
+                   help="--vec-eval: blend toward mid-grey")
     p.add_argument("--device", default=None,
                    help="'cpu' runs the plain PyTorch path; default: CUDA")
     args = p.parse_args(argv)
@@ -125,9 +248,10 @@ def main(argv=None):
         p.error("exactly one of --actor / --checkpoint is required")
 
     cfg = Config.from_yaml(args.config) if args.config else Config()
-    env = KinematicNavEnv(seed=cfg.train.seed,
-                          image_hw=tuple(cfg.model.image_size),
-                          world=args.world)
+    # the batched env builds its own worlds (rand specs exist only there)
+    env = None if args.vec_eval else KinematicNavEnv(
+        seed=cfg.train.seed, image_hw=tuple(cfg.model.image_size),
+        world=args.world)
     if args.checkpoint:
         path = args.checkpoint
         if not os.path.basename(os.path.normpath(path)).startswith("step_"):
@@ -141,8 +265,14 @@ def main(argv=None):
     else:
         params = ckpt.load_params_npz(args.actor)
         name = os.path.basename(args.actor)
-    out = run_eval(cfg, env, params, args.episodes, args.out, name,
-                   device=args.device)
+    if args.vec_eval:
+        out = run_eval_vec(cfg, params, args.episodes, args.world, args.out,
+                           name, obs_noise=args.obs_noise,
+                           occlusion=args.occlusion, greying=args.greying,
+                           world_seed=args.world_seed, device=args.device)
+    else:
+        out = run_eval(cfg, env, params, args.episodes, args.out, name,
+                       device=args.device)
     print(f"success rate: {out['success_rate'] * 100:.1f}% "
           f"({out['successes']} goals), collisions: {out['collisions']}")
 

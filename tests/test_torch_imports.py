@@ -57,7 +57,11 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.core.checkpoint",
               "dgvit_tpu_torch.utils.metrics",
               "dgvit_tpu_torch.train.train_rl",
-              "dgvit_tpu_torch.train.evaluate"):
+              "dgvit_tpu_torch.train.evaluate",
+              "dgvit_tpu_torch.core.rng",
+              "dgvit_tpu_torch.envs.vec_kinematic",
+              "dgvit_tpu_torch.train.vec_rollout",
+              "dgvit_tpu_torch.train.fused_train"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
