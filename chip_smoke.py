@@ -13,7 +13,7 @@ per source, all at once), then
      (got_forward_fused) and got_forward_plain on the same inputs, with
      the trained flagship actor's weights
      (artifacts/r5/dr_randm32_s11_amin_actor.npz), bf16 at
-     B in {1, 3, 8, 32, 64, 2048} and fp32 at B in {1, 8}; each batch in
+     B in {1, 3, 8, 16, 32, 64, 2048} and fp32 at B in {1, 8}; each batch in
      the form K1's route picks (the cluster up to 90 frames, two frames a
      thread block past that; k1_form), and every form (the cluster, two
      frames a block, the FMA trunk_kernel) forced at B=32 and B=2048 and
@@ -211,9 +211,13 @@ per source, all at once), then
      K2f x6, K2b x6, K3f x2, K3b x2; the host syncs of a round (the stats'
      one read and the updates' own; none in collection); collection's env
      steps/s alone, a round's time and updates/s, the device's busy share
-     over a profiled round; a warm resume (the ring back bit for bit, the
-     counters from the JSONL, one more round); a guided round on demos the
-     port records, every update phase 18's launches;
+     over a profiled round; K1 against its plain version on a
+     collection's own frames (64 launches of 16, phase 2's check); a warm
+     resume (the ring back bit for bit, the counters from the JSONL, one
+     more round); a guided round on demos the port records, every update
+     phase 18's launches; (d) train_vec, the same settings into the host
+     replay buffer, 2 chunks of 16 updates: K1 x64 a chunk, every update
+     PER_UPDATE's launches, finite losses, env steps/s;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -241,7 +245,8 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 GOLDEN_SEED, GOLDEN_FRAMES = 2026, 16
 SEED = 7
 DEVICE = "cuda"
-CHECK_BATCHES = {"bfloat16": (1, 3, 8, 32, 64, 2048), "float32": (1, 8)}
+# 16: the collection batch of the fused round and train_vec (FUSED_LANES)
+CHECK_BATCHES = {"bfloat16": (1, 3, 8, 16, 32, 64, 2048), "float32": (1, 8)}
 TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
 # batches about the cluster form's boundary (k1_form_for: 90 frames on an
 # H100's 132 SMs), timed in both forms
@@ -5050,11 +5055,12 @@ def phase_attention_times(nets, rng):
 
 # --------------------------------------------------------------------------
 # phase 19: the on-device training tier (the batched env, run_eval_vec,
-# train_fused)
+# train_fused, train_vec)
 # --------------------------------------------------------------------------
 
 FUSED_LANES, FUSED_CHUNK, FUSED_RING = 16, 64, 8192
 FUSED_ROUNDS, FUSED_UPDATES, FUSED_WORLD = 3, 16, "randm32"
+VEC_TRAIN_CHUNKS = 2       # phase 19d: train_vec's chunks of FUSED_LANES
 VEC_EVAL_EPISODES, VEC_EVAL_STEPS = 32, 300
 # (actor, world) pairs of phase 19b: the flagship actor, which reaches no
 # goal and hits nothing on rrc in 300 steps (its recorded evaluation,
@@ -5304,9 +5310,11 @@ def phase_fused(out_dir):
     time limit), with exact launches (K1 64 a round, PER_UPDATE an update),
     the ring's cursor and finite losses; then the host syncs of a round,
     collection's env steps/s alone, a round's time and its updates/s, and
-    the device's busy share over a profiled round; a warm resume (the ring
-    back bit for bit, the counters from the JSONL, one more round); and a
-    guided round on demos the port records, with phase 18's launches."""
+    the device's busy share over a profiled round; K1 against its plain
+    version on the timed collection's frames (collected_k1); a warm
+    resume (the ring back bit for bit, the counters from the JSONL, one
+    more round); and a guided round on demos the port records, with phase
+    18's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5392,9 +5400,11 @@ def phase_fused(out_dir):
     collect(state.actor, carry, gen)          # warm
     torch_sync()
     t0 = time.perf_counter()
-    carry, _ = collect(state.actor, carry, gen)
+    carry, traj = collect(state.actor, carry, gen)
     torch_sync()
     collect_s = time.perf_counter() - t0
+    k1_collected = collected_k1(state.actor, traj)
+    del traj
     state, carry, ring, _ = run(state, carry, ring, [FUSED_ROUNDS])
     torch_sync()
     t0 = time.perf_counter()
@@ -5499,19 +5509,103 @@ def phase_fused(out_dir):
           "the guided round's updates or losses")
     return {"launches": launches, "guided_launches": g_launches,
             "wall_s": wall, "guided_wall_s": g_wall, **timing,
+            "k1_on_collected_frames": k1_collected,
             "episodes": out["episodes"], "goals": out["goals"],
             "last_round": {k: rows[FUSED_ROUNDS - 1][k] for k in
                            ("qf1_loss", "policy_loss", "alpha",
                             "reward_sum")}}
 
 
+def collected_k1(actor, traj):
+    """K1 against its plain version at the collection's batch
+    (FUSED_LANES) on a collection's own frames and goals, one launch a
+    step, under phase 2's restated bf16 check (k1_verdict, EXACT_K). These
+    launches compare; they come after the main path's counts were read."""
+    import torch
+
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+
+    triples = []
+    with torch.no_grad():
+        for obs, pobs in zip(traj["obs"], traj["pobs"]):
+            args = actor.trans.trunk_args(obs, actor.fc_embed(pobs))
+            triples.append((gm.got_forward_fused(*args),
+                            gm.got_forward_plain(*args),
+                            exact(gm.got_forward_plain, *args)))
+    v = k1_verdict(triples, EXACT_K["K1"])
+    record("K1 on collected frames", k=EXACT_K["K1"], readings={"K1": v})
+    print(f"K1 bf16 on a collection's own frames ({v['launches']} launches "
+          f"of {FUSED_LANES} lanes): restated vs float64 sums: mean "
+          f"{v['rel']:.3e} (limit {v['limit']:.3e}), the launches' largest "
+          f"max|err|/L {v['max']:.3e} (limit {v['max_limit']:.3e}); "
+          f"{'passes' if v['pass'] else 'FAILS'}", flush=True)
+    check(v["pass"], "K1 disagrees with its plain version on the "
+          "collection's frames (bf16)")
+    return {k: v[k] for k in ("rel", "limit", "max", "max_limit",
+                              "launches", "frames")}
+
+
+def phase_train_vec(out_dir):
+    """Phase 19d, a main path: train_vec at the flagship width (phase
+    19c's settings, a host replay buffer of FUSED_RING rows) for
+    VEC_TRAIN_CHUNKS chunks of 16 lanes x 64 steps, FUSED_UPDATES updates
+    a chunk through learn: exact launches (K1 64 a chunk, PER_UPDATE an
+    update), the counters and finite losses, and its host clock."""
+    from dgvit_tpu_torch.train import vec_rollout as vr
+
+    cfg = fused_cfg()
+    cfg.sac.buffer_size = FUSED_RING
+    counters = kernel_counters()
+    run_dir = Path(out_dir) / "train_vec"
+    steps = VEC_TRAIN_CHUNKS * FUSED_LANES * FUSED_CHUNK
+    for fn in counters.values():
+        fn.launches = 0
+    torch_sync()
+    t0 = time.perf_counter()
+    out = vr.train_vec(cfg, out_dir=str(run_dir), n_envs=FUSED_LANES,
+                       chunk=FUSED_CHUNK, total_env_steps=steps,
+                       updates_per_chunk=FUSED_UPDATES, world=FUSED_WORLD,
+                       device=DEVICE)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    updates = VEC_TRAIN_CHUNKS * FUSED_UPDATES
+    print(f"train_vec ({card()}): {out['env_steps']} env steps, "
+          f"{out['updates']} updates, {out['episodes']} episodes in "
+          f"{wall:.2f} s (host clock, synchronized, the first chunk's "
+          f"warm-up and the checkpoint included) = "
+          f"{out['env_steps'] / wall:.1f} env steps/s; launches {launches}",
+          flush=True)
+    want = {**{k: n * updates for k, n in PER_UPDATE.items()},
+            "K1": VEC_TRAIN_CHUNKS * FUSED_CHUNK}
+    check(launches == want, f"train_vec launched {launches}, expected "
+          f"{want}: K1 x{FUSED_CHUNK} a chunk, every update {PER_UPDATE}")
+    rows = [json.loads(line) for line in
+            next(run_dir.glob("train_vec_*.jsonl")).read_text().splitlines()]
+    check(out["env_steps"] == steps and out["updates"] == updates
+          and [r["env_steps"] for r in rows] == [
+              float(FUSED_LANES * FUSED_CHUNK * (i + 1))
+              for i in range(VEC_TRAIN_CHUNKS)]
+          and all(math.isfinite(r[k]) for r in rows for k in
+                  ("qf1_loss", "policy_loss", "alpha", "chunk_reward")),
+          f"train_vec: {out['env_steps']} env steps, {out['updates']} "
+          f"updates, or its losses are not finite")
+    return {"launches": launches, "wall_s": wall,
+            "env_steps_per_s": out["env_steps"] / wall,
+            "last_chunk": {k: rows[-1][k] for k in
+                           ("qf1_loss", "policy_loss", "alpha",
+                            "chunk_reward")}}
+
+
 def phase_on_device():
-    """Phase 19: the on-device tier (19a, 19b, 19c)."""
+    """Phase 19: the on-device tier (19a, 19b, 19c, 19d)."""
     env = phase_vec_env()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         vec_eval = phase_vec_eval(out_dir)
         fused = phase_fused(out_dir)
-    return {"env": env, "vec_eval": vec_eval, "fused": fused}
+        train_vec = phase_train_vec(out_dir)
+    return {"env": env, "vec_eval": vec_eval, "fused": fused,
+            "train_vec": train_vec}
 
 
 # The times of the kernels redesigned for the tensor cores in their earlier
@@ -5712,7 +5806,8 @@ def main() -> int:
         **{f"train_{k}": v["K1"] for k, v in guided_loop.items()},
         "run_eval_vec": on_device["vec_eval"]["flagship"]["launches"]["K1"],
         "fused_train": on_device["fused"]["launches"]["K1"],
-        "fused_train_guided": on_device["fused"]["guided_launches"]["K1"]}
+        "fused_train_guided": on_device["fused"]["guided_launches"]["K1"],
+        "train_vec": on_device["train_vec"]["launches"]["K1"]}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -5739,7 +5834,8 @@ def main() -> int:
                        for k, v in guided_loop.items()},
                     "fused_train": on_device["fused"]["launches"][short],
                     "fused_train_guided":
-                        on_device["fused"]["guided_launches"][short]},
+                        on_device["fused"]["guided_launches"][short],
+                    "train_vec": on_device["train_vec"]["launches"][short]},
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({

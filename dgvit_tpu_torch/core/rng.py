@@ -1,13 +1,15 @@
-"""RNG discipline: one root seed, folded per purpose and per step.
+"""RNG discipline: one root seed, folded per step.
 
 Counterpart of `dgvit_tpu/core/rng.py`. The JAX package threads
 `jax.random` keys; the port draws from `torch.Generator`s, so a key here
 is a seed (a non-negative int below 2**63) and deriving one is a hash of
 integers on the host: `step_key(base, step)` is the counterpart of
-`jax.random.fold_in`, and `RngStream.next()` of a split. A generator for
-a seed on a device is `generator(seed, device)`. Runs are reproducible
-from the root seed, and a consumer that derives its seed from a step
-counter (`step_key(seed, round)`) draws the same stream after a restart.
+`jax.random.fold_in`. A generator for a seed on a device is
+`generator(seed, device)`. Runs are reproducible from the root seed, and
+a loop that derives each step's seed from its step counter
+(`step_key(seed, round)` in `train_fused`, `step_key(seed, chunk)` in
+`train_vec`) draws the same stream after a restart. The JAX module's
+`RngStream` (a split stream and named folds) has no caller in the port.
 """
 
 from __future__ import annotations
@@ -40,28 +42,3 @@ def generator(seed: int,
     """A `torch.Generator` on `device` (the CPU by default) seeded with
     `seed`."""
     return torch.Generator(device or "cpu").manual_seed(int(seed))
-
-
-class RngStream:
-    """Host-side seed stream: `next()` hands out a fresh seed and advances
-    the stream; `fold(name)` derives a named seed from the current one
-    without advancing it."""
-
-    def __init__(self, seed: int):
-        self.seed = int(seed)
-        self._key = step_key(self.seed, 0)
-
-    def next(self) -> int:
-        self._key, sub = step_key(self._key, 0), step_key(self._key, 1)
-        return sub
-
-    def fold(self, name: str) -> int:
-        return step_key(self._key, _stable_hash(name))
-
-
-def _stable_hash(name: str) -> int:
-    """32-bit FNV-1a of the name's UTF-8 bytes (the JAX package's)."""
-    h = 2166136261
-    for ch in name.encode():
-        h = (h ^ ch) * 16777619 & 0xFFFFFFFF
-    return h

@@ -32,7 +32,6 @@ below 1 (the sensor-fault augmentation of `envs/fault_aug`).
 from __future__ import annotations
 
 import argparse
-import json
 import os
 from dataclasses import dataclass
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
@@ -313,11 +312,15 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
                 device: Optional[Union[str, torch.device]] = None) -> dict:
     """Run `rounds` rounds in segments of `rounds_per_dispatch`, logging
     each round's stats to a JSONL and checkpointing the train state after
-    each segment. `updates_per_round` defaults to one per collected env
-    step; the ring holds `ring_capacity` rows (default
-    min(sac.buffer_size, 8192)). `max_episodes` stops the run, checked
-    between segments, once that many lane-episodes ended (`rounds` then
-    caps it).
+    each segment. The name is the JAX loop's, where a segment is one
+    dispatch of a `lax.scan`; here every round is dispatched from Python,
+    so `rounds_per_dispatch` sets only the checkpoint cadence (and, with
+    `ring_snapshot_every`, the ring snapshot's) and how often
+    `max_episodes` and the dead-run detector are checked.
+    `updates_per_round` defaults to one per collected env step; the ring
+    holds `ring_capacity` rows (default min(sac.buffer_size, 8192)).
+    `max_episodes` stops the run, checked between segments, once that
+    many lane-episodes ended (`rounds` then caps it).
 
     `expert_glob` with train.pre_buffer: the demo corpus goes to the
     device once and every update is the guided one.
@@ -389,17 +392,13 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
             else:
                 print(f"[train_fused] warm ring: {ring.size} transitions "
                       f"restored", flush=True)
-        if os.path.exists(logger.jsonl):
-            with open(logger.jsonl) as fh:
-                lines = [ln for ln in fh if ln.strip()]
-            if lines:
-                last = json.loads(lines[-1])
-                done_rounds = int(last.get("step", 0))
-                goals = int(last.get("goals", 0))
-                collisions = int(last.get("collisions", 0))
-                episodes = int(last.get("episodes", 0))
-                print(f"[train_fused] resumed counters: rounds={done_rounds}"
-                      f" episodes={episodes} goals={goals}", flush=True)
+        last = logger.last()
+        if last:
+            done_rounds, goals, collisions, episodes = (
+                int(last.get(k, 0)) for k in
+                ("step", "goals", "collisions", "episodes"))
+            print(f"[train_fused] resumed counters: rounds={done_rounds}"
+                  f" episodes={episodes} goals={goals}", flush=True)
     while done_rounds < rounds:
         seg = min(rounds_per_dispatch, rounds - done_rounds)
         state, env_carry, ring, host = run(
@@ -455,7 +454,10 @@ def main(argv=None):
     p.add_argument("--n-envs", type=int, default=16)
     p.add_argument("--chunk", type=int, default=64)
     p.add_argument("--rounds", type=int, default=100)
-    p.add_argument("--rounds-per-dispatch", type=int, default=10)
+    p.add_argument("--rounds-per-dispatch", type=int, default=10,
+                   help="rounds a segment: a checkpoint after each (the "
+                        "JAX loop's name; every round is dispatched from "
+                        "Python here)")
     p.add_argument("--updates-per-round", type=int, default=None)
     p.add_argument("--ring-capacity", type=int, default=None)
     p.add_argument("--world", default="rrc")

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ import torch
 from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
-from dgvit_tpu_torch.core.rng import RngStream, generator
+from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.envs.vec_kinematic import (EnvConsts, make_consts,
                                                 vec_reset, vec_step)
 from dgvit_tpu_torch.replay import ReplayBuffer, reference_schema
@@ -107,33 +107,6 @@ def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
     return collect
 
 
-class VecCollector:
-    """B lanes, T steps a `collect` call; the carry keeps episodes running
-    across calls."""
-
-    def __init__(self, agent: SACAgent, consts: EnvConsts, batch: int,
-                 chunk: int, l_scale: float, a_scale: float,
-                 max_action: float = 1.0, evaluate: bool = False,
-                 frame_stack: int = 0):
-        self.consts = consts
-        self.batch = int(batch)
-        self.chunk = int(chunk)
-        self.frame_stack = int(frame_stack)
-        self._collect = make_collect_fn(
-            agent, consts, self.chunk, l_scale, a_scale,
-            max_action=max_action, evaluate=evaluate,
-            frame_stack=self.frame_stack)
-
-    def init(self) -> Tuple:
-        state, obs, goal = vec_reset(self.consts, self.batch)
-        if self.frame_stack:
-            obs = stack_init(obs, self.frame_stack)
-        return state, obs, goal
-
-    def collect(self, actor, carry, gen=None, noise=None):
-        return self._collect(actor, carry, gen, noise)
-
-
 def _flatten_traj(traj: Dict[str, torch.Tensor]):
     """(T, B, ...) transitions -> host (N_kept, ...) replay fields (the
     store mask applied) and the chunk's stats."""
@@ -174,44 +147,55 @@ def train_vec(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     then `updates_per_chunk` updates (by default one per stored step, the
     reference's cadence) run through `SACAgent.learn`. Channels-mode
     actors take the frame stack (env.use_frame_stack). Runs on the card
-    unless device='cpu'."""
+    unless device='cpu'.
+
+    Chunk n draws its action noise from a generator seeded
+    `step_key(seed, n)`, as `train_fused`'s rounds do. `resume` restores
+    the newest checkpoint and the chunk, env-step, goal, collision and
+    episode counters from the run's JSONL, so a resumed run draws on where
+    it stopped and `total_env_steps` counts the whole run; the host
+    replay buffer starts empty and lanes restart."""
     t, e, s = cfg.train, cfg.env, cfg.sac
     if s.prioritized_replay:
         raise NotImplementedError(
             "sac.prioritized_replay: the PER update (learn_per) is not "
             "ported yet")
     fs = frame_stack_depth(cfg, "train_vec")
-    rng = RngStream(t.seed)
     agent = SACAgent(cfg, device=device, seed=t.seed)
     state = agent.init_state(t.seed)
     if t.pre_train and t.pre_train_model:
         d, f = os.path.split(t.pre_train_model)
         state = agent.load(state, f, d or ".", actor_only=True)
     ckpt_dir = os.path.join(out_dir, t.checkpoint_dir)
+    logger = MetricsLogger(out_dir, f"train_vec_{cfg.model.name}_{t.desc}")
+    last: Dict = {}
     if resume:
         latest = ckpt.latest_checkpoint(ckpt_dir)
         if latest:
             state = ckpt.restore_train_state(latest, state)
+        last = logger.last()
 
     ih, iw = cfg.model.image_size
     consts = make_consts(world=world or "rrc", image_hw=(ih, iw),
                          max_steps=e.max_steps, seed=t.seed,
                          device=agent.device)
-    coll = VecCollector(agent, consts, n_envs, chunk,
-                        l_scale=e.linear_cmd_scale,
-                        a_scale=e.angular_cmd_scale,
-                        max_action=e.max_action, frame_stack=fs)
-    carry = coll.init()
+    collect = make_collect_fn(agent, consts, chunk, e.linear_cmd_scale,
+                              e.angular_cmd_scale, max_action=e.max_action,
+                              frame_stack=fs)
+    lanes, obs, goal = vec_reset(consts, n_envs)
+    carry = (lanes, stack_init(obs, fs) if fs else obs, goal)
     obs_shape = (fs, ih, iw) if fs else (ih, iw)
     buf = ReplayBuffer(s.buffer_size, reference_schema(
         obs_shape, s.action_dim, s.pstate_dim), seed=t.seed)
-    logger = MetricsLogger(out_dir, f"train_vec_{cfg.model.name}_{t.desc}")
 
-    env_steps = goals = collisions = episodes = n_chunk = 0
+    n_chunk, env_steps, goals, collisions, episodes = (
+        int(last.get(k, 0)) for k in
+        ("step", "env_steps", "goals", "collisions", "episodes"))
     metrics: Dict = {}
     while env_steps < total_env_steps:
-        carry, traj = coll.collect(state.actor, carry,
-                                   generator(rng.next(), agent.device))
+        carry, traj = collect(state.actor, carry,
+                              generator(step_key(t.seed, n_chunk),
+                                        agent.device))
         flat, st = _flatten_traj(traj)
         env_steps += n_envs * chunk
         goals += st["goals"]

@@ -77,6 +77,15 @@ class MetricsLogger:
         with open(self.jsonl, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    def last(self) -> dict:
+        """The last record of the JSONL, or {} when there is none (a
+        resumed run's counters)."""
+        if not self.jsonl.exists():
+            return {}
+        with open(self.jsonl) as f:
+            lines = [ln for ln in f if ln.strip()]
+        return json.loads(lines[-1]) if lines else {}
+
     def append_txt(self, filename: str, text: str):
         """main.py:412-417 / testing.py:146-150 style run summaries."""
         with open(self.dir / filename, "a") as f:

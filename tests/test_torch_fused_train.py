@@ -464,6 +464,24 @@ def test_train_vec(tmp_path):
     assert list((tmp_path / "checkpoints").glob("step_*"))
 
 
+def test_train_vec_resume(tmp_path):
+    """A resumed train_vec takes its counters from the JSONL: the chunk
+    steps go on, `total_env_steps` counts the whole run, and the next
+    chunk draws from step_key(seed, chunk)."""
+    cfg = tiny(sac={"buffer_size": 256}, env={"max_steps": 10},
+               train={"save": True})
+    kw = dict(out_dir=str(tmp_path), n_envs=2, chunk=6, updates_per_chunk=1,
+              device="cpu")
+    first = vr.train_vec(cfg, total_env_steps=24, **kw)
+    out = vr.train_vec(cfg, total_env_steps=36, resume=True, **kw)
+    rows = jsonl_rows(tmp_path, "train_vec")
+    assert [r["step"] for r in rows] == [1, 2, 3]
+    assert [r["env_steps"] for r in rows] == [12, 24, 36]
+    assert out["env_steps"] == 36
+    assert out["episodes"] == rows[-1]["episodes"] >= first["episodes"]
+    assert out["updates"] > first["updates"]
+
+
 def test_train_vec_channels(tmp_path):
     cfg = tiny(model={"patch_mode": "channels"}, sac={"buffer_size": 256},
                env={"max_steps": 8, "use_frame_stack": True,

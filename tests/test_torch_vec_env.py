@@ -1,6 +1,6 @@
 """The port's batched env (dgvit_tpu_torch/envs/vec_kinematic.py), its
 collection (train/vec_rollout.py), the tensor reward functions and the seed
-stream (core/rng.py) against the JAX package's, on the CPU.
+functions (core/rng.py) against the JAX package's, on the CPU.
 
 The env: `vec_reset` and `vec_step` of both packages under the same
 scripted actions (tests/test_jax_kinematic.py's arcs, phase-shifted per
@@ -31,7 +31,6 @@ import torch
 
 from dgvit_tpu.agents.sac import SACAgent as JaxSACAgent
 from dgvit_tpu.config import Config as JaxConfig
-from dgvit_tpu.core import rng as jrng
 from dgvit_tpu.envs import jax_kinematic as jk
 from dgvit_tpu.envs import reward as jr
 from dgvit_tpu.models import build_actor as jax_build_actor
@@ -259,18 +258,14 @@ def test_reward_lanes_match_jax():
 # --------------------------------------------------------------------------
 
 def test_rng_stream():
-    assert prng._stable_hash("collect") == jrng._stable_hash("collect")
-    assert prng._stable_hash("") == jrng._stable_hash("") == 2166136261
-    a, b = prng.RngStream(7), prng.RngStream(7)
-    fold = a.fold("eval")
-    assert fold == a.fold("eval") != a.fold("train")
-    seq = [a.next() for _ in range(5)]
-    assert seq == [b.next() for _ in range(5)]
-    assert len(set(seq)) == 5 and all(0 <= s < 2 ** 63 for s in seq)
-    assert a.fold("eval") != fold          # folds the current key
+    """step_key: distinct seeds by step and by root, in [0, 2**63); equal
+    seeds give equal generator draws."""
     keys = {prng.step_key(3, r) for r in range(1000)}
     assert len(keys) == 1000 and prng.step_key(3, 0) != prng.step_key(4, 0)
-    g1, g2 = prng.generator(seq[0]), prng.generator(seq[0])
+    assert all(0 <= k < 2 ** 63 for k in keys)
+    assert prng.step_key(3, 5) == prng.step_key(3, 5)
+    seed = prng.step_key(7, 0)
+    g1, g2 = prng.generator(seed), prng.generator(seed)
     assert torch.equal(torch.randn(4, generator=g1),
                        torch.randn(4, generator=g2))
 
@@ -317,10 +312,13 @@ def chunk(request):
     agent = SACAgent(cfg, device="cpu")
     actor = make_action_fn(cfg, jax.tree_util.tree_map(np.asarray, params),
                            dtype=torch.float32, device="cpu").policy
-    coll = vr.VecCollector(agent, pc, LANES, STEPS, 0.25, 1.0,
-                           frame_stack=fs)
-    (state, _, _), traj = coll.collect(actor, coll.init(),
-                                       noise=torch.from_numpy(noise))
+    collect = vr.make_collect_fn(agent, pc, STEPS, 0.25, 1.0,
+                                 frame_stack=fs)
+    lanes, obs, goal = vk.vec_reset(pc, LANES)
+    if fs:
+        obs = vr.stack_init(obs, fs)
+    (state, _, _), traj = collect(actor, (lanes, obs, goal),
+                                  noise=torch.from_numpy(noise))
     return {"jax": {k: np.asarray(v) for k, v in jtraj.items()},
             "port": traj, "state": state, "fs": fs}
 
