@@ -14,8 +14,10 @@ and 13b (fault j's magnitude, and the same question of K2b, K3b and K6:
 fault k's magnitude without the CLS records and its repair with them) on
 two orders of draws, and phase 19a (the batched env on the card against
 the CPU's on the seed's randm32 worlds and records, and the ring on the
-card against the CPU's on the seed's rows) once a seed, in the shared
-order: it draws from the seed alone. Orders of draws:
+card against the CPU's on the seed's rows) and phase 20a (the device
+PER on the card against its CPU version on priorities planted from the
+seed, and 2^20 draws under the chi-square limit) once a seed, in the
+shared order: they draw from the seed alone. Orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
@@ -104,6 +106,8 @@ for seed in seeds:
             cs.phase_kernel_vs_plain(cfg, policies, rng)
             print(f"== seed {seed}: phase 19a (both orders)", flush=True)
             cs.phase_vec_env(seed)
+            print(f"== seed {seed}: phase 20a (both orders)", flush=True)
+            cs.phase_device_per(seed)
         print(f"== seed {seed}, {order}: phase 5", flush=True)
         rng = fresh()
         cs.phase_train_kernels(nets, rng)
@@ -210,6 +214,19 @@ def rows(result):
                 if "kv_differ" in v:
                     line += f"; k|v differ {v['kv_differ']:.4f}"
                 yield line
+        elif r["check"] == "device PER":
+            yield (f"{tag} device PER: state vs the CPU {r['state_rel']:.3e}"
+                   f" (rtol 1e-6), weights {r['weights_rel']:.3e} (rtol "
+                   f"1e-5), {r['moved_draws']} draws on a neighbour at a "
+                   f"boundary; chi-square {r['chi2']:.1f} (limit "
+                   f"{r['chi2_limit']:.1f}) "
+                   + verdict(r["chi2"] <= r["chi2_limit"]
+                             and r["empty_drawn"] == 0)
+                   + f"; a uniform sampler {r['uniform_chi2']:.1f} "
+                   + ("fails" if r["uniform_chi2"] > r["chi2_limit"]
+                      else "PASSES")
+                   + f"; a first-wins update {r['first_wins_rel']:.3e} "
+                   + ("fails" if r["first_wins_rel"] > 1e-3 else "PASSES"))
         elif r["check"] == "composed":
             pooled, limit = r["pooled"], r["pooled_limit"]
             yield (f"{tag} {r['what']}: kernels vs float64 sums, pooled "

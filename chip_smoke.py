@@ -13,7 +13,8 @@ per source, all at once), then
      (got_forward_fused) and got_forward_plain on the same inputs, with
      the trained flagship actor's weights
      (artifacts/r5/dr_randm32_s11_amin_actor.npz), bf16 at
-     B in {1, 3, 8, 16, 32, 64, 2048} and fp32 at B in {1, 8}; each batch in
+     B in {1, 3, 8, 16, 32, 64, 100, 2048} and fp32 at B in {1, 8}; each
+     batch in
      the form K1's route picks (the cluster up to 90 frames, two frames a
      thread block past that; k1_form), and every form (the cluster, two
      frames a block, the FMA trunk_kernel) forced at B=32 and B=2048 and
@@ -218,6 +219,31 @@ per source, all at once), then
      phase 18's launches; (d) train_vec, the same settings into the host
      replay buffer, 2 chunks of 16 updates: K1 x64 a chunk, every update
      PER_UPDATE's launches, finite losses, env steps/s;
+ 20. the round-5 recipes (the launcher examples/reference_scale_run.py
+     of the port), a main path: (a) the device PER
+     (replay/device_per.py) on the card against its CPU version on
+     planted priorities (4096 slots, 3000 written, duplicates in every
+     update): the state within rtol 1e-6, the last occurrence of a
+     duplicate winning, the rows and weights for fixed uniform draws (a
+     neighbour only at a boundary), 2^20 draws under a chi-square limit
+     (the 1 - 1e-6 quantile) and never an empty slot, no host sync; a
+     planted uniform sampler and a first-wins update must fail; (b) the
+     flagship's recipe (the launcher's config: bf16, PER, nan_guard, SAC
+     batch 32, a ring of 8192, randm32, seed 11, alpha in [0.1, 2.0])
+     through train_fused cut to 2 rounds of 16 updates: K1 x64 a round,
+     every update PER_UPDATE's launches, finite losses, priorities
+     changed only at rows the updates drew, a warm resume (the restored
+     rows at the max priority), the host syncs of a round (PER adds none
+     to an update's), a PER round's and a uniform round's time, env
+     steps/s and update ms at B=32; (c) the drqc recipe (rand8, lanes
+     pinned, a shift of 4 on the critic only), 2 rounds: the update's
+     frames shifted, the actor step's raw, exact launches; (d) a guided
+     PER round on demos the port records, phase 18's launches; (e) K1 at
+     the final evaluation's batch (100 lanes, two frames a block) on the
+     evaluation's frames under phase 2's restated check; (f) the
+     launcher's main end to end (--episodes 8 --chunk 4, then
+     run_eval_vec of 100 episodes on hospital), exact launches and the
+     summary;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -246,7 +272,9 @@ GOLDEN_SEED, GOLDEN_FRAMES = 2026, 16
 SEED = 7
 DEVICE = "cuda"
 # 16: the collection batch of the fused round and train_vec (FUSED_LANES)
-CHECK_BATCHES = {"bfloat16": (1, 3, 8, 16, 32, 64, 2048), "float32": (1, 8)}
+# 100: the lanes of the round-5 launcher's final run_eval_vec (phase 20e)
+CHECK_BATCHES = {"bfloat16": (1, 3, 8, 16, 32, 64, 100, 2048),
+                 "float32": (1, 8)}
 TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
 # batches about the cluster form's boundary (k1_form_for: 90 frames on an
 # H100's 132 SMs), timed in both forms
@@ -5516,33 +5544,37 @@ def phase_fused(out_dir):
                             "reward_sum")}}
 
 
-def collected_k1(actor, traj):
-    """K1 against its plain version at the collection's batch
-    (FUSED_LANES) on a collection's own frames and goals, one launch a
-    step, under phase 2's restated bf16 check (k1_verdict, EXACT_K). These
+def collected_k1(actor, traj, whose="a collection's"):
+    """K1 against its plain version at the collection's batch (the lanes
+    of `traj`) on a collection's own frames and goals, one launch a step,
+    under phase 2's restated bf16 check (k1_verdict, EXACT_K). These
     launches compare; they come after the main path's counts were read."""
     import torch
 
     from dgvit_tpu_torch.ops import got_megakernel as gm
 
-    triples = []
+    triples, forms = [], set()
     with torch.no_grad():
         for obs, pobs in zip(traj["obs"], traj["pobs"]):
             args = actor.trans.trunk_args(obs, actor.fc_embed(pobs))
+            forms.add(gm.k1_form(*args))
             triples.append((gm.got_forward_fused(*args),
                             gm.got_forward_plain(*args),
                             exact(gm.got_forward_plain, *args)))
+    lanes = traj["obs"].shape[1]
     v = k1_verdict(triples, EXACT_K["K1"])
-    record("K1 on collected frames", k=EXACT_K["K1"], readings={"K1": v})
-    print(f"K1 bf16 on a collection's own frames ({v['launches']} launches "
-          f"of {FUSED_LANES} lanes): restated vs float64 sums: mean "
-          f"{v['rel']:.3e} (limit {v['limit']:.3e}), the launches' largest "
-          f"max|err|/L {v['max']:.3e} (limit {v['max_limit']:.3e}); "
-          f"{'passes' if v['pass'] else 'FAILS'}", flush=True)
-    check(v["pass"], "K1 disagrees with its plain version on the "
-          "collection's frames (bf16)")
-    return {k: v[k] for k in ("rel", "limit", "max", "max_limit",
-                              "launches", "frames")}
+    record(f"K1 on {whose} frames", k=EXACT_K["K1"], readings={"K1": v})
+    print(f"K1 bf16 on {whose} own frames ({v['launches']} launches "
+          f"of {lanes} lanes, form {sorted(forms)}): restated vs float64 "
+          f"sums: mean {v['rel']:.3e} (limit {v['limit']:.3e}), the "
+          f"launches' largest max|err|/L {v['max']:.3e} (limit "
+          f"{v['max_limit']:.3e}); {'passes' if v['pass'] else 'FAILS'}",
+          flush=True)
+    check(v["pass"], f"K1 disagrees with its plain version on {whose} "
+          f"frames (bf16, B={lanes})")
+    return {**{k: v[k] for k in ("rel", "limit", "max", "max_limit",
+                                 "launches", "frames")},
+            "forms": sorted(forms)}
 
 
 def phase_train_vec(out_dir):
@@ -5606,6 +5638,571 @@ def phase_on_device():
         train_vec = phase_train_vec(out_dir)
     return {"env": env, "vec_eval": vec_eval, "fused": fused,
             "train_vec": train_vec}
+
+
+# --------------------------------------------------------------------------
+# phase 20: the round-5 recipes (device PER, the flagship's and drqc's
+# recipes through the launcher's config, a guided PER round, K1 at the
+# final evaluation's batch, the launcher end to end)
+# --------------------------------------------------------------------------
+
+PER_CAP, PER_STORED, PER_DRAWS = 4096, 3000, 2 ** 20
+# the chi-square limit of the draws' frequencies: the 1 - 1e-6 quantile
+# (Wilson-Hilferty, z = 4.753) of the statistic's distribution
+PER_CHI2_Z = 4.753
+RECIPE_ROUNDS, RECIPE_UPDATES = 2, 16   # the recipe's 1024 a round, cut
+RECIPE_BATCH, EVAL_LANES = 32, 100
+FLAGSHIP_ARGS = ["--fused", "--resume", "--eval-world", "hospital",
+                 "--alpha-max", "2.0", "--world", "randm32", "--seed", "11",
+                 "--alpha-min", "0.1"]
+DRQC_ARGS = ["--fused", "--resume", "--eval-world", "hospital",
+             "--alpha-max", "2.0", "--world", "rand8", "--world-assign",
+             "lane", "--alpha-min", "0.1", "--aug-shift", "4",
+             "--aug-critic-only"]
+# phase 20f: the launcher's main at a budget that ends in about three
+# minutes on an H100 (--episodes 16 --chunk 8 took 175-246 s)
+LAUNCHER_ARGS = ["--episodes", "8", "--chunk", "4"]
+
+
+def planted_per(device, seed, first_wins=False):
+    """A DevicePER of PER_CAP rows, PER_STORED written, priorities planted
+    from `seed` (lognormal raw priorities, duplicates in every update):
+    (per, the raw updates). `first_wins`: the update keeps the first
+    occurrence of a duplicate (a wrong version)."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.replay import device_per as dp
+
+    rng = np.random.default_rng(seed)
+    per = dp.per_init(PER_CAP, device)
+    dp.per_on_write(per, torch.arange(PER_STORED, device=device))
+    updates = [(rng.integers(0, PER_STORED, 1024),
+                rng.lognormal(0.0, 1.5, 1024).astype(np.float32))
+               for _ in range(4)]
+    for idx, raw in updates:
+        i = torch.as_tensor(idx, device=device)
+        r = torch.as_tensor(raw, device=device)
+        if first_wins:
+            pos = torch.arange(i.shape[0], device=device)
+            first = torch.full((PER_CAP,), i.shape[0], dtype=torch.long,
+                               device=device)
+            first.scatter_reduce_(0, i, pos, reduce="amin")
+            per.prios.index_put_((i,), (r ** dp.ALPHA)[first[i]])
+            per.max_p.copy_(torch.maximum(per.max_p, r.max()))
+        else:
+            dp.per_update(per, i, r)
+    return per, updates
+
+
+def chi2_limit(df):
+    return df * (1 - 2 / (9 * df) + PER_CHI2_Z * math.sqrt(2 / (9 * df))) ** 3
+
+
+def draw_chi2(idx, prios):
+    """(statistic, degrees of freedom) of the draws' row counts against
+    the priorities' proportions, rows with fewer than 5 expected draws
+    pooled into one bin."""
+    import numpy as np
+
+    p = prios / prios.sum()
+    n = idx.size
+    counts = np.bincount(idx, minlength=p.size)
+    big = p * n >= 5
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(p[big] * n, p[~big].sum() * n)
+    keep = exp > 0
+    obs, exp = obs[keep], exp[keep]
+    return float(((obs - exp) ** 2 / exp).sum()), int(obs.size - 1)
+
+
+def phase_device_per(seed=SEED):
+    """Phase 20a: the device PER on the card against its CPU version on
+    priorities planted from `seed`: the priority state (rtol 1e-6, the
+    pow's last place), the rows and weights for the same uniform draws
+    (a neighbouring row only where u * total lies within the two scans'
+    difference of a boundary, plus 4 ulps; weights rtol 1e-5 elsewhere),
+    the frequencies of 2^20 draws of the card's generator under a
+    chi-square limit, empty slots never drawn; a planted uniform sampler
+    and a first-wins update must fail."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.replay import device_per as dp
+
+    card_per, updates = planted_per(DEVICE, seed)
+    cpu_per, _ = planted_per("cpu", seed)
+    gp, cp = card_per.prios.cpu().numpy(), cpu_per.prios.numpy()
+    state_err = float(np.max(np.abs(gp - cp) / np.maximum(cp, 1e-30)))
+    check(state_err <= 1e-6 and card_per.max_p.item()
+          == cpu_per.max_p.item(),
+          f"phase 20a: the priorities on the card differ from the CPU's "
+          f"by {state_err:.3e} (rtol 1e-6)")
+    # the last occurrence wins on the card as on the CPU: rebuilt by a
+    # loop over the last update, row by row
+    idx, raw = updates[-1]
+    want = {}
+    for i, r in zip(idx, raw):
+        want[int(i)] = np.float32(r) ** np.float32(dp.ALPHA)
+    lw = max(abs(gp[i] - v) / v for i, v in want.items())
+    check(lw <= 1e-6, f"phase 20a: a duplicate's priority is not its last "
+          f"occurrence's ({lw:.3e})")
+    wrong, _ = planted_per(DEVICE, seed, first_wins=True)
+    fw = float(np.max(np.abs(wrong.prios.cpu().numpy() - cp)
+                      / np.maximum(cp, 1e-30)))
+    check(fw > 1e-3, f"phase 20a: a first-wins update passes ({fw:.3e})")
+
+    u = np.random.default_rng(seed + 1).uniform(0, 1, 4096).astype(
+        np.float32)
+    gi, gw = dp.per_sample(card_per, None, u.size, PER_STORED,
+                           u=torch.as_tensor(u, device=DEVICE))
+    ci, cw = dp.per_sample(cpu_per, None, u.size, PER_STORED,
+                           u=torch.from_numpy(u))
+    gi, gw, ci, cw = gi.cpu().numpy(), gw.cpu().numpy(), ci.numpy(), \
+        cw.numpy()
+    gc = torch.cumsum(card_per.prios, 0).cpu().numpy()
+    cc = torch.cumsum(cpu_per.prios, 0).numpy()
+    moved = np.flatnonzero(gi != ci)
+    for j in moved:
+        lo = min(gi[j], ci[j])
+        x = u[j] * cc[-1]
+        tol = (abs(gc[lo] - cc[lo]) + u[j] * abs(gc[-1] - cc[-1])
+               + 4 * np.spacing(np.float32(cc[lo])))
+        check(abs(int(gi[j]) - int(ci[j])) == 1 and abs(x - cc[lo]) <= tol,
+              f"phase 20a: draw {j} takes row {gi[j]} on the card, "
+              f"{ci[j]} on the CPU, not at a boundary")
+    same = gi == ci
+    w_err = float(np.max(np.abs(gw[same] - cw[same]) / cw[same]))
+    check(w_err <= 1e-5, f"phase 20a: importance weights {w_err:.3e} from "
+          f"the CPU's (rtol 1e-5)")
+
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    draws, _ = dp.per_sample(card_per, gen, PER_DRAWS, PER_STORED)
+    draws = draws.cpu().numpy()
+    stat, df = draw_chi2(draws, cp)
+    limit = chi2_limit(df)
+    uniform = np.random.default_rng(seed + 2).integers(0, PER_STORED,
+                                                       PER_DRAWS)
+    u_stat, _ = draw_chi2(uniform, cp)
+    empty = int((draws >= PER_STORED).sum())
+    check(stat <= limit and empty == 0,
+          f"phase 20a: {PER_DRAWS} draws' chi-square {stat:.1f} (limit "
+          f"{limit:.1f}, {df} degrees of freedom), {empty} empty slots drawn")
+    check(u_stat > limit, f"phase 20a: a uniform sampler passes the "
+          f"chi-square limit ({u_stat:.1f} <= {limit:.1f})")
+
+    # the PER bookkeeping of an update at the recipe's batch, timed
+    td = torch.rand(RECIPE_BATCH, device=DEVICE)
+
+    def bookkeeping():
+        i, w = dp.per_sample(card_per, gen, RECIPE_BATCH, PER_STORED)
+        dp.per_update(card_per, i, td + 1e-6)
+        return i, w
+
+    bookkeeping()
+    ms = cuda_ms(bookkeeping, 50)
+    _, syncs, kinds = count_syncs(bookkeeping)
+    check(syncs == 0, f"phase 20a: per_sample + per_update synchronized "
+          f"{syncs} times: {kinds}")
+    out = {"state_rel": state_err, "first_wins_rel": fw,
+           "moved_draws": int(moved.size), "weights_rel": w_err,
+           "chi2": stat, "chi2_df": df, "chi2_limit": limit,
+           "uniform_chi2": u_stat, "empty_drawn": empty,
+           "bookkeeping_ms": ms}
+    record("device PER", seed=seed, **out)
+    print(f"phase 20a (seed {seed}, {card()}): priorities on the card vs "
+          f"the CPU {state_err:.3e} (rtol 1e-6), a first-wins update "
+          f"{fw:.3e} (must exceed 1e-3); {moved.size} of {u.size} fixed "
+          f"draws on a neighbouring row at a boundary, weights "
+          f"{w_err:.3e} (rtol 1e-5); {PER_DRAWS} draws: chi-square "
+          f"{stat:.1f} on {df} degrees of freedom (limit {limit:.1f}), a "
+          f"uniform sampler {u_stat:.1f} (must fail), empty slots drawn "
+          f"{empty}; per_sample + per_update at B={RECIPE_BATCH}: "
+          f"{ms:.4f} ms (CUDA events), 0 syncs", flush=True)
+    return out
+
+
+def recipe(args):
+    """The launcher's configuration for `args` (reference_scale_run's
+    flags), SAC batch and ring as the recipe has them."""
+    from dgvit_tpu_torch.examples import reference_scale_run as rsr
+
+    cfg = rsr.recipe_config(rsr.parser().parse_args(args))
+    s, m = cfg.sac, cfg.model
+    check((s.batch_size, min(s.buffer_size, 8192), s.prioritized_replay,
+           s.nan_guard, m.compute_dtype, m.block, m.head, m.dim_head,
+           m.mlp_dim, m.latent_size, tuple(m.image_size))
+          == (RECIPE_BATCH, FUSED_RING, True, True, "bfloat16", 4, 4, 64,
+              2048, 64, (128, 160)),
+          f"phase 20: the recipe of {args} is not the flagship's")
+    return cfg, rsr.parser().parse_args(args)
+
+
+class PerRecorder:
+    """Patches train_fused's per_on_write and per_sample to keep, for the
+    latest round, the priorities after its write and every row its
+    updates drew; and the rows of the first write of a run."""
+
+    def __init__(self):
+        from dgvit_tpu_torch.train import fused_train as ft
+
+        self.ft = ft
+        self.after_write, self.drawn, self.first = None, [], None
+
+    def __enter__(self):
+        ft = self.ft
+        self.real = (ft.per_on_write, ft.per_sample)
+        write, sample = self.real
+
+        def on_write(per, idx):
+            if self.first is None:
+                self.first = (per.prios.clone(), idx.clone())
+            out = write(per, idx)
+            self.after_write, self.drawn = per.prios.clone(), []
+            return out
+
+        def on_sample(*a, **k):
+            idx, w = sample(*a, **k)
+            self.drawn.append(idx)
+            return idx, w
+
+        ft.per_on_write, ft.per_sample = on_write, on_sample
+        return self
+
+    def __exit__(self, *exc):
+        self.ft.per_on_write, self.ft.per_sample = self.real
+
+
+def recipe_launches(recipes, short):
+    """A kernel's launches on phase 20's paths, for the kernels line."""
+    return {"fused_train_per": recipes["flagship"]["launches"][short],
+            "fused_train_drqc": recipes["drqc_launches"][short],
+            "fused_train_guided_per": recipes["guided_launches"][short],
+            "reference_scale_run": recipes["launcher"]["launches"][short]}
+
+
+def phase_recipes(out_dir):
+    """Phase 20b-f (the docstring of the module lists them)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.agents import sac as sac_mod
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs import vec_kinematic as vk
+    from dgvit_tpu_torch.replay.device_per import per_sample, per_update
+    from dgvit_tpu_torch.train import fused_train as ft
+    from dgvit_tpu_torch.train import vec_rollout as vr
+    from dgvit_tpu_torch.train.demo_record import (record_episodes,
+                                                   scripted_pilot)
+
+    counters = kernel_counters()
+    per_update_b = {**{k: 0 for k in counters}, **PER_UPDATE}
+
+    def drive(cfg, args, run_dir, label, rounds, **more):
+        """train_fused as the launcher calls it, cut to `rounds` rounds of
+        RECIPE_UPDATES updates: (result, launches, host clock)."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch_sync()
+        t0 = time.perf_counter()
+        out = ft.train_fused(
+            cfg, out_dir=str(run_dir), n_envs=FUSED_LANES,
+            chunk=FUSED_CHUNK, rounds=rounds, rounds_per_dispatch=rounds,
+            updates_per_round=RECIPE_UPDATES, world=args.world,
+            world_assign=args.world_assign, device=DEVICE, **more)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"phase 20 train_fused ({label}): {out['rounds']} rounds, "
+              f"{out['env_steps']} env steps, {out['updates']} updates, "
+              f"{out['episodes']} episodes in {wall:.2f} s (host clock); "
+              f"launches {launches}", flush=True)
+        return out, launches, wall
+
+    def expected(rounds, per_update=None):
+        return {**{k: n * rounds * RECIPE_UPDATES
+                   for k, n in (per_update or per_update_b).items()},
+                "K1": rounds * FUSED_CHUNK}
+
+    def rows_of(run_dir):
+        return [json.loads(line) for line in
+                next(Path(run_dir).glob("train_fused_*.jsonl")).read_text()
+                .splitlines()]
+
+    # (b) the flagship recipe
+    cfg, args = recipe(FLAGSHIP_ARGS)
+    run_dir = Path(out_dir) / "flagship"
+    with PerRecorder() as rec:
+        out, launches, wall = drive(cfg, args, run_dir, "flagship recipe",
+                                    RECIPE_ROUNDS)
+    steps = RECIPE_ROUNDS * FUSED_LANES * FUSED_CHUNK
+    check(out["updates"] == RECIPE_ROUNDS * RECIPE_UPDATES
+          and out["ring"].cursor == steps and out["ring"].capacity
+          == FUSED_RING, f"phase 20b: {out['updates']} updates, ring "
+          f"cursor {out['ring'].cursor}")
+    check(launches == expected(RECIPE_ROUNDS),
+          f"phase 20b launched {launches}, expected "
+          f"{expected(RECIPE_ROUNDS)}")
+    rows = rows_of(run_dir)
+    check(len(rows) == RECIPE_ROUNDS and all(
+        math.isfinite(r[k]) for r in rows for k in
+        ("qf1_loss", "policy_loss", "alpha", "reward_sum"))
+        and all(0.1 - 1e-6 <= r["alpha"] <= 2.0 + 1e-6 for r in rows),
+        "phase 20b: losses not finite or alpha outside [0.1, 2]")
+    per = out["per"]
+    end = per.prios
+    changed = end != rec.after_write
+    drawn = torch.zeros_like(changed)
+    drawn[torch.cat(rec.drawn)] = True
+    n_changed, n_drawn = int(changed.sum()), int(drawn.sum())
+    outside = int((changed & ~drawn).sum())
+    check(outside == 0 and n_changed > 0 and bool(
+        (end[steps:] == 0).all()) and bool((end[:steps] > 0).all()),
+        f"phase 20b: {n_changed} priorities changed in the last round, "
+        f"{outside} of them at rows no update drew ({n_drawn} drawn)")
+    print(f"phase 20b: the last round's updates drew {n_drawn} rows and "
+          f"changed the priority of {n_changed}, none elsewhere; the "
+          f"running max {per.max_p.item():.4f}", flush=True)
+
+    # a warm resume: the restored rows at the max priority, one more round
+    with PerRecorder() as rec2:
+        resumed, r_launches, _ = drive(cfg, args, run_dir, "warm resume",
+                                       RECIPE_ROUNDS + 1, resume=True)
+    before, first_rows = rec2.first
+    check(resumed["rounds"] == RECIPE_ROUNDS + 1
+          and resumed["updates"] == out["updates"] + RECIPE_UPDATES
+          and torch.equal(first_rows.cpu(), torch.arange(steps))
+          and bool((before == 0).all())
+          and r_launches == expected(1),
+          f"phase 20b: the warm resume ({resumed['rounds']} rounds, "
+          f"{resumed['updates']} updates, launches {r_launches})")
+    del resumed
+
+    # the syncs and times of a PER round and a uniform round at B=32 on
+    # the run's state, ring and priorities
+    state, ring = out["state"], out["ring"]
+    agent = SACAgent(cfg, device=DEVICE, seed=cfg.train.seed)
+    hw = tuple(cfg.model.image_size)
+    consts = vk.make_consts(args.world, image_hw=hw,
+                            max_steps=cfg.env.max_steps,
+                            seed=cfg.train.seed, device=DEVICE)
+    e = cfg.env
+    carry = vk.vec_reset(consts, FUSED_LANES)
+    kw = dict(l_scale=e.linear_cmd_scale, a_scale=e.angular_cmd_scale,
+              seed=cfg.train.seed)
+    runs = {"per": ft.make_fused_round(
+        agent, consts, FUSED_LANES, FUSED_CHUNK, RECIPE_UPDATES,
+        RECIPE_BATCH, prioritized=True, **kw),
+        "uniform": ft.make_fused_round(
+        agent, consts, FUSED_LANES, FUSED_CHUNK, RECIPE_UPDATES,
+        RECIPE_BATCH, **kw)}
+    collect = vr.make_collect_fn(agent, consts, FUSED_CHUNK,
+                                 e.linear_cmd_scale, e.angular_cmd_scale)
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    collect(state.actor, carry, gen)
+    torch_sync()
+    t0 = time.perf_counter()
+    carry, traj = collect(state.actor, carry, gen)
+    torch_sync()
+    collect_s = time.perf_counter() - t0
+    del traj
+    r = 100
+    timing = {}
+    for name in ("per", "uniform", "per", "uniform"):
+        r += 1
+        torch_sync()
+        t0 = time.perf_counter()
+        state, carry, ring, *_ = runs[name](state, carry, ring, [r],
+                                            per=per)
+        torch_sync()
+        timing.setdefault(name, []).append(time.perf_counter() - t0)
+    syncs = {}
+    for name in ("per", "uniform"):
+        r += 1
+        (state, carry, ring, *_), syncs[name], kinds = count_syncs(
+            lambda: runs[name](state, carry, ring, [r], per=per))
+    batch = ft.ring_sample(ring, gen, RECIPE_BATCH)
+    _, learn_syncs, learn_kinds = count_syncs(
+        lambda: agent.learn(state, batch))
+    w = torch.ones(RECIPE_BATCH, device=DEVICE)
+    _, per_learn_syncs, _ = count_syncs(
+        lambda: agent.learn_per(state, batch, w))
+
+    def bookkeeping():
+        idx, _ = per_sample(per, gen, RECIPE_BATCH, ring.size)
+        ft.ring_gather(ring, idx)
+        per_update(per, idx, torch.rand(RECIPE_BATCH, device=DEVICE) + 1)
+
+    _, book_syncs, _ = count_syncs(bookkeeping)
+    check(book_syncs == 0 and per_learn_syncs == learn_syncs
+          and syncs["per"] == 1 + RECIPE_UPDATES * per_learn_syncs
+          and syncs["uniform"] == 1 + RECIPE_UPDATES * learn_syncs,
+          f"phase 20b syncs: a PER round {syncs['per']}, a uniform round "
+          f"{syncs['uniform']}, learn_per {per_learn_syncs}, learn "
+          f"{learn_syncs}, PER's sampling and update {book_syncs}")
+    times = {name: {
+        "round_s": min(v),
+        "env_steps_per_s": FUSED_LANES * FUSED_CHUNK / min(v),
+        "ms_per_update": (min(v) - collect_s) / RECIPE_UPDATES * 1e3}
+        for name, v in timing.items()}
+    print(f"phase 20b ({card()}): a round of {FUSED_CHUNK} steps of "
+          f"{FUSED_LANES} lanes and {RECIPE_UPDATES} updates at "
+          f"B={RECIPE_BATCH}, bf16, nan_guard, the better of two (host "
+          f"clock, synchronized): PER {times['per']['round_s']:.3f} s = "
+          f"{times['per']['env_steps_per_s']:.1f} env steps/s, "
+          f"{times['per']['ms_per_update']:.2f} ms an update; uniform "
+          f"{times['uniform']['round_s']:.3f} s = "
+          f"{times['uniform']['env_steps_per_s']:.1f} env steps/s, "
+          f"{times['uniform']['ms_per_update']:.2f} ms an update "
+          f"(collection alone {collect_s:.3f} s); host syncs: a PER round "
+          f"{syncs['per']}, a uniform round {syncs['uniform']} (phase 19c's"
+          f" round at B={SAC_BATCH} without nan_guard: 33), an update "
+          f"{per_learn_syncs} with PER, {learn_syncs} without ({learn_kinds})"
+          f"; PER's sampling, gather and update 0", flush=True)
+    flagship = {"launches": launches, "wall_s": wall, "times": times,
+                "syncs_per_round": syncs, "syncs_per_update": learn_syncs,
+                "changed_priorities": n_changed, "drawn_rows": n_drawn,
+                "episodes": out["episodes"],
+                "last_round": {k: rows[-1][k] for k in
+                               ("qf1_loss", "policy_loss", "alpha",
+                                "reward_sum")}}
+    del out, state, ring, per, runs, batch
+
+    # (c) the drqc recipe: shifted frames into the critic, raw frames into
+    # the actor step
+    cfg, args = recipe(DRQC_ARGS)
+    check(cfg.sac.aug_shift == 4 and not cfg.sac.aug_actor,
+          "phase 20c: the drqc recipe's DrQ knobs")
+    seen = {"aug": 0}
+    real_aug, real_terms = SACAgent._augment, SACAgent._policy_terms
+
+    def aug_spy(self, st, b, e=None, shifts=None):
+        out = real_aug(self, st, b, e, shifts)
+        seen["aug"] += 1
+        seen["raw"], seen["shifted"] = b["obs"].clone(), out[0]["obs"].clone()
+        return out
+
+    def terms_spy(self, st, alpha, b, noise_pi):
+        seen["actor"] = b["obs"].clone()
+        return real_terms(self, st, alpha, b, noise_pi)
+
+    SACAgent._augment, SACAgent._policy_terms = aug_spy, terms_spy
+    try:
+        drqc, d_launches, d_wall = drive(
+            cfg, args, Path(out_dir) / "drqc", "drqc recipe", RECIPE_ROUNDS,
+            ring_snapshot_every=0)
+    finally:
+        SACAgent._augment, SACAgent._policy_terms = real_aug, real_terms
+    differ = (seen["shifted"] != seen["raw"]).flatten(1).any(1)
+    check(seen["aug"] == RECIPE_ROUNDS * RECIPE_UPDATES
+          and bool(differ.float().mean() > 0.5)
+          and torch.equal(seen["actor"], seen["raw"])
+          and d_launches == expected(RECIPE_ROUNDS),
+          f"phase 20c: {seen['aug']} augmented updates, {int(differ.sum())}"
+          f" of {RECIPE_BATCH} frames shifted, the actor's frames raw: "
+          f"{torch.equal(seen['actor'], seen['raw'])}, launches "
+          f"{d_launches}")
+    print(f"phase 20c: the drqc recipe, {RECIPE_ROUNDS} rounds: every "
+          f"update shifted its frames ({int(differ.sum())} of "
+          f"{RECIPE_BATCH} frames of the last differ from the raw ones, "
+          f"offsets in [0, 8]), the actor step saw the raw frames; "
+          f"{drqc['episodes']} episodes in {d_wall:.2f} s", flush=True)
+    del drqc, seen
+
+    # (d) one guided PER round on demos the port records
+    cfg, args = recipe(FLAGSHIP_ARGS)
+    e = cfg.env
+    demo_env = KinematicNavEnv(seed=SEED + 3, world="rrc",
+                               image_hw=tuple(cfg.model.image_size))
+    demos = record_episodes(
+        demo_env, scripted_pilot, str(Path(out_dir) / "Data"),
+        episodes=DEMO_EPISODES, max_steps=TRAIN_MAX_STEPS,
+        action_to_env=lambda a: [(a[0] + 1) * e.linear_cmd_scale,
+                                 a[1] * e.angular_cmd_scale])
+    check(bool(demos), "phase 20d: the recorder wrote no demo")
+    cfg.train.pre_buffer = True
+    with PerRecorder() as rec3:
+        guided, g_launches, g_wall = drive(
+            cfg, args, Path(out_dir) / "guided_per", "guided PER", 1,
+            ring_snapshot_every=0,
+            expert_glob=str(Path(out_dir) / "Data" / "RRC" / "torch"
+                            / "*.npz"))
+    g_rows = rows_of(Path(out_dir) / "guided_per")
+    g_changed = guided["per"].prios != rec3.after_write
+    g_drawn = torch.zeros_like(g_changed)
+    g_drawn[torch.cat(rec3.drawn)] = True
+    check(g_launches == expected(1, PER_GUIDED)
+          and guided["updates"] == RECIPE_UPDATES
+          and math.isfinite(g_rows[-1]["qf1_loss"])
+          and int(g_changed.sum()) > 0
+          and not bool((g_changed & ~g_drawn).any()),
+          f"phase 20d: the guided PER round launched {g_launches}, "
+          f"expected {expected(1, PER_GUIDED)}; "
+          f"{int(g_changed.sum())} priorities changed")
+    print(f"phase 20d: a guided PER round, {RECIPE_UPDATES} updates on "
+          f"{RECIPE_BATCH} ++ {RECIPE_BATCH} rows in {g_wall:.2f} s; "
+          f"{int(g_changed.sum())} priorities changed, all at drawn rows",
+          flush=True)
+    del guided
+
+    # (e) K1 at the final evaluation's batch, on the evaluation's frames
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.serve.export import make_action_fn
+
+    actor = make_action_fn(cfg, load_params_npz(str(ACTOR)),
+                           dtype=torch.bfloat16, device=DEVICE).policy
+    h_consts = vk.make_consts("hospital", image_hw=hw,
+                              max_steps=e.max_steps, seed=7, device=DEVICE)
+    eval_collect = vr.make_collect_fn(agent, h_consts, 8,
+                                      e.linear_cmd_scale,
+                                      e.angular_cmd_scale, evaluate=True)
+    _, traj = eval_collect(actor, vk.vec_reset(h_consts, EVAL_LANES))
+    k1_eval = collected_k1(actor, traj, "the final evaluation's")
+    check(k1_eval["forms"] == ["mma"], f"phase 20e: K1 at B={EVAL_LANES} "
+          f"took {k1_eval['forms']}, not two frames a block")
+    del traj
+
+    # (f) the launcher's main end to end
+    from dgvit_tpu_torch.examples import reference_scale_run as rsr
+
+    largs = rsr.parser().parse_args(FLAGSHIP_ARGS + LAUNCHER_ARGS)
+    for fn in counters.values():
+        fn.launches = 0
+    torch_sync()
+    t0 = time.perf_counter()
+    summary = rsr.main(FLAGSHIP_ARGS + LAUNCHER_ARGS + [
+        "--out", str(Path(out_dir) / "launcher"), "--device", DEVICE])
+    torch_sync()
+    main_s = time.perf_counter() - t0
+    l_launches = {k: fn.launches for k, fn in counters.items()}
+    l_rows = rows_of(Path(out_dir) / "launcher")
+    l_rounds = len(l_rows)
+    updates = l_rounds * largs.n_envs * largs.chunk
+    want = {**{k: n * updates for k, n in per_update_b.items()},
+            "K1": l_rounds * largs.chunk + cfg.env.max_steps}
+    on_disk = json.loads((Path(out_dir) / "launcher" / "summary.json")
+                         .read_text())
+    check(l_launches == want
+          and on_disk["train_episodes"] >= largs.episodes
+          and on_disk["eval_episodes"] == largs.eval_episodes
+          and on_disk["mode"] == "fused"
+          and on_disk["eval_world"] == "hospital"
+          and 0.0 <= on_disk["eval_success_rate"] <= 1.0
+          and all(math.isfinite(r["qf1_loss"]) for r in l_rows),
+          f"phase 20f: the launcher's main: launches {l_launches}, "
+          f"expected {want}; summary {on_disk}")
+    budget = " ".join(LAUNCHER_ARGS)
+    print(f"phase 20f ({card()}): the launcher's main, {budget}: "
+          f"{l_rounds} rounds ({updates} updates, "
+          f"{on_disk['train_episodes']} episodes), then run_eval_vec of "
+          f"{largs.eval_episodes} episodes on hospital ({cfg.env.max_steps}"
+          f" K1 launches of {largs.eval_episodes}), in {main_s:.1f} s (host"
+          f" clock); summary "
+          f"{json.dumps(on_disk)}", flush=True)
+    return {"flagship": flagship, "drqc_launches": d_launches,
+            "guided_launches": g_launches, "k1_eval": k1_eval,
+            "launcher": {"launches": l_launches, "seconds": main_s,
+                         "rounds": l_rounds, "summary": on_disk}}
 
 
 # The times of the kernels redesigned for the tensor cores in their earlier
@@ -5770,6 +6367,9 @@ def main() -> int:
         "default": (update_s, one_update),
         "trunk-gradient": (trunk_update_s, trunk_update)})
     on_device = phase_on_device()
+    device_per = phase_device_per()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        recipes = phase_recipes(out_dir)
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -5807,7 +6407,8 @@ def main() -> int:
         "run_eval_vec": on_device["vec_eval"]["flagship"]["launches"]["K1"],
         "fused_train": on_device["fused"]["launches"]["K1"],
         "fused_train_guided": on_device["fused"]["guided_launches"]["K1"],
-        "train_vec": on_device["train_vec"]["launches"]["K1"]}
+        "train_vec": on_device["train_vec"]["launches"]["K1"],
+        **recipe_launches(recipes, "K1")}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -5835,7 +6436,8 @@ def main() -> int:
                     "fused_train": on_device["fused"]["launches"][short],
                     "fused_train_guided":
                         on_device["fused"]["guided_launches"][short],
-                    "train_vec": on_device["train_vec"]["launches"][short]},
+                    "train_vec": on_device["train_vec"]["launches"][short],
+                    **recipe_launches(recipes, short)},
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({
@@ -5886,6 +6488,8 @@ def main() -> int:
     print(f"K2b, K3b and K6 recomputes (phase 13b): {json.dumps(recompute)}")
     print(f"guided update (phase 18): {json.dumps(guided)}")
     print(f"on-device tier (phase 19, {card()}): {json.dumps(on_device)}")
+    print(f"round-5 recipes (phase 20, {card()}): device PER "
+          f"{json.dumps(device_per)}; {json.dumps(recipes)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

@@ -1,11 +1,13 @@
-"""SAC agent: the plain and the expert-guided updates of the JAX
-package's `agents/sac.py` (`learn`, `learn_guidence`).
+"""SAC agent: the updates of the JAX package's `agents/sac.py`: the
+plain and the expert-guided one (`learn`, `learn_guidence`) and their
+prioritized-replay flavours (`learn_per`, `learn_guidence_per`).
 
 The state (`SACState`) holds the actor, the twin-Q critic and its target
 as modules with fp32 parameters, one torch Adam (eps 1e-8) each for the
 actor, the critic and log_alpha, the update counter `itera`, and the
-`torch.Generator` that draws every dropout mask and action noise. `learn`
-updates it in place.
+`torch.Generator` that draws every dropout mask and action noise, and,
+with `sac.aug_shift`, a second generator for the DrQ shifts' offsets.
+`learn` updates it in place.
 
 Replicated reference semantics (sac.py:9-36), each deliberate:
   * TD target r + gamma * (minQ' - alpha * logpi') with no done mask
@@ -33,8 +35,24 @@ weighted 1 on agent rows and by validity (`row < n_expert`) on expert
 rows, plus a behaviour-cloning loss of the deterministic actor on the
 valid expert rows (`guidence_weight`, with its geometric curriculum) and
 an intervention loss on the agent rows with engage == 1
-(`engage_weight`). Not here: the PER flavours (`learn_per`,
-`learn_guidence_per`), DrQ augmentation and `critic_latent_reuse`.
+(`engage_weight`).
+
+The PER flavours (JAX `_per_step_impl`, `_guided_per_step_impl`) take the
+buffer's importance weights and return the per-row |TD error| of the
+first Q head for the priority update: `learn_per` weights the critic loss
+mean(w (q - target)^2); `learn_guidence_per` weights the agent rows of
+the guided update's critic and policy losses by them. Under
+`sac.nan_guard` a rolled-back or non-finite row reports the batch's mean
+finite |TD error| (1 when none is finite), computed on the device.
+
+DrQ (`sac.aug_shift`, JAX `_augment`): obs and next_obs of the batch,
+and the expert's on the guided path, are shifted independently
+(`ops/augment.random_shift`) before the losses see them, except in the
+first `sac.aug_warmup` updates; with `sac.aug_actor` False the actor step
+(the policy forward, its Q evaluation and the guided BC losses) sees the
+raw frames. The offsets come from the state's `aug_generator`, so the
+dropout masks and action noise of an update are those of the same update
+without the shift. Not here: `critic_latent_reuse`.
 """
 
 from __future__ import annotations
@@ -49,14 +67,20 @@ import torch
 
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.device import resolve_device
+from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.models import distributions
 from dgvit_tpu_torch.models.jax_io import params_from_jax, params_to_jax
 from dgvit_tpu_torch.models.policies import (GoTPolicy, GoTQNetwork,
                                              build_actor, build_critic)
+from dgvit_tpu_torch.ops.augment import random_shift
 from dgvit_tpu_torch.replay.staging import HostStager
 
 BATCH_KEYS = ("obs", "pobs", "act", "rew", "next_obs", "next_pobs")
 GUIDED_KEYS = BATCH_KEYS + ("done",)
+PLAIN_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                 "alpha", "entropy")
+PER_METRICS = PLAIN_METRICS[:-1]
+AUG_STREAM = 0xD7   # step_key tag of the shift offsets' generator
 
 
 @dataclass
@@ -70,6 +94,8 @@ class SACState:
     alpha_opt: torch.optim.Adam
     itera: int                      # update counter
     generator: torch.Generator      # dropout masks and action noise
+    # the DrQ shifts' offsets (sac.aug_shift > 0), else None
+    aug_generator: Optional[torch.Generator] = None
 
 
 class SACAgent:
@@ -104,6 +130,9 @@ class SACAgent:
                          else float(s.guidence_weight_final))
         self.gw_decay_steps = int(s.guidence_decay_steps or 0)
         self.obs_ndim = 3 if cfg.model.patch_mode == "channels" else 2
+        self.aug_shift = int(s.aug_shift)
+        self.aug_actor = bool(s.aug_actor)
+        self.aug_warmup = int(s.aug_warmup)
         self._act_stager = None     # pinned buffers of choose_action_host
 
     def init_state(self, seed: Optional[int] = None) -> SACState:
@@ -123,7 +152,9 @@ class SACAgent:
             critic_opt=adam(critic.parameters(), s.lr_critic),
             log_alpha=log_alpha, alpha_opt=adam([log_alpha], s.lr_alpha),
             itera=0,
-            generator=torch.Generator(self.device).manual_seed(seed))
+            generator=torch.Generator(self.device).manual_seed(seed),
+            aug_generator=(generator(step_key(seed, AUG_STREAM), self.device)
+                           if self.aug_shift else None))
 
     # ------------------------------------------------------------------
     # acting
@@ -271,18 +302,38 @@ class SACAgent:
             metrics["skipped_nonfinite"] = torch.tensor(float(not ok))
         return metrics
 
-    def learn(self, state: SACState, batch: Mapping[str, object],
-              noise: Optional[Sequence] = None
-              ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
-        """One SAC update (DRL.py:373-437), in place.
+    def _augment(self, state: SACState, b: Dict, e: Optional[Dict] = None,
+                 shifts: Optional[Sequence] = None):
+        """(b, e) with obs and next_obs shifted (sac.aug_shift; JAX
+        `_augment`), each on offsets of its own: b's obs, b's next_obs,
+        then e's. Unchanged without the shift and in the first aug_warmup
+        updates (the host counter gates; nothing is drawn there).
+        shifts: the (B, 2) offsets in that order, in place of the
+        generator's (tests)."""
+        if not self.aug_shift or state.itera < self.aug_warmup:
+            return b, e
+        offs = iter(shifts) if shifts is not None else None
 
-        batch: obs (B, H, W), pobs (B, pstate), act (B, A), rew (B,) or
-        (B, 1), next_obs, next_pobs, and done when the done mask is on;
-        numpy or tensors. noise: optional (next-action, policy) standard
-        normal draws, each (B, A), in place of the generator's. Returns the
-        state and the metrics (0-dim tensors)."""
+        def shift(d):
+            d = dict(d)
+            for k in ("obs", "next_obs"):
+                d[k] = random_shift(d[k], self.aug_shift,
+                                    state.aug_generator,
+                                    None if offs is None else next(offs))
+            return d
+
+        b = shift(b)
+        return b, (None if e is None else shift(e))
+
+    def _plain_core(self, state: SACState, batch: Mapping[str, object],
+                    weights: Optional[torch.Tensor], noise, shifts):
+        """One plain update, its critic loss weighted per row by `weights`
+        when given (PER): (state, metrics, td), td the per-row |TD error|
+        of the first Q head with weights, else None."""
         keys = BATCH_KEYS + (("done",) if self.done_mask else ())
-        b = self._tensors(batch, keys)
+        clean = self._tensors(batch, keys)
+        b, _ = self._augment(state, clean, shifts=shifts)
+        actor_b = b if self.aug_actor else clean
         noise_next, noise_pi = self._noise(noise)
         g = state.generator
         prev = self._snapshot(state) if self.nan_guard else None
@@ -292,14 +343,21 @@ class SACAgent:
         # critic update (K2/K3 route)
         q1, q2 = state.critic(b["obs"], b["pobs"], b["act"],
                               deterministic=False, generator=g)
-        qf1_loss = torch.mean(torch.square(q1.float() - target))
-        qf2_loss = torch.mean(torch.square(q2.float() - target))
+        td = None
+        if weights is None:
+            qf1_loss = torch.mean(torch.square(q1.float() - target))
+            qf2_loss = torch.mean(torch.square(q2.float() - target))
+        else:
+            td = torch.abs(q1.detach().float() - target).mean(dim=1)
+            w = weights.reshape(-1, 1)
+            qf1_loss = torch.mean(w * torch.square(q1.float() - target))
+            qf2_loss = torch.mean(w * torch.square(q2.float() - target))
         state.critic_opt.zero_grad(set_to_none=True)
         (qf1_loss + qf2_loss).backward()
         state.critic_opt.step()
 
         # actor update against the updated critic; its trunk is no-grad
-        s, per_elem = self._policy_terms(state, alpha, b, noise_pi)
+        s, per_elem = self._policy_terms(state, alpha, actor_b, noise_pi)
         policy_loss = torch.mean(per_elem)
         self._actor_step(state, policy_loss)
         log_pi = s.log_prob.detach().float()
@@ -307,9 +365,59 @@ class SACAgent:
             "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
             "policy_loss": policy_loss.detach(), "alpha": alpha,
             "entropy": -torch.mean(log_pi)}, prev)
-        return state, {k: metrics[k] for k in (
-            "qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha",
-            "entropy", *(("skipped_nonfinite",) if self.nan_guard else ()))}
+        return state, metrics, td
+
+    def learn(self, state: SACState, batch: Mapping[str, object],
+              noise: Optional[Sequence] = None,
+              shifts: Optional[Sequence] = None
+              ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
+        """One SAC update (DRL.py:373-437), in place.
+
+        batch: obs (B, H, W), pobs (B, pstate), act (B, A), rew (B,) or
+        (B, 1), next_obs, next_pobs, and done when the done mask is on;
+        numpy or tensors. noise: optional (next-action, policy) standard
+        normal draws, each (B, A), in place of the generator's. shifts:
+        optional DrQ offsets (`_augment`). Returns the state and the
+        metrics (0-dim tensors)."""
+        state, metrics, _ = self._plain_core(state, batch, None, noise,
+                                             shifts)
+        return state, self._keep(metrics, PLAIN_METRICS)
+
+    def learn_per(self, state: SACState, batch: Mapping[str, object],
+                  is_weights, noise: Optional[Sequence] = None,
+                  shifts: Optional[Sequence] = None
+                  ) -> Tuple[SACState, Dict[str, torch.Tensor],
+                             torch.Tensor]:
+        """One PER update (JAX `_per_step_impl`), in place: `learn` with
+        the critic loss mean(w (q - target)^2) for the importance weights
+        `is_weights` (B,). Returns the state, the metrics (`learn`'s but
+        entropy) and the per-row |TD error| (B,) on the device, for
+        `update_priorities(|td| + eps)`."""
+        w = torch.as_tensor(is_weights, dtype=torch.float32,
+                            device=self.device)
+        state, metrics, td = self._plain_core(state, batch, w, noise, shifts)
+        return state, self._keep(metrics, PER_METRICS), \
+            self._guard_td(td, metrics)
+
+    def _keep(self, metrics: Dict, keys) -> Dict:
+        return {k: metrics[k] for k in (
+            *keys, *(("skipped_nonfinite",) if self.nan_guard else ()))}
+
+    def _guard_td(self, td: torch.Tensor, metrics: Dict) -> torch.Tensor:
+        """Under nan_guard, the scale-aware neutral |TD error| (the mean
+        of the finite ones, 1 when none is) for every row of a rolled-back
+        update and for each non-finite row (JAX sac.py:668-693); on the
+        device, gated by the rollback's host flag."""
+        if not self.nan_guard:
+            return td
+        finite = torch.isfinite(td)
+        n_fin = finite.float().sum()
+        neutral = torch.where(
+            n_fin > 0, torch.where(finite, td.abs(), 0.0).sum()
+            / torch.clamp(n_fin, min=1.0), 1.0)
+        if float(metrics["skipped_nonfinite"]) > 0:
+            return neutral.expand_as(td).clone()
+        return torch.where(finite, td, neutral)
 
     def guidence_weight_at(self, itera: int) -> torch.Tensor:
         """The guidance-weight curriculum (JAX sac.py:783-792): geometric
@@ -338,12 +446,15 @@ class SACAgent:
         return torch.sum(rows.reshape(-1, 1) * sq) / denom
 
     def _guided_core(self, state: SACState, batch, expert_batch, n_expert,
-                     noise=None):
-        """The guided update on agent ++ expert rows (JAX `_guided_core`
-        with all-ones agent weights): (state, metrics, td), td the
-        per-agent-row |TD error|."""
-        b = self._tensors(batch, GUIDED_KEYS)
-        e = self._tensors(expert_batch, GUIDED_KEYS)
+                     noise=None, agent_weights=None, shifts=None):
+        """The guided update on agent ++ expert rows (JAX `_guided_core`):
+        the agent rows weighted by `agent_weights` (B,) (all ones when
+        None, PER's importance weights for `learn_guidence_per`), the
+        expert rows by validity. (state, metrics, td), td the per-agent-row
+        |TD error|."""
+        clean = self._tensors(batch, GUIDED_KEYS)
+        clean_e = self._tensors(expert_batch, GUIDED_KEYS)
+        b, e = self._augment(state, clean, clean_e, shifts)
         engage = torch.as_tensor(batch["engage"], dtype=torch.float32,
                                  device=self.device).reshape(-1)
         noise_next, noise_pi = self._noise(noise)
@@ -356,8 +467,11 @@ class SACAgent:
         valid = (torch.arange(rows_e, device=self.device)
                  < n_expert).float()
         merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
-        w = torch.cat([torch.ones(rows, device=self.device), valid]
-                      ).reshape(-1, 1)
+        agent_w = (torch.ones(rows, device=self.device)
+                   if agent_weights is None else
+                   torch.as_tensor(agent_weights, dtype=torch.float32,
+                                   device=self.device).reshape(-1))
+        w = torch.cat([agent_w, valid]).reshape(-1, 1)
         target = self._td_target(state, alpha, merged, noise_next)
 
         # critic update on the merged rows, weighted
@@ -374,7 +488,11 @@ class SACAgent:
 
         # actor: the weighted policy loss over the merged rows, the expert
         # BC loss and the intervention loss (both computed whatever their
-        # gates, as the JAX step computes them)
+        # gates, as the JAX step computes them); with aug_actor False on
+        # the raw frames of the same rows
+        if not self.aug_actor:
+            b, e = clean, clean_e
+            merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
         gw = self.guidence_weight_at(itera)
         s, per_elem = self._policy_terms(state, alpha, merged, noise_pi)
         policy_loss = torch.sum(w * per_elem) / (
@@ -394,7 +512,8 @@ class SACAgent:
 
     def learn_guidence(self, state: SACState, batch: Mapping[str, object],
                        expert_batch: Mapping[str, object], n_expert: int,
-                       noise: Optional[Sequence] = None
+                       noise: Optional[Sequence] = None,
+                       shifts: Optional[Sequence] = None
                        ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
         """One expert-guided SAC update (DRL.py learn_guidence), in place.
 
@@ -402,12 +521,25 @@ class SACAgent:
         (B,) or (B, 1); expert_batch: the expert rows (Be, ...) with the
         expert's action as 'act', the first `n_expert` valid (the rest
         mask padding). noise: optional (next-action, policy) standard
-        normal draws over the merged rows, each (B + Be, A). Returns the
-        state and the metrics, `n_expert` and `guidence_weight` among
-        them."""
+        normal draws over the merged rows, each (B + Be, A). shifts:
+        optional DrQ offsets (`_augment`). Returns the state and the
+        metrics, `n_expert` and `guidence_weight` among them."""
         state, metrics, _ = self._guided_core(state, batch, expert_batch,
-                                              n_expert, noise)
+                                              n_expert, noise, None, shifts)
         return state, metrics
+
+    def learn_guidence_per(self, state: SACState,
+                           batch: Mapping[str, object],
+                           expert_batch: Mapping[str, object], n_expert: int,
+                           is_weights, noise: Optional[Sequence] = None,
+                           shifts: Optional[Sequence] = None):
+        """The guided update with the agent rows weighted by PER's
+        importance weights `is_weights` (B,) (JAX `_guided_per_step_impl`),
+        in place: (state, metrics, td), td the per-agent-row |TD error|
+        (B,) on the device."""
+        state, metrics, td = self._guided_core(
+            state, batch, expert_batch, n_expert, noise, is_weights, shifts)
+        return state, metrics, self._guard_td(td, metrics)
 
     @staticmethod
     def expert_batch_size(exp_buffer_size: int, agent_buffer_size: int,

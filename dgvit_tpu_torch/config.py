@@ -106,8 +106,10 @@ class SACConfig:
     # constant)
     guidence_weight_final: Optional[float] = None
     guidence_decay_steps: int = 0
-    # True samples by priority and feeds |TD error| back (the PER update
-    # flavour, not ported: `train.train_rl.train` raises on it)
+    # True samples by priority and feeds |TD error| back (`learn_per`, or
+    # `learn_guidence_per` with an expert buffer): the host loops through
+    # the C++ buffer's sum-tree, the on-device loop through
+    # replay/device_per.py
     prioritized_replay: bool = False
     # True overlaps replay sampling and the copy to the card with the
     # update through a background BatchPrefetcher (replay/staging.py);
@@ -121,10 +123,26 @@ class SACConfig:
     # clamps of the auto-tuned temperature after each alpha update
     alpha_max: Optional[float] = None
     alpha_min: Optional[float] = None
+    # DrQ-v2 random shift at update time (ops/augment.py): each sampled
+    # obs and next_obs (and the expert frames of the guided update) is
+    # replicate-padded by this many pixels and cropped back at a random
+    # per-sample offset; 0 trains on the raw replayed frames
+    aug_shift: int = 0
+    # False: the shifted frames feed only the TD target and the critic
+    # loss, the actor step sees the raw frames (DrQ-v2's routing)
+    aug_actor: bool = True
+    # the first aug_warmup updates see the raw frames
+    aug_warmup: int = 0
 
     def validate(self):
         if self.action_dim < 1 or self.pstate_dim < 1:
             raise ValueError("action_dim and pstate_dim must be positive")
+        if self.aug_shift < 0 or self.aug_warmup < 0:
+            raise ValueError("aug_shift and aug_warmup must be >= 0")
+        if (self.aug_warmup or not self.aug_actor) and self.aug_shift <= 0:
+            raise ValueError(
+                "aug_warmup/aug_actor only shape the DrQ shift augmentation;"
+                " they are silently inert without sac.aug_shift > 0")
         if not 0.0 < self.gamma <= 1.0:
             raise ValueError(f"gamma {self.gamma} outside (0, 1]")
         if not 0.0 < self.tau <= 1.0:

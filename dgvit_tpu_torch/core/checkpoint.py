@@ -36,8 +36,8 @@ def save_train_state(directory: str, step: int, state) -> str:
     """Write a whole `agents.sac.SACState` to directory/step_<N>/: the
     parameters of actor, critic and target, the three Adam states,
     `log_alpha`, `itera` and the state of the generator that draws dropout
-    masks and action noise (with it a resumed run reproduces the next
-    update). The file appears under its name only when complete."""
+    masks and action noise, and of the DrQ shifts' generator where the
+    state has one (with them a resumed run reproduces the next update). The file appears under its name only when complete."""
     path = Path(directory).absolute() / f"step_{step}"
     path.mkdir(parents=True, exist_ok=True)
     payload = {
@@ -47,6 +47,8 @@ def save_train_state(directory: str, step: int, state) -> str:
         "generator": state.generator.get_state(),
         "generator_device": str(state.generator.device),
     }
+    if getattr(state, "aug_generator", None) is not None:
+        payload["aug_generator"] = state.aug_generator.get_state()
     tmp = path / f"train_state.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path / "train_state.pt")
@@ -72,6 +74,9 @@ def restore_train_state(path: str, template):
     saved_on = torch.device(payload["generator_device"]).type
     if saved_on == template.generator.device.type:
         template.generator.set_state(payload["generator"])
+        aug = getattr(template, "aug_generator", None)
+        if aug is not None and "aug_generator" in payload:
+            aug.set_state(payload["aug_generator"])
     return template
 
 

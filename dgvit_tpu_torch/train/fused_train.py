@@ -7,7 +7,12 @@ batched env (`train/vec_rollout.make_collect_fn`, acting through K1),
 writes every transition into a replay ring that lives on the card
 (`DeviceRing`), then runs U updates (`SACAgent.learn`, or
 `learn_guidence` with an expert corpus staged on the card once) on
-uniform minibatches of the ring (K4, K2f/K2b, K3f/K3b). JAX runs R rounds
+uniform minibatches of the ring (K4, K2f/K2b, K3f/K3b). With
+`sac.prioritized_replay` the round keeps the ring's priorities on the card
+as well (`replay/device_per.py`): the new rows take the max priority, each
+update draws its minibatch in proportion to them (`per_sample`), runs
+`learn_per` (or `learn_guidence_per`) with the importance weights and
+gives the drawn rows |td| + 1e-6 (`per_update`). JAX runs R rounds
 as one dispatch; here Python drives each step and each update, and the
 host reads the card once a round (the stats), besides the reads `learn`
 itself makes.
@@ -15,18 +20,19 @@ itself makes.
 The replay semantics are the JAX loop's, which differ from the host
 trainer's on purpose: the ring stores every transition, each episode's
 first step included (the host loops skip it), sampling is uniform over
-the filled part, and the capacity is bounded by device memory (obs and
-next_obs take 2 x cap x H x W x 4 bytes: 1.34 GB for 8192 frames of
-128x160).
+the filled part (or proportional with PER), and the capacity is
+bounded by device memory (obs and next_obs take 2 x cap x H x W x 4
+bytes: 1.34 GB for 8192 frames of 128x160; the priorities 4 x cap bytes).
 
-Randomness: round r's collection noise and minibatch indices come from
+Randomness: round r's collection noise and minibatch draws come from
 a generator seeded `core.rng.step_key(seed, r)`, so a resumed run draws
 what it would have drawn without the restart; dropout masks and the
-update's action noise come from the train state's own generator.
+update's action noise come from the train state's own generator. PER's
+priorities are not saved: after a warm resume every restored row is back
+at the max priority, as cpprb's load_transitions leaves them.
 
-Not ported, raising NotImplementedError by name: `sac.prioritized_replay`
-(the on-device PER of `replay/device_per`), `fault_knobs` and `aug_prob`
-below 1 (the sensor-fault augmentation of `envs/fault_aug`).
+Not ported, raising NotImplementedError by name: `fault_knobs` and
+`aug_prob` below 1 (the sensor-fault augmentation of `envs/fault_aug`).
 """
 
 from __future__ import annotations
@@ -40,13 +46,16 @@ import numpy as np
 import torch
 
 from dgvit_tpu_torch.agents import SACAgent
-from dgvit_tpu_torch.agents.sac import SACState
+from dgvit_tpu_torch.agents.sac import PER_METRICS, PLAIN_METRICS, SACState
 from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.device import resolve_device
 from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.envs.vec_kinematic import (EnvConsts, make_consts,
                                                 vec_reset)
+from dgvit_tpu_torch.replay.device_per import (DevicePER, per_init,
+                                               per_on_write, per_sample,
+                                               per_update)
 from dgvit_tpu_torch.train.vec_rollout import (frame_stack_depth,
                                                make_collect_fn, stack_init)
 from dgvit_tpu_torch.utils import MetricsLogger
@@ -90,13 +99,18 @@ def ring_init(capacity: int, obs_shape: Tuple[int, ...], pdim: int = 2,
                       done=z())
 
 
+def ring_rows(ring: DeviceRing, n: int) -> torch.Tensor:
+    """The slots the next `n` rows written go to."""
+    return (torch.arange(n, device=ring.obs.device) + ring.cursor) \
+        % ring.capacity
+
+
 def ring_write(ring: DeviceRing, rows: Dict[str, torch.Tensor]
                ) -> DeviceRing:
     """Write N rows (a dict of (N, ...) tensors) at the cursor, in place,
     wrapping modulo the capacity."""
     n = rows["obs"].shape[0]
-    idx = (torch.arange(n, device=ring.obs.device) + ring.cursor) \
-        % ring.capacity
+    idx = ring_rows(ring, n)
     for f in RING_FIELDS:
         dst = getattr(ring, f)
         dst.index_copy_(0, idx, rows[f].to(dst.dtype).reshape(
@@ -157,8 +171,6 @@ def ring_load(path: str, like: DeviceRing) -> Optional[DeviceRing]:
     return like
 
 
-PLAIN_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
-                 "alpha", "entropy")
 GUIDED_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
                   "alpha", "n_expert", "guidence_weight")
 ROUND_STATS = ("reward_sum", "goals", "collisions", "episodes")
@@ -177,18 +189,27 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
                      l_scale: float, a_scale: float,
                      max_action: float = 1.0,
                      stride: Optional[int] = None,
-                     prioritized: bool = False, frame_stack: int = 0,
+                     prioritized: bool = False, beta: float = 0.4,
+                     frame_stack: int = 0,
                      guided: bool = False, fault_knobs=None,
                      aug_prob: float = 1.0, seed: int = 0):
-    """`run(state, env_carry, ring, rounds, expert=None, draws=None) ->
-    (state, env_carry, ring, stats)`: the rounds `rounds` (their indices,
+    """`run(state, env_carry, ring, rounds, expert=None, draws=None,
+    per=None) -> (state, env_carry, ring, stats)`, and the PER state after
+    them as a fifth element when `prioritized`: the rounds `rounds` (their
+    indices,
     e.g. range(done, done + R)), each [collect `chunk` steps of the
     `n_envs` lanes -> write every transition into the ring -> if the ring
     holds `batch_size` rows, `updates_per_round` updates]. The state and
     the ring are updated in place. stats: (R,) numpy arrays of each
     round's reward_sum, goals, collisions, episodes, buffer and the last
-    update's metrics in fp32 (zeros before the ring fills), with
-    skipped_nonfinite under sac.nan_guard.
+    update's metrics in fp32 (zeros before the ring fills; no entropy with
+    PER), with skipped_nonfinite under sac.nan_guard.
+
+    `prioritized` keeps `per` (a `DevicePER` of the ring's capacity,
+    required then, updated in place): each round's new rows take the max
+    priority; each update draws its rows by `per_sample` (IS exponent
+    `beta`), runs `learn_per` (`learn_guidence_per` when guided) with the
+    weights and gives the rows |td| + 1e-6 by `per_update`.
 
     `guided` runs every update through `learn_guidence` on a uniform
     expert minibatch of `expert` (a dict of (N, ...) tensors on the card
@@ -198,12 +219,9 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
 
     `draws`, one dict a round, replaces the round's random draws (tests):
     'act_noise' (T, B, A) action noise, 'ring_idx' (U, b) and
-    'expert_idx' (U, b) minibatch rows, 'update_noise' U pairs of
+    'expert_idx' (U, b) minibatch rows, 'per_u' (U, b) PER's uniform
+    draws (in place of 'ring_idx'), 'update_noise' U pairs of
     (next-action, policy) row noise for `learn`'s `noise`."""
-    if prioritized:
-        raise NotImplementedError(
-            "sac.prioritized_replay: the on-device PER round "
-            "(replay/device_per) is not ported yet")
     if aug_prob < 1.0:
         raise NotImplementedError(
             "aug_prob < 1: the gated sensor-fault augmentation "
@@ -212,34 +230,54 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
                               max_action=max_action, stride=stride,
                               frame_stack=frame_stack,
                               fault_knobs=fault_knobs)
-    keys = (GUIDED_METRICS if guided else PLAIN_METRICS) + (
+    keys = (GUIDED_METRICS if guided else
+            PER_METRICS if prioritized else PLAIN_METRICS) + (
         ("skipped_nonfinite",) if agent.nan_guard else ())
     dev = consts.device
 
-    def one_round(state, env_carry, ring, r, expert, d):
+    def one_round(state, env_carry, ring, r, expert, d, per):
         gen = generator(step_key(seed, r), dev)
         env_carry, traj = collect(state.actor, env_carry, gen,
                                   None if d is None else d["act_noise"])
-        ring_write(ring, {f: traj[f].reshape((-1,) + traj[f].shape[2:])
-                          for f in RING_FIELDS})
+        rows = {f: traj[f].reshape((-1,) + traj[f].shape[2:])
+                for f in RING_FIELDS}
+        if prioritized:
+            per_on_write(per, ring_rows(ring, rows["obs"].shape[0]))
+        ring_write(ring, rows)
         size = ring.size
         metrics = None
         if size >= batch_size:
             for u in range(updates_per_round):
                 noise = None if d is None else d["update_noise"][u]
-                batch = (ring_sample(ring, gen, batch_size) if d is None
-                         else ring_gather(ring, d["ring_idx"][u]))
+                if prioritized:
+                    idx, w = per_sample(per, gen, batch_size, size, beta,
+                                        u=None if d is None
+                                        else d["per_u"][u])
+                    batch = ring_gather(ring, idx)
+                else:
+                    batch = (ring_sample(ring, gen, batch_size) if d is None
+                             else ring_gather(ring, d["ring_idx"][u]))
                 if guided:
                     n_total = expert["obs"].shape[0]
                     eidx = (d["expert_idx"][u] if d is not None else
                             torch.randint(0, n_total, (batch_size,),
                                           generator=gen, device=dev))
                     batch["engage"] = torch.zeros_like(batch["done"])
-                    state, metrics = agent.learn_guidence(
-                        state, batch, {k: v[eidx] for k, v in expert.items()},
-                        expert_rows(n_total, size, batch_size), noise=noise)
+                    eb = {k: v[eidx] for k, v in expert.items()}
+                    n_exp = expert_rows(n_total, size, batch_size)
+                    if prioritized:
+                        state, metrics, td = agent.learn_guidence_per(
+                            state, batch, eb, n_exp, w, noise=noise)
+                    else:
+                        state, metrics = agent.learn_guidence(
+                            state, batch, eb, n_exp, noise=noise)
+                elif prioritized:
+                    state, metrics, td = agent.learn_per(state, batch, w,
+                                                         noise=noise)
                 else:
                     state, metrics = agent.learn(state, batch, noise=noise)
+                if prioritized:
+                    per_update(per, idx, td.abs() + 1e-6)
         on_card = [traj["rew"].sum(), traj["target"].sum(),
                    traj["collided"].sum(), traj["episode_end"].sum()]
         learnt = tuple(k for k in keys if k != "skipped_nonfinite")
@@ -257,18 +295,24 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
 
     def run(state: SACState, env_carry, ring: DeviceRing,
             rounds: Iterable[int], expert: Optional[Dict] = None,
-            draws: Optional[Sequence[Dict]] = None):
+            draws: Optional[Sequence[Dict]] = None,
+            per: Optional[DevicePER] = None):
         if guided and expert is None:
             raise ValueError("this round was built with guided=True; pass "
                              "the staged expert corpus")
+        if prioritized and per is None:
+            raise ValueError("this round was built with prioritized=True; "
+                             "pass the ring's DevicePER")
         rows = []
         for i, r in enumerate(rounds):
             state, env_carry, st = one_round(
                 state, env_carry, ring, int(r), expert,
-                None if draws is None else draws[i])
+                None if draws is None else draws[i], per)
             rows.append(st)
         stats = {k: np.asarray([row[k] for row in rows], np.float32)
                  for k in (rows[0] if rows else {})}
+        if prioritized:
+            return state, env_carry, ring, stats, per
         return state, env_carry, ring, stats
 
     return run
@@ -323,13 +367,16 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     many lane-episodes ended (`rounds` then caps it).
 
     `expert_glob` with train.pre_buffer: the demo corpus goes to the
-    device once and every update is the guided one.
+    device once and every update is the guided one. sac.prioritized_replay:
+    the ring's priorities live on the device beside it (the result's
+    'per'; None without PER).
 
     `resume`: the newest train-state checkpoint, the round, goal,
     collision and episode counters from the run's JSONL, and the ring from
     `ring_latest.npz` (written every `ring_snapshot_every` segments, and
-    at the end; 0 disables it) when its geometry matches. Lanes restart:
-    episodes in flight were never counted.
+    at the end; 0 disables it) when its geometry matches, its rows at the
+    max priority under PER. Lanes restart: episodes in flight were never
+    counted.
 
     A dead run, where every round of `dead_segments_abort` segments in a
     row ended on an update that sac.nan_guard rolled back, stops. Runs on
@@ -357,11 +404,12 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
             expert = stage_expert(data, fs, dev)
             print(f"[train_fused] expert corpus on the device: "
                   f"{expert['obs'].shape[0]} transitions", flush=True)
+    prioritized = bool(s.prioritized_replay)
     run = make_fused_round(agent, consts, n_envs, chunk, upr, s.batch_size,
                            l_scale=e.linear_cmd_scale,
                            a_scale=e.angular_cmd_scale,
                            max_action=e.max_action,
-                           prioritized=bool(s.prioritized_replay),
+                           prioritized=prioritized,
                            frame_stack=fs, guided=expert is not None,
                            fault_knobs=fault_knobs, aug_prob=aug_prob,
                            seed=t.seed)
@@ -371,6 +419,7 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
                      env_carry[2])
     ring = ring_init(cap, (fs, ih, iw) if fs else (ih, iw),
                      pdim=s.pstate_dim, device=dev)
+    per = per_init(cap, dev) if prioritized else None
 
     logger = MetricsLogger(out_dir, f"train_fused_{cfg.model.name}_{t.desc}")
     ckpt_dir = os.path.join(out_dir, t.checkpoint_dir)
@@ -390,6 +439,10 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
                 print("[train_fused] ring snapshot geometry mismatch: "
                       "cold-buffer resume", flush=True)
             else:
+                if prioritized:
+                    # priorities are not saved: the restored rows come
+                    # back at the max priority (cpprb's load_transitions)
+                    per_on_write(per, torch.arange(ring.size, device=dev))
                 print(f"[train_fused] warm ring: {ring.size} transitions "
                       f"restored", flush=True)
         last = logger.last()
@@ -401,9 +454,9 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
                   f" episodes={episodes} goals={goals}", flush=True)
     while done_rounds < rounds:
         seg = min(rounds_per_dispatch, rounds - done_rounds)
-        state, env_carry, ring, host = run(
+        state, env_carry, ring, host, *_ = run(
             state, env_carry, ring, range(done_rounds, done_rounds + seg),
-            expert)
+            expert, per=per)
         for i in range(seg):
             done_rounds += 1
             goals += int(host["goals"][i])
@@ -443,7 +496,7 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     return {"rounds": done_rounds, "env_steps": done_rounds * n_envs * chunk,
             "goals": goals, "collisions": collisions, "episodes": episodes,
             "updates": int(state.itera), "state": state, "ring": ring,
-            "aborted_dead": aborted_dead}
+            "per": per, "aborted_dead": aborted_dead}
 
 
 def main(argv=None):

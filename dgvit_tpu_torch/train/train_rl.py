@@ -23,11 +23,13 @@ update counter, let a run resume.
 
 Ported: the plain `learn` flavour with and without `sac.prefetch_batches`,
 the guided flavour (`learn_guidence`: the expert buffer and human
-intervention), `resume`, `save_replay`, `if_test`, `pre_train`, the online
-frame stack. Not ported yet, and raising NotImplementedError by name rather
-than running something else: `sac.prioritized_replay` (`learn_per`, and
-with the guided path `learn_guidence_per`), `--env replay|ros2`,
-`train_elastic`.
+intervention), `sac.prioritized_replay` (the C++ buffer's sum-tree PER:
+`learn_per`, or `learn_guidence_per` on the guided path, each followed by
+`update_priorities(|td| + 1e-6)`; it takes precedence over
+`prefetch_batches`, as in the JAX loop), `resume`, `save_replay`,
+`if_test`, `pre_train`, the online frame stack. Not ported yet, and
+raising NotImplementedError by name rather than running something else:
+`--env replay|ros2`, `train_elastic`.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.envs import Env, KinematicNavEnv
 from dgvit_tpu_torch.envs.replay_env import load_demo_npz
 from dgvit_tpu_torch.models.jax_io import params_to_jax
-from dgvit_tpu_torch.replay import (BatchPrefetcher, ReplayBuffer,
+from dgvit_tpu_torch.replay import (BatchPrefetcher,
+                                    PrioritizedReplayBuffer, ReplayBuffer,
                                     reference_schema)
 from dgvit_tpu_torch.replay.staging import HostStager
 from dgvit_tpu_torch.utils import MetricsLogger, RewardCurve
@@ -181,20 +184,6 @@ def evaluate(env: Env, agent: SACAgent, state, max_steps: int,
     return mean_r, col
 
 
-def _refuse_unported(cfg: Config, expert_glob, intervention) -> None:
-    if not cfg.sac.prioritized_replay:
-        return
-    t = cfg.train
-    if (t.pre_buffer and expert_glob) or (
-            t.human_intervention and intervention is not None):
-        raise NotImplementedError(
-            "sac.prioritized_replay with the guided update: the guided PER "
-            "update (learn_guidence_per) is not ported yet")
-    raise NotImplementedError(
-        "sac.prioritized_replay: the PER update (learn_per) is not ported "
-        "yet")
-
-
 def train(cfg: Config, env: Env, out_dir: str = "results",
           expert_glob: Optional[str] = None,
           max_episodes: Optional[int] = None, resume: bool = False,
@@ -210,11 +199,13 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
     its command overrides the policy's and is stored in policy units with
     engage = 1, and with train.human_intervention the updates are guided
     (an all-masked expert batch when there is no expert buffer).
+    With sac.prioritized_replay the agent's buffer is the sum-tree one:
+    each update takes its importance weights, and its |TD error| + 1e-6
+    goes back as the sampled rows' priorities.
     `timings`, when given, collects the host-clock seconds (synchronised)
     of each part of the loop under 'env', 'act', 'sample' (sampling and
     the copy to the device) and 'learn', with 'env_steps' and 'updates'
     counted beside them."""
-    _refuse_unported(cfg, expert_glob, intervention)
     t = cfg.train
     e = cfg.env
     s = cfg.sac
@@ -251,10 +242,13 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
     ih, iw = cfg.model.image_size
     stacker = _maybe_stacker(cfg)
     obs_shape = (e.frame_stack, ih, iw) if stacker else (ih, iw)
-    buf = ReplayBuffer(
+    buf_cls = PrioritizedReplayBuffer if s.prioritized_replay else ReplayBuffer
+    buf = buf_cls(
         s.buffer_size, reference_schema(obs_shape, s.action_dim, s.pstate_dim),
         seed=t.seed)
     if resumed_replay:
+        # with PER the rows come back through add(), at the max priority
+        # (cpprb's load_transitions)
         buf.load_transitions(resumed_replay)
     expert_buf, expert_size = (
         expert_buffer(cfg, expert_glob, obs_shape, stacker is not None)
@@ -290,9 +284,11 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
 
     def _guided_sample():
         """(agent batch, expert batch with its actions as 'act', valid
-        expert rows); without an expert buffer (intervention only) an
-        all-masked expert batch of zeros."""
+        expert rows, PER's importance weights and indexes or None); without
+        an expert buffer (intervention only) an all-masked expert batch of
+        zeros."""
         ab = buf.sample(s.batch_size)
+        w, idx = ab.pop("weights", None), ab.pop("indexes", None)
         if expert_buf is not None:
             k = agent.expert_batch_size(expert_size, buf.get_stored_size(),
                                         s.batch_size)
@@ -302,7 +298,7 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
             k = 0
             eb = {key: np.zeros_like(v) for key, v in ab.items()
                   if key != "engage"}
-        return ab, eb, k
+        return ab, eb, k, w, idx
 
     def actor_params():
         return params_to_jax(state.actor.state_dict())
@@ -360,18 +356,29 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
                         next_obs=next_obs, engage=engage, done=float(done))
                 if buf.get_stored_size() >= s.batch_size and guided:
                     t0 = time.perf_counter()
-                    ab, eb, k = _guided_sample()
+                    ab, eb, k, w, idx = _guided_sample()
                     ab, _ = stager.put(ab)
                     eb, _ = expert_stager.put(eb)
                     clock("sample", t0, sync=True)
                     t0 = time.perf_counter()
-                    state, metrics = agent.learn_guidence(state, ab, eb, k)
+                    if s.prioritized_replay:
+                        state, metrics, td = agent.learn_guidence_per(
+                            state, ab, eb, k, w)
+                        buf.update_priorities(
+                            idx, np.abs(td.float().cpu().numpy()) + 1e-6)
+                    else:
+                        state, metrics = agent.learn_guidence(state, ab, eb,
+                                                              k)
                     clock("learn", t0, sync=True)
                     if timings is not None:
                         timings["updates"] += 1
                 elif buf.get_stored_size() >= s.batch_size:
                     t0 = time.perf_counter()
-                    if s.prefetch_batches:
+                    if s.prioritized_replay:
+                        d = _plain_sample()
+                        w, idx = d.pop("weights"), d.pop("indexes")
+                        batch, _ = stager.put(d)
+                    elif s.prefetch_batches:
                         # a background thread samples the NEXT batch and
                         # copies it to the device while this step runs
                         if prefetcher is None:
@@ -382,7 +389,14 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
                         batch, _ = stager.put(_plain_sample())
                     clock("sample", t0, sync=True)
                     t0 = time.perf_counter()
-                    state, metrics = agent.learn(state, batch)
+                    if s.prioritized_replay:
+                        state, metrics, td = agent.learn_per(state, batch, w)
+                        # |TD error| + eps as the sampled rows' priorities
+                        # (standard PER; the reference stubs it out)
+                        buf.update_priorities(
+                            idx, np.abs(td.float().cpu().numpy()) + 1e-6)
+                    else:
+                        state, metrics = agent.learn(state, batch)
                     clock("learn", t0, sync=True)
                     if timings is not None:
                         timings["updates"] += 1

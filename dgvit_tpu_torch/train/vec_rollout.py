@@ -5,7 +5,8 @@ B lanes of the batched kinematic env (`envs/vec_kinematic.py`) for T
 steps, each step one action of the whole batch through the whole-trunk
 kernel K1 (`SACAgent.act_batch`), and returns the (T, B, ...)
 transitions; nothing in it waits on the card. `train_vec` feeds them to
-the host C++ replay buffer and `SACAgent.learn`.
+the host C++ replay buffer and `SACAgent.learn` (with
+`sac.prioritized_replay`, the sum-tree buffer and `learn_per`).
 
 The reference's per-lane quirks are kept: actions are stored in policy
 units and the env is stepped in command units (a_in = [(a0+1)*L_SCALE,
@@ -14,7 +15,7 @@ a1*A_SCALE]); the first step of each episode is marked not to store
 and is masked out with it.
 
 Not ported: `fault_knobs` (the sensor-fault augmentation of
-`envs/fault_aug`) and `sac.prioritized_replay`, which raise by name.
+`envs/fault_aug`), which raises by name.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.envs.vec_kinematic import (EnvConsts, make_consts,
                                                 vec_reset, vec_step)
-from dgvit_tpu_torch.replay import ReplayBuffer, reference_schema
+from dgvit_tpu_torch.replay import (PrioritizedReplayBuffer, ReplayBuffer,
+                                    reference_schema)
 from dgvit_tpu_torch.utils import MetricsLogger
 
 
@@ -145,7 +147,9 @@ def train_vec(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     """SAC on the batched env: each chunk of B x T steps is collected on
     the card (K1), its stored transitions go to the host replay buffer,
     then `updates_per_chunk` updates (by default one per stored step, the
-    reference's cadence) run through `SACAgent.learn`. Channels-mode
+    reference's cadence) run through `SACAgent.learn`, or with
+    sac.prioritized_replay through `learn_per` on the sum-tree buffer,
+    whose sampled rows then take |td| + 1e-6 as priorities. Channels-mode
     actors take the frame stack (env.use_frame_stack). Runs on the card
     unless device='cpu'.
 
@@ -156,10 +160,6 @@ def train_vec(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     it stopped and `total_env_steps` counts the whole run; the host
     replay buffer starts empty and lanes restart."""
     t, e, s = cfg.train, cfg.env, cfg.sac
-    if s.prioritized_replay:
-        raise NotImplementedError(
-            "sac.prioritized_replay: the PER update (learn_per) is not "
-            "ported yet")
     fs = frame_stack_depth(cfg, "train_vec")
     agent = SACAgent(cfg, device=device, seed=t.seed)
     state = agent.init_state(t.seed)
@@ -185,7 +185,8 @@ def train_vec(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     lanes, obs, goal = vec_reset(consts, n_envs)
     carry = (lanes, stack_init(obs, fs) if fs else obs, goal)
     obs_shape = (fs, ih, iw) if fs else (ih, iw)
-    buf = ReplayBuffer(s.buffer_size, reference_schema(
+    buf_cls = PrioritizedReplayBuffer if s.prioritized_replay else ReplayBuffer
+    buf = buf_cls(s.buffer_size, reference_schema(
         obs_shape, s.action_dim, s.pstate_dim), seed=t.seed)
 
     n_chunk, env_steps, goals, collisions, episodes = (
@@ -209,7 +210,13 @@ def train_vec(cfg: Config, out_dir: str = "results", n_envs: int = 16,
             for _ in range(n_upd):
                 d = buf.sample(s.batch_size)
                 d.pop("engage", None)
-                state, metrics = agent.learn(state, d)
+                if s.prioritized_replay:
+                    w, idx = d.pop("weights"), d.pop("indexes")
+                    state, metrics, td = agent.learn_per(state, d, w)
+                    buf.update_priorities(
+                        idx, np.abs(td.float().cpu().numpy()) + 1e-6)
+                else:
+                    state, metrics = agent.learn(state, d)
         n_chunk += 1
         sac_m = {k: float(v) for k, v in metrics.items()
                  if k in ("alpha", "policy_loss", "qf1_loss", "qf2_loss",

@@ -15,11 +15,14 @@ round's stats must match (counts exactly, sums and metrics within rtol
 the parameters after it under test_torch_sac.py's two-level check: nearly
 every element within atol 5e-6 / rtol 1e-4 and every element within 2.2
 x lr per update (a near-zero gradient element may flip its Adam step).
-The plain and the guided round both.
+The plain and the guided round both, and both again with on-device PER
+(JAX's uniform draws of `per_sample` injected as well): the priorities
+after the round within rtol 1e-4 / atol 1e-6 of JAX's (each |td| is
+within the metrics' tolerance), the running max within rtol 1e-4.
 
-The end-to-end runs mirror tests/test_fused_train.py (not its PER or
-sharded cases) and tests/test_jax_kinematic.py's train_vec and
-run_eval_vec cases; the flavours that are not ported raise by name.
+The end-to-end runs mirror tests/test_fused_train.py (not its sharded
+cases) and tests/test_jax_kinematic.py's train_vec and run_eval_vec
+cases; the flavours that are not ported raise by name.
 """
 
 import json
@@ -33,6 +36,7 @@ import torch
 from dgvit_tpu.agents.sac import SACAgent as JaxSACAgent
 from dgvit_tpu.config import Config as JaxConfig
 from dgvit_tpu.envs import jax_kinematic as jk
+from dgvit_tpu.replay import device_per as jper
 from dgvit_tpu.train import fused_train as jft
 from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config
@@ -40,6 +44,7 @@ from dgvit_tpu_torch.envs import KinematicNavEnv
 from dgvit_tpu_torch.envs import vec_kinematic as vk
 from dgvit_tpu_torch.envs.kinematic import default_records
 from dgvit_tpu_torch.models.jax_io import params_from_jax, sac_state_from_jax
+from dgvit_tpu_torch.replay.device_per import per_init
 from dgvit_tpu_torch.train import evaluate as port_evaluate
 from dgvit_tpu_torch.train import fused_train as ft
 from dgvit_tpu_torch.train import vec_rollout as vr
@@ -199,21 +204,25 @@ def row_noise(jagent, rng, itera, rows, n_split):
         jax.random.split(keys[i], 3)[0], rows, a)) for i in (0, 2))
 
 
-def jax_draws(jagent, state, rng, size, guided):
-    """The draws of JAX's first round (fused_train.py:198, :262-265 and
+def jax_draws(jagent, state, rng, size, guided, prioritized=False):
+    """The draws of JAX's first round (fused_train.py:198, :247-265 and
     the update's row noise)."""
     _, k_coll, k_upd = jax.random.split(rng, 3)
     act = np.stack([np.array(jagent._row_noise_draw(
         jax.random.split(jax.random.fold_in(k_coll, t))[0], LANES, 2))
         for t in range(CHUNK)])
-    ring_idx, expert_idx, noise = [], [], []
+    ring_idx, expert_idx, per_u, noise = [], [], [], []
     for u, k in enumerate(jax.random.split(k_upd, UPDATES)):
-        if guided:
+        if prioritized:
+            ks, ke, _ = jax.random.split(k, 3)
+            per_u.append(np.array(jax.random.uniform(ks, (BATCH,))))
+        elif guided:
             ks, ke = jax.random.split(k)
-            expert_idx.append(np.array(jax.random.randint(
-                ke, (BATCH,), 0, N_EXPERT)))
         else:
             ks = k
+        if guided:
+            expert_idx.append(np.array(jax.random.randint(
+                ke, (BATCH,), 0, N_EXPERT)))
         ring_idx.append(np.array(jax.random.randint(ks, (BATCH,), 0, size)))
         noise.append(row_noise(jagent, state.rng, int(state.itera) + u,
                                2 * BATCH if guided else BATCH,
@@ -221,6 +230,7 @@ def jax_draws(jagent, state, rng, size, guided):
     t = lambda x: torch.from_numpy(np.asarray(x))
     return {"act_noise": t(act), "ring_idx": t(ring_idx),
             "expert_idx": t(expert_idx) if guided else None,
+            "per_u": t(per_u) if prioritized else None,
             "update_noise": [tuple(t(n) for n in pair) for pair in noise]}
 
 
@@ -233,8 +243,9 @@ def expert_corpus(tmp_path):
 
 @pytest.fixture(scope="module")
 def rounds(tmp_path_factory):
-    """JAX's first fused round, plain and guided, from a carried state,
-    and the port's with JAX's draws."""
+    """JAX's first fused round, plain and guided, each with uniform and
+    with prioritized replay, from a carried state, and the port's with
+    JAX's draws."""
     jcfg = JaxConfig.from_dict(cfg_dict(sac={"guidence_weight": 3.0}))
     jagent = JaxSACAgent(jcfg, row_noise=True)
     batch = {k: v for k, v in rows_of(9, 6).items()}
@@ -250,34 +261,42 @@ def rounds(tmp_path_factory):
     agent = SACAgent(tiny(sac={"guidence_weight": 3.0}), device="cpu")
     rng = jax.random.PRNGKey(11)
     out = {}
-    for guided in (False, True):
+    for guided, per in FLAVOURS:
         jrun = jft.make_fused_round(jagent, jconsts, LANES, CHUNK, UPDATES,
-                                    BATCH, 0.25, 1.0, guided=guided)
+                                    BATCH, 0.25, 1.0, guided=guided,
+                                    prioritized=per)
         st = jax.tree_util.tree_map(jnp.asarray, carried)
-        draws = jax_draws(jagent, st, rng, LANES * CHUNK, guided)
-        js, jcarry, jring, jstats = jrun(
-            st, jk.vec_reset(jconsts, LANES), jft.ring_init(CAP, HW), rng,
-            jnp.arange(1), None, jexpert if guided else None)
+        draws = jax_draws(jagent, st, rng, LANES * CHUNK, guided, per)
+        res = jrun(st, jk.vec_reset(jconsts, LANES), jft.ring_init(CAP, HW),
+                   rng, jnp.arange(1), jper.per_init(CAP) if per else None,
+                   jexpert if guided else None)
         run = ft.make_fused_round(agent, consts, LANES, CHUNK, UPDATES,
-                                  BATCH, 0.25, 1.0, guided=guided)
-        state, carry, ring, stats = run(
-            sac_state_from_jax(agent, carried), vk.vec_reset(consts, LANES),
-            ft.ring_init(CAP, HW, device="cpu"), [0],
-            expert if guided else None, [draws])
-        out[guided] = dict(
+                                  BATCH, 0.25, 1.0, guided=guided,
+                                  prioritized=per)
+        got = run(sac_state_from_jax(agent, carried),
+                  vk.vec_reset(consts, LANES),
+                  ft.ring_init(CAP, HW, device="cpu"), [0],
+                  expert if guided else None, [draws],
+                  per=per_init(CAP, "cpu") if per else None)
+        js, jcarry, jring, jstats = res[:4]
+        state, carry, ring, stats = got[:4]
+        out[guided, per] = dict(
             jax=jax.tree_util.tree_map(np.asarray, js), port=state,
             jstats={k: np.asarray(v) for k, v in jstats.items()},
-            stats=stats, jring=jring, ring=ring, jcarry=jcarry, carry=carry)
+            stats=stats, jring=jring, ring=ring, jcarry=jcarry, carry=carry,
+            jper=res[4] if per else None, per=got[4] if per else None)
     return out
 
 
-FLAVOURS = [False, True]
-FLAVOUR_IDS = ["plain", "guided"]
+FLAVOURS = [(False, False), (True, False), (False, True), (True, True)]
+FLAVOUR_IDS = ["plain", "guided", "plain-per", "guided-per"]
 
 
 @pytest.mark.parametrize("guided", FLAVOURS, ids=FLAVOUR_IDS)
 def test_round_stats_match_jax(rounds, guided):
     r = rounds[guided]
+    if guided[1]:
+        assert "entropy" not in r["stats"]
     stats, jstats = r["stats"], r["jstats"]
     assert set(stats) == set(jstats)
     for k in ("goals", "collisions", "episodes", "buffer"):
@@ -286,8 +305,21 @@ def test_round_stats_match_jax(rounds, guided):
         np.testing.assert_allclose(stats[k], jstats[k], err_msg=k,
                                    **STAT_TOL)
     assert stats["buffer"][0] == LANES * CHUNK
-    if guided:
+    if guided[0]:
         assert stats["n_expert"][0] == 3.0
+
+
+@pytest.mark.parametrize("guided", FLAVOURS[2:], ids=FLAVOUR_IDS[2:])
+def test_round_priorities_match_jax(rounds, guided):
+    """The round's new rows at the max priority, then every update's rows
+    at (|td| + 1e-6)^0.6: JAX's state after the round."""
+    per, jp = rounds[guided]["per"], rounds[guided]["jper"]
+    np.testing.assert_allclose(per.prios.numpy(), np.asarray(jp.prios),
+                               rtol=1e-4, atol=1e-6)
+    assert per.max_p.item() == pytest.approx(float(jp.max_p), rel=1e-4)
+    written = per.prios.numpy()[:LANES * CHUNK]
+    assert (per.prios.numpy()[LANES * CHUNK:] == 0).all()
+    assert len(np.unique(written)) > 1      # the updates moved some rows
 
 
 @pytest.mark.parametrize("guided", FLAVOURS, ids=FLAVOUR_IDS)
@@ -433,13 +465,19 @@ def test_dead_run_detector_aborts(tmp_path):
     assert out["rounds"] < 40
 
 
-@pytest.mark.parametrize("flavour", ["per", "fault_knobs", "aug_prob"])
+@pytest.mark.parametrize("flavour", ["launcher_aug", "fault_knobs",
+                                     "aug_prob"])
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
     cfg, kw = tiny(), {}
-    if flavour == "per":
-        cfg.sac.prioritized_replay = True
-        match = "prioritized_replay"
-    elif flavour == "fault_knobs":
+    if flavour == "launcher_aug":
+        from dgvit_tpu_torch.examples import reference_scale_run as rsr
+
+        with pytest.raises(NotImplementedError, match="--aug"):
+            rsr.main(["--fused", "--aug", "patch_occlusion=0.25",
+                      "--device", "cpu", "--out", str(tmp_path)], base=cfg)
+        assert not list(tmp_path.glob("*.jsonl"))
+        return
+    if flavour == "fault_knobs":
         kw["fault_knobs"] = {"obs_noise": 0.2}
         match = "fault_knobs"
     else:
@@ -447,10 +485,79 @@ def test_unported_flavours_raise_by_name(tmp_path, flavour):
         match = "aug_prob"
     with pytest.raises(NotImplementedError, match=match):
         fused(tmp_path, cfg, **kw)
-    if flavour == "per":
-        with pytest.raises(NotImplementedError, match="prioritized_replay"):
-            vr.train_vec(cfg, out_dir=str(tmp_path), n_envs=2, chunk=6,
-                         total_env_steps=12, device="cpu")
+
+
+def per_cfg(**over):
+    cfg = tiny(**over)
+    cfg.sac.prioritized_replay = True
+    return cfg
+
+
+def test_train_fused_prioritized(tmp_path):
+    """Mirrors tests/test_device_per.py's train_fused_prioritized: the run
+    ends with every written row's priority set and some moved off the
+    write-time max by the updates."""
+    out = fused(tmp_path, per_cfg(env={"max_steps": 10}), rounds=4,
+                rounds_per_dispatch=2, updates_per_round=2)
+    assert out["rounds"] == 4 and out["updates"] == 8
+    prios = out["per"].prios.numpy()
+    assert (prios[:48] > 0).all() and (prios[48:] == 0).all()
+    assert len(np.unique(prios[:48])) > 1
+    assert out["per"].max_p.item() >= 1.0
+    rows = jsonl_rows(tmp_path, "train_fused")
+    assert all(np.isfinite(r["qf1_loss"]) for r in rows)
+
+
+def test_train_fused_warm_ring_resume_per(tmp_path):
+    """Mirrors tests/test_fused_train.py:121: after a warm resume under PER
+    the restored rows come back at the max priority (1 here: the first
+    run's max is not saved) and the run goes on."""
+    cfg = per_cfg(env={"max_steps": 4}, train={"save": True})
+    out1 = fused(tmp_path, cfg, rounds=1, rounds_per_dispatch=1,
+                 ring_snapshot_every=1)
+    assert (tmp_path / "checkpoints" / "ring_latest.npz").exists()
+    seen = {}
+    real = ft.per_on_write
+
+    def spy(per, idx):
+        seen.setdefault("first", (per.prios.clone(), idx.clone()))
+        return real(per, idx)
+
+    ft.per_on_write = spy
+    try:
+        out2 = fused(tmp_path, cfg, rounds=2, rounds_per_dispatch=1,
+                     resume=True, ring_snapshot_every=0)
+    finally:
+        ft.per_on_write = real
+    before, idx = seen["first"]
+    assert torch.equal(idx, torch.arange(12)) and (before == 0).all()
+    assert out2["rounds"] == 2 and out2["updates"] > out1["updates"]
+    assert (out2["per"].prios.numpy()[:24] > 0).all()
+
+
+def test_train_vec_prioritized(tmp_path, monkeypatch):
+    """train_vec with PER: the host sum-tree buffer, learn_per, and the
+    sampled rows' priorities updated after each update."""
+    from dgvit_tpu_torch.replay import PrioritizedReplayBuffer
+
+    calls = []
+    real = PrioritizedReplayBuffer.update_priorities
+
+    def spy(self, idx, prios):
+        calls.append((np.asarray(idx).copy(), np.asarray(prios).copy()))
+        return real(self, idx, prios)
+
+    monkeypatch.setattr(PrioritizedReplayBuffer, "update_priorities", spy)
+    cfg = per_cfg(sac={"buffer_size": 256, "nan_guard": True},
+                  env={"max_steps": 10})
+    out = vr.train_vec(cfg, out_dir=str(tmp_path), n_envs=2, chunk=6,
+                       total_env_steps=24, updates_per_chunk=2, device="cpu")
+    assert out["updates"] == len(calls) >= 2
+    for idx, prios in calls:
+        assert idx.shape == prios.shape == (BATCH,)
+        assert np.isfinite(prios).all() and (prios >= 1e-6).all()
+    rows = jsonl_rows(tmp_path, "train_vec")
+    assert "entropy" not in rows[-1] and np.isfinite(rows[-1]["qf1_loss"])
 
 
 def test_train_vec(tmp_path):

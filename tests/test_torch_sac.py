@@ -15,6 +15,10 @@ Tolerances (fp32, another summation order on each side):
     about lr * sign(g) where the moments are young, so a gradient element
     near zero may flip its step.
 
+The PER flavours (`learn_per`, `learn_guidence_per`) are held the same
+way from the same carried state with importance weights, their per-row
+|TD errors| within the metrics' tolerance.
+
 The port's fp32 update at the flagship width is also held to a golden
 file of the JAX update (tests/data/torch_sac_golden.npz), which
 chip_smoke.py holds the CUDA kernels' update to, and the guided update
@@ -522,6 +526,145 @@ def test_guidence_weight_curriculum(itera, want):
     batch, expert = guided_batches(80, engage=False)
     _, m = agent.learn_guidence(state, batch, expert, 2)
     assert float(m["guidence_weight"]) == pytest.approx(want, rel=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the PER flavours (learn_per, learn_guidence_per)
+# --------------------------------------------------------------------------
+
+PER_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss", "alpha")
+PER_W = np.linspace(0.3, 1.7, B).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def per_updates():
+    """One JAX PER update, plain and guided (4 valid expert rows, some
+    engage rows), from a carried state with importance weights PER_W, and
+    the same updates in the port with JAX's row noise."""
+    jagent = JaxSACAgent(JaxConfig.from_dict({"model": SMALL}),
+                         row_noise=True)
+    s1, _ = jagent.learn(jagent.init_state(3), make_batch(1))
+    carried = as_numpy(s1)
+    agent = SACAgent(Config.from_dict({"model": SMALL}), device="cpu")
+    out = {}
+    st = jax.tree_util.tree_map(jnp.asarray, carried)
+    batch = make_batch(2)
+    noise = step_noise(jagent, st, B)
+    s2, jm, jtd = jagent.learn_per(st, batch, PER_W)
+    state, pm, td = agent.learn_per(sac_state_from_jax(agent, carried),
+                                    batch, PER_W, noise=noise)
+    out["plain"] = dict(jax=as_numpy(s2), jm=jm, jtd=np.asarray(jtd),
+                        port=state, pm=pm, td=td)
+    st = jax.tree_util.tree_map(jnp.asarray, carried)
+    batch, expert = guided_batches(90, engage=True)
+    noise = guided_noise(jagent, st, 2 * B)
+    s2, jm, jtd = jagent.learn_guidence_per(st, batch, expert, 4, PER_W)
+    state, pm, td = agent.learn_guidence_per(
+        sac_state_from_jax(agent, carried), batch, expert, 4, PER_W,
+        noise=noise)
+    out["guided"] = dict(jax=as_numpy(s2), jm=jm, jtd=np.asarray(jtd),
+                         port=state, pm=pm, td=td)
+    return out
+
+
+@pytest.mark.parametrize("flavour", ["plain", "guided"])
+def test_per_metrics_and_td_match_jax(per_updates, flavour):
+    r = per_updates[flavour]
+    want = PER_METRICS if flavour == "plain" else GUIDED_METRICS
+    assert set(r["pm"]) == set(want) == set(r["jm"])
+    for k in want:
+        np.testing.assert_allclose(float(r["pm"][k]), float(r["jm"][k]),
+                                   err_msg=k, **TOL)
+    assert r["td"].shape == (B,) and r["td"].dtype == torch.float32
+    np.testing.assert_allclose(r["td"].numpy(), r["jtd"], **TOL)
+
+
+@pytest.mark.parametrize("which", ["actor", "critic", "critic_target"])
+@pytest.mark.parametrize("flavour", ["plain", "guided"])
+def test_per_params_after_update_match_jax(per_updates, flavour, which):
+    r = per_updates[flavour]
+    two_level_close(dict(getattr(r["port"], which).named_parameters()),
+                    params_from_jax(getattr(r["jax"], f"{which}_params")))
+    np.testing.assert_allclose(r["port"].log_alpha.item(),
+                               float(r["jax"].log_alpha), **TOL)
+    assert r["port"].itera == int(r["jax"].itera) == 2
+
+
+def test_per_update_returns_td_errors_and_weights_matter():
+    """Mirrors tests/test_sac.py:229: unit weights give the plain update's
+    critic loss (the same update: the same draws), other weights another;
+    the TD errors are per row and non-negative."""
+    agent = small_agent()
+    batch = make_batch(20)
+    s1, m1, td = agent.learn_per(agent.init_state(), batch, np.ones(B))
+    assert td.shape == (B,) and bool((td >= 0).all())
+    s2, m2 = agent.learn(agent.init_state(), batch)
+    assert float(m1["qf1_loss"]) == float(m2["qf1_loss"])
+    for a, b in zip(s1.critic.parameters(), s2.critic.parameters()):
+        assert torch.equal(a, b)
+    _, m3, _ = agent.learn_per(agent.init_state(), batch,
+                               np.linspace(0.1, 2.0, B))
+    assert float(m3["qf1_loss"]) != pytest.approx(float(m1["qf1_loss"]),
+                                                  rel=1e-6)
+
+
+def bad_batch(seed):
+    b = make_batch(seed)
+    b["rew"] = np.full((B, 1), np.inf, np.float32)
+    return b
+
+
+def test_nan_guard_covers_guided_and_per_steps():
+    """Mirrors tests/test_sac.py:275: the guided and the PER update roll a
+    non-finite step back."""
+    agent = small_agent(nan_guard=True)
+    state = agent.init_state()
+    before = snapshot(state.actor)
+    expert = {k: v for k, v in make_batch(21).items()}
+    bad = dict(bad_batch(22), engage=np.zeros((B, 1), np.float32))
+    state, m = agent.learn_guidence(state, bad, expert, 2)
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert not changed(before, state.actor)
+    state, m, _ = agent.learn_per(state, bad_batch(23), np.ones(B))
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert not changed(before, state.actor) and state.itera == 2
+    state, m, _ = agent.learn_guidence_per(state, bad, expert, 2,
+                                           np.ones(B))
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert not changed(before, state.actor) and state.itera == 3
+
+
+def test_nan_guard_per_td_errors_stay_finite():
+    """Mirrors tests/test_sac.py:303: a rolled-back PER step reports
+    finite priorities."""
+    agent = small_agent(nan_guard=True)
+    _, m, td = agent.learn_per(agent.init_state(), bad_batch(30),
+                               np.ones(B))
+    assert float(m["skipped_nonfinite"]) == 1.0
+    assert bool(torch.isfinite(td).all())
+    np.testing.assert_array_equal(td.numpy(), np.ones(B, np.float32))
+
+
+def test_nan_guard_neutral_priority_is_scale_aware():
+    """Mirrors tests/test_sac.py:316: with half the batch poisoned, a
+    rolled-back step's neutral priority is the mean of the finite |td|
+    (rewards at the reference's +-200 scale, so it is far from 1)."""
+    half_bad = make_batch(31)
+    rew = np.full((B, 1), 200.0, np.float32)
+    rew[: B // 2] = np.inf
+    half_bad["rew"] = rew
+    raw = small_agent()
+    _, _, td_raw = raw.learn_per(raw.init_state(), half_bad, np.ones(B))
+    td_raw = td_raw.numpy()
+    finite = np.isfinite(td_raw)
+    assert finite.any() and not finite.all()
+    expected = np.abs(td_raw[finite]).mean()
+    assert expected > 1.0
+    guarded = small_agent(nan_guard=True)
+    _, m, td = guarded.learn_per(guarded.init_state(), half_bad, np.ones(B))
+    assert float(m["skipped_nonfinite"]) == 1.0
+    np.testing.assert_allclose(td.numpy(), np.full(B, expected, np.float32),
+                               rtol=1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,12 @@ tested for its contract: it runs end to end, skips a bad initialization,
 starts learning when the buffer holds `batch_size` transitions, triggers
 evaluation and saves under the reference's file names, resumes so that the
 next update is reproduced bit for bit, and refuses the flavours that are
-not ported. Deterministic runs can agree and are compared: `run_eval` and
+not ported. The prioritized-replay steps of the loop (sample with
+importance weights, `learn_per` or `learn_guidence_per`, the priority
+update) are held to JAX's on the same transitions in the same C++
+buffer: the same rows drawn, |TD errors| within rtol 1e-4 / atol 1e-5,
+and after the steps a draw of 64 rows gives JAX's rows and weights
+within rtol 1e-4. Deterministic runs can agree and are compared: `run_eval` and
 the trainer's `evaluate` with an actor carried over from JAX give the JAX
 package's episode lengths, successes and collisions, and episode rewards
 within 1e-3 (fp32 on both sides; actions differ by ~1e-6, which moves a
@@ -330,34 +335,152 @@ def test_frame_stacked_loop(tmp_path):
     assert stacker.push(b).shape == (3, 2, 2)
 
 
-@pytest.mark.parametrize("flavour", ["prioritized_replay",
-                                     "guided_prioritized_replay",
-                                     "train_elastic", "env_replay",
+@pytest.mark.parametrize("flavour", ["train_elastic", "env_replay",
                                      "env_ros2", "reference_config"])
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
     cfg = tiny_cfg()
-    kw = {}
-    if flavour == "prioritized_replay":
-        cfg.sac.prioritized_replay = True
-    elif flavour == "guided_prioritized_replay":
-        cfg.sac.prioritized_replay = True
-        cfg.train.pre_buffer = True
-        kw["expert_glob"] = "Data/*.npz"
     word = {"env_replay": "--env replay", "env_ros2": "--env ros2",
-            "reference_config": "--reference-config",
-            "guided_prioritized_replay": "learn_guidence_per"}.get(
-                flavour, flavour)
+            "reference_config": "--reference-config"}.get(flavour, flavour)
     with pytest.raises(NotImplementedError, match=word):
         if flavour == "train_elastic":
             train_rl.train_elastic(cfg, lambda: None)
         elif flavour.startswith("env_"):
             train_rl.main(["--env", flavour[4:], "--device", "cpu",
                            "--out", str(tmp_path)])
-        elif flavour == "reference_config":
-            train_rl.main(["--reference-config", "config.yaml"])
         else:
-            run(cfg, tmp_path, max_episodes=1, **kw)
+            train_rl.main(["--reference-config", "config.yaml"])
     assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
+
+
+# --------------------------------------------------------------------------
+# prioritized replay in the host loop
+# --------------------------------------------------------------------------
+
+def per_transitions(n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.uniform(0, 1, sh).astype(np.float32)
+    return {"obs": f(n, *HW), "act": rng.uniform(-1, 1, (n, 2)).astype(
+                np.float32), "pobs": f(n, 2), "next_pobs": f(n, 2),
+            "rew": rng.normal(0, 5, n).astype(np.float32),
+            "next_obs": f(n, *HW), "engage": np.zeros(n, np.float32),
+            "done": (rng.uniform(size=n) < 0.2).astype(np.float32)}
+
+
+def jax_step_noise(jagent, state, rows, n_split):
+    key = jax.random.fold_in(state.rng, state.itera)
+    keys = jax.random.split(key, n_split)
+    return tuple(np.array(jagent._row_noise_draw(
+        jax.random.split(keys[i], 3)[0], rows, 2)) for i in (0, 2))
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+def test_host_per_steps_match_jax(guided):
+    """Three of the loop's PER steps on the same 24 transitions in the
+    port's and the JAX package's C++ buffers (same seed): each step draws
+    the same rows, the update's |TD errors| (which become the rows'
+    priorities) agree, and a draw after them gives the same rows and
+    importance weights: the priorities agree."""
+    from dgvit_tpu.replay.buffer import PrioritizedReplayBuffer as JaxPER
+    from dgvit_tpu_torch.replay import (PrioritizedReplayBuffer,
+                                        reference_schema)
+
+    d = dict(TINY, model=dict(TINY["model"], emb_dropout=0.0),
+             sac=dict(TINY["sac"], prioritized_replay=True))
+    cfg, jcfg = Config.from_dict(d), JaxConfig.from_dict(d)
+    schema = reference_schema(HW, 2, 2)
+    buf, jbuf = PrioritizedReplayBuffer(64, schema, seed=5), \
+        JaxPER(64, schema, seed=5)
+    rows = per_transitions(24, 0)
+    buf.add(**rows)
+    jbuf.add(**rows)
+    expert = {k: v.reshape(4, -1) if k in ("rew", "done") else v
+              for k, v in per_transitions(4, 1).items() if k != "engage"}
+    jagent = JaxSACAgent(jcfg, row_noise=True)
+    jstate = jagent.init_state(3)
+    agent = SACAgent(cfg, device="cpu")
+    state = sac_state_from_jax(agent, jax.tree_util.tree_map(np.asarray,
+                                                             jstate))
+    bs = cfg.sac.batch_size
+    for _ in range(3):
+        d_, jd = buf.sample(bs), jbuf.sample(bs)
+        np.testing.assert_array_equal(d_["indexes"], jd["indexes"])
+        np.testing.assert_allclose(d_["weights"], jd["weights"], rtol=1e-4)
+        w, idx = d_.pop("weights"), d_.pop("indexes")
+        jw = jd.pop("weights")
+        jidx = jd.pop("indexes")
+        if guided:
+            noise = jax_step_noise(jagent, jstate, 2 * bs, 5)
+            jstate, _, jtd = jagent.learn_guidence_per(
+                jstate, jd, expert, 2, jw)
+            state, _, td = agent.learn_guidence_per(state, d_, expert, 2, w,
+                                                    noise=noise)
+        else:
+            d_.pop("engage")
+            jd.pop("engage")
+            noise = jax_step_noise(jagent, jstate, bs, 3)
+            jstate, _, jtd = jagent.learn_per(jstate, jd, jw)
+            state, _, td = agent.learn_per(state, d_, w, noise=noise)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jtd), rtol=1e-4,
+                                   atol=1e-5)
+        buf.update_priorities(idx, np.abs(td.numpy()) + 1e-6)
+        jbuf.update_priorities(jidx, np.abs(np.asarray(jtd)) + 1e-6)
+    after, jafter = buf.sample(64), jbuf.sample(64)
+    np.testing.assert_array_equal(after["indexes"], jafter["indexes"])
+    np.testing.assert_allclose(after["weights"], jafter["weights"],
+                               rtol=1e-4)
+    assert len(np.unique(after["weights"])) > 1
+
+
+def spy_per(monkeypatch):
+    """Count learn_per / learn_guidence_per and the priority updates."""
+    from dgvit_tpu_torch.replay import PrioritizedReplayBuffer
+
+    calls = {"per": 0, "guided_per": 0, "priorities": []}
+    per, gper = SACAgent.learn_per, SACAgent.learn_guidence_per
+    upd = PrioritizedReplayBuffer.update_priorities
+
+    def spy_learn(self, *a, **k):
+        calls["per"] += 1
+        return per(self, *a, **k)
+
+    def spy_guided(self, *a, **k):
+        calls["guided_per"] += 1
+        return gper(self, *a, **k)
+
+    def spy_upd(self, idx, prios):
+        calls["priorities"].append(np.asarray(prios).copy())
+        return upd(self, idx, prios)
+
+    monkeypatch.setattr(SACAgent, "learn_per", spy_learn)
+    monkeypatch.setattr(SACAgent, "learn_guidence_per", spy_guided)
+    monkeypatch.setattr(PrioritizedReplayBuffer, "update_priorities",
+                        spy_upd)
+    return calls
+
+
+@pytest.mark.parametrize("flavour", ["plain", "prefetch", "guided"])
+def test_per_training_loop_runs(tmp_path, monkeypatch, flavour):
+    """train() with sac.prioritized_replay: every update is learn_per
+    (PER takes precedence over prefetch_batches, as in the JAX loop's
+    order) or, with the expert buffer, learn_guidence_per, each followed
+    by a priority update of finite |td| + 1e-6."""
+    cfg, kw = tiny_cfg(), {}
+    cfg.sac.prioritized_replay = True
+    cfg.sac.nan_guard = True
+    if flavour == "prefetch":
+        cfg.sac.prefetch_batches = True
+    if flavour == "guided":
+        cfg.train.pre_buffer = True
+        kw["expert_glob"] = record_demos(tmp_path)
+    calls = spy_per(monkeypatch)
+    plain = spy_updates(monkeypatch)
+    out = run(cfg, tmp_path / "run", max_episodes=2, **kw)
+    n = calls["guided_per"] if flavour == "guided" else calls["per"]
+    assert n > 0 and n == len(calls["priorities"]) == out["state"].itera
+    assert plain["learn"] == 0 and not plain["guided"]
+    for p in calls["priorities"]:
+        assert p.shape == (cfg.sac.batch_size,)
+        assert np.isfinite(p).all() and (p >= 1e-6).all()
 
 
 class FakeTeleop:
