@@ -20,10 +20,9 @@ The flagship actor's recipe (artifacts/r5/dr_randm32_s11_amin):
         --fused --resume --eval-world hospital --alpha-max 2.0 \\
         --world randm32 --seed 11 --alpha-min 0.1 --out results/flagship
 and the DrQ arm drqc_rand8_amin adds `--world rand8 --world-assign lane
---aug-shift 4 --aug-critic-only` in place of the world and seed.
-
-Not ported: `--aug` (the sensor-fault augmentation of envs/fault_aug),
-which raises NotImplementedError by name.
+--aug-shift 4 --aug-critic-only` in place of the world and seed. The
+sensor-fault arms of round 4 (aug_rand8) add `--aug patch_occlusion=0.25
+--aug obs_noise=0.196 --aug-prob 0.5` to the fused loop.
 """
 
 from __future__ import annotations
@@ -64,7 +63,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--aug", action="append", default=None,
                    metavar="KNOB=VALUE",
                    help="sensor-fault augmentation knob of the fused loop "
-                        "(not ported: raises)")
+                        "(repeatable; envs/fault_aug.py), e.g. "
+                        "--aug patch_occlusion=0.25")
     p.add_argument("--aug-prob", type=float, default=1.0)
     p.add_argument("--aug-shift", type=int, default=0,
                    help="DrQ random shift in pixels at update time "
@@ -130,32 +130,30 @@ def main(argv=None, base: Optional[Config] = None) -> dict:
     (default: the reference's)."""
     p = parser()
     args = p.parse_args(argv)
-    if args.aug:
-        if not args.fused:
-            p.error("--aug is a fused-loop feature; pass --fused or drop "
-                    "the augmentation flags")
-        raise NotImplementedError(
-            "--aug: the sensor-fault augmentation (envs/fault_aug, "
-            "fault_knobs) is not ported yet")
+    if args.aug and not args.fused:
+        p.error("--aug is a fused-loop feature; pass --fused or drop "
+                "the augmentation flags")
     cfg = recipe_config(args, base)
 
     from dgvit_tpu_torch.envs import KinematicNavEnv
     from dgvit_tpu_torch.models.jax_io import params_to_jax
     from dgvit_tpu_torch.train.evaluate import run_eval, run_eval_vec
+    from dgvit_tpu_torch.train.fused_train import parse_aug, train_fused
     from dgvit_tpu_torch.train.train_rl import train
+
+    fault_knobs = parse_aug(p, args.aug)
 
     hw = tuple(cfg.model.image_size)
     t0 = time.time()
     if args.fused:
-        from dgvit_tpu_torch.train.fused_train import train_fused
-
         # one update per collected env step (main.py:394's cadence); the
         # episode budget stops the run, the round cap only guards it
         res_f = train_fused(
             cfg, out_dir=args.out, n_envs=args.n_envs, chunk=args.chunk,
             rounds=10 ** 6, rounds_per_dispatch=5,
             max_episodes=args.episodes, resume=args.resume,
-            world=args.world, world_assign=args.world_assign,
+            world=args.world, fault_knobs=fault_knobs,
+            aug_prob=args.aug_prob, world_assign=args.world_assign,
             device=args.device)
         train_wall = time.time() - t0
         res = {"successes": res_f["goals"], "episodes": res_f["episodes"],
@@ -198,10 +196,10 @@ def main(argv=None, base: Optional[Config] = None) -> dict:
         "aug_actor": not args.aug_critic_only,
         "aug_warmup": args.aug_warmup,
         "seed": args.seed if args.seed is not None else 3407,
-        "aug": None,
+        "aug": fault_knobs,
         "world_assign": args.world_assign,
         "aborted_dead": res.get("aborted_dead", False),
-        "aug_prob": None,
+        "aug_prob": args.aug_prob if fault_knobs else None,
         "train_episodes": res["episodes"],
         "train_successes": res["successes"],
         "max_mean_reward": (None if args.fused

@@ -5,9 +5,9 @@ durations, append results/testing_data.txt.
 Counterpart of `dgvit_tpu/train/evaluate.py`: `run_eval`, the host
 loop (a reference-shaped Python loop with one actor forward per step, the
 whole-trunk kernel on the card), and `run_eval_vec`, every episode a lane
-of the batched env on the card (`--vec-eval`). The fleet and io-callback
-rollout loops of the JAX package are not ported yet, nor the robustness
-sweep of `run_eval_vec` (`sweep=`, which needs `envs/fault_aug`).
+of the batched env on the card (`--vec-eval`), which also runs the
+robustness sweep (`sweep=`, `tools/robustness_sweep.py`). The fleet and
+io-callback rollout loops of the JAX package are not ported yet.
 
 Goal-reach durations are reported in simulated seconds (steps * env.DT),
 not wall-clock.
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.rng import generator
 from dgvit_tpu_torch.envs import Env, KinematicNavEnv
+from dgvit_tpu_torch.envs.fault_aug import KNOB_KEYS, knobs_array, perturb_obs
 from dgvit_tpu_torch.envs.vec_kinematic import (make_consts, vec_reset,
                                                 vec_step)
 from dgvit_tpu_torch.models.jax_io import params_to_jax
@@ -99,7 +100,8 @@ def run_eval_vec(cfg: Config, actor_params: Mapping[str, Any],
                  obs_noise: float = 0.0, occlusion: float = 0.0,
                  greying: float = 0.0, sweep=None,
                  world_seed: Optional[int] = None,
-                 device: Optional[Union[str, torch.device]] = None) -> dict:
+                 device: Optional[Union[str, torch.device]] = None,
+                 draws: Optional[Sequence] = None):
     """The evaluation protocol with every episode a lane of the batched
     env on the card: `env.max_steps` steps of all lanes, one K1 launch a
     step, and one read of the results at the end.
@@ -111,15 +113,19 @@ def run_eval_vec(cfg: Config, actor_params: Mapping[str, Any],
     (cfg.train.seed + 1000003) unless `world_seed` pins one, so the
     evaluation layouts are not the training ones.
 
-    The robustness knobs perturb what the actor sees (not the carried
-    frames), with draws from a generator seeded by cfg.train.seed:
-    `obs_noise` adds N(0, sigma) and clips to [0, 1], `occlusion` zeroes
-    that fraction of pixels, `greying` blends toward 0.5. Runs on the card
-    unless device='cpu'."""
-    if sweep is not None:
-        raise NotImplementedError(
-            "sweep: the robustness sweep needs envs/fault_aug, which is not "
-            "ported yet; pass obs_noise / occlusion / greying instead")
+    Sensor faults (`envs/fault_aug.perturb_obs`) perturb what the actor
+    sees, not the carried frames: `obs_noise` adds N(0, sigma) and clips
+    to [0, 1], `occlusion` zeroes that fraction of pixels, `greying`
+    blends toward 0.5. `sweep`, a list of {knob: value} dicts over
+    `fault_aug.KNOB_KEYS` (`blur` and `patch_occlusion` too), runs the
+    whole grid with one policy, one set of consts and one reset, and
+    returns one report a point, its knob values folded in and its tag in
+    testing_data.txt `name` + " k=v,...". Every point restarts the fault
+    draws from a generator seeded cfg.train.seed, so at each step every
+    point sees the same realization: the points are paired, and a point
+    equals the run of its knobs without the sweep. `draws` (tests): the
+    fault draws of each step (`fault_aug.draw_faults`' four arrays), the
+    same for every point. Runs on the card unless device='cpu'."""
     e = cfg.env
     fs = (int(e.frame_stack) if cfg.model.patch_mode == "channels" else 0)
     agent = SACAgent(cfg, device=device)
@@ -135,63 +141,80 @@ def run_eval_vec(cfg: Config, actor_params: Mapping[str, Any],
     consts = make_consts(world=world, image_hw=tuple(cfg.model.image_size),
                          max_steps=e.max_steps, seed=seed, device=dev)
     dt = float(consts.dt)
-    gen = generator(cfg.train.seed, dev)
-
-    def perturb(obs):
-        if obs_noise > 0.0:
-            obs = torch.clamp(obs + obs_noise * torch.randn(
-                obs.shape, generator=gen, device=dev), 0.0, 1.0)
-        if occlusion > 0.0:
-            obs = obs * (torch.rand(obs.shape, generator=gen, device=dev)
-                         >= occlusion)
-        if greying > 0.0:
-            obs = obs * (1.0 - greying) + 0.5 * greying
-        return obs
-
+    points = sweep if sweep is not None else [
+        {"obs_noise": obs_noise, "occlusion": occlusion, "greying": greying}]
     b = max_episodes
+    reports = []
     with torch.no_grad():
-        state, obs, goal = vec_reset(consts, b)
+        state0, obs0, goal0 = vec_reset(consts, b)
         if fs:
-            obs = stack_init(obs, fs)
-        ended = torch.zeros(b, dtype=torch.bool, device=dev)
-        succ, coll, bad = ended.clone(), ended.clone(), ended.clone()
-        dur = torch.zeros(b, device=dev)
-        for t in range(e.max_steps):
-            a = agent.act_batch(actor, perturb(obs), goal[:, :2],
-                                evaluate=True)
-            a = torch.clamp(a.float(), -e.max_action, e.max_action)
-            a_in = torch.stack([(a[:, 0] + 1.0) * e.linear_cmd_scale,
-                                a[:, 1] * e.angular_cmd_scale], dim=1)
-            a_in = torch.where(ended[:, None], 0.0, a_in)
-            out = vec_step(consts, state, a_in)
-            if t == 0:
-                bad = out.done.clone()
-            live = ~ended & ~bad
-            hit = out.target & live
-            succ |= hit
-            # simulated seconds in fp32, as the JAX loop takes them
-            dur = torch.where(hit, float(np.float32(t + 1.0)
-                                         * np.float32(dt)), dur)
-            coll |= out.collided & live
-            ended = ended | out.done | out.truncated | bad
-            if fs:
-                restart = (out.done | out.truncated)[:, None, None, None]
-                obs = torch.where(restart, stack_init(out.obs, fs),
-                                  stack_push(obs, out.next_obs))
-            else:
-                obs = out.obs
-            state, goal = out.state, out.to_goal
-        succ, coll, dur, bad = (x.cpu().numpy()
-                                for x in (succ, coll, dur, bad))
+            obs0 = stack_init(obs0, fs)
+        for pt in points:
+            knobs = knobs_array(pt)
+            gen = generator(cfg.train.seed, dev)
+            state, obs, goal = state0, obs0, goal0
+            ended = torch.zeros(b, dtype=torch.bool, device=dev)
+            succ, coll, bad = ended.clone(), ended.clone(), ended.clone()
+            dur = torch.zeros(b, device=dev)
+            for t in range(e.max_steps):
+                obs_in = perturb_obs(obs, knobs, gen,
+                                     None if draws is None else draws[t])
+                a = agent.act_batch(actor, obs_in, goal[:, :2],
+                                    evaluate=True)
+                a = torch.clamp(a.float(), -e.max_action, e.max_action)
+                a_in = torch.stack([(a[:, 0] + 1.0) * e.linear_cmd_scale,
+                                    a[:, 1] * e.angular_cmd_scale], dim=1)
+                a_in = torch.where(ended[:, None], 0.0, a_in)
+                out = vec_step(consts, state, a_in)
+                if t == 0:
+                    bad = out.done.clone()
+                live = ~ended & ~bad
+                hit = out.target & live
+                succ |= hit
+                # simulated seconds in fp32, as the JAX loop takes them
+                dur = torch.where(hit, float(np.float32(t + 1.0)
+                                             * np.float32(dt)), dur)
+                coll |= out.collided & live
+                ended = ended | out.done | out.truncated | bad
+                if fs:
+                    restart = (out.done | out.truncated)[:, None, None, None]
+                    obs = torch.where(restart, stack_init(out.obs, fs),
+                                      stack_push(obs, out.next_obs))
+                else:
+                    obs = out.obs
+                state, goal = out.state, out.to_goal
+            # the point's one read of the card
+            host = torch.stack([succ.float(), coll.float(), dur,
+                                bad.float()]).cpu().numpy()
+            p_succ, p_bad = host[0] > 0, host[3] > 0
+            tag = name if sweep is None else (
+                name + " " + ",".join(f"{k}={v}" for k, v in
+                                      sorted(pt.items()) if v))
 
-    class _Count:   # the collision count `_report` reads
-        collision = int(coll.sum())
+            class _Count:   # the collision count `_report` reads
+                collision = int(host[1].sum())
 
-    rep = _report(cfg, _Count(), int(succ.sum()), int(b - bad.sum()),
-                  [float(d) for d in dur[succ]], out_dir, name)
-    rep.update(obs_noise=float(obs_noise), occlusion=float(occlusion),
-               greying=float(greying), world=world, world_seed=int(seed))
-    return rep
+            rep = _report(cfg, _Count(), int(p_succ.sum()),
+                          int(b - p_bad.sum()),
+                          [float(d) for d in host[2][p_succ]], out_dir, tag)
+            rep.update({k: float(pt.get(k, 0.0)) for k in KNOB_KEYS})
+            rep.update(world=world, world_seed=int(seed))
+            reports.append(rep)
+    return reports if sweep is not None else reports[0]
+
+
+def checkpoint_actor(cfg: Config, path: str):
+    """(actor params in the JAX package's layout, the step's name) out of
+    a train-state checkpoint of the port's trainers: a step_N directory,
+    or a checkpoints/ directory whose newest step is taken."""
+    if not os.path.basename(os.path.normpath(path)).startswith("step_"):
+        newest = ckpt.latest_checkpoint(path)
+        if newest is None:
+            raise FileNotFoundError(f"no step_* checkpoints under {path}")
+        path = newest
+    state = ckpt.restore_train_state(
+        path, SACAgent(cfg, device="cpu").init_state(cfg.train.seed))
+    return params_to_jax(state.actor.state_dict()), os.path.basename(path)
 
 
 def _report(cfg: Config, env: Env, cntr2: int, total_rel: int, durations,
@@ -253,15 +276,10 @@ def main(argv=None):
         seed=cfg.train.seed, image_hw=tuple(cfg.model.image_size),
         world=args.world)
     if args.checkpoint:
-        path = args.checkpoint
-        if not os.path.basename(os.path.normpath(path)).startswith("step_"):
-            path = ckpt.latest_checkpoint(path)
-            if path is None:
-                p.error(f"no step_* checkpoints under {args.checkpoint}")
-        state = ckpt.restore_train_state(
-            path, SACAgent(cfg, device="cpu").init_state(cfg.train.seed))
-        params = params_to_jax(state.actor.state_dict())
-        name = os.path.basename(path)
+        try:
+            params, name = checkpoint_actor(cfg, args.checkpoint)
+        except FileNotFoundError as err:
+            p.error(str(err))
     else:
         params = ckpt.load_params_npz(args.actor)
         name = os.path.basename(args.actor)

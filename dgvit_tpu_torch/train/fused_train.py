@@ -29,10 +29,11 @@ a generator seeded `core.rng.step_key(seed, r)`, so a resumed run draws
 what it would have drawn without the restart; dropout masks and the
 update's action noise come from the train state's own generator. PER's
 priorities are not saved: after a warm resume every restored row is back
-at the max priority, as cpprb's load_transitions leaves them.
-
-Not ported, raising NotImplementedError by name: `fault_knobs` and
-`aug_prob` below 1 (the sensor-fault augmentation of `envs/fault_aug`).
+at the max priority, as cpprb's load_transitions leaves them. With
+sensor-fault augmentation (`fault_knobs`, `aug_prob`) round r's fault
+draws come from a generator of their own, seeded
+`step_key(step_key(seed, r), FAULT_FOLD)`: the action noise and the
+minibatches stay as they were, and resumes still draw as an unbroken run.
 """
 
 from __future__ import annotations
@@ -61,6 +62,9 @@ from dgvit_tpu_torch.train.vec_rollout import (frame_stack_depth,
 from dgvit_tpu_torch.utils import MetricsLogger
 
 RING_FIELDS = ("obs", "act", "pobs", "next_pobs", "rew", "next_obs", "done")
+# the fold of a round's seed that seeds its fault draws (JAX folds 101
+# into the step key for them, apart from the action key)
+FAULT_FOLD = 101
 
 
 @dataclass
@@ -221,15 +225,16 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
     'act_noise' (T, B, A) action noise, 'ring_idx' (U, b) and
     'expert_idx' (U, b) minibatch rows, 'per_u' (U, b) PER's uniform
     draws (in place of 'ring_idx'), 'update_noise' U pairs of
-    (next-action, policy) row noise for `learn`'s `noise`."""
-    if aug_prob < 1.0:
-        raise NotImplementedError(
-            "aug_prob < 1: the gated sensor-fault augmentation "
-            "(envs/fault_aug) is not ported yet")
+    (next-action, policy) row noise for `learn`'s `noise`, and with
+    `fault_knobs` 'fault', collection's fault draws (`make_collect_fn`'s
+    `faults`).
+
+    `fault_knobs` and `aug_prob`: collection's sensor-fault augmentation
+    (`make_collect_fn`), its draws from round r's fault generator."""
     collect = make_collect_fn(agent, consts, chunk, l_scale, a_scale,
                               max_action=max_action, stride=stride,
                               frame_stack=frame_stack,
-                              fault_knobs=fault_knobs)
+                              fault_knobs=fault_knobs, aug_prob=aug_prob)
     keys = (GUIDED_METRICS if guided else
             PER_METRICS if prioritized else PLAIN_METRICS) + (
         ("skipped_nonfinite",) if agent.nan_guard else ())
@@ -237,8 +242,11 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
 
     def one_round(state, env_carry, ring, r, expert, d, per):
         gen = generator(step_key(seed, r), dev)
-        env_carry, traj = collect(state.actor, env_carry, gen,
-                                  None if d is None else d["act_noise"])
+        fault_gen = generator(step_key(step_key(seed, r), FAULT_FOLD), dev)
+        env_carry, traj = collect(
+            state.actor, env_carry, gen,
+            None if d is None else d["act_noise"], fault_gen,
+            None if d is None else d.get("fault"))
         rows = {f: traj[f].reshape((-1,) + traj[f].shape[2:])
                 for f in RING_FIELDS}
         if prioritized:
@@ -369,7 +377,9 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
     `expert_glob` with train.pre_buffer: the demo corpus goes to the
     device once and every update is the guided one. sac.prioritized_replay:
     the ring's priorities live on the device beside it (the result's
-    'per'; None without PER).
+    'per'; None without PER). `fault_knobs` and `aug_prob`: collection
+    acts on and stores frames perturbed by `envs/fault_aug`
+    (`make_collect_fn`).
 
     `resume`: the newest train-state checkpoint, the round, goal,
     collision and episode counters from the run's JSONL, and the ring from
@@ -413,6 +423,9 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
                            frame_stack=fs, guided=expert is not None,
                            fault_knobs=fault_knobs, aug_prob=aug_prob,
                            seed=t.seed)
+    if fault_knobs:
+        print(f"[train_fused] sensor-fault augmentation: {fault_knobs} "
+              f"(prob {aug_prob})", flush=True)
     env_carry = vec_reset(consts, n_envs)
     if fs:
         env_carry = (env_carry[0], stack_init(env_carry[1], fs),
@@ -499,6 +512,21 @@ def train_fused(cfg: Config, out_dir: str = "results", n_envs: int = 16,
             "per": per, "aborted_dead": aborted_dead}
 
 
+def parse_aug(p: argparse.ArgumentParser,
+              items: Optional[Sequence[str]]) -> Optional[Dict[str, float]]:
+    """--aug KNOB=VALUE flags -> {knob: value}, or None without any; a
+    malformed item is a usage error of `p`."""
+    if not items:
+        return None
+    knobs = {}
+    for kv in items:
+        k, sep, v = kv.partition("=")
+        if not sep or not v:
+            p.error(f"--aug expects KNOB=VALUE, got {kv!r}")
+        knobs[k.strip()] = float(v)
+    return knobs
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="dgvit_tpu_torch on-device RL training (PyTorch/CUDA)")
@@ -527,6 +555,15 @@ def main(argv=None):
                    help="snapshot the ring to ring_latest.npz every N "
                         "segments for a warm --resume (0: never; 1.3 GB at "
                         "8192 rows of 128x160)")
+    p.add_argument("--aug", action="append", default=None,
+                   metavar="KNOB=VALUE",
+                   help="sensor-fault augmentation knob (repeatable), e.g. "
+                        "--aug patch_occlusion=0.25 --aug obs_noise=0.196; "
+                        "knobs: obs_noise blur occlusion patch_occlusion "
+                        "greying (envs/fault_aug.py)")
+    p.add_argument("--aug-prob", type=float, default=1.0,
+                   help="probability that a lane's frame at a step takes "
+                        "the --aug knobs (1.0: every frame)")
     p.add_argument("--world-assign", choices=("reset", "lane"),
                    default="reset",
                    help="ensemble worlds: 'reset' draws a lane's world anew "
@@ -534,6 +571,7 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="'cpu' runs the plain PyTorch path; default: CUDA")
     args = p.parse_args(argv)
+    fault_knobs = parse_aug(p, args.aug)
     cfg = Config.from_yaml(args.config) if args.config else Config()
     out = train_fused(cfg, out_dir=args.out, n_envs=args.n_envs,
                       chunk=args.chunk, rounds=args.rounds,
@@ -543,6 +581,7 @@ def main(argv=None):
                       max_episodes=args.max_episodes, resume=args.resume,
                       expert_glob=args.expert_glob,
                       ring_snapshot_every=args.ring_snapshot_every,
+                      fault_knobs=fault_knobs, aug_prob=args.aug_prob,
                       world_assign=args.world_assign, device=args.device)
     print(f"rounds: {out['rounds']}  env steps: {out['env_steps']}  "
           f"episodes: {out['episodes']}  goals: {out['goals']}  "

@@ -14,8 +14,8 @@ a1*A_SCALE]); the first step of each episode is marked not to store
 (`store`), and a first-step done (a bad initialization) resets the lane
 and is masked out with it.
 
-Not ported: `fault_knobs` (the sensor-fault augmentation of
-`envs/fault_aug`), which raises by name.
+With `fault_knobs` the actor acts on frames perturbed by
+`envs/fault_aug.perturb_obs`, and those are the frames stored.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.rng import generator, step_key
+from dgvit_tpu_torch.envs.fault_aug import (any_on, draw_faults,
+                                            knobs_array, perturb_obs)
 from dgvit_tpu_torch.envs.vec_kinematic import (EnvConsts, make_consts,
                                                 vec_reset, vec_step)
 from dgvit_tpu_torch.replay import (PrioritizedReplayBuffer, ReplayBuffer,
@@ -53,31 +55,62 @@ def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
                     l_scale: float, a_scale: float, max_action: float = 1.0,
                     evaluate: bool = False, stride: Optional[int] = None,
                     frame_stack: int = 0,
-                    fault_knobs: Optional[Dict[str, float]] = None):
-    """`collect(actor, carry, generator, noise=None) -> (carry', traj)`:
-    `chunk` steps of every lane of `carry` = (VecState, obs, to_goal),
-    acting through `actor` (K1, no dropout). traj holds (T, B, ...)
-    tensors: obs, act (policy units, fp32), pobs, next_pobs, rew,
-    next_obs, done, episode_end (done or the max_steps cap), and the
-    masks store (not an episode's first step), target and collided (both
-    masked by store). Action noise comes from `generator`, or is `noise`
-    (T, B, A) of standard normal draws.
+                    fault_knobs: Optional[Dict[str, float]] = None,
+                    aug_prob: float = 1.0):
+    """`collect(actor, carry, generator, noise=None, fault_gen=None,
+    faults=None) -> (carry', traj)`: `chunk` steps of every lane of
+    `carry` = (VecState, obs, to_goal), acting through `actor` (K1, no
+    dropout). traj holds (T, B, ...) tensors: obs, act (policy units,
+    fp32), pobs, next_pobs, rew, next_obs, done, episode_end (done or the
+    max_steps cap), and the masks store (not an episode's first step),
+    target and collided (both masked by store). Action noise comes from
+    `generator`, or is `noise` (T, B, A) of standard normal draws.
 
     `frame_stack` > 0 carries (B, C, H, W) stacks for a channels-mode
     actor; transitions store stacks, and a lane that resets refills its
-    stack with the new episode's first frame."""
-    if fault_knobs:
-        raise NotImplementedError(
-            "fault_knobs: the sensor-fault augmentation (envs/fault_aug) "
-            "is not ported yet")
+    stack with the new episode's first frame.
+
+    `fault_knobs` ({knob: value}, `envs/fault_aug.KNOB_KEYS`): sensor-
+    fault augmentation. The actor acts on a perturbed frame and that
+    frame is the stored `obs`; the carry stays clean (the faults are
+    independent from step to step); `next_obs` gets a realization of its
+    own; the env always sees the true world. `aug_prob` < 1 applies the
+    whole knob set to a lane at a step with that probability (a uniform
+    draw a lane below it), else the lane's frame stays clean. The fault
+    draws come from `fault_gen`, a generator apart from the action
+    noise's, so setting knobs leaves the action noise as it was: at each
+    step, for obs then for next_obs, the gate's uniforms (B,) when
+    `aug_prob` < 1, then `fault_aug.draw_faults`. `faults` replaces them:
+    one (obs, next_obs) pair a step, each (gate or None, noise,
+    occlusion, y0, x0). No knob set, or none above 0, is the unaugmented
+    collection."""
+    knobs = knobs_array(fault_knobs)
+    augment = any_on(knobs)
+
+    def aug(o, gen, d):
+        if d is None:
+            gate_u = (torch.rand((o.shape[0],), generator=gen,
+                                 device=o.device)
+                      if aug_prob < 1.0 else None)
+            d = (gate_u,) + draw_faults(o.shape, gen, o.device)
+        pert = perturb_obs(o, knobs, draws=d[1:])
+        if aug_prob >= 1.0:
+            return pert
+        gate = (d[0] < aug_prob).reshape((-1,) + (1,) * (o.ndim - 1))
+        return torch.where(gate, pert, o)
 
     @torch.no_grad()
     def collect(actor, carry, gen: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None,
+                fault_gen: Optional[torch.Generator] = None,
+                faults=None):
         state, obs, goal = carry
         steps = []
         for t in range(chunk):
-            a = agent.act_batch(actor, obs, goal[:, :2], gen, evaluate,
+            d_obs, d_next = (None, None) if faults is None else faults[t]
+            # the actor's input and the stored obs; the carry stays clean
+            obs_in = aug(obs, fault_gen, d_obs) if augment else obs
+            a = agent.act_batch(actor, obs_in, goal[:, :2], gen, evaluate,
                                 noise=None if noise is None else noise[t])
             a = torch.clamp(a.float(), -max_action, max_action)
             a_in = torch.stack([(a[:, 0] + 1.0) * l_scale,
@@ -91,8 +124,10 @@ def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
                     restart, stack_init(out.obs, frame_stack), next_obs)
             else:
                 next_obs, carry_obs = out.next_obs, out.obs
+            if augment:
+                next_obs = aug(next_obs, fault_gen, d_next)
             steps.append({
-                "obs": obs, "act": a, "pobs": goal[:, :2],
+                "obs": obs_in, "act": a, "pobs": goal[:, :2],
                 "next_pobs": out.next_to_goal[:, :2],
                 "rew": out.reward, "next_obs": next_obs,
                 "done": out.done.float(),

@@ -22,7 +22,8 @@ within the metrics' tolerance), the running max within rtol 1e-4.
 
 The end-to-end runs mirror tests/test_fused_train.py (not its sharded
 cases) and tests/test_jax_kinematic.py's train_vec and run_eval_vec
-cases; the flavours that are not ported raise by name.
+cases; the sensor-fault flavours run (tests/test_torch_fault_aug.py holds
+them to JAX).
 """
 
 import json
@@ -468,23 +469,26 @@ def test_dead_run_detector_aborts(tmp_path):
 @pytest.mark.parametrize("flavour", ["launcher_aug", "fault_knobs",
                                      "aug_prob"])
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
-    cfg, kw = tiny(), {}
+    """The sensor-fault flavours that raised by name before they were
+    ported now run: the launcher's --aug, train_fused's fault_knobs, and
+    aug_prob below 1 (tests/test_torch_fault_aug.py holds them to JAX)."""
+    cfg = tiny(env={"max_steps": 4})
     if flavour == "launcher_aug":
         from dgvit_tpu_torch.examples import reference_scale_run as rsr
 
-        with pytest.raises(NotImplementedError, match="--aug"):
-            rsr.main(["--fused", "--aug", "patch_occlusion=0.25",
-                      "--device", "cpu", "--out", str(tmp_path)], base=cfg)
-        assert not list(tmp_path.glob("*.jsonl"))
+        s = rsr.main(["--fused", "--aug", "patch_occlusion=0.25",
+                      "--episodes", "1", "--eval-episodes", "2",
+                      "--n-envs", "2", "--chunk", "4", "--device", "cpu",
+                      "--out", str(tmp_path)], base=cfg)
+        assert s["aug"] == {"patch_occlusion": 0.25} and s["aug_prob"] == 1.0
+        assert list(tmp_path.glob("train_fused_*.jsonl"))
         return
-    if flavour == "fault_knobs":
-        kw["fault_knobs"] = {"obs_noise": 0.2}
-        match = "fault_knobs"
-    else:
-        kw["aug_prob"] = 0.5
-        match = "aug_prob"
-    with pytest.raises(NotImplementedError, match=match):
-        fused(tmp_path, cfg, **kw)
+    kw = ({"fault_knobs": {"obs_noise": 0.2}} if flavour == "fault_knobs"
+          else {"fault_knobs": {"greying": 0.5}, "aug_prob": 0.5})
+    out = fused(tmp_path, cfg, **kw)
+    assert out["rounds"] == 2 and out["updates"] == 2
+    assert not torch.equal(out["ring"].obs, fused(
+        tmp_path / "clean", cfg)["ring"].obs)
 
 
 def per_cfg(**over):
@@ -647,10 +651,15 @@ def test_run_eval_vec_knobs_and_sweep(tmp_path, actor_params):
                                          str(tmp_path), "m", device="cpu",
                                          **kw)
         assert 0 <= out["successes"] <= 4
-    with pytest.raises(NotImplementedError, match="sweep"):
-        port_evaluate.run_eval_vec(cfg, actor_params, 4, "rrc",
-                                   str(tmp_path), "m", sweep=[{}],
-                                   device="cpu")
+    # the sweep path: one report a point, the clean point the static run
+    reps = port_evaluate.run_eval_vec(cfg, actor_params, 4, "rrc",
+                                      str(tmp_path), "m", sweep=[{}],
+                                      device="cpu")
+    clean = port_evaluate.run_eval_vec(cfg, actor_params, 4, "rrc",
+                                       str(tmp_path), "m", device="cpu")
+    assert isinstance(reps, list) and len(reps) == 1
+    for k in ("successes", "collisions", "durations"):
+        assert reps[0][k] == clean[k], k
 
 
 def test_command_lines(tmp_path, capsys):

@@ -64,7 +64,10 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.train.fused_train",
               "dgvit_tpu_torch.replay.device_per",
               "dgvit_tpu_torch.ops.augment",
-              "dgvit_tpu_torch.examples.reference_scale_run"):
+              "dgvit_tpu_torch.examples.reference_scale_run",
+              "dgvit_tpu_torch.envs.fault_aug",
+              "dgvit_tpu_torch.envs.faults",
+              "dgvit_tpu_torch.tools.robustness_sweep"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

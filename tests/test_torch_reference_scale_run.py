@@ -159,12 +159,19 @@ def test_main_host_path(tmp_path):
 
 
 def test_aug_refusals(tmp_path):
+    """--aug without --fused is a usage error, as in the JAX launcher;
+    with --fused the sensor-fault arm runs and its summary names the knobs
+    and the gate (the JAX launcher's `"aug": fault_knobs` and
+    `"aug_prob": args.aug_prob if fault_knobs else None`)."""
     with pytest.raises(SystemExit):
         rsr.main(["--aug", "obs_noise=0.1", "--device", "cpu", "--out",
                   str(tmp_path)], base=tiny_base())
-    with pytest.raises(NotImplementedError, match="fault_aug"):
-        rsr.main(["--fused", "--aug", "obs_noise=0.1", "--device", "cpu",
-                  "--out", str(tmp_path)], base=tiny_base())
+    s, _ = run_main(tmp_path, "--fused", "--aug", "obs_noise=0.1", "--aug",
+                    "patch_occlusion=0.25", "--aug-prob", "0.5",
+                    "--episodes", "1", "--eval-episodes", "2", "--n-envs",
+                    "2", "--chunk", "4")
+    assert s["aug"] == {"obs_noise": 0.1, "patch_occlusion": 0.25}
+    assert s["aug_prob"] == 0.5 and s["train_episodes"] >= 1
 
 
 def test_launcher_without_a_card_raises(tmp_path, monkeypatch):
