@@ -263,6 +263,32 @@ per source, all at once), then
      the drqc actor, 32 lanes, rrc, 250 steps a point): K1 once a step
      of every point and nothing else, the clean point equal to the run
      without the sweep and greying=0.9 to its static run, ms a point;
+ 22. the imitation tier, three main paths (phase_imitation, on its own
+     generator): (a) a gradient pass of the BC loss in fp32 (the loss and
+     every parameter gradient) through the kernels, on the launcher's 2d
+     policy holding the round-3 warm start at B = 64 and 32 and on
+     il_policy()'s 4-channel stacks at B = 32: K2f x3, K3f, K3b, K2b x3 a
+     pass, held to the float64-sum version of the plain versions under
+     phase 5's fp32 rule (EXACT_K), the plain versions with the other
+     GELU form failing it; ms a BC step and fp32 K2f, K2b, K3f, K3b at
+     B = 64 and 32 beside their plain versions and bounds; (b)
+     BCTrainer.fit of the launcher's policy (batch 64) on a scripted-pilot
+     corpus recorded as generalization_eval records it, 3 epochs: exact
+     launches a training and a validation batch, one host sync an epoch,
+     a falling train loss, the best parameters those of the
+     lowest-validation epoch bit for bit, the plain versions' fit within
+     BC_PLAIN_REL; ms an epoch; (c) SACTeacher on the gw10 generalist
+     (artifacts/r3/gen_fused/gw10_winner_actor.npz) with Config(): fp32,
+     one K1 launch a choose_action (B=1 and batched), K1 against its
+     plain version under phase 2's fp32 check, as_pilot's map; then
+     tools/record_teacher_demos on rand2: one K1 a step, the reference
+     layout, policy-unit actions; (d) generalization_eval.main with the
+     gw10 arm's flags from the round-3 warm start on (b)'s corpus, cut to
+     5 rounds of 32 updates: the warm start copied byte for byte, the fine-tune's
+     actor before its first update equal to it, every guided update
+     phase 18's launches and K1 once a collection and an evaluation
+     step, finite losses, final_actor.npz in JAX's key set, the summary
+     line's keys; then --skip-rl on a 2-epoch fit, its launches exact;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -2501,17 +2527,26 @@ TRUNK_CUDA_LAUNCHES = {
     "wgrad_finish": 34, "vec_finish": 10}
 
 
+# spin kernels ahead of the update in each retried profile window
+PROFILE_LEADS = (0, 97, 389)
+
+
 def check_profile(update, want, label, profile_label="bf16", windows=3):
     """Hold a profiled update's CUDA launches (by kernel name) to the
     design; nothing to hold when the profiler recorded nothing.
     torch.profiler can lose a kernel's record from a window but never
     invents one (on an H100, one window of phase 16 once held 3 of the 4
-    K7 launches that the wrapper's counter read for the same pass): a
-    window that shows fewer launches than designed is profiled again, up
-    to `windows` times, while a kernel seen more often than designed (a
-    wrong form taken) fails at once."""
+    K7 launches that the wrapper's counter read for the same pass, and one
+    run lost the same three records, a K7 and two PyTorch kernels about
+    it, in each of three windows, which a fresh process did not repeat):
+    a window that shows fewer launches than designed is profiled
+    again, up to `windows` times, each retry with more spin kernels ahead
+    of the update (PROFILE_LEADS), so that a loss at a fixed place in the
+    window's records falls elsewhere; a kernel seen more often than
+    designed (a wrong form taken) fails at once."""
     for window in range(1, windows + 1):
-        seen = phase_profile(update, profile_label)
+        seen = phase_profile(update, profile_label,
+                             PROFILE_LEADS[(window - 1) % len(PROFILE_LEADS)])
         if seen is None:
             return
         got = {w: sum(c for k, c in seen.items() if w in k) for w in want}
@@ -2528,25 +2563,30 @@ def check_profile(update, want, label, profile_label="bf16", windows=3):
           f"each of {windows} profile windows")
 
 
-def phase_profile(update, label="bf16"):
+def phase_profile(update, label="bf16", lead=0):
     """Phases 7, 14c and 16: one bf16 update (or training pass) under
     torch.profiler: device time
     by CUDA kernel (returned as {kernel name: launches}, None when the
     profiler recorded nothing) and the device's busy share of the update's
-    wall time."""
+    wall time. `lead` spin kernels (`torch.cuda._sleep`) run first in the
+    window, before its clock starts; their records are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+            if e.device_time_total > 0 and e.device_type.name == "CUDA"
+            and "spin_kernel" not in e.key]
     busy = sum(t for _, t, _ in rows) / 1e3
     if not rows:
         print("profile: no device time recorded (device busy share not "
@@ -6675,6 +6715,610 @@ def phase_faults(rng):
             "sweep": sweep}
 
 
+# --------------------------------------------------------------------------
+# phase 22: the imitation tier (the BC fit in fp32 at its own batches, the
+# frozen teacher, and the generalization launcher that trained the gw10
+# generalist)
+# --------------------------------------------------------------------------
+
+GEN_DIR = ROOT / "artifacts" / "r3" / "gen_fused"
+BC_WARM = GEN_DIR / "bc_warm"          # the arms' --bc-params base path
+TEACHER = GEN_DIR / "gw10_winner_actor.npz"
+IMITATION_SEED = SEED + 22   # phase 22's own draws: the shared stream and
+#                              its spawns stay as they were
+# 64: generalization_eval's fit; 32: bc_kinematic_demo's and train_bc's
+BC_BATCHES = (64, 32)
+BC_STEP = {**{k: 0 for k in PER_UPDATE}, "K2f": 3, "K3f": 1, "K2b": 3,
+           "K3b": 1}                 # a training batch of the 4-block fit
+BC_VAL = {**{k: 0 for k in PER_UPDATE}, "K2f": 3, "K3f": 1}
+# phase 22b's corpus and fit: the scripted pilot's episodes end after
+# about 38 steps (an H100 run: 303 transitions from 8 episodes)
+BC_EPISODES, BC_EPOCHS = 16, 3
+# 22b: the same fit through the plain versions on the card: each epoch's
+# train and validation loss within this share of the kernels' (fp32 both,
+# the sums in another order; the CPU fit against JAX's read 4e-6, and a
+# wrong kernel moves a loss by far more than a share of a thousandth)
+BC_PLAIN_REL = 1e-3
+TEACHER_LANES, TEACHER_STEPS = 16, 100
+# 22d: the gw10 arm's flags (tools/gen_sweep_fused.sh, the round-3 sweep)
+# with budgets cut to 5 rounds of 32 updates (22 s on an H100)
+GEN_ARGS = ["--fused", "--vec-eval", "--expert-buffer", "--alpha-init",
+            "0.05", "--guidence-weight", "10"]
+GEN_BUDGET = ["--rl-episodes", "2", "--n-envs", "4", "--chunk", "8",
+              "--eval-episodes", "16"]
+GEN_KEYS = ["rrc", "hospital", "bc_val_rmse", "sac_goals", "recipe"]
+
+
+def imitation_cfg():
+    """The teacher's and the launcher's configuration: the reference's."""
+    from dgvit_tpu_torch.config import Config
+
+    return Config()
+
+
+def gen_base():
+    """The launcher's `base` (None: its own Config())."""
+    return None
+
+
+def bc_policy():
+    """generalization_eval's BC policy at its default --dim and
+    --dim-head on `imitation_cfg()`'s trunk."""
+    from dgvit_tpu_torch.examples import generalization_eval as ge
+
+    args = ge.parser().parse_args([])
+    return ge.bc_policy(imitation_cfg(), args.dim, args.dim_head)
+
+
+def il_constructor():
+    """The Imitation_learning.py actor, il_policy()."""
+    from dgvit_tpu_torch.agents.bc import il_policy
+
+    return il_policy()
+
+
+def bc_batch(batch, shape, rng):
+    """Seeded frames in [0, 1], goals and actions in [-1, 1] on the card."""
+    import torch
+
+    t = lambda a: torch.from_numpy(a.astype("float32")).to(DEVICE)
+    return (t(rng.uniform(0, 1, (batch, *shape))),
+            t(rng.uniform(-1, 1, (batch, 2))),
+            t(rng.uniform(-1, 1, (batch, 2))))
+
+
+@contextlib.contextmanager
+def other_gelu():
+    """The plain versions with the other GELU form, forward and derivative,
+    in every block (fused_transformer's and cls_block's bindings): the
+    tanh form where the TPU kernel takes the erf form (fp32), erf where it
+    takes tanh (bf16). Phase 5's wrong GELU (`erf_gelu`) at fp32, where
+    the right form is erf."""
+    import torch
+
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    kept = ft._gelu32, ft._gelu_grad32
+    other = lambda fn: lambda x, cdt: fn(
+        x, torch.bfloat16 if cdt == torch.float32 else torch.float32)
+    swaps = [(mod, name, other(fn)) for mod in (ft, cb)
+             for name, fn in zip(("_gelu32", "_gelu_grad32"), kept)]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod in (ft, cb):
+            mod._gelu32, mod._gelu_grad32 = kept
+
+
+def bc_grads(trainer, model, obs, goal, act):
+    """The BC loss and the gradient of every parameter it reaches."""
+    import torch
+
+    loss = trainer._rmse(model, obs, goal, act)
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True)
+    return [loss.detach()] + [g for g in grads if g is not None]
+
+
+def bc_models():
+    """(name, trainer, model, frame shape) of phase 22a's passes: the
+    launcher's 2d policy holding the round-3 warm start, at B=64 and 32,
+    and il_policy() on 4-frame stacks, seeded, at B=32."""
+    from dgvit_tpu_torch.agents.bc import BCTrainer
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+
+    warm = load_params_npz(str(BC_WARM) + "_actor.npz")
+    two_d = BCTrainer(model=bc_policy(), batch_size=64, seed=1,
+                      device=DEVICE)
+    hw = tuple(imitation_cfg().model.image_size)
+    il = BCTrainer(model=il_constructor(), batch_size=32, seed=1,
+                   device=DEVICE)
+    m2 = two_d.init_state(hw, 2, init_params=warm).model
+    mil = il.init_state((4, *hw), 2).model
+    return [*(("2d warm start", two_d, m2, hw, b) for b in BC_BATCHES),
+            ("il_policy, 4 channels", il, mil, (4, *hw), BC_BATCHES[-1])]
+
+
+def bc_kernel_times(model, batch, rng):
+    """fp32 K2f, K2b, K3f and K3b at a BC batch on the 2d policy's own
+    blocks, each beside its plain version and its bound at the fp32
+    peak (CUDA events)."""
+    import torch
+
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    obs, goal, _ = bc_batch(batch, model.trans.image_size, rng)
+    heads, dh = model.trans.heads, model.trans.dim_head
+    with torch.no_grad():
+        x = model.trans.embed(obs, model.fc_embed(goal)).contiguous()
+        _, _, blocks, _ = model.trans.fused_params(torch.float32)
+        last = x
+        for w in blocks[:-1]:
+            last = ft.block_fwd_plain(last, w, heads, dh)
+        dy2 = torch.randn(x.shape, device=DEVICE,
+                          generator=torch.Generator(DEVICE).manual_seed(1))
+        dy3 = dy2[:, 0].contiguous()
+        rec = cb.cls_fwd_fused(last, blocks[-1], heads, dh, save=True)[1]
+    calls = {
+        "K2f": (lambda: ft.block_fwd_fused(x, blocks[0], heads, dh),
+                lambda: ft.block_fwd_plain(x, blocks[0], heads, dh)),
+        "K2b": (lambda: ft.block_bwd_fused(x, dy2, blocks[0], heads, dh),
+                lambda: ft.block_bwd_plain(x, dy2, blocks[0], heads, dh)),
+        "K3f": (lambda: cb.cls_fwd_fused(last, blocks[-1], heads, dh,
+                                         save=True),
+                lambda: cb.cls_fwd_plain(last, blocks[-1], heads, dh)),
+        "K3b": (lambda: cb.cls_bwd_fused(last, dy3, blocks[-1], heads, dh,
+                                         rec),
+                lambda: cb.cls_bwd_plain(last, dy3, blocks[-1], heads, dh))}
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        bnd, by = bound_ms(*train_work(name, batch, esize=4), "float32")
+        rows[name] = dict(ms=cuda_ms(kern, 10, runs=5),
+                          plain_ms=cuda_ms(plain, 5, runs=5),
+                          bound_ms=bnd, bound_by=by, library_ms=None)
+    return rows
+
+
+def bc_step_ms(trainer, model, batch, rng):
+    """One BC step (loss, backward, clip, Adam) at `batch` on a copy of
+    the model, CUDA events."""
+    import copy
+
+    import torch
+
+    from dgvit_tpu_torch.agents.bc import clip_by_global_norm_
+
+    m = copy.deepcopy(model)
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3, eps=1e-8)
+    obs, goal, act = bc_batch(batch, m.trans.image_size, rng)
+
+    def step():
+        loss = trainer._rmse(m, obs, goal, act)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_by_global_norm_([p.grad for p in m.parameters()
+                              if p.grad is not None], trainer.grad_clip)
+        opt.step()
+    return cuda_ms(step, 5, runs=5)
+
+
+def phase_bc_kernels(rng):
+    """Phase 22a: a gradient pass of the BC loss on the card (loss and
+    every parameter gradient), through the kernels, held to the
+    float64-sum version of the plain versions under phase 5's fp32 rule
+    (EXACT_K["fp32"]), with the pass launching K2f x3, K3f, K3b and K2b x3;
+    the plain versions with the other GELU form (`other_gelu`) must fail
+    it. Then ms a
+    BC step and fp32 K2f, K2b, K3f and K3b at B = 64 and 32 beside their
+    plain versions and bounds."""
+    import torch
+
+    counters = kernel_counters()
+    k, readings, times = EXACT_K["fp32"], {}, {}
+    for name, trainer, model, shape, batch in bc_models():
+        obs, goal, act = bc_batch(batch, shape, rng)
+        for fn in counters.values():
+            fn.launches = 0
+        out = bc_grads(trainer, model, obs, goal, act)
+        launches = {kk: fn.launches for kk, fn in counters.items()}
+        check(launches == BC_STEP, f"phase 22a: a BC gradient pass "
+              f"launched {launches}, expected {BC_STEP}")
+        check(all(bool(torch.isfinite(t).all()) for t in out),
+              f"phase 22a: non-finite BC gradients ({name}, B={batch})")
+        with plain_kernels():
+            ref = bc_grads(trainer, model, obs, goal, act)
+            ex = exact(bc_grads, trainer, model, obs, goal, act)
+            with other_gelu():
+                bad = bc_grads(trainer, model, obs, goal, act)
+        ok, got, limit = restated(rel_max, TRAIN_F32_MAX, k, out, ref, ex)
+        bad_ok, bad_got, _ = restated(rel_max, TRAIN_F32_MAX, k, bad, ref,
+                                      ex)
+        own = rel_max(ref, ex)
+        key = f"{name}, B={batch}"
+        readings[key] = {"got": got, "limit": limit, "plain": own,
+                         "old": rel_max(out, ref), "tanh_gelu": bad_got,
+                         "tensors": len(out), "pass": ok,
+                         "tanh_gelu_pass": bad_ok}
+        print(f"phase 22a BC gradient pass fp32, {key}: loss and "
+              f"{len(out) - 1} gradients, largest max|err|/L against "
+              f"float64 sums {got:.3e} (limit max({TRAIN_F32_MAX:g}, {k:g} "
+              f"x plain {own:.3e}) = {limit:.3e}), old reading vs plain "
+              f"{readings[key]['old']:.3e}; {'passes' if ok else 'FAILS'};"
+              f" wrong (tanh GELU) {bad_got:.3e}, "
+              f"{'passes' if bad_ok else 'FAILS'} (must fail)", flush=True)
+        record("BC gradient pass fp32", case=key, k=k, **readings[key])
+        check(ok, f"phase 22a: the BC gradient pass through the kernels "
+              f"disagrees with the float64-sum version ({key})")
+        check(not bad_ok, f"phase 22a: the fp32 rule passes a wrong BC "
+              f"pass (tanh GELU, {key})")
+        if name.startswith("2d"):
+            times[batch] = {"kernels": bc_kernel_times(model, batch, rng),
+                            "step_ms": bc_step_ms(trainer, model, batch,
+                                                  rng)}
+            line = ", ".join(
+                f"{kk} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                f"{v['bound_ms']:.5f} {v['bound_by']})"
+                for kk, v in times[batch]["kernels"].items())
+            print(f"phase 22a fp32 B={batch} ({card()}): a BC step "
+                  f"{times[batch]['step_ms']:.3f} ms; {line} (CUDA "
+                  f"events)", flush=True)
+    return {"checks": readings, "times": times}
+
+
+def phase_bc_fit(out_dir):
+    """Phase 22b, a main path: BCTrainer.fit of the launcher's 2d policy
+    (batch 64, seed 1) on a scripted-pilot corpus recorded as
+    generalization_eval records it (BC_EPISODES episodes of at most 200
+    steps on rrc), BC_EPOCHS epochs: exact launches, one host sync an
+    epoch, finite losses and a falling train loss, the best parameters
+    those after the lowest-validation epoch bit for bit, and the fit
+    through the plain versions within BC_PLAIN_REL; ms an epoch."""
+    import numpy as np
+
+    from dgvit_tpu_torch.agents.bc import BCTrainer, split_80_20
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.examples.generalization_eval import demo_glob
+    from dgvit_tpu_torch.models import params_to_jax
+    from dgvit_tpu_torch.train.demo_record import (policy_unit_pilot,
+                                                   record_episodes)
+    from dgvit_tpu_torch.train.train_bc import load_bc_dataset
+
+    cfg = imitation_cfg()
+    pilot, to_env = policy_unit_pilot(cfg)
+    demo_dir = Path(out_dir) / "bc_demos"
+    t0 = time.perf_counter()
+    paths = record_episodes(
+        KinematicNavEnv(seed=0, image_hw=tuple(cfg.model.image_size)),
+        pilot, str(demo_dir), episodes=BC_EPISODES, max_steps=200,
+        action_to_env=to_env)
+    record_s = time.perf_counter() - t0
+    obs, act, goal = load_bc_dataset(demo_glob(demo_dir))
+    n = len(obs)
+    tr, va = split_80_20(n, 1)
+    check(len(paths) == BC_EPISODES and len(tr) >= 64 and len(va) >= 1,
+          f"phase 22b: {len(paths)} episodes, {n} transitions")
+    vb = min(64, len(va))
+    per_epoch = {kk: (len(tr) // 64) * BC_STEP[kk]
+                 + (len(va) // vb) * BC_VAL[kk] for kk in BC_STEP}
+
+    def trainer():
+        return BCTrainer(model=bc_policy(), batch_size=64, seed=1,
+                         device=DEVICE)
+
+    def fit(t, epochs):
+        return t.fit(obs, goal, act, epochs=epochs, to_chw=False)
+
+    main = trainer()
+    snaps, epoch_s = [], []
+    real = main._epoch
+
+    def epoch(state, *a):
+        torch_sync()
+        t0 = time.perf_counter()
+        losses = real(state, *a)
+        torch_sync()
+        epoch_s.append(time.perf_counter() - t0)
+        snaps.append({name: p.detach().clone()
+                      for name, p in state.model.named_parameters()})
+        return losses
+    main._epoch = epoch
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    best, hist = fit(main, BC_EPOCHS)
+    launches = {kk: fn.launches for kk, fn in counters.items()}
+    want = {kk: BC_EPOCHS * v for kk, v in per_epoch.items()}
+    check(launches == want, f"phase 22b: the fit launched {launches}, "
+          f"expected {want}: each epoch {len(tr) // 64} training batches "
+          f"({BC_STEP}) and {len(va) // vb} validation batches ({BC_VAL})")
+    losses = hist["train"] + hist["val"]
+    check(all(math.isfinite(v) for v in losses)
+          and hist["train"][-1] < hist["train"][0],
+          f"phase 22b: the fit's losses {hist}")
+    top = int(np.argmin(hist["val"]))
+    snap = params_to_jax(snaps[top])
+    check(set(best) == set(snap) and all(np.array_equal(best[kk], snap[kk])
+                                         for kk in snap),
+          f"phase 22b: the best parameters are not those after epoch {top}"
+          f" (the lowest validation loss)")
+    (_, h1), s1, _ = count_syncs(lambda: fit(trainer(), 1))
+    (_, h3), s3, kinds = count_syncs(lambda: fit(trainer(), BC_EPOCHS))
+    print(f"phase 22b host syncs: a fit of 1 epoch {s1}, of {BC_EPOCHS} "
+          f"{s3}; {kinds}", flush=True)
+    check(s3 - s1 == BC_EPOCHS - 1, f"phase 22b: {s3 - s1} host syncs in "
+          f"{BC_EPOCHS - 1} epochs, expected one an epoch")
+    with plain_kernels():
+        _, hp = fit(trainer(), BC_EPOCHS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        hist["train"] + hist["val"], hp["train"] + hp["val"]))
+    print(f"phase 22b BCTrainer.fit ({card()}): {n} transitions "
+          f"({len(tr)} train, {len(va)} val; recorded in {record_s:.1f} s), "
+          f"{BC_EPOCHS} epochs of {len(tr) // 64} steps at B=64: "
+          f"{statistics.median(epoch_s) * 1e3:.1f} ms an epoch (median, "
+          f"host clock, synchronized); losses {hist}; the plain versions' "
+          f"fit {hp}, largest relative distance {rel:.3e} (limit "
+          f"{BC_PLAIN_REL:g}); the kernels' fit again equal bit for bit: "
+          f"{h3 == hist}; launches {launches}", flush=True)
+    check(rel <= BC_PLAIN_REL, f"phase 22b: the fit through the plain "
+          f"versions parts from the kernels' by {rel:.3e}")
+    return {"launches": launches, "per_epoch": per_epoch, "transitions": n,
+            "epoch_ms": statistics.median(epoch_s) * 1e3,
+            "epoch_ms_all": [s * 1e3 for s in epoch_s], "hist": hist,
+            "plain_hist": hp, "plain_rel": rel, "syncs": [s1, s3],
+            "reproducible": h3 == hist, "demo_dir": str(demo_dir)}
+
+
+def phase_teacher(out_dir):
+    """Phase 22c, a main path: SACTeacher on the gw10 generalist with
+    Config() acts in fp32, one K1 launch a choose_action (B=1 and
+    batched), K1 against its plain version under phase 2's fp32 check,
+    as_pilot's map; then record_teacher_demos.main on rand2, 2 episodes of
+    at most TEACHER_STEPS steps: one K1 a step, the reference layout,
+    policy-unit actions."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.agents import SACTeacher
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs.worlds import random_ensemble
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+    from dgvit_tpu_torch.tools import record_teacher_demos as rtd
+
+    cfg = imitation_cfg()
+    e = cfg.env
+    d, f = os.path.split(TEACHER)
+    teacher = SACTeacher(cfg, f[: -len("_actor.npz")], d, device=DEVICE)
+    policy = teacher._act.policy
+    check(policy.trans.compute_dtype == torch.float32,
+          f"phase 22c: the teacher acts in {policy.trans.compute_dtype}")
+    env = KinematicNavEnv(seed=1000, world=random_ensemble("rand2")[0],
+                          image_hw=tuple(cfg.model.image_size))
+    frames, goals = [], []
+    for _ in range(TEACHER_LANES):
+        r = env.reset()
+        frames.append(r.state[..., 0])
+        goals.append(r.to_goal)
+    frames, goals = np.stack(frames), np.stack(goals)
+    counters = kernel_counters()
+    got = {}
+    for label, o, g in (("B=1", frames[0], goals[0]),
+                        (f"B={TEACHER_LANES}", frames, goals)):
+        for fn in counters.values():
+            fn.launches = 0
+        got[label] = teacher.choose_action(o, g)
+        launches = {kk: fn.launches for kk, fn in counters.items()}
+        check(launches == {**{kk: 0 for kk in counters}, "K1": 1},
+              f"phase 22c: a choose_action ({label}) launched {launches}")
+    check(got["B=1"].shape == (2,) and got[f"B={TEACHER_LANES}"].shape
+          == (TEACHER_LANES, 2)
+          and np.allclose(got["B=1"], got[f"B={TEACHER_LANES}"][0],
+                          rtol=F32_TOL, atol=F32_TOL),
+          "phase 22c: the teacher's single and batched actions")
+    k1 = {}
+    with torch.no_grad():
+        for b in (1, TEACHER_LANES):
+            o = torch.from_numpy(frames[:b]).to(DEVICE)
+            g = torch.from_numpy(goals[:b, :2]).to(DEVICE)
+            args = policy.trans.trunk_args(o, policy.fc_embed(g))
+            out, ref = gm.got_forward_fused(*args), gm.got_forward_plain(*args)
+            err = (out - ref).abs()
+            ok = bool((err <= F32_TOL + F32_TOL * ref.abs()).all())
+            bnd, by = bound_ms(*k1_work(cfg, b, "float32"), "float32")
+            k1[b] = {"form": gm.k1_form(*args),
+                     "max_abs_err": err.max().item(), "pass": ok,
+                     "ms": cuda_ms(lambda: gm.got_forward_fused(*args), 10,
+                                   runs=5),
+                     "plain_ms": cuda_ms(lambda: gm.got_forward_plain(
+                         *args), 5, runs=5), "bound_ms": bnd,
+                     "bound_by": by}
+            print(f"phase 22c K1 fp32 ({k1[b]['form']}) on the teacher's "
+                  f"rand2 frames, B={b}: max|err| {err.max().item():.3e} "
+                  f"(limit {F32_TOL:g} + {F32_TOL:g} |ref|) "
+                  f"{'ok' if ok else 'FAIL'}; {k1[b]['ms']:.4f} ms (plain "
+                  f"{k1[b]['plain_ms']:.4f}, bound {bnd:.5f} {by}; CUDA "
+                  f"events, {card()})", flush=True)
+            check(ok, f"phase 22c: K1 disagrees with its plain version "
+                  f"(fp32, B={b})")
+    source, to_env = teacher.as_pilot()
+    a = source(frames[0][..., None], goals[0], 0)
+    check(np.array_equal(a, np.clip(got["B=1"], -e.max_action,
+                                    e.max_action))
+          and to_env(a) == [(a[0] + 1.0) * e.linear_cmd_scale,
+                            a[1] * e.angular_cmd_scale],
+          "phase 22c: as_pilot's source or command map")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    kept = rtd.main(["--actor", str(TEACHER), "--world", "rand2",
+                     "--episodes", "2", "--max-steps", str(TEACHER_STEPS),
+                     "--out", str(Path(out_dir) / "teacher"),
+                     "--keep-failures", "--device", DEVICE], base=cfg)
+    tool_s = time.perf_counter() - t0
+    launches = {kk: fn.launches for kk, fn in counters.items()}
+    rows, wins = 0, 0
+    for path in kept:
+        with np.load(path) as z:
+            check(set(z.files) == {"obs", "act", "goal", "reward",
+                                   "next_obs", "next_goal", "done"}
+                  and z["obs"].shape[1:] == tuple(cfg.model.image_size)
+                  and z["next_obs"].shape == z["obs"].shape
+                  and z["act"].shape == (len(z["obs"]), 2)
+                  and bool((np.abs(z["act"]) <= e.max_action).all()),
+                  f"phase 22c: {path} is not in the reference layout with "
+                  f"policy-unit actions")
+            rows += len(z["obs"])
+            wins += int(z["reward"].max() >= 100.0)
+    # every step acts once and records its frame (no action is zero)
+    check(launches == {**{kk: 0 for kk in counters}, "K1": rows},
+          f"phase 22c: the tool launched {launches} for {rows} recorded "
+          f"steps")
+    print(f"phase 22c teacher ({card()}): record_teacher_demos on rand2, "
+          f"{len(kept)} episodes, {rows} steps ({wins} reached the goal) "
+          f"in {tool_s:.1f} s (host clock, {tool_s / max(rows, 1) * 1e3:.2f}"
+          f" ms a step: env and K1 at B=1); launches {launches}",
+          flush=True)
+    return {"launches": launches, "k1": k1, "episodes": len(kept),
+            "steps": rows, "successes": wins, "seconds": tool_s}
+
+
+def phase_generalization(out_dir, bc_fit):
+    """Phase 22d, a main path: generalization_eval.main on 22b's corpus
+    from the round-3 warm start (GEN_ARGS, GEN_BUDGET): the copy byte for
+    byte, the fine-tune's actor before its first update equal to it bit
+    for bit, every guided update PER_GUIDED's launches and K1 once a
+    collection step and once an evaluation step, finite losses,
+    final_actor.npz in JAX's key set, the summary's keys; then --skip-rl
+    on a 2-epoch fit of the same corpus."""
+    import torch
+
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.examples import generalization_eval as ge
+    from dgvit_tpu_torch.models import params_from_jax
+    from dgvit_tpu_torch.train import fused_train as ft
+
+    counters = kernel_counters()
+    warm_npz = Path(str(BC_WARM) + "_actor.npz")
+    warm_keys = set(load_params_npz(str(warm_npz)))
+    corpus = bc_fit["demo_dir"]
+    first = {}
+    real = ft.make_fused_round
+
+    def make_round(*a, **kw):
+        run = real(*a, **kw)
+
+        def first_seen(state, *ra, **rk):
+            if not first:
+                first.update({kk: v.detach().clone() for kk, v in
+                              state.actor.state_dict().items()})
+            return run(state, *ra, **rk)
+        return first_seen
+
+    out = Path(out_dir) / "gen"
+    argv = GEN_ARGS + GEN_BUDGET + ["--demos", corpus, "--bc-params",
+                                    str(BC_WARM)]
+    args = ge.parser().parse_args(argv)
+    for fn in counters.values():
+        fn.launches = 0
+    ft.make_fused_round = make_round
+    t0 = time.perf_counter()
+    try:
+        summary = ge.main(argv + ["--out", str(out), "--device", DEVICE],
+                          base=gen_base())
+    finally:
+        ft.make_fused_round = real
+    gen_s = time.perf_counter() - t0
+    launches = {kk: fn.launches for kk, fn in counters.items()}
+    rows = [json.loads(line) for line in next((out / "rl").glob(
+        "train_fused_*.jsonl")).read_text().splitlines()]
+    rounds = len(rows)
+    updates = rounds * args.n_envs * args.chunk
+    eval_steps = 2 * 200          # rrc and hospital, env.max_steps each
+    want = {**{kk: n * updates for kk, n in PER_GUIDED.items()},
+            "K1": rounds * args.chunk + eval_steps}
+    check(launches == want, f"phase 22d: the launcher launched {launches},"
+          f" expected {want} ({rounds} rounds of {updates // rounds} guided "
+          f"updates, then {eval_steps} evaluation steps)")
+    check((out / "il" / "bc_warm_actor.npz").read_bytes()
+          == warm_npz.read_bytes(), "phase 22d: the copied warm start is "
+          "not the source byte for byte")
+    warm = params_from_jax(load_params_npz(str(warm_npz)))
+    check(set(first) == set(warm) and all(
+        torch.equal(first[kk].cpu(), warm[kk]) for kk in warm),
+        "phase 22d: the fine-tune's actor before its first update is not "
+        "the warm start")
+    check(all(math.isfinite(r[kk]) for r in rows
+              for kk in ("qf1_loss", "policy_loss", "alpha")),
+          "phase 22d: the fine-tune's losses are not finite")
+    check(set(load_params_npz(str(out / "final_actor.npz"))) == warm_keys,
+          "phase 22d: final_actor.npz lacks JAX's keys")
+    check(list(summary) == GEN_KEYS and summary["sac_goals"] >= 0
+          and summary["recipe"] == "alpha0=0.05 expert=True gw=10.0",
+          f"phase 22d: the summary line {summary}")
+    print(f"phase 22d generalization_eval ({card()}): "
+          f"{' '.join(GEN_ARGS + GEN_BUDGET)} from the round-3 warm start on"
+          f" 22b's corpus: {rounds} rounds, {updates} guided updates, "
+          f"{rows[-1]['episodes']} episodes, then run_eval_vec of "
+          f"{args.eval_episodes} episodes on rrc and hospital, in "
+          f"{gen_s:.1f} s (host clock); summary {json.dumps(summary)}",
+          flush=True)
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bc_only = ge.main(["--demos", corpus, "--bc-epochs", "2", "--skip-rl",
+                       "--vec-eval", "--eval-episodes",
+                       str(args.eval_episodes), "--out",
+                       str(Path(out_dir) / "gen_bc"), "--device", DEVICE],
+                      base=gen_base())
+    bc_s = time.perf_counter() - t0
+    bc_launches = {kk: fn.launches for kk, fn in counters.items()}
+    want = {**{kk: 2 * n for kk, n in bc_fit["per_epoch"].items()},
+            "K1": eval_steps}
+    check(bc_launches == want and list(bc_only) == GEN_KEYS
+          and math.isfinite(bc_only["bc_val_rmse"])
+          and bc_only["recipe"] == "bc-only",
+          f"phase 22d --skip-rl: launches {bc_launches}, expected {want}; "
+          f"summary {bc_only}")
+    print(f"phase 22d --skip-rl ({card()}): a 2-epoch fit and the "
+          f"evaluations in {bc_s:.1f} s (host clock); summary "
+          f"{json.dumps(bc_only)}", flush=True)
+    return {"launches": launches, "rounds": rounds, "updates": updates,
+            "seconds": gen_s, "summary": summary,
+            "bc_only": {"launches": bc_launches, "seconds": bc_s,
+                        "summary": bc_only}}
+
+
+def imitation_launches(imitation, short):
+    """A kernel's launches on phase 22's paths, for the kernels line."""
+    return {"bc_fit": imitation["bc_fit"]["launches"][short],
+            "teacher": imitation["teacher"]["launches"][short],
+            "generalization":
+                imitation["generalization"]["launches"][short],
+            "generalization_bc_only":
+                imitation["generalization"]["bc_only"]["launches"][short]}
+
+
+def phase_imitation():
+    """Phase 22 (22a-22d; 22e is the kernels line's bc_fit, teacher and
+    generalization paths), on its own generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(IMITATION_SEED)
+    kernels = phase_bc_kernels(rng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        fit = phase_bc_fit(out_dir)
+        teacher = phase_teacher(out_dir)
+        gen = phase_generalization(out_dir, fit)
+    return {"bc_kernels": kernels, "bc_fit": fit, "teacher": teacher,
+            "generalization": gen}
+
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -6840,6 +7484,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
         recipes = phase_recipes(out_dir)
     faults = phase_faults(rng)
+    imitation = phase_imitation()
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -6869,6 +7514,8 @@ def main() -> int:
         "dtype": "bfloat16",
         "max_abs_err_fp32": worst["float32"],
         "by_batch": {str(b): v for b, v in times.items()},
+        "teacher_fp32": {str(b): v for b, v in
+                         imitation["teacher"]["k1"].items()},
     }]
     rows[0]["launches_by_path"] = {
         "serving": launches, "camera_to_action": camera_launches["K1"],
@@ -6880,7 +7527,8 @@ def main() -> int:
         "train_vec": on_device["train_vec"]["launches"]["K1"],
         **recipe_launches(recipes, "K1"),
         "aug_recipe": faults["aug_recipe"]["launches"]["K1"],
-        "sweep": faults["sweep"]["launches"]["K1"]}
+        "sweep": faults["sweep"]["launches"]["K1"],
+        **imitation_launches(imitation, "K1")}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -6910,7 +7558,11 @@ def main() -> int:
                         on_device["fused"]["guided_launches"][short],
                     "train_vec": on_device["train_vec"]["launches"][short],
                     **recipe_launches(recipes, short),
-                    "aug_recipe": faults["aug_recipe"]["launches"][short]},
+                    "aug_recipe": faults["aug_recipe"]["launches"][short],
+                    **imitation_launches(imitation, short)},
+                **({"bc_fp32": {str(b): t["kernels"][short] for b, t in
+                                imitation["bc_kernels"]["times"].items()}}
+                   if short != "K4" else {}),
             })
     name, src, replaces = KERNELS["K5"]
     rows.append({
@@ -6964,6 +7616,7 @@ def main() -> int:
     print(f"round-5 recipes (phase 20, {card()}): device PER "
           f"{json.dumps(device_per)}; {json.dumps(recipes)}")
     print(f"sensor faults (phase 21, {card()}): {json.dumps(faults)}")
+    print(f"imitation tier (phase 22, {card()}): {json.dumps(imitation)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

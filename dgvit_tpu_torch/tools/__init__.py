@@ -1,1 +1,1 @@
-"""Study tools of the port (the robustness sweep)."""
+"""Study tools of the port (the robustness sweep, the teacher's demos)."""

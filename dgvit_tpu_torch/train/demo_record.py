@@ -94,6 +94,25 @@ def scripted_pilot(obs, goal, t):
     return [v, w]
 
 
+def policy_unit_pilot(cfg):
+    """(source, to_env) for `record_episodes`: the scripted pilot's
+    command as a policy-unit action a = [clip(v / L_SCALE - 1), clip(w /
+    A_SCALE)] in [-1, 1]^2, and the deployment map a_in = [(a0 + 1)
+    L_SCALE, a1 A_SCALE] (main.py:320) back to the env, so BC targets and
+    a policy's actions share one convention (the JAX package's BC and
+    generalization examples)."""
+    l_s, a_s = cfg.env.linear_cmd_scale, cfg.env.angular_cmd_scale
+
+    def source(obs, goal, t):
+        v, w = scripted_pilot(obs, goal, t)
+        return [np.clip(v / l_s - 1.0, -1, 1), np.clip(w / a_s, -1, 1)]
+
+    def to_env(a):
+        return [(a[0] + 1.0) * l_s, a[1] * a_s]
+
+    return source, to_env
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="dgvit_tpu_torch demonstration recorder")

@@ -67,7 +67,13 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.examples.reference_scale_run",
               "dgvit_tpu_torch.envs.fault_aug",
               "dgvit_tpu_torch.envs.faults",
-              "dgvit_tpu_torch.tools.robustness_sweep"):
+              "dgvit_tpu_torch.tools.robustness_sweep",
+              "dgvit_tpu_torch.agents.bc",
+              "dgvit_tpu_torch.agents.teacher",
+              "dgvit_tpu_torch.train.train_bc",
+              "dgvit_tpu_torch.tools.record_teacher_demos",
+              "dgvit_tpu_torch.examples.generalization_eval",
+              "dgvit_tpu_torch.examples.bc_kinematic_demo"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
