@@ -289,6 +289,31 @@ per source, all at once), then
      phase 18's launches and K1 once a collection and an evaluation
      step, finite losses, final_actor.npz in JAX's key set, the summary
      line's keys; then --skip-rl on a 2-epoch fit, its launches exact;
+ 23. the reference's own configuration and the rest of the model zoo
+     (phase_zoo, its own generator), main paths: (a) the reference's
+     config.yaml through load_reference_yaml (a GoT actor, a CNN critic,
+     fp32, batch 32): one fp32 update through the kernels (its metrics
+     and every gradient) held to the float64-sum version of the plain
+     versions under phase 5's fp32 rule (EXACT_K), a tanh GELU failing
+     it; 5 updates in fp32 and 5 with compute_dtype bfloat16, each
+     launching K4, K2f x3, K2b x3, K3f and K3b; the CNN critic's Q with
+     cuDNN's TF32 on against off; train_rl.main --reference-config on the
+     card and train() with the bf16 config (exact launches an env step
+     and an update), then run_eval; (b) the SimpleViT family at its
+     published widths: K8 at (32, 8, 64, 64) and (32, 8, 256, 64) against
+     its plain version, fp32 and bf16, forward and backward, a mis-scaled
+     version failing, timed beside scaled_dot_product_attention; a ViT
+     actor with attn_impl="pallas" (K8 x2 a forward) against the plain
+     route; at 256 patches (256 x 320 frames, `auto`) 5 fp32 updates
+     through K8 (x10 each) against the plain version, and 5 in bf16; (c)
+     GaussianConvNet + CNN, Deterministic + CNN (4-frame stacks) and the
+     deterministic GoT pair, 5 updates each, alpha 0 for the
+     deterministic actors; (d) head-only fine-tuning: `trans` and
+     `fc_embed` bit-equal after 5 updates, no backward kernel, the heads
+     moved, and without the flags the trunks moved; (e) the flagship
+     actor as a reference checkpoint through torch_io.load_actor_pth,
+     acting through K1 bit-equal to the params_from_jax actor; each
+     family's update and act times at B=32;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -7319,6 +7344,699 @@ def phase_imitation():
             "generalization": gen}
 
 
+# --------------------------------------------------------------------------
+# phase 23: the reference's own configuration and the rest of the model zoo
+# --------------------------------------------------------------------------
+
+ZOO_SEED = SEED + 23          # phase 23's own generator
+ZOO_BATCH, ZOO_UPDATES = 32, 5    # the reference's BATCH_SIZE
+# the reference's config.yaml (config.yaml:1-63 as SURVEY.md reads it: a
+# GoT actor and a CNN critic, fp32), its episodes cut to ZOO_MAX_STEPS
+# steps; the train runs' episodes (23a)
+ZOO_MAX_STEPS, ZOO_EPISODES, ZOO_EVAL_EPISODES = 40, 10, 2
+REFERENCE_YAML = {
+    "SEED": 3407, "LATENT_FEATURES_SIZE": 64, "VIS_SENSOR": "fish_image",
+    "MAX_STEPS": ZOO_MAX_STEPS, "MAX_EPISODES": 800, "BATCH_SIZE": 32,
+    "LR_A": 1e-3, "LR_C": 1e-3, "GAMMA": 0.999, "TAU": 0.0005,
+    "BUFFER_SIZE": 30000, "PRE_TRAIN": True, "PRE_BUFFER": True,
+    "IF_TEST": False, "AUTO_TUNE": True, "FRAME_STACK": 4, "L_SCALE": 0.25,
+    "A_SCALE": 1.0,
+    "GoT-SAC": {"name": "gtrl", "actor_type": "GaussianTransformer",
+                "critic_type": "CNN", "block": 4, "head": 4}}
+# an update of the reference's configuration: the TD target's actor
+# forward (K4), the actor's gradient-bearing pass (K2f x3 + K3f, back
+# K3b + K2b x3); the CNN critic and its target run no kernel
+PER_ZOO_UPDATE = {**{k: 0 for k in PER_UPDATE}, "K4": 1, "K2f": 3,
+                  "K2b": 3, "K3f": 1, "K3b": 1}
+NO_KERNELS = {k: 0 for k in PER_UPDATE}
+# the SimpleViT pair at 256 patches: five attention-bearing forwards of
+# two blocks each (the TD target's actor and target critic, the critic
+# update, the actor step's actor and critic), K8 in each block
+PER_VIT_UPDATE = {**NO_KERNELS, "K8": 10}
+# K8 at the SimpleViT's shapes: 64 patches (attn_impl="pallas") and 256
+VIT_ATTN_SHAPES = ((ZOO_BATCH, 8, 64, 64), (ZOO_BATCH, 8, 256, 64))
+# the SimpleViT at 256 patches: JAX's factory hands the ViT no patch
+# size (its patches stay 16 x 20), so 256 patches are 256 x 320 frames
+VIT_LONG_IMAGE = (256, 320)
+# the largest parameter difference allowed between 5 fp32 ViT updates
+# through K8 and the same 5 through the plain version: about 6 times the
+# 3.49e-5 an H100 80GB HBM3 at 700 W read, a fifth of one Adam step (lr
+# 1e-3, which moves each parameter by about 1e-3 a step)
+VIT_UPDATE_PARAM_MAX = 2e-4
+
+
+def zoo_batch(rng, frame, b=None):
+    """A seeded replay batch on the card, ZOO_BATCH rows unless `b`:
+    frames in [0, 1] of `frame` shape, goals, actions in [-1, 1],
+    rewards."""
+    import torch
+
+    b = ZOO_BATCH if b is None else b
+    t = lambda a: torch.from_numpy(a.astype("float32")).to(DEVICE)
+    return {"obs": t(rng.uniform(0, 1, (b, *frame))),
+            "pobs": t(rng.uniform(0, 1, (b, 2))),
+            "act": t(rng.uniform(-1, 1, (b, 2))),
+            "rew": t(rng.normal(0, 1, (b, 1))),
+            "next_obs": t(rng.uniform(0, 1, (b, *frame))),
+            "next_pobs": t(rng.uniform(0, 1, (b, 2))),
+            "done": torch.zeros((b, 1), device=DEVICE)}
+
+
+def zoo_cfg(**model):
+    """Config() at the flagship widths with `model` overrides, the
+    reference's batch."""
+    from dgvit_tpu_torch.config import Config
+
+    return Config.from_dict({"model": model,
+                             "sac": {"batch_size": ZOO_BATCH}})
+
+
+def zoo_updates(cfg, batch, per_update, label, steps=None, dtype=None):
+    """`steps` learn steps of a fresh agent on `batch`, each launching
+    exactly `per_update` (None: any) with finite metrics; the median
+    update time (host clock, synchronized, steps 1 on) and the act time of
+    the batch (CUDA events). Returns (readings, agent, state)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+
+    steps = ZOO_UPDATES if steps is None else steps
+    agent = SACAgent(cfg, dtype=dtype, device=DEVICE, seed=ZOO_SEED)
+    state = agent.init_state()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    times, deltas = [], []
+    for step in range(steps):
+        before = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = agent.learn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        deltas.append({k: fn.launches - before[k]
+                       for k, fn in counters.items()})
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"phase 23 {label}: non-finite metrics at step {step}: {vals}")
+        check(per_update is None or deltas[-1] == per_update,
+              f"phase 23 {label} step {step} launched {deltas[-1]}, "
+              f"expected {per_update}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    obs, pobs = batch["obs"], batch["pobs"]
+    act_ms = cuda_ms(lambda: agent.act_batch(state.actor, obs, pobs,
+                                             evaluate=True), 10, runs=5)
+    out = {"update_ms": statistics.median(times[1:]) * 1e3,
+           "first_update_ms": times[0] * 1e3, "act_ms": act_ms,
+           "launches": launches, "per_update": deltas[-1],
+           "metrics": vals, "batch": int(obs.shape[0]),
+           "dtype": str(agent.dtype or torch.float32).split(".")[-1]}
+    print(f"phase 23 {label} ({card()}): {steps} updates at B="
+          f"{out['batch']} {out['dtype']}, median {out['update_ms']:.2f} ms "
+          f"an update (host clock, synchronized; first "
+          f"{out['first_update_ms']:.1f} ms), act {act_ms:.4f} ms (CUDA "
+          f"events); launches an update {deltas[-1]}; last metrics "
+          + ", ".join(f"{k} {v:.5g}" for k, v in vals.items()), flush=True)
+    return out, agent, state
+
+
+def update_tensors(agent, state, batch):
+    """One update of `state` in place: its metrics (0-d tensors) and the
+    gradient of every actor and critic parameter that has one."""
+    _, m = agent.learn(state, batch)
+    grads = [p.grad for k in ("actor", "critic")
+             for p in getattr(state, k).parameters() if p.grad is not None]
+    return [v.detach().float().reshape(1) for v in m.values()] + grads
+
+
+def reference_yaml(out_dir):
+    import yaml
+
+    path = Path(out_dir) / "config.yaml"
+    path.write_text(yaml.safe_dump(REFERENCE_YAML))
+    return str(path)
+
+
+def phase_reference_config(rng, out_dir):
+    """Phase 23a: the reference's configuration (load_reference_yaml: a
+    GoT actor, a CNN critic, fp32). One fp32 update at B=32 through the
+    kernels held to the float64-sum version of the plain versions under
+    phase 5's fp32 rule (EXACT_K), a tanh GELU failing it; 5 updates in
+    fp32 and in bf16, each launching PER_ZOO_UPDATE; the CNN critic's
+    TF32 difference; `train_rl.main(["--reference-config", ...])` on the
+    card, the bf16 config through `train`, then `run_eval`."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import load_reference_yaml
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.models.policies import GoTPolicy, QNetwork
+    from dgvit_tpu_torch.train import train_rl
+    from dgvit_tpu_torch.train.evaluate import run_eval
+
+    path = reference_yaml(out_dir)
+    cfg = load_reference_yaml(path)
+    check(cfg.model.critic_type == "CNN" and cfg.model.compute_dtype ==
+          "float32" and cfg.sac.batch_size == ZOO_BATCH,
+          "phase 23a: the translated config is not the reference's")
+    batch = zoo_batch(rng, (128, 160))
+    counters = kernel_counters()
+
+    def one_update():
+        agent = SACAgent(cfg, device=DEVICE, seed=ZOO_SEED)
+        state = agent.init_state()
+        check(isinstance(state.actor, GoTPolicy)
+              and isinstance(state.critic, QNetwork),
+              "phase 23a: not a GoT actor beside a CNN critic")
+        return update_tensors(agent, state, batch)
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = one_update()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches == PER_ZOO_UPDATE, f"phase 23a: the fp32 update "
+          f"launched {launches}, expected {PER_ZOO_UPDATE}")
+    with plain_kernels():
+        ref = one_update()
+        ex = exact(one_update)
+        with other_gelu():
+            bad = one_update()
+    check(all(fn.launches == launches[k] for k, fn in counters.items()),
+          "phase 23a: the plain update launched a kernel")
+    k = EXACT_K["fp32"]
+    ok, got, limit = restated(rel_max, TRAIN_F32_MAX, k, out, ref, ex)
+    bad_ok, bad_got, _ = restated(rel_max, TRAIN_F32_MAX, k, bad, ref, ex)
+    own = rel_max(ref, ex)
+    check_reading = {"got": got, "limit": limit, "plain": own,
+                     "old": rel_max(out, ref), "tanh_gelu": bad_got,
+                     "tensors": len(out), "pass": ok,
+                     "tanh_gelu_pass": bad_ok}
+    print(f"phase 23a fp32 update of the reference's configuration, B="
+          f"{ZOO_BATCH}: metrics and {len(out) - 6} gradients, largest "
+          f"max|err|/L against float64 sums {got:.3e} (limit max("
+          f"{TRAIN_F32_MAX:g}, {k:g} x plain {own:.3e}) = {limit:.3e}), old "
+          f"reading vs plain {check_reading['old']:.3e}; "
+          f"{'passes' if ok else 'FAILS'}; wrong (tanh GELU) {bad_got:.3e},"
+          f" {'passes' if bad_ok else 'FAILS'} (must fail)", flush=True)
+    record("reference config update fp32", k=k, **check_reading)
+    check(ok, "phase 23a: the reference config's update through the "
+          "kernels disagrees with the float64-sum version")
+    check(not bad_ok, "phase 23a: the fp32 rule passes a wrong update "
+          "(tanh GELU)")
+
+    runs = {}
+    runs["fp32"], agent, state = zoo_updates(
+        cfg, batch, PER_ZOO_UPDATE, "23a reference config fp32")
+    cfg_bf = load_reference_yaml(path)
+    cfg_bf.model.compute_dtype = "bfloat16"
+    runs["bf16"], _, _ = zoo_updates(cfg_bf, batch, PER_ZOO_UPDATE,
+                                     "23a reference config bf16")
+
+    # the CNN critic's convolutions with TF32 on (PyTorch's default)
+    # against full fp32 (this script's setting), on the same batch
+    with torch.no_grad():
+        args = (batch["obs"], batch["pobs"], batch["act"])
+        full = torch.cat(state.critic(*args), 1)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = torch.cat(state.critic(*args), 1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    tf32_rel = ((tf32 - full).abs().max()
+                / full.abs().max().clamp(min=1e-30)).item()
+    print(f"phase 23a CNN critic fp32 at B={ZOO_BATCH}, cuDNN with TF32 on "
+          f"against off: Q max|diff|/L {tf32_rel:.3e}", flush=True)
+
+    # the entry points: main on the card, train with the bf16 config
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    main_dir = Path(out_dir) / "main"
+    train_rl.main(["--reference-config", path, "--episodes",
+                   str(ZOO_EPISODES), "--out", str(main_dir),
+                   *(["--device", DEVICE] if DEVICE != "cuda" else [])])
+    main_s = time.perf_counter() - t0
+    main_launches = {k: fn.launches for k, fn in counters.items()}
+    updates = main_launches["K4"]
+    check(updates >= ZOO_UPDATES and main_launches["K1"] > 0
+          and all(main_launches[k] == n * updates
+                  for k, n in PER_ZOO_UPDATE.items() if k != "K1"),
+          f"phase 23a: train_rl.main launched {main_launches}")
+    for fn in counters.values():
+        fn.launches = 0
+    timings = {}
+    env = KinematicNavEnv(seed=SEED, world="rrc")
+    out_bf = train_rl.train(cfg_bf, env, out_dir=str(Path(out_dir) / "bf16"),
+                            max_episodes=ZOO_EPISODES, device=DEVICE,
+                            timings=timings)
+    bf_launches = {k: fn.launches for k, fn in counters.items()}
+    n_up, n_env = timings["updates"], timings["env_steps"]
+    check(n_up >= ZOO_UPDATES and bf_launches["K1"] == n_env
+          and all(bf_launches[k] == n * n_up
+                  for k, n in PER_ZOO_UPDATE.items() if k != "K1"),
+          f"phase 23a: train (bf16) launched {bf_launches} for {n_env} env "
+          f"steps and {n_up} updates")
+    for fn in counters.values():
+        fn.launches = 0
+    actor = load_params_npz(str(next((main_dir / "models").glob(
+        "*_actor.npz"))))
+    report = run_eval(cfg, KinematicNavEnv(seed=SEED, world="rrc"), actor,
+                      max_episodes=ZOO_EVAL_EPISODES,
+                      out_dir=str(Path(out_dir) / "eval"), device=DEVICE)
+    eval_launches = {k: fn.launches for k, fn in counters.items()}
+    check(eval_launches["K1"] > 0 and sum(eval_launches.values())
+          == eval_launches["K1"], f"phase 23a: run_eval launched "
+          f"{eval_launches}")
+    print(f"phase 23a entry points ({card()}): train_rl.main "
+          f"--reference-config, {ZOO_EPISODES} episodes of at most "
+          f"{ZOO_MAX_STEPS} steps in {main_s:.1f} s, launches "
+          f"{main_launches}; train with the bf16 config: {n_env} env steps, "
+          f"{n_up} updates, launches {bf_launches}, {out_bf['episodes']} "
+          f"episodes; run_eval {ZOO_EVAL_EPISODES} episodes: launches "
+          f"{eval_launches}, successes {report['successes']}", flush=True)
+    return {"check": check_reading, "updates": runs, "tf32_q_rel": tf32_rel,
+            "launches": {"reference_config_main": main_launches,
+                         "reference_config_train_bf16": bf_launches,
+                         "reference_config_run_eval": eval_launches,
+                         "reference_config_updates_fp32":
+                             runs["fp32"]["launches"],
+                         "reference_config_updates_bf16":
+                             runs["bf16"]["launches"]},
+            "train_bf16": {"env_steps": n_env, "updates": n_up},
+            "main_s": main_s}
+
+
+def vit_attention_checks(rng):
+    """K8 at the SimpleViT's shapes against its plain version, fp32 and
+    bf16, forward and backward (phase 15's limits), a mis-scaled version
+    failing them; times beside the plain version, the bound and
+    scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from dgvit_tpu_torch.ops.attention import (attention_fused,
+                                               attention_plain)
+
+    worst, times = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for shape in VIT_ATTN_SHAPES:
+            s = shape[-1] ** -0.5
+            q, k, v, dy = (torch.from_numpy(rng.standard_normal(shape)
+                                            .astype("float32"))
+                           .to(DEVICE).to(dt) for _ in range(4))
+            out, ref = attention_fused(q, k, v, s), attention_plain(q, k, v,
+                                                                    s)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(attention_fused(*leaves, s), leaves,
+                                        dy)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            ref_grads = torch.autograd.grad(attention_plain(*leaves, s),
+                                            leaves, dy)
+            wrong = attention_plain(q, k, v, s * s)
+            scale = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            gerr = rel_max(grads, ref_grads)
+            if dtype == "float32":
+                ok = err <= TRAIN_F32_MAX * scale and gerr <= TRAIN_F32_MAX
+                caught = ((wrong - ref).abs().max().item()
+                          > TRAIN_F32_MAX * scale)
+            else:
+                e, w = TrainErrors(), TrainErrors()
+                e.add([(out, ref), *zip(grads, ref_grads)])
+                w.add([(wrong, ref)])
+                ok, caught = e.ok, not w.ok
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            print(f"phase 23b K8 vs plain {dtype} {shape}: max|err| "
+                  f"{err:.3e} (max|ref| {scale:.3e}), backward max|err|/L "
+                  f"{gerr:.3e} {'ok' if ok else 'FAIL'}; wrong (scale 1 / "
+                  f"D) {'fails' if caught else 'PASSES'}", flush=True)
+            check(ok, f"phase 23b: K8 disagrees with its plain version "
+                  f"({dtype} {shape})")
+            check(caught, f"phase 23b: K8's limits pass a wrong version "
+                  f"({dtype} {shape})")
+            bnd, by = k8_bound(shape, dtype)
+            kern = lambda: attention_fused(q, k, v, s)
+            times[f"{dtype} {shape}"] = t = dict(
+                ms=cuda_ms(kern, 10, runs=5),
+                plain_ms=cuda_ms(lambda: attention_plain(q, k, v, s), 5,
+                                 runs=5),
+                bound_ms=bnd, bound_by=by,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=s), 10, runs=5))
+            print(f"phase 23b K8 {dtype} {shape} ({card()}): kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+                  f"scaled_dot_product_attention {t['library_ms']:.4f} ms "
+                  f"(CUDA events)", flush=True)
+    return worst, times
+
+
+def phase_vit(rng):
+    """Phase 23b: the SimpleViT family at its published widths (vit_dim
+    256, depth 2, 8 heads x 64, MLP 2048). K8 at (32, 8, 64, 64) and
+    (32, 8, 256, 64); build_actor(cfg, attn_impl="pallas") at 64 patches,
+    its actions through K8 (K8 x2 a forward) against the plain route, fp32
+    and bf16; at 256 patches (256 x 320 frames), where `auto` takes K8, 5
+    fp32 SAC updates through K8 against the same 5 through the plain
+    version (metrics and parameters), and 5 bf16 updates."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.models import build_actor
+
+    worst, times = vit_attention_checks(rng)
+    counters = kernel_counters()
+    cfg = zoo_cfg(backbone="simple_vit")
+    obs = torch.from_numpy(rng.uniform(0, 1, (ZOO_BATCH, 128, 160)).astype(
+        "float32")).to(DEVICE)
+    goal = torch.from_numpy(rng.uniform(-1, 1, (ZOO_BATCH, 2)).astype(
+        "float32")).to(DEVICE)
+    acting, acting_launches = {}, {k: 0 for k in counters}
+    gen = torch.Generator().manual_seed(ZOO_SEED)
+    sd = build_actor(cfg, generator=gen).state_dict()
+    for fn in counters.values():
+        fn.launches = 0
+    for dtype, tol in (("float32", ACTION_FP32), ("bfloat16", ACTION_BF16)):
+        pol = build_actor(cfg, dtype=getattr(torch, dtype),
+                          attn_impl="pallas")
+        pol.load_state_dict(sd)
+        pol = pol.to(DEVICE).eval()
+        before = {k: fn.launches for k, fn in counters.items()}
+        with torch.no_grad():
+            a = torch.tanh(pol(obs, goal, inference=True)[0])
+            delta = {k: fn.launches - before[k]
+                     for k, fn in counters.items()}
+            with plain_kernels():
+                p = torch.tanh(pol(obs, goal, inference=True)[0])
+        for k, n in delta.items():
+            acting_launches[k] += n
+        n_k8 = delta["K8"]
+        err = (a - p).abs().max().item()
+        acting[dtype] = {"max_abs_err": err, "k8_launches": n_k8,
+                         "act_ms": cuda_ms(lambda: pol(obs, goal,
+                                                       inference=True),
+                                           10, runs=5)}
+        print(f"phase 23b ViT actor attn_impl='pallas' {dtype}, 64 patches,"
+              f" B={ZOO_BATCH}: K8 x{n_k8} a forward, actions vs the plain "
+              f"route max|err| {err:.3e} (limit {tol:g}); act "
+              f"{acting[dtype]['act_ms']:.4f} ms ({card()}, CUDA events)",
+              flush=True)
+        check(delta == {**NO_KERNELS, "K8": 2} and err <= tol,
+              f"phase 23b: the ViT actor's {dtype} actions through K8 "
+              f"(launches {delta}) disagree with the plain route")
+
+    long_cfg = zoo_cfg(backbone="simple_vit",
+                       image_size=list(VIT_LONG_IMAGE))
+    batch = zoo_batch(rng, VIT_LONG_IMAGE)
+
+    def five():
+        agent = SACAgent(long_cfg, device=DEVICE, seed=ZOO_SEED)
+        state = agent.init_state()
+        metrics = []
+        for _ in range(ZOO_UPDATES):
+            state, m = agent.learn(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, {f"{k}.{n}": p.detach().clone()
+                         for k in ("actor", "critic")
+                         for n, p in getattr(state, k).named_parameters()}
+
+    def differences(other):
+        om, op = other
+        return (max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                    for a, b in zip(km, om) for k in a),
+                max((kp[n] - op[n]).abs().max().item() for n in kp))
+
+    for fn in counters.values():
+        fn.launches = 0
+    km, kp = five()
+    updates_launches = {k: fn.launches for k, fn in counters.items()}
+    with plain_kernels():
+        worst_m, worst_p = differences(five())
+        # planted fault: the plain route with the scores scaled by 1 / D
+        # where the model asks 1 / sqrt(D)
+        from dgvit_tpu_torch.ops import attention as att
+        launch = att._launch
+        att._launch = lambda q, k, v, s: att.attention_plain(q, k, v, s * s)
+        try:
+            wrong_m, wrong_p = differences(five())
+        finally:
+            att._launch = launch
+    want = {k: ZOO_UPDATES * n for k, n in PER_VIT_UPDATE.items()}
+    print(f"phase 23b ViT SAC, 256 patches ({VIT_LONG_IMAGE} frames), fp32,"
+          f" B={ZOO_BATCH}: {ZOO_UPDATES} updates through K8 (launches "
+          f"{updates_launches}) against the plain version: metrics largest "
+          f"relative difference {worst_m:.3e} (limit {UPDATE_RTOL:g}), "
+          f"parameters max|diff| {worst_p:.3e} (limit "
+          f"{VIT_UPDATE_PARAM_MAX:g}); planted fault (scores scaled 1 / D): "
+          f"metrics {wrong_m:.3e}, parameters {wrong_p:.3e} "
+          f"({'fails' if wrong_p > VIT_UPDATE_PARAM_MAX else 'PASSES'} the "
+          f"parameter limit)", flush=True)
+    check(updates_launches == want,
+          f"phase 23b: 5 ViT updates launched {updates_launches}, "
+          f"expected {want}")
+    check(worst_m <= UPDATE_RTOL and worst_p <= VIT_UPDATE_PARAM_MAX,
+          "phase 23b: the ViT updates through K8 disagree with the plain "
+          "version")
+    check(wrong_p > VIT_UPDATE_PARAM_MAX, "phase 23b: the parameter limit "
+          "passes the updates of a wrongly scaled attention")
+    runs = {}
+    runs["fp32"], _, _ = zoo_updates(long_cfg, batch, PER_VIT_UPDATE,
+                                     "23b SimpleViT 256 patches fp32")
+    runs["bf16"], _, _ = zoo_updates(long_cfg, batch, PER_VIT_UPDATE,
+                                     "23b SimpleViT 256 patches bf16",
+                                     dtype=torch.bfloat16)
+    short_batch = zoo_batch(rng, (128, 160))
+    runs["fp32_64_patches"], _, _ = zoo_updates(
+        cfg, short_batch, NO_KERNELS, "23b SimpleViT 64 patches fp32 (auto:"
+        " the plain route)")
+    return {"k8_worst": worst, "k8_times": times, "acting": acting,
+            "updates_vs_plain": {"metrics_rel": worst_m,
+                                 "params_max": worst_p,
+                                 "params_limit": VIT_UPDATE_PARAM_MAX,
+                                 "wrong_scale_metrics_rel": wrong_m,
+                                 "wrong_scale_params_max": wrong_p},
+            "updates": runs,
+            "launches": {"vit_pallas_acting": acting_launches,
+                         "vit_256_updates_vs_plain": updates_launches,
+                         "vit_256_updates_fp32": runs["fp32"]["launches"],
+                         "vit_256_updates_bf16": runs["bf16"]["launches"]}}
+
+
+def phase_cnn_deterministic(rng):
+    """Phase 23c: the CNN and deterministic families at B=32: 5 fp32
+    updates of GaussianConvNet + CNN (no kernel) and of
+    DeterministicTransformer + Transformer (the GoT pair: PER_UPDATE's
+    launches), alpha 0 for the deterministic actor; the Deterministic
+    actor (a CNN on (B, H, W, 4) stacks), which SACAgent refuses by name
+    as the JAX package's update fails on it, acts on such stacks (no
+    kernel)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.models import build_actor
+
+    frames = (128, 160)
+    runs = {}
+    for key, label, model, per in (
+            ("gaussian_cnn", "GaussianConvNet + CNN",
+             dict(actor_type="GaussianConvNet", critic_type="CNN"),
+             NO_KERNELS),
+            ("deterministic_got", "DeterministicTransformer + Transformer",
+             dict(actor_type="DeterministicTransformer"), PER_UPDATE)):
+        runs[key], agent, _ = zoo_updates(zoo_cfg(**model),
+                                          zoo_batch(rng, frames), per,
+                                          f"23c {label}")
+        if agent.deterministic_actor:
+            check(runs[key]["metrics"]["alpha"] == 0.0,
+                  f"phase 23c: {label} has alpha "
+                  f"{runs[key]['metrics']['alpha']}")
+    cfg = zoo_cfg(actor_type="Deterministic", critic_type="CNN")
+    try:
+        SACAgent(cfg, device=DEVICE)
+        refused = False
+    except NotImplementedError as e:
+        refused = "Deterministic" in str(e)
+    check(refused, "phase 23c: SACAgent did not refuse the Deterministic "
+          "actor by name")
+    pol = build_actor(cfg, generator=torch.Generator().manual_seed(
+        ZOO_SEED)).to(DEVICE).eval()
+    batch = zoo_batch(rng, (*frames, 4))
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        a = pol(batch["obs"], batch["pobs"], inference=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(tuple(a.shape) == (ZOO_BATCH, 2) and bool(torch.isfinite(a).all())
+          and float(a.abs().max()) <= 1.0 and launches == NO_KERNELS,
+          f"phase 23c: the Deterministic actor's action {tuple(a.shape)}, "
+          f"launches {launches}")
+    act_ms = cuda_ms(lambda: pol(batch["obs"], batch["pobs"],
+                                 inference=True), 10, runs=5)
+    runs["deterministic_cnn_act"] = {"act_ms": act_ms, "launches": launches,
+                                     "batch": ZOO_BATCH, "refused": refused}
+    print(f"phase 23c Deterministic actor ({card()}): SACAgent refuses it "
+          f"by name; act on ({ZOO_BATCH}, 128, 160, 4) stacks fp32 "
+          f"{act_ms:.4f} ms (CUDA events), launches {launches}", flush=True)
+    return runs
+
+
+def phase_attention_fix(rng):
+    """Phase 23d: head-only fine-tuning on the card: the GoT pair with
+    train.policy_attention_fix and critic_attention_fix, 5 fp32 updates:
+    `trans` and `fc_embed` bit-equal after them, the heads moved, no
+    backward kernel launched (the frozen trunks take none); without the
+    flags the trunks move."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+
+    batch = zoo_batch(rng, (128, 160))
+    out = {}
+    for fix in (True, False):
+        cfg = Config.from_dict({"sac": {"batch_size": ZOO_BATCH},
+                                "train": {"policy_attention_fix": fix,
+                                          "critic_attention_fix": fix}})
+        fresh = SACAgent(cfg, device=DEVICE, seed=ZOO_SEED).init_state()
+        before = {k: {n: p.detach().clone() for n, p in
+                      getattr(fresh, k).named_parameters()}
+                  for k in ("actor", "critic")}
+        label = f"23d GoT pair, attention fix {'on' if fix else 'off'}"
+        run, _, state = zoo_updates(cfg, batch, None, label)
+        frozen_moved, heads_moved = [], []
+        for k in ("actor", "critic"):
+            for n, p in getattr(state, k).named_parameters():
+                moved = not torch.equal(p, before[k][n])
+                if n.startswith(("trans.", "fc_embed.")):
+                    frozen_moved += [f"{k}.{n}"] if moved else []
+                elif moved:
+                    heads_moved.append(f"{k}.{n}")
+        run.update(frozen_moved=len(frozen_moved),
+                   heads_moved=len(heads_moved))
+        print(f"phase 23d attention fix {'on' if fix else 'off'}: "
+              f"{len(frozen_moved)} trunk / fc_embed tensors moved, "
+              f"{len(heads_moved)} head tensors moved", flush=True)
+        check(heads_moved, "phase 23d: the heads did not train")
+        if fix:
+            check(not frozen_moved, f"phase 23d: frozen tensors moved: "
+                  f"{frozen_moved[:4]}")
+            check(run["per_update"]["K2b"] == run["per_update"]["K3b"] == 0,
+                  "phase 23d: a frozen trunk launched a backward kernel")
+        else:
+            check(frozen_moved, "phase 23d: the trunks did not train "
+                  "without the flags")
+        out["on" if fix else "off"] = run
+    return out
+
+
+def reference_state_dict(flat):
+    """The reference's GoTPolicy state dict (GoalFormer.py module paths,
+    torch layouts, the cls_token its forward never reads) holding the
+    JAX-layout actor `flat`."""
+    import numpy as np
+    import torch
+
+    sd, t = {}, lambda a: torch.from_numpy(np.ascontiguousarray(a))
+
+    def linear(ref, key):
+        sd[f"{ref}.weight"] = t(flat[f"{key}/kernel"].T)
+        if f"{key}/bias" in flat:
+            sd[f"{ref}.bias"] = t(flat[f"{key}/bias"])
+
+    for name in ("fc_embed", "fc1", "fc2", "mean_linear", "log_std_linear"):
+        linear(name, name)
+    linear("trans.to_patch_embedding.1", "trans/patch_embed")
+    sd["trans.pos_embedding"] = t(flat["trans/pos_embedding"])
+    sd["trans.cls_token"] = torch.zeros(1, 1, flat["trans/norm_out/g"].size)
+    sd["trans.layer_norm.g"] = t(flat["trans/norm_out/g"])
+    i = 0
+    while f"trans/transformer/block_{i}/attn_norm/scale" in flat:
+        jb, lp = f"trans/transformer/block_{i}", f"trans.transformer.layers.{i}"
+        for ref, key in (("0.norm", "attn_norm"), ("1.norm", "ff_norm")):
+            sd[f"{lp}.{ref}.weight"] = t(flat[f"{jb}/{key}/scale"])
+            sd[f"{lp}.{ref}.bias"] = t(flat[f"{jb}/{key}/bias"])
+        for ref, key in (("0.fn.to_qkv", "attn/to_qkv"),
+                         ("0.fn.to_out.0", "attn/to_out"),
+                         ("1.fn.net.0", "ff/fc1"), ("1.fn.net.3", "ff/fc2")):
+            linear(f"{lp}.{ref}", f"{jb}/{key}")
+        i += 1
+    return sd
+
+
+def phase_torch_io(out_dir):
+    """Phase 23e: the trained flagship actor as a reference checkpoint
+    (reference_state_dict, saved with torch.save) loaded through
+    torch_io.load_actor_pth: every tensor equal to params_from_jax's, and
+    its bf16 actions through K1 on the golden frames bit-equal to those of
+    the params_from_jax actor."""
+    import torch
+
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.models import build_actor, params_from_jax
+    from dgvit_tpu_torch.models import torch_io
+
+    flat = load_params_npz(str(ACTOR))
+    path = Path(out_dir) / "reference_actor.pth"
+    torch.save(reference_state_dict(flat), path)
+    loaded = torch_io.load_actor_pth(str(path))
+    direct = params_from_jax(flat)
+    check(set(loaded) == set(direct) and all(
+        torch.equal(loaded[k], direct[k]) for k in direct),
+        "phase 23e: load_actor_pth's parameters differ from params_from_jax")
+    obs, goal = (torch.from_numpy(a).to(DEVICE) for a in golden_inputs())
+    acts, counters = [], kernel_counters()
+    before = counters["K1"].launches
+    for sd in (loaded, direct):
+        pol = build_actor(Config(), dtype=torch.bfloat16)
+        pol.load_state_dict(sd)
+        with torch.no_grad():
+            acts.append(torch.tanh(pol.to(DEVICE).eval()(
+                obs, goal, inference=True)[0]))
+    k1 = counters["K1"].launches - before
+    same = torch.equal(*acts)
+    print(f"phase 23e torch_io: a reference checkpoint of the flagship actor"
+          f" through load_actor_pth acts through K1 (x{k1}) bit-equal to "
+          f"the params_from_jax actor: {same}", flush=True)
+    check(k1 == 2 and same, "phase 23e: the torch_io actor acts otherwise")
+    return {"k1_launches": k1, "bit_equal": same}
+
+
+def phase_zoo():
+    """Phase 23 (23a-23e), on its own generator; each sub-phase's time."""
+    import numpy as np
+
+    rng = np.random.default_rng(ZOO_SEED)
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        for key, fn in (("reference_config",
+                         lambda: phase_reference_config(rng, out_dir)),
+                        ("vit", lambda: phase_vit(rng)),
+                        ("cnn_deterministic",
+                         lambda: phase_cnn_deterministic(rng)),
+                        ("attention_fix", lambda: phase_attention_fix(rng)),
+                        ("torch_io", lambda: phase_torch_io(out_dir))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            secs[key] = time.perf_counter() - t0
+            print(f"phase 23 {key}: {secs[key]:.1f} s", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def zoo_launches(zoo, short):
+    """The launches of one kernel on phase 23's paths, by path."""
+    paths = {**zoo["reference_config"]["launches"], **zoo["vit"]["launches"],
+             **{f"zoo_{k}": v["launches"]
+                for k, v in zoo["cnn_deterministic"].items()},
+             **{f"zoo_attention_fix_{k}": v["launches"]
+                for k, v in zoo["attention_fix"].items()}}
+    return {k: v[short] for k, v in paths.items()}
+
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -7485,6 +8203,7 @@ def main() -> int:
         recipes = phase_recipes(out_dir)
     faults = phase_faults(rng)
     imitation = phase_imitation()
+    zoo = phase_zoo()
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -7528,7 +8247,8 @@ def main() -> int:
         **recipe_launches(recipes, "K1"),
         "aug_recipe": faults["aug_recipe"]["launches"]["K1"],
         "sweep": faults["sweep"]["launches"]["K1"],
-        **imitation_launches(imitation, "K1")}
+        **imitation_launches(imitation, "K1"),
+        **zoo_launches(zoo, "K1")}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -7559,7 +8279,8 @@ def main() -> int:
                     "train_vec": on_device["train_vec"]["launches"][short],
                     **recipe_launches(recipes, short),
                     "aug_recipe": faults["aug_recipe"]["launches"][short],
-                    **imitation_launches(imitation, short)},
+                    **imitation_launches(imitation, short),
+                    **zoo_launches(zoo, short)},
                 **({"bc_fp32": {str(b): t["kernels"][short] for b, t in
                                 imitation["bc_kernels"]["times"].items()}}
                    if short != "K4" else {}),
@@ -7602,9 +8323,13 @@ def main() -> int:
             **attn_times[short][shape],
             "shape": shape, "dtype": "bfloat16",
             "max_abs_err_fp32": attn_worst[(short, "float32")],
-            "launches_by_path": {k: v[short]
-                                 for k, v in composed_launches.items()},
+            "launches_by_path": {
+                **{k: v[short] for k, v in composed_launches.items()},
+                **zoo_launches(zoo, short)},
             "by_shape": attn_times[short],
+            **({"vit": zoo["vit"]["k8_times"],
+                "vit_max_abs_err": zoo["vit"]["k8_worst"]}
+               if short == "K8" else {}),
         })
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
@@ -7617,6 +8342,7 @@ def main() -> int:
           f"{json.dumps(device_per)}; {json.dumps(recipes)}")
     print(f"sensor faults (phase 21, {card()}): {json.dumps(faults)}")
     print(f"imitation tier (phase 22, {card()}): {json.dumps(imitation)}")
+    print(f"model zoo (phase 23, {card()}): {json.dumps(zoo)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

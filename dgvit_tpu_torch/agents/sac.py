@@ -53,10 +53,31 @@ first `sac.aug_warmup` updates; with `sac.aug_actor` False the actor step
 raw frames. The offsets come from the state's `aug_generator`, so the
 dropout masks and action noise of an update are those of the same update
 without the shift. Not here: `critic_latent_reuse`.
+
+Every actor and critic of the zoo (`models/policies.py`) runs these
+updates, as in the JAX package:
+  * the actor step evaluates the updated critic with its parameters
+    frozen: the GoT critic as its no-grad trunk (K4) and its heads, any
+    other critic whole (JAX sac.py:449-453);
+  * a deterministic actor (`Deterministic*`) has alpha 0 and no
+    temperature step (JAX sac.py:171-174), explores with
+    `distributions.deterministic_sample` (mean plus clip(N(0, 1) x 0.1,
+    +-0.25), log_prob 0) and acts with its own squashed output;
+  * `train.policy_attention_fix` / `critic_attention_fix` (the
+    reference's P_ATTENTION_FIX / C_ATTENTION_FIX; the Transformer actors
+    and the Transformer critic only) freeze `trans` and `fc_embed`: their
+    parameters stop requiring gradients and the Adam holds the heads
+    alone, as optax.multi_transform with set_to_zero gives them
+    exactly-zero updates and no optimizer state in JAX;
+  * the `Deterministic` actor (a 4-channel CNN on (B, H, W, 4) frame
+    stacks) raises by name: the JAX package's init_state builds the critic
+    beside it for single frames, which its own update cannot feed, and no
+    env loop builds such stacks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from dataclasses import dataclass
@@ -70,8 +91,8 @@ from dgvit_tpu_torch.core.device import resolve_device
 from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.models import distributions
 from dgvit_tpu_torch.models.jax_io import params_from_jax, params_to_jax
-from dgvit_tpu_torch.models.policies import (GoTPolicy, GoTQNetwork,
-                                             build_actor, build_critic)
+from dgvit_tpu_torch.models.policies import (GoTQNetwork, build_actor,
+                                             build_critic)
 from dgvit_tpu_torch.ops.augment import random_shift
 from dgvit_tpu_torch.replay.staging import HostStager
 
@@ -81,13 +102,29 @@ PLAIN_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
                  "alpha", "entropy")
 PER_METRICS = PLAIN_METRICS[:-1]
 AUG_STREAM = 0xD7   # step_key tag of the shift offsets' generator
+FROZEN = ("trans", "fc_embed")   # what head-only fine-tuning keeps fixed
+
+
+@contextlib.contextmanager
+def frozen(module: torch.nn.Module):
+    """The module's parameters stop requiring gradients inside the block
+    (each flag restored after it)."""
+    params = list(module.parameters())
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield module
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
 
 
 @dataclass
 class SACState:
-    actor: GoTPolicy
-    critic: GoTQNetwork
-    critic_target: GoTQNetwork
+    actor: torch.nn.Module          # any actor of models/policies.py
+    critic: torch.nn.Module
+    critic_target: torch.nn.Module
     actor_opt: torch.optim.Adam
     critic_opt: torch.optim.Adam
     log_alpha: torch.Tensor         # fp32 scalar, the auto-tuned temperature
@@ -129,7 +166,23 @@ class SACAgent:
         self.gw_final = (None if s.guidence_weight_final is None
                          else float(s.guidence_weight_final))
         self.gw_decay_steps = int(s.guidence_decay_steps or 0)
-        self.obs_ndim = 3 if cfg.model.patch_mode == "channels" else 2
+        m = cfg.model
+        if m.actor_type == "Deterministic":
+            raise NotImplementedError(
+                "SACAgent: the Deterministic (4-channel CNN) actor takes "
+                "(H, W, 4) frame stacks, while the critic is built for "
+                "single frames and no env loop builds such stacks (the JAX "
+                "package's update fails on this family)")
+        # unbatched observation rank: (C, H, W) in channels mode, else (H, W)
+        self.obs_ndim = 3 if m.patch_mode == "channels" else 2
+        self.deterministic_actor = m.actor_type.startswith("Deterministic")
+        if self.deterministic_actor:
+            self.auto_tune, self.fixed_alpha = False, 0.0
+        tcfg = cfg.train
+        self.actor_fix = (tcfg.policy_attention_fix
+                          and m.actor_type.endswith("Transformer"))
+        self.critic_fix = (tcfg.critic_attention_fix
+                           and m.critic_type == "Transformer")
         self.aug_shift = int(s.aug_shift)
         self.aug_actor = bool(s.aug_actor)
         self.aug_warmup = int(s.aug_warmup)
@@ -141,6 +194,13 @@ class SACAgent:
         actor = build_actor(self.cfg, self.dtype, g).to(self.device)
         critic = build_critic(self.cfg, self.dtype, g).to(self.device)
         target = copy.deepcopy(critic).requires_grad_(False)
+        for module, fix in ((actor, self.actor_fix),
+                            (critic, self.critic_fix)):
+            if fix:
+                for name in FROZEN:
+                    getattr(module, name).requires_grad_(False)
+        trainable = lambda module: [p for p in module.parameters()
+                                    if p.requires_grad]
         log_alpha = torch.tensor(math.log(self.cfg.sac.alpha),
                                  dtype=torch.float32, device=self.device,
                                  requires_grad=True)
@@ -148,8 +208,8 @@ class SACAgent:
         adam = lambda params, lr: torch.optim.Adam(params, lr=lr, eps=1e-8)
         return SACState(
             actor=actor, critic=critic, critic_target=target,
-            actor_opt=adam(actor.parameters(), s.lr_actor),
-            critic_opt=adam(critic.parameters(), s.lr_critic),
+            actor_opt=adam(trainable(actor), s.lr_actor),
+            critic_opt=adam(trainable(critic), s.lr_critic),
             log_alpha=log_alpha, alpha_opt=adam([log_alpha], s.lr_alpha),
             itera=0,
             generator=torch.Generator(self.device).manual_seed(seed),
@@ -160,21 +220,40 @@ class SACAgent:
     # acting
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def act_batch(self, actor: GoTPolicy, obs, pobs,
+    def act_batch(self, actor: torch.nn.Module, obs, pobs,
                   generator: Optional[torch.Generator] = None,
                   evaluate: bool = False,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Batched action of an actor, no dropout, through the whole-trunk
-        kernel: tanh(mean) with evaluate, else a sample (noise from
-        `generator`, or the standard normal draws `noise` (B, A))."""
+        """Batched action of an actor, no dropout (a GoT trunk through the
+        whole-trunk kernel): the deterministic action with evaluate
+        (tanh(mean), or a deterministic actor's own output), else a
+        sample (noise from `generator`, or the standard normal draws
+        `noise` (B, A))."""
         o, p = (x if isinstance(x, torch.Tensor) else
                 torch.as_tensor(np.asarray(x, np.float32), device=self.device)
                 for x in (obs, pobs))
-        mean, log_std = actor(o, p, inference=True)
-        if evaluate:
-            return torch.tanh(mean)
-        return distributions.sample(mean, log_std, generator,
-                                    noise=noise).action
+        s = self._sample(actor, o, p, generator, noise, inference=True)
+        return s.mean if evaluate else s.action
+
+    def _sample(self, actor: torch.nn.Module, obs, pobs,
+                generator: Optional[torch.Generator],
+                noise: Optional[torch.Tensor] = None, **kw
+                ) -> distributions.TanhGaussianSample:
+        """The actor's forward (keywords `kw` to it, its dropout from
+        `generator`) and its sample: the tanh-Gaussian one, or a
+        deterministic actor's exploration."""
+        out = actor(obs, pobs, generator=generator, **kw)
+        if self.deterministic_actor:
+            return distributions.deterministic_sample(out, generator,
+                                                      noise=noise)
+        return distributions.sample(out[0], out[1], generator, noise=noise)
+
+    def mean_action(self, actor: torch.nn.Module, obs, pobs
+                    ) -> torch.Tensor:
+        """The deterministic action, no dropout, with autograd: tanh(mean)
+        or a deterministic actor's own output."""
+        out = actor(obs, pobs, deterministic=True)
+        return out if self.deterministic_actor else torch.tanh(out[0])
 
     def choose_action(self, state: SACState, obs, pobs,
                       evaluate: bool = False) -> torch.Tensor:
@@ -225,10 +304,8 @@ class SACAgent:
         """r + gamma * (minQ' - alpha logpi'): no-grad forwards with live
         dropout (K4 route)."""
         g = state.generator
-        mean, log_std = state.actor(b["next_obs"], b["next_pobs"],
-                                    deterministic=False, inference=True,
-                                    generator=g)
-        nxt = distributions.sample(mean, log_std, g, noise=noise_next)
+        nxt = self._sample(state.actor, b["next_obs"], b["next_pobs"], g,
+                           noise_next, deterministic=False, inference=True)
         q1_t, q2_t = state.critic_target(
             b["next_obs"], b["next_pobs"], nxt.action,
             deterministic=False, inference=True, generator=g)
@@ -241,23 +318,28 @@ class SACAgent:
 
     def _policy_terms(self, state: SACState, alpha, b, noise_pi):
         """The actor's sample on the batch (live dropout) and alpha logpi -
-        minQ against the updated critic, whose trunk is no-grad: (sample,
-        per-element loss (B, A))."""
+        minQ against the updated critic, its parameters frozen (the GoT
+        critic's trunk no-grad, then its heads; any other critic whole):
+        (sample, per-element loss (B, A))."""
         g = state.generator
-        mean, log_std = state.actor(b["obs"], b["pobs"], deterministic=False,
-                                    generator=g)
-        s = distributions.sample(mean, log_std, g, noise=noise_pi)
-        with torch.no_grad():
-            latent = state.critic.trunk(b["obs"], b["pobs"],
-                                        deterministic=False, inference=True,
-                                        generator=g)
-        q1_pi, q2_pi = state.critic.heads(latent, s.action)
+        s = self._sample(state.actor, b["obs"], b["pobs"], g, noise_pi,
+                         deterministic=False)
+        kw = dict(deterministic=False, inference=True, generator=g)
+        if isinstance(state.critic, GoTQNetwork):
+            with torch.no_grad():
+                latent = state.critic.trunk(b["obs"], b["pobs"], **kw)
+            q1_pi, q2_pi = state.critic.heads(latent, s.action)
+        else:
+            with frozen(state.critic):
+                q1_pi, q2_pi = state.critic(b["obs"], b["pobs"], s.action,
+                                            **kw)
         min_q_pi = torch.minimum(q1_pi, q2_pi).float()
         return s, alpha * s.log_prob.float() - min_q_pi
 
     @staticmethod
     def _actor_step(state: SACState, loss: torch.Tensor) -> None:
-        params = list(state.actor.parameters())
+        params = [p for group in state.actor_opt.param_groups
+                  for p in group["params"]]
         grads = torch.autograd.grad(loss, params)
         for p, gr in zip(params, grads):
             p.grad = gr
@@ -440,8 +522,8 @@ class SACAgent:
         """Masked MSE of the deterministic actor's mean action (no dropout)
         against `act` over the rows where `rows` is 1:
         sum(rows (tanh(mean) - act)^2) / max(sum(rows) A, 1)."""
-        mean, _ = state.actor(obs, pobs, deterministic=True)
-        sq = torch.square(torch.tanh(mean) - act).float()
+        sq = torch.square(self.mean_action(state.actor, obs, pobs)
+                          - act).float()
         denom = torch.clamp(torch.sum(rows) * sq.shape[1], min=1.0)
         return torch.sum(rows.reshape(-1, 1) * sq) / denom
 

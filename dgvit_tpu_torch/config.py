@@ -5,6 +5,9 @@ architecture and compute dtype, the SAC hyperparameters of the plain
 update and its replay buffer, the env loop's limits and command scaling,
 and the training loop's thresholds, intervals and paths, with the same
 names, defaults and validation. Unknown keys raise, as there.
+
+`load_reference_yaml` translates the reference's flat config.yaml into a
+`Config`, key for key as the JAX package's translator does.
 """
 
 from __future__ import annotations
@@ -43,14 +46,19 @@ def _update_dataclass(obj, data: Dict[str, Any], path: str = ""):
 
 @dataclass
 class ModelConfig:
-    """GoT architecture. Defaults are the flagship actor: dim 64, 4 blocks
-    of 4 heads x 64, MLP 2048, (128, 160) depth frames cut into 16x20
-    patches."""
+    """Actor, critic and trunk. Defaults are the flagship actor: the GoT
+    at dim 64, 4 blocks of 4 heads x 64, MLP 2048, (128, 160) depth frames
+    cut into 16x20 patches. `backbone` 'simple_vit' puts the Transformer
+    actors and critic on SimpleViT (`vit_dim`, `vit_depth`, `vit_heads`,
+    `dim_head`, MLP `mlp_dim`); the CNN actors and critic have fixed
+    widths."""
 
     name: str = "gtrl"
+    # GaussianTransformer | GaussianConvNet | DeterministicTransformer |
+    # Deterministic
     actor_type: str = "GaussianTransformer"
-    critic_type: str = "Transformer"
-    backbone: str = "got"
+    critic_type: str = "Transformer"  # Transformer | CNN
+    backbone: str = "got"   # got | simple_vit
     block: int = 4          # transformer depth
     head: int = 4           # attention heads
     dim_head: int = 64
@@ -61,6 +69,13 @@ class ModelConfig:
     emb_dropout: float = 0.1
     patch_mode: str = "2d"  # 2d (single frame) | channels (frame stack)
     compute_dtype: str = "float32"  # float32 | bfloat16
+    # the token stream sharded over a `seq` mesh axis (ring attention):
+    # not ported, refused by name
+    seq_shard: bool = False
+    # the SimpleViT family's widths (the reference fixes 256 / 2 / 8)
+    vit_dim: int = 256
+    vit_depth: int = 2
+    vit_heads: int = 8
 
     def validate(self):
         ih, iw = self.image_size
@@ -68,18 +83,25 @@ class ModelConfig:
         if ih % ph or iw % pw:
             raise ValueError(f"image {self.image_size} must divide into "
                              f"patches {self.patch_size}")
+        if self.actor_type not in ACTOR_TYPES:
+            raise ValueError(f"actor_type {self.actor_type!r}")
+        if self.critic_type not in CRITIC_TYPES:
+            raise ValueError(f"critic_type {self.critic_type!r}")
+        if self.backbone not in ("got", "simple_vit"):
+            raise ValueError(f"backbone {self.backbone!r}")
         if self.patch_mode not in ("2d", "channels"):
             raise ValueError(f"patch_mode {self.patch_mode!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
-        if self.actor_type != "GaussianTransformer" or self.backbone != "got":
+        if self.seq_shard:
             raise NotImplementedError(
-                f"actor {self.actor_type}/{self.backbone}: only the "
-                "GaussianTransformer GoT actor is ported")
-        if self.critic_type != "Transformer":
-            raise NotImplementedError(
-                f"critic {self.critic_type}: only the Transformer (GoT) "
-                "critic is ported")
+                "model.seq_shard (ring attention over a seq mesh axis) is "
+                "not ported")
+
+
+ACTOR_TYPES = ("GaussianTransformer", "GaussianConvNet",
+               "DeterministicTransformer", "Deterministic")
+CRITIC_TYPES = ("Transformer", "CNN")
 
 
 @dataclass
@@ -209,7 +231,12 @@ class TrainConfig:
     if_test: bool = False
     pre_buffer: bool = True
     human_intervention: bool = False
+    # head-only fine-tuning (P_ATTENTION_FIX / C_ATTENTION_FIX): the
+    # Transformer actors' or critic's `trans` and `fc_embed` stay frozen
+    policy_attention_fix: bool = False
+    critic_attention_fix: bool = False
     checkpoint_dir: str = "checkpoints"
+    robot: str = "scout"          # ROBOT
     # base paths without the _actor/_critic.npz suffix; empty = skip
     pre_train_model: str = ""     # actor loaded when pre_train
     test_model: str = ""          # actor + critic loaded when if_test
@@ -249,3 +276,65 @@ class Config:
             return x
 
         return listify(dataclasses.asdict(self))
+
+
+def load_reference_yaml(path: str) -> Config:
+    """A reference-format config.yaml (flat keys; the GoT-SAC section for
+    the networks) translated into a `Config`, key for key as the JAX
+    package's `load_reference_yaml` does, then validated. `VIS_SENSOR`
+    (the reference's `fish_image`) lands in `env.vis_sensor`, which only
+    the JAX package's ROS 2 adapter reads: the kinematic env ignores it,
+    as in the JAX package."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+
+    cfg = Config()
+    algo = raw.get("GoT-SAC", {})
+    m = cfg.model
+    m.name = algo.get("name", m.name)
+    m.actor_type = algo.get("actor_type", m.actor_type)
+    m.critic_type = algo.get("critic_type", m.critic_type)
+    m.block = algo.get("block", m.block)
+    m.head = algo.get("head", m.head)
+    m.latent_size = raw.get("LATENT_FEATURES_SIZE", m.latent_size)
+
+    s = cfg.sac
+    s.batch_size = raw.get("BATCH_SIZE", s.batch_size)
+    s.lr_actor = raw.get("LR_A", s.lr_actor)
+    s.lr_critic = raw.get("LR_C", s.lr_critic)
+    s.lr_alpha = raw.get("LR_ALPHA", s.lr_alpha)
+    s.gamma = raw.get("GAMMA", s.gamma)
+    s.tau = raw.get("TAU", s.tau)
+    s.policy_freq = raw.get("ACTOR_FREQ", s.policy_freq)
+    s.buffer_size = raw.get("BUFFER_SIZE", s.buffer_size)
+    s.alpha = raw.get("ALPHA", s.alpha)
+    s.auto_tune_alpha = raw.get("AUTO_TUNE", s.auto_tune_alpha)
+
+    e = cfg.env
+    e.vis_sensor = raw.get("VIS_SENSOR", e.vis_sensor)
+    e.max_steps = raw.get("MAX_STEPS", e.max_steps)
+    e.max_episodes = raw.get("MAX_EPISODES", e.max_episodes)
+    e.linear_cmd_scale = raw.get("L_SCALE", e.linear_cmd_scale)
+    e.angular_cmd_scale = raw.get("A_SCALE", e.angular_cmd_scale)
+    e.frame_stack = raw.get("FRAME_STACK", e.frame_stack)
+
+    t = cfg.train
+    t.seed = raw.get("SEED", t.seed)
+    t.desc = str(raw.get("DESC", t.desc))
+    t.plot_interval = raw.get("PLOT_INTERVAL", t.plot_interval)
+    t.eval_threshold = raw.get("EVAL_THRESHOLD", t.eval_threshold)
+    t.eval_epoch = raw.get("EVAL_EPOCH", t.eval_epoch)
+    t.save_interval = raw.get("SAVE_INTERVAL", t.save_interval)
+    t.save_threshold = raw.get("SAVE_THRESHOLD", t.save_threshold)
+    t.reward_threshold = raw.get("REWARD_THRESHOLD", t.reward_threshold)
+    t.save = raw.get("SAVE", t.save)
+    t.pre_train = raw.get("PRE_TRAIN", t.pre_train)
+    t.if_test = raw.get("IF_TEST", t.if_test)
+    t.pre_buffer = raw.get("PRE_BUFFER", t.pre_buffer)
+    t.human_intervention = raw.get("HUMAN_INTERVENTION", t.human_intervention)
+    t.policy_attention_fix = raw.get("P_ATTENTION_FIX", t.policy_attention_fix)
+    t.critic_attention_fix = raw.get("C_ATTENTION_FIX", t.critic_attention_fix)
+    t.robot = raw.get("ROBOT", t.robot)
+    return cfg.validate()

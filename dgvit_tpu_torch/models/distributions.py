@@ -8,7 +8,7 @@ log-prob. Counterpart of `dgvit_tpu/models/distributions.py`:
     mean_act = tanh(mean) * scale + bias
 
 The LOG_SIG clamp [-20, 2] is applied by callers on log_std before this
-module. The standard-normal draw comes from an explicit `torch.Generator`,
+module. `deterministic_sample` is the deterministic actors' exploration. The standard-normal draw comes from an explicit `torch.Generator`,
 or is given as `noise`.
 """
 
@@ -65,3 +65,23 @@ def sample(mean: torch.Tensor, log_std: torch.Tensor,
     log_prob = log_prob.sum(dim=1, keepdim=True)
     mean_action = torch.tanh(mean) * action_scale + action_bias
     return TanhGaussianSample(action, log_prob, mean_action)
+
+
+def deterministic_sample(mean: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         noise_std: float = 0.1, noise_clip: float = 0.25,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> TanhGaussianSample:
+    """A deterministic actor's exploration: its (already squashed) action
+    plus clip(N(0, 1) x noise_std, +-noise_clip), log_prob 0 (the
+    reference's), and the action itself as the mean. `noise` (raw
+    standard normal draws) overrides the generator's."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    noise = torch.clamp(noise.to(device=mean.device, dtype=mean.dtype)
+                        * noise_std, -noise_clip, noise_clip)
+    return TanhGaussianSample(mean + noise,
+                              torch.zeros(mean.shape[:1] + (1,),
+                                          dtype=mean.dtype,
+                                          device=mean.device), mean)

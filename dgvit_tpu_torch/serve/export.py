@@ -6,8 +6,9 @@ parameters are kept in fp32 and the compute dtype is bf16 by default.
 
     act(obs[b, ...], goal[b, 2]) -> action[b, 2]
 
-returns tanh(mean) (the evaluate=True branch of the Gaussian actor) and,
-with env_units=True, clips it and scales it to robot commands
+returns tanh(mean) (the evaluate=True branch of the Gaussian actors), or a
+deterministic actor's own tanh-squashed output, never squashed twice,
+and, with env_units=True, clips it and scales it to robot commands
 a_in = [(a0 + 1) * L_SCALE, a1 * A_SCALE]. The StableHLO artifact export
 of the JAX package has no counterpart here yet.
 """
@@ -37,6 +38,7 @@ def make_action_fn(cfg, params: Mapping[str, Any], env_units: bool = False,
     policy = build_actor(cfg, dtype=dtype)
     policy.load_state_dict(params_from_jax(params))
     policy = policy.to(dev).eval()
+    deterministic = cfg.model.actor_type.startswith("Deterministic")
     e = cfg.env
 
     @torch.no_grad()
@@ -44,7 +46,8 @@ def make_action_fn(cfg, params: Mapping[str, Any], env_units: bool = False,
         o, g = (x.to(dev, torch.float32) if isinstance(x, torch.Tensor)
                 else torch.as_tensor(np.asarray(x, np.float32), device=dev)
                 for x in (obs, goal))
-        a = torch.tanh(policy(o, g, inference=True)[0])
+        out = policy(o, g, inference=True)
+        a = out if deterministic else torch.tanh(out[0])
         if env_units:
             a = torch.clamp(a, -e.max_action, e.max_action)
             a = torch.stack([(a[..., 0] + 1.0) * e.linear_cmd_scale,

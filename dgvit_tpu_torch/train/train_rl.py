@@ -27,9 +27,17 @@ intervention), `sac.prioritized_replay` (the C++ buffer's sum-tree PER:
 `learn_per`, or `learn_guidence_per` on the guided path, each followed by
 `update_priorities(|td| + 1e-6)`; it takes precedence over
 `prefetch_batches`, as in the JAX loop), `resume`, `save_replay`,
-`if_test`, `pre_train`, the online frame stack. Not ported yet, and
-raising NotImplementedError by name rather than running something else:
-`--env replay|ros2`, `train_elastic`.
+`if_test`, `pre_train`, the online frame stack, every actor and critic
+of the zoo but the `Deterministic` actor (below), head-only fine-tuning
+(`train.policy_attention_fix` / `critic_attention_fix`), and
+`--reference-config` (the reference's flat config.yaml, translated by
+`config.load_reference_yaml`; with it `--config` is not read, as in the
+JAX command line). Not ported yet, and raising NotImplementedError by
+name rather than running something else: `--env replay|ros2`,
+`train_elastic`, the keyboard teleop that `main` starts for
+`train.human_intervention` on a terminal, and the `Deterministic`
+(4-channel CNN) actor, which `SACAgent` refuses: its (H, W, 4) frame
+stacks no env loop builds, and the JAX package's update fails on it.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import argparse
 import glob
 import os
 import re
+import sys
 import time
 from typing import Optional, Union
 
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from dgvit_tpu_torch.agents import SACAgent
-from dgvit_tpu_torch.config import Config
+from dgvit_tpu_torch.config import Config, load_reference_yaml
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.envs import Env, KinematicNavEnv
 from dgvit_tpu_torch.envs.replay_env import load_demo_npz
@@ -492,7 +501,7 @@ def main(argv=None):
         description="dgvit_tpu_torch RL training (PyTorch/CUDA)")
     p.add_argument("--config", help="structured YAML config")
     p.add_argument("--reference-config",
-                   help="reference-format config.yaml (not ported yet)")
+                   help="reference-format config.yaml to translate")
     p.add_argument("--env", default="kinematic",
                    choices=["kinematic", "replay", "ros2"])
     p.add_argument("--world", default="rrc",
@@ -506,13 +515,21 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.reference_config:
-        raise NotImplementedError(
-            "--reference-config: the reference-yaml translator is not "
-            "ported yet; use --config")
+        cfg = load_reference_yaml(args.reference_config)
+    elif args.config:
+        cfg = Config.from_yaml(args.config)
+    else:
+        cfg = Config()
     if args.env != "kinematic":
         raise NotImplementedError(
             f"--env {args.env}: only the kinematic env is ported yet")
-    cfg = Config.from_yaml(args.config) if args.config else Config()
+    if cfg.train.human_intervention and sys.stdin.isatty():
+        raise NotImplementedError(
+            "train.human_intervention on a terminal: the keyboard teleop "
+            "is not ported (pass an intervention source to train())")
+    m = cfg.model
+    print(f"training critic_type: {m.critic_type} \t actor_type: "
+          f"{m.actor_type} ({m.backbone}, {m.compute_dtype})", flush=True)
     env = KinematicNavEnv(seed=cfg.train.seed,
                           image_hw=tuple(cfg.model.image_size),
                           world=args.world)

@@ -73,7 +73,10 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.train.train_bc",
               "dgvit_tpu_torch.tools.record_teacher_demos",
               "dgvit_tpu_torch.examples.generalization_eval",
-              "dgvit_tpu_torch.examples.bc_kinematic_demo"):
+              "dgvit_tpu_torch.examples.bc_kinematic_demo",
+              "dgvit_tpu_torch.models.cnn",
+              "dgvit_tpu_torch.models.simple_vit",
+              "dgvit_tpu_torch.models.torch_io"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

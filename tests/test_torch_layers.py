@@ -125,5 +125,7 @@ def test_config_copy_validates():
         Config.from_dict({"model": {"head": "four"}})
     with pytest.raises(ValueError, match="divide into patches"):
         Config.from_dict({"model": {"image_size": [100, 160]}})
-    with pytest.raises(NotImplementedError, match="GaussianTransformer"):
-        Config.from_dict({"model": {"actor_type": "GaussianConvNet"}})
+    assert Config.from_dict({"model": {"actor_type": "GaussianConvNet"}}
+                            ).model.actor_type == "GaussianConvNet"
+    with pytest.raises(ValueError, match="actor_type"):
+        Config.from_dict({"model": {"actor_type": "GaussianRNN"}})

@@ -340,15 +340,19 @@ def test_frame_stacked_loop(tmp_path):
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
     cfg = tiny_cfg()
     word = {"env_replay": "--env replay", "env_ros2": "--env ros2",
-            "reference_config": "--reference-config"}.get(flavour, flavour)
+            "reference_config": "--env replay"}.get(flavour, flavour)
     with pytest.raises(NotImplementedError, match=word):
         if flavour == "train_elastic":
             train_rl.train_elastic(cfg, lambda: None)
         elif flavour.startswith("env_"):
             train_rl.main(["--env", flavour[4:], "--device", "cpu",
                            "--out", str(tmp_path)])
-        else:
-            train_rl.main(["--reference-config", "config.yaml"])
+        else:       # the translated config reaches the same refusal
+            path = tmp_path / "config.yaml"
+            path.write_text("SEED: 3\nGoT-SAC:\n  critic_type: CNN\n")
+            train_rl.main(["--reference-config", str(path), "--env",
+                           "replay", "--device", "cpu",
+                           "--out", str(tmp_path)])
     assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
 
 
@@ -940,8 +944,10 @@ def test_config_fields_keep_the_jax_names_and_defaults():
         Config.from_dict({"train": {"nope": 1}})
     with pytest.raises(ValueError, match="vis_sensor"):
         Config.from_dict({"env": {"vis_sensor": "lidar"}})
-    with pytest.raises(NotImplementedError, match="critic"):
-        Config.from_dict({"model": {"critic_type": "CNN"}})
+    with pytest.raises(NotImplementedError, match="seq_shard"):
+        Config.from_dict({"model": {"seq_shard": True}})
+    with pytest.raises(ValueError, match="critic_type"):
+        Config.from_dict({"model": {"critic_type": "MLP"}})
     d = tiny_cfg().to_dict()
     assert d["model"]["image_size"] == list(HW)
     assert Config.from_dict(d).to_dict() == d
