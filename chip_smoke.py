@@ -314,6 +314,28 @@ per source, all at once), then
      actor as a reference checkpoint through torch_io.load_actor_pth,
      acting through K1 bit-equal to the params_from_jax actor; each
      family's update and act times at B=32;
+ 24. the fleet tier (phase_fleet), main paths: (a) serve_fleet of the
+     flagship actor (bf16 K1) over 8 and 32 robots on rrc (episodes of
+     60 steps), with the default bucket ladder and pinned to bucket 1:
+     each robot's commands and outcomes compared (bit for bit, or the
+     first difference reported, within the heads' bf16 rounding, and two
+     pinned runs equal), K1 launches the server's dispatches and nothing
+     else, actions/s, Hz a robot and the mean batch; run_eval_fleet over
+     8 robots; (b) run_eval(device_rollout_loop=True) of the drqc actor
+     against the host run_eval over 8 episodes on rrc: successes,
+     success rate and durations equal, the device loop's collisions at
+     least the host's (the frozen steps), K1 once a step, one host sync
+     a step, env steps/s of both;
+     (c) train_fleet at the flagship width from the flagship actor (SAC
+     batch 64), plain with 4 robots and guided PER with 8 (policy-unit
+     demos in the expert buffer): finite logged losses, the learner's
+     launches phase 6's or phase 18's counts an update, K1 the warm-up's
+     and the server's dispatches, the updates the cadence rule's after
+     the drain, the served copy equal to the learner's actor, every
+     dispatch's float64 checksum equal to one publish's; (d) a
+     GazeboRos2Env over tests/fake_ros2.py on the card with 512 x 640
+     depth frames: a reset and 5 steps, the states within 1e-6 of the
+     CPU chain on the same noise, the commands through K1;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -8037,6 +8059,493 @@ def zoo_launches(zoo, short):
     return {k: v[short] for k, v in paths.items()}
 
 
+# --------------------------------------------------------------------------
+# phase 24: the fleet tier
+# --------------------------------------------------------------------------
+
+FLEET_ROBOTS = (8, 32)     # 24a: the serving fleets, one episode a robot
+FLEET_EVAL_STEPS = 60      # 24a, 24b: the evaluation episodes' length
+# 24b: device rollout against the host loop, with the actor that reaches
+# goals and collides on rrc (phase 19b's second case), so both loops'
+# success and collision accounting run
+ROLLOUT_EPISODES = 8
+FLEET_RECORD_SEED = SEED   # one record table; robot i starts at record i
+# 24c: train_fleet at the flagship width from the flagship actor (the
+# pre_train warm start), SAC batch FLEET_BATCH, Config()'s, at which
+# phase 5 holds the bf16 training kernels against their plain versions:
+# (label, robots, episodes a robot, steps an episode, updates a step)
+FLEET_BATCH, FLEET_BUFFER = 32, 4096
+FLEET_TRAIN = (("plain", 4, 1, 60, 1.0),
+               ("guided_per", 8, 1, 40, 0.5))
+FLEET_DEMO_EPISODES = 3
+# 24d: the adapter's states on the card against the CPU's chain
+ADAPTER_FRAME, ADAPTER_STEPS, ADAPTER_TOL = (512, 640), 5, 1e-6
+
+
+def fleet_cfg(**sac):
+    """Config() at the flagship widths in bf16 (phase 4's K1), episodes of
+    FLEET_EVAL_STEPS; `sac` overrides."""
+    from dgvit_tpu_torch.config import Config
+
+    cfg = Config.from_dict({
+        "model": {"compute_dtype": "bfloat16"},
+        "env": {"max_steps": FLEET_EVAL_STEPS},
+        "sac": {"batch_size": FLEET_BATCH, "buffer_size": FLEET_BUFFER,
+                **sac},
+        "train": {"seed": SEED, "pre_buffer": False}})
+    m = cfg.model
+    check((m.block, m.head, m.dim_head, m.mlp_dim, m.latent_size,
+           tuple(m.image_size)) == (4, 4, 64, 2048, 64, (128, 160)),
+          "phase 24's model is not the flagship")
+    check(FLEET_BATCH == Config().sac.batch_size
+          and FLEET_BATCH in TRAIN_BATCHES["bfloat16"],
+          f"phase 24's SAC batch {FLEET_BATCH} is not Config()'s or not "
+          "held against plain by phase 5")
+    return cfg
+
+
+_FLEET_RECORDS: list = []
+
+
+def fleet_envs(n, log=None):
+    """n port KinematicNavEnv robots on rrc over one record table, robot
+    i starting at record i; with `log`, each robot's commands in log[i]."""
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs.kinematic import default_records
+
+    if not _FLEET_RECORDS:
+        _FLEET_RECORDS.extend(default_records(seed=FLEET_RECORD_SEED))
+
+    class Logged(KinematicNavEnv):
+        def step(self, action, t):
+            if log is not None:
+                log[self.robot].append((float(action[0]), float(action[1])))
+            return super().step(action, t)
+
+    envs = []
+    for i in range(n):
+        env = Logged(_FLEET_RECORDS, world="rrc")
+        env.robot, env.indice_position = i, i % len(_FLEET_RECORDS)
+        if log is not None:
+            log[i] = []
+        envs.append(env)
+    return envs
+
+
+def counted(fn):
+    """(fn's result, every kernel's launches in it): the counters set to 0
+    just before, read just after."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def phase_fleet_eval(flat):
+    """Phase 24a, a main path: serve_fleet of the flagship actor (bf16 K1)
+    over 8 and 32 robots on rrc, one episode each, with the default
+    bucket ladder and pinned to bucket 1: every robot's commands and
+    outcomes equal (bit for bit, or reported where the heads' library
+    kernels round otherwise by batch), K1 launches equal to the server's
+    dispatches and nothing else launched; run_eval_fleet's report over 8
+    robots; actions/s, per-robot Hz and the mean batch."""
+    import torch
+
+    from dgvit_tpu_torch.serve import (BatchingActorServer, FleetRunner,
+                                       make_action_fn, serve_fleet)
+    from dgvit_tpu_torch.train.evaluate import run_eval_fleet
+
+    cfg = fleet_cfg()
+    act = make_action_fn(cfg, flat, dtype=torch.bfloat16, device=DEVICE)
+    act(torch.zeros(1, 128, 160), torch.zeros(1, 2))   # the cast weights
+
+    def pinned(envs):
+        with BatchingActorServer(act, max_wait_ms=4.0, buckets=(1,)) as srv:
+            out = FleetRunner(envs, srv, cfg).run(1)
+        out["serving"] = srv.stats()
+        return out
+
+    out, launches = {}, {}
+    totals = {k: 0 for k in PER_UPDATE}
+    for n in FLEET_ROBOTS:
+        runs = {}
+        for label, run in (("ladder", lambda e: serve_fleet(cfg, e, act)),
+                           ("bucket 1", pinned)):
+            log = {}
+            envs = fleet_envs(n, log)
+            t0 = time.perf_counter()
+            res, k = counted(lambda: run(envs))
+            wall = time.perf_counter() - t0
+            st = res["serving"]
+            check(res["errors"] == {}, f"phase 24a: robots failed "
+                  f"{res['errors']}")
+            check(k == {**{kk: 0 for kk in k}, "K1": st["dispatches"]},
+                  f"phase 24a ({n} robots, {label}): launches {k}, the "
+                  f"server made {st['dispatches']} dispatches")
+            steps = sum(len(v) for v in log.values())
+            runs[label] = (res, log)
+            totals = {kk: totals[kk] + v for kk, v in k.items()}
+            print(f"phase 24a fleet eval, {n} robots ({label}): "
+                  f"{res['episodes']} episodes, {res['successes']} goals, "
+                  f"{res['collisions']} collisions; {st['rows']} actions in "
+                  f"{wall:.3f} s = {st['rows'] / wall:.1f} actions/s, "
+                  f"{steps / n / wall:.2f} Hz a robot (host clock, "
+                  f"{card()}); {st['dispatches']} dispatches (K1 x"
+                  f"{k['K1']}), mean batch {st['mean_batch']:.2f}",
+                  flush=True)
+            out[f"{n}_{label.replace(' ', '')}"] = {
+                "actions_per_s": st["rows"] / wall,
+                "robot_hz": steps / n / wall,
+                "mean_batch": st["mean_batch"], "dispatches": st["dispatches"],
+                "successes": res["successes"],
+                "collisions": res["collisions"], "launches": k}
+        (a, la), (b, lb) = runs["ladder"], runs["bucket 1"]
+        first = {}
+        for i in range(n):
+            for t, (x, y) in enumerate(zip(la[i], lb[i])):
+                if x != y:
+                    first[i] = (t, max(abs(x[0] - y[0]), abs(x[1] - y[1])))
+                    break
+            else:
+                if len(la[i]) != len(lb[i]):
+                    first[i] = (min(len(la[i]), len(lb[i])), None)
+        same_outcomes = all(a[key] == b[key] for key in
+                            ("successes", "collisions", "durations",
+                             "bad_inits"))
+        print(f"phase 24a, {n} robots: ladder against bucket 1: commands "
+              f"bit-equal for {n - len(first)} of {n} robots, outcomes "
+              f"equal {same_outcomes}; first differences (robot: step, "
+              f"|command diff|) {first}", flush=True)
+        out[f"{n}_compare"] = {"robots_bit_equal": n - len(first),
+                               "first_differences": {str(r): v for r, v in
+                                                     first.items()},
+                               "outcomes_equal": same_outcomes}
+        # a robot whose commands part does so by the heads' rounding (one
+        # bf16 step of the action, 2^-8, times the command scale), never
+        # by a frame computed with another
+        check(all(d is not None and d <= 2.0 ** -7 for _, d in
+                  first.values()),
+              f"phase 24a: commands part by more than the heads' rounding: "
+              f"{first}")
+        if first:   # pinned, as the JAX test pins: two bucket-1 runs agree
+            log = {}
+            again = pinned(fleet_envs(n, log))
+            check(log == lb and all(again[key] == b[key] for key in
+                                    ("successes", "collisions",
+                                     "durations")),
+                  f"phase 24a: two bucket-1 fleets of {n} differ")
+        else:
+            check(same_outcomes, "phase 24a: bit-equal commands, other "
+                  "outcomes")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        rep, k = counted(lambda: run_eval_fleet(
+            cfg, flat, max_episodes=FLEET_ROBOTS[0],
+            n_robots=FLEET_ROBOTS[0], out_dir=out_dir, device=DEVICE))
+    check(k == {**{kk: 0 for kk in k},
+                "K1": rep["serving"]["dispatches"]},
+          f"phase 24a run_eval_fleet launched {k}")
+    totals = {kk: totals[kk] + v for kk, v in k.items()}
+    print(f"phase 24a run_eval_fleet ({FLEET_ROBOTS[0]} robots): success "
+          f"rate {rep['success_rate']:.3f}, {rep['collisions']} collisions, "
+          f"mean batch {rep['serving']['mean_batch']:.2f}, K1 x{k['K1']}",
+          flush=True)
+    out["run_eval_fleet"] = {"success_rate": rep["success_rate"],
+                             "launches": k}
+    out["launches"] = totals
+    return out
+
+
+def phase_device_rollout():
+    """Phase 24b, a main path: run_eval(device_rollout_loop=True) of the
+    drqc actor (SECOND_ACTOR) against the host run_eval on one record
+    table, over ROLLOUT_EPISODES episodes: successes, success rate and durations
+    equal (collisions: the device loop's env keeps counting through the
+    frozen steps, JAX's quirk, printed); K1 once a step of every episode's
+    FLEET_EVAL_STEPS and nothing else; one host wait a step; env steps/s
+    of both loops."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.checkpoint import load_params_npz
+    from dgvit_tpu_torch.serve import make_action_fn
+    from dgvit_tpu_torch.train.device_rollout import device_rollout
+    from dgvit_tpu_torch.train.evaluate import run_eval
+
+    cfg = fleet_cfg()
+    flat = load_params_npz(str(SECOND_ACTOR))
+    reports, rates = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        for label, device_loop in (("host", False), ("device", True)):
+            log = {}
+            env = fleet_envs(1, log)[0]
+            t0 = time.perf_counter()
+            rep, k = counted(lambda: run_eval(
+                cfg, env, flat, ROLLOUT_EPISODES, out_dir, device=DEVICE,
+                device_rollout_loop=device_loop))
+            wall = time.perf_counter() - t0
+            steps = len(log[0])
+            reports[label], rates[label] = (rep, k), steps / wall
+            print(f"phase 24b {label} loop: {rep}; {steps} env steps in "
+                  f"{wall:.3f} s = {steps / wall:.1f} env steps/s (host "
+                  f"clock, {card()}); launches {k}", flush=True)
+            want = steps if label == "host" else \
+                ROLLOUT_EPISODES * FLEET_EVAL_STEPS
+            check(k == {**{kk: 0 for kk in k}, "K1": want} and (
+                label == "host" or steps == want),
+                f"phase 24b {label}: launches {k}, {steps} env steps")
+    (host, _), (dev, k) = reports["host"], reports["device"]
+    for key in ("successes", "success_rate", "durations"):
+        check(host[key] == dev[key], f"phase 24b: {key} {dev[key]} on the "
+              f"device loop, {host[key]} on the host")
+    check(dev["collisions"] >= host["collisions"],
+          "phase 24b: fewer collisions on the device loop")
+    # one host wait a step
+    agent = SACAgent(cfg, device=DEVICE)
+    actor = make_action_fn(cfg, flat, dtype=torch.bfloat16,
+                           device=DEVICE).policy
+    state = type("State", (), {"actor": actor})()
+    env = fleet_envs(1)[0]
+    e = cfg.env
+    device_rollout(agent, state, env, 4, e.linear_cmd_scale,
+                   e.angular_cmd_scale)                    # warm
+    _, syncs, kinds = count_syncs(lambda: device_rollout(
+        agent, state, env, FLEET_EVAL_STEPS, e.linear_cmd_scale,
+        e.angular_cmd_scale))
+    print(f"phase 24b: {syncs} host syncs in an episode of "
+          f"{FLEET_EVAL_STEPS} steps {kinds}", flush=True)
+    check(syncs == FLEET_EVAL_STEPS, f"phase 24b: {syncs} syncs, expected "
+          f"one a step ({FLEET_EVAL_STEPS})")
+    return {"host": host, "device": dev, "env_steps_per_s": rates,
+            "syncs": syncs, "launches": k}
+
+
+def phase_train_fleet(out_dir):
+    """Phase 24c, a main path: train_fleet at the flagship width from the
+    flagship actor, plain with 4 robots and guided PER with 8 (the expert
+    buffer of policy-unit demos that train/demo_record records): finite
+    logged losses; the learner's launches the updates times phase 6's
+    (plain) or phase 18's (guided) counts; K1 launches the warm-up's and
+    the server's dispatches; the updates after the drain the cadence
+    rule's; the served copy equal to the learner's actor bit for bit;
+    every dispatch on one whole published version (`audit`, over the
+    casts K1 reads); a publish and a dispatch after the campaign, the
+    bodies that run under the lock, with no host sync; env steps/s,
+    updates/s and the mean batch."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.train.demo_record import (policy_unit_pilot,
+                                                   record_episodes)
+    from dgvit_tpu_torch.train.train_fleet import train_fleet
+
+    out = {}
+    launches = {k: 0 for k in PER_UPDATE}
+    for label, robots, episodes, max_steps, ups in FLEET_TRAIN:
+        guided = label.startswith("guided")
+        cfg = fleet_cfg(prioritized_replay=guided)
+        cfg.env.max_steps = max_steps
+        cfg.train.pre_train = True
+        cfg.train.pre_train_model = str(ACTOR)[:-len("_actor.npz")]
+        cfg.train.pre_buffer = guided
+        cfg.train.save = False
+        run_dir = Path(out_dir) / label
+        glob_ = None
+        if guided:
+            pilot, to_env = policy_unit_pilot(cfg)
+            check(record_episodes(fleet_envs(1)[0], pilot,
+                                  str(run_dir / "demos"),
+                                  episodes=FLEET_DEMO_EPISODES,
+                                  max_steps=200, action_to_env=to_env),
+                  "phase 24c recorded no demos")
+            glob_ = str(run_dir / "demos" / "RRC" / "torch" / "*.npz")
+        res, k = counted(lambda: train_fleet(
+            cfg, fleet_envs(robots), out_dir=str(run_dir),
+            max_episodes=robots * episodes, expert_glob=glob_,
+            updates_per_step=ups, log_every_updates=10, device=DEVICE,
+            audit=True))
+        torch.cuda.synchronize()
+        per = PER_GUIDED if guided else PER_UPDATE
+        st = res["serving"]
+        want = {**{kk: n * res["updates"] for kk, n in per.items()},
+                "K1": res["warm_dispatches"] + st["dispatches"]}
+        steps = res["env_steps"]
+        cadence = (math.ceil(steps * ups) if steps >= FLEET_BATCH else 0)
+        rows = [json.loads(line) for p in run_dir.glob("train_fleet_*.jsonl")
+                for line in p.read_text().splitlines()]
+        losses = [r[key] for r in rows for key in
+                  ("qf1_loss", "policy_loss", "alpha", "entropy") if key in r]
+        same = all(torch.equal(x, y) for x, y in zip(
+            res["served"].state_dict().values(),
+            res["state"].actor.state_dict().values()))
+        published = set(res["audit"]["published"])
+        torn = [s for s in res["audit"]["dispatched"] if s not in published]
+        # what runs under dev_lock, once more after the campaign: the
+        # publish and the dispatch's cast check and K1 enqueue (the
+        # action's read comes after, outside the count)
+        learner = res["learner"]
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        obs = torch.zeros((robots,) + tuple(cfg.model.image_size),
+                          device=DEVICE)
+        pobs = torch.zeros((robots, 2), device=DEVICE)
+
+        def locked():
+            learner.publish(res["state"])
+            return learner.dispatch(obs, pobs, gen)
+
+        act, lock_syncs, lock_what = count_syncs(locked)
+        act_ok = (tuple(act.shape) == (robots, 2)
+                  and bool(torch.isfinite(act.float()).all()))
+        print(f"phase 24c train_fleet ({label}, {robots} robots): "
+              f"{res['episodes']} episodes, {steps} env steps, "
+              f"{res['updates']} updates (cadence {cadence}) in "
+              f"{res['wall_s']:.2f} s = {res['steps_per_s']:.2f} env "
+              f"steps/s, {res['updates_per_s']:.2f} updates/s (host clock, "
+              f"{card()}); mean batch {st['mean_batch']:.2f} over "
+              f"{st['dispatches']} dispatches; launches {k}; "
+              f"{len(losses)} logged losses; served copy equal {same}; "
+              f"{len(res['audit']['dispatched'])} dispatches against "
+              f"{len(published)} published versions, {len(torn)} on none; "
+              f"{lock_syncs} host syncs under the lock {lock_what}",
+              flush=True)
+        check(res["errors"] == {}, f"phase 24c robots failed {res['errors']}")
+        check(res["updates"] > 0 and res["updates"] == cadence
+              and res["state"].itera == res["updates"],
+              f"phase 24c ({label}): {res['updates']} updates, the cadence "
+              f"rule gives {cadence}")
+        check(k == want, f"phase 24c ({label}): launches {k}, expected "
+              f"{want}")
+        check(losses and all(math.isfinite(v) for v in losses),
+              f"phase 24c ({label}): non-finite or no logged losses")
+        check(same, f"phase 24c ({label}): the served copy is not the "
+              "learner's actor")
+        check(not torn and len(res["audit"]["dispatched"])
+              == st["dispatches"],
+              f"phase 24c ({label}): {len(torn)} dispatches read no "
+              "published version")
+        check(lock_syncs == 0 and act_ok,
+              f"phase 24c ({label}): {lock_syncs} host syncs under the "
+              f"lock {lock_what}, action ok {act_ok}")
+        launches = {kk: launches[kk] + v for kk, v in k.items()}
+        out[label] = {"robots": robots, "env_steps": steps,
+                      "updates": res["updates"], "wall_s": res["wall_s"],
+                      "steps_per_s": res["steps_per_s"],
+                      "updates_per_s": res["updates_per_s"],
+                      "mean_batch": st["mean_batch"],
+                      "dispatches": st["dispatches"],
+                      "published": len(published),
+                      "syncs_under_lock": lock_syncs, "launches": k}
+    out["launches"] = launches
+    return out
+
+
+def phase_adapter(flat):
+    """Phase 24d: one GazeboRos2Env on the card over tests/fake_ros2.py
+    with 512 x 640 depth frames: a reset and ADAPTER_STEPS steps, each
+    state equal to the same raw frame through the chain on the CPU with
+    the same noise draws (within ADAPTER_TOL), the commands from the
+    flagship actor through K1, one launch a step."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.ops.preprocess import preprocess_depth
+    from dgvit_tpu_torch.serve import make_action_fn
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import fake_ros2
+
+    world = fake_ros2.install()
+    sys.modules.pop("dgvit_tpu_torch.envs.ros2_adapter", None)
+    try:
+        from dgvit_tpu_torch.envs.ros2_adapter import GazeboRos2Env
+
+        cfg = fleet_cfg()
+        env = GazeboRos2Env(cfg, position_records=[
+            {"xR": 0.0, "yR": 0.0, "xG": 3.0, "yG": 1.0}], device=DEVICE)
+        draws = []
+        noise = env._noise
+        env._noise = lambda shape: draws.append(noise(shape)) or draws[-1]
+        rng = np.random.default_rng(SEED + 24)
+        raws = []
+
+        def frame():
+            raw = rng.uniform(0.3, 8.0, ADAPTER_FRAME).astype(np.float32)
+            raws.append(raw)
+            world.deliver("/camera/depth/image_raw", fake_ros2.Image(
+                height=ADAPTER_FRAME[0], width=ADAPTER_FRAME[1],
+                encoding="32FC1", data=raw.tobytes()))
+            world.deliver("/odom", fake_ros2.Odometry(x=0.1 * len(raws)))
+            world.deliver("/front_laser/scan",
+                          fake_ros2.LaserScan([5.0] * 36))
+
+        act = make_action_fn(cfg, flat, dtype=torch.bfloat16, device=DEVICE)
+        frame()
+        (states, cmds), k = counted(lambda: drive_adapter(env, act, cfg,
+                                                          frame))
+        worst = 0.0
+        for raw, z, s in zip(raws, draws, states):
+            ref = preprocess_depth(torch.from_numpy(raw[None]),
+                                   noise=z.cpu())[0].numpy()
+            worst = max(worst, float(np.abs(s[..., 0] - ref).max()))
+        print(f"phase 24d adapter on the card: {len(states)} states of "
+              f"{ADAPTER_FRAME} frames, max |card - CPU| {worst:.3e} "
+              f"(limit {ADAPTER_TOL}); commands {cmds}; launches {k}",
+              flush=True)
+        check(len(states) == ADAPTER_STEPS + 1 and worst <= ADAPTER_TOL,
+              f"phase 24d: states {worst:.3e} off the CPU chain")
+        check(k == {**{kk: 0 for kk in k}, "K1": ADAPTER_STEPS + 1}
+              and all(np.isfinite(c).all() for c in cmds),
+              f"phase 24d: launches {k}, commands {cmds}")
+        check(len(world.twists()) == ADAPTER_STEPS,
+              "phase 24d: the adapter published other commands")
+        return {"max_abs_err": worst, "launches": k}
+    finally:
+        fake_ros2.uninstall()
+        sys.modules.pop("dgvit_tpu_torch.envs.ros2_adapter", None)
+
+
+def drive_adapter(env, act, cfg, frame):
+    """A reset and ADAPTER_STEPS steps of `env`, each command from `act`
+    on the state before it: (states, commands)."""
+    e = cfg.env
+    r = env.reset()
+    states, cmds, s = [r.state], [], r
+    for t in range(ADAPTER_STEPS):
+        a = act(s.state[None, ..., 0], s.to_goal[None, :2])[0]
+        a = a.clip(-e.max_action, e.max_action)
+        cmd = [(a[0] + 1.0) * e.linear_cmd_scale, a[1] * e.angular_cmd_scale]
+        cmds.append([float(c) for c in cmd])
+        frame()
+        s = env.step(cmd, t)
+        states.append(s.state)
+    act(s.state[None, ..., 0], s.to_goal[None, :2])
+    return states, cmds
+
+
+def phase_fleet(flat):
+    """Phase 24 (24a-24d), the fleet tier; each sub-phase's time."""
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        for key, fn in (("fleet_eval", lambda: phase_fleet_eval(flat)),
+                        ("device_rollout", phase_device_rollout),
+                        ("train_fleet", lambda: phase_train_fleet(out_dir)),
+                        ("adapter", lambda: phase_adapter(flat))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            secs[key] = time.perf_counter() - t0
+            print(f"phase 24 {key}: {secs[key]:.1f} s", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def fleet_launches(fleet, short):
+    """A kernel's launches on phase 24's paths, for the kernels line."""
+    return {"fleet_eval": fleet["fleet_eval"]["launches"][short],
+            "device_rollout": fleet["device_rollout"]["launches"][short],
+            "train_fleet": fleet["train_fleet"]["launches"][short],
+            "ros2_adapter": fleet["adapter"]["launches"][short]}
+
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -8204,6 +8713,7 @@ def main() -> int:
     faults = phase_faults(rng)
     imitation = phase_imitation()
     zoo = phase_zoo()
+    fleet = phase_fleet(flat)
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -8248,7 +8758,8 @@ def main() -> int:
         "aug_recipe": faults["aug_recipe"]["launches"]["K1"],
         "sweep": faults["sweep"]["launches"]["K1"],
         **imitation_launches(imitation, "K1"),
-        **zoo_launches(zoo, "K1")}
+        **zoo_launches(zoo, "K1"),
+        **fleet_launches(fleet, "K1")}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({
@@ -8280,7 +8791,8 @@ def main() -> int:
                     **recipe_launches(recipes, short),
                     "aug_recipe": faults["aug_recipe"]["launches"][short],
                     **imitation_launches(imitation, short),
-                    **zoo_launches(zoo, short)},
+                    **zoo_launches(zoo, short),
+                    **fleet_launches(fleet, short)},
                 **({"bc_fp32": {str(b): t["kernels"][short] for b, t in
                                 imitation["bc_kernels"]["times"].items()}}
                    if short != "K4" else {}),
@@ -8293,6 +8805,8 @@ def main() -> int:
         **k5_times[CAMERA_FRAMES], "library_ms": None,
         "batch": CAMERA_FRAMES, "dtype": "float32", "noise_level": 50.0,
         "by_batch": {str(b): v for b, v in k5_times.items()},
+        "launches_by_path": {"camera_to_action": camera_launches["K5"],
+                             **fleet_launches(fleet, "K5")},
     })
     name, src, replaces = KERNELS["K6"]
     rows.append({
@@ -8308,7 +8822,8 @@ def main() -> int:
         "launches_by_path": {
             "trunk_grad_update": trunk_launches["K6"],
             "guided_trunk_grad_update":
-                guided["trunk-gradient"]["launches"]["K6"]},
+                guided["trunk-gradient"]["launches"]["K6"],
+            **fleet_launches(fleet, "K6")},
     })
     for short, path, shape in (
             ("K7", "dropout", f"({SAC_BATCH}, 65, 64)"),
@@ -8325,7 +8840,8 @@ def main() -> int:
             "max_abs_err_fp32": attn_worst[(short, "float32")],
             "launches_by_path": {
                 **{k: v[short] for k, v in composed_launches.items()},
-                **zoo_launches(zoo, short)},
+                **zoo_launches(zoo, short),
+                **fleet_launches(fleet, short)},
             "by_shape": attn_times[short],
             **({"vit": zoo["vit"]["k8_times"],
                 "vit_max_abs_err": zoo["vit"]["k8_worst"]}
@@ -8343,6 +8859,7 @@ def main() -> int:
     print(f"sensor faults (phase 21, {card()}): {json.dumps(faults)}")
     print(f"imitation tier (phase 22, {card()}): {json.dumps(imitation)}")
     print(f"model zoo (phase 23, {card()}): {json.dumps(zoo)}")
+    print(f"fleet tier (phase 24, {card()}): {json.dumps(fleet)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

@@ -200,6 +200,15 @@ class EnvConfig:
     linear_cmd_scale: float = 0.25    # L_SCALE
     angular_cmd_scale: float = 1.0    # A_SCALE
     max_action: float = 1.0
+    # reward constants of the live simulator's adapter
+    # (envs/ros2_adapter.py; env_lab.py:275-301)
+    r_target: float = 200.0
+    r_collision: float = -100.0
+    heuristic_scale: float = 20.0
+    goal_radius: float = 0.5
+    collision_range: float = 0.2
+    dist_norm: float = 15.0           # distance clip/normalizer (env_lab.py:296)
+    reward_clip: Tuple[float, float] = (-200.0, 500.0)
     frame_stack: int = 4              # channels count in patch_mode 'channels'
     # True stacks the last `frame_stack` frames online (model.patch_mode
     # must be 'channels'); the reference records such demos but never

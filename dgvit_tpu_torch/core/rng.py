@@ -9,7 +9,10 @@ integers on the host: `step_key(base, step)` is the counterpart of
 a loop that derives each step's seed from its step counter
 (`step_key(seed, round)` in `train_fused`, `step_key(seed, chunk)` in
 `train_vec`) draws the same stream after a restart. The JAX module's
-`RngStream` (a split stream and named folds) has no caller in the port.
+`RngStream` (a split stream and named folds) has one role in the port:
+the fleet trainer's collection noise, a generator seeded
+`step_key(train.seed, FLEET_STREAM)` that only the server thread draws
+from (`train/train_fleet.py`).
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ and is loaded with ctypes. Libraries land in `build/kernels/` at the root
 of the checkout (git-ignored), named by a hash of the source, the shared
 headers (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
 unchanged one loads at once. `build` compiles several sources at once, one
-nvcc each. A failed build raises with the compiler's output.
+nvcc each. A failed build raises with the compiler's output. `build` and
+`load` hold one process-wide lock, so threads that first launch a kernel
+together compile it once, and each compile writes a temporary file named
+by its process and thread.
 """
 
 from __future__ import annotations
@@ -20,12 +23,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -45,30 +50,35 @@ def _target(name: str) -> Path:
 
 def build(*names: str) -> None:
     """Compile every named source that has no library yet, all at once."""
-    procs = []
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        procs.append((name, target, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, target, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
-                          f"\n{out}")
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    with _LOCK:
+        procs = []
+        for name in names:
+            target = _target(name)
+            if target.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            procs.append((name, target, tmp, subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, target, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed on {name}.cu (rc "
+                              f"{proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library of csrc/<name>.cu, compiled first if it has none."""
-    build(name)
-    return ctypes.CDLL(str(_target(name)))
+    with _LOCK:
+        build(name)
+        return ctypes.CDLL(str(_target(name)))

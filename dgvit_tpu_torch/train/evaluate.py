@@ -2,12 +2,21 @@
 actor, run N deterministic episodes, report success rate, collisions and
 durations, append results/testing_data.txt.
 
-Counterpart of `dgvit_tpu/train/evaluate.py`: `run_eval`, the host
-loop (a reference-shaped Python loop with one actor forward per step, the
-whole-trunk kernel on the card), and `run_eval_vec`, every episode a lane
-of the batched env on the card (`--vec-eval`), which also runs the
-robustness sweep (`sweep=`, `tools/robustness_sweep.py`). The fleet and
-io-callback rollout loops of the JAX package are not ported yet.
+Counterpart of `dgvit_tpu/train/evaluate.py`, with four episode loops:
+  * `run_eval`, the host loop (default): a reference-shaped Python loop
+    with one actor forward per step, the whole-trunk kernel (K1) on the
+    card;
+  * `run_eval(..., device_rollout_loop=True)` (`--device-rollout`): each
+    episode through `train/device_rollout.py`, the policy, the clip and
+    the command scaling on the card and the env behind a host callback,
+    one host wait a step (JAX: one `lax.scan` with an `io_callback`);
+  * `run_eval_vec` (`--vec-eval`): every episode a lane of the batched
+    env on the card, which also runs the robustness sweep (`sweep=`,
+    `tools/robustness_sweep.py`);
+  * `run_eval_fleet` (`--fleet N`): the episodes split across N
+    concurrent robots (kinematic lanes, or with `--fleet-env ros2`
+    namespaced ROS 2 adapters) sharing one batching actor server
+    (`serve/fleet.py`), one K1 launch a coalesced dispatch.
 
 Goal-reach durations are reported in simulated seconds (steps * env.DT),
 not wall-clock.
@@ -17,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from types import SimpleNamespace
 from typing import Any, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -31,6 +41,7 @@ from dgvit_tpu_torch.envs.fault_aug import KNOB_KEYS, knobs_array, perturb_obs
 from dgvit_tpu_torch.envs.vec_kinematic import (make_consts, vec_reset,
                                                 vec_step)
 from dgvit_tpu_torch.models.jax_io import params_to_jax
+from dgvit_tpu_torch.replay.staging import HostStager
 from dgvit_tpu_torch.serve import make_action_fn
 from dgvit_tpu_torch.train.train_rl import FrameStacker, _squeeze_obs
 from dgvit_tpu_torch.train.vec_rollout import stack_init, stack_push
@@ -48,16 +59,21 @@ def _maybe_stacker(cfg: Config) -> Optional[FrameStacker]:
 def run_eval(cfg: Config, env: Env, actor_params: Mapping[str, Any],
              max_episodes: int = 100, out_dir: str = "results",
              name: str = "model",
-             device: Optional[Union[str, torch.device]] = None) -> dict:
+             device: Optional[Union[str, torch.device]] = None,
+             device_rollout_loop: bool = False) -> dict:
     """The evaluation protocol on `env` with the actor of `actor_params`
     (the JAX package's parameter tree, nested or flat as `load_params_npz`
     returns it), in the config's compute dtype. Runs on the card unless
-    device='cpu'."""
+    device='cpu'. `device_rollout_loop`: each episode through
+    `device_rollout` (JAX's io_callback scan), whose quirks it keeps."""
     e = cfg.env
     dt = float(getattr(env, "DT", 0.1))  # sim-time per step (env_lab.py:204)
     # a reused env carries its previous run's collision count
     if hasattr(env, "collision"):
         env.collision = 0
+    if device_rollout_loop:
+        return _run_eval_device(cfg, env, actor_params, max_episodes,
+                                out_dir, name, dt, device)
     dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
              else torch.float32)
     act = make_action_fn(cfg, actor_params, dtype=dtype, device=device)
@@ -91,6 +107,44 @@ def run_eval(cfg: Config, env: Env, actor_params: Mapping[str, Any],
             if s.done or timestep == e.max_steps - 1:
                 break
 
+    return _report(cfg, env, cntr2, total_rel, durations, out_dir, name)
+
+
+def _run_eval_device(cfg: Config, env: Env, actor_params, max_episodes: int,
+                     out_dir: str, name: str, dt: float,
+                     device: Optional[Union[str, torch.device]]) -> dict:
+    """The episode loop through `device_rollout`: a bad initialization
+    (done on the first step) is excluded, a success is the first step
+    with the target flag, its duration (step + 1) * dt. A failure on the
+    card raises: there is no fall back to the host loop."""
+    from dgvit_tpu_torch.train.device_rollout import device_rollout
+
+    if cfg.model.patch_mode == "channels":
+        raise ValueError("--device-rollout does not support frame-stacked "
+                         "(channels-mode) actors yet; use the host loop")
+    e = cfg.env
+    agent = SACAgent(cfg, device=device)
+    actor = make_action_fn(cfg, actor_params,
+                           dtype=agent.dtype or torch.float32,
+                           device=agent.device).policy
+    state = SimpleNamespace(actor=actor)
+    stager = HostStager(agent.device)
+    cntr2 = 0
+    total_rel = max_episodes
+    durations = []
+    for ep in range(max_episodes):
+        out = device_rollout(agent, state, env, e.max_steps,
+                             e.linear_cmd_scale, e.angular_cmd_scale,
+                             seed=cfg.train.seed + ep, evaluate=True,
+                             stager=stager)
+        dones, targets = out.dones.numpy(), out.targets.numpy()
+        if dones[0] > 0:
+            total_rel -= 1  # Bad initialization (testing.py:117-121)
+            continue
+        hit = np.flatnonzero(targets > 0)
+        if hit.size:
+            cntr2 += 1
+            durations.append(float(hit[0] + 1) * dt)
     return _report(cfg, env, cntr2, total_rel, durations, out_dir, name)
 
 
@@ -203,6 +257,53 @@ def run_eval_vec(cfg: Config, actor_params: Mapping[str, Any],
     return reports if sweep is not None else reports[0]
 
 
+def run_eval_fleet(cfg: Config, actor_params: Mapping[str, Any],
+                   max_episodes: int = 100, n_robots: int = 8,
+                   world: str = "rrc", out_dir: str = "results",
+                   name: str = "model", env_kind: str = "kinematic",
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> dict:
+    """The evaluation protocol as a fleet: the episodes split evenly
+    across `n_robots` concurrent robots sharing one BatchingActorServer
+    over `make_action_fn` (K1, the config's compute dtype), so the card
+    sees coalesced bucket dispatches instead of one a step. Robot i is
+    KinematicNavEnv(seed=train.seed + i) on `world`, or with
+    env_kind='ros2' the namespaced adapters of `make_ros2_fleet` over a
+    live multi-robot Gazebo world. An incomplete campaign (a robot that
+    failed) raises. Runs on the card unless device='cpu'."""
+    from dgvit_tpu_torch import serve
+
+    if max_episodes % n_robots:
+        raise ValueError(f"--episodes {max_episodes} must divide evenly "
+                         f"across --fleet {n_robots} robots")
+    dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
+             else torch.float32)
+    act = make_action_fn(cfg, actor_params, dtype=dtype, device=device)
+    if env_kind == "ros2":
+        # free-running physics over namespaced adapters (make_ros2_fleet)
+        envs = serve.make_ros2_fleet(cfg, n_robots, device=device)
+    else:
+        envs = [KinematicNavEnv(seed=cfg.train.seed + i,
+                                image_hw=tuple(cfg.model.image_size),
+                                world=world)
+                for i in range(n_robots)]
+    out = serve.serve_fleet(cfg, envs, act,
+                            episodes_per_robot=max_episodes // n_robots)
+    if out["errors"]:
+        # FleetRunner returns partial results with the robots' errors;
+        # the evaluation protocol is strict
+        raise RuntimeError(f"fleet eval incomplete, robots failed: "
+                           f"{out['errors']}")
+
+    class _Count:   # the collision count `_report` reads
+        collision = out["collisions"]
+
+    rep = _report(cfg, _Count(), out["successes"], out["episodes"],
+                  out["durations"], out_dir, name)
+    rep["serving"] = out["serving"]
+    return rep
+
+
 def checkpoint_actor(cfg: Config, path: str):
     """(actor params in the JAX package's layout, the step's name) out of
     a train-state checkpoint of the port's trainers: a step_N directory,
@@ -254,6 +355,19 @@ def main(argv=None):
     p.add_argument("--vec-eval", action="store_true",
                    help="run every episode at once, as the lanes of the "
                         "batched env on the card (run_eval_vec)")
+    p.add_argument("--device-rollout", action="store_true",
+                   help="each episode with the policy, the clip and the "
+                        "command scaling on the card and the env behind a "
+                        "host callback (train/device_rollout.py)")
+    p.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="run the protocol as N concurrent robots sharing "
+                        "one micro-batching actor server (serve/fleet.py);"
+                        " episodes split evenly across robots")
+    p.add_argument("--fleet-env", default="kinematic",
+                   choices=["kinematic", "ros2"],
+                   help="robots of --fleet: kinematic lanes, or namespaced "
+                        "GazeboRos2Env adapters over a live multi-robot "
+                        "Gazebo world (free-running physics)")
     p.add_argument("--world-seed", type=int, default=None,
                    help="--vec-eval: the seed of the world and records; "
                         "default the config's seed (held out for rand "
@@ -270,9 +384,14 @@ def main(argv=None):
     if bool(args.actor) == bool(args.checkpoint):
         p.error("exactly one of --actor / --checkpoint is required")
 
+    if args.fleet and (args.vec_eval or args.device_rollout):
+        p.error("--fleet is a host-loop mode; it composes with neither "
+                "--vec-eval nor --device-rollout")
+
     cfg = Config.from_yaml(args.config) if args.config else Config()
-    # the batched env builds its own worlds (rand specs exist only there)
-    env = None if args.vec_eval else KinematicNavEnv(
+    # the batched env and the fleet build their own worlds (rand specs
+    # exist only in the batched env)
+    env = None if (args.vec_eval or args.fleet) else KinematicNavEnv(
         seed=cfg.train.seed, image_hw=tuple(cfg.model.image_size),
         world=args.world)
     if args.checkpoint:
@@ -283,14 +402,19 @@ def main(argv=None):
     else:
         params = ckpt.load_params_npz(args.actor)
         name = os.path.basename(args.actor)
-    if args.vec_eval:
+    if args.fleet:
+        out = run_eval_fleet(cfg, params, args.episodes, args.fleet,
+                             args.world, args.out, name,
+                             env_kind=args.fleet_env, device=args.device)
+    elif args.vec_eval:
         out = run_eval_vec(cfg, params, args.episodes, args.world, args.out,
                            name, obs_noise=args.obs_noise,
                            occlusion=args.occlusion, greying=args.greying,
                            world_seed=args.world_seed, device=args.device)
     else:
         out = run_eval(cfg, env, params, args.episodes, args.out, name,
-                       device=args.device)
+                       device=args.device,
+                       device_rollout_loop=args.device_rollout)
     print(f"success rate: {out['success_rate'] * 100:.1f}% "
           f"({out['successes']} goals), collisions: {out['collisions']}")
 

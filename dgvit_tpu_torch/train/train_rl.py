@@ -32,8 +32,10 @@ of the zoo but the `Deterministic` actor (below), head-only fine-tuning
 (`train.policy_attention_fix` / `critic_attention_fix`), and
 `--reference-config` (the reference's flat config.yaml, translated by
 `config.load_reference_yaml`; with it `--config` is not read, as in the
-JAX command line). Not ported yet, and raising NotImplementedError by
-name rather than running something else: `--env replay|ros2`,
+JAX command line), and `--env ros2` (the ROS 2 / Gazebo adapter
+`envs/ros2_adapter.py`, which raises JAX's ImportError naming rclpy on a
+host without ROS 2). Not ported yet, and raising NotImplementedError by
+name rather than running something else: `--env replay`,
 `train_elastic`, the keyboard teleop that `main` starts for
 `train.human_intervention` on a terminal, and the `Deterministic`
 (4-channel CNN) actor, which `SACAgent` refuses: its (H, W, 4) frame
@@ -113,6 +115,93 @@ def expert_buffer(cfg: Config, pattern: str, obs_shape, stacked: bool):
             rew=np.resize(data["reward"], (n,)), next_obs=nxt,
             done=data["done"].astype(np.float32))
     return buf, n
+
+
+class Updater:
+    """One SAC update of the host loops' flavour: plain (with or without
+    `sac.prefetch_batches`), PER, guided (an expert buffer, or
+    intervention alone with an all-masked expert batch of zeros) and
+    guided PER. `sample()` draws one update's batches and stages them on
+    the device; `learn(state, drawn)` runs the flavour's update on them
+    and returns (state, metrics, td, idx): PER's |TD error| and sampled
+    rows, else None, which the caller hands to `update_priorities` when
+    it may wait for the update."""
+
+    def __init__(self, agent: SACAgent, cfg: Config, buf, expert_buf=None,
+                 expert_size: int = 0, guided: bool = False,
+                 prefetch: bool = False):
+        self.agent, self.s, self.buf = agent, cfg.sac, buf
+        self.expert_buf, self.expert_size = expert_buf, expert_size
+        self.guided = guided
+        self.prefetch = prefetch and not cfg.sac.prioritized_replay
+        self.prefetcher = None
+        self.stager = HostStager(agent.device)
+        self.expert_stager = HostStager(agent.device)
+
+    def _plain_sample(self):
+        d = self.buf.sample(self.s.batch_size)
+        d.pop("engage", None)
+        return d
+
+    def sample(self) -> dict:
+        s, buf = self.s, self.buf
+        if self.guided:
+            ab = buf.sample(s.batch_size)
+            w, idx = ab.pop("weights", None), ab.pop("indexes", None)
+            if self.expert_buf is not None:
+                k = self.agent.expert_batch_size(
+                    self.expert_size, buf.get_stored_size(), s.batch_size)
+                eb = self.expert_buf.sample(s.batch_size)
+                eb["act"] = eb.pop("act_exp")
+            else:
+                k = 0
+                eb = {key: np.zeros_like(v) for key, v in ab.items()
+                      if key != "engage"}
+            ab, _ = self.stager.put(ab)
+            eb, _ = self.expert_stager.put(eb)
+            return {"ab": ab, "eb": eb, "k": k, "w": w, "idx": idx}
+        if s.prioritized_replay:
+            d = self._plain_sample()
+            w, idx = d.pop("weights"), d.pop("indexes")
+            batch, _ = self.stager.put(d)
+            return {"batch": batch, "w": w, "idx": idx}
+        if self.prefetch:
+            # a background thread samples the NEXT batch and copies it to
+            # the device while this step runs
+            if self.prefetcher is None:
+                self.prefetcher = BatchPrefetcher(
+                    self._plain_sample, depth=2, device=self.agent.device)
+            return {"batch": next(self.prefetcher)}
+        batch, _ = self.stager.put(self._plain_sample())
+        return {"batch": batch}
+
+    def learn(self, state, drawn: dict):
+        agent, per = self.agent, self.s.prioritized_replay
+        td = None
+        if "eb" in drawn:
+            if per:
+                state, metrics, td = agent.learn_guidence_per(
+                    state, drawn["ab"], drawn["eb"], drawn["k"], drawn["w"])
+            else:
+                state, metrics = agent.learn_guidence(
+                    state, drawn["ab"], drawn["eb"], drawn["k"])
+        elif per:
+            state, metrics, td = agent.learn_per(state, drawn["batch"],
+                                                 drawn["w"])
+        else:
+            state, metrics = agent.learn(state, drawn["batch"])
+        return state, metrics, td, (drawn["idx"] if td is not None
+                                    else None)
+
+    def update_priorities(self, td, idx) -> None:
+        """|TD error| + eps as the sampled rows' priorities (standard PER;
+        the reference stubs it out). Waits for the update."""
+        self.buf.update_priorities(idx,
+                                   np.abs(td.float().cpu().numpy()) + 1e-6)
+
+    def close(self) -> None:
+        if self.prefetcher is not None:
+            self.prefetcher.close()
 
 
 class FrameStacker:
@@ -273,9 +362,8 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
     ep_real = 0
     metrics = {}   # last learn metrics (rides along in the episode log)
     start_time = time.time()
-    prefetcher = None
-    stager = HostStager(agent.device)
-    expert_stager = HostStager(agent.device)
+    updater = Updater(agent, cfg, buf, expert_buf, expert_size, guided,
+                      prefetch=s.prefetch_batches)
     if timings is not None:
         timings.update({k: 0.0 for k in ("env", "act", "sample", "learn")},
                        env_steps=0, updates=0)
@@ -285,29 +373,6 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
             if sync and on_card:
                 torch.cuda.synchronize(agent.device)
             timings[key] += time.perf_counter() - t0
-
-    def _plain_sample():
-        d = buf.sample(s.batch_size)
-        d.pop("engage", None)
-        return d
-
-    def _guided_sample():
-        """(agent batch, expert batch with its actions as 'act', valid
-        expert rows, PER's importance weights and indexes or None); without
-        an expert buffer (intervention only) an all-masked expert batch of
-        zeros."""
-        ab = buf.sample(s.batch_size)
-        w, idx = ab.pop("weights", None), ab.pop("indexes", None)
-        if expert_buf is not None:
-            k = agent.expert_batch_size(expert_size, buf.get_stored_size(),
-                                        s.batch_size)
-            eb = expert_buf.sample(s.batch_size)
-            eb["act"] = eb.pop("act_exp")
-        else:
-            k = 0
-            eb = {key: np.zeros_like(v) for key, v in ab.items()
-                  if key != "engage"}
-        return ab, eb, k, w, idx
 
     def actor_params():
         return params_to_jax(state.actor.state_dict())
@@ -363,49 +428,14 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
                 buf.add(obs=obs, act=a, pobs=last_goal[:2],
                         next_pobs=goal[:2], rew=sres.reward,
                         next_obs=next_obs, engage=engage, done=float(done))
-                if buf.get_stored_size() >= s.batch_size and guided:
+                if buf.get_stored_size() >= s.batch_size:
                     t0 = time.perf_counter()
-                    ab, eb, k, w, idx = _guided_sample()
-                    ab, _ = stager.put(ab)
-                    eb, _ = expert_stager.put(eb)
+                    drawn = updater.sample()
                     clock("sample", t0, sync=True)
                     t0 = time.perf_counter()
-                    if s.prioritized_replay:
-                        state, metrics, td = agent.learn_guidence_per(
-                            state, ab, eb, k, w)
-                        buf.update_priorities(
-                            idx, np.abs(td.float().cpu().numpy()) + 1e-6)
-                    else:
-                        state, metrics = agent.learn_guidence(state, ab, eb,
-                                                              k)
-                    clock("learn", t0, sync=True)
-                    if timings is not None:
-                        timings["updates"] += 1
-                elif buf.get_stored_size() >= s.batch_size:
-                    t0 = time.perf_counter()
-                    if s.prioritized_replay:
-                        d = _plain_sample()
-                        w, idx = d.pop("weights"), d.pop("indexes")
-                        batch, _ = stager.put(d)
-                    elif s.prefetch_batches:
-                        # a background thread samples the NEXT batch and
-                        # copies it to the device while this step runs
-                        if prefetcher is None:
-                            prefetcher = BatchPrefetcher(
-                                _plain_sample, depth=2, device=agent.device)
-                        batch = next(prefetcher)
-                    else:
-                        batch, _ = stager.put(_plain_sample())
-                    clock("sample", t0, sync=True)
-                    t0 = time.perf_counter()
-                    if s.prioritized_replay:
-                        state, metrics, td = agent.learn_per(state, batch, w)
-                        # |TD error| + eps as the sampled rows' priorities
-                        # (standard PER; the reference stubs it out)
-                        buf.update_priorities(
-                            idx, np.abs(td.float().cpu().numpy()) + 1e-6)
-                    else:
-                        state, metrics = agent.learn(state, batch)
+                    state, metrics, td, idx = updater.learn(state, drawn)
+                    if td is not None:
+                        updater.update_priorities(td, idx)
                     clock("learn", t0, sync=True)
                     if timings is not None:
                         timings["updates"] += 1
@@ -465,8 +495,7 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
                 title=f"desc: {t.desc} block={cfg.model.block} "
                       f"head={cfg.model.head}")
 
-    if prefetcher is not None:
-        prefetcher.close()
+    updater.close()
     # final save + summary (main.py:404-417)
     if t.save and not t.if_test:
         ckpt.save_train_state(ckpt_dir, int(state.itera), state)
@@ -520,9 +549,10 @@ def main(argv=None):
         cfg = Config.from_yaml(args.config)
     else:
         cfg = Config()
-    if args.env != "kinematic":
+    if args.env == "replay":
         raise NotImplementedError(
-            f"--env {args.env}: only the kinematic env is ported yet")
+            "--env replay: the recorded-data env (ReplayEnv) is not ported "
+            "yet")
     if cfg.train.human_intervention and sys.stdin.isatty():
         raise NotImplementedError(
             "train.human_intervention on a terminal: the keyboard teleop "
@@ -530,9 +560,13 @@ def main(argv=None):
     m = cfg.model
     print(f"training critic_type: {m.critic_type} \t actor_type: "
           f"{m.actor_type} ({m.backbone}, {m.compute_dtype})", flush=True)
-    env = KinematicNavEnv(seed=cfg.train.seed,
-                          image_hw=tuple(cfg.model.image_size),
-                          world=args.world)
+    if args.env == "ros2":
+        from dgvit_tpu_torch.envs.ros2_adapter import GazeboRos2Env
+        env = GazeboRos2Env(cfg, device=args.device)
+    else:
+        env = KinematicNavEnv(seed=cfg.train.seed,
+                              image_hw=tuple(cfg.model.image_size),
+                              world=args.world)
     out = train(cfg, env, args.out, args.expert_glob, args.episodes,
                 args.resume, device=args.device)
     print(f"done: {out['successes']} successes over {out['episodes']} episodes,"

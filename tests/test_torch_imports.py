@@ -76,7 +76,11 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.examples.bc_kinematic_demo",
               "dgvit_tpu_torch.models.cnn",
               "dgvit_tpu_torch.models.simple_vit",
-              "dgvit_tpu_torch.models.torch_io"):
+              "dgvit_tpu_torch.models.torch_io",
+              "dgvit_tpu_torch.serve.fleet",
+              "dgvit_tpu_torch.train.train_fleet",
+              "dgvit_tpu_torch.train.device_rollout",
+              "dgvit_tpu_torch.envs.ros2_adapter"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

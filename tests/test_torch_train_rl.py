@@ -339,7 +339,21 @@ def test_frame_stacked_loop(tmp_path):
                                      "env_ros2", "reference_config"])
 def test_unported_flavours_raise_by_name(tmp_path, flavour):
     cfg = tiny_cfg()
-    word = {"env_replay": "--env replay", "env_ros2": "--env ros2",
+    if flavour == "env_ros2":
+        # ported: on a host without ROS 2 the adapter raises JAX's
+        # ImportError naming rclpy, and nothing runs instead
+        from dgvit_tpu_torch.envs import ros2_adapter
+        if ros2_adapter.HAS_ROS2:
+            pytest.skip("rclpy is installed")
+        with pytest.raises(ImportError, match="rclpy") as port_err:
+            train_rl.main(["--env", "ros2", "--device", "cpu",
+                           "--out", str(tmp_path)])
+        with pytest.raises(ImportError) as jax_err:
+            jax_train_rl.main(["--env", "ros2", "--out", str(tmp_path)])
+        assert str(port_err.value) == str(jax_err.value)
+        assert not list(tmp_path.glob("*.jsonl"))
+        return
+    word = {"env_replay": "--env replay",
             "reference_config": "--env replay"}.get(flavour, flavour)
     with pytest.raises(NotImplementedError, match=word):
         if flavour == "train_elastic":
