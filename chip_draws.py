@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py's restated checks on draws that its full run does not make.
 
-    python3 chip_draws.py [--seeds 7 8 9 10 11] [--json PATH] [TREE ...]
+    python3 chip_draws.py [--seeds 7 8 9 10 11] [--json PATH]
+                          [--phases 2 15 23b ...] [TREE ...]
 
 chip_smoke.py draws each phase's inputs from one generator started from
 SEED, so what a phase draws depends on the phases run before it. For each
@@ -17,7 +18,11 @@ the CPU's on the seed's randm32 worlds and records, and the ring on the
 card against the CPU's on the seed's rows) and phase 20a (the device
 PER on the card against its CPU version on priorities planted from the
 seed, and 2^20 draws under the chi-square limit) once a seed, in the
-shared order: they draw from the seed alone. Orders of draws:
+shared order: they draw from the seed alone; and phase 23b's K8 checks at
+the SimpleViT's shapes (`vit_attention_checks`, on a spawned generator
+after 13b). --phases runs only the phases named; a phase left out still
+takes the spawns it would take, so the spawned phases (15 and after)
+draw as in the whole run. Orders of draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
@@ -54,6 +59,7 @@ from pathlib import Path
 RUN = r'''
 import json, os, sys
 tree, seeds = sys.argv[1], [int(s) for s in sys.argv[2].split(",")]
+phases = set(sys.argv[3].split(","))
 os.chdir(tree)
 sys.path.insert(0, tree)
 import numpy as np
@@ -93,7 +99,8 @@ later = [("15", lambda r: cs.phase_attention(nets, r)),
          ("16", lambda r: cs.phase_composed(cfg, flat, policies, r)),
          ("17b", lambda r: cs.phase_long_frames(flat, r)),
          ("13a", lambda r: cs.phase_fault_j(nets, r)),
-         ("13b", lambda r: cs.phase_recompute(nets, r))]
+         ("13b", lambda r: cs.phase_recompute(nets, r)),
+         ("23b", lambda r: cs.vit_attention_checks(r))]
 for seed in seeds:
     for order in ("shared", "fresh"):
         failed.clear()
@@ -102,24 +109,38 @@ for seed in seeds:
         fresh = lambda: rng if order == "shared" else np.random.default_rng(
             seed)
         if order == "shared":
-            print(f"== seed {seed}: phase 2 (both orders)", flush=True)
-            cs.phase_kernel_vs_plain(cfg, policies, rng)
-            print(f"== seed {seed}: phase 19a (both orders)", flush=True)
-            cs.phase_vec_env(seed)
-            print(f"== seed {seed}: phase 20a (both orders)", flush=True)
-            cs.phase_device_per(seed)
-        print(f"== seed {seed}, {order}: phase 5", flush=True)
+            for name, phase in (
+                    ("2", lambda: cs.phase_kernel_vs_plain(cfg, policies,
+                                                           rng)),
+                    ("19a", lambda: cs.phase_vec_env(seed)),
+                    ("20a", lambda: cs.phase_device_per(seed))):
+                if name in phases:
+                    print(f"== seed {seed}: phase {name} (both orders)",
+                          flush=True)
+                    phase()
         rng = fresh()
-        cs.phase_train_kernels(nets, rng)
-        if order == "shared":
+        if "5" in phases:
+            print(f"== seed {seed}, {order}: phase 5", flush=True)
+            cs.phase_train_kernels(nets, rng)
+        # phases 5b and 13 spawn once each off the shared generator; left
+        # out, they still take their spawn, so that the spawned phases
+        # after them draw as in the whole run
+        if order == "shared" and "5b" in phases:
             print(f"== seed {seed}, {order}: phase 5b", flush=True)
             cs.phase_bwd_widths(nets, rng)
-        print(f"== seed {seed}, {order}: phase 13", flush=True)
-        cs.phase_k6(nets, fresh())
+        elif order == "shared":
+            rng.spawn(1)
+        if "13" in phases:
+            print(f"== seed {seed}, {order}: phase 13", flush=True)
+            cs.phase_k6(nets, fresh())
+        elif order == "shared":
+            rng.spawn(1)
         for name, phase in later:
-            print(f"== seed {seed}, {order}: phase {name}", flush=True)
-            phase(fresh().spawn(1)[0])
-        if order == "shared":
+            r = fresh().spawn(1)[0]  # taken whether the phase runs or not
+            if name in phases:
+                print(f"== seed {seed}, {order}: phase {name}", flush=True)
+                phase(r)
+        if order == "shared" and "16" in phases:
             # lead l: phase 16 on the generator it had in an earlier order,
             # where phases 13a and 13b were spawned before it (phases 5b
             # and 13 spawn once each): the seed's sixth spawn
@@ -131,6 +152,10 @@ for seed in seeds:
                                       "failed": list(failed),
                                       "readings": cs.READINGS}), flush=True)
 '''
+
+
+PHASES = ["2", "19a", "20a", "5", "5b", "13", "15", "16", "17b", "13a",
+          "13b", "23b"]
 
 
 def rows(result):
@@ -312,6 +337,23 @@ def rows(result):
                    f"{1e-4:.0e}), flags exact, {r['vec_env_resets']} "
                    f"resets; vs the host env {r['host_env_max_abs']:.3e} "
                    f"(limit 1e-3); the ring bit-equal")
+        elif r["check"] == "K1 fp32":
+            yield (f"{tag} K1 fp32, max|err| over 1e-4 (1 + |ref|) against "
+                   "the plain version (passing at 1): " + ", ".join(
+                       f"{n} {v:.3e} " + (
+                           "(read only)" if n == "tanh GELU" else
+                           ("fails" if v > 1 else "PASSES")
+                           if n.startswith("scores") else
+                           ("ok" if v <= 1 else "FAIL"))
+                       for n, v in r["readings"].items()))
+        elif r["check"] == "K8 fp32":
+            yield (f"{tag} K8 fp32 {r['where']} {r['shape']}, max|err| over "
+                   "1e-5 L (passing at 1): " + ", ".join(
+                       f"{n} {v:.3e} " + (
+                           ("ok" if v <= 1 else "FAIL") if n.startswith(
+                               ("K8", "float64")) else
+                           ("fails" if v > 1 else "PASSES"))
+                       for n, v in r["readings"].items()))
         elif r["check"] == "K1 latent":
             for n, v in r["readings"].items():
                 want = ("read only" if v.get("read_only") else
@@ -341,6 +383,8 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", default=[str(Path(__file__).parent)])
     ap.add_argument("--seeds", type=int, nargs="+", default=[7, 8, 9, 10, 11])
     ap.add_argument("--json", help="write every raw reading here")
+    ap.add_argument("--phases", nargs="+", default=PHASES,
+                    help="run only these phases (default: all)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -351,7 +395,7 @@ def main() -> int:
         print(f"== run {i}: {tree}", flush=True)
         proc = subprocess.run(
             [sys.executable, "-c", RUN, tree,
-             ",".join(str(s) for s in args.seeds)],
+             ",".join(str(s) for s in args.seeds), ",".join(args.phases)],
             capture_output=True, text=True)
         print(proc.stdout, flush=True)
         if proc.returncode != 0:

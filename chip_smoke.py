@@ -13,8 +13,8 @@ per source, all at once), then
      (got_forward_fused) and got_forward_plain on the same inputs, with
      the trained flagship actor's weights
      (artifacts/r5/dr_randm32_s11_amin_actor.npz), bf16 at
-     B in {1, 3, 8, 16, 32, 64, 100, 2048} and fp32 at B in {1, 8}; each
-     batch in
+     B in {1, 3, 8, 16, 32, 64, 100, 2048} and fp32 at B in {1, 8, 16,
+     100}; each batch in
      the form K1's route picks (the cluster up to 90 frames, two frames a
      thread block past that; k1_form), and every form (the cluster, two
      frames a block, the FMA trunk_kernel) forced at B=32 and B=2048 and
@@ -22,7 +22,10 @@ per source, all at once), then
      float64-sum version of the plain version (exact_sums; the rule at
      EXACT_K), and three wrong trunks (erf GELU, residual kept in fp32
      across blocks, the embedding left in fp32 before the positional add)
-     must FAIL the same checks;
+     must FAIL the same checks; in fp32 the route (the fp32 cluster form
+     on the tensor cores to 90 frames, the FMA trunk_kernel past them),
+     each fp32 form forced at every batch and the float64-sum version
+     within F32_TOL of the plain version, a tanh GELU outside it;
   3. policy through the kernel: make_action_fn on the card serves the 16
      golden frames; actions held against the plain path on the card and
      against the JAX package's fp32 actions (tests/data/
@@ -154,7 +157,8 @@ per source, all at once), then
      bf16 and fp32, forward and backward; versions that leave padded keys
      unmasked or mis-scale must FAIL, and K7's with the probabilities or
      each head's output left in fp32, whose float64-sum version must
-     pass; K7's FMA kernel on an unaligned x;
+     pass; K7's FMA kernel on an unaligned x; the fp32 K8 (3xTF32 on the
+     tensor cores) with its float64-sum version, which must pass;
  16. the composed routes through the model, main paths: the flagship
      actor with GoT(dropout=0.1), a training forward and backward at
      B=256 (K7 x4; in bf16 its tensor-core form, by the profile's kernel
@@ -172,7 +176,9 @@ per source, all at once), then
      earlier design's times, K7 beside its FMA kernel in this run and
      beside x @ wqkv, scaled_dot_product_attention and @ wout + bout, and
      torch's scaled_dot_product_attention beside K8, both also by device
-     time (torch.profiler);
+     time (torch.profiler); the fp32 K8 at the same shapes beside its
+     first design (the FMA attention_kernel), its plain version, its
+     bound and scaled_dot_product_attention;
  17b. long frames: every byte count of ops/smem.py against the
      libraries' own queries (the tensor-core bodies' and each form of
      K1's too); then
@@ -279,8 +285,9 @@ per source, all at once), then
      lowest-validation epoch bit for bit, the plain versions' fit within
      BC_PLAIN_REL; ms an epoch; (c) SACTeacher on the gw10 generalist
      (artifacts/r3/gen_fused/gw10_winner_actor.npz) with Config(): fp32,
-     one K1 launch a choose_action (B=1 and batched), K1 against its
-     plain version under phase 2's fp32 check, as_pilot's map; then
+     one K1 launch a choose_action (B=1 and batched), K1 (its fp32
+     cluster form) against its plain version under phase 2's fp32 check
+     and timed beside the FMA trunk_kernel, as_pilot's map; then
      tools/record_teacher_demos on rand2: one K1 a step, the reference
      layout, policy-unit actions; (d) generalization_eval.main with the
      gw10 arm's flags from the round-3 warm start on (b)'s corpus, cut to
@@ -297,12 +304,15 @@ per source, all at once), then
      versions under phase 5's fp32 rule (EXACT_K), a tanh GELU failing
      it; 5 updates in fp32 and 5 with compute_dtype bfloat16, each
      launching K4, K2f x3, K2b x3, K3f and K3b; the CNN critic's Q with
-     cuDNN's TF32 on against off; train_rl.main --reference-config on the
+     cuDNN's TF32 on against off; K1's form for its actor at B=1 (the fp32
+     cluster); train_rl.main --reference-config on the
      card and train() with the bf16 config (exact launches an env step
      and an update), then run_eval; (b) the SimpleViT family at its
      published widths: K8 at (32, 8, 64, 64) and (32, 8, 256, 64) against
      its plain version, fp32 and bf16, forward and backward, a mis-scaled
-     version failing, timed beside scaled_dot_product_attention; a ViT
+     version failing (in fp32 the float64-sum version passing), timed
+     beside scaled_dot_product_attention (fp32 also beside its first
+     design, the FMA attention_kernel); a ViT
      actor with attn_impl="pallas" (K8 x2 a forward) against the plain
      route; at 256 patches (256 x 320 frames, `auto`) 5 fp32 updates
      through K8 (x10 each) against the plain version, and 5 in bf16; (c)
@@ -363,10 +373,16 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.npz"
 GOLDEN_SEED, GOLDEN_FRAMES = 2026, 16
 SEED = 7
 DEVICE = "cuda"
-# 16: the collection batch of the fused round and train_vec (FUSED_LANES)
-# 100: the lanes of the round-5 launcher's final run_eval_vec (phase 20e)
+# 16: the collection batch of the fused round and train_vec (FUSED_LANES);
+# in fp32 the teacher's lanes (phase 22c, TEACHER_LANES)
+# 100: the lanes of the round-5 launcher's final run_eval_vec (phase 20e);
+# in fp32 a batch past K1's cluster bound (90 frames on an H100), where
+# the route keeps the FMA trunk_kernel
 CHECK_BATCHES = {"bfloat16": (1, 3, 8, 16, 32, 64, 100, 2048),
-                 "float32": (1, 8)}
+                 "float32": (1, 8, 16, 100)}
+# K1's fp32 forms, each forced at every fp32 batch of phase 2: the
+# cluster form on the tensor cores (3xTF32) and the FMA trunk_kernel
+K1_FP32_FORMS = ("cluster_fp32", "fma")
 TIMED_BATCHES = ((1, 50), (32, 20), (64, 10), (2048, 2))   # (batch, reps)
 # batches about the cluster form's boundary (k1_form_for: 90 frames on an
 # H100's 132 SMs), timed in both forms
@@ -654,6 +670,13 @@ def pooled_rel(outs, refs):
     e = TrainErrors()
     e.add(zip(outs, refs))
     return e.mean
+
+
+def f32_ratio(out, ref):
+    """The largest |out - ref| / (F32_TOL (1 + |ref|)) over the values: the
+    fp32 check of K1 (phases 2 and 22c) passes at 1 and below."""
+    o, r = out.float(), ref.float()
+    return ((o - r).abs() / (F32_TOL * (1 + r.abs()))).max().item()
 
 
 def restated(stat, old, k, outs, plains, exacts):
@@ -978,6 +1001,23 @@ def trunk_f32_emb(patches, goal, pe, pos, blocks, fn, heads, dim_head,
                                    final_norm)
 
 
+def trunk_mis_scaled(*args):
+    """A wrong fp32 trunk: the plain version with every block's scores
+    scaled by 1 / dim_head where the model asks 1 / sqrt(dim_head)
+    (phase 23b's wrong K8, in the trunk)."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
+
+    attend = ft._attention
+
+    def mis_scaled(q, k, v, heads, dim_head, cdt):
+        return attend(q * dim_head ** -0.5, k, v, heads, dim_head, cdt)
+    with swapped(ft, "_attention", mis_scaled), \
+            swapped(cb, "_attention", mis_scaled):
+        return got_forward_plain(*args)
+
+
 K1_WRONGS = {"erf GELU": trunk_erf_gelu,
              "fp32 residual": trunk_f32_residual,
              "fp32 embedding": trunk_f32_emb}
@@ -1067,6 +1107,7 @@ def phase_kernel_vs_plain(cfg, policies, rng):
     from dgvit_tpu_torch.ops import got_megakernel as gm
 
     worst, k = {}, EXACT_K["K1"]
+    f32_reads = {}  # fp32: the largest f32_ratio of each version
     pools = {}     # check name: [(out, plain, float64-sum)], one a launch
     single = {}    # form: its one batch of 32, read alone
     cases = [(dt, b) for dt, bs in CHECK_BATCHES.items() for b in bs]
@@ -1087,13 +1128,23 @@ def phase_kernel_vs_plain(cfg, policies, rng):
         err = (out.float() - ref.float()).abs()
         worst[dtype] = max(worst.get(dtype, 0.0), err.max().item())
         if dtype == "float32":
-            ok = bool((err <= F32_TOL + F32_TOL * ref.abs()).all())
+            # the route, each fp32 form forced, the float64-sum version
+            # (which must pass) and a tanh GELU (which must fail)
+            outs = {"K1": out, **{f"K1 {f}": k1_launch(f, args)
+                                  for f in K1_FP32_FORMS}}
+            outs["float64 sums"] = exact(gm.got_forward_plain, *args)
+            outs["scores scaled 1 / dim_head"] = trunk_mis_scaled(*args)
+            with other_gelu():  # read only: F32_TOL cannot see the form
+                outs["tanh GELU"] = gm.got_forward_plain(*args)
+            ratios = {name: f32_ratio(o, ref) for name, o in outs.items()}
+            for name, r in ratios.items():
+                f32_reads[name] = max(f32_reads.get(name, 0.0), r)
             print(f"K1 ({form}) vs plain fp32 B={batch}: max|err| "
                   f"{err.max().item():.3e} mean|err| {err.mean().item():.3e}"
-                  f" max|ref| {ref.abs().max().item():.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            check(ok, f"K1 disagrees with its plain version (fp32, "
-                  f"B={batch})")
+                  f" max|ref| {ref.abs().max().item():.3e}; max|err| over "
+                  f"{F32_TOL:g} (1 + |ref|), passing at 1: " + ", ".join(
+                      f"{n} {r:.3e}" for n, r in ratios.items()),
+                  flush=True)
             continue
         ex = exact(gm.got_forward_plain, *args)
         outs = {"K1": out}
@@ -1128,6 +1179,21 @@ def phase_kernel_vs_plain(cfg, policies, rng):
                 pools[f"{name} at B={sb}"] = [
                     (outs[name][lo:hi], ref[lo:hi], ex[lo:hi])
                     for lo, hi in cuts]
+    if f32_reads:
+        print(f"K1 fp32 over the batches {CHECK_BATCHES['float32']}, the "
+              f"largest max|err| over {F32_TOL:g} (1 + |ref|) against the "
+              "plain version (passing at 1): " + ", ".join(
+                  f"{n} {r:.3e}" for n, r in f32_reads.items())
+              + " (the mis-scaled trunk must fail; the tanh GELU is read "
+              "only)", flush=True)
+        record("K1 fp32", readings=dict(f32_reads))
+        for name, r in f32_reads.items():
+            if name.startswith("scores"):
+                check(r > 1, f"K1's fp32 check passes a wrong trunk "
+                      f"({name})")
+            elif name.startswith(("K1", "float64")):
+                check(r <= 1, f"{name} disagrees with K1's plain version "
+                      "(fp32)")
     readings = {name: k1_verdict(t, k) for name, t in pools.items()}
     for name, t in single.items():
         readings[f"{name}, one batch of {sb}"] = {
@@ -4213,6 +4279,51 @@ def k8_rounded(what):
     return attend
 
 
+def k8_fma(q, k, v, scale):
+    """The fp32 K8's first design (attention_kernel: FMA loops, K and V of
+    the whole head in shared memory) through the library's measurement
+    entry, attention_fma_launch: no route launches it, this script times it
+    beside attention_tf32_kernel, which replaced it."""
+    import torch
+
+    from dgvit_tpu_torch.ops.attention import _attention_lib
+
+    out = torch.empty_like(q)
+    b, h, n, d = q.shape
+    err = _attention_lib().attention_fma_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n,
+        d, scale, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the fp32 K8's FMA kernel failed to launch ({err})")
+    return out
+
+
+def k8_f32_reading(where, label, out, ref, grads, ref_grads, args, scale,
+                   wrongs):
+    """The fp32 K8 check (max|err| <= TRAIN_F32_MAX L, forward and
+    backward) on one case, with rule (a) of EXACT_K's note: the
+    float64-sum version of attention_plain must pass it and each wrong
+    version fail it. Returns (ok, the printed reading) and records the
+    reading (each statistic over its limit: passing at 1)."""
+    from dgvit_tpu_torch.ops import attention as att
+
+    L = max(ref.float().abs().max().item(), 1e-30)
+    lim = TRAIN_F32_MAX * L
+    over = lambda t: (t.float() - ref.float()).abs().max().item() / lim
+    ex = exact(lambda *a: att.attention_plain(*a, scale), *args)
+    reads = {"K8": over(out), "K8 backward": rel_max(grads, ref_grads)
+             / TRAIN_F32_MAX, "float64 sums": over(ex),
+             **{name: over(w) for name, w in wrongs.items()}}
+    record("K8 fp32", where=where, shape=label, readings=reads)
+    ok = max(reads["K8"], reads["K8 backward"]) <= 1
+    check(reads["float64 sums"] <= 1, f"the float64-sum version of K8's "
+          f"plain version fails its fp32 check ({where} {label})")
+    for name in wrongs:
+        check(reads[name] > 1, f"K8's fp32 check passes a wrong version "
+              f"({name}, {where} {label})")
+    return ok, "; over the limit (passing at 1): " + ", ".join(
+        f"{n} {r:.3e}" for n, r in reads.items())
+
+
 def phase_attention(nets, rng):
     """Phase 15: K7 and K8 against their plain versions, forward and
     backward, and wrong versions that must fail; K7's bf16 tensor-core
@@ -4231,6 +4342,7 @@ def phase_attention(nets, rng):
     draw = lambda shape, dt: torch.from_numpy(rng.standard_normal(
         shape).astype("float32")).to(dev).to(dt)
     cases = []      # (kernel, label, dtype, fn, plain, args, wrongs)
+    args_scale = {}  # K8's scale by label
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for b, n in SECTION_SHAPES:
@@ -4250,6 +4362,7 @@ def phase_attention(nets, rng):
                           [x, *w], wrongs))
         for shape in ATTN_SHAPES:
             scale = shape[-1] ** -0.5
+            args_scale[str(shape)] = scale
             args = [draw(shape, dt) for _ in range(3)]
             wrongs = {"scale 1 / D": lambda q, k, v, s=scale:
                       attention_plain(q, k, v, s * s)}
@@ -4296,6 +4409,12 @@ def phase_attention(nets, rng):
             ok = err <= TRAIN_F32_MAX * scale and gerr <= TRAIN_F32_MAX
             fails = lambda t: ((t.float() - ref.float()).abs().max().item()
                                > TRAIN_F32_MAX * scale)
+            if kernel == "K8":
+                ok, reading = k8_f32_reading(
+                    "phase 15", label, out, ref, grads, ref_grads, args,
+                    args_scale[label], {n: w(*args)
+                                        for n, w in wrongs.items()})
+                line += reading
         else:
             e, eb = TrainErrors(), TrainErrors()
             e.add([(out, ref)])
@@ -4858,7 +4977,10 @@ def smem_mirror_mismatches():
                                                 smem.k1_embed(pd)),
                          g.k1_smem(code, n, pd, d, heads, dh, mlp, 1)),
                         (f"K1 cluster pd={pd}", smem.k1_cluster(n, pd),
-                         g.k1_smem(code, n, pd, d, heads, dh, mlp, 2))]
+                         g.k1_smem(code, n, pd, d, heads, dh, mlp, 2)),
+                        (f"K1 cluster fp32 pd={pd}",
+                         smem.k1_cluster_fp32(n, pd),
+                         g.k1_smem(code, n, pd, d, heads, dh, mlp, 3))]
                 count += len(pairs)
                 bad += [(what, str(dtype), w, py, lib)
                         for what, py, lib in pairs if py != lib]
@@ -5176,6 +5298,26 @@ def phase_attention_times(nets, rng):
                              runs=5),
             bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib, 10, runs=5),
             device_ms=device_ms(kern), library_device_ms=device_ms(lib))
+    # the fp32 K8 (attention_tf32_kernel) beside its first design, the FMA
+    # attention_kernel, in this run
+    rows["K8 fp32"] = {}
+    for shape in ATTN_SHAPES:
+        q, k, v = (torch.randn(shape, device=dev) for _ in range(3))
+        s = shape[-1] ** -0.5
+        bnd, by = k8_bound(shape, "float32")
+        rows["K8 fp32"][str(shape)] = t = dict(
+            ms=cuda_ms(lambda: attention_fused(q, k, v, s), 10, runs=5),
+            fma_ms=cuda_ms(lambda: k8_fma(q, k, v, s), 10, runs=5),
+            plain_ms=cuda_ms(lambda: attention_plain(q, k, v, s), 5,
+                             runs=5),
+            bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=s), 10, runs=5))
+        print(f"K8 fp32 {shape} ({card()}): kernel {t['ms']:.4f} ms, its "
+              f"first design (the FMA attention_kernel) {t['fma_ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by}),"
+              f" scaled_dot_product_attention {t['library_ms']:.4f} ms",
+              flush=True)
     before = {"K6": {f"B={SAC_BATCH}": FMA_DESIGN_MS["K6"]},
               "K7": FMA_DESIGN_MS["K7"], "K8": FMA_DESIGN_MS["K8"]}
     print(f"K6 bf16 B={SAC_BATCH} on {card()}: {rows['K6']['ms']:.4f} ms on "
@@ -7177,21 +7319,26 @@ def phase_teacher(out_dir):
             err = (out - ref).abs()
             ok = bool((err <= F32_TOL + F32_TOL * ref.abs()).all())
             bnd, by = bound_ms(*k1_work(cfg, b, "float32"), "float32")
+            fused = lambda: gm.got_forward_fused(*args)
             k1[b] = {"form": gm.k1_form(*args),
                      "max_abs_err": err.max().item(), "pass": ok,
-                     "ms": cuda_ms(lambda: gm.got_forward_fused(*args), 10,
-                                   runs=5),
+                     "ms": cuda_ms(fused, 10, runs=5),
                      "plain_ms": cuda_ms(lambda: gm.got_forward_plain(
                          *args), 5, runs=5), "bound_ms": bnd,
                      "bound_by": by}
+            with k1_forced("fma"):  # the FMA trunk_kernel it replaced
+                k1[b]["fma_ms"] = cuda_ms(fused, 10, runs=5)
             print(f"phase 22c K1 fp32 ({k1[b]['form']}) on the teacher's "
                   f"rand2 frames, B={b}: max|err| {err.max().item():.3e} "
                   f"(limit {F32_TOL:g} + {F32_TOL:g} |ref|) "
-                  f"{'ok' if ok else 'FAIL'}; {k1[b]['ms']:.4f} ms (plain "
+                  f"{'ok' if ok else 'FAIL'}; {k1[b]['ms']:.4f} ms (the "
+                  f"FMA trunk_kernel {k1[b]['fma_ms']:.4f}, plain "
                   f"{k1[b]['plain_ms']:.4f}, bound {bnd:.5f} {by}; CUDA "
                   f"events, {card()})", flush=True)
             check(ok, f"phase 22c: K1 disagrees with its plain version "
                   f"(fp32, B={b})")
+            check(k1[b]["form"] == "cluster_fp32", f"phase 22c: the "
+                  f"teacher's K1 at B={b} takes the {k1[b]['form']} form")
     source, to_env = teacher.as_pilot()
     a = source(frames[0][..., None], goals[0], 0)
     check(np.array_equal(a, np.clip(got["B=1"], -e.max_action,
@@ -7505,8 +7652,10 @@ def phase_reference_config(rng, out_dir):
     kernels held to the float64-sum version of the plain versions under
     phase 5's fp32 rule (EXACT_K), a tanh GELU failing it; 5 updates in
     fp32 and in bf16, each launching PER_ZOO_UPDATE; the CNN critic's
-    TF32 difference; `train_rl.main(["--reference-config", ...])` on the
-    card, the bf16 config through `train`, then `run_eval`."""
+    TF32 difference; K1's form for its actor at B=1 (the fp32 cluster);
+    `train_rl.main(["--reference-config", ...])` on the card, the bf16
+    config through `train`, then `run_eval`."""
+    import numpy as np
     import torch
 
     from dgvit_tpu_torch.agents import SACAgent
@@ -7514,6 +7663,7 @@ def phase_reference_config(rng, out_dir):
     from dgvit_tpu_torch.core.checkpoint import load_params_npz
     from dgvit_tpu_torch.envs import KinematicNavEnv
     from dgvit_tpu_torch.models.policies import GoTPolicy, QNetwork
+    from dgvit_tpu_torch.ops import got_megakernel as gm
     from dgvit_tpu_torch.train import train_rl
     from dgvit_tpu_torch.train.evaluate import run_eval
 
@@ -7591,6 +7741,15 @@ def phase_reference_config(rng, out_dir):
           f"against off: Q max|diff|/L {tf32_rel:.3e}", flush=True)
 
     # the entry points: main on the card, train with the bf16 config
+    # the form K1 takes for the reference config's fp32 actor at B=1, as
+    # its train loop and run_eval act
+    with torch.no_grad():
+        act_form = gm.k1_form(*trunk_inputs(
+            state.actor, 1, np.random.default_rng(ZOO_SEED)))
+    print(f"phase 23a: the reference config's fp32 actor acts through K1's "
+          f"{act_form} form (B=1)", flush=True)
+    check(act_form == "cluster_fp32", f"phase 23a: K1 at B=1 takes the "
+          f"{act_form} form")
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -7646,7 +7805,7 @@ def phase_reference_config(rng, out_dir):
                          "reference_config_updates_bf16":
                              runs["bf16"]["launches"]},
             "train_bf16": {"env_steps": n_env, "updates": n_up},
-            "main_s": main_s}
+            "main_s": main_s, "k1_form": act_form}
 
 
 def vit_attention_checks(rng):
@@ -7680,8 +7839,11 @@ def vit_attention_checks(rng):
             scale = ref.float().abs().max().item()
             err = (out.float() - ref.float()).abs().max().item()
             gerr = rel_max(grads, ref_grads)
+            reading = ""
             if dtype == "float32":
-                ok = err <= TRAIN_F32_MAX * scale and gerr <= TRAIN_F32_MAX
+                ok, reading = k8_f32_reading(
+                    "phase 23b", str(shape), out, ref, grads, ref_grads,
+                    (q, k, v), s, {"scale 1 / D": wrong})
                 caught = ((wrong - ref).abs().max().item()
                           > TRAIN_F32_MAX * scale)
             else:
@@ -7693,7 +7855,8 @@ def vit_attention_checks(rng):
             print(f"phase 23b K8 vs plain {dtype} {shape}: max|err| "
                   f"{err:.3e} (max|ref| {scale:.3e}), backward max|err|/L "
                   f"{gerr:.3e} {'ok' if ok else 'FAIL'}; wrong (scale 1 / "
-                  f"D) {'fails' if caught else 'PASSES'}", flush=True)
+                  f"D) {'fails' if caught else 'PASSES'}{reading}",
+                  flush=True)
             check(ok, f"phase 23b: K8 disagrees with its plain version "
                   f"({dtype} {shape})")
             check(caught, f"phase 23b: K8's limits pass a wrong version "
@@ -7706,12 +7869,18 @@ def vit_attention_checks(rng):
                                  runs=5),
                 bound_ms=bnd, bound_by=by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=s), 10, runs=5))
+                    q, k, v, scale=s), 10, runs=5),
+                **({"fma_ms": cuda_ms(lambda: k8_fma(q, k, v, s), 10,
+                                      runs=5)} if dtype == "float32"
+                   else {}))
             print(f"phase 23b K8 {dtype} {shape} ({card()}): kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
-                  f"scaled_dot_product_attention {t['library_ms']:.4f} ms "
-                  f"(CUDA events)", flush=True)
+                  f"{t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']}), scaled_dot_product_attention "
+                  f"{t['library_ms']:.4f} ms" + (
+                      f", its first design (the FMA attention_kernel) "
+                      f"{t['fma_ms']:.4f} ms" if "fma_ms" in t else "")
+                  + " (CUDA events)", flush=True)
     return worst, times
 
 
@@ -8847,6 +9016,43 @@ def main() -> int:
                 "vit_max_abs_err": zoo["vit"]["k8_worst"]}
                if short == "K8" else {}),
         })
+    # the fp32 forms redesigned for the tensor cores: K1's cluster form on
+    # the teacher's path (phase 22c, B=1), K8's attention_tf32_kernel on
+    # the SimpleViT's updates at 256 patches (phase 23b)
+    teacher = imitation["teacher"]
+    name, src, replaces = KERNELS["K1"]
+    t1 = teacher["k1"][1]
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+        "launches": teacher["launches"]["K1"],
+        "max_abs_err": worst["float32"],
+        **{key: t1[key] for key in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "fma_ms")},
+        "library_ms": None, "batch": 1, "dtype": "float32",
+        "form": t1["form"],
+        "by_batch": {str(b): v for b, v in teacher["k1"].items()},
+        "launches_by_path": {
+            "teacher_tool": teacher["launches"]["K1"],
+            "reference_config_main":
+                zoo["reference_config"]["launches"]["reference_config_main"][
+                    "K1"]}})
+    name, src, replaces = KERNELS["K8"]
+    vit = zoo["vit"]
+    shape = str(VIT_ATTN_SHAPES[1])
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+        "launches": vit["launches"]["vit_256_updates_fp32"]["K8"],
+        "max_abs_err": max(vit["k8_worst"]["float32"],
+                           attn_worst[("K8", "float32")]),
+        **vit["k8_times"][f"float32 {shape}"],
+        "shape": shape, "dtype": "float32",
+        "by_shape": {**{k: v for k, v in vit["k8_times"].items()
+                        if k.startswith("float32")},
+                     **attn_times["K8 fp32"]},
+        "launches_by_path": {
+            k: v["K8"] for k, v in vit["launches"].items()}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")

@@ -7,10 +7,13 @@ the JAX function's `impl` values so that configurations carry across:
   * `xla`: the plain composition (matmul, softmax, matmul) in the inputs'
     dtype, as the JAX package leaves it to XLA (`attention_xla`);
   * `pallas`: the hand-written kernel of `csrc/attention.cu` for CUDA
-    tensors and its plain version `attention_plain` for CPU tensors;
-    nothing else picks between those two. Like the TPU kernel it casts q,
-    k and v to fp32, computes everything in fp32 (scores, the exact
-    softmax, P.V) and casts the output to q's dtype. Differentiable: the
+    tensors (bf16 `attention_mma_kernel`, fp32 `attention_tf32_kernel`:
+    both on the tensor cores) and its plain version `attention_plain` for
+    CPU tensors; nothing else picks between those two. Like the TPU
+    kernel it casts q, k and v to fp32, computes everything in fp32
+    (scores, the exact softmax, P.V) and casts the output to q's dtype
+    (the fp32 kernel streams the keys: the softmax in its streaming
+    form, fp32 throughout). Differentiable: the
     backward recomputes through the plain version under autograd, as the
     JAX function's backward recomputes through its XLA path;
   * `auto`: the kernel for a CUDA tensor with N > 128 or D > 128, else the
@@ -77,6 +80,9 @@ def _attention_lib() -> ctypes.CDLL:
     lib.attention_launch.restype = i
     lib.attention_launch.argtypes = [i, p, p, p, p, i, i, i, ctypes.c_float,
                                      p]
+    lib.attention_fma_launch.restype = i
+    lib.attention_fma_launch.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
+                                         p]
     lib.attention_section_launch.restype = i
     lib.attention_section_launch.argtypes = (
         [i, p, p, p, p, p] + [i] * 5 + [ctypes.c_float, p, i])
@@ -113,9 +119,9 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
                                    stream)
     if err != 0:
         raise RuntimeError(
-            f"attention launch failed for (N, D) = ({n}, {d}) (K and V of a "
-            "head must fit a block's shared memory): "
-            + lib.attention_error_string(err).decode())
+            f"attention launch failed for (N, D) = ({n}, {d}) (fp32: a key "
+            "tile of the head must fit a block's shared memory; bf16: K and "
+            "V of the head): " + lib.attention_error_string(err).decode())
     attention_fused.launches += 1
     return out
 

@@ -22,12 +22,15 @@
 // rate K7 is bound by operations and K8 by bytes. The bf16 K8 runs on the
 // tensor cores (below), and so does the bf16 K7 at d = dim_head = 64 and
 // n <= 80 (attn_section_mma_kernel, at the end: block_mma_fwd.cuh's
-// attention half); the fp32 K7 and K8, and K7 at other widths or longer
-// frames, run plain fp32 FMA loops far below either bound.
+// attention half); the fp32 K8 runs on them as 3xTF32
+// (attention_tf32_kernel, below: a tile of queries a block, K and V
+// streamed); the fp32 K7, and K7 at other widths or longer frames, run
+// plain fp32 FMA loops far below either bound.
 //
-// K7's FMA kernel and the fp32 K8: a thread block serves a tile of query
-// rows of one frame (K7) or one (frame, head) (K8). K and V of the head,
-// every row, live in shared memory in T with a row stride of an odd
+// K7's FMA kernel and the fp32 K8's first design (attention_kernel, kept
+// only to be timed beside its replacement): a thread block serves a tile
+// of query rows of one frame (K7) or one (frame, head) (K8). K and V of
+// the head, every row, live in shared memory in T with a row stride of an odd
 // number of 32-bit words, so that lanes reading different key rows hit
 // different banks;
 // one warp owns a query row at a time and computes its scores, the exact
@@ -77,6 +80,7 @@
 #include "block_common.cuh"
 #include "block_mma_fwd.cuh"
 #include "mma_common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -194,31 +198,21 @@ int pick_tiles(int n, size_t limit, Layout bytes) {
   return 0;
 }
 
-int smem_limit(size_t* limit) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *limit = (size_t)max_smem;
-  return err;
-}
-
-// Launch with a (x, tiles) grid and `bytes` of dynamic shared memory.
+// Launch with a (x, tiles) grid of kThreads threads and `bytes` of dynamic
+// shared memory (under the cap smem_opt_in raised).
 template <typename Kernel, typename KArgs>
 int launch_tiles(Kernel kernel, int x, int tiles, size_t bytes,
                  cudaStream_t stream, const KArgs& args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
   kernel<<<dim3(x, tiles), kThreads, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
-// the fp32 K8
-int launch_attention(AttnArgs& a, int bh, cudaStream_t stream) {
+// The fp32 K8's first design (attention_kernel). No route launches it:
+// attention_fma_launch keeps it so that a chip run can time it beside
+// attention_tf32_kernel, the fp32 K8.
+int launch_attention_fma(AttnArgs& a, int bh, cudaStream_t stream) {
   size_t limit;
-  const int err = smem_limit(&limit);
+  const int err = smem_opt_in(attention_kernel, &limit);
   if (err != cudaSuccess) return err;
   // tiles of at most 64 rows, also where one tile would fit: more thread
   // blocks in flight
@@ -232,6 +226,273 @@ int launch_attention(AttnArgs& a, int bh, cudaStream_t stream) {
   tiles = (n + a.qrows - 1) / a.qrows;
   return launch_tiles(attention_kernel, bh, tiles,
                       AttnSmem(n, dh, a.qrows).total, stream, a);
+}
+
+// ---- K8, fp32, on the tensor cores (3xTF32) ---------------------------------
+//
+// attention_tf32_kernel: a thread block of 4 warps takes a tile of 64 query
+// rows of one (frame, head), 16 rows a warp. K and V stream through shared
+// memory in tiles of kt keys (32, or fewer where a head is too wide for
+// two stages), by 16-byte cp.async (zero-filled past the head's rows and
+// width) in two stages, the next tile's copies in flight while the warps
+// work on this one; q's tile arrives once. Per key tile a warp forms its
+// 16 x kt scores in registers, S = q k^T on the tensor cores as 3xTF32
+// (tf32_mma.cuh: fp32-accurate), its hi x hi products and its two small
+// ones summed apart and added once, scaled; keys >= n go to -inf. The
+// softmax is the streaming form in fp32, as the bf16 K8 takes it past 80
+// keys: the row max grows tile by tile, the sum and the output so far are
+// rescaled by exp(old max - new max), p = exp(s - max) joins the sum, and
+// the tile's P.V (3xTF32 again, p split as the scores' operands are) is
+// summed from zero and added to the output. So no tensor-core sum runs
+// longer than one tile (they truncate as they accumulate: one running
+// sum over a head of a thousand keys drifted to the edge of the fp32
+// check). The output is divided by the sum once, at the
+// end. exp is taken as exp2 of scores in base-2 units. A thread block
+// writes 64 output columns (D = 160: three thread blocks walk the keys
+// for one tile of query rows, side by side); padded query rows and
+// columns are never stored.
+// So nothing of a head but its 64-row tile and two key tiles is ever
+// resident: any head length runs (the first design held K and V of the
+// whole head, which capped it).
+//
+// What bounds it on an H100: at the SimpleViT's (32, 8, 256, 64) the
+// function is 4.3 GFLOP over 33.6 MB, bound by operations at the fp32 rate
+// (0.064 ms); 3xTF32 spends three tensor-core products a product, so its
+// own ceiling is the TF32 rate over three (165 TFLOP/s), above the fp32
+// FMA units' 67.
+
+constexpr int kTfRows = 64;                // query rows a thread block
+constexpr int kTfThreads = 32 * kTfRows / 16;
+// most keys a tile: 64 would hold more scores and products a thread (202
+// registers against 160) and fewer thread blocks an SM
+constexpr int kTfKeys = 32;
+constexpr int kTfOut = 64;                 // output columns a walk
+
+__host__ __device__ inline int round8(int x) { return (x + 7) / 8 * 8; }
+// Row strides (in floats) of the fp32 tiles for a head width dp (a
+// multiple of 8). Rows of q and k are read as pairs (2t, 2t + 1) of row g,
+// 8-byte loads free of bank conflicts at a stride of 8 mod 32; rows of v
+// as single values of rows 2t and 2t + 1 at column g, free of them at 4
+// mod 32. Both are multiples of 4: 16-byte rows for cp.async.
+__host__ __device__ inline int ld_pairs(int dp) {
+  return dp + (40 - dp % 32) % 32;
+}
+__host__ __device__ inline int ld_cols(int dp) {
+  return dp + (36 - dp % 32) % 32;
+}
+
+// attention_tf32_kernel's shared memory: q's tile, then two stages of a k
+// and a v tile of kt keys
+struct Tf32Smem {
+  size_t q, k, v, stage, total;
+  __host__ __device__ Tf32Smem(int dh, int kt) {
+    const int dp = round8(dh);
+    q = 0;
+    k = align16(sizeof(float) * kTfRows * ld_pairs(dp));
+    v = align16(k + sizeof(float) * kt * ld_pairs(dp));
+    stage = align16(v + sizeof(float) * kt * ld_cols(dp)) - k;
+    total = k + 2 * stage;
+  }
+};
+
+// Rows [r0, r0 + count) of a (n, dh) fp32 head g into a tile (row stride
+// ld, dp columns): rows >= n and columns >= dh zero. vec: 16-byte
+// cp.async (dh % 4 == 0, g 16-byte aligned; the caller commits), else
+// plain loads and stores.
+__device__ __forceinline__ void tile_rows(float* s, int ld, const float* g,
+                                          int r0, int count, int n, int dh,
+                                          int dp, bool vec) {
+  if (vec) {
+    const int per = dp / 4;
+    for (int i = threadIdx.x; i < count * per; i += blockDim.x) {
+      const int r = i / per, c = i % per * 4;
+      const bool in = r0 + r < n && c < dh;
+      cp_async16_zfill(s + (size_t)r * ld + c,
+                       in ? g + (size_t)(r0 + r) * dh + c : g, in ? 16 : 0);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < count * dp; i += blockDim.x) {
+    const int r = i / dp, c = i % dp;
+    s[(size_t)r * ld + c] =
+        r0 + r < n && c < dh ? g[(size_t)(r0 + r) * dh + c] : 0.f;
+  }
+}
+
+// grid: (B * H) x query tiles of kTfRows x walks of kTfOut output
+// columns; q, k, v, o are (B * H, n, dh) contiguous fp32. DP: the head
+// width fixed at compile time (64, the flagship's and the SimpleViT's), or
+// 0 for any width.
+template <int DP>
+__global__ void __launch_bounds__(kTfThreads)
+    attention_tf32_kernel(const __grid_constant__ AttnArgs a, int tiles,
+                          int walks, int kt) {
+  static_assert(DP % 8 == 0, "a fixed head width is a multiple of 8");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, dh = DP ? DP : a.dh, dp = DP ? DP : round8(dh);
+  const int ldq = ld_pairs(dp), ldv = ld_cols(dp);
+  const Tf32Smem L(dh, kt);
+  const float* qs = (const float*)(smem_raw + L.q);
+  // a fixed width of at most kTfOut columns is one walk at column 0, known
+  // at compile time (read from the grid, it cost K8 a fifth of its time)
+  constexpr bool kOneWalk = DP != 0 && DP <= kTfOut;
+  const int dc = kOneWalk ? 0 : blockIdx.x % walks * kTfOut;
+  const int item = kOneWalk ? blockIdx.x : blockIdx.x / walks;
+  const size_t head = (size_t)(item / tiles) * n * dh;
+  const int r0 = item % tiles * kTfRows;
+  const float* k = (const float*)a.k + head;
+  const float* v = (const float*)a.v + head;
+  float* out = (float*)a.o + head;
+  const bool vec = a.vec16 != 0;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int m0 = threadIdx.x / 32 * 16;
+  const int chunks = (n + kt - 1) / kt;
+  const float scale = a.scale * 1.4426950408889634f;  // base-2 units
+  const float ninf = __int_as_float(0xff800000);
+  constexpr int KT = kTfKeys / 8, OT = kTfOut / 8;  // n8 tiles
+  auto fetch = [&](int c, int st) {
+    unsigned char* base = smem_raw + st * L.stage;
+    tile_rows((float*)(base + L.k), ldq, k, c * kt, kt, n, dh, dp, vec);
+    tile_rows((float*)(base + L.v), ldv, v, c * kt, kt, n, dh, dp, vec);
+  };
+  tile_rows((float*)(smem_raw + L.q), ldq, (const float*)a.q + head, r0,
+            kTfRows, n, dh, dp, vec);
+  float o[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float mx0 = ninf, mx1 = ninf, sum0 = 0.f, sum1 = 0.f;
+  fetch(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      fetch(c + 1, (c + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile c (and q's) landed
+    const unsigned char* base = smem_raw + (c & 1) * L.stage;
+    const float* ks = (const float*)(base + L.k);
+    const float* vs = (const float*)(base + L.v);
+    const int key0 = c * kt, live = min(kt, n - key0);
+    // s = q k^T, 16 rows x kt keys a warp: the hi x hi products and the
+    // two small ones in accumulators of their own
+    float s[KT][4], sl[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll 8
+    for (int k0 = 0; k0 < dp; k0 += 8) {
+      const float2 qa = *reinterpret_cast<const float2*>(
+          qs + (size_t)(m0 + g) * ldq + k0 + 2 * t);
+      const float2 qb = *reinterpret_cast<const float2*>(
+          qs + (size_t)(m0 + g + 8) * ldq + k0 + 2 * t);
+      tf32::A af;
+      tf32::frag(af, qa.x, qb.x, qa.y, qb.y);
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (8 * j < live) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              ks + (size_t)(8 * j + g) * ldq + k0 + 2 * t);
+          tf32::mma3(s[j], sl[j], af, kv.x, kv.y);
+        }
+    }
+    // the streaming softmax: the new row max, the rescale, p
+    float cm0 = mx0, cm1 = mx1;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 8 * j + 2 * t + (e & 1) < live
+                      ? (s[j][e] + sl[j][e]) * scale
+                      : ninf;
+        if (e < 2)
+          cm0 = fmaxf(cm0, s[j][e]);
+        else
+          cm1 = fmaxf(cm1, s[j][e]);
+      }
+    cm0 = quad_max(cm0);
+    cm1 = quad_max(cm1);
+    const float a0 = exp2f(mx0 - cm0), a1 = exp2f(mx1 - cm1);
+    mx0 = cm0;
+    mx1 = cm1;
+    // this tile's p v from zero, its hi x hi products and small ones
+    // apart, added to o rescaled
+    float pv[OT][4], pl[OT][4];
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j][e] = pl[j][e] = 0.f;
+    float ts0 = 0.f, ts1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (8 * kk >= live) continue;
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[kk][e] - (e < 2 ? mx0 : mx1));
+        if (e < 2)
+          ts0 += p[e];
+        else
+          ts1 += p[e];
+      }
+      tf32::A pa;
+      tf32::frag(pa, p);
+      const float* v0 = vs + (size_t)(8 * kk + 2 * t) * ldv + dc + g;
+#pragma unroll
+      for (int j = 0; j < OT; ++j)
+        if (dc + 8 * j < dp)
+          tf32::mma3(pv[j], pl[j], pa, v0[8 * j], v0[ldv + 8 * j]);
+    }
+    sum0 = sum0 * a0 + ts0;
+    sum1 = sum1 * a1 + ts1;
+#pragma unroll
+    for (int j = 0; j < OT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[j][e] = o[j][e] * (e < 2 ? a0 : a1) + (pv[j][e] + pl[j][e]);
+    __syncthreads();  // every warp is done with tile c's stage
+  }
+  sum0 = quad_sum(sum0);
+  sum1 = quad_sum(sum1);
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + m0 + g + 8 * h, col = dc + 8 * j + 2 * t;
+      if (r >= n || col >= dh) continue;
+      const float sum = h ? sum1 : sum0;
+      const float o0 = o[j][2 * h] / sum, o1 = o[j][2 * h + 1] / sum;
+      float* dst = out + (size_t)r * dh + col;
+      if (dh % 2 == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+      } else {
+        dst[0] = o0;
+        if (col + 1 < dh) dst[1] = o1;
+      }
+    }
+}
+
+// the fp32 K8: key tiles of kTfKeys, halved until two stages fit
+template <int DP>
+int launch_attention_tf32(const AttnArgs& a, int bh, cudaStream_t stream) {
+  size_t limit;
+  const int err = smem_opt_in(attention_tf32_kernel<DP>, &limit);
+  if (err != cudaSuccess) return err;
+  int kt = kTfKeys;
+  while (kt > 8 && Tf32Smem(a.dh, kt).total > limit) kt /= 2;
+  const size_t bytes = Tf32Smem(a.dh, kt).total;
+  if (bytes > limit) return cudaErrorInvalidValue;
+  const int tiles = (a.n + kTfRows - 1) / kTfRows,
+            walks = (round8(a.dh) + kTfOut - 1) / kTfOut;
+  attention_tf32_kernel<DP><<<(unsigned)((long)bh * tiles * walks),
+                              kTfThreads, bytes, stream>>>(a, tiles, walks,
+                                                           kt);
+  return cudaGetLastError();
 }
 
 // ---- K8, bf16, on the tensor cores ----------------------------------------
@@ -525,13 +786,9 @@ int launch_attention_mma(AttnArgs& a, int bh, cudaStream_t stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (c.dev != dev) {
-    int err = smem_limit(&c.limit);
+    const int err = smem_opt_in(attention_mma_kernel<DH>, &c.limit);
     if (err != cudaSuccess) return err;
     e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attention_mma_kernel<DH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)c.limit);
     if (e != cudaSuccess) return e;
     c.dev = dev;
     c.threads = 0;
@@ -645,7 +902,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch_section(SectionArgs& a, int batch, cudaStream_t stream) {
   size_t limit;
-  const int err = smem_limit(&limit);
+  const int err = smem_opt_in(attn_section_kernel<T>, &limit);
   if (err != cudaSuccess) return err;
   const int n = a.n, d = a.d, dh = a.dh;
   const int tiles = pick_tiles(n, limit, [=](int rows) {
@@ -763,20 +1020,37 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
 
 extern "C" {
 
-// K8. dtype: 0 = fp32, 1 = bf16. q, k, v, o: (bh, n, dh) contiguous.
-// Returns a cudaError_t (0 = launched); cudaErrorInvalidValue when K and V
-// of one head do not fit a block's shared memory.
+// K8. dtype: 0 = fp32 (attention_tf32_kernel), 1 = bf16
+// (attention_mma_kernel). q, k, v, o: (bh, n, dh) contiguous. Returns a
+// cudaError_t (0 = launched); cudaErrorInvalidValue when a key tile of 8
+// rows does not fit a block's shared memory (fp32) or K and V of one head
+// do not (bf16).
 int attention_launch(int dtype, const void* q, const void* k, const void* v,
                      void* o, int bh, int n, int dh, float scale,
                      void* stream) {
   if (bh < 1 || n < 1 || dh < 1) return cudaErrorInvalidValue;
   const bool aligned =
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  AttnArgs a = {q, k, v, o, n, dh, 0, scale, dh % 8 == 0 && aligned};
+  AttnArgs a = {q, k, v, o, n, dh, 0, scale,
+                aligned && dh % (dtype == 1 ? 8 : 4) == 0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype != 1) return launch_attention(a, bh, s);
+  if (dtype != 1)
+    return dh == 64 ? launch_attention_tf32<64>(a, bh, s)
+                    : launch_attention_tf32<0>(a, bh, s);
   return dh == 64 ? launch_attention_mma<64>(a, bh, s)
                   : launch_attention_mma<0>(a, bh, s);
+}
+
+// The fp32 K8's first design, attention_kernel (FMA loops, K and V of the
+// whole head in shared memory), on the same arguments as attention_launch
+// with fp32 tensors. No route calls it: it is kept to be timed beside the
+// kernel that replaced it.
+int attention_fma_launch(const void* q, const void* k, const void* v,
+                         void* o, int bh, int n, int dh, float scale,
+                         void* stream) {
+  if (bh < 1 || n < 1 || dh < 1) return cudaErrorInvalidValue;
+  AttnArgs a = {q, k, v, o, n, dh, 0, scale, 0};
+  return launch_attention_fma(a, bh, (cudaStream_t)stream);
 }
 
 // Bytes of dynamic shared memory of K7 for a tile of qrows query rows of

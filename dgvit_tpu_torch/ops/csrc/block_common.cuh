@@ -401,22 +401,53 @@ __device__ void block(const Dims& m, const void* const* w, int n,
   __syncthreads();
 }
 
+// The device's opt-in limit of shared memory a block (*limit), and
+// `kernel`'s cap on dynamic shared memory raised to it: queried and set
+// once a host thread, device and kernel, not at every launch (each costs
+// a round trip into the CUDA runtime, which a launch of a few
+// microseconds should not pay).
+// Every thread sets the same value, the device's limit, so no thread
+// lowers the cap under another's launch. Returns a cudaError_t.
+template <typename Kernel>
+int smem_opt_in(Kernel kernel, size_t* limit) {
+  struct Seen {
+    const void* fn;
+    int dev;
+    size_t limit;
+  };
+  constexpr int kSeen = 64;
+  static thread_local Seen seen[kSeen];
+  static thread_local int count = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < count; ++i)
+    if (seen[i].fn == fn && seen[i].dev == dev) {
+      *limit = seen[i].limit;
+      return cudaSuccess;
+    }
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             max_smem);
+  if (err != cudaSuccess) return err;
+  if (count < kSeen) seen[count++] = {fn, dev, (size_t)max_smem};
+  *limit = (size_t)max_smem;
+  return cudaSuccess;
+}
+
 // Launch a kernel with `bytes` of dynamic shared memory, after checking
 // the device allows it. Returns a cudaError_t (0 = launched).
 template <typename Kernel, typename... KArgs>
 int launch_smem(Kernel kernel, int grid, size_t bytes, cudaStream_t stream,
                 const KArgs&... args) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  size_t limit = 0;
+  const int err = smem_opt_in(kernel, &limit);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
+  if (bytes > limit) return cudaErrorInvalidValue;
   kernel<<<grid, kThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -216,14 +216,14 @@ __device__ __forceinline__ void zero(float (&acc)[8][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// LayerNorm (eps 1e-5) of the warp's fp32 rows into bf16 A fragments,
-// rows >= n zero. Each row's sums take layernorm_tile's order: column c
-// and c + 32 first, then the butterfly over c of warp_sum (c ^ 16, ^ 8 in
-// registers, ^ 4, ^ 2 across the quad, ^ 1 in registers).
-__device__ __forceinline__ void norm_frag(const Rows& x, const bf16* s,
-                                          const bf16* b, int r0, int n,
-                                          Frag& out) {
-  float y[8][4];
+// LayerNorm (eps 1e-5) of the warp's fp32 rows into fp32 rows y (scale
+// and bias in T), rows >= n zero. Each row's sums take layernorm_tile's
+// order: column c and c + 32 first, then the butterfly over c of warp_sum
+// (c ^ 16, ^ 8 in registers, ^ 4, ^ 2 across the quad, ^ 1 in registers).
+template <typename T>
+__device__ __forceinline__ void norm_rows(const Rows& x, const T* s,
+                                          const T* b, int r0, int n,
+                                          float (&y)[8][4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float v[4][2];
@@ -274,6 +274,14 @@ __device__ __forceinline__ void norm_frag(const Rows& x, const bf16* s,
             live ? (xv - m) * inv * tof(s[c]) + tof(b[c]) : 0.f;
       }
   }
+}
+
+// the same into bf16 A fragments
+__device__ __forceinline__ void norm_frag(const Rows& x, const bf16* s,
+                                          const bf16* b, int r0, int n,
+                                          Frag& out) {
+  float y[8][4];
+  norm_rows(x, s, b, r0, n, y);
   to_frag(y, out);
 }
 
@@ -910,17 +918,10 @@ __host__ inline bool takes(int n, const Dims& m, const void* const* aligned,
 template <typename Kernel, typename... KArgs>
 int launch_fwd(Kernel kernel, int n, int batch, size_t bytes,
                cudaStream_t stream, const KArgs&... args) {
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  size_t limit = 0;
+  const int err = smem_opt_in(kernel, &limit);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > (size_t)max_smem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
+  if (bytes > limit) return cudaErrorInvalidValue;
   kernel<<<(batch + kFrames - 1) / kFrames, 32 * warps(n), bytes, stream>>>(
       args...);
   return cudaGetLastError();

@@ -38,6 +38,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src));
 }
+// the same, or 16 zero bytes where `bytes` is 0 (src is not read then)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -42,8 +42,9 @@ import torch
 from dgvit_tpu_torch.ops.cls_block import saved_buffer
 from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
                                                    tensor_core_fwd)
-from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_embed,
-                                      tensor_core_widths)
+from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_cluster_fp32,
+                                      k1_embed, tensor_core_widths,
+                                      tf32_widths)
 from dgvit_tpu_torch.ops.trunk_train import (trunk_bwd_fused,
                                              trunk_streams_plain)
 
@@ -52,8 +53,9 @@ _NORMS = {"rms": 0, "layer": 1}
 # K1's forms (csrc/got_megakernel.cu, got_forward_launch's `form`): the
 # FMA trunk_kernel; k1_mma_kernel, two frames a thread block with every
 # product on the tensor cores; k1_cluster_kernel, one frame over a
-# cluster of CLUSTER CTAs
-K1_FORMS = {"fma": 0, "mma": 1, "cluster": 2}
+# cluster of CLUSTER CTAs; k1_cluster_fp32_kernel, the same in fp32 with
+# every product on the tensor cores as 3xTF32
+K1_FORMS = {"fma": 0, "mma": 1, "cluster": 2, "cluster_fp32": 3}
 CLUSTER = 4
 # The cluster form runs while CLUSTER x batch <= CLUSTER_LOAD x the SM
 # count, two frames a block past that: where the two cross on an H100 80GB
@@ -175,14 +177,21 @@ def k1_form_for(batch: int, n: int, pd: int, d: int, heads: int,
     aligned: the cluster form where CLUSTER x batch <= CLUSTER_LOAD x sms
     (at most 90 frames on an H100) and each rank takes one head (heads =
     CLUSTER, mlp a multiple of CLUSTER x 64); else two frames a thread
-    block. Every other call (fp32, other widths, longer frames) takes the
-    FMA kernel."""
+    block. In fp32 at the same widths (`smem.tf32_widths`), the same
+    cluster bound and heads, pd a multiple of 8 whose staged pe_w slice
+    fits under the rest of the CTA's layout, and aligned patches and
+    matrix weights: the fp32 cluster form. Every other call (fp32 past
+    the cluster bound, other widths, longer frames) takes the FMA
+    kernel."""
+    cluster = (CLUSTER * batch <= CLUSTER_LOAD * sms and heads == CLUSTER
+               and mlp % (CLUSTER * 64) == 0 and aligned)
+    if tf32_widths(n, d, dim_head, mlp, dtype):
+        fits = pd % 8 == 0 and k1_cluster_fp32(n, pd) == k1_cluster_fp32(n, 0)
+        return "cluster_fp32" if cluster and fits else "fma"
     if not (tensor_core_widths(n, d, dim_head, mlp, dtype) and aligned
             and pd % 16 == 0 and k1_embed(pd) <= fwd_mma(n)):
         return "fma"
-    if (CLUSTER * batch <= CLUSTER_LOAD * sms and heads == CLUSTER
-            and mlp % (CLUSTER * 64) == 0
-            and k1_embed(pd) <= k1_cluster(n, 0)):
+    if cluster and k1_embed(pd) <= k1_cluster(n, 0):
         return "cluster"
     return "mma"
 

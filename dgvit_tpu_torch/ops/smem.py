@@ -16,6 +16,8 @@ layouts the launches size their memory by:
   * `mmafwd::Layout` (csrc/block_mma_fwd.cuh): the tensor-core forward
     body of K2f, K3f, K4 and K1 (K1 also stages pe_w over it first);
   * `cl::Layout` (csrc/got_megakernel.cu): a CTA of K1's cluster form;
+  * `cl32::Layout` (csrc/got_megakernel.cu): a CTA of K1's fp32 cluster
+    form;
   * K6's launch, the largest of the bodies it runs;
   * `SectionSmem<T>` (csrc/attention.cu): K7's FMA kernel, by query
     tile; `SectionMmaSmem` (csrc/attention.cu): its tensor-core form.
@@ -149,6 +151,33 @@ def k1_cluster(n: int, pd: int) -> int:
     return _take(o, (part, part, 4 * MMA_WIDTH))
 
 
+# K1's fp32 cluster form (csrc/got_megakernel.cu, namespace cl32): fp32
+# tiles, 64 columns of the k tile padded to 72, of the v tile, the weight
+# tiles and the 16-column pe_w slice to 68 and 20
+_LD_K32, _LD_W32, _LD_PE32 = MMA_WIDTH + 8, MMA_WIDTH + 4, MMA_WIDTH // 4 + 4
+
+
+def k1_cluster_fp32(n: int, pd: int) -> int:
+    """`cl32::Layout(n, pd)` (csrc/got_megakernel.cu): a CTA of K1's fp32
+    cluster form, one head's fp32 k and v (rows padded to 16) and its
+    q|k|v and wout slices, over them the MLP's two-stage ring and the
+    rank's 16 columns of pe_w; then the two fp32 partial tiles (16 x 64 a
+    warp), the rank's embedding columns and the CLS row."""
+    np_, w64 = _a16(n), 4 * MMA_WIDTH * _LD_W32
+    attn = _take(0, (4 * np_ * _LD_K32, 4 * np_ * _LD_W32, 3 * w64, w64))
+    o = max(attn, _take(0, (2 * 2 * w64,)), _take(0, (4 * pd * _LD_PE32,)))
+    part = 4 * (np_ // 16) * 16 * MMA_WIDTH
+    return _take(o, (part, part, 4 * np_ * (MMA_WIDTH // 4), 4 * MMA_WIDTH))
+
+
+def tf32_widths(n: int, d: int, dim_head: int, mlp: int,
+                dtype: torch.dtype) -> bool:
+    """The widths K1's fp32 cluster form takes: fp32, d = dim_head = 64,
+    at most 80 rows, mlp a multiple of 64 (heads and alignment aside)."""
+    return (dtype == torch.float32 and d == dim_head == MMA_WIDTH
+            and n <= MMA_ROWS and mlp % MMA_CHUNK == 0)
+
+
 def trunk_bwd(n: int, d: int, heads: int, dim_head: int, mlp: int,
               mma: bool) -> int:
     """K6's launch: the largest backward body it runs (it runs no forward:
@@ -195,7 +224,9 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     fma = fwd_fma(n, d, heads, dim_head, mlp, dtype)
     if kernel == "K1":
         return max(fma, fwd_mma(n) if mma else 0,
-                   k1_cluster(n, 0) if mma else 0)
+                   k1_cluster(n, 0) if mma else 0,
+                   k1_cluster_fp32(n, 0) if tf32_widths(n, d, dim_head, mlp,
+                                                        dtype) else 0)
     if kernel in ("K4", "K2f", "K3f"):
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":

@@ -331,7 +331,8 @@ ROUTES = [
     ((12, 65, 320, 64, 4, 64, 2048, torch.bfloat16, True, 16), "mma"),
     ((1, 80, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
     ((1, 81, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
-    ((1, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132),
+     "cluster_fp32"),
     ((1, 65, 320, 64, 4, 64, 2048, torch.bfloat16, False, 132), "fma"),
     ((1, 65, 320, 32, 4, 32, 2048, torch.bfloat16, True, 132), "fma"),
     ((1, 65, 320, 64, 2, 64, 2048, torch.bfloat16, True, 132), "mma"),
@@ -339,6 +340,25 @@ ROUTES = [
     ((1, 65, 328, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
     ((1, 17, 320, 64, 4, 64, 2048, torch.bfloat16, True, 132), "cluster"),
     ((1, 17, 1024, 64, 4, 64, 2048, torch.bfloat16, True, 132), "fma"),
+    # fp32: the fp32 cluster form at the bf16 cluster's widths and bound
+    # (pd a multiple of 8), else the FMA kernel
+    ((16, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132),
+     "cluster_fp32"),
+    ((90, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132),
+     "cluster_fp32"),
+    ((91, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((2048, 65, 320, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((12, 65, 320, 64, 4, 64, 2048, torch.float32, True, 16), "fma"),
+    ((1, 65, 320, 64, 4, 64, 2048, torch.float32, False, 132), "fma"),
+    ((1, 65, 320, 32, 4, 32, 2048, torch.float32, True, 132), "fma"),
+    ((1, 65, 320, 64, 3, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 65, 320, 64, 8, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 65, 320, 64, 4, 64, 192, torch.float32, True, 132), "fma"),
+    ((1, 65, 324, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 81, 320, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
+    ((1, 17, 320, 64, 4, 64, 2048, torch.float32, True, 132),
+     "cluster_fp32"),
+    ((1, 17, 4096, 64, 4, 64, 2048, torch.float32, True, 132), "fma"),
 ]
 
 
@@ -347,7 +367,8 @@ def test_k1_route_rule(args, form):
     """K1's form by batch and SM count (the cluster while 4 x batch <= 2.75
     x the SMs: at most 90 frames on an H100's 132), width, heads and MLP
     (4 heads, one a rank), dtype, alignment, token count (at most 80 rows)
-    and patch width (a multiple of 16 whose staged pe_w fits the body)."""
+    and patch width (a multiple of 16 whose staged pe_w fits the body; in
+    fp32 a multiple of 8 whose pe_w slice fits under the CTA's layout)."""
     assert gm.k1_form_for(*args) == form
 
 
