@@ -18,11 +18,13 @@ the CPU's on the seed's randm32 worlds and records, and the ring on the
 card against the CPU's on the seed's rows) and phase 20a (the device
 PER on the card against its CPU version on priorities planted from the
 seed, and 2^20 draws under the chi-square limit) once a seed, in the
-shared order: they draw from the seed alone; and phase 23b's K8 checks at
+shared order: they draw from the seed alone; phase 23b's K8 checks at
 the SimpleViT's shapes (`vit_attention_checks`, on a spawned generator
-after 13b). --phases runs only the phases named; a phase left out still
-takes the spawns it would take, so the spawned phases (15 and after)
-draw as in the whole run. Orders of draws:
+after 13b); and phase 22a's fp32 BC gradient passes (`phase_bc_kernels`
+without its times, on a spawned generator after 23b). --phases runs only
+the phases named; a phase left out still takes the spawns it would take,
+so the spawned phases (15 and after) draw as in the whole run. Orders of
+draws:
 
   shared: one generator from the seed through phases 2, 5, 5b and 13;
           phases 15, 16, 17b, 13a and 13b each on a generator spawned off
@@ -84,6 +86,7 @@ def check(ok, what):
 
 cs.check = check
 cs.K1_ALL_FORMS = True
+cs.F32_SPREAD = True
 cfg = Config()
 flat = load_params_npz(str(cs.ACTOR))
 sd = params_from_jax(flat)
@@ -100,7 +103,8 @@ later = [("15", lambda r: cs.phase_attention(nets, r)),
          ("17b", lambda r: cs.phase_long_frames(flat, r)),
          ("13a", lambda r: cs.phase_fault_j(nets, r)),
          ("13b", lambda r: cs.phase_recompute(nets, r)),
-         ("23b", lambda r: cs.vit_attention_checks(r))]
+         ("23b", lambda r: cs.vit_attention_checks(r)),
+         ("22a", lambda r: cs.phase_bc_kernels(r, timed=False))]
 for seed in seeds:
     for order in ("shared", "fresh"):
         failed.clear()
@@ -155,7 +159,7 @@ for seed in seeds:
 
 
 PHASES = ["2", "19a", "20a", "5", "5b", "13", "15", "16", "17b", "13a",
-          "13b", "23b"]
+          "13b", "23b", "22a"]
 
 
 def rows(result):
@@ -168,7 +172,33 @@ def rows(result):
                    f"{r['got']:.3e} against float64 sums (limit max(1e-5, "
                    f"{r['k']:g} x plain {r['plain']:.3e}) = {r['limit']:.3e};"
                    f" old vs plain {r['old']:.3e}) "
-                   f"{'ok' if r['got'] <= r['limit'] else 'FAIL'}")
+                   f"{'ok' if r['got'] <= r['limit'] else 'FAIL'}"
+                   + (f"; the FMA body {r['fma']:.3e}, the plain version "
+                      f"on the CPU {r['cpu_plain']:.3e} (read only; worst "
+                      f"tensors {r['worst']})"
+                      if r.get("fma") is not None else "")
+                   + "".join(f"; {n} {v:.3e} "
+                             + ("fails" if v > r["limit"] else "PASSES")
+                             for n, v in r.get("wrongs", {}).items()))
+        elif r["check"] == "BC gradient pass fp32":
+            yield (f"{tag} BC gradient pass fp32, {r['case']}: kernels "
+                   f"{r['got']:.3e} against float64 sums (limit max(1e-5, "
+                   f"{r['k']:g} x plain {r['plain']:.3e}) = {r['limit']:.3e})"
+                   f" {verdict(r['pass'])}; tanh GELU {r['tanh_gelu']:.3e} "
+                   + ("PASSES" if r["tanh_gelu_pass"] else "fails")
+                   + f"; scores scaled 1 / dim_head {r['mis_scaled']:.3e} "
+                   + ("PASSES" if r["mis_scaled_pass"] else "fails"))
+        elif r["check"] == "K1 fp32 hidden":
+            yield (f"{tag} K1 fp32 B={r['batch']}, the first block's MLP "
+                   "hidden against float64 sums, pooled (limit "
+                   f"{r['limit']:.3e}): "
+                   + ", ".join(
+                       f"{n} {v:.3e} " + (
+                           ("ok" if v <= r["limit"] else "FAIL")
+                           if n in ("K1's body", "float64 sums") else
+                           "(plain)" if n == "plain" else
+                           ("fails" if v > r["limit"] else "PASSES"))
+                       for n, v in r["readings"].items()))
         elif r["check"] == "chain":
             yield (f"{tag} chain, dx frames within 2^-18 of float64 sums "
                    f"over {r['frames']} frames (at least {r['share']:g}): "
@@ -277,11 +307,15 @@ def rows(result):
                        f"{b['composition']:.1e}"
                        for i, b in enumerate(r["by_block"])))
         elif r["check"] == "fp32 K6":
-            yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e}, the chain "
-                   f"{r['chain']:.3e} against float64 sums (limit max(1e-3, "
-                   f"{r['k']:g} x plain {r['plain']:.3e}) = {r['limit']:.3e};"
-                   f" old vs plain {r['old']:.3e}) "
-                   + verdict(max(r["got"], r["chain"]) <= r["limit"]))
+            yield (f"{tag} fp32 K6 {r['case']}: K6 {r['got']:.3e} against "
+                   f"float64 sums (limit max(1e-3, {r['k']:g} x plain "
+                   f"{r['plain']:.3e}) = {r['limit']:.3e}); the chain on its "
+                   f"own streams {r['chain']:.3e} (limit "
+                   f"{r['chain_limit']:.3e}, plain there "
+                   f"{r['chain_plain']:.3e}), on K4's {r['chain_on_k4']:.3e}"
+                   f" (read only); old vs plain {r['old']:.3e} "
+                   + verdict(r["got"] <= r["limit"]
+                             and r["chain"] <= r["chain_limit"]))
         elif r["check"] in ("K3f bf16", "K7 bf16"):
             yield (f"{tag} {r['check']} vs plain, pooled (limit "
                    f"{r['limit']:.3e}): " + ", ".join(

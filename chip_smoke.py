@@ -25,7 +25,10 @@ per source, all at once), then
      must FAIL the same checks; in fp32 the route (the fp32 cluster form
      on the tensor cores to 90 frames, the FMA trunk_kernel past them),
      each fp32 form forced at every batch and the float64-sum version
-     within F32_TOL of the plain version, a tanh GELU outside it;
+     within F32_TOL of the plain version, a mis-scaled trunk outside it;
+     and (gap p) the first block's MLP hidden of K1's fp32 body (the fp32
+     probe) held to its float64-sum version (pooled, K1_HIDDEN_MEAN),
+     which a tanh GELU must fail;
   3. policy through the kernel: make_action_fn on the card serves the 16
      golden frames; actions held against the plain path on the card and
      against the JAX package's fp32 actions (tests/data/
@@ -47,7 +50,9 @@ per source, all at once), then
      K2f the probabilities left in fp32 before P.V, for K3f an erf GELU,
      the probabilities in fp32 and k and v in fp32, whose float64-sum
      version must pass; fp32 K2b, K3b and K4 and K4's pooled bf16 latent
-     held to the float64-sum version (the rule at EXACT_K);
+     held to the float64-sum version (the rule at EXACT_K), fp32 K2b's
+     tanh GELU and mis-scaled block failing it (fp32 K2f and K2b at the
+     flagship widths take their cluster forms);
  5b. the bf16 forward and backward off the flagship widths (81 tokens,
      2 x 32 heads, an unaligned x) take the FMA bodies, not the
      tensor-core ones, and K2f, K3f, K2b and K3b there meet the bf16
@@ -143,7 +148,10 @@ per source, all at once), then
      that wrote them (K3f's, each body's of K4 and those of K4's plain
      version: each part recomputed from the block's input and the
      record's earlier parts, and the block's CLS output from x1 and z,
-     pooled within ANCHOR_MEAN), four planted wrong records failing;
+     pooled within ANCHOR_MEAN), four planted wrong records failing; in
+     fp32 at B = 64 and 32 on the 2d BC policy's first block, K2b's
+     cluster form against K2f's (the fp32 probe, whose output must be
+     K2f's): h1, o, h2 and hid equal on every frame;
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
@@ -276,11 +284,15 @@ per source, all at once), then
      il_policy()'s 4-channel stacks at B = 32: K2f x3, K3f, K3b, K2b x3 a
      pass, held to the float64-sum version of the plain versions under
      phase 5's fp32 rule (EXACT_K), the plain versions with the other
-     GELU form failing it; ms a BC step and fp32 K2f, K2b, K3f, K3b at
-     B = 64 and 32 beside their plain versions and bounds; (b)
+     GELU form and the model with mis-scaled scores failing it, the 2d
+     policy's K2f and K2b on their fp32 cluster forms; ms a BC step and
+     fp32 K2f, K2b, K3f, K3b at B = 64 and 32 beside their plain versions
+     and bounds, K2f and K2b beside the FMA body they replaced, K2b's
+     device time split into its pass, weight products and sums; (b)
      BCTrainer.fit of the launcher's policy (batch 64) on a scripted-pilot
      corpus recorded as generalization_eval records it, 3 epochs: exact
-     launches a training and a validation batch, one host sync an epoch,
+     launches a training and a validation batch (every K2f and K2b on its
+     fp32 cluster form), one host sync an epoch,
      a falling train loss, the best parameters those of the
      lowest-validation epoch bit for bit, the plain versions' fit within
      BC_PLAIN_REL; ms an epoch; (c) SACTeacher on the gw10 generalist
@@ -304,7 +316,8 @@ per source, all at once), then
      versions under phase 5's fp32 rule (EXACT_K), a tanh GELU failing
      it; 5 updates in fp32 and 5 with compute_dtype bfloat16, each
      launching K4, K2f x3, K2b x3, K3f and K3b; the CNN critic's Q with
-     cuDNN's TF32 on against off; K1's form for its actor at B=1 (the fp32
+     cuDNN's TF32 on against off; K4 in fp32 at B=32 timed alone beside
+     its plain version and bound; K1's form for its actor at B=1 (the fp32
      cluster); train_rl.main --reference-config on the
      card and train() with the bf16 config (exact launches an env step
      and an update), then run_eval; (b) the SimpleViT family at its
@@ -486,7 +499,13 @@ ACTION_FP32 = 1e-4
 #   * fp32 K2b, K3b and K4 (phase 5): s = the largest max|err|/L over the
 #     tensors, old limit TRAIN_F32_MAX; the plain version read s up to
 #     1.2e-4 from float64 sums. k = 2: the kernels read at most 0.75 of
-#     their limit (K2b). These checks have no wrong version.
+#     their limit (K2b). fp32 has no rounding point to move; since K2b's
+#     fp32 cluster form (3xTF32), fp32 K2b has two wrong versions, a tanh
+#     GELU and scores scaled 1 / dim_head, which must fail (as phase 22a's
+#     BC pass holds them). On ill-conditioned frames the float64-sum
+#     version is itself no exact answer (gap r of ROADMAP.md):
+#     chip_k2b_stages.py reads every version against the plain version
+#     evaluated in float64 throughout (`float64_eval`).
 #   * K4's pooled bf16 latent (phase 5): s = the pooled mean|err|/L, old
 #     limit TRAIN_BF16_MEAN; the plain version read 3.9e-6 to 8.9e-6. k =
 #     1.65: K4 read at most 0.91 of its limit, the erf GELU at least 1.09
@@ -538,7 +557,15 @@ ACTION_FP32 = 1e-4
 #     to 4.5e-3 from float64 sums and K6 up to 3.0e-3 from the plain
 #     version. k = 2 (EXACT_K["fp32"]): K6 and the chain read at most 0.43
 #     of their limit. fp32 has no rounding point to move, so, as for fp32
-#     K2b, K3b and K4, no wrong version exists.
+#     K3b and K4, no wrong version exists. The chain differentiates the
+#     forward of the per-block kernels; while K2f's fp32 form was the FMA
+#     body, those streams were K4's bit for bit. Since its cluster form
+#     (3xTF32 and the exact TF32 split) they are not, and a frame of the
+#     trained actor whose backward magnifies its input reads the chain up
+#     to 5.3e-3 from the float64-sum version on K4's streams (H100 80GB
+#     HBM3, 700 W; chip_draws.py seeds 7-11): the chain is held to the
+#     float64-sum version on its own streams (`chain_streams`), under
+#     max(K6_F32_MAX, k x the plain version's reading there).
 #   * bf16 K6 against its plain version per tensor (phase 13, fault 3g:
 #     each tensor's max within 2^-6 L, which K6 failed on some draws, a
 #     flip of its own forward chain amplified by the backward as in the
@@ -645,6 +672,26 @@ def exact(fn, *args):
     """fn(*args) under `exact_sums`."""
     with exact_sums():
         return fn(*args)
+
+
+def float64_eval(fn, x, dy, w, heads, dim_head):
+    """fn, fused_transformer's plain block backward, evaluated in float64
+    throughout: its inputs in float64 and `_f32`, the cast each of its
+    steps takes, casting to float64, so every product, every sum and every
+    elementwise step (the LayerNorms, the softmax and its backward, the
+    GELU's erf polynomial) is float64 (chip_k2b_stages.py). Returns fn's
+    outputs in float64."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    kept = ft._f32
+    ft._f32 = lambda t: t.to(torch.float64)
+    try:
+        return fn(x.double(), dy.double(), [t.double() for t in w], heads,
+                  dim_head)
+    finally:
+        ft._f32 = kept
 
 
 def rel_max(outs, refs):
@@ -1018,6 +1065,107 @@ def trunk_mis_scaled(*args):
         return got_forward_plain(*args)
 
 
+def block_mis_scaled_bwd(x, dy, w, heads, dim_head):
+    """A wrong fp32 K2b: the plain backward of the block whose scores are
+    scaled by 1 / dim_head where the model asks 1 / sqrt(dim_head) (phase
+    2's mis-scaled trunk, in one block): block_bwd_plain at wqkv with its
+    q columns scaled by dim_head^-1/2, their gradient scaled back."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    inner, s = heads * dim_head, dim_head ** -0.5
+    wq = w[2].clone()
+    wq[:, :inner] *= s
+    dx, grads = ft.block_bwd_plain(x, dy, [*w[:2], wq, *w[3:]], heads,
+                                   dim_head)
+    grads = list(grads)
+    grads[2] = grads[2].clone()
+    grads[2][:, :inner] *= s
+    return dx, tuple(grads)
+
+
+def block_tanh_gelu_bwd(x, dy, w, heads, dim_head):
+    """A wrong fp32 K2b: its plain version with the tanh GELU where the
+    TPU kernel takes the erf form."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    with other_gelu():
+        return ft.block_bwd_plain(x, dy, w, heads, dim_head)
+
+
+def block_hid_plain(x, w, heads, dim_head):
+    """The MLP hidden of a block's plain forward, (B, n, mlp):
+    gelu(LN2(x1) w1 + b1) with x1 = x + (attention wout + bout), the steps
+    of `block_plain` up to its GELU values (`exact_sums`, `other_gelu` and
+    a swapped `_attention` reach it as they reach the block)."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    an_s, an_b, wqkv, wout, bout, fn_s, fn_b, w1, b1, _, _ = w
+    cdt, inner = x.dtype, heads * dim_head
+    x32 = x.float()
+    h = ft._ln(x32, an_s, an_b).to(cdt)
+    qkv = ft._mm(h, wqkv).to(cdt)
+    o = ft._attention(qkv[..., :inner], qkv[..., inner:2 * inner],
+                      qkv[..., 2 * inner:], heads, dim_head, cdt)
+    x32 = x32 + (ft._mm(o, wout) + bout.float().reshape(-1))
+    h = ft._ln(x32, fn_s, fn_b).to(cdt)
+    return ft._gelu32(ft._mm(h, w1) + b1.float().reshape(-1), cdt).to(cdt)
+
+
+# Gap p's check (phase 2, fp32): the pooled mean|err|/L of the first
+# block's MLP hidden against its float64-sum version, under max(this, k x
+# the plain version's) (EXACT_K's rule). On the flagship actor's frames
+# (an H100 80GB HBM3 at 700 W, chip_draws.py's seeds 7-11) the tanh GELU
+# read 4.2e-7 to 1.5e-6 (its gap to the erf form is largest at |pre| near
+# 2.7, and most pre-activations are small), K1's body 1.8e-8 to 5.9e-8
+# and the plain version 5.4e-9 to 2.6e-8: twice the plain version's would
+# fail the kernel's 3xTF32 sums, and 2^-22 (2.4e-7) lies between. Each value's
+# max is read too: rows whose LN2 variance is small magnify fp32 sums
+# (the plain version read 2.0e-5 L from float64 sums at B=100, the tanh
+# GELU 7.6e-6 to 2.1e-5), so no max limit separates the GELU form.
+K1_HIDDEN_MEAN = 2.0 ** -22
+
+
+def k1_hidden(args):
+    """Gap p's check, phase 2 in fp32: the GELU values of the trunk's first
+    block as K1's fp32 cluster form computes them (its body, tf32_block.cuh,
+    summed as K1 sums it, cl32::Fast, through the fp32 forward probe) on
+    the stream K1's plain version embeds, against the float64-sum version
+    of `block_hid_plain`. It witnesses the body's instantiation that K1
+    runs, not K1's launch: what k1_cluster_fp32_kernel adds around the body
+    (its embedding, the CLS-only last block, the final norm) only the
+    latent check above sees. Returns
+    ({version: (pooled mean|err|/L, max|err|/L)} for the kernel's body, the
+    plain version, the float64-sum version and a tanh GELU, the pooled
+    limit max(K1_HIDDEN_MEAN, EXACT_K["fp32"] x the plain version's)). The
+    latent cannot tell the GELU form apart (the tanh GELU reads 0.024-0.032
+    of F32_TOL there, the kernel's forms up to 0.0125); the hidden can. A
+    mis-scaled block is no wrong version here: the trained actor's first
+    block attends one-hot on some frames (score spreads of thousands), and
+    there 1 / dim_head computes the same hidden; the latent check above
+    holds the scale."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    patches, goal, pe, pos, blocks, _, heads, dim_head, n_valid, _ = args
+    emb = ft._mm(patches, pe[0]) + pe[1].float()
+    x = torch.cat([goal[:, None, :].float(), emb], dim=1)
+    x = (x + pos[:n_valid].float()[None]).contiguous()
+    w, hd = blocks[0], (heads, dim_head)
+    ex = exact(block_hid_plain, x, w, *hd)
+    outs = {"K1's body": forward_probe(x, w, *hd, False, k1=True)[1]["hid"],
+            "plain": block_hid_plain(x, w, *hd), "float64 sums": ex}
+    with other_gelu():
+        outs["tanh GELU"] = block_hid_plain(x, w, *hd)
+    read = {name: (pooled_mean([o], [ex]), rel_max([o], [ex]))
+            for name, o in outs.items()}
+    return read, max(K1_HIDDEN_MEAN, EXACT_K["fp32"] * read["plain"][0])
+
+
+# fp32 K2b's wrong versions (phase 5): fp32 has no rounding point, so the
+# wrong versions are a wrong form (the GELU) and a wrong scale
+F32_BLOCK_WRONGS = {"tanh GELU": block_tanh_gelu_bwd,
+                    "scores scaled 1 / dim_head": block_mis_scaled_bwd}
 K1_WRONGS = {"erf GELU": trunk_erf_gelu,
              "fp32 residual": trunk_f32_residual,
              "fp32 embedding": trunk_f32_emb}
@@ -1134,11 +1282,30 @@ def phase_kernel_vs_plain(cfg, policies, rng):
                                   for f in K1_FP32_FORMS}}
             outs["float64 sums"] = exact(gm.got_forward_plain, *args)
             outs["scores scaled 1 / dim_head"] = trunk_mis_scaled(*args)
-            with other_gelu():  # read only: F32_TOL cannot see the form
+            with other_gelu():  # read only here: k1_hidden holds the form
                 outs["tanh GELU"] = gm.got_forward_plain(*args)
             ratios = {name: f32_ratio(o, ref) for name, o in outs.items()}
             for name, r in ratios.items():
                 f32_reads[name] = max(f32_reads.get(name, 0.0), r)
+            hid, hid_limit = k1_hidden(args)
+            ok_hid = (hid["K1's body"][0] <= hid_limit
+                      and hid["float64 sums"][0] <= hid_limit)
+            bad_hid = hid["tanh GELU"][0] <= hid_limit
+            print(f"K1 fp32 B={batch}, the first block's MLP hidden against "
+                  f"float64 sums, pooled mean|err|/L (limit max(2^-22, "
+                  f"{EXACT_K['fp32']:g} x plain) = {hid_limit:.3e}) and max|"
+                  "err|/L (read only): " + ", ".join(
+                      f"{n} {v[0]:.3e} {v[1]:.3e}" for n, v in hid.items())
+                  + f"; {'ok' if ok_hid else 'FAIL'} (the wrong ones must "
+                  "fail)", flush=True)
+            record("K1 fp32 hidden", batch=batch, limit=hid_limit,
+                   k=EXACT_K["fp32"],
+                   readings={n: v[0] for n, v in hid.items()},
+                   max_read={n: v[1] for n, v in hid.items()})
+            check(ok_hid, f"K1's fp32 body's MLP hidden disagrees with the "
+                  f"float64-sum version (B={batch})")
+            check(not bad_hid, f"K1's fp32 hidden check passes a tanh GELU "
+                  f"(B={batch})")
             print(f"K1 ({form}) vs plain fp32 B={batch}: max|err| "
                   f"{err.max().item():.3e} mean|err| {err.mean().item():.3e}"
                   f" max|ref| {ref.abs().max().item():.3e}; max|err| over "
@@ -1185,7 +1352,8 @@ def phase_kernel_vs_plain(cfg, policies, rng):
               "plain version (passing at 1): " + ", ".join(
                   f"{n} {r:.3e}" for n, r in f32_reads.items())
               + " (the mis-scaled trunk must fail; the tanh GELU is read "
-              "only)", flush=True)
+              "only: the hidden check above holds the GELU form)",
+              flush=True)
         record("K1 fp32", readings=dict(f32_reads))
         for name, r in f32_reads.items():
             if name.startswith("scores"):
@@ -1814,6 +1982,31 @@ def build_nets(actor_flat, critic_flat):
 
 
 RESTATED_F32 = ("K2b", "K3b", "K4")   # fp32 checks held to float64 sums
+# chip_draws.py sets this: phase 5's fp32 K2b check also reads, read only,
+# how far correct fp32 evaluations spread on each draw (`f32_spread`)
+F32_SPREAD = False
+
+
+def f32_spread(args, out, ref, ex):
+    """Read-only readings beside phase 5's fp32 K2b check (chip_draws.py;
+    gap r of ROADMAP.md): the FMA body the cluster form replaced and the
+    plain version on the CPU (the same function in other fp32 orders)
+    against the float64-sum version `ex`, and the tensor each version (the
+    kernel's `out`, the plain version's `ref` on the card) reads its
+    largest error on."""
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    fma = tensors(ft.launch_block_bwd(*args, False, form=0))
+    host = [t.to(DEVICE) for t in tensors(ft.block_bwd_plain(
+        args[0].cpu(), args[1].cpu(), [t.cpu() for t in args[2]],
+        *args[3:]))]
+    names = ("dx", *GRAD_NAMES)
+    worst = lambda v: names[max(range(len(v)), key=lambda i: rel_max(
+        [v[i]], [ex[i]]))]
+    return {"fma": rel_max(fma, ex), "cpu_plain": rel_max(host, ex),
+            "worst": {n: worst(v) for n, v in (
+                ("kernel", out), ("FMA body", fma), ("plain", ref),
+                ("CPU plain", host))}}
 
 
 def verdicts(errs):
@@ -1836,8 +2029,8 @@ def phase_train_kernels(nets, rng):
     worst = {}
     for dtype, batches in TRAIN_BATCHES.items():
         for batch in batches:
-            for name, kern, plain, bads in train_cases(
-                    train_inputs(nets[dtype], batch, rng)):
+            inp = train_inputs(nets[dtype], batch, rng)
+            for name, kern, plain, bads in train_cases(inp):
                 out = tensors(kern())
                 torch.cuda.synchronize()
                 ref = tensors(plain())
@@ -1867,10 +2060,31 @@ def phase_train_kernels(nets, rng):
                           f"{TRAIN_F32_MAX:g}, {k:g} x plain {own:.3e}) = "
                           f"{limit:.3e}) {'ok' if ok else 'FAIL'}",
                           flush=True)
+                    wrongs, spread = {}, {}
+                    if name == "K2b":  # (b) of EXACT_K's rule
+                        a = inp["actor"]
+                        args = (a["x"], a["dy2"], a["blocks"][0], a["heads"],
+                                a["dh"])
+                        wrongs = {what: rel_max(tensors(fn(*args)), ex)
+                                  for what, fn in F32_BLOCK_WRONGS.items()}
+                        if F32_SPREAD:
+                            spread = f32_spread(args, out, ref, ex)
+                        print(f"{name} fp32 B={batch}, against float64 sums "
+                              f"(limit {limit:.3e}): " + "".join(
+                                  f"{w} (read only) {v:.3e}; "
+                                  if isinstance(v, float) else f"{w} {v}; "
+                                  for w, v in spread.items())
+                              + "wrong versions (must fail) " + ", ".join(
+                                  f"{w} {v:.3e}" for w, v in wrongs.items()),
+                              flush=True)
                     record("fp32 train", kernel=name, batch=batch, got=got,
-                           plain=own, limit=limit, old=old, k=k)
+                           plain=own, limit=limit, old=old, k=k,
+                           wrongs=wrongs, **spread)
                     check(ok, f"{name} disagrees with the float64-sum "
                           f"version of its plain version (fp32, B={batch})")
+                    for what, v in wrongs.items():
+                        check(v > limit, f"phase 5's fp32 rule passes a "
+                              f"wrong {name} ({what}, B={batch})")
                     continue
                 if dtype == "float32":
                     ok = old <= TRAIN_F32_MAX
@@ -3419,20 +3633,35 @@ K6_WRONGS = {"autograd of the plain forward": trunk_autograd_bwd,
              "dx kept in fp32 between blocks": trunk_fp32_dx_bwd}
 
 
-def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
-                    streams=None):
-    """The per-block kernels chained as the default route chains them:
-    K2f, K3f forward, the final norm's backward in PyTorch, K3b, K2b (on
-    the streams K2f and K3f give; `streams` is not read)."""
+def chain_streams(x, blocks, heads, dim_head):
+    """The forward the per-block kernels run (K2f on each full block, K3f
+    with its records on the last) as K6's streams (xs, cls, saved): what
+    the chain of per-block backwards differentiates."""
+    import torch
+
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
-    from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
 
     xs = [x]
     for w in blocks[:-1]:
         xs.append(ft.block_fwd_fused(xs[-1], w, heads, dim_head))
     cls, rec = cb.cls_fwd_fused(xs[-1], blocks[-1], heads, dim_head,
                                 save=True)
+    return torch.stack(xs[1:]).contiguous(), cls, rec
+
+
+def trunk_chain_bwd(x, dy, blocks, fn, heads, dim_head, final_norm,
+                    streams=None):
+    """The per-block kernels chained as the default route chains them:
+    K2f, K3f forward, the final norm's backward in PyTorch, K3b, K2b (on
+    the streams K2f and K3f give, `chain_streams`; `streams` is not
+    read)."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops.trunk_train import final_norm_bwd_plain
+
+    st, cls, rec = chain_streams(x, blocks, heads, dim_head)
+    xs = [x, *st]
     dcls, dfs, dfb = final_norm_bwd_plain(dy.float(), cls.float(), fn[0],
                                           fn[1], final_norm)
     dx, g = cb.cls_bwd_fused(xs[-1], dcls.to(x.dtype), blocks[-1], heads,
@@ -3565,22 +3794,38 @@ def phase_k6(nets, rng):
                 if dtype == "float32":
                     e, ec = rel_max(out, ref), rel_max(out, chain)
                     ex = trunk_tensors(exact(trunk_bwd_plain, *args))
-                    got, got_chain, own = (rel_max(v, ex)
-                                           for v in (out, chain, ref))
+                    got, chain_k4, own = (rel_max(v, ex)
+                                          for v in (out, chain, ref))
                     k = EXACT_K["fp32"]
                     limit = max(K6_F32_MAX, k * own)
-                    ok = got <= limit and got_chain <= limit
+                    # the chain differentiates its own forward (K2f's fp32
+                    # cluster form, whose streams are not K4's bit for
+                    # bit): it is held to the float64-sum version on those
+                    # streams, against the plain version's there
+                    own_args = (*args[:7], chain_streams(
+                        args[0], args[2], args[4], args[5]))
+                    ex_c = trunk_tensors(exact(trunk_bwd_plain, *own_args))
+                    got_chain = rel_max(chain, ex_c)
+                    own_c = rel_max(trunk_tensors(trunk_bwd_plain(
+                        *own_args)), ex_c)
+                    limit_c = max(K6_F32_MAX, k * own_c)
+                    ok = got <= limit and got_chain <= limit_c
                     fp32_exact[what] = [got, got_chain, own]
                     print(f"{what}: old reading vs plain max|err|/L {e:.3e},"
                           f" vs the K3b + K2b chain {ec:.3e} (limit "
                           f"{K6_F32_MAX:g}, "
                           f"{'ok' if max(e, ec) <= K6_F32_MAX else 'FAIL'}); "
-                          f"restated vs float64 sums: K6 {got:.3e}, the "
-                          f"chain {got_chain:.3e} (limit max({K6_F32_MAX:g},"
-                          f" {k:g} x plain {own:.3e}) = {limit:.3e}) "
+                          f"restated vs float64 sums: K6 {got:.3e} (limit "
+                          f"max({K6_F32_MAX:g}, {k:g} x plain {own:.3e}) = "
+                          f"{limit:.3e}); the chain on its own streams "
+                          f"{got_chain:.3e} (limit max({K6_F32_MAX:g}, {k:g} "
+                          f"x plain there {own_c:.3e}) = {limit_c:.3e}), on "
+                          f"K4's {chain_k4:.3e} (read only) "
                           f"{'ok' if ok else 'FAIL'}", flush=True)
                     record("fp32 K6", case=what, got=got, chain=got_chain,
-                           plain=own, limit=limit, old=max(e, ec), k=k)
+                           plain=own, limit=limit, chain_plain=own_c,
+                           chain_limit=limit_c, chain_on_k4=chain_k4,
+                           old=max(e, ec), k=k)
                     check(ok, f"{what}: K6 or the per-block chain disagrees "
                           "with the float64-sum version of its plain "
                           "version")
@@ -3777,9 +4022,11 @@ def phase_fault_j(nets, rng):
     return reading
 
 
-def workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls):
-    """The per-frame pass's operand slots of a bf16 block backward's
-    workspace `ws` (block_grad.cu's `workspace`): {name: slot} for h1 (B,
+def workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls,
+                    dtype=None):
+    """The per-frame pass's operand slots of a block backward's workspace
+    `ws` in `dtype` (bf16 unless given; block_grad.cu's `workspace`):
+    {name: slot} for h1 (B,
     n, d), o, h2 and hid ((B, n, .) for a full block, the CLS row's (B, .)
     for the CLS-only block), and for the CLS-only block also q (B, inner)
     and k|v of every row (B, n, 2 inner; written only by the body that
@@ -3790,10 +4037,12 @@ def workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls):
     rq, qkv = (1, 2 * inner) if cls else (n, 3 * inner)
     elems = (n * d, n * qkv, rq * inner, rq * d, rq * mlp, rq * mlp, rq * d,
              rq * inner, n * qkv, inner if cls else 0, inner if cls else 0)
+    dt = dtype or torch.bfloat16
+    es = 2 if dt == torch.bfloat16 else 4
     at, slots = 0, []
     for e in elems:
-        slots.append(ws[at:at + 2 * b * e].view(torch.bfloat16))
-        at = (at + 2 * b * e + 15) // 16 * 16
+        slots.append(ws[at:at + es * b * e].view(dt))
+        at = (at + es * b * e + 15) // 16 * 16
     shape = (lambda c: (b, c)) if cls else (lambda c: (b, n, c))
     out = {"h1": slots[0].view(b, n, d), "o": slots[2].view(shape(inner)),
            "h2": slots[3].view(shape(d)), "hid": slots[4].view(shape(mlp))}
@@ -3822,8 +4071,9 @@ def backward_slots(x, dy, w, heads, dim_head, cls, record=None):
     grads = [torch.empty_like(t) for t in w]
     ft._call(lib.block_backward_launch, x.dtype, cls,
              [x, dy, *w, dx, *grads, ws, record], x, heads, dim_head, mlp,
-             int(ft.tensor_core_bwd(x, w, dim_head, dy)))
-    return dx, workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls)
+             ft.block_form(x, w, dim_head, cls, dy))
+    return dx, workspace_slots(ws, b, n, d, heads, dim_head, mlp, cls,
+                               x.dtype)
 
 
 def trunk_slots(x, dy, blocks, fn, heads, dim_head, final_norm, streams,
@@ -3871,10 +4121,12 @@ def trunk_slots(x, dy, blocks, fn, heads, dim_head, final_norm, streams,
     return dx, workspace_slots(ws[at:], b, n, d, heads, dim_head, mlp, True)
 
 
-def forward_probe(x, w, heads, dim_head, cls):
-    """K2f's or K3f's bf16 tensor-core body with its intermediates written
-    out (block_grad.cu: block_forward_probe): (out, {name: intermediate})
-    in workspace_slots' shapes, and k and v of every row (B, n, inner)."""
+def forward_probe(x, w, heads, dim_head, cls, k1=False):
+    """K2f's or K3f's bf16 tensor-core body, or (fp32, K2f) K2f's fp32
+    cluster form (k1: the same body summed as K1's fp32 cluster form sums
+    it, cl32::Fast), with its intermediates written out (block_grad.cu:
+    block_forward_probe): (out, {name: intermediate}) in workspace_slots'
+    shapes, and k and v of every row (B, n, inner)."""
     import ctypes
 
     import torch
@@ -3887,7 +4139,7 @@ def forward_probe(x, w, heads, dim_head, cls):
     lib.block_forward_probe.restype = ctypes.c_int
     lib.block_forward_probe.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
     new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
     rows = (b,) if cls else (b, n)
     out = new(b, d) if cls else new(b, n, d)
@@ -3895,7 +4147,7 @@ def forward_probe(x, w, heads, dim_head, cls):
              "hid": new(*rows, mlp), "k": new(b, n, inner),
              "v": new(b, n, inner)}
     ft._call(lib.block_forward_probe, x.dtype, cls, [x, *w, out,
-             *inter.values()], x, heads, dim_head, mlp)
+             *inter.values()], x, heads, dim_head, mlp, int(k1))
     return out, inter
 
 
@@ -4181,8 +4433,56 @@ def phase_recompute(nets, rng):
             read(f"K6 {net} K4 body {body}", ahead, before, after, dx0, dx1,
                  ex)
         reading[f"anchors {net}"] = anchors
+    reading["K2b fp32"] = fp32_recompute(rng.spawn(1)[0])
     record("recompute", batch=RECOMPUTE_BATCH, **reading)
     return reading
+
+
+def fp32_recompute(rng):
+    """Phase 13b in fp32: K2b's fp32 cluster form on the 2d BC policy's
+    first block at the BC batches (64, 32): the fp32 forward probe (K2f's
+    cluster form with its intermediates written out) must give K2f's
+    output bit for bit, and the h1, o, h2 and hid K2b's recompute keeps
+    must equal the probe's on every frame (the pass and K2f share
+    tf32_block.cuh's body); K2b's dx is its own on a second launch."""
+    import torch
+
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    _, _, model, shape, _ = bc_models()[0]
+    heads, dh = model.trans.heads, model.trans.dim_head
+    w = model.trans.fused_params(torch.float32)[2][0]
+    out = {}
+    for b in BC_BATCHES:
+        obs, goal, _ = bc_batch(b, shape, rng)
+        with torch.no_grad():
+            x = model.trans.embed(obs, model.fc_embed(goal)).contiguous()
+        dy = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+            "float32")).to(DEVICE)
+        check(ft.block_form(x, w, dh, False) == 2
+              and ft.block_form(x, w, dh, False, dy) == 2,
+              f"phase 13b fp32, B={b}: K2f or K2b off the cluster form")
+        k2f = ft.block_fwd_fused(x, w, heads, dh)
+        probe_out, ahead = forward_probe(x, w, heads, dh, False)
+        check(torch.equal(probe_out, k2f), f"phase 13b fp32, B={b}: the "
+              "forward probe's output is not K2f's")
+        dx, slots = backward_slots(x, dy, w, heads, dh, False)
+        check(torch.equal(dx, ft.block_bwd_fused(x, dy, w, heads, dh)[0]),
+              f"phase 13b fp32, B={b}: K2b's dx differs between launches")
+        differ = {k: (ahead[k] != slots[k]).flatten(1).any(1).float()
+                  .mean().item() for k in ("h1", "o", "h2", "hid")}
+        out[str(b)] = differ
+        ahead = {k: ahead[k] for k in differ}
+        print(f"recompute, K2b fp32 (the 2d BC policy's first block, "
+              f"B={b}): the probe's output equals K2f's; frames whose "
+              "recomputed intermediate differs from K2f's: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in differ.items()), flush=True)
+        check(not any(differ.values()), f"phase 13b fp32, B={b}: K2b's "
+              f"recompute differs from K2f's forward: {differ}")
+    worst = {k: max(v[k] for v in out.values()) for k in ahead
+             if k in slots}
+    return {"differ": worst, "anywhere": max(worst.values()),
+            "by_batch": out}
 
 
 def phase_trunk_grad_fp32(default_run):
@@ -4951,6 +5251,10 @@ def smem_mirror_mismatches():
                     ("K3f", fma, b.block_forward_smem(code, 1, *w, 0)),
                     ("K3f mma", smem.fwd_mma(n),
                      b.block_forward_smem(code, 1, *w, 1)),
+                    ("K2f cluster fp32", smem.k1_cluster_fp32(n, 0),
+                     b.block_forward_smem(code, 0, *w, 2)),
+                    ("K2b cluster fp32", smem.bwd_cluster_fp32(n),
+                     b.block_backward_smem(code, 0, *w, 2)),
                     ("K2b", smem.bwd_fma(n, d, mlp),
                      b.block_backward_smem(code, 0, *w, 0)),
                     ("K2b mma", smem.bwd_mma(n),
@@ -7012,6 +7316,36 @@ def bc_grads(trainer, model, obs, goal, act):
     return [loss.detach()] + [g for g in grads if g is not None]
 
 
+def bc_mis_scaled_grads(trainer, model, obs, goal, act):
+    """A wrong BC gradient pass, as `bc_grads` returns it, of the model
+    whose every block scales its scores by 1 / dim_head where it asks
+    1 / sqrt(dim_head): a copy with each wqkv's q columns scaled by
+    dim_head^-1/2, the gradient of those columns scaled back."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(model)
+    inner = m.trans.heads * m.trans.dim_head
+    s = m.trans.dim_head ** -0.5
+    params = list(m.parameters())
+    scaled = [name.endswith("wqkv") for name, _ in m.named_parameters()]
+    with torch.no_grad():
+        for p, q in zip(params, scaled):
+            if q:
+                p[:, :inner] *= s
+    loss = trainer._rmse(m, obs, goal, act)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    out = [loss.detach()]
+    for g, q in zip(grads, scaled):
+        if g is not None:
+            if q:
+                g = g.clone()
+                g[:, :inner] *= s
+            out.append(g)
+    return out
+
+
 def bc_models():
     """(name, trainer, model, frame shape) of phase 22a's passes: the
     launcher's 2d policy holding the round-3 warm start, at B=64 and 32,
@@ -7054,9 +7388,13 @@ def bc_kernel_times(model, batch, rng):
         rec = cb.cls_fwd_fused(last, blocks[-1], heads, dh, save=True)[1]
     calls = {
         "K2f": (lambda: ft.block_fwd_fused(x, blocks[0], heads, dh),
-                lambda: ft.block_fwd_plain(x, blocks[0], heads, dh)),
+                lambda: ft.block_fwd_plain(x, blocks[0], heads, dh),
+                lambda: ft.launch_block_fwd(x, blocks[0], heads, dh, False,
+                                            form=0)),
         "K2b": (lambda: ft.block_bwd_fused(x, dy2, blocks[0], heads, dh),
-                lambda: ft.block_bwd_plain(x, dy2, blocks[0], heads, dh)),
+                lambda: ft.block_bwd_plain(x, dy2, blocks[0], heads, dh),
+                lambda: ft.launch_block_bwd(x, dy2, blocks[0], heads, dh,
+                                            False, form=0)),
         "K3f": (lambda: cb.cls_fwd_fused(last, blocks[-1], heads, dh,
                                          save=True),
                 lambda: cb.cls_fwd_plain(last, blocks[-1], heads, dh)),
@@ -7064,11 +7402,25 @@ def bc_kernel_times(model, batch, rng):
                                          rec),
                 lambda: cb.cls_bwd_plain(last, dy3, blocks[-1], heads, dh))}
     rows = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, *fma) in calls.items():
         bnd, by = bound_ms(*train_work(name, batch, esize=4), "float32")
+        err = max((o.float() - r.float()).abs().max().item() for o, r in
+                  zip(tensors(kern()), tensors(plain())))
         rows[name] = dict(ms=cuda_ms(kern, 10, runs=5),
                           plain_ms=cuda_ms(plain, 5, runs=5),
-                          bound_ms=bnd, bound_by=by, library_ms=None)
+                          bound_ms=bnd, bound_by=by, library_ms=None,
+                          max_abs_err=err)
+        if fma:  # the FMA body it replaced, forced, in the same run
+            rows[name]["fma_ms"] = cuda_ms(fma[0], 5, runs=5)
+    # K2b by device time: the cluster pass, the weight products
+    # (wgrad_kernel), their finish and the vector sums
+    split = device_kernels_ms(calls["K2b"][0], 20)
+    part = lambda key: sum(v for k, v in split.items() if key in k)
+    rows["K2b"]["split"] = {
+        "pass": part("block_bwd_cluster_fp32_kernel"),
+        "wgrad_kernel": part("wgrad_kernel"),
+        "wgrad_finish": part("wgrad_finish"), "vec_finish": part("vec_finish"),
+        "all": sum(split.values())}
     return rows
 
 
@@ -7095,15 +7447,18 @@ def bc_step_ms(trainer, model, batch, rng):
     return cuda_ms(step, 5, runs=5)
 
 
-def phase_bc_kernels(rng):
+def phase_bc_kernels(rng, timed=True):
     """Phase 22a: a gradient pass of the BC loss on the card (loss and
     every parameter gradient), through the kernels, held to the
     float64-sum version of the plain versions under phase 5's fp32 rule
     (EXACT_K["fp32"]), with the pass launching K2f x3, K3f, K3b and K2b x3;
     the plain versions with the other GELU form (`other_gelu`) must fail
-    it. Then ms a
-    BC step and fp32 K2f, K2b, K3f and K3b at B = 64 and 32 beside their
-    plain versions and bounds."""
+    it, and so must the model whose blocks scale their scores by 1 /
+    dim_head (`bc_mis_scaled_grads`). The 2d policy's pass takes the fp32
+    cluster forms of K2f and K2b. Then (with `timed`) ms a BC step
+    and fp32 K2f, K2b, K3f and K3b at B = 64 and 32 beside their plain
+    versions and bounds, K2f and K2b beside the FMA body they replaced,
+    and K2b's split by device time."""
     import torch
 
     counters = kernel_counters()
@@ -7112,6 +7467,8 @@ def phase_bc_kernels(rng):
         obs, goal, act = bc_batch(batch, shape, rng)
         for fn in counters.values():
             fn.launches = 0
+        for kk in ("K2f", "K2b"):
+            counters[kk].cluster_launches = 0
         out = bc_grads(trainer, model, obs, goal, act)
         launches = {kk: fn.launches for kk, fn in counters.items()}
         check(launches == BC_STEP, f"phase 22a: a BC gradient pass "
@@ -7123,38 +7480,61 @@ def phase_bc_kernels(rng):
             ex = exact(bc_grads, trainer, model, obs, goal, act)
             with other_gelu():
                 bad = bc_grads(trainer, model, obs, goal, act)
+            mis = bc_mis_scaled_grads(trainer, model, obs, goal, act)
         ok, got, limit = restated(rel_max, TRAIN_F32_MAX, k, out, ref, ex)
         bad_ok, bad_got, _ = restated(rel_max, TRAIN_F32_MAX, k, bad, ref,
+                                      ex)
+        mis_ok, mis_got, _ = restated(rel_max, TRAIN_F32_MAX, k, mis, ref,
                                       ex)
         own = rel_max(ref, ex)
         key = f"{name}, B={batch}"
         readings[key] = {"got": got, "limit": limit, "plain": own,
                          "old": rel_max(out, ref), "tanh_gelu": bad_got,
-                         "tensors": len(out), "pass": ok,
-                         "tanh_gelu_pass": bad_ok}
+                         "mis_scaled": mis_got, "tensors": len(out),
+                         "pass": ok, "tanh_gelu_pass": bad_ok,
+                         "mis_scaled_pass": mis_ok}
         print(f"phase 22a BC gradient pass fp32, {key}: loss and "
               f"{len(out) - 1} gradients, largest max|err|/L against "
               f"float64 sums {got:.3e} (limit max({TRAIN_F32_MAX:g}, {k:g} "
               f"x plain {own:.3e}) = {limit:.3e}), old reading vs plain "
               f"{readings[key]['old']:.3e}; {'passes' if ok else 'FAILS'};"
               f" wrong (tanh GELU) {bad_got:.3e}, "
-              f"{'passes' if bad_ok else 'FAILS'} (must fail)", flush=True)
+              f"{'passes' if bad_ok else 'FAILS'}; wrong (scores scaled 1 / "
+              f"dim_head) {mis_got:.3e}, {'passes' if mis_ok else 'FAILS'} "
+              f"(the wrong ones must fail)", flush=True)
         record("BC gradient pass fp32", case=key, k=k, **readings[key])
         check(ok, f"phase 22a: the BC gradient pass through the kernels "
               f"disagrees with the float64-sum version ({key})")
         check(not bad_ok, f"phase 22a: the fp32 rule passes a wrong BC "
               f"pass (tanh GELU, {key})")
+        check(not mis_ok, f"phase 22a: the fp32 rule passes a wrong BC "
+              f"pass (scores scaled 1 / dim_head, {key})")
         if name.startswith("2d"):
+            check(counters["K2f"].cluster_launches == 3
+                  and counters["K2b"].cluster_launches == 3,
+                  f"phase 22a: the 2d policy's pass ({key}) took the fp32 "
+                  f"cluster forms {counters['K2f'].cluster_launches} and "
+                  f"{counters['K2b'].cluster_launches} times, expected 3")
+        if timed and name.startswith("2d"):
             times[batch] = {"kernels": bc_kernel_times(model, batch, rng),
                             "step_ms": bc_step_ms(trainer, model, batch,
                                                   rng)}
             line = ", ".join(
-                f"{kk} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                f"{kk} {v['ms']:.4f} ms ("
+                + (f"the FMA body {v['fma_ms']:.4f}, " if "fma_ms" in v
+                   else "")
+                + f"plain {v['plain_ms']:.4f}, bound "
                 f"{v['bound_ms']:.5f} {v['bound_by']})"
                 for kk, v in times[batch]["kernels"].items())
+            sp = times[batch]["kernels"]["K2b"]["split"]
+            share = (sp["wgrad_kernel"] + sp["wgrad_finish"]) / sp["all"]
             print(f"phase 22a fp32 B={batch} ({card()}): a BC step "
                   f"{times[batch]['step_ms']:.3f} ms; {line} (CUDA "
-                  f"events)", flush=True)
+                  f"events); K2b by device time: the cluster pass "
+                  f"{sp['pass']:.4f} ms, wgrad_kernel {sp['wgrad_kernel']:.4f}"
+                  f", wgrad_finish {sp['wgrad_finish']:.4f}, vec_finish "
+                  f"{sp['vec_finish']:.4f} (all {sp['all']:.4f}; the "
+                  f"weight products {share:.3f} of it)", flush=True)
     return {"checks": readings, "times": times}
 
 
@@ -7218,12 +7598,18 @@ def phase_bc_fit(out_dir):
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    for kk in ("K2f", "K2b"):
+        counters[kk].cluster_launches = 0
     best, hist = fit(main, BC_EPOCHS)
     launches = {kk: fn.launches for kk, fn in counters.items()}
+    cluster = {kk: counters[kk].cluster_launches for kk in ("K2f", "K2b")}
     want = {kk: BC_EPOCHS * v for kk, v in per_epoch.items()}
     check(launches == want, f"phase 22b: the fit launched {launches}, "
           f"expected {want}: each epoch {len(tr) // 64} training batches "
           f"({BC_STEP}) and {len(va) // vb} validation batches ({BC_VAL})")
+    check(all(cluster[kk] == launches[kk] for kk in cluster),
+          f"phase 22b: of the fit's K2f and K2b launches {cluster} took the "
+          "fp32 cluster forms, expected all")
     losses = hist["train"] + hist["val"]
     check(all(math.isfinite(v) for v in losses)
           and hist["train"][-1] < hist["train"][0],
@@ -7254,7 +7640,8 @@ def phase_bc_fit(out_dir):
           f"{h3 == hist}; launches {launches}", flush=True)
     check(rel <= BC_PLAIN_REL, f"phase 22b: the fit through the plain "
           f"versions parts from the kernels' by {rel:.3e}")
-    return {"launches": launches, "per_epoch": per_epoch, "transitions": n,
+    return {"launches": launches, "cluster_launches": cluster,
+            "per_epoch": per_epoch, "transitions": n,
             "epoch_ms": statistics.median(epoch_s) * 1e3,
             "epoch_ms_all": [s * 1e3 for s in epoch_s], "hist": hist,
             "plain_hist": hp, "plain_rel": rel, "syncs": [s1, s3],
@@ -7725,6 +8112,30 @@ def phase_reference_config(rng, out_dir):
     runs["bf16"], _, _ = zoo_updates(cfg_bf, batch, PER_ZOO_UPDATE,
                                      "23a reference config bf16")
 
+    # K4 in fp32 alone at B=32 on the actor's widths (the no-grad learn
+    # forward of each update; main's launches below), beside its plain
+    # version and its bound at the fp32 peak
+    with torch.no_grad():
+        trans = state.actor.trans
+        x = trans.embed(batch["obs"], state.actor.fc_embed(
+            batch["pobs"])).contiguous()
+        k4 = (x, trans.fused_params(torch.float32)[2],
+              trans.fused_params(torch.float32)[3], trans.heads,
+              trans.dim_head, trans.final_norm)
+        k4_out = gm.blocks_cls_forward_fused(*k4)
+        k4_ref = gm.blocks_forward_plain(*k4)
+        bnd, by = bound_ms(*train_work("K4", ZOO_BATCH, esize=4), "float32")
+        k4_fp32 = {"ms": cuda_ms(lambda: gm.blocks_cls_forward_fused(*k4),
+                                 10, runs=5),
+                   "plain_ms": cuda_ms(lambda: gm.blocks_forward_plain(*k4),
+                                       5, runs=5),
+                   "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                   "max_abs_err": (k4_out - k4_ref).abs().max().item()}
+    print(f"phase 23a K4 fp32 at B={ZOO_BATCH} ({card()}): "
+          f"{k4_fp32['ms']:.4f} ms, plain {k4_fp32['plain_ms']:.4f}, bound "
+          f"{bnd:.5f} ({by}); max|err| vs plain "
+          f"{k4_fp32['max_abs_err']:.3e} (CUDA events)", flush=True)
+
     # the CNN critic's convolutions with TF32 on (PyTorch's default)
     # against full fp32 (this script's setting), on the same batch
     with torch.no_grad():
@@ -7805,7 +8216,7 @@ def phase_reference_config(rng, out_dir):
                          "reference_config_updates_bf16":
                              runs["bf16"]["launches"]},
             "train_bf16": {"env_steps": n_env, "updates": n_up},
-            "main_s": main_s, "k1_form": act_form}
+            "main_s": main_s, "k1_form": act_form, "k4_fp32": k4_fp32}
 
 
 def vit_attention_checks(rng):
@@ -9053,6 +9464,25 @@ def main() -> int:
                      **attn_times["K8 fp32"]},
         "launches_by_path": {
             k: v["K8"] for k, v in vit["launches"].items()}})
+    # K2f's and K2b's fp32 cluster forms: their launches on the BC fit
+    # (phase 22b, the 2d policy at B=64), timed at the BC batches (22a)
+    bc = imitation["bc_kernels"]["times"]
+    for short in ("K2f", "K2b"):
+        name, src, replaces = KERNELS[short]
+        t64 = bc[BC_BATCHES[0]]["kernels"][short]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dgvit_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": imitation["bc_fit"]["cluster_launches"][short],
+            **{key: t64[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "fma_ms")},
+            "batch": BC_BATCHES[0], "dtype": "float32",
+            "form": "cluster_fp32",
+            "by_batch": {str(b): t["kernels"][short] for b, t in bc.items()},
+            "launches_by_path": {
+                "bc_fit": imitation["bc_fit"]["cluster_launches"][short]}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")

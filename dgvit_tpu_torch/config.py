@@ -67,6 +67,9 @@ class ModelConfig:
     image_size: Tuple[int, int] = (128, 160)
     patch_size: Tuple[int, int] = (16, 20)
     emb_dropout: float = 0.1
+    # block dropout: a key of the JAX config that, there as here, the
+    # factories do not hand on to the networks
+    dropout: float = 0.0
     patch_mode: str = "2d"  # 2d (single frame) | channels (frame stack)
     compute_dtype: str = "float32"  # float32 | bfloat16
     # the token stream sharded over a `seq` mesh axis (ring attention):
@@ -137,6 +140,10 @@ class SACConfig:
     # update through a background BatchPrefetcher (replay/staging.py);
     # batches are up to two steps stale, so opt-in
     prefetch_batches: bool = False
+    # True evaluates the actor loss on the critic's trunk latent from
+    # before the update (the JAX package's opt-in): not ported, refused by
+    # name
+    critic_latent_reuse: bool = False
     # True adds the (1 - done) mask the reference's TD target omits
     done_mask_in_target: bool = False
     # True rolls back an update whose losses are not finite (the step
@@ -187,6 +194,10 @@ class SACConfig:
                     "auto_tune_alpha=False set alpha >= alpha_min directly")
         if self.alpha <= 0.0:
             raise ValueError("sac.alpha must be > 0 (it seeds log_alpha)")
+        if self.critic_latent_reuse:
+            raise NotImplementedError(
+                "sac.critic_latent_reuse (the actor loss on the critic's "
+                "pre-update trunk latent) is not ported")
 
 
 @dataclass
@@ -245,6 +256,7 @@ class TrainConfig:
     policy_attention_fix: bool = False
     critic_attention_fix: bool = False
     checkpoint_dir: str = "checkpoints"
+    data_dir: str = "data"
     robot: str = "scout"          # ROBOT
     # base paths without the _actor/_critic.npz suffix; empty = skip
     pre_train_model: str = ""     # actor loaded when pre_train
@@ -252,16 +264,38 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Device-mesh axes (the JAX package's MeshConfig): data = batch
+    sharding (-1: every device left), model = tensor parallelism, seq =
+    the token stream's sharding. The port runs on one device: a mesh of
+    one (data -1 or 1, model 1, seq 1) is accepted, a larger one refused
+    by name."""
+
+    data: int = -1
+    model: int = 1
+    seq: int = 1
+
+    def validate(self):
+        if self.data not in (-1, 1) or self.model != 1 or self.seq != 1:
+            raise NotImplementedError(
+                f"mesh (data {self.data}, model {self.model}, seq "
+                f"{self.seq}): a sharded mesh is not ported; the port "
+                "takes data -1 or 1, model 1, seq 1")
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     sac: SACConfig = field(default_factory=SACConfig)
     env: EnvConfig = field(default_factory=EnvConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
     def validate(self) -> "Config":
         self.model.validate()
         self.sac.validate()
         self.env.validate()
+        self.mesh.validate()
         return self
 
     @classmethod

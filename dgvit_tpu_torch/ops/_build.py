@@ -6,10 +6,11 @@ C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-and is loaded with ctypes. Libraries land in `build/kernels/` at the root
-of the checkout (git-ignored), named by a hash of the source, the shared
-headers (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
-unchanged one loads at once. `build` compiles several sources at once, one
+and is loaded with ctypes. Libraries land in `kernels/` under the build
+root (`core/build_dir.py`: `$DGVIT_TORCH_BUILD_DIR`, else the checkout's
+git-ignored `build/`, else the user's cache), named by a hash of the
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source rebuilds and an unchanged one loads at once. `build` compiles several sources at once, one
 nvcc each. A failed build raises with the compiler's output. `build` and
 `load` hold one process-wide lock, so threads that first launch a kernel
 together compile it once, and each compile writes a temporary file named
@@ -26,8 +27,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+from dgvit_tpu_torch.core.build_dir import build_root
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = build_root() / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _LOCK = threading.RLock()

@@ -17,7 +17,12 @@
 // bf16 at the flagship widths (tensor_core_fwd in
 // ops/fused_transformer.py) K2f runs block_fwd_mma_kernel and K3f
 // cls_fwd_mma_kernel: the tensor-core body of block_mma_fwd.cuh, two
-// frames a thread block (K3f: its CLS-only block, as K4 and K1 end).
+// frames a thread block (K3f: its CLS-only block, as K4 and K1 end). In
+// fp32 at the flagship widths with 4 heads (fp32_cluster_fwd) K2f runs
+// block_fwd_cluster_fp32_kernel and K2b's pass
+// block_bwd_cluster_fp32_kernel: one frame over a cluster of 4 CTAs on
+// tf32_block.cuh's 3xTF32 body, K1's fp32 cluster form's (see the
+// section "the fp32 forms at the flagship widths" below).
 //
 // Backward, two passes:
 //  1. one thread block per frame recomputes the forward, then runs the
@@ -38,9 +43,11 @@
 //     to run (no atomics). The sums are cast to T at the end, as the TPU
 //     kernel casts its fp32 accumulators to the weight dtype.
 // The recompute of pass 1 is bit-identical to the forward kernel (same
-// products in the same order) for fp32 and for the bf16 FMA bodies. At
-// the flagship widths the bf16 full block runs on the tensor cores both
-// ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
+// products in the same order) for fp32 and for the bf16 FMA bodies; fp32
+// at the flagship widths runs the first half of tf32_block.cuh's body
+// both ways (chip_smoke.py phase 13b finds K2b's h1, o, h2 and hid equal
+// to K2f's on every frame). At the flagship widths the bf16 full block
+// runs on the tensor cores both ways, K2f on block_mma_fwd.cuh's body and K2b's recompute in
 // block_bwd_mma, with the same bf16 operands, rounding points and tile
 // order (chip_smoke.py phase 13b finds K2b's intermediates equal to K2f's
 // on every frame). The CLS-only block's backward recomputes only k and v
@@ -86,8 +93,9 @@
 // bf16 K2f at those widths runs on the tensor cores too
 // (block_fwd_mma_kernel), as does K3f (cls_fwd_mma_kernel), and so do the
 // bf16 weight products (wgrad_mma_kernel, bound by the bytes of their
-// operands). The fp32 bodies and products are FMA work on fp32 CUDA
-// cores, far from the bf16 tensor-core roofline.
+// operands). The fp32 full block at the flagship widths runs on the
+// tensor cores as 3xTF32 over a cluster of 4 CTAs a frame; the other fp32
+// bodies and the fp32 weight products are FMA work on fp32 CUDA cores.
 //
 // A frame lives in one thread block's shared memory, so each body holds
 // frames up to a length (at the flagship widths: the FMA forward 147
@@ -101,6 +109,7 @@
 #include "block_common.cuh"
 #include "block_mma_fwd.cuh"
 #include "mma_common.cuh"
+#include "tf32_block.cuh"
 
 namespace {
 
@@ -1192,7 +1201,8 @@ __device__ __forceinline__ void block_bwd_mma(const BwdArgs& a, int f,
 
 // The full-block backward body: with Mma the bf16 tensor-core body (the
 // flagship widths, see mma_body_takes), else the FMA body of T, which
-// takes any width (fp32 always: TF32 would not meet the fp32 checks).
+// takes any width (fp32 off the flagship widths; at them fp32 runs
+// block_bwd_cluster_fp32_kernel, below).
 template <typename T, bool Mma>
 __device__ __forceinline__ void block_bwd(const BwdArgs& a, int f,
                                           unsigned char* smem_raw) {
@@ -1207,6 +1217,630 @@ __global__ void __launch_bounds__(kThreads)
     block_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   block_bwd<T, Mma>(a, blockIdx.x, smem_raw);
+}
+
+// ---- the fp32 forms at the flagship widths: one frame a cluster ---------
+//
+// K2f and K2b's per-frame pass in fp32 at d = dim_head = 64, 4 heads, at
+// most 80 rows and mlp a multiple of 4 x 64 (fp32_cluster_fwd in
+// ops/fused_transformer.py picks them; fp32_cluster_takes checks them),
+// one frame over a cluster of 4 CTAs on tf32_block.cuh's body, every
+// product on the tensor cores (tf32_mma.cuh). The FMA bodies ran a frame
+// on one SM (a batch of 64 filled 64 of 132 SMs, each frame 256 threads of
+// fp32 FMA chains); a cluster puts four SMs on a frame and the products on
+// the tensor cores.
+//
+// K2f (block_fwd_cluster_fp32_kernel) runs the body's full block. K2b's
+// pass (block_bwd_cluster_fp32_kernel) runs on rank r:
+//  * the forward's first half (cl32::attend, the same function K2f runs,
+//    so h1, q, k, v, o, x1 and h2 are K2f's bit for bit), then the MLP's
+//    first products over its quarter of the hidden columns in K2f's tiles
+//    (pre = h2 w1 + b1, hid = gelu(pre): K2f's GELU values);
+//  * the reverse pass of that quarter: dpre = (dy w2^T) gelu'(pre), dh2's
+//    partial dpre w1^T; the partials exchanged through distributed
+//    shared memory and added in rank order, then LN2's backward: g1
+//    (LN2's backward magnifies dh2's errors by 1 / std of its row, and on
+//    some frames of a trained model that is large);
+//  * head r's backward: do = g1 wout_r^T; the probabilities recomputed
+//    from the kept q and k (cl32::probs, the forward's own function);
+//    dv = p^T do and dk = ds^T q by key rows (each warp 16 keys, p and ds
+//    read transposed from a shared tile), dp = do v^T, ds = p (dp - rowsum
+//    (dp p)) scale and dq = ds k by query rows; dh1's partial dq wq_r^T +
+//    dk wk_r^T + dv wv_r^T, exchanged and added in rank order, then LN1's
+//    backward: dx = g1 + dln1.
+// The reverse pass's products take the exact split into three TF32 parts
+// (tf32::A3, six mma.sync.m16n8k8 a step), the recompute the forward's
+// (the attention's exact, the MLP's first product 3xTF32). The
+// operands of the weight products go to the workspace slots as
+// block_bwd_body writes them (h1, h2, g1 and dx by rank columns, o and
+// dqkv by head, hid and dpre by quarter), and so do the frame's row sums
+// (each vector by one rank, b1 by quarter): pass 2 reads them unchanged.
+// Per CTA: the head's k, v and q tiles and the probabilities (over them
+// dh2's partials), one region that holds in turn the head's weights, the
+// MLP's ring and the backward's weights and do tile, the partial tile and
+// each warp's x and x1 (later g1) tiles: 225,792 bytes at 80 rows.
+
+namespace bw32 {
+
+using cl32::D;
+using cl32::HC;
+using cl32::kLdK;
+using cl32::kLdW;
+using cl32::kPart;
+using cl32::kRanks;
+using mmafwd::col_of;
+using mmafwd::kKeyTiles;
+using mmafwd::row_of;
+using mmafwd::zero;
+
+// row stride of the probabilities' tile (4 mod 16: its columns read
+// transposed, rows 2t and 2t + 1 at column g, fall on distinct banks)
+__host__ __device__ inline int ld_probs(int n) { return round16(n) + 4; }
+
+// A CTA of block_bwd_cluster_fp32_kernel for n rows; `fwd` places the
+// forward body's tiles inside it.
+struct Layout {
+  size_t k, v, q, p, u, part_a, xs, x1s, cs, total;
+  cl32::Layout fwd;
+  __host__ __device__ explicit Layout(int n) : fwd(n, 0) {
+    using mmafwd::take;
+    const size_t np = round16(n), w64 = sizeof(float) * D * kLdW,
+                 part = sizeof(float) * (np / 16) * kPart,
+                 probs = sizeof(float) * np * ld_probs(n);
+    size_t o = 0;
+    k = take(o, sizeof(float) * np * kLdK);  // the head's k, v, q
+    v = take(o, sizeof(float) * np * kLdW);
+    q = take(o, sizeof(float) * np * kLdW);
+    p = take(o, probs > part ? probs : part);  // p, ds; dh2's partials
+    u = take(o, 4 * w64);  // wqkv, wout slices; the ring; wout, do; wqkv
+    part_a = take(o, part);  // the out-projection's and dh1's partials
+    xs = take(o, part);      // each warp's rows of x
+    x1s = take(o, part);     // ... of x1, then g1
+    cs = take(o, sizeof(float) * (np / 16) * D);  // column sums by warp
+    total = o;
+    fwd.k = k;
+    fwd.v = v;
+    fwd.wq = u;
+    fwd.wo = u + 3 * w64;
+    fwd.ring = u;
+    fwd.part_a = part_a;
+    fwd.part_m = p;
+    fwd.total = total;
+  }
+};
+
+// the warp's 16 rows from a (rows, 64) fp32 frame (row stride ld), rows
+// >= n zero
+__device__ __forceinline__ void read_rows(float (&v)[8][4], const float* m,
+                                          int ld, int r0, int n) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row_of(r0, 2 * h);
+      float2 x = make_float2(0.f, 0.f);
+      if (r < n)
+        x = *reinterpret_cast<const float2*>(m + (size_t)r * ld +
+                                             col_of(j, 0));
+      v[j][2 * h] = x.x;
+      v[j][2 * h + 1] = x.y;
+    }
+}
+
+// the warp's rows < n, column tiles [j0, j1) (8 columns each), into a
+// row-major fp32 matrix of row stride ld
+__device__ __forceinline__ void write_rows(const float (&v)[8][4], float* m,
+                                           int ld, int r0, int n, int j0 = 0,
+                                           int j1 = 8) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < j0 || j >= j1) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row_of(r0, 2 * h);
+      if (r < n)
+        *reinterpret_cast<float2*>(m + (size_t)r * ld + col_of(j, 0)) =
+            make_float2(v[j][2 * h], v[j][2 * h + 1]);
+    }
+  }
+}
+
+// the warp's own slot of a partial tile back into registers
+__device__ __forceinline__ void get_part(float (&v)[8][4],
+                                         const float* tile) {
+  const float* s = tile + threadIdx.x / 32 * kPart + threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[j][e] = s[(4 * j + e) * 32];
+}
+
+// acc[j] += a (16 x 64) @ W^T for W a [64][kLdW] tile: B(k, n) = W[n][k],
+// read as the pair (2t, 2t + 1) of row n
+__device__ __forceinline__ void rows_mma_t(float (&acc)[8][4],
+                                           const float (&a)[8][4],
+                                           const float* w) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    tf32::A3 af;
+    tf32::frag(af, a[kk]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          w + (size_t)(8 * j + g) * kLdW + 8 * kk + 2 * t);
+      tf32::mma_add(acc[j], af, b.x, b.y);
+    }
+  }
+}
+
+// s[j] (16 rows x np keys) += a (16 x 64) @ T^T, T a tile of np rows (the
+// keys) and row stride ld: B(e, key) = T[key][e]
+__device__ __forceinline__ void keys_mma(float (&s)[kKeyTiles][4],
+                                         const float (&a)[8][4],
+                                         const float* tile, int ld, int np) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    tf32::A3 af;
+    tf32::frag(af, a[kk]);
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+      if (8 * j < np) {
+        const float2 b = *reinterpret_cast<const float2*>(
+            tile + (size_t)(8 * j + g) * ld + 8 * kk + 2 * t);
+        tf32::mma_add(s[j], af, b.x, b.y);
+      }
+  }
+}
+
+// acc[j] += s (16 rows x np keys) @ T, T a tile of np rows (the keys),
+// row stride ld: B(key, e) = T[key][e]
+__device__ __forceinline__ void over_keys(float (&acc)[8][4],
+                                          const float (&s)[kKeyTiles][4],
+                                          const float* tile, int ld, int np) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < kKeyTiles; ++kk) {
+    if (8 * kk >= np) continue;
+    tf32::A3 af;
+    tf32::frag(af, s[kk]);
+    const float* b0 = tile + (size_t)(8 * kk + 2 * t) * ld + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tf32::mma_add(acc[j], af, b0[8 * j], b0[ld + 8 * j]);
+  }
+}
+
+// acc[j] += M^T @ B for the warp's 16 rows r0.. of the result: A(r, i) =
+// M[i][r0 + r] and B(i, e) = B[i][e] over i < np; M of row stride ldm (4
+// mod 16), B of row stride ldb (4 mod 32)
+__device__ __forceinline__ void cols_mma(float (&acc)[8][4], const float* m,
+                                         int ldm, int r0, const float* b,
+                                         int ldb, int np) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < kKeyTiles; ++kk) {
+    if (8 * kk >= np) continue;
+    const float* m0 = m + (size_t)(8 * kk + 2 * t) * ldm + r0 + g;
+    tf32::A3 af;
+    tf32::frag(af, m0[0], m0[8], m0[ldm], m0[ldm + 8]);
+    const float* b0 = b + (size_t)(8 * kk + 2 * t) * ldb + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      tf32::mma_add(acc[j], af, b0[8 * j], b0[ldb + 8 * j]);
+  }
+}
+
+// the warp's 16 rows x np keys (accumulator layout) into a row-major tile
+// of row stride ld
+__device__ __forceinline__ void put_keys(const float (&s)[kKeyTiles][4],
+                                         float* tile, int ld, int r0,
+                                         int np) {
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j)
+    if (8 * j < np)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (size_t)row_of(r0, 2 * h) * ld +
+                                   8 * j + 2 * (threadIdx.x % 4)) =
+            make_float2(s[j][2 * h], s[j][2 * h + 1]);
+}
+
+// LayerNorm's backward on the warp's rows: x its input, dh the grad of its
+// output, s its scale; dx = rstd (dh s - mean(dh s) - xhat mean(dh s
+// xhat)) as block_bwd_body's ln_bwd forms it, and xhat; rows >= n zero.
+// The statistics are norm_rows' (mean, then the centred squares).
+__device__ __forceinline__ void ln_back(const float (&x)[8][4],
+                                        const float (&dh)[8][4],
+                                        const float* s, int r0, int n,
+                                        float (&xhat)[8][4],
+                                        float (&dx)[8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += x[j][2 * h] + x[j][2 * h + 1];
+    const float m = quad_sum(sum) / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float c = x[j][2 * h + e] - m;
+        sq += c * c;
+      }
+    const float inv = rsqrtf(quad_sum(sq) / D + 1e-5f);
+    const bool live = row_of(r0, 2 * h) < n;
+    float sd = 0.f, sdx = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xh = live ? (x[j][2 * h + e] - m) * inv : 0.f;
+        const float dxh = dh[j][2 * h + e] * s[col_of(j, e)];
+        xhat[j][2 * h + e] = xh;
+        sd += dxh;
+        sdx += dxh * xh;
+      }
+    const float md = quad_sum(sd) / D, mdx = quad_sum(sdx) / D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dxh = dh[j][2 * h + e] * s[col_of(j, e)];
+        dx[j][2 * h + e] =
+            live ? inv * (dxh - md - xhat[j][2 * h + e] * mdx) : 0.f;
+      }
+  }
+}
+
+// out[c] = the sum over the frame's rows of v (the warps' rows in the
+// accumulator layout, rows >= n zero), c < 64: each warp's 16 rows, then
+// the warps in order. Every thread of the CTA calls it.
+__device__ __forceinline__ void col_sums(const float (&v)[8][4], float* cs,
+                                         float* out, int warps) {
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = v[j][e] + v[j][e + 2];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) cs[warp * D + col_of(j, e)] = s;
+    }
+  __syncthreads();
+  if (threadIdx.x < D) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += cs[w * D + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();  // cs is free again
+}
+
+// the elementwise product a * b of two warps' tiles
+__device__ __forceinline__ void mul(float (&out)[8][4], const float (&a)[8][4],
+                                    const float (&b)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[j][e] = a[j][e] * b[j][e];
+}
+
+// What K2b's pass keeps of the forward's first half: h1 and h2 to their
+// workspace slots by the rank's column tiles, o by its head, q to the q
+// tile (every row), x1 to the warp's x1 tile.
+struct BwdSave {
+  float *h1p, *op, *h2p, *qs, *x1s;
+  int n, r0, rank, inner;
+  __device__ __forceinline__ void h1(const float (&v)[8][4]) {
+    write_rows(v, h1p, D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+  __device__ __forceinline__ void q(const float (&v)[8][4]) {
+    write_rows(v, qs, kLdW, r0, round16(n));
+  }
+  __device__ __forceinline__ void o(const float (&v)[8][4]) {
+    write_rows(v, op + rank * D, inner, r0, n);
+  }
+  __device__ __forceinline__ void x1h2(const float (&x1)[8][4],
+                                       const float (&h2)[8][4]) {
+    cl32::put_part(x1, x1s);
+    write_rows(h2, h2p, D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+  __device__ __forceinline__ void hid(const float (&)[8][4], int) {}
+};
+
+// What the fp32 probe writes of K2f's body: h1, o, h2 and hid (B, n, d),
+// (B, n, heads d), (B, n, d), (B, n, mlp), each part by the rank that
+// computes it.
+struct ProbeSave {
+  float *h1p, *op, *h2p, *hidp;
+  int n, r0, rank, inner, mlp;
+  __device__ __forceinline__ void h1(const float (&v)[8][4]) {
+    write_rows(v, h1p, D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+  __device__ __forceinline__ void q(const float (&)[8][4]) {}
+  __device__ __forceinline__ void o(const float (&v)[8][4]) {
+    write_rows(v, op + rank * D, inner, r0, n);
+  }
+  __device__ __forceinline__ void x1h2(const float (&)[8][4],
+                                       const float (&h2)[8][4]) {
+    write_rows(h2, h2p, D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+  __device__ __forceinline__ void hid(const float (&z)[8][4], int col0) {
+    write_rows(z, hidp + col0, mlp, r0, n);
+  }
+};
+
+}  // namespace bw32
+
+// K2f in fp32 at the flagship widths: one frame a cluster of 4 CTAs, the
+// body's full block (tf32_block.cuh), the output rows written by the
+// rank's column tiles.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
+    block_fwd_cluster_fp32_kernel(const __grid_constant__ FwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank(),
+            f = blockIdx.x / cl32::kRanks, r0 = threadIdx.x / 32 * 16;
+  const cl32::Layout L(n, 0);
+  const size_t frame = (size_t)f * n * cl32::D;
+  mmafwd::Rows x;
+  bw32::read_rows(x, (const float*)a.x + frame, cl32::D, r0, n);
+  cl32::block<cl32::Exact>(cluster, a.m, a.w, n, rank, r0, x, smem_raw, L,
+                           false);
+  bw32::write_rows(x, (float*)a.out + frame, cl32::D, r0, n, 2 * rank,
+                   2 * rank + 2);
+  cluster.sync();  // no rank leaves while another reads its partials
+}
+
+// A measurement, not a route: block_fwd_cluster_fp32_kernel with the
+// body's intermediates written out (Probe32: h1, o, h2, hid as
+// bw32::ProbeSave writes them, and the head's k and v of every row, (B,
+// n, heads d) each). With P = cl32::Exact its output is K2f's; with
+// cl32::Fast it runs the body as K1's fp32 cluster form sums it.
+struct Probe32 {
+  float *h1, *o, *h2, *hid, *k, *v;
+};
+
+template <typename P>
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
+    block_probe_cluster_fp32_kernel(const __grid_constant__ FwdArgs a,
+                                    Probe32 pr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank(),
+            f = blockIdx.x / cl32::kRanks, r0 = threadIdx.x / 32 * 16;
+  const int D = cl32::D, inner = a.m.heads * D;
+  const cl32::Layout L(n, 0);
+  const size_t fr = (size_t)f * n;
+  mmafwd::Rows x;
+  bw32::read_rows(x, (const float*)a.x + fr * D, D, r0, n);
+  bw32::ProbeSave save = {pr.h1 + fr * D, pr.o + fr * inner, pr.h2 + fr * D,
+                          pr.hid + fr * a.m.mlp, n, r0, rank, inner,
+                          a.m.mlp};
+  float h2[8][4];
+  cl32::attend<P>(cluster, a.m, a.w, n, rank, r0, x, h2, smem_raw, L, false,
+                  save);
+  const float* ks = (const float*)(smem_raw + L.k);
+  const float* vs = (const float*)(smem_raw + L.v);
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int r = i / D, c = i % D;
+    const size_t at = (fr + r) * inner + rank * D + c;
+    pr.k[at] = ks[(size_t)r * cl32::kLdK + c];
+    pr.v[at] = vs[(size_t)r * cl32::kLdW + c];
+  }
+  cl32::mlp<P>(cluster, a.m, a.w, n, rank, r0, x, h2, smem_raw, L, false,
+               save);
+  bw32::write_rows(x, (float*)a.out + fr * D, D, r0, n, 2 * rank,
+                   2 * rank + 2);
+  cluster.sync();
+}
+
+// K2b's per-frame pass in fp32 at the flagship widths (see above).
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
+    block_bwd_cluster_fp32_kernel(const __grid_constant__ BwdArgs a) {
+  using namespace bw32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, np = round16(n), warps = np / 16,
+            rank = (int)cluster.block_rank(), f = blockIdx.x / kRanks,
+            r0 = threadIdx.x / 32 * 16, j0 = 2 * rank, j1 = j0 + 2;
+  const Dims m = a.m;
+  const int inner = m.heads * D, i3 = 3 * inner, mlp = m.mlp,
+            ldp = ld_probs(n);
+  const Layout L(n);
+  float* ks = (float*)(smem_raw + L.k);
+  float* vs = (float*)(smem_raw + L.v);
+  float* qs = (float*)(smem_raw + L.q);
+  float* ps = (float*)(smem_raw + L.p);
+  float* u = (float*)(smem_raw + L.u);
+  float* part_a = (float*)(smem_raw + L.part_a);
+  float* xs = (float*)(smem_raw + L.xs);
+  float* x1s = (float*)(smem_raw + L.x1s);
+  float* cs = (float*)(smem_raw + L.cs);
+  const float* an_s = (const float*)a.w[0];
+  const float* wqkv = (const float*)a.w[2];
+  const float* wout = (const float*)a.w[3];
+  const float* fn_s = (const float*)a.w[5];
+  const float* w1 = (const float*)a.w[7];
+  const float* b1 = (const float*)a.w[8];
+  const float* w2 = (const float*)a.w[9];
+  const size_t fr = (size_t)f * n;
+  float* V = a.vec + (size_t)f * (6 * D + mlp);
+  float* hid_slot = (float*)a.s[4] + fr * mlp;
+  float* dpre_slot = (float*)a.s[5] + fr * mlp;
+  float* dqkv = (float*)a.s[8] + fr * i3;
+
+  // ---- the forward's first half, as K2f runs it ----
+  float x[8][4];
+  read_rows(x, (const float*)a.x + fr * D, D, r0, n);
+  cl32::put_part(x, xs);
+  BwdSave save = {(float*)a.s[0] + fr * D, (float*)a.s[2] + fr * inner,
+                  (float*)a.s[3] + fr * D, qs, x1s, n, r0, rank, inner};
+  float h2[8][4];
+  cl32::attend<cl32::Exact>(cluster, m, a.w, n, rank, r0, x, h2, smem_raw,
+                            L.fwd, false, save);
+
+  // ---- the MLP's quarter, forward and backward: dh2's partial ----
+  float dy[8][4];
+  read_rows(dy, (const float*)a.dy + fr * D, D, r0, n);
+  float dh2[8][4];
+  zero(dh2);
+  const int quarter = mlp / kRanks, c0 = rank * quarter / HC,
+            nc = quarter / HC;
+  auto fetch = [&](int i) {
+    float* s = u + (i & 1) * 2 * D * kLdW;
+    cl32::stage(s, kLdW, w1 + (c0 + i) * HC, mlp, D, HC);
+    cl32::stage(s + D * kLdW, kLdW, w2 + (size_t)(c0 + i) * HC * D, D, HC,
+                D);
+    cp_async_commit();
+  };
+  fetch(0);
+  for (int i = 0; i < nc; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk i landed; every warp is done with i - 1
+    if (i + 1 < nc) fetch(i + 1);
+    const float* w1c = u + (i & 1) * 2 * D * kLdW;
+    const float* b1c = b1 + (c0 + i) * HC;
+    const int col0 = (c0 + i) * HC;
+    float pre[8][4];
+    zero(pre);
+    cl32::rows_mma<cl32::Exact, tf32::A>(pre, h2, w1c);
+    float v[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pre[j][e] = pre[j][e] + b1c[col_of(j, e)];
+        v[j][e] = gelu<float>(pre[j][e]);
+      }
+    write_rows(v, hid_slot + col0, mlp, r0, n);
+    zero(v);
+    rows_mma_t(v, dy, w1c + D * kLdW);  // dhid = dy w2c^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[j][e] = v[j][e] * gelu_grad<float>(pre[j][e]);
+    write_rows(v, dpre_slot + col0, mlp, r0, n);
+    rows_mma_t(dh2, v, w1c);  // dh2 += dpre w1c^T
+    col_sums(v, cs, V + 6 * D + col0, warps);  // db1 from dpre
+  }
+  cl32::put_part(dh2, ps);
+  cluster.sync();  // every rank's dh2 partial is in place
+  zero(dh2);
+  cl32::add_parts(cluster, ps, dh2);
+  cluster.sync();  // every rank has read them: ps is free
+
+  // ---- LN2's backward: g1 = dy + dln2 ----
+  cl32::stage(u + 3 * D * kLdW, kLdW, wout + (size_t)rank * D * D, D, D, D);
+  cp_async_commit();
+  float g1[8][4];
+  {
+    float x1[8][4], xhat[8][4];
+    get_part(x1, x1s);
+    ln_back(x1, dh2, fn_s, r0, n, xhat, g1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g1[j][e] = dy[j][e] + g1[j][e];
+    if (rank == 2) {
+      mul(x1, dh2, xhat);
+      col_sums(x1, cs, V + 3 * D, warps);  // fn_s
+      col_sums(dh2, cs, V + 4 * D, warps);  // fn_b
+    }
+  }
+  if (rank == 1) col_sums(g1, cs, V + 2 * D, warps);  // bout
+  if (rank == 3) col_sums(dy, cs, V + 5 * D, warps);  // b2
+  write_rows(g1, (float*)a.s[6] + fr * D, D, r0, n, j0, j1);
+  cl32::put_part(g1, x1s);  // kept for dx
+
+  // ---- head r's backward ----
+  cp_async_wait<0>();
+  __syncthreads();  // wout's slice landed
+  float dov[8][4];
+  zero(dov);
+  rows_mma_t(dov, g1, u + 3 * D * kLdW);  // do = g1 wout_r^T
+  write_rows(dov, u, kLdW, r0, np);       // the do tile, every row
+  float s[kKeyTiles][4];
+  {
+    float q[8][4];
+    read_rows(q, qs, kLdW, r0, np);
+    cl32::probs<cl32::Exact>(s, q, ks, n, np, m.scale);
+  }
+  put_keys(s, ps, ldp, r0, np);
+  __syncthreads();  // p and do of every row are in place
+  float dv[8][4];
+  zero(dv);
+  cols_mma(dv, ps, ldp, r0, u, kLdW, np);  // dv = p^T do
+  {
+    float dp[kKeyTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+    keys_mma(dp, dov, vs, kLdW, np);  // dp = do v^T
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rs[e / 2] += dp[j][e] * s[j][e];
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = (s[j][e] * (dp[j][e] - rs[e / 2])) * m.scale;  // ds
+  }
+  __syncthreads();  // every warp has read p and the do tile
+  put_keys(s, ps, ldp, r0, np);
+  for (int part = 0; part < 3; ++part)
+    cl32::stage(u + part * D * kLdW, kLdW, wqkv + part * inner + rank * D,
+                i3, D, D);
+  cp_async_commit();
+  __syncthreads();  // ds of every row is in place
+  float dq[8][4], dk[8][4];
+  zero(dq);
+  over_keys(dq, s, ks, kLdK, np);  // dq = ds k
+  zero(dk);
+  cols_mma(dk, ps, ldp, r0, qs, kLdW, np);  // dk = ds^T q
+  write_rows(dq, dqkv + rank * D, i3, r0, n);
+  write_rows(dk, dqkv + inner + rank * D, i3, r0, n);
+  write_rows(dv, dqkv + 2 * inner + rank * D, i3, r0, n);
+  cp_async_wait<0>();
+  __syncthreads();  // the head's wqkv slices landed
+  float dh1[8][4];
+  zero(dh1);
+  rows_mma_t(dh1, dq, u);
+  rows_mma_t(dh1, dk, u + D * kLdW);
+  rows_mma_t(dh1, dv, u + 2 * D * kLdW);
+  cl32::put_part(dh1, part_a);
+  cluster.sync();  // every rank's dh1 partial is in place
+  zero(dh1);
+  cl32::add_parts(cluster, part_a, dh1);
+
+  // ---- LN1's backward: dx = g1 + dln1 ----
+  {
+    float xhat[8][4], dln[8][4];
+    get_part(x, xs);
+    ln_back(x, dh1, an_s, r0, n, xhat, dln);
+    get_part(g1, x1s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g1[j][e] = g1[j][e] + dln[j][e];
+    write_rows(g1, (float*)a.dx + fr * D, D, r0, n, j0, j1);
+    if (rank == 0) {
+      mul(dln, dh1, xhat);
+      col_sums(dln, cs, V, warps);       // an_s
+      col_sums(dh1, cs, V + D, warps);   // an_b
+    }
+  }
+  cluster.sync();  // no rank leaves while another reads its partials
 }
 
 // The per-frame pass of the CLS-only block's backward for frame f: the
@@ -1998,7 +2632,9 @@ __global__ void __launch_bounds__(kThreads)
 // it is bytes: A is read once for each tile column of C, B once for each
 // tile row (h2^T dpre at B=256 moves ~136 MB, 3.4 GFLOP). Takes what
 // wgrad_mma_takes says; other products keep wgrad_kernel, and fp32 always
-// does (TF32 would not meet the fp32 checks).
+// does: at the BC batches fp32 K2b's products on wgrad_kernel are under a
+// quarter of its time on the cluster form (PERF.md), so they stay on the
+// FMA kernel.
 constexpr int kWgRows = 64;         // rows of a chunk
 constexpr int kWgLd = kTile + 8;    // row stride of a chunk's tiles
 
@@ -2240,14 +2876,30 @@ bool mma_body_takes(const BwdArgs& a) {
          m.mlp % kMmaChunk == 0 && any % 16 == 0;
 }
 
+// Whether the fp32 cluster forms take these widths and pointers (K2b's
+// block_bwd_cluster_fp32_kernel; K2f's with x and out): d = dim_head = 64,
+// 4 heads, n <= 80, mlp a multiple of 4 x 64, and every tensor they copy
+// or write in 8- or 16-byte pieces 16-byte aligned (the workspace slots
+// are).
+bool fp32_cluster_takes(int n, const Dims& m, const void* const* ptrs,
+                        int count) {
+  uintptr_t any = 0;
+  for (int i = 0; i < count; ++i) any |= (uintptr_t)ptrs[i];
+  return m.d == cl32::D && m.dh == cl32::D && m.heads == cl32::kRanks &&
+         n <= mmafwd::kMaxRows && m.mlp % (cl32::kRanks * cl32::HC) == 0 &&
+         any % 16 == 0;
+}
+
+// The per-frame pass of K2b (cls false) or K3b in `form` (0 the FMA body,
+// 1 the bf16 tensor-core body, 2 K2b's fp32 cluster form), then pass 2.
 template <typename T>
-int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
+int launch_bwd(bool cls, int form, BwdArgs& a, void* const* g,
                unsigned char* ws, int B, cudaStream_t stream) {
   float* part = bind(cls, sizeof(T), a, ws, B);
   const BwdSmem L(a.n, a.m.d, a.m.hc);
   const bool recompute = cls && a.sv.base == nullptr;  // a measurement
   int err;
-  if (!mma) {
+  if (form == 0) {
     err = !cls ? launch_smem(block_bwd_kernel<T, false>, B, L.total, stream,
                              a)
           : recompute
@@ -2255,7 +2907,7 @@ int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
                             stream, a)
               : launch_smem(cls_bwd_kernel<T, false>, B, L.total, stream, a);
   } else if constexpr (std::is_same<T, bf16>::value) {
-    if (!mma_body_takes(a)) return cudaErrorInvalidValue;
+    if (form != 1 || !mma_body_takes(a)) return cudaErrorInvalidValue;
     const size_t cls_bytes =
         ClsMmaSmem(a.n, a.m.heads * kMmaD, a.m.mlp).total;
     err = !cls ? launch_smem(block_bwd_kernel<T, true>, B,
@@ -2266,7 +2918,12 @@ int launch_bwd(bool cls, bool mma, BwdArgs& a, void* const* g,
               : launch_smem(cls_bwd_kernel<T, true>, B, cls_bytes, stream,
                             a);
   } else {
-    return cudaErrorInvalidValue;  // the tensor-core body is bf16's
+    const void* aligned[] = {a.x, a.dy, a.dx, a.w[2], a.w[3], a.w[7],
+                             a.w[9]};
+    if (form != 2 || cls || !fp32_cluster_takes(a.n, a.m, aligned, 7))
+      return cudaErrorInvalidValue;
+    err = cl32::launch(block_bwd_cluster_fp32_kernel, a.n, B,
+                       bw32::Layout(a.n).total, stream, a);
   }
   if (err != cudaSuccess) return err;
   return launch_grads<T>(cls, a, g, part, B, stream);
@@ -2395,22 +3052,26 @@ bool bad_shape(int batch, int n, int d, int heads, int dim_head, int mlp) {
 extern "C" {
 
 // Bytes of dynamic shared memory of K2f (cls = 0) and K3f (cls = 1) for
-// these shapes; mma = 1: on the tensor-core body.
+// these shapes in `form` (as block_forward_launch takes it): 1 the bf16
+// tensor-core body, 2 a CTA of K2f's fp32 cluster form.
 size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
-                          int dim_head, int mlp, int mma) {
-  if (mma) return mmafwd::Layout(n).total;
+                          int dim_head, int mlp, int form) {
+  if (form == 2) return cl32::Layout(n, 0).total;
+  if (form) return mmafwd::Layout(n).total;
   const int hc = mlp < 256 ? mlp : 256;
   return dtype == 1 ? Smem<__nv_bfloat16>(n, d, heads, dim_head, hc).total
                     : Smem<float>(n, d, heads, dim_head, hc).total;
 }
 
 // Bytes of dynamic shared memory of the per-frame pass of K2b (cls = 0)
-// and K3b (cls = 1); mma = 1: on the tensor-core bodies.
+// and K3b (cls = 1) in `form` (as block_backward_launch takes it): 1 the
+// bf16 tensor-core bodies, 2 a CTA of K2b's fp32 cluster form.
 size_t block_backward_smem(int dtype, int cls, int n, int d, int heads,
-                           int dim_head, int mlp, int mma) {
+                           int dim_head, int mlp, int form) {
   (void)dtype;
-  if (mma) return cls ? ClsMmaSmem(n, heads * dim_head, mlp).total
-                      : MmaBwdSmem(n).total;
+  if (form == 2) return bw32::Layout(n).total;
+  if (form) return cls ? ClsMmaSmem(n, heads * dim_head, mlp).total
+                       : MmaBwdSmem(n).total;
   return BwdSmem(n, d, mlp < 128 ? mlp : 128).total;
 }
 
@@ -2427,14 +3088,17 @@ size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
 // ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
 // (B, n, d) or, with cls, (B, d), then, with cls, the CLS rows' records
 // (B, ClsSave stride) fp32, written when not null (autograd records).
-// mma = 1 runs K2f (block_fwd_mma_kernel)
-// or K3f (cls_fwd_mma_kernel) on the bf16 tensor-core body, which takes
-// bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
-// aligned x, out and matrix weights (cudaErrorInvalidValue else); mma = 0
-// the FMA body, any width. Returns a cudaError_t (0 = launched).
+// form = 1 runs K2f (block_fwd_mma_kernel) or K3f (cls_fwd_mma_kernel) on
+// the bf16 tensor-core body, which takes bf16, d = dim_head = 64, n <= 80,
+// mlp a multiple of 64 and 16-byte aligned x, out and matrix weights;
+// form = 2 K2f in fp32 over a cluster of 4 CTAs a frame
+// (block_fwd_cluster_fp32_kernel), which takes fp32, d = dim_head = 64, 4
+// heads, n <= 80, mlp a multiple of 256 and those tensors 16-byte aligned
+// (cudaErrorInvalidValue else); form = 0 the FMA body, any width. Returns
+// a cudaError_t (0 = launched).
 int block_forward_launch(int dtype, int cls, const void* const* ptrs,
                          int batch, int n, int d, int heads, int dim_head,
-                         int mlp, float scale, void* stream, int mma) {
+                         int mlp, float scale, void* stream, int form) {
   if (bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   FwdArgs a;
@@ -2446,9 +3110,15 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mma) {
-    const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
-    if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
+  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
+  if (form == 2) {
+    if (dtype != 0 || cls || !fp32_cluster_takes(n, a.m, aligned, 6))
+      return cudaErrorInvalidValue;
+    return cl32::launch(block_fwd_cluster_fp32_kernel, n, batch,
+                        cl32::Layout(n, 0).total, s, a);
+  }
+  if (form) {
+    if (form != 1 || dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
       return cudaErrorInvalidValue;
     const size_t bytes = mmafwd::Layout(n).total;
     return cls ? mmafwd::launch_fwd(cls_fwd_mma_kernel, n, batch, bytes, s,
@@ -2469,13 +3139,16 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
 
 // A measurement (chip_smoke.py), not a route: K2f (cls = 0) or K3f (cls =
 // 1) on the bf16 tensor-core body with its intermediates written out
-// (block_probe_kernel). ptrs: x, 11 weights, out as block_forward_launch
-// takes them, then h1, o, h2, hid, k, v as Probe says. The widths and
-// alignment of block_forward_launch's mma = 1 (cudaErrorInvalidValue
+// (block_probe_kernel), or, dtype 0, K2f's fp32 cluster form
+// (block_probe_cluster_fp32_kernel; k1 = 1: the body as K1's fp32 cluster
+// form sums it, cl32::Fast). ptrs: x, 11 weights, out as
+// block_forward_launch takes them, then h1, o, h2, hid, k, v as Probe (bf16)
+// or Probe32 (fp32) says. The widths and alignment of
+// block_forward_launch's form 1 (bf16) or 2 (fp32) (cudaErrorInvalidValue
 // else).
 int block_forward_probe(int dtype, int cls, const void* const* ptrs,
                         int batch, int n, int d, int heads, int dim_head,
-                        int mlp, float scale, void* stream) {
+                        int mlp, float scale, void* stream, int k1) {
   if (bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   FwdArgs a;
@@ -2484,13 +3157,24 @@ int block_forward_probe(int dtype, int cls, const void* const* ptrs,
   a.out = (void*)ptrs[12];
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
+  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const Probe32 pr = {(float*)ptrs[13], (float*)ptrs[14], (float*)ptrs[15],
+                        (float*)ptrs[16], (float*)ptrs[17], (float*)ptrs[18]};
+    if (cls || !fp32_cluster_takes(n, a.m, aligned, 6))
+      return cudaErrorInvalidValue;
+    const size_t bytes = cl32::Layout(n, 0).total;
+    return k1 ? cl32::launch(block_probe_cluster_fp32_kernel<cl32::Fast>, n,
+                             batch, bytes, s, a, pr)
+              : cl32::launch(block_probe_cluster_fp32_kernel<cl32::Exact>, n,
+                             batch, bytes, s, a, pr);
+  }
   const Probe pr = {(bf16*)ptrs[13], (bf16*)ptrs[14], (bf16*)ptrs[15],
                     (bf16*)ptrs[16], (bf16*)ptrs[17], (bf16*)ptrs[18]};
-  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
   if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
     return cudaErrorInvalidValue;
   const size_t bytes = mmafwd::Layout(n).total;
-  cudaStream_t s = (cudaStream_t)stream;
   return cls ? mmafwd::launch_fwd(block_probe_kernel<true>, n, batch, bytes,
                                   s, a, batch, pr)
              : mmafwd::launch_fwd(block_probe_kernel<false>, n, batch, bytes,
@@ -2509,15 +3193,18 @@ size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
 // with cls, (B, d), 11 weights, dx (B, n, d), 11 grads (weight shapes, in
 // the compute dtype), workspace (block_backward_workspace bytes), then,
 // with cls, the CLS rows' records K3f wrote (B, ClsSave stride) fp32
-// (null only to measure fault k: the CLS row recomputed). mma = 1
+// (null only to measure fault k: the CLS row recomputed). form = 1
 // runs the per-frame pass on the bf16 tensor-core body (block_bwd_mma,
-// cls_bwd_mma), which takes
-// bf16, d = dim_head = 64, n <= 80, mlp a multiple of 64 and 16-byte
-// aligned x, dy and matrix weights (cudaErrorInvalidValue else); mma = 0
-// the FMA body, any width.
+// cls_bwd_mma), which takes bf16, d = dim_head = 64, n <= 80, mlp a
+// multiple of 64 and 16-byte aligned x, dy and matrix weights; form = 2
+// K2b's pass in fp32 over a cluster of 4 CTAs a frame
+// (block_bwd_cluster_fp32_kernel), which takes fp32, d = dim_head = 64, 4
+// heads, n <= 80, mlp a multiple of 256 and x, dy, dx and the matrix
+// weights 16-byte aligned (cudaErrorInvalidValue else); form = 0 the FMA
+// body, any width.
 int block_backward_launch(int dtype, int cls, const void* const* ptrs,
                           int batch, int n, int d, int heads, int dim_head,
-                          int mlp, float scale, void* stream, int mma) {
+                          int mlp, float scale, void* stream, int form) {
   if (bad_shape(batch, n, d, heads, dim_head, mlp))
     return cudaErrorInvalidValue;
   BwdArgs a = {};
@@ -2533,10 +3220,9 @@ int block_backward_launch(int dtype, int cls, const void* const* ptrs,
   a.sv = ClsSave(cls ? (float*)ptrs[26] : nullptr, n, d, heads, dim_head,
                  mlp);
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, mma != 0, a, g, ws,
+  return dtype == 1 ? launch_bwd<__nv_bfloat16>(cls != 0, form, a, g, ws,
                                                 batch, s)
-                    : launch_bwd<float>(cls != 0, mma != 0, a, g, ws, batch,
-                                        s);
+                    : launch_bwd<float>(cls != 0, form, a, g, ws, batch, s);
 }
 
 // Bytes of device workspace trunk_backward_launch needs for these shapes.

@@ -63,7 +63,7 @@
 
 #include "block_common.cuh"
 #include "block_mma_fwd.cuh"
-#include "tf32_mma.cuh"
+#include "tf32_block.cuh"
 
 namespace {
 
@@ -355,8 +355,10 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads, 1)
 namespace cl {
 
 namespace cg = cooperative_groups;
-constexpr int kRanks = 4;
-constexpr int kPart = 8 * 4 * 32;  // a warp's 16 x 64 fp32 partial
+using cl32::add_parts;
+using cl32::kPart;
+using cl32::kRanks;
+using cl32::put_part;
 
 struct Layout {
   size_t k, v, wq, wo, ring, part_a, part_m, cls, total;
@@ -383,30 +385,6 @@ struct Layout {
     total = o;
   }
 };
-
-// a warp's partial (accumulator layout) into its slot of a partial tile
-__device__ __forceinline__ void put_part(const float (&acc)[8][4],
-                                         float* tile) {
-  float* s = tile + threadIdx.x / 32 * kPart + threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[(4 * j + e) * 32] = acc[j][e];
-}
-
-// acc += each rank's partial of this warp, in rank order
-__device__ __forceinline__ void add_parts(cg::cluster_group& cluster,
-                                          float* tile, float (&acc)[8][4]) {
-  const int at = threadIdx.x / 32 * kPart + threadIdx.x % 32;
-#pragma unroll
-  for (int rk = 0; rk < kRanks; ++rk) {
-    const float* s = cluster.map_shared_rank(tile, rk) + at;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += s[(4 * j + e) * 32];
-  }
-}
 
 // y (zeroed by the caller) += the MLP on h2 over hidden chunks [c0, c0 +
 // nc) of HC columns, each chunk from a zero accumulator as mlp_run<false>
@@ -592,110 +570,21 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
 
 // ---------------------------------------------------------------------
 // K1 in fp32 over a thread-block cluster (the flagship widths, 4 heads):
-// k1_cluster_kernel's partition, one frame a cluster of kRanks CTAs, rank
-// r taking head r (its q|k|v slice of wqkv, its attention, its
-// out-projection partial) and the MLP hidden columns [r mlp / 4, (r + 1)
-// mlp / 4), with every product on the tensor cores as 3xTF32
-// (tf32_mma.cuh). It replaces trunk_kernel<float, true> at these widths
-// while the batch leaves SMs idle (k1_form_for in ops/got_megakernel.py):
-// the FMA kernel runs a frame on one SM, one product after another.
-//  * Every CTA holds the frame's fp32 stream (16 rows a warp, in
-//    registers, the accumulator layout) and computes the LayerNorms
-//    itself (mmafwd::norm_rows' order). A warp's normed rows, its q, its
-//    probabilities, its o and its GELU values go straight from
-//    accumulator tiles into A fragments (tf32::frag), so no activation of
-//    a row passes through shared memory but k and v, which every warp
-//    reads.
-//  * Weights are fp32 tiles staged by 16-byte cp.async: the head's wqkv
-//    and wout slices once a block (while LN1 runs), the MLP's w1 and w2
-//    chunks of 64 hidden columns in a two-stage ring. A rank reads 320 KB
-//    of weights a block, 1.3 MB a frame, all from L2.
-//  * The embedding (64 patches x pd -> 64) is split too: rank r computes
-//    columns [16 r, 16 r + 16) of every row (patches read from device
-//    memory, its pe_w slice staged), adds pe_b and pos, and every rank
-//    gathers the four slices of its rows through distributed shared
-//    memory.
-//  * The head partials and the MLP partials go through distributed shared
-//    memory as in k1_cluster_kernel: after cluster.sync() each rank adds
-//    the kRanks partials in rank order, so every rank holds the same fp32
-//    stream: x + (o wout + bout), then x1 + (b2 + the MLP's partials).
-// fp32 has no rounding point between the products, so the function is
-// the plain version's; the sums go in another order and 3xTF32 leaves at
-// most about 2^-21 of each product (chip_smoke.py holds it to F32_TOL).
+// k1_cluster_kernel's partition with every product on the tensor cores
+// as 3xTF32 accumulated there (cl32::Fast), on the fp32 cluster block
+// body of tf32_block.cuh (namespace cl32, which K2's fp32 forms share
+// with their own sums, cl32::Exact). It
+// replaces trunk_kernel<float, true> at these widths while the batch
+// leaves SMs idle (k1_form_for in ops/got_megakernel.py): the FMA kernel
+// runs a frame on one SM, one product after another. The embedding (64
+// patches x pd -> 64) is split
+// too: rank r computes columns [16 r, 16 r + 16) of every row (patches
+// read from device memory, its pe_w slice staged), adds pe_b and pos,
+// and every rank gathers the four slices of its rows through distributed
+// shared memory. A rank reads 1.3 MB of weights a frame, all from L2.
+// chip_smoke.py holds it to F32_TOL.
 
 namespace cl32 {
-
-namespace cg = cooperative_groups;
-constexpr int D = mmafwd::D;
-using mmafwd::HC;                          // MLP hidden columns a chunk
-constexpr int kEmbCols = D / cl::kRanks;   // embedding columns a rank
-// Row strides (floats): the k tile is read as pairs (2t, 2t + 1) of row g
-// (8 mod 32); weight tiles [in][out], the v tile and the pe_w slice as
-// single values of rows 2t and 2t + 1 at column g (4 mod 32)
-constexpr int kLdK = D + 8, kLdW = D + 4, kLdPe = kEmbCols + 4;
-
-struct Layout {
-  size_t k, v, wq, wo, ring, pe, part_a, part_m, emb, cls, total;
-  __host__ __device__ Layout(int n, int pd) {
-    using mmafwd::take;
-    const size_t np = round16(n), w64 = sizeof(float) * D * kLdW;
-    size_t o = 0;
-    k = take(o, sizeof(float) * np * kLdK);  // the head's k, v of every row
-    v = take(o, sizeof(float) * np * kLdW);
-    wq = take(o, 3 * w64);                   // q|k|v slices, [in][out] each
-    wo = take(o, w64);
-    const size_t attn = o;
-    o = 0;
-    ring = take(o, 2 * 2 * w64);  // w1, w2 chunks, two stages
-    const size_t mlp = o;
-    o = 0;
-    pe = take(o, sizeof(float) * pd * kLdPe);  // the rank's pe_w columns
-    o = o > attn ? o : attn;
-    o = o > mlp ? o : mlp;
-    const size_t part = sizeof(float) * (np / 16) * cl::kPart;
-    part_a = take(o, part);  // the out-projection partials
-    part_m = take(o, part);  // the MLP partials
-    emb = take(o, sizeof(float) * np * kEmbCols);  // the rank's columns
-    cls = take(o, sizeof(float) * D);              // the CLS row
-    total = o;
-  }
-};
-
-// rows x cols fp32 from device memory (row stride gld) into shared memory
-// (row stride sld) by 16-byte cp.async; cols, both strides and both
-// addresses multiples of 4 floats. Commits nothing.
-__device__ __forceinline__ void stage(float* s, int sld, const float* g,
-                                      size_t gld, int rows, int cols) {
-  const int per_row = cols / 4;
-  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
-    const int r = i / per_row, c = i % per_row * 4;
-    cp_async16(s + (size_t)r * sld + c, g + r * gld + c);
-  }
-}
-
-// acc[j] += a (the warp's 16 rows x 64, accumulator layout) @ W[0:64,
-// 8 j ...] for j < 8, W a [64][kLdW] tile in shared memory
-__device__ __forceinline__ void rows_mma(float (&acc)[8][4],
-                                         const float (&a)[8][4],
-                                         const float* w) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    tf32::A af;
-    tf32::frag(af, a[kk]);
-    const float* w0 = w + (8 * kk + 2 * t) * kLdW + g;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      tf32::mma3(acc[j], af, w0[8 * j], w0[kLdW + 8 * j]);
-  }
-}
-
-// the partials go through distributed shared memory as k1_cluster_kernel's
-// do: fp32 tiles of 16 x 64 a warp, added in rank order
-using cl::add_parts;
-using cl::kRanks;
-using cl::put_part;
-using mmafwd::zero;
 
 // The embedding of the cluster's frame f into the warp's rows x (rows >= n
 // zero): row 0 is goal + pos[0]; row r >= 1 is (patches[r - 1] @ pe_w +
@@ -729,7 +618,7 @@ __device__ __forceinline__ void embed(cg::cluster_group& cluster,
     const float* w0 = pe + (k0 + 2 * t) * kLdPe + g;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      tf32::mma3(acc[j], af, w0[8 * j], w0[kLdPe + 8 * j]);
+      prod<Fast>(acc[j], af, w0[8 * j], w0[kLdPe + 8 * j]);
   }
   const float* goal = (const float*)a.p[1] + (size_t)f * D;
   const float* pe_b = (const float*)a.p[3];
@@ -759,212 +648,9 @@ __device__ __forceinline__ void embed(cg::cluster_group& cluster,
     }
 }
 
-// y += the MLP on h2 over hidden chunks [c0, c0 + nc) of HC columns: the
-// chunk's GELU values (the erf form) straight from z's accumulator tiles
-// into A fragments; the w1 and w2 chunks pass through a two-stage ring.
-// Every thread calls it; only `active` warps compute.
-__device__ __forceinline__ void mlp_part(unsigned char* smem, const Layout& L,
-                                         const float* w1, const float* b1,
-                                         const float* w2, int mlp, int c0,
-                                         int nc, const float (&h2)[8][4],
-                                         float (&y)[8][4], bool active) {
-  float* ring = (float*)(smem + L.ring);
-  auto fetch = [&](int i) {
-    float* s = ring + (i & 1) * 2 * D * kLdW;
-    stage(s, kLdW, w1 + (c0 + i) * HC, mlp, D, HC);
-    stage(s + D * kLdW, kLdW, w2 + (size_t)(c0 + i) * HC * D, D, HC, D);
-    cp_async_commit();
-  };
-  fetch(0);
-  for (int i = 0; i < nc; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk i landed; every warp is done with i - 1
-    if (i + 1 < nc) fetch(i + 1);
-    if (!active) continue;
-    const float* w1c = ring + (i & 1) * 2 * D * kLdW;
-    const float* b1c = b1 + (c0 + i) * HC;
-    float z[8][4];
-    zero(z);
-    rows_mma(z, h2, w1c);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        z[j][e] = gelu<float>(z[j][e] + b1c[mmafwd::col_of(j, e)]);
-    rows_mma(y, z, w1c + D * kLdW);
-  }
-}
-
-// One pre-norm block of the cluster's frame on the warp's rows: x holds
-// the fp32 stream on entry and the block's output on return (rows >= n
-// zero). With cls_only only the warp of row 0 runs q, attention, the
-// out-projection and the MLP, and only its row 0 is the block's output.
-// Every thread of every CTA of the cluster calls it.
-__device__ __forceinline__ void block(cg::cluster_group& cluster,
-                                      const Dims& m, const void* const* wp,
-                                      int n, int rank, int r0,
-                                      mmafwd::Rows& x, unsigned char* smem,
-                                      const Layout& L, bool cls_only) {
-  const float* an_s = (const float*)wp[0];
-  const float* an_b = (const float*)wp[1];
-  const float* wqkv = (const float*)wp[2];
-  const float* wout = (const float*)wp[3];
-  const float* bout = (const float*)wp[4];
-  const float* fn_s = (const float*)wp[5];
-  const float* fn_b = (const float*)wp[6];
-  const float* w1 = (const float*)wp[7];
-  const float* b1 = (const float*)wp[8];
-  const float* w2 = (const float*)wp[9];
-  const float* b2 = (const float*)wp[10];
-  const int inner = m.heads * D, np = round16(n), g = threadIdx.x % 32 / 4,
-            t = threadIdx.x % 4;
-  float* ks = (float*)(smem + L.k);
-  float* vs = (float*)(smem + L.v);
-  float* wq = (float*)(smem + L.wq);
-  const float* wo = (const float*)(smem + L.wo);
-  const bool queries = !cls_only || r0 == 0;
-  __syncthreads();  // the previous block's readers of these tiles are done
-  for (int part = 0; part < 3; ++part)
-    stage(wq + part * D * kLdW, kLdW, wqkv + part * inner + rank * D,
-          3 * inner, D, D);
-  stage((float*)(smem + L.wo), kLdW, wout + (size_t)rank * D * D, D, D, D);
-  cp_async_commit();
-  float h[8][4];
-  mmafwd::norm_rows(x, an_s, an_b, r0, n, h);
-  cp_async_wait<0>();
-  __syncthreads();  // the head's weights landed
-  // q (kept in registers), k and v of every row (to the tiles)
-  float q[8][4];
-  for (int part = queries ? 0 : 1; part < 3; ++part) {
-    float acc[8][4];
-    zero(acc);
-    rows_mma(acc, h, wq + part * D * kLdW);
-    if (part == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) q[j][e] = acc[j][e];
-      continue;
-    }
-    float* tile = part == 1 ? ks : vs;
-    const int ld = part == 1 ? kLdK : kLdW;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<float2*>(
-            tile + (size_t)mmafwd::row_of(r0, 2 * hh) * ld +
-            mmafwd::col_of(j, 0)) =
-            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
-  }
-  __syncthreads();  // the head's k and v of every row are in place
-  if (queries) {
-    // scores, 16 rows x np keys; keys >= n masked
-    float s[mmafwd::kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < mmafwd::kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      tf32::A af;
-      tf32::frag(af, q[kk]);
-#pragma unroll
-      for (int j = 0; j < mmafwd::kKeyTiles; ++j)
-        if (8 * j < np) {
-          const float2 kv = *reinterpret_cast<const float2*>(
-              ks + (size_t)(8 * j + g) * kLdK + 8 * kk + 2 * t);
-          tf32::mma3(s[j], af, kv.x, kv.y);
-        }
-    }
-    // the exact softmax in fp32: max, exp, sum, p = e / sum
-    const float ninf = __int_as_float(0xff800000);
-    float mx0 = ninf, mx1 = ninf;
-#pragma unroll
-    for (int j = 0; j < mmafwd::kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = 8 * j + 2 * t + (e & 1) < n ? s[j][e] * m.scale : ninf;
-        if (e < 2)
-          mx0 = fmaxf(mx0, s[j][e]);
-        else
-          mx1 = fmaxf(mx1, s[j][e]);
-      }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < mmafwd::kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - (e < 2 ? mx0 : mx1));
-        if (e < 2)
-          sum0 += s[j][e];
-        else
-          sum1 += s[j][e];
-      }
-    sum0 = quad_sum(sum0);
-    sum1 = quad_sum(sum1);
-#pragma unroll
-    for (int j = 0; j < mmafwd::kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / (e < 2 ? sum0 : sum1);
-    // o = p v, then the head's out-projection partial o @ wout[r 64 ...]
-    float o[8][4];
-    zero(o);
-#pragma unroll
-    for (int kk = 0; kk < mmafwd::kKeyTiles; ++kk) {
-      if (8 * kk >= np) continue;
-      tf32::A pa;
-      tf32::frag(pa, s[kk]);
-      const float* v0 = vs + (size_t)(8 * kk + 2 * t) * kLdW + g;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        tf32::mma3(o[j], pa, v0[8 * j], v0[kLdW + 8 * j]);
-    }
-    float acc[8][4];
-    zero(acc);
-    rows_mma(acc, o, wo);
-    put_part(acc, (float*)(smem + L.part_a));
-  }
-  cluster.sync();  // every rank's head partial is in place
-  float h2[8][4];
-  if (queries) {
-    float x1[8][4];
-    zero(x1);
-    add_parts(cluster, (float*)(smem + L.part_a), x1);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[j][e] = x[j][e] + (x1[j][e] + bout[mmafwd::col_of(j, e)]);
-    mmafwd::norm_rows(x, fn_s, fn_b, r0, n, h2);
-  }
-  const int quarter = m.mlp / kRanks;
-  float y[8][4];
-  zero(y);
-  mlp_part(smem, L, w1, b1, w2, m.mlp, rank * quarter / HC, quarter / HC, h2,
-           y, queries);
-  if (queries) put_part(y, (float*)(smem + L.part_m));
-  cluster.sync();  // every rank's MLP partial is in place
-  if (queries) {
-    float v[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[j][e] = b2[mmafwd::col_of(j, e)];
-    add_parts(cluster, (float*)(smem + L.part_m), v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[j][e] = mmafwd::row_of(r0, e) < n ? x[j][e] + v[j][e] : 0.f;
-  }
-}
-
 }  // namespace cl32
 
-// K1 in fp32 over a cluster of cl::kRanks CTAs a frame: the split
+// K1 in fp32 over a cluster of cl32::kRanks CTAs a frame: the split
 // embedding, the blocks, the CLS block, and the final norm of the CLS row
 // on rank 0.
 __global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
@@ -973,13 +659,13 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
   cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
   const int n = a.n, rank = (int)cluster.block_rank();
   const cl32::Layout L(n, a.pd);
-  const int f = blockIdx.x / cl::kRanks, r0 = threadIdx.x / 32 * 16;
+  const int f = blockIdx.x / cl32::kRanks, r0 = threadIdx.x / 32 * 16;
   mmafwd::Rows x;
   cl32::embed(cluster, a, f, rank, r0, x, smem_raw, L);
   const void* const* w = a.p + 5;
   for (int i = 0; i < a.depth; ++i)
-    cl32::block(cluster, a.m, w + 11 * i, n, rank, r0, x, smem_raw, L,
-                i + 1 == a.depth);
+    cl32::block<cl32::Fast>(cluster, a.m, w + 11 * i, n, rank, r0, x,
+                            smem_raw, L, i + 1 == a.depth);
   if (rank == 0 && threadIdx.x < 4) {  // row 0: lanes 0-3, registers 0, 1
     float* row = (float*)(smem_raw + L.cls);
 #pragma unroll
@@ -1006,35 +692,6 @@ size_t k1_bytes(int dtype, int n, int pd, const Dims& m, int form) {
   const size_t body = mmafwd::Layout(n).total,
                pe_w = align16(sizeof(bf16) * pd * mmafwd::kLd);
   return body > pe_w ? body : pe_w;
-}
-
-// A cluster form of K1 (k1_cluster_kernel, k1_cluster_fp32_kernel) over
-// batch clusters of 4 CTAs of round16(n) / 16 warps, `bytes` of dynamic
-// shared memory each, launched with cudaLaunchKernelEx and the cluster
-// dimension attribute. Returns a cudaError_t (a cluster the device cannot
-// schedule fails to launch).
-template <typename Kernel>
-int launch_cluster(Kernel kernel, const Args& a, int batch, size_t bytes,
-                   cudaStream_t s) {
-  size_t limit = 0;
-  cudaError_t err = (cudaError_t)smem_opt_in(kernel, &limit);
-  if (err != cudaSuccess) return err;
-  if (bytes > limit) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl::kRanks * batch, 1, 1);
-  cfg.blockDim = dim3(32 * (round16(a.n) / 16), 1, 1);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl::kRanks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a, batch);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1110,13 +767,15 @@ int got_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
         mlp % (cl::kRanks * cl32::HC) != 0 ||
         bytes > k1_bytes(dtype, a.n, 0, a.m, form))
       return cudaErrorInvalidValue;
-    return launch_cluster(k1_cluster_fp32_kernel, a, batch, bytes, s);
+    return cl32::launch(k1_cluster_fp32_kernel, a.n, batch, bytes, s, a,
+                        batch);
   }
   if (dtype != 1 || pd % 16 != 0 ||
       (form == 2 && (heads != cl::kRanks ||
                      mlp % (cl::kRanks * mmafwd::HC) != 0)))
     return cudaErrorInvalidValue;
-  if (form == 2) return launch_cluster(k1_cluster_kernel, a, batch, bytes, s);
+  if (form == 2)
+    return cl32::launch(k1_cluster_kernel, a.n, batch, bytes, s, a, batch);
   return mmafwd::launch_fwd(k1_mma_kernel, a.n, batch, bytes, s, a, batch);
 }
 

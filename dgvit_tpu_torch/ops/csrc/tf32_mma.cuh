@@ -1,7 +1,7 @@
 // fp32 products on the H100's tensor cores as three TF32 products
 // (3xTF32), for the fp32 kernels that run there: K8's fp32 form
-// (attention.cu: attention_tf32_kernel) and K1's fp32 cluster form
-// (got_megakernel.cu: k1_cluster_fp32_kernel).
+// (attention.cu: attention_tf32_kernel) and the fp32 cluster block body
+// (tf32_block.cuh) of K1's, K2f's and K2b's fp32 forms.
 //
 // Each fp32 operand x is split as hi = tf32(x) (rounded to nearest) and
 // lo = tf32(x - hi); x - hi is exact in fp32, so x - hi - lo is at most
@@ -97,6 +97,73 @@ __device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
   mma(small, a.lo, h0, h1);
   mma(small, a.hi, l0, l1);
   mma(big, a.hi, h0, h1);
+}
+
+// c += a b as 3xTF32, the three products summed from zero and then added
+// to c in fp32 (rounded to nearest). The tensor cores truncate as they
+// accumulate: a chain of steps into one accumulator loses up to an fp32
+// ulp of the running sum at each step, always toward zero, so the loss
+// grows with the chain's length; summed from zero, a step loses at most
+// an ulp of its own sum, and the running sum rounds as an fp32 FMA loop's
+// does. K2's forms of the fp32 cluster block body (tf32_block.cuh:
+// cl32::Exact) sum every product so.
+__device__ __forceinline__ void mma_add(float (&c)[4], const A& a, float b0,
+                                        float b1) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(s, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += s[e];
+}
+
+// x split exactly into three TF32 parts, x = hi + mid + lo: x - hi has at
+// most 13 significant bits, mid keeps 11 of them and lo (at most 2) is
+// exact in TF32.
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = round_tf32(x);
+  const float r = x - __uint_as_float(hi);
+  mid = round_tf32(r);
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// An A fragment split exactly into three TF32 parts
+struct A3 {
+  uint32_t hi[4], mid[4], lo[4];
+};
+
+__device__ __forceinline__ void frag(A3& a, float g0, float g8, float g0n,
+                                     float g8n) {
+  split3(g0, a.hi[0], a.mid[0], a.lo[0]);
+  split3(g8, a.hi[1], a.mid[1], a.lo[1]);
+  split3(g0n, a.hi[2], a.mid[2], a.lo[2]);
+  split3(g8n, a.hi[3], a.mid[3], a.lo[3]);
+}
+
+__device__ __forceinline__ void frag(A3& a, const float (&c)[4]) {
+  frag(a, c[0], c[2], c[1], c[3]);
+}
+
+// c += a b from the exact split, the six TF32 products down to 2^-24 of
+// a b (mid mid, hi lo, lo hi, hi mid, mid hi, hi hi, the small first)
+// summed from zero and added to c in fp32: each product as exact as fp32's
+// own, where 3xTF32 leaves up to about 2^-21 of it. The attention's
+// products take it: a trained model's attention can be one-hot (score
+// spreads of thousands), and there the softmax and its backward magnify
+// every error of the scores and of dp.
+__device__ __forceinline__ void mma_add(float (&c)[4], const A3& a, float b0,
+                                        float b1) {
+  uint32_t h0, m0, l0, h1, m1, l1;
+  split3(b0, h0, m0, l0);
+  split3(b1, h1, m1, l1);
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(s, a.mid, m0, m1);
+  mma(s, a.hi, l0, l1);
+  mma(s, a.lo, h0, h1);
+  mma(s, a.hi, m0, m1);
+  mma(s, a.mid, h0, h1);
+  mma(s, a.hi, h0, h1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += s[e];
 }
 
 }  // namespace tf32

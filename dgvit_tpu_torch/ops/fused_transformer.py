@@ -38,7 +38,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from dgvit_tpu_torch.ops.smem import tensor_core_widths
+from dgvit_tpu_torch.ops.smem import tensor_core_widths, tf32_widths
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
@@ -353,6 +353,36 @@ def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
             and (dy is None or dy.data_ptr() % 16 == 0))
 
 
+def fp32_cluster_fwd(x: torch.Tensor, w: Sequence[torch.Tensor],
+                     dim_head: int, dy: torch.Tensor = None) -> bool:
+    """Whether a full block's forward (K2f) and, with dy, its backward
+    (K2b) run in fp32 over a cluster of 4 CTAs a frame on the tensor-core
+    fp32 block body (csrc/tf32_block.cuh; `block_fwd_cluster_fp32_kernel`,
+    `block_bwd_cluster_fp32_kernel`): fp32, d = dim_head = 64, at most 80
+    tokens, mlp a multiple of 4 x 64 (`smem.tf32_widths`), 4 heads (one a
+    CTA), and x, dy and the matrix weights 16-byte aligned. Every other
+    fp32 call takes the FMA body, which takes any width."""
+    _, n, d = x.shape
+    mlp = w[7].shape[-1]
+    return (tf32_widths(n, d, dim_head, mlp, x.dtype)
+            and w[2].shape[-1] == 3 * 4 * dim_head and mlp % 256 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w[2], w[3], w[7],
+                                                      w[9]))
+            and (dy is None or dy.data_ptr() % 16 == 0))
+
+
+def block_form(x: torch.Tensor, w: Sequence[torch.Tensor], dim_head: int,
+               cls: bool, dy: torch.Tensor = None) -> int:
+    """The body a block's launch takes (the `form` of block_grad.cu's
+    block_forward_launch and block_backward_launch): 1 the bf16
+    tensor-core body (`tensor_core_fwd`, `tensor_core_bwd`), 2 a full
+    block's fp32 cluster form (`fp32_cluster_fwd`), 0 the FMA body."""
+    if (tensor_core_fwd(x, w, dim_head) if dy is None
+            else tensor_core_bwd(x, w, dim_head, dy)):
+        return 1
+    return 2 if not cls and fp32_cluster_fwd(x, w, dim_head, dy) else 0
+
+
 def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
     """Launch `fn` on `tensors`' pointers (None: a null pointer)."""
     lib = _block_lib()
@@ -370,24 +400,25 @@ def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
 
 
 def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool,
-                     saved=None):
-    """K2f (cls False) or K3f (cls True) on CUDA tensors, on the
-    tensor-core body where `tensor_core_fwd` says so; K3f writes the CLS
-    rows' records into `saved` unless None."""
+                     saved=None, form=None):
+    """K2f (cls False) or K3f (cls True) on CUDA tensors, on the body
+    `block_form` picks (or `form`, forced); K3f writes the CLS rows'
+    records into `saved` unless None."""
     b, n, d = x.shape
     out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
                       device=x.device)
-    mma = tensor_core_fwd(x, w, dim_head)
+    if form is None:
+        form = block_form(x, w, dim_head, cls)
     _call(_block_lib().block_forward_launch, x.dtype, cls,
-          [x, *w, out, saved], x, heads, dim_head, w[7].shape[-1], int(mma))
+          [x, *w, out, saved], x, heads, dim_head, w[7].shape[-1], form)
     return out
 
 
 def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool,
-                     saved=None):
+                     saved=None, form=None):
     """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads);
-    the per-frame pass on the tensor-core body where `tensor_core_bwd`
-    says so. K3b reads the CLS rows' records K3f kept in `saved` (None
+    the per-frame pass on the body `block_form` picks (or `form`,
+    forced). K3b reads the CLS rows' records K3f kept in `saved` (None
     only in chip_smoke.py's measurement of fault k)."""
     b, n, d = x.shape
     mlp = w[7].shape[-1]
@@ -396,10 +427,10 @@ def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool,
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]
-    mma = tensor_core_bwd(x, w, dim_head, dy)
+    if form is None:
+        form = block_form(x, w, dim_head, cls, dy)
     _call(_block_lib().block_backward_launch, x.dtype, cls,
-          [x, dy, *w, dx, *grads, ws, saved], x, heads, dim_head, mlp,
-          int(mma))
+          [x, dy, *w, dx, *grads, ws, saved], x, heads, dim_head, mlp, form)
     return dx, tuple(grads)
 
 
@@ -468,11 +499,14 @@ def block_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
     """K2f: one full pre-norm block, (B, n, d) -> (B, n, d) in the compute
     dtype (fp32 or bf16), every row a valid token. CUDA tensors go to the
     kernel (and raise if it cannot run); CPU tensors to `block_fwd_plain`.
-    `block_fwd_fused.launches` counts kernel launches."""
+    `block_fwd_fused.launches` counts kernel launches, and
+    `block_fwd_fused.cluster_launches` those of the fp32 cluster form."""
     check_block_args(x, w, heads, dim_head)
     if x.device.type == "cuda":
-        out = launch_block_fwd(x, w, heads, dim_head, cls=False)
+        form = block_form(x, w, dim_head, False)
+        out = launch_block_fwd(x, w, heads, dim_head, False, form=form)
         block_fwd_fused.launches += 1
+        block_fwd_fused.cluster_launches += form == 2
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
@@ -484,19 +518,23 @@ def block_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
     """K2b: the block's backward from its input x and the grad dy of its
     output, both (B, n, d): (dx, the 11 weight grads), all in the compute
     dtype. CUDA tensors go to the kernel; CPU tensors to
-    `block_bwd_plain`. `block_bwd_fused.launches` counts kernel launches."""
+    `block_bwd_plain`. `block_bwd_fused.launches` counts kernel launches,
+    and `block_bwd_fused.cluster_launches` those of the fp32 cluster
+    form."""
     check_block_args(x, w, heads, dim_head, dy=dy)
     if x.device.type == "cuda":
-        out = launch_block_bwd(x, dy, w, heads, dim_head, cls=False)
+        form = block_form(x, w, dim_head, False, dy)
+        out = launch_block_bwd(x, dy, w, heads, dim_head, False, form=form)
         block_bwd_fused.launches += 1
+        block_bwd_fused.cluster_launches += form == 2
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
     return block_bwd_plain(x, dy, w, heads, dim_head)
 
 
-block_fwd_fused.launches = 0
-block_bwd_fused.launches = 0
+block_fwd_fused.launches = block_fwd_fused.cluster_launches = 0
+block_bwd_fused.launches = block_bwd_fused.cluster_launches = 0
 
 
 class _FusedBlock(torch.autograd.Function):

@@ -16,7 +16,9 @@ layouts the launches size their memory by:
   * `mmafwd::Layout` (csrc/block_mma_fwd.cuh): the tensor-core forward
     body of K2f, K3f, K4 and K1 (K1 also stages pe_w over it first);
   * `cl::Layout` (csrc/got_megakernel.cu): a CTA of K1's cluster form;
-  * `cl32::Layout` (csrc/got_megakernel.cu): a CTA of K1's fp32 cluster
+  * `cl32::Layout` (csrc/tf32_block.cuh): a CTA of K1's fp32 cluster
+    form, and (with no patches) of K2f's;
+  * `bw32::Layout` (csrc/block_grad.cu): a CTA of K2b's fp32 cluster
     form;
   * K6's launch, the largest of the bodies it runs;
   * `SectionSmem<T>` (csrc/attention.cu): K7's FMA kernel, by query
@@ -158,11 +160,12 @@ _LD_K32, _LD_W32, _LD_PE32 = MMA_WIDTH + 8, MMA_WIDTH + 4, MMA_WIDTH // 4 + 4
 
 
 def k1_cluster_fp32(n: int, pd: int) -> int:
-    """`cl32::Layout(n, pd)` (csrc/got_megakernel.cu): a CTA of K1's fp32
-    cluster form, one head's fp32 k and v (rows padded to 16) and its
-    q|k|v and wout slices, over them the MLP's two-stage ring and the
-    rank's 16 columns of pe_w; then the two fp32 partial tiles (16 x 64 a
-    warp), the rank's embedding columns and the CLS row."""
+    """`cl32::Layout(n, pd)` (csrc/tf32_block.cuh): a CTA of K1's fp32
+    cluster form (pd = 0: of K2f's), one head's fp32 k and v (rows padded
+    to 16) and its q|k|v and wout slices, over them the MLP's two-stage
+    ring and the rank's 16 columns of pe_w; then the two fp32 partial
+    tiles (16 x 64 a warp), the rank's embedding columns and the CLS
+    row."""
     np_, w64 = _a16(n), 4 * MMA_WIDTH * _LD_W32
     attn = _take(0, (4 * np_ * _LD_K32, 4 * np_ * _LD_W32, 3 * w64, w64))
     o = max(attn, _take(0, (2 * 2 * w64,)), _take(0, (4 * pd * _LD_PE32,)))
@@ -170,10 +173,25 @@ def k1_cluster_fp32(n: int, pd: int) -> int:
     return _take(o, (part, part, 4 * np_ * (MMA_WIDTH // 4), 4 * MMA_WIDTH))
 
 
+def bwd_cluster_fp32(n: int) -> int:
+    """`bw32::Layout(n)` (csrc/block_grad.cu): a CTA of K2b's fp32 cluster
+    form, the head's fp32 k, q and v tiles, the probabilities' tile (row
+    stride rows + 4; dh2's partials over it), one region of four 64 x 68
+    weight tiles (the head's weights, the MLP's ring, then wout's slice
+    and the do tile, then wqkv's), the partial tile, each warp's x and x1
+    tiles and the column sums by warp."""
+    np_, w64 = _a16(n), 4 * MMA_WIDTH * _LD_W32
+    part = 4 * (np_ // 16) * 16 * MMA_WIDTH
+    return _take(0, (4 * np_ * _LD_K32, 4 * np_ * _LD_W32,
+                     4 * np_ * _LD_W32, max(4 * np_ * (np_ + 4), part),
+                     4 * w64, part, part, part, 4 * (np_ // 16) * MMA_WIDTH))
+
+
 def tf32_widths(n: int, d: int, dim_head: int, mlp: int,
                 dtype: torch.dtype) -> bool:
-    """The widths K1's fp32 cluster form takes: fp32, d = dim_head = 64,
-    at most 80 rows, mlp a multiple of 64 (heads and alignment aside)."""
+    """The widths the fp32 cluster forms take (K1's, K2f's and K2b's):
+    fp32, d = dim_head = 64, at most 80 rows, mlp a multiple of 64 (heads,
+    mlp a multiple of 256 and alignment aside)."""
     return (dtype == torch.float32 and d == dim_head == MMA_WIDTH
             and n <= MMA_ROWS and mlp % MMA_CHUNK == 0)
 
@@ -221,19 +239,23 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
     these shapes: where the wrapper may pick either body (the tensor-core
     widths, alignment decided at the call), the larger of the two."""
     mma = tensor_core_widths(n, d, dim_head, mlp, dtype)
+    tf32 = tf32_widths(n, d, dim_head, mlp, dtype)
     fma = fwd_fma(n, d, heads, dim_head, mlp, dtype)
     if kernel == "K1":
         return max(fma, fwd_mma(n) if mma else 0,
                    k1_cluster(n, 0) if mma else 0,
-                   k1_cluster_fp32(n, 0) if tf32_widths(n, d, dim_head, mlp,
-                                                        dtype) else 0)
-    if kernel in ("K4", "K2f", "K3f"):
+                   k1_cluster_fp32(n, 0) if tf32 else 0)
+    if kernel == "K2f":
+        return max(fma, fwd_mma(n) if mma else 0,
+                   k1_cluster_fp32(n, 0) if tf32 else 0)
+    if kernel in ("K4", "K3f"):
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":
         return max(bwd_fma(n, d, mlp),
                    bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
     if kernel == "K2b":
-        return max(bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0)
+        return max(bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0,
+                   bwd_cluster_fp32(n) if tf32 else 0)
     if kernel == "K6":
         return trunk_bwd(n, d, heads, dim_head, mlp, mma)
     if kernel == "K7":

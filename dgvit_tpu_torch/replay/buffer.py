@@ -2,8 +2,10 @@
 
 Host code, a copy of `dgvit_tpu/replay/buffer.py` over the port's own copy
 of the C++ core. The core is compiled with the host C++ compiler at first
-use into `build/replay/` at the root of the checkout (git-ignored), named
-by a hash of the source; no library is checked in.
+use into `replay/` under the build root (`core/build_dir.py`:
+`$DGVIT_TORCH_BUILD_DIR`, else the checkout's git-ignored `build/`, else
+the user's cache), named by a hash of the source; no library is checked
+in.
 
 API mirrors the cpprb usage in the reference (DRL.py:80-100,375,438-477,
 505-510): schema dict of named fields, `add(**fields)`, `sample(n) -> dict`,
@@ -29,8 +31,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from dgvit_tpu_torch.core.build_dir import build_root
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "replay.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "replay"
+_BUILD_DIR = build_root() / "replay"
 _CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 

@@ -14,7 +14,8 @@ setup(
     packages=find_packages(include=["dgvit_tpu", "dgvit_tpu.*",
                                     "dgvit_tpu_torch", "dgvit_tpu_torch.*"]),
     package_data={"dgvit_tpu.replay": ["csrc/*.cpp", "csrc/Makefile"],
-                  "dgvit_tpu_torch.ops": ["csrc/*.cu"]},
+                  "dgvit_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+                  "dgvit_tpu_torch.replay": ["csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

@@ -1,6 +1,7 @@
 """The port stands alone: no module of dgvit_tpu_torch (nor the card
-scripts chip_smoke.py, chip_compare.py, chip_draws.py and chip_numerics.py)
-imports jax, flax or the JAX package, at import time or in its source."""
+scripts chip_smoke.py, chip_compare.py, chip_draws.py, chip_numerics.py and
+chip_k2b_stages.py) imports jax, flax or the JAX package, at import time
+or in its source."""
 
 import ast
 import subprocess
@@ -96,7 +97,8 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
-                          ROOT / "chip_draws.py", ROOT / "chip_numerics.py"],
+                          ROOT / "chip_draws.py", ROOT / "chip_numerics.py",
+                          ROOT / "chip_k2b_stages.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_import(path):
     bad = [n for n in _imported_names(path)

@@ -27,7 +27,9 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # bytes at the flagship widths (read from the libraries on an H100 for the
 # forward kernels, and from the formulas of block_common.cuh, block_grad.cu
 # and attention.cu). K6 runs no forward (it reads K4's streams), so it
-# sizes by its largest backward body, as K2b and K3b do.
+# sizes by its largest backward body, as K2b and K3b do. In fp32 up to 80
+# rows K2b may take its cluster form (a CTA of bw32::Layout, 225,792
+# bytes), K2f its own (cl32::Layout, under the FMA body's 168,752).
 BYTES = {
     (BF16, 65): {"K1": 142080, "K4": 142080, "K2b": 215056, "K3b": 136240,
                  "K6": 215056, "K7": 115712},
@@ -37,7 +39,7 @@ BYTES = {
                   "K6": 271440, "K7": 38720},
     (BF16, 256): {"K1": 402432, "K4": 402432, "K2b": 798720, "K3b": 798720,
                   "K6": 798720, "K7": 76288},
-    (FP32, 65): {"K1": 168752, "K4": 168752, "K2b": 136240, "K3b": 136240,
+    (FP32, 65): {"K1": 168752, "K4": 168752, "K2b": 225792, "K3b": 136240,
                  "K6": 136240, "K7": 36672},
     (FP32, 90): {"K1": 233648, "K4": 233648, "K2b": 188640, "K3b": 188640,
                  "K6": 188640, "K7": 50464},
@@ -300,7 +302,8 @@ def test_k3f_takes_the_tensor_core_body(cls, n, dtype, shift, mma,
     """K3f launches the tensor-core forward body (cls_fwd_mma_kernel)
     exactly where K2f does (block_fwd_mma_kernel): bf16, d = dim_head =
     64, at most 80 tokens, x and the matrix weights aligned; the launch is
-    recorded here, not made."""
+    recorded here, not made. In fp32 at those widths K2f launches its
+    cluster form (form 2) and K3f its FMA body."""
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
     launched = []
@@ -320,4 +323,5 @@ def test_k3f_takes_the_tensor_core_body(cls, n, dtype, shift, mma,
         w[7] = torch.zeros(64 * 2048 + 1, dtype=dtype)[1:].view(64, 2048)
     out = ft.launch_block_fwd(x, w, 4, 64, cls=cls)
     assert tuple(out.shape) == ((2, 64) if cls else (2, n, 64))
-    assert launched == [(cls, int(mma))]
+    cluster = not cls and dtype == FP32 and shift is None
+    assert launched == [(cls, 2 if cluster else int(mma))]
