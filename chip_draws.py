@@ -86,7 +86,6 @@ def check(ok, what):
 
 cs.check = check
 cs.K1_ALL_FORMS = True
-cs.F32_SPREAD = True
 cfg = Config()
 flat = load_params_npz(str(cs.ACTOR))
 sd = params_from_jax(flat)
@@ -168,18 +167,33 @@ def rows(result):
     verdict = lambda ok: "ok" if ok else "FAIL"
     for r in result["readings"]:
         if r["check"] == "fp32 train":
-            yield (f"{tag} fp32 {r['kernel']} B={r['batch']}: kernel "
-                   f"{r['got']:.3e} against float64 sums (limit max(1e-5, "
-                   f"{r['k']:g} x plain {r['plain']:.3e}) = {r['limit']:.3e};"
-                   f" old vs plain {r['old']:.3e}) "
-                   f"{'ok' if r['got'] <= r['limit'] else 'FAIL'}"
-                   + (f"; the FMA body {r['fma']:.3e}, the plain version "
-                      f"on the CPU {r['cpu_plain']:.3e} (read only; worst "
-                      f"tensors {r['worst']})"
-                      if r.get("fma") is not None else "")
-                   + "".join(f"; {n} {v:.3e} "
-                             + ("fails" if v > r["limit"] else "PASSES")
-                             for n, v in r.get("wrongs", {}).items()))
+            at = "+".join(map(str, r.get("batches", [r.get("batch")])))
+            maxes = lambda n: (" (max " + ", ".join(
+                f"{m:.3e}" for m in r["max"][n]) + ")" if "max" in r else "")
+            stat = ("mean|err|/L pooled" if r["stat"] == "pooled"
+                    else "largest max|err|/L")
+            yield (f"{tag} fp32 {r['kernel']} B={at}: {stat} "
+                   f"against {r['against']} (limit max("
+                   f"{r['floor']:.3e}, {r['k']:g} x plain "
+                   f"{r['readings']['plain']:.3e}) = {r['limit']:.3e}): "
+                   + ", ".join(
+                       f"{n} {v:.3e}{maxes(n)} "
+                       + (("fails" if not r["verdict"][n] else "PASSES")
+                          if n in r.get("wrong", ()) else
+                          ("ok" if r["verdict"].get(n, True) else "FAIL"))
+                       for n, v in r["readings"].items()))
+        elif r["check"] == "K2b bf16":
+            yield (f"{tag} K2b bf16: dx frames within 2^-18 of float64 sums "
+                   f"over {r['frames']} frames (at least {r['share']:g}) / "
+                   f"every tensor pooled (limit {r['limit']:.3e}): "
+                   + ", ".join(
+                       f"{n} {v:.4f} / {r['pooled'][n]:.3e} " + (
+                           ("ok" if r["verdict"][n] else "FAIL")
+                           if n in ("K2b", "plain") else
+                           ("fails" if not r["verdict"][n] else "PASSES"))
+                       for n, v in r["within"].items())
+                   + f"; old vs plain pooled {r['old']['mean']:.3e}, every "
+                   f"max within 2^-6 L {r['old']['max_ok']}")
         elif r["check"] == "BC gradient pass fp32":
             yield (f"{tag} BC gradient pass fp32, {r['case']}: kernels "
                    f"{r['got']:.3e} against float64 sums (limit max(1e-5, "

@@ -49,10 +49,12 @@ per source, all at once), then
      for K4 an erf GELU and the residual kept in fp32 across blocks, for
      K2f the probabilities left in fp32 before P.V, for K3f an erf GELU,
      the probabilities in fp32 and k and v in fp32, whose float64-sum
-     version must pass; fp32 K2b, K3b and K4 and K4's pooled bf16 latent
-     held to the float64-sum version (the rule at EXACT_K), fp32 K2b's
-     tanh GELU and mis-scaled block failing it (fp32 K2f and K2b at the
-     flagship widths take their cluster forms);
+     version must pass; fp32 K3b and K4, K4's pooled bf16 latent and
+     bf16 K2b (gap q: by frame and pooled) held to the float64-sum
+     version, fp32 K2b (gap r: pooled over its tensors and batches) to
+     the float64 evaluation (the rules at EXACT_K), fp32 K2b's and K4's
+     tanh GELU and mis-scaled scores failing them (fp32 K2f, K2b and K4
+     at the flagship widths take their cluster forms);
  5b. the bf16 forward and backward off the flagship widths (81 tokens,
      2 x 32 heads, an unaligned x) take the FMA bodies, not the
      tensor-core ones, and K2f, K3f, K2b and K3b there meet the bf16
@@ -155,8 +157,10 @@ per source, all at once), then
  14. the trunk-gradient update, the fifth main path: with
      DGVIT_TRUNK_GRAD=1 a bf16 SACAgent takes 5 learn steps at B=256, each
      launching exactly K4 x5 and K6 x2 and no per-block kernel; one fp32
-     update on that route matches the plain versions on the card and the
-     default-route update from the same state; a profiled update's CUDA
+     update on that route (its 3 no-grad K4 on the fp32 cluster form, the
+     2 that record K6's streams on the FMA body) matches the plain
+     versions on the card and the default-route update from the same
+     state; a profiled update's CUDA
      launches are those designed; ms per update beside the default
      route's;
  15. K7 and K8 against their plain versions (fused_attention_section at
@@ -316,11 +320,13 @@ per source, all at once), then
      versions under phase 5's fp32 rule (EXACT_K), a tanh GELU failing
      it; 5 updates in fp32 and 5 with compute_dtype bfloat16, each
      launching K4, K2f x3, K2b x3, K3f and K3b; the CNN critic's Q with
-     cuDNN's TF32 on against off; K4 in fp32 at B=32 timed alone beside
-     its plain version and bound; K1's form for its actor at B=1 (the fp32
-     cluster); train_rl.main --reference-config on the
-     card and train() with the bf16 config (exact launches an env step
-     and an update), then run_eval; (b) the SimpleViT family at its
+     cuDNN's TF32 on against off; K4 in fp32 on the actor's widths at
+     B=32 (its route: the fp32 cluster form), 128 and 256, the cluster
+     form and the FMA body forced, each held to its plain version and
+     timed beside it and the bound; K1's form for its actor at B=1 (the
+     fp32 cluster); train_rl.main --reference-config on the card (every
+     fp32 K4 launch the cluster form) and train() with the bf16 config
+     (exact launches an env step and an update), then run_eval; (b) the SimpleViT family at its
      published widths: K8 at (32, 8, 64, 64) and (32, 8, 256, 64) against
      its plain version, fp32 and bf16, forward and backward, a mis-scaled
      version failing (in fp32 the float64-sum version passing), timed
@@ -494,18 +500,53 @@ ACTION_FP32 = 1e-4
 # version. A kernel that fails (c) where (a) holds is at fault and is
 # repaired; a check that meets (a) keeps its limit. Four checks failed
 # (a) on an H100 80GB HBM3 at 700 W and were restated first, four more
-# after them (faults 3f-3i of ROADMAP.md); the readings below are
-# chip_draws.py's on seeds 7-11 in both orders and this script's own:
-#   * fp32 K2b, K3b and K4 (phase 5): s = the largest max|err|/L over the
-#     tensors, old limit TRAIN_F32_MAX; the plain version read s up to
-#     1.2e-4 from float64 sums. k = 2: the kernels read at most 0.75 of
-#     their limit (K2b). fp32 has no rounding point to move; since K2b's
-#     fp32 cluster form (3xTF32), fp32 K2b has two wrong versions, a tanh
-#     GELU and scores scaled 1 / dim_head, which must fail (as phase 22a's
-#     BC pass holds them). On ill-conditioned frames the float64-sum
-#     version is itself no exact answer (gap r of ROADMAP.md):
-#     chip_k2b_stages.py reads every version against the plain version
-#     evaluated in float64 throughout (`float64_eval`).
+# after them (faults 3f-3i of ROADMAP.md), two more since (gaps q and r);
+# the readings below are chip_draws.py's on seeds 7-11 in both orders and
+# this script's own:
+#   * fp32 K3b (phase 5): s = the largest max|err|/L over the tensors,
+#     old limit TRAIN_F32_MAX; k = 2.
+#   * fp32 K2b (phase 5, gap r): s = the largest max|err|/L over the
+#     tensors was decided by ill-conditioned frames (LN1's bias gradient,
+#     sums whose terms cancel), where correct fp32 evaluations spread 12x
+#     about the exact answer and the float64-sum version is no exact
+#     answer itself. Now s = the mean|err|/L pooled over dx, the 11
+#     gradients and the phase's two fp32 batches (each tensor over its own
+#     largest |value|), against the plain version evaluated in float64
+#     throughout (`float64_eval`), under max(F32_POOLED = 2^-22, k x the
+#     plain version's), k = 2 (`f32_rule`). The kernel (the fp32 cluster
+#     form), the FMA body, the plain and the float64-sum versions must
+#     pass, a tanh GELU and scores scaled 1 / dim_head fail: on seeds 7-11
+#     in both orders the correct versions read at most 0.646 of the limit
+#     (the kernel; the FMA body 0.618, the float64-sum version 0.344), the
+#     tanh GELU at least 4.49 x, the mis-scaled block 1825 x. Per batch
+#     (B=1 alone) the mis-scaled block read as little as 3.97e-7 on a
+#     frame whose first block attends one-hot, and the correct versions
+#     up to 7.0e-7 at B=8: no per-batch limit separated them.
+#   * fp32 K4 (phase 5): the same pooled statistic over its latent and its
+#     two batches, against its float64-sum version, under the same limit,
+#     and each batch's max|err|/L under max(TRAIN_F32_MAX, k x the plain
+#     version's) as before. Since its fp32 cluster form it has the two
+#     wrong versions of K2b (`F32_TRUNK_WRONGS`). On seeds 7-11 the
+#     kernel read at most 0.327 of the pooled limit (the FMA body 0.272,
+#     the plain version 0.334) and 0.432 of the max limit; the tanh GELU
+#     at least 1.99 x the pooled limit (0.53-0.91 of the max limit: only
+#     the pooled mean sees it), the mis-scaled trunk 1460 x. Summed as
+#     K1's cluster form sums (3xTF32 accumulated on the tensor cores,
+#     which round toward zero) the kernel read 1.6e-7 to 4.4e-7 there,
+#     past the tanh GELU on one draw and past TRAIN_F32_MAX on another:
+#     K4 sums as K2f (cl32::Exact).
+#   * bf16 K2b (phase 5, gap q): each tensor's max within 2^-6 L of the
+#     plain version and the pooled mean|err|/L within TRAIN_BF16_MEAN
+#     failed two draws on which the plain version itself flipped bf16
+#     roundings (seed 8 shared: the plain version read 1.86e-5 pooled from
+#     float64 sums, the kernel 1.68e-6). Now phase 13's rule against the
+#     float64-sum version (`k2b_bf16_rule`): at least CHAIN_WITHIN of the
+#     dx frames within 2^-18 on their own scale, and the mean|err|/L
+#     pooled over dx, the 11 gradients and the bf16 batches under
+#     max(2^-18, k x the plain version's), k = 2 (EXACT_K["K2b"]). The
+#     kernel held 0.9862-0.9965 of its 289 frames and read at most 0.641
+#     of the pooled limit, the plain version 0.9792-0.9931 and 0.500,
+#     autograd of the plain forward 0.0035-0.0242 and at least 1.153 x.
 #   * K4's pooled bf16 latent (phase 5): s = the pooled mean|err|/L, old
 #     limit TRAIN_BF16_MEAN; the plain version read 3.9e-6 to 8.9e-6. k =
 #     1.65: K4 read at most 0.91 of its limit, the erf GELU at least 1.09
@@ -557,7 +598,8 @@ ACTION_FP32 = 1e-4
 #     to 4.5e-3 from float64 sums and K6 up to 3.0e-3 from the plain
 #     version. k = 2 (EXACT_K["fp32"]): K6 and the chain read at most 0.43
 #     of their limit. fp32 has no rounding point to move, so, as for fp32
-#     K3b and K4, no wrong version exists. The chain differentiates the
+#     K3b, no wrong version exists (fp32 K2b's and K4's are a wrong GELU
+#     form and a wrong scale, above). The chain differentiates the
 #     forward of the per-block kernels; while K2f's fp32 form was the FMA
 #     body, those streams were K4's bit for bit. Since its cluster form
 #     (3xTF32 and the exact TF32 split) they are not, and a frame of the
@@ -616,7 +658,7 @@ ACTION_FP32 = 1e-4
 # new one; READINGS keeps every restated reading of a run for
 # chip_draws.py.
 EXACT_K = {"fp32": 2.0, "K4": 1.65, "K1": 2.0, "long": 2.0,
-           "composed": 2.0}
+           "composed": 2.0, "K2b": 2.0}
 CHAIN_WITHIN = 0.5
 READINGS: list = []
 
@@ -1048,13 +1090,13 @@ def trunk_f32_emb(patches, goal, pe, pos, blocks, fn, heads, dim_head,
                                    final_norm)
 
 
-def trunk_mis_scaled(*args):
-    """A wrong fp32 trunk: the plain version with every block's scores
-    scaled by 1 / dim_head where the model asks 1 / sqrt(dim_head)
-    (phase 23b's wrong K8, in the trunk)."""
+@contextlib.contextmanager
+def mis_scaled_scores():
+    """The plain versions with every block's scores scaled by 1 / dim_head
+    where the model asks 1 / sqrt(dim_head) (phase 23b's wrong K8, in the
+    blocks)."""
     from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
-    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
 
     attend = ft._attention
 
@@ -1062,7 +1104,33 @@ def trunk_mis_scaled(*args):
         return attend(q * dim_head ** -0.5, k, v, heads, dim_head, cdt)
     with swapped(ft, "_attention", mis_scaled), \
             swapped(cb, "_attention", mis_scaled):
+        yield
+
+
+def trunk_mis_scaled(*args):
+    """A wrong fp32 trunk: K1's plain version with mis-scaled scores."""
+    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
+
+    with mis_scaled_scores():
         return got_forward_plain(*args)
+
+
+def k4_mis_scaled(*args):
+    """A wrong fp32 K4: its plain version with mis-scaled scores (K1's
+    wrong trunk, from the blocks on)."""
+    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+
+    with mis_scaled_scores():
+        return blocks_forward_plain(*args)
+
+
+def k4_tanh_gelu(*args):
+    """A wrong fp32 K4: its plain version with the tanh GELU where the TPU
+    kernel takes the erf form."""
+    from dgvit_tpu_torch.ops.got_megakernel import blocks_forward_plain
+
+    with other_gelu():
+        return blocks_forward_plain(*args)
 
 
 def block_mis_scaled_bwd(x, dy, w, heads, dim_head):
@@ -1162,10 +1230,13 @@ def k1_hidden(args):
     return read, max(K1_HIDDEN_MEAN, EXACT_K["fp32"] * read["plain"][0])
 
 
-# fp32 K2b's wrong versions (phase 5): fp32 has no rounding point, so the
-# wrong versions are a wrong form (the GELU) and a wrong scale
+# fp32 K2b's and K4's wrong versions (phase 5): fp32 has no rounding
+# point, so the wrong versions are a wrong form (the GELU) and a wrong
+# scale
 F32_BLOCK_WRONGS = {"tanh GELU": block_tanh_gelu_bwd,
                     "scores scaled 1 / dim_head": block_mis_scaled_bwd}
+F32_TRUNK_WRONGS = {"tanh GELU": k4_tanh_gelu,
+                    "scores scaled 1 / dim_head": k4_mis_scaled}
 K1_WRONGS = {"erf GELU": trunk_erf_gelu,
              "fp32 residual": trunk_f32_residual,
              "fp32 embedding": trunk_f32_emb}
@@ -1982,31 +2053,60 @@ def build_nets(actor_flat, critic_flat):
 
 
 RESTATED_F32 = ("K2b", "K3b", "K4")   # fp32 checks held to float64 sums
-# chip_draws.py sets this: phase 5's fp32 K2b check also reads, read only,
-# how far correct fp32 evaluations spread on each draw (`f32_spread`)
-F32_SPREAD = False
+# Phase 5's pooled fp32 statistic (gap r of ROADMAP.md, and fp32 K4): the
+# mean |err| / L of every value, L each tensor's largest |value| of the
+# yardstick, pooled over the tensors and the fp32 batches, under
+# max(F32_POOLED, k x the plain version's own reading); see EXACT_K
+F32_POOLED = 2.0 ** -22
 
 
-def f32_spread(args, out, ref, ex):
-    """Read-only readings beside phase 5's fp32 K2b check (chip_draws.py;
-    gap r of ROADMAP.md): the FMA body the cluster form replaced and the
-    plain version on the CPU (the same function in other fp32 orders)
-    against the float64-sum version `ex`, and the tensor each version (the
-    kernel's `out`, the plain version's `ref` on the card) reads its
-    largest error on."""
+def tensor_stats(outs, refs):
+    """(mean|err|/L, max|err|/L, size) of each output against its
+    yardstick, L the yardstick's largest |value|, in float64: the raw
+    readings phase 5's restated statistics are taken from."""
+    read = []
+    for o, r in zip(outs, refs):
+        r64 = r.double()
+        err = (o.double() - r64).abs()
+        scale = max(r64.abs().max().item(), 1e-30)
+        read.append((err.mean().item() / scale, err.max().item() / scale,
+                     err.numel()))
+    return read
+
+
+def pooled_stat(read):
+    """The mean|err|/L of every value of tensor_stats' tensors, pooled."""
+    return (sum(m * c for m, _, c in read)
+            / max(sum(c for _, _, c in read), 1))
+
+
+def max_stat(read):
+    """The largest max|err|/L over tensor_stats' tensors (rel_max)."""
+    return max(x for _, x, _ in read)
+
+
+def f32_versions(name, args, out, ref, ex):
+    """One batch of phase 5's restated fp32 check of K2b or K4: ({version:
+    tensors}: the kernel (the route's form: the fp32 cluster at these
+    widths), the FMA body (forced), the plain and the float64-sum versions
+    and the wrong versions (F32_BLOCK_WRONGS, F32_TRUNK_WRONGS); the
+    yardstick's tensors: the plain version evaluated in float64 throughout
+    for K2b (`float64_eval`), its float64-sum version `ex` for K4)."""
     from dgvit_tpu_torch.ops import fused_transformer as ft
+    from dgvit_tpu_torch.ops import got_megakernel as gm
 
-    fma = tensors(ft.launch_block_bwd(*args, False, form=0))
-    host = [t.to(DEVICE) for t in tensors(ft.block_bwd_plain(
-        args[0].cpu(), args[1].cpu(), [t.cpu() for t in args[2]],
-        *args[3:]))]
-    names = ("dx", *GRAD_NAMES)
-    worst = lambda v: names[max(range(len(v)), key=lambda i: rel_max(
-        [v[i]], [ex[i]]))]
-    return {"fma": rel_max(fma, ex), "cpu_plain": rel_max(host, ex),
-            "worst": {n: worst(v) for n, v in (
-                ("kernel", out), ("FMA body", fma), ("plain", ref),
-                ("CPU plain", host))}}
+    if name == "K2b":
+        fma = ft.launch_block_bwd(*args, False, form=0)
+        wrongs, yard = F32_BLOCK_WRONGS, tensors(
+            float64_eval(ft.block_bwd_plain, *args))
+    else:
+        blocks, fn = gm._flat_vectors(args[1], args[2])
+        fma = gm._launch_blocks(args[0], blocks, fn, *args[3:],
+                                body=gm.K4_FORMS["fma"])
+        wrongs, yard = F32_TRUNK_WRONGS, ex
+    return {"kernel": out, "FMA body": tensors(fma), "plain": ref,
+            "float64 sums": ex,
+            **{what: tensors(fn(*args)) for what, fn in wrongs.items()}}, yard
 
 
 def verdicts(errs):
@@ -2016,14 +2116,137 @@ def verdicts(errs):
             for name, e in errs.items()}
 
 
+def f32_rule(name, runs):
+    """Phase 5's restated fp32 rule for K2b or K4 (`f32_check`) over
+    `runs`, one ({version: tensors}, the yardstick's tensors) a batch:
+    (the raw readings by batch, each version's mean|err|/L pooled over
+    every tensor of every batch, the pooled limit max(F32_POOLED, k x the
+    plain version's), each version's largest max|err|/L by batch, the max
+    limits by batch, max(TRAIN_F32_MAX, k x the plain version's), {version:
+    passes}). K2b is held by the pooled mean alone, K4 also by each
+    batch's largest max|err|/L."""
+    k = EXACT_K["fp32"]
+    raw = [{v: tensor_stats(o, yard) for v, o in versions.items()}
+           for versions, yard in runs]
+    pooled = {v: pooled_stat([t for r in raw for t in r[v]]) for v in raw[0]}
+    limit = max(F32_POOLED, k * pooled["plain"])
+    mx = {v: [max_stat(r[v]) for r in raw] for v in raw[0]}
+    max_limit = [max(TRAIN_F32_MAX, k * m) for m in mx["plain"]]
+    verdict = {v: pooled[v] <= limit and (name == "K2b" or all(
+        m <= lim for m, lim in zip(mx[v], max_limit))) for v in raw[0]}
+    return raw, pooled, limit, mx, max_limit, verdict
+
+
+def f32_check(name, batches, runs, old):
+    """Phase 5's restated fp32 check of K2b or K4 (see EXACT_K) over its
+    fp32 batches (`f32_rule` on `runs`, `f32_versions`' a batch): the
+    kernel, the FMA body, the plain and the float64-sum versions must pass
+    it, the wrong versions fail it. `old`: the kernel's old reading by
+    batch (max|err|/L against the plain version)."""
+    raw, pooled, limit, mx, max_limit, verdict = f32_rule(name, runs)
+    k = EXACT_K["fp32"]
+    against = "the float64 evaluation" if name == "K2b" else "float64 sums"
+    wrong = set(F32_BLOCK_WRONGS if name == "K2b" else F32_TRUNK_WRONGS)
+    print(f"{name} fp32 B={'+'.join(map(str, batches))}: old readings vs "
+          f"plain max|err|/L {', '.join(f'{o:.3e}' for o in old)}; against "
+          f"{against}, mean|err|/L pooled over the batches (limit max("
+          f"{F32_POOLED:.3e}, {k:g} x plain {pooled['plain']:.3e}) = "
+          f"{limit:.3e})" + ("" if name == "K2b" else
+                              " and each batch's max|err|/L (limits max("
+                              f"{TRAIN_F32_MAX:g}, {k:g} x plain) = " +
+                              ", ".join(f"{m:.3e}" for m in max_limit) + ")")
+          + ": " + ", ".join(
+              f"{v} {pooled[v]:.3e} (max " + ", ".join(
+                  f"{m:.3e}" for m in mx[v]) + ") " + (
+                  ("fails" if not verdict[v] else "PASSES") if v in wrong
+                  else ("ok" if verdict[v] else "FAIL"))
+              for v in pooled), flush=True)
+    record("fp32 train", kernel=name, batches=list(batches), stat="pooled",
+           against=against, limit=limit, max_limit=max_limit, old=old, k=k,
+           floor=F32_POOLED, readings=pooled, max=mx, verdict=verdict,
+           wrong=sorted(wrong), raw=raw)
+    for v, ok in verdict.items():
+        if v in wrong:
+            check(not ok, f"phase 5's fp32 rule passes a wrong {name} ({v})")
+        else:
+            check(ok, f"fp32 {name}: the {v} disagrees with {against}")
+
+
+def k2b_bf16_rule(runs):
+    """Gap q's rule (`k2b_bf16_check`) on `runs`, ({version: dx and the 11
+    gradients}, the float64-sum version's) a batch: ({version: the share
+    of its dx frames within 2^-18}, {version: its mean|err|/L pooled over
+    dx and the 11 gradients of every batch}, the pooled limit, {version:
+    passes}, the frames, the raw readings by batch)."""
+    frames, every, raw = {}, {}, []
+    for versions, ex in runs:
+        entry = {}
+        for v, o in versions.items():
+            f = frame_errs(o[0], ex[0], own_scale=True)
+            frames.setdefault(v, []).extend(f)
+            st = tensor_stats(o, ex)
+            every.setdefault(v, []).extend(st)
+            entry[v] = {"frames": f, "tensors": st}
+        raw.append(entry)
+    within = {v: sum(x <= TRAIN_BF16_MEAN for x in f) / len(f)
+              for v, f in frames.items()}
+    pooled = {v: pooled_stat(t) for v, t in every.items()}
+    limit = max(TRAIN_BF16_MEAN, EXACT_K["K2b"] * pooled["plain"])
+    verdict = {v: within[v] >= CHAIN_WITHIN and pooled[v] <= limit
+               for v in within}
+    return within, pooled, limit, verdict, len(frames["plain"]), raw
+
+
+def k2b_bf16_check(runs, old):
+    """Phase 5's bf16 K2b check (gap q of ROADMAP.md; see EXACT_K), over
+    the bf16 batches: each version's dx frames within TRAIN_BF16_MEAN of
+    the float64-sum version's (each frame's mean |err| over its own largest
+    |dx|, phase 13's rule), at least CHAIN_WITHIN of them; and its
+    mean|err|/L pooled over dx and the 11 gradients (each over its largest
+    |value|, the old check's statistic) against the float64-sum version's
+    under max(TRAIN_BF16_MEAN, EXACT_K["K2b"] x the plain version's). The
+    kernel and the plain version must pass, the wrong version (autograd of
+    the plain forward) fail. `runs`: ({version: tensors}, float64-sum
+    tensors) a batch; `old`: TrainErrors of the kernel against the plain
+    version (the old reading, printed)."""
+    import math
+
+    within, pooled, limit, verdict, n, raw = k2b_bf16_rule(runs)
+    k = EXACT_K["K2b"]
+    se = math.sqrt(CHAIN_WITHIN * (1 - CHAIN_WITHIN) / n)
+    print(f"K2b bf16 batches pooled: old reading vs plain mean|err|/L "
+          f"{old.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}), every max within "
+          f"2^-6 L: {old.max_ok}; restated vs float64 sums: dx frames within"
+          f" 2^-18 (own scale; at least {CHAIN_WITHIN:g} of {n}, standard "
+          f"error {se:.4f}) and the mean|err|/L pooled over the tensors "
+          f"(limit max(2^-18, {k:g} x plain {pooled['plain']:.3e}) = "
+          f"{limit:.3e}): " + ", ".join(
+              f"{v} {within[v]:.4f} / {pooled[v]:.3e} " + (
+                  ("ok" if verdict[v] else "FAIL") if v in ("K2b", "plain")
+                  else ("fails" if not verdict[v] else "PASSES"))
+              for v in within), flush=True)
+    record("K2b bf16", within=within, pooled=pooled, limit=limit, k=k,
+           share=CHAIN_WITHIN, frames=n, verdict=verdict,
+           old={"mean": old.mean, "max_ok": old.max_ok}, raw=raw)
+    for v, ok in verdict.items():
+        if v in ("K2b", "plain"):
+            check(ok, f"bf16 K2b: the {v} disagrees with the float64-sum "
+                  "version (gap q's rule)")
+        else:
+            check(not ok, f"bf16 K2b: the restated rule passes a wrong K2b "
+                  f"({v})")
+
+
 def phase_train_kernels(nets, rng):
     """Phase 5: each training kernel against its plain version; fp32 K2b,
     K3b and K4 and K4's pooled bf16 latent restated against float64 sums
     (see EXACT_K)."""
     import torch
 
-    errs = {name: TrainErrors() for name in ("K2f", "K2b", "K3f", "K3b")}
+    errs = {name: TrainErrors() for name in ("K2f", "K3f", "K3b")}
     k3f_exact = TrainErrors()   # K3f's float64-sum version (EXACT_K's (a))
+    k2b_runs, k2b_old = [], TrainErrors()   # bf16 K2b (gap q)
+    f32_runs = {}   # fp32 K2b and K4: [(batch, old, f32_versions)]
     k4_runs = {}         # K4 and its wrong versions: [(out, plain, exact)]
     wrong = {}
     worst = {}
@@ -2049,6 +2272,16 @@ def phase_train_kernels(nets, rng):
                           for o, r in pairs)
                 if dtype == "float32" and name in RESTATED_F32:
                     ex = tensors(exact(plain))
+                    if name != "K3b":
+                        a = inp["actor"]
+                        args = ((a["x"], a["dy2"], a["blocks"][0],
+                                 a["heads"], a["dh"]) if name == "K2b" else
+                                (a["x"], a["blocks"], a["fn"], a["heads"],
+                                 a["dh"], "rms"))
+                        f32_runs.setdefault(name, []).append(
+                            (batch, old, f32_versions(name, args, out, ref,
+                                                      ex)))
+                        continue
                     k = EXACT_K["fp32"]
                     ok, got, limit = restated(rel_max, TRAIN_F32_MAX, k, out,
                                               ref, ex)
@@ -2060,31 +2293,13 @@ def phase_train_kernels(nets, rng):
                           f"{TRAIN_F32_MAX:g}, {k:g} x plain {own:.3e}) = "
                           f"{limit:.3e}) {'ok' if ok else 'FAIL'}",
                           flush=True)
-                    wrongs, spread = {}, {}
-                    if name == "K2b":  # (b) of EXACT_K's rule
-                        a = inp["actor"]
-                        args = (a["x"], a["dy2"], a["blocks"][0], a["heads"],
-                                a["dh"])
-                        wrongs = {what: rel_max(tensors(fn(*args)), ex)
-                                  for what, fn in F32_BLOCK_WRONGS.items()}
-                        if F32_SPREAD:
-                            spread = f32_spread(args, out, ref, ex)
-                        print(f"{name} fp32 B={batch}, against float64 sums "
-                              f"(limit {limit:.3e}): " + "".join(
-                                  f"{w} (read only) {v:.3e}; "
-                                  if isinstance(v, float) else f"{w} {v}; "
-                                  for w, v in spread.items())
-                              + "wrong versions (must fail) " + ", ".join(
-                                  f"{w} {v:.3e}" for w, v in wrongs.items()),
-                              flush=True)
-                    record("fp32 train", kernel=name, batch=batch, got=got,
-                           plain=own, limit=limit, old=old, k=k,
-                           wrongs=wrongs, **spread)
+                    record("fp32 train", kernel=name, batch=batch,
+                           stat="max", against="float64 sums", limit=limit,
+                           old=old, k=k, floor=TRAIN_F32_MAX,
+                           readings={"kernel": got, "plain": own},
+                           verdict={"kernel": ok})
                     check(ok, f"{name} disagrees with the float64-sum "
                           f"version of its plain version (fp32, B={batch})")
-                    for what, v in wrongs.items():
-                        check(v > limit, f"phase 5's fp32 rule passes a "
-                              f"wrong {name} ({what}, B={batch})")
                     continue
                 if dtype == "float32":
                     ok = old <= TRAIN_F32_MAX
@@ -2099,6 +2314,13 @@ def phase_train_kernels(nets, rng):
                 line = (f"{name} vs plain bf16 B={batch}: max|err| {mx:.3e}, "
                         f"mean|err|/L {e.mean:.3e}, every max within 2^-6 L:"
                         f" {e.max_ok}")
+                if name == "K2b":   # gap q: held to float64 sums by frame
+                    k2b_runs.append(({"K2b": out, "plain": ref, **{
+                        what: tensors(bad()) for what, bad in bads.items()}},
+                        tensors(exact(plain))))
+                    k2b_old.add(pairs)
+                    print(line + " (the old reading)", flush=True)
+                    continue
                 if name == "K4":
                     ex = tensors(exact(plain))
                     versions = {"K4": out, **{what: tensors(bad())
@@ -2134,6 +2356,10 @@ def phase_train_kernels(nets, rng):
               f"{e.mean:.3e}, every max within 2^-6 L: {e.max_ok}; "
               f"{'FAIL' if not e.ok else 'passes'}", flush=True)
         check(not e.ok, f"the bf16 limits pass a wrong {name} ({what})")
+    for name, rs in f32_runs.items():
+        f32_check(name, [b for b, _, _ in rs], [r for _, _, r in rs],
+                  [o for _, o, _ in rs])
+    k2b_bf16_check(k2b_runs, k2b_old)
     e = k3f_exact
     print(f"K3f's float64-sum version vs its plain version, bf16 pooled: "
           f"mean|err|/L {e.mean:.3e} (limit {TRAIN_BF16_MEAN:.3e}), every "
@@ -4495,10 +4721,22 @@ def phase_trunk_grad_fp32(default_run):
     counters = kernel_counters()
     with trunk_grad_switch():
         before = {k: fn.launches for k, fn in counters.items()}
+        counters["K4"].cluster_launches = 0
         kern = golden_update(DEVICE, g)
         check(all(counters[k].launches - before[k] == n
                   for k, n in PER_UPDATE_TRUNK.items()),
               "the fp32 trunk-gradient update did not go through K4 and K6")
+        # K4's recording forwards (one a K6) write K6's streams on the FMA
+        # body; its no-grad forwards take the fp32 cluster form
+        cluster = counters["K4"].cluster_launches
+        recording = PER_UPDATE_TRUNK["K4"] - cluster
+        print(f"fp32 trunk-gradient update: K4 {PER_UPDATE_TRUNK['K4']} "
+              f"launches, {cluster} on the fp32 cluster form, {recording} "
+              f"recording on the FMA body (K6 {PER_UPDATE_TRUNK['K6']})",
+              flush=True)
+        check(recording == PER_UPDATE_TRUNK["K6"], "the fp32 trunk-gradient "
+              f"update's recording K4 did not take the FMA body ({cluster} "
+              "cluster launches)")
         before = {k: fn.launches for k, fn in counters.items()}
         with plain_kernels():
             plain = golden_update(DEVICE, g)
@@ -5245,6 +5483,8 @@ def smem_mirror_mismatches():
                     ("K1/K4", fma, g.got_forward_smem(code, *w, 0)),
                     ("K4 mma", smem.fwd_mma(n),
                      g.got_forward_smem(code, *w, 1)),
+                    ("K4 cluster fp32", smem.k1_cluster_fp32(n, 0),
+                     g.got_forward_smem(code, *w, 3)),
                     ("K2f", fma, b.block_forward_smem(code, 0, *w, 0)),
                     ("K2f mma", smem.fwd_mma(n),
                      b.block_forward_smem(code, 0, *w, 1)),
@@ -6234,9 +6474,11 @@ DRQC_ARGS = ["--fused", "--resume", "--eval-world", "hospital",
              "--alpha-max", "2.0", "--world", "rand8", "--world-assign",
              "lane", "--alpha-min", "0.1", "--aug-shift", "4",
              "--aug-critic-only"]
-# phase 20f: the launcher's main at a budget that ends in about three
-# minutes on an H100 (--episodes 16 --chunk 8 took 175-246 s)
-LAUNCHER_ARGS = ["--episodes", "8", "--chunk", "4"]
+# phase 20f: the launcher's main at a budget that ends in about two
+# minutes on an H100 (--episodes 16 --chunk 8 took 175-246 s, --episodes
+# 8 --chunk 4 169-261 s, --episodes 4 --chunk 4 129 s): the whole script
+# must end within 1200 s, its build included
+LAUNCHER_ARGS = ["--episodes", "4", "--chunk", "4"]
 
 
 def planted_per(device, seed, first_wins=False):
@@ -8033,6 +8275,69 @@ def reference_yaml(out_dir):
     return str(path)
 
 
+# fp32 K4's batches, each timed in the cluster form and the FMA body
+# (phase 23a): the reference config's B=32 among batches from one frame
+# to past K1's cluster bound (90 frames on an H100), where K4's route
+# rule would keep or drop it
+K4_FP32_BATCHES = (1, 32, 64, 128, 256, 512)
+
+
+def k4_fp32_times(actor, rng):
+    """Phase 23a's K4 in fp32 on `actor`'s trunk (the reference config's
+    widths: 4 heads x 64, MLP 2048): at each of K4_FP32_BATCHES seeded
+    frames embedded by the actor, the cluster form and the FMA body forced
+    (`body`), each held to the plain version (F32_TOL) and timed (CUDA
+    events) beside the plain version and the bound at the fp32 peak; at
+    ZOO_BATCH the route's form must be the fp32 cluster. Returns B=32's
+    times with every batch's under "by_batch"."""
+    import torch
+
+    from dgvit_tpu_torch.ops import got_megakernel as gm
+
+    trans, forms = actor.trans, {"cluster": gm.K4_FORMS["cluster_fp32"],
+                                 "fma": gm.K4_FORMS["fma"]}
+    by_batch = {}
+    for b in K4_FP32_BATCHES:
+        batch = zoo_batch(rng, (128, 160), b)
+        with torch.no_grad():
+            x = trans.embed(batch["obs"], actor.fc_embed(
+                batch["pobs"])).contiguous()
+            _, _, blocks, fn = trans.fused_params(torch.float32)
+            blocks, fn = gm._flat_vectors(blocks, fn)
+            k4 = (x, blocks, fn, trans.heads, trans.dim_head,
+                  trans.final_norm)
+            form = gm.k4_form(x, blocks, trans.heads, trans.dim_head)
+            ref = gm.blocks_forward_plain(*k4)
+            bnd, by = bound_ms(*train_work("K4", b, esize=4), "float32")
+            row = {"form": form, "bound_ms": bnd, "bound_by": by,
+                   "library_ms": None,
+                   "plain_ms": cuda_ms(lambda: gm.blocks_forward_plain(*k4),
+                                       5, runs=5)}
+            for name, body in forms.items():
+                run = lambda: gm._launch_blocks(*k4, body=body)
+                err = f32_ratio(run(), ref)
+                check(err <= 1, f"phase 23a: K4 fp32 {name} at B={b} "
+                      f"disagrees with its plain version ({err:.3e} of "
+                      "F32_TOL)")
+                row[f"{name}_ms"] = cuda_ms(run, 10, runs=5)
+                row[f"{name}_err"] = (run() - ref).abs().max().item()
+        by_batch[b] = row
+        print(f"phase 23a K4 fp32 at B={b} ({card()}): the route's form "
+              f"{form}; cluster {row['cluster_ms']:.4f} ms, FMA body "
+              f"{row['fma_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+              f"{bnd:.5f} ({by}); max|err| vs plain: cluster "
+              f"{row['cluster_err']:.3e}, FMA {row['fma_err']:.3e} (CUDA "
+              "events)", flush=True)
+    t = by_batch[ZOO_BATCH]
+    check(t["form"] == "cluster_fp32", f"phase 23a: K4 fp32 at B="
+          f"{ZOO_BATCH} takes the {t['form']} form")
+    return {"ms": t["cluster_ms"], "fma_ms": t["fma_ms"],
+            "max_abs_err": t["cluster_err"],
+            **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "form")},
+            "by_batch": {str(b): v for b, v in by_batch.items()}}
+
+
 def phase_reference_config(rng, out_dir):
     """Phase 23a: the reference's configuration (load_reference_yaml: a
     GoT actor, a CNN critic, fp32). One fp32 update at B=32 through the
@@ -8112,29 +8417,14 @@ def phase_reference_config(rng, out_dir):
     runs["bf16"], _, _ = zoo_updates(cfg_bf, batch, PER_ZOO_UPDATE,
                                      "23a reference config bf16")
 
-    # K4 in fp32 alone at B=32 on the actor's widths (the no-grad learn
-    # forward of each update; main's launches below), beside its plain
-    # version and its bound at the fp32 peak
-    with torch.no_grad():
-        trans = state.actor.trans
-        x = trans.embed(batch["obs"], state.actor.fc_embed(
-            batch["pobs"])).contiguous()
-        k4 = (x, trans.fused_params(torch.float32)[2],
-              trans.fused_params(torch.float32)[3], trans.heads,
-              trans.dim_head, trans.final_norm)
-        k4_out = gm.blocks_cls_forward_fused(*k4)
-        k4_ref = gm.blocks_forward_plain(*k4)
-        bnd, by = bound_ms(*train_work("K4", ZOO_BATCH, esize=4), "float32")
-        k4_fp32 = {"ms": cuda_ms(lambda: gm.blocks_cls_forward_fused(*k4),
-                                 10, runs=5),
-                   "plain_ms": cuda_ms(lambda: gm.blocks_forward_plain(*k4),
-                                       5, runs=5),
-                   "bound_ms": bnd, "bound_by": by, "library_ms": None,
-                   "max_abs_err": (k4_out - k4_ref).abs().max().item()}
-    print(f"phase 23a K4 fp32 at B={ZOO_BATCH} ({card()}): "
-          f"{k4_fp32['ms']:.4f} ms, plain {k4_fp32['plain_ms']:.4f}, bound "
-          f"{bnd:.5f} ({by}); max|err| vs plain "
-          f"{k4_fp32['max_abs_err']:.3e} (CUDA events)", flush=True)
+    # K4 in fp32 alone on the actor's widths (the no-grad learn forward of
+    # each update; main's launches below): its form at B=32 (the fp32
+    # cluster), timed beside the FMA body, its plain version and its bound
+    # at the fp32 peak, and the two forms forced at K4_FP32_BATCHES, where
+    # the route rule's batch bound is read (frames of a generator of their
+    # own: the later phases of 23 keep their draws)
+    k4_fp32 = k4_fp32_times(state.actor,
+                            np.random.default_rng((ZOO_SEED, ZOO_BATCH)))
 
     # the CNN critic's convolutions with TF32 on (PyTorch's default)
     # against full fp32 (this script's setting), on the same batch
@@ -8163,6 +8453,7 @@ def phase_reference_config(rng, out_dir):
           f"{act_form} form")
     for fn in counters.values():
         fn.launches = 0
+    counters["K4"].cluster_launches = 0
     t0 = time.perf_counter()
     main_dir = Path(out_dir) / "main"
     train_rl.main(["--reference-config", path, "--episodes",
@@ -8170,11 +8461,14 @@ def phase_reference_config(rng, out_dir):
                    *(["--device", DEVICE] if DEVICE != "cuda" else [])])
     main_s = time.perf_counter() - t0
     main_launches = {k: fn.launches for k, fn in counters.items()}
+    main_cluster = counters["K4"].cluster_launches
     updates = main_launches["K4"]
     check(updates >= ZOO_UPDATES and main_launches["K1"] > 0
           and all(main_launches[k] == n * updates
                   for k, n in PER_ZOO_UPDATE.items() if k != "K1"),
           f"phase 23a: train_rl.main launched {main_launches}")
+    check(main_cluster == updates, f"phase 23a: {main_cluster} of main's "
+          f"{updates} fp32 K4 launches took the cluster form")
     for fn in counters.values():
         fn.launches = 0
     timings = {}
@@ -8216,7 +8510,8 @@ def phase_reference_config(rng, out_dir):
                          "reference_config_updates_bf16":
                              runs["bf16"]["launches"]},
             "train_bf16": {"env_steps": n_env, "updates": n_up},
-            "main_s": main_s, "k1_form": act_form, "k4_fp32": k4_fp32}
+            "main_s": main_s, "k1_form": act_form, "k4_fp32": k4_fp32,
+            "k4_cluster_launches": main_cluster}
 
 
 def vit_attention_checks(rng):
@@ -9483,6 +9778,22 @@ def main() -> int:
             "by_batch": {str(b): t["kernels"][short] for b, t in bc.items()},
             "launches_by_path": {
                 "bc_fit": imitation["bc_fit"]["cluster_launches"][short]}})
+    # K4's fp32 cluster form: its launches on the reference config's
+    # `main` (phase 23a), timed there at the reference's batch
+    ref_cfg = zoo["reference_config"]
+    t4 = ref_cfg["k4_fp32"]
+    name, src, replaces = KERNELS["K4"]
+    rows.append({
+        "name": name, "route": "cuda",
+        "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+        "launches": ref_cfg["k4_cluster_launches"],
+        **{key: t4[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "fma_ms")},
+        "batch": ZOO_BATCH, "dtype": "float32", "form": t4["form"],
+        "by_batch": t4["by_batch"],
+        "launches_by_path": {
+            "reference_config_main": ref_cfg["k4_cluster_launches"]}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")

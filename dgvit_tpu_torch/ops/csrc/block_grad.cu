@@ -1309,23 +1309,7 @@ struct Layout {
   }
 };
 
-// the warp's 16 rows from a (rows, 64) fp32 frame (row stride ld), rows
-// >= n zero
-__device__ __forceinline__ void read_rows(float (&v)[8][4], const float* m,
-                                          int ld, int r0, int n) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row_of(r0, 2 * h);
-      float2 x = make_float2(0.f, 0.f);
-      if (r < n)
-        x = *reinterpret_cast<const float2*>(m + (size_t)r * ld +
-                                             col_of(j, 0));
-      v[j][2 * h] = x.x;
-      v[j][2 * h + 1] = x.y;
-    }
-}
+using cl32::read_rows;  // the warp's 16 rows of an fp32 frame
 
 // the warp's rows < n, column tiles [j0, j1) (8 columns each), into a
 // row-major fp32 matrix of row stride ld

@@ -23,9 +23,9 @@
 // product after another.
 //
 // Design of trunk_kernel (fp32 past K1's cluster bound, fp32 and bf16 off
-// the flagship widths or past 80 rows; K4 in fp32 and off the flagship
-// widths): one thread block of
-// 256 threads per frame. The fp32 residual stream, the normed
+// the flagship widths or past 80 rows; K4 in fp32 when autograd records
+// and off the flagship widths): one thread block of 256 threads per
+// frame. The fp32 residual stream, the normed
 // activations, one head's q/k/v rows, the attention output and one MLP
 // hidden chunk all live in dynamic shared memory (about 100 KB in bf16,
 // 165 KB in fp32), so no activation touches device memory between the
@@ -58,7 +58,9 @@
 //    namespace cl below). It puts 4 SMs on each frame of a small batch.
 // In fp32 at the flagship widths up to the same bound, K1 is
 // k1_cluster_fp32_kernel (namespace cl32): that partition with every
-// product on the tensor cores as 3xTF32 (tf32_mma.cuh).
+// product on the tensor cores as 3xTF32 (tf32_mma.cuh); K4's fp32
+// forwards that write no streams are k4_cluster_fp32_kernel, the same
+// kernel from the blocks on (k4_form_for in ops/got_megakernel.py).
 #include <cooperative_groups.h>
 
 #include "block_common.cuh"
@@ -680,6 +682,46 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
   cluster.sync();  // no rank leaves while another reads its tiles
 }
 
+// K4 in fp32 over a cluster of cl32::kRanks CTAs a frame:
+// k1_cluster_fp32_kernel from the blocks on. Each warp reads its 16 rows
+// of the frame's embedded fp32 stream from device memory (the frame read
+// once, 16.6 KB at 65 rows), then the blocks on the same body, the CLS
+// block, and the final norm of the CLS row on rank 0. It sums as K2f does
+// (cl32::Exact): with K1's 3xTF32 accumulated on the tensor cores
+// (cl32::Fast), which round toward zero as they add, the latent drifted
+// 5x further from float64 sums than the FMA body's, as far as a tanh GELU
+// in every block (chip_smoke.py's phase 5 in chip_draws.py's draws of
+// seeds 7-11 on an H100). It writes no streams: a forward that autograd
+// records takes the FMA trunk_kernel, whose streams K6's FMA bodies
+// differentiate.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
+    k4_cluster_fp32_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank();
+  const cl32::Layout L(n, 0);
+  const int f = blockIdx.x / cl32::kRanks, r0 = threadIdx.x / 32 * 16;
+  mmafwd::Rows x;
+  cl32::read_rows(x, (const float*)a.p[0] + (size_t)f * n * cl32::D, cl32::D,
+                  r0, n);
+  const void* const* w = a.p + 1;
+  for (int i = 0; i < a.depth; ++i)
+    cl32::block<cl32::Exact>(cluster, a.m, w + 11 * i, n, rank, r0, x,
+                             smem_raw, L, i + 1 == a.depth);
+  if (rank == 0 && threadIdx.x < 4) {  // row 0: lanes 0-3, registers 0, 1
+    float* row = (float*)(smem_raw + L.cls);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) row[mmafwd::col_of(j, e)] = x[j][e];
+  }
+  __syncthreads();
+  if (rank == 0 && threadIdx.x < 32)
+    final_norm_row<float>((const float*)(smem_raw + L.cls), w + 11 * a.depth,
+                          a.final_norm, f);
+  cluster.sync();  // no rank leaves while another reads its tiles
+}
+
 // Bytes of K1's launch in form `form` (0 the FMA trunk_kernel, 1
 // k1_mma_kernel, 2 a CTA of k1_cluster_kernel, 3 a CTA of
 // k1_cluster_fp32_kernel) for n rows and patches of pd values.
@@ -793,9 +835,11 @@ size_t k1_smem(int dtype, int n, int pd, int d, int heads, int dim_head,
 }
 
 // Bytes of dynamic shared memory of K1 (mma = 0) or K4 for these shapes;
-// mma = 1: K4 on the tensor-core body.
+// mma = 1 (or 2): K4 on the tensor-core body; 3: a CTA of K4's fp32
+// cluster form.
 size_t got_forward_smem(int dtype, int n, int d, int heads, int dim_head,
                         int mlp, int mma) {
+  if (mma == 3) return cl32::Layout(n, 0).total;
   if (mma) return mmafwd::Layout(n).total;
   const int hc = mlp < 256 ? mlp : 256;
   return dtype == 1 ? Smem<__nv_bfloat16>(n, d, heads, dim_head, hc).total
@@ -808,8 +852,11 @@ size_t got_forward_smem(int dtype, int n, int d, int heads, int dim_head,
 // same body with every product on the tensor cores (no route takes it; for
 // measurement); both take bf16, d = dim_head = 64, n <= 80, mlp a multiple
 // of 64 and 16-byte aligned x and matrix weights (cudaErrorInvalidValue
-// else); mma = 0 the FMA body, any width. xs, cls and saved: all null, or
-// the streams every body then writes: each full block's rounded output
+// else); mma = 3 k4_cluster_fp32_kernel, one frame over a cluster of 4
+// CTAs, which takes fp32 at those widths with 4 heads, mlp a multiple of
+// 256 and null streams (cudaErrorInvalidValue else); mma = 0 the FMA
+// body, any width. xs, cls and saved: all null, or the streams the bodies
+// but the fp32 cluster's then write: each full block's rounded output
 // (depth - 1, B, n, d) and the rounded CLS row before the final norm (B,
 // d), in the compute dtype, and the CLS block's records (B, ClsSave
 // stride) fp32, which K6 (trunk_backward_launch) differentiates.
@@ -828,6 +875,7 @@ int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
   a.cls = cls;
   a.sv = ClsSave((float*)saved, n, d, heads, dim_head, mlp);
   cudaStream_t s = (cudaStream_t)stream;
+  if (mma < 0 || mma > 3) return cudaErrorInvalidValue;
   if (mma) {
     const int mats[4] = {2, 3, 7, 9};  // wqkv, wout, w1, w2
     const void* aligned[1 + 4 * kMaxDepth];
@@ -835,8 +883,16 @@ int blocks_forward_launch(int dtype, const void* const* ptrs, int n_ptrs,
     for (int i = 0; i < depth; ++i)
       for (int j = 0; j < 4; ++j)
         aligned[1 + 4 * i + j] = a.p[1 + 11 * i + mats[j]];
-    if (dtype != 1 || !mmafwd::takes(n, a.m, aligned, 1 + 4 * depth))
+    if (!mmafwd::takes(n, a.m, aligned, 1 + 4 * depth))
       return cudaErrorInvalidValue;
+    if (mma == 3) {
+      if (dtype != 0 || heads != cl32::kRanks ||
+          mlp % (cl32::kRanks * cl32::HC) != 0 || xs != nullptr)
+        return cudaErrorInvalidValue;
+      return cl32::launch(k4_cluster_fp32_kernel, n, batch,
+                          cl32::Layout(n, 0).total, s, a);
+    }
+    if (dtype != 1) return cudaErrorInvalidValue;
     return mma == 1 ? mmafwd::launch_fwd(trunk_mma_kernel<true>, n, batch,
                                          mmafwd::Layout(n).total, s, a, batch)
                     : mmafwd::launch_fwd(trunk_mma_kernel<false>, n, batch,

@@ -103,6 +103,24 @@ struct Layout {
   }
 };
 
+// the warp's 16 rows from a (rows, 64) fp32 frame (row stride ld), rows
+// >= n zero
+__device__ __forceinline__ void read_rows(float (&v)[8][4], const float* m,
+                                          int ld, int r0, int n) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mmafwd::row_of(r0, 2 * h);
+      float2 x = make_float2(0.f, 0.f);
+      if (r < n)
+        x = *reinterpret_cast<const float2*>(m + (size_t)r * ld +
+                                             mmafwd::col_of(j, 0));
+      v[j][2 * h] = x.x;
+      v[j][2 * h + 1] = x.y;
+    }
+}
+
 // a warp's partial (accumulator layout) into its slot of a partial tile
 __device__ __forceinline__ void put_part(const float (&acc)[8][4],
                                          float* tile) {

@@ -40,8 +40,7 @@ from typing import Sequence, Tuple
 import torch
 
 from dgvit_tpu_torch.ops.cls_block import saved_buffer
-from dgvit_tpu_torch.ops.fused_transformer import (_f32, _ln, _mm,
-                                                   tensor_core_fwd)
+from dgvit_tpu_torch.ops.fused_transformer import _f32, _ln, _mm
 from dgvit_tpu_torch.ops.smem import (fwd_mma, k1_cluster, k1_cluster_fp32,
                                       k1_embed, tensor_core_widths,
                                       tf32_widths)
@@ -62,6 +61,12 @@ CLUSTER = 4
 # HBM3 (132 SMs, 700 W; chip_smoke.py phase 8), the cluster took 0.486 ms
 # at B=90 against 0.541, and 0.594 against 0.538 at B=99
 CLUSTER_LOAD = 2.75
+# K4's forms (csrc/got_megakernel.cu, blocks_forward_launch's `mma`): the
+# FMA trunk_kernel; trunk_mma_kernel<true>, the bf16 tensor-core body in
+# its K4 form; trunk_mma_kernel<false>, the same body with every product
+# on the tensor cores (no route takes it; chip_numerics.py measures it);
+# k4_cluster_fp32_kernel, K1's fp32 cluster form from the blocks on
+K4_FORMS = {"fma": 0, "mma": 1, "all_mma": 2, "cluster_fp32": 3}
 
 
 def _final_norm32(cls: torch.Tensor, fs: torch.Tensor, fb: torch.Tensor,
@@ -208,6 +213,37 @@ def k1_form(patches, goal, pe, pos, blocks, fn, heads, dim_head, n_valid,
                        _sm_count(patches.device))
 
 
+def k4_form_for(n: int, d: int, heads: int, dim_head: int, mlp: int,
+                dtype: torch.dtype, aligned: bool, streams: bool) -> str:
+    """The form K4 takes (a key of K4_FORMS) for frames of n rows;
+    `aligned`: x and every block's matrix weights 16-byte aligned;
+    `streams`: the call writes K6's streams (autograd records it). bf16 at
+    the tensor-core widths (`smem.tensor_core_widths`) and aligned: the
+    tensor-core body's K4 form, which writes the streams too. fp32 at the
+    same widths (`smem.tf32_widths`), 4 heads (one a rank), mlp a multiple
+    of 4 x 64, aligned and without streams: the fp32 cluster form, at any
+    batch (on an H100 80GB HBM3 at 700 W, chip_smoke.py phase 23a, it beat
+    the FMA body from 1 to 512 frames). Every other call, the recording
+    fp32 forward among them (K6's fp32 FMA bodies recompute each block's
+    internals from the FMA forward), takes the FMA kernel."""
+    if tensor_core_widths(n, d, dim_head, mlp, dtype):
+        return "mma" if aligned else "fma"
+    if (tf32_widths(n, d, dim_head, mlp, dtype) and heads == CLUSTER
+            and mlp % (CLUSTER * 64) == 0 and aligned and not streams):
+        return "cluster_fp32"
+    return "fma"
+
+
+def k4_form(x, blocks, heads, dim_head, streams=False) -> str:
+    """K4's form for these arguments of `blocks_cls_forward_fused`
+    (`k4_form_for`); the wrapper launches it, chip_smoke.py reads it."""
+    _, n, d = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (
+        x, *[w[i] for w in blocks for i in (2, 3, 7, 9)]))
+    return k4_form_for(n, d, heads, dim_head, blocks[0][7].shape[1],
+                       x.dtype, aligned, streams)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     """The card's SM count; 0 off the card (no kernel runs there)."""
@@ -315,11 +351,10 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None,
           else (None, None, None))
     tensors = [x, *[t for w in blocks for t in w], fn[0], fn[1], out]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    # every block on the tensor-core body (its K4 form), or every block on
-    # the FMA body; `body` 2 (every product on the tensor cores) is taken
-    # only when asked for, by chip_numerics.py
-    mma = body if body is not None else int(
-        all(tensor_core_fwd(x, w, dim_head) for w in blocks))
+    # the form k4_form picks; `body` (a value of K4_FORMS) forces one, for
+    # chip_smoke.py and chip_numerics.py
+    mma = body if body is not None else K4_FORMS[
+        k4_form(x, blocks, heads, dim_head, streams)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.blocks_forward_launch(
@@ -328,9 +363,11 @@ def _launch_blocks(x, blocks, fn, heads, dim_head, final_norm, body=None,
             len(blocks), _NORMS[final_norm], dim_head ** -0.5, stream, mma,
             *[None if t is None else t.data_ptr() for t in st])
     if err != 0:
-        raise RuntimeError("blocks_cls_forward_fused launch failed: "
+        raise RuntimeError("blocks_cls_forward_fused launch failed (K4, "
+                           f"form {mma}): "
                            + lib.got_error_string(err).decode())
     blocks_cls_forward_fused.launches += 1
+    blocks_cls_forward_fused.cluster_launches += mma == 3
     return (out, st) if streams else out
 
 
@@ -394,7 +431,9 @@ def blocks_cls_forward_fused(x: torch.Tensor,
     the CLS block's 3.0 MB of fp32 records at B=256 on the flagship
     trunk, held until the backward; no-grad forwards write none). CUDA tensors go to the CUDA
     kernels (and raise if they cannot run); CPU tensors go to the plain
-    versions. `blocks_cls_forward_fused.launches` counts K4's launches.
+    versions. `blocks_cls_forward_fused.launches` counts K4's launches,
+    `blocks_cls_forward_fused.cluster_launches` those of the fp32 cluster
+    form (`k4_form`).
     """
     blocks, fn = _flat_vectors(blocks, fn)
     b, n, d = x.shape
@@ -411,3 +450,4 @@ def blocks_cls_forward_fused(x: torch.Tensor,
 
 
 blocks_cls_forward_fused.launches = 0
+blocks_cls_forward_fused.cluster_launches = 0

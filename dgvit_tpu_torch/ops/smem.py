@@ -17,7 +17,7 @@ layouts the launches size their memory by:
     body of K2f, K3f, K4 and K1 (K1 also stages pe_w over it first);
   * `cl::Layout` (csrc/got_megakernel.cu): a CTA of K1's cluster form;
   * `cl32::Layout` (csrc/tf32_block.cuh): a CTA of K1's fp32 cluster
-    form, and (with no patches) of K2f's;
+    form, and (with no patches) of K2f's and K4's;
   * `bw32::Layout` (csrc/block_grad.cu): a CTA of K2b's fp32 cluster
     form;
   * K6's launch, the largest of the bodies it runs;
@@ -161,11 +161,11 @@ _LD_K32, _LD_W32, _LD_PE32 = MMA_WIDTH + 8, MMA_WIDTH + 4, MMA_WIDTH // 4 + 4
 
 def k1_cluster_fp32(n: int, pd: int) -> int:
     """`cl32::Layout(n, pd)` (csrc/tf32_block.cuh): a CTA of K1's fp32
-    cluster form (pd = 0: of K2f's), one head's fp32 k and v (rows padded
-    to 16) and its q|k|v and wout slices, over them the MLP's two-stage
-    ring and the rank's 16 columns of pe_w; then the two fp32 partial
-    tiles (16 x 64 a warp), the rank's embedding columns and the CLS
-    row."""
+    cluster form (pd = 0: of K2f's and K4's), one head's fp32 k and v
+    (rows padded to 16) and its q|k|v and wout slices, over them the MLP's
+    two-stage ring and the rank's 16 columns of pe_w; then the two fp32
+    partial tiles (16 x 64 a warp), the rank's embedding columns and the
+    CLS row."""
     np_, w64 = _a16(n), 4 * MMA_WIDTH * _LD_W32
     attn = _take(0, (4 * np_ * _LD_K32, 4 * np_ * _LD_W32, 3 * w64, w64))
     o = max(attn, _take(0, (2 * 2 * w64,)), _take(0, (4 * pd * _LD_PE32,)))
@@ -189,9 +189,9 @@ def bwd_cluster_fp32(n: int) -> int:
 
 def tf32_widths(n: int, d: int, dim_head: int, mlp: int,
                 dtype: torch.dtype) -> bool:
-    """The widths the fp32 cluster forms take (K1's, K2f's and K2b's):
-    fp32, d = dim_head = 64, at most 80 rows, mlp a multiple of 64 (heads,
-    mlp a multiple of 256 and alignment aside)."""
+    """The widths the fp32 cluster forms take (K1's, K4's, K2f's and
+    K2b's): fp32, d = dim_head = 64, at most 80 rows, mlp a multiple of 64
+    (heads, mlp a multiple of 256 and alignment aside)."""
     return (dtype == torch.float32 and d == dim_head == MMA_WIDTH
             and n <= MMA_ROWS and mlp % MMA_CHUNK == 0)
 
@@ -245,10 +245,10 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
         return max(fma, fwd_mma(n) if mma else 0,
                    k1_cluster(n, 0) if mma else 0,
                    k1_cluster_fp32(n, 0) if tf32 else 0)
-    if kernel == "K2f":
+    if kernel in ("K2f", "K4"):
         return max(fma, fwd_mma(n) if mma else 0,
                    k1_cluster_fp32(n, 0) if tf32 else 0)
-    if kernel in ("K4", "K3f"):
+    if kernel == "K3f":
         return max(fma, fwd_mma(n) if mma else 0)
     if kernel == "K3b":
         return max(bwd_fma(n, d, mlp),

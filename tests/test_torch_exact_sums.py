@@ -232,6 +232,54 @@ def test_restated_check_passes_exact_sums_and_fails_a_wrong_rounding():
                            [out.bfloat16().float()], [out], [ex])[0]
 
 
+def test_gap_q_rule_passes_plain_and_fails_autograd():
+    """Phase 5's bf16 K2b rule (gap q, chip_smoke.k2b_bf16_rule) as a pure
+    function of tensors, on one small CPU draw (8 frames of 17 tokens):
+    the plain version holds every dx frame within 2^-18 of the float64-sum
+    version and its tensors within the pooled limit; autograd of the plain
+    forward (the wrong rounding points) holds no frame and fails the
+    pooled limit."""
+    rng = np.random.default_rng(1)
+    w = weights(block_tree(rng), "bfloat16")[1]
+    x, dy = (to_torch(rand(rng, 8, 17, D), "bfloat16") for _ in range(2))
+    args = (x, dy, w, HEADS, DIM_HEAD)
+    plain = cs.tensors(ft.block_bwd_plain(*args))
+    wrong = cs.tensors(cs.autograd_bwd(ft.block_fwd_plain)(*args))
+    ex = cs.tensors(cs.exact(ft.block_bwd_plain, *args))
+    within, pooled, limit, verdict, frames, _ = cs.k2b_bf16_rule(
+        [({"plain": plain, "autograd": wrong, "float64 sums": ex}, ex)])
+    assert frames == 8 and limit >= cs.TRAIN_BF16_MEAN
+    assert verdict == {"plain": True, "autograd": False,
+                       "float64 sums": True}
+    assert within["plain"] == within["float64 sums"] == 1.0
+    assert within["autograd"] < cs.CHAIN_WITHIN
+    assert pooled["autograd"] > 10 * limit
+
+
+def test_gap_r_rule_passes_exact_sums_and_fails_the_wrong_blocks():
+    """Phase 5's fp32 K2b rule (gap r, chip_smoke.f32_rule) as a pure
+    function of tensors, on one small CPU draw: against the plain version
+    evaluated in float64 throughout (`float64_eval`), the pooled
+    mean|err|/L passes the plain and the float64-sum versions and fails the
+    tanh GELU and the block whose scores are scaled 1 / dim_head."""
+    rng = np.random.default_rng(1)
+    w = weights(block_tree(rng), "float32")[1]
+    x, dy = (to_torch(rand(rng, 2, 17, D), "float32") for _ in range(2))
+    args = (x, dy, w, HEADS, DIM_HEAD)
+    versions = {"plain": cs.tensors(ft.block_bwd_plain(*args)),
+                "float64 sums": cs.tensors(cs.exact(ft.block_bwd_plain,
+                                                    *args)),
+                **{what: cs.tensors(fn(*args))
+                   for what, fn in cs.F32_BLOCK_WRONGS.items()}}
+    yard = cs.tensors(cs.float64_eval(ft.block_bwd_plain, *args))
+    _, pooled, limit, _, _, verdict = cs.f32_rule("K2b", [(versions, yard)])
+    assert limit >= cs.F32_POOLED
+    assert verdict == {"plain": True, "float64 sums": True,
+                       "tanh GELU": False,
+                       "scores scaled 1 / dim_head": False}
+    assert min(pooled[w] for w in cs.F32_BLOCK_WRONGS) > 10 * limit
+
+
 @pytest.fixture(scope="module")
 def actor_nets():
     saved = cs.DEVICE
