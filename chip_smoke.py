@@ -378,6 +378,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -500,11 +501,33 @@ ACTION_FP32 = 1e-4
 # version. A kernel that fails (c) where (a) holds is at fault and is
 # repaired; a check that meets (a) keeps its limit. Four checks failed
 # (a) on an H100 80GB HBM3 at 700 W and were restated first, four more
-# after them (faults 3f-3i of ROADMAP.md), two more since (gaps q and r);
+# after them (faults 3f-3i of ROADMAP.md), two more since (gaps q and r),
+# and two checks that no wrong version failed were restated (gaps s, t);
 # the readings below are chip_draws.py's on seeds 7-11 in both orders and
 # this script's own:
-#   * fp32 K3b (phase 5): s = the largest max|err|/L over the tensors,
-#     old limit TRAIN_F32_MAX; k = 2.
+#   * fp32 K3f and K3b (phase 5, gap t): K3b was held by the largest
+#     max|err|/L over the tensors against float64 sums (old limit
+#     TRAIN_F32_MAX, k = 2), K3f by max|err|/L against the plain version
+#     under TRAIN_F32_MAX, both with no wrong version. Now K2b's rule
+#     (`f32_rule`, F32_SPECS): the mean|err|/L pooled over the outputs (K3b:
+#     dx and the 11 gradients) and the phase's two fp32 batches against
+#     the plain version evaluated in float64 throughout (K3b's recomputing
+#     its CLS row), under max(F32_POOLED, k x the plain version's), which
+#     the kernel (the fp32 cluster form), the FMA body (forced, K3b on the
+#     FMA K3f's records), the plain and the float64-sum versions must pass
+#     and a tanh GELU and scores scaled 1 / dim_head fail. On seeds 7-11 in
+#     both orders (H100 80GB HBM3, 700 W): K3f's correct versions read at
+#     most 0.095 of the limit (the kernel 0.064), the tanh GELU at least
+#     10.36 x, the mis-scaled block 5602 x; K3b's at most 0.037 (the kernel
+#     0.030), the tanh GELU at least 5.70 x, the mis-scaled block 2380 x.
+#   * K1's fp32 latent (phase 2, gap s): held by F32_TOL alone, which the
+#     tanh GELU passes. Now also the same pooled statistic over phase 2's
+#     fp32 batches against K1's float64-sum version (F32_SPECS["K1"]), the
+#     tanh GELU and the mis-scaled trunk failing: on seeds 7-11 K1's route
+#     read at most 0.284 of the limit, its cluster form forced at every
+#     batch (B=100 past its bound too) 0.842, the FMA kernel 0.160; the
+#     tanh GELU at least 2.06 x, the mis-scaled trunk 2623 x. K1 keeps its
+#     sums (cl32::Fast).
 #   * fp32 K2b (phase 5, gap r): s = the largest max|err|/L over the
 #     tensors was decided by ill-conditioned frames (LN1's bias gradient,
 #     sums whose terms cancel), where correct fp32 evaluations spread 12x
@@ -597,9 +620,10 @@ ACTION_FP32 = 1e-4
 #     K6_F32_MAX; on the trained actor at B=256 the plain version read up
 #     to 4.5e-3 from float64 sums and K6 up to 3.0e-3 from the plain
 #     version. k = 2 (EXACT_K["fp32"]): K6 and the chain read at most 0.43
-#     of their limit. fp32 has no rounding point to move, so, as for fp32
-#     K3b, no wrong version exists (fp32 K2b's and K4's are a wrong GELU
-#     form and a wrong scale, above). The chain differentiates the
+#     of their limit. fp32 has no rounding point to move, so no wrong
+#     rounding point exists (fp32 K2b's, K3f's, K3b's and K4's wrong
+#     versions are a wrong GELU form and a wrong scale, above). The chain
+#     differentiates the
 #     forward of the per-block kernels; while K2f's fp32 form was the FMA
 #     body, those streams were K4's bit for bit. Since its cluster form
 #     (3xTF32 and the exact TF32 split) they are not, and a frame of the
@@ -717,23 +741,26 @@ def exact(fn, *args):
 
 
 def float64_eval(fn, x, dy, w, heads, dim_head):
-    """fn, fused_transformer's plain block backward, evaluated in float64
-    throughout: its inputs in float64 and `_f32`, the cast each of its
-    steps takes, casting to float64, so every product, every sum and every
+    """fn, a plain version of fused_transformer or cls_block (a backward
+    fn(x, dy, w, heads, dim_head), or with dy None a forward fn(x, w,
+    heads, dim_head)), evaluated in float64 throughout: its inputs in
+    float64 and `_f32`, the cast each of its steps takes, casting to
+    float64 in both modules, so every product, every sum and every
     elementwise step (the LayerNorms, the softmax and its backward, the
     GELU's erf polynomial) is float64 (chip_k2b_stages.py). Returns fn's
     outputs in float64."""
     import torch
 
+    from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
     kept = ft._f32
-    ft._f32 = lambda t: t.to(torch.float64)
+    ft._f32 = cb._f32 = lambda t: t.to(torch.float64)
     try:
-        return fn(x.double(), dy.double(), [t.double() for t in w], heads,
-                  dim_head)
+        ins = (x.double(),) + (() if dy is None else (dy.double(),))
+        return fn(*ins, [t.double() for t in w], heads, dim_head)
     finally:
-        ft._f32 = kept
+        ft._f32 = cb._f32 = kept
 
 
 def rel_max(outs, refs):
@@ -1115,6 +1142,15 @@ def trunk_mis_scaled(*args):
         return got_forward_plain(*args)
 
 
+def trunk_tanh_gelu(*args):
+    """A wrong fp32 trunk: K1's plain version with the tanh GELU where the
+    TPU kernel takes the erf form."""
+    from dgvit_tpu_torch.ops.got_megakernel import got_forward_plain
+
+    with other_gelu():
+        return got_forward_plain(*args)
+
+
 def k4_mis_scaled(*args):
     """A wrong fp32 K4: its plain version with mis-scaled scores (K1's
     wrong trunk, from the blocks on)."""
@@ -1158,6 +1194,58 @@ def block_tanh_gelu_bwd(x, dy, w, heads, dim_head):
 
     with other_gelu():
         return ft.block_bwd_plain(x, dy, w, heads, dim_head)
+
+
+def q_scaled(w, heads, dim_head):
+    """The block's weights with wqkv's q columns scaled by dim_head^-1/2:
+    the block whose scores are scaled by 1 / dim_head where the model asks
+    1 / sqrt(dim_head)."""
+    inner = heads * dim_head
+    wq = w[2].clone()
+    wq[:, :inner] *= dim_head ** -0.5
+    return [*w[:2], wq, *w[3:]]
+
+
+def cls_mis_scaled_fwd(x, w, heads, dim_head):
+    """A wrong fp32 K3f: its plain version with the scores scaled 1 /
+    dim_head."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+
+    return cb.cls_fwd_plain(x, q_scaled(w, heads, dim_head), heads,
+                            dim_head)
+
+
+def cls_tanh_gelu_fwd(x, w, heads, dim_head):
+    """A wrong fp32 K3f: its plain version with the tanh GELU where the
+    TPU kernel takes the erf form."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+
+    with other_gelu():
+        return cb.cls_fwd_plain(x, w, heads, dim_head)
+
+
+def cls_mis_scaled_bwd(x, dy, w, heads, dim_head):
+    """A wrong fp32 K3b: the plain backward (recomputing its CLS row) of
+    the block whose scores are scaled 1 / dim_head, wq's gradient scaled
+    back as `block_mis_scaled_bwd` does."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+
+    inner = heads * dim_head
+    dx, grads = cb.cls_bwd_plain(x, dy, q_scaled(w, heads, dim_head), heads,
+                                 dim_head)
+    grads = list(grads)
+    grads[2] = grads[2].clone()
+    grads[2][:, :inner] *= dim_head ** -0.5
+    return dx, tuple(grads)
+
+
+def cls_tanh_gelu_bwd(x, dy, w, heads, dim_head):
+    """A wrong fp32 K3b: its plain version (recomputing its CLS row) with
+    the tanh GELU where the TPU kernel takes the erf form."""
+    from dgvit_tpu_torch.ops import cls_block as cb
+
+    with other_gelu():
+        return cb.cls_bwd_plain(x, dy, w, heads, dim_head)
 
 
 def block_hid_plain(x, w, heads, dim_head):
@@ -1230,13 +1318,19 @@ def k1_hidden(args):
     return read, max(K1_HIDDEN_MEAN, EXACT_K["fp32"] * read["plain"][0])
 
 
-# fp32 K2b's and K4's wrong versions (phase 5): fp32 has no rounding
-# point, so the wrong versions are a wrong form (the GELU) and a wrong
-# scale
+# fp32 K2b's, K3f's, K3b's and K4's wrong versions (phase 5) and K1's
+# (phase 2's pooled latent): fp32 has no rounding point, so the wrong
+# versions are a wrong form (the GELU) and a wrong scale
 F32_BLOCK_WRONGS = {"tanh GELU": block_tanh_gelu_bwd,
                     "scores scaled 1 / dim_head": block_mis_scaled_bwd}
 F32_TRUNK_WRONGS = {"tanh GELU": k4_tanh_gelu,
                     "scores scaled 1 / dim_head": k4_mis_scaled}
+F32_CLS_FWD_WRONGS = {"tanh GELU": cls_tanh_gelu_fwd,
+                      "scores scaled 1 / dim_head": cls_mis_scaled_fwd}
+F32_CLS_BWD_WRONGS = {"tanh GELU": cls_tanh_gelu_bwd,
+                      "scores scaled 1 / dim_head": cls_mis_scaled_bwd}
+K1_F32_WRONGS = {"tanh GELU": trunk_tanh_gelu,
+                 "scores scaled 1 / dim_head": trunk_mis_scaled}
 K1_WRONGS = {"erf GELU": trunk_erf_gelu,
              "fp32 residual": trunk_f32_residual,
              "fp32 embedding": trunk_f32_emb}
@@ -1327,6 +1421,8 @@ def phase_kernel_vs_plain(cfg, policies, rng):
 
     worst, k = {}, EXACT_K["K1"]
     f32_reads = {}  # fp32: the largest f32_ratio of each version
+    f32_runs = []   # fp32: (batch, K1's f32_ratio, ({version: [latent]},
+    #                 [float64 sums])) for gap s's pooled check
     pools = {}     # check name: [(out, plain, float64-sum)], one a launch
     single = {}    # form: its one batch of 32, read alone
     cases = [(dt, b) for dt, bs in CHECK_BATCHES.items() for b in bs]
@@ -1352,12 +1448,14 @@ def phase_kernel_vs_plain(cfg, policies, rng):
             outs = {"K1": out, **{f"K1 {f}": k1_launch(f, args)
                                   for f in K1_FP32_FORMS}}
             outs["float64 sums"] = exact(gm.got_forward_plain, *args)
-            outs["scores scaled 1 / dim_head"] = trunk_mis_scaled(*args)
-            with other_gelu():  # read only here: k1_hidden holds the form
-                outs["tanh GELU"] = gm.got_forward_plain(*args)
+            outs.update({what: fn(*args) for what, fn in
+                         K1_F32_WRONGS.items()})
             ratios = {name: f32_ratio(o, ref) for name, o in outs.items()}
             for name, r in ratios.items():
                 f32_reads[name] = max(f32_reads.get(name, 0.0), r)
+            f32_runs.append((batch, ratios["K1"], (
+                {"plain": [ref], **{n: [o] for n, o in outs.items()}},
+                [outs["float64 sums"]])))
             hid, hid_limit = k1_hidden(args)
             ok_hid = (hid["K1's body"][0] <= hid_limit
                       and hid["float64 sums"][0] <= hid_limit)
@@ -1423,7 +1521,8 @@ def phase_kernel_vs_plain(cfg, policies, rng):
               "plain version (passing at 1): " + ", ".join(
                   f"{n} {r:.3e}" for n, r in f32_reads.items())
               + " (the mis-scaled trunk must fail; the tanh GELU is read "
-              "only: the hidden check above holds the GELU form)",
+              "only here: the hidden check above and the pooled check below "
+              "hold the GELU form)",
               flush=True)
         record("K1 fp32", readings=dict(f32_reads))
         for name, r in f32_reads.items():
@@ -1433,6 +1532,11 @@ def phase_kernel_vs_plain(cfg, policies, rng):
             elif name.startswith(("K1", "float64")):
                 check(r <= 1, f"{name} disagrees with K1's plain version "
                       "(fp32)")
+        # gap s: the latent pooled over the fp32 batches against float64
+        # sums under phase 5's rule, which the tanh GELU must fail too (the
+        # F32_TOL check above cannot tell the GELU form apart)
+        f32_check("K1", [b for b, _, _ in f32_runs],
+                  [r for _, _, r in f32_runs], [o for _, o, _ in f32_runs])
     readings = {name: k1_verdict(t, k) for name, t in pools.items()}
     for name, t in single.items():
         readings[f"{name}, one batch of {sb}"] = {
@@ -1883,10 +1987,16 @@ def plain_kernels():
     from dgvit_tpu_torch.ops import got_megakernel as gm
     from dgvit_tpu_torch.ops.trunk_train import trunk_bwd_plain
 
-    swaps = [(ft, "block_fwd_fused", ft.block_fwd_plain),
-             (ft, "block_bwd_fused", ft.block_bwd_plain),
-             (cb, "cls_fwd_fused", cb.cls_fwd_plain),
-             (cb, "cls_bwd_fused", cb.cls_bwd_plain),
+    # the autograd Functions pass the form their forward took: the plain
+    # versions have none
+    swaps = [(ft, "block_fwd_fused",
+              lambda *a, form=None: ft.block_fwd_plain(*a)),
+             (ft, "block_bwd_fused",
+              lambda *a, form=None: ft.block_bwd_plain(*a)),
+             (cb, "cls_fwd_fused",
+              lambda *a, form=None, **k: cb.cls_fwd_plain(*a, **k)),
+             (cb, "cls_bwd_fused",
+              lambda *a, form=None: cb.cls_bwd_plain(*a)),
              (gm, "_launch_blocks", gm.blocks_forward_plain),
              (gm, "trunk_bwd_fused", trunk_bwd_plain),
              (gm, "_launch", lambda *a, form=None: gm.got_forward_plain(
@@ -2052,7 +2162,7 @@ def build_nets(actor_flat, critic_flat):
     return nets
 
 
-RESTATED_F32 = ("K2b", "K3b", "K4")   # fp32 checks held to float64 sums
+RESTATED_F32 = ("K2b", "K3f", "K3b", "K4")   # fp32 checks, restated
 # Phase 5's pooled fp32 statistic (gap r of ROADMAP.md, and fp32 K4): the
 # mean |err| / L of every value, L each tensor's largest |value| of the
 # yardstick, pooled over the tensors and the fp32 batches, under
@@ -2086,24 +2196,37 @@ def max_stat(read):
 
 
 def f32_versions(name, args, out, ref, ex):
-    """One batch of phase 5's restated fp32 check of K2b or K4: ({version:
-    tensors}: the kernel (the route's form: the fp32 cluster at these
-    widths), the FMA body (forced), the plain and the float64-sum versions
-    and the wrong versions (F32_BLOCK_WRONGS, F32_TRUNK_WRONGS); the
+    """One batch of phase 5's restated fp32 check of K2b, K3f, K3b or K4:
+    ({version: tensors}: the kernel (the route's form: the fp32 cluster at
+    these widths), the FMA body (forced; K3b on the records K3f's FMA body
+    writes, a backward reading the forward that ran), the plain and the
+    float64-sum versions and the wrong versions (F32_SPECS); the
     yardstick's tensors: the plain version evaluated in float64 throughout
-    for K2b (`float64_eval`), its float64-sum version `ex` for K4)."""
+    for K2b, K3f and K3b (`float64_eval`; K3b's recomputing the CLS row),
+    its float64-sum version `ex` for K4)."""
+    from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
     from dgvit_tpu_torch.ops import got_megakernel as gm
 
+    _, wrongs, _ = F32_SPECS[name]
     if name == "K2b":
         fma = ft.launch_block_bwd(*args, False, form=0)
-        wrongs, yard = F32_BLOCK_WRONGS, tensors(
-            float64_eval(ft.block_bwd_plain, *args))
+        yard = tensors(float64_eval(ft.block_bwd_plain, *args))
+    elif name == "K3f":
+        fma = ft.launch_block_fwd(*args, True, form=0)
+        x, w, heads, dh = args
+        yard = tensors(float64_eval(cb.cls_fwd_plain, x, None, w, heads, dh))
+    elif name == "K3b":
+        x, dy, w, heads, dh = args
+        rec = cb.saved_buffer(x, w, heads, dh)
+        ft.launch_block_fwd(x, w, heads, dh, True, saved=rec, form=0)
+        fma = ft.launch_block_bwd(*args, True, saved=rec, form=0)
+        yard = tensors(float64_eval(cb.cls_bwd_plain, *args))
     else:
         blocks, fn = gm._flat_vectors(args[1], args[2])
         fma = gm._launch_blocks(args[0], blocks, fn, *args[3:],
                                 body=gm.K4_FORMS["fma"])
-        wrongs, yard = F32_TRUNK_WRONGS, ex
+        yard = ex
     return {"kernel": out, "FMA body": tensors(fma), "plain": ref,
             "float64 sums": ex,
             **{what: tensors(fn(*args)) for what, fn in wrongs.items()}}, yard
@@ -2116,15 +2239,27 @@ def verdicts(errs):
             for name, e in errs.items()}
 
 
+# The restated fp32 checks (see EXACT_K), by kernel: (the yardstick, the
+# wrong versions, whether each batch's largest max|err|/L is held too).
+# K2b, K3f and K3b against the plain version evaluated in float64
+# throughout, K4 and K1's latent against their float64-sum versions.
+F32_SPECS = {
+    "K2b": ("the float64 evaluation", F32_BLOCK_WRONGS, False),
+    "K3f": ("the float64 evaluation", F32_CLS_FWD_WRONGS, False),
+    "K3b": ("the float64 evaluation", F32_CLS_BWD_WRONGS, False),
+    "K4": ("float64 sums", F32_TRUNK_WRONGS, True),
+    "K1": ("float64 sums", K1_F32_WRONGS, False)}
+
+
 def f32_rule(name, runs):
-    """Phase 5's restated fp32 rule for K2b or K4 (`f32_check`) over
-    `runs`, one ({version: tensors}, the yardstick's tensors) a batch:
-    (the raw readings by batch, each version's mean|err|/L pooled over
-    every tensor of every batch, the pooled limit max(F32_POOLED, k x the
-    plain version's), each version's largest max|err|/L by batch, the max
-    limits by batch, max(TRAIN_F32_MAX, k x the plain version's), {version:
-    passes}). K2b is held by the pooled mean alone, K4 also by each
-    batch's largest max|err|/L."""
+    """The restated fp32 rule (`f32_check`) of K2b, K3f, K3b, K4 (phase 5)
+    or K1's latent (phase 2) over `runs`, one ({version: tensors}, the
+    yardstick's tensors) a batch: (the raw readings by batch, each
+    version's mean|err|/L pooled over every tensor of every batch, the
+    pooled limit max(F32_POOLED, k x the plain version's), each version's
+    largest max|err|/L by batch, the max limits by batch, max(TRAIN_F32_MAX,
+    k x the plain version's), {version: passes}). K4 is held by each
+    batch's largest max|err|/L too, the others by the pooled mean alone."""
     k = EXACT_K["fp32"]
     raw = [{v: tensor_stats(o, yard) for v, o in versions.items()}
            for versions, yard in runs]
@@ -2132,26 +2267,29 @@ def f32_rule(name, runs):
     limit = max(F32_POOLED, k * pooled["plain"])
     mx = {v: [max_stat(r[v]) for r in raw] for v in raw[0]}
     max_limit = [max(TRAIN_F32_MAX, k * m) for m in mx["plain"]]
-    verdict = {v: pooled[v] <= limit and (name == "K2b" or all(
+    per_batch = F32_SPECS[name][2]
+    verdict = {v: pooled[v] <= limit and (not per_batch or all(
         m <= lim for m, lim in zip(mx[v], max_limit))) for v in raw[0]}
     return raw, pooled, limit, mx, max_limit, verdict
 
 
 def f32_check(name, batches, runs, old):
-    """Phase 5's restated fp32 check of K2b or K4 (see EXACT_K) over its
-    fp32 batches (`f32_rule` on `runs`, `f32_versions`' a batch): the
-    kernel, the FMA body, the plain and the float64-sum versions must pass
-    it, the wrong versions fail it. `old`: the kernel's old reading by
-    batch (max|err|/L against the plain version)."""
+    """The restated fp32 check of K2b, K3f, K3b, K4 (phase 5) or K1's
+    latent (phase 2; see EXACT_K) over its fp32 batches (`f32_rule` on
+    `runs`, `f32_versions`' a batch): the kernel, the FMA body, the plain
+    and the float64-sum versions must pass it, the wrong versions fail it.
+    `old`: the kernel's old reading by batch (printed beside). Returns the
+    largest ratio of a correct version's reading to the limit and the
+    smallest of a wrong one's (the margins)."""
     raw, pooled, limit, mx, max_limit, verdict = f32_rule(name, runs)
     k = EXACT_K["fp32"]
-    against = "the float64 evaluation" if name == "K2b" else "float64 sums"
-    wrong = set(F32_BLOCK_WRONGS if name == "K2b" else F32_TRUNK_WRONGS)
-    print(f"{name} fp32 B={'+'.join(map(str, batches))}: old readings vs "
-          f"plain max|err|/L {', '.join(f'{o:.3e}' for o in old)}; against "
+    against, wrongs, per_batch = F32_SPECS[name]
+    wrong = set(wrongs)
+    print(f"{name} fp32 B={'+'.join(map(str, batches))}: old readings "
+          f"{', '.join(f'{o:.3e}' for o in old)}; against "
           f"{against}, mean|err|/L pooled over the batches (limit max("
           f"{F32_POOLED:.3e}, {k:g} x plain {pooled['plain']:.3e}) = "
-          f"{limit:.3e})" + ("" if name == "K2b" else
+          f"{limit:.3e})" + ("" if not per_batch else
                               " and each batch's max|err|/L (limits max("
                               f"{TRAIN_F32_MAX:g}, {k:g} x plain) = " +
                               ", ".join(f"{m:.3e}" for m in max_limit) + ")")
@@ -2161,15 +2299,23 @@ def f32_check(name, batches, runs, old):
                   ("fails" if not verdict[v] else "PASSES") if v in wrong
                   else ("ok" if verdict[v] else "FAIL"))
               for v in pooled), flush=True)
+    margins = {"correct": max(pooled[v] / limit for v in pooled
+                              if v not in wrong),
+               "wrong": min(pooled[v] / limit for v in pooled if v in wrong)}
     record("fp32 train", kernel=name, batches=list(batches), stat="pooled",
            against=against, limit=limit, max_limit=max_limit, old=old, k=k,
            floor=F32_POOLED, readings=pooled, max=mx, verdict=verdict,
-           wrong=sorted(wrong), raw=raw)
+           wrong=sorted(wrong), raw=raw, margins=margins)
+    print(f"{name} fp32 margins: correct versions at most "
+          f"{margins['correct']:.3f} of the pooled limit, wrong ones at "
+          f"least {margins['wrong']:.3f} x", flush=True)
     for v, ok in verdict.items():
         if v in wrong:
-            check(not ok, f"phase 5's fp32 rule passes a wrong {name} ({v})")
+            check(not ok, f"the restated fp32 rule passes a wrong {name} "
+                  f"({v})")
         else:
             check(ok, f"fp32 {name}: the {v} disagrees with {against}")
+    return margins
 
 
 def k2b_bf16_rule(runs):
@@ -2239,14 +2385,14 @@ def k2b_bf16_check(runs, old):
 
 def phase_train_kernels(nets, rng):
     """Phase 5: each training kernel against its plain version; fp32 K2b,
-    K3b and K4 and K4's pooled bf16 latent restated against float64 sums
-    (see EXACT_K)."""
+    K3f, K3b and K4 and K4's pooled bf16 latent restated against float64
+    sums or the float64 evaluation (see EXACT_K, F32_SPECS)."""
     import torch
 
     errs = {name: TrainErrors() for name in ("K2f", "K3f", "K3b")}
     k3f_exact = TrainErrors()   # K3f's float64-sum version (EXACT_K's (a))
     k2b_runs, k2b_old = [], TrainErrors()   # bf16 K2b (gap q)
-    f32_runs = {}   # fp32 K2b and K4: [(batch, old, f32_versions)]
+    f32_runs = {}   # fp32 K2b, K3f, K3b, K4: [(batch, old, f32_versions)]
     k4_runs = {}         # K4 and its wrong versions: [(out, plain, exact)]
     wrong = {}
     worst = {}
@@ -2271,35 +2417,17 @@ def phase_train_kernels(nets, rng):
                           / max(r.float().abs().max().item(), 1e-30)
                           for o, r in pairs)
                 if dtype == "float32" and name in RESTATED_F32:
-                    ex = tensors(exact(plain))
-                    if name != "K3b":
-                        a = inp["actor"]
-                        args = ((a["x"], a["dy2"], a["blocks"][0],
-                                 a["heads"], a["dh"]) if name == "K2b" else
-                                (a["x"], a["blocks"], a["fn"], a["heads"],
-                                 a["dh"], "rms"))
-                        f32_runs.setdefault(name, []).append(
-                            (batch, old, f32_versions(name, args, out, ref,
-                                                      ex)))
-                        continue
-                    k = EXACT_K["fp32"]
-                    ok, got, limit = restated(rel_max, TRAIN_F32_MAX, k, out,
-                                              ref, ex)
-                    own = rel_max(ref, ex)
-                    print(f"{name} fp32 B={batch}: old reading vs plain "
-                          f"max|err|/L {old:.3e} (limit {TRAIN_F32_MAX:g}, "
-                          f"{'ok' if old <= TRAIN_F32_MAX else 'FAIL'}); "
-                          f"restated vs float64 sums {got:.3e} (limit max("
-                          f"{TRAIN_F32_MAX:g}, {k:g} x plain {own:.3e}) = "
-                          f"{limit:.3e}) {'ok' if ok else 'FAIL'}",
-                          flush=True)
-                    record("fp32 train", kernel=name, batch=batch,
-                           stat="max", against="float64 sums", limit=limit,
-                           old=old, k=k, floor=TRAIN_F32_MAX,
-                           readings={"kernel": got, "plain": own},
-                           verdict={"kernel": ok})
-                    check(ok, f"{name} disagrees with the float64-sum "
-                          f"version of its plain version (fp32, B={batch})")
+                    a, c = inp["actor"], inp["critic"]
+                    hd = (a["heads"], a["dh"])
+                    args = {"K2b": (a["x"], a["dy2"], a["blocks"][0], *hd),
+                            "K3f": (c["last"], c["blocks"][-1], *hd),
+                            "K3b": (c["last"], c["dy3"], c["blocks"][-1],
+                                    *hd),
+                            "K4": (a["x"], a["blocks"], a["fn"], *hd,
+                                   "rms")}[name]
+                    f32_runs.setdefault(name, []).append(
+                        (batch, old, f32_versions(name, args, out, ref,
+                                                  tensors(exact(plain)))))
                     continue
                 if dtype == "float32":
                     ok = old <= TRAIN_F32_MAX
@@ -4659,30 +4787,45 @@ def phase_recompute(nets, rng):
             read(f"K6 {net} K4 body {body}", ahead, before, after, dx0, dx1,
                  ex)
         reading[f"anchors {net}"] = anchors
-    reading["K2b fp32"] = fp32_recompute(rng.spawn(1)[0])
+    reading["fp32"] = fp32_recompute(rng.spawn(1)[0])
     record("recompute", batch=RECOMPUTE_BATCH, **reading)
     return reading
 
 
 def fp32_recompute(rng):
-    """Phase 13b in fp32: K2b's fp32 cluster form on the 2d BC policy's
-    first block at the BC batches (64, 32): the fp32 forward probe (K2f's
-    cluster form with its intermediates written out) must give K2f's
-    output bit for bit, and the h1, o, h2 and hid K2b's recompute keeps
-    must equal the probe's on every frame (the pass and K2f share
-    tf32_block.cuh's body); K2b's dx is its own on a second launch."""
+    """Phase 13b in fp32, on the 2d BC policy's blocks at the BC batches
+    (64, 32):
+      * K2b's fp32 cluster form on the first block: the fp32 forward probe
+        (K2f's cluster form with its intermediates written out) must give
+        K2f's output bit for bit, and the h1, o, h2 and hid K2b's
+        recompute keeps must equal the probe's on every frame (the pass
+        and K2f share tf32_block.cuh's body); K2b's dx is its own on a
+        second launch;
+      * K3b's fp32 cluster form on the last block: the probe of K3f's
+        cluster form (its own two launches with the intermediates written
+        out) must give K3f's output bit for bit; the k and v of every row
+        and the h1 K3b's pass recomputes must equal the probe's on every
+        frame (both run cl32::project), and the hid it forms from the
+        records must equal the probe's; q, o and h2 in its slots must be
+        the records' parts; the records are anchored to the forward that
+        wrote them (`anchor_verdict`, with its planted wrong records)."""
     import torch
 
+    from dgvit_tpu_torch.ops import cls_block as cb
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
     _, _, model, shape, _ = bc_models()[0]
     heads, dh = model.trans.heads, model.trans.dim_head
-    w = model.trans.fused_params(torch.float32)[2][0]
-    out = {}
+    blocks = model.trans.fused_params(torch.float32)[2]
+    w = blocks[0]
+    out, k3 = {}, {}
     for b in BC_BATCHES:
         obs, goal, _ = bc_batch(b, shape, rng)
         with torch.no_grad():
             x = model.trans.embed(obs, model.fc_embed(goal)).contiguous()
+            last = x
+            for wb in blocks[:-1]:
+                last = ft.block_fwd_plain(last, wb, heads, dh)
         dy = torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
             "float32")).to(DEVICE)
         check(ft.block_form(x, w, dh, False) == 2
@@ -4698,17 +4841,50 @@ def fp32_recompute(rng):
         differ = {k: (ahead[k] != slots[k]).flatten(1).any(1).float()
                   .mean().item() for k in ("h1", "o", "h2", "hid")}
         out[str(b)] = differ
-        ahead = {k: ahead[k] for k in differ}
         print(f"recompute, K2b fp32 (the 2d BC policy's first block, "
               f"B={b}): the probe's output equals K2f's; frames whose "
               "recomputed intermediate differs from K2f's: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in differ.items()), flush=True)
         check(not any(differ.values()), f"phase 13b fp32, B={b}: K2b's "
               f"recompute differs from K2f's forward: {differ}")
-    worst = {k: max(v[k] for v in out.values()) for k in ahead
-             if k in slots}
+
+        # K3b on the last block, on the records of K3f's cluster form
+        wl, dy3 = blocks[-1], dy[:, 0].contiguous()
+        n, d, mlp = last.shape[1], last.shape[2], wl[7].shape[-1]
+        check(ft.block_form(last, wl, dh, True) == 2
+              and ft.block_form(last, wl, dh, True, dy3) == 2,
+              f"phase 13b fp32, B={b}: K3f or K3b off the cluster form")
+        k3f, rec = cb.cls_fwd_fused(last, wl, heads, dh, save=True)
+        probe_out, probe = forward_probe(last, wl, heads, dh, True)
+        check(torch.equal(probe_out, k3f) and torch.equal(
+            k3f, cb.cls_fwd_fused(last, wl, heads, dh)), f"phase 13b fp32, "
+            f"B={b}: K3f's probe, with records and without differ")
+        dx3, s3 = backward_slots(last, dy3, wl, heads, dh, True, rec)
+        check(torch.equal(dx3, cb.cls_bwd_fused(last, dy3, wl, heads, dh,
+                                                rec)[0]),
+              f"phase 13b fp32, B={b}: K3b's dx differs between launches")
+        inner = heads * dh
+        q, _, o, _, h2, _ = torch.split(
+            rec, [inner, heads * n, inner, d, d, mlp], dim=1)
+        kv = torch.cat([probe["k"], probe["v"]], dim=-1)
+        pairs = {"k|v": (kv, s3["kv"]), "h1": (probe["h1"], s3["h1"]),
+                 "hid": (probe["hid"], s3["hid"]), "q": (q, s3["q"]),
+                 "o": (o, s3["o"]), "h2": (h2, s3["h2"]),
+                 "probe o": (probe["o"], o), "probe h2": (probe["h2"], h2)}
+        diff3 = {k: (a != c).flatten(1).any(1).float().mean().item()
+                 for k, (a, c) in pairs.items()}
+        anchor = anchor_verdict(f"K3f fp32 B={b}", last, wl, rec, k3f, heads,
+                                dh)
+        k3[str(b)] = {"differ": diff3, "anchor": anchor}
+        print(f"recompute, K3b fp32 (the 2d BC policy's last block, B={b}):"
+              " the probe's output equals K3f's; frames whose value in K3b's"
+              " pass differs from K3f's: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in diff3.items()), flush=True)
+        check(not any(diff3.values()), f"phase 13b fp32, B={b}: K3b's "
+              f"recompute or slots differ from K3f's forward: {diff3}")
+    worst = {k: max(v[k] for v in out.values()) for k in differ}
     return {"differ": worst, "anywhere": max(worst.values()),
-            "by_batch": out}
+            "by_batch": out, "K3b": k3}
 
 
 def phase_trunk_grad_fp32(default_run):
@@ -5495,6 +5671,12 @@ def smem_mirror_mismatches():
                      b.block_forward_smem(code, 0, *w, 2)),
                     ("K2b cluster fp32", smem.bwd_cluster_fp32(n),
                      b.block_backward_smem(code, 0, *w, 2)),
+                    ("K3f cluster fp32", smem.cls_attend_fp32(n),
+                     b.block_forward_smem(code, 1, *w, 2)),
+                    ("K3b cluster fp32", smem.cls_bwd_cluster_fp32(n),
+                     b.block_backward_smem(code, 1, *w, 2)),
+                    ("K3 fp32 CLS-row MLP", smem.CLS_MLP_FP32,
+                     b.cls_mlp_smem()),
                     ("K2b", smem.bwd_fma(n, d, mlp),
                      b.block_backward_smem(code, 0, *w, 0)),
                     ("K2b mma", smem.bwd_mma(n),
@@ -7628,6 +7810,10 @@ def bc_kernel_times(model, batch, rng):
                           generator=torch.Generator(DEVICE).manual_seed(1))
         dy3 = dy2[:, 0].contiguous()
         rec = cb.cls_fwd_fused(last, blocks[-1], heads, dh, save=True)[1]
+        # the FMA body's K3f writes the records its K3b reads
+        rec0 = cb.saved_buffer(last, blocks[-1], heads, dh)
+        ft.launch_block_fwd(last, blocks[-1], heads, dh, True, saved=rec0,
+                            form=0)
     calls = {
         "K2f": (lambda: ft.block_fwd_fused(x, blocks[0], heads, dh),
                 lambda: ft.block_fwd_plain(x, blocks[0], heads, dh),
@@ -7639,10 +7825,14 @@ def bc_kernel_times(model, batch, rng):
                                             False, form=0)),
         "K3f": (lambda: cb.cls_fwd_fused(last, blocks[-1], heads, dh,
                                          save=True),
-                lambda: cb.cls_fwd_plain(last, blocks[-1], heads, dh)),
+                lambda: cb.cls_fwd_plain(last, blocks[-1], heads, dh),
+                lambda: ft.launch_block_fwd(last, blocks[-1], heads, dh,
+                                            True, saved=rec0, form=0)),
         "K3b": (lambda: cb.cls_bwd_fused(last, dy3, blocks[-1], heads, dh,
                                          rec),
-                lambda: cb.cls_bwd_plain(last, dy3, blocks[-1], heads, dh))}
+                lambda: cb.cls_bwd_plain(last, dy3, blocks[-1], heads, dh),
+                lambda: ft.launch_block_bwd(last, dy3, blocks[-1], heads, dh,
+                                            True, saved=rec0, form=0))}
     rows = {}
     for name, (kern, plain, *fma) in calls.items():
         bnd, by = bound_ms(*train_work(name, batch, esize=4), "float32")
@@ -7663,6 +7853,18 @@ def bc_kernel_times(model, batch, rng):
         "wgrad_kernel": part("wgrad_kernel"),
         "wgrad_finish": part("wgrad_finish"), "vec_finish": part("vec_finish"),
         "all": sum(split.values())}
+    # K3f and K3b the same way: the per-frame cluster launch, the batched
+    # CLS-row MLP launch, K3b's weight products and sums
+    for name, cluster, mlp in (
+            ("K3f", "cls_attend_cluster_fp32_kernel", "cls_mlp_fp32_kernel"),
+            ("K3b", "cls_bwd_cluster_fp32_kernel",
+             "cls_mlp_bwd_fp32_kernel")):
+        split = device_kernels_ms(calls[name][0], 20)
+        part = lambda key: sum(v for k, v in split.items() if key in k)
+        rows[name]["split"] = {
+            "cluster": part(cluster), "mlp": part(mlp),
+            "weight products": part("wgrad_kernel") + part("wgrad_finish")
+            + part("vec_finish"), "all": sum(split.values())}
     return rows
 
 
@@ -7697,10 +7899,10 @@ def phase_bc_kernels(rng, timed=True):
     the plain versions with the other GELU form (`other_gelu`) must fail
     it, and so must the model whose blocks scale their scores by 1 /
     dim_head (`bc_mis_scaled_grads`). The 2d policy's pass takes the fp32
-    cluster forms of K2f and K2b. Then (with `timed`) ms a BC step
-    and fp32 K2f, K2b, K3f and K3b at B = 64 and 32 beside their plain
-    versions and bounds, K2f and K2b beside the FMA body they replaced,
-    and K2b's split by device time."""
+    cluster forms of K2f, K2b, K3f and K3b. Then (with `timed`) ms a BC
+    step and fp32 K2f, K2b, K3f and K3b at B = 64 and 32 beside their
+    plain versions, bounds and the FMA bodies they replaced, and K2b's,
+    K3f's and K3b's splits by device time."""
     import torch
 
     counters = kernel_counters()
@@ -7709,7 +7911,7 @@ def phase_bc_kernels(rng, timed=True):
         obs, goal, act = bc_batch(batch, shape, rng)
         for fn in counters.values():
             fn.launches = 0
-        for kk in ("K2f", "K2b"):
+        for kk in ("K2f", "K2b", "K3f", "K3b"):
             counters[kk].cluster_launches = 0
         out = bc_grads(trainer, model, obs, goal, act)
         launches = {kk: fn.launches for kk, fn in counters.items()}
@@ -7752,11 +7954,12 @@ def phase_bc_kernels(rng, timed=True):
         check(not mis_ok, f"phase 22a: the fp32 rule passes a wrong BC "
               f"pass (scores scaled 1 / dim_head, {key})")
         if name.startswith("2d"):
-            check(counters["K2f"].cluster_launches == 3
-                  and counters["K2b"].cluster_launches == 3,
+            took = {kk: counters[kk].cluster_launches
+                    for kk in ("K2f", "K2b", "K3f", "K3b")}
+            check(took == {"K2f": 3, "K2b": 3, "K3f": 1, "K3b": 1},
                   f"phase 22a: the 2d policy's pass ({key}) took the fp32 "
-                  f"cluster forms {counters['K2f'].cluster_launches} and "
-                  f"{counters['K2b'].cluster_launches} times, expected 3")
+                  f"cluster forms {took} times, expected K2f and K2b 3, "
+                  "K3f and K3b 1")
         if timed and name.startswith("2d"):
             times[batch] = {"kernels": bc_kernel_times(model, batch, rng),
                             "step_ms": bc_step_ms(trainer, model, batch,
@@ -7776,7 +7979,11 @@ def phase_bc_kernels(rng, timed=True):
                   f"{sp['pass']:.4f} ms, wgrad_kernel {sp['wgrad_kernel']:.4f}"
                   f", wgrad_finish {sp['wgrad_finish']:.4f}, vec_finish "
                   f"{sp['vec_finish']:.4f} (all {sp['all']:.4f}; the "
-                  f"weight products {share:.3f} of it)", flush=True)
+                  f"weight products {share:.3f} of it); " + "; ".join(
+                      f"{kk} by device time: " + ", ".join(
+                          f"{part} {v:.4f}" for part, v in
+                          times[batch]["kernels"][kk]["split"].items())
+                      for kk in ("K3f", "K3b")), flush=True)
     return {"checks": readings, "times": times}
 
 
@@ -7840,18 +8047,19 @@ def phase_bc_fit(out_dir):
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    for kk in ("K2f", "K2b"):
+    for kk in ("K2f", "K2b", "K3f", "K3b"):
         counters[kk].cluster_launches = 0
     best, hist = fit(main, BC_EPOCHS)
     launches = {kk: fn.launches for kk, fn in counters.items()}
-    cluster = {kk: counters[kk].cluster_launches for kk in ("K2f", "K2b")}
+    cluster = {kk: counters[kk].cluster_launches
+               for kk in ("K2f", "K2b", "K3f", "K3b")}
     want = {kk: BC_EPOCHS * v for kk, v in per_epoch.items()}
     check(launches == want, f"phase 22b: the fit launched {launches}, "
           f"expected {want}: each epoch {len(tr) // 64} training batches "
           f"({BC_STEP}) and {len(va) // vb} validation batches ({BC_VAL})")
     check(all(cluster[kk] == launches[kk] for kk in cluster),
-          f"phase 22b: of the fit's K2f and K2b launches {cluster} took the "
-          "fp32 cluster forms, expected all")
+          f"phase 22b: of the fit's K2f, K2b, K3f and K3b launches "
+          f"{cluster} took the fp32 cluster forms, expected all")
     losses = hist["train"] + hist["val"]
     check(all(math.isfinite(v) for v in losses)
           and hist["train"][-1] < hist["train"][0],
@@ -8338,6 +8546,96 @@ def k4_fp32_times(actor, rng):
             "by_batch": {str(b): v for b, v in by_batch.items()}}
 
 
+# fp32 K3's batches, each timed in the cluster form and the FMA body
+# (phase 23a): the reference config's B=32 among batches from one frame
+# to 512, where a batch bound of the route rule would show
+K3_FP32_BATCHES = (1, 8, 32, 64, 128, 256, 512)
+K3_FP32_SPLIT = (32, 64, 128)   # ... and read by device time by kernel
+
+
+def k3_fp32_times(actor, rng):
+    """Phase 23a's K3f and K3b in fp32 on `actor`'s last block (the
+    reference config's widths: 4 heads x 64, MLP 2048): at each of
+    K3_FP32_BATCHES seeded frames embedded by the actor and run through
+    its other blocks (the plain version), the cluster form and the FMA
+    body forced (`form`; each K3b on its own K3f's records), each held to
+    the plain version (F32_TOL, every tensor) and timed (CUDA events)
+    beside the plain version and the bound at the fp32 peak; K3f with its
+    records, as under autograd; at K3_FP32_SPLIT the cluster form's
+    device time by CUDA kernel (torch.profiler). At ZOO_BATCH the route's
+    form must be the fp32 cluster. Returns {"K3f": ..., "K3b": ...}, each
+    B=32's times with every batch's under "by_batch"."""
+    import torch
+
+    from dgvit_tpu_torch.ops import cls_block as cb
+    from dgvit_tpu_torch.ops import fused_transformer as ft
+
+    trans, by_batch = actor.trans, {"K3f": {}, "K3b": {}}
+    heads, dh = trans.heads, trans.dim_head
+    for b in K3_FP32_BATCHES:
+        batch = zoo_batch(rng, (128, 160), b)
+        with torch.no_grad():
+            x = trans.embed(batch["obs"], actor.fc_embed(
+                batch["pobs"])).contiguous()
+            blocks = trans.fused_params(torch.float32)[2]
+            for w in blocks[:-1]:
+                x = ft.block_fwd_plain(x, w, heads, dh)
+        w = blocks[-1]
+        dy = torch.from_numpy(rng.standard_normal((b, x.shape[2])).astype(
+            "float32")).to(DEVICE)
+        recs = {2: cb.saved_buffer(x, w, heads, dh),
+                0: cb.saved_buffer(x, w, heads, dh)}
+        fwd = {f: (lambda f=f: ft.launch_block_fwd(
+            x, w, heads, dh, True, saved=recs[f], form=f)) for f in recs}
+        bwd = {f: (lambda f=f: ft.launch_block_bwd(
+            x, dy, w, heads, dh, True, saved=recs[f], form=f)) for f in recs}
+        plain = {"K3f": lambda: cb.cls_fwd_plain(x, w, heads, dh),
+                 "K3b": lambda: cb.cls_bwd_plain(x, dy, w, heads, dh,
+                                                 recs[2])}
+        for name, calls, form in (
+                ("K3f", fwd, ft.block_form(x, w, dh, True)),
+                ("K3b", bwd, ft.block_form(x, w, dh, True, dy))):
+            bnd, by = bound_ms(*train_work(name, b, esize=4), "float32")
+            row = {"form": form, "bound_ms": bnd, "bound_by": by,
+                   "library_ms": None,
+                   "plain_ms": cuda_ms(plain[name], 5, runs=5)}
+            for label, f in (("cluster", 2), ("fma", 0)):
+                if name == "K3b":   # each backward on its own forward
+                    fwd[f]()
+                got, ref = tensors(calls[f]()), tensors(
+                    cb.cls_bwd_plain(x, dy, w, heads, dh, recs[f])
+                    if name == "K3b" else plain[name]())
+                err = max(f32_ratio(o, r) for o, r in zip(got, ref))
+                check(err <= 1, f"phase 23a: {name} fp32 {label} at B={b} "
+                      f"disagrees with its plain version ({err:.3e} of "
+                      "F32_TOL)")
+                row[f"{label}_ms"] = cuda_ms(calls[f], 10, runs=5)
+                row[f"{label}_err"] = max((o - r).abs().max().item()
+                                          for o, r in zip(got, ref))
+            if b in K3_FP32_SPLIT:   # the cluster form by CUDA kernel
+                row["cluster_device_ms"] = {
+                    re.search(r"::(\w+)", k).group(1) if "::" in k else k:
+                    v for k, v in device_kernels_ms(calls[2], 20).items()}
+            by_batch[name][b] = row
+            print(f"phase 23a {name} fp32 at B={b} ({card()}): the route's "
+                  f"form {form}; cluster {row['cluster_ms']:.4f} ms, FMA "
+                  f"body {row['fma_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                  f"bound {bnd:.5f} ({by}); max|err| vs plain: cluster "
+                  f"{row['cluster_err']:.3e}, FMA {row['fma_err']:.3e} "
+                  "(CUDA events)", flush=True)
+    out = {}
+    for name, rows in by_batch.items():
+        t = rows[ZOO_BATCH]
+        check(t["form"] == 2, f"phase 23a: {name} fp32 at B={ZOO_BATCH} "
+              f"takes form {t['form']}")
+        out[name] = {"ms": t["cluster_ms"], "fma_ms": t["fma_ms"],
+                     "max_abs_err": t["cluster_err"], "form": "cluster_fp32",
+                     **{k: t[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+                     "by_batch": {str(b): v for b, v in rows.items()}}
+    return out
+
+
 def phase_reference_config(rng, out_dir):
     """Phase 23a: the reference's configuration (load_reference_yaml: a
     GoT actor, a CNN critic, fp32). One fp32 update at B=32 through the
@@ -8425,6 +8723,11 @@ def phase_reference_config(rng, out_dir):
     # own: the later phases of 23 keep their draws)
     k4_fp32 = k4_fp32_times(state.actor,
                             np.random.default_rng((ZOO_SEED, ZOO_BATCH)))
+    # K3f and K3b in fp32 alone on the actor's last block (the learn
+    # step's gradient-bearing pass), the same way, on a generator of their
+    # own
+    k3_fp32 = k3_fp32_times(state.actor,
+                            np.random.default_rng((ZOO_SEED, ZOO_BATCH, 3)))
 
     # the CNN critic's convolutions with TF32 on (PyTorch's default)
     # against full fp32 (this script's setting), on the same batch
@@ -8453,7 +8756,8 @@ def phase_reference_config(rng, out_dir):
           f"{act_form} form")
     for fn in counters.values():
         fn.launches = 0
-    counters["K4"].cluster_launches = 0
+    for kk in ("K4", "K3f", "K3b"):
+        counters[kk].cluster_launches = 0
     t0 = time.perf_counter()
     main_dir = Path(out_dir) / "main"
     train_rl.main(["--reference-config", path, "--episodes",
@@ -8469,6 +8773,11 @@ def phase_reference_config(rng, out_dir):
           f"phase 23a: train_rl.main launched {main_launches}")
     check(main_cluster == updates, f"phase 23a: {main_cluster} of main's "
           f"{updates} fp32 K4 launches took the cluster form")
+    k3_cluster = {kk: counters[kk].cluster_launches for kk in ("K3f", "K3b")}
+    check(k3_cluster["K3f"] == k3_cluster["K3b"] == main_launches["K3f"]
+          == main_launches["K3b"], f"phase 23a: of main's fp32 K3f and K3b "
+          f"launches {main_launches['K3f']}, {main_launches['K3b']}, "
+          f"{k3_cluster} took the cluster form")
     for fn in counters.values():
         fn.launches = 0
     timings = {}
@@ -8497,7 +8806,9 @@ def phase_reference_config(rng, out_dir):
     print(f"phase 23a entry points ({card()}): train_rl.main "
           f"--reference-config, {ZOO_EPISODES} episodes of at most "
           f"{ZOO_MAX_STEPS} steps in {main_s:.1f} s, launches "
-          f"{main_launches}; train with the bf16 config: {n_env} env steps, "
+          f"{main_launches}, on the fp32 cluster forms K4 {main_cluster}, "
+          f"K3f {k3_cluster['K3f']}, K3b {k3_cluster['K3b']}; train with "
+          f"the bf16 config: {n_env} env steps, "
           f"{n_up} updates, launches {bf_launches}, {out_bf['episodes']} "
           f"episodes; run_eval {ZOO_EVAL_EPISODES} episodes: launches "
           f"{eval_launches}, successes {report['successes']}", flush=True)
@@ -8511,7 +8822,8 @@ def phase_reference_config(rng, out_dir):
                              runs["bf16"]["launches"]},
             "train_bf16": {"env_steps": n_env, "updates": n_up},
             "main_s": main_s, "k1_form": act_form, "k4_fp32": k4_fp32,
-            "k4_cluster_launches": main_cluster}
+            "k4_cluster_launches": main_cluster, "k3_fp32": k3_fp32,
+            "k3_cluster_launches": k3_cluster}
 
 
 def vit_attention_checks(rng):
@@ -9476,6 +9788,15 @@ KERNELS = {   # short name -> (wrapper, source, TPU kernel it replaces)
 }
 
 
+# The CUDA kernels of K3f's and K3b's fp32 cluster forms (block_grad.cu;
+# K3b's weight products are wgrad_kernel's, as every fp32 backward's)
+K3_FP32_KERNELS = {
+    "K3f": ["cls_attend_cluster_fp32_kernel", "cls_mlp_fp32_kernel"],
+    "K3b": ["cls_mlp_bwd_fp32_kernel", "cls_bwd_cluster_fp32_kernel",
+            "wgrad_kernel<float>", "wgrad_finish<float>",
+            "vec_finish<float>"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9794,6 +10115,24 @@ def main() -> int:
         "by_batch": t4["by_batch"],
         "launches_by_path": {
             "reference_config_main": ref_cfg["k4_cluster_launches"]}})
+    # K3f's and K3b's fp32 cluster forms: their launches on the reference
+    # config's `main` (phase 23a), timed there at the reference's batch
+    for short in ("K3f", "K3b"):
+        t3 = ref_cfg["k3_fp32"][short]
+        name, src, replaces = KERNELS[short]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dgvit_tpu_torch/ops/csrc/{src}", "replaces": replaces,
+            "launches": ref_cfg["k3_cluster_launches"][short],
+            **{key: t3[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "fma_ms")},
+            "batch": ZOO_BATCH, "dtype": "float32", "form": t3["form"],
+            "cuda_kernels": K3_FP32_KERNELS[short],
+            "by_batch": t3["by_batch"],
+            "launches_by_path": {
+                "reference_config_main": ref_cfg["k3_cluster_launches"][short],
+                "bc_fit": imitation["bc_fit"]["cluster_launches"][short]}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")

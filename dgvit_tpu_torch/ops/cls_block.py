@@ -32,8 +32,8 @@ import torch
 
 from dgvit_tpu_torch.ops.fused_transformer import (
     _attention, _f32, _gelu32, _gelu_grad32, _grads_like, _heads, _ln,
-    _ln_bwd, _ln_stats, _mlp, _mm, _tmm, check_block_args, launch_block_bwd,
-    launch_block_fwd)
+    _ln_bwd, _ln_stats, _mlp, _mm, _tmm, aligned_for, block_form,
+    check_block_args, check_record_form, launch_block_bwd, launch_block_fwd)
 
 
 def _kv_rows(h1: torch.Tensor, wkv: torch.Tensor,
@@ -211,16 +211,23 @@ def check_saved(saved: torch.Tensor, x: torch.Tensor,
 
 
 def cls_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
-                  dim_head: int, save: bool = False):
+                  dim_head: int, save: bool = False, form: int = None):
     """K3f: `block(x)[:, 0]`, (B, n, d) -> (B, d) in the compute dtype;
     with `save`, (out, the CLS rows' records) as `cls_fwd_plain`. CUDA
-    tensors go to the kernel (and raise if it cannot run); CPU tensors to
-    `cls_fwd_plain`. `cls_fwd_fused.launches` counts kernel launches."""
+    tensors go to the kernel (and raise if it cannot run) in `form`
+    (None: `block_form`'s), which the records keep (`saved.form`); CPU
+    tensors to `cls_fwd_plain`. `cls_fwd_fused.launches` counts wrapper
+    calls that launch, `cls_fwd_fused.cluster_launches` those of the fp32
+    cluster form (its two CUDA launches count once)."""
     check_block_args(x, w, heads, dim_head)
     if x.device.type == "cuda":
+        if form is None:
+            form = block_form(x, w, dim_head, True)
         saved = saved_buffer(x, w, heads, dim_head) if save else None
-        out = launch_block_fwd(x, w, heads, dim_head, cls=True, saved=saved)
+        out = launch_block_fwd(x, w, heads, dim_head, cls=True, saved=saved,
+                               form=form)
         cls_fwd_fused.launches += 1
+        cls_fwd_fused.cluster_launches += form == 2
         return (out, saved) if save else out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
@@ -229,43 +236,56 @@ def cls_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
 
 def cls_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
                   w: Sequence[torch.Tensor], heads: int, dim_head: int,
-                  saved: torch.Tensor = None):
+                  saved: torch.Tensor = None, form: int = None):
     """K3b: the CLS block's backward from x (B, n, d), dy (B, d) and the
     records its forward kept (`cls_fwd_fused(..., save=True)`): (dx (B, n,
     d), the 11 weight grads), in the compute dtype. CUDA tensors go to the
-    kernel, which needs the records; CPU tensors to `cls_bwd_plain`, which
-    recomputes them when `saved` is None. `cls_bwd_fused.launches` counts
-    kernel launches."""
+    kernel, which needs the records, in `form` (None: `block_form`'s rule;
+    `_ClsBlock` passes its forward's); a form other than the one that
+    wrote the records raises (`check_record_form`, on either device). CPU
+    tensors go to `cls_bwd_plain`, which recomputes the records when
+    `saved` is None. `cls_bwd_fused.launches` counts wrapper calls that
+    launch, `cls_bwd_fused.cluster_launches` those of the fp32 cluster form
+    (its two per-frame launches and the weight products count once)."""
     check_block_args(x, w, heads, dim_head, dy=dy, cls=True)
     if saved is not None:
         check_saved(saved, x, w, heads, dim_head)
+        if form is not None:
+            check_record_form(saved, form)
     if x.device.type == "cuda":
         if saved is None:
             raise ValueError("K3b differentiates the CLS row K3f computed: "
                              "pass the records cls_fwd_fused(..., save=True)"
                              " kept")
+        if form is None:
+            form = block_form(x, w, dim_head, True, dy)
         out = launch_block_bwd(x, dy, w, heads, dim_head, cls=True,
-                               saved=saved)
+                               saved=saved, form=form)
         cls_bwd_fused.launches += 1
+        cls_bwd_fused.cluster_launches += form == 2
         return out
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
     return cls_bwd_plain(x, dy, w, heads, dim_head, saved)
 
 
-cls_fwd_fused.launches = 0
-cls_bwd_fused.launches = 0
+cls_fwd_fused.launches = cls_fwd_fused.cluster_launches = 0
+cls_bwd_fused.launches = cls_bwd_fused.cluster_launches = 0
 
 
 class _ClsBlock(torch.autograd.Function):
     """K3f forward, K3b backward. `record`: the call will be
-    differentiated, so K3f keeps the CLS rows' records for K3b."""
+    differentiated, so K3f keeps the CLS rows' records for K3b, and K3b
+    runs the form K3f ran (a dy off a 16-byte boundary is copied,
+    `aligned_for`)."""
 
     @staticmethod
     def forward(ctx, x, heads, dim_head, record, *w):
         if not record:
             return cls_fwd_fused(x, w, heads, dim_head)
-        out, saved = cls_fwd_fused(x, w, heads, dim_head, save=True)
+        ctx.form = block_form(x, w, dim_head, True)
+        out, saved = cls_fwd_fused(x, w, heads, dim_head, save=True,
+                                   form=ctx.form)
         ctx.save_for_backward(x, saved, *w)
         ctx.heads, ctx.dim_head = heads, dim_head
         return out
@@ -273,8 +293,9 @@ class _ClsBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, saved, *w = ctx.saved_tensors
-        dx, grads = cls_bwd_fused(x, dy.contiguous(), w, ctx.heads,
-                                  ctx.dim_head, saved)
+        dy = aligned_for(dy.contiguous(), ctx.form)
+        dx, grads = cls_bwd_fused(x, dy, w, ctx.heads, ctx.dim_head, saved,
+                                  form=ctx.form)
         return (dx, None, None, None, *grads)
 
 

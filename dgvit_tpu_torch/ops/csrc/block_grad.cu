@@ -22,7 +22,10 @@
 // block_fwd_cluster_fp32_kernel and K2b's pass
 // block_bwd_cluster_fp32_kernel: one frame over a cluster of 4 CTAs on
 // tf32_block.cuh's 3xTF32 body, K1's fp32 cluster form's (see the
-// section "the fp32 forms at the flagship widths" below).
+// section "the fp32 forms at the flagship widths" below); K3f and K3b's
+// pass run the CLS-only block's row-heavy half the same way and its
+// CLS rows' MLP as one product over the batch (the section "K3's fp32
+// forms at the flagship widths").
 //
 // Backward, two passes:
 //  1. one thread block per frame recomputes the forward, then runs the
@@ -1525,6 +1528,7 @@ struct BwdSave {
   __device__ __forceinline__ void q(const float (&v)[8][4]) {
     write_rows(v, qs, kLdW, r0, round16(n));
   }
+  __device__ __forceinline__ void p(const float (&)[kKeyTiles][4]) {}
   __device__ __forceinline__ void o(const float (&v)[8][4]) {
     write_rows(v, op + rank * D, inner, r0, n);
   }
@@ -1546,6 +1550,7 @@ struct ProbeSave {
     write_rows(v, h1p, D, r0, n, 2 * rank, 2 * rank + 2);
   }
   __device__ __forceinline__ void q(const float (&)[8][4]) {}
+  __device__ __forceinline__ void p(const float (&)[kKeyTiles][4]) {}
   __device__ __forceinline__ void o(const float (&v)[8][4]) {
     write_rows(v, op + rank * D, inner, r0, n);
   }
@@ -1825,6 +1830,557 @@ __global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 1)
     }
   }
   cluster.sync();  // no rank leaves while another reads its partials
+}
+
+// ---- K3's fp32 forms at the flagship widths ------------------------------
+//
+// K3f and K3b in fp32 at the widths of the full block's cluster forms
+// (fp32_cluster_fwd in ops/fused_transformer.py; form 2 of the launches).
+// The CLS-only block's work is of two kinds. Its row-heavy work (LN1 and
+// the head's k and v over every row, the CLS row's q, attention and
+// out-projection; in the backward, dk|dv over every row and LN1's
+// backward) runs one frame over a cluster of 4 CTAs, rank r on head r,
+// on tf32_block.cuh's body summed as K2f sums it (cl32::Exact). Its
+// weight-heavy work, the CLS row's MLP (2 x 64 x mlp products a row, 1 MB
+// of fp32 weights at mlp 2048), is a matrix product only across frames:
+// the batch's CLS rows, 16 a tile, run it on the tensor cores in the same
+// arithmetic (3xTF32, each 8-deep step summed from zero), the hidden
+// chunks spread over a cluster of cm32::kRanks CTAs, so the weights are
+// read once per 16 frames. The chunks' partial sums are added in a fixed
+// order (a warp's chunks in order, the CTA's warps in order, then the
+// cluster's ranks in order through distributed shared memory), with no
+// atomics.
+//
+// K3f, two launches: cls_attend_cluster_fp32_kernel (cl32::attend with
+// cls_only; rank r writes head r's q, probabilities and o into the CLS
+// record, rank 0 x1 and h2; x1 goes to the output, h2 to a scratch row),
+// then cls_mlp_fp32_kernel (z = h2 w1 + b1 into the record's z, the erf
+// GELU, y = x1 + (b2 + gelu(z) w2) into the output).
+// K3b, two launches before the weight products: cls_mlp_bwd_fp32_kernel
+// (from dy and the record's z: dg = dy w2^T, dz = dg gelu'(z), dh2 = dz
+// w1^T; hid, dz, h2, db1's, db2's and dfn_b's rows to the workspace) and
+// cls_bwd_cluster_fp32_kernel (rank r: LN1 and head r's k and v of every
+// row by cl32::project, the forward's own code, so they are K3f's bit for
+// bit; the CLS row's q, p, o, x1 and h2 from the record, never
+// recomputed; LN2's backward on row 0, do_r, dp, ds and dq on row 0 as
+// one-row tiles, dk = ds q^T and dv = p do^T over every row, dh1's
+// partial [dk | dv] [wk_r | wv_r]^T (+ row 0: dq wq_r^T) exchanged through
+// distributed shared memory and added in rank order, then LN1's
+// backward). The reverse pass's products take the exact three-part TF32
+// split (tf32::A3), as K2b's cluster form does. The workspace slots and
+// row sums are those cls_bwd_body writes, so launch_grads runs unchanged.
+
+namespace cm32 {
+
+namespace cg = cl32::cg;
+using cl32::D;
+using cl32::HC;
+using cl32::kLdW;
+using cl32::kPart;
+using mmafwd::col_of;
+using mmafwd::zero;
+
+constexpr int kRanks = 8;      // CTAs of a cluster: a tile of 16 CLS rows
+constexpr int kTileWarps = 4;  // warps a CTA, a hidden chunk at a time each
+constexpr int kWarpSlots = kRanks * kTileWarps;
+constexpr int kThreads = 32 * kTileWarps;
+// a warp's w1 and w2 chunks (64 x 64 each, rows of kLdW floats); the
+// partial tiles lie over them at the end
+constexpr size_t kWarpBytes = sizeof(float) * 2 * D * kLdW;
+constexpr size_t kBytes = kTileWarps * kWarpBytes;
+static_assert(kRanks * 8 == D, "rank r adds column tile r");
+static_assert(kThreads == 4 * 32, "a thread an entry of a column tile");
+
+// rows x cols fp32 from device memory into the warp's shared memory by its
+// own lanes (16-byte cp.async); commits nothing
+__device__ __forceinline__ void warp_stage(float* s, int sld, const float* g,
+                                           size_t gld, int rows, int cols) {
+  const int per_row = cols / 4, lane = threadIdx.x % 32;
+  for (int i = lane; i < rows * per_row; i += 32) {
+    const int r = i / per_row, c = i % per_row * 4;
+    cp_async16(s + (size_t)r * sld + c, g + r * gld + c);
+  }
+}
+
+// hidden chunk i (64 columns) of w1 and w2 into the warp's ring, landed
+__device__ __forceinline__ void fetch(float* ring, const float* w1,
+                                      const float* w2, int mlp, int i) {
+  __syncwarp();  // every lane is done with the last chunk
+  warp_stage(ring, kLdW, w1 + i * HC, mlp, D, HC);
+  warp_stage(ring + D * kLdW, kLdW, w2 + (size_t)i * HC * D, D, HC, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+}
+
+// The sum of every warp's tile `acc` (16 rows x 64, the accumulator
+// layout) over the cluster: each CTA's warps in order, then the ranks in
+// rank order onto `init(row, col)`; fn(row, col, sum) for the entries of
+// column tile `rank` (rank r, thread i: entry i / 32 of lane i % 32). Every
+// thread of every CTA of the cluster calls it.
+template <typename Init, typename Fn>
+__device__ __forceinline__ void reduce(cg::cluster_group& cluster,
+                                       unsigned char* smem,
+                                       const float (&acc)[8][4], int rank,
+                                       Init init, Fn fn) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* tile = (float*)smem;
+  float* mine = (float*)(smem + warp * kWarpBytes) + lane;
+  __syncwarp();  // the warp is done with its ring
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = acc[j][e];
+  __syncthreads();  // every warp's tile is in place
+  for (int i = threadIdx.x; i < kPart; i += blockDim.x) {
+    float v = tile[i];
+    for (int w = 1; w < kTileWarps; ++w)
+      v += ((const float*)(smem + w * kWarpBytes))[i];
+    tile[i] = v;
+  }
+  cluster.sync();  // every rank's sum is in place
+  const int e = threadIdx.x / 32, at = (4 * rank + e) * 32 + lane;
+  const int row = lane / 4 + 8 * (e / 2),
+            col = 8 * rank + 2 * (lane % 4) + e % 2;
+  float v = init(row, col);
+  for (int rk = 0; rk < kRanks; ++rk)
+    v += cluster.map_shared_rank(tile, rk)[at];
+  fn(row, col, v);
+  cluster.sync();  // no rank leaves while another reads its sum
+}
+
+}  // namespace cm32
+
+// What K3f's cluster form writes besides its records: x1 of the CLS rows
+// (into the output, which the MLP launch completes) and h2 (a scratch row
+// a frame); with a probe's pointers also h1 (B, n, d), o (B, inner), and
+// the head's k and v of every row (B, n, inner) each.
+struct ClsOut32 {
+  float *h2, *h1, *o, *k, *v;
+};
+
+// The hooks of K3f's cluster form for frame f (see ClsOut32): the record
+// `rec` (null when autograd does not record) takes head r's q, its n
+// probabilities and its o from rank r, x1 and h2 from rank 0.
+struct ClsSave32 {
+  float* rec;
+  ClsSave sl;
+  float *x1p, *h2p, *h1p, *op;
+  int n, r0, rank, inner;
+  __device__ __forceinline__ void h1(const float (&v)[8][4]) {
+    if (h1p) bw32::write_rows(v, h1p, cl32::D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+  __device__ __forceinline__ void q(const float (&v)[8][4]) {
+    if (rec) bw32::write_rows(v, rec + rank * cl32::D, cl32::D, 0, 1);
+  }
+  __device__ __forceinline__ void p(const float (&s)[mmafwd::kKeyTiles][4]) {
+    if (!rec || threadIdx.x % 32 >= 4) return;  // row 0: lanes 0-3
+    float* pr = rec + sl.p + rank * n;
+#pragma unroll
+    for (int j = 0; j < mmafwd::kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = mmafwd::col_of(j, e);
+        if (key < n) pr[key] = s[j][e];
+      }
+  }
+  __device__ __forceinline__ void o(const float (&v)[8][4]) {
+    if (rec) bw32::write_rows(v, rec + sl.o + rank * cl32::D, cl32::D, 0, 1);
+    if (op) bw32::write_rows(v, op + rank * cl32::D, inner, 0, 1);
+  }
+  __device__ __forceinline__ void x1h2(const float (&x1)[8][4],
+                                       const float (&h2)[8][4]) {
+    if (rank != 0) return;
+    bw32::write_rows(x1, x1p, cl32::D, 0, 1);
+    bw32::write_rows(h2, h2p, cl32::D, 0, 1);
+    if (rec) {
+      bw32::write_rows(x1, rec + sl.x1, cl32::D, 0, 1);
+      bw32::write_rows(h2, rec + sl.h2, cl32::D, 0, 1);
+    }
+  }
+  __device__ __forceinline__ void hid(const float (&)[8][4], int) {}
+};
+
+// A CTA of cls_attend_cluster_fp32_kernel: cl32::Layout's attention tiles
+// (the head's k and v of every row, its q|k|v and wout slices), the
+// out-projection's partial tile over the q|k|v slices (only the warp of
+// row 0 writes it, after every warp has projected), no MLP ring.
+struct ClsFwdLayout {
+  cl32::Layout fwd;
+  size_t total;
+  __host__ __device__ explicit ClsFwdLayout(int n) : fwd(n, 0) {
+    fwd.part_a = fwd.wq;
+    total = align16(fwd.wo + sizeof(float) * cl32::D * cl32::kLdW);
+    fwd.total = total;
+  }
+};
+
+// K3f's first launch in fp32 (see above): one frame over a cluster of 4
+// CTAs, cl32::attend with cls_only, two CTAs an SM (its registers held
+// to 204 a thread, a few spilled: so all 32 clusters of B=32 run at once
+// where a CTA an SM ran about 30).
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 2)
+    cls_attend_cluster_fp32_kernel(const __grid_constant__ FwdArgs a,
+                                   ClsOut32 out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, rank = (int)cluster.block_rank(),
+            f = blockIdx.x / cl32::kRanks, r0 = threadIdx.x / 32 * 16;
+  const int D = cl32::D, inner = a.m.heads * D;
+  const ClsFwdLayout L(n);
+  const size_t fr = (size_t)f * n;
+  mmafwd::Rows x;
+  bw32::read_rows(x, (const float*)a.x + fr * D, D, r0, n);
+  ClsSave32 save = {a.sv.base ? a.sv.at(f) : nullptr, a.sv,
+                    (float*)a.out + (size_t)f * D, out.h2 + (size_t)f * D,
+                    out.h1 ? out.h1 + fr * D : nullptr,
+                    out.o ? out.o + (size_t)f * inner : nullptr,
+                    n, r0, rank, inner};
+  float h2[8][4];
+  cl32::attend<cl32::Exact>(cluster, a.m, a.w, n, rank, r0, x, h2, smem_raw,
+                            L.fwd, true, save);
+  if (out.k) {  // a probe: the head's k and v of every row
+    const float* ks = (const float*)(smem_raw + L.fwd.k);
+    const float* vs = (const float*)(smem_raw + L.fwd.v);
+    for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+      const int r = i / D, c = i % D;
+      const size_t at = (fr + r) * inner + rank * D + c;
+      out.k[at] = ks[(size_t)r * cl32::kLdK + c];
+      out.v[at] = vs[(size_t)r * cl32::kLdW + c];
+    }
+  }
+  cluster.sync();  // no rank leaves while another reads its partials
+}
+
+// K3f's second launch in fp32: the MLP of the batch's CLS rows, 16 a
+// cluster of cm32::kRanks CTAs, hidden chunk c on warp slot c mod
+// cm32::kWarpSlots. x1 is in the output, h2 in h2s (batch, d); z goes to the
+// records when autograd records, the GELU values to hid in a probe.
+__global__ void __launch_bounds__(cm32::kThreads, 1)
+    cls_mlp_fp32_kernel(const __grid_constant__ FwdArgs a, const float* h2s,
+                        float* hid, int batch) {
+  using namespace cm32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), f0 = blockIdx.x / kRanks * 16,
+            rows = batch - f0 < 16 ? batch - f0 : 16,
+            warp = threadIdx.x / 32, mlp = a.m.mlp;
+  const float* w1 = (const float*)a.w[7];
+  const float* b1 = (const float*)a.w[8];
+  const float* w2 = (const float*)a.w[9];
+  const float* b2 = (const float*)a.w[10];
+  float* ring = (float*)(smem_raw + warp * kWarpBytes);
+  float* rec = a.sv.base ? a.sv.at(f0) : nullptr;
+  float h2[8][4], y[8][4];
+  cl32::read_rows(h2, h2s + (size_t)f0 * D, D, 0, rows);
+  zero(y);
+  for (int c = rank * kTileWarps + warp; c < mlp / HC; c += kWarpSlots) {
+    fetch(ring, w1, w2, mlp, c);
+    float z[8][4];
+    zero(z);
+    cl32::rows_mma<cl32::Exact, tf32::A>(z, h2, ring);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[j][e] = z[j][e] + b1[c * HC + col_of(j, e)];
+    if (rec) bw32::write_rows(z, rec + a.sv.z + c * HC, a.sv.stride, 0, rows);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[j][e] = gelu<float>(z[j][e]);
+    if (hid) bw32::write_rows(z, hid + (size_t)f0 * mlp + c * HC, mlp, 0, rows);
+    cl32::rows_mma<cl32::Exact, tf32::A>(y, z, ring + D * kLdW);
+  }
+  float* out = (float*)a.out + (size_t)f0 * D;
+  reduce(cluster, smem_raw, y, rank, [&](int, int col) { return b2[col]; },
+         [&](int row, int col, float v) {
+           if (row < rows) out[row * D + col] = out[row * D + col] + v;
+         });
+}
+
+// K3b's first launch in fp32: the MLP's backward on the batch's CLS rows,
+// 16 a cluster as cls_mlp_fp32_kernel: dg = dy w2^T, dz = dg gelu'(z)
+// (z from the records), dh2 = dz w1^T; hid = gelu(z) and dz to their
+// slots, dz as db1's row sum; dh2 (dfn_b's row sum), dy (db2's) and the
+// record's h2 (its slot) by the rank's column tile.
+__global__ void __launch_bounds__(cm32::kThreads, 1)
+    cls_mlp_bwd_fp32_kernel(const __grid_constant__ BwdArgs a, int batch) {
+  using namespace cm32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), f0 = blockIdx.x / kRanks * 16,
+            rows = batch - f0 < 16 ? batch - f0 : 16,
+            warp = threadIdx.x / 32, mlp = a.m.mlp, L_ = 6 * D + mlp;
+  const float* w1 = (const float*)a.w[7];
+  const float* w2 = (const float*)a.w[9];
+  float* ring = (float*)(smem_raw + warp * kWarpBytes);
+  const float* rec = a.sv.at(f0);
+  const float* dyp = (const float*)a.dy + (size_t)f0 * D;
+  float* V = a.vec + (size_t)f0 * L_;
+  float dy[8][4], dh2[8][4];
+  cl32::read_rows(dy, dyp, D, 0, rows);
+  zero(dh2);
+  for (int c = rank * kTileWarps + warp; c < mlp / HC; c += kWarpSlots) {
+    fetch(ring, w1, w2, mlp, c);
+    float z[8][4], g[8][4];
+    cl32::read_rows(z, rec + a.sv.z + c * HC, a.sv.stride, 0, rows);
+    zero(g);
+    bw32::rows_mma_t(g, dy, ring + D * kLdW);  // dg = dy w2c^T
+    float hv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hv[j][e] = gelu<float>(z[j][e]);
+        g[j][e] = g[j][e] * gelu_grad<float>(z[j][e]);
+      }
+    const size_t col0 = (size_t)f0 * mlp + c * HC;
+    bw32::write_rows(hv, (float*)a.s[4] + col0, mlp, 0, rows);
+    bw32::write_rows(g, (float*)a.s[5] + col0, mlp, 0, rows);
+    bw32::write_rows(g, V + 6 * D + c * HC, L_, 0, rows);  // db1
+    bw32::rows_mma_t(dh2, g, ring);  // dh2 += dz w1c^T
+  }
+  float* h2_slot = (float*)a.s[3] + (size_t)f0 * D;
+  reduce(cluster, smem_raw, dh2, rank, [](int, int) { return 0.f; },
+         [&](int row, int col, float v) {
+           if (row >= rows) return;
+           V[(size_t)row * L_ + 4 * D + col] = v;         // dfn_b: dh2
+           V[(size_t)row * L_ + 5 * D + col] = dyp[row * D + col];  // db2
+           h2_slot[row * D + col] =
+               rec[(size_t)row * a.sv.stride + a.sv.h2 + col];
+         });
+}
+
+// A CTA of cls_bwd_cluster_fp32_kernel: the forward's tiles (cl32::Layout:
+// the head's k and v of every row, its q|k|v and wout slices), the same
+// bytes as ClsFwdLayout's, so two CTAs fit an SM. Once the CLS row's
+// reverse is done (a __syncthreads), k and v are free: dh1's partial
+// tile (16 x 64 a warp) lies over k, the column sums by warp over v;
+// row 0's ds, p, do and q lie over the wout slice, which only the warp of
+// row 0 reads, before it writes them.
+struct ClsBwdLayout {
+  cl32::Layout fwd;
+  size_t part, cs, ds, p, dov, qv, total;
+  __host__ __device__ explicit ClsBwdLayout(int n) : fwd(n, 0) {
+    using mmafwd::take;
+    const size_t np = round16(n);
+    part = fwd.k;
+    cs = fwd.v;
+    size_t o = fwd.wo;
+    ds = take(o, sizeof(float) * np);
+    p = take(o, sizeof(float) * np);
+    dov = take(o, sizeof(float) * cl32::D);
+    qv = take(o, sizeof(float) * cl32::D);
+    total = align16(fwd.wo + sizeof(float) * cl32::D * cl32::kLdW);
+    fwd.part_a = part;
+    fwd.total = total;
+  }
+};
+
+// What K3b's cluster form keeps of cl32::project: h1 by the rank's column
+// tiles (its slot).
+struct ClsBwdSave : cl32::NoSave {
+  float* h1p;
+  int n, r0, rank;
+  __device__ __forceinline__ void h1(const float (&v)[8][4]) {
+    bw32::write_rows(v, h1p, cl32::D, r0, n, 2 * rank, 2 * rank + 2);
+  }
+};
+
+// K3b's second launch in fp32: the per-frame pass over a cluster of 4
+// CTAs (see above), two CTAs an SM.
+__global__ void __launch_bounds__(mmafwd::kMaxThreads / mmafwd::kFrames, 2)
+    cls_bwd_cluster_fp32_kernel(const __grid_constant__ BwdArgs a) {
+  using namespace bw32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cl32::cg::cluster_group cluster = cl32::cg::this_cluster();
+  const int n = a.n, np = round16(n), warps = np / 16,
+            rank = (int)cluster.block_rank(), f = blockIdx.x / kRanks,
+            r0 = threadIdx.x / 32 * 16, j0 = 2 * rank, j1 = j0 + 2;
+  const Dims m = a.m;
+  const int inner = m.heads * D, i2 = 2 * inner, mlp = m.mlp;
+  const ClsBwdLayout L(n);
+  const float* ks = (const float*)(smem_raw + L.fwd.k);
+  const float* vs = (const float*)(smem_raw + L.fwd.v);
+  const float* wq = (const float*)(smem_raw + L.fwd.wq);
+  const float* wo = (const float*)(smem_raw + L.fwd.wo);
+  float* part = (float*)(smem_raw + L.part);
+  float* cs = (float*)(smem_raw + L.cs);
+  float* dsv = (float*)(smem_raw + L.ds);
+  float* pv = (float*)(smem_raw + L.p);
+  float* dov = (float*)(smem_raw + L.dov);
+  float* qv = (float*)(smem_raw + L.qv);
+  const float* an_s = (const float*)a.w[0];
+  const float* fn_s = (const float*)a.w[5];
+  const size_t fr = (size_t)f * n;
+  const ClsSave sl = a.sv;
+  const float* rec = sl.at(f);
+  float* V = a.vec + (size_t)f * (6 * D + mlp);
+  const int lane = threadIdx.x % 32;
+
+  // ---- LN1 and head r's k and v of every row, as K3f computed them ----
+  float x[8][4], unused[8][4];
+  read_rows(x, (const float*)a.x + fr * D, D, r0, n);
+  ClsBwdSave save;
+  save.h1p = (float*)a.s[0] + fr * D;
+  save.n = n;
+  save.r0 = r0;
+  save.rank = rank;
+  cl32::project<cl32::Exact>(m, a.w, n, rank, r0, x, unused, smem_raw, L.fwd,
+                             false, save);
+  {  // k|v to its slot (wqkv's column order), as cls_bwd_body writes it
+    float* KV = (float*)a.s[1] + fr * i2;
+    for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+      const int r = i / D, c = i % D;
+      KV[(size_t)r * i2 + rank * D + c] = ks[(size_t)r * kLdK + c];
+      KV[(size_t)r * i2 + inner + rank * D + c] = vs[(size_t)r * kLdW + c];
+    }
+  }
+
+  // ---- the CLS row's reverse on the warp of row 0 (one-row tiles) ----
+  float g1[8][4], dq[8][4];
+  zero(g1);
+  zero(dq);
+  if (r0 == 0) {
+    float x1[8][4], dh2[8][4], dy[8][4], xhat[8][4];
+    read_rows(x1, rec + sl.x1, D, 0, 1);
+    read_rows(dh2, V + 4 * D, D, 0, 1);
+    read_rows(dy, (const float*)a.dy + (size_t)f * D, D, 0, 1);
+    ln_back(x1, dh2, fn_s, 0, 1, xhat, g1);  // g1 = dy + LN2^T(dh2)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g1[j][e] = dy[j][e] + g1[j][e];
+    if (rank == 0) {
+      mul(x1, dh2, xhat);
+      write_rows(x1, V + 3 * D, D, 0, 1);  // dfn_s
+      write_rows(g1, V + 2 * D, D, 0, 1);  // dbout
+      write_rows(g1, (float*)a.s[6] + (size_t)f * D, D, 0, 1);
+    }
+    float d_o[8][4];
+    zero(d_o);
+    rows_mma_t(d_o, g1, wo);  // do_r = g1 wout_r^T
+    write_rows(d_o, (float*)a.s[7] + (size_t)f * inner + rank * D, D, 0, 1);
+    // the forward's probabilities of head r (row 0), dp = do v^T, ds
+    float s[kKeyTiles][4], dp[kKeyTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = col_of(j, e);
+        s[j][e] = lane < 4 && e < 2 && key < n ? rec[sl.p + rank * n + key]
+                                               : 0.f;
+        dp[j][e] = 0.f;
+      }
+    keys_mma(dp, d_o, vs, kLdW, np);
+    __syncwarp();  // every lane is done with wout, whose region takes row 0
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) rs += dp[j][e] * s[j][e];
+    rs = quad_sum(rs);
+    if (lane < 4)
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = col_of(j, e);
+          if (key < np) {
+            pv[key] = s[j][e];
+            dp[j][e] = (s[j][e] * (dp[j][e] - rs)) * m.scale;  // ds
+            dsv[key] = dp[j][e];
+          }
+        }
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 2; e < 4; ++e) dp[j][e] = 0.f;
+    if (lane >= 4)
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dp[j][e] = 0.f;
+    over_keys(dq, dp, ks, kLdK, np);  // dq = ds k
+    const size_t at = (size_t)f * inner + rank * D;
+    write_rows(dq, (float*)a.s[10] + at, D, 0, 1);
+    if (lane < 4)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dov[col_of(j, e)] = d_o[j][e];
+    for (int c = lane; c < D; c += 32) {
+      qv[c] = rec[rank * D + c];
+      ((float*)a.s[9])[at + c] = rec[rank * D + c];
+      ((float*)a.s[2])[at + c] = rec[sl.o + rank * D + c];
+    }
+  }
+  __syncthreads();  // row 0's ds, p, do and q are in place
+
+  // ---- dk = ds q^T, dv = p do^T over every row; dh1 ----
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row_of(r0, e), c = col_of(j, e);
+      dk[j][e] = dsv[r] * qv[c];
+      dv[j][e] = pv[r] * dov[c];
+    }
+  float* dkv = (float*)a.s[8] + fr * i2;
+  write_rows(dk, dkv + rank * D, i2, r0, n);
+  write_rows(dv, dkv + inner + rank * D, i2, r0, n);
+  float dh1[8][4];
+  zero(dh1);
+  rows_mma_t(dh1, dk, wq + D * kLdW);
+  rows_mma_t(dh1, dv, wq + 2 * D * kLdW);
+  if (r0 == 0) rows_mma_t(dh1, dq, wq);  // row 0: dq wq_r^T
+  cl32::put_part(dh1, part);
+  cluster.sync();  // every rank's dh1 partial is in place
+  zero(dh1);
+  cl32::add_parts(cluster, part, dh1);
+
+  // ---- LN1's backward: dx = LN1^T(dh1) (+ g1 on row 0) ----
+  {
+    float xhat[8][4], dln[8][4];
+    ln_back(x, dh1, an_s, r0, n, xhat, dln);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = dln[j][e] + g1[j][e];
+    write_rows(x, (float*)a.dx + fr * D, D, r0, n, j0, j1);
+    if (rank == 0) {
+      mul(dln, dh1, xhat);
+      col_sums(dln, cs, V, warps);      // dan_s
+      col_sums(dh1, cs, V + D, warps);  // dan_b
+    }
+  }
+  cluster.sync();  // no rank leaves while another reads its partials
+}
+
+// A launch of a cm32 kernel over the batch's tiles of 16 CLS rows, a
+// cluster of cm32::kRanks CTAs a tile. Returns a cudaError_t.
+template <typename Kernel, typename... Ts>
+int launch_cls_mlp(Kernel kernel, int batch, cudaStream_t s, Ts... args) {
+  size_t limit = 0;
+  cudaError_t err = (cudaError_t)smem_opt_in(kernel, &limit);
+  if (err != cudaSuccess) return err;
+  if (cm32::kBytes > limit) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cm32::kRanks * ((batch + 15) / 16), 1, 1);
+  cfg.blockDim = dim3(cm32::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = cm32::kBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cm32::kRanks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // The per-frame pass of the CLS-only block's backward for frame f: the
@@ -2875,7 +3431,8 @@ bool fp32_cluster_takes(int n, const Dims& m, const void* const* ptrs,
 }
 
 // The per-frame pass of K2b (cls false) or K3b in `form` (0 the FMA body,
-// 1 the bf16 tensor-core body, 2 K2b's fp32 cluster form), then pass 2.
+// 1 the bf16 tensor-core body, 2 the fp32 cluster form: K2b's one launch,
+// K3b's two, which read the records), then pass 2.
 template <typename T>
 int launch_bwd(bool cls, int form, BwdArgs& a, void* const* g,
                unsigned char* ws, int B, cudaStream_t stream) {
@@ -2903,11 +3460,19 @@ int launch_bwd(bool cls, int form, BwdArgs& a, void* const* g,
                             a);
   } else {
     const void* aligned[] = {a.x, a.dy, a.dx, a.w[2], a.w[3], a.w[7],
-                             a.w[9]};
-    if (form != 2 || cls || !fp32_cluster_takes(a.n, a.m, aligned, 7))
+                             a.w[9], a.sv.base};
+    if (form != 2 || recompute ||
+        !fp32_cluster_takes(a.n, a.m, aligned, cls ? 8 : 7))
       return cudaErrorInvalidValue;
-    err = cl32::launch(block_bwd_cluster_fp32_kernel, a.n, B,
-                       bw32::Layout(a.n).total, stream, a);
+    if (!cls) {
+      err = cl32::launch(block_bwd_cluster_fp32_kernel, a.n, B,
+                         bw32::Layout(a.n).total, stream, a);
+    } else {
+      err = launch_cls_mlp(cls_mlp_bwd_fp32_kernel, B, stream, a, B);
+      if (err == cudaSuccess)
+        err = cl32::launch(cls_bwd_cluster_fp32_kernel, a.n, B,
+                           ClsBwdLayout(a.n).total, stream, a);
+    }
   }
   if (err != cudaSuccess) return err;
   return launch_grads<T>(cls, a, g, part, B, stream);
@@ -3037,10 +3602,11 @@ extern "C" {
 
 // Bytes of dynamic shared memory of K2f (cls = 0) and K3f (cls = 1) for
 // these shapes in `form` (as block_forward_launch takes it): 1 the bf16
-// tensor-core body, 2 a CTA of K2f's fp32 cluster form.
+// tensor-core body, 2 a CTA of the fp32 cluster form (K3f: of its
+// attention half; cls_mlp_smem gives its MLP launch's).
 size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
                           int dim_head, int mlp, int form) {
-  if (form == 2) return cl32::Layout(n, 0).total;
+  if (form == 2) return cls ? ClsFwdLayout(n).total : cl32::Layout(n, 0).total;
   if (form) return mmafwd::Layout(n).total;
   const int hc = mlp < 256 ? mlp : 256;
   return dtype == 1 ? Smem<__nv_bfloat16>(n, d, heads, dim_head, hc).total
@@ -3049,15 +3615,21 @@ size_t block_forward_smem(int dtype, int cls, int n, int d, int heads,
 
 // Bytes of dynamic shared memory of the per-frame pass of K2b (cls = 0)
 // and K3b (cls = 1) in `form` (as block_backward_launch takes it): 1 the
-// bf16 tensor-core bodies, 2 a CTA of K2b's fp32 cluster form.
+// bf16 tensor-core bodies, 2 a CTA of the fp32 cluster form (K3b: of
+// cls_bwd_cluster_fp32_kernel; cls_mlp_smem gives its MLP launch's).
 size_t block_backward_smem(int dtype, int cls, int n, int d, int heads,
                            int dim_head, int mlp, int form) {
   (void)dtype;
-  if (form == 2) return bw32::Layout(n).total;
+  if (form == 2) return cls ? ClsBwdLayout(n).total : bw32::Layout(n).total;
   if (form) return cls ? ClsMmaSmem(n, heads * dim_head, mlp).total
                        : MmaBwdSmem(n).total;
   return BwdSmem(n, d, mlp < 128 ? mlp : 128).total;
 }
+
+// Bytes of dynamic shared memory of a CTA of the fp32 cluster forms'
+// batched CLS-row MLP launches (K3f's cls_mlp_fp32_kernel, K3b's
+// cls_mlp_bwd_fp32_kernel), any width.
+size_t cls_mlp_smem() { return cm32::kBytes; }
 
 // Bytes of dynamic shared memory of K6's per-frame pass; mma = 1: its
 // full blocks on the tensor-core body.
@@ -3071,15 +3643,17 @@ size_t trunk_backward_smem(int dtype, int n, int d, int heads, int dim_head,
 // K2f (cls = 0) and K3f (cls = 1). dtype: 0 = fp32, 1 = bf16 compute.
 // ptrs: x (B, n, d), 11 weights in the fused-transformer order, out
 // (B, n, d) or, with cls, (B, d), then, with cls, the CLS rows' records
-// (B, ClsSave stride) fp32, written when not null (autograd records).
+// (B, ClsSave stride) fp32, written when not null (autograd records), and
+// K3f's fp32 cluster form's scratch, (B, d) fp32 (LN2 of the CLS rows).
 // form = 1 runs K2f (block_fwd_mma_kernel) or K3f (cls_fwd_mma_kernel) on
 // the bf16 tensor-core body, which takes bf16, d = dim_head = 64, n <= 80,
 // mlp a multiple of 64 and 16-byte aligned x, out and matrix weights;
-// form = 2 K2f in fp32 over a cluster of 4 CTAs a frame
-// (block_fwd_cluster_fp32_kernel), which takes fp32, d = dim_head = 64, 4
-// heads, n <= 80, mlp a multiple of 256 and those tensors 16-byte aligned
-// (cudaErrorInvalidValue else); form = 0 the FMA body, any width. Returns
-// a cudaError_t (0 = launched).
+// form = 2 the fp32 cluster form, K2f over a cluster of 4 CTAs a frame
+// (block_fwd_cluster_fp32_kernel), K3f as cls_attend_cluster_fp32_kernel
+// then cls_mlp_fp32_kernel, which take fp32, d = dim_head = 64, 4 heads,
+// n <= 80, mlp a multiple of 256 and those tensors (the records and the
+// scratch too) 16-byte aligned (cudaErrorInvalidValue else); form = 0 the
+// FMA body, any width. Returns a cudaError_t (0 = launched).
 int block_forward_launch(int dtype, int cls, const void* const* ptrs,
                          int batch, int n, int d, int heads, int dim_head,
                          int mlp, float scale, void* stream, int form) {
@@ -3094,12 +3668,22 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
   a.n = n;
   a.m = dims(d, heads, dim_head, mlp, 256, scale);
   cudaStream_t s = (cudaStream_t)stream;
-  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9]};
+  const void* aligned[] = {a.x, a.out, a.w[2], a.w[3], a.w[7], a.w[9],
+                           a.sv.base, cls && form == 2 ? ptrs[14] : nullptr};
   if (form == 2) {
-    if (dtype != 0 || cls || !fp32_cluster_takes(n, a.m, aligned, 6))
+    if (dtype != 0 || !fp32_cluster_takes(n, a.m, aligned, 8))
       return cudaErrorInvalidValue;
-    return cl32::launch(block_fwd_cluster_fp32_kernel, n, batch,
-                        cl32::Layout(n, 0).total, s, a);
+    if (!cls)
+      return cl32::launch(block_fwd_cluster_fp32_kernel, n, batch,
+                          cl32::Layout(n, 0).total, s, a);
+    const ClsOut32 o = {(float*)ptrs[14], nullptr, nullptr, nullptr,
+                        nullptr};
+    if (o.h2 == nullptr) return cudaErrorInvalidValue;
+    const int err = cl32::launch(cls_attend_cluster_fp32_kernel, n, batch,
+                                 ClsFwdLayout(n).total, s, a, o);
+    if (err != cudaSuccess) return err;
+    return launch_cls_mlp(cls_mlp_fp32_kernel, batch, s, a,
+                          (const float*)o.h2, (float*)nullptr, batch);
   }
   if (form) {
     if (form != 1 || dtype != 1 || !mmafwd::takes(n, a.m, aligned, 6))
@@ -3125,7 +3709,9 @@ int block_forward_launch(int dtype, int cls, const void* const* ptrs,
 // 1) on the bf16 tensor-core body with its intermediates written out
 // (block_probe_kernel), or, dtype 0, K2f's fp32 cluster form
 // (block_probe_cluster_fp32_kernel; k1 = 1: the body as K1's fp32 cluster
-// form sums it, cl32::Fast). ptrs: x, 11 weights, out as
+// form sums it, cl32::Fast) or K3f's (its two kernels with the probe's
+// pointers: h1 and o by the attention half, hid by the MLP launch, h2 as
+// the attention half hands it to the MLP). ptrs: x, 11 weights, out as
 // block_forward_launch takes them, then h1, o, h2, hid, k, v as Probe (bf16)
 // or Probe32 (fp32) says. The widths and alignment of
 // block_forward_launch's form 1 (bf16) or 2 (fp32) (cudaErrorInvalidValue
@@ -3146,8 +3732,15 @@ int block_forward_probe(int dtype, int cls, const void* const* ptrs,
   if (dtype == 0) {
     const Probe32 pr = {(float*)ptrs[13], (float*)ptrs[14], (float*)ptrs[15],
                         (float*)ptrs[16], (float*)ptrs[17], (float*)ptrs[18]};
-    if (cls || !fp32_cluster_takes(n, a.m, aligned, 6))
-      return cudaErrorInvalidValue;
+    if (!fp32_cluster_takes(n, a.m, aligned, 6)) return cudaErrorInvalidValue;
+    if (cls) {  // K3f's cluster form itself, its h2 into the probe's
+      const ClsOut32 o = {pr.h2, pr.h1, pr.o, pr.k, pr.v};
+      const int err = cl32::launch(cls_attend_cluster_fp32_kernel, n, batch,
+                                   ClsFwdLayout(n).total, s, a, o);
+      if (err != cudaSuccess) return err;
+      return launch_cls_mlp(cls_mlp_fp32_kernel, batch, s, a,
+                            (const float*)pr.h2, pr.hid, batch);
+    }
     const size_t bytes = cl32::Layout(n, 0).total;
     return k1 ? cl32::launch(block_probe_cluster_fp32_kernel<cl32::Fast>, n,
                              batch, bytes, s, a, pr)
@@ -3181,11 +3774,12 @@ size_t block_backward_workspace(int dtype, int cls, int batch, int n, int d,
 // runs the per-frame pass on the bf16 tensor-core body (block_bwd_mma,
 // cls_bwd_mma), which takes bf16, d = dim_head = 64, n <= 80, mlp a
 // multiple of 64 and 16-byte aligned x, dy and matrix weights; form = 2
-// K2b's pass in fp32 over a cluster of 4 CTAs a frame
-// (block_bwd_cluster_fp32_kernel), which takes fp32, d = dim_head = 64, 4
-// heads, n <= 80, mlp a multiple of 256 and x, dy, dx and the matrix
-// weights 16-byte aligned (cudaErrorInvalidValue else); form = 0 the FMA
-// body, any width.
+// the pass in fp32 over a cluster of 4 CTAs a frame (K2b:
+// block_bwd_cluster_fp32_kernel; K3b: cls_mlp_bwd_fp32_kernel, then
+// cls_bwd_cluster_fp32_kernel, on the records, which it requires), which
+// takes fp32, d = dim_head = 64, 4 heads, n <= 80, mlp a multiple of 256
+// and x, dy, dx, the matrix weights and the records 16-byte aligned
+// (cudaErrorInvalidValue else); form = 0 the FMA body, any width.
 int block_backward_launch(int dtype, int cls, const void* const* ptrs,
                           int batch, int n, int d, int heads, int dim_head,
                           int mlp, float scale, void* stream, int form) {

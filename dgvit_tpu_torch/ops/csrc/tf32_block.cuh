@@ -1,10 +1,11 @@
 // The fp32 pre-norm block over a thread-block cluster, every product on
-// the tensor cores (tf32_mma.cuh; see below): the block body of K1's fp32
-// cluster form (got_megakernel.cu: k1_cluster_fp32_kernel) and of K2's
-// fp32 forms at the flagship widths (block_grad.cu:
-// block_fwd_cluster_fp32_kernel, and the recompute of
-// block_bwd_cluster_fp32_kernel), which include this one body so that a
-// backward recomputes the forward that ran, bit for bit.
+// the tensor cores (tf32_mma.cuh; see below): the block body of K1's and
+// K4's fp32 cluster forms (got_megakernel.cu: k1_cluster_fp32_kernel,
+// k4_cluster_fp32_kernel) and of K2's and K3's fp32 forms at the flagship
+// widths (block_grad.cu: block_fwd_cluster_fp32_kernel and the recompute
+// of block_bwd_cluster_fp32_kernel; cls_attend_cluster_fp32_kernel and
+// the recompute of cls_bwd_cluster_fp32_kernel), which include this one
+// body so that a backward recomputes the forward that ran, bit for bit.
 //
 // One frame a cluster of kRanks CTAs on neighbouring SMs (the bf16
 // cluster's partition, got_megakernel.cu namespace cl): rank r takes head
@@ -39,12 +40,15 @@
 // throughout, accumulated on the tensor cores.
 //
 // The body comes in two halves, `attend` (LN1 to LN2: x becomes x1, h2
-// the normed rows) and `mlp` (the MLP and its exchange), which `block`
-// runs in turn. Each takes a Save, whose hooks see the intermediates as
-// the body computes them (h1, q, o, x1 and h2, the GELU values); NoSave
-// sees nothing. The backward (block_grad.cu) runs `attend` itself and the
-// MLP's forward products with its own reverse pass; a measurement (the
-// fp32 probe) runs `block` and writes what its hooks see.
+// the normed rows; its first part, `project`, LN1 and the head's q, k and
+// v) and `mlp` (the MLP and its exchange), which `block` runs in turn.
+// Each takes a Save, whose hooks see the intermediates as the body
+// computes them (h1, q, the probabilities, o, x1 and h2, the GELU
+// values); NoSave sees nothing. K2's backward (block_grad.cu) runs
+// `attend` itself and the MLP's forward products with its own reverse
+// pass, K3's runs `project` (its CLS row's forward comes from the
+// records); a measurement (the fp32 probe) runs `block` and writes what
+// its hooks see.
 //
 // Widths: d = dim_head = 64, 4 heads, at most 80 rows a frame, mlp a
 // multiple of 4 x 64, fp32 tensors 16-byte aligned (the launches check
@@ -266,12 +270,14 @@ __device__ __forceinline__ void probs(float (&s)[mmafwd::kKeyTiles][4],
 
 // The hooks of a body that keeps nothing (K1, K2f). A Save's hooks are
 // called by every warp that computes the value, with the warp's rows in
-// the accumulator layout: h1 (LN1's output), q (the head's queries), o
-// (the head's attention output), x1h2 (x1 = x + attention, and LN2's
-// output), hid (the GELU values of hidden columns [col0, col0 + 64)).
+// the accumulator layout: h1 (LN1's output), q (the head's queries), p
+// (the head's probabilities, probs' layout), o (the head's attention
+// output), x1h2 (x1 = x + attention, and LN2's output), hid (the GELU
+// values of hidden columns [col0, col0 + 64)).
 struct NoSave {
   __device__ __forceinline__ void h1(const float (&)[8][4]) {}
   __device__ __forceinline__ void q(const float (&)[8][4]) {}
+  __device__ __forceinline__ void p(const float (&)[mmafwd::kKeyTiles][4]) {}
   __device__ __forceinline__ void o(const float (&)[8][4]) {}
   __device__ __forceinline__ void x1h2(const float (&)[8][4],
                                        const float (&)[8][4]) {}
@@ -317,32 +323,26 @@ __device__ __forceinline__ void mlp_part(unsigned char* smem, const Layout& L,
   }
 }
 
-// The first half of a pre-norm block of the cluster's frame on the warp's
-// rows: x holds the fp32 stream on entry and x1 = x + (o wout + bout) on
-// return, h2 its LayerNorm (rows >= n zero); the head's k and v of every
-// row stay in L.k and L.v. With cls_only only the warp of row 0 runs q,
-// attention and the out-projection (x1 and h2 are then its only). Every
-// thread of every CTA of the cluster calls it.
+// LN1 of the warp's rows and the head's projections: q of the warp's rows
+// (into q, when `queries`), k and v of every row (into L.k and L.v). x is
+// the fp32 stream (read only). Every thread of the CTA calls it; on
+// return the head's k and v of every row are in place. K3b's fp32 cluster
+// form (block_grad.cu) runs it alone, so its k and v are the forward's.
 template <typename P, typename Save>
-__device__ __forceinline__ void attend(cg::cluster_group& cluster,
-                                       const Dims& m, const void* const* wp,
-                                       int n, int rank, int r0,
-                                       mmafwd::Rows& x, float (&h2)[8][4],
-                                       unsigned char* smem, const Layout& L,
-                                       bool cls_only, Save& save) {
+__device__ __forceinline__ void project(const Dims& m, const void* const* wp,
+                                        int n, int rank, int r0,
+                                        const mmafwd::Rows& x,
+                                        float (&q)[8][4], unsigned char* smem,
+                                        const Layout& L, bool queries,
+                                        Save& save) {
   const float* an_s = (const float*)wp[0];
   const float* an_b = (const float*)wp[1];
   const float* wqkv = (const float*)wp[2];
   const float* wout = (const float*)wp[3];
-  const float* bout = (const float*)wp[4];
-  const float* fn_s = (const float*)wp[5];
-  const float* fn_b = (const float*)wp[6];
-  const int inner = m.heads * D, np = round16(n);
+  const int inner = m.heads * D;
   float* ks = (float*)(smem + L.k);
   float* vs = (float*)(smem + L.v);
   float* wq = (float*)(smem + L.wq);
-  const float* wo = (const float*)(smem + L.wo);
-  const bool queries = !cls_only || r0 == 0;
   __syncthreads();  // the previous block's readers of these tiles are done
   for (int part = 0; part < 3; ++part)
     stage(wq + part * D * kLdW, kLdW, wqkv + part * inner + rank * D,
@@ -355,7 +355,6 @@ __device__ __forceinline__ void attend(cg::cluster_group& cluster,
   cp_async_wait<0>();
   __syncthreads();  // the head's weights landed
   // q (kept in registers), k and v of every row (to the tiles)
-  float q[8][4];
   for (int part = queries ? 0 : 1; part < 3; ++part) {
     float acc[8][4];
     zero(acc);
@@ -380,10 +379,36 @@ __device__ __forceinline__ void attend(cg::cluster_group& cluster,
             make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
   }
   __syncthreads();  // the head's k and v of every row are in place
+}
+
+// The first half of a pre-norm block of the cluster's frame on the warp's
+// rows: x holds the fp32 stream on entry and x1 = x + (o wout + bout) on
+// return, h2 its LayerNorm (rows >= n zero); the head's k and v of every
+// row stay in L.k and L.v. With cls_only only the warp of row 0 runs q,
+// attention and the out-projection (x1 and h2 are then its only). Every
+// thread of every CTA of the cluster calls it.
+template <typename P, typename Save>
+__device__ __forceinline__ void attend(cg::cluster_group& cluster,
+                                       const Dims& m, const void* const* wp,
+                                       int n, int rank, int r0,
+                                       mmafwd::Rows& x, float (&h2)[8][4],
+                                       unsigned char* smem, const Layout& L,
+                                       bool cls_only, Save& save) {
+  const float* bout = (const float*)wp[4];
+  const float* fn_s = (const float*)wp[5];
+  const float* fn_b = (const float*)wp[6];
+  const int np = round16(n);
+  const float* ks = (const float*)(smem + L.k);
+  const float* vs = (const float*)(smem + L.v);
+  const float* wo = (const float*)(smem + L.wo);
+  const bool queries = !cls_only || r0 == 0;
+  float q[8][4];
+  project<P>(m, wp, n, rank, r0, x, q, smem, L, queries, save);
   if (queries) {
     const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
     float s[mmafwd::kKeyTiles][4];
     probs<P>(s, q, ks, n, np, m.scale);
+    save.p(s);
     // o = p v, then the head's out-projection partial o @ wout[r 64 ...]
     float o[8][4];
     zero(o);

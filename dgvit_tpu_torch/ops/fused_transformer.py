@@ -304,6 +304,8 @@ def _block_lib() -> ctypes.CDLL:
     for fn in (lib.block_forward_smem, lib.block_backward_smem):
         fn.restype = ctypes.c_size_t
         fn.argtypes = [ctypes.c_int] * 8
+    lib.cls_mlp_smem.restype = ctypes.c_size_t
+    lib.cls_mlp_smem.argtypes = []
     lib.trunk_backward_smem.restype = ctypes.c_size_t
     lib.trunk_backward_smem.argtypes = [ctypes.c_int] * 7
     lib.block_backward_workspace.restype = ctypes.c_size_t
@@ -355,13 +357,16 @@ def tensor_core_bwd(x: torch.Tensor, w: Sequence[torch.Tensor],
 
 def fp32_cluster_fwd(x: torch.Tensor, w: Sequence[torch.Tensor],
                      dim_head: int, dy: torch.Tensor = None) -> bool:
-    """Whether a full block's forward (K2f) and, with dy, its backward
-    (K2b) run in fp32 over a cluster of 4 CTAs a frame on the tensor-core
-    fp32 block body (csrc/tf32_block.cuh; `block_fwd_cluster_fp32_kernel`,
-    `block_bwd_cluster_fp32_kernel`): fp32, d = dim_head = 64, at most 80
-    tokens, mlp a multiple of 4 x 64 (`smem.tf32_widths`), 4 heads (one a
-    CTA), and x, dy and the matrix weights 16-byte aligned. Every other
-    fp32 call takes the FMA body, which takes any width."""
+    """Whether a block's forward (K2f, K3f) and, with dy, its backward
+    (K2b, K3b) run in fp32 over a cluster of 4 CTAs a frame on the
+    tensor-core fp32 block body (csrc/tf32_block.cuh;
+    `block_fwd_cluster_fp32_kernel`, `block_bwd_cluster_fp32_kernel`, and
+    for the CLS-only block `cls_attend_cluster_fp32_kernel` and
+    `cls_bwd_cluster_fp32_kernel` with the batched CLS-row MLP launches):
+    fp32, d = dim_head = 64, at most 80 tokens, mlp a multiple of 4 x 64
+    (`smem.tf32_widths`), 4 heads (one a CTA), and x, dy and the matrix
+    weights 16-byte aligned. Every other fp32 call takes the FMA body,
+    which takes any width."""
     _, n, d = x.shape
     mlp = w[7].shape[-1]
     return (tf32_widths(n, d, dim_head, mlp, x.dtype)
@@ -375,12 +380,34 @@ def block_form(x: torch.Tensor, w: Sequence[torch.Tensor], dim_head: int,
                cls: bool, dy: torch.Tensor = None) -> int:
     """The body a block's launch takes (the `form` of block_grad.cu's
     block_forward_launch and block_backward_launch): 1 the bf16
-    tensor-core body (`tensor_core_fwd`, `tensor_core_bwd`), 2 a full
-    block's fp32 cluster form (`fp32_cluster_fwd`), 0 the FMA body."""
+    tensor-core body (`tensor_core_fwd`, `tensor_core_bwd`), 2 the fp32
+    cluster form (`fp32_cluster_fwd`; K2 and K3 alike), 0 the FMA body.
+    A backward under autograd takes the form its forward took instead
+    (`aligned_for`)."""
     if (tensor_core_fwd(x, w, dim_head) if dy is None
             else tensor_core_bwd(x, w, dim_head, dy)):
         return 1
-    return 2 if not cls and fp32_cluster_fwd(x, w, dim_head, dy) else 0
+    return 2 if fp32_cluster_fwd(x, w, dim_head, dy) else 0
+
+
+def aligned_for(dy: torch.Tensor, form: int) -> torch.Tensor:
+    """dy as a backward in `form` takes it: the tensor-core forms copy
+    16-byte pieces, so a dy off a 16-byte boundary is copied to a fresh
+    tensor there (never answered with another form: the backward runs the
+    form its forward ran)."""
+    if form != 0 and dy.data_ptr() % 16:
+        return dy.clone(memory_format=torch.contiguous_format)
+    return dy
+
+
+def check_record_form(saved, form: int) -> None:
+    """Raise if K3b would run in another form than the K3f that wrote
+    its CLS records `saved` (the form `launch_block_fwd` kept on them)."""
+    written = getattr(saved, "form", None)
+    if written is not None and written != form:
+        raise ValueError(f"K3b in form {form} on CLS records K3f wrote in "
+                         f"form {written}: a backward runs the form its "
+                         "forward ran")
 
 
 def _call(fn, dtype, cls, tensors, x, heads, dim_head, mlp, *more) -> None:
@@ -403,14 +430,22 @@ def launch_block_fwd(x, w, heads: int, dim_head: int, cls: bool,
                      saved=None, form=None):
     """K2f (cls False) or K3f (cls True) on CUDA tensors, on the body
     `block_form` picks (or `form`, forced); K3f writes the CLS rows'
-    records into `saved` unless None."""
+    records into `saved` unless None, and keeps its form on them
+    (`saved.form`, which K3b's launch holds its own form to). K3f's fp32
+    cluster form takes a scratch row a frame (LN2 of the CLS row, handed
+    from its attention launch to its MLP launch)."""
     b, n, d = x.shape
     out = torch.empty((b, d) if cls else (b, n, d), dtype=x.dtype,
                       device=x.device)
     if form is None:
         form = block_form(x, w, dim_head, cls)
+    work = (torch.empty((b, d), dtype=torch.float32, device=x.device)
+            if cls and form == 2 else None)
     _call(_block_lib().block_forward_launch, x.dtype, cls,
-          [x, *w, out, saved], x, heads, dim_head, w[7].shape[-1], form)
+          [x, *w, out, saved, work], x, heads, dim_head, w[7].shape[-1],
+          form)
+    if saved is not None:
+        saved.form = form
     return out
 
 
@@ -419,16 +454,19 @@ def launch_block_bwd(x, dy, w, heads: int, dim_head: int, cls: bool,
     """K2b (cls False) or K3b (cls True) on CUDA tensors: (dx, grads);
     the per-frame pass on the body `block_form` picks (or `form`,
     forced). K3b reads the CLS rows' records K3f kept in `saved` (None
-    only in chip_smoke.py's measurement of fault k)."""
+    only in chip_smoke.py's measurement of fault k), and refuses a form
+    other than the one that wrote them (`check_record_form`)."""
     b, n, d = x.shape
     mlp = w[7].shape[-1]
+    if form is None:
+        form = block_form(x, w, dim_head, cls, dy)
+    if cls and saved is not None:
+        check_record_form(saved, form)
     nbytes = _block_lib().block_backward_workspace(
         _DTYPES[x.dtype], int(cls), b, n, d, heads, dim_head, mlp)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in w]
-    if form is None:
-        form = block_form(x, w, dim_head, cls, dy)
     _call(_block_lib().block_backward_launch, x.dtype, cls,
           [x, dy, *w, dx, *grads, ws, saved], x, heads, dim_head, mlp, form)
     return dx, tuple(grads)
@@ -495,15 +533,17 @@ def weight_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def block_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
-                    dim_head: int) -> torch.Tensor:
+                    dim_head: int, form: int = None) -> torch.Tensor:
     """K2f: one full pre-norm block, (B, n, d) -> (B, n, d) in the compute
     dtype (fp32 or bf16), every row a valid token. CUDA tensors go to the
-    kernel (and raise if it cannot run); CPU tensors to `block_fwd_plain`.
-    `block_fwd_fused.launches` counts kernel launches, and
-    `block_fwd_fused.cluster_launches` those of the fp32 cluster form."""
+    kernel (and raise if it cannot run) in `form` (None: `block_form`'s);
+    CPU tensors to `block_fwd_plain`. `block_fwd_fused.launches` counts
+    kernel launches, and `block_fwd_fused.cluster_launches` those of the
+    fp32 cluster form."""
     check_block_args(x, w, heads, dim_head)
     if x.device.type == "cuda":
-        form = block_form(x, w, dim_head, False)
+        if form is None:
+            form = block_form(x, w, dim_head, False)
         out = launch_block_fwd(x, w, heads, dim_head, False, form=form)
         block_fwd_fused.launches += 1
         block_fwd_fused.cluster_launches += form == 2
@@ -514,16 +554,19 @@ def block_fwd_fused(x: torch.Tensor, w: Sequence[torch.Tensor], heads: int,
 
 
 def block_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
-                    w: Sequence[torch.Tensor], heads: int, dim_head: int):
+                    w: Sequence[torch.Tensor], heads: int, dim_head: int,
+                    form: int = None):
     """K2b: the block's backward from its input x and the grad dy of its
     output, both (B, n, d): (dx, the 11 weight grads), all in the compute
-    dtype. CUDA tensors go to the kernel; CPU tensors to
+    dtype. CUDA tensors go to the kernel in `form` (None: `block_form`'s
+    rule; `_FusedBlock` passes its forward's); CPU tensors to
     `block_bwd_plain`. `block_bwd_fused.launches` counts kernel launches,
     and `block_bwd_fused.cluster_launches` those of the fp32 cluster
     form."""
     check_block_args(x, w, heads, dim_head, dy=dy)
     if x.device.type == "cuda":
-        form = block_form(x, w, dim_head, False, dy)
+        if form is None:
+            form = block_form(x, w, dim_head, False, dy)
         out = launch_block_bwd(x, dy, w, heads, dim_head, False, form=form)
         block_bwd_fused.launches += 1
         block_bwd_fused.cluster_launches += form == 2
@@ -538,17 +581,22 @@ block_bwd_fused.launches = block_bwd_fused.cluster_launches = 0
 
 
 class _FusedBlock(torch.autograd.Function):
+    """K2f forward, K2b backward in the form the forward took (a dy off a
+    16-byte boundary is copied, `aligned_for`)."""
+
     @staticmethod
     def forward(ctx, x, heads, dim_head, *w):
         ctx.save_for_backward(x, *w)
         ctx.heads, ctx.dim_head = heads, dim_head
-        return block_fwd_fused(x, w, heads, dim_head)
+        ctx.form = block_form(x, w, dim_head, False)
+        return block_fwd_fused(x, w, heads, dim_head, form=ctx.form)
 
     @staticmethod
     def backward(ctx, dy):
         x, *w = ctx.saved_tensors
-        dx, grads = block_bwd_fused(x, dy.contiguous(), w, ctx.heads,
-                                    ctx.dim_head)
+        dy = aligned_for(dy.contiguous(), ctx.form)
+        dx, grads = block_bwd_fused(x, dy, w, ctx.heads, ctx.dim_head,
+                                    form=ctx.form)
         return (dx, None, None, *grads)
 
 

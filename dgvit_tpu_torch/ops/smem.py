@@ -20,6 +20,9 @@ layouts the launches size their memory by:
     form, and (with no patches) of K2f's and K4's;
   * `bw32::Layout` (csrc/block_grad.cu): a CTA of K2b's fp32 cluster
     form;
+  * `ClsFwdLayout`, `ClsBwdLayout` and `cm32::kBytes` (csrc/block_grad.cu):
+    a CTA of K3f's and K3b's fp32 cluster forms (the per-frame cluster
+    launches), and of their batched CLS-row MLP launches;
   * K6's launch, the largest of the bodies it runs;
   * `SectionSmem<T>` (csrc/attention.cu): K7's FMA kernel, by query
     tile; `SectionMmaSmem` (csrc/attention.cu): its tensor-core form.
@@ -187,10 +190,34 @@ def bwd_cluster_fp32(n: int) -> int:
                      4 * w64, part, part, part, 4 * (np_ // 16) * MMA_WIDTH))
 
 
+def cls_attend_fp32(n: int) -> int:
+    """`ClsFwdLayout(n)` (csrc/block_grad.cu): a CTA of K3f's fp32 cluster
+    form's attention launch, `cl32::Layout`'s attention tiles alone (the
+    head's fp32 k and v, its q|k|v and wout slices; the out-projection's
+    partial over the q|k|v slices, no MLP ring): 114,432 bytes at 65 or 80
+    rows, so two CTAs fit an H100's 228 KB of shared memory an SM."""
+    np_, w64 = _a16(n), 4 * MMA_WIDTH * _LD_W32
+    return _take(0, (4 * np_ * _LD_K32, 4 * np_ * _LD_W32, 3 * w64, w64))
+
+
+def cls_bwd_cluster_fp32(n: int) -> int:
+    """`ClsBwdLayout(n)` (csrc/block_grad.cu): a CTA of K3b's fp32 cluster
+    form's per-frame launch, `cls_attend_fp32`'s tiles alone (dh1's
+    partial tile lies over k, the column sums over v, row 0's ds, p, do
+    and q over the wout slice), so two CTAs fit an SM too."""
+    return cls_attend_fp32(n)
+
+
+# `cm32::kBytes` (csrc/block_grad.cu): a CTA of the batched CLS-row MLP
+# launches of K3f's and K3b's fp32 cluster forms, four warps each staging
+# one hidden chunk's w1 and w2 tiles (64 x 68 floats each); any width
+CLS_MLP_FP32 = 4 * 2 * 4 * MMA_WIDTH * _LD_W32
+
+
 def tf32_widths(n: int, d: int, dim_head: int, mlp: int,
                 dtype: torch.dtype) -> bool:
-    """The widths the fp32 cluster forms take (K1's, K4's, K2f's and
-    K2b's): fp32, d = dim_head = 64, at most 80 rows, mlp a multiple of 64
+    """The widths the fp32 cluster forms take (K1's, K4's, K2's and
+    K3's): fp32, d = dim_head = 64, at most 80 rows, mlp a multiple of 64
     (heads, mlp a multiple of 256 and alignment aside)."""
     return (dtype == torch.float32 and d == dim_head == MMA_WIDTH
             and n <= MMA_ROWS and mlp % MMA_CHUNK == 0)
@@ -249,10 +276,13 @@ def bytes_needed(kernel: str, n: int, d: int, heads: int, dim_head: int,
         return max(fma, fwd_mma(n) if mma else 0,
                    k1_cluster_fp32(n, 0) if tf32 else 0)
     if kernel == "K3f":
-        return max(fma, fwd_mma(n) if mma else 0)
+        return max(fma, fwd_mma(n) if mma else 0,
+                   max(cls_attend_fp32(n), CLS_MLP_FP32) if tf32 else 0)
     if kernel == "K3b":
         return max(bwd_fma(n, d, mlp),
-                   bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0)
+                   bwd_cls_mma(n, heads, dim_head, mlp) if mma else 0,
+                   max(cls_bwd_cluster_fp32(n), CLS_MLP_FP32) if tf32
+                   else 0)
     if kernel == "K2b":
         return max(bwd_fma(n, d, mlp), bwd_mma(n) if mma else 0,
                    bwd_cluster_fp32(n) if tf32 else 0)

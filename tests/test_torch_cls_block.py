@@ -234,7 +234,7 @@ ROUTES = [
     ("bfloat16", 65, 2, 32, 2048, 0, False),   # narrow heads
     ("bfloat16", 65, HEADS, DIM_HEAD, MLP, 0, False),  # these tests' block
     ("bfloat16", 65, 4, 64, 2048, 1, False),   # x not 16-byte aligned
-    ("float32", 65, 4, 64, 2048, 0, False),    # fp32 keeps the FMA body
+    ("float32", 65, 4, 64, 2048, 0, False),    # fp32: not this body (form 2)
 ]
 
 

@@ -280,6 +280,59 @@ def test_gap_r_rule_passes_exact_sums_and_fails_the_wrong_blocks():
     assert min(pooled[w] for w in cs.F32_BLOCK_WRONGS) > 10 * limit
 
 
+@pytest.mark.parametrize("name", ["K3f", "K3b"])
+def test_gap_t_rule_passes_exact_sums_and_fails_the_wrong_blocks(name):
+    """Phase 5's fp32 K3f and K3b rule (gap t, chip_smoke.f32_rule) as a
+    pure function of tensors, on one small CPU draw: against the plain
+    version evaluated in float64 throughout (`float64_eval`; K3b's
+    recomputing its CLS row), the pooled mean|err|/L passes the plain and
+    the float64-sum versions and fails the tanh GELU and the block whose
+    scores are scaled 1 / dim_head."""
+    rng = np.random.default_rng(2)
+    w = weights(block_tree(rng), "float32")[1]
+    x = to_torch(rand(rng, 2, 17, D), "float32")
+    dy = to_torch(rand(rng, 2, D), "float32")
+    if name == "K3f":
+        plain, args, wrongs = (cb.cls_fwd_plain, (x, w, HEADS, DIM_HEAD),
+                               cs.F32_CLS_FWD_WRONGS)
+        yard = cs.tensors(cs.float64_eval(plain, x, None, w, HEADS,
+                                          DIM_HEAD))
+    else:
+        plain, args, wrongs = (cb.cls_bwd_plain, (x, dy, w, HEADS, DIM_HEAD),
+                               cs.F32_CLS_BWD_WRONGS)
+        yard = cs.tensors(cs.float64_eval(plain, *args))
+    versions = {"plain": cs.tensors(plain(*args)),
+                "float64 sums": cs.tensors(cs.exact(plain, *args)),
+                **{what: cs.tensors(fn(*args)) for what, fn in wrongs.items()}}
+    assert all(t.dtype == torch.float64 for t in yard)
+    _, pooled, limit, _, _, verdict = cs.f32_rule(name, [(versions, yard)])
+    assert limit >= cs.F32_POOLED
+    assert verdict == {"plain": True, "float64 sums": True,
+                       "tanh GELU": False,
+                       "scores scaled 1 / dim_head": False}
+    assert min(pooled[w] for w in wrongs) > 10 * limit
+
+
+def test_gap_s_rule_passes_exact_sums_and_fails_the_wrong_trunks():
+    """Phase 2's pooled fp32 check of K1's latent (gap s, f32_rule "K1")
+    as a pure function of tensors, on one small CPU draw: against K1's
+    float64-sum version, the plain version and the float64-sum version
+    pass, the tanh GELU and the trunk whose scores are scaled 1 / dim_head
+    fail."""
+    args = small_args("got_forward_plain", "float32")
+    plain = gm.got_forward_plain(*args)
+    ex = cs.exact(gm.got_forward_plain, *args)
+    versions = {"plain": [plain], "float64 sums": [ex],
+                **{what: [fn(*args)] for what, fn in cs.K1_F32_WRONGS.items()}}
+    _, pooled, limit, _, _, verdict = cs.f32_rule("K1", [(versions, [ex])])
+    assert limit >= cs.F32_POOLED
+    assert verdict == {"plain": True, "float64 sums": True,
+                       "tanh GELU": False,
+                       "scores scaled 1 / dim_head": False}
+    assert min(pooled["tanh GELU"],
+               pooled["scores scaled 1 / dim_head"]) > 10 * limit
+
+
 @pytest.fixture(scope="module")
 def actor_nets():
     saved = cs.DEVICE

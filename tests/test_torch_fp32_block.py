@@ -4,7 +4,8 @@ over a cluster of 4 CTAs on the 3xTF32 body of tf32_block.cuh), on the CPU.
 
 The kernels run only on the card (chip_smoke.py phases 5, 13b and 22a hold
 them there). Here: the rule that picks them (`fp32_cluster_fwd`,
-`block_form`) and the form each launch passes, the shared-memory mirror of
+`block_form`, which K3's fp32 cluster forms share) and the form each launch
+passes, the shared-memory mirror of
 their layouts (`smem.k1_cluster_fp32(n, 0)`, `smem.bwd_cluster_fp32`),
 and that CPU tensors at the widths they take still go to the plain
 versions, held against the JAX package's `fused_transformer_block` (its
@@ -80,7 +81,8 @@ def test_route_rule(case, dtype, n, d, heads, dim_head, mlp, shift,
     x, dy and the matrix weights 16-byte aligned) and nothing else; the
     launches of K2f and K2b pass its form (2), bf16 at the flagship
     widths the tensor-core body's (1), the rest the FMA body's (0). K3f
-    and K3b never take it. The launches are recorded here, not made."""
+    and K3b take it at the same widths (their dy, (B, d), is a fresh
+    tensor here). The launches are recorded here, not made."""
     w = block_weights(d, heads, dim_head, mlp, dtype,
                       shift if shift not in ("x", "dy") else None)
     x = frame(2, n, d, dtype, shift == "x")
@@ -92,9 +94,9 @@ def test_route_rule(case, dtype, n, d, heads, dim_head, mlp, shift,
     assert ft.block_form(x, w, dim_head, False) == (2 if fwd_ok else other)
     assert ft.block_form(x, w, dim_head, False, dy) == (2 if cluster
                                                         else other)
-    assert ft.block_form(x, w, dim_head, True) == other
+    assert ft.block_form(x, w, dim_head, True) == (2 if fwd_ok else other)
     assert ft.block_form(x, w, dim_head, True, dy[:, 0].contiguous()) == \
-        other
+        (2 if fwd_ok else other)
 
     launched = []
     monkeypatch.setattr(ft, "_block_lib", lambda: type("Lib", (), {

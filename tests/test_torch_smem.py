@@ -29,7 +29,10 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # and attention.cu). K6 runs no forward (it reads K4's streams), so it
 # sizes by its largest backward body, as K2b and K3b do. In fp32 up to 80
 # rows K2b may take its cluster form (a CTA of bw32::Layout, 225,792
-# bytes), K2f its own (cl32::Layout, under the FMA body's 168,752).
+# bytes), K2f its own (cl32::Layout, under the FMA body's 168,752), K3b
+# its own (the batched CLS-row MLP launch's 139,264 over the FMA body's
+# 136,240; the per-frame launch's ClsBwdLayout 114,432) and K3f its own
+# (under the FMA body's).
 BYTES = {
     (BF16, 65): {"K1": 142080, "K4": 142080, "K2b": 215056, "K3b": 136240,
                  "K6": 215056, "K7": 115712},
@@ -39,7 +42,7 @@ BYTES = {
                   "K6": 271440, "K7": 38720},
     (BF16, 256): {"K1": 402432, "K4": 402432, "K2b": 798720, "K3b": 798720,
                   "K6": 798720, "K7": 76288},
-    (FP32, 65): {"K1": 168752, "K4": 168752, "K2b": 225792, "K3b": 136240,
+    (FP32, 65): {"K1": 168752, "K4": 168752, "K2b": 225792, "K3b": 139264,
                  "K6": 136240, "K7": 36672},
     (FP32, 90): {"K1": 233648, "K4": 233648, "K2b": 188640, "K3b": 188640,
                  "K6": 188640, "K7": 50464},
@@ -78,8 +81,9 @@ def test_mirror_layouts():
     # where the CLS body is the larger, K3b and K6 size by it
     assert smem.bytes_needed("K3b", 17, *FLAGSHIP, BF16) == \
         smem.bwd_cls_mma(17, 4, 64, 2048) > smem.bwd_fma(17, 64, 2048)
-    assert smem.bytes_needed("K3b", 17, *FLAGSHIP, FP32) == \
-        smem.bwd_fma(17, 64, 2048)
+    assert smem.bytes_needed("K3b", 17, *FLAGSHIP, FP32) == max(
+        smem.bwd_fma(17, 64, 2048), smem.cls_bwd_cluster_fp32(17),
+        smem.CLS_MLP_FP32)
     assert smem.fwd_mma(96) == smem.fwd_mma(80) + 3 * 2 * 16 * 72 * 2
     assert smem.bwd_mma(80) == 226816 <= H100
     # K7 takes the fewest query tiles that fit: one row always fits here
@@ -302,8 +306,8 @@ def test_k3f_takes_the_tensor_core_body(cls, n, dtype, shift, mma,
     """K3f launches the tensor-core forward body (cls_fwd_mma_kernel)
     exactly where K2f does (block_fwd_mma_kernel): bf16, d = dim_head =
     64, at most 80 tokens, x and the matrix weights aligned; the launch is
-    recorded here, not made. In fp32 at those widths K2f launches its
-    cluster form (form 2) and K3f its FMA body."""
+    recorded here, not made. In fp32 at those widths K2f and K3f launch
+    their cluster forms (form 2)."""
     from dgvit_tpu_torch.ops import fused_transformer as ft
 
     launched = []
@@ -323,5 +327,5 @@ def test_k3f_takes_the_tensor_core_body(cls, n, dtype, shift, mma,
         w[7] = torch.zeros(64 * 2048 + 1, dtype=dtype)[1:].view(64, 2048)
     out = ft.launch_block_fwd(x, w, 4, 64, cls=cls)
     assert tuple(out.shape) == ((2, 64) if cls else (2, n, 64))
-    cluster = not cls and dtype == FP32 and shift is None
+    cluster = dtype == FP32 and shift is None
     assert launched == [(cls, 2 if cluster else int(mma))]
