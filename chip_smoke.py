@@ -365,6 +365,27 @@ per source, all at once), then
      GazeboRos2Env over tests/fake_ros2.py on the card with 512 x 640
      depth frames: a reset and 5 steps, the states within 1e-6 of the
      CPU chain on the same noise, the commands through K1;
+ 25. the recorded-data slice (phase_slice), main paths: (a) 1024 demo
+     transitions at (128, 160) from numpy -> fill_buffer_from_demos ->
+     train_offline at Config() (the fp32 flagship, B=32), 20 updates
+     plain, PER and with augment_sigma 2, each update launching phase 6's
+     counts, updates/s; the first plain update held to the same update
+     through the plain versions on the card by phase 6b's rule; train_rl
+     --env replay for one 16-step episode of the demos (K1 once a step);
+     (b) sac.critic_latent_reuse in bf16 and fp32, plain, PER and
+     guided, 5 updates each beside 5 without it: one K4 fewer an update,
+     the K2 and K3 launches unchanged, and with lr_critic 0 and
+     emb-dropout 0 one update held to reuse-off's by phase 6b's rule
+     (in bf16 the actor's gradients within 2^-6 L, their pooled mean
+     within 2^-14 L, the policy loss within 2^-9), a wrong latent failing
+     it; (c)
+     the flagship actor exported on the card with a symbolic batch and
+     loaded: at b = 1, 3, 32 within 1e-5 of the composed plain route,
+     within phase 2's fp32 rule of K1 (make_action_fn in fp32), no kernel
+     launched; env units and a pinned batch; (d) AttentionVisualizer over
+     GoTPolicy(capture=True) for 5 kinematic steps: rows summing to 1,
+     maps within 1e-5 of the CPU's capture, actions within phase 2's fp32
+     rule of K1;
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -1933,24 +1954,40 @@ def golden_update(device, g, guided=False):
     agent = SACAgent(cfg, dtype=torch.float32, device=device,
                      seed=GOLDEN_SAC_SEED)
     state = sac_state(agent, *golden_params())
-    kinds = ("actor", "critic", "critic_target")
-    before = {k: {n: p.detach().clone() for n, p in
-                  getattr(state, k).named_parameters()} for k in kinds}
-    alpha0 = state.log_alpha.item()
+    before = update_start(state)
     noise = (g["noise_next"], g["noise_pi"])
     if guided:
         state, m = agent.learn_guidence(state, *golden_guided_batches(),
                                         GOLDEN_N_EXPERT, noise=noise)
     else:
         state, m = agent.learn(state, golden_batch(), noise=noise)
-    grads = {f"{k}.{n}": p.grad.detach().clone() for k in ("actor", "critic")
+    return update_record(state, m, before)
+
+
+UPDATED = ("actor", "critic", "critic_target")
+
+
+def update_start(state):
+    """The train state's parameters (port names) and log_alpha before an
+    update, for `update_record`."""
+    return ({f"{k}.{n}": p.detach().clone() for k in UPDATED
+             for n, p in getattr(state, k).named_parameters()},
+            state.log_alpha.item())
+
+
+def update_record(state, metrics, before):
+    """One update in the form `update_mismatches` reads: its metrics, the
+    actor's and critic's per-parameter gradients and their norms, the
+    parameters after it, their norms, and each one's update norm against
+    `before` (`update_start`)."""
+    params0, alpha0 = before
+    grads = {f"{k}.{n}": p.grad.detach().clone() for k in UPDATED[:2]
              for n, p in getattr(state, k).named_parameters()}
-    params = {f"{k}.{n}": p.detach().clone() for k in kinds
+    params = {f"{k}.{n}": p.detach().clone() for k in UPDATED
               for n, p in getattr(state, k).named_parameters()}
-    update = {name: (p - before[name.split(".")[0]][name.split(".", 1)[1]])
-              .norm().item() for name, p in params.items()}
+    update = {n: (p - params0[n]).norm().item() for n, p in params.items()}
     update["log_alpha"] = abs(state.log_alpha.item() - alpha0)
-    return {"metrics": {k: float(v) for k, v in m.items()},
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": grads, "params": params, "update": update,
             "grad": {k: v.norm().item() for k, v in grads.items()},
             "param_norm": {k: v.norm().item() for k, v in params.items()}}
@@ -7081,9 +7118,9 @@ def phase_recipes(out_dir):
         seen["raw"], seen["shifted"] = b["obs"].clone(), out[0]["obs"].clone()
         return out
 
-    def terms_spy(self, st, alpha, b, noise_pi):
+    def terms_spy(self, st, alpha, b, noise_pi, *reused):
         seen["actor"] = b["obs"].clone()
-        return real_terms(self, st, alpha, b, noise_pi)
+        return real_terms(self, st, alpha, b, noise_pi, *reused)
 
     SACAgent._augment, SACAgent._policy_terms = aug_spy, terms_spy
     try:
@@ -9733,6 +9770,596 @@ def fleet_launches(fleet, short):
             "ros2_adapter": fleet["adapter"]["launches"][short]}
 
 
+# --------------------------------------------------------------------------
+# phase 25: the recorded-data trainer, critic-latent reuse, the deployable
+# artifact and attention capture
+# --------------------------------------------------------------------------
+
+SLICE_SEED = SEED + 25        # phase 25's own generator
+# 25a: the demos (the flagship's (128, 160) frames, an episode every
+# OFFLINE_EPISODE transitions), the updates of each offline run
+OFFLINE_N, OFFLINE_EPISODE, OFFLINE_STEPS = 1024, 16, 20
+# 25b: the updates of each latent-reuse run, at the default batch
+REUSE_STEPS = 5
+# an update with sac.critic_latent_reuse: the actor step's critic trunk
+# (one K4) goes, the gradient passes (K2, K3) stay
+PER_REUSE = {**PER_UPDATE, "K4": PER_UPDATE["K4"] - 1}
+PER_GUIDED_REUSE = {**PER_GUIDED, "K4": PER_GUIDED["K4"] - 1}
+# the frozen-critic pair: one update with reuse against one without,
+# lr_critic 0 and emb-dropout 0 (the same critic before and after its
+# step, no dropout draw), held as phase 6b holds the kernels' update to
+# the plain one: the metrics, gradient norms and update norms by
+# update_mismatches, every gradient within SAC_RTOL of its tensor's
+# largest, the parameters within 2.2e-3 (an Adam step of lr 1e-3 moves an
+# element at most 1e-3, so this alone cannot tell a wrong step). In fp32
+# K3f's latent and K4's are one cluster body summed alike (the pair reads
+# 0). In bf16 they are two bodies whose latents part in their last bits,
+# and a head's ReLU then flips for a few rows: there the terms that read
+# the latent are held apart, the policy loss within one bf16 rounding
+# (2^-9) relative, the actor's gradients each within 2^-6 of its tensor's
+# largest (the bf16 per-tensor rule of a kernel against its plain version)
+# and their pooled mean|err|/L within REUSE_BF16_MEAN (the H100 read
+# 1.55e-5 and 1.75e-5 for the pair and 2.2e-4 to 3.9e-4 for a wrong
+# latent). The same update with the reused latent's rows rolled by one
+# (each row's Q from another frame) must fail the rule.
+REUSE_BF16_LOSS, REUSE_BF16_MEAN = 2.0 ** -9, 2.0 ** -14
+# 25c: the artifact's batches, and its limit against the card's composed
+# plain route (fp32 both, the same products; the library may sum the
+# program's in another order)
+EXPORT_BATCHES, EXPORT_TOL = (1, 3, 32), 1e-5
+# 25d: the kinematic steps the visualizer watches, and the maps' limit:
+# rows sum to 1 within CAPTURE_TOL; the maps against the CPU's capture of
+# the same frames evaluated in float64 (the norms in fp32, as the route
+# takes them) within max(CAPTURE_TOL, EXACT_K["fp32"] x the CPU's fp32
+# capture's distance from it), a capture with its scores scaled by
+# CAPTURE_WRONG_SCALE failing. The CPU's fp32 capture of the trained
+# actor read 3.0e-5 from the float64 one (this phase, an H100 host; its
+# first block's maps are one-hot, the logits large), so two fp32
+# evaluations may part by more than CAPTURE_TOL; their distance is
+# printed beside, read only.
+CAPTURE_STEPS, CAPTURE_TOL, CAPTURE_WRONG_SCALE = 5, 1e-5, 1.01
+
+
+def slice_cfg(dtype="float32", **sac):
+    """Config() (the fp32 flagship at B=32), in `dtype`, with `sac`
+    overrides: phase 25's configuration."""
+    from dgvit_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model.compute_dtype = dtype
+    for k, v in sac.items():
+        setattr(cfg.sac, k, v)
+    return cfg
+
+
+CLUSTER_KERNELS = ("K4", "K2f", "K2b", "K3f", "K3b")   # fp32 cluster forms
+
+
+def counted_forms(fn):
+    """(fn's result, every kernel's launches in it, the fp32 cluster-form
+    launches of K4, K2 and K3 in it): the counters set to 0 just before,
+    read just after."""
+    counters = kernel_counters()
+    for k in CLUSTER_KERNELS:
+        counters[k].cluster_launches = 0
+    out, launches = counted(fn)
+    return out, launches, {k: counters[k].cluster_launches
+                           for k in CLUSTER_KERNELS}
+
+
+def offline_demos(out_dir, rng):
+    """OFFLINE_N transitions in the demo npz layout (2-D frames of the
+    config's size), drawn with numpy; the file's glob."""
+    import numpy as np
+
+    n = OFFLINE_N
+    f32 = lambda a: a.astype(np.float32)
+    hw = tuple(slice_cfg().model.image_size)
+    frames = lambda: f32(rng.uniform(0, 1, (n, *hw)))
+    np.savez(Path(out_dir) / "demo_0.npz", obs=frames(),
+             act=f32(rng.uniform(-1, 1, (n, 2))),
+             goal=f32(rng.uniform(0, 1, (n, 4))),
+             reward=f32(rng.normal(0, 1, n)), next_obs=frames(),
+             next_goal=f32(rng.uniform(0, 1, (n, 4))),
+             done=np.arange(n) % OFFLINE_EPISODE == OFFLINE_EPISODE - 1)
+    return str(Path(out_dir) / "demo_*.npz")
+
+
+class FirstState:
+    """The offline trainer's checkpointer contract, keeping the parameters
+    it resumes from."""
+
+    def resume(self, state):
+        self.before = update_start(state)
+        return state, 0
+
+    def maybe_save(self, step, state):
+        pass
+
+
+def offline_first_update(pattern, out_dir, plain):
+    """The first update of `train_offline` at Config() (buffer sized to the
+    demos), through the kernels or their plain versions on the card, in
+    `golden_update`'s form."""
+    import contextlib
+
+    from dgvit_tpu_torch.train import train_offline as off
+
+    cfg = slice_cfg(buffer_size=OFFLINE_N)
+    buf = off.fill_buffer_from_demos(pattern, cfg)
+    rec = FirstState()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        state, stats = off.train_offline(cfg, buf, 1, out_dir=out_dir,
+                                         checkpointer=rec, device=DEVICE)
+    return update_record(state, stats["final"], rec.before)
+
+
+def phase_offline(out_dir, rng):
+    """Phase 25a, a main path: demos -> fill_buffer_from_demos ->
+    train_offline at Config() (the flagship GoT in fp32, B=32) for
+    OFFLINE_STEPS updates three ways (plain, PER, augment_sigma 2), every
+    update's launches phase 6's; the first plain update held to the same
+    update through the plain versions on the card by phase 6b's rule;
+    then `train_rl --env replay` for one episode of the demos (K1 once a
+    step). Returns updates/s and launches by run."""
+    import torch
+    import yaml
+
+    from dgvit_tpu_torch.train import train_offline as off
+    from dgvit_tpu_torch.train import train_rl
+
+    pattern = offline_demos(out_dir, rng)
+    out = {"launches": {}, "cluster_launches": {}, "updates_per_s": {}}
+    for label, per, sigma in (("offline_plain", False, 0.0),
+                              ("offline_per", True, 0.0),
+                              ("offline_augment", False, 2.0)):
+        cfg = slice_cfg(prioritized_replay=per)
+        buf = off.fill_buffer_from_demos(pattern, cfg)
+        calls = {"per": 0}
+        if per:
+            learn_per = off.SACAgent.learn_per
+            off.SACAgent.learn_per = lambda self, *a, **k: (
+                calls.__setitem__("per", calls["per"] + 1),
+                learn_per(self, *a, **k))[1]
+        try:
+            (state, stats), launches, cluster = counted_forms(
+                lambda: off.train_offline(
+                    cfg, buf, OFFLINE_STEPS, out_dir=out_dir,
+                    augment_sigma=sigma, log_every=OFFLINE_STEPS,
+                    device=DEVICE))
+        finally:
+            if per:
+                off.SACAgent.learn_per = learn_per
+        torch.cuda.synchronize()
+        want = {k: n * OFFLINE_STEPS for k, n in PER_UPDATE.items()}
+        print(f"offline {label} ({cfg.model.compute_dtype}, B="
+              f"{cfg.sac.batch_size}, {OFFLINE_STEPS} updates): "
+              f"{stats['steps_per_sec']:.3f} updates/s (host clock, the "
+              f"prefetcher staging beside); launches an update "
+              f"{ {k: v / OFFLINE_STEPS for k, v in launches.items()} }; "
+              f"final {stats['final']} ({card()})", flush=True)
+        check(launches == want, f"offline {label} launches {launches}, "
+              f"expected {want}")
+        check(all(math.isfinite(v) for v in stats["final"].values()),
+              f"offline {label}: non-finite metrics")
+        check(calls["per"] == (OFFLINE_STEPS if per else 0),
+              f"offline {label}: {calls['per']} PER updates")
+        check(cluster == {k: launches[k] for k in CLUSTER_KERNELS},
+              f"offline {label}: fp32 launches off the cluster forms, "
+              f"{cluster} of {launches}")
+        out["launches"][label] = launches
+        out["cluster_launches"][label] = cluster
+        out["updates_per_s"][label] = stats["steps_per_sec"]
+        del buf
+
+    kern = offline_first_update(pattern, out_dir, plain=False)
+    plain = offline_first_update(pattern, out_dir, plain=True)
+    bad, worst = update_mismatches(kern, plain)
+    gerr = max(((a - plain["grads"][n]).abs().max()
+                / plain["grads"][n].abs().max().clamp(min=1e-30)).item()
+               for n, a in kern["grads"].items())
+    pmax = max((a - plain["params"][n]).abs().max().item()
+               for n, a in kern["params"].items())
+    print(f"offline first update through the kernels against the plain "
+          f"versions on the card: largest relative differences {worst}; "
+          f"grads max|err|/L {gerr:.3e} (limit {SAC_RTOL:g}); parameters "
+          f"max|diff| {pmax:.3e} (limit 2.2e-3)", flush=True)
+    check(not bad, f"the offline update disagrees with the plain: {bad}")
+    check(gerr <= SAC_RTOL, "the offline update's grads disagree")
+    check(pmax <= 2.2e-3, "the offline update's parameters disagree")
+    out["first_update_vs_plain"] = dict(worst, grads=gerr, params=pmax)
+
+    run_dir = Path(out_dir) / "env_replay"
+    cfg_path = Path(out_dir) / "config.yaml"
+    cfg_path.write_text(yaml.safe_dump(slice_cfg().to_dict()))
+    _, launches = counted(lambda: train_rl.main([
+        "--env", "replay", "--expert-glob", pattern, "--episodes", "1",
+        "--config", str(cfg_path), "--out", str(run_dir),
+        "--device", DEVICE]))
+    logs = [json.loads(x) for p in run_dir.glob("*.jsonl")
+            for x in p.read_text().splitlines() if x.strip()]
+    print(f"train_rl --env replay, one episode of {OFFLINE_EPISODE} logged "
+          f"steps: launches {launches}; logged {logs[-1] if logs else None}",
+          flush=True)
+    check(launches == {**NO_KERNELS, "K1": OFFLINE_EPISODE},
+          f"--env replay launches {launches}: K1 once a logged step")
+    check(bool(logs), "--env replay logged nothing")
+    out["launches"]["train_env_replay"] = launches
+    return out
+
+
+def slice_params():
+    """(actor, critic) flat parameters of phase 25b's agents: the golden
+    SAC state's."""
+    return golden_params()
+
+
+def reuse_update(agent, state, flavour, batch, expert):
+    """One update of `flavour` (plain, per: importance weights 0.5-1.5,
+    guided: half the expert rows valid): (state, metrics)."""
+    import torch
+
+    rows = batch["obs"].shape[0]
+    if flavour == "per":
+        w = torch.linspace(0.5, 1.5, rows, device=batch["obs"].device)
+        state, m, td = agent.learn_per(state, batch, w)
+        return state, dict(m, td=td.mean())
+    if flavour == "guided":
+        return agent.learn_guidence(state, batch, expert, rows // 2)
+    return agent.learn(state, batch)
+
+
+def frozen_critic_update(dtype, flavour, reuse, params, batch, expert,
+                         roll=False):
+    """One update of `flavour` from the (actor, critic) flat `params` at
+    lr_critic 0 and emb-dropout 0, latent reuse on or off (`roll`: the
+    reused latent's rows rolled by one, a wrong latent), in
+    `update_record`'s form."""
+    from dgvit_tpu_torch.agents import SACAgent
+
+    cfg = slice_cfg(dtype, critic_latent_reuse=reuse,
+                    prioritized_replay=flavour == "per", lr_critic=0.0)
+    cfg.model.emb_dropout = 0.0
+    agent = SACAgent(cfg, device=DEVICE, seed=SLICE_SEED)
+    if roll:
+        critic_q = agent._critic_q
+
+        def rolled(state, b):
+            q1, q2, latent = critic_q(state, b)
+            return q1, q2, latent.roll(1, 0)
+
+        agent._critic_q = rolled
+    state = sac_state(agent, *params)
+    before = update_start(state)
+    state, m = reuse_update(agent, state, flavour, batch, expert)
+    return update_record(state, m, before)
+
+
+def reuse_mismatches(on, off, dtype):
+    """The frozen-critic pair's faults under 25b's rule (REUSE_BF16_*),
+    and its readings: the largest relative difference of each kind, the
+    gradients' max|err|/L (actor, critic), the actor's pooled mean|err|/L
+    (TrainErrors'), the policy loss's relative difference, the parameters'
+    max|diff| and the share of the actor's elements equal bit for bit."""
+    actor = lambda name: name.startswith("actor.")
+    bf16 = dtype == "bfloat16"
+    held = on, off
+    if bf16:
+        held = [{**r, "metrics": {k: v for k, v in r["metrics"].items()
+                                  if k != "policy_loss"},
+                 "grad": {k: v for k, v in r["grad"].items()
+                          if not actor(k)}} for r in held]
+    bad, worst = update_mismatches(*held)
+    gerr = {n: ((on["grads"][n] - g).float().abs().max()
+                / g.float().abs().max().clamp(min=1e-30)).item()
+            for n, g in off["grads"].items()}
+    pl = on["metrics"]["policy_loss"], off["metrics"]["policy_loss"]
+    pooled = TrainErrors()
+    pooled.add([(on["grads"][n], g) for n, g in off["grads"].items()
+                if actor(n)])
+    read = dict(worst, actor_grads=max(v for n, v in gerr.items()
+                                       if actor(n)),
+                actor_grads_mean=pooled.mean,
+                critic_grads=max(v for n, v in gerr.items() if not actor(n)),
+                policy_loss=abs(pl[0] - pl[1]) / max(abs(pl[1]), 1e-30),
+                params=max((a - off["params"][n]).abs().max().item()
+                           for n, a in on["params"].items()))
+    same = [(a == off["params"][n]) for n, a in on["params"].items()
+            if actor(n)]
+    read["actor_equal_share"] = (sum(x.sum().item() for x in same)
+                                 / sum(x.numel() for x in same))
+    limits = [("actor_grads", TRAIN_BF16_MAX if bf16 else SAC_RTOL),
+              ("critic_grads", SAC_RTOL), ("params", 2.2e-3)]
+    if bf16:
+        limits += [("actor_grads_mean", REUSE_BF16_MEAN),
+                   ("policy_loss", REUSE_BF16_LOSS)]
+    bad += [f"{what} {read[what]:.3e} over {lim:g}" for what, lim in limits
+            if not read[what] <= lim]
+    return bad, read
+
+
+def phase_latent_reuse(rng):
+    """Phase 25b, a main path: sac.critic_latent_reuse in bf16 (the
+    default config with bf16 compute) and fp32 (Config()), plain, PER and
+    guided, REUSE_STEPS updates each beside the same updates without
+    reuse: each reuse update launches one K4 fewer and the K2 and K3
+    calls of the update without it; finite losses; with lr_critic 0 and
+    emb-dropout 0 one update with reuse held to one without by phase 6b's
+    rule (REUSE_BF16_* for the bf16 terms that read the latent), the same
+    update on a wrong latent failing it. Returns launches by run, the
+    update times and the pair's readings."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+
+    params = slice_params()
+    cfg = slice_cfg()
+    hw, rows = tuple(cfg.model.image_size), cfg.sac.batch_size
+    batch, expert = (zoo_batch(rng, hw, rows) for _ in range(2))
+    batch["engage"] = (torch.arange(rows, device=DEVICE) % 8 == 1).float()
+    out = {"launches": {}, "cluster_launches": {}, "host_ms": {},
+           "frozen_critic_pair": {}}
+    for dtype in ("bfloat16", "float32"):
+        for flavour in ("plain", "per", "guided"):
+            runs = {}
+            for reuse in (False, True):
+                agent = SACAgent(slice_cfg(
+                    dtype, critic_latent_reuse=reuse,
+                    prioritized_replay=flavour == "per"),
+                    device=DEVICE, seed=SLICE_SEED)
+                state = sac_state(agent, *params)
+                times = []
+
+                def steps():
+                    nonlocal state
+                    for _ in range(REUSE_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, m = reuse_update(agent, state, flavour,
+                                                batch, expert)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        check(all(math.isfinite(float(v))
+                                  for v in m.values()),
+                              f"reuse {reuse} {dtype} {flavour}: "
+                              "non-finite metrics")
+
+                _, launches, cluster = counted_forms(steps)
+                runs[reuse] = (launches, statistics.median(times[1:]))
+            base = PER_GUIDED if flavour == "guided" else PER_UPDATE
+            want = PER_GUIDED_REUSE if flavour == "guided" else PER_REUSE
+            label = f"latent_reuse_{flavour}_{dtype}"
+            (off_l, off_s), (on_l, on_s) = runs[False], runs[True]
+            print(f"latent reuse {dtype} {flavour} (B={rows}, "
+                  f"{REUSE_STEPS} updates): launches {on_l} against "
+                  f"{off_l} without; host clock {on_s * 1e3:.2f} ms an "
+                  f"update against {off_s * 1e3:.2f} ms (medians of steps "
+                  f"1-{REUSE_STEPS - 1}; {card()})", flush=True)
+            check(off_l == {k: n * REUSE_STEPS for k, n in base.items()},
+                  f"{label}: reuse off launches {off_l}")
+            check(on_l == {k: n * REUSE_STEPS for k, n in want.items()},
+                  f"{label}: reuse on launches {on_l}, expected one K4 "
+                  "fewer an update")
+            out["launches"][label] = on_l
+            if dtype == "float32":
+                check(cluster == {k: on_l[k] for k in CLUSTER_KERNELS},
+                      f"{label}: fp32 launches off the cluster forms")
+                out["cluster_launches"][label] = cluster
+            out["host_ms"][label] = {"reuse": on_s * 1e3,
+                                     "no_reuse": off_s * 1e3}
+            # the frozen critic: one update each way, and on a wrong latent
+            pair = [frozen_critic_update(dtype, flavour, reuse, params,
+                                         batch, expert)
+                    for reuse in (True, False)]
+            bad, read = reuse_mismatches(*pair, dtype)
+            wrong, wread = reuse_mismatches(frozen_critic_update(
+                dtype, flavour, True, params, batch, expert, roll=True),
+                pair[1], dtype)
+            print(f"latent reuse {dtype} {flavour}, lr_critic 0 and "
+                  f"emb-dropout 0, one update against reuse off: {read}; "
+                  f"the latent's rows rolled: {wread} ({card()})",
+                  flush=True)
+            check(not bad, f"{label}: the frozen-critic update with reuse "
+                  f"disagrees with the one without: {bad}")
+            check(bool(wrong), f"{label}: the rule passed a wrong latent")
+            out["frozen_critic_pair"][label] = dict(read, wrong=wread)
+    return out
+
+
+def phase_export(flat):
+    """Phase 25c: export_actor of the flagship actor on the card with a
+    symbolic batch; the loaded artifact at EXPORT_BATCHES against the
+    card's composed plain route (EXPORT_TOL) and against make_action_fn
+    in fp32 (K1) under phase 2's fp32 rule, launching no kernel; env units
+    and a pinned batch (another size refused). Returns the readings."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.serve import make_action_fn
+    from dgvit_tpu_torch.serve.export import (action_map, export_actor,
+                                              load_actor)
+
+    cfg = slice_cfg()
+    hw = tuple(cfg.model.image_size)
+    rng = np.random.default_rng(SLICE_SEED + 1)
+    t0 = time.perf_counter()
+    data = export_actor(cfg, flat, platforms=[DEVICE])
+    secs = time.perf_counter() - t0
+    act = load_actor(data)
+    check(act.device.type == torch.device(DEVICE).type,
+          "the artifact is bound to the card")
+    plain = action_map(cfg, flat, device=DEVICE)
+    live = make_action_fn(cfg, flat, dtype=torch.float32, device=DEVICE)
+    reads = {}
+    for b in EXPORT_BATCHES:
+        obs = rng.uniform(0, 1, (b, *hw)).astype(np.float32)
+        goal = rng.uniform(-1, 1, (b, 2)).astype(np.float32)
+        o, g = (torch.from_numpy(x).to(DEVICE) for x in (obs, goal))
+        got, launches = counted(lambda: act(o, g))
+        with torch.no_grad():
+            ref = plain(o, g)
+        k1 = torch.from_numpy(live(obs, goal)).to(DEVICE)
+        err = (got - ref).abs().max().item()
+        ratio = f32_ratio(got, k1)
+        reads[b] = {"vs_plain": err, "vs_k1_ratio": ratio}
+        print(f"artifact b={b}: max|err| {err:.3e} against the composed "
+              f"plain route (limit {EXPORT_TOL:g}); against K1 fp32 "
+              f"max|err| over {F32_TOL:g} (1 + |ref|) {ratio:.3e} (passing "
+              f"at 1); launches {launches}", flush=True)
+        check(got.shape == (b, 2) and bool(torch.isfinite(got).all()),
+              f"artifact b={b}: shape or non-finite")
+        check(err <= EXPORT_TOL, f"artifact b={b} disagrees with the plain "
+              "route")
+        check(ratio <= 1, f"artifact b={b} disagrees with K1")
+        check(launches == NO_KERNELS, f"the artifact launched {launches}")
+    pinned = load_actor(export_actor(cfg, flat, env_units=True,
+                                     platforms=[DEVICE], batch=3))
+    obs = torch.from_numpy(rng.uniform(0, 1, (3, *hw)).astype(
+        np.float32)).to(DEVICE)
+    goal = torch.from_numpy(rng.uniform(-1, 1, (3, 2)).astype(
+        np.float32)).to(DEVICE)
+    e = cfg.env
+    with torch.no_grad():
+        a = torch.clamp(plain(obs, goal), -e.max_action, e.max_action)
+    want = torch.stack([(a[:, 0] + 1) * e.linear_cmd_scale,
+                        a[:, 1] * e.angular_cmd_scale], dim=-1)
+    units = (pinned(obs, goal) - want).abs().max().item()
+    try:
+        pinned(obs[:2], goal[:2])
+        refused = False
+    except Exception:
+        refused = True
+    print(f"artifact with env units, batch pinned to 3: max|err| {units:.3e}"
+          f" against the clipped, scaled map; another batch refused: "
+          f"{refused}; export took {secs:.1f} s, {len(data)} bytes",
+          flush=True)
+    check(units <= EXPORT_TOL, "the env-units artifact disagrees")
+    check(refused, "the pinned artifact took another batch")
+    return {"by_batch": reads, "env_units": units, "export_s": secs,
+            "bytes": len(data)}
+
+
+def phase_capture(flat):
+    """Phase 25d: AttentionVisualizer over GoTPolicy(capture=True) (the
+    flagship actor, fp32) on the card for CAPTURE_STEPS kinematic steps
+    (`examples/attention_maps.collect_episode`): every map's rows sum to
+    1; the maps against the CPU's capture of the same frames in float64
+    under the rule at CAPTURE_TOL (the CPU's fp32 capture beside, a
+    mis-scaled capture failing); the actions equal K1's fp32 route under
+    phase 2's rule; the active visualizer launches no kernel, the
+    inactive one K1."""
+    import numpy as np
+    import torch
+
+    from dgvit_tpu_torch.examples.attention_maps import (capture_policy,
+                                                         collect_episode)
+    from dgvit_tpu_torch.models import layers
+    from dgvit_tpu_torch.serve import make_action_fn
+
+    cfg = slice_cfg()
+    viz = capture_policy(cfg, flat, DEVICE)
+    env = fleet_envs(1)[0]
+    records, launches = counted(lambda: collect_episode(
+        viz, env, cfg, CAPTURE_STEPS))
+    check(launches == NO_KERNELS, f"capture launched {launches}")
+    cpu = capture_policy(cfg, flat, "cpu")
+    f64 = capture_policy(cfg, flat, "cpu")
+    f64.model.double()
+    probs = layers.attention_probs
+
+    def maps(v, rec, dt=torch.float32):
+        v.clear()
+        v(torch.from_numpy(rec["frame"][None]).to(dt),
+          torch.from_numpy(rec["goal"][None]).to(dt))
+        return {k: m[0].astype(np.float64) for k, m in v.cache.items()}
+
+    reads = {"card": 0.0, "CPU fp32": 0.0, "mis-scaled scores": 0.0}
+    worst_sum = vs_cpu = 0.0
+    for rec in records:
+        ref, mine = maps(f64, rec, torch.float64), maps(cpu, rec)
+        layers.attention_probs = lambda q, k, scale: probs(
+            q, k, scale * CAPTURE_WRONG_SCALE)
+        try:
+            wrong = maps(cpu, rec)
+        finally:
+            layers.attention_probs = probs
+        check(sorted(rec["maps"]) == sorted(ref) and
+              len(rec["maps"]) == cfg.model.block, "capture keys")
+        for k, m in rec["maps"].items():
+            worst_sum = max(worst_sum, float(np.abs(m.sum(-1) - 1).max()))
+            vs_cpu = max(vs_cpu, float(np.abs(m - mine[k]).max()))
+            for name, o in (("card", m), ("CPU fp32", mine[k]),
+                            ("mis-scaled scores", wrong[k])):
+                reads[name] = max(reads[name],
+                                  float(np.abs(o - ref[k]).max()))
+    limit = max(CAPTURE_TOL, EXACT_K["fp32"] * reads["CPU fp32"])
+    live = make_action_fn(cfg, flat, dtype=torch.float32, device=DEVICE)
+    frames = np.stack([r["frame"] for r in records]).astype(np.float32)
+    goals = np.stack([r["goal"] for r in records])
+    k1, k1_launches = counted(lambda: live(frames, goals))
+    ratio = f32_ratio(torch.from_numpy(np.stack(
+        [r["action"] for r in records])), torch.from_numpy(k1))
+    viz.deactivate()
+    _, inactive = counted(lambda: viz(
+        torch.from_numpy(frames).to(DEVICE),
+        torch.from_numpy(goals).to(DEVICE), inference=True))
+    shape = next(iter(records[0]["maps"].values())).shape
+    print(f"capture over {len(records)} kinematic steps ({cfg.model.block} "
+          f"blocks, {shape} maps): rows sum to 1 within {worst_sum:.3e}; "
+          f"maps against the CPU's float64 capture, max|err| (limit max("
+          f"{CAPTURE_TOL:g}, {EXACT_K['fp32']:g} x the CPU fp32 one's) = "
+          f"{limit:.3e}): " + ", ".join(f"{n} {v:.3e}" for n, v in
+                                        reads.items())
+          + f" (the mis-scaled must fail); the card against the CPU's fp32 "
+          f"capture {vs_cpu:.3e} (read only); actions against K1 fp32 "
+          f"max|err| over {F32_TOL:g} (1 + |ref|) {ratio:.3e}; inactive "
+          f"launches {inactive}", flush=True)
+    check(len(records) == CAPTURE_STEPS, "the episode ended early")
+    check(worst_sum <= CAPTURE_TOL, "capture rows do not sum to 1")
+    check(reads["card"] <= limit, "capture maps disagree with the float64 "
+          "capture")
+    check(reads["mis-scaled scores"] > limit, "the capture check passes "
+          "mis-scaled scores")
+    check(ratio <= 1, "capture actions disagree with K1")
+    check(k1_launches["K1"] == 1 and inactive["K1"] == 1,
+          "the inactive visualizer's forward is not K1's")
+    return {"rows": worst_sum, "maps": reads, "limit": limit,
+            "vs_cpu_fp32": vs_cpu, "actions": ratio,
+            "inactive_launches": inactive}
+
+
+def phase_slice(flat):
+    """Phase 25 (25a-25d), on its own generator; each sub-phase's time."""
+    import numpy as np
+
+    rng = np.random.default_rng(SLICE_SEED)
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
+        for key, fn in (("offline", lambda: phase_offline(out_dir, rng)),
+                        ("latent_reuse", lambda: phase_latent_reuse(rng)),
+                        ("export", lambda: phase_export(flat)),
+                        ("capture", lambda: phase_capture(flat))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            secs[key] = time.perf_counter() - t0
+            print(f"phase 25 {key}: {secs[key]:.1f} s", flush=True)
+    out["seconds"] = secs
+    return out
+
+
+def slice_launches(sl, short, dtype):
+    """A kernel's launches on phase 25's paths in `dtype`, for the kernels
+    line: bf16 the latent-reuse runs; fp32 (25a runs Config(), fp32) the
+    cluster forms' launches of the offline and latent-reuse runs."""
+    if dtype == "float32":
+        paths = {**sl["offline"]["cluster_launches"],
+                 **sl["latent_reuse"]["cluster_launches"]}
+    else:
+        paths = {k: v for k, v in sl["latent_reuse"]["launches"].items()
+                 if k.endswith(dtype)}
+    return {k: v[short] for k, v in paths.items()}
+
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -9910,6 +10537,7 @@ def main() -> int:
     imitation = phase_imitation()
     zoo = phase_zoo()
     fleet = phase_fleet(flat)
+    slice25 = phase_slice(flat)
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -9988,7 +10616,8 @@ def main() -> int:
                     "aug_recipe": faults["aug_recipe"]["launches"][short],
                     **imitation_launches(imitation, short),
                     **zoo_launches(zoo, short),
-                    **fleet_launches(fleet, short)},
+                    **fleet_launches(fleet, short),
+                    **slice_launches(slice25, short, "bfloat16")},
                 **({"bc_fp32": {str(b): t["kernels"][short] for b, t in
                                 imitation["bc_kernels"]["times"].items()}}
                    if short != "K4" else {}),
@@ -10063,7 +10692,9 @@ def main() -> int:
             "teacher_tool": teacher["launches"]["K1"],
             "reference_config_main":
                 zoo["reference_config"]["launches"]["reference_config_main"][
-                    "K1"]}})
+                    "K1"],
+            "train_env_replay":
+                slice25["offline"]["launches"]["train_env_replay"]["K1"]}})
     name, src, replaces = KERNELS["K8"]
     vit = zoo["vit"]
     shape = str(VIT_ATTN_SHAPES[1])
@@ -10098,7 +10729,8 @@ def main() -> int:
             "form": "cluster_fp32",
             "by_batch": {str(b): t["kernels"][short] for b, t in bc.items()},
             "launches_by_path": {
-                "bc_fit": imitation["bc_fit"]["cluster_launches"][short]}})
+                "bc_fit": imitation["bc_fit"]["cluster_launches"][short],
+                **slice_launches(slice25, short, "float32")}})
     # K4's fp32 cluster form: its launches on the reference config's
     # `main` (phase 23a), timed there at the reference's batch
     ref_cfg = zoo["reference_config"]
@@ -10114,7 +10746,8 @@ def main() -> int:
         "batch": ZOO_BATCH, "dtype": "float32", "form": t4["form"],
         "by_batch": t4["by_batch"],
         "launches_by_path": {
-            "reference_config_main": ref_cfg["k4_cluster_launches"]}})
+            "reference_config_main": ref_cfg["k4_cluster_launches"],
+            **slice_launches(slice25, "K4", "float32")}})
     # K3f's and K3b's fp32 cluster forms: their launches on the reference
     # config's `main` (phase 23a), timed there at the reference's batch
     for short in ("K3f", "K3b"):
@@ -10132,7 +10765,8 @@ def main() -> int:
             "by_batch": t3["by_batch"],
             "launches_by_path": {
                 "reference_config_main": ref_cfg["k3_cluster_launches"][short],
-                "bc_fit": imitation["bc_fit"]["cluster_launches"][short]}})
+                "bc_fit": imitation["bc_fit"]["cluster_launches"][short],
+                **slice_launches(slice25, short, "float32")}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")
@@ -10146,6 +10780,8 @@ def main() -> int:
     print(f"imitation tier (phase 22, {card()}): {json.dumps(imitation)}")
     print(f"model zoo (phase 23, {card()}): {json.dumps(zoo)}")
     print(f"fleet tier (phase 24, {card()}): {json.dumps(fleet)}")
+    print(f"recorded-data slice (phase 25, {card()}): "
+          f"{json.dumps(slice25)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

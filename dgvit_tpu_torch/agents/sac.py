@@ -52,13 +52,25 @@ first `sac.aug_warmup` updates; with `sac.aug_actor` False the actor step
 (the policy forward, its Q evaluation and the guided BC losses) sees the
 raw frames. The offsets come from the state's `aug_generator`, so the
 dropout masks and action noise of an update are those of the same update
-without the shift. Not here: `critic_latent_reuse`.
+without the shift.
+
+`sac.critic_latent_reuse` (JAX sac.py:138-153, the opt-in off the
+reference's ordering) takes the critic trunk's latent from the critic
+update's own gradient pass (K2/K3 on the card, K3f's output, its dropout
+live) in every flavour, detached, and the actor step evaluates only the
+twin heads on it, with their parameters from before `critic_opt.step()`
+(`GoTQNetwork.head_params`), so the gradient reaches the actor's action
+alone. The actor step's critic trunk (one K4 an update) is skipped, and
+with it that trunk's dropout draws; with emb-dropout 0 no draw moves. It
+takes the GoT critic, and refuses `aug_shift` with `aug_actor` False (the
+latent is of the shifted frames), each by a ValueError.
 
 Every actor and critic of the zoo (`models/policies.py`) runs these
 updates, as in the JAX package:
   * the actor step evaluates the updated critic with its parameters
-    frozen: the GoT critic as its no-grad trunk (K4) and its heads, any
-    other critic whole (JAX sac.py:449-453);
+    frozen: the GoT critic as its no-grad trunk (K4) and its heads (or,
+    with critic_latent_reuse, the pre-update heads on the critic pass's
+    latent), any other critic whole (JAX sac.py:449-453);
   * a deterministic actor (`Deterministic*`) has alpha 0 and no
     temperature step (JAX sac.py:171-174), explores with
     `distributions.deterministic_sample` (mean plus clip(N(0, 1) x 0.1,
@@ -186,6 +198,19 @@ class SACAgent:
         self.aug_shift = int(s.aug_shift)
         self.aug_actor = bool(s.aug_actor)
         self.aug_warmup = int(s.aug_warmup)
+        self.latent_reuse = bool(s.critic_latent_reuse)
+        if self.latent_reuse and self.aug_shift and not self.aug_actor:
+            raise ValueError("critic_latent_reuse is incompatible with "
+                             "aug_actor=False (the stashed critic latent "
+                             "is an augmented view)")
+        got_critic = m.critic_type == "Transformer" \
+            and m.backbone != "simple_vit"
+        if self.latent_reuse and not got_critic:
+            name = ("QNetwork" if m.critic_type == "CNN" else "ViTQNetwork"
+                    if m.critic_type == "Transformer" else m.critic_type)
+            raise ValueError(
+                "critic_latent_reuse requires the GoT critic "
+                f"(critic_type=Transformer, got {name})")
         self._act_stager = None     # pinned buffers of choose_action_host
 
     def init_state(self, seed: Optional[int] = None) -> SACState:
@@ -316,16 +341,40 @@ class SACAgent:
             min_q = (1.0 - b["done"].reshape(-1, 1)) * min_q
         return rew + self.gamma * min_q
 
-    def _policy_terms(self, state: SACState, alpha, b, noise_pi):
+    def _critic_q(self, state: SACState, b):
+        """The critic's gradient pass on the batch, dropout live: (q1, q2,
+        latent), the trunk's latent detached with critic_latent_reuse,
+        else None."""
+        kw = dict(deterministic=False, generator=state.generator)
+        if not self.latent_reuse:
+            return (*state.critic(b["obs"], b["pobs"], b["act"], **kw), None)
+        latent = state.critic.trunk(b["obs"], b["pobs"], **kw)
+        q1, q2 = state.critic.heads(latent, b["act"])
+        return q1, q2, latent.detach()
+
+    def _critic_step(self, state: SACState, loss: torch.Tensor, latent):
+        """The critic's Adam step on `loss`; with a reused latent, the
+        heads' parameters from before it (else None)."""
+        state.critic_opt.zero_grad(set_to_none=True)
+        loss.backward()
+        heads = None if latent is None else state.critic.head_params()
+        state.critic_opt.step()
+        return heads
+
+    def _policy_terms(self, state: SACState, alpha, b, noise_pi,
+                      latent=None, heads=None):
         """The actor's sample on the batch (live dropout) and alpha logpi -
         minQ against the updated critic, its parameters frozen (the GoT
-        critic's trunk no-grad, then its heads; any other critic whole):
-        (sample, per-element loss (B, A))."""
+        critic's trunk no-grad, then its heads; any other critic whole),
+        or, given the critic pass's `latent`, the twin heads alone with
+        the parameters `heads`: (sample, per-element loss (B, A))."""
         g = state.generator
         s = self._sample(state.actor, b["obs"], b["pobs"], g, noise_pi,
                          deterministic=False)
         kw = dict(deterministic=False, inference=True, generator=g)
-        if isinstance(state.critic, GoTQNetwork):
+        if latent is not None:
+            q1_pi, q2_pi = state.critic.heads(latent, s.action, heads)
+        elif isinstance(state.critic, GoTQNetwork):
             with torch.no_grad():
                 latent = state.critic.trunk(b["obs"], b["pobs"], **kw)
             q1_pi, q2_pi = state.critic.heads(latent, s.action)
@@ -417,14 +466,12 @@ class SACAgent:
         b, _ = self._augment(state, clean, shifts=shifts)
         actor_b = b if self.aug_actor else clean
         noise_next, noise_pi = self._noise(noise)
-        g = state.generator
         prev = self._snapshot(state) if self.nan_guard else None
         alpha = self._alpha(state)
         target = self._td_target(state, alpha, b, noise_next)
 
         # critic update (K2/K3 route)
-        q1, q2 = state.critic(b["obs"], b["pobs"], b["act"],
-                              deterministic=False, generator=g)
+        q1, q2, latent = self._critic_q(state, b)
         td = None
         if weights is None:
             qf1_loss = torch.mean(torch.square(q1.float() - target))
@@ -434,12 +481,12 @@ class SACAgent:
             w = weights.reshape(-1, 1)
             qf1_loss = torch.mean(w * torch.square(q1.float() - target))
             qf2_loss = torch.mean(w * torch.square(q2.float() - target))
-        state.critic_opt.zero_grad(set_to_none=True)
-        (qf1_loss + qf2_loss).backward()
-        state.critic_opt.step()
+        heads = self._critic_step(state, qf1_loss + qf2_loss, latent)
 
-        # actor update against the updated critic; its trunk is no-grad
-        s, per_elem = self._policy_terms(state, alpha, actor_b, noise_pi)
+        # actor update against the updated critic (its trunk no-grad), or
+        # the pre-update heads on the reused latent
+        s, per_elem = self._policy_terms(state, alpha, actor_b, noise_pi,
+                                         latent, heads)
         policy_loss = torch.mean(per_elem)
         self._actor_step(state, policy_loss)
         log_pi = s.log_prob.detach().float()
@@ -540,7 +587,6 @@ class SACAgent:
         engage = torch.as_tensor(batch["engage"], dtype=torch.float32,
                                  device=self.device).reshape(-1)
         noise_next, noise_pi = self._noise(noise)
-        g = state.generator
         prev = self._snapshot(state) if self.nan_guard else None
         itera = state.itera
         alpha = self._alpha(state)
@@ -557,16 +603,13 @@ class SACAgent:
         target = self._td_target(state, alpha, merged, noise_next)
 
         # critic update on the merged rows, weighted
-        q1, q2 = state.critic(merged["obs"], merged["pobs"], merged["act"],
-                              deterministic=False, generator=g)
+        q1, q2, latent = self._critic_q(state, merged)
         q1, q2 = q1.float(), q2.float()
         td = torch.abs(q1.detach() - target).mean(dim=1)[:rows]
         denom = torch.sum(w) * q1.shape[1]
         qf1_loss = torch.sum(w * torch.square(q1 - target)) / denom
         qf2_loss = torch.sum(w * torch.square(q2 - target)) / denom
-        state.critic_opt.zero_grad(set_to_none=True)
-        (qf1_loss + qf2_loss).backward()
-        state.critic_opt.step()
+        heads = self._critic_step(state, qf1_loss + qf2_loss, latent)
 
         # actor: the weighted policy loss over the merged rows, the expert
         # BC loss and the intervention loss (both computed whatever their
@@ -576,7 +619,8 @@ class SACAgent:
             b, e = clean, clean_e
             merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
         gw = self.guidence_weight_at(itera)
-        s, per_elem = self._policy_terms(state, alpha, merged, noise_pi)
+        s, per_elem = self._policy_terms(state, alpha, merged, noise_pi,
+                                         latent, heads)
         policy_loss = torch.sum(w * per_elem) / (
             torch.sum(w) * per_elem.shape[1])
         bc = self._bc_mse(state, e["obs"], e["pobs"], e["act"], valid)

@@ -140,9 +140,10 @@ class SACConfig:
     # update through a background BatchPrefetcher (replay/staging.py);
     # batches are up to two steps stale, so opt-in
     prefetch_batches: bool = False
-    # True evaluates the actor loss on the critic's trunk latent from
-    # before the update (the JAX package's opt-in): not ported, refused by
-    # name
+    # True evaluates the actor loss on the critic update's own trunk
+    # latent and the heads' pre-update parameters, skipping the actor
+    # step's critic trunk (one K4 an update; the JAX package's opt-in,
+    # off the reference's ordering, DRL.py:401-407). GoT critic only
     critic_latent_reuse: bool = False
     # True adds the (1 - done) mask the reference's TD target omits
     done_mask_in_target: bool = False
@@ -194,10 +195,6 @@ class SACConfig:
                     "auto_tune_alpha=False set alpha >= alpha_min directly")
         if self.alpha <= 0.0:
             raise ValueError("sac.alpha must be > 0 (it seeds log_alpha)")
-        if self.critic_latent_reuse:
-            raise NotImplementedError(
-                "sac.critic_latent_reuse (the actor loss on the critic's "
-                "pre-update trunk latent) is not ported")
 
 
 @dataclass

@@ -31,10 +31,13 @@ decided from the shapes before any launch):
     graph; its backward is the whole-trunk kernel K6.
 
 Any other model or frame (block dropout, `attn_impl` xla or pallas, mean
-pooling, more than 256 tokens, a frame the route's kernels cannot hold)
-takes the composed route: the embedding, then each
+pooling, `capture`, more than 256 tokens, a frame the route's kernels
+cannot hold, blocks without an output projection: heads == 1 and
+dim_head == dim) takes the composed route: the embedding, then each
 block as `models/layers.py::TransformerBlock` composes it around the
-attention kernels (K7, K8), the pooling and the final-norm module.
+attention kernels (K7, K8), the pooling and the final-norm module. With
+`capture` each block keeps its softmax probabilities (`captured`, the
+records `utils/visualizer.AttentionVisualizer` reads).
 
 The embedding is the JAX composed path's: the patch-embed product rounded
 to the compute dtype, then its bias, the goal token and the positional
@@ -77,11 +80,13 @@ def patchify_channels(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0, attn_impl: str = "auto"):
+                 dropout: float = 0.0, attn_impl: str = "auto",
+                 capture: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, heads, dim_head, mlp_dim, generator,
-                             dropout=dropout, attn_impl=attn_impl)
+                             dropout=dropout, attn_impl=attn_impl,
+                             capture=capture)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor, cls_final: bool = False, *,
@@ -117,16 +122,16 @@ class GoT(nn.Module):
             raise ValueError(pool)
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}")
-        if capture:
-            raise NotImplementedError("capture (attention maps for the "
-                                      "visualizer) is not ported")
         if seq_shard:
             raise NotImplementedError("seq_shard (ring attention) is not "
                                       "ported")
         self.pool, self.trunk_grad = pool, bool(trunk_grad)
-        # the fused routes' static conditions (got.py:102-114)
-        self.blocks_ok = (attn_impl in ("auto", "fused") and dropout == 0.0
+        # the fused routes' static conditions (got.py:102-114) but capture;
+        # the route rule (`route_fits`) refuses a block without an output
+        # projection
+        self._fused_ok = (attn_impl in ("auto", "fused") and dropout == 0.0
                           and pool == "cls")
+        self.capture = bool(capture)
         self.image_size, self.patch_size = tuple(image_size), tuple(patch_size)
         self.heads, self.dim_head = heads, dim_head
         self.patch_mode, self.final_norm = patch_mode, final_norm
@@ -141,10 +146,17 @@ class GoT(nn.Module):
                          generator))
         self.transformer = Transformer(dim, depth, heads, dim_head, mlp_dim,
                                        generator, dropout=dropout,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl, capture=capture)
         self.norm_out = RMSNorm(dim) if final_norm == "rms" else LayerNorm(dim)
         self._cache_key = None
         self._cache = None
+
+    @property
+    def blocks_ok(self) -> bool:
+        """Whether the fused routes may run: their static conditions, and
+        no capture (`capture` may be switched on and off, as
+        `utils/visualizer.AttentionVisualizer` does)."""
+        return self._fused_ok and not self.capture
 
     def fused_params(self, cdt: torch.dtype):
         """(pe, pos, blocks, fn) as the no-grad kernels take them: detached

@@ -6,16 +6,25 @@ they are. Its forward takes the JAX block's two routes
 (`dgvit_tpu/models/layers.py:226-296`):
 
   * fused: the differentiable per-block kernel (K2, or K3 for the CLS-only
-    final block), when the block has no dropout, `attn_impl` is auto or
-    fused, the projection has a bias, there are at most 256 tokens and
-    the kernels hold a frame in a thread block's shared memory
-    (`ops/smem.py`: on the card only);
+    final block), when the block has no dropout and no capture,
+    `attn_impl` is auto or fused, there are at most 256 tokens and the
+    route rule passes (`ops/smem.py`: the kernels hold a frame in a
+    thread block's shared memory on the card, and the block has an
+    output projection);
   * composed, otherwise: LayerNorm, `attention`, residual, LayerNorm,
     `feed_forward`, residual, in PyTorch around the attention kernels.
     `attention` runs the whole section as one kernel (K7,
-    `ops/fused_block.py`) for a tensor on the card where K7 holds the
-    frame, or projects q, k and v
+    `ops/fused_block.py`) for a tensor on the card where the route rule
+    passes for K7, or projects q, k and v
     and calls `dot_product_attention` (K8 behind `impl`).
+
+A block with heads == 1 and dim_head == dim has no output projection (no
+`wout`, `bout`; JAX layers.py:132): the attention's output is the
+heads' output itself, and the route rule refuses it every fused route.
+With `capture` (the visualizer's attention maps, JAX layers.py:169-173)
+the attention's softmax probabilities (`attention_probs`) are kept as the
+block's `captured` record (B, H, N, N) on every forward, and only the
+composed route with the plain attention runs.
 
 The JAX package takes its fused routes when the backend is a TPU; here the
 per-block kernels' wrappers run their plain versions on CPU tensors, so
@@ -29,14 +38,15 @@ Dropout with the mask drawn from an explicit `torch.Generator`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dgvit_tpu_torch.models import initializers as init
-from dgvit_tpu_torch.ops.attention import IMPLS, dot_product_attention
+from dgvit_tpu_torch.ops.attention import (IMPLS, attention_probs,
+                                           dot_product_attention)
 from dgvit_tpu_torch.ops.cls_block import cls_final_block
 from dgvit_tpu_torch.ops.fused_block import (MAX_TOKENS,
                                              fused_attention_section)
@@ -73,29 +83,46 @@ def _prod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-def attention(x: torch.Tensor, wqkv: torch.Tensor, wout: torch.Tensor,
-              bout: torch.Tensor, heads: int, dim_head: int, *,
+def attention(x: torch.Tensor, wqkv: torch.Tensor,
+              wout: Optional[torch.Tensor], bout: Optional[torch.Tensor],
+              heads: int, dim_head: int, *,
               rate: float = 0.0, attn_impl: str = "auto",
               deterministic: bool = True,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              capture: Optional[Callable[[torch.Tensor], None]] = None
+              ) -> torch.Tensor:
     """Multi-head self-attention of the composed block: x (B, n, d) and the
     block's projection weights, all in the compute dtype -> (B, n, d).
     On the card, with `attn_impl` auto or fused and n <= 256, the whole
     section is the kernel K7; otherwise q, k and v are projected here and
     attended by `dot_product_attention(impl=attn_impl)`. Dropout (`rate`,
-    unless `deterministic`) follows the output projection either way."""
+    unless `deterministic`) follows the output projection either way.
+    `wout` None: no output projection and no dropout after it.
+    `capture`: handed the softmax probabilities (B, H, n, n), which the
+    output is then computed from (dropout on them first, as on the
+    output)."""
     b, n, d = x.shape
-    if (attn_impl in ("auto", "fused") and _on_card(x) and n <= MAX_TOKENS
+    if (attn_impl in ("auto", "fused") and capture is None and _on_card(x)
+            and n <= MAX_TOKENS
             and route_fits(("K7",), n, d, heads, dim_head, 0, x.dtype,
                            x.device)):
         out = fused_attention_section(x, wqkv, wout, bout, heads, dim_head)
     else:
         qkv = _prod(x, wqkv).reshape(b, n, 3, heads, dim_head)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = dot_product_attention(
-            q, k, v, dim_head ** -0.5,
-            impl="auto" if attn_impl == "fused" else attn_impl)
+        if capture is not None:
+            probs = attention_probs(q, k, dim_head ** -0.5)
+            capture(probs)
+            if not deterministic:
+                probs = dropout(probs, rate, generator)
+            out = _prod(probs, v)
+        else:
+            out = dot_product_attention(
+                q, k, v, dim_head ** -0.5,
+                impl="auto" if attn_impl == "fused" else attn_impl)
         out = out.transpose(1, 2).reshape(b, n, heads * dim_head)
+        if wout is None:
+            return out
         out = _prod(out, wout) + bout
     return out if deterministic else dropout(out, rate, generator)
 
@@ -166,7 +193,10 @@ class TransformerBlock(nn.Module):
 
     Parameters, in the fused kernel's order: attn_norm_scale,
     attn_norm_bias, wqkv (d, 3*inner, no bias), wout (inner, d), bout,
-    ff_norm_scale, ff_norm_bias, w1 (d, mlp), b1, w2 (mlp, d), b2.
+    ff_norm_scale, ff_norm_bias, w1 (d, mlp), b1, w2 (mlp, d), b2; with
+    heads == 1 and dim_head == d there is no wout and no bout
+    (`project_out` False). `capture`: keep the attention's probabilities
+    of each forward in `captured`.
     """
 
     ORDER = ("attn_norm_scale", "attn_norm_bias", "wqkv", "wout", "bout",
@@ -174,23 +204,24 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0, attn_impl: str = "auto"):
+                 dropout: float = 0.0, attn_impl: str = "auto",
+                 capture: bool = False):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}")
-        if heads == 1 and dim_head == dim:
-            raise NotImplementedError(
-                "heads == 1 and dim_head == dim (no output projection) is "
-                "not ported")
         self.heads, self.dim_head = heads, dim_head
         self.dropout, self.attn_impl = dropout, attn_impl
+        self.project_out = not (heads == 1 and dim_head == dim)
+        self.capture = bool(capture)
+        self.captured: Optional[torch.Tensor] = None
         inner = heads * dim_head
         e = lambda *s: nn.Parameter(torch.empty(*s))
         self.attn_norm_scale = nn.Parameter(torch.ones(dim))
         self.attn_norm_bias = nn.Parameter(torch.zeros(dim))
         self.wqkv = e(dim, 3 * inner)
-        self.wout = e(inner, dim)
-        self.bout = e(dim)
+        if self.project_out:
+            self.wout = e(inner, dim)
+            self.bout = e(dim)
         self.ff_norm_scale = nn.Parameter(torch.ones(dim))
         self.ff_norm_bias = nn.Parameter(torch.zeros(dim))
         self.w1 = e(dim, mlp_dim)
@@ -199,12 +230,16 @@ class TransformerBlock(nn.Module):
         self.b2 = e(dim)
         g = generator
         init.xavier_uniform_(self.wqkv, dim, 3 * inner, g)
-        init.xavier_uniform_(self.wout, inner, dim, g)
-        init.torch_linear_bias_(self.bout, inner, g)
+        if self.project_out:
+            init.xavier_uniform_(self.wout, inner, dim, g)
+            init.torch_linear_bias_(self.bout, inner, g)
         init.xavier_uniform_(self.w1, dim, mlp_dim, g)
         init.torch_linear_bias_(self.b1, dim, g)
         init.xavier_uniform_(self.w2, mlp_dim, dim, g)
         init.torch_linear_bias_(self.b2, mlp_dim, g)
+
+    def _keep(self, probs: torch.Tensor) -> None:
+        self.captured = probs.detach()
 
     def flat(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
         """The 11 parameters in kernel order, cast to the compute dtype and
@@ -235,7 +270,8 @@ class TransformerBlock(nn.Module):
         `generator`."""
         cast = lambda *names: (getattr(self, n).to(x.dtype) for n in names)
         if (self.attn_impl in ("auto", "fused") and self.dropout == 0.0
-                and x.shape[1] <= MAX_TOKENS and self.fused_fits(x, cls_only)):
+                and not self.capture and x.shape[1] <= MAX_TOKENS
+                and self.fused_fits(x, cls_only)):
             w = tuple(cast(*self.ORDER))
             if cls_only:
                 return cls_final_block(x.contiguous(), w, self.heads,
@@ -244,13 +280,16 @@ class TransformerBlock(nn.Module):
                                            self.dim_head)
         # composed: the norms keep their fp32 parameters, as the JAX
         # LayerNorm module does; the products' operands go to x's dtype
-        wqkv, wout, bout, w1, b1, w2, b2 = cast(
-            "wqkv", "wout", "bout", "w1", "b1", "w2", "b2")
+        wqkv, w1, b1, w2, b2 = cast("wqkv", "w1", "b1", "w2", "b2")
+        wout, bout = (cast("wout", "bout") if self.project_out
+                      else (None, None))
         drop = dict(rate=self.dropout, deterministic=deterministic,
                     generator=generator)
         h = _ln(x.float(), self.attn_norm_scale, self.attn_norm_bias)
         x = x + attention(h.to(x.dtype), wqkv, wout, bout, self.heads,
-                          self.dim_head, attn_impl=self.attn_impl, **drop)
+                          self.dim_head, attn_impl=self.attn_impl,
+                          capture=self._keep if self.capture else None,
+                          **drop)
         if cls_only:
             x = x[:, :1]    # only the CLS row survives the pooling
         h = _ln(x.float(), self.ff_norm_scale, self.ff_norm_bias)

@@ -8,7 +8,9 @@ GoT family (got_sac_network.py):
   * GoTQNetwork: goal -> relu(fc_embed) as the goal token; the GoT latent
     with the action appended -> twin heads relu(fc1 ->128) -> relu(fc2
     128->32) -> fc3 and relu(fc11) -> relu(fc21) -> fc31, each (B,
-    action_dim); `trunk` and `heads` apply on their own;
+    action_dim); `trunk` and `heads` apply on their own, `heads` also
+    with parameters handed in (`head_params`: the pre-update heads of
+    `sac.critic_latent_reuse`);
   * DeterministicGoTPolicy: fc_embed (no ReLU), GoT, relu(fc1 ->128),
     relu(fc2 128->32), tanh(mean_linear). `build_actor` hands it no image
     size, patch size, emb-dropout or patch mode, as the JAX factory hands
@@ -31,7 +33,10 @@ heads). As in the JAX factory the ViT's image and patch sizes are the
 module's defaults: its patch count follows the frames it is given.
 
 A deterministic actor returns the tanh-squashed action itself; no caller
-squashes it again. Every head runs in the compute dtype, as the JAX
+squashes it again. `capture` (GoTPolicy, GoTQNetwork and the ViT actors;
+JAX policies.py:53, :280, :344) builds the trunk so that each block keeps
+its attention maps for `utils/visualizer.AttentionVisualizer`; such a
+trunk takes the composed route. Every head runs in the compute dtype, as the JAX
 package's TorchLinear does; every forward takes the GoT trunk's
 `deterministic`, `inference` and `generator` keywords (the CNN and ViT
 families have no dropout and ignore them).
@@ -48,7 +53,7 @@ route for that reason).
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +65,8 @@ from dgvit_tpu_torch.models.got import GoT
 from dgvit_tpu_torch.models.layers import Linear
 from dgvit_tpu_torch.models.simple_vit import SimpleViT
 
+HEADS = ("fc1", "fc2", "fc3", "fc11", "fc21", "fc31")   # GoTQNetwork's
+
 
 class GoTPolicy(nn.Module):
     def __init__(self, action_dim: int = 2, pstate_dim: int = 2,
@@ -70,6 +77,7 @@ class GoTPolicy(nn.Module):
                  patch_mode: str = "2d", channels: int = 1,
                  final_norm: str = "rms", emb_dropout: float = 0.1,
                  attn_impl: str = "auto", trunk_grad: bool = False,
+                 capture: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -81,7 +89,7 @@ class GoTPolicy(nn.Module):
                          channels=channels, patch_mode=patch_mode,
                          final_norm=final_norm, emb_dropout=emb_dropout,
                          attn_impl=attn_impl, trunk_grad=trunk_grad,
-                         dtype=dtype, generator=g)
+                         capture=capture, dtype=dtype, generator=g)
         self.fc1 = Linear(l_f_size, 128, dtype=dtype, generator=g)
         self.fc2 = Linear(128, 128, dtype=dtype, generator=g)
         self.mean_linear = Linear(128, action_dim, dtype=dtype, generator=g)
@@ -113,7 +121,7 @@ class GoTQNetwork(nn.Module):
                  patch_size: Tuple[int, int] = (16, 20),
                  patch_mode: str = "2d", channels: int = 1,
                  emb_dropout: float = 0.1, attn_impl: str = "auto",
-                 trunk_grad: bool = False,
+                 trunk_grad: bool = False, capture: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -125,7 +133,8 @@ class GoTQNetwork(nn.Module):
                          dim_head=dim_head, mlp_dim=mlp_dim,
                          channels=channels, patch_mode=patch_mode,
                          emb_dropout=emb_dropout, attn_impl=attn_impl,
-                         trunk_grad=trunk_grad, dtype=dtype, generator=g)
+                         trunk_grad=trunk_grad, capture=capture,
+                         dtype=dtype, generator=g)
         self.fc1 = lin(l_f_size + action_dim, 128)
         self.fc2 = lin(128, 32)
         self.fc3 = lin(32, action_dim)
@@ -141,12 +150,26 @@ class GoTQNetwork(nn.Module):
                           deterministic=deterministic, inference=inference,
                           generator=generator)
 
-    def heads(self, latent: torch.Tensor, action: torch.Tensor):
-        """Twin MLP heads over a trunk latent; the action joins here."""
+    def heads(self, latent: torch.Tensor, action: torch.Tensor,
+              params: Optional[Mapping[str, torch.Tensor]] = None):
+        """Twin MLP heads over a trunk latent; the action joins here.
+        `params` (names as `head_params` gives them) stand in for the
+        heads' own parameters."""
         x = torch.cat([latent, action.to(latent.dtype)], dim=1)
-        q1 = self.fc3(F.relu(self.fc2(F.relu(self.fc1(x)))))
-        q2 = self.fc31(F.relu(self.fc21(F.relu(self.fc11(x)))))
+        if params is None:
+            lin = lambda name, h: getattr(self, name)(h)
+        else:
+            lin = lambda name, h: torch.func.functional_call(
+                getattr(self, name), {k: params[f"{name}.{k}"]
+                                      for k in ("weight", "bias")}, (h,))
+        q1 = lin("fc3", F.relu(lin("fc2", F.relu(lin("fc1", x)))))
+        q2 = lin("fc31", F.relu(lin("fc21", F.relu(lin("fc11", x)))))
         return q1, q2
+
+    def head_params(self) -> Dict[str, torch.Tensor]:
+        """Detached copies of the twin heads' parameters, by name."""
+        return {f"{name}.{k}": p.detach().clone() for name in HEADS
+                for k, p in getattr(self, name).named_parameters()}
 
     def forward(self, istate: torch.Tensor, pstate: torch.Tensor,
                 action: torch.Tensor, *, deterministic: bool = True,
@@ -396,23 +419,31 @@ def _vit(cfg, attn_impl: str):
 
 def build_actor(cfg, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None,
-                attn_impl: str = "auto") -> nn.Module:
+                attn_impl: str = "auto", capture: bool = False
+                ) -> nn.Module:
     """The actor a config describes: model.actor_type (and, for the
     Transformer actors, model.backbone), mapped as the JAX factory maps
-    them."""
+    them. `capture` keeps the attention maps (GoTPolicy and the ViT
+    actors); another actor refuses it."""
     m, s = cfg.model, cfg.sac
     m.validate()
     common = dict(action_dim=s.action_dim, pstate_dim=s.pstate_dim,
                   dtype=dtype, generator=generator)
+    vit = lambda: dict(_vit(cfg, attn_impl), capture=capture)
     if m.actor_type == "GaussianTransformer":
         if m.backbone == "simple_vit":
-            return ViTGaussianPolicy(**common, **_vit(cfg, attn_impl))
-        return GoTPolicy(**_got(cfg), attn_impl=attn_impl, **common)
+            return ViTGaussianPolicy(**common, **vit())
+        return GoTPolicy(**_got(cfg), attn_impl=attn_impl, capture=capture,
+                         **common)
+    if m.actor_type == "DeterministicTransformer" \
+            and m.backbone == "simple_vit":
+        return ViTDeterministicPolicy(**common, **vit())
+    if capture:
+        raise ValueError(f"capture needs an attention actor with maps "
+                         f"(GoTPolicy or a ViT actor), not {m.actor_type}")
     if m.actor_type == "GaussianConvNet":
         return GaussianPolicy(**common)
     if m.actor_type == "DeterministicTransformer":
-        if m.backbone == "simple_vit":
-            return ViTDeterministicPolicy(**common, **_vit(cfg, attn_impl))
         return DeterministicGoTPolicy(
             block=m.block, head=m.head, l_f_size=m.latent_size,
             dim_head=m.dim_head, mlp_dim=m.mlp_dim, attn_impl=attn_impl,

@@ -20,8 +20,11 @@ than 128 patches (or a head wider than 128), `pallas` always; its
 backward recomputes through K8's plain version.
 
 Linears compute in the compute dtype (`layers.Linear`), norms in fp32,
-as in the JAX module. `capture` (attention maps for the visualizer) and
-`seq_shard` (ring attention) are not ported and raise by name.
+as in the JAX module. With `capture` (the visualizer's attention maps,
+JAX simple_vit.py:101-104) each block computes its softmax probabilities
+(`attention_probs`), keeps them as its `captured` record (B, H, N, N)
+and attends with them, never through K8. `seq_shard` (ring attention)
+is not ported and raises by name.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from torch import nn
 
 from dgvit_tpu_torch.models.got import patchify_channels
 from dgvit_tpu_torch.models.layers import ATTN_IMPLS, LayerNorm, Linear
-from dgvit_tpu_torch.ops.attention import dot_product_attention
+from dgvit_tpu_torch.ops.attention import (attention_probs,
+                                           dot_product_attention)
 
 
 @functools.cache
@@ -68,11 +72,14 @@ class SimpleBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  attn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 capture: bool = False):
         super().__init__()
         g = generator
         inner = heads * dim_head
         self.heads, self.dim_head, self.attn_impl = heads, dim_head, attn_impl
+        self.capture = bool(capture)
+        self.captured: Optional[torch.Tensor] = None
         self.attn_norm = LayerNorm(dim)
         self.to_qkv = Linear(dim, 3 * inner, bias=False, dtype=dtype,
                              generator=g)
@@ -86,8 +93,13 @@ class SimpleBlock(nn.Module):
         b, n, _ = x.shape
         qkv = self.to_qkv(x).reshape(b, n, 3, self.heads, self.dim_head)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = dot_product_attention(q, k, v, self.dim_head ** -0.5,
-                                    impl=self.attn_impl)
+        if self.capture:
+            probs = attention_probs(q, k, self.dim_head ** -0.5)
+            self.captured = probs.detach()
+            out = probs @ v
+        else:
+            out = dot_product_attention(q, k, v, self.dim_head ** -0.5,
+                                        impl=self.attn_impl)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,9 +125,6 @@ class SimpleViT(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}")
-        if capture:
-            raise NotImplementedError("capture (attention maps for the "
-                                      "visualizer) is not ported")
         if seq_shard:
             raise NotImplementedError("seq_shard (ring attention) is not "
                                       "ported")
@@ -126,7 +135,8 @@ class SimpleViT(nn.Module):
         self.patch_embed = Linear(ph * pw * channels, dim, dtype=dtype,
                                   generator=g)
         self.transformer = nn.ModuleList(
-            SimpleBlock(dim, heads, dim_head, mlp_dim, attn_impl, dtype, g)
+            SimpleBlock(dim, heads, dim_head, mlp_dim, attn_impl, dtype, g,
+                        capture=capture)
             for _ in range(depth))
         self.norm_out = LayerNorm(dim)
         if head:

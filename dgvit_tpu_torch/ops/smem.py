@@ -34,7 +34,8 @@ on the card. `fits` decides from shapes alone, before any launch, whether
 a kernel can hold a frame; the model's routes (`models/got.py`,
 `models/layers.py`) send a frame that no kernel of the route can hold to
 the composed blocks. On the CPU the wrappers run their plain versions,
-which have no such limit (`limit_for` gives None).
+which have no such limit (`limit_for` gives None). A block without an
+output projection (heads == 1 and dim_head == d) fits no route.
 """
 
 from __future__ import annotations
@@ -321,7 +322,11 @@ def limit_for(device: torch.device) -> Optional[int]:
 def route_fits(kernels: Iterable[str], n: int, d: int, heads: int,
                dim_head: int, mlp: int, dtype: torch.dtype,
                device: torch.device) -> bool:
-    """Whether every kernel of a route holds n-row frames on `device`."""
+    """Whether every kernel of a route holds n-row frames on `device`. A
+    block with heads == 1 and dim_head == d has no output projection,
+    which every kernel takes: no route fits it, on any device."""
+    if heads == 1 and dim_head == d:
+        return False
     limit = limit_for(device)
     return all(fits(k, n, d, heads, dim_head, mlp, dtype, limit)
                for k in kernels)

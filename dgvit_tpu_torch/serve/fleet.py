@@ -62,9 +62,9 @@ class FleetRunner:
     units (the deterministic deployment map of
     `serve/export.py::make_action_fn`). The clip and the command map
     a_in = [(a0+1) * L_SCALE, a1 * A_SCALE] (main.py:320,370) are applied
-    here. (JAX's `env_units_baked`, for a service that already emits
-    robot velocity commands, pairs with `export_actor --env-units` and
-    comes with it.)
+    here, unless `env_units_baked` says the service already emits robot
+    velocity commands (an artifact of `export_actor(..., env_units=True)`
+    or a `make_action_fn(..., env_units=True)`).
 
     on_transition(robot, obs, action, goal, reward, next_obs, next_goal,
     done), when given, is called from the robot threads with every
@@ -75,10 +75,12 @@ class FleetRunner:
     """
 
     def __init__(self, envs: Sequence, act, cfg,
+                 env_units_baked: bool = False,
                  on_transition: Optional[Callable] = None):
         self.envs = list(envs)
         self._act = act.act if isinstance(act, BatchingActorServer) else act
         self.cfg = cfg
+        self.env_units_baked = env_units_baked
         self.on_transition = on_transition
 
     # -- one robot ----------------------------------------------------------
@@ -113,9 +115,12 @@ class FleetRunner:
             ep_t0 = sim_now()
             for t in range(e.max_steps):
                 a = np.asarray(self._act(obs, goal[:2]), np.float32)
-                a = a.clip(-e.max_action, e.max_action)
-                a_in = [(a[0] + 1.0) * e.linear_cmd_scale,
-                        a[1] * e.angular_cmd_scale]
+                if self.env_units_baked:
+                    a_in = [float(a[0]), float(a[1])]
+                else:
+                    a = a.clip(-e.max_action, e.max_action)
+                    a_in = [(a[0] + 1.0) * e.linear_cmd_scale,
+                            a[1] * e.angular_cmd_scale]
                 s = env.step(a_in, t)
                 prev_obs, prev_goal = obs, goal
                 obs = self._squeeze(s.state)
@@ -212,15 +217,18 @@ def make_ros2_fleet(cfg, n: int,
 
 def serve_fleet(cfg, envs: Sequence, act_fn: Callable,
                 episodes_per_robot: int = 1, max_wait_ms: float = 4.0,
-                buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64)) -> dict:
+                buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
+                env_units_baked: bool = False) -> dict:
     """A BatchingActorServer around `act_fn` (the numpy-in/numpy-out act
-    of `make_action_fn`) over `fleet_buckets(len(envs), buckets)`, the
-    fleet run through it, and the server's batching stats folded into the
-    result under 'serving'."""
+    of `make_action_fn`, or a loaded artifact's act) over
+    `fleet_buckets(len(envs), buckets)`, the fleet run through it
+    (`env_units_baked` as FleetRunner takes it), and the server's batching
+    stats folded into the result under 'serving'."""
     with BatchingActorServer(act_fn, max_wait_ms=max_wait_ms,
                              buckets=fleet_buckets(len(envs),
                                                    buckets)) as srv:
-        out = FleetRunner(envs, srv, cfg).run(episodes_per_robot)
+        out = FleetRunner(envs, srv, cfg, env_units_baked=env_units_baked
+                          ).run(episodes_per_robot)
     # stats after the worker has joined (the with-exit closes the server):
     # the worker bumps its counters after fut.set_result, so reading inside
     # the block can under-count the final batch

@@ -32,10 +32,12 @@ of the zoo but the `Deterministic` actor (below), head-only fine-tuning
 (`train.policy_attention_fix` / `critic_attention_fix`), and
 `--reference-config` (the reference's flat config.yaml, translated by
 `config.load_reference_yaml`; with it `--config` is not read, as in the
-JAX command line), and `--env ros2` (the ROS 2 / Gazebo adapter
+JAX command line), `--env ros2` (the ROS 2 / Gazebo adapter
 `envs/ros2_adapter.py`, which raises JAX's ImportError naming rclpy on a
-host without ROS 2). Not ported yet, and raising NotImplementedError by
-name rather than running something else: `--env replay`,
+host without ROS 2) and `--env replay` (`envs/replay_env.ReplayEnv` over
+the demos matching `--expert-glob`, which also feed the expert buffer
+under train.pre_buffer, as in the JAX command line). Not ported yet, and
+raising NotImplementedError by name rather than running something else:
 `train_elastic`, the keyboard teleop that `main` starts for
 `train.human_intervention` on a terminal, and the `Deterministic`
 (4-channel CNN) actor, which `SACAgent` refuses: its (H, W, 4) frame
@@ -58,7 +60,7 @@ import torch
 from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config, load_reference_yaml
 from dgvit_tpu_torch.core import checkpoint as ckpt
-from dgvit_tpu_torch.envs import Env, KinematicNavEnv
+from dgvit_tpu_torch.envs import Env, KinematicNavEnv, ReplayEnv
 from dgvit_tpu_torch.envs.replay_env import load_demo_npz
 from dgvit_tpu_torch.models.jax_io import params_to_jax
 from dgvit_tpu_torch.replay import (BatchPrefetcher,
@@ -549,10 +551,6 @@ def main(argv=None):
         cfg = Config.from_yaml(args.config)
     else:
         cfg = Config()
-    if args.env == "replay":
-        raise NotImplementedError(
-            "--env replay: the recorded-data env (ReplayEnv) is not ported "
-            "yet")
     if cfg.train.human_intervention and sys.stdin.isatty():
         raise NotImplementedError(
             "train.human_intervention on a terminal: the keyboard teleop "
@@ -563,6 +561,8 @@ def main(argv=None):
     if args.env == "ros2":
         from dgvit_tpu_torch.envs.ros2_adapter import GazeboRos2Env
         env = GazeboRos2Env(cfg, device=args.device)
+    elif args.env == "replay":
+        env = ReplayEnv(glob_pattern=args.expert_glob)
     else:
         env = KinematicNavEnv(seed=cfg.train.seed,
                               image_hw=tuple(cfg.model.image_size),

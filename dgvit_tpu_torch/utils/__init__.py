@@ -1,4 +1,6 @@
 from dgvit_tpu_torch.utils.metrics import (MetricsLogger, Profiler,
                                            RewardCurve)
+from dgvit_tpu_torch.utils.visualizer import AttentionVisualizer
 
-__all__ = ["MetricsLogger", "Profiler", "RewardCurve"]
+__all__ = ["AttentionVisualizer", "MetricsLogger", "Profiler",
+           "RewardCurve"]

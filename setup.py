@@ -32,6 +32,10 @@ setup(
             "dgvit-train-fleet=dgvit_tpu.train.train_fleet:main",
             "dgvit-export=dgvit_tpu.serve.export:main",
             "dgvit-sim-assets=dgvit_tpu.envs.sim_assets:main",
+            # the PyTorch/CUDA port's entry points
+            "dgvit-torch-export=dgvit_tpu_torch.serve.export:main",
+            "dgvit-torch-train-offline="
+            "dgvit_tpu_torch.train.train_offline:main",
         ],
     },
 )

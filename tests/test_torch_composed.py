@@ -272,8 +272,5 @@ def test_build_actor_hands_attn_impl_on():
 
 
 def test_unported_options_raise_by_name():
-    for kw, word in ((dict(capture=True), "capture"),
-                     (dict(seq_shard=True), "seq_shard"),
-                     (dict(heads=1, dim_head=D), "heads == 1")):
-        with pytest.raises(NotImplementedError, match=word):
-            GoT(**dict(SMALL, **kw))
+    with pytest.raises(NotImplementedError, match="seq_shard"):
+        GoT(**dict(SMALL, seq_shard=True))

@@ -2,7 +2,8 @@
 takes, the port takes with JAX's default (fault o: model.dropout,
 train.data_dir, the mesh section and sac.critic_latent_reuse raised
 KeyError in the port); what the port has not ported it refuses by name
-(a sharded mesh, the critic-latent reuse), never by a KeyError."""
+(a sharded mesh), never by a KeyError. sac.critic_latent_reuse is ported
+(tests/test_torch_latent_reuse.py)."""
 
 import dataclasses
 
@@ -37,7 +38,8 @@ ACCEPTED = [{"model": {"dropout": 0.0}}, {"model": {"dropout": 0.1}},
             {"train": {"data_dir": "demos"}},
             {"mesh": {"data": -1, "model": 1, "seq": 1}},
             {"mesh": {"data": 1}},
-            {"sac": {"critic_latent_reuse": False}}]
+            {"sac": {"critic_latent_reuse": False}},
+            {"sac": {"critic_latent_reuse": True}}]
 
 
 @pytest.mark.parametrize("over", ACCEPTED, ids=lambda o: str(o))
@@ -57,8 +59,7 @@ def test_from_dict_takes_what_jax_takes(over):
 # what JAX takes and the port has not ported: refused by name
 REFUSED = [({"mesh": {"data": 4}}, "mesh"),
            ({"mesh": {"model": 2}}, "mesh"),
-           ({"mesh": {"seq": 2}}, "mesh"),
-           ({"sac": {"critic_latent_reuse": True}}, "critic_latent_reuse")]
+           ({"mesh": {"seq": 2}}, "mesh")]
 
 
 @pytest.mark.parametrize("over,name", REFUSED, ids=lambda o: str(o))

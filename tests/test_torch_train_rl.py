@@ -353,20 +353,38 @@ def test_unported_flavours_raise_by_name(tmp_path, flavour):
         assert str(port_err.value) == str(jax_err.value)
         assert not list(tmp_path.glob("*.jsonl"))
         return
-    word = {"env_replay": "--env replay",
-            "reference_config": "--env replay"}.get(flavour, flavour)
-    with pytest.raises(NotImplementedError, match=word):
-        if flavour == "train_elastic":
-            train_rl.train_elastic(cfg, lambda: None)
-        elif flavour.startswith("env_"):
-            train_rl.main(["--env", flavour[4:], "--device", "cpu",
-                           "--out", str(tmp_path)])
-        else:       # the translated config reaches the same refusal
+    if flavour in ("env_replay", "reference_config"):
+        # ported: `--env replay` steps a ReplayEnv over the --expert-glob
+        # demos (JAX train_rl.py:490-492), also under a translated
+        # reference config (tests/test_torch_offline.py holds the env)
+        hw = HW if flavour == "env_replay" else (128, 160)
+        rng = np.random.default_rng(3)
+        frames = lambda: rng.random((6, *hw, 4), np.float32)
+        np.savez(tmp_path / "demo_0.npz", obs=frames(),
+                 act=rng.uniform(-1, 1, (6, 2)).astype(np.float32),
+                 goal=rng.random((6, 4), np.float32),
+                 reward=np.ones(6, np.float32), next_obs=frames(),
+                 next_goal=rng.random((6, 4), np.float32),
+                 done=np.arange(6) == 5)
+        if flavour == "env_replay":
+            import yaml
+            path = tmp_path / "cfg.yaml"
+            path.write_text(yaml.safe_dump(cfg.to_dict()))
+            source = ["--config", str(path)]
+        else:
             path = tmp_path / "config.yaml"
-            path.write_text("SEED: 3\nGoT-SAC:\n  critic_type: CNN\n")
-            train_rl.main(["--reference-config", str(path), "--env",
-                           "replay", "--device", "cpu",
-                           "--out", str(tmp_path)])
+            path.write_text("SEED: 3\nGoT-SAC:\n  critic_type: CNN\n"
+                            "  block: 1\n  head: 2\n"
+                            "LATENT_FEATURES_SIZE: 32\nMAX_STEPS: 8\n"
+                            "REWARD_THRESHOLD: 1.0e+9\nPLOT_INTERVAL: 1000\n")
+            source = ["--reference-config", str(path)]
+        train_rl.main([*source, "--env", "replay", "--expert-glob",
+                       str(tmp_path / "demo_*.npz"), "--episodes", "1",
+                       "--device", "cpu", "--out", str(tmp_path)])
+        assert list(tmp_path.glob("*.jsonl"))
+        return
+    with pytest.raises(NotImplementedError, match=flavour):
+        train_rl.train_elastic(cfg, lambda: None)
     assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
 
 

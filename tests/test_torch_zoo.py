@@ -229,12 +229,10 @@ def test_deterministic_got_ignores_the_configs_frame_geometry():
 def test_unported_options_raise_by_name():
     with pytest.raises(NotImplementedError, match="seq_shard"):
         Config.from_dict({"model": {"seq_shard": True}})
-    for kw, word in (({"capture": True}, "capture"),
-                     ({"seq_shard": True}, "seq_shard")):
-        with pytest.raises(NotImplementedError, match=word):
-            SimpleViT(**VIT, **kw)
-        with pytest.raises(NotImplementedError, match=word):
-            policies.ViTGaussianPolicy(**VIT, **kw)
+    with pytest.raises(NotImplementedError, match="seq_shard"):
+        SimpleViT(**VIT, seq_shard=True)
+    with pytest.raises(NotImplementedError, match="seq_shard"):
+        policies.ViTGaussianPolicy(**VIT, seq_shard=True)
     for field, bad in (("actor_type", "Recurrent"), ("critic_type", "MLP"),
                        ("backbone", "resnet")):
         with pytest.raises(ValueError, match=field):
