@@ -386,6 +386,26 @@ per source, all at once), then
      GoTPolicy(capture=True) for 5 kinematic steps: rows summing to 1,
      maps within 1e-5 of the CPU's capture, actions within phase 2's fp32
      rule of K1;
+ 26. the data-parallel tier (phase_mesh), a main path: two ranks on the
+     card over gloo (torch.multiprocessing.spawn; NCCL refuses two ranks
+     on one device), and with two or more cards one rank a card over
+     NCCL as well; the parent builds the kernels, the ranks load them.
+     (a) each flavour (plain, PER, guided, guided PER) through
+     parallel.shardmap_learn with SACAgent(grad_axis="data"), 5 updates
+     in bf16 at global B=256 and in fp32 at B=32, emb-dropout 0, the same
+     injected global noise, against the single-rank update on the card:
+     fp32 by phase 6b's rule, every gradient within 1e-4 of its tensor's
+     largest; bf16 against the float64-sum version of the single-rank
+     update (MESH_BF16_*); three wrong data axes (the gradients summed,
+     noise rows 0..b-1 on every rank, the guided step's merged rows as
+     one contiguous slice) failing it; each rank's launches an update the
+     single-rank update's (K4 3, K2f 6, K2b 6, K3f 2, K3b 2 a plain
+     update; fp32 on the cluster forms); both ranks ending on one state;
+     host ms an update at world 1 and 2, read only. (b) 12 fp32 updates
+     on the ranks under core/elastic.run_elastic with a SimulatedFault
+     after update 7, resumed from the checkpoint of update 6, bit-equal
+     to the unbroken run; the last checkpoint resumed at world 1 under
+     reshard_state, its next update within (a)'s fp32 rule of the ranks';
 
 then prints one JSON line describing each kernel and, last, the device
 line {"ok": true, "device": {...}}. Any failed check raises and ends the
@@ -10360,6 +10380,671 @@ def slice_launches(sl, short, dtype):
     return {k: v[short] for k, v in paths.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the data-parallel tier (core/distributed, core/mesh,
+# parallel/shard, core/elastic) on two ranks of the card
+# ---------------------------------------------------------------------------
+MESH_SEED = SEED + 26         # phase 26's own draws
+MESH_FLAVORS = ("plain", "per", "guided", "guided_per")
+# the three wrong data axes 26a must fail, each on the flavour it breaks
+MESH_WRONGS = (("summed", "plain"), ("rows_from_zero", "plain"),
+               ("expert_contiguous", "guided"))
+# 26a: `steps` updates of each flavour at the global `batch` (bf16 at the
+# flagship's SAC batch, fp32 at the recipe's), the wrong versions
+# `wrong_steps`; 26b: the elastic drill's updates (fp32), the fault after
+# update `fault_after`, a checkpoint every `interval`. `model` overrides
+# the flagship's widths and `params` "init" takes the agent's own seeded
+# parameters (a rehearsal on the CPU); "golden" the golden SAC state's.
+MESH_SPEC = {"device": "cuda", "dtypes": ("bfloat16", "float32"),
+             "batch": {"bfloat16": SAC_BATCH, "float32": 32},
+             "steps": 5, "wrong_steps": 2, "model": {}, "params": "golden",
+             "elastic": {"updates": 12, "fault_after": 7, "interval": 3,
+                         "batch": 32}}
+# 26a's rule. Each data-parallel update is held to the single-rank update
+# of the global batch from the same state (the ranks' state before it),
+# one update at a time, so that no reading is of two trajectories that
+# parted updates before. Phase 6b's fixed limits fail correct updates
+# here: a rank's kernels sum the weight products over its rows and the
+# all_reduce adds the halves, and some gradients are sums whose terms
+# cancel. On the golden state (one plain fp32 update at B=32) the plain
+# versions read 1.6e-3 of L on actor.fc_embed.bias from their float64-sum
+# version and the kernels 7.9e-4 (chip_mesh_probe.py on an H100 80GB HBM3
+# at 700 W), past 6b's 1e-4 for every correct order of the sums. So the
+# readings are restated against float64 sums, as EXACT_K restates a
+# kernel's check: the data-parallel update held to the float64-sum
+# version of the single-rank update (the plain versions, every product
+# summed in float64, the rounding points where they are), each reading
+# under max(6b's limit, k x the single-rank update's own reading against
+# the same version), k = MESH_K. The readings: the metrics, gradient
+# norms, update norms and PER's |TD errors| as update_mismatches reads
+# them (the largest |err| over its tolerance); the gradients' mean|err|/L
+# pooled over the tensors (F32_POOLED, TRAIN_BF16_MEAN) and in bf16 their
+# largest max|err|/L over the tensors (TRAIN_BF16_MAX). In fp32 that
+# largest one is printed, not held: as in gap r, the ill-conditioned
+# tensors decide it (the single-rank update's own reading moves by an
+# order of magnitude from one update's state to the next).
+MESH_K = 2.0
+
+
+def mesh_cfg(spec, dtype, batch=None, dropout=0.0):
+    """Phase 26's config: the flagship (or spec's widths) in `dtype` at
+    the global batch, emb-dropout `dropout`."""
+    from dgvit_tpu_torch.config import Config
+
+    return Config.from_dict({
+        "model": {"compute_dtype": dtype, "emb_dropout": dropout,
+                  **spec["model"]},
+        "sac": {"batch_size": batch or spec["batch"][dtype]}})
+
+
+def mesh_inputs(spec, dtype, batch=None, seed=MESH_SEED):
+    """The global inputs of 26a in `dtype` (every rank draws them alike):
+    the agent batch (engaged rows in rank 0's half only), an expert batch
+    of which the first 5/8 are valid, importance weights, and each
+    update's global noise (B rows; 2B for the guided flavours)."""
+    import numpy as np
+
+    b = batch or spec["batch"][dtype]
+    hw = tuple(mesh_cfg(spec, dtype, b).model.image_size)
+    rng = np.random.default_rng(seed + (dtype == "float32"))
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+
+    def rows():
+        return {"obs": f(b, *hw), "pobs": f(b, 2),
+                "act": rng.uniform(-1, 1, (b, 2)).astype(np.float32),
+                "rew": rng.normal(0, 1, (b, 1)).astype(np.float32),
+                "next_obs": f(b, *hw), "next_pobs": f(b, 2),
+                "done": np.zeros((b, 1), np.float32)}
+
+    batch, expert = rows(), rows()
+    batch["engage"] = ((np.arange(b) % 16 == 3) & (np.arange(b) < b // 2)
+                       ).astype(np.float32)
+    expert["done"][::7] = 1.0
+    steps = max(spec["steps"], spec["wrong_steps"]) + 1
+    normal = lambda n: rng.normal(0, 1, (n, 2)).astype(np.float32)
+    return {"batch": batch, "expert": expert, "n_expert": 5 * b // 8,
+            "weights": (0.5 + rng.uniform(0, 1, b)).astype(np.float32),
+            "noise": [(normal(b), normal(b)) for _ in range(steps)],
+            "guided_noise": [(normal(2 * b), normal(2 * b))
+                             for _ in range(steps)]}
+
+
+def mesh_state(spec, agent):
+    if spec["params"] == "golden":
+        return sac_state(agent, *golden_params())
+    return agent.init_state()
+
+
+def mesh_wrong(agent, wrong, rank, world):
+    """A wrong data axis on `agent`: the gradients summed over the group
+    instead of averaged; every rank taking noise rows 0..b-1; the guided
+    step's merged rows taken as one contiguous global slice."""
+    import torch
+
+    if wrong == "summed":
+        def sync(opt):
+            params = [p for g in opt.param_groups for p in g["params"]
+                      if p.grad is not None]
+            flat = agent._all_sum(torch.cat([p.grad.reshape(-1)
+                                             for p in params]))
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad = g.view_as(p)
+        agent._sync_grads = sync
+    elif wrong == "rows_from_zero":
+        agent._rows = lambda b, be=0: (
+            torch.arange(b + be, device=agent.device), world * (b + be))
+    else:
+        agent._rows = lambda b, be=0: (
+            torch.arange(b + be, device=agent.device) + rank * (b + be),
+            world * (b + be))
+
+
+def mesh_step(spec, dtype, flavour, agent, step):
+    """(one update of `flavour` on the global inputs: u -> the step's
+    result, the input's device)."""
+    import torch
+
+    dev = agent.device
+    inp = mesh_inputs(spec, dtype)
+    t = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+    batch, w = t(inp["batch"]), torch.from_numpy(inp["weights"]).to(dev)
+    args = {"plain": (), "per": (w,),
+            "guided": (t(inp["expert"]), inp["n_expert"]),
+            "guided_per": (t(inp["expert"]), inp["n_expert"], w)}[flavour]
+    noises = inp["guided_noise" if flavour.startswith("guided")
+                 else "noise"]
+    return lambda state, u: step(state, batch, *args, noise=noises[u])
+
+
+def mesh_host(tree):
+    """A copy of a state payload on the host."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: mesh_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(mesh_host(v) for v in tree)
+    return tree
+
+
+def mesh_updates(state, run, steps, sync, keep, start=None, load=None):
+    """`steps` updates through run(state, u): each in update_record's form
+    on the host (with `keep`, its gradients and the train state before it,
+    else a digest of the gradients), the launches of each and of them all
+    (the counters set to 0 just before, read just after), the fp32
+    cluster forms' launches, and the median host ms of updates 1 on, each
+    timed from start() (default sync()) to sync() after it. load(state,
+    u), when given, sets the state before update u."""
+    import torch
+
+    from dgvit_tpu_torch.core.checkpoint import state_payload
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    for k in CLUSTER_KERNELS:
+        counters[k].cluster_launches = 0
+    records, per_update, times = [], [], []
+    for u in range(steps):
+        if load is not None:
+            load(state, u)
+        before_state = mesh_host(state_payload(state)) if keep else None
+        was = {k: c.launches for k, c in counters.items()}
+        before = update_start(state)
+        (start or sync)()
+        t0 = time.perf_counter()
+        res = run(state, u)
+        sync()
+        times.append(time.perf_counter() - t0)
+        per_update.append({k: c.launches - was[k]
+                           for k, c in counters.items()})
+        rec = update_record(res[0], res[1], before)
+        rec.pop("params")
+        grads = {n: g.float().cpu() for n, g in rec.pop("grads").items()}
+        rec["digest"] = [g.double().sum().item() for g in grads.values()]
+        if keep:
+            rec["grads"], rec["before"] = grads, before_state
+        if len(res) == 3:
+            rec["td"] = res[2].float().cpu()
+        records.append(rec)
+    return {"records": records, "per_update": per_update,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "cluster": {k: counters[k].cluster_launches
+                        for k in CLUSTER_KERNELS},
+            "host_ms": statistics.median(times[1:] or times) * 1e3}
+
+
+def mesh_reference(spec, dtype, flavour, run, device, exact=False):
+    """The single-rank update of the global batch on `device` from the
+    state before each update of the data-parallel `run` (exact: its
+    float64-sum version), in mesh_updates' form."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+
+    agent = SACAgent(mesh_cfg(spec, dtype), device=device, seed=MESH_SEED)
+    state = agent.init_state()
+    step = mesh_step(spec, dtype, flavour, agent, {
+        "plain": agent.learn, "per": agent.learn_per,
+        "guided": agent.learn_guidence,
+        "guided_per": agent.learn_guidence_per}[flavour])
+    def one(state, u):
+        with contextlib.ExitStack() as stack:
+            if exact:
+                stack.enter_context(plain_kernels())
+                stack.enter_context(exact_sums())
+            return step(state, u)
+
+    sync = (torch.cuda.synchronize if agent.device.type == "cuda"
+            else lambda: None)
+    return mesh_updates(
+        state, one, len(run["records"]), sync, keep=True,
+        load=lambda st, u: load_payload(st, run["records"][u]["before"]))
+
+
+def mesh_readings(run, ref, dtype):
+    """One update's readings against `ref` (26a's rule): the largest
+    |err| over update_mismatches' tolerance of each kind of quantity, the
+    gradients' largest max|err|/L and pooled mean|err|/L."""
+    read = {}
+    for kind in ("metrics", "grad", "update"):
+        worst = 0.0
+        for name, r in ref[kind].items():
+            tol = SAC_RTOL * abs(r) + SAC_ATOL
+            if kind == "update":
+                tol = (UPDATE_RTOL * abs(r) + SAC_ATOL
+                       + 2.0 ** -22 * run["param_norm"].get(name, 0.0))
+            worst = max(worst, abs(run[kind][name] - r) / tol)
+        read[kind] = worst
+    if "td" in ref:
+        read["td"] = ((run["td"] - ref["td"]).abs()
+                      / (SAC_RTOL * ref["td"].abs() + SAC_ATOL)).max().item()
+    e = TrainErrors()
+    e.add((run["grads"][n], g) for n, g in ref["grads"].items())
+    read["grads_max"] = max(
+        ((run["grads"][n] - g).abs().max()
+         / g.abs().max().clamp(min=1e-30)).item()
+        for n, g in ref["grads"].items())
+    read["grads_mean"] = e.mean
+    return read
+
+
+def mesh_limits(dtype):
+    """6b's limits of the mesh_readings held in `dtype`: in fp32 not the
+    gradients' largest max|err|/L, which ill-conditioned tensors decide
+    (MESH_K's note); it is printed."""
+    if dtype == "bfloat16":
+        return {"metrics": 1.0, "grad": 1.0, "update": 1.0, "td": 1.0,
+                "grads_max": TRAIN_BF16_MAX, "grads_mean": TRAIN_BF16_MEAN}
+    return {"metrics": 1.0, "grad": 1.0, "update": 1.0, "td": 1.0,
+            "grads_mean": F32_POOLED}
+
+
+def mesh_mismatches(dtype, run, single, exact):
+    """26a's faults of a data-parallel run (rank 0's records, with its
+    gradients) and its readings by update: each reading against the
+    float64-sum version of the single-rank update from the same state,
+    under max(6b's limit, MESH_K x the single-rank update's)."""
+    bad, reads = [], []
+    for u, (a, s, x) in enumerate(zip(run["records"], single["records"],
+                                      exact["records"])):
+        got, own = mesh_readings(a, x, dtype), mesh_readings(s, x, dtype)
+        read = {}
+        for k, old in mesh_limits(dtype).items():
+            if k not in got:
+                continue
+            limit = max(old, MESH_K * own[k])
+            read[k] = {"dp": got[k], "single": own[k], "limit": limit}
+            if not got[k] <= limit:
+                bad.append(f"update {u} {k} {got[k]:.3e} over {limit:.3e} "
+                           f"(the single-rank update {own[k]:.3e})")
+        if dtype == "float32":
+            read["grads_max (read only)"] = {"dp": got["grads_max"],
+                                             "single": own["grads_max"]}
+        reads.append(read)
+    worst = {k: max(r[k]["dp"] / r[k]["limit"] for r in reads)
+             for k in reads[0] if "limit" in reads[0][k]}
+    return bad, {"worst_of_limit": worst, "by_update": reads}
+
+
+def mesh_run(spec, dtype, flavour, rt, wrong=None, steps=None):
+    """26a on this rank: `steps` data-parallel updates of `flavour` in
+    `dtype` from the phase's state (with `wrong`, a wrong data axis);
+    rank 0 then takes the single-rank update and its float64-sum version
+    from the state before each and reads the rule (mesh_mismatches).
+    Returns what the parent checks: launches (each update's, the run's,
+    the cluster forms'), the single-rank update's launches, host ms at
+    world 2 and world 1, each update's gradient digest and metrics, and
+    rank 0's faults and readings."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.parallel import shard_sac_state, shardmap_learn
+
+    agent = SACAgent(mesh_cfg(spec, dtype), device=rt.device,
+                     seed=MESH_SEED, grad_axis="data")
+    if wrong:
+        mesh_wrong(agent, wrong, rt.rank, rt.world)
+    state = shard_sac_state(rt, mesh_state(spec, agent))
+    step = mesh_step(spec, dtype, flavour, agent,
+                     shardmap_learn(agent, rt, flavour))
+    sync = (torch.cuda.synchronize if rt.device.type == "cuda"
+            else lambda: None)
+    # every rank starts each timed update together (rank 0 first copies
+    # the state aside for its references)
+    run = mesh_updates(state, step, steps or spec["steps"], sync,
+                       keep=rt.rank == 0,
+                       start=lambda: (sync(), rt.barrier()))
+    out = {k: run[k] for k in ("per_update", "launches", "cluster",
+                               "host_ms")}
+    out["digests"] = [(r["digest"], r["metrics"]) for r in run["records"]]
+    if rt.rank == 0:
+        single = mesh_reference(spec, dtype, flavour, run, rt.device)
+        exact = mesh_reference(spec, dtype, flavour, run, rt.device, True)
+        out["bad"], out["read"] = mesh_mismatches(dtype, run, single, exact)
+        out["single_per_update"] = single["per_update"]
+        out["world1_ms"] = single["host_ms"]
+    return out
+
+
+def mesh_state_equal(a, b):
+    """Whether two SACStates hold the same parameters, log_alpha, Adam
+    moments and generator state, bit for bit."""
+    import torch
+
+    for k in UPDATED:
+        for p, q in zip(getattr(a, k).parameters(),
+                        getattr(b, k).parameters()):
+            if not torch.equal(p, q):
+                return False
+    for k in ("actor_opt", "critic_opt", "alpha_opt"):
+        sa, sb = getattr(a, k).state_dict(), getattr(b, k).state_dict()
+        for i, st in sa["state"].items():
+            for n, v in st.items():
+                if not torch.equal(v, sb["state"][i][n]):
+                    return False
+    return (torch.equal(a.log_alpha, b.log_alpha)
+            and torch.equal(a.generator.get_state(), b.generator.get_state())
+            and a.itera == b.itera)
+
+
+def mesh_elastic(spec, rt, workdir):
+    """26b on the ranks: the elastic drill (fp32, emb-dropout 0, the
+    generator's own noise, a step-keyed batch an update): an unbroken run
+    and one that raises SimulatedFault after update `fault_after` on its
+    first attempt and restarts under run_elastic from the newest periodic
+    checkpoint; whether the two end bit-equal, the attempts' start steps,
+    the checkpoints kept; then the next update of the final state with
+    injected noise (update_record's form, its gradients on rank 0), which
+    the parent holds a world-1 resume of the last checkpoint to."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.elastic import (ElasticCheckpointer,
+                                              SimulatedFault, run_elastic)
+    from dgvit_tpu_torch.parallel import shard_sac_state, shardmap_learn
+
+    e = spec["elastic"]
+    agent = SACAgent(mesh_cfg(spec, "float32", e["batch"]), device=rt.device,
+                     seed=MESH_SEED, grad_axis="data")
+    learn = shardmap_learn(agent, rt)
+    dev = rt.device
+
+    def batch_at(step):
+        b = mesh_inputs(spec, "float32", e["batch"], MESH_SEED + 100 + step)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b["batch"].items()}
+
+    batches = [batch_at(s) for s in range(e["updates"])]
+
+    def template():
+        return shard_sac_state(rt, mesh_state(spec, agent))
+
+    def loop(state, start, ck, fail_at=None):
+        for step in range(start, e["updates"]):
+            if step == fail_at:
+                raise SimulatedFault(f"injected after update {step}")
+            state, _ = learn(state, batches[step])
+            ck.maybe_save(step + 1, state)
+        return state
+
+    ref = loop(template(), 0, ElasticCheckpointer(workdir / "ref", 10 ** 6))
+    attempts = []
+
+    def train_fn(state, start, ck):
+        attempts.append(start)
+        return loop(state, start, ck,
+                    e["fault_after"] if len(attempts) == 1 else None)
+
+    ck = ElasticCheckpointer(workdir / "elastic", e["interval"], keep=2)
+    t0 = time.perf_counter()
+    final = run_elastic(train_fn, template, ck, max_restarts=1)
+    seconds = time.perf_counter() - t0
+    bit_equal = mesh_state_equal(ref, final)
+    inp = mesh_inputs(spec, "float32", e["batch"], MESH_SEED + 99)
+    before = update_start(final)
+    final, m = learn(final, {k: torch.from_numpy(v).to(dev)
+                             for k, v in inp["batch"].items()},
+                     noise=inp["noise"][0])
+    nxt = update_record(final, m, before)
+    nxt.pop("params")
+    grads = nxt.pop("grads")
+    if rt.rank == 0:
+        nxt["grads"] = {n: g.float().cpu() for n, g in grads.items()}
+    return {"bit_equal": bit_equal, "attempts": attempts,
+            "seconds": seconds,
+            "kept": sorted(p.name for p in (workdir / "elastic").iterdir()),
+            "next": nxt}
+
+
+def mesh_rank(rank, world, port, workdir, backend, spec):
+    """One rank of phase 26 (torch.multiprocessing.spawn's target): joins
+    the group through core/distributed.initialize over `backend`, runs
+    26a (every flavour, dtype and wrong data axis; mesh_run) and, over
+    gloo, 26b's elastic drill, and saves what it saw to
+    workdir/rank<r>.pt. The kernels load from the build root the parent
+    built."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dgvit_tpu_torch.core import distributed
+    from dgvit_tpu_torch.core.mesh import MeshRuntime
+
+    distributed.initialize(backend=backend, timeout_s=300.0)
+    workdir = Path(workdir)
+    try:
+        rt = MeshRuntime.create(device=None if spec["device"] == "cuda"
+                                else "cpu")
+        out = {"device": str(rt.device), "backend": dist.get_backend(),
+               "runs": {}}
+        for dtype in spec["dtypes"]:
+            for flavour in MESH_FLAVORS:
+                out["runs"][(dtype, flavour)] = mesh_run(spec, dtype,
+                                                         flavour, rt)
+            for wrong, flavour in MESH_WRONGS:
+                out["runs"][(dtype, wrong)] = mesh_run(
+                    spec, dtype, flavour, rt, wrong, spec["wrong_steps"])
+        if backend == "gloo":
+            out["elastic"] = mesh_elastic(spec, rt, workdir)
+        torch.save(out, workdir / f"rank{rank}.pt")
+        rt.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free localhost port for the process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_spawn(backend, spec, workdir, world=2):
+    """Phase 26's ranks over `backend` (gloo: every rank on the first
+    card; nccl: one rank a card); their saved results, rank by rank. A
+    failing rank fails the phase."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    keep = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if backend == "gloo" and spec["device"] == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = keep.split(",")[0] if keep \
+            else "0"
+    try:
+        mp.spawn(mesh_rank, args=(world, free_port(), str(workdir), backend,
+                                  spec), nprocs=world, join=True)
+    finally:
+        if keep is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = keep
+    return [torch.load(Path(workdir) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def mesh_world1(spec, directory, nxt):
+    """26b in the parent: the ranks' newest checkpoint restored at world
+    1 (no process group) into a single-rank agent, placed by
+    reshard_state; its next update (the ranks' noise) and that update's
+    float64-sum version; the ranks' next update held to the float64-sum
+    version under 26a's rule, the world-1 update's reading setting it."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.elastic import (ElasticCheckpointer,
+                                              reshard_state)
+    from dgvit_tpu_torch.core.mesh import MeshRuntime
+
+    e = spec["elastic"]
+    dev = torch.device(spec["device"])
+    inp = mesh_inputs(spec, "float32", e["batch"], MESH_SEED + 99)
+    runs = []
+    for exact in (False, True):
+        agent = SACAgent(mesh_cfg(spec, "float32", e["batch"]), device=dev,
+                         seed=MESH_SEED)
+        state, start = ElasticCheckpointer(directory).resume(
+            agent.init_state())
+        state = reshard_state(state, MeshRuntime.create(
+            device=None if dev.type == "cuda" else "cpu"))
+        before = update_start(state)
+        with contextlib.ExitStack() as stack:
+            if exact:
+                stack.enter_context(plain_kernels())
+                stack.enter_context(exact_sums())
+            state, m = agent.learn(state, {
+                k: torch.from_numpy(v).to(dev)
+                for k, v in inp["batch"].items()}, noise=inp["noise"][0])
+        rec = update_record(state, m, before)
+        rec["grads"] = {n: g.float().cpu() for n, g in rec["grads"].items()}
+        rec.pop("params")
+        runs.append({"records": [rec]})
+    bad, read = mesh_mismatches("float32", {"records": [nxt]}, *runs)
+    return start, bad, read
+
+
+def phase_mesh(spec=None):
+    """Phase 26, a main path: the data-parallel tier on two gloo ranks of
+    the card (`mesh_rank`), and with two or more cards one rank a card
+    over NCCL too. 26a: every flavour's data-parallel update (bf16 at
+    B=256, fp32 at B=32, emb-dropout 0, the same injected global noise)
+    held to the single-rank update from the same state by MESH_K's rule,
+    the three wrong data axes failing it; each rank's launches an update
+    the single-rank update's (fp32 on the cluster forms: the forms of K4,
+    K2 and K3 follow dtype, widths and alignment, not the batch); both
+    ranks on one state; the host ms an update at world 1 and 2. 26b: the
+    elastic drill bit-equal to the unbroken run, resumed from the
+    checkpoint before the fault, then its last checkpoint resumed at
+    world 1, the ranks' next update held to it by 26a's rule. Returns its
+    readings and launches."""
+    import torch
+
+    spec = spec or MESH_SPEC
+    t0 = time.perf_counter()
+    backends = ["gloo"] + (["nccl"] if spec["device"] == "cuda"
+                           and torch.cuda.device_count() >= 2 else [])
+    out = {"backends": backends, "card": card(), "readings": {},
+           "launches": {}, "cluster_launches": {}, "host_ms": {},
+           "seconds": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for backend in backends:
+            t1 = time.perf_counter()
+            workdir = Path(tmp) / backend
+            workdir.mkdir()
+            ranks = mesh_spawn(backend, spec, workdir)
+            out["seconds"][backend] = time.perf_counter() - t1
+            print(f"phase 26 ({backend}): ranks on "
+                  f"{[r['device'] for r in ranks]}, "
+                  f"{out['seconds'][backend]:.1f} s", flush=True)
+            mesh_verdicts(spec, backend, ranks, out)
+            if backend == "gloo":
+                mesh_elastic_verdicts(spec, ranks, workdir, out)
+    out["seconds"]["total"] = time.perf_counter() - t0
+    print(f"phase 26: {out['seconds']['total']:.1f} s", flush=True)
+    return out
+
+
+def mesh_verdicts(spec, backend, ranks, out):
+    """26a's checks of one backend's ranks (see phase_mesh)."""
+    for dtype in spec["dtypes"]:
+        for flavour in MESH_FLAVORS:
+            label = f"{backend} {dtype} {flavour}"
+            runs = [r["runs"][(dtype, flavour)] for r in ranks]
+            want = runs[0]["single_per_update"]
+            for r, run in enumerate(runs):
+                check(run["per_update"] == want,
+                      f"26a {label} rank {r}: launches an update "
+                      f"{run['per_update']}, the single-rank update's "
+                      f"{want}")
+                if dtype == "float32":
+                    check(run["cluster"] == {k: run["launches"][k]
+                                             for k in CLUSTER_KERNELS},
+                          f"26a {label} rank {r}: fp32 launches off the "
+                          f"cluster forms {run['cluster']}")
+            check(runs[0]["digests"] == runs[1]["digests"],
+                  f"26a {label}: the ranks' gradients or metrics differ")
+            run = runs[0]
+            print(f"26a {label}: launches an update, rank 0 "
+                  f"{run['per_update'][0]}, rank 1 "
+                  f"{runs[1]['per_update'][0]} (each update's equal to "
+                  f"the single-rank update's); host {run['host_ms']:.2f} ms "
+                  f"an update at world 2 (rank 1 "
+                  f"{runs[1]['host_ms']:.2f}) against "
+                  f"{run['world1_ms']:.2f} at world 1 (B="
+                  f"{spec['batch'][dtype]}, medians of updates 1 on, read "
+                  f"only; {card()}); against the float64-sum single-rank "
+                  f"update, each reading's largest share of its limit: "
+                  f"{run['read']['worst_of_limit']}", flush=True)
+            check(not run["bad"], f"26a {label}: {run['bad'][:6]}")
+            out["readings"][label] = run["read"]
+            out["host_ms"][label] = {"world1": run["world1_ms"], **{
+                f"rank{r}": x["host_ms"] for r, x in enumerate(runs)}}
+            out["launches"][label] = [x["launches"] for x in runs]
+            if dtype == "float32":
+                out["cluster_launches"][label] = [x["cluster"]
+                                                  for x in runs]
+        for wrong, flavour in MESH_WRONGS:
+            run = ranks[0]["runs"][(dtype, wrong)]
+            print(f"26a {backend} {dtype} wrong data axis ({wrong}): "
+                  f"largest share of each limit "
+                  f"{run['read']['worst_of_limit']}", flush=True)
+            check(bool(run["bad"]), f"26a {backend} {dtype}: the rule "
+                  f"passed a wrong data axis ({wrong})")
+            out["readings"][f"{backend} {dtype} wrong {wrong}"] = run["read"]
+
+
+def mesh_elastic_verdicts(spec, ranks, workdir, out):
+    """26b's checks (see phase_mesh)."""
+    e = spec["elastic"]
+    el = [r["elastic"] for r in ranks]
+    for r, x in enumerate(el):
+        print(f"26b rank {r}: attempts {x['attempts']}, bit-equal to the "
+              f"unbroken run {x['bit_equal']}, kept {x['kept']}, "
+              f"{x['seconds']:.1f} s", flush=True)
+        check(x["bit_equal"], f"26b rank {r}: the resumed run is not the "
+              "unbroken run")
+        check(x["attempts"] == [0, e["fault_after"] // e["interval"]
+                                * e["interval"]],
+              f"26b rank {r}: attempts {x['attempts']}")
+    start, bad, read = mesh_world1(spec, workdir / "elastic", el[0]["next"])
+    print(f"26b: the world-2 checkpoint of update {start} resumed at world "
+          f"1; the ranks' next update against its float64-sum version, "
+          f"each reading's share of its limit: {read['worst_of_limit']} "
+          f"({card()})", flush=True)
+    check(start == e["updates"], f"26b resumed at {start}")
+    check(not bad, f"26b world-1 resume: {bad}")
+    out["elastic"] = {"attempts": el[0]["attempts"], "kept": el[0]["kept"],
+                      "seconds": el[0]["seconds"], "world1": read}
+
+
+def mesh_launches(mesh, short, dtype):
+    """A kernel's launches on phase 26's paths in `dtype`, for the kernels
+    line: each rank's over 26a's four flavours (fp32: the cluster
+    forms')."""
+    key = "launches" if dtype == "bfloat16" else "cluster_launches"
+    out = {}
+    for name, per_rank in mesh[key].items():
+        backend, dt, flavour = name.split()
+        if dt != dtype:
+            continue
+        for r, counts in enumerate(per_rank):
+            k = f"mesh_26a_{backend}_rank{r}"
+            out[k] = out.get(k, 0) + counts[short]
+    return out
+
 # The times of the kernels redesigned for the tensor cores in their earlier
 # FMA form (bf16; this script's phases 8 and 17 on an H100 80GB HBM3 at a
 # 700 W power limit, recorded in PERF.md's kernel table): K2b and K6 at
@@ -10538,6 +11223,7 @@ def main() -> int:
     zoo = phase_zoo()
     fleet = phase_fleet(flat)
     slice25 = phase_slice(flat)
+    mesh26 = phase_mesh()
     attn_worst = phase_attention(nets, rng)
     composed_launches = phase_composed(cfg, flat, policies, rng)
 
@@ -10617,7 +11303,8 @@ def main() -> int:
                     **imitation_launches(imitation, short),
                     **zoo_launches(zoo, short),
                     **fleet_launches(fleet, short),
-                    **slice_launches(slice25, short, "bfloat16")},
+                    **slice_launches(slice25, short, "bfloat16"),
+                    **mesh_launches(mesh26, short, "bfloat16")},
                 **({"bc_fp32": {str(b): t["kernels"][short] for b, t in
                                 imitation["bc_kernels"]["times"].items()}}
                    if short != "K4" else {}),
@@ -10730,7 +11417,8 @@ def main() -> int:
             "by_batch": {str(b): t["kernels"][short] for b, t in bc.items()},
             "launches_by_path": {
                 "bc_fit": imitation["bc_fit"]["cluster_launches"][short],
-                **slice_launches(slice25, short, "float32")}})
+                **slice_launches(slice25, short, "float32"),
+                **mesh_launches(mesh26, short, "float32")}})
     # K4's fp32 cluster form: its launches on the reference config's
     # `main` (phase 23a), timed there at the reference's batch
     ref_cfg = zoo["reference_config"]
@@ -10747,7 +11435,8 @@ def main() -> int:
         "by_batch": t4["by_batch"],
         "launches_by_path": {
             "reference_config_main": ref_cfg["k4_cluster_launches"],
-            **slice_launches(slice25, "K4", "float32")}})
+            **slice_launches(slice25, "K4", "float32"),
+            **mesh_launches(mesh26, "K4", "float32")}})
     # K3f's and K3b's fp32 cluster forms: their launches on the reference
     # config's `main` (phase 23a), timed there at the reference's batch
     for short in ("K3f", "K3b"):
@@ -10766,7 +11455,8 @@ def main() -> int:
             "launches_by_path": {
                 "reference_config_main": ref_cfg["k3_cluster_launches"][short],
                 "bc_fit": imitation["bc_fit"]["cluster_launches"][short],
-                **slice_launches(slice25, short, "float32")}})
+                **slice_launches(slice25, short, "float32"),
+                **mesh_launches(mesh26, short, "float32")}})
     print(f"fp32 trunk-gradient update, largest relative differences: "
           f"{json.dumps(trunk_fp32)}")
     print(f"long frames (phase 17b): {json.dumps(long_frames)}")
@@ -10782,6 +11472,7 @@ def main() -> int:
     print(f"fleet tier (phase 24, {card()}): {json.dumps(fleet)}")
     print(f"recorded-data slice (phase 25, {card()}): "
           f"{json.dumps(slice25)}")
+    print(f"data-parallel tier (phase 26, {card()}): {json.dumps(mesh26)}")
     print(f"train loop rates (bf16, B={SAC_BATCH}, host clock): "
           f"{json.dumps(loop_rates)}")
     print(f"SAC updates/s (bf16, B={SAC_BATCH}, host clock): "

@@ -85,6 +85,35 @@ updates, as in the JAX package:
     stacks) raises by name: the JAX package's init_state builds the critic
     beside it for single frames, which its own update cannot feed, and no
     env loop builds such stacks.
+
+`SACAgent(cfg, grad_axis="data")` (JAX's `grad_axis`) runs every update
+flavour on this rank's rows of a batch sharded over the `data` mesh axis
+(the process group of the active mesh, `core/mesh.py`, which
+`parallel/shard.shardmap_learn` enters; it slices the global batch too),
+and computes the single-device update of the global batch:
+  * each optimiser's gradients are averaged over the group (one
+    all_reduce of one flat buffer) before its step, and the metrics
+    after the update (JAX `_sync_grads`, `_sync_mean`);
+  * the sum-form denominators of the guided losses and the engage count
+    are the group's totals (JAX `_denom`, sac.py:813-814), the expert
+    rows' validity is by global row;
+  * the action noise is the single-device stream: every rank draws the
+    global (rows, A) normals from the state's generator (replicated, so
+    the same on every rank) and takes the rows of its own global indices
+    (the guided step's global layout is every agent row, then every
+    expert row); injected `noise=` is global and sliced the same way;
+  * dropout masks and DrQ offsets come from generators of their own,
+    seeded each update from (seed, itera, rank), so they differ across
+    ranks (JAX `_shard_key`, sac.py:556-557) and move no noise draw;
+  * `learn_per` and `learn_guidence_per` return the global batch's
+    |TD errors| in global row order on every rank (nan_guard's neutral
+    value taken over them); every rank holds the same replay and sampling
+    seed, so every rank updates the same priorities (the replicated-state
+    contract);
+  * nan_guard's verdict is read from the averaged losses, so every rank
+    rolls back together or none does.
+With grad_axis None (the default) nothing of this runs: every update is
+the single-device one, bit for bit.
 """
 
 from __future__ import annotations
@@ -99,6 +128,7 @@ import numpy as np
 import torch
 
 from dgvit_tpu_torch.core import checkpoint as ckpt
+from dgvit_tpu_torch.core import mesh as meshes
 from dgvit_tpu_torch.core.device import resolve_device
 from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.models import distributions
@@ -114,6 +144,7 @@ PLAIN_METRICS = ("qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
                  "alpha", "entropy")
 PER_METRICS = PLAIN_METRICS[:-1]
 AUG_STREAM = 0xD7   # step_key tag of the shift offsets' generator
+DROPOUT_STREAM = 0xD8   # step_key tag of a rank's dropout masks (grad_axis)
 FROZEN = ("trans", "fc_embed")   # what head-only fine-tuning keeps fixed
 
 
@@ -152,12 +183,19 @@ class SACAgent:
 
     dtype: the compute dtype (None: bf16 when `model.compute_dtype` says
     so, else fp32); parameters stay fp32. device: CUDA unless 'cpu'.
-    seed: initial parameters and the generator of `init_state`."""
+    seed: initial parameters and the generator of `init_state`.
+    grad_axis: 'data' for the data-parallel update (module docstring),
+    None for the single-device one."""
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, grad_axis: Optional[str] = None):
+        if grad_axis not in (None, meshes.AXIS_DATA):
+            raise ValueError(f"grad_axis {grad_axis!r}: the port shards "
+                             f"the '{meshes.AXIS_DATA}' axis only")
         self.cfg = cfg
+        self.grad_axis = grad_axis
+        self._rank_gens = {}         # step_key tag -> this rank's generator
         self.device = resolve_device(device)
         if dtype is None and cfg.model.compute_dtype == "bfloat16":
             dtype = torch.bfloat16
@@ -262,12 +300,23 @@ class SACAgent:
 
     def _sample(self, actor: torch.nn.Module, obs, pobs,
                 generator: Optional[torch.Generator],
-                noise: Optional[torch.Tensor] = None, **kw
-                ) -> distributions.TanhGaussianSample:
+                noise: Optional[torch.Tensor] = None, drop=None, rows=None,
+                **kw) -> distributions.TanhGaussianSample:
         """The actor's forward (keywords `kw` to it, its dropout from
-        `generator`) and its sample: the tanh-Gaussian one, or a
-        deterministic actor's exploration."""
-        out = actor(obs, pobs, generator=generator, **kw)
+        `drop`, by default `generator`) and its sample: the tanh-Gaussian
+        one, or a deterministic actor's exploration. rows: (global row
+        indices of these rows, global row count) under grad_axis: the
+        noise is those rows of the global draw (from `generator`, or
+        `noise` given globally)."""
+        out = actor(obs, pobs, generator=generator if drop is None else drop,
+                    **kw)
+        if rows is not None:
+            ref = out if self.deterministic_actor else out[0]
+            idx, n = rows
+            if noise is None:
+                noise = torch.randn((n, ref.shape[1]), generator=generator,
+                                    device=ref.device, dtype=ref.dtype)
+            noise = noise[idx]
         if self.deterministic_actor:
             return distributions.deterministic_sample(out, generator,
                                                       noise=noise)
@@ -324,16 +373,127 @@ class SACAgent:
             torch.as_tensor(n, dtype=torch.float32, device=self.device)
             for n in noise)
 
+    # ------------------------------------------------------------------
+    # the data axis (grad_axis; JAX sac.py:238-284): no-ops without it
+    # ------------------------------------------------------------------
+    def _mesh(self) -> Optional["meshes.Mesh"]:
+        """The active data mesh the update runs over (None without
+        grad_axis); under grad_axis an update outside one raises, as JAX's
+        does outside shard_map."""
+        if self.grad_axis is None:
+            return None
+        mesh = meshes.active_mesh()
+        if mesh is None:
+            raise RuntimeError(
+                "SACAgent(grad_axis='data') updates run over an active mesh: "
+                "call them through parallel.shardmap_learn (or inside "
+                "core.mesh.use_mesh)")
+        return mesh
+
+    def _all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The group's sum of `t`, in place (one all_reduce)."""
+        mesh = self._mesh()
+        if mesh is not None and mesh.data > 1:
+            import torch.distributed as dist
+            dist.all_reduce(t, group=mesh.group)
+        return t
+
+    def _world(self) -> int:
+        mesh = self._mesh()
+        return 1 if mesh is None else mesh.data
+
+    def _sync_grads(self, opt: torch.optim.Optimizer) -> None:
+        """The mean over the group of `opt`'s gradients, before its step
+        (JAX `_sync_grads`): one all_reduce of one flat buffer."""
+        world = self._world()
+        if world == 1:
+            return
+        params = [p for group in opt.param_groups for p in group["params"]
+                  if p.grad is not None]
+        flat = self._all_sum(torch.cat([p.grad.reshape(-1)
+                                        for p in params]))
+        flat.div_(world)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
+    def _sync_mean(self, metrics: Dict) -> Dict:
+        """The metrics averaged over the group (JAX `_sync_mean`): one
+        all_reduce."""
+        world = self._world()
+        if world == 1:
+            return metrics
+        vals = torch.stack([torch.as_tensor(v, device=self.device).float()
+                            .reshape(()) for v in metrics.values()])
+        vals = self._all_sum(vals) / world
+        return dict(zip(metrics, vals.unbind()))
+
+    def _denom(self, local: torch.Tensor, total=None, guard=None):
+        """A sum-form loss denominator (JAX `_denom`): `local`, or under
+        grad_axis the group's `total` / world, so that the averaged
+        gradients are the global weighted loss's; `guard` its floor."""
+        if self.grad_axis is None:
+            return local if guard is None else torch.clamp(local, min=guard)
+        d = total if guard is None else torch.clamp(total, min=guard)
+        return d / self._world()
+
+    def _rows(self, b: int, be: int = 0):
+        """(global row indices, global row count) of this rank's `b` rows
+        (with `be`: its agent rows, then its expert rows, in the guided
+        step's global layout of every agent row, then every expert row);
+        None without grad_axis."""
+        mesh = self._mesh()
+        if mesh is None:
+            return None
+        r, world = mesh.rank, mesh.data
+        idx = torch.arange(b, device=self.device) + r * b
+        if be:
+            idx = torch.cat([idx, world * b + r * be
+                             + torch.arange(be, device=self.device)])
+        return idx, world * (b + be)
+
+    def _gather_rows(self, td: torch.Tensor, rows) -> torch.Tensor:
+        """`td` of this rank's rows placed at their global rows of a
+        zero-filled global buffer, summed over the group: the global
+        batch's values on every rank (gloo takes CUDA tensors in
+        all_reduce, not in all_gather)."""
+        if rows is None or td is None:
+            return td
+        idx, n = rows
+        full = torch.zeros(n, dtype=td.dtype, device=td.device)
+        full[idx] = td
+        return self._all_sum(full)
+
+    def _begin(self, state: SACState) -> None:
+        """Under grad_axis, seed this update's dropout generator (and the
+        DrQ one) from (seed, itera, rank)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return
+        for tag in (DROPOUT_STREAM,) + ((AUG_STREAM,) if self.aug_shift
+                                        else ()):
+            g = self._rank_gens.get(tag)
+            if g is None:
+                g = self._rank_gens[tag] = torch.Generator(self.device)
+            g.manual_seed(step_key(step_key(step_key(self.seed, tag),
+                                            state.itera), mesh.rank + 1))
+
+    def _drop(self, state: SACState) -> torch.Generator:
+        """The generator of the update's dropout masks."""
+        if self.grad_axis is None:
+            return state.generator
+        return self._rank_gens[DROPOUT_STREAM]
+
     @torch.no_grad()
-    def _td_target(self, state: SACState, alpha, b, noise_next):
+    def _td_target(self, state: SACState, alpha, b, noise_next, rows=None):
         """r + gamma * (minQ' - alpha logpi'): no-grad forwards with live
         dropout (K4 route)."""
-        g = state.generator
+        g, drop = state.generator, self._drop(state)
         nxt = self._sample(state.actor, b["next_obs"], b["next_pobs"], g,
-                           noise_next, deterministic=False, inference=True)
+                           noise_next, drop, rows, deterministic=False,
+                           inference=True)
         q1_t, q2_t = state.critic_target(
             b["next_obs"], b["next_pobs"], nxt.action,
-            deterministic=False, inference=True, generator=g)
+            deterministic=False, inference=True, generator=drop)
         min_q = torch.minimum(q1_t, q2_t).float() \
             - alpha * nxt.log_prob.float()
         rew = b["rew"].reshape(-1, 1)
@@ -345,7 +505,7 @@ class SACAgent:
         """The critic's gradient pass on the batch, dropout live: (q1, q2,
         latent), the trunk's latent detached with critic_latent_reuse,
         else None."""
-        kw = dict(deterministic=False, generator=state.generator)
+        kw = dict(deterministic=False, generator=self._drop(state))
         if not self.latent_reuse:
             return (*state.critic(b["obs"], b["pobs"], b["act"], **kw), None)
         latent = state.critic.trunk(b["obs"], b["pobs"], **kw)
@@ -357,20 +517,21 @@ class SACAgent:
         heads' parameters from before it (else None)."""
         state.critic_opt.zero_grad(set_to_none=True)
         loss.backward()
+        self._sync_grads(state.critic_opt)
         heads = None if latent is None else state.critic.head_params()
         state.critic_opt.step()
         return heads
 
     def _policy_terms(self, state: SACState, alpha, b, noise_pi,
-                      latent=None, heads=None):
+                      latent=None, heads=None, rows=None):
         """The actor's sample on the batch (live dropout) and alpha logpi -
         minQ against the updated critic, its parameters frozen (the GoT
         critic's trunk no-grad, then its heads; any other critic whole),
         or, given the critic pass's `latent`, the twin heads alone with
         the parameters `heads`: (sample, per-element loss (B, A))."""
-        g = state.generator
-        s = self._sample(state.actor, b["obs"], b["pobs"], g, noise_pi,
-                         deterministic=False)
+        g = self._drop(state)
+        s = self._sample(state.actor, b["obs"], b["pobs"], state.generator,
+                         noise_pi, g, rows, deterministic=False)
         kw = dict(deterministic=False, inference=True, generator=g)
         if latent is not None:
             q1_pi, q2_pi = state.critic.heads(latent, s.action, heads)
@@ -385,13 +546,13 @@ class SACAgent:
         min_q_pi = torch.minimum(q1_pi, q2_pi).float()
         return s, alpha * s.log_prob.float() - min_q_pi
 
-    @staticmethod
-    def _actor_step(state: SACState, loss: torch.Tensor) -> None:
+    def _actor_step(self, state: SACState, loss: torch.Tensor) -> None:
         params = [p for group in state.actor_opt.param_groups
                   for p in group["params"]]
         grads = torch.autograd.grad(loss, params)
         for p, gr in zip(params, grads):
             p.grad = gr
+        self._sync_grads(state.actor_opt)
         state.actor_opt.step()
 
     def _finish(self, state: SACState, log_pi: torch.Tensor, metrics: Dict,
@@ -404,6 +565,7 @@ class SACAgent:
                                      * (log_pi + self.target_entropy))
             state.alpha_opt.zero_grad(set_to_none=True)
             alpha_loss.backward()
+            self._sync_grads(state.alpha_opt)
             state.alpha_opt.step()
             with torch.no_grad():
                 if self.alpha_max is not None:
@@ -424,7 +586,7 @@ class SACAgent:
                     t.copy_(t * (1.0 - self.tau) + p * self.tau)
         state.itera += 1
 
-        metrics = dict(metrics, alpha_loss=alpha_loss)
+        metrics = self._sync_mean(dict(metrics, alpha_loss=alpha_loss))
         if self.nan_guard:
             ok = bool(torch.isfinite(metrics["qf1_loss"] + metrics["qf2_loss"])
                       & torch.isfinite(metrics["policy_loss"]))
@@ -444,12 +606,13 @@ class SACAgent:
         if not self.aug_shift or state.itera < self.aug_warmup:
             return b, e
         offs = iter(shifts) if shifts is not None else None
+        gen = (state.aug_generator if self.grad_axis is None
+               else self._rank_gens[AUG_STREAM])
 
         def shift(d):
             d = dict(d)
             for k in ("obs", "next_obs"):
-                d[k] = random_shift(d[k], self.aug_shift,
-                                    state.aug_generator,
+                d[k] = random_shift(d[k], self.aug_shift, gen,
                                     None if offs is None else next(offs))
             return d
 
@@ -463,12 +626,14 @@ class SACAgent:
         of the first Q head with weights, else None."""
         keys = BATCH_KEYS + (("done",) if self.done_mask else ())
         clean = self._tensors(batch, keys)
+        self._begin(state)
+        rows = self._rows(clean["obs"].shape[0])
         b, _ = self._augment(state, clean, shifts=shifts)
         actor_b = b if self.aug_actor else clean
         noise_next, noise_pi = self._noise(noise)
         prev = self._snapshot(state) if self.nan_guard else None
         alpha = self._alpha(state)
-        target = self._td_target(state, alpha, b, noise_next)
+        target = self._td_target(state, alpha, b, noise_next, rows)
 
         # critic update (K2/K3 route)
         q1, q2, latent = self._critic_q(state, b)
@@ -486,7 +651,7 @@ class SACAgent:
         # actor update against the updated critic (its trunk no-grad), or
         # the pre-update heads on the reused latent
         s, per_elem = self._policy_terms(state, alpha, actor_b, noise_pi,
-                                         latent, heads)
+                                         latent, heads, rows)
         policy_loss = torch.mean(per_elem)
         self._actor_step(state, policy_loss)
         log_pi = s.log_prob.detach().float()
@@ -494,7 +659,7 @@ class SACAgent:
             "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
             "policy_loss": policy_loss.detach(), "alpha": alpha,
             "entropy": -torch.mean(log_pi)}, prev)
-        return state, metrics, td
+        return state, metrics, self._gather_rows(td, rows)
 
     def learn(self, state: SACState, batch: Mapping[str, object],
               noise: Optional[Sequence] = None,
@@ -565,13 +730,17 @@ class SACAgent:
             gw = w0 * torch.pow(ratio, frac)
         return gw
 
-    def _bc_mse(self, state: SACState, obs, pobs, act, rows) -> torch.Tensor:
+    def _bc_mse(self, state: SACState, obs, pobs, act, rows,
+                total=None) -> torch.Tensor:
         """Masked MSE of the deterministic actor's mean action (no dropout)
         against `act` over the rows where `rows` is 1:
-        sum(rows (tanh(mean) - act)^2) / max(sum(rows) A, 1)."""
+        sum(rows (tanh(mean) - act)^2) / max(sum(rows) A, 1), the sum of
+        `rows` the group's `total` under grad_axis."""
         sq = torch.square(self.mean_action(state.actor, obs, pobs)
                           - act).float()
-        denom = torch.clamp(torch.sum(rows) * sq.shape[1], min=1.0)
+        a = sq.shape[1]
+        denom = self._denom(torch.sum(rows) * a,
+                            None if total is None else total * a, guard=1.0)
         return torch.sum(rows.reshape(-1, 1) * sq) / denom
 
     def _guided_core(self, state: SACState, batch, expert_batch, n_expert,
@@ -583,6 +752,7 @@ class SACAgent:
         |TD error|."""
         clean = self._tensors(batch, GUIDED_KEYS)
         clean_e = self._tensors(expert_batch, GUIDED_KEYS)
+        self._begin(state)
         b, e = self._augment(state, clean, clean_e, shifts)
         engage = torch.as_tensor(batch["engage"], dtype=torch.float32,
                                  device=self.device).reshape(-1)
@@ -592,21 +762,35 @@ class SACAgent:
         alpha = self._alpha(state)
         rows, rows_e = b["obs"].shape[0], e["obs"].shape[0]
         n_expert = int(n_expert)
-        valid = (torch.arange(rows_e, device=self.device)
+        mesh = self._mesh()
+        # the first n_expert global expert rows are valid; a rank holds
+        # rows [rank x rows_e, (rank + 1) x rows_e) of the expert batch
+        row0 = 0 if mesh is None else mesh.rank * rows_e
+        valid = (torch.arange(rows_e, device=self.device) + row0
                  < n_expert).float()
+        noise_rows = self._rows(rows, rows_e)
         merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
         agent_w = (torch.ones(rows, device=self.device)
                    if agent_weights is None else
                    torch.as_tensor(agent_weights, dtype=torch.float32,
                                    device=self.device).reshape(-1))
         w = torch.cat([agent_w, valid]).reshape(-1, 1)
-        target = self._td_target(state, alpha, merged, noise_next)
+        # the group's totals of the weights, valid rows and engaged rows
+        tot_w = tot_valid = tot_eng = None
+        if mesh is not None:
+            tot_w, tot_valid, tot_eng = self._all_sum(torch.stack(
+                [torch.sum(w), torch.sum(valid), torch.sum(engage)])
+            ).unbind()
+        target = self._td_target(state, alpha, merged, noise_next,
+                                 noise_rows)
 
         # critic update on the merged rows, weighted
         q1, q2, latent = self._critic_q(state, merged)
         q1, q2 = q1.float(), q2.float()
         td = torch.abs(q1.detach() - target).mean(dim=1)[:rows]
-        denom = torch.sum(w) * q1.shape[1]
+        a = q1.shape[1]
+        denom = self._denom(torch.sum(w) * a,
+                            None if tot_w is None else tot_w * a)
         qf1_loss = torch.sum(w * torch.square(q1 - target)) / denom
         qf2_loss = torch.sum(w * torch.square(q2 - target)) / denom
         heads = self._critic_step(state, qf1_loss + qf2_loss, latent)
@@ -620,20 +804,26 @@ class SACAgent:
             merged = {k: torch.cat([b[k], e[k]], dim=0) for k in GUIDED_KEYS}
         gw = self.guidence_weight_at(itera)
         s, per_elem = self._policy_terms(state, alpha, merged, noise_pi,
-                                         latent, heads)
-        policy_loss = torch.sum(w * per_elem) / (
-            torch.sum(w) * per_elem.shape[1])
-        bc = self._bc_mse(state, e["obs"], e["pobs"], e["act"], valid)
-        eng = self._bc_mse(state, b["obs"], b["pobs"], b["act"], engage)
+                                         latent, heads, noise_rows)
+        a = per_elem.shape[1]
+        policy_loss = torch.sum(w * per_elem) / self._denom(
+            torch.sum(w) * a, None if tot_w is None else tot_w * a)
+        bc = self._bc_mse(state, e["obs"], e["pobs"], e["act"], valid,
+                          tot_valid)
+        eng = self._bc_mse(state, b["obs"], b["pobs"], b["act"], engage,
+                           tot_eng)
+        engaged = torch.sum(engage) if tot_eng is None else tot_eng
         policy_loss = policy_loss + (
             gw * bc * float(n_expert > 0)
-            + self.engage_weight * eng * (torch.sum(engage) > 0).float())
+            + self.engage_weight * eng * (engaged > 0).float())
         self._actor_step(state, policy_loss)
         metrics = self._finish(state, s.log_prob.detach().float(), {
             "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
             "policy_loss": policy_loss.detach(), "alpha": alpha,
             "n_expert": torch.tensor(float(n_expert), device=self.device),
             "guidence_weight": gw}, prev)
+        if mesh is not None:
+            td = self._gather_rows(td, self._rows(rows))
         return state, metrics, td
 
     def learn_guidence(self, state: SACState, batch: Mapping[str, object],

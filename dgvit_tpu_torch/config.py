@@ -263,9 +263,10 @@ class TrainConfig:
 @dataclass
 class MeshConfig:
     """Device-mesh axes (the JAX package's MeshConfig): data = batch
-    sharding (-1: every device left), model = tensor parallelism, seq =
-    the token stream's sharding. The port runs on one device: a mesh of
-    one (data -1 or 1, model 1, seq 1) is accepted, a larger one refused
+    sharding over the process group, one rank a device (-1: the whole
+    world; `core/mesh.py` holds any other value to the world size when the
+    mesh is built), model = tensor parallelism, seq = the token stream's
+    sharding. The port shards only `data`: model or seq above 1 is refused
     by name."""
 
     data: int = -1
@@ -273,11 +274,13 @@ class MeshConfig:
     seq: int = 1
 
     def validate(self):
-        if self.data not in (-1, 1) or self.model != 1 or self.seq != 1:
+        if self.data != -1 and self.data < 1:
+            raise ValueError(f"mesh.data {self.data}: -1 or a rank count")
+        if self.model != 1 or self.seq != 1:
             raise NotImplementedError(
                 f"mesh (data {self.data}, model {self.model}, seq "
-                f"{self.seq}): a sharded mesh is not ported; the port "
-                "takes data -1 or 1, model 1, seq 1")
+                f"{self.seq}): the model and seq axes are not ported; the "
+                "port takes model 1, seq 1")
 
 
 @dataclass

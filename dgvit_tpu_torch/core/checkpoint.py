@@ -10,6 +10,7 @@ JAX package writes with orbax) is one `torch.save` file per step.
 
 from __future__ import annotations
 
+import copy
 import os
 import re
 import shutil
@@ -32,14 +33,13 @@ _MODULES = ("actor", "critic", "critic_target")
 _OPTS = ("actor_opt", "critic_opt", "alpha_opt")
 
 
-def save_train_state(directory: str, step: int, state) -> str:
-    """Write a whole `agents.sac.SACState` to directory/step_<N>/: the
-    parameters of actor, critic and target, the three Adam states,
-    `log_alpha`, `itera` and the state of the generator that draws dropout
-    masks and action noise, and of the DrQ shifts' generator where the
-    state has one (with them a resumed run reproduces the next update). The file appears under its name only when complete."""
-    path = Path(directory).absolute() / f"step_{step}"
-    path.mkdir(parents=True, exist_ok=True)
+def state_payload(state) -> Dict[str, Any]:
+    """Everything of a `agents.sac.SACState` that `save_train_state`
+    writes, as one dict: the parameters of actor, critic and target, the
+    three Adam states, `log_alpha`, `itera` and the state of the generator
+    that draws dropout masks and action noise, and of the DrQ shifts'
+    generator where the state has one (with them a resumed run reproduces
+    the next update)."""
     payload = {
         **{k: getattr(state, k).state_dict() for k in _MODULES + _OPTS},
         "log_alpha": state.log_alpha.detach().cpu(),
@@ -49,25 +49,40 @@ def save_train_state(directory: str, step: int, state) -> str:
     }
     if getattr(state, "aug_generator", None) is not None:
         payload["aug_generator"] = state.aug_generator.get_state()
+    return payload
+
+
+def save_train_state(directory: str, step: int, state) -> str:
+    """Write a whole `agents.sac.SACState` (`state_payload`) to
+    directory/step_<N>/. The file appears under its name only when
+    complete."""
+    path = Path(directory).absolute() / f"step_{step}"
+    path.mkdir(parents=True, exist_ok=True)
     tmp = path / f"train_state.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
+    torch.save(state_payload(state), tmp)
     os.replace(tmp, path / "train_state.pt")
     return str(path)
 
 
 def restore_train_state(path: str, template):
     """Load a `save_train_state` checkpoint into `template` (a state built
-    by `SACAgent.init_state` for the same config), in place; returns it.
-    A generator saved on another kind of device keeps the template's
+    by `SACAgent.init_state` for the same config), in place; returns it."""
+    return load_payload(template, torch.load(
+        Path(path) / "train_state.pt", map_location="cpu",
+        weights_only=True))
+
+
+def load_payload(template, payload: Mapping[str, Any]):
+    """`state_payload`'s dict into `template`, in place; returns it. A
+    generator saved on another kind of device keeps the template's
     stream: its state would mean nothing there."""
-    payload = torch.load(Path(path) / "train_state.pt", map_location="cpu",
-                         weights_only=True)
     for k in _MODULES:
         getattr(template, k).load_state_dict(payload[k])
     for k in _OPTS:
         # Optimizer.load_state_dict casts the moments to each parameter's
-        # device and dtype
-        getattr(template, k).load_state_dict(payload[k])
+        # device and dtype, and keeps a tensor already there as it is: the
+        # copy keeps the template's steps out of `payload`
+        getattr(template, k).load_state_dict(copy.deepcopy(payload[k]))
     with torch.no_grad():
         template.log_alpha.copy_(payload["log_alpha"])
     template.itera = int(payload["itera"])

@@ -19,9 +19,9 @@ are those of the same run without it, and a resumed run draws the noise
 of the run without the break.
 
 `checkpointer`: any object with `resume(state) -> (state, step)` and
-`maybe_save(step, state)` (the JAX package's ElasticCheckpointer
-contract): the loop starts at the step `resume` returns and offers the
-state after every update.
+`maybe_save(step, state)` (`core/elastic.ElasticCheckpointer`, the JAX
+package's contract): the loop starts at the step `resume` returns and
+offers the state after every update.
 
     python -m dgvit_tpu_torch.train.train_offline --data-glob 'demos/*.npz' \
         [--steps 1000] [--augment-sigma 0] [--out results] [--save] \

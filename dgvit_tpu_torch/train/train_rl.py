@@ -34,11 +34,12 @@ of the zoo but the `Deterministic` actor (below), head-only fine-tuning
 `config.load_reference_yaml`; with it `--config` is not read, as in the
 JAX command line), `--env ros2` (the ROS 2 / Gazebo adapter
 `envs/ros2_adapter.py`, which raises JAX's ImportError naming rclpy on a
-host without ROS 2) and `--env replay` (`envs/replay_env.ReplayEnv` over
+host without ROS 2), `--env replay` (`envs/replay_env.ReplayEnv` over
 the demos matching `--expert-glob`, which also feed the expert buffer
-under train.pre_buffer, as in the JAX command line). Not ported yet, and
-raising NotImplementedError by name rather than running something else:
-`train_elastic`, the keyboard teleop that `main` starts for
+under train.pre_buffer, as in the JAX command line) and `train_elastic`
+(the run under `core/elastic.py`'s restart supervisor). Not ported yet,
+and raising NotImplementedError by name rather than running something
+else: the keyboard teleop that `main` starts for
 `train.human_intervention` on a terminal, and the `Deterministic`
 (4-channel CNN) actor, which `SACAgent` refuses: its (H, W, 4) frame
 stacks no env loop builds, and the JAX package's update fails on it.
@@ -48,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import logging
 import os
 import re
 import sys
@@ -520,11 +522,35 @@ def train(cfg: Config, env: Env, out_dir: str = "results",
             "max_mean_reward": curve.max_mean, "state": state}
 
 
-def train_elastic(*args, **kwargs):
-    """Training under a restart supervisor: not ported yet."""
-    raise NotImplementedError(
-        "train_elastic: the restart supervisor (core/elastic.py) is not "
-        "ported yet; restart with train(..., resume=True)")
+def train_elastic(cfg: Config, env_factory, out_dir: str = "results",
+                  max_restarts: int = 3, resume: bool = False, **kw) -> dict:
+    """`train()` under a restart supervisor (JAX train_rl.py:430-462,
+    core/elastic.py). On a designated failure (a device-side fault, an
+    injected `SimulatedFault`) the env is rebuilt from `env_factory()` and
+    training relaunches with resume=True, restoring the newest periodic
+    full-train-state checkpoint (parameters, targets, the Adam states,
+    alpha, the counter, the generators); past `max_restarts` the failure
+    is raised, and any other error propagates at once. The agent's state
+    resumes exactly; the episode counter restarts. The replay buffer
+    starts empty after a restart unless train.save_replay snapshots it
+    beside each checkpoint. `kw` goes to `train` (device=, max_episodes=,
+    ...)."""
+    from dgvit_tpu_torch.core.elastic import default_failure_types
+
+    failure_types = default_failure_types()
+    restarts = 0
+    while True:
+        env = env_factory()
+        try:
+            return train(cfg, env, out_dir=out_dir,
+                         resume=resume or restarts > 0, **kw)
+        except failure_types as exc:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            logging.getLogger("dgvit.elastic").warning(
+                "train_elastic: %s: %s - restarting (%d/%d)",
+                type(exc).__name__, exc, restarts, max_restarts)
 
 
 def main(argv=None):

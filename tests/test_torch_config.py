@@ -2,8 +2,9 @@
 takes, the port takes with JAX's default (fault o: model.dropout,
 train.data_dir, the mesh section and sac.critic_latent_reuse raised
 KeyError in the port); what the port has not ported it refuses by name
-(a sharded mesh), never by a KeyError. sac.critic_latent_reuse is ported
-(tests/test_torch_latent_reuse.py)."""
+(a model or seq mesh axis), never by a KeyError. sac.critic_latent_reuse
+is ported (tests/test_torch_latent_reuse.py), and so is a data mesh axis
+above 1 (tests/test_torch_mesh.py)."""
 
 import dataclasses
 
@@ -37,7 +38,7 @@ def test_every_jax_key_is_a_port_key_with_jax_default():
 ACCEPTED = [{"model": {"dropout": 0.0}}, {"model": {"dropout": 0.1}},
             {"train": {"data_dir": "demos"}},
             {"mesh": {"data": -1, "model": 1, "seq": 1}},
-            {"mesh": {"data": 1}},
+            {"mesh": {"data": 1}}, {"mesh": {"data": 4}},
             {"sac": {"critic_latent_reuse": False}},
             {"sac": {"critic_latent_reuse": True}}]
 
@@ -57,8 +58,7 @@ def test_from_dict_takes_what_jax_takes(over):
 
 
 # what JAX takes and the port has not ported: refused by name
-REFUSED = [({"mesh": {"data": 4}}, "mesh"),
-           ({"mesh": {"model": 2}}, "mesh"),
+REFUSED = [({"mesh": {"model": 2}}, "mesh"),
            ({"mesh": {"seq": 2}}, "mesh")]
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: no module of dgvit_tpu_torch (nor the card
-scripts chip_smoke.py, chip_compare.py, chip_draws.py, chip_numerics.py and
-chip_k2b_stages.py) imports jax, flax or the JAX package, at import time
-or in its source."""
+scripts chip_smoke.py, chip_compare.py, chip_draws.py, chip_numerics.py,
+chip_k2b_stages.py and chip_mesh_probe.py) imports jax, flax or the JAX
+package, at import time or in its source."""
 
 import ast
 import subprocess
@@ -81,7 +81,12 @@ def test_importing_every_module_loads_no_jax():
               "dgvit_tpu_torch.serve.fleet",
               "dgvit_tpu_torch.train.train_fleet",
               "dgvit_tpu_torch.train.device_rollout",
-              "dgvit_tpu_torch.envs.ros2_adapter"):
+              "dgvit_tpu_torch.envs.ros2_adapter",
+              "dgvit_tpu_torch.core.distributed",
+              "dgvit_tpu_torch.core.mesh",
+              "dgvit_tpu_torch.core.elastic",
+              "dgvit_tpu_torch.parallel",
+              "dgvit_tpu_torch.parallel.shard"):
         assert m in mods
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -98,7 +103,8 @@ def test_importing_every_module_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
                          [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
                           ROOT / "chip_draws.py", ROOT / "chip_numerics.py",
-                          ROOT / "chip_k2b_stages.py"],
+                          ROOT / "chip_k2b_stages.py",
+                          ROOT / "chip_mesh_probe.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_import(path):
     bad = [n for n in _imported_names(path)

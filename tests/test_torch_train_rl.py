@@ -383,9 +383,13 @@ def test_unported_flavours_raise_by_name(tmp_path, flavour):
                        "--device", "cpu", "--out", str(tmp_path)])
         assert list(tmp_path.glob("*.jsonl"))
         return
-    with pytest.raises(NotImplementedError, match=flavour):
-        train_rl.train_elastic(cfg, lambda: None)
-    assert not list(tmp_path.glob("*.jsonl"))      # nothing ran instead
+    # ported: train() under the restart supervisor (core/elastic.py;
+    # tests/test_torch_elastic.py holds its restarts)
+    out = train_rl.train_elastic(
+        cfg, lambda: KinematicNavEnv(records(0), image_hw=HW),
+        out_dir=str(tmp_path), max_episodes=1, device="cpu")
+    assert out["episodes"] == 1
+    assert list(tmp_path.glob("*.jsonl"))
 
 
 # --------------------------------------------------------------------------
