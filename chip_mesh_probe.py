@@ -9,11 +9,24 @@ mean|err|/L. Phase 26's rule rests on these readings (chip_smoke.MESH_K).
 
     python3 chip_mesh_probe.py
 
+With `--world N` it runs phase 26a's fp32 flavours at world N instead,
+N gloo ranks on the first card (chip_smoke.MESH_W4_SPEC at that world):
+each update beside the plain and the float64-sum N-rank versions from the
+same state, every reading against its limit, the wrong data axes, and
+lead x's verdict by flavour; a failed check is printed, not fatal, and
+the exit code is 1 if any failed.
+
+    python3 chip_mesh_probe.py --world 4
+
 Run from the root of a checkout on a host with a CUDA card and nvcc.
 """
 
+import argparse
 import contextlib
+import json
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
@@ -53,7 +66,34 @@ def reading(a, b):
     return f"max {rel[worst]:.3e} ({worst}), pooled {e.mean:.3e}"
 
 
-def main() -> int:
+def world_run(world: int) -> int:
+    """Phase 26a's fp32 flavours at `world` gloo ranks of the first card,
+    with the w-rank versions; the verdicts printed."""
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+            print(f"CHECK FAILED: {what}", flush=True)
+
+    cs.check = check
+    spec = dict(cs.MESH_W4_SPEC, world=world)
+    out = {"readings": {}, "launches": {}, "cluster_launches": {},
+           "host_ms": {}, "lead_x": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_mesh_probe_") as tmp:
+        ranks = cs.mesh_spawn("gloo", spec, Path(tmp), world)
+    cs.mesh_verdicts(spec, f"gloo{world}", ranks, out)
+    print(f"lead x at world {world} ({cs.card()}): "
+          f"{json.dumps(out['lead_x'])}", flush=True)
+    return 1 if failed else 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--world", type=int, default=0,
+                   help="run phase 26a's fp32 flavours at this many gloo "
+                        "ranks of the first card instead")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_mesh_probe: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -64,6 +104,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.card(), torch.__version__, flush=True)
+    if args.world:
+        return world_run(args.world)
     for dtype in cs.MESH_SPEC["dtypes"]:
         g = {"kernels": update_grads(dtype),
              "plain": update_grads(dtype, plain=True),

@@ -10398,8 +10398,22 @@ MESH_WRONGS = (("summed", "plain"), ("rows_from_zero", "plain"),
 MESH_SPEC = {"device": "cuda", "dtypes": ("bfloat16", "float32"),
              "batch": {"bfloat16": SAC_BATCH, "float32": 32},
              "steps": 5, "wrong_steps": 2, "model": {}, "params": "golden",
+             "versions": {"float32": ("plain",)}, "world": 2,
              "elastic": {"updates": 12, "fault_after": 7, "interval": 3,
-                         "batch": 32}}
+                         "batch": 32},
+             "round": {"lanes": 16, "chunk": 16, "ring": 1024, "batch": 32,
+                       "rounds": 3, "updates": 8, "expert": 192,
+                       "world": "randm32"},
+             "fleet": {"robots": 2, "episodes": 1, "max_steps": 40,
+                       "batch": 32, "demo_episodes": 2}}
+# 26a at world 4 (lead x): the fp32 flavours at B=32 (8 rows a rank), each
+# update beside two more four-rank versions from the same state: the
+# plain versions in fp32 (a correct order of sums that is not the
+# kernels') and the float64-sum version (every product summed in float64
+# on the plain versions, the all_reduce in float64).
+MESH_W4_SPEC = dict(MESH_SPEC, dtypes=("float32",), steps=3, wrong_steps=2,
+                    world=4, versions={"float32": ("plain", "float64")},
+                    elastic=None, round=None, fleet=None)
 # 26a's rule. Each data-parallel update is held to the single-rank update
 # of the global batch from the same state (the ranks' state before it),
 # one update at a time, so that no reading is of two trajectories that
@@ -10424,6 +10438,17 @@ MESH_SPEC = {"device": "cuda", "dtypes": ("bfloat16", "float32"),
 # tensors decide it (the single-rank update's own reading moves by an
 # order of magnitude from one update's state to the next).
 MESH_K = 2.0
+# Which readings set 26a's (and 26c's) limits: "single", max(6b's limit,
+# MESH_K x the single-rank update's own reading), or "restated", max(6b's
+# limit, MESH_K x the larger of the single-rank update's reading and the
+# w-rank plain versions' from the same state, where they ran). The
+# single-rank rule fails correct orders of sums past one rank: at world 4
+# (fp32, 8 rows a rank) the plain versions read up to 7.7x its limit on
+# the gradient norms and the float64-sum four-rank version at most
+# 0.006 (lead x, on an H100 80GB HBM3 at 700 W): the spread is the
+# partial sums' order, not the data axis. Wrong data axes still fail the
+# restated rule by 8x and more at worlds 2 and 4.
+MESH_RULE = "restated"
 
 
 def mesh_cfg(spec, dtype, batch=None, dropout=0.0):
@@ -10643,21 +10668,40 @@ def mesh_limits(dtype):
             "grads_mean": F32_POOLED}
 
 
-def mesh_mismatches(dtype, run, single, exact):
+def mesh_mismatches(dtype, run, single, exact, versions=None):
     """26a's faults of a data-parallel run (rank 0's records, with its
     gradients) and its readings by update: each reading against the
     float64-sum version of the single-rank update from the same state,
-    under max(6b's limit, MESH_K x the single-rank update's)."""
+    under MESH_RULE's limit. `versions` ({'plain': run, 'float64': run},
+    the w-rank versions from the same states): the plain versions'
+    reading sets the restated limit; the float64-sum version is held to
+    the single-rank limit (it reads near zero unless the data axis itself
+    is wrong)."""
     bad, reads = [], []
+    versions = versions or {}
     for u, (a, s, x) in enumerate(zip(run["records"], single["records"],
                                       exact["records"])):
         got, own = mesh_readings(a, x, dtype), mesh_readings(s, x, dtype)
+        vread = {v: mesh_readings(r["records"][u], x, dtype)
+                 for v, r in versions.items()}
         read = {}
         for k, old in mesh_limits(dtype).items():
             if k not in got:
                 continue
-            limit = max(old, MESH_K * own[k])
-            read[k] = {"dp": got[k], "single": own[k], "limit": limit}
+            one = max(old, MESH_K * own[k])
+            read[k] = {"dp": got[k], "single": own[k], "limit_single": one}
+            if "plain" in vread:
+                read[k]["plain_w"] = vread["plain"][k]
+                read[k]["limit_restated"] = max(
+                    old, MESH_K * max(own[k], vread["plain"][k]))
+            if "float64" in vread:
+                read[k]["float64_w"] = vread["float64"][k]
+                if not vread["float64"][k] <= one:
+                    bad.append(f"update {u} {k}: the float64-sum version "
+                               f"{vread['float64'][k]:.3e} over {one:.3e}")
+            limit = read[k].get("limit_restated", one) \
+                if MESH_RULE == "restated" else one
+            read[k]["limit"] = limit
             if not got[k] <= limit:
                 bad.append(f"update {u} {k} {got[k]:.3e} over {limit:.3e} "
                            f"(the single-rank update {own[k]:.3e})")
@@ -10665,25 +10709,83 @@ def mesh_mismatches(dtype, run, single, exact):
             read["grads_max (read only)"] = {"dp": got["grads_max"],
                                              "single": own["grads_max"]}
         reads.append(read)
-    worst = {k: max(r[k]["dp"] / r[k]["limit"] for r in reads)
-             for k in reads[0] if "limit" in reads[0][k]}
-    return bad, {"worst_of_limit": worst, "by_update": reads}
+    limited = [k for k in reads[0] if "limit" in reads[0][k]]
+    share = lambda key, lim: {k: max(r[k][key] / r[k][lim] for r in reads)
+                              for k in limited if key in reads[0][k]}
+    summary = {"worst_of_limit": share("dp", "limit"),
+               "dp_of_single": share("dp", "limit_single")}
+    for v in versions:
+        summary[f"{v}_w_of_single"] = share(f"{v}_w", "limit_single")
+    if "plain" in versions:
+        summary["dp_of_restated"] = share("dp", "limit_restated")
+    return bad, {**summary, "by_update": reads}
+
+
+def f64_sync(agent):
+    """The data axis's gradient mean summed in float64: each rank's
+    gradients widened, one all_reduce in float64, rounded once to the
+    parameter's dtype."""
+    import torch
+
+    def sync(opt):
+        world = agent._world()
+        params = [p for g in opt.param_groups for p in g["params"]
+                  if p.grad is not None]
+        flat = agent._all_sum(torch.cat([p.grad.reshape(-1).double()
+                                         for p in params]))
+        flat.div_(world)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p).to(p.dtype)
+    agent._sync_grads = sync
+
+
+def mesh_version(spec, dtype, flavour, rt, version, befores, sync):
+    """A w-rank version of `flavour`'s data-parallel update from each of
+    `befores` (the states before a run's updates): 'plain', the plain
+    versions in `dtype`; 'float64', the plain versions with every product
+    summed in float64 and the gradients' all_reduce in float64. In
+    mesh_updates' form (rank 0 keeps the gradients)."""
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+    from dgvit_tpu_torch.parallel import shardmap_learn
+
+    agent = SACAgent(mesh_cfg(spec, dtype), device=rt.device,
+                     seed=MESH_SEED, grad_axis="data")
+    if version == "float64":
+        f64_sync(agent)
+    step = mesh_step(spec, dtype, flavour, agent,
+                     shardmap_learn(agent, rt, flavour))
+
+    def one(state, u):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(plain_kernels())
+            if version == "float64":
+                stack.enter_context(exact_sums())
+            return step(state, u)
+
+    return mesh_updates(agent.init_state(), one, len(befores), sync,
+                        keep=rt.rank == 0,
+                        load=lambda st, u: load_payload(st, befores[u]))
 
 
 def mesh_run(spec, dtype, flavour, rt, wrong=None, steps=None):
     """26a on this rank: `steps` data-parallel updates of `flavour` in
-    `dtype` from the phase's state (with `wrong`, a wrong data axis);
-    rank 0 then takes the single-rank update and its float64-sum version
-    from the state before each and reads the rule (mesh_mismatches).
-    Returns what the parent checks: launches (each update's, the run's,
-    the cluster forms'), the single-rank update's launches, host ms at
-    world 2 and world 1, each update's gradient digest and metrics, and
-    rank 0's faults and readings."""
+    `dtype` from the phase's state (with `wrong`, a wrong data axis), and
+    spec's w-rank versions of each from the same state (a wrong run: the
+    plain versions, with the right data axis); rank 0 then takes the
+    single-rank update and its float64-sum version from the state before
+    each and reads the rule (mesh_mismatches). Returns what the parent
+    checks: launches (each update's, the run's, the cluster forms'), the
+    single-rank update's launches, host ms at world w and world 1, each
+    update's gradient digest and metrics, and rank 0's faults and
+    readings."""
     import torch
 
     from dgvit_tpu_torch.agents import SACAgent
     from dgvit_tpu_torch.parallel import shard_sac_state, shardmap_learn
 
+    versions = tuple(v for v in spec.get("versions", {}).get(dtype, ())
+                     if not wrong or v == "plain")
     agent = SACAgent(mesh_cfg(spec, dtype), device=rt.device,
                      seed=MESH_SEED, grad_axis="data")
     if wrong:
@@ -10696,15 +10798,19 @@ def mesh_run(spec, dtype, flavour, rt, wrong=None, steps=None):
     # every rank starts each timed update together (rank 0 first copies
     # the state aside for its references)
     run = mesh_updates(state, step, steps or spec["steps"], sync,
-                       keep=rt.rank == 0,
+                       keep=rt.rank == 0 or bool(versions),
                        start=lambda: (sync(), rt.barrier()))
     out = {k: run[k] for k in ("per_update", "launches", "cluster",
                                "host_ms")}
     out["digests"] = [(r["digest"], r["metrics"]) for r in run["records"]]
+    befores = [r["before"] for r in run["records"]] if versions else []
+    vruns = {v: mesh_version(spec, dtype, flavour, rt, v, befores, sync)
+             for v in versions}
     if rt.rank == 0:
         single = mesh_reference(spec, dtype, flavour, run, rt.device)
         exact = mesh_reference(spec, dtype, flavour, run, rt.device, True)
-        out["bad"], out["read"] = mesh_mismatches(dtype, run, single, exact)
+        out["bad"], out["read"] = mesh_mismatches(dtype, run, single, exact,
+                                                  vruns)
         out["single_per_update"] = single["per_update"]
         out["world1_ms"] = single["host_ms"]
     return out
@@ -10802,10 +10908,11 @@ def mesh_elastic(spec, rt, workdir):
 def mesh_rank(rank, world, port, workdir, backend, spec):
     """One rank of phase 26 (torch.multiprocessing.spawn's target): joins
     the group through core/distributed.initialize over `backend`, runs
-    26a (every flavour, dtype and wrong data axis; mesh_run) and, over
-    gloo, 26b's elastic drill, and saves what it saw to
-    workdir/rank<r>.pt. The kernels load from the build root the parent
-    built."""
+    26a (every flavour, dtype and wrong data axis; mesh_run), over gloo
+    26b's elastic drill, then as spec asks 26c's sharded fused round
+    (mesh_round) and 26d's train_fleet --mesh-data (mesh_fleet), and
+    saves what it saw to workdir/rank<r>.pt. The kernels load from the
+    build root the parent built."""
     import os
 
     sys.path.insert(0, str(ROOT))
@@ -10825,6 +10932,7 @@ def mesh_rank(rank, world, port, workdir, backend, spec):
     try:
         rt = MeshRuntime.create(device=None if spec["device"] == "cuda"
                                 else "cpu")
+        t0 = time.perf_counter()
         out = {"device": str(rt.device), "backend": dist.get_backend(),
                "runs": {}}
         for dtype in spec["dtypes"]:
@@ -10834,8 +10942,17 @@ def mesh_rank(rank, world, port, workdir, backend, spec):
             for wrong, flavour in MESH_WRONGS:
                 out["runs"][(dtype, wrong)] = mesh_run(
                     spec, dtype, flavour, rt, wrong, spec["wrong_steps"])
-        if backend == "gloo":
-            out["elastic"] = mesh_elastic(spec, rt, workdir)
+        out["seconds"] = {"26a": time.perf_counter() - t0}
+        for part, run, on in (
+                ("26b", mesh_elastic,
+                 backend == "gloo" and spec.get("elastic")),
+                ("26c", mesh_round, spec.get("round")),
+                ("26d", mesh_fleet, spec.get("fleet"))):
+            if on:
+                t1 = time.perf_counter()
+                out[{"26b": "elastic", "26c": "round",
+                     "26d": "fleet"}[part]] = run(spec, rt, workdir)
+                out["seconds"][part] = time.perf_counter() - t1
         torch.save(out, workdir / f"rank{rank}.pt")
         rt.barrier()
     finally:
@@ -10851,15 +10968,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_spawn(backend, spec, workdir, world=2):
+def mesh_spawn(backend, spec, workdir, world=None):
     """Phase 26's ranks over `backend` (gloo: every rank on the first
-    card; nccl: one rank a card); their saved results, rank by rank. A
-    failing rank fails the phase."""
+    card; nccl: one rank a card), spec's world of them by default; their
+    saved results, rank by rank. A failing rank fails the phase."""
     import os
 
     import torch
     import torch.multiprocessing as mp
 
+    world = world or spec.get("world", 2)
     keep = os.environ.get("CUDA_VISIBLE_DEVICES")
     if backend == "gloo" and spec["device"] == "cuda":
         os.environ["CUDA_VISIBLE_DEVICES"] = keep.split(",")[0] if keep \
@@ -10916,52 +11034,99 @@ def mesh_world1(spec, directory, nxt):
     return start, bad, read
 
 
-def phase_mesh(spec=None):
-    """Phase 26, a main path: the data-parallel tier on two gloo ranks of
-    the card (`mesh_rank`), and with two or more cards one rank a card
-    over NCCL too. 26a: every flavour's data-parallel update (bf16 at
+def phase_mesh(spec=None, w4=None):
+    """Phase 26, a main path: the data-parallel tier on gloo ranks of the
+    card (`mesh_rank`), and with enough cards one rank a card over NCCL
+    too. 26a: every flavour's data-parallel update at world 2 (bf16 at
     B=256, fp32 at B=32, emb-dropout 0, the same injected global noise)
-    held to the single-rank update from the same state by MESH_K's rule,
-    the three wrong data axes failing it; each rank's launches an update
-    the single-rank update's (fp32 on the cluster forms: the forms of K4,
-    K2 and K3 follow dtype, widths and alignment, not the batch); both
-    ranks on one state; the host ms an update at world 1 and 2. 26b: the
-    elastic drill bit-equal to the unbroken run, resumed from the
+    and the fp32 flavours at world 4 (lead x: beside them the plain and
+    the float64-sum four-rank versions), each held to the single-rank
+    update from the same state by MESH_K's rule (MESH_RULE), the three
+    wrong data axes failing it at both worlds; each rank's launches an
+    update the single-rank update's (fp32 on the cluster forms: the forms
+    of K4, K2 and K3 follow dtype, widths and alignment, not the batch);
+    every rank on one state; the host ms an update at world 1 and w. 26b:
+    the elastic drill bit-equal to the unbroken run, resumed from the
     checkpoint before the fault, then its last checkpoint resumed at
-    world 1, the ranks' next update held to it by 26a's rule. Returns its
-    readings and launches."""
+    world 1, the ranks' next update held to it by 26a's rule. 26c: the
+    sharded fused round (mesh_round, round_verdicts); 26d: train_fleet
+    --mesh-data 2 (mesh_fleet, fleet_verdicts). Returns its readings and
+    launches."""
     import torch
 
     spec = spec or MESH_SPEC
+    w4 = MESH_W4_SPEC if w4 is None else w4
     t0 = time.perf_counter()
-    backends = ["gloo"] + (["nccl"] if spec["device"] == "cuda"
-                           and torch.cuda.device_count() >= 2 else [])
-    out = {"backends": backends, "card": card(), "readings": {},
-           "launches": {}, "cluster_launches": {}, "host_ms": {},
-           "seconds": {}}
+    cards = torch.cuda.device_count() if spec["device"] == "cuda" else 0
+    out = {"card": card(), "backends": {}, "readings": {}, "launches": {},
+           "cluster_launches": {}, "host_ms": {}, "seconds": {},
+           "lead_x": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        for backend in backends:
-            t1 = time.perf_counter()
-            workdir = Path(tmp) / backend
-            workdir.mkdir()
-            ranks = mesh_spawn(backend, spec, workdir)
-            out["seconds"][backend] = time.perf_counter() - t1
-            print(f"phase 26 ({backend}): ranks on "
-                  f"{[r['device'] for r in ranks]}, "
-                  f"{out['seconds'][backend]:.1f} s", flush=True)
-            mesh_verdicts(spec, backend, ranks, out)
-            if backend == "gloo":
-                mesh_elastic_verdicts(spec, ranks, workdir, out)
+        tmp = Path(tmp)
+        prep = mesh_prepare(spec, tmp) if spec.get("round") or \
+            spec.get("fleet") else {}
+        if spec.get("fleet"):
+            spec = dict(spec, fleet=dict(spec["fleet"], demos=prep["demos"]))
+        for sp in (spec, w4):
+            if not sp:
+                continue
+            world = sp["world"]
+            backends = ["gloo"] + (["nccl"] if spec["device"] == "cuda"
+                                   and cards >= world else [])
+            out["backends"][world] = backends
+            for backend in backends:
+                name = backend if world == 2 else f"{backend}{world}"
+                t1 = time.perf_counter()
+                workdir = tmp / name
+                workdir.mkdir()
+                ranks = mesh_spawn(backend, sp, workdir, world)
+                out["seconds"][name] = time.perf_counter() - t1
+                out["seconds"][f"{name} parts"] = ranks[0]["seconds"]
+                print(f"phase 26 ({backend}, world {world}): ranks on "
+                      f"{[r['device'] for r in ranks]}, "
+                      f"{out['seconds'][name]:.1f} s (rank 0's parts "
+                      f"{ranks[0]['seconds']})", flush=True)
+                mesh_verdicts(sp, name, ranks, out)
+                if backend == "gloo" and sp.get("elastic"):
+                    mesh_elastic_verdicts(sp, ranks, workdir, out)
+                if sp.get("round"):
+                    round_verdicts(sp, name, ranks, prep, out)
+                if sp.get("fleet"):
+                    fleet_verdicts(sp, name, ranks, workdir, prep, out)
     out["seconds"]["total"] = time.perf_counter() - t0
-    print(f"phase 26: {out['seconds']['total']:.1f} s", flush=True)
+    print(f"phase 26: {out['seconds']['total']:.1f} s; lead x by flavour "
+          f"(the kernels' and the plain versions' worst share of the "
+          f"single-rank limit at each world): {json.dumps(out['lead_x'])}",
+          flush=True)
     return out
 
 
-def mesh_verdicts(spec, backend, ranks, out):
-    """26a's checks of one backend's ranks (see phase_mesh)."""
+def lead_x_verdict(read):
+    """Lead x's reading of one w-rank run (its versions beside it): the
+    kernels' and the w-rank plain versions' worst share of the single-rank
+    limit, and what the summation-order contract makes of them."""
+    dp = max(read["dp_of_single"].values())
+    plain = max(read.get("plain_w_of_single", {"-": float("nan")}).values())
+    f64 = max(read.get("float64_w_of_single", {"-": float("nan")}).values())
+    if dp <= 1.0:
+        verdict = "the single-rank rule holds"
+    elif plain > 1.0:
+        verdict = ("check gap: a correct order of sums (the plain "
+                   "versions) fails the single-rank rule")
+    else:
+        verdict = ("port fault: the plain versions pass where the kernels "
+                   "fail")
+    return {"kernels": dp, "plain_w": plain, "float64_w": f64,
+            "verdict": verdict}
+
+
+def mesh_verdicts(spec, name, ranks, out):
+    """26a's checks of one backend's ranks (see phase_mesh); `name` the
+    backend and, past world 2, the world."""
+    others = range(1, len(ranks))
     for dtype in spec["dtypes"]:
         for flavour in MESH_FLAVORS:
-            label = f"{backend} {dtype} {flavour}"
+            label = f"{name} {dtype} {flavour}"
             runs = [r["runs"][(dtype, flavour)] for r in ranks]
             want = runs[0]["single_per_update"]
             for r, run in enumerate(runs):
@@ -10974,22 +11139,32 @@ def mesh_verdicts(spec, backend, ranks, out):
                                              for k in CLUSTER_KERNELS},
                           f"26a {label} rank {r}: fp32 launches off the "
                           f"cluster forms {run['cluster']}")
-            check(runs[0]["digests"] == runs[1]["digests"],
-                  f"26a {label}: the ranks' gradients or metrics differ")
+            for r in others:
+                check(runs[0]["digests"] == runs[r]["digests"],
+                      f"26a {label}: rank {r}'s gradients or metrics "
+                      "differ from rank 0's")
             run = runs[0]
+            read = run["read"]
             print(f"26a {label}: launches an update, rank 0 "
-                  f"{run['per_update'][0]}, rank 1 "
-                  f"{runs[1]['per_update'][0]} (each update's equal to "
-                  f"the single-rank update's); host {run['host_ms']:.2f} ms "
-                  f"an update at world 2 (rank 1 "
-                  f"{runs[1]['host_ms']:.2f}) against "
-                  f"{run['world1_ms']:.2f} at world 1 (B="
+                  f"{run['per_update'][0]} (each rank's, each update's, "
+                  f"equal to the single-rank update's); host "
+                  f"{run['host_ms']:.2f} ms an update at world "
+                  f"{len(ranks)} (ranks {[round(x['host_ms'], 2) for x in runs]}) "
+                  f"against {run['world1_ms']:.2f} at world 1 (B="
                   f"{spec['batch'][dtype]}, medians of updates 1 on, read "
                   f"only; {card()}); against the float64-sum single-rank "
-                  f"update, each reading's largest share of its limit: "
-                  f"{run['read']['worst_of_limit']}", flush=True)
+                  f"update ({MESH_RULE} rule), each reading's largest "
+                  f"share of its limit: {read['worst_of_limit']}; of the "
+                  f"single-rank limit: kernels {read['dp_of_single']}"
+                  + "".join(f", {v} {read[v]}" for v in (
+                      "plain_w_of_single", "float64_w_of_single",
+                      "dp_of_restated") if v in read), flush=True)
+            if "plain_w_of_single" in read:
+                out["lead_x"][label] = lead_x_verdict(read)
+                print(f"26a {label} lead x: {out['lead_x'][label]}",
+                      flush=True)
             check(not run["bad"], f"26a {label}: {run['bad'][:6]}")
-            out["readings"][label] = run["read"]
+            out["readings"][label] = read
             out["host_ms"][label] = {"world1": run["world1_ms"], **{
                 f"rank{r}": x["host_ms"] for r, x in enumerate(runs)}}
             out["launches"][label] = [x["launches"] for x in runs]
@@ -10998,12 +11173,19 @@ def mesh_verdicts(spec, backend, ranks, out):
                                                   for x in runs]
         for wrong, flavour in MESH_WRONGS:
             run = ranks[0]["runs"][(dtype, wrong)]
-            print(f"26a {backend} {dtype} wrong data axis ({wrong}): "
-                  f"largest share of each limit "
-                  f"{run['read']['worst_of_limit']}", flush=True)
-            check(bool(run["bad"]), f"26a {backend} {dtype}: the rule "
+            read = run["read"]
+            print(f"26a {name} {dtype} wrong data axis ({wrong}): "
+                  f"largest share of each limit ({MESH_RULE} rule) "
+                  f"{read['worst_of_limit']}"
+                  + (f"; of the restated limit {read['dp_of_restated']}"
+                     if "dp_of_restated" in read else ""), flush=True)
+            check(bool(run["bad"]), f"26a {name} {dtype}: the rule "
                   f"passed a wrong data axis ({wrong})")
-            out["readings"][f"{backend} {dtype} wrong {wrong}"] = run["read"]
+            if "dp_of_restated" in read:
+                check(max(read["dp_of_restated"].values()) > 1.0,
+                      f"26a {name} {dtype}: the restated rule passed a "
+                      f"wrong data axis ({wrong})")
+            out["readings"][f"{name} {dtype} wrong {wrong}"] = read
 
 
 def mesh_elastic_verdicts(spec, ranks, workdir, out):
@@ -11030,10 +11212,770 @@ def mesh_elastic_verdicts(spec, ranks, workdir, out):
                       "seconds": el[0]["seconds"], "world1": read}
 
 
+# ---------------------------------------------------------------------------
+# 26c: the sharded fused round; 26d: train_fleet --mesh-data 2
+# ---------------------------------------------------------------------------
+# 26c's flavours: (label, PER, guided, fault knobs), the knobs the aug
+# recipe's (AUG_ARGS) at its aug_prob
+ROUND_FLAVOURS = (("plain", False, False, None),
+                  ("per_aug", True, False,
+                   {"patch_occlusion": 0.25, "obs_noise": 0.196}),
+                  ("guided_per", True, True, None))
+ROUND_AUG_PROB = 0.5
+# the wrong versions 26c's checks must fail, each on the flavour it breaks
+# (one round each); the replicated fault stream is read on a collection
+ROUND_WRONGS = (("per_global_td", "per_aug"), ("per_rank0_rows", "per_aug"),
+                ("stats_local", "plain"), ("n_expert_local", "guided_per"))
+
+
+def round_cfg(spec, per):
+    """26c's config: the flagship recipe's (bf16, device PER, nan_guard,
+    alpha in [0.1, 2.0]) at spec's global batch and ring, emb-dropout 0
+    (each update is held to the single-rank update, and a rank's dropout
+    masks are its own); `per` PER on or off."""
+    from dgvit_tpu_torch.config import Config
+
+    r = spec["round"]
+    return Config.from_dict({
+        "model": {"compute_dtype": "bfloat16", "emb_dropout": 0.0,
+                  **spec["model"]},
+        "sac": {"batch_size": r["batch"], "buffer_size": r["ring"],
+                "prioritized_replay": per, "nan_guard": True,
+                "alpha_min": 0.1, "alpha_max": 2.0},
+        "train": {"seed": MESH_SEED, "pre_buffer": False}})
+
+
+def round_consts(spec, cfg, dev):
+    from dgvit_tpu_torch.envs import vec_kinematic as vk
+
+    return vk.make_consts(spec["round"]["world"],
+                          image_hw=tuple(cfg.model.image_size),
+                          max_steps=cfg.env.max_steps, seed=MESH_SEED,
+                          device=dev)
+
+
+def round_expert(spec, cfg, dev):
+    """A staged expert corpus of spec's rows, drawn from a seed (the same
+    on every rank: it is replicated)."""
+    import numpy as np
+    import torch
+
+    n, hw = spec["round"]["expert"], tuple(cfg.model.image_size)
+    rng = np.random.default_rng(MESH_SEED + 260)
+    f = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    host = {"obs": f(n, *hw), "act": rng.uniform(-1, 1, (n, 2)),
+            "pobs": f(n, 2), "next_pobs": f(n, 2),
+            "rew": rng.normal(0, 1, (n, 1)), "next_obs": f(n, *hw),
+            "done": (np.arange(n) % 9 == 8)[:, None]}
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in host.items()}
+
+
+def round_kw(cfg):
+    e = cfg.env
+    return dict(l_scale=e.linear_cmd_scale, a_scale=e.angular_cmd_scale,
+                max_action=e.max_action)
+
+
+def round_digest(state):
+    """Every parameter's float64 sum, log_alpha and the counter."""
+    import torch
+
+    sums = torch.stack([p.detach().double().sum() for k in UPDATED
+                        for p in getattr(state, k).parameters()])
+    return sums.cpu().tolist() + [state.log_alpha.item(), int(state.itera)]
+
+
+@contextlib.contextmanager
+def round_wrong(wrong, world):
+    """A wrong version of the sharded round, patched in for the block."""
+    from dgvit_tpu_torch.train import fused_train as ft
+    from dgvit_tpu_torch.train import vec_rollout as vr
+
+    mod, name = {"per_global_td": (ft, "rank_rows"),
+                 "per_rank0_rows": (ft, "rank_rows"),
+                 "stats_local": (ft, "group_reduce"),
+                 "n_expert_local": (ft, "expert_rows"),
+                 "fault_replicated": (vr, "rank_fault_generator")}[wrong]
+    orig = getattr(mod, name)
+    setattr(mod, name, {
+        "per_global_td": lambda td, rank, b: td,
+        "per_rank0_rows": lambda td, rank, b: td[:b],
+        "stats_local": lambda t, mesh, op="sum":
+            orig(t, mesh, op) if op == "max" else t,
+        "n_expert_local": lambda n, size, b: orig(n, size // world,
+                                                  b // world),
+        "fault_replicated": lambda gen, rank, device: gen}[wrong])
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def round_hooks(agent, rt, log, every, b):
+    """Readings inside a sharded round: each update's launches and global
+    td; every `every`-th update held (its inputs and the state before it
+    on every rank; on rank 0 its update_record); each priority update
+    against a single-device per_update of the rank's rows of the td
+    (max|prios - expected| / 1e-6 of the largest, with the running max);
+    the stats each rank hands the group's sum."""
+    import torch
+
+    from dgvit_tpu_torch.core.checkpoint import state_payload
+    from dgvit_tpu_torch.replay.device_per import DevicePER
+    from dgvit_tpu_torch.train import fused_train as ft
+
+    counters = kernel_counters()
+    n = [0]
+    names = ("learn", "learn_per", "learn_guidence", "learn_guidence_per")
+
+    def wrap(real):
+        def learn(state, batch, *args, **kw):
+            keep = (n[0] + 1) % every == 0
+            n[0] += 1
+            was = {k: c.launches for k, c in counters.items()}
+            if keep:
+                before = update_start(state)
+                payload = mesh_host(state_payload(state))
+                inputs = mesh_host({"batch": dict(batch), "args": args})
+            res = real(state, batch, *args, **kw)
+            log["launches"].append({k: c.launches - was[k]
+                                    for k, c in counters.items()})
+            log["td"][0] = res[2] if len(res) == 3 else None
+            if keep:
+                rec = None
+                if rt.rank == 0:
+                    rec = update_record(res[0], res[1], before)
+                    rec.pop("params")
+                    rec["grads"] = {k: g.float().cpu()
+                                    for k, g in rec["grads"].items()}
+                    if len(res) == 3:
+                        rec["td"] = res[2].float().cpu()
+                log["held"].append({"name": real.__name__,
+                                    "before": payload, "inputs": inputs,
+                                    "record": rec})
+            return res
+        return learn
+
+    real_pu, real_gr = ft.per_update, ft.group_reduce
+
+    def per_update(per, idx, raw):
+        own = log["td"][0][rt.rank * b:(rt.rank + 1) * b].abs() + 1e-6
+        want = real_pu(DevicePER(per.prios.clone(), per.max_p.clone()), idx,
+                       own)
+        res = real_pu(per, idx, raw)
+        diff = torch.maximum((per.prios - want.prios).abs().max(),
+                             (per.max_p - want.max_p).abs())
+        tol = 1e-6 * torch.maximum(want.prios.abs().max(), want.max_p)
+        log["per"].append((diff / tol.clamp(min=1e-30)).item())
+        return res
+
+    def group_reduce(t, mesh, op="sum"):
+        if op == "sum":
+            log["stats"].append(t.detach().float().cpu().clone())
+        return real_gr(t, mesh, op)
+
+    for name in names:
+        setattr(agent, name, wrap(getattr(agent, name)))
+    ft.per_update, ft.group_reduce = per_update, group_reduce
+    try:
+        yield
+    finally:
+        ft.per_update, ft.group_reduce = real_pu, real_gr
+        for name in names:
+            delattr(agent, name)
+
+
+def round_flavour(spec, rt, workdir, label, per, guided, knobs, wrong=None,
+                  rounds=None):
+    """26c on this rank: `rounds` sharded rounds of one flavour from the
+    seeded state (with `wrong`, a wrong version): each round's stats,
+    state digest and PER's running max; the launches; the hooks'
+    readings (round_hooks); on rank 0 the held updates against the
+    single-rank update of the union of the ranks' minibatches
+    (round_replay)."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.parallel import shard_sac_state
+    from dgvit_tpu_torch.parallel.shard import shardmap_fused_round
+
+    r = spec["round"]
+    dev = rt.device
+    cfg = round_cfg(spec, per)
+    agent = SACAgent(cfg, device=dev, seed=MESH_SEED, grad_axis="data")
+    state = shard_sac_state(rt, agent.init_state())
+    run, init = shardmap_fused_round(
+        agent, rt, round_consts(spec, cfg, dev), r["lanes"], r["chunk"],
+        r["updates"], r["batch"], r["ring"], **round_kw(cfg),
+        prioritized=per, guided=guided, fault_knobs=knobs,
+        aug_prob=ROUND_AUG_PROB if knobs else 1.0, seed=MESH_SEED)
+    carry, ring, *p = init(tuple(cfg.model.image_size))
+    per_state = p[0] if per else None
+    expert = round_expert(spec, cfg, dev) if guided else None
+    log = {"launches": [], "held": [], "td": [None], "per": [], "stats": []}
+    stats, digests, max_p = [], [], []
+    with contextlib.ExitStack() as stack:
+        if wrong:
+            stack.enter_context(round_wrong(wrong, rt.world))
+        stack.enter_context(round_hooks(agent, rt, log, r["updates"],
+                                        r["batch"] // rt.world))
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        for i in range(rounds or r["rounds"]):
+            res = run(state, carry, ring, [i], expert, per=per_state)
+            state, carry, ring, st = res[:4]
+            stats.append({k: float(v[0]) for k, v in st.items()})
+            digests.append(round_digest(state))
+            if per:
+                max_p.append(per_state.max_p.item())
+        launches = {k: c.launches for k, c in counters.items()}
+    plain = round_plain(cfg, rt, log["held"], dev)
+    tag = f"{label}_{wrong}"
+    torch.save([h["inputs"] for h in log["held"]],
+               Path(workdir) / f"held_{tag}_{rt.rank}.pt")
+    rt.barrier()
+    out = {"stats": stats, "local": [v.tolist() for v in log["stats"]],
+           "digests": digests, "max_p": max_p, "per_check": log["per"],
+           "launches": launches, "per_update": log["launches"]}
+    if rt.rank == 0:
+        inputs = [torch.load(Path(workdir) / f"held_{tag}_{k}.pt",
+                             weights_only=False) for k in range(rt.world)]
+        out.update(round_replay(cfg, per, guided, log["held"], inputs, dev,
+                                plain))
+    return out
+
+
+def to_device(tree, dev):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def round_plain(cfg, rt, held, dev):
+    """The held updates again on every rank through the plain versions,
+    on the data axis, each from the state before it with the rank's own
+    inputs: the w-rank plain versions that set MESH_RULE's restated limit
+    (rank 0 keeps the records)."""
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+    from dgvit_tpu_torch.core.mesh import use_mesh
+
+    agent = SACAgent(cfg, device=dev, seed=MESH_SEED, grad_axis="data")
+    state = agent.init_state()
+    records = []
+    for h in held:
+        load_payload(state, h["before"])
+        before = update_start(state)
+        inp = to_device(h["inputs"], dev)
+        with plain_kernels(), use_mesh(rt):
+            res = getattr(agent, h["name"])(state, inp["batch"],
+                                             *inp["args"])
+        if rt.rank == 0:
+            rec = update_record(res[0], res[1], before)
+            rec.pop("params")
+            rec["grads"] = {n: g.float().cpu()
+                            for n, g in rec["grads"].items()}
+            if len(res) == 3:
+                rec["td"] = res[2].float().cpu()
+            records.append(rec)
+    return {"records": records}
+
+
+def round_replay(cfg, per, guided, held, inputs, dev, plain):
+    """Rank 0: each held update against the single-rank update (and its
+    float64-sum version) on the rank-major union of the ranks'
+    minibatches (agent rows, expert rows, importance weights), from the
+    same state, with the same noise (the state's generator draws the
+    global noise on both sides), by MESH_K's rule (MESH_RULE; `plain`,
+    round_plain's records, the w-rank plain versions); the single-rank
+    update's launches."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+
+    agent = SACAgent(cfg, device=dev, seed=MESH_SEED)
+    state = agent.init_state()
+    fn = {"learn": agent.learn, "learn_per": agent.learn_per,
+          "learn_guidence": agent.learn_guidence,
+          "learn_guidence_per": agent.learn_guidence_per}
+    cat = lambda parts: torch.cat(parts).to(dev)
+    recs = {False: [], True: []}
+    launches = []
+    for i, h in enumerate(held):
+        parts = [inp[i] for inp in inputs]
+        batch = {k: cat([q["batch"][k] for q in parts])
+                 for k in parts[0]["batch"]}
+        args = list(parts[0]["args"])
+        if guided:
+            args[0] = {k: cat([q["args"][0][k] for q in parts])
+                       for k in args[0]}
+        if per:
+            args[-1] = cat([q["args"][-1] for q in parts])
+        for exact in (False, True):
+            load_payload(state, h["before"])
+            before = update_start(state)
+            with contextlib.ExitStack() as stack:
+                if exact:
+                    stack.enter_context(plain_kernels())
+                    stack.enter_context(exact_sums())
+                res, k = counted(lambda: fn[h["name"]](state, batch, *args))
+            rec = update_record(res[0], res[1], before)
+            rec.pop("params")
+            rec["grads"] = {n: g.float().cpu()
+                            for n, g in rec["grads"].items()}
+            if len(res) == 3:
+                rec["td"] = res[2].float().cpu()
+            recs[exact].append(rec)
+            if not exact:
+                launches.append(k)
+    bad, read = mesh_mismatches(
+        "bfloat16", {"records": [h["record"] for h in held]},
+        {"records": recs[False]}, {"records": recs[True]}, {"plain": plain})
+    return {"bad": bad, "read": read, "single_per_update": launches}
+
+
+def round_collect(spec, rt):
+    """26c's collection on this rank: the rank's lanes of a shardmap_collect
+    chunk (the flagship's state from the seed, one generator for every
+    rank) and its K1 launches; on rank 0 the unsharded collector's chunk
+    of every lane from the same generator, and K1 against its plain
+    version on the rank's frames (collected_k1, after the counts); then
+    one step with patch occlusion, each rank's patch masks with its own
+    fault stream and with one stream on every rank."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.core.rng import generator, step_key
+    from dgvit_tpu_torch.envs.vec_kinematic import vec_reset
+    from dgvit_tpu_torch.parallel.shard import shardmap_collect
+    from dgvit_tpu_torch.train.vec_rollout import make_collect_fn
+
+    r = spec["round"]
+    dev = rt.device
+    cfg = round_cfg(spec, False)
+    agent = SACAgent(cfg, device=dev, seed=MESH_SEED, grad_axis="data")
+    actor = agent.init_state().actor
+    consts = round_consts(spec, cfg, dev)
+    gen = lambda: generator(step_key(MESH_SEED, 2601), dev)
+    collect, init = shardmap_collect(agent, rt, consts, r["lanes"],
+                                     r["chunk"], **round_kw(cfg))
+    (carry, traj), k = counted(lambda: collect(actor, init(), gen()))
+    fields = ("obs", "act", "rew", "done", "next_obs", "episode_end")
+    out = {"traj": {f: traj[f].cpu() for f in fields},
+           "rec_idx": carry[0].rec_idx.cpu(), "k1": k["K1"]}
+    if rt.rank == 0:
+        one = SACAgent(cfg, device=dev, seed=MESH_SEED)
+        c1, t1 = make_collect_fn(one, consts, r["chunk"], **round_kw(cfg))(
+            actor, vec_reset(consts, r["lanes"]), gen())
+        out["unsharded"] = {f: t1[f].cpu() for f in fields}
+        out["unsharded_rec_idx"] = c1[0].rec_idx.cpu()
+        out["k1_check"] = collected_k1(actor, traj, "26c rank 0's")
+    collect_f, _ = shardmap_collect(
+        agent, rt, consts, r["lanes"], 1, **round_kw(cfg),
+        fault_knobs={"patch_occlusion": 0.25})
+    for name, wrong in (("faults", None),
+                        ("faults_replicated", "fault_replicated")):
+        with contextlib.ExitStack() as stack:
+            if wrong:
+                stack.enter_context(round_wrong(wrong, rt.world))
+            t = collect_f(actor, init(), gen(),
+                          fault_gen=generator(step_key(MESH_SEED, 2602),
+                                              dev))[1]
+        out[name] = (t["obs"][0] == 0).cpu()
+    return out
+
+
+def round_rates(spec, rt, cfg, sharded):
+    """The plain round's host time of each of spec's rounds, no hooks: on
+    the data axis at world w (`sharded`, the ranks starting each round
+    together), else the unsharded round of every lane at world 1."""
+    import torch
+
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.parallel import shard_sac_state
+    from dgvit_tpu_torch.parallel.shard import shardmap_fused_round
+    from dgvit_tpu_torch.train.fused_train import make_fused_round, ring_init
+
+    r = spec["round"]
+    dev = rt.device if sharded else torch.device(spec["device"])
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    agent = SACAgent(cfg, device=dev, seed=MESH_SEED,
+                     grad_axis="data" if sharded else None)
+    state = agent.init_state()
+    consts = round_consts(spec, cfg, dev)
+    hw = tuple(cfg.model.image_size)
+    if sharded:
+        state = shard_sac_state(rt, state)
+        run, init = shardmap_fused_round(
+            agent, rt, consts, r["lanes"], r["chunk"], r["updates"],
+            r["batch"], r["ring"], **round_kw(cfg), seed=MESH_SEED)
+        carry, ring = init(hw)
+    else:
+        from dgvit_tpu_torch.envs.vec_kinematic import vec_reset
+
+        run = make_fused_round(agent, consts, r["lanes"], r["chunk"],
+                               r["updates"], r["batch"], **round_kw(cfg),
+                               seed=MESH_SEED)
+        carry = vec_reset(consts, r["lanes"])
+        ring = ring_init(r["ring"], hw, device=dev)
+    times = []
+    for i in range(r["rounds"]):
+        sync()
+        if sharded:
+            rt.barrier()
+        t0 = time.perf_counter()
+        state, carry, ring, _ = run(state, carry, ring, [i])
+        sync()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def round_rate_summary(spec, times):
+    """Env steps/s and updates/s of the median round after the first."""
+    r = spec["round"]
+    t = statistics.median(times[1:] or times)
+    return {"round_s": times, "env_steps_per_s": r["lanes"] * r["chunk"] / t,
+            "updates_per_s": r["updates"] / t}
+
+
+def mesh_round(spec, rt, workdir):
+    """26c on this rank: the collection (round_collect), each flavour's
+    rounds (round_flavour), the wrong versions (one round each) and the
+    plain round's times (round_rates)."""
+    out = {"collect": round_collect(spec, rt)}
+    for label, per, guided, knobs in ROUND_FLAVOURS:
+        out[label] = round_flavour(spec, rt, workdir, label, per, guided,
+                                   knobs)
+    flavours = {f[0]: f for f in ROUND_FLAVOURS}
+    for wrong, label in ROUND_WRONGS:
+        out[f"wrong {wrong}"] = round_flavour(
+            spec, rt, workdir, *flavours[label], wrong=wrong, rounds=1)
+    out["times"] = round_rates(spec, rt, round_cfg(spec, False), True)
+    return out
+
+
+def mesh_fleet_cfg(spec, guided):
+    """26d's config: bf16 at the flagship's widths (or spec's), warm from
+    the flagship actor, spec's episodes and global batch, PER and the
+    expert buffer with `guided`."""
+    from dgvit_tpu_torch.config import Config
+
+    f = spec["fleet"]
+    return Config.from_dict({
+        "model": {"compute_dtype": "bfloat16", **spec["model"]},
+        "env": {"max_steps": f["max_steps"]},
+        "sac": {"batch_size": f["batch"], "buffer_size": FLEET_BUFFER,
+                "prioritized_replay": guided},
+        "train": {"seed": SEED, "pre_buffer": guided, "save": True,
+                  "pre_train": spec["params"] == "golden",
+                  "pre_train_model": str(ACTOR)[:-len("_actor.npz")]}})
+
+
+def mesh_fleet_envs(n, hw):
+    """n KinematicNavEnv robots on rrc at `hw` over phase 24's record
+    table, robot i starting at record i."""
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs.kinematic import default_records
+
+    if not _FLEET_RECORDS:
+        _FLEET_RECORDS.extend(default_records(seed=FLEET_RECORD_SEED))
+    envs = []
+    for i in range(n):
+        env = KinematicNavEnv(_FLEET_RECORDS, world="rrc", image_hw=hw)
+        env.indice_position = i % len(_FLEET_RECORDS)
+        envs.append(env)
+    return envs
+
+
+def mesh_fleet(spec, rt, workdir):
+    """26d on this rank: train_fleet(mesh_data=world) plain and guided PER
+    (rank 0 the robots, the others followers), each rank's launches, its
+    parameters saved for the parent, the files it wrote."""
+    import torch
+
+    from dgvit_tpu_torch.train import train_fleet as tf
+
+    f = spec["fleet"]
+    out = {}
+    for label, guided in (("plain", False), ("guided_per", True)):
+        cfg = mesh_fleet_cfg(spec, guided)
+        envs = (mesh_fleet_envs(f["robots"], tuple(cfg.model.image_size))
+                if rt.rank == 0 else [])
+        out_dir = Path(workdir) / f"fleet_{label}_rank{rt.rank}"
+        res, k = counted(lambda: tf.train_fleet(
+            cfg, envs, out_dir=str(out_dir),
+            max_episodes=f["robots"] * f["episodes"],
+            expert_glob=f["demos"] if guided else None,
+            mesh_data=rt.world, device=rt.device, log_every_updates=10))
+        state = res["state"]
+        torch.save({f"{kind}.{n}": p.detach().cpu() for kind in UPDATED
+                    for n, p in getattr(state, kind).named_parameters()},
+                   Path(workdir) / f"fleet_{label}_params{rt.rank}.pt")
+        keep = ("episodes", "env_steps", "wall_s", "steps_per_s",
+                "updates_per_s", "errors")
+        out[label] = {"updates": res["updates"], "itera": int(state.itera),
+                      "launches": k,
+                      "files": sorted(str(p.relative_to(out_dir))
+                                      for p in out_dir.rglob("*")
+                                      if p.is_file())
+                      if out_dir.exists() else [],
+                      **{key: res[key] for key in keep if key in res}}
+    return out
+
+
+def mesh_prepare(spec, tmp):
+    """In the parent, before the ranks: 26d's demos (policy-unit, recorded
+    by train/demo_record) and 26c's plain round at world 1."""
+    from dgvit_tpu_torch.train.demo_record import (policy_unit_pilot,
+                                                   record_episodes)
+
+    out = {}
+    if spec.get("fleet"):
+        cfg = mesh_fleet_cfg(spec, True)
+        pilot, to_env = policy_unit_pilot(cfg)
+        check(record_episodes(
+            mesh_fleet_envs(1, tuple(cfg.model.image_size))[0], pilot,
+            str(tmp / "demos"), episodes=spec["fleet"]["demo_episodes"],
+            max_steps=200, action_to_env=to_env),
+            "phase 26d recorded no demos")
+        out["demos"] = str(tmp / "demos" / "RRC" / "torch" / "*.npz")
+    if spec.get("round"):
+        out["world1"] = round_rate_summary(spec, round_rates(
+            spec, None, round_cfg(spec, False), False))
+    return out
+
+
+def round_verdicts(spec, name, ranks, prep, out):
+    """26c's checks of one backend's ranks (see phase_mesh): the
+    collection's union bit-equal to the unsharded collector's, K1 once a
+    step at the rank's lanes; each flavour's held updates by MESH_K's
+    rule, the ranks on one state after every round, the stats the sums
+    of the ranks' own, PER's running max equal and each rank's
+    priorities its rows' single-device update, the launches an update
+    the single-rank update's; each wrong version failing its check by a
+    printed factor; the rates at world 1 and 2."""
+    import torch
+
+    from dgvit_tpu_torch.train.fused_train import expert_rows
+
+    r = spec["round"]
+    world = len(ranks)
+    rounds = [x["round"] for x in ranks]
+    res = {"launches": [], "flavours": {}, "wrong": {}}
+    col = [x["collect"] for x in rounds]
+    unsharded = col[0]["unsharded"]
+    same = {f: torch.equal(torch.cat([c["traj"][f] for c in col], dim=1), v)
+            for f, v in unsharded.items()}
+    same["records"] = torch.equal(torch.cat([c["rec_idx"] for c in col]),
+                                  col[0]["unsharded_rec_idx"])
+    k1 = [c["k1"] for c in col]
+    print(f"26c {name} collection: the ranks' {r['lanes'] // world} lanes "
+          f"each against the unsharded collector's {r['lanes']} "
+          f"({r['chunk']} steps), bit-equal by field {same}; K1 launches "
+          f"{k1} (one a step), form at the rank's lanes "
+          f"{col[0]['k1_check']['forms']}; K1 against its plain version "
+          f"on rank 0's frames: mean {col[0]['k1_check']['rel']:.3e} "
+          f"(limit {col[0]['k1_check']['limit']:.3e})", flush=True)
+    check(all(same.values()), f"26c {name}: the sharded lanes differ from "
+          f"the unsharded collector's: {same}")
+    check(k1 == [r["chunk"]] * world, f"26c {name}: K1 launches {k1}")
+    differ = [int((c["faults"] ^ col[0]["faults"]).sum()) for c in col[1:]]
+    replicated = [int((c["faults_replicated"]
+                       ^ col[0]["faults_replicated"]).sum())
+                  for c in col[1:]]
+    print(f"26c {name} fault streams: patch pixels that differ from rank "
+          f"0's, each rank's own stream {differ} (must be > 0); one stream "
+          f"on every rank {replicated} (the wrong version: 0 fails it)",
+          flush=True)
+    check(all(d > 0 for d in differ), f"26c {name}: the ranks drew the "
+          "same fault rectangles")
+    check(all(d == 0 for d in replicated), f"26c {name}: the replicated "
+          "fault stream drew different rectangles")
+    res["wrong"]["fault_replicated"] = {"differing_pixels": replicated}
+    n_exp = expert_rows(r["expert"], r["lanes"] * r["chunk"],
+                        r["batch"])
+    for label, per, guided, knobs in ROUND_FLAVOURS:
+        runs = [x[label] for x in rounds]
+        fl = round_flavour_verdict(spec, name, label, per, guided, runs,
+                                   n_exp)
+        res["flavours"][label] = fl
+    res["launches"] = [{k: sum(x[label]["launches"][k]
+                               for label, *_ in ROUND_FLAVOURS)
+                        for k in PER_UPDATE} for x in rounds]
+    for wrong, label in ROUND_WRONGS:
+        runs = [x[f"wrong {wrong}"] for x in rounds]
+        factor = round_wrong_factor(wrong, runs, n_exp)
+        print(f"26c {name} wrong version ({wrong}, on {label}): its check "
+              f"reads {factor:.3e} of its limit", flush=True)
+        check(factor > 1.0, f"26c {name}: the checks passed a wrong round "
+              f"({wrong})")
+        res["wrong"][wrong] = factor
+    w1 = prep["world1"]
+    w2 = round_rate_summary(spec, rounds[0]["times"])
+    print(f"26c {name} rates (plain round, {r['lanes']} lanes x "
+          f"{r['chunk']} steps and {r['updates']} updates of B={r['batch']}"
+          f", host clock, median round after the first; {card()}): world 1 "
+          f"{w1['env_steps_per_s']:.2f} env steps/s, "
+          f"{w1['updates_per_s']:.3f} updates/s (rounds {w1['round_s']} "
+          f"s); world {world} {w2['env_steps_per_s']:.2f} env steps/s, "
+          f"{w2['updates_per_s']:.3f} updates/s (rounds {w2['round_s']} s)",
+          flush=True)
+    res["rates"] = {"world1": w1, f"world{world}": w2}
+    out.setdefault("round", {})[name] = res
+
+
+def round_flavour_verdict(spec, name, label, per, guided, runs, n_exp):
+    """26c's checks of one flavour's ranks (round_verdicts)."""
+    import numpy as np
+
+    r = spec["round"]
+    world = len(runs)
+    lead = runs[0]
+    for k, x in enumerate(runs[1:], 1):
+        check(x["digests"] == lead["digests"], f"26c {name} {label}: rank "
+              f"{k}'s state differs from rank 0's after a round")
+        check(x["stats"] == lead["stats"], f"26c {name} {label}: rank {k}'s"
+              " stats differ")
+        if per:
+            check(x["max_p"] == lead["max_p"], f"26c {name} {label}: max_p "
+                  f"{x['max_p']} on rank {k}, {lead['max_p']} on rank 0")
+    summed = np.sum([x["local"] for x in runs], axis=0)
+    keys = ("reward_sum", "goals", "collisions", "episodes", "buffer")
+    got = np.asarray([[st[k] for k in keys] for st in lead["stats"]])
+    stats_err = float(np.max(np.abs(got - summed)
+                             / (1e-6 * np.abs(summed) + 1e-6)))
+    per_read = max((max(x["per_check"]) for x in runs if x["per_check"]),
+                   default=0.0)
+    updates = len(lead["per_update"])
+    want = lead["single_per_update"][0]
+    launches_ok = all(u == want for x in runs for u in x["per_update"]) \
+        and all(u == want for u in lead["single_per_update"])
+    k1 = [x["launches"]["K1"] for x in runs]
+    read = lead["read"]
+    print(f"26c {name} {label}: {updates} updates a rank over "
+          f"{len(lead['stats'])} rounds; held {len(read['by_update'])} "
+          f"(each round's last) against the single-rank update of the "
+          f"union, each reading's largest share of its limit "
+          f"{read['worst_of_limit']}; stats against the sum of the ranks' "
+          f"own {stats_err:.3e} of 1e-6; PER's priorities against their "
+          f"rows' single-device update {per_read:.3e} of 1e-6; max_p "
+          f"{lead['max_p']}; launches an update {want} (the single-rank "
+          f"update's: {launches_ok}); K1 {k1}; stats "
+          f"{lead['stats'][-1]}", flush=True)
+    check(not lead["bad"], f"26c {name} {label}: {lead['bad'][:6]}")
+    check(stats_err <= 1.0, f"26c {name} {label}: the stats are not the "
+          f"sum of the ranks' own ({stats_err:.3e})")
+    check(per_read <= 1.0, f"26c {name} {label}: PER's priorities off "
+          f"their rows' update ({per_read:.3e})")
+    check(launches_ok, f"26c {name} {label}: launches an update "
+          f"{[x['per_update'][0] for x in runs]}, the single-rank "
+          f"update's {want}")
+    check(k1 == [len(lead["stats"]) * r["chunk"]] * world,
+          f"26c {name} {label}: K1 launches {k1}")
+    if guided:
+        check(lead["stats"][0]["n_expert"] == n_exp,
+              f"26c {name} {label}: n_expert {lead['stats'][0]['n_expert']}"
+              f", expected {n_exp} at global scale")
+    return {"read": read["worst_of_limit"], "stats_err": stats_err,
+            "per_read": per_read, "max_p": lead["max_p"],
+            "per_update": want, "k1": k1, "stats": lead["stats"]}
+
+
+def round_wrong_factor(wrong, runs, n_exp):
+    """A wrong round's reading of the check it breaks, as a share of the
+    check's limit."""
+    import numpy as np
+
+    lead = runs[0]
+    if wrong.startswith("per_"):
+        return max(max(x["per_check"]) for x in runs)
+    if wrong == "stats_local":
+        summed = np.sum([x["local"] for x in runs], axis=0)
+        keys = ("reward_sum", "goals", "collisions", "episodes", "buffer")
+        got = np.asarray([[st[k] for k in keys] for st in lead["stats"]])
+        return float(np.max(np.abs(got - summed)
+                            / (1e-6 * np.abs(summed) + 1e-6)))
+    return max(abs(lead["stats"][0]["n_expert"] - n_exp) / 0.5,
+               max(lead["read"]["worst_of_limit"].values()))
+
+
+def fleet_verdicts(spec, name, ranks, workdir, prep, out):
+    """26d's checks of one backend's ranks (see phase_mesh): errors none,
+    updates > 0 and itera == updates on rank 0, as many on every rank;
+    the ranks' parameters bit-equal; K1 on rank 0 only; each rank's
+    launches an update the single-rank update's (phase 6's plain, phase
+    18's guided counts); the final actor and the checkpoints written by
+    rank 0 alone."""
+    import torch
+
+    res = {}
+    for label, per_update in (("plain", PER_UPDATE),
+                              ("guided_per", PER_GUIDED)):
+        runs = [x["fleet"][label] for x in ranks]
+        lead = runs[0]
+        params = [torch.load(Path(workdir) / f"fleet_{label}_params{k}.pt",
+                             weights_only=False) for k in range(len(ranks))]
+        equal = all(torch.equal(v, p[n]) for p in params[1:]
+                    for n, v in params[0].items())
+        trained = {k: v for k, v in per_update.items() if k != "K1"}
+        launches_ok = all(
+            {k: x["launches"][k] for k in trained}
+            == {k: n * x["updates"] for k, n in trained.items()}
+            for x in runs)
+        k1 = [x["launches"]["K1"] for x in runs]
+        actors = [[f for f in x["files"] if f.startswith("models/")]
+                  for x in runs]
+        ckpts = [[f for f in x["files"] if f.startswith("checkpoints/")]
+                 for x in runs]
+        print(f"26d {name} train_fleet --mesh-data {len(ranks)} ({label}, "
+              f"{spec['fleet']['robots']} robots): {lead['episodes']} "
+              f"episodes, {lead['env_steps']} env steps, updates "
+              f"{[x['updates'] for x in runs]} (itera "
+              f"{[x['itera'] for x in runs]}) in {lead['wall_s']:.2f} s = "
+              f"{lead['steps_per_s']:.2f} env steps/s, "
+              f"{lead['updates_per_s']:.2f} updates/s (host clock, "
+              f"{card()}); parameters bit-equal {equal}; launches "
+              f"{[x['launches'] for x in runs]}; actors written "
+              f"{actors}; checkpoints by rank {[len(c) for c in ckpts]}",
+              flush=True)
+        check(lead["errors"] == {}, f"26d {name} {label}: robots failed "
+              f"{lead['errors']}")
+        check(lead["updates"] > 0 and all(
+            x["updates"] == x["itera"] == lead["updates"] for x in runs),
+            f"26d {name} {label}: updates {[x['updates'] for x in runs]}, "
+            f"itera {[x['itera'] for x in runs]}")
+        check(equal, f"26d {name} {label}: the ranks' parameters differ")
+        check(k1[0] > 0 and not any(k1[1:]), f"26d {name} {label}: K1 "
+              f"launches {k1}, on rank 0 only expected")
+        check(launches_ok, f"26d {name} {label}: launches "
+              f"{[x['launches'] for x in runs]}, {per_update} an update "
+              "expected")
+        check(len(actors[0]) == 1 and not any(actors[1:])
+              and ckpts[0] and not any(ckpts[1:]),
+              f"26d {name} {label}: actors {actors}, checkpoints "
+              f"{[len(c) for c in ckpts]}")
+        res[label] = {"updates": lead["updates"],
+                      "steps_per_s": lead["steps_per_s"],
+                      "updates_per_s": lead["updates_per_s"],
+                      "launches": [x["launches"] for x in runs]}
+    out.setdefault("fleet", {})[name] = res
+
+
 def mesh_launches(mesh, short, dtype):
     """A kernel's launches on phase 26's paths in `dtype`, for the kernels
     line: each rank's over 26a's four flavours (fp32: the cluster
-    forms')."""
+    forms'); in bf16 also each rank's over 26c's sharded rounds ("mesh
+    round") and 26d's two fleet campaigns ("fleet mesh")."""
     key = "launches" if dtype == "bfloat16" else "cluster_launches"
     out = {}
     for name, per_rank in mesh[key].items():
@@ -11043,6 +11985,14 @@ def mesh_launches(mesh, short, dtype):
         for r, counts in enumerate(per_rank):
             k = f"mesh_26a_{backend}_rank{r}"
             out[k] = out.get(k, 0) + counts[short]
+    if dtype == "bfloat16":
+        for name, res in mesh.get("round", {}).items():
+            for r, counts in enumerate(res["launches"]):
+                out[f"mesh_round_26c_{name}_rank{r}"] = counts[short]
+        for name, res in mesh.get("fleet", {}).items():
+            for r in range(len(res["plain"]["launches"])):
+                out[f"fleet_mesh_26d_{name}_rank{r}"] = sum(
+                    v["launches"][r][short] for v in res.values())
     return out
 
 # The times of the kernels redesigned for the tensor cores in their earlier
@@ -11269,7 +12219,8 @@ def main() -> int:
         "sweep": faults["sweep"]["launches"]["K1"],
         **imitation_launches(imitation, "K1"),
         **zoo_launches(zoo, "K1"),
-        **fleet_launches(fleet, "K1")}
+        **fleet_launches(fleet, "K1"),
+        **mesh_launches(mesh26, "K1", "bfloat16")}
     for short, (name, src, replaces) in KERNELS.items():
         if short in ("K4", "K2f", "K2b", "K3f", "K3b"):
             rows.append({

@@ -102,6 +102,8 @@ and computes the single-device update of the global batch:
     the same on every rank) and takes the rows of its own global indices
     (the guided step's global layout is every agent row, then every
     expert row); injected `noise=` is global and sliced the same way;
+    collection acts the same way (`act_batch(rows=)`, the rank's lanes'
+    rows of the global draw; `train/vec_rollout.make_collect_fn`);
   * dropout masks and DrQ offsets come from generators of their own,
     seeded each update from (seed, itera, rank), so they differ across
     ranks (JAX `_shard_key`, sac.py:556-557) and move no noise draw;
@@ -286,16 +288,20 @@ class SACAgent:
     def act_batch(self, actor: torch.nn.Module, obs, pobs,
                   generator: Optional[torch.Generator] = None,
                   evaluate: bool = False,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None,
+                  rows=None) -> torch.Tensor:
         """Batched action of an actor, no dropout (a GoT trunk through the
         whole-trunk kernel): the deterministic action with evaluate
         (tanh(mean), or a deterministic actor's own output), else a
         sample (noise from `generator`, or the standard normal draws
-        `noise` (B, A))."""
+        `noise` (B, A)). rows: (global row indices of these rows, global
+        row count), as `_sample` takes them: the noise is those rows of
+        the global draw (`noise` then global)."""
         o, p = (x if isinstance(x, torch.Tensor) else
                 torch.as_tensor(np.asarray(x, np.float32), device=self.device)
                 for x in (obs, pobs))
-        s = self._sample(actor, o, p, generator, noise, inference=True)
+        s = self._sample(actor, o, p, generator, noise, rows=rows,
+                         inference=True)
         return s.mean if evaluate else s.action
 
     def _sample(self, actor: torch.nn.Module, obs, pobs,

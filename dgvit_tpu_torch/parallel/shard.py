@@ -9,9 +9,12 @@ gradients and metrics averaged across the group inside the step (the
 agent's `grad_axis`, `agents/sac.py`). Every rank holds the whole train
 state, replicated, as JAX's `shardmap_learn` holds it.
 
-Not ported yet (raising NotImplementedError by name): the `model` axis
-(`sharded_learn` with model > 1), `shardmap_collect` and
-`shardmap_fused_round`.
+`shardmap_collect` and `shardmap_fused_round` put the on-device loop
+(`train/vec_rollout.py`, `train/fused_train.py`) on the same design:
+each rank steps its own lanes and keeps the ring rows they wrote, the
+action noise is the global draw, and the round's stats are summed over
+the group. The `model` axis (`sharded_learn` with model > 1) is not
+ported and raises NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -24,8 +27,16 @@ import torch
 from dgvit_tpu_torch.agents.sac import SACAgent, SACState
 from dgvit_tpu_torch.core import checkpoint as ckpt
 from dgvit_tpu_torch.core.mesh import AXIS_DATA, MeshRuntime, use_mesh
+from dgvit_tpu_torch.envs.vec_kinematic import VecState, vec_reset
 
 FLAVORS = ("plain", "per", "guided", "guided_per")
+
+
+def _need_data_axis(agent: SACAgent) -> None:
+    if agent.grad_axis != AXIS_DATA:
+        raise ValueError("build the agent with SACAgent(cfg, "
+                         "grad_axis='data') so gradients sync over the "
+                         "mapped axis")
 
 
 def _to_cpu(tree):
@@ -76,10 +87,7 @@ def shardmap_learn(agent: SACAgent, runtime: MeshRuntime,
     single-device update takes it; td is the global batch's |TD error| in
     global row order, on every rank. `shifts` (DrQ offsets) are the
     rank's own. The agent must be built with grad_axis='data'."""
-    if agent.grad_axis != AXIS_DATA:
-        raise ValueError("build the agent with SACAgent(cfg, "
-                         "grad_axis='data') so gradients sync over the "
-                         "mapped axis")
+    _need_data_axis(agent)
     if flavor not in FLAVORS:
         raise ValueError(flavor)
     local = runtime.shard_batch
@@ -113,15 +121,122 @@ def sharded_learn(agent: SACAgent, runtime: MeshRuntime):
     return shardmap_learn(agent, runtime, "plain")
 
 
-def shardmap_collect(*args, **kwargs):
-    """The lane-sharded on-device collection: not ported yet."""
-    raise NotImplementedError(
-        "shardmap_collect (the lane-sharded collection under the data "
-        "mesh) is not ported yet")
+def _divides(world: int, **sizes) -> None:
+    for name, n in sizes.items():
+        if n % world:
+            raise ValueError(f"{name} {n} does not split over the data "
+                             f"axis of {world} ranks")
 
 
-def shardmap_fused_round(*args, **kwargs):
-    """The fused training round under the data mesh: not ported yet."""
-    raise NotImplementedError(
-        "shardmap_fused_round (the fused round under the data mesh) is "
-        "not ported yet")
+def rank_lanes(runtime: MeshRuntime, consts, n_envs: int):
+    """The rank's lanes of vec_reset(consts, n_envs): contiguous and
+    rank-major, as JAX's P('data') splits them."""
+    state, obs, goal = vec_reset(consts, n_envs)
+    rows = runtime.rows(n_envs)
+    return (VecState(*(f[rows].clone() for f in state)),
+            obs[rows].clone(), goal[rows].clone())
+
+
+def shardmap_collect(agent: SACAgent, runtime: MeshRuntime, consts,
+                     batch: int, chunk: int, l_scale: float, a_scale: float,
+                     max_action: float = 1.0, evaluate: bool = False,
+                     frame_stack: int = 0, fault_knobs=None,
+                     aug_prob: float = 1.0):
+    """The lane-sharded collection over the data axis (JAX
+    `shardmap_collect`): each rank steps its own `batch / world` lanes of
+    the batched env (`train/vec_rollout.make_collect_fn`, K1 at the
+    rank's lanes); lanes are independent, so no collective runs. A lane's
+    action noise is its row of the global draw and an auto-reset advances
+    the record table by the global lane count, so the union of the
+    ranks' lanes is the unsharded collector's; each rank draws its own
+    sensor faults (`vec_rollout.rank_fault_generator`).
+
+    Returns (collect, init): init() -> the rank's carry (its lanes of
+    vec_reset(consts, batch), with `frame_stack` their stacks);
+    collect(actor, carry, generator, noise=None, fault_gen=None,
+    faults=None) -> (carry', traj), traj the rank's (T, b, ...)
+    transitions; `noise` the global (T, batch, A) draws, `generator` the
+    same on every rank. The agent must be built with grad_axis='data'."""
+    from dgvit_tpu_torch.train.vec_rollout import make_collect_fn, stack_init
+
+    _need_data_axis(agent)
+    _divides(runtime.world, batch=batch)
+    fn = make_collect_fn(agent, consts, chunk, l_scale, a_scale,
+                         max_action=max_action, evaluate=evaluate,
+                         stride=batch, frame_stack=frame_stack,
+                         fault_knobs=fault_knobs, aug_prob=aug_prob)
+
+    def init():
+        state, obs, goal = rank_lanes(runtime, consts, batch)
+        return state, stack_init(obs, frame_stack) if frame_stack else obs, \
+            goal
+
+    def collect(actor, carry, generator=None, noise=None, fault_gen=None,
+                faults=None):
+        with use_mesh(runtime):
+            return fn(actor, carry, generator, noise, fault_gen, faults)
+
+    return collect, init
+
+
+def shardmap_fused_round(agent: SACAgent, runtime: MeshRuntime, consts,
+                         n_envs: int, chunk: int, updates_per_round: int,
+                         batch_size: int, ring_capacity: int,
+                         l_scale: float, a_scale: float,
+                         max_action: float = 1.0,
+                         prioritized: bool = False, guided: bool = False,
+                         fault_knobs=None, aug_prob: float = 1.0,
+                         beta: float = 0.4, frame_stack: int = 0,
+                         seed: int = 0):
+    """The fused training round over the data axis (JAX
+    `shardmap_fused_round`): lanes and ring rows split over the ranks
+    (each rank keeps the transitions its lanes wrote and samples its
+    `batch_size / world` rows from them: the global batch is uniform
+    over the union, a rank's rows never mix into another's, JAX's
+    documented deviation from single-device sampling), the train state
+    replicated, the gradients and metrics averaged inside each update,
+    the stats summed, PER's running max max-reduced at the end of each
+    round. `train/fused_train.make_fused_round` under a `grad_axis` agent
+    says what each rank draws. `n_envs`, `batch_size` and
+    `ring_capacity` are global and must divide by the world size.
+
+    Returns (run, init): init(obs_shape, pdim=2) -> (env_carry, ring) and
+    with `prioritized` a third, the PER state: the rank's lanes, a
+    `DeviceRing` of ring_capacity / world rows and its `DevicePER`;
+    run(state, env_carry, ring, rounds, expert=None, draws=None,
+    per=None) -> make_fused_round's results, `expert` the whole staged
+    corpus on every rank. The agent must be built with
+    grad_axis='data'."""
+    from dgvit_tpu_torch.replay.device_per import per_init
+    from dgvit_tpu_torch.train.fused_train import make_fused_round, ring_init
+    from dgvit_tpu_torch.train.vec_rollout import stack_init
+
+    _need_data_axis(agent)
+    world = runtime.world
+    _divides(world, n_envs=n_envs, batch_size=batch_size,
+             ring_capacity=ring_capacity)
+    run_local = make_fused_round(
+        agent, consts, n_envs // world, chunk, updates_per_round,
+        batch_size // world, l_scale, a_scale, max_action=max_action,
+        stride=n_envs, prioritized=prioritized, beta=beta,
+        frame_stack=frame_stack, guided=guided, fault_knobs=fault_knobs,
+        aug_prob=aug_prob, seed=seed)
+
+    def init(obs_shape, pdim: int = 2):
+        state, obs, goal = rank_lanes(runtime, consts, n_envs)
+        carry = (state, stack_init(obs, frame_stack) if frame_stack
+                 else obs, goal)
+        ring = ring_init(ring_capacity // world, tuple(obs_shape), pdim=pdim,
+                         device=runtime.device)
+        if prioritized:
+            return carry, ring, per_init(ring_capacity // world,
+                                         runtime.device)
+        return carry, ring
+
+    def run(state: SACState, env_carry, ring, rounds, expert=None,
+            draws=None, per=None):
+        with use_mesh(runtime):
+            return run_local(state, env_carry, ring, rounds, expert, draws,
+                             per)
+
+    return run, init

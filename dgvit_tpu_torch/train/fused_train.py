@@ -188,6 +188,22 @@ def expert_rows(n_expert_total: int, size: int, batch: int) -> int:
                             * f(batch)), batch))
 
 
+def rank_rows(td: torch.Tensor, rank: int, b: int) -> torch.Tensor:
+    """The rank's `b` rows of a global, rank-major td: what its
+    priorities take under the data axis."""
+    return td[rank * b:(rank + 1) * b]
+
+
+def group_reduce(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """`t` summed (or max-reduced) over the mesh's group, in place: one
+    all_reduce (JAX's psum / pmax over the data axis)."""
+    if mesh is not None and mesh.data > 1:
+        import torch.distributed as dist
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=mesh.group)
+    return t
+
+
 def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
                      chunk: int, updates_per_round: int, batch_size: int,
                      l_scale: float, a_scale: float,
@@ -230,7 +246,26 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
     `faults`).
 
     `fault_knobs` and `aug_prob`: collection's sensor-fault augmentation
-    (`make_collect_fn`), its draws from round r's fault generator."""
+    (`make_collect_fn`), its draws from round r's fault generator.
+
+    With a `grad_axis='data'` agent the round runs under the active mesh
+    (`parallel/shard.shardmap_fused_round`), JAX's sharded round
+    (`fused_train.py:145-330`): `n_envs`, `batch_size` and the ring (and
+    PER's state) are the rank's own, `stride` the global lane count. The
+    round's generator is the same on every rank, so every rank draws the
+    same local ring indices, PER uniforms and expert indices (the expert
+    minibatch is the same `batch_size` rows on every rank, as in JAX);
+    the collection noise and each update's noise are global, a rank's
+    rows of the update being its rank-major share of the union of the
+    ranks' minibatches. The guided update's valid expert rows count at
+    global scale, expert_rows(N, size x world, batch x world); PER's
+    priorities take the rank's rows of the global td (`rank_rows`), and
+    the running max is max-reduced over the group once, at the end of
+    the round. The stats (reward_sum, goals, collisions, episodes,
+    buffer) are summed over the group by one all_reduce before the
+    round's one read of the card; the metrics are the agent's averages.
+    `draws` then holds the rank's local indices and the global noise, and
+    with faults the rank's own fault draws."""
     collect = make_collect_fn(agent, consts, chunk, l_scale, a_scale,
                               max_action=max_action, stride=stride,
                               frame_stack=frame_stack,
@@ -241,6 +276,8 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
     dev = consts.device
 
     def one_round(state, env_carry, ring, r, expert, d, per):
+        mesh = agent._mesh()              # None without grad_axis
+        world = 1 if mesh is None else mesh.data
         gen = generator(step_key(seed, r), dev)
         fault_gen = generator(step_key(step_key(seed, r), FAULT_FOLD), dev)
         env_carry, traj = collect(
@@ -272,7 +309,8 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
                                           generator=gen, device=dev))
                     batch["engage"] = torch.zeros_like(batch["done"])
                     eb = {k: v[eidx] for k, v in expert.items()}
-                    n_exp = expert_rows(n_total, size, batch_size)
+                    n_exp = expert_rows(n_total, size * world,
+                                        batch_size * world)
                     if prioritized:
                         state, metrics, td = agent.learn_guidence_per(
                             state, batch, eb, n_exp, w, noise=noise)
@@ -285,18 +323,29 @@ def make_fused_round(agent: SACAgent, consts: EnvConsts, n_envs: int,
                 else:
                     state, metrics = agent.learn(state, batch, noise=noise)
                 if prioritized:
+                    if mesh is not None:
+                        td = rank_rows(td, mesh.rank, batch_size)
                     per_update(per, idx, td.abs() + 1e-6)
+        if prioritized and mesh is not None:
+            group_reduce(per.max_p, mesh, "max")
         on_card = [traj["rew"].sum(), traj["target"].sum(),
                    traj["collided"].sum(), traj["episode_end"].sum()]
+        names = ROUND_STATS
+        if mesh is not None:
+            # the group's sums, the ring rows among them (JAX's psum)
+            on_card = list(group_reduce(torch.stack(
+                [v.float() for v in on_card]
+                + [torch.full((), float(size), device=dev)]), mesh).unbind())
+            names += ("buffer",)
         learnt = tuple(k for k in keys if k != "skipped_nonfinite")
         if metrics is not None:
             on_card += [metrics[k] for k in learnt]
         stats = dict.fromkeys(keys, 0.0)
+        stats["buffer"] = float(size)
         # the round's one read of the card (zip stops at the round's stats
         # when no update ran)
-        stats.update(zip(ROUND_STATS + learnt, torch.stack(
+        stats.update(zip(names + learnt, torch.stack(
             [v.float() for v in on_card]).cpu().tolist()))
-        stats["buffer"] = float(size)
         if metrics is not None and agent.nan_guard:
             stats["skipped_nonfinite"] = float(metrics["skipped_nonfinite"])
         return state, env_carry, stats

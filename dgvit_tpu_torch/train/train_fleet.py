@@ -40,8 +40,24 @@ then, so no compile runs mid-campaign. Collection draws its action noise from a 
 that only the server thread uses, seeded step_key(train.seed,
 FLEET_STREAM) (JAX's RngStream in that role).
 
-`--mesh-data` (the sharded learner) raises NotImplementedError until the
-parallel tier is ported.
+`--mesh-data N` shards the learner over the data axis (JAX
+`train_fleet.py:104-131`), one process a rank under `torchrun
+--nproc-per-node N`: N is the process group's world size. Rank 0 runs the
+robots, the serving thread, the replay buffer and the sampling; it acts
+through an agent without `grad_axis`, as JAX's `act_agent`, so the
+fleet's action stream does not move. For each update it broadcasts a
+header (the flavour, n_expert and the arrays' shapes, or stop) and then
+the global batch, with the guided flavours the expert batch and with PER
+the importance weights, as one flat buffer; every rank then runs
+`parallel.shardmap_learn`'s flavour on its rows (`batch_size` stays the
+global batch), and rank 0 updates the priorities from the global td. The
+ranks 1..N-1 run a follower loop that only receives and updates. The
+update's action noise is drawn by every rank from the train state's own
+generator, which is replicated, so it needs no broadcast (a broadcast
+noise would leave the followers' generators behind rank 0's). The state
+is rank 0's, replicated (`shard_sac_state`) after init, a warm start and
+a resume, which rank 0 alone reads; every rank holds it after every
+update, and rank 0 alone writes checkpoints and the final actor.
 """
 
 from __future__ import annotations
@@ -59,6 +75,8 @@ import torch
 from dgvit_tpu_torch.agents import SACAgent
 from dgvit_tpu_torch.config import Config, load_reference_yaml
 from dgvit_tpu_torch.core import checkpoint as ckpt
+from dgvit_tpu_torch.core import distributed
+from dgvit_tpu_torch.core.mesh import MeshRuntime
 from dgvit_tpu_torch.core.rng import generator, step_key
 from dgvit_tpu_torch.envs import KinematicNavEnv
 from dgvit_tpu_torch.models.jax_io import params_to_jax
@@ -122,6 +140,78 @@ def _read_weights(actor: torch.nn.Module) -> list:
                   if id(p) not in in_trunk]
 
 
+def _unpack(flat: torch.Tensor, spec) -> dict:
+    out, i = {}, 0
+    for group, key, shape in spec:
+        n = int(np.prod(shape, dtype=np.int64))
+        part = flat[i:i + n].reshape(shape)
+        i += n
+        if key is None:
+            out[group] = part
+        else:
+            out.setdefault(group, {})[key] = part
+    return out
+
+
+def send_update(rt: MeshRuntime, flavor: Optional[str], n_expert: int = 0,
+                arrays: Optional[dict] = None) -> Optional[dict]:
+    """Rank 0's side of an update's exchange: the header (the flavour, or
+    None to stop, n_expert and the arrays' shapes) as an object, then
+    every array in float32 as one flat buffer. `arrays`: {'batch': {...},
+    'expert': {...}, 'weights': array}, the groups the flavour needs.
+    Returns the arrays as the followers receive them."""
+    spec = []
+    parts = []
+    for group, val in (arrays or {}).items():
+        items = val.items() if isinstance(val, dict) else [(None, val)]
+        for key, a in items:
+            a = torch.as_tensor(np.asarray(a, np.float32))
+            spec.append((group, key, tuple(a.shape)))
+            parts.append(a.reshape(-1))
+    rt.broadcast_object({"flavor": flavor, "n_expert": int(n_expert),
+                         "spec": spec})
+    if flavor is None:
+        return None
+    return _unpack(rt.broadcast_(torch.cat(parts)), spec)
+
+
+def receive_update(rt: MeshRuntime):
+    """A follower's side of `send_update`: (flavour, n_expert, arrays),
+    or None when rank 0 stops."""
+    head = rt.broadcast_object(None)
+    if head["flavor"] is None:
+        return None
+    n = sum(int(np.prod(shape, dtype=np.int64))
+            for _, _, shape in head["spec"])
+    flat = rt.broadcast_(torch.empty(n, dtype=torch.float32))
+    return head["flavor"], head["n_expert"], _unpack(flat, head["spec"])
+
+
+def mesh_learn(learn_fns: dict, state, flavor: str, n_expert: int,
+               arrays: dict):
+    """One data-parallel update of `flavor` on the exchanged global arrays
+    (`parallel.shardmap_learn`): (state, metrics, td or None)."""
+    args = {"plain": (), "per": (arrays.get("weights"),),
+            "guided": (arrays.get("expert"), n_expert),
+            "guided_per": (arrays.get("expert"), n_expert,
+                           arrays.get("weights"))}[flavor]
+    res = learn_fns[flavor](state, arrays["batch"], *args)
+    return res[0], res[1], (res[2] if len(res) == 3 else None)
+
+
+def follow(rt: MeshRuntime, state, learn_fns: dict):
+    """Ranks 1..N-1 of the sharded fleet learner: receive each update's
+    global arrays from rank 0 and run it, until rank 0 stops. (state,
+    updates)."""
+    updates = 0
+    while True:
+        msg = receive_update(rt)
+        if msg is None:
+            return state, updates
+        state = mesh_learn(learn_fns, state, *msg)[0]
+        updates += 1
+
+
 def _checksum(tensors) -> torch.Tensor:
     """A float64 sum of every element, left on the device."""
     return torch.cat([x.reshape(-1).double() for x in tensors]).sum()
@@ -142,11 +232,17 @@ class FleetLearner:
 
     def __init__(self, agent: SACAgent, cfg: Config, buf, served,
                  dev_lock: threading.Lock, expert_buf=None,
-                 expert_size: int = 0, audit: Optional[dict] = None):
+                 expert_size: int = 0, audit: Optional[dict] = None,
+                 runtime: Optional[MeshRuntime] = None,
+                 learn_fns: Optional[dict] = None):
         self.agent, self.served, self.dev_lock = agent, served, dev_lock
         self.audit = audit
         self.updater = Updater(agent, cfg, buf, expert_buf, expert_size,
                                guided=expert_buf is not None)
+        self.runtime, self.learn_fns = runtime, learn_fns
+        self.flavor = {(False, False): "plain", (False, True): "per",
+                       (True, False): "guided", (True, True): "guided_per"}[
+            expert_buf is not None, bool(cfg.sac.prioritized_replay)]
 
     def publish(self, state) -> None:
         """The learner's actor into the served copy (enqueued copies, no
@@ -171,9 +267,40 @@ class FleetLearner:
                     _checksum(_read_weights(self.served)))
             return self.agent.act_batch(self.served, obs, pobs, gen)
 
+    def sample_host(self):
+        """One update's global draws on the host, for the data axis:
+        (n_expert, {'batch', 'expert', 'weights'} as the flavour needs
+        them, the sampled rows or None)."""
+        u, s = self.updater, self.updater.s
+        d = u.buf.sample(s.batch_size)
+        w, idx = d.pop("weights", None), d.pop("indexes", None)
+        arrays, k = {"batch": d}, 0
+        if self.flavor.startswith("guided"):
+            k = self.agent.expert_batch_size(
+                u.expert_size, u.buf.get_stored_size(), s.batch_size)
+            eb = u.expert_buf.sample(s.batch_size)
+            eb["act"] = eb.pop("act_exp")
+            arrays["expert"] = eb
+        else:
+            d.pop("engage", None)
+        if self.flavor.endswith("per"):
+            arrays["weights"] = w
+        return k, arrays, idx
+
     def update(self, state):
         """One update of the host loop's flavour, minus the intervention
-        branch; (state, metrics)."""
+        branch; (state, metrics). On the data axis rank 0 draws the global
+        arrays, sends them to the followers and runs its rows of the
+        update with them."""
+        if self.runtime is not None:
+            k, arrays, idx = self.sample_host()
+            arrays = send_update(self.runtime, self.flavor, k, arrays)
+            state, metrics, td = mesh_learn(self.learn_fns, state,
+                                            self.flavor, k, arrays)
+            self.publish(state)
+            if td is not None:
+                self.updater.update_priorities(td, idx)
+            return state, metrics
         drawn = self.updater.sample()
         state, metrics, td, idx = self.updater.learn(state, drawn)
         self.publish(state)
@@ -206,29 +333,58 @@ def train_fleet(cfg: Config, envs: Sequence, out_dir: str = "results",
     campaign (out['audit']: 'published', the initial copy's first, and
     'dispatched', the warm-up's excluded). out['learner'] is the
     `FleetLearner`, its `publish` and `dispatch` reusable after the run.
+
+    `mesh_data` N > 0: the learner over the data axis of the process
+    group (module docstring), which must have N ranks (`torchrun
+    --nproc-per-node N`; one process with N = 1). Rank 0 runs the fleet
+    and returns the result above; the other ranks take `envs` empty and
+    return {'state', 'updates', 'rank'} once rank 0 stops.
     """
+    from dgvit_tpu_torch.parallel import shard_sac_state, shardmap_learn
+
     t, e, s = cfg.train, cfg.env, cfg.sac
+    rt = None
+    if mesh_data:
+        distributed.initialize()
+        world = distributed.world_size()
+        if mesh_data != world:
+            raise ValueError(
+                f"--mesh-data {mesh_data}: the process group has {world} "
+                f"rank(s); start one process a rank (torchrun "
+                f"--nproc-per-node {mesh_data})")
+        rt = MeshRuntime.create(data=mesh_data, device=device)
+        device = rt.device
     n_robots = len(envs)
-    if max_episodes % n_robots:
+    if (rt is None or rt.rank == 0) and max_episodes % n_robots:
         raise ValueError(f"max_episodes {max_episodes} must divide evenly "
                          f"across {n_robots} robots")
-    if mesh_data:
-        raise NotImplementedError(
-            "train_fleet --mesh-data: the sharded learner "
-            "(parallel.shardmap_learn) is not ported yet")
     agent = SACAgent(cfg, device=device, seed=t.seed)
     dev = agent.device
     state = agent.init_state(t.seed)
-    if t.pre_train and t.pre_train_model:  # IL warm start (main.py:272-274)
-        d, f = os.path.split(t.pre_train_model)
-        state = agent.load(state, f, d or ".", actor_only=True)
     ckpt_dir = os.path.join(out_dir, t.checkpoint_dir)
-    if resume:
-        latest = ckpt.latest_checkpoint(ckpt_dir)
-        if latest is not None:
-            state = ckpt.restore_train_state(latest, state)
-            print(f"[train_fleet] resumed train state from {latest} "
-                  f"(itera={int(state.itera)})", flush=True)
+    if rt is None or rt.rank == 0:
+        if t.pre_train and t.pre_train_model:  # IL warm start
+            d, f = os.path.split(t.pre_train_model)   # (main.py:272-274)
+            state = agent.load(state, f, d or ".", actor_only=True)
+        if resume:
+            latest = ckpt.latest_checkpoint(ckpt_dir)
+            if latest is not None:
+                state = ckpt.restore_train_state(latest, state)
+                print(f"[train_fleet] resumed train state from {latest} "
+                      f"(itera={int(state.itera)})", flush=True)
+    learn_fns = None
+    if rt is not None:
+        # the learner on the data axis; `agent` (no grad_axis) acts
+        learner_agent = SACAgent(cfg, device=dev, seed=t.seed,
+                                 grad_axis="data")
+        learn_fns = {f: shardmap_learn(learner_agent, rt, f)
+                     for f in ("plain", "per", "guided", "guided_per")}
+        state = shard_sac_state(rt, state)
+        if dev.type == "cuda":
+            load_kernels()
+        if rt.rank != 0:
+            state, updates = follow(rt, state, learn_fns)
+            return {"state": state, "updates": updates, "rank": rt.rank}
 
     ih, iw = cfg.model.image_size
     obs_shape = ((e.frame_stack, ih, iw)
@@ -248,7 +404,8 @@ def train_fleet(cfg: Config, envs: Sequence, out_dir: str = "results",
     dev_lock = threading.Lock()
     sums = {"published": [], "dispatched": []} if audit else None
     learner = FleetLearner(agent, cfg, buf, served, dev_lock, expert_buf,
-                           expert_size, audit=sums)
+                           expert_size, audit=sums, runtime=rt,
+                           learn_fns=learn_fns)
     if audit:
         learner.publish(state)      # the initial copy's checksum
     gen = generator(step_key(t.seed, FLEET_STREAM), dev)
@@ -313,6 +470,8 @@ def train_fleet(cfg: Config, envs: Sequence, out_dir: str = "results",
             else:
                 break  # collection finished and the learner caught up
         col_thread.join()
+    if rt is not None:
+        send_update(rt, None)        # the followers stop
     srv_stats = srv.stats()
 
     wall = time.time() - t0
@@ -366,8 +525,14 @@ def main(argv=None):
                    help="target learner updates per collected env step "
                         "(reference cadence = 1.0, main.py:394)")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="shard the learner over a data mesh of N devices "
-                        "(not ported yet: raises)")
+                   help="shard the learner over a data mesh of N ranks "
+                        "(parallel.shardmap_learn), one process a rank: "
+                        "torchrun --nproc-per-node N; batch_size stays the "
+                        "global batch")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend under --mesh-data "
+                        "(default: NCCL when each rank has a card of its "
+                        "own; gloo where ranks share a card)")
     p.add_argument("--resume", action="store_true",
                    help="restore the latest train-state checkpoint (warm "
                         "weights; the replay buffer refills from fresh "
@@ -387,7 +552,11 @@ def main(argv=None):
     else:
         cfg = Config()
 
-    if args.env == "kinematic":
+    if args.mesh_data:
+        distributed.initialize(backend=args.dist_backend)
+    if distributed.rank() != 0:
+        envs = []            # a follower of the sharded learner
+    elif args.env == "kinematic":
         envs = [KinematicNavEnv(seed=cfg.train.seed + i,
                                 image_hw=tuple(cfg.model.image_size),
                                 world=args.world)
@@ -403,6 +572,9 @@ def main(argv=None):
                       mesh_data=args.mesh_data, resume=args.resume,
                       save_every_updates=args.save_every_updates,
                       device=args.device)
+    if "rank" in out:
+        print(f"fleet learner rank {out['rank']}: {out['updates']} updates")
+        return
     print(f"fleet train done: {out['successes']} successes / "
           f"{out['episodes']} episodes / {out['env_steps']} steps / "
           f"{out['updates']} updates in {out['wall_s']:.1f} s "

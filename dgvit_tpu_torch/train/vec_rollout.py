@@ -16,6 +16,13 @@ and is masked out with it.
 
 With `fault_knobs` the actor acts on frames perturbed by
 `envs/fault_aug.perturb_obs`, and those are the frames stored.
+
+With a `grad_axis='data'` agent, under an active mesh
+(`parallel/shard.shardmap_collect`), the carry holds the rank's lanes
+and each rank steps only those: a lane's action noise is its row of the
+global draw (`SACAgent._rows`), so the union of the ranks' lanes is the
+unsharded collector's, and each rank draws its own fault realisations
+(`rank_fault_generator`).
 """
 
 from __future__ import annotations
@@ -51,6 +58,20 @@ def stack_push(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
     return torch.cat([stack[:, 1:], frame[:, None]], dim=1)
 
 
+def rank_fault_generator(gen: Optional[torch.Generator], rank: int,
+                         device) -> torch.Generator:
+    """The rank's fault generator under the data axis: seeded
+    step_key(gen's seed, rank + 1), as JAX folds axis_index + 1 into the
+    aug key (`vec_rollout.py:98-104`), so the ranks' fault draws differ
+    and the action noise does not move. A call starts the rank's stream
+    from `gen`'s seed: pass a freshly seeded `gen` to each call, as the
+    fused round does."""
+    if gen is None:
+        raise ValueError("sensor-fault augmentation under the data axis "
+                         "needs a seeded fault generator (fault_gen)")
+    return generator(step_key(gen.initial_seed(), rank + 1), device)
+
+
 def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
                     l_scale: float, a_scale: float, max_action: float = 1.0,
                     evaluate: bool = False, stride: Optional[int] = None,
@@ -83,7 +104,13 @@ def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
     `aug_prob` < 1, then `fault_aug.draw_faults`. `faults` replaces them:
     one (obs, next_obs) pair a step, each (gate or None, noise,
     occlusion, y0, x0). No knob set, or none above 0, is the unaugmented
-    collection."""
+    collection.
+
+    Under the data axis (a `grad_axis` agent; the carry holds the rank's
+    b lanes) `noise` is the global (T, B, A) draw, of which the rank's
+    lanes take their rows, the generator draws the global (B, A) each
+    step, and the fault draws come from `rank_fault_generator(fault_gen,
+    rank)` (`faults`, when given, are the rank's own)."""
     knobs = knobs_array(fault_knobs)
     augment = any_on(knobs)
 
@@ -105,13 +132,21 @@ def make_collect_fn(agent: SACAgent, consts: EnvConsts, chunk: int,
                 fault_gen: Optional[torch.Generator] = None,
                 faults=None):
         state, obs, goal = carry
+        rows = None
+        if agent.grad_axis is not None:
+            mesh = agent._mesh()
+            rows = agent._rows(obs.shape[0])
+            if augment and faults is None:
+                fault_gen = rank_fault_generator(fault_gen, mesh.rank,
+                                                 obs.device)
         steps = []
         for t in range(chunk):
             d_obs, d_next = (None, None) if faults is None else faults[t]
             # the actor's input and the stored obs; the carry stays clean
             obs_in = aug(obs, fault_gen, d_obs) if augment else obs
             a = agent.act_batch(actor, obs_in, goal[:, :2], gen, evaluate,
-                                noise=None if noise is None else noise[t])
+                                noise=None if noise is None else noise[t],
+                                rows=rows)
             a = torch.clamp(a.float(), -max_action, max_action)
             a_in = torch.stack([(a[:, 0] + 1.0) * l_scale,
                                 a[:, 1] * a_scale], dim=1)

@@ -12,6 +12,8 @@ of a grad_axis None agent is shardmap_learn of its data-axis twin; the
 barrier holds the early rank. The rest runs in this process.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -180,10 +182,16 @@ def test_mesh_config_refuses_model_and_seq(over, name):
 
 
 def test_unported_parallel_entry_points_raise_by_name():
-    for fn, name in ((shard.shardmap_collect, "shardmap_collect"),
-                     (shard.shardmap_fused_round, "shardmap_fused_round")):
-        with pytest.raises(NotImplementedError, match=name):
-            fn()
+    """The model axis still raises by name; the sharded collection and
+    round (ported) refuse an agent without the data axis."""
+    rt = MeshRuntime(Mesh(data=2, model=1, seq=1, rank=0, group=None,
+                          device=torch.device("cpu")))
+    agent = SimpleNamespace(grad_axis=None)
+    for fn, args in ((shard.shardmap_collect, (None, 4, 4, 0.25, 1.0)),
+                     (shard.shardmap_fused_round,
+                      (None, 4, 6, 1, 8, 64, 0.25, 1.0))):
+        with pytest.raises(ValueError, match="grad_axis='data'"):
+            fn(agent, rt, *args)
     model_mesh = MeshRuntime(Mesh(data=1, model=2, seq=1, rank=0, group=None,
                                   device=torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="'model'"):

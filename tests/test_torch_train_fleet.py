@@ -207,9 +207,12 @@ def test_fleet_episode_budget_must_divide():
 
 
 def test_mesh_data_raises_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="--mesh-data"):
+    """--mesh-data other than the process group's world size (one process
+    here) raises by name; tests/test_torch_fleet_mesh.py runs it on two
+    ranks."""
+    with pytest.raises(ValueError, match="--mesh-data 8: .* 1 rank"):
         run(fleet_cfg(), tmp_path, mesh_data=8)
-    with pytest.raises(NotImplementedError, match="--mesh-data"):
+    with pytest.raises(ValueError, match="--mesh-data 2"):
         mod.main(["--fleet", "2", "--episodes", "2", "--mesh-data", "2",
                   "--out", str(tmp_path), "--config", _write_cfg(tmp_path),
                   "--device", "cpu"])

@@ -1,5 +1,6 @@
 """Rank processes of the port's data-parallel tests
-(tests/test_torch_{mesh,shard,elastic}.py), on the CPU over gloo.
+(tests/test_torch_{mesh,shard,shard_four,shard_round,elastic,
+fleet_mesh}.py), on the CPU over gloo.
 
 `launch(job, world, workdir)` starts `world` processes of this file, one
 a rank, joined through `core/distributed.initialize` (torchrun's
@@ -303,14 +304,12 @@ def job_shard(rank, world, workdir):
 
     inp = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
     rt = MeshRuntime.create(device="cpu")
-    flavors = ("plain",) if world != 2 else (
-        "plain", "per", "guided", "guided_per")
-    out = {f: run_flavor(inp, rt, f) for f in flavors}
+    out = {f: run_flavor(inp, rt, f)
+           for f in ("plain", "per", "guided", "guided_per")}
+    for wrong, flavor in (("summed", "plain"), ("rows_from_zero", "plain"),
+                          ("expert_contiguous", "guided")):
+        out[f"wrong_{wrong}"] = run_flavor(inp, rt, flavor, wrong)
     if world == 2:
-        for wrong, flavor in (("summed", "plain"),
-                              ("rows_from_zero", "plain"),
-                              ("expert_contiguous", "guided")):
-            out[f"wrong_{wrong}"] = run_flavor(inp, rt, flavor, wrong)
         out["world_one"] = world_one_equals_none(inp, rank)
         out["dropout"] = live_dropout(inp, rt)
         out["nan_guard"] = nan_rows(inp, rt)
@@ -480,7 +479,250 @@ def job_elastic(rank, world, workdir):
     return out
 
 
-JOBS = {"shard": job_shard, "mesh": job_mesh, "elastic": job_elastic}
+# --------------------------------------------------------------------------
+# job: round (test_torch_shard_round.py)
+# --------------------------------------------------------------------------
+
+ROUND_FLAVOURS = {"plain": (False, False), "guided": (True, False),
+                  "per": (False, True), "guided_per": (True, True)}
+
+
+def round_wrong(wrong, world):
+    """Patch a wrong version of the sharded round in (undone by the
+    returned callable): PER's priorities from the global td or from rank
+    0's rows; the stats not summed; n_expert counted at the rank's
+    scale; one fault stream on every rank."""
+    from dgvit_tpu_torch.train import fused_train as ft
+    from dgvit_tpu_torch.train import vec_rollout as vr
+
+    name, orig = {
+        "per_global_td": ("rank_rows", ft.rank_rows),
+        "per_rank0_rows": ("rank_rows", ft.rank_rows),
+        "stats_local": ("group_reduce", ft.group_reduce),
+        "n_expert_local": ("expert_rows", ft.expert_rows),
+        "fault_replicated": ("rank_fault_generator",
+                             vr.rank_fault_generator)}[wrong]
+    mod = vr if wrong == "fault_replicated" else ft
+    setattr(mod, name, {
+        "per_global_td": lambda td, rank, b: td,
+        "per_rank0_rows": lambda td, rank, b: td[:b],
+        "stats_local": lambda t, mesh, op="sum":
+            orig(t, mesh, op) if op == "max" else t,
+        "n_expert_local": lambda n, size, b: orig(n, size // world,
+                                                  b // world),
+        "fault_replicated": lambda gen, rank, device: gen}[wrong])
+    return lambda: setattr(mod, name, orig)
+
+
+def round_run(inp, rt, consts, flavour, wrong=None):
+    """One sharded fused round of `flavour` from the carried state with
+    JAX's draws: the stats, the rank's ring shard, its lanes, PER's state
+    and the train state after."""
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+    from dgvit_tpu_torch.parallel import shard_sac_state
+    from dgvit_tpu_torch.parallel.shard import shardmap_fused_round
+    from dgvit_tpu_torch.train.fused_train import RING_FIELDS
+
+    guided, per = ROUND_FLAVOURS[flavour]
+    g = inp["geometry"]
+    undo = round_wrong(wrong, rt.world) if wrong else None
+    try:
+        agent = SACAgent(Config.from_dict(inp["cfg"]), device="cpu",
+                         grad_axis="data")
+        state = shard_sac_state(rt, load_payload(agent.init_state(),
+                                                 inp["state"]))
+        run, init = shardmap_fused_round(
+            agent, rt, consts, g["lanes"], g["chunk"], g["updates"],
+            g["batch"], g["cap"], 0.25, 1.0, prioritized=per, guided=guided)
+        carry, ring, *pr = init(tuple(g["hw"]))
+        res = run(state, carry, ring, [0],
+                  inp["expert"] if guided else None,
+                  [inp["draws"][flavour]], per=pr[0] if per else None)
+    finally:
+        if undo:
+            undo()
+    state, carry, ring, stats = res[:4]
+    out = {"stats": stats, "cursor": ring.cursor,
+           "ring": {f: getattr(ring, f).clone() for f in RING_FIELDS},
+           "lanes": {k: getattr(carry[0], k).clone()
+                     for k in ("rec_idx", "steps", "x")},
+           "state": snapshot(state)}
+    if per:
+        out["prios"] = res[4].prios.clone()
+        out["max_p"] = res[4].max_p.item()
+    return out
+
+
+def round_collect(inp, rt, consts):
+    """The sharded collection: the rank's lanes, and on rank 0 the
+    unsharded collector's from the same generator seed; with patch
+    occlusion, the rank's first frame and the noise its actions used,
+    with the fault streams right and replicated."""
+    from dgvit_tpu_torch.agents import SACAgent, sac
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.checkpoint import load_payload
+    from dgvit_tpu_torch.core.rng import generator
+    from dgvit_tpu_torch.envs.vec_kinematic import vec_reset
+    from dgvit_tpu_torch.parallel.shard import shardmap_collect
+    from dgvit_tpu_torch.train.vec_rollout import make_collect_fn
+
+    g = inp["geometry"]
+    cfg = Config.from_dict(inp["cfg"])
+    agent = SACAgent(cfg, device="cpu", grad_axis="data")
+    actor = load_payload(agent.init_state(), inp["state"]).actor
+    lanes, steps = g["collect_lanes"], g["collect_chunk"]
+    collect, init = shardmap_collect(agent, rt, consts, lanes, steps, 0.25,
+                                     1.0)
+    out = {"traj": collect(actor, init(), generator(7))[1]}
+    if rt.rank == 0:
+        one = SACAgent(cfg, device="cpu")
+        fn = make_collect_fn(one, consts, steps, 0.25, 1.0)
+        out["unsharded"] = fn(actor, vec_reset(consts, lanes),
+                              generator(7))[1]
+    knobs = {"patch_occlusion": 0.25}
+    collect_f, _ = shardmap_collect(agent, rt, consts, lanes, 2, 0.25, 1.0,
+                                    fault_knobs=knobs)
+    sample = sac.distributions.sample
+    for name, wrong in (("faults", None),
+                        ("faults_replicated", "fault_replicated")):
+        noises = []
+
+        def seen(mean, log_std, generator=None, noise=None, **kw):
+            noises.append(noise.clone())
+            return sample(mean, log_std, generator, noise=noise, **kw)
+
+        undo = round_wrong(wrong, rt.world) if wrong else None
+        sac.distributions.sample = seen
+        try:
+            traj = collect_f(actor, init(), generator(7),
+                             fault_gen=generator(8))[1]
+        finally:
+            sac.distributions.sample = sample
+            if undo:
+                undo()
+        out[name] = {"first": traj["obs"][0, 0].clone(), "noise": noises}
+    return out
+
+
+def job_round(rank, world, workdir):
+    import torch
+
+    from dgvit_tpu_torch.core.mesh import MeshRuntime
+    from dgvit_tpu_torch.envs import vec_kinematic as vk
+    from dgvit_tpu_torch.envs.kinematic import default_records
+
+    inp = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+    rt = MeshRuntime.create(device="cpu")
+    consts = vk.make_consts(world="rrc", records=default_records(seed=0),
+                            image_hw=tuple(inp["geometry"]["hw"]),
+                            max_steps=8, device="cpu")
+    out = {f: round_run(inp, rt, consts, f) for f in ROUND_FLAVOURS}
+    for wrong, flavour in (("per_global_td", "per"),
+                           ("per_rank0_rows", "per"),
+                           ("stats_local", "plain"),
+                           ("n_expert_local", "guided")):
+        out[f"wrong_{wrong}"] = round_run(inp, rt, consts, flavour, wrong)
+    out["collect"] = round_collect(inp, rt, consts)
+    return out
+
+
+# --------------------------------------------------------------------------
+# job: fleet (test_torch_fleet_mesh.py)
+# --------------------------------------------------------------------------
+
+def clone_tree(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def fleet_run(inp, rt, rank, world, workdir, name, per, guided):
+    """train_fleet(mesh_data=world) of one flavour on this rank (the fleet
+    on rank 0), the first update's inputs and result recorded, then that
+    update replayed through shardmap_learn from the state before it."""
+    from dgvit_tpu_torch.agents import SACAgent
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.checkpoint import load_payload, state_payload
+    from dgvit_tpu_torch.envs import KinematicNavEnv
+    from dgvit_tpu_torch.envs.kinematic import default_records
+    from dgvit_tpu_torch.parallel import shardmap_learn
+    from dgvit_tpu_torch.train import train_fleet as tf
+
+    cfg = Config.from_dict(inp["cfg"])
+    cfg.sac.prioritized_replay = per
+    cfg.train.pre_buffer = guided
+    cfg.train.save = True
+    first = {}
+    real = tf.mesh_learn
+
+    def recorded(learn_fns, state, flavor, n_expert, arrays):
+        keep = not first
+        if keep:
+            first["before"] = clone_tree(state_payload(state))
+            first["args"] = (flavor, n_expert, clone_tree(arrays))
+        res = real(learn_fns, state, flavor, n_expert, arrays)
+        if keep:
+            first["after"] = snapshot(res[0])
+        return res
+
+    envs = ([KinematicNavEnv(default_records(seed=s), image_hw=(32, 40))
+             for s in (100, 101)] if rank == 0 else [])
+    out_dir = Path(workdir) / f"{name}_rank{rank}"
+    tf.mesh_learn = recorded
+    try:
+        res = tf.train_fleet(cfg, envs, out_dir=str(out_dir),
+                             max_episodes=2, max_wait_ms=10.0,
+                             mesh_data=world, device="cpu",
+                             expert_glob=inp["expert_glob"] if guided
+                             else None)
+    finally:
+        tf.mesh_learn = real
+    agent = SACAgent(cfg, device="cpu", seed=cfg.train.seed,
+                     grad_axis="data")
+    state = load_payload(agent.init_state(cfg.train.seed), first["before"])
+    flavor, k, arrays = first["args"]
+    state = tf.mesh_learn({flavor: shardmap_learn(agent, rt, flavor)},
+                          state, flavor, k, arrays)[0]
+    return {"state": snapshot(res["state"]), "updates": res["updates"],
+            "itera": res["state"].itera, "errors": res.get("errors"),
+            "flavor": flavor,
+            "files": sorted(str(p.relative_to(out_dir))
+                            for p in out_dir.rglob("*") if p.is_file())
+            if out_dir.exists() else [],
+            "first_replayed": snapshot(state), "first": first["after"]}
+
+
+def job_fleet(rank, world, workdir):
+    import torch
+
+    from dgvit_tpu_torch.config import Config
+    from dgvit_tpu_torch.core.mesh import MeshRuntime
+    from dgvit_tpu_torch.train import train_fleet as tf
+
+    inp = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+    rt = MeshRuntime.create(device="cpu")
+    out = {name: fleet_run(inp, rt, rank, world, workdir, name, per, guided)
+           for name, per, guided in (("plain", False, False),
+                                     ("guided_per", True, True))}
+    try:
+        tf.train_fleet(Config.from_dict(inp["cfg"]), [], mesh_data=world + 2,
+                       device="cpu")
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
+JOBS = {"shard": job_shard, "mesh": job_mesh, "elastic": job_elastic,
+        "round": job_round, "fleet": job_fleet}
 
 
 def main(argv):
